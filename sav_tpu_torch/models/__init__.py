@@ -1,0 +1,3 @@
+"""sav_tpu_torch.models"""
+
+from sav_tpu_torch.models.factory import available_models, create_model  # noqa: F401

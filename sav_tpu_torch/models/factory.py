@@ -1,0 +1,57 @@
+"""String-keyed model factory (counterpart of
+``sav_tpu/models/factory.py``), ViT names only in this slice."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from sav_tpu_torch import resolve_device
+from sav_tpu_torch.models.vit import ViT
+from sav_tpu_torch.nn.layers import init_all
+
+
+def _vit(num_layers, num_heads, embed_dim, patch):
+    return ViT, dict(num_layers=num_layers, num_heads=num_heads,
+                     embed_dim=embed_dim, patch_shape=(patch, patch))
+
+
+MODEL_CONFIGS: Dict[str, Any] = {
+    'vit_ti_patch16': _vit(12, 3, 192, 16),
+    'vit_s_patch32': _vit(12, 6, 384, 32),
+    'vit_s_patch16': _vit(12, 6, 384, 16),
+    'vit_b_patch32': _vit(12, 12, 768, 32),
+    'vit_b_patch16': _vit(12, 12, 768, 16),
+    'vit_l_patch32': _vit(24, 16, 1024, 32),
+    'vit_l_patch16': _vit(24, 16, 1024, 16),
+}
+
+
+def available_models():
+    """All model names ``create_model`` accepts."""
+    return sorted(MODEL_CONFIGS)
+
+
+def create_model(model_name: str, num_classes: int = 1000,
+                 dtype=torch.float32, img_size: int = 224, seed: int = 0,
+                 device=None, **overrides) -> ViT:
+    """Builds a model from its registry name, randomly initialised from
+    ``seed`` (flax's initialisers, torch's random stream), on ``device``
+    (the card unless ``'cpu'`` is asked for).
+
+    Extra keyword arguments override config fields (``use_kernel=False``
+    forces the plain attention path, ``num_layers=2`` cuts depth).
+    """
+    try:
+        model_cls, config = MODEL_CONFIGS[model_name]
+    except KeyError:
+        raise RuntimeError(
+            f'Model not found: {model_name!r}. The torch port has '
+            f'{", ".join(available_models())}; the other families wait for '
+            'their slices (ROADMAP.md)') from None
+    device = resolve_device(device)
+    model = model_cls(num_classes=num_classes, dtype=dtype,
+                      img_size=img_size, **{**config, **overrides})
+    init_all(model, torch.Generator().manual_seed(seed))
+    return model.to(device)

@@ -1,0 +1,150 @@
+"""Batched inference CLI of the torch port (counterpart of ``predict.py``).
+
+Decodes JPEGs on the host (PIL), runs the eval transform (resize-small ->
+central crop -> normalize) and the model forward on the device, and prints
+one JSON line per image with the top-k classes. ``-c`` names a directory:
+when it holds ``params.npz`` (the flax params tree flattened with ``/``
+keys) the weights load through ``utils.flax_bridge``; otherwise the model
+predicts from random init, with a warning.
+
+Example:
+    python -m sav_tpu_torch.predict -m vit_b_patch16 -c /tmp/ckpt \
+        --images '/data/val/**/*.jpg' --top_k 5
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from sav_tpu_torch import resolve_device
+from sav_tpu_torch.data.jpeg_source import decode_jpeg_fixed
+from sav_tpu_torch.data.preprocess import eval_preprocess
+from sav_tpu_torch.models import create_model
+from sav_tpu_torch.utils.flax_bridge import flax_to_torch, unflatten_tree
+
+DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
+
+
+def decode_size_for(img_size: int) -> int:
+    """Host decode frame edge for an eval size (256 for 224, 439 for 384)."""
+    return max(img_size, int(round(img_size * 256 / 224)))
+
+
+@torch.inference_mode()
+def serve(model, frames_uint8, img_size: int, top_k: int):
+    """uint8 frames ``[N, S, S, 3]`` -> (top-k probabilities, class ids),
+    both ``[N, top_k]`` on the model's device. Nothing here waits for the
+    device: frames go up from pinned memory, so the host can queue the next
+    batch while the card works on this one."""
+    device = next(model.parameters()).device
+    raw = torch.as_tensor(frames_uint8)
+    if device.type == 'cuda':
+        raw = raw.pin_memory()
+    raw = raw.to(device, non_blocking=True)
+    x = eval_preprocess(raw.float(), img_size)
+    logits = model(x.to(model.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.topk(probs, top_k, dim=-1)
+
+
+def load_params_npz(model, path: str) -> None:
+    """Loads a ``/``-keyed flat npz of the flax params tree into ``model``."""
+    with np.load(path) as npz:
+        tree = unflatten_tree({k: npz[k] for k in npz.files})
+    state = flax_to_torch(tree)
+    model.load_state_dict(state, strict=True)
+
+
+def _list_images(pattern: str):
+    if os.path.isdir(pattern):
+        found = sorted(
+            p for p in glob.glob(os.path.join(pattern, '**', '*'),
+                                 recursive=True)
+            if p.lower().endswith(('.jpg', '.jpeg', '.png')))
+    else:
+        found = sorted(glob.glob(pattern, recursive=True))
+    if not found:
+        raise SystemExit(f'error: no images match {pattern!r}')
+    return found
+
+
+def _parser():
+    p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    p.add_argument('-m', '--model_name', required=True)
+    p.add_argument('-c', '--checkpoint_dir', required=True,
+                   help='directory holding params.npz (flax tree, / keys)')
+    p.add_argument('--images', required=True,
+                   help='image directory or glob pattern')
+    p.add_argument('-s', '--img_size', type=int, default=224)
+    p.add_argument('-b', '--batch_size', type=int, default=32)
+    p.add_argument('--top_k', type=int, default=5)
+    p.add_argument('--num_classes', type=int, default=1000)
+    p.add_argument('--dtype', default='bfloat16', choices=sorted(DTYPES))
+    p.add_argument('--ema', dest='ema', action='store_true', default=True,
+                   help='kept for predict.py compatibility: params.npz holds '
+                        'one tree; EMA selection comes with Orbax restore')
+    p.add_argument('--no-ema', dest='ema', action='store_false')
+    p.add_argument('--class_names', default=None,
+                   help='optional text file, one class name per line')
+    p.add_argument('--quantized', default='none',
+                   choices=['none', 'int8', 'ff', 'all'],
+                   help='int8 serving is not ported yet; only none runs')
+    p.add_argument('--device', default=None,
+                   help='cuda (default) or cpu')
+    return p
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.quantized != 'none':
+        raise NotImplementedError(
+            f'--quantized {args.quantized}: int8 serving is a later slice of '
+            'the torch port (ROADMAP.md)')
+    device = resolve_device(args.device)
+    model = create_model(args.model_name, num_classes=args.num_classes,
+                         dtype=DTYPES[args.dtype], img_size=args.img_size,
+                         device=device)
+    params = os.path.join(args.checkpoint_dir, 'params.npz')
+    if os.path.exists(params):
+        load_params_npz(model, params)
+        print(f'loaded {params}', file=sys.stderr)
+    else:
+        print(f'WARNING: no params.npz in {args.checkpoint_dir}; '
+              'predicting from random init', file=sys.stderr)
+    model.eval()
+
+    names = None
+    if args.class_names:
+        with open(args.class_names) as f:
+            names = [line.strip() for line in f if line.strip()]
+
+    paths = _list_images(args.images)
+    decode_size = decode_size_for(args.img_size)
+    start = time.perf_counter()
+    for lo in range(0, len(paths), args.batch_size):
+        chunk = paths[lo:lo + args.batch_size]
+        raw = np.stack([decode_jpeg_fixed(p, decode_size) for p in chunk])
+        probs, idx = serve(model, raw, args.img_size, args.top_k)
+        probs, idx = probs.cpu().numpy(), idx.cpu().numpy()
+        for row, path in enumerate(chunk):
+            classes = [
+                {'class': (names[i] if names and i < len(names) else int(i)),
+                 'prob': round(float(p), 5)}
+                for i, p in zip(idx[row], probs[row])]
+            print(json.dumps({'path': path, 'top_k': classes}))
+    elapsed = time.perf_counter() - start
+    print(f'{len(paths)} images in {elapsed:.2f}s '
+          f'({len(paths) / elapsed:.1f} img/s incl. host decode, {device})',
+          file=sys.stderr)
+
+
+if __name__ == '__main__':
+    main()

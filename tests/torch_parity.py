@@ -1,0 +1,57 @@
+"""Shared fixtures of the torch-port parity tests (tests/test_torch_*.py):
+one small ViT configuration, seeded inputs, and the same flax tree loaded
+into both packages. Inputs come from numpy so both frameworks see the same
+numbers."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from sav_tpu.models import create_model as jax_create_model
+from sav_tpu_torch.models import create_model as torch_create_model
+from sav_tpu_torch.utils.flax_bridge import flax_to_torch
+
+torch.set_num_threads(1)
+
+# 2 layers, D=128, H=2, d=64: every K1/K4 shape constraint of the port holds
+SMALL = dict(num_layers=2, embed_dim=128, num_heads=2)
+NUM_CLASSES = 10
+
+
+def fill_head(params, seed=1):
+    """Random head kernel and cls token (both zero-initialised in ViT, which
+    would make every logit 0 and any comparison of them empty)."""
+    rng = np.random.RandomState(seed)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    params['Dense_0']['kernel'] = rng.standard_normal(
+        params['Dense_0']['kernel'].shape).astype(np.float32)
+    params['Dense_0']['bias'] = rng.standard_normal(
+        params['Dense_0']['bias'].shape).astype(np.float32)
+    params['cls'] = rng.standard_normal(params['cls'].shape).astype(np.float32)
+    return params
+
+
+def jax_vit(img_size, name='vit_ti_patch16', overrides=SMALL, **kwargs):
+    """(flax model, params with a filled head) for a small ViT."""
+    model = jax_create_model(name, num_classes=NUM_CLASSES, **overrides,
+                             **kwargs)
+    variables = model.init(jax.random.PRNGKey(0),
+                           jnp.ones((1, img_size, img_size, 3)),
+                           is_training=False)
+    return model, fill_head(variables['params'])
+
+
+def torch_vit(params, img_size, name='vit_ti_patch16', overrides=SMALL,
+              **kwargs):
+    """The port's model of the same config with ``params`` loaded."""
+    model = torch_create_model(name, num_classes=NUM_CLASSES,
+                               img_size=img_size, device='cpu', **overrides,
+                               **kwargs)
+    model.load_state_dict(flax_to_torch(params), strict=True)
+    return model.eval()
+
+
+def images(n, size, seed=0):
+    return np.random.RandomState(seed).standard_normal(
+        (n, size, size, 3)).astype(np.float32)
