@@ -6,17 +6,27 @@
 1. Refuses to run without a CUDA device; prints the card's name and power
    limit (nvidia-smi) and builds every kernel from csrc/ with nvcc.
 2. Holds each hand-written kernel against its plain PyTorch twin on the
-   card, in bf16, at the serving shapes, and times kernel, twin and one
-   library call computing the same function (timed only; the port never
-   calls it). For K1 it also times the sublayer on the 'flash' core, the
-   route ``fused_layer.auto_core`` weighs it against.
+   card, in bf16, and times kernel, twin and one library call computing
+   the same function (timed only; the port never calls it): K1 and K4 at
+   the serving shapes (for K1 also the sublayer on the 'flash' core, the
+   route ``fused_layer.auto_core`` weighs it against); K1's training
+   variant, K2 and K3 at the training shapes (K2 and K3 both at L = 197,
+   so the K2/K3 threshold is a measured one).
 3. Serves ViT-B/16 bf16 through ``sav_tpu_torch.predict.serve``: @224 with
    use_kernel='auto' (the K1 port, 12 launches per forward), @384 with
    use_kernel='fused_layer' (the K4 port, 12 launches) and @384 with 'auto'
    (K1 again), with launch counts set to 0 just before each forward and
    read just after, logits checked against the plain cores
    (use_kernel=False) on the same weights, img/s.
-4. Prints one JSON line of every ported kernel, then the result line
+4. Trains ViT-B/16 bf16 through ``sav_tpu_torch.train.Trainer`` (what
+   ``python -m sav_tpu_torch.train`` builds) on its synthetic source: @224
+   bs192 (12 K1-train + 12 K2 launches per step) and @384 bs48 (12 K1-train
+   + 12 K3a + 12 K3b), counts set to 0 just before one step and read just
+   after; loss finite; every parameter's gradient on one batch against the
+   plain core (use_kernel='fused_layer_xla', same boundary), with the f32
+   per-op path as the reference that sets the bf16 noise floor; train
+   img/s over 10 steps after warm-up; one eval batch.
+5. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
 """
@@ -38,9 +48,12 @@ from sav_tpu_torch import _build
 from sav_tpu_torch.data.preprocess import eval_preprocess
 from sav_tpu_torch.models import create_model
 from sav_tpu_torch.models.vit import set_use_kernel
+from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops import fused_layer
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from sav_tpu_torch.predict import decode_size_for, serve
+from sav_tpu_torch.train import TrainConfig, Trainer
+from sav_tpu_torch.train.steps import loss_and_logits
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -63,6 +76,29 @@ LSE_TOL = 1e-3
 # each of 12 layers, so they differ by bf16 rounding compounded over the
 # depth; 5e-2 of max |logit| bounds that and still catches a broken layer.
 LOGIT_TOL = 5e-2
+# dq, dk, dv of K2/K3 vs the backward twin: max |kernel - twin| over max
+# |twin|. Both round p and ds to bf16 at the same points, from logits
+# summed in another order (and exp2 vs exp), so single one-ulp flips of a
+# bf16 p or ds (2^-8 relative) are expected; summed over L rows they stay
+# well under 1%. A wrong tile, mask or fragment moves a gradient by O(1).
+BWD_TOL = 2e-2
+# Each parameter's gradient of the kernel path vs the plain core on the same
+# sublayer boundary (use_kernel='fused_layer_xla'), as |g_kernel - g_plain|
+# / |g_plain| (L2 over the parameter), must be within max(GRAD_TOL,
+# GRAD_NOISE * the plain core's own L2 distance from an f32 reference of
+# the same weights and batch). Where the gradient is well conditioned
+# (v, out, FF, LN, embeddings, head), GRAD_TOL holds: the kernels' one-ulp
+# flips compound over 12 layers as the logits' do (LOGIT_TOL), and a
+# broken layer is off by O(1). The q/k weight gradients of deeper layers
+# at random init nearly cancel over the tokens, so the bf16 rounding at
+# the sublayer boundary (bf16 residual stream, delta = rowsum(o * do)
+# from bf16 o) leaves EITHER bf16 path up to ~1.5 |g| from f32 there (this
+# script prints the farthest parameter: plain core 1.06 @224 and 1.49 @384
+# on an H100 80GB HBM3, 700 W, kernels 0.87 and 1.33); a kernel path as
+# close to f32 as the plain core is within 2x that distance of the plain
+# core.
+GRAD_TOL = 5e-2
+GRAD_NOISE = 3.0
 
 
 def nvidia_smi() -> str:
@@ -108,8 +144,10 @@ def _bf16(rng, shape, std=1.0):
         (rng.standard_normal(shape) * std).astype(np.float32)).cuda().bfloat16()
 
 
-def check_k1(rng, checks, batch, seq, dim=768, heads=12):
-    """K1 port vs its twin at [batch, seq, dim]; returns the kernel record."""
+def _k1_case(rng, batch, seq, dim, heads):
+    """Random K1 inputs at [batch, seq, dim], the library chain computing
+    the same sublayer (LN + matmuls + SDPA; timed only) and its operation
+    count."""
     hd = heads * 64
     x = _bf16(rng, (batch, seq, dim))
     scale = (1.0 + 0.1 * _bf16(rng, (dim,))).float()
@@ -119,7 +157,24 @@ def check_k1(rng, checks, batch, seq, dim=768, heads=12):
     wq = _bf16(rng, (dim, hd), 4.0 / math.sqrt(dim))
     wk, wv = (_bf16(rng, (dim, hd), 1.0 / math.sqrt(dim)) for _ in range(2))
     wo = _bf16(rng, (hd, dim), 1.0 / math.sqrt(hd))
-    args = (x, scale, bias, wq, wk, wv, wo, heads)
+
+    def library():
+        y = F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
+        split = lambda a: a.view(batch, seq, heads, 64).transpose(1, 2)
+        a = F.scaled_dot_product_attention(*(split(y @ w) for w in (wq, wk, wv)))
+        return x + a.transpose(1, 2).reshape(batch, seq, hd) @ wo
+
+    m = batch * seq
+    flops = 2 * m * dim * 3 * hd + 4 * batch * heads * seq * seq * 64 \
+        + 2 * m * hd * dim
+    return (x, scale, bias, wq, wk, wv, wo, heads), library, flops
+
+
+def check_k1(rng, checks, batch, seq, dim=768, heads=12):
+    """K1 port vs its twin at [batch, seq, dim]; returns the kernel record."""
+    hd = heads * 64
+    args, library, flops = _k1_case(rng, batch, seq, dim, heads)
+    x, scale, bias, wq, wk, wv, wo, _ = args
     out = fused_layer.fused_attention_fwd(*args)
     plain = fused_layer.fused_attention_fwd_plain(*args, fused_layer.LN_EPS)
     torch.cuda.synchronize()
@@ -131,13 +186,6 @@ def check_k1(rng, checks, batch, seq, dim=768, heads=12):
                   f'K1 fused_attention_fwd B={batch} L={seq}: max err {err:.4g} '
                   f'= {rel:.3g} of max|out-x| (tol {OUT_TOL})')
 
-    def library():
-        y = F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
-        split = lambda a: a.view(batch, seq, heads, 64).transpose(1, 2)
-        q, k, v = (split(y @ w) for w in (wq, wk, wv))
-        a = F.scaled_dot_product_attention(q, k, v)
-        return x + a.transpose(1, 2).reshape(batch, seq, hd) @ wo
-
     def flash_core():
         """The same sublayer on the port's other route (auto_core's choice)."""
         heads3 = lambda w: w.view(dim, heads, 64)
@@ -146,8 +194,6 @@ def check_k1(rng, checks, batch, seq, dim=768, heads=12):
             wo.view(heads, 64, dim), heads, 'flash')
 
     m = batch * seq
-    flops = 2 * m * dim * 3 * hd + 4 * batch * heads * seq * seq * 64 \
-        + 2 * m * hd * dim
     nbytes = 2 * m * dim * 2 + 4 * dim * hd * 2 + 2 * dim * 4
     b_ms, b_by = bound_ms(flops, nbytes)
     rec = dict(ms=time_ms(lambda: fused_layer.fused_attention_fwd(*args)),
@@ -222,13 +268,11 @@ def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
     frames = np.random.RandomState(seed).randint(
         0, 256, (batch, size, size, 3), dtype=np.uint8)
 
-    fused_layer.fused_attention_fwd.launches = 0
-    flash_fwd.launches = 0
+    _build.reset_launches()
     probs, idx = serve(model, frames, img_size, 5)
     torch.cuda.synchronize()
-    counts = {'fused_attention_fwd': fused_layer.fused_attention_fwd.launches,
-              'flash_fwd': flash_fwd.launches}
-    checks.expect(counts[counter] == 12 and sum(counts.values()) == 12,
+    counts = dict(_build.launches)
+    checks.expect(counts == {counter: 12},
                   f'{name}: launches per forward {counts} (want 12 {counter})')
     checks.expect(tuple(idx.shape) == (batch, 5)
                   and bool(torch.isfinite(probs).all()),
@@ -261,7 +305,236 @@ def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
           f'(includes host waits)', flush=True)
     if profile:
         print_profile(lambda: serve(model, frames, img_size, 5))
-    return counts[counter]
+    return counts.get(counter, 0)
+
+
+def _abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _rel(a, b) -> float:
+    return _abs(a, b) / float(b.float().abs().max())
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def check_k1_train(rng, checks, batch, seq, dim=768, heads=12):
+    """K1's training variant vs its twin: out, q, k, v, attn; lse against
+    the logsumexp of the kernel's own q and k (the twin's q and k may differ
+    from the kernel's by single bf16 roundings, which move a peaked lse by
+    ~1e-2). Returns the kernel record."""
+    hd = heads * 64
+    args, library, flops = _k1_case(rng, batch, seq, dim, heads)
+    x = args[0]
+    out, (q, k, v, attn, lse) = fused_layer.fused_attention_fwd(
+        *args, save_residuals=True)
+    plain, res = fused_layer.fused_attention_fwd_plain(
+        *args, fused_layer.LN_EPS, save_residuals=True)
+    torch.cuda.synchronize()
+    err_out = (out.float() - plain.float()).abs().max().item() / \
+        (plain.float() - x.float()).abs().max().item()
+    errs = [_rel(a, b) for a, b in zip((q, k, v, attn), res[:4])]
+    abs_err = max(_abs(a, b) for a, b in zip((out, q, k, v, attn),
+                                             (plain, *res[:4])))
+    split = lambda a: a.float().view(batch, seq, heads, 64)
+    own = torch.logsumexp(torch.einsum('bqhd,bkhd->bhqk', split(q), split(k)),
+                          dim=-1)
+    lse_err = (lse - own).abs().max().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, q, k, v, attn, lse))
+    checks.expect(finite and max([err_out] + errs) <= OUT_TOL
+                  and lse_err <= LSE_TOL,
+                  f'K1 train B={batch} L={seq}: out {err_out:.3g} of max|out-x|, '
+                  f'q/k/v/attn {", ".join(f"{e:.3g}" for e in errs)} of max '
+                  f'(tol {OUT_TOL}); lse vs its own q,k {lse_err:.3g} '
+                  f'(tol {LSE_TOL})')
+
+    m = batch * seq
+    nbytes = (2 * m * dim * 2 + 4 * dim * hd * 2 + 2 * dim * 4
+              + 4 * m * hd * 2 + batch * heads * seq * 4)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rec = dict(ms=time_ms(lambda: fused_layer.fused_attention_fwd(
+                   *args, save_residuals=True)),
+               plain_ms=time_ms(lambda: fused_layer.fused_attention_fwd_plain(
+                   *args, fused_layer.LN_EPS, save_residuals=True), iters=3),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(abs_err, lse_err))
+    print(f'  K1 train B={batch} L={seq}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP)', flush=True)
+    return rec
+
+
+def _bwd_bound(batch, seq, heads, matmuls, tensors, stats):
+    """bound_ms of a backward pass: ``matmuls`` L x L x 64 products per
+    (image, head), ``tensors`` [B, L, H*64] bf16 moved once, ``stats``
+    [B, H, L] f32 rows moved once."""
+    flops = matmuls * 2 * batch * heads * seq * seq * 64
+    nbytes = tensors * batch * seq * heads * 64 * 2 + stats * batch * heads * seq * 4
+    return bound_ms(flops, nbytes)
+
+
+def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
+    """Each backward route ('fused': K2, 'split': K3a + K3b) vs the twin,
+    random do; returns the records of each kernel timed alone ({'fused':
+    .., 'dq': .., 'dkv': ..})."""
+    kv_len = kv_len or seq
+    hd = heads * 64
+    q = _bf16(rng, (batch, seq, hd), 0.5)
+    k, v, do = (_bf16(rng, (batch, seq, hd)) for _ in range(3))
+    out, lse = flash_fwd(q, k, v, heads, kv_len)
+    twin = fa.flash_bwd_plain(q, k, v, out, lse, do, heads, kv_len)
+    plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, heads,
+                                                  kv_len), iters=3)
+    recs = {}
+    for route in routes:
+        bwd = fa.bwd_fused if route == 'fused' else fa.bwd_split
+        grads = bwd(q, k, v, out, lse, do, heads, kv_len)
+        torch.cuda.synchronize()
+        errs = [_rel(g, t) for g, t in zip(grads, twin)]
+        abs_errs = [_abs(g, t) for g, t in zip(grads, twin)]
+        tails = max(float(g[:, kv_len:].abs().max()) if kv_len < seq else 0.0
+                    for g in grads[1:])
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        name = 'K2' if route == 'fused' else 'K3'
+        checks.expect(finite and max(errs) <= BWD_TOL and tails == 0.0,
+                      f'{name} flash_bwd B={batch} L={seq} kv_len={kv_len}: '
+                      f'dq/dk/dv err {", ".join(f"{e:.3g}" for e in errs)} of '
+                      f'max (tol {BWD_TOL}), masked key rows {tails}')
+        if route == 'fused':
+            b_ms, b_by = _bwd_bound(batch, seq, heads, 5, 8, 1)
+            recs['fused'] = dict(
+                ms=time_ms(lambda: fa.bwd_fused(q, k, v, out, lse, do, heads,
+                                                kv_len)),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max(abs_errs))
+        else:
+            dq, delta = fa.bwd_dq(q, k, v, out, lse, do, heads, kv_len)
+            b_ms, b_by = _bwd_bound(batch, seq, heads, 3, 6, 2)
+            recs['dq'] = dict(
+                ms=time_ms(lambda: fa.bwd_dq(q, k, v, out, lse, do, heads,
+                                             kv_len)),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=abs_errs[0])
+            b_ms, b_by = _bwd_bound(batch, seq, heads, 4, 6, 2)
+            recs['dkv'] = dict(
+                ms=time_ms(lambda: fa.bwd_dkv(q, k, v, do, lse, delta, heads,
+                                              kv_len)),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max(abs_errs[1:]))
+        total = time_ms(lambda: bwd(q, k, v, out, lse, do, heads, kv_len))
+        print(f'  {name} route={route} B={batch} L={seq}: backward '
+              f'{total:.4f} ms  ' + '  '.join(
+                  f'{n} {r["ms"]:.4f} ms (bound {r["bound_ms"]:.4f})'
+                  for n, r in recs.items() if (n == 'fused') == (route == 'fused'))
+              + f'  plain {plain_ms:.4f} ms', flush=True)
+
+    # library yardstick: SDPA's backward, timed as forward+backward minus
+    # forward on the same (head-major) inputs
+    split = lambda a: a[:, :kv_len].reshape(batch, -1, heads, 64).transpose(1, 2)
+    qs = q.view(batch, seq, heads, 64).transpose(1, 2).detach().requires_grad_()
+    ks, vs = (split(a).detach().requires_grad_() for a in (k, v))
+    dos = do.view(batch, seq, heads, 64).transpose(1, 2)
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0))
+    both = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), (qs, ks, vs),
+        dos))
+    lib = max(both - fwd, 0.0)
+    b_ms, _ = _bwd_bound(batch, seq, heads, 5, 8, 1)
+    print(f'  flash backward B={batch} L={seq}: SDPA backward {lib:.4f} ms '
+          f'(fwd+bwd {both:.4f} - fwd {fwd:.4f}); bound of the function '
+          f'{b_ms:.4f} ms', flush=True)
+    for n, r in recs.items():
+        r['library_ms'] = lib if n == 'fused' else None
+        r['sdpa_bwd_ms'] = lib
+    return recs
+
+
+def _grads(model, batch):
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_and_logits(model, batch, 1000, 0.1)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def train_path(checks, name, img_size, batch, want, seed, steps=10,
+               profile=False):
+    """One Trainer step with the counts at 0 (want: the exact counts), then
+    gradients vs the plain core, img/s and one eval batch. Returns the
+    counts."""
+    trainer = Trainer(TrainConfig(model_name='vit_b_patch16',
+                                  img_size=img_size, batch_size=batch,
+                                  seed=seed, dtype='bfloat16'), device='cuda')
+    data = trainer.dataset()
+    first = data.batch(0)
+    _build.reset_launches()
+    metrics = trainer.train_step(first)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    loss = float(metrics['loss'])
+    checks.expect(counts == want, f'{name}: launches per train step {counts} '
+                                  f'(want {want})')
+    checks.expect(math.isfinite(loss), f'{name}: loss {loss:.5g} finite')
+
+    # gradients on one batch: the kernel path, the plain core on the same
+    # boundary, and the f32 per-op path as the reference (head filled so
+    # the encoder's gradients are not all zero)
+    fill_head(trainer.model, seed)
+    loss_k, g_kernel = _grads(trainer.model, first)
+    set_use_kernel(trainer.model, 'fused_layer_xla')
+    loss_x, g_plain = _grads(trainer.model, first)
+    set_use_kernel(trainer.model, 'auto')
+    ref = create_model('vit_b_patch16', num_classes=1000,
+                       dtype=torch.float32, img_size=img_size, device='cuda',
+                       use_kernel=False)
+    ref.load_state_dict(trainer.model.state_dict())
+    loss_32, g_32 = _grads(ref, first)
+    del ref
+    worst = (0.0, '', 0.0, 0.0)          # (err / tol, name, err, tol)
+    noisiest = (0.0, '', 0.0)            # (plain vs f32, name, kernel vs f32)
+    for n, g in g_plain.items():
+        err = _rel_l2(g_kernel[n], g)
+        noise = _rel_l2(g, g_32[n])
+        tol = max(GRAD_TOL, GRAD_NOISE * noise)
+        if err / tol > worst[0]:
+            worst = (err / tol, n, err, tol)
+        if noise > noisiest[0]:
+            noisiest = (noise, n, _rel_l2(g_kernel[n], g_32[n]))
+    finite = all(bool(torch.isfinite(g).all()) for g in g_kernel.values())
+    checks.expect(finite and worst[0] <= 1.0,
+                  f'{name}: gradients vs fused_layer_xla, {len(g_plain)} '
+                  f'parameters, worst {worst[2]:.3g} (L2, tol {worst[3]:.3g}) '
+                  f'at {worst[1]}; loss {loss_k:.5f} vs {loss_x:.5f} (f32 '
+                  f'{loss_32:.5f}); farthest from f32: {noisiest[1]}, plain '
+                  f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}')
+
+    for i in range(2):                       # warm-up
+        trainer.train_step(data.batch(1 + i))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(steps):
+        metrics = trainer.train_step(data.batch(3 + i))
+    loss = float(metrics['loss'])
+    secs = time.perf_counter() - start
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(data.batch(3 + steps))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ev = trainer.evaluate(trainer.dataset(seed_offset=1), 1)
+    checks.expect(math.isfinite(loss) and math.isfinite(ev['eval_loss']),
+                  f'{name}: loss after {steps + 4} steps {loss:.5g}, eval loss '
+                  f'{ev["eval_loss"]:.5g}, finite')
+    print(f'  {name}: {steps * batch / secs:.1f} train img/s over {steps} '
+          f'steps ({1e3 * secs / steps:.2f} ms/step incl. host), peak '
+          f'{peak:.2f} GiB allocated', flush=True)
+    if profile:
+        print_profile(lambda: trainer.train_step(data.batch(0)), iters=2)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
 
 
 def print_profile(fn, iters: int = 5) -> None:
@@ -283,11 +556,13 @@ def main(argv=None):
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--batch', type=int, default=32)
     parser.add_argument('--profile', action='store_true',
-                        help='also print device time by kernel of each serve')
+                        help='also print device time by kernel of each serve '
+                             'and of one @224 train step')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
@@ -303,6 +578,12 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
     k1 = {seq: check_k1(rng, checks, args.batch, seq) for seq in (197, 577)}
     k4 = {seq: check_k4(rng, checks, args.batch, seq) for seq in (197, 577, 200)}
+    # the training path's shapes: @224 bs192 (L=197), @384 bs48 (L=577)
+    k1t = {seq: check_k1_train(rng, checks, b, seq)
+           for b, seq in ((192, 197), (48, 577))}
+    bwd197 = check_bwd(rng, checks, 192, 197, routes=('fused', 'split'))
+    check_bwd(rng, checks, 192, 200, kv_len=190, routes=('fused', 'split'))
+    bwd577 = check_bwd(rng, checks, 48, 577, routes=('split',))
 
     k1_launches = serve_path(checks, 'ViT-B/16 @224 auto', 224, 'auto',
                              'fused_attention_fwd', args.seed, args.batch,
@@ -312,6 +593,12 @@ def main(argv=None):
                              args.profile)
     serve_path(checks, 'ViT-B/16 @384 auto', 384, 'auto', 'fused_attention_fwd',
                args.seed, args.batch, args.profile)
+    t224 = train_path(checks, 'train ViT-B/16 @224 bs192', 224, 192,
+                      {'fused_attention_fwd_train': 12, 'flash_bwd_fused': 12},
+                      args.seed, profile=args.profile)
+    t384 = train_path(checks, 'train ViT-B/16 @384 bs48', 384, 48,
+                      {'fused_attention_fwd_train': 12, 'flash_bwd_dq': 12,
+                       'flash_bwd_dkv': 12}, args.seed)
 
     kernels = [
         dict(name='fused_attention_fwd', route='cuda',
@@ -326,7 +613,29 @@ def main(argv=None):
              launches=k4_launches,
              max_abs_err=max(r['max_abs_err'] for r in k4.values()),
              **{k: v for k, v in k4[577].items() if k != 'max_abs_err'}),
+        dict(name='fused_attention_fwd_train', route='cuda',
+             source='sav_tpu_torch/csrc/fused_attention.cu',
+             replaces='sav_tpu/ops/fused_layer.py:127',
+             launches=t224.get('fused_attention_fwd_train', 0),
+             max_abs_err=max(r['max_abs_err'] for r in k1t.values()),
+             **{k: v for k, v in k1t[197].items() if k != 'max_abs_err'}),
+        dict(name='flash_bwd_fused', route='cuda',
+             source='sav_tpu_torch/csrc/flash_bwd.cu',
+             replaces='sav_tpu/ops/flash_attention.py:330',
+             launches=t224.get('flash_bwd_fused', 0),
+             **{k: v for k, v in bwd197['fused'].items() if k != 'sdpa_bwd_ms'}),
+        dict(name='flash_bwd_dq', route='cuda',
+             source='sav_tpu_torch/csrc/flash_bwd.cu',
+             replaces='sav_tpu/ops/flash_attention.py:363',
+             launches=t384.get('flash_bwd_dq', 0),
+             **{k: v for k, v in bwd577['dq'].items() if k != 'sdpa_bwd_ms'}),
+        dict(name='flash_bwd_dkv', route='cuda',
+             source='sav_tpu_torch/csrc/flash_bwd.cu',
+             replaces='sav_tpu/ops/flash_attention.py:392',
+             launches=t384.get('flash_bwd_dkv', 0),
+             **{k: v for k, v in bwd577['dkv'].items() if k != 'sdpa_bwd_ms'}),
     ]
+    print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:
         print(f'chip_smoke: {len(checks.failed)} check(s) failed:',
               file=sys.stderr)

@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
 
 # library name -> its one translation unit
 SOURCES = {
+    'flash_bwd': 'flash_bwd.cu',
     'flash_fwd': 'flash_fwd.cu',
     'fused_attention': 'fused_attention.cu',
 }
@@ -31,6 +32,9 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _loaded: dict = {}
 build_log: dict = {}        # name -> nvcc's output (ptxas register counts)
+# kernel name -> launches since the last reset; each wrapper adds one where
+# it launches its kernel, and nowhere else
+launches: dict = {}
 
 
 def _nvcc() -> str:
@@ -91,6 +95,14 @@ def library(name: str) -> ctypes.CDLL:
             build_all()
         lib = _loaded[name] = ctypes.CDLL(path)
     return lib
+
+
+def count(kernel: str) -> None:
+    launches[kernel] = launches.get(kernel, 0) + 1
+
+
+def reset_launches() -> None:
+    launches.clear()
 
 
 def check(err: int, what: str) -> None:

@@ -1,7 +1,10 @@
-// K1 port: the whole pre-LN attention sublayer forward, inference variant.
+// K1 port: the whole pre-LN attention sublayer forward.
 //
 // Replaces sav_tpu/ops/fused_layer.py::_fused_fwd_kernel (launcher
-// _fused_fwd, save_residuals=False):
+// _fused_fwd), both variants: inference (save_residuals=False; lse null)
+// and training (save_residuals=True: the q, k, v and attn scratch below
+// are kept by the caller as the backward's residuals, and the attention
+// launch also writes the lse of each row and head):
 //   out = x + (softmax_h(q_h k_h^T) v_h)_h @ Wo,
 //   q = LN(x) Wq / sqrt(d), k = LN(x) Wk, v = LN(x) Wv,
 // LN with f32 statistics (fast variance E[x^2] - mu^2), bf16 operands,
@@ -201,13 +204,14 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ w0,
 }  // namespace sav
 
 // x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*64], wo [H*64, D];
-// y [B*L, D] and qs/ks/vs/attn [B*L, H*64] scratch; out [B, L, D]. All
-// bf16 unless noted. Needs D % 128 == 0 and H*64 % 128 == 0 (whole GEMM
+// y [B*L, D] and qs/ks/vs/attn [B*L, H*64] scratch; out [B, L, D]; lse
+// [B, H, L] f32 or null (inference). All bf16 unless noted. Needs D % 128 == 0 and H*64 % 128 == 0 (whole GEMM
 // tiles along N and K).
 extern "C" int sav_fused_attention_fwd(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo, void* y,
-    void* qs, void* ks, void* vs, void* attn, void* out, int batch, int seq,
+    void* qs, void* ks, void* vs, void* attn, void* out, float* lse,
+    int batch, int seq,
     int dim, int heads, float eps, float q_scale, void* stream) {
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
@@ -230,7 +234,7 @@ extern "C" int sav_fused_attention_fwd(
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   attention_fwd_kernel<<<dim3((seq + ATT_BQ - 1) / ATT_BQ, heads, batch), 128,
                          0, st>>>((const bf16*)qs, (const bf16*)ks,
-                                  (const bf16*)vs, (bf16*)attn, nullptr, seq,
+                                  (const bf16*)vs, (bf16*)attn, lse, seq,
                                   seq, seq, heads, hd, hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   gemm_kernel<kOut><<<dim3(dim / GN, m_tiles), 256, GEMM_SMEM, st>>>(

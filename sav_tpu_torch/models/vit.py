@@ -27,7 +27,7 @@ FUSED_LAYER_MODES = {
     'fused_layer_xla': 'xla',       # plain torch core
     'fused_layer_full': 'fused',    # the K1 port for the whole span
 }
-PER_OP_MODES = (False, True, 'kernel', 'auto')
+PER_OP_MODES = (False, True, 'kernel', 'hybrid', 'auto')
 
 
 def _check_use_kernel(use_kernel) -> None:
@@ -138,8 +138,13 @@ class ViT(nn.Module):
                  img_size: int = 224, expand_ratio: float = 4,
                  dtype=torch.float32, use_kernel: Union[str, bool] = 'auto',
                  pos_embed: str = 'learned', fused_qkv: bool = False,
-                 attn_bias: bool = False):
+                 attn_bias: bool = False, dropout_rate: float = 0.0,
+                 attn_dropout_rate: float = 0.0):
         super().__init__()
+        if dropout_rate or attn_dropout_rate:
+            raise NotImplementedError(
+                'dropout_rate/attn_dropout_rate are not ported yet (no vit_* '
+                'config sets them; ROADMAP.md Queue 1)')
         if embed_dim % num_heads:
             raise ValueError(f'embed_dim {embed_dim} is not divisible by '
                              f'{num_heads} heads')

@@ -77,4 +77,4 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return _layernorm(x, self.scale, self.bias, LN_EPS).to(self.dtype)
+        return _layernorm(x, self.scale, self.bias, LN_EPS)[0].to(self.dtype)

@@ -4,8 +4,10 @@
 Queries are pre-scaled by ``1/sqrt(head_dim)``; logits =
 einsum('...qhd,...khd->...hqk'); optional pre-softmax head mixing (talking
 heads), softmax, optional post-softmax mixing, additive bias, then the
-value product back to '...qhd'. The K4 port plugs in behind
-``use_kernel``. Attention dropout (training) waits for slice 2.
+value product back to '...qhd'. The flash port plugs in behind
+``use_kernel``: 'kernel' is K4's forward with the K2/K3 backward,
+'hybrid' the plain forward with the same backward. Attention dropout
+waits for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -62,16 +64,17 @@ def multi_head_attention(
     use_kernel='auto',
 ) -> torch.Tensor:
     """Scaled-dot-product multi-head attention on ``[..., len, heads, d]``
-    (query unscaled). ``use_kernel``: 'auto' picks the K4 port where it
-    applies, True/'kernel' forces it, False forces the plain path."""
+    (query unscaled). ``use_kernel``: 'auto' picks the flash port where it
+    applies, True/'kernel' forces it, 'hybrid' forces the plain forward
+    with the kernel backward, False forces the plain path."""
     head_dim = query.shape[-1]
     # sqrt(d) rounded to the query dtype, as the JAX package divides
     sqrt_d = torch.tensor(float(head_dim)).sqrt().to(query.dtype).item()
     query = query / sqrt_d
 
     if use_kernel is not False:
-        if use_kernel in (True, 'kernel'):
-            mode = 'kernel'
+        if use_kernel in (True, 'kernel', 'hybrid'):
+            mode = 'kernel' if use_kernel is True else use_kernel
         elif use_kernel == 'auto':
             mode = dispatch_mode(
                 query, key, bias=bias,
@@ -79,14 +82,15 @@ def multi_head_attention(
                 post_softmax_transform=post_softmax_transform)
         else:
             raise NotImplementedError(
-                f'use_kernel={use_kernel!r} is not ported (the hybrid path '
-                'is a training feature; ROADMAP.md)')
+                f'use_kernel={use_kernel!r} is not ported (ROADMAP.md)')
+        if mode is not None and (bias is not None
+                                 or pre_softmax_transform is not None
+                                 or post_softmax_transform is not None):
+            raise ValueError('the flash kernels take no bias or head mixing')
         if mode == 'kernel':
-            if (bias is not None or pre_softmax_transform is not None
-                    or post_softmax_transform is not None):
-                raise ValueError('the flash kernel takes no bias or head '
-                                 'mixing')
             return flash_attention.mha(query, key, value)
+        if mode == 'hybrid':
+            return flash_attention.mha_hybrid(query, key, value)
 
     if (query.shape[-3] == 1 and bias is None
             and pre_softmax_transform is None

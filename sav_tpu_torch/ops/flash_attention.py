@@ -1,12 +1,16 @@
-"""Flash attention forward on the head-band layout (counterpart of
+"""Flash attention on the head-band layout (counterpart of
 ``sav_tpu/ops/flash_attention.py``).
 
 ``flash_fwd`` is the port of the K4 kernel ``_fwd_kernel``: q, k, v as
 ``[B, L, H*d]`` (a free view of the projection output, q pre-scaled), out in
-the same layout, lse ``[B, H, Lq]`` f32. On a CUDA tensor it launches the
-hand-written kernel (``csrc/flash_fwd.cu``); on a CPU tensor it runs
-``flash_fwd_plain``. No padding is needed: the kernel masks the ragged
-query and key tails itself.
+the same layout, lse ``[B, H, Lq]`` f32. ``flash_bwd`` is the port of the
+backward: K2 ``_fused_bwd_kernel`` (one launch for dq, dk, dv) where one
+block's shared memory holds a whole head, else K3 ``_dq_kernel`` +
+``_dkv_kernel`` (``csrc/flash_bwd.cu``). On a CUDA tensor each launches its
+hand-written kernel; on a CPU tensor it runs its plain twin. No padding is
+needed: the kernels mask the ragged query and key tails themselves.
+``mha`` (K4 forward + kernel backward) and ``mha_hybrid`` (plain forward +
+kernel backward) are the differentiable ``[B, L, heads, d]`` entry points.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import torch
 
 from sav_tpu_torch import _build
 
-BAND = 64               # the kernel's head width
+BAND = 64               # the kernels' head width
+SMEM_LIMIT = 232448     # dynamic shared memory one H100 block may use
+K2_MAX_TILES = 13       # K2 runs one warp per 16-row tile
 
 
 def flash_fwd_plain(q, k, v, heads: int, kv_len: int):
@@ -39,11 +45,13 @@ def flash_fwd_plain(q, k, v, heads: int, kv_len: int):
 
 
 def check_no_grad(*tensors) -> None:
-    """The serving kernels have no backward yet: refuse to be differentiated."""
+    """A raw forward kernel has no autograd formula of its own; its
+    differentiable callers (``mha``, ``fused_layer.attention_sublayer``)
+    call it inside their ``autograd.Function``, where grad is off."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            'this CUDA kernel is forward-only (serving); call it under '
-            'torch.no_grad()/torch.inference_mode()')
+            'this raw CUDA kernel is forward-only; differentiate through '
+            'mha/mha_hybrid or fused_layer.attention_sublayer')
 
 
 def check_cuda_bf16(name: str, t: torch.Tensor, device) -> None:
@@ -97,11 +105,150 @@ def flash_fwd(q, k, v, heads: int, kv_len: int):
                  lse.data_ptr(), b, q_len, k.shape[1], kv_len, heads,
                  stream_of(q.device))
     _build.check(err, 'flash_fwd')
-    flash_fwd.launches += 1
+    _build.count('flash_fwd')
     return out, lse
 
 
-flash_fwd.launches = 0
+def flash_bwd_plain(q, k, v, out, lse, do, heads: int, kv_len: int):
+    """Plain twin of ``flash_bwd``, rounding where the TPU kernels round:
+    p = exp(s - lse) and delta = rowsum(o * do) in f32 (from o, do in
+    their dtype); p rounded to do's dtype before p^T do; ds = p * (dp -
+    delta) rounded to q's dtype before ds k and ds^T q; f32 accumulation.
+    Key rows at or past ``kv_len`` get zero dk and dv."""
+    b, q_len, hd = q.shape
+    kv_rows = k.shape[1]
+    d = hd // heads
+    q4 = q.reshape(b, q_len, heads, d).float()
+    k4 = k[:, :kv_len].reshape(b, kv_len, heads, d).float()
+    v4 = v[:, :kv_len].reshape(b, kv_len, heads, d).float()
+    do4 = do.reshape(b, q_len, heads, d)
+    s = torch.einsum('bqhd,bkhd->bhqk', q4, k4)
+    p = torch.exp(s - lse[..., None])
+    delta = (out.float() * do.float()).reshape(b, q_len, heads, d).sum(-1)
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.to(do.dtype).float(), do4.float())
+    dp = torch.einsum('bqhd,bkhd->bhqk', do4.float(), v4)
+    ds = (p * (dp - delta.transpose(1, 2)[..., None])).to(q.dtype).float()
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, k4)
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, q4)
+
+    def rows(a, like):
+        a = a.reshape(b, kv_len, hd).to(like.dtype)
+        if kv_rows == kv_len:
+            return a
+        return torch.cat([a, a.new_zeros(b, kv_rows - kv_len, hd)], dim=1)
+
+    return dq.reshape(b, q_len, hd).to(q.dtype), rows(dk, k), rows(dv, v)
+
+
+def fused_bwd_fits(q_len: int, kv_rows: int) -> bool:
+    """Whether K2 (the one-launch backward) takes these lengths on the card:
+    one block holds q, k, v, do of a head, its ds^T and lse/delta in
+    shared memory (mirrors ``sav_flash_bwd_fused_smem`` in
+    ``csrc/flash_bwd.cu``). At the ViT lengths that is L = 197 (rounded to
+    208: 211 KB of a block's 227 KB); from 209 on it no longer fits and K3
+    takes over."""
+    lq, lk = -(-q_len // 16) * 16, -(-kv_rows // 16) * 16
+    smem = (2 * lq + 2 * lk) * (BAND + 8) * 2 + lk * (lq + 8) * 2 + 2 * lq * 4
+    return max(lq, lk) // 16 <= K2_MAX_TILES and smem <= SMEM_LIMIT
+
+
+def _bwd_fn(name):
+    fn = getattr(_build.library('flash_bwd'), name)
+    if fn.argtypes is None:
+        pointers = {'sav_flash_bwd_fused': 9, 'sav_flash_bwd_dq': 8,
+                    'sav_flash_bwd_dkv': 8}[name]
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_bwd(q, k, v, out, lse, do, heads: int, kv_len: int):
+    """Gradients (dq, dk, dv) of ``flash_fwd`` on the ``[B, L, H*d]`` layout
+    (q pre-scaled, so dq is the gradient of the pre-scaled q): ``out`` and
+    ``lse`` are the forward's, ``do`` the cotangent of ``out``. Keys at or
+    past ``kv_len`` are masked; their dk and dv rows are zero.
+
+    On the card: K2 (``bwd_fused``, one launch) where ``fused_bwd_fits``,
+    else K3 (``bwd_split``: K3a then K3b). bf16 only, d = 64.
+    """
+    if q.device.type == 'cpu':
+        return flash_bwd_plain(q, k, v, out, lse, do, heads, kv_len)
+    if q.device.type != 'cuda':
+        raise ValueError(f'flash_bwd runs on cuda or cpu, not {q.device}')
+    for name, t in (('q', q), ('k', k), ('v', v), ('out', out), ('do', do)):
+        check_cuda_bf16(name, t, q.device)
+    b, q_len, hd = q.shape
+    kv_rows = k.shape[1]
+    if hd != heads * BAND:
+        raise ValueError(f'flash_bwd needs head_dim {BAND}, got {hd}/{heads}')
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd:
+        raise ValueError(f'k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do '
+                         f'not match q {tuple(q.shape)}')
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f'out/do shapes {tuple(out.shape)}/{tuple(do.shape)} '
+                         f'must equal q {tuple(q.shape)}')
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or not lse.is_contiguous() or tuple(lse.shape) != (b, heads, q_len)):
+        raise ValueError(f'lse must be contiguous float32 {(b, heads, q_len)} '
+                         f'on {q.device}, got {lse.dtype} {tuple(lse.shape)}')
+    if not 1 <= kv_len <= kv_rows:
+        raise ValueError(f'kv_len {kv_len} outside [1, {kv_rows}]')
+    route = bwd_fused if fused_bwd_fits(q_len, kv_rows) else bwd_split
+    return route(q, k, v, out, lse, do, heads, kv_len)
+
+
+# The kernel launches behind flash_bwd, on CUDA inputs it has checked
+# (chip_smoke.py calls both routes directly to time them at one shape).
+
+def _dims(q, k, heads, kv_len):
+    return (q.shape[0], q.shape[1], k.shape[1], kv_len, heads,
+            stream_of(q.device))
+
+
+def bwd_fused(q, k, v, out, lse, do, heads: int, kv_len: int):
+    """K2: (dq, dk, dv) in one launch."""
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn('sav_flash_bwd_fused')(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_dims(q, k, heads, kv_len))
+    _build.check(err, 'flash_bwd_fused')
+    _build.count('flash_bwd_fused')
+    return dq, dk, dv
+
+
+def bwd_dq(q, k, v, out, lse, do, heads: int, kv_len: int):
+    """K3a: (dq, delta), delta = rowsum(out * do) ``[B, H, Lq]`` f32."""
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn('sav_flash_bwd_dq')(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_dims(q, k, heads, kv_len))
+    _build.check(err, 'flash_bwd_dq')
+    _build.count('flash_bwd_dq')
+    return dq, delta
+
+
+def bwd_dkv(q, k, v, do, lse, delta, heads: int, kv_len: int):
+    """K3b: (dk, dv) from K3a's delta."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn('sav_flash_bwd_dkv')(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_dims(q, k, heads, kv_len))
+    _build.check(err, 'flash_bwd_dkv')
+    _build.count('flash_bwd_dkv')
+    return dk, dv
+
+
+def bwd_split(q, k, v, out, lse, do, heads: int, kv_len: int):
+    """K3: (dq, dk, dv) from K3a then K3b."""
+    dq, delta = bwd_dq(q, k, v, out, lse, do, heads, kv_len)
+    return (dq, *bwd_dkv(q, k, v, do, lse, delta, heads, kv_len))
 
 
 def shape_supported(query, key, *, bias=None, pre_softmax_transform=None,
@@ -116,13 +263,56 @@ def shape_supported(query, key, *, bias=None, pre_softmax_transform=None,
             and query.shape[-3] >= 64)
 
 
+def _bands(*tensors):
+    """[B, L, H, d] -> contiguous [B, L, H*d] head bands."""
+    return [t.reshape(t.shape[0], t.shape[1], -1).contiguous() for t in tensors]
+
+
+def attention_plain(qs, k, v):
+    """Plain attention on ``[B, L, H, d]`` (q pre-scaled) -> (out ``[B, Lq,
+    H, d]``, lse ``[B, H, Lq]`` f32): f32 logits, probabilities rounded to
+    v's dtype before the value product. The forward of ``mha_hybrid`` and
+    of the sublayer's ``'xla'`` core."""
+    logits = torch.einsum('bqhd,bkhd->bhqk', qs.float(), k.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.exp(logits - lse[..., None]).to(v.dtype)
+    return torch.einsum('bhqk,bkhd->bqhd', p, v), lse
+
+
+class _MHA(torch.autograd.Function):
+    """Attention on [B, L, heads, d] with the flash residuals (q, k, v, out,
+    lse; no [B, H, Lq, Lkv] tensor) and the kernel backward. ``hybrid``
+    picks the plain forward instead of K4 (``_hybrid`` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, hybrid):
+        b, q_len, heads, d = query.shape
+        q, k, v = _bands(query, key, value)
+        if hybrid:
+            out, lse = attention_plain(query, key, value)
+            out = _bands(out)[0]
+        else:
+            out, lse = flash_fwd(q, k, v, heads, k.shape[1])
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads = heads
+        return out.reshape(b, q_len, heads, d)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, *_bands(dout), ctx.heads,
+                               k.shape[1])
+        shape = lambda a: a.reshape(a.shape[0], a.shape[1], ctx.heads, -1)
+        return shape(dq), shape(dk), shape(dv), None
+
+
 def mha(query, key, value):
     """Flash attention on ``[B, L, heads, d]`` (query pre-scaled), returning
-    ``[B, Lq, heads, d]`` like ``sav_tpu_torch.ops.attention``'s plain path."""
-    b, q_len, heads, d = query.shape
-    kv_len = key.shape[1]
-    out, _ = flash_fwd(query.reshape(b, q_len, heads * d).contiguous(),
-                       key.reshape(b, kv_len, heads * d).contiguous(),
-                       value.reshape(b, kv_len, heads * d).contiguous(),
-                       heads, kv_len)
-    return out.reshape(b, q_len, heads, d)
+    ``[B, Lq, heads, d]`` like ``sav_tpu_torch.ops.attention``'s plain path;
+    forward on K4, backward on K2/K3."""
+    return _MHA.apply(query, key, value, False)
+
+
+def mha_hybrid(query, key, value):
+    """As ``mha`` with the plain forward and the kernel backward."""
+    return _MHA.apply(query, key, value, True)

@@ -1,14 +1,19 @@
-"""The pre-LN attention sublayer ``x + W_o @ MHA(LN(x))`` as one call
-(counterpart of ``sav_tpu/ops/fused_layer.py``, inference forward).
+"""The pre-LN attention sublayer ``x + W_o @ MHA(LN(x))`` as one
+differentiable call (counterpart of ``sav_tpu/ops/fused_layer.py``).
 
 Three cores, as in the JAX package:
   * ``'xla'``   - plain torch everywhere (the name is the JAX package's).
   * ``'flash'`` - LN and projections as library GEMMs, the attention core
                   on the K4 port (``flash_attention.flash_fwd``).
-  * ``'fused'`` - the whole span on the K1 port
+  * ``'fused'`` - the whole forward span on the K1 port
                   (``fused_attention_fwd``, ``csrc/fused_attention.cu``).
-This slice serves only: there is no backward, and the CUDA wrappers refuse
-tensors that require grad while grad is enabled.
+Under autograd the sublayer is one ``torch.autograd.Function`` whose
+residuals are flash-style for every core, ``(x, q, k, v, attn, lse)``: no
+``[B, H, L, L]`` tensor is saved. Its backward follows ``_sublayer_bwd``:
+the out-projection, weight-gradient and LayerNorm backward as library ops,
+the attention core on the K2/K3 port (``flash_attention.flash_bwd``; the
+plain twin on the ``'xla'`` core). A call with grad off (inference, eval)
+runs the forward that writes no residuals.
 """
 
 from __future__ import annotations
@@ -28,12 +33,42 @@ GEMM_TILE = 128         # the K1 port's GEMM tile along N and K
 
 
 def _layernorm(x, scale, bias, eps):
-    """Flax-compatible LayerNorm (fast variance, f32 stats) -> x.dtype."""
+    """Flax-compatible LayerNorm (fast variance, f32 stats).
+
+    Returns (y in x.dtype, xhat f32, inv f32); xhat/inv feed the backward.
+    """
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    xhat = (xf - mu) * torch.rsqrt(var + eps)
-    return (xhat * scale.float() + bias.float()).to(x.dtype)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mu) * inv
+    return (xhat * scale.float() + bias.float()).to(x.dtype), xhat, inv
+
+
+def _layernorm_bwd(dy, xhat, inv, scale):
+    """(dx, dscale, dbias) of LayerNorm from the saved normalized stats,
+    all f32."""
+    dyf = dy.float()
+    dscale = (dyf * xhat).sum(dim=(0, 1))
+    dbias = dyf.sum(dim=(0, 1))
+    dxhat = dyf * scale.float()
+    dx = inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx, dscale, dbias
+
+
+def _wgrad(a, b):
+    """``a^T b`` over the flattened leading axes with an f32 result, as the
+    JAX package's ``preferred_element_type=f32`` weight gradients. bf16
+    operands on the card go through cuBLAS with ``out_dtype=float32`` (bf16
+    products, f32 sums and output): rounding dW to bf16 first, as a plain
+    bf16 matmul would, loses about three digits of every weight gradient
+    before the f32 optimizer sees it; an f32 GEMM costs ~15x the time."""
+    a2 = a.reshape(-1, a.shape[-1])
+    b2 = b.reshape(-1, b.shape[-1])
+    if a2.is_cuda and a2.dtype == torch.bfloat16:
+        return torch.mm(a2.t(), b2, out_dtype=torch.float32)
+    return a2.t().float() @ b2.float()
 
 
 def _project_qkv(y, wq, wk, wv, num_heads, head_d):
@@ -50,15 +85,8 @@ def _project_qkv(y, wq, wk, wv, num_heads, head_d):
             v.reshape(b, l, num_heads, head_d))
 
 
-def _xla_core(qs, k, v):
-    """Plain attention core on [B, L, H, d] (q pre-scaled) -> (attn, lse)."""
-    logits = torch.einsum('bqhd,bkhd->bhqk', qs.float(), k.float())
-    lse = torch.logsumexp(logits, dim=-1)
-    p = torch.exp(logits - lse[..., None]).to(v.dtype)
-    return torch.einsum('bhqk,bkhd->bqhd', p, v), lse
-
-
-def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps):
+def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
+                              save_residuals=False):
     """Plain twin of ``fused_attention_fwd``, rounding where the TPU kernel
     ``_fused_fwd_kernel`` rounds: y, q, k, v, each head's output band and
     the result in x.dtype; products accumulated in f32."""
@@ -66,40 +94,51 @@ def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps):
     hd = wq.shape[1]
     d = hd // heads
     dt = x.dtype
-    y = _layernorm(x, scale, bias, eps).float()
+    y = _layernorm(x, scale, bias, eps)[0].float()
     q = ((y @ wq.float()) * (1.0 / d ** 0.5)).to(dt)
     k = (y @ wk.float()).to(dt)
     v = (y @ wv.float()).to(dt)
     split = lambda a: a.reshape(b, l, heads, d).float()
     s = torch.einsum('bqhd,bkhd->bhqk', split(q), split(k))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     lsum = p.sum(dim=-1, keepdim=True)
     band = torch.einsum('bhqk,bkhd->bhqd', p.to(dt).float(), split(v)) / lsum
     attn = band.to(dt).permute(0, 2, 1, 3).reshape(b, l, hd)
-    return (x.float() + attn.float() @ wo.float()).to(dt)
+    out = (x.float() + attn.float() @ wo.float()).to(dt)
+    if not save_residuals:
+        return out
+    return out, (q, k, v, attn, (m + torch.log(lsum))[..., 0])
 
 
 def _k1_lib():
     fn = _build.library('fused_attention').sav_fused_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
-                        eps: float = LN_EPS):
+                        eps: float = LN_EPS, save_residuals: bool = False):
     """Port of K1: ``x + W_o @ MHA(LN(x))`` in one call.
 
     x ``[B, L, D]``; scale, bias ``[D]``; wq, wk, wv ``[D, H*d]`` and wo
     ``[H*d, D]`` in x's dtype. On a CUDA tensor: the hand-written kernels
     (four launches, see ``csrc/fused_attention.cu``), bf16 only, d = 64,
     D and H*d multiples of 128. On a CPU tensor: the plain twin.
+
+    Returns ``out``; with ``save_residuals`` (the training variant)
+    ``(out, (q, k, v, attn, lse))``: q (pre-scaled), k, v and attn as
+    ``[B, L, H*d]``, lse ``[B, H, L]`` f32, the backward's residuals. The
+    LN output y is not kept (``B*L*D`` bf16 a layer, 58 MB at ViT-B @224
+    bs192): the backward recomputes it with the LN statistics it needs
+    anyway, as the JAX package does.
     """
     if x.device.type == 'cpu':
         return fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo,
-                                         heads, eps)
+                                         heads, eps, save_residuals)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_attention_fwd runs on cuda or cpu, not {x.device}')
     fa.check_no_grad(x, scale, bias, wq, wk, wv, wo)
@@ -116,22 +155,26 @@ def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
     scale = scale.to(x.device, torch.float32).contiguous()
     bias = bias.to(x.device, torch.float32).contiguous()
-    scratch = [torch.empty(b * l, n, dtype=x.dtype, device=x.device)
-               for n in (dim, hd, hd, hd, hd)]    # y, q, k, v, attn
+    y = torch.empty(b * l, dim, dtype=x.dtype, device=x.device)
+    qkva = [torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
+            for _ in range(4)]                    # q, k, v, attn
+    lse = (torch.empty(b, heads, l, dtype=torch.float32, device=x.device)
+           if save_residuals else None)
     out = torch.empty_like(x)
     fn = _k1_lib()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                  wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-                 *[t.data_ptr() for t in scratch], out.data_ptr(),
+                 y.data_ptr(), *[t.data_ptr() for t in qkva], out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, l, dim, heads, eps, 1.0 / math.sqrt(fa.BAND),
                  fa.stream_of(x.device))
     _build.check(err, 'fused_attention_fwd')
-    fused_attention_fwd.launches += 1
-    return out
-
-
-fused_attention_fwd.launches = 0
+    if not save_residuals:
+        _build.count('fused_attention_fwd')
+        return out
+    _build.count('fused_attention_fwd_train')
+    return out, (*qkva, lse)
 
 
 def fused_supported(l: int, num_heads: int, head_d: int) -> bool:
@@ -163,9 +206,102 @@ def auto_core(l: int, num_heads: int, head_ch: int, device):
     return None
 
 
+def _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
+             residual, rotary, save_residuals):
+    """(out, residuals): residuals ``(q, k, v, attn, lse)`` on the
+    ``[B, L, H*d]`` layout (q pre-scaled and, with ``rotary``, rotated) when
+    ``save_residuals``, else None."""
+    b, l, dim = x.shape
+    head_d = wq.shape[2]
+    hd = num_heads * head_d
+    cdt = x.dtype
+
+    if core == 'fused':
+        ws = [w.reshape(dim, hd).to(cdt) for w in (wq, wk, wv)]
+        ws.append(wo.reshape(hd, dim).to(cdt))
+        if save_residuals:
+            return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps,
+                                       save_residuals=True)
+        return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps), None
+
+    y = _layernorm(x, scale, bias, eps)[0]
+    qs, k, v = _project_qkv(y, wq, wk, wv, num_heads, head_d)
+    if rotary:
+        freqs = sincos_frequencies(l, head_d, device=x.device)
+        qs = apply_rotary_heads(qs, freqs)
+        k = apply_rotary_heads(k, freqs)
+    qs, k, v = (t.reshape(b, l, hd).contiguous() for t in (qs, k, v))
+
+    if core == 'xla':
+        attn, lse = fa.attention_plain(*(t.reshape(b, l, num_heads, head_d)
+                                         for t in (qs, k, v)))
+        attn = attn.reshape(b, l, hd)
+    else:
+        attn, lse = fa.flash_fwd(qs, k, v, num_heads, l)
+
+    out = attn @ wo.reshape(hd, dim).to(cdt)
+    if residual:
+        out = x + out
+    return out, ((qs, k, v, attn, lse) if save_residuals else None)
+
+
+class _AttentionSublayer(torch.autograd.Function):
+    """``_sublayer_fwd``/``_sublayer_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
+                residual, rotary):
+        out, res = _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core,
+                            eps, residual, rotary, save_residuals=True)
+        ctx.save_for_backward(x, scale, bias, wq, wk, wv, wo, *res)
+        ctx.config = (num_heads, core, eps, residual, rotary)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, wq, wk, wv, wo, qs, k, v, attn, lse = ctx.saved_tensors
+        num_heads, core, eps, residual, rotary = ctx.config
+        b, l, dim = x.shape
+        head_d = wq.shape[2]
+        hd = num_heads * head_d
+        cdt = x.dtype
+        sc = torch.full((), 1.0 / math.sqrt(head_d), dtype=cdt, device=x.device)
+        w2 = [w.reshape(dim, hd).to(cdt) for w in (wq, wk, wv)]
+        g_c = g.to(cdt)
+
+        # output projection backward (library GEMMs)
+        d_attn = g_c @ wo.reshape(hd, dim).to(cdt).t()
+        dwo = _wgrad(attn, g_c)
+        bwd = fa.flash_bwd_plain if core == 'xla' else fa.flash_bwd
+        dqs, dk, dv = bwd(qs, k, v, attn, lse, d_attn.contiguous(), num_heads,
+                          l)
+        dq = dqs * sc                           # undo the q pre-scaling
+        if rotary:
+            # q/k were rotated after projection; the rotation is orthogonal,
+            # so the cotangent goes back through the negated table
+            freqs = sincos_frequencies(l, head_d, device=x.device)
+            unrot = lambda a: apply_rotary_heads(
+                a.reshape(b, l, num_heads, head_d), -freqs).reshape(b, l, hd)
+            dq, dk = unrot(dq), unrot(dk)
+
+        # projection weight gradients and dy; y recomputed from x
+        y, xhat, inv = _layernorm(x, scale, bias, eps)
+        dwq, dwk, dwv = (_wgrad(y, t) for t in (dq, dk, dv))
+        dy = dq @ w2[0].t() + dk @ w2[1].t() + dv @ w2[2].t()
+        dx_ln, dscale, dbias = _layernorm_bwd(dy, xhat, inv, scale)
+        dx = (dx_ln + g.float()).to(cdt) if residual else dx_ln.to(cdt)
+        shape_w = (dim, num_heads, head_d)
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype),
+                dwq.reshape(shape_w).to(wq.dtype),
+                dwk.reshape(shape_w).to(wk.dtype),
+                dwv.reshape(shape_w).to(wv.dtype),
+                dwo.reshape(num_heads, head_d, dim).to(wo.dtype),
+                None, None, None, None, None)
+
+
 def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
                        core='flash', eps=LN_EPS, residual=True, rotary=False):
-    """``x + W_o @ MHA(LN(x))`` (inference forward).
+    """``x + W_o @ MHA(LN(x))``, differentiable in all seven tensors.
 
     Args:
       x: ``[B, L, D]`` activations.
@@ -175,42 +311,17 @@ def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
       num_heads, core, eps, residual, rotary: as in the JAX package;
         ``core`` in ``CORES``.
     """
-    b, l, dim = x.shape
-    head_d = wq.shape[2]
-    hd = num_heads * head_d
-    cdt = x.dtype
-
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
     if rotary and core == 'fused':
         core = 'flash'          # rotation is not in the fused kernel (yet)
-    if core == 'fused':
-        if not residual:
-            raise NotImplementedError(
-                "core='fused' adds the residual in-kernel; residual=False "
-                'waits for the TNT slice (ROADMAP.md)')
-        return fused_attention_fwd(
-            x, scale, bias, wq.reshape(dim, hd).to(cdt),
-            wk.reshape(dim, hd).to(cdt), wv.reshape(dim, hd).to(cdt),
-            wo.reshape(hd, dim).to(cdt), num_heads, eps)
-
-    y = _layernorm(x, scale, bias, eps)
-    qs, k, v = _project_qkv(y, wq, wk, wv, num_heads, head_d)
-    if rotary:
-        freqs = sincos_frequencies(l, head_d, device=x.device)
-        qs = apply_rotary_heads(qs, freqs)
-        k = apply_rotary_heads(k, freqs)
-
-    if core == 'xla':
-        attn, _ = _xla_core(qs, k, v)
-    elif core == 'flash':
-        outp, _ = fa.flash_fwd(qs.reshape(b, l, hd).contiguous(),
-                               k.reshape(b, l, hd).contiguous(),
-                               v.reshape(b, l, hd).contiguous(),
-                               num_heads, l)
-        attn = outp.reshape(b, l, num_heads, head_d)
-    else:
-        raise ValueError(f'core must be one of {CORES}, got {core!r}')
-
-    out = attn.reshape(b, l, hd) @ wo.reshape(hd, dim).to(cdt)
-    if residual:
-        out = x + out
-    return out
+    if core == 'fused' and not residual:
+        raise NotImplementedError(
+            "core='fused' adds the residual in-kernel; residual=False "
+            'waits for the TNT slice (ROADMAP.md)')
+    args = (x, scale, bias, wq, wk, wv, wo)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _AttentionSublayer.apply(*args, num_heads, core, eps, residual,
+                                        rotary)
+    return _forward(*args, num_heads, core, eps, residual, rotary,
+                    save_residuals=False)[0]

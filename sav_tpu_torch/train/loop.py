@@ -1,0 +1,259 @@
+"""Training orchestration on one device: config, metric logging and the
+train loop (counterpart of ``sav_tpu/train/loop.py``).
+
+What runs: the synthetic source, the step loop with periodic metrics,
+evaluation every ``eval_every_epochs`` and at the end, and ``params.npz``
+checkpoints (the flax params tree, ``/`` keys; what the port's ``predict
+-c`` reads) at the checkpoint cadence and at the end. Real datasets, mesh
+parallelism, remat, quantization, chained dispatch, fine-tuning, resume
+and optimizer-state checkpoints are refused with their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+import warnings
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from sav_tpu_torch import resolve_device
+from sav_tpu_torch.data.synthetic import SyntheticDataset
+from sav_tpu_torch.models import create_model
+from sav_tpu_torch.train import steps as steps_lib
+from sav_tpu_torch.train.state import (DTYPES, TrainState, build_optimizer,
+                                       warmup_cosine_schedule,
+                                       warmup_stable_decay_schedule)
+from sav_tpu_torch.utils.flax_bridge import flatten_tree, torch_to_flax
+
+IMAGENET_TRAIN_IMAGES = 1_281_167
+CHECKPOINT_FILE = 'params.npz'
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Typed training configuration; the JAX package's field names."""
+
+    model_name: str = 'vit_b_patch16'
+    img_size: int = 224
+    num_epochs: int = 300
+    batch_size: int = 32
+    label_smoothing: float = 0.1
+    augmentation: str = 'cutmix_mixup_randaugment_405'
+    lr: float = 5e-4
+    weight_decay: float = 1e-4
+    clip_grad: Optional[float] = None
+    checkpoint_dir: Optional[str] = None
+    seed: int = 42
+    num_classes: int = 1000
+    dtype: str = 'bfloat16'
+    dataset: str = 'synthetic'
+    eval_dataset: Optional[str] = None
+    holdout_fraction: float = 0.05
+    images_per_epoch: int = IMAGENET_TRAIN_IMAGES
+    total_steps: Optional[int] = None
+    model_parallelism: int = 1
+    pipeline_parallelism: int = 1
+    pipeline_microbatches: int = 4
+    remat: Union[bool, str] = False
+    mu_dtype: Optional[str] = None
+    ema_decay: Optional[float] = None
+    schedule: str = 'cosine'            # 'cosine' | 'wsd'
+    finetune_from: Optional[str] = None
+    finetune_use_ema: bool = False
+    pos_embed: str = 'learned'
+    quantized: Union[bool, str] = False
+    grad_accum: int = 1
+    scan_layers: bool = False
+    steps_per_dispatch: int = 1
+    prefetch_chunks: int = 2
+    data_workers: int = 0
+    log_every: int = 100
+    eval_every_epochs: int = 5
+    checkpoint_every_epochs: int = 10
+    eval_batches: Optional[int] = None
+    profile_steps: Optional[tuple] = None
+    profile_dir: Optional[str] = None
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, self.images_per_epoch // self.batch_size)
+
+    @property
+    def steps_total(self) -> int:
+        if self.total_steps is not None:
+            return self.total_steps
+        return self.steps_per_epoch * self.num_epochs
+
+
+# field -> (the only value the port runs, what it waits for)
+UNPORTED = {
+    'dataset': ('synthetic', 'real data sources: Queue 1 item 5'),
+    'eval_dataset': (None, 'real data sources: Queue 1 item 5'),
+    'holdout_fraction': (0.05, 'real data sources: Queue 1 item 5'),
+    'data_workers': (0, 'real data sources: Queue 1 item 5'),
+    'prefetch_chunks': (2, 'chained dispatch over host data: Queue 1 item 6'),
+    'model_parallelism': (1, 'the parallel tier: Queue 1 item 13'),
+    'pipeline_parallelism': (1, 'the parallel tier: Queue 1 item 13'),
+    'pipeline_microbatches': (4, 'the parallel tier: Queue 1 item 13'),
+    'scan_layers': (False, 'the scan-stacked layout: Queue 1 item 1'),
+    'remat': (False, 'remat policies: Queue 1 item 2'),
+    'quantized': (False, 'int8: Queue 1 item 14'),
+    'steps_per_dispatch': (1, 'chained dispatch: Queue 1 item 6'),
+    'finetune_from': (None, 'fine-tuning: Queue 1 item 6'),
+    'finetune_use_ema': (False, 'fine-tuning: Queue 1 item 6'),
+    'profile_steps': (None, 'profiler traces: Queue 1 item 6'),
+}
+
+
+def check_ported(config: TrainConfig) -> None:
+    """Raises NotImplementedError on a field the port does not run yet."""
+    for name, (value, item) in UNPORTED.items():
+        if getattr(config, name) != value:
+            raise NotImplementedError(
+                f'{name}={getattr(config, name)!r} is not ported to '
+                f'sav_tpu_torch yet ({item}, ROADMAP.md)')
+
+
+class MetricLogger:
+    """Scalar logger to stdout; also to wandb when asked and installed."""
+
+    def __init__(self, use_wandb: bool = False, project: str = 'sav_tpu'):
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb  # optional; not installed in all environments
+                wandb.init(project=project)
+                self._wandb = wandb
+            except ImportError:
+                warnings.warn('wandb requested but not installed')
+
+    def log(self, metrics: Dict[str, Any], step: int) -> None:
+        scalars = {k: float(v) for k, v in metrics.items()}
+        print(f'step {step}: ' + ' '.join(f'{k}={v:.5g}'
+                                          for k, v in scalars.items()),
+              flush=True)
+        if self._wandb is not None:
+            self._wandb.log(scalars, step=step)
+
+
+class Trainer:
+    """Builds the model, optimizer and state on one device and runs the
+    training loop."""
+
+    def __init__(self, config: TrainConfig, use_wandb: bool = False,
+                 device=None):
+        check_ported(config)
+        if config.dtype not in DTYPES:
+            raise ValueError(f'dtype must be one of {sorted(DTYPES)}, got '
+                             f'{config.dtype!r}')
+        self.config = config
+        self.device = resolve_device(device)
+        self.checkpoint_path = None
+        if config.checkpoint_dir:
+            self.checkpoint_path = os.path.join(config.checkpoint_dir,
+                                                CHECKPOINT_FILE)
+            if os.path.exists(self.checkpoint_path):
+                raise NotImplementedError(
+                    f'{self.checkpoint_path} exists: resuming is not ported '
+                    'yet (ROADMAP.md Queue 1 item 6); pass a new -c directory')
+        model_kwargs = {}
+        if config.pos_embed != 'learned':
+            model_kwargs['pos_embed'] = config.pos_embed
+        self.model = create_model(config.model_name,
+                                  num_classes=config.num_classes,
+                                  dtype=DTYPES[config.dtype],
+                                  img_size=config.img_size, seed=config.seed,
+                                  device=self.device, **model_kwargs)
+        if config.schedule == 'wsd':
+            peak = config.lr * (config.batch_size / 512)
+            self.schedule = warmup_stable_decay_schedule(
+                peak, config.steps_total,
+                warmup_steps=5 * config.steps_per_epoch,
+                decay_steps=max(1, config.steps_total // 10))
+        elif config.schedule == 'cosine':
+            self.schedule = warmup_cosine_schedule(
+                config.lr, config.batch_size, config.steps_per_epoch)
+        else:
+            raise ValueError(f"schedule must be 'cosine' or 'wsd', got "
+                             f'{config.schedule!r}')
+        self.optimizer = build_optimizer(self.model.parameters(), self.schedule,
+                                         weight_decay=config.weight_decay,
+                                         clip_grad=config.clip_grad,
+                                         mu_dtype=config.mu_dtype)
+        self.state = TrainState(self.model, self.optimizer,
+                                ema=config.ema_decay is not None)
+        self.logger = MetricLogger(use_wandb=use_wandb)
+
+    def dataset(self, seed_offset: int = 0) -> SyntheticDataset:
+        c = self.config
+        return SyntheticDataset(c.batch_size, c.img_size,
+                                num_classes=c.num_classes,
+                                seed=c.seed + seed_offset, device=self.device)
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        c = self.config
+        return steps_lib.train_step(self.state, batch,
+                                    num_classes=c.num_classes,
+                                    label_smoothing=c.label_smoothing,
+                                    ema_decay=c.ema_decay,
+                                    grad_accum=c.grad_accum)
+
+    def evaluate(self, dataset,
+                 num_batches: Optional[int] = None) -> Dict[str, float]:
+        """Mean eval metrics over ``num_batches`` (16 for the infinite
+        synthetic source, as in the JAX package)."""
+        sums = None
+        for step in range(num_batches or 16):
+            out = steps_lib.eval_step(self.state, dataset.batch(step),
+                                      num_classes=self.config.num_classes,
+                                      use_ema=self.config.ema_decay is not None)
+            sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+        count = max(float(sums.pop('eval_count')), 1.0)
+        return {k: float(v) / count for k, v in sums.items()}
+
+    def save_checkpoint(self) -> None:
+        """Writes the params tree to ``checkpoint_dir/params.npz``."""
+        os.makedirs(self.config.checkpoint_dir, exist_ok=True)
+        tmp = f'{self.checkpoint_path}.{os.getpid()}.tmp'
+        with open(tmp, 'wb') as f:
+            np.savez(f, **flatten_tree(torch_to_flax(self.model.state_dict())))
+        os.replace(tmp, self.checkpoint_path)
+
+    def run(self) -> Dict[str, float]:
+        c = self.config
+        train_data = self.dataset()
+        eval_data = self.dataset(seed_offset=1)
+        steps_per_eval = c.steps_per_epoch * c.eval_every_epochs
+        steps_per_ckpt = c.steps_per_epoch * c.checkpoint_every_epochs
+        last_metrics: Dict[str, float] = {}
+        window_start = time.perf_counter()
+        window_images = 0
+
+        for step in range(self.state.step, c.steps_total):
+            metrics = self.train_step(train_data.batch(step))
+            window_images += c.batch_size
+            if step % c.log_every == 0 or step == c.steps_total - 1:
+                last_metrics = {k: float(v) for k, v in metrics.items()}
+                elapsed = time.perf_counter() - window_start
+                last_metrics['images_per_sec'] = window_images / max(elapsed,
+                                                                     1e-9)
+                last_metrics['learning_rate'] = float(self.schedule(step))
+                self.logger.log(last_metrics, step)
+                window_start = time.perf_counter()
+                window_images = 0
+
+            next_step = step + 1
+            if self.checkpoint_path is not None and (
+                    (steps_per_ckpt and next_step % steps_per_ckpt == 0)
+                    or next_step == c.steps_total):
+                self.save_checkpoint()
+            if ((steps_per_eval and next_step % steps_per_eval == 0)
+                    or next_step == c.steps_total):
+                eval_metrics = self.evaluate(eval_data, c.eval_batches)
+                self.logger.log(eval_metrics, next_step)
+                last_metrics.update(eval_metrics)
+        return last_metrics

@@ -97,10 +97,10 @@ def test_layernorm_matches_jax():
     p = _params(17)
     y, _, _ = jax_fl._layernorm(jnp.asarray(p['x']), jnp.asarray(p['scale']),
                                 jnp.asarray(p['bias']), jax_fl.LN_EPS)
-    ours = fused_layer._layernorm(torch.from_numpy(p['x']),
-                                  torch.from_numpy(p['scale']),
-                                  torch.from_numpy(p['bias']),
-                                  fused_layer.LN_EPS)
+    ours, _, _ = fused_layer._layernorm(torch.from_numpy(p['x']),
+                                        torch.from_numpy(p['scale']),
+                                        torch.from_numpy(p['bias']),
+                                        fused_layer.LN_EPS)
     np.testing.assert_allclose(ours.numpy(), np.asarray(y), atol=ATOL, rtol=0)
 
 
