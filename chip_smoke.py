@@ -26,7 +26,17 @@
    plain core (use_kernel='fused_layer_xla', same boundary), with the f32
    per-op path as the reference that sets the bf16 noise floor; train
    img/s over 10 steps after warm-up; one eval batch.
-5. Prints one JSON line of every ported kernel, then the result line
+5. CaiT-S/24 (slice 3): the talking-heads kernels against their twins at
+   the path's shapes (K5a serve B=32 and train B=128 at L=196, K5b B=128;
+   K6a B=32 and B=48 at L=576, K6b B=48), outputs, lse, dq/dk/dv and
+   dM_pre/dM_post, the ragged last tile on its own; serving @224 (24 K5a
+   launches per forward) and @384 (24 K6a) at batch 32 with logits against
+   the per-op path; training through the Trainer @224 bs128 (24 K5a-train +
+   24 K5b per step) and @384 bs48 (24 K6a + 24 K6b) at stochastic depth
+   0.1, gradients against the plain core (use_kernel='fused_th_xla') with
+   the f32 per-op path as the noise floor on the step's whole batch,
+   train img/s and peak memory.
+6. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
 """
@@ -46,10 +56,12 @@ import torch.nn.functional as F
 
 from sav_tpu_torch import _build
 from sav_tpu_torch.data.preprocess import eval_preprocess
-from sav_tpu_torch.models import create_model
-from sav_tpu_torch.models.vit import set_use_kernel
+from sav_tpu_torch.models import create_model, set_use_kernel
+from sav_tpu_torch.nn.normalization import LayerScaleBlock
+from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
 from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops import fused_layer
+from sav_tpu_torch.ops import th_attention as th
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from sav_tpu_torch.predict import decode_size_for, serve
 from sav_tpu_torch.train import TrainConfig, Trainer
@@ -57,6 +69,7 @@ from sav_tpu_torch.train.steps import loss_and_logits
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Tolerances. Outputs: max |kernel - twin| over max |twin| (K1: over max
@@ -82,6 +95,14 @@ LOGIT_TOL = 5e-2
 # bf16 p or ds (2^-8 relative) are expected; summed over L rows they stay
 # well under 1%. A wrong tile, mask or fragment moves a gradient by O(1).
 BWD_TOL = 2e-2
+# dM_pre and dM_post of K5b/K6b vs the twin, max |kernel - twin| over max
+# |twin|: both sum the same f32 products over B x L x L positions in other
+# orders, and agree to 9.3e-6 of max (H100 80GB HBM3, 700 W, at K5b's and
+# K6b's shapes). They are sums of B x ceil(L / 16) per-block partials (1728
+# at B = 48, L = 576): one dropped or mis-masked partial (a ragged last
+# query tile, one image) moves them by ~1/1728 = 6e-4 of max or more, which
+# BWD_TOL would pass; 1e-4 catches it and leaves 10x room over the noise.
+DM_TOL = 1e-4
 # Each parameter's gradient of the kernel path vs the plain core on the same
 # sublayer boundary (use_kernel='fused_layer_xla'), as |g_kernel - g_plain|
 # / |g_plain| (L2 over the parameter), must be within max(GRAD_TOL,
@@ -123,8 +144,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, f32_flops: float = 0.0):
+    """The least time for ``flops`` bf16 tensor-core operations plus
+    ``f32_flops`` scalar f32 operations (the talking-heads mixes) and
+    ``nbytes`` of device memory traffic: the larger of the two times."""
+    t_ops = flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -245,21 +270,27 @@ def check_k4(rng, checks, batch, seq, heads=12):
 
 
 def fill_head(model, seed: int) -> None:
-    """The ViT head and cls token are zero-initialised, which makes every
-    random-init logit 0; fill them from the seed so logits can be compared."""
+    """The head and cls token are zero-initialised, which makes every
+    random-init logit 0; fill them from the seed so logits can be compared.
+    CaiT's LayerScale starts at 1e-6 (cait_s_24), which would hide every
+    attention sublayer from the logits and the gradients downstream of it:
+    raise it to 0.1."""
     gen = torch.Generator().manual_seed(seed + 1)
     head = model.Dense_0.kernel
     with torch.no_grad():
         head.copy_(torch.randn(head.shape, generator=gen)
                    / math.sqrt(head.shape[0]))
         model.cls.copy_(torch.randn(model.cls.shape, generator=gen) * 0.02)
+        for sub in model.modules():
+            if isinstance(sub, LayerScaleBlock):
+                sub.layerscale.fill_(0.1)
 
 
 def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
-               profile=False):
+               profile=False, model_name='vit_b_patch16', per_forward=12):
     """Drives ``serve`` once with the counts at 0, then compares logits
     with the plain cores and measures img/s. Returns the launch count."""
-    model = create_model('vit_b_patch16', num_classes=1000,
+    model = create_model(model_name, num_classes=1000,
                          dtype=torch.bfloat16, img_size=img_size, seed=seed,
                          device='cuda', use_kernel=use_kernel)
     fill_head(model, seed)
@@ -272,8 +303,9 @@ def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
     probs, idx = serve(model, frames, img_size, 5)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
-    checks.expect(counts == {counter: 12},
-                  f'{name}: launches per forward {counts} (want 12 {counter})')
+    checks.expect(counts == {counter: per_forward},
+                  f'{name}: launches per forward {counts} (want {per_forward} '
+                  f'{counter})')
     checks.expect(tuple(idx.shape) == (batch, 5)
                   and bool(torch.isfinite(probs).all()),
                   f'{name}: top-5 of shape {tuple(idx.shape)}, finite')
@@ -305,6 +337,8 @@ def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
           f'(includes host waits)', flush=True)
     if profile:
         print_profile(lambda: serve(model, frames, img_size, 5))
+    del model
+    torch.cuda.empty_cache()
     return counts.get(counter, 0)
 
 
@@ -452,21 +486,256 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
     return recs
 
 
-def _grads(model, batch):
+# ---- talking-heads kernels (K5a, K5b, K6a, K6b; csrc/th_attention.cu)
+
+def _th_mixes(rng, heads):
+    """Two [H, H] f32 mixes near the identity."""
+    return [(torch.eye(heads) + 0.3 * torch.from_numpy(rng.standard_normal(
+        (heads, heads)).astype(np.float32))).cuda() for _ in range(2)]
+
+
+def _th_work(batch, seq, heads, products, mixes):
+    """(tensor-core operations, f32 operations) of a TH core pass:
+    ``products`` L x L x 48 products per (image, head), and ``mixes``
+    [H, H] mixes or H^2-wide sums per (image, query, key), 2 H^2 f32
+    operations each on the CUDA cores."""
+    pos = batch * seq * seq
+    return (products * 2 * pos * heads * th.HEAD_CH,
+            mixes * 2 * heads * heads * pos)
+
+
+def _th_library(q, k, v, m_pre, m_post, heads):
+    """The TH core as a per-op torch chain in bf16 (timed only): no single
+    PyTorch call computes talking-heads attention."""
+    b, l, hd = q.shape
+    split = lambda a: a.view(b, l, heads, th.HEAD_CH).transpose(1, 2)
+    s = split(q) @ split(k).transpose(-1, -2)
+    s = torch.einsum('hi,bhqk->biqk', m_pre.bfloat16(), s)
+    p = torch.einsum('hi,bhqk->biqk', m_post.bfloat16(), s.softmax(-1))
+    return (p @ split(v)).transpose(1, 2).reshape(b, l, hd)
+
+
+def check_k5a(rng, checks, batch, seq, save_residuals, dim=384, heads=8):
+    """K5a (the whole span, no residual) vs its twin at [batch, seq, dim]:
+    out, and with ``save_residuals`` q, k, v, attn and the lse (against the
+    lse of the kernel's own q and k). Returns the kernel record."""
+    hd = heads * th.HEAD_CH
+    x = _bf16(rng, (batch, seq, dim))
+    scale = (1.0 + 0.1 * _bf16(rng, (dim,))).float()
+    bias = (0.1 * _bf16(rng, (dim,))).float()
+    wq = _bf16(rng, (dim, hd), 4.0 / math.sqrt(dim))
+    wk, wv = (_bf16(rng, (dim, hd), 1.0 / math.sqrt(dim)) for _ in range(2))
+    wo = _bf16(rng, (hd, dim), 1.0 / math.sqrt(hd))
+    m = _th_mixes(rng, heads)
+    args = (x, scale, bias, wq, wk, wv, wo, *m, heads)
+    run = lambda: th.th_attention_fwd(*args, save_residuals=save_residuals)
+    plain = lambda: th.th_attention_fwd_plain(*args,
+                                              save_residuals=save_residuals)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    name = f'K5a th_attention_fwd{" train" if save_residuals else ""}'
+    if save_residuals:
+        (out, res), (p_out, p_res) = got, want
+        errs = [_rel(a, b) for a, b in zip(res[:4], p_res[:4])]
+        abs_err = max(_abs(a, b) for a, b in zip((out, *res[:4]),
+                                                 (p_out, *p_res[:4])))
+        _, own_lse = th.th_core_fwd_plain(*res[:3], *m, heads)
+        lse_err = _abs(res[4], own_lse)
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *res))
+        extra = (f', q/k/v/attn {", ".join(f"{e:.3g}" for e in errs)} of max; '
+                 f'lse vs its own q,k {lse_err:.3g} (tol {LSE_TOL})')
+    else:
+        out, p_out, errs, lse_err = got, want, [], 0.0
+        abs_err = _abs(out, p_out)
+        finite, extra = bool(torch.isfinite(out).all()), ''
+    err_out = _rel(out, p_out)
+    checks.expect(finite and max([err_out] + errs) <= OUT_TOL
+                  and lse_err <= LSE_TOL,
+                  f'{name} B={batch} L={seq}: out {err_out:.3g} of max (tol '
+                  f'{OUT_TOL}){extra}')
+
+    def library():
+        y = F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
+        q = (y @ wq) * (1.0 / math.sqrt(th.HEAD_CH))
+        return _th_library(q, y @ wk, y @ wv, *m, heads) @ wo
+
+    mrows = batch * seq
+    ops, f32_ops = _th_work(batch, seq, heads, 2, 2)
+    ops += 2 * mrows * dim * 3 * hd + 2 * mrows * hd * dim
+    nbytes = 2 * mrows * dim * 2 + 4 * dim * hd * 2 + 2 * dim * 4
+    if save_residuals:
+        nbytes += 4 * mrows * hd * 2 + batch * heads * seq * 4
+    b_ms, b_by = bound_ms(ops, nbytes, f32_ops)
+    rec = dict(ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(abs_err, lse_err))
+    print(f'  {name} B={batch} L={seq}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.2f} GFLOP tensor, '
+          f'{f32_ops / 1e9:.2f} GFLOP f32 mixes)', flush=True)
+    return rec
+
+
+def _th_core_inputs(rng, batch, seq, heads=8):
+    """q (pre-scaled, a peaked softmax), k, v, do as [B, L, H*48] bf16 and
+    the two mixes."""
+    hd = heads * th.HEAD_CH
+    q = _bf16(rng, (batch, seq, hd), 0.4)
+    k, v, do = (_bf16(rng, (batch, seq, hd)) for _ in range(3))
+    return q, k, v, do, _th_mixes(rng, heads)
+
+
+def check_k6a(rng, checks, batch, seq, heads=8):
+    """K6a (the TH core, two sweeps over the keys) vs its twin; returns the
+    kernel record."""
+    q, k, v, _, m = _th_core_inputs(rng, batch, seq, heads)
+    run = lambda: th.th_core_fwd(q, k, v, *m, heads)
+    plain = lambda: th.th_core_fwd_plain(q, k, v, *m, heads)
+    (attn, lse), (p_attn, p_lse) = run(), plain()
+    torch.cuda.synchronize()
+    err, lse_err = _rel(attn, p_attn), _abs(lse, p_lse)
+    finite = bool(torch.isfinite(attn).all() and torch.isfinite(lse).all())
+    checks.expect(finite and err <= OUT_TOL and lse_err <= LSE_TOL,
+                  f'K6a th_core_fwd B={batch} L={seq}: attn err {err:.3g} of '
+                  f'max (tol {OUT_TOL}), lse abs err {lse_err:.3g} (tol '
+                  f'{LSE_TOL})')
+    ops, f32_ops = _th_work(batch, seq, heads, 2, 2)
+    hd = heads * th.HEAD_CH
+    nbytes = 4 * batch * seq * hd * 2 + batch * heads * seq * 4
+    b_ms, b_by = bound_ms(ops, nbytes, f32_ops)
+    rec = dict(ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
+               library_ms=time_ms(lambda: _th_library(q, k, v, *m, heads)),
+               bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(_abs(attn, p_attn), lse_err))
+    print(f'  K6a B={batch} L={seq}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {b_ms:.4f} ms ({b_by})', flush=True)
+    return rec
+
+
+def check_th_bwd(rng, checks, batch, seq, entry, heads=8):
+    """K5b (``th_attention_bwd``) or K6b (``th_core_bwd``) vs the backward
+    twin: dq, dk, dv and dM_pre, dM_post, each as max |kernel - twin| over
+    max |twin|. Returns the kernel record."""
+    q, k, v, do, m = _th_core_inputs(rng, batch, seq, heads)
+    _, lse = th.th_core_fwd_plain(q, k, v, *m, heads)
+    fn = getattr(th, entry)
+    run = lambda: fn(q, k, v, do, lse, *m, heads)
+    plain = lambda: th.th_core_bwd_plain(q, k, v, do, lse, *m, heads)
+    grads, twin = run(), plain()
+    torch.cuda.synchronize()
+    errs = [_rel(g, t) for g, t in zip(grads, twin)]
+    shapes = all(g.shape == t.shape for g, t in zip(grads, twin))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    name = 'K5b' if entry == 'th_attention_bwd' else 'K6b'
+    checks.expect(shapes and finite and max(errs[:3]) <= BWD_TOL
+                  and max(errs[3:]) <= DM_TOL,
+                  f'{name} {entry} B={batch} L={seq}: dq/dk/dv err '
+                  f'{", ".join(f"{e:.3g}" for e in errs[:3])} of max (tol '
+                  f'{BWD_TOL}); dM_pre/dM_post err '
+                  f'{", ".join(f"{e:.3g}" for e in errs[3:])} of max (tol '
+                  f'{DM_TOL})')
+
+    # library yardstick: the per-op chain's backward (fwd+bwd minus fwd)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = time_ms(lambda: _th_library(*leaves, *m, heads))
+    both = time_ms(lambda: torch.autograd.grad(
+        _th_library(*leaves, *m, heads), leaves, do))
+    ops, f32_ops = _th_work(batch, seq, heads, 5, 6)
+    hd = heads * th.HEAD_CH
+    nbytes = 7 * batch * seq * hd * 2 + batch * heads * seq * 4
+    b_ms, b_by = bound_ms(ops, nbytes, f32_ops)
+    rec = dict(ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
+               library_ms=max(both - fwd, 0.0), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(_abs(g, t) for g, t in zip(grads, twin)))
+    print(f'  {name} B={batch} L={seq}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library (per-op backward) '
+          f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by})',
+          flush=True)
+    return rec
+
+
+def check_th_tails(rng, checks, seq, heads=8):
+    """The ragged last tile on its own (L = 196 and 576 are not multiples of
+    the kernels' 16- or 32-row tiles): every output of the TH kernels goes
+    into a buffer of 64 more rows holding a NaN sentinel; the L rows must
+    match the twins and the rows past L must keep the sentinel (nothing is
+    padded, no row is dropped, none is written past the length)."""
+    hd = heads * th.HEAD_CH
+    dim = hd
+    q, k, v, do, m = _th_core_inputs(rng, 1, seq, heads)
+    big = lambda w: torch.full((1, seq + 64, w), float('nan'),
+                               device='cuda', dtype=torch.bfloat16)
+    ptr = lambda t: t.data_ptr()
+    stream = fa.stream_of(q.device)
+    attn, dq, dk, dv = big(hd), big(hd), big(hd), big(hd)
+    lse = torch.empty(1, heads, seq, device='cuda')
+    errs = [th._fn('sav_th_core_fwd', 7, 3)(
+        ptr(q), ptr(k), ptr(v), ptr(m[0]), ptr(m[1]), ptr(attn), ptr(lse), 1,
+        seq, heads, stream)]
+    delta = torch.empty_like(lse)
+    dm = torch.empty(1, -(-seq // (th.ROWS_PER_BLOCK // heads)), 2, heads,
+                     heads, device='cuda')
+    errs.append(th._fn('sav_th_core_bwd', 12, 3)(
+        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(m[0]), ptr(m[1]),
+        ptr(delta), ptr(dm), ptr(dq), ptr(dk), ptr(dv), 1, seq, heads,
+        stream))
+    # K5a's span where it takes the length: its attn scratch and out in
+    # sentinel buffers
+    spans = []
+    if th.fused_fits(seq, heads, dim):
+        x = _bf16(rng, (1, seq, dim))
+        ones, zeros = torch.ones(dim, device='cuda'), torch.zeros(dim,
+                                                                   device='cuda')
+        ws = [_bf16(rng, (dim, dim), 1.0 / math.sqrt(dim)) for _ in range(4)]
+        scratch = [torch.empty(1, seq, hd, device='cuda', dtype=torch.bfloat16)
+                   for _ in range(3)]
+        y = torch.empty(seq, dim, device='cuda', dtype=torch.bfloat16)
+        attn5, out5 = big(hd), big(dim)
+        errs.append(th._fn('sav_th_attention_fwd', 16, 5, 2)(
+            ptr(x), ptr(ones), ptr(zeros), *map(ptr, ws), ptr(m[0]),
+            ptr(m[1]), ptr(y), *map(ptr, scratch), ptr(attn5), ptr(out5),
+            None, 1, seq, dim, heads, 0, fused_layer.LN_EPS,
+            1.0 / math.sqrt(th.HEAD_CH), stream))
+        spans = [(attn5, None), (out5, th.th_attention_fwd_plain(
+            x, ones, zeros, *ws, *m, heads))]
+    torch.cuda.synchronize()
+    p_attn, _ = th.th_core_fwd_plain(q, k, v, *m, heads)
+    twin = th.th_core_bwd_plain(q, k, v, do, lse, *m, heads)
+    pairs = [(attn, p_attn), (dq, twin[0]), (dk, twin[1]), (dv, twin[2])]
+    pairs += spans
+    rel = max(_rel(t[:, :seq], want) for t, want in pairs if want is not None)
+    kept = all(bool(torch.isnan(t[:, seq:]).all()) for t, _ in pairs)
+    what = 'K6a, K5b/K6b' + (' and K5a' if spans else '')
+    checks.expect(all(e == 0 for e in errs) and rel <= OUT_TOL and kept,
+                  f'{what} at L={seq} into sentinel buffers: rows < L err '
+                  f'{rel:.3g} of max (tol {OUT_TOL}), rows past L untouched '
+                  f'{kept}, launch codes {errs}')
+
+
+def _grads(model, batch, seed):
+    """Loss and gradients of one batch in training mode; the stochastic-depth
+    masks come from a generator seeded from ``seed``, so every path that
+    this is called on draws the same masks."""
+    model.train()
     model.zero_grad(set_to_none=True)
+    set_stochastic_depth_generator(
+        model, torch.Generator(device='cuda').manual_seed(seed))
     loss, _ = loss_and_logits(model, batch, 1000, 0.1)
     loss.backward()
+    set_stochastic_depth_generator(model, None)
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
 
 
 def train_path(checks, name, img_size, batch, want, seed, steps=10,
-               profile=False):
+               profile=False, model_name='vit_b_patch16',
+               plain_core='fused_layer_xla'):
     """One Trainer step with the counts at 0 (want: the exact counts), then
-    gradients vs the plain core, img/s and one eval batch. Returns the
-    counts."""
-    trainer = Trainer(TrainConfig(model_name='vit_b_patch16',
+    gradients vs the plain core on that batch, img/s and one eval batch.
+    Returns the counts."""
+    trainer = Trainer(TrainConfig(model_name=model_name,
                                   img_size=img_size, batch_size=batch,
                                   seed=seed, dtype='bfloat16'), device='cuda')
     data = trainer.dataset()
@@ -484,16 +753,19 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
     # boundary, and the f32 per-op path as the reference (head filled so
     # the encoder's gradients are not all zero)
     fill_head(trainer.model, seed)
-    loss_k, g_kernel = _grads(trainer.model, first)
-    set_use_kernel(trainer.model, 'fused_layer_xla')
-    loss_x, g_plain = _grads(trainer.model, first)
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, g_kernel = _grads(trainer.model, first, seed)
+    set_use_kernel(trainer.model, plain_core)
+    loss_x, g_plain = _grads(trainer.model, first, seed)
     set_use_kernel(trainer.model, 'auto')
-    ref = create_model('vit_b_patch16', num_classes=1000,
+    ref = create_model(model_name, num_classes=1000,
                        dtype=torch.float32, img_size=img_size, device='cuda',
                        use_kernel=False)
     ref.load_state_dict(trainer.model.state_dict())
-    loss_32, g_32 = _grads(ref, first)
+    loss_32, g_32 = _grads(ref, first, seed)
+    grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del ref
+    torch.cuda.empty_cache()
     worst = (0.0, '', 0.0, 0.0)          # (err / tol, name, err, tol)
     noisiest = (0.0, '', 0.0)            # (plain vs f32, name, kernel vs f32)
     for n, g in g_plain.items():
@@ -506,11 +778,13 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
             noisiest = (noise, n, _rel_l2(g_kernel[n], g_32[n]))
     finite = all(bool(torch.isfinite(g).all()) for g in g_kernel.values())
     checks.expect(finite and worst[0] <= 1.0,
-                  f'{name}: gradients vs fused_layer_xla, {len(g_plain)} '
+                  f'{name}: gradients vs {plain_core} on '
+                  f'{len(first["labels"])} images, {len(g_plain)} '
                   f'parameters, worst {worst[2]:.3g} (L2, tol {worst[3]:.3g}) '
                   f'at {worst[1]}; loss {loss_k:.5f} vs {loss_x:.5f} (f32 '
                   f'{loss_32:.5f}); farthest from f32: {noisiest[1]}, plain '
-                  f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}')
+                  f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}; peak '
+                  f'{grad_peak:.2f} GiB allocated')
 
     for i in range(2):                       # warm-up
         trainer.train_step(data.batch(1 + i))
@@ -557,7 +831,7 @@ def main(argv=None):
     parser.add_argument('--batch', type=int, default=32)
     parser.add_argument('--profile', action='store_true',
                         help='also print device time by kernel of each serve '
-                             'and of one @224 train step')
+                             'and of the ViT @224 and CaiT train steps')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -600,6 +874,44 @@ def main(argv=None):
                       {'fused_attention_fwd_train': 12, 'flash_bwd_dq': 12,
                        'flash_bwd_dkv': 12}, args.seed)
 
+    # CaiT-S/24: the TH kernels at the path's shapes, then the paths
+    k5a = {train: check_k5a(rng, checks, 128 if train else args.batch, 196,
+                            save_residuals=train) for train in (False, True)}
+    k5b = check_th_bwd(rng, checks, 128, 196, 'th_attention_bwd')
+    k6a = {train: check_k6a(rng, checks, 48 if train else args.batch, 576)
+           for train in (False, True)}
+    k6b = check_th_bwd(rng, checks, 48, 576, 'th_core_bwd')
+    for seq in (196, 576):
+        check_th_tails(rng, checks, seq)
+    k5a_launches = serve_path(checks, 'CaiT-S/24 @224 auto', 224, 'auto',
+                              'th_attention_fwd', args.seed, args.batch,
+                              args.profile, model_name='cait_s_24',
+                              per_forward=24)
+    k6a_launches = serve_path(checks, 'CaiT-S/24 @384 auto', 384, 'auto',
+                              'th_core_fwd', args.seed, args.batch,
+                              args.profile, model_name='cait_s_24',
+                              per_forward=24)
+    c224 = train_path(checks, 'train CaiT-S/24 @224 bs128', 224, 128,
+                      {'th_attention_fwd_train': 24, 'th_attention_bwd': 24},
+                      args.seed, profile=args.profile, model_name='cait_s_24',
+                      plain_core='fused_th_xla')
+    c384 = train_path(checks, 'train CaiT-S/24 @384 bs48', 384, 48,
+                      {'th_core_fwd': 24, 'th_core_bwd': 24}, args.seed,
+                      profile=args.profile, model_name='cait_s_24',
+                      plain_core='fused_th_xla')
+
+    def th_entry(name, replaces, launches, rec, train=None, **extra):
+        """A TH kernel's line: ``rec`` at its serving (or only) shape;
+        ``train``, the record at the training shape, adds train_* keys."""
+        if train is not None:
+            rec = dict(rec, max_abs_err=max(rec['max_abs_err'],
+                                            train['max_abs_err']),
+                       train_ms=train['ms'], train_bound_ms=train['bound_ms'])
+        return dict(name=name, route='cuda',
+                    source='sav_tpu_torch/csrc/th_attention.cu',
+                    replaces=f'sav_tpu/ops/th_attention.py:{replaces}',
+                    launches=launches, **rec, **extra)
+
     kernels = [
         dict(name='fused_attention_fwd', route='cuda',
              source='sav_tpu_torch/csrc/fused_attention.cu',
@@ -634,6 +946,14 @@ def main(argv=None):
              replaces='sav_tpu/ops/flash_attention.py:392',
              launches=t384.get('flash_bwd_dkv', 0),
              **{k: v for k, v in bwd577['dkv'].items() if k != 'sdpa_bwd_ms'}),
+        # K5a: the serving launches and timing; its residual-writing variant
+        # (train @224) under train_*
+        th_entry('th_attention_fwd', 158, k5a_launches, k5a[False], k5a[True],
+                 train_launches=c224.get('th_attention_fwd_train', 0)),
+        th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b),
+        th_entry('th_core_fwd', 362, k6a_launches, k6a[False], k6a[True],
+                 train_launches=c384.get('th_core_fwd', 0)),
+        th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

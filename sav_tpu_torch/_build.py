@@ -25,6 +25,7 @@ SOURCES = {
     'flash_bwd': 'flash_bwd.cu',
     'flash_fwd': 'flash_fwd.cu',
     'fused_attention': 'fused_attention.cu',
+    'th_attention': 'th_attention.cu',
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',

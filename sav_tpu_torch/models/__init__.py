@@ -1,3 +1,4 @@
 """sav_tpu_torch.models"""
 
-from sav_tpu_torch.models.factory import available_models, create_model  # noqa: F401
+from sav_tpu_torch.models.factory import (available_models, create_model,  # noqa: F401
+                                          set_use_kernel)

@@ -1,5 +1,5 @@
 """String-keyed model factory (counterpart of
-``sav_tpu/models/factory.py``), ViT names only in this slice."""
+``sav_tpu/models/factory.py``): the ViT and CaiT names so far."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ from typing import Any, Dict
 import torch
 
 from sav_tpu_torch import resolve_device
+from sav_tpu_torch.models import cait, vit
+from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.vit import ViT
 from sav_tpu_torch.nn.layers import init_all
 
@@ -15,6 +17,14 @@ from sav_tpu_torch.nn.layers import init_all
 def _vit(num_layers, num_heads, embed_dim, patch):
     return ViT, dict(num_layers=num_layers, num_heads=num_heads,
                      embed_dim=embed_dim, patch_shape=(patch, patch))
+
+
+def _cait(num_layers, num_heads, embed_dim, stoch_depth_rate, layerscale_eps):
+    return CaiT, dict(num_layers=num_layers, num_layers_token_only=2,
+                      num_heads=num_heads, embed_dim=embed_dim,
+                      patch_shape=(16, 16),
+                      stoch_depth_rate=stoch_depth_rate,
+                      layerscale_eps=layerscale_eps)
 
 
 MODEL_CONFIGS: Dict[str, Any] = {
@@ -25,6 +35,16 @@ MODEL_CONFIGS: Dict[str, Any] = {
     'vit_b_patch16': _vit(12, 12, 768, 16),
     'vit_l_patch32': _vit(24, 16, 1024, 32),
     'vit_l_patch16': _vit(24, 16, 1024, 16),
+    'cait_xxs_24': _cait(24, 4, 192, 0.05, 1e-5),
+    'cait_xxs_36': _cait(36, 4, 192, 0.1, 1e-6),
+    'cait_xs_24': _cait(24, 6, 288, 0.05, 1e-5),
+    'cait_xs_36': _cait(36, 6, 288, 0.1, 1e-6),
+    'cait_s_24': _cait(24, 8, 384, 0.1, 1e-6),
+    'cait_s_36': _cait(36, 8, 384, 0.2, 1e-6),
+    'cait_s_48': _cait(48, 8, 384, 0.3, 1e-6),
+    'cait_m_24': _cait(24, 16, 768, 0.2, 1e-5),
+    'cait_m_36': _cait(36, 16, 768, 0.3, 1e-6),
+    'cait_m_48': _cait(48, 16, 768, 0.4, 1e-6),
 }
 
 
@@ -35,7 +55,7 @@ def available_models():
 
 def create_model(model_name: str, num_classes: int = 1000,
                  dtype=torch.float32, img_size: int = 224, seed: int = 0,
-                 device=None, **overrides) -> ViT:
+                 device=None, **overrides) -> torch.nn.Module:
     """Builds a model from its registry name, randomly initialised from
     ``seed`` (flax's initialisers, torch's random stream), on ``device``
     (the card unless ``'cpu'`` is asked for).
@@ -55,3 +75,12 @@ def create_model(model_name: str, num_classes: int = 1000,
                       img_size=img_size, **{**config, **overrides})
     init_all(model, torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:
+    """Re-routes every attention block of a built model, of either family,
+    on the same weights (``use_kernel=False``: the plain per-op path)."""
+    if isinstance(model, CaiT):
+        cait.set_use_kernel(model, use_kernel)
+    else:
+        vit.set_use_kernel(model, use_kernel)

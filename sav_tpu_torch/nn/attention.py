@@ -2,8 +2,9 @@
 
 Parameter names and layouts follow the flax tree: ``queries``/``keys``/
 ``values`` hold ``kernel [in, heads, head_dim]`` and ``DenseGeneral_0`` the
-merged output ``kernel [heads, head_dim, in]``. Talking heads (CaiT) wait
-for the CaiT slice.
+merged output ``kernel [heads, head_dim, in]``. With ``talking_heads``
+(CaiT) ``TalkingHeadsBlock_0`` and ``TalkingHeadsBlock_1`` hold the pre- and
+post-softmax head mixes ``talking_heads_transform [H, H]``.
 """
 
 from __future__ import annotations
@@ -29,13 +30,28 @@ class ProjectionParams(nn.Module):
         lecun_normal_(self.kernel, self.fan_in, generator)
 
 
+class TalkingHeadsBlock(nn.Module):
+    """Learned head-mixing transform ``talking_heads_transform [H, H]``
+    (orthogonal init, as flax's ``nn.initializers.orthogonal()``)."""
+
+    def __init__(self, num_heads: int):
+        super().__init__()
+        self.talking_heads_transform = nn.Parameter(
+            torch.empty(num_heads, num_heads))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        nn.init.orthogonal_(self.talking_heads_transform, generator=generator)
+
+
 class AttentionBlock(nn.Module):
-    """Multi-head (cross-)attention: q/k/v projections, scaled-dot softmax,
-    merged output projection."""
+    """Multi-head (cross-)attention: q/k/v projections, scaled-dot softmax
+    (with talking heads: mixed across heads before and after it), merged
+    output projection."""
 
     def __init__(self, in_ch: int, num_heads: int, use_bias: bool = False,
                  dtype=torch.float32, use_kernel='auto',
-                 fused_qkv: bool = False, rotary: bool = False):
+                 fused_qkv: bool = False, rotary: bool = False,
+                 talking_heads: bool = False):
         super().__init__()
         if fused_qkv:
             raise NotImplementedError('fused_qkv is not ported yet (ROADMAP.md)')
@@ -54,6 +70,10 @@ class AttentionBlock(nn.Module):
         self.values = ProjectionParams(proj, in_ch)
         self.DenseGeneral_0 = ProjectionParams((num_heads, head_ch, in_ch),
                                                num_heads * head_ch)
+        self.talking_heads = talking_heads
+        if talking_heads:
+            self.TalkingHeadsBlock_0 = TalkingHeadsBlock(num_heads)
+            self.TalkingHeadsBlock_1 = TalkingHeadsBlock(num_heads)
 
     def _project(self, x, params: ProjectionParams):
         return torch.einsum('...d,dhc->...hc', x.to(self.dtype),
@@ -68,9 +88,16 @@ class AttentionBlock(nn.Module):
                 query.shape[-3], self.head_ch, device=query.device))
             key = apply_rotary_heads(key, sincos_frequencies(
                 key.shape[-3], self.head_ch, device=key.device))
-        x = attention_ops.multi_head_attention(query, key, value,
-                                               use_kernel=self.use_kernel)
-        return torch.einsum('...hc,hco->...o', x,
+        pre = post = None
+        if self.talking_heads:
+            pre = self.TalkingHeadsBlock_0.talking_heads_transform
+            post = self.TalkingHeadsBlock_1.talking_heads_transform
+        x = attention_ops.multi_head_attention(
+            query, key, value, pre_softmax_transform=pre,
+            post_softmax_transform=post, use_kernel=self.use_kernel)
+        # the f32 mixes promote x to f32 (as in flax); the projection runs
+        # in the module's dtype
+        return torch.einsum('...hc,hco->...o', x.to(self.dtype),
                             self.DenseGeneral_0.kernel.to(self.dtype))
 
 

@@ -20,8 +20,11 @@ from sav_tpu_torch.ops import flash_attention
 
 
 def head_mix(weights: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
-    """Output head i is ``sum_h transform[h, i] * weights[:, h]``."""
-    return torch.einsum('hi,bh...->bi...', transform, weights)
+    """Output head i is ``sum_h transform[h, i] * weights[:, h]``, in the
+    promoted dtype of the two (f32 for bf16 logits and an f32 transform,
+    as jnp.einsum promotes)."""
+    dt = torch.promote_types(weights.dtype, transform.dtype)
+    return torch.einsum('hi,bh...->bi...', transform.to(dt), weights.to(dt))
 
 
 def attention_weights(query, key, *, bias=None, pre_softmax_transform=None,
@@ -107,4 +110,5 @@ def multi_head_attention(
         query, key, bias=bias,
         pre_softmax_transform=pre_softmax_transform,
         post_softmax_transform=post_softmax_transform)
-    return torch.einsum('...hqk,...khd->...qhd', weights, value)
+    dt = torch.promote_types(weights.dtype, value.dtype)
+    return torch.einsum('...hqk,...khd->...qhd', weights.to(dt), value.to(dt))

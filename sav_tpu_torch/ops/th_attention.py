@@ -1,0 +1,495 @@
+"""Talking-heads attention sublayer under one autograd boundary
+(counterpart of ``sav_tpu/ops/th_attention.py``).
+
+CaiT's body blocks mix the attention logits across heads before AND after
+the softmax with learned ``[H, H]`` transforms. The span ``W_o @
+TalkingHeadsMHA(LN(x))`` (``+x`` optional) is one
+``torch.autograd.Function`` whose forward saves flash-style residuals
+``(q, k, v, attn, lse)``, the lse being that of each MIXED head: no ``[B,
+H, L, L]`` tensor is kept. Routes:
+
+  * ``'fused'``   - the whole forward on the K5a port
+                    (``th_attention_fwd``: LN, QKV GEMM with q scaled,
+                    the talking-heads core with the logits of whole kv rows
+                    resident in shared memory, out GEMM), backward core on
+                    the K5b port (``th_attention_bwd``).
+  * ``'blocked'`` - LN and projections as library ops, the core on the K6a
+                    port (``th_core_fwd``: two sweeps over the keys, any
+                    length), backward core on the K6b port (``th_core_bwd``).
+  * ``'xla'``     - the same boundary with the plain torch core (the JAX
+                    package's name for its jnp path).
+The out-projection, weight gradients and LayerNorm backward are library
+ops in every route, as they are XLA in the JAX package. On a CUDA tensor
+each kernel wrapper launches its hand-written kernel
+(``csrc/th_attention.cu``) or raises; on a CPU tensor it runs its plain
+twin. head_ch 48 is taken as it is: the kernels tile d = 48 as three
+16-deep k-steps of ``mma.sync`` and six 8-wide n-tiles, so nothing is
+padded to 64 (the JAX package's ``_pad_weights`` has no counterpart).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from sav_tpu_torch import _build
+from sav_tpu_torch.ops import flash_attention as fa
+from sav_tpu_torch.ops.fused_layer import (GEMM_TILE, LN_EPS, _layernorm,
+                                           _layernorm_bwd, _project_qkv,
+                                           _wgrad)
+
+ROUTES = ('fused', 'blocked', 'xla')
+HEAD_CH = 48                # the kernels' head width (every CaiT config)
+KERNEL_HEADS = (4, 8)       # head counts the kernels are instantiated for
+ROWS_PER_BLOCK = 128        # (row, head) pairs of a block (csrc TROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_smem(l: int, heads: int) -> int:
+    """Shared memory of the K5a core at length ``l``: ``sav_th_fwd_smem``
+    of ``csrc/th_attention.cu``, the one copy of the formula (the f32
+    logits of 128 / H query rows x whole kv rows for all H heads, their
+    bf16 mixed probabilities, a double-buffered ring of 32-key K/V tiles,
+    the mixes). Builds the library at first call, so it runs on the
+    machine with the card only."""
+    fn = _build.library('th_attention').sav_th_fwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(l, heads)
+
+
+def kernel_supported(heads: int, head_ch: int) -> bool:
+    """Whether the TH kernels are built for this head geometry."""
+    return head_ch == HEAD_CH and heads in KERNEL_HEADS
+
+
+def fused_fits(l: int, heads: int, dim: int, device='cuda') -> bool:
+    """Whether the K5a port takes the shape: its LN/GEMM launches (shared
+    with K1) need D and H*48 to be multiples of 128, and on the card its
+    core keeps whole logit rows in one block's 227 KB (``fused_smem``). Off
+    the card the plain twin has no such budget."""
+    if (dim % GEMM_TILE or (heads * HEAD_CH) % GEMM_TILE
+            or not kernel_supported(heads, HEAD_CH)):
+        return False
+    return (torch.device(device).type != 'cuda'
+            or fused_smem(l, heads) <= fa.SMEM_LIMIT)
+
+
+def th_route(l: int, heads: int, head_ch: int, dim: int, device):
+    """The route ``use_kernel='auto'`` takes on this device and shape: None
+    (the per-op path) off the card, as the JAX package takes its jnp path
+    off the TPU.
+
+    On the card: ``'fused'`` (K5) where its core's resident logit rows fit
+    in shared memory and K1's GEMM tiles take D; else ``'blocked'`` (K6,
+    any length and D). With H = 8 the rows fit up to L = 224 (CaiT-S/24
+    @224, L = 196: 221.5 KB of 227 KB); @384 (L = 576) they would need
+    ~500 KB, so K6 streams the keys twice instead. This is the card's
+    shared-memory threshold, not the TPU's VMEM caps (``_MAX_LIST_BYTES``,
+    the ``l >= 320`` floor). cait_xxs (D = 192) takes K6 at every length:
+    K1's GEMMs need D % 128 == 0. Head geometries the kernels are not built
+    for (cait_xs, H = 6; cait_m, H = 16) raise rather than run the per-op
+    path unasked: ``use_kernel=False`` asks for it.
+    """
+    if torch.device(device).type != 'cuda':
+        return None
+    if not kernel_supported(heads, head_ch):
+        raise NotImplementedError(
+            f'{heads} heads of {head_ch}: the talking-heads kernels are built '
+            f'for H in {KERNEL_HEADS} heads of {HEAD_CH} (H = 6 and 16 are '
+            f'ROADMAP.md Queue 2, K5/K6); use_kernel=False runs the per-op '
+            f'path')
+    return 'fused' if fused_fits(l, heads, dim, device) else 'blocked'
+
+
+# ------------------------------------------------------------ plain twins
+
+def th_core_fwd_plain(q, k, v, m_pre, m_post, heads: int):
+    """Plain twin of ``th_core_fwd`` (K6a) on ``[B, L, H*d]`` bands (q
+    pre-scaled), rounding where the TPU kernels round: f32 logits, mixes
+    and softmax, the post-mixed probabilities rounded to v's dtype before
+    the PV product, f32 accumulation. Returns (attn like q, lse ``[B, H,
+    L]`` f32 of each mixed head)."""
+    b, l, hd = q.shape
+    d = hd // heads
+    split = lambda a: a.reshape(b, l, heads, d).float()
+    s = torch.einsum('bqhd,bkhd->bhqk', split(q), split(k))
+    st = torch.einsum('hi,bhqk->biqk', m_pre.float(), s)
+    del s
+    m = st.amax(dim=-1, keepdim=True)
+    p = torch.exp(st - m)
+    del st
+    lsum = p.sum(dim=-1, keepdim=True)
+    pt = torch.einsum('hi,bhqk->biqk', m_post.float(), p / lsum)
+    del p
+    attn = torch.einsum('bhqk,bkhd->bqhd', pt.to(v.dtype).float(), split(v))
+    return (attn.reshape(b, l, hd).to(q.dtype),
+            (m + torch.log(lsum))[..., 0])
+
+
+def th_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                           heads: int, eps: float = LN_EPS,
+                           residual: bool = False,
+                           save_residuals: bool = False):
+    """Plain twin of ``th_attention_fwd`` (K5a): y, q (scaled by
+    1/sqrt(d)), k, v, attn and out rounded to x's dtype, as the TPU kernel
+    ``_th_fwd_kernel`` rounds; products in f32."""
+    hd = wq.shape[1]
+    dt = x.dtype
+    y = _layernorm(x, scale, bias, eps)[0].float()
+    q = ((y @ wq.float()) * (1.0 / math.sqrt(hd // heads))).to(dt)
+    k = (y @ wk.float()).to(dt)
+    v = (y @ wv.float()).to(dt)
+    attn, lse = th_core_fwd_plain(q, k, v, m_pre, m_post, heads)
+    out = attn.float() @ wo.float()
+    if residual:
+        out = x.float() + out
+    out = out.to(dt)
+    if not save_residuals:
+        return out
+    return out, (q, k, v, attn, lse)
+
+
+def th_core_bwd_plain(q, k, v, do, lse, m_pre, m_post, heads: int):
+    """Plain twin of the TH core backward (K5b and K6b compute the same
+    function), following ``_th_bwd_kernel``: p_i = exp(st_i - lse_i);
+    da_i = do_i v_i^T; dpn_j = sum_i M_post[j, i] da_i; dv_i = bf16(pt_i)^T
+    do_i; dst_i = pn_i (dpn_i - rowsum(dpn_i pn_i)); ds_j = sum_i
+    M_pre[j, i] dst_i rounded to q's dtype; dq_j = ds_j k_j, dk_j = ds_j^T
+    q_j; dM_post[j, i] = sum da_i pn_j, dM_pre[j, i] = sum dst_i s_j.
+    Returns (dq, dk, dv like q; dm_pre, dm_post ``[H, H]`` f32)."""
+    b, l, hd = q.shape
+    d = hd // heads
+    split = lambda a: a.reshape(b, l, heads, d).float()
+    q4, k4, v4, do4 = split(q), split(k), split(v), split(do)
+    mpre, mpost = m_pre.float(), m_post.float()
+    s = torch.einsum('bqhd,bkhd->bhqk', q4, k4)
+    pn = torch.exp(torch.einsum('hi,bhqk->biqk', mpre, s) - lse[..., None])
+    da = torch.einsum('bqhd,bkhd->bhqk', do4, v4)
+    dpn = torch.einsum('ji,biqk->bjqk', mpost, da)
+    dm_post = torch.einsum('biqk,bjqk->ji', da, pn)
+    del da
+    pt = torch.einsum('hi,bhqk->biqk', mpost, pn).to(do.dtype).float()
+    dv = torch.einsum('bhqk,bqhd->bkhd', pt, do4)
+    del pt
+    dst = pn * (dpn - (dpn * pn).sum(dim=-1, keepdim=True))
+    del dpn, pn
+    dm_pre = torch.einsum('biqk,bjqk->ji', dst, s)
+    del s
+    ds = torch.einsum('ji,biqk->bjqk', mpre, dst).to(q.dtype).float()
+    del dst
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, k4)
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, q4)
+    flat = lambda a, like: a.reshape(b, l, hd).to(like.dtype)
+    return flat(dq, q), flat(dk, k), flat(dv, v), dm_pre, dm_post
+
+
+# K5b and K6b run the same function (and the same CUDA kernels): the
+# backward has no shared-memory regime of its own (section in PERF.md)
+th_attention_bwd_plain = th_core_bwd_plain
+
+
+def th_sublayer_reference(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                          eps=LN_EPS, residual=False):
+    """Plain torch twin of the whole span with the reference semantics
+    (``th_sublayer_reference`` of the JAX package); differentiable by
+    autograd. Weights in the checkpoint layout ``[D, H, d]`` / ``[H, d,
+    D]``."""
+    d = wq.shape[2]
+    cdt = x.dtype
+    y = _layernorm(x, scale, bias, eps)[0]
+    sqrt_d = torch.tensor(float(d)).sqrt().to(cdt)
+    q = torch.einsum('bld,dhc->blhc', y, wq.to(cdt)) / sqrt_d
+    k = torch.einsum('bld,dhc->blhc', y, wk.to(cdt))
+    v = torch.einsum('bld,dhc->blhc', y, wv.to(cdt))
+    s = torch.einsum('bqhc,bphc->bhqp', q.float(), k.float())
+    s = torch.einsum('hi,bhqp->biqp', m_pre.float(), s)
+    a = torch.softmax(s, dim=-1)
+    a = torch.einsum('hi,bhqp->biqp', m_post.float(), a)
+    o = torch.einsum('bhqp,bphc->bqhc', a.to(cdt), v)
+    out = torch.einsum('bqhc,hcd->bqd', o, wo.to(cdt))
+    return x + out if residual else out
+
+
+# ------------------------------------------------------- kernel wrappers
+
+def _fn(name, pointers, ints, floats=0):
+    fn = getattr(_build.library('th_attention'), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                       + [ctypes.c_float] * floats + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_core(q, k, v, heads):
+    """Device, dtype, layout and head geometry the TH core kernels take."""
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        fa.check_cuda_bf16(name, t, q.device)
+    b, l, hd = q.shape
+    if not kernel_supported(heads, hd // heads) or hd != heads * HEAD_CH:
+        raise ValueError(f'the TH kernels take H in {KERNEL_HEADS} heads of '
+                         f'{HEAD_CH}, got H*d={hd} over {heads} heads')
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f'q/k/v shapes {tuple(q.shape)}/{tuple(k.shape)}/'
+                         f'{tuple(v.shape)} differ')
+    if l < 1:
+        raise ValueError('the TH kernels need at least one token')
+
+
+def _mixes(m_pre, m_post, heads, device):
+    out = []
+    for name, m in (('m_pre', m_pre), ('m_post', m_post)):
+        if tuple(m.shape) != (heads, heads):
+            raise ValueError(f'{name} has shape {tuple(m.shape)}, expected '
+                             f'{(heads, heads)}')
+        out.append(m.to(device, torch.float32).contiguous())
+    return out
+
+
+def th_core_fwd(q, k, v, m_pre, m_post, heads: int):
+    """Port of K6a ``_th_blk_fwd_kernel``: the talking-heads core on ``[B,
+    L, H*48]`` bands (q pre-scaled) -> (attn like q, lse ``[B, H, L]`` f32
+    of each mixed head). On the card one block per (32 query rows, image)
+    sweeps the keys twice (the lse of each mixed head, then the
+    probabilities, post-mix and PV), so any L is taken. bf16 only."""
+    if q.device.type == 'cpu':
+        return th_core_fwd_plain(q, k, v, m_pre, m_post, heads)
+    if q.device.type != 'cuda':
+        raise ValueError(f'th_core_fwd runs on cuda or cpu, not {q.device}')
+    fa.check_no_grad(q, k, v, m_pre, m_post)
+    _check_core(q, k, v, heads)
+    b, l, _ = q.shape
+    mpre, mpost = _mixes(m_pre, m_post, heads, q.device)
+    attn = torch.empty_like(q)
+    lse = torch.empty(b, heads, l, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn('sav_th_core_fwd', 7, 3)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mpre.data_ptr(),
+            mpost.data_ptr(), attn.data_ptr(), lse.data_ptr(), b, l, heads,
+            fa.stream_of(q.device))
+    _build.check(err, 'th_core_fwd')
+    _build.count('th_core_fwd')
+    return attn, lse
+
+
+def th_attention_fwd(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                     heads: int, eps: float = LN_EPS, residual: bool = False,
+                     save_residuals: bool = False):
+    """Port of K5a ``_th_fwd_kernel``: ``W_o @ TalkingHeadsMHA(LN(x))``
+    (+x with ``residual``) in one call.
+
+    x ``[B, L, D]``; scale, bias ``[D]``; wq, wk, wv ``[D, H*48]``, wo
+    ``[H*48, D]`` in x's dtype; m_pre, m_post ``[H, H]``. On the card four
+    launches (``csrc/th_attention.cu``): K1's LN and QKV GEMM (q scaled by
+    1/sqrt(48) in its epilogue), the talking-heads core with whole logit
+    rows resident in shared memory (so ``fused_fits`` must hold), K1's out
+    GEMM without or with the residual. bf16 only. Returns ``out``; with
+    ``save_residuals`` ``(out, (q, k, v, attn, lse))``, the backward's
+    residuals (lse ``[B, H, L]`` f32 of each mixed head).
+    """
+    if x.device.type == 'cpu':
+        return th_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, m_pre,
+                                      m_post, heads, eps, residual,
+                                      save_residuals)
+    if x.device.type != 'cuda':
+        raise ValueError(f'th_attention_fwd runs on cuda or cpu, not {x.device}')
+    fa.check_no_grad(x, scale, bias, wq, wk, wv, wo, m_pre, m_post)
+    b, l, dim = x.shape
+    hd = heads * HEAD_CH
+    for name, t in (('x', x), ('wq', wq), ('wk', wk), ('wv', wv), ('wo', wo)):
+        fa.check_cuda_bf16(name, t, x.device)
+    if not kernel_supported(heads, HEAD_CH) or not fused_fits(l, heads, dim):
+        raise ValueError(f'th_attention_fwd does not take L={l}, H={heads}, '
+                         f'D={dim} (fused_fits; the blocked route does)')
+    for name, t, shape in (('wq', wq, (dim, hd)), ('wk', wk, (dim, hd)),
+                           ('wv', wv, (dim, hd)), ('wo', wo, (hd, dim))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
+    mpre, mpost = _mixes(m_pre, m_post, heads, x.device)
+    scale = scale.to(x.device, torch.float32).contiguous()
+    bias = bias.to(x.device, torch.float32).contiguous()
+    y = torch.empty(b * l, dim, dtype=x.dtype, device=x.device)
+    qkva = [torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
+            for _ in range(4)]                    # q, k, v, attn
+    lse = (torch.empty(b, heads, l, dtype=torch.float32, device=x.device)
+           if save_residuals else None)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _fn('sav_th_attention_fwd', 16, 5, 2)(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wq.data_ptr(),
+            wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), mpre.data_ptr(),
+            mpost.data_ptr(), y.data_ptr(), *[t.data_ptr() for t in qkva],
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            b, l, dim, heads, int(residual), eps, 1.0 / math.sqrt(HEAD_CH),
+            fa.stream_of(x.device))
+    _build.check(err, 'th_attention_fwd')
+    if not save_residuals:
+        _build.count('th_attention_fwd')
+        return out
+    _build.count('th_attention_fwd_train')
+    return out, (*qkva, lse)
+
+
+def _core_bwd(q, k, v, do, lse, m_pre, m_post, heads, what):
+    """The two backward launches (dq + delta + dM partials, then dk and
+    dv) on CUDA inputs; ``what`` names the entry point."""
+    fa.check_no_grad(q, k, v, do, lse, m_pre, m_post)
+    _check_core(q, k, v, heads)
+    fa.check_cuda_bf16('do', do, q.device)
+    b, l, hd = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f'do has shape {tuple(do.shape)}, expected {tuple(q.shape)}')
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or not lse.is_contiguous() or tuple(lse.shape) != (b, heads, l)):
+        raise ValueError(f'lse must be contiguous float32 {(b, heads, l)} on '
+                         f'{q.device}, got {lse.dtype} {tuple(lse.shape)}')
+    mpre, mpost = _mixes(m_pre, m_post, heads, q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    tiles = -(-l // (ROWS_PER_BLOCK // heads))
+    dm = torch.empty(b, tiles, 2, heads, heads, dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        err = _fn('sav_th_core_bwd', 12, 3)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), mpre.data_ptr(), mpost.data_ptr(),
+            delta.data_ptr(), dm.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, l, heads, fa.stream_of(q.device))
+    _build.check(err, what)
+    _build.count(what)
+    # per-block partials summed in a fixed order: deterministic, as the JAX
+    # package sums its per-image [B, H, 128] partials in XLA
+    dm = dm.sum(dim=(0, 1))
+    return dq, dk, dv, dm[0], dm[1]
+
+
+def th_attention_bwd(q, k, v, do, lse, m_pre, m_post, heads: int):
+    """Port of K5b ``_th_bwd_kernel``: (dq, dk, dv, dm_pre, dm_post) of the
+    TH core from the K5a forward's residuals, ``do`` the cotangent of
+    attn (dq is the gradient of the pre-scaled q). On the card two
+    launches of ``csrc/th_attention.cu``, shared with K6b: the rowsum of
+    dpn * pn under the post-mix is not rowsum(o * do), so a block per
+    query tile sweeps the keys once for it and once for dq and the dM
+    partials; a block per key tile then sweeps the queries for dk and dv.
+    No float atomics: dM partials are summed afterwards in a fixed order."""
+    if q.device.type == 'cpu':
+        return th_attention_bwd_plain(q, k, v, do, lse, m_pre, m_post, heads)
+    if q.device.type != 'cuda':
+        raise ValueError(f'th_attention_bwd runs on cuda or cpu, not {q.device}')
+    return _core_bwd(q, k, v, do, lse, m_pre, m_post, heads,
+                     'th_attention_bwd')
+
+
+def th_core_bwd(q, k, v, do, lse, m_pre, m_post, heads: int):
+    """Port of K6b ``_th_blk_bwd_kernel`` (K5b's contract on the blocked
+    route's residuals): the same two launches as ``th_attention_bwd``."""
+    if q.device.type == 'cpu':
+        return th_core_bwd_plain(q, k, v, do, lse, m_pre, m_post, heads)
+    if q.device.type != 'cuda':
+        raise ValueError(f'th_core_bwd runs on cuda or cpu, not {q.device}')
+    return _core_bwd(q, k, v, do, lse, m_pre, m_post, heads, 'th_core_bwd')
+
+
+# ------------------------------------------------------- autograd span
+
+def _forward(x, scale, bias, wq, wk, wv, wo, m_pre, m_post, num_heads,
+             route, eps, residual, save_residuals):
+    """(out, residuals ``(q, k, v, attn, lse)`` on ``[B, L, H*d]`` or
+    None)."""
+    b, l, dim = x.shape
+    head_d = wq.shape[2]
+    hd = num_heads * head_d
+    cdt = x.dtype
+    if route == 'fused':
+        ws = [w.reshape(dim, hd).to(cdt) for w in (wq, wk, wv)]
+        ws.append(wo.reshape(hd, dim).to(cdt))
+        if save_residuals:
+            return th_attention_fwd(x, scale, bias, *ws, m_pre, m_post,
+                                    num_heads, eps, residual, True)
+        return th_attention_fwd(x, scale, bias, *ws, m_pre, m_post,
+                                num_heads, eps, residual), None
+
+    y = _layernorm(x, scale, bias, eps)[0]
+    qs, k, v = (t.reshape(b, l, hd).contiguous()
+                for t in _project_qkv(y, wq, wk, wv, num_heads, head_d))
+    core = th_core_fwd if route == 'blocked' else th_core_fwd_plain
+    attn, lse = core(qs, k, v, m_pre, m_post, num_heads)
+    out = attn @ wo.reshape(hd, dim).to(cdt)
+    if residual:
+        out = x + out
+    return out, ((qs, k, v, attn, lse) if save_residuals else None)
+
+
+_BWD = {'fused': th_attention_bwd, 'blocked': th_core_bwd,
+        'xla': th_core_bwd_plain}
+
+
+class _THSublayer(torch.autograd.Function):
+    """``_th_sublayer_fwd``/``_th_sublayer_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                num_heads, route, eps, residual):
+        out, res = _forward(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                            num_heads, route, eps, residual, True)
+        ctx.save_for_backward(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                              *res)
+        ctx.config = (num_heads, route, eps, residual)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+         qs, k, v, attn, lse) = ctx.saved_tensors
+        num_heads, route, eps, residual = ctx.config
+        b, l, dim = x.shape
+        head_d = wq.shape[2]
+        hd = num_heads * head_d
+        cdt = x.dtype
+        sc = torch.full((), 1.0 / math.sqrt(head_d), dtype=cdt,
+                        device=x.device)
+        g_c = g.to(cdt)
+
+        d_attn = (g_c @ wo.reshape(hd, dim).to(cdt).t()).contiguous()
+        dwo = _wgrad(attn, g_c)
+        dqs, dk, dv, dm_pre, dm_post = _BWD[route](
+            qs, k, v, d_attn, lse, m_pre, m_post, num_heads)
+        dq = dqs * sc                           # undo the q pre-scaling
+
+        y, xhat, inv = _layernorm(x, scale, bias, eps)
+        dwq, dwk, dwv = (_wgrad(y, t) for t in (dq, dk, dv))
+        w2 = [w.reshape(dim, hd).to(cdt) for w in (wq, wk, wv)]
+        dy = dq @ w2[0].t() + dk @ w2[1].t() + dv @ w2[2].t()
+        dx_ln, dscale, dbias = _layernorm_bwd(dy, xhat, inv, scale)
+        dx = (dx_ln + g.float()).to(cdt) if residual else dx_ln.to(cdt)
+        shape_w = (dim, num_heads, head_d)
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype),
+                dwq.reshape(shape_w).to(wq.dtype),
+                dwk.reshape(shape_w).to(wk.dtype),
+                dwv.reshape(shape_w).to(wv.dtype),
+                dwo.reshape(num_heads, head_d, dim).to(wo.dtype),
+                dm_pre.to(m_pre.dtype), dm_post.to(m_post.dtype),
+                None, None, None, None)
+
+
+def th_attention_sublayer(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                          num_heads: int, eps: float = LN_EPS,
+                          residual: bool = False, route: str = 'fused'):
+    """``W_o @ TalkingHeadsMHA(LN(x))`` (+x if ``residual``),
+    differentiable in all nine tensors.
+
+    x ``[B, L, D]``; scale, bias ``[D]``; wq/wk/wv ``[D, H, d]``; wo ``[H,
+    d, D]``; m_pre/m_post ``[H, H]`` (the checkpoint layout of
+    ``AttentionBlock(talking_heads=True)``). ``route`` in ``ROUTES``; the
+    model picks it with ``th_route``. A call with grad off runs the
+    forward that writes no residuals.
+    """
+    if route not in ROUTES:
+        raise ValueError(f'route must be one of {ROUTES}, got {route!r}')
+    args = (x, scale, bias, wq, wk, wv, wo, m_pre, m_post)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _THSublayer.apply(*args, num_heads, route, eps, residual)
+    return _forward(*args, num_heads, route, eps, residual, False)[0]

@@ -109,6 +109,13 @@ UNPORTED = {
 }
 
 
+def stochastic_depth_seed(seed: int, step: int) -> int:
+    """Seed of step ``step``'s stochastic-depth stream: a function of the
+    config seed and the step only, so a step's masks do not depend on what
+    ran before it (the JAX package folds the step into its key)."""
+    return (seed * 1_000_003 + step) % (2 ** 63)
+
+
 def check_ported(config: TrainConfig) -> None:
     """Raises NotImplementedError on a field the port does not run yet."""
     for name, (value, item) in UNPORTED.items():
@@ -186,6 +193,8 @@ class Trainer:
                                          mu_dtype=config.mu_dtype)
         self.state = TrainState(self.model, self.optimizer,
                                 ema=config.ema_decay is not None)
+        # the stochastic-depth stream, reseeded from (seed, step) each step
+        self.generator = torch.Generator(device=self.device)
         self.logger = MetricLogger(use_wandb=use_wandb)
 
     def dataset(self, seed_offset: int = 0) -> SyntheticDataset:
@@ -196,11 +205,14 @@ class Trainer:
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         c = self.config
+        self.generator.manual_seed(stochastic_depth_seed(c.seed,
+                                                         self.state.step))
         return steps_lib.train_step(self.state, batch,
                                     num_classes=c.num_classes,
                                     label_smoothing=c.label_smoothing,
                                     ema_decay=c.ema_decay,
-                                    grad_accum=c.grad_accum)
+                                    grad_accum=c.grad_accum,
+                                    generator=self.generator)
 
     def evaluate(self, dataset,
                  num_batches: Optional[int] = None) -> Dict[str, float]:

@@ -4,11 +4,12 @@ pipeline builders wait for later slices, ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
 from sav_tpu_torch.train.state import TrainState
 from sav_tpu_torch.utils.metrics import topk_correct
 
@@ -48,7 +49,9 @@ def _metrics(loss, logits, labels):
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                num_classes: int, label_smoothing: float, ema_decay=None,
-               grad_accum: int = 1) -> Dict[str, torch.Tensor]:
+               grad_accum: int = 1,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``state`` (updated in place); returns the
     metrics as 0-d tensors on the device (reading them waits for it).
 
@@ -56,10 +59,27 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
     ``blended_targets``. ``grad_accum > 1`` splits the batch into that many
     equal microbatches, sums their gradients, scales the sum by
     ``1/grad_accum`` and applies one update, as the JAX package does.
+    ``generator`` (on the model's device) is the stochastic-depth stream,
+    the JAX package's ``'stochastic_depth'`` key: each microbatch draws its
+    masks from it in turn, so microbatches get different noise. Models
+    without stochastic depth never read it.
     """
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
+    set_stochastic_depth_generator(model, generator)
+    try:
+        metrics = _accumulate(model, batch, num_classes, label_smoothing,
+                              grad_accum)
+    finally:
+        set_stochastic_depth_generator(model, None)
+    state.apply_gradients(ema_decay)
+    return metrics
+
+
+def _accumulate(model, batch, num_classes, label_smoothing, grad_accum):
+    """Gradients of the batch (or its microbatches) into ``p.grad``;
+    returns the metrics."""
     if grad_accum == 1:
         loss, logits = loss_and_logits(model, batch, num_classes,
                                        label_smoothing)
@@ -84,7 +104,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                 if p.grad is not None:
                     p.grad.mul_(inv)
         metrics = {k: v * inv for k, v in sums.items()}
-    state.apply_gradients(ema_decay)
     return metrics
 
 

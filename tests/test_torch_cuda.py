@@ -5,8 +5,9 @@ mode, so without a card every test here skips (marker ``cuda``).
 
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -q
 Tolerances as in chip_smoke.py: outputs and gradients 2e-2 of max |twin|
-(K1: of the sublayer's own contribution), lse 1e-3 absolute (K1's against
-the logsumexp of its own q and k).
+(K1: of the sublayer's own contribution), the TH backward's dM_pre and
+dM_post 1e-4 of max, lse 1e-3 absolute (K1's against the logsumexp of its
+own q and k).
 """
 
 import math
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from sav_tpu_torch.ops import flash_attention, fused_layer
+from sav_tpu_torch.ops import flash_attention, fused_layer, th_attention
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 
 pytestmark = pytest.mark.cuda
@@ -163,3 +164,158 @@ def test_sublayer_gradients_match_plain_core(card, core, seq):
         grads[c] = torch.autograd.grad(out, ts, g)
     for ours, plain in zip(grads[core], grads['xla']):
         assert _rel(ours, plain) <= 2e-2
+
+
+# ---- talking-heads kernels (K5a, K5b, K6a, K6b; csrc/th_attention.cu)
+
+def _th_core_case(rng, b, seq, heads, card):
+    """q (pre-scaled, a peaked softmax), k, v, do as [B, L, H*48] bf16 and
+    two mixes near the identity."""
+    q, k, v, do = (_bf16(rng, (b, seq, heads * 48), s, card)
+                   for s in (0.4, 1, 1, 1))
+    m = [(torch.eye(heads) + 0.3 * torch.from_numpy(rng.standard_normal(
+        (heads, heads)).astype(np.float32))).to(card) for _ in range(2)]
+    return q, k, v, do, m
+
+
+@pytest.mark.parametrize('seq,heads', [(1, 8), (37, 4), (196, 8), (200, 8),
+                                       (576, 8)])
+def test_th_core_fwd_matches_twin(card, seq, heads):
+    rng = np.random.RandomState(seq)
+    q, k, v, _, m = _th_core_case(rng, 2, seq, heads, card)
+    attn, lse = th_attention.th_core_fwd(q, k, v, *m, heads)
+    p_attn, p_lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    assert _rel(attn, p_attn) <= 2e-2
+    assert (lse - p_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('seq,residual', [(5, False), (196, False),
+                                          (224, True)])
+def test_th_attention_fwd_matches_twin(card, seq, residual):
+    rng = np.random.RandomState(seq)
+    dim, heads = 384, 8
+    x = _bf16(rng, (2, seq, dim), 1, card)
+    scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
+    bias = _bf16(rng, (dim,), 0.1, card).float()
+    ws = [_bf16(rng, (dim, dim), s / math.sqrt(dim), card) for s in (4, 1, 1, 1)]
+    m = [(torch.eye(heads) + 0.3 * torch.randn(heads, heads)).to(card)
+         for _ in range(2)]
+    args = (x, scale, bias, *ws, *m, heads, th_attention.LN_EPS, residual)
+    out = th_attention.th_attention_fwd(*args)
+    out_t, (q, k, v, attn, lse) = th_attention.th_attention_fwd(
+        *args, save_residuals=True)
+    plain, res = th_attention.th_attention_fwd_plain(*args, save_residuals=True)
+    contrib = (plain.float() - (x.float() if residual else 0)).abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * contrib
+    assert torch.equal(out, out_t)
+    for ours, twin in zip((q, k, v), res[:3]):
+        assert _rel(ours, twin) <= 2e-2
+    own_attn, own_lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    assert _rel(attn, own_attn) <= 2e-2
+    assert (lse - own_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('entry', ['th_attention_bwd', 'th_core_bwd'])
+@pytest.mark.parametrize('seq,heads', [(37, 4), (196, 8), (577, 8)])
+def test_th_bwd_matches_twin(card, entry, seq, heads):
+    rng = np.random.RandomState(seq + heads)
+    q, k, v, do, m = _th_core_case(rng, 2, seq, heads, card)
+    _, lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    grads = getattr(th_attention, entry)(q, k, v, do, lse, *m, heads)
+    twin = th_attention.th_core_bwd_plain(q, k, v, do, lse, *m, heads)
+    for g, t in zip(grads[:3], twin[:3]):
+        assert g.shape == t.shape and _rel(g, t) <= 2e-2
+    # dM_pre, dM_post: the same f32 products summed in another order (9.3e-6
+    # of max on an H100 at K5b's and K6b's shapes); one dropped or
+    # mis-masked per-block partial of the B x ceil(L / (128 / H)) moves them
+    # by far more (~1/(that count) of max at B = 48, L = 576: 6e-4)
+    for g, t in zip(grads[3:], twin[3:]):
+        assert g.shape == t.shape and _rel(g, t) <= 1e-4
+
+
+def test_th_kernels_write_no_row_past_the_length(card):
+    """Outputs hold exactly L rows (nothing is padded); rows the kernels
+    compute past L in their last tile are never stored: a buffer of 64 rows
+    keeps its NaN sentinel past L = 37."""
+    from sav_tpu_torch.ops.flash_attention import stream_of
+    rng = np.random.RandomState(0)
+    seq, heads = 37, 8
+    q, k, v, do, m = _th_core_case(rng, 1, seq, heads, card)
+    big = lambda: torch.full((1, 64, heads * 48), float('nan'), device=card,
+                             dtype=torch.bfloat16)
+    attn, dq, dk, dv = big(), big(), big(), big()
+    lse = torch.empty(1, heads, seq, device=card)
+    delta = torch.empty_like(lse)
+    dm = torch.empty(1, 3, 2, heads, heads, device=card)
+    fwd = th_attention._fn('sav_th_core_fwd', 7, 3)
+    assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), m[0].data_ptr(),
+               m[1].data_ptr(), attn.data_ptr(), lse.data_ptr(), 1, seq, heads,
+               stream_of(card)) == 0
+    bwd = th_attention._fn('sav_th_core_bwd', 12, 3)
+    assert bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), m[0].data_ptr(), m[1].data_ptr(),
+               delta.data_ptr(), dm.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), 1, seq, heads, stream_of(card)) == 0
+    torch.cuda.synchronize()
+    for t in (attn, dq, dk, dv):
+        assert torch.isfinite(t[:, :seq]).all()
+        assert torch.isnan(t[:, seq:]).all()
+
+
+@pytest.mark.parametrize('route,seq', [('fused', 196), ('blocked', 196),
+                                       ('blocked', 300)])
+def test_th_sublayer_gradients_match_plain_core(card, route, seq):
+    rng = np.random.RandomState(2)
+    dim, heads = 384, 8
+    ins = [_bf16(rng, (2, seq, dim), 1, card),
+           (1 + _bf16(rng, (dim,), 0.1, card)).float(),
+           _bf16(rng, (dim,), 0.1, card).float()]
+    ins += [_bf16(rng, (dim, heads, 48), s / math.sqrt(dim), card).float()
+            for s in (4, 1, 1)]
+    ins.append(_bf16(rng, (heads, 48, dim), 1 / math.sqrt(dim), card).float())
+    ins += [(torch.eye(heads) + 0.3 * torch.randn(heads, heads)).to(card)
+            for _ in range(2)]
+    g = _bf16(rng, (2, seq, dim), 1, card)
+    grads = {}
+    for r in (route, 'xla'):
+        ts = [t.clone().requires_grad_() for t in ins]
+        out = th_attention.th_attention_sublayer(*ts, heads, route=r)
+        grads[r] = torch.autograd.grad(out, ts, g)
+    for ours, plain in zip(grads[route], grads['xla']):
+        assert _rel(ours, plain) <= 2e-2
+
+
+def test_th_smem_formula_matches_the_kernel(card):
+    """The kernel's own shared-memory formula decides K5 vs K6 on the card:
+    the resident rows fit up to L = 224 at H = 8."""
+    assert th_attention.fused_smem(196, 8) == 226816 <= 232448
+    assert th_attention.fused_smem(576, 8) > 232448
+    for l, want in ((196, 'fused'), (224, 'fused'), (225, 'blocked'),
+                    (576, 'blocked')):
+        assert th_attention.th_route(l, 8, 48, 384, card) == want
+
+
+def test_th_wrappers_refuse_and_count(card):
+    from sav_tpu_torch import _build
+    rng = np.random.RandomState(1)
+    q, k, v, do, m = _th_core_case(rng, 1, 40, 8, card)
+    with pytest.raises(ValueError, match='heads'):
+        th_attention.th_core_fwd(*(t[..., :288].contiguous() for t in (q, k, v)),
+                                 torch.eye(6, device=card),
+                                 torch.eye(6, device=card), 6)
+    with pytest.raises(ValueError, match='bfloat16'):
+        th_attention.th_core_fwd(q.float(), k.float(), v.float(), *m, 8)
+    with pytest.raises(RuntimeError, match='forward-only'):
+        th_attention.th_core_fwd(q.float().requires_grad_().bfloat16(), k, v,
+                                 *m, 8)
+    x = torch.zeros(1, 577, 384, device=card, dtype=torch.bfloat16)
+    w = torch.zeros(384, 384, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='fused_fits'):
+        th_attention.th_attention_fwd(x, w[0].float(), w[0].float(), w, w, w,
+                                      w, *m, 8)
+    _build.reset_launches()
+    attn, lse = th_attention.th_core_fwd(q, k, v, *m, 8)
+    th_attention.th_core_bwd(q, k, v, do, lse, *m, 8)
+    th_attention.th_attention_bwd(q, k, v, do, lse, *m, 8)
+    assert _build.launches == {'th_core_fwd': 1, 'th_core_bwd': 1,
+                               'th_attention_bwd': 1}

@@ -61,9 +61,11 @@ def test_set_use_kernel_reroutes_the_same_weights():
 def test_factory_names_and_refusals():
     assert available_models() == sorted(
         ['vit_ti_patch16', 'vit_s_patch32', 'vit_s_patch16', 'vit_b_patch32',
-         'vit_b_patch16', 'vit_l_patch32', 'vit_l_patch16'])
+         'vit_b_patch16', 'vit_l_patch32', 'vit_l_patch16', 'cait_xxs_24',
+         'cait_xxs_36', 'cait_xs_24', 'cait_xs_36', 'cait_s_24', 'cait_s_36',
+         'cait_s_48', 'cait_m_24', 'cait_m_36', 'cait_m_48'])
     with pytest.raises(RuntimeError, match='ROADMAP'):
-        create_model('cait_xxs_24', device='cpu')
+        create_model('ceit_s', device='cpu')
     with pytest.raises(NotImplementedError, match='fused_qkv'):
         create_model('vit_ti_patch16', device='cpu', num_layers=1,
                      fused_qkv=True)

@@ -1,6 +1,6 @@
 """Shared fixtures of the torch-port parity tests (tests/test_torch_*.py):
-one small ViT configuration, seeded inputs, and the same flax tree loaded
-into both packages. Inputs come from numpy so both frameworks see the same
+one small ViT and one small CaiT configuration, seeded inputs, and the same
+flax tree loaded into both packages. Inputs come from numpy so both frameworks see the same
 numbers."""
 
 import jax
@@ -17,6 +17,10 @@ torch.set_num_threads(1)
 # 2 layers, D=128, H=2, d=64: every K1/K4 shape constraint of the port holds
 SMALL = dict(num_layers=2, embed_dim=128, num_heads=2)
 NUM_CLASSES = 10
+# CaiT: 2 body layers, 1 class-attention layer, D=64, H=4, d=16; rate 0 so
+# both packages run the same deterministic function in training mode
+CAIT_SMALL = dict(num_layers=2, num_layers_token_only=1, embed_dim=64,
+                  num_heads=4, stoch_depth_rate=0.0)
 
 
 def fill_head(params, seed=1):
@@ -55,3 +59,42 @@ def torch_vit(params, img_size, name='vit_ti_patch16', overrides=SMALL,
 def images(n, size, seed=0):
     return np.random.RandomState(seed).standard_normal(
         (n, size, size, 3)).astype(np.float32)
+
+
+def fill_body(params, seed=2):
+    """Every ``LayerScaleBlock_*.layerscale`` drawn from U(0.2, 0.6), and
+    every LayerNorm's scale from U(0.5, 1.5) and bias from N(0, 0.1^2). At
+    the config's eps (1e-5) each block would add ~1e-5 of its output to the
+    residual stream, below any tolerance, so a comparison of logits, losses
+    or parameters could not see the body or the class-attention blocks; and
+    LayerNorms left at their (1, 0) init could be swapped unseen."""
+    rng = np.random.RandomState(seed)
+
+    def fill(tree, in_ln=False):
+        for key in sorted(tree):
+            shape = np.shape(tree[key])
+            if isinstance(tree[key], dict):
+                fill(tree[key], key.startswith('LayerNorm_'))
+            elif key == 'layerscale':
+                tree[key] = rng.uniform(0.2, 0.6, shape).astype(np.float32)
+            elif in_ln and key == 'scale':
+                tree[key] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+            elif in_ln and key == 'bias':
+                tree[key] = 0.1 * rng.standard_normal(shape).astype(np.float32)
+
+    fill(params)
+    return params
+
+
+def jax_cait(img_size, overrides=CAIT_SMALL, **kwargs):
+    """(flax model, params with a filled head, LayerScale and LayerNorms)
+    for a small CaiT."""
+    model, params = jax_vit(img_size, name='cait_xxs_24', overrides=overrides,
+                            **kwargs)
+    return model, fill_body(params)
+
+
+def torch_cait(params, img_size, overrides=CAIT_SMALL, **kwargs):
+    """The port's CaiT of the same config with ``params`` loaded."""
+    return torch_vit(params, img_size, name='cait_xxs_24', overrides=overrides,
+                     **kwargs)
