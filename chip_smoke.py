@@ -36,7 +36,20 @@
    0.1, gradients against the plain core (use_kernel='fused_th_xla') with
    the f32 per-op path as the noise floor on the step's whole batch,
    train img/s and peak memory.
-6. Prints one JSON line of every ported kernel, then the result line
+6. Mixer-B/16 and the FF backward (slice 4): K8a (token mixing forward)
+   against its twin at the factory's token-mix shapes (L/K/D 196/98/768 at
+   B=32 and B=192, 49/24/512, 196/98/1024), K8b (its backward) at B=192
+   with all seven gradients, K16 (the FF-sublayer backward) at ViT-B/16
+   @224 bs192's M = 37,824 rows and at a ragged M (weight gradients of
+   both at WGRAD_TOL); NaN-sentinel buffers past the last token row and
+   past M, with an odd batch; serving Mixer-B/16 @224 bs32 (12 K8a
+   launches per forward, logits against the per-op path); training it
+   @224 bs192 (12 K8a + 12 K8b per step, gradients against
+   use_kernel=False); training ViT-B/16 @224 bs192 under
+   use_kernel='fused_ff' (12 K4 + 12 K2 + 12 K16 per step, gradients
+   against use_kernel='kernel': the same K4/K2 attention with the library
+   FF backward).
+7. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
 """
@@ -44,6 +57,7 @@
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
@@ -61,6 +75,7 @@ from sav_tpu_torch.nn.normalization import LayerScaleBlock
 from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
 from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops import fused_layer
+from sav_tpu_torch.ops import mixer_token as mt
 from sav_tpu_torch.ops import th_attention as th
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from sav_tpu_torch.predict import decode_size_for, serve
@@ -103,6 +118,19 @@ BWD_TOL = 2e-2
 # query tile, one image) moves them by ~1/1728 = 6e-4 of max or more, which
 # BWD_TOL would pass; 1e-4 catches it and leaves 10x room over the noise.
 DM_TOL = 1e-4
+# The weight, bias and LN-parameter gradients of K8b and K16 vs the twin,
+# max |kernel - twin| over max |twin|: fixed-order sums of many per-block
+# partials (db1, db2 of K8b: one per (image, 64-channel band), 2304 at
+# bs192; db1 of K16: one per 128-row tile, 296 at M = 37,824), against the
+# same sums in the twin. This script reads them at <= 1.5e-4 of max at the
+# paths' shapes and up to 5.2e-4 at the ragged M = 1003 (H100 80GB HBM3,
+# 700 W): the twin's and the kernel's bf16 dh/gelu differ by single one-ulp
+# flips, which weigh more in a sum over fewer rows. With random-signed
+# partials one dropped or mis-indexed partial of 2304 moves a sum by
+# ~1/sqrt(2304) = 2% of max, which BWD_TOL would pass; 2e-3 catches it with
+# 10x room and leaves ~4x over the ragged-M reading. dx (K8b) and dy (K16)
+# stay at BWD_TOL.
+WGRAD_TOL = 2e-3
 # Each parameter's gradient of the kernel path vs the plain core on the same
 # sublayer boundary (use_kernel='fused_layer_xla'), as |g_kernel - g_plain|
 # / |g_plain| (L2 over the parameter), must be within max(GRAD_TOL,
@@ -280,7 +308,8 @@ def fill_head(model, seed: int) -> None:
     with torch.no_grad():
         head.copy_(torch.randn(head.shape, generator=gen)
                    / math.sqrt(head.shape[0]))
-        model.cls.copy_(torch.randn(model.cls.shape, generator=gen) * 0.02)
+        if hasattr(model, 'cls'):           # ViT and CaiT; the Mixer has none
+            model.cls.copy_(torch.randn(model.cls.shape, generator=gen) * 0.02)
         for sub in model.modules():
             if isinstance(sub, LayerScaleBlock):
                 sub.layerscale.fill_(0.1)
@@ -713,6 +742,212 @@ def check_th_tails(rng, checks, seq, heads=8):
                   f'{kept}, launch codes {errs}')
 
 
+# ---- token mixing (K8a, K8b; csrc/mixer_token.cu) and the FF backward (K16;
+# csrc/ff_bwd.cu)
+
+def _k8_case(rng, batch, l, k, d):
+    """x [batch, l, d] bf16 and the token-mix parameters as the kernels read
+    them: LN scale/bias, b1, b2 f32; W1 [l, k], W2 [k, l] bf16 at lecun
+    scale (so the token mix is not a near-zero term next to x)."""
+    x = _bf16(rng, (batch, l, d))
+    ls = (1.0 + 0.1 * _bf16(rng, (d,))).float()
+    lb = (0.1 * _bf16(rng, (d,))).float()
+    w1 = _bf16(rng, (l, k), 1.0 / math.sqrt(l))
+    b1 = (0.1 * _bf16(rng, (k,))).float()
+    w2 = _bf16(rng, (k, l), 1.0 / math.sqrt(k))
+    b2 = (0.1 * _bf16(rng, (l,))).float()
+    return x, ls, lb, w1, b1, w2, b2
+
+
+def _k8_library(x, ls, lb, w1, b1, w2, b2):
+    """The token-mixing sublayer as the per-op bf16 chain (timed only): no
+    single PyTorch call computes it."""
+    d = x.shape[-1]
+    y = F.layer_norm(x, (d,), ls.bfloat16(), lb.bfloat16(), mt.LN_EPS)
+    h = F.gelu(y.transpose(1, 2) @ w1 + b1.bfloat16(), approximate='tanh')
+    return x + (h @ w2 + b2.bfloat16()).transpose(1, 2)
+
+
+def check_k8a(rng, checks, batch, l, k, d):
+    """K8a vs its twin: the token mix out - x (its own contribution) as max
+    |kernel - twin| over max |twin - x|. Returns the kernel record."""
+    args = _k8_case(rng, batch, l, k, d)
+    x = args[0]
+    out = mt.token_mix_fwd(*args)
+    plain = mt.token_mix_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = _abs(out, plain)
+    rel = err / float((plain.float() - x.float()).abs().max())
+    checks.expect(bool(torch.isfinite(out).all()) and rel <= OUT_TOL,
+                  f'K8a token_mix_fwd B={batch} L={l} K={k} D={d}: max err '
+                  f'{err:.4g} = {rel:.3g} of max|out-x| (tol {OUT_TOL})')
+    flops = 4 * batch * l * k * d
+    nbytes = 2 * batch * l * d * 2 + 2 * l * k * 2 + (2 * d + k + l) * 4
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rec = dict(ms=time_ms(lambda: mt.token_mix_fwd(*args)),
+               plain_ms=time_ms(lambda: mt.token_mix_fwd_plain(*args), iters=3),
+               library_ms=time_ms(lambda: _k8_library(*args)), bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err)
+    print(f'  K8a B={batch} L={l} K={k} D={d}: kernel {rec["ms"]:.4f} ms  '
+          f'plain {rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms'
+          f'  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, '
+          f'{nbytes / 1e6:.1f} MB)', flush=True)
+    return rec
+
+
+K8_GRADS = ('dx', 'dln_scale', 'dln_bias', 'dw1', 'db1', 'dw2', 'db2')
+
+
+def check_k8b(rng, checks, batch, l=196, k=98, d=768):
+    """K8b vs its twin: each of the seven gradients as max |kernel - twin|
+    over max |twin|. Returns the kernel record."""
+    args = _k8_case(rng, batch, l, k, d)
+    g = _bf16(rng, (batch, l, d))
+    grads = mt.token_mix_bwd(*args, g)
+    twin = mt.token_mix_bwd_plain(*args, g)
+    torch.cuda.synchronize()
+    errs = [_rel(a, b) for a, b in zip(grads, twin)]
+    shapes = all(a.shape == b.shape for a, b in zip(grads, twin))
+    finite = all(bool(torch.isfinite(a).all()) for a in grads)
+    checks.expect(shapes and finite and errs[0] <= BWD_TOL
+                  and max(errs[1:]) <= WGRAD_TOL,
+                  f'K8b token_mix_bwd B={batch} L={l} K={k} D={d}: '
+                  + ', '.join(f'{n} {e:.3g}' for n, e in zip(K8_GRADS, errs))
+                  + f' of max (tol dx {BWD_TOL}, the others {WGRAD_TOL})')
+    leaves = [t.detach().requires_grad_() for t in args]
+    fwd = time_ms(lambda: _k8_library(*leaves))
+    both = time_ms(lambda: torch.autograd.grad(_k8_library(*leaves), leaves, g))
+    # the backward's own products: hp recomputed, dgact, dW2, dW1, dy
+    flops = 10 * batch * l * k * d
+    nbytes = 3 * batch * l * d * 2 + 2 * l * k * 2 + 2 * l * k * 4 \
+        + (2 * d + k + l) * 4 * 2
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rec = dict(ms=time_ms(lambda: mt.token_mix_bwd(*args, g)),
+               plain_ms=time_ms(lambda: mt.token_mix_bwd_plain(*args, g),
+                                iters=3),
+               library_ms=max(both - fwd, 0.0), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(_abs(a, b) for a, b in zip(grads, twin)))
+    print(f'  K8b B={batch} L={l}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library (per-op backward) '
+          f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}; '
+          f'{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)', flush=True)
+    return rec
+
+
+def _k16_case(rng, m, d=768, f=3072):
+    g = _bf16(rng, (m, d))
+    y = _bf16(rng, (m, d))
+    hpre = _bf16(rng, (m, f))
+    w1 = _bf16(rng, (d, f), 1.0 / math.sqrt(d))
+    w2 = _bf16(rng, (f, d), 1.0 / math.sqrt(f))
+    return g, hpre, y, w1, w2
+
+
+K16_GRADS = ('dy', 'dw1', 'dw2', 'db1')
+
+
+def check_k16(rng, checks, m, d=768, f=3072, timed=True):
+    """K16 vs its twin at M rows: dy, dW1, dW2, db1 as max |kernel - twin|
+    over max |twin|. Returns the kernel record (``timed``) or None."""
+    args = _k16_case(rng, m, d, f)
+    got = fused_layer.ff_bwd(*args)
+    twin = fused_layer.ff_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_rel(a, b) for a, b in zip(got, twin)]
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    checks.expect(finite and errs[0] <= BWD_TOL and max(errs[1:]) <= WGRAD_TOL,
+                  f'K16 ff_bwd M={m} D={d} F={f}: '
+                  + ', '.join(f'{n} {e:.3g}' for n, e in zip(K16_GRADS, errs))
+                  + f' of max (tol dy {BWD_TOL}, the others {WGRAD_TOL})')
+    if not timed:
+        return None
+    g, hpre, y, w1, w2 = args
+    leaves = [t.detach().requires_grad_() for t in (hpre, y, w1, w2)]
+
+    def library_fwd():
+        hp, yy, ww1, ww2 = leaves
+        return F.gelu(hp, approximate='tanh') @ ww2, yy @ ww1
+
+    def library():
+        """The same function through autograd: dh and dW2 from
+        gelu(hpre) @ W2 given g, then dy and dW1 from y @ W1 given dh."""
+        hp, yy, ww1, ww2 = leaves
+        out, z = library_fwd()
+        dh, dw2 = torch.autograd.grad(out, (hp, ww2), g)
+        dy, dw1 = torch.autograd.grad(z, (yy, ww1), dh)
+        return dy, dw1, dw2, dh.float().sum(0)
+
+    flops = 8 * m * d * f
+    nbytes = (3 * m * d + m * f + 2 * d * f) * 2 + (2 * d * f + f) * 4
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rec = dict(ms=time_ms(lambda: fused_layer.ff_bwd(*args)),
+               plain_ms=time_ms(lambda: fused_layer.ff_bwd_plain(*args), iters=3),
+               library_ms=max(time_ms(library) - time_ms(library_fwd), 0.0),
+               bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(_abs(a, b) for a, b in zip(got, twin)))
+    print(f'  K16 M={m}: kernel {rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f}'
+          f' ms  library (autograd backward) {rec["library_ms"]:.4f} ms  bound '
+          f'{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, '
+          f'{nbytes / 1e6:.1f} MB)', flush=True)
+    return rec
+
+
+def check_ff_sentinels(rng, checks, batch=65, l=196, k=98, d=768, m=1003):
+    """Ragged edges on NaN-sentinel buffers: K8a's out and K8b's dx for an
+    odd batch (65 images: the dW GEMMs' last image chunk is partial) written
+    into buffers 64 token rows longer than B x L, and K16's dy for a ragged
+    M (1003 rows, not a multiple of its 128-row tiles) into a buffer 64 rows
+    longer. The B x L (M) rows must match the twins and the rows past them
+    keep the sentinel: nothing padded, no row dropped, none written past."""
+    stream = fa.stream_of(torch.device('cuda'))
+    ptr = lambda t: t.data_ptr()
+    x, ls, lb, w1, b1, w2, b2 = _k8_case(rng, batch, l, k, d)
+    g = _bf16(rng, (batch, l, d))
+    nan_rows = lambda rows, w: torch.full((rows + 64, w), float('nan'),
+                                          device='cuda', dtype=torch.bfloat16)
+    out, dx = nan_rows(batch * l, d), nan_rows(batch * l, d)
+    stats = torch.empty(batch * l, 2, device='cuda')
+    codes = [mt._fn('sav_mixer_fwd', 9, 4, 1)(
+        ptr(x), ptr(ls), ptr(lb), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
+        ptr(stats), ptr(out), batch, l, k, d, mt.LN_EPS, stream)]
+    f32 = lambda *s: torch.empty(*s, device='cuda')
+    grads = [f32(d), f32(d), f32(l, k), f32(k), f32(k, l), f32(l)]
+    ws = torch.empty(mt._fn('sav_mixer_bwd_workspace', 0, 4,
+                            restype=ctypes.c_longlong)(batch, l, k, d),
+                     dtype=torch.uint8, device='cuda')
+    codes.append(mt._fn('sav_mixer_bwd', 15, 4, 1)(
+        ptr(x), ptr(g), ptr(ls), ptr(lb), ptr(w1), ptr(b1), ptr(w2), ptr(dx),
+        *map(ptr, grads), ptr(ws), batch, l, k, d, mt.LN_EPS, stream))
+    gk, hpre, y, w1f, w2f = _k16_case(rng, m)
+    dy = nan_rows(m, 768)
+    scratch = [torch.empty(m, 3072, device='cuda', dtype=torch.bfloat16)
+               for _ in range(2)]
+    kgrads = [f32(768, 3072), f32(3072, 768), f32(3072)]
+    colsum = f32(-(-m // fused_layer.GEMM_TILE), 3072)
+    codes.append(fused_layer._k16_lib()(
+        ptr(gk), ptr(hpre), ptr(y), ptr(w1f), ptr(w2f), *map(ptr, scratch),
+        ptr(dy), *map(ptr, kgrads), ptr(colsum), m, 768, 3072, stream))
+    torch.cuda.synchronize()
+    want_out = mt.token_mix_fwd_plain(x, ls, lb, w1, b1, w2, b2)
+    twin = mt.token_mix_bwd_plain(x, ls, lb, w1, b1, w2, b2, g)
+    k_twin = fused_layer.ff_bwd_plain(gk, hpre, y, w1f, w2f)
+    n = batch * l
+    rows = [_abs(out[:n], want_out.reshape(n, d))
+            / float((want_out.float() - x.float()).abs().max()),
+            _rel(dx[:n], twin[0].reshape(n, d)), _rel(dy[:m], k_twin[0])]
+    wgrads = [_rel(a, b) for a, b in zip(grads + kgrads,
+                                         list(twin[1:]) + list(k_twin[1:]))]
+    kept = all(bool(torch.isnan(t[r:]).all())
+               for t, r in ((out, n), (dx, n), (dy, m)))
+    checks.expect(all(c == 0 for c in codes) and max(rows) <= BWD_TOL
+                  and max(wgrads) <= WGRAD_TOL and kept,
+                  f'K8a/K8b at B={batch} (L={l}) and K16 at M={m} into '
+                  f'sentinel buffers: out/dx/dy rows in range err '
+                  f'{max(rows):.3g} of max (tol {BWD_TOL}), weight gradients '
+                  f'{max(wgrads):.3g} (tol {WGRAD_TOL}), rows past untouched '
+                  f'{kept}, launch codes {codes}')
+
+
 def _grads(model, batch, seed):
     """Loss and gradients of one batch in training mode; the stochastic-depth
     masks come from a generator seeded from ``seed``, so every path that
@@ -729,15 +964,39 @@ def _grads(model, batch, seed):
     return loss.item(), grads
 
 
+def _grad_rule(g_kernel, g_plain, g_32):
+    """(worst, noisiest): the parameter farthest from the rule
+    max(GRAD_TOL, GRAD_NOISE * plain vs f32) as (err / tol, name, err,
+    tol, plain vs f32, kernel vs f32), and the one whose plain gradient is
+    farthest from f32 as (plain vs f32, name, kernel vs f32)."""
+    worst = (0.0, '', 0.0, 0.0, 0.0, 0.0)
+    noisiest = (0.0, '', 0.0)
+    for n, g in g_plain.items():
+        err = _rel_l2(g_kernel[n], g)
+        noise = _rel_l2(g, g_32[n])
+        tol = max(GRAD_TOL, GRAD_NOISE * noise)
+        if err / tol > worst[0]:
+            worst = (err / tol, n, err, tol, noise,
+                     _rel_l2(g_kernel[n], g_32[n]))
+        if noise > noisiest[0]:
+            noisiest = (noise, n, _rel_l2(g_kernel[n], g_32[n]))
+    return worst, noisiest
+
+
 def train_path(checks, name, img_size, batch, want, seed, steps=10,
                profile=False, model_name='vit_b_patch16',
-               plain_core='fused_layer_xla'):
+               plain_core='fused_layer_xla', use_kernel='auto'):
     """One Trainer step with the counts at 0 (want: the exact counts), then
-    gradients vs the plain core on that batch, img/s and one eval batch.
-    Returns the counts."""
+    gradients vs the plain core (the use_kernel mode ``plain_core``) on that
+    batch, img/s and one eval batch. ``use_kernel`` other than 'auto'
+    re-routes the Trainer's model first (the JAX package reaches 'fused_ff'
+    only through create_model, so the Trainer has no flag for it). Returns
+    the counts."""
     trainer = Trainer(TrainConfig(model_name=model_name,
                                   img_size=img_size, batch_size=batch,
                                   seed=seed, dtype='bfloat16'), device='cuda')
+    if use_kernel != 'auto':
+        set_use_kernel(trainer.model, use_kernel)
     data = trainer.dataset()
     first = data.batch(0)
     _build.reset_launches()
@@ -757,7 +1016,7 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
     loss_k, g_kernel = _grads(trainer.model, first, seed)
     set_use_kernel(trainer.model, plain_core)
     loss_x, g_plain = _grads(trainer.model, first, seed)
-    set_use_kernel(trainer.model, 'auto')
+    set_use_kernel(trainer.model, use_kernel)
     ref = create_model(model_name, num_classes=1000,
                        dtype=torch.float32, img_size=img_size, device='cuda',
                        use_kernel=False)
@@ -766,22 +1025,15 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
     grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del ref
     torch.cuda.empty_cache()
-    worst = (0.0, '', 0.0, 0.0)          # (err / tol, name, err, tol)
-    noisiest = (0.0, '', 0.0)            # (plain vs f32, name, kernel vs f32)
-    for n, g in g_plain.items():
-        err = _rel_l2(g_kernel[n], g)
-        noise = _rel_l2(g, g_32[n])
-        tol = max(GRAD_TOL, GRAD_NOISE * noise)
-        if err / tol > worst[0]:
-            worst = (err / tol, n, err, tol)
-        if noise > noisiest[0]:
-            noisiest = (noise, n, _rel_l2(g_kernel[n], g_32[n]))
+    worst, noisiest = _grad_rule(g_kernel, g_plain, g_32)
     finite = all(bool(torch.isfinite(g).all()) for g in g_kernel.values())
     checks.expect(finite and worst[0] <= 1.0,
-                  f'{name}: gradients vs {plain_core} on '
+                  f'{name}: gradients vs use_kernel={plain_core!r} on '
                   f'{len(first["labels"])} images, {len(g_plain)} '
                   f'parameters, worst {worst[2]:.3g} (L2, tol {worst[3]:.3g}) '
-                  f'at {worst[1]}; loss {loss_k:.5f} vs {loss_x:.5f} (f32 '
+                  f'at {worst[1]} (there plain core vs f32 {worst[4]:.3g}, '
+                  f'kernels vs f32 {worst[5]:.3g}); loss {loss_k:.5f} vs '
+                  f'{loss_x:.5f} (f32 '
                   f'{loss_32:.5f}); farthest from f32: {noisiest[1]}, plain '
                   f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}; peak '
                   f'{grad_peak:.2f} GiB allocated')
@@ -831,7 +1083,7 @@ def main(argv=None):
     parser.add_argument('--batch', type=int, default=32)
     parser.add_argument('--profile', action='store_true',
                         help='also print device time by kernel of each serve '
-                             'and of the ViT @224 and CaiT train steps')
+                             'and of the @224 train steps and CaiT @384')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -900,6 +1152,29 @@ def main(argv=None):
                       profile=args.profile, model_name='cait_s_24',
                       plain_core='fused_th_xla')
 
+    # Mixer-B/16 (slice 4): K8a at the factory's token-mix shapes, K8b at
+    # bs192, K16 at ViT-B/16 @224 bs192's rows, the ragged edges, then the
+    # paths
+    k8a = {(b, l, d): check_k8a(rng, checks, b, l, k, d)
+           for b, l, k, d in ((args.batch, 196, 98, 768), (192, 196, 98, 768),
+                              (args.batch, 49, 24, 512),
+                              (args.batch, 196, 98, 1024))}
+    k8b = check_k8b(rng, checks, 192)
+    k16 = check_k16(rng, checks, 192 * 197)
+    check_k16(rng, checks, 1003, timed=False)
+    check_ff_sentinels(rng, checks)
+    k8a_launches = serve_path(checks, 'Mixer-B/16 @224 auto', 224, 'auto',
+                              'token_mix_fwd', args.seed, args.batch,
+                              args.profile, model_name='mixer_b_patch16')
+    m224 = train_path(checks, 'train Mixer-B/16 @224 bs192', 224, 192,
+                      {'token_mix_fwd': 12, 'token_mix_bwd': 12}, args.seed,
+                      profile=args.profile, model_name='mixer_b_patch16',
+                      plain_core=False)
+    ff224 = train_path(checks, 'train ViT-B/16 @224 bs192 fused_ff', 224, 192,
+                       {'flash_fwd': 12, 'flash_bwd_fused': 12, 'ff_bwd': 12},
+                       args.seed, profile=args.profile, plain_core='kernel',
+                       use_kernel='fused_ff')
+
     def th_entry(name, replaces, launches, rec, train=None, **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
         ``train``, the record at the training shape, adds train_* keys."""
@@ -954,6 +1229,24 @@ def main(argv=None):
         th_entry('th_core_fwd', 362, k6a_launches, k6a[False], k6a[True],
                  train_launches=c384.get('th_core_fwd', 0)),
         th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b),
+        # K8a: Mixer-B/16 serving (B=32) launches and timing; the training
+        # shape (B=192) under train_*
+        dict(name='token_mix_fwd', route='cuda',
+             source='sav_tpu_torch/csrc/mixer_token.cu',
+             replaces='sav_tpu/ops/mixer_token.py:86', launches=k8a_launches,
+             **{k: v for k, v in k8a[(args.batch, 196, 768)].items()
+                if k != 'max_abs_err'},
+             max_abs_err=max(r['max_abs_err'] for r in k8a.values()),
+             train_launches=m224.get('token_mix_fwd', 0),
+             train_ms=k8a[(192, 196, 768)]['ms'],
+             train_bound_ms=k8a[(192, 196, 768)]['bound_ms']),
+        dict(name='token_mix_bwd', route='cuda',
+             source='sav_tpu_torch/csrc/mixer_token.cu',
+             replaces='sav_tpu/ops/mixer_token.py:99',
+             launches=m224.get('token_mix_bwd', 0), **k8b),
+        dict(name='ff_bwd', route='cuda', source='sav_tpu_torch/csrc/ff_bwd.cu',
+             replaces='sav_tpu/ops/fused_layer.py:543',
+             launches=ff224.get('ff_bwd', 0), **k16),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

@@ -22,9 +22,11 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
 
 # library name -> its one translation unit
 SOURCES = {
+    'ff_bwd': 'ff_bwd.cu',
     'flash_bwd': 'flash_bwd.cu',
     'flash_fwd': 'flash_fwd.cu',
     'fused_attention': 'fused_attention.cu',
+    'mixer_token': 'mixer_token.cu',
     'th_attention': 'th_attention.cu',
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

@@ -1,5 +1,6 @@
 """String-keyed model factory (counterpart of
-``sav_tpu/models/factory.py``): the ViT and CaiT names so far."""
+``sav_tpu/models/factory.py``): the ViT, CaiT and MLP-Mixer names so
+far."""
 
 from __future__ import annotations
 
@@ -8,8 +9,9 @@ from typing import Any, Dict
 import torch
 
 from sav_tpu_torch import resolve_device
-from sav_tpu_torch.models import cait, vit
+from sav_tpu_torch.models import cait, mlp_mixer, vit
 from sav_tpu_torch.models.cait import CaiT
+from sav_tpu_torch.models.mlp_mixer import MLPMixer
 from sav_tpu_torch.models.vit import ViT
 from sav_tpu_torch.nn.layers import init_all
 
@@ -25,6 +27,11 @@ def _cait(num_layers, num_heads, embed_dim, stoch_depth_rate, layerscale_eps):
                       patch_shape=(16, 16),
                       stoch_depth_rate=stoch_depth_rate,
                       layerscale_eps=layerscale_eps)
+
+
+def _mixer(num_layers, embed_dim, patch):
+    return MLPMixer, dict(num_layers=num_layers, embed_dim=embed_dim,
+                          patch_shape=(patch, patch))
 
 
 MODEL_CONFIGS: Dict[str, Any] = {
@@ -45,6 +52,12 @@ MODEL_CONFIGS: Dict[str, Any] = {
     'cait_m_24': _cait(24, 16, 768, 0.2, 1e-5),
     'cait_m_36': _cait(36, 16, 768, 0.3, 1e-6),
     'cait_m_48': _cait(48, 16, 768, 0.4, 1e-6),
+    'mixer_s_patch32': _mixer(8, 512, 32),
+    'mixer_s_patch16': _mixer(8, 512, 16),
+    'mixer_b_patch32': _mixer(12, 768, 32),
+    'mixer_b_patch16': _mixer(12, 768, 16),
+    'mixer_l_patch32': _mixer(24, 1024, 32),
+    'mixer_l_patch16': _mixer(32, 1024, 16),
 }
 
 
@@ -78,9 +91,11 @@ def create_model(model_name: str, num_classes: int = 1000,
 
 
 def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:
-    """Re-routes every attention block of a built model, of either family,
+    """Re-routes every kernel-routed block of a built model, of any family,
     on the same weights (``use_kernel=False``: the plain per-op path)."""
     if isinstance(model, CaiT):
         cait.set_use_kernel(model, use_kernel)
+    elif isinstance(model, MLPMixer):
+        mlp_mixer.set_use_kernel(model, use_kernel)
     else:
         vit.set_use_kernel(model, use_kernel)

@@ -28,10 +28,14 @@ FUSED_LAYER_MODES = {
     'fused_layer_full': 'fused',    # the K1 port for the whole span
 }
 PER_OP_MODES = (False, True, 'kernel', 'hybrid', 'auto')
+# per-op attention (dispatched as 'auto'), the FF sublayer as one autograd
+# Function with the K16 backward (ops.fused_layer.ff_sublayer)
+FUSED_FF = 'fused_ff'
 
 
 def _check_use_kernel(use_kernel) -> None:
-    if use_kernel not in PER_OP_MODES and use_kernel not in FUSED_LAYER_MODES:
+    if (use_kernel not in PER_OP_MODES and use_kernel not in FUSED_LAYER_MODES
+            and use_kernel != FUSED_FF):
         raise NotImplementedError(
             f'use_kernel={use_kernel!r} is not ported yet (ROADMAP.md)')
 
@@ -69,7 +73,25 @@ class EncoderBlock(nn.Module):
             x = self._fused_attention_sublayer(inputs, core)
         else:
             x = self.SelfAttentionBlock_0(self.LayerNorm_0(inputs)) + inputs
+        if self.use_kernel == FUSED_FF:
+            return self._ff_sublayer(x)
         return x + self.FFBlock_0(self.LayerNorm_1(x))
+
+    def _ff_sublayer(self, x):
+        """LN_1 -> FFBlock_0 -> residual as one autograd Function (library
+        forward, K16 backward), on the same parameters as the per-op path.
+        The port's FFBlock is dropout-free, unquantized and tanh-gelu, the
+        three things the kernel's closed-form backward assumes."""
+        ff = self.FFBlock_0
+        dim, hidden = ff.Dense_0.kernel.shape
+        if not fused_layer.ff_kernel_supported(dim, hidden):
+            raise ValueError(
+                f"use_kernel='fused_ff' needs D and the FF hidden width to be "
+                f'multiples of {fused_layer.GEMM_TILE}, got {dim} and {hidden}')
+        return fused_layer.ff_sublayer(
+            x.to(self.dtype), self.LayerNorm_1.scale, self.LayerNorm_1.bias,
+            ff.Dense_0.kernel, ff.Dense_0.bias, ff.Dense_1.kernel,
+            ff.Dense_1.bias, fused_layer.LN_EPS)
 
     def _fused_attention_sublayer(self, inputs, core: str):
         """LN -> self-attention -> out-proj -> residual as one call, on the

@@ -67,9 +67,10 @@ def multi_head_attention(
     use_kernel='auto',
 ) -> torch.Tensor:
     """Scaled-dot-product multi-head attention on ``[..., len, heads, d]``
-    (query unscaled). ``use_kernel``: 'auto' picks the flash port where it
-    applies, True/'kernel' forces it, 'hybrid' forces the plain forward
-    with the kernel backward, False forces the plain path."""
+    (query unscaled). ``use_kernel``: 'auto' (and any other string) picks
+    the flash port where it applies, True/'kernel' forces it, 'hybrid'
+    forces the plain forward with the kernel backward, False forces the
+    plain path."""
     head_dim = query.shape[-1]
     # sqrt(d) rounded to the query dtype, as the JAX package divides
     sqrt_d = torch.tensor(float(head_dim)).sqrt().to(query.dtype).item()
@@ -78,14 +79,14 @@ def multi_head_attention(
     if use_kernel is not False:
         if use_kernel in (True, 'kernel', 'hybrid'):
             mode = 'kernel' if use_kernel is True else use_kernel
-        elif use_kernel == 'auto':
+        else:
+            # 'auto', and every other mode (a model-level one such as
+            # 'fused_ff' or 'fused_layer'), dispatches as 'auto', as in the
+            # JAX package; the models refuse modes that are not ported
             mode = dispatch_mode(
                 query, key, bias=bias,
                 pre_softmax_transform=pre_softmax_transform,
                 post_softmax_transform=post_softmax_transform)
-        else:
-            raise NotImplementedError(
-                f'use_kernel={use_kernel!r} is not ported (ROADMAP.md)')
         if mode is not None and (bias is not None
                                  or pre_softmax_transform is not None
                                  or post_softmax_transform is not None):

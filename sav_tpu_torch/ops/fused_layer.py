@@ -325,3 +325,154 @@ def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
                                         rotary)
     return _forward(*args, num_heads, core, eps, residual, rotary,
                     save_residuals=False)[0]
+
+
+# ----------------------------------------- FF sublayer, kernel backward
+
+# tanh-approximation constants of jax.nn.gelu(approximate=True), and the
+# gelu helpers of sav_tpu/ops/tnt_inner.py:103-116 (K8's and K16's twins)
+_GELU_C = 0.7978845608028654        # sqrt(2/pi)
+_GELU_A = 0.044715
+
+
+def _gelu_fwd_t(hp):
+    t = torch.tanh(_GELU_C * (hp + _GELU_A * hp * hp * hp))
+    return 0.5 * hp * (1.0 + t), t
+
+
+def _gelu_bwd_from_t(hp, t):
+    return (0.5 * (1.0 + t)
+            + 0.5 * hp * (1.0 - t * t) * _GELU_C
+            * (1.0 + 3.0 * _GELU_A * hp * hp))
+
+
+def ff_kernel_supported(dim: int, hidden: int) -> bool:
+    """Whether the K16 port takes the FF geometry: its products run in
+    whole 128-wide tiles along D and F (ViT-B 768/3072, ViT-L 1024/4096).
+    Rows are any count: the tail row tile is masked in-kernel. This is the
+    card's tiling, not the TPU's VMEM ceiling (``_ff_geometry``)."""
+    return dim >= 1 and hidden >= 1 and dim % GEMM_TILE == 0 \
+        and hidden % GEMM_TILE == 0
+
+
+def ff_bwd_plain(g2, hpre2, y2, w1, w2):
+    """Plain twin of ``ff_bwd``, following ``_ff_bwd_kernel`` line by line:
+    dgact = g W2^T (f32); dh = dgact * gelu'(hpre) in f32, rounded to g's
+    dtype; h = gelu(hpre) in g's dtype; dW2 = h^T g, dW1 = y^T dh (f32);
+    dy = dh W1^T in g's dtype; db1 = column sums of the f32 dh."""
+    hp = hpre2.float()
+    dgact = g2.float() @ w2.float().t()
+    h, t = _gelu_fwd_t(hp)
+    dh32 = dgact * _gelu_bwd_from_t(hp, t)
+    dh = dh32.to(g2.dtype)
+    h = h.to(g2.dtype)
+    dw2 = h.float().t() @ g2.float()
+    dw1 = y2.float().t() @ dh.float()
+    dy2 = (dh.float() @ w1.float().t()).to(g2.dtype)
+    return dy2, dw1, dw2, dh32.sum(dim=0)
+
+
+def _k16_lib():
+    fn = _build.library('ff_bwd').sav_ff_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ff_bwd(g2, hpre2, y2, w1, w2):
+    """Port of K16 ``_ff_bwd_kernel``: g2, y2 ``[M, D]``, hpre2 ``[M, F]``,
+    w1 ``[D, F]``, w2 ``[F, D]`` -> (dy2 ``[M, D]``, dw1 ``[D, F]`` f32, dw2
+    ``[F, D]`` f32, db1 ``[F]`` f32). On the card (``csrc/ff_bwd.cu``, one
+    call): the dgact GEMM with the gelu' epilogue writing dh, gelu(hpre)
+    and per-row-tile db1 partials; dy = dh W1^T; dW1 and dW2 one block per
+    output tile over all rows; the db1 partials summed in a fixed order.
+    bf16 only; no float atomics."""
+    if g2.device.type == 'cpu':
+        return ff_bwd_plain(g2, hpre2, y2, w1, w2)
+    if g2.device.type != 'cuda':
+        raise ValueError(f'ff_bwd runs on cuda or cpu, not {g2.device}')
+    m, dim = g2.shape
+    hidden = hpre2.shape[-1]
+    for name, t in (('g2', g2), ('hpre2', hpre2), ('y2', y2), ('w1', w1),
+                    ('w2', w2)):
+        fa.check_cuda_bf16(name, t, g2.device)
+    for name, t, shape in (('hpre2', hpre2, (m, hidden)), ('y2', y2, (m, dim)),
+                           ('w1', w1, (dim, hidden)),
+                           ('w2', w2, (hidden, dim))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
+    if m < 1 or not ff_kernel_supported(dim, hidden):
+        raise ValueError(f'ff_bwd needs M >= 1 and D, F multiples of '
+                         f'{GEMM_TILE}, got M={m}, D={dim}, F={hidden}')
+    dev = g2.device
+    dh, h = (torch.empty(m, hidden, dtype=g2.dtype, device=dev)
+             for _ in range(2))
+    dy2 = torch.empty_like(g2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw1, dw2 = torch.empty(dim, hidden, **f32), torch.empty(hidden, dim, **f32)
+    db1 = torch.empty(hidden, **f32)
+    colsum = torch.empty(-(-m // GEMM_TILE), hidden, **f32)
+    with torch.cuda.device(dev):
+        err = _k16_lib()(
+            g2.data_ptr(), hpre2.data_ptr(), y2.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), dh.data_ptr(), h.data_ptr(), dy2.data_ptr(),
+            dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(), colsum.data_ptr(),
+            m, dim, hidden, fa.stream_of(dev))
+    _build.check(err, 'ff_bwd')
+    _build.count('ff_bwd')
+    return dy2, dw1, dw2, db1
+
+
+def _ff_fwd_res(x, scale2, bias2, w1, b1, w2, b2, eps, residual):
+    """The library forward: (out, hpre), hpre = LN(x) W1 + b1 in x.dtype."""
+    cdt = x.dtype
+    y2 = _layernorm(x, scale2, bias2, eps)[0]
+    hpre = y2 @ w1.to(cdt) + b1.to(cdt)
+    out = torch.nn.functional.gelu(hpre, approximate='tanh') @ w2.to(cdt) \
+        + b2.to(cdt)
+    return (x + out if residual else out), hpre
+
+
+class _FFSublayer(torch.autograd.Function):
+    """``_ff_sublayer_fwd``/``_ff_sublayer_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, scale2, bias2, w1, b1, w2, b2, eps, residual):
+        out, hpre = _ff_fwd_res(x, scale2, bias2, w1, b1, w2, b2, eps,
+                                residual)
+        ctx.save_for_backward(x, scale2, bias2, w1, b1, w2, b2, hpre)
+        ctx.config = (eps, residual)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale2, bias2, w1, b1, w2, b2, hpre = ctx.saved_tensors
+        eps, residual = ctx.config
+        b, l, dim = x.shape
+        hidden = w1.shape[1]
+        cdt = x.dtype
+        g_c = g.to(cdt)
+        y2, xhat2, inv2 = _layernorm(x, scale2, bias2, eps)
+        dy2, dw1, dw2, db1 = ff_bwd(
+            g_c.reshape(b * l, dim).contiguous(),
+            hpre.reshape(b * l, hidden).contiguous(),
+            y2.reshape(b * l, dim).contiguous(), w1.to(cdt).contiguous(),
+            w2.to(cdt).contiguous())
+        db2 = g.float().sum(dim=(0, 1))
+        dx_ln, dscale2, dbias2 = _layernorm_bwd(dy2.reshape(b, l, dim), xhat2,
+                                                inv2, scale2)
+        dx = (dx_ln + g.float()).to(cdt) if residual else dx_ln.to(cdt)
+        return (dx, dscale2.to(scale2.dtype), dbias2.to(bias2.dtype),
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype), None, None)
+
+
+def ff_sublayer(x, scale2, bias2, w1, b1, w2, b2, eps=LN_EPS, residual=True):
+    """``x + W2 @ gelu(W1 @ LN(x) + b1) + b2`` with the library forward and
+    the K16 backward (``ff_bwd``); ``residual=False`` leaves x out, as in
+    the JAX package. Differentiable in all seven tensors."""
+    args = (x, scale2, bias2, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FFSublayer.apply(*args, eps, residual)
+    return _ff_fwd_res(*args, eps, residual)[0]

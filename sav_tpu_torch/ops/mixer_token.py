@@ -1,0 +1,273 @@
+"""MLP-Mixer token-mixing sublayer as one differentiable call (counterpart
+of ``sav_tpu/ops/mixer_token.py``).
+
+``x + untranspose(FF(transpose(LN(x))))`` on ``[B, L, D]`` without the
+transposes: LN over channels (f32 statistics, fast variance), a Dense over
+tokens ``W1 [L, K]``, tanh-gelu, a Dense back ``W2 [K, L]``, +x. The
+parameters are read in checkpoint layout (LayerNorm scale/bias ``[D]``,
+FFBlock ``Dense_0``/``Dense_1`` kernels and biases), so the kernel and
+per-op paths of ``models.mlp_mixer.MixerBlock`` share one tree.
+
+``token_mix_fwd`` is the port of K8a ``_fwd_kernel`` and ``token_mix_bwd``
+of K8b ``_bwd_kernel`` (``csrc/mixer_token.cu``); on a CPU tensor each
+runs its plain twin, on a CUDA tensor its kernel, or it raises.
+``token_mix_sublayer`` is the ``torch.autograd.Function`` around them:
+like the JAX ``custom_vjp`` it saves x (and the parameters) only, and the
+backward recomputes the forward from x.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sav_tpu_torch import _build
+from sav_tpu_torch.ops import flash_attention as fa
+from sav_tpu_torch.ops.fused_layer import (LN_EPS, _gelu_bwd_from_t,
+                                           _gelu_fwd_t, _layernorm)
+
+FWD_BAND = 128          # channels of a K8a block (csrc FWD_BAND)
+
+
+# ------------------------------------------------------------ geometry
+
+def _smem(which: str, l: int, k: int) -> int:
+    """Shared memory of a K8a block (``which='fwd'``: W1 and W2 zero-padded
+    to 16-multiples, the normalised and the gelu band, biases, row
+    statistics) or of a K8b band block (``'bwd'``): ``sav_mixer_fwd_smem``
+    / ``sav_mixer_bwd_smem`` of ``csrc/mixer_token.cu``, the one copy of
+    the formulas."""
+    fn = getattr(_build.library('mixer_token'), f'sav_mixer_{which}_smem')
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(l, k)
+
+
+def _refusal(l: int, k: int, d: int, device) -> str | None:
+    """Why the K8 port does not take tokens ``l``, token hidden ``k`` and
+    channels ``d`` on ``device``, or None where it does."""
+    if l < 1 or k < 1:
+        return 'L and K must be at least 1'
+    if d % FWD_BAND:
+        return f'D must be a multiple of the kernels\' {FWD_BAND}-channel bands'
+    if torch.device(device).type == 'cuda':
+        need = max(_smem('fwd', l, k), _smem('bwd', l, k))
+        if need > fa.SMEM_LIMIT:
+            return (f'W1, W2 and a channel band need {need} bytes of shared '
+                    f'memory per block, more than the {fa.SMEM_LIMIT} of one '
+                    f'block')
+    return None
+
+
+def supported(l: int, k: int, d: int, device='cuda') -> bool:
+    """Whether the K8 port takes tokens ``l``, token hidden ``k`` and
+    channels ``d``: whole 128-channel bands, and on the card W1, W2 and a
+    band of both kernels within one block's 227 KB of shared memory
+    (``_smem``). Every ``mixer_*`` config at 224 fits (L in {49, 196}, K in
+    {24, 98}, D in {512, 768, 1024}); @384 (L = 576, K = 288) does not. The
+    TPU bound ``8 <= l <= 256`` has no counterpart: L < 8 is taken. Off the
+    card the plain twins have no such budget."""
+    return _refusal(l, k, d, device) is None
+
+
+def auto_route(l: int, k: int, d: int, device) -> bool:
+    """Whether ``use_kernel='auto'`` takes the K8 port: never off the card,
+    where the JAX package takes its jnp path off the TPU; on the card
+    always, and a shape the kernels do not take raises rather than run the
+    per-op path unasked (``use_kernel=False`` asks for it)."""
+    if torch.device(device).type != 'cuda':
+        return False
+    why = _refusal(l, k, d, device)
+    if why is not None:
+        raise NotImplementedError(
+            f'the token-mix kernels do not take L={l}, K={k}, D={d}: {why} '
+            f'(ROADMAP.md Queue 2, K8); use_kernel=False runs the per-op '
+            f'path')
+    return True
+
+
+# ------------------------------------------------------------ plain twins
+
+def token_mix_fwd_plain(x, ls, lb, w1, b1, w2, b2, eps=LN_EPS):
+    """Plain twin of ``token_mix_fwd``, rounding where ``_fwd_kernel``
+    rounds: y and gelu(hp) in x.dtype, W1/W2 cast to it; hp, biases, gelu
+    and the residual add in f32."""
+    cdt = x.dtype
+    y = _layernorm(x, ls, lb, eps)[0].float()
+    hp = torch.einsum('lk,bld->bkd', w1.to(cdt).float(), y) \
+        + b1.float()[:, None]
+    gact = _gelu_fwd_t(hp)[0].to(cdt).float()
+    t = torch.einsum('kl,bkd->bld', w2.to(cdt).float(), gact) \
+        + b2.float()[:, None]
+    return (x.float() + t).to(cdt)
+
+
+def token_mix_bwd_plain(x, ls, lb, w1, b1, w2, b2, g, eps=LN_EPS):
+    """Plain twin of ``token_mix_bwd``, following ``_bwd_kernel``'s closed
+    form (``mixer_token.py:99-162``): recompute from x, then dW2, db2,
+    dgact, dhp = dgact * gelu'(hp) (f32 up to db1), dW1, db1, dy, the LN
+    backward over D and dx = do + dx_ln; each weight gradient summed over
+    the images. Returns (dx, dls, dlb, dw1, db1, dw2, db2), gradients f32."""
+    cdt = x.dtype
+    w1c, w2c = w1.to(cdt).float(), w2.to(cdt).float()
+    y, xhat, inv = _layernorm(x, ls, lb, eps)
+    yb = y.float()
+    hp = torch.einsum('lk,bld->bkd', w1c, yb) + b1.float()[:, None]
+    gact, t = _gelu_fwd_t(hp)
+    gb = gact.to(cdt).float()
+    do = g.to(cdt).float()
+    dw2 = torch.einsum('bkd,bld->kl', gb, do)
+    db2 = do.sum(dim=(0, 2))
+    dgact = torch.einsum('kl,bld->bkd', w2c, do)
+    dhp = dgact * _gelu_bwd_from_t(hp, t)
+    dhpb = dhp.to(cdt).float()
+    dw1 = torch.einsum('bld,bkd->lk', yb, dhpb)
+    db1 = dhp.sum(dim=(0, 2))
+    dy = torch.einsum('lk,bkd->bld', w1c, dhpb)
+    dxhat = dy * ls.float()
+    dls = (dy * xhat).sum(dim=(0, 1))
+    dlb = dy.sum(dim=(0, 1))
+    dx_ln = inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                   - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return (do + dx_ln).to(cdt), dls, dlb, dw1, db1, dw2, db2
+
+
+def token_mix_reference(x, ln_scale, ln_bias, w1, b1, w2, b2):
+    """Per-op twin in the model's transposed layout (``MixerBlock``'s
+    per-op path), for equality tests; differentiable by autograd."""
+    cdt = x.dtype
+    y = _layernorm(x, ln_scale, ln_bias, LN_EPS)[0]
+    z = y.transpose(-1, -2)                                   # [B, D, L]
+    h = torch.nn.functional.gelu(z @ w1.to(cdt) + b1.to(cdt),
+                                 approximate='tanh')
+    t = h @ w2.to(cdt) + b2.to(cdt)
+    return x + t.transpose(-1, -2)
+
+
+# ------------------------------------------------------ kernel wrappers
+
+def _fn(name, pointers, ints, floats=0, restype=ctypes.c_int):
+    fn = getattr(_build.library('mixer_token'), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                       + [ctypes.c_float] * floats
+                       + ([ctypes.c_void_p] if restype is ctypes.c_int else []))
+        fn.restype = restype
+    return fn
+
+
+def _check(x, ls, lb, w1, b1, w2, b2):
+    """Device, dtype and geometry the K8 kernels take; returns the
+    parameters as the kernels read them (W1/W2 in x's dtype, the rest f32,
+    all contiguous on x's device)."""
+    fa.check_cuda_bf16('x', x, x.device)
+    if x.dim() != 3:
+        raise ValueError(f'x must be [B, L, D], got {tuple(x.shape)}')
+    b, l, d = x.shape
+    k = w1.shape[-1]
+    shapes = (('ln_scale', ls, (d,)), ('ln_bias', lb, (d,)),
+              ('w1', w1, (l, k)), ('b1', b1, (k,)), ('w2', w2, (k, l)),
+              ('b2', b2, (l,)))
+    for name, t, shape in shapes:
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
+    why = 'B must be at least 1' if b < 1 else _refusal(l, k, d, x.device)
+    if why is not None:
+        raise ValueError(
+            f'the token-mix kernels do not take B={b}, L={l}, K={k}, D={d}: '
+            f'{why}')
+    cast = lambda t, dt: t.to(x.device, dt).contiguous()
+    return (cast(ls, torch.float32), cast(lb, torch.float32),
+            cast(w1, x.dtype), cast(b1, torch.float32), cast(w2, x.dtype),
+            cast(b2, torch.float32))
+
+
+def token_mix_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=LN_EPS):
+    """Port of K8a: ``x + W2^T gelu(W1^T LN(x) + b1) + b2`` contracting
+    over tokens, on ``[B, L, D]``. On the card two launches
+    (``csrc/mixer_token.cu``): the LN statistics of every row, then one
+    block per (128-channel band, image). bf16 only."""
+    if x.device.type == 'cpu':
+        return token_mix_fwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    if x.device.type != 'cuda':
+        raise ValueError(f'token_mix_fwd runs on cuda or cpu, not {x.device}')
+    fa.check_no_grad(x, ln_scale, ln_bias, w1, b1, w2, b2)
+    ls, lb, w1c, b1c, w2c, b2c = _check(x, ln_scale, ln_bias, w1, b1, w2, b2)
+    b, l, d = x.shape
+    stats = torch.empty(b * l, 2, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _fn('sav_mixer_fwd', 9, 4, 1)(
+            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1c.data_ptr(),
+            b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(), stats.data_ptr(),
+            out.data_ptr(), b, l, w1c.shape[1], d, eps, fa.stream_of(x.device))
+    _build.check(err, 'token_mix_fwd')
+    _build.count('token_mix_fwd')
+    return out
+
+
+def token_mix_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, g, eps=LN_EPS):
+    """Port of K8b: (dx, dls, dlb, dw1, db1, dw2, db2) of ``token_mix_fwd``
+    from x and the cotangent g, recomputing the forward. On the card
+    (``csrc/mixer_token.cu``): row statistics; one block per (64-channel
+    band, image) for the band-local work (hp, dgact, dhp, dy, the band's
+    LN row sums and per-image dscale/dbias); a warp per row for dx; the
+    dW1/dW2 GEMMs over image chunks; every partial summed in a fixed
+    order. No float atomics: the gradients are the same on every run. bf16
+    only; gradients f32."""
+    if x.device.type == 'cpu':
+        return token_mix_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, g, eps)
+    if x.device.type != 'cuda':
+        raise ValueError(f'token_mix_bwd runs on cuda or cpu, not {x.device}')
+    ls, lb, w1c, b1c, w2c, b2c = _check(x, ln_scale, ln_bias, w1, b1, w2, b2)
+    g = g.to(x.dtype).contiguous()
+    fa.check_cuda_bf16('g', g, x.device)
+    if g.shape != x.shape:
+        raise ValueError(f'g has shape {tuple(g.shape)}, expected {tuple(x.shape)}')
+    b, l, d = x.shape
+    k = w1c.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dls, dlb = torch.empty(d, **f32), torch.empty(d, **f32)
+    dw1, db1 = torch.empty(l, k, **f32), torch.empty(k, **f32)
+    dw2, db2 = torch.empty(k, l, **f32), torch.empty(l, **f32)
+    ws_bytes = _fn('sav_mixer_bwd_workspace', 0, 4,
+                   restype=ctypes.c_longlong)(b, l, k, d)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _fn('sav_mixer_bwd', 15, 4, 1)(
+            x.data_ptr(), g.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+            w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), dx.data_ptr(),
+            dls.data_ptr(), dlb.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), b, l, k, d, eps,
+            fa.stream_of(x.device))
+    _build.check(err, 'token_mix_bwd')
+    _build.count('token_mix_bwd')
+    return dx, dls, dlb, dw1, db1, dw2, db2
+
+
+# --------------------------------------------------------- autograd span
+
+class _TokenMix(torch.autograd.Function):
+    """``token_mix_sublayer``'s ``custom_vjp``: saves x, recomputes."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        return token_mix_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        params = ctx.saved_tensors
+        grads = token_mix_bwd(*params, g)
+        return tuple(gr.to(p.dtype) for gr, p in zip(grads, params))
+
+
+def token_mix_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2):
+    """``x + untranspose(FF(transpose(LN(x))))`` on ``[B, L, D]``,
+    differentiable in all seven tensors; w1 ``[L, K]``, w2 ``[K, L]`` in
+    checkpoint layout. With grad off it is ``token_mix_fwd``."""
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _TokenMix.apply(*args)
+    return token_mix_fwd(*args)

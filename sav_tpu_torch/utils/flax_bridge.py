@@ -19,9 +19,14 @@ import numpy as np
 import torch
 
 
+# the names of nn.scan-stacked block stacks (no _N suffix): ViT/CaiT's
+# encoder and the Mixer's blocks (sav_tpu/models/mlp_mixer.py:148)
+SCAN_NAMES = ('EncoderBlock', 'MixerBlock')
+
+
 def _reject_scan_layout(path: str) -> None:
     for part in path.split('/'):
-        if part == 'EncoderBlock':
+        if part in SCAN_NAMES:
             raise NotImplementedError(
                 f'{path!r} is a scan-stacked (scan_layers=True) tree; only the '
                 'per-layer layout is bridged so far (see ROADMAP.md, trainer '

@@ -6,8 +6,9 @@ mode, so without a card every test here skips (marker ``cuda``).
 Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -q
 Tolerances as in chip_smoke.py: outputs and gradients 2e-2 of max |twin|
 (K1: of the sublayer's own contribution), the TH backward's dM_pre and
-dM_post 1e-4 of max, lse 1e-3 absolute (K1's against the logsumexp of its
-own q and k).
+dM_post 1e-4 of max, the weight, bias and LN-parameter gradients of K8b and
+K16 2e-3 of max (WGRAD_TOL), lse 1e-3 absolute (K1's against the
+logsumexp of its own q and k).
 """
 
 import math
@@ -20,6 +21,10 @@ from sav_tpu_torch.ops import flash_attention, fused_layer, th_attention
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 
 pytestmark = pytest.mark.cuda
+
+# K8b's and K16's weight gradients: fixed-order sums of per-block partials,
+# as close to the twin's as chip_smoke.WGRAD_TOL says; dx/dy stay at 2e-2
+WGRAD_TOL = 2e-3
 
 
 @pytest.fixture
@@ -319,3 +324,126 @@ def test_th_wrappers_refuse_and_count(card):
     th_attention.th_attention_bwd(q, k, v, do, lse, *m, 8)
     assert _build.launches == {'th_core_fwd': 1, 'th_core_bwd': 1,
                                'th_attention_bwd': 1}
+
+
+# ---- slice 4: K8a/K8b (csrc/mixer_token.cu) and K16 (csrc/ff_bwd.cu)
+
+def _k8_args(rng, batch, l, k, d, card):
+    return (_bf16(rng, (batch, l, d), 1, card),
+            (1 + _bf16(rng, (d,), 0.1, card)).float(),
+            _bf16(rng, (d,), 0.1, card).float(),
+            _bf16(rng, (l, k), 1 / math.sqrt(l), card),
+            _bf16(rng, (k,), 0.1, card).float(),
+            _bf16(rng, (k, l), 1 / math.sqrt(k), card),
+            _bf16(rng, (l,), 0.1, card).float())
+
+
+@pytest.mark.parametrize('batch,l,k,d', [(3, 196, 98, 768), (5, 49, 24, 512),
+                                         (2, 13, 6, 128), (1, 196, 98, 1024)])
+def test_token_mix_fwd_matches_twin(card, batch, l, k, d):
+    from sav_tpu_torch.ops import mixer_token
+    args = _k8_args(np.random.RandomState(l), batch, l, k, d, card)
+    out = mixer_token.token_mix_fwd(*args)
+    plain = mixer_token.token_mix_fwd_plain(*args)
+    x = args[0]
+    assert _rel(out.float() - x.float(), plain.float() - x.float()) <= 2e-2
+
+
+@pytest.mark.parametrize('batch,l,k,d', [(3, 196, 98, 768), (65, 49, 24, 512),
+                                         (2, 13, 6, 128)])
+def test_token_mix_bwd_matches_twin_and_repeats(card, batch, l, k, d):
+    from sav_tpu_torch.ops import mixer_token
+    rng = np.random.RandomState(l + 1)
+    args = _k8_args(rng, batch, l, k, d, card)
+    g = _bf16(rng, (batch, l, d), 1, card)
+    grads = mixer_token.token_mix_bwd(*args, g)
+    twin = mixer_token.token_mix_bwd_plain(*args, g)
+    assert all(a.shape == b.shape for a, b in zip(grads, twin))
+    assert _rel(grads[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(grads[1:], twin[1:])) <= WGRAD_TOL
+    again = mixer_token.token_mix_bwd(*args, g)      # no float atomics
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize('m', [1, 130, 1003, 4 * 197])
+def test_ff_bwd_matches_twin_and_repeats(card, m):
+    rng = np.random.RandomState(m)
+    d, f = 256, 512
+    args = (_bf16(rng, (m, d), 1, card), _bf16(rng, (m, f), 1, card),
+            _bf16(rng, (m, d), 1, card),
+            _bf16(rng, (d, f), 1 / math.sqrt(d), card),
+            _bf16(rng, (f, d), 1 / math.sqrt(f), card))
+    got = fused_layer.ff_bwd(*args)
+    twin = fused_layer.ff_bwd_plain(*args)
+    assert all(a.shape == b.shape for a, b in zip(got, twin))
+    assert _rel(got[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(got[1:], twin[1:])) <= WGRAD_TOL
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, fused_layer.ff_bwd(*args)))
+
+
+def test_ff_sublayer_gradients_match_the_library_backward(card):
+    """The FF Function (K16 backward) against autograd through the same
+    library forward, every gradient, bf16."""
+    rng = np.random.RandomState(3)
+    d, f = 256, 1024
+    x = _bf16(rng, (2, 37, d), 1, card)
+    params = [(1 + _bf16(rng, (d,), 0.1, card)).float(),
+              _bf16(rng, (d,), 0.1, card).float(),
+              _bf16(rng, (d, f), 1 / math.sqrt(d), card).float(),
+              _bf16(rng, (f,), 0.1, card).float(),
+              _bf16(rng, (f, d), 1 / math.sqrt(f), card).float(),
+              _bf16(rng, (d,), 0.1, card).float()]
+    grads = []
+    for fn in (fused_layer.ff_sublayer,
+               lambda *a: fused_layer._ff_fwd_res(*a, fused_layer.LN_EPS,
+                                                  True)[0]):
+        leaves = [t.clone().requires_grad_() for t in (x, *params)]
+        fn(*leaves).float().square().sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 2e-2
+
+
+def test_slice4_wrappers_refuse_and_count(card):
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import mixer_token
+    rng = np.random.RandomState(0)
+    args = _k8_args(rng, 2, 16, 8, 128, card)
+    with pytest.raises(ValueError, match='bfloat16'):
+        mixer_token.token_mix_fwd(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match='do not take'):
+        mixer_token.token_mix_fwd(args[0][..., :96].contiguous(),
+                                  args[1][:96], args[2][:96], *args[3:])
+    g, w = _bf16(rng, (64, 96), 1, card), _bf16(rng, (96, 96), 1, card)
+    with pytest.raises(ValueError, match='multiples of 128'):
+        fused_layer.ff_bwd(g, g, g, w, w)
+    _build.reset_launches()
+    out = mixer_token.token_mix_sublayer(*(t.requires_grad_() if t.dtype ==
+                                           torch.float32 else t for t in args))
+    out.float().sum().backward()
+    assert _build.launches == {'token_mix_fwd': 1, 'token_mix_bwd': 1}
+
+
+def test_mixer_smem_threshold_and_auto_refusal(card):
+    """The K8 kernels' shared-memory budget on the card: every mixer_*
+    config at 224 fits; @384 (L = 576, K = 288) does not, so 'auto' raises
+    there and use_kernel=False runs the per-op path."""
+    from sav_tpu_torch.models import create_model
+    from sav_tpu_torch.ops import mixer_token
+    for l, k in ((49, 24), (196, 98)):
+        for d in (512, 768, 1024):
+            assert mixer_token.supported(l, k, d, card)
+    assert not mixer_token.supported(576, 288, 768, card)
+    x = torch.zeros(1, 384, 384, 3, device=card)
+    model = create_model('mixer_s_patch16', num_classes=10, img_size=384,
+                         num_layers=1, dtype=torch.bfloat16, device=card)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match='use_kernel=False'):
+        model(x)
+    per_op = create_model('mixer_s_patch16', num_classes=10,
+                                   img_size=384, num_layers=1,
+                                   dtype=torch.bfloat16, device=card,
+                                   use_kernel=False)
+    with torch.no_grad():
+        assert per_op(x).shape == (1, 10)
