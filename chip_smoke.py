@@ -49,7 +49,20 @@
    use_kernel='fused_ff' (12 K4 + 12 K2 + 12 K16 per step, gradients
    against use_kernel='kernel': the same K4/K2 attention with the library
    FF backward).
-7. Prints one JSON line of every ported kernel, then the result line
+7. TNT-S/16 and TNT-B/16 (slice 5): K1 without the residual (both
+   variants) against its twin at the outer sublayer's shapes (B=32,
+   L=197, D/H 384/6 and 640/10); K7a (the whole inner layer) at TNT-S's
+   serving and training shapes (B*P = 32 x 196 and 64 x 196, D=24) and
+   TNT-B's (32 x 196, D=40), K7b (its backward: dx and 12 parameter
+   gradients, two calls bit-identical) at TNT-S bs64 and TNT-B bs32, the
+   ragged tail (an odd B*P) on NaN-sentinel buffers; serving TNT-S @224
+   bs32 (12 K7a + 12 K1 launches per forward, logits against the per-op
+   path); training TNT-S @224 bs64 and TNT-B @224 bs32 (12 K7a + 12 K7b +
+   12 K1-train + 12 K2 per step, gradients against the plain core on the
+   outer sublayer's boundary, use_kernel='fused_layer_xla', with the f32
+   per-op path as the noise floor), and TNT-S under
+   use_kernel='fused_inner' (K7 inner, K4/K2 outer) beside it.
+8. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
 """
@@ -77,6 +90,7 @@ from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops import fused_layer
 from sav_tpu_torch.ops import mixer_token as mt
 from sav_tpu_torch.ops import th_attention as th
+from sav_tpu_torch.ops import tnt_inner
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from sav_tpu_torch.predict import decode_size_for, serve
 from sav_tpu_torch.train import TrainConfig, Trainer
@@ -315,10 +329,11 @@ def fill_head(model, seed: int) -> None:
                 sub.layerscale.fill_(0.1)
 
 
-def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
-               profile=False, model_name='vit_b_patch16', per_forward=12):
-    """Drives ``serve`` once with the counts at 0, then compares logits
-    with the plain cores and measures img/s. Returns the launch count."""
+def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
+               profile=False, model_name='vit_b_patch16'):
+    """Drives ``serve`` once with the counts at 0 (want: the exact counts
+    per forward), then compares logits with the plain cores and measures
+    img/s. Returns the counts."""
     model = create_model(model_name, num_classes=1000,
                          dtype=torch.bfloat16, img_size=img_size, seed=seed,
                          device='cuda', use_kernel=use_kernel)
@@ -332,9 +347,8 @@ def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
     probs, idx = serve(model, frames, img_size, 5)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
-    checks.expect(counts == {counter: per_forward},
-                  f'{name}: launches per forward {counts} (want {per_forward} '
-                  f'{counter})')
+    checks.expect(counts == want,
+                  f'{name}: launches per forward {counts} (want {want})')
     checks.expect(tuple(idx.shape) == (batch, 5)
                   and bool(torch.isfinite(probs).all()),
                   f'{name}: top-5 of shape {tuple(idx.shape)}, finite')
@@ -368,7 +382,7 @@ def serve_path(checks, name, img_size, use_kernel, counter, seed, batch,
         print_profile(lambda: serve(model, frames, img_size, 5))
     del model
     torch.cuda.empty_cache()
-    return counts.get(counter, 0)
+    return counts
 
 
 def _abs(a, b) -> float:
@@ -948,6 +962,256 @@ def check_ff_sentinels(rng, checks, batch=65, l=196, k=98, d=768, m=1003):
                   f'{kept}, launch codes {codes}')
 
 
+# ---- TNT (slice 5): K1 without the residual (csrc/fused_attention.cu) and
+# the inner layer K7a/K7b (csrc/tnt_inner.cu)
+
+def check_k1_nores(rng, checks, batch, seq, dim, heads, train):
+    """K1 without the residual (TNT's outer sublayer), inference or
+    residual-writing variant, vs its twin: out (and with ``train`` q, k,
+    v, attn) as max |kernel - twin| over max |twin|, there being no x to
+    subtract; lse against the logsumexp of the kernel's own q and k.
+    Returns the kernel record."""
+    hd = heads * 64
+    args, _, flops = _k1_case(rng, batch, seq, dim, heads)
+    x, scale, bias, wq, wk, wv, wo, _ = args
+    run = lambda: fused_layer.fused_attention_fwd(
+        *args, save_residuals=train, residual=False)
+    plain = lambda: fused_layer.fused_attention_fwd_plain(
+        *args, fused_layer.LN_EPS, save_residuals=train, residual=False)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    lse_err, errs = 0.0, []
+    if train:
+        (out, res), (p_out, p_res) = got, want
+        errs = [_rel(a, b) for a, b in zip(res[:4], p_res[:4])]
+        abs_err = max(_abs(a, b) for a, b in zip((out, *res[:4]),
+                                                 (p_out, *p_res[:4])))
+        split = lambda a: a.float().view(batch, seq, heads, 64)
+        own = torch.logsumexp(torch.einsum('bqhd,bkhd->bhqk', split(res[0]),
+                                           split(res[1])), dim=-1)
+        lse_err = _abs(res[4], own)
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *res))
+    else:
+        out, p_out = got, want
+        abs_err, finite = _abs(out, p_out), bool(torch.isfinite(out).all())
+    err_out = _rel(out, p_out)
+    name = f'K1 residual=False{" train" if train else ""}'
+    checks.expect(finite and max([err_out] + errs) <= OUT_TOL
+                  and lse_err <= LSE_TOL,
+                  f'{name} B={batch} L={seq} D={dim} H={heads}: out '
+                  f'{err_out:.3g} of max|out|' + (
+                      f', q/k/v/attn {", ".join(f"{e:.3g}" for e in errs)} '
+                      f'of max; lse vs its own q,k {lse_err:.3g} (tol '
+                      f'{LSE_TOL})' if train else '') + f' (tol {OUT_TOL})')
+
+    def library():
+        y = F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
+        split = lambda a: a.view(batch, seq, heads, 64).transpose(1, 2)
+        a = F.scaled_dot_product_attention(*(split(y @ w)
+                                             for w in (wq, wk, wv)))
+        return a.transpose(1, 2).reshape(batch, seq, hd) @ wo
+
+    m = batch * seq
+    nbytes = 2 * m * dim * 2 + 4 * dim * hd * 2 + 2 * dim * 4
+    if train:
+        nbytes += 4 * m * hd * 2 + batch * heads * seq * 4
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rec = dict(ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(abs_err, lse_err))
+    print(f'  {name} B={batch} D={dim}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {b_ms:.4f} ms ({b_by})', flush=True)
+    return rec
+
+
+K7_GRADS = ('dx', 'dln1s', 'dln1b', 'dwq', 'dwk', 'dwv', 'dwo', 'dln2s',
+            'dln2b', 'dw1', 'db1', 'dw2', 'db2')
+
+
+def _k7_case(rng, n, d, heads=4):
+    """x [n, 16, d] bf16 and the inner layer's parameters in checkpoint
+    layout, f32 as the model holds them (the kernels read the weights in
+    bf16): wq 2x lecun so the softmax over the 16 tokens is not flat."""
+    hd, f = d // heads, 4 * d
+    w = lambda *s, std=1.0: _bf16(rng, s, std / math.sqrt(s[0])).float()
+    ln = lambda: ((1.0 + 0.1 * _bf16(rng, (d,))).float(),
+                  (0.1 * _bf16(rng, (d,))).float())
+    x = _bf16(rng, (n, 16, d))
+    (ln1s, ln1b), (ln2s, ln2b) = ln(), ln()
+    return (x, ln1s, ln1b, w(d, heads, hd, std=2.0), w(d, heads, hd),
+            w(d, heads, hd), w(heads, hd, d), ln2s, ln2b, w(d, f),
+            (0.1 * _bf16(rng, (f,))).float(), w(f, d),
+            (0.1 * _bf16(rng, (d,))).float())
+
+
+def _k7_library(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2,
+                heads=4):
+    """The inner layer as the per-op bf16 chain (LN, matmuls, SDPA, gelu;
+    bf16 parameters; timed only): no single PyTorch call computes it."""
+    n, l, d = x.shape
+    split = lambda a: a.view(n, l, heads, d // heads).transpose(1, 2)
+    y = F.layer_norm(x, (d,), ln1s, ln1b, 1e-6)
+    a = F.scaled_dot_product_attention(*(split(y @ w.view(d, d))
+                                         for w in (wq, wk, wv)))
+    x2 = x + a.transpose(1, 2).reshape(n, l, d) @ wo.view(d, d)
+    h = F.gelu(F.layer_norm(x2, (d,), ln2s, ln2b, 1e-6) @ w1 + b1,
+               approximate='tanh')
+    return x2 + h @ w2 + b2
+
+
+def _k7_work(n, d, backward):
+    """(tensor-core operations, f32 operations, bytes) of K7a or K7b on n
+    patches: the four projections and the FF products (the backward's
+    recompute and its eight products), the per-head attention in f32
+    (q k^T and a v: 4 L D a row; the backward recomputes them and adds da,
+    dq, dk, dv: 12 L D), x (and g, dx) moved once, the weights read once
+    in bf16 and, in the backward, their gradients written in f32."""
+    rows, f = n * 16, 4 * d
+    weights = 4 * d * d + 2 * d * f
+    if backward:
+        return (rows * (24 * d * d + 12 * d * f), rows * 12 * 16 * d,
+                3 * rows * d * 2 + weights * 2 + weights * 4
+                + (5 * d + f) * 4 * 2)
+    return (rows * (8 * d * d + 4 * d * f), rows * 4 * 16 * d,
+            2 * rows * d * 2 + weights * 2 + (5 * d + f) * 4)
+
+
+def _k7_raw(args, g=None, out=None):
+    """(launch, outputs) of the C entry of K7a (``g`` None) or K7b alone,
+    on weights prepared once (bf16 concatenation and casts, the f32
+    vector) and, for K7b, a workspace allocated once: the kernels' own
+    time, without the wrapper's per-call preparation, which the wrapper's
+    time includes. Outputs: (out,) or (dx, dW f32, LN/bias gradients f32);
+    ``out`` may supply the buffer of out or dx."""
+    x = args[0]
+    n, _, d = x.shape
+    f = 4 * d
+    wqkv, wo, w1, w2, par = tnt_inner._check(x, *args[1:], 4)
+    stream = fa.stream_of(x.device)
+    qs = 1.0 / math.sqrt(d // 4)
+    ptrs = [t.data_ptr() for t in (x, wqkv, wo, w1, w2, par)]
+    out = torch.empty_like(x) if out is None else out
+    if g is None:
+        fn = tnt_inner._fn('sav_tnt_fwd', 7, 4, 2)
+        return (lambda: fn(*ptrs, out.data_ptr(), n, d, f, 4,
+                           fused_layer.LN_EPS, qs, stream)), (out,)
+    gw = torch.empty(4 * d * d + 2 * d * f, device='cuda')
+    gvec = torch.empty(5 * d + f, device='cuda')
+    ws = torch.empty(tnt_inner._fn('sav_tnt_bwd_workspace', 0, 4,
+                                   restype=ctypes.c_longlong)(n, d, f, 4),
+                     dtype=torch.uint8, device='cuda')
+    fn = tnt_inner._fn('sav_tnt_bwd', 11, 4, 2)
+    return (lambda: fn(ptrs[0], g.data_ptr(), *ptrs[1:], out.data_ptr(),
+                       gw.data_ptr(), gvec.data_ptr(), ws.data_ptr(), n, d, f,
+                       4, fused_layer.LN_EPS, qs, stream)), (out, gw, gvec)
+
+
+def check_k7a(rng, checks, n, d):
+    """K7a vs its twin on n patches of width d: the layer's own part, out -
+    x, as max |kernel - twin| over max |twin - x|. Returns the record: ms
+    of the kernel alone, wrapper_ms of ``inner_layer_fwd`` (the weights
+    prepared on every call, as the model's path does)."""
+    args = _k7_case(rng, n, d)
+    x = args[0]
+    run = lambda: tnt_inner.inner_layer_fwd(*args, 4)
+    plain = lambda: tnt_inner.inner_layer_fwd_plain(*args, 4)
+    out, p_out = run(), plain()
+    torch.cuda.synchronize()
+    err = _abs(out, p_out)
+    rel = err / float((p_out.float() - x.float()).abs().max())
+    checks.expect(bool(torch.isfinite(out).all()) and rel <= OUT_TOL,
+                  f'K7a tnt_inner_fwd B*P={n} D={d}: max err {err:.4g} = '
+                  f'{rel:.3g} of max|out-x| (tol {OUT_TOL})')
+    lib = [x] + [t.bfloat16() for t in args[1:]]
+    ops, f32_ops, nbytes = _k7_work(n, d, False)
+    b_ms, b_by = bound_ms(ops, nbytes, f32_ops)
+    rec = dict(ms=time_ms(_k7_raw(args)[0]), wrapper_ms=time_ms(run),
+               plain_ms=time_ms(plain, iters=3),
+               library_ms=time_ms(lambda: _k7_library(*lib)), bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err)
+    print(f'  K7a B*P={n} D={d}: kernel {rec["ms"]:.4f} ms (wrapper '
+          f'{rec["wrapper_ms"]:.4f})  plain {rec["plain_ms"]:.4f} ms  library '
+          f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}; '
+          f'{ops / 1e9:.2f} GFLOP tensor, {f32_ops / 1e9:.2f} GFLOP f32, '
+          f'{nbytes / 1e6:.1f} MB)', flush=True)
+    return rec
+
+
+def check_k7b(rng, checks, n, d):
+    """K7b vs its twin: dx and the 12 parameter gradients as max |kernel -
+    twin| over max |twin|, and two calls giving identical bits (no float
+    atomics). Returns the kernel record (ms and wrapper_ms as K7a's)."""
+    args = _k7_case(rng, n, d)
+    g = _bf16(rng, (n, 16, d))
+    run = lambda: tnt_inner.inner_layer_bwd(*args, g, 4)
+    plain = lambda: tnt_inner.inner_layer_bwd_plain(*args, g, 4)
+    grads, twin, again = run(), plain(), run()
+    torch.cuda.synchronize()
+    errs = [_rel(a, b) for a, b in zip(grads, twin)]
+    shapes = all(a.shape == b.shape for a, b in zip(grads, twin))
+    finite = all(bool(torch.isfinite(a).all()) for a in grads)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    checks.expect(shapes and finite and same and errs[0] <= BWD_TOL
+                  and max(errs[1:]) <= WGRAD_TOL,
+                  f'K7b tnt_inner_bwd B*P={n} D={d}: '
+                  + ', '.join(f'{k} {e:.3g}' for k, e in zip(K7_GRADS, errs))
+                  + f' of max (tol dx {BWD_TOL}, the others {WGRAD_TOL}); '
+                  f'two calls identical {same}')
+    leaves = [args[0].detach().requires_grad_()] + [
+        t.bfloat16().requires_grad_() for t in args[1:]]
+    fwd = time_ms(lambda: _k7_library(*leaves))
+    both = time_ms(lambda: torch.autograd.grad(_k7_library(*leaves), leaves,
+                                               g))
+    ops, f32_ops, nbytes = _k7_work(n, d, True)
+    b_ms, b_by = bound_ms(ops, nbytes, f32_ops)
+    rec = dict(ms=time_ms(_k7_raw(args, g)[0]), wrapper_ms=time_ms(run),
+               plain_ms=time_ms(plain, iters=3),
+               library_ms=max(both - fwd, 0.0), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(_abs(a, b) for a, b in zip(grads, twin)))
+    print(f'  K7b B*P={n} D={d}: kernels {rec["ms"]:.4f} ms (wrapper '
+          f'{rec["wrapper_ms"]:.4f})  plain {rec["plain_ms"]:.4f} ms  library '
+          f'(per-op backward) {rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms '
+          f'({b_by}; {ops / 1e9:.2f} GFLOP tensor, {f32_ops / 1e9:.2f} GFLOP '
+          f'f32, {nbytes / 1e6:.1f} MB)', flush=True)
+    return rec
+
+
+def check_k7_sentinels(rng, checks, n, d):
+    """The ragged tail: K7a's out and K7b's dx for n patches (odd, so not a
+    multiple of a block's warps nor of the 4-patch rows of the dW GEMMs)
+    written into buffers 64 patches longer holding a NaN sentinel. The n
+    patches must match the twins and the rest keep the sentinel: nothing
+    padded, no patch dropped, none written past; the weight gradients of
+    that call at WGRAD_TOL."""
+    args = _k7_case(rng, n, d)
+    x = args[0]
+    g = _bf16(rng, (n, 16, d))
+    f = 4 * d
+    nan = lambda: torch.full((n + 64, 16, d), float('nan'), device='cuda',
+                             dtype=torch.bfloat16)
+    fwd, (out,) = _k7_raw(args, out=nan())
+    bwd, (dx, gw, gvec) = _k7_raw(args, g, out=nan())
+    codes = [fwd(), bwd()]
+    torch.cuda.synchronize()
+    want = tnt_inner.inner_layer_fwd_plain(*args, 4)
+    twin = tnt_inner.inner_layer_bwd_plain(*args, g, 4)
+    rows = [_abs(out[:n], want) / float((want.float() - x.float()).abs().max()),
+            _rel(dx[:n], twin[0])]
+    flat = torch.cat([twin[3].reshape(d, d), twin[4].reshape(d, d),
+                      twin[5].reshape(d, d)], dim=1)
+    wgrads = [_rel(gw[:3 * d * d].view(d, 3 * d), flat),
+              _rel(gw[4 * d * d:4 * d * d + d * f].view(d, f), twin[9]),
+              _rel(gvec[:d], twin[1]), _rel(gvec[5 * d:], twin[10])]
+    kept = all(bool(torch.isnan(t[n:]).all()) for t in (out, dx))
+    checks.expect(all(c == 0 for c in codes) and max(rows) <= BWD_TOL
+                  and max(wgrads) <= WGRAD_TOL and kept,
+                  f'K7a/K7b at B*P={n} D={d} into sentinel buffers: out/dx '
+                  f'err {max(rows):.3g} of max (tol {BWD_TOL}), dWqkv/dW1/'
+                  f'dln1s/db1 {max(wgrads):.3g} (tol {WGRAD_TOL}), patches '
+                  f'past untouched {kept}, launch codes {codes}')
+
+
 def _grads(model, batch, seed):
     """Loss and gradients of one batch in training mode; the stochastic-depth
     masks come from a generator seeded from ``seed``, so every path that
@@ -1111,14 +1375,15 @@ def main(argv=None):
     check_bwd(rng, checks, 192, 200, kv_len=190, routes=('fused', 'split'))
     bwd577 = check_bwd(rng, checks, 48, 577, routes=('split',))
 
-    k1_launches = serve_path(checks, 'ViT-B/16 @224 auto', 224, 'auto',
-                             'fused_attention_fwd', args.seed, args.batch,
-                             args.profile)
-    k4_launches = serve_path(checks, 'ViT-B/16 @384 fused_layer', 384,
-                             'fused_layer', 'flash_fwd', args.seed, args.batch,
-                             args.profile)
-    serve_path(checks, 'ViT-B/16 @384 auto', 384, 'auto', 'fused_attention_fwd',
-               args.seed, args.batch, args.profile)
+    k1_serve = serve_path(checks, 'ViT-B/16 @224 auto', 224, 'auto',
+                             {'fused_attention_fwd': 12}, args.seed,
+                             args.batch, args.profile)
+    k4_serve = serve_path(checks, 'ViT-B/16 @384 fused_layer', 384,
+                             'fused_layer', {'flash_fwd': 12}, args.seed,
+                             args.batch, args.profile)
+    serve_path(checks, 'ViT-B/16 @384 auto', 384, 'auto',
+               {'fused_attention_fwd': 12}, args.seed, args.batch,
+               args.profile)
     t224 = train_path(checks, 'train ViT-B/16 @224 bs192', 224, 192,
                       {'fused_attention_fwd_train': 12, 'flash_bwd_fused': 12},
                       args.seed, profile=args.profile)
@@ -1135,14 +1400,12 @@ def main(argv=None):
     k6b = check_th_bwd(rng, checks, 48, 576, 'th_core_bwd')
     for seq in (196, 576):
         check_th_tails(rng, checks, seq)
-    k5a_launches = serve_path(checks, 'CaiT-S/24 @224 auto', 224, 'auto',
-                              'th_attention_fwd', args.seed, args.batch,
-                              args.profile, model_name='cait_s_24',
-                              per_forward=24)
-    k6a_launches = serve_path(checks, 'CaiT-S/24 @384 auto', 384, 'auto',
-                              'th_core_fwd', args.seed, args.batch,
-                              args.profile, model_name='cait_s_24',
-                              per_forward=24)
+    k5a_serve = serve_path(checks, 'CaiT-S/24 @224 auto', 224, 'auto',
+                              {'th_attention_fwd': 24}, args.seed, args.batch,
+                              args.profile, model_name='cait_s_24')
+    k6a_serve = serve_path(checks, 'CaiT-S/24 @384 auto', 384, 'auto',
+                              {'th_core_fwd': 24}, args.seed, args.batch,
+                              args.profile, model_name='cait_s_24')
     c224 = train_path(checks, 'train CaiT-S/24 @224 bs128', 224, 128,
                       {'th_attention_fwd_train': 24, 'th_attention_bwd': 24},
                       args.seed, profile=args.profile, model_name='cait_s_24',
@@ -1163,8 +1426,8 @@ def main(argv=None):
     k16 = check_k16(rng, checks, 192 * 197)
     check_k16(rng, checks, 1003, timed=False)
     check_ff_sentinels(rng, checks)
-    k8a_launches = serve_path(checks, 'Mixer-B/16 @224 auto', 224, 'auto',
-                              'token_mix_fwd', args.seed, args.batch,
+    k8a_serve = serve_path(checks, 'Mixer-B/16 @224 auto', 224, 'auto',
+                              {'token_mix_fwd': 12}, args.seed, args.batch,
                               args.profile, model_name='mixer_b_patch16')
     m224 = train_path(checks, 'train Mixer-B/16 @224 bs192', 224, 192,
                       {'token_mix_fwd': 12, 'token_mix_bwd': 12}, args.seed,
@@ -1174,6 +1437,44 @@ def main(argv=None):
                        {'flash_fwd': 12, 'flash_bwd_fused': 12, 'ff_bwd': 12},
                        args.seed, profile=args.profile, plain_core='kernel',
                        use_kernel='fused_ff')
+
+    # TNT-S/16 and TNT-B/16 (slice 5): K1 without the residual at the outer
+    # sublayer's shapes (both variants), K7a at the inner layer's serving
+    # and training shapes, K7b at both training shapes, the ragged tail,
+    # then the paths ('fused_inner' timed beside 'auto' on TNT-S)
+    k1n = {(dim, train): check_k1_nores(rng, checks, args.batch, 197, dim,
+                                        heads, train)
+           for dim, heads in ((384, 6), (640, 10)) for train in (False, True)}
+    k7a = {(n, d): check_k7a(rng, checks, n, d)
+           for n, d in ((args.batch * 196, 24), (64 * 196, 24),
+                        (args.batch * 196, 40))}
+    k7b = {(n, d): check_k7b(rng, checks, n, d)
+           for n, d in ((64 * 196, 24), (32 * 196, 40))}
+    check_k7_sentinels(rng, checks, 65 * 196 - 1, 24)
+    tnt_serve = serve_path(checks, 'TNT-S/16 @224 auto', 224, 'auto',
+                           {'tnt_inner_fwd': 12, 'fused_attention_fwd': 12},
+                           args.seed, args.batch, args.profile,
+                           model_name='tnt_s_patch16')
+    # gradients against the plain core on the outer sublayer's boundary
+    # (use_kernel='fused_layer_xla': the same autograd Function with bf16
+    # flash-style residuals, no kernel in it; the inner layer per-op), as
+    # ViT's are: the outer q/k weight gradients of every path through that
+    # boundary, kernels or none, sit 0.10-0.22 from f32 at TNT-B bs32, the
+    # per-op path (use_kernel=False) 0.02-0.03 (PERF.md, TNT findings)
+    tnt_step = {'tnt_inner_fwd': 12, 'tnt_inner_bwd': 12,
+                'fused_attention_fwd_train': 12, 'flash_bwd_fused': 12}
+    ts224 = train_path(checks, 'train TNT-S/16 @224 bs64', 224, 64, tnt_step,
+                       args.seed, profile=args.profile,
+                       model_name='tnt_s_patch16',
+                       plain_core='fused_layer_xla')
+    train_path(checks, 'train TNT-S/16 @224 bs64 fused_inner', 224, 64,
+               {'tnt_inner_fwd': 12, 'tnt_inner_bwd': 12, 'flash_fwd': 12,
+                'flash_bwd_fused': 12}, args.seed, model_name='tnt_s_patch16',
+               plain_core='fused_layer_xla', use_kernel='fused_inner')
+    tb224 = train_path(checks, 'train TNT-B/16 @224 bs32', 224, 32, tnt_step,
+                       args.seed, profile=args.profile,
+                       model_name='tnt_b_patch16',
+                       plain_core='fused_layer_xla')
 
     def th_entry(name, replaces, launches, rec, train=None, **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
@@ -1187,17 +1488,44 @@ def main(argv=None):
                     replaces=f'sav_tpu/ops/th_attention.py:{replaces}',
                     launches=launches, **rec, **extra)
 
+    def nores(train, launches):
+        """K1 without the residual (TNT's outer sublayer), under nores_*:
+        TNT-S's shape (D=384) and TNT-B's (D=640) at B=32, L=197."""
+        s, b = k1n[(384, train)], k1n[(640, train)]
+        return dict(nores_launches=launches, nores_ms=s['ms'],
+                    nores_plain_ms=s['plain_ms'],
+                    nores_library_ms=s['library_ms'],
+                    nores_bound_ms=s['bound_ms'], nores_bound_by=s['bound_by'],
+                    nores_max_abs_err=max(s['max_abs_err'], b['max_abs_err']),
+                    nores_tntb_ms=b['ms'], nores_tntb_plain_ms=b['plain_ms'],
+                    nores_tntb_library_ms=b['library_ms'],
+                    nores_tntb_bound_ms=b['bound_ms'])
+
+    def tnt_entry(name, replaces, launches, rec, tntb, **extra):
+        """A K7 line: ``rec`` at TNT-S's shape, ``tntb`` at TNT-B's."""
+        return dict(name=name, route='cuda',
+                    source='sav_tpu_torch/csrc/tnt_inner.cu',
+                    replaces=f'sav_tpu/ops/tnt_inner.py:{replaces}',
+                    launches=launches, **dict(
+                        rec, max_abs_err=max(rec['max_abs_err'],
+                                             tntb['max_abs_err'])),
+                    tntb_ms=tntb['ms'], tntb_wrapper_ms=tntb['wrapper_ms'],
+                    tntb_plain_ms=tntb['plain_ms'],
+                    tntb_library_ms=tntb['library_ms'],
+                    tntb_bound_ms=tntb['bound_ms'], **extra)
+
     kernels = [
         dict(name='fused_attention_fwd', route='cuda',
              source='sav_tpu_torch/csrc/fused_attention.cu',
              replaces='sav_tpu/ops/fused_layer.py:127',
-             launches=k1_launches,
+             launches=k1_serve.get('fused_attention_fwd', 0),
              max_abs_err=max(r['max_abs_err'] for r in k1.values()),
-             **{k: v for k, v in k1[197].items() if k != 'max_abs_err'}),
+             **{k: v for k, v in k1[197].items() if k != 'max_abs_err'},
+             **nores(False, tnt_serve.get('fused_attention_fwd', 0))),
         dict(name='flash_fwd', route='cuda',
              source='sav_tpu_torch/csrc/flash_fwd.cu',
              replaces='sav_tpu/ops/flash_attention.py:228',
-             launches=k4_launches,
+             launches=k4_serve.get('flash_fwd', 0),
              max_abs_err=max(r['max_abs_err'] for r in k4.values()),
              **{k: v for k, v in k4[577].items() if k != 'max_abs_err'}),
         dict(name='fused_attention_fwd_train', route='cuda',
@@ -1205,7 +1533,8 @@ def main(argv=None):
              replaces='sav_tpu/ops/fused_layer.py:127',
              launches=t224.get('fused_attention_fwd_train', 0),
              max_abs_err=max(r['max_abs_err'] for r in k1t.values()),
-             **{k: v for k, v in k1t[197].items() if k != 'max_abs_err'}),
+             **{k: v for k, v in k1t[197].items() if k != 'max_abs_err'},
+             **nores(True, ts224.get('fused_attention_fwd_train', 0))),
         dict(name='flash_bwd_fused', route='cuda',
              source='sav_tpu_torch/csrc/flash_bwd.cu',
              replaces='sav_tpu/ops/flash_attention.py:330',
@@ -1223,17 +1552,20 @@ def main(argv=None):
              **{k: v for k, v in bwd577['dkv'].items() if k != 'sdpa_bwd_ms'}),
         # K5a: the serving launches and timing; its residual-writing variant
         # (train @224) under train_*
-        th_entry('th_attention_fwd', 158, k5a_launches, k5a[False], k5a[True],
+        th_entry('th_attention_fwd', 158,
+                 k5a_serve.get('th_attention_fwd', 0), k5a[False], k5a[True],
                  train_launches=c224.get('th_attention_fwd_train', 0)),
         th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b),
-        th_entry('th_core_fwd', 362, k6a_launches, k6a[False], k6a[True],
+        th_entry('th_core_fwd', 362, k6a_serve.get('th_core_fwd', 0),
+                 k6a[False], k6a[True],
                  train_launches=c384.get('th_core_fwd', 0)),
         th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b),
         # K8a: Mixer-B/16 serving (B=32) launches and timing; the training
         # shape (B=192) under train_*
         dict(name='token_mix_fwd', route='cuda',
              source='sav_tpu_torch/csrc/mixer_token.cu',
-             replaces='sav_tpu/ops/mixer_token.py:86', launches=k8a_launches,
+             replaces='sav_tpu/ops/mixer_token.py:86',
+             launches=k8a_serve.get('token_mix_fwd', 0),
              **{k: v for k, v in k8a[(args.batch, 196, 768)].items()
                 if k != 'max_abs_err'},
              max_abs_err=max(r['max_abs_err'] for r in k8a.values()),
@@ -1247,6 +1579,20 @@ def main(argv=None):
         dict(name='ff_bwd', route='cuda', source='sav_tpu_torch/csrc/ff_bwd.cu',
              replaces='sav_tpu/ops/fused_layer.py:543',
              launches=ff224.get('ff_bwd', 0), **k16),
+        # K7a: TNT-S serving (B*P = 32 x 196) launches and timing; TNT-S's
+        # training shape (64 x 196) under train_*, TNT-B's (32 x 196) under
+        # tntb_*
+        tnt_entry('tnt_inner_fwd', 148, tnt_serve.get('tnt_inner_fwd', 0),
+                  dict(k7a[(args.batch * 196, 24)], max_abs_err=max(
+                      r['max_abs_err'] for r in k7a.values())),
+                  k7a[(args.batch * 196, 40)],
+                  train_launches=ts224.get('tnt_inner_fwd', 0),
+                  tntb_train_launches=tb224.get('tnt_inner_fwd', 0),
+                  train_ms=k7a[(64 * 196, 24)]['ms'],
+                  train_bound_ms=k7a[(64 * 196, 24)]['bound_ms']),
+        tnt_entry('tnt_inner_bwd', 169, ts224.get('tnt_inner_bwd', 0),
+                  k7b[(64 * 196, 24)], k7b[(32 * 196, 40)],
+                  tntb_launches=tb224.get('tnt_inner_bwd', 0)),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

@@ -28,6 +28,7 @@ SOURCES = {
     'fused_attention': 'fused_attention.cu',
     'mixer_token': 'mixer_token.cu',
     'th_attention': 'th_attention.cu',
+    'tnt_inner': 'tnt_inner.cu',
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',

@@ -4,8 +4,9 @@
 // _fused_fwd), both variants: inference (save_residuals=False; lse null)
 // and training (save_residuals=True: the q, k, v and attn scratch below
 // are kept by the caller as the backward's residuals, and the attention
-// launch also writes the lse of each row and head):
-//   out = x + (softmax_h(q_h k_h^T) v_h)_h @ Wo,
+// launch also writes the lse of each row and head); each with or without
+// the residual (TNT's outer sublayer adds the pre-bridge stream itself):
+//   out = [x +] (softmax_h(q_h k_h^T) v_h)_h @ Wo,
 //   q = LN(x) Wq / sqrt(d), k = LN(x) Wk, v = LN(x) Wv,
 // LN with f32 statistics (fast variance E[x^2] - mu^2), bf16 operands,
 // f32 accumulation, rounded to bf16 where the TPU kernel rounds.
@@ -21,7 +22,8 @@
 //  2. gemm_kernel<kQkv>: y @ [Wq | Wk | Wv], q scaled by 1/sqrt(d) in the
 //     epilogue. Writes q, k, v [B*L, H*d] bf16.
 //  3. attention_fwd_kernel (shared with K4): per (q tile, head, image).
-//  4. gemm_kernel<kOut>: attn @ Wo with +x in the epilogue.
+//  4. gemm_kernel<kOut>: attn @ Wo, with +x in the epilogue when residual
+//     is not 0.
 // The TPU kernel runs one program per image with x and all four weights
 // resident in its VMEM. That does not carry over: one image's x at L = 197
 // is 303 KB and each weight 1.18 MB, beyond a block's 227 KB of shared
@@ -38,14 +40,15 @@
 
 // x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*64], wo [H*64, D];
 // y [B*L, D] and qs/ks/vs/attn [B*L, H*64] scratch; out [B, L, D]; lse
-// [B, H, L] f32 or null (inference). All bf16 unless noted. Needs D % 128 == 0 and H*64 % 128 == 0 (whole GEMM
+// [B, H, L] f32 or null (inference); residual 0 leaves +x out. All bf16
+// unless noted. Needs D % 128 == 0 and H*64 % 128 == 0 (whole GEMM
 // tiles along N and K).
 extern "C" int sav_fused_attention_fwd(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo, void* y,
     void* qs, void* ks, void* vs, void* attn, void* out, float* lse,
-    int batch, int seq,
-    int dim, int heads, float eps, float q_scale, void* stream) {
+    int batch, int seq, int dim, int heads, int residual, float eps,
+    float q_scale, void* stream) {
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = batch * seq, hd = heads * ATT_D;
@@ -72,6 +75,7 @@ extern "C" int sav_fused_attention_fwd(
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   gemm_kernel<kOut><<<dim3(dim / GN, m_tiles), 256, GEMM_SMEM, st>>>(
       (const bf16*)attn, (const bf16*)wo, (const bf16*)wo, (const bf16*)wo,
-      (bf16*)out, (bf16*)out, (bf16*)out, (const bf16*)x, M, hd, dim, 1.f);
+      (bf16*)out, (bf16*)out, (bf16*)out, residual ? (const bf16*)x : nullptr,
+      M, hd, dim, 1.f);
   return (int)cudaGetLastError();
 }

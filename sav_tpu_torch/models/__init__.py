@@ -2,3 +2,4 @@
 
 from sav_tpu_torch.models.factory import (available_models, create_model,  # noqa: F401
                                           set_use_kernel)
+from sav_tpu_torch.models.tnt import TNT  # noqa: F401

@@ -1,5 +1,5 @@
 """String-keyed model factory (counterpart of
-``sav_tpu/models/factory.py``): the ViT, CaiT and MLP-Mixer names so
+``sav_tpu/models/factory.py``): the ViT, CaiT, MLP-Mixer and TNT names so
 far."""
 
 from __future__ import annotations
@@ -9,9 +9,10 @@ from typing import Any, Dict
 import torch
 
 from sav_tpu_torch import resolve_device
-from sav_tpu_torch.models import cait, mlp_mixer, vit
+from sav_tpu_torch.models import cait, mlp_mixer, tnt, vit
 from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.mlp_mixer import MLPMixer
+from sav_tpu_torch.models.tnt import TNT
 from sav_tpu_torch.models.vit import ViT
 from sav_tpu_torch.nn.layers import init_all
 
@@ -58,6 +59,12 @@ MODEL_CONFIGS: Dict[str, Any] = {
     'mixer_b_patch16': _mixer(12, 768, 16),
     'mixer_l_patch32': _mixer(24, 1024, 32),
     'mixer_l_patch16': _mixer(32, 1024, 16),
+    'tnt_s_patch16': (TNT, dict(num_layers=12, inner_num_heads=4,
+                                outer_num_heads=6, inner_embed_dim=24,
+                                outer_embed_dim=384)),
+    'tnt_b_patch16': (TNT, dict(num_layers=12, inner_num_heads=4,
+                                outer_num_heads=10, inner_embed_dim=40,
+                                outer_embed_dim=640)),
 }
 
 
@@ -97,5 +104,7 @@ def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:
         cait.set_use_kernel(model, use_kernel)
     elif isinstance(model, MLPMixer):
         mlp_mixer.set_use_kernel(model, use_kernel)
+    elif isinstance(model, TNT):
+        tnt.set_use_kernel(model, use_kernel)
     else:
         vit.set_use_kernel(model, use_kernel)

@@ -86,10 +86,11 @@ def _project_qkv(y, wq, wk, wv, num_heads, head_d):
 
 
 def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
-                              save_residuals=False):
+                              save_residuals=False, residual=True):
     """Plain twin of ``fused_attention_fwd``, rounding where the TPU kernel
     ``_fused_fwd_kernel`` rounds: y, q, k, v, each head's output band and
-    the result in x.dtype; products accumulated in f32."""
+    the result in x.dtype; products accumulated in f32; x added in f32
+    when ``residual``."""
     b, l, dim = x.shape
     hd = wq.shape[1]
     d = hd // heads
@@ -105,7 +106,8 @@ def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
     lsum = p.sum(dim=-1, keepdim=True)
     band = torch.einsum('bhqk,bkhd->bhqd', p.to(dt).float(), split(v)) / lsum
     attn = band.to(dt).permute(0, 2, 1, 3).reshape(b, l, hd)
-    out = (x.float() + attn.float() @ wo.float()).to(dt)
+    out = attn.float() @ wo.float()
+    out = (x.float() + out if residual else out).to(dt)
     if not save_residuals:
         return out
     return out, (q, k, v, attn, (m + torch.log(lsum))[..., 0])
@@ -114,15 +116,19 @@ def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
 def _k1_lib():
     fn = _build.library('fused_attention').sav_fused_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
-                        eps: float = LN_EPS, save_residuals: bool = False):
-    """Port of K1: ``x + W_o @ MHA(LN(x))`` in one call.
+                        eps: float = LN_EPS, save_residuals: bool = False,
+                        residual: bool = True):
+    """Port of K1: ``x + W_o @ MHA(LN(x))`` in one call; with
+    ``residual=False`` the sublayer alone, ``W_o @ MHA(LN(x))`` (the out
+    GEMM's epilogue skips the add, as the TPU kernel does; TNT's outer
+    sublayer adds the pre-bridge stream itself).
 
     x ``[B, L, D]``; scale, bias ``[D]``; wq, wk, wv ``[D, H*d]`` and wo
     ``[H*d, D]`` in x's dtype. On a CUDA tensor: the hand-written kernels
@@ -138,7 +144,7 @@ def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
     """
     if x.device.type == 'cpu':
         return fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo,
-                                         heads, eps, save_residuals)
+                                         heads, eps, save_residuals, residual)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_attention_fwd runs on cuda or cpu, not {x.device}')
     fa.check_no_grad(x, scale, bias, wq, wk, wv, wo)
@@ -167,7 +173,8 @@ def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
                  wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
                  y.data_ptr(), *[t.data_ptr() for t in qkva], out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 b, l, dim, heads, eps, 1.0 / math.sqrt(fa.BAND),
+                 b, l, dim, heads, int(residual), eps,
+                 1.0 / math.sqrt(fa.BAND),
                  fa.stream_of(x.device))
     _build.check(err, 'fused_attention_fwd')
     if not save_residuals:
@@ -221,8 +228,9 @@ def _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
         ws.append(wo.reshape(hd, dim).to(cdt))
         if save_residuals:
             return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps,
-                                       save_residuals=True)
-        return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps), None
+                                       save_residuals=True, residual=residual)
+        return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps,
+                                   residual=residual), None
 
     y = _layernorm(x, scale, bias, eps)[0]
     qs, k, v = _project_qkv(y, wq, wk, wv, num_heads, head_d)
@@ -315,10 +323,6 @@ def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
         raise ValueError(f'core must be one of {CORES}, got {core!r}')
     if rotary and core == 'fused':
         core = 'flash'          # rotation is not in the fused kernel (yet)
-    if core == 'fused' and not residual:
-        raise NotImplementedError(
-            "core='fused' adds the residual in-kernel; residual=False "
-            'waits for the TNT slice (ROADMAP.md)')
     args = (x, scale, bias, wq, wk, wv, wo)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _AttentionSublayer.apply(*args, num_heads, core, eps, residual,

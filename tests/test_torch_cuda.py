@@ -8,7 +8,9 @@ Tolerances as in chip_smoke.py: outputs and gradients 2e-2 of max |twin|
 (K1: of the sublayer's own contribution), the TH backward's dM_pre and
 dM_post 1e-4 of max, the weight, bias and LN-parameter gradients of K8b and
 K16 2e-3 of max (WGRAD_TOL), lse 1e-3 absolute (K1's against the
-logsumexp of its own q and k).
+logsumexp of its own q and k). K7 (the TNT inner layer): out - x and dx at
+2e-2 of max, its 12 parameter gradients at K7_WGRAD_TOL; K1 without the
+residual over max |twin| (there is no x to subtract).
 """
 
 import math
@@ -447,3 +449,99 @@ def test_mixer_smem_threshold_and_auto_refusal(card):
                                    use_kernel=False)
     with torch.no_grad():
         assert per_op(x).shape == (1, 10)
+
+
+# ---- slice 5: K1 with residual=False, K7a/K7b (csrc/tnt_inner.cu)
+
+# K7b's 12 parameter gradients vs the twin, max |kernel - twin| over max
+# |twin|. Both round dq, dk, dv, dhp and dx2 to bf16 at the same points
+# from f32 values summed in other orders, so single one-ulp flips (2^-8
+# relative) reach the weight gradients; at these small shapes a gradient
+# sums 16 to ~6000 rows and one flip weighs most in the shortest sum. On an
+# H100 80GB HBM3 (700 W) kernel vs twin read <= 1.1e-3 from 2 patches up
+# and 2.5e-3 at one patch, each below the twin's own distance from an f32
+# evaluation of the same bf16 inputs (3.0e-3 to 1.0e-2). One dropped row
+# chunk (1 to 4 patches of hundreds at n = 395) moves a sum by several %.
+K7_WGRAD_TOL = 5e-3
+
+@pytest.mark.parametrize('train', [False, True])
+@pytest.mark.parametrize('dim,heads', [(384, 6), (640, 10)])
+def test_fused_attention_without_residual(card, dim, heads, train):
+    rng = np.random.RandomState(dim + train)
+    x = _bf16(rng, (2, 197, dim), 1, card)
+    scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
+    bias = _bf16(rng, (dim,), 0.1, card).float()
+    wq, wk, wv = (_bf16(rng, (dim, dim), s / math.sqrt(dim), card)
+                  for s in (4, 1, 1))
+    wo = _bf16(rng, (dim, dim), 1 / math.sqrt(dim), card)
+    args = (x, scale, bias, wq, wk, wv, wo, heads, fused_layer.LN_EPS, train)
+    out = fused_layer.fused_attention_fwd(*args, residual=False)
+    plain = fused_layer.fused_attention_fwd_plain(*args, residual=False)
+    with_x = fused_layer.fused_attention_fwd(*args)
+    if train:
+        out, plain, with_x = out[0], plain[0], with_x[0]
+    assert _rel(out, plain) <= 2e-2
+    # the same sublayer, x added in the epilogue or not
+    assert _rel(with_x.float() - x.float(), out) <= 2e-2
+
+
+def _k7_args(rng, n, d, heads, card, f=None):
+    f = 4 * d if f is None else f
+    hd = d // heads
+    w = lambda *s: _bf16(rng, s, 1 / math.sqrt(s[0]), card).float()
+    return (_bf16(rng, (n, 16, d), 1, card),
+            (1 + _bf16(rng, (d,), 0.1, card)).float(),
+            _bf16(rng, (d,), 0.1, card).float(),
+            2 * w(d, heads, hd), w(d, heads, hd), w(d, heads, hd),
+            w(heads, hd, d), (1 + _bf16(rng, (d,), 0.1, card)).float(),
+            _bf16(rng, (d,), 0.1, card).float(), w(d, f),
+            _bf16(rng, (f,), 0.1, card).float(), w(f, d),
+            _bf16(rng, (d,), 0.1, card).float())
+
+
+@pytest.mark.parametrize('n,d', [(1, 24), (7, 24), (2 * 196 + 3, 24),
+                                 (5, 40), (196, 40)])
+def test_tnt_inner_fwd_matches_twin(card, n, d):
+    from sav_tpu_torch.ops import tnt_inner
+    args = _k7_args(np.random.RandomState(n + d), n, d, 4, card)
+    out = tnt_inner.inner_layer_fwd(*args, 4)
+    plain = tnt_inner.inner_layer_fwd_plain(*args, 4)
+    x = args[0]
+    assert _rel(out.float() - x.float(), plain.float() - x.float()) <= 2e-2
+
+
+@pytest.mark.parametrize('n,d', [(1, 24), (2 * 196 + 3, 24), (5, 40),
+                                 (196, 40)])
+def test_tnt_inner_bwd_matches_twin_and_repeats(card, n, d):
+    from sav_tpu_torch.ops import tnt_inner
+    rng = np.random.RandomState(n + d + 1)
+    args = _k7_args(rng, n, d, 4, card)
+    g = _bf16(rng, (n, 16, d), 1, card)
+    grads = tnt_inner.inner_layer_bwd(*args, g, 4)
+    twin = tnt_inner.inner_layer_bwd_plain(*args, g, 4)
+    assert [a.shape for a in grads] == [b.shape for b in twin]
+    assert _rel(grads[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(grads[1:], twin[1:])) <= K7_WGRAD_TOL
+    again = tnt_inner.inner_layer_bwd(*args, g, 4)      # no float atomics
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_tnt_inner_wrappers_refuse_and_count(card):
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import tnt_inner
+    rng = np.random.RandomState(0)
+    args = _k7_args(rng, 3, 24, 4, card)
+    with pytest.raises(ValueError, match='bfloat16'):
+        tnt_inner.inner_layer_fwd(args[0].float(), *args[1:], 4)
+    with pytest.raises(ValueError, match='16 pixel tokens'):
+        tnt_inner.inner_layer_fwd(args[0][:, :8].contiguous(), *args[1:], 4)
+    leaves = [args[0]] + [t.clone().requires_grad_() for t in args[1:]]
+    with pytest.raises(RuntimeError, match='forward-only'):
+        tnt_inner.inner_layer_fwd(*leaves, 4)
+    with pytest.raises(RuntimeError, match='forward-only'):
+        tnt_inner.inner_layer_bwd(*leaves, args[0], 4)
+    _build.reset_launches()
+    tnt_inner.inner_layer(*leaves, 4).float().sum().backward()
+    assert _build.launches == {'tnt_inner_fwd': 1, 'tnt_inner_bwd': 1}
+    assert tnt_inner.supported(16, 24, 4, device=card)
+    assert tnt_inner.supported(16, 40, 4, device=card)

@@ -71,8 +71,14 @@ def test_no_residual_matches_jax(core):
 
 
 def test_fused_core_refuses_no_residual():
-    with pytest.raises(NotImplementedError, match='residual'):
-        _port_out(17, 'fused', residual=False)
+    """The 'fused' core no longer refuses residual=False (TNT's outer
+    sublayer, K1 without its add): it is taken and matches the JAX
+    package's fused core (interpret mode) and its xla core."""
+    got = _port_out(17, 'fused', residual=False)
+    np.testing.assert_allclose(got, _jax_out(17, 'fused', residual=False),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, _jax_out(17, 'xla', residual=False),
+                               atol=ATOL, rtol=0)
 
 
 def test_fused_twin_matches_jax_kernel_directly():

@@ -1,7 +1,9 @@
 """Shared fixtures of the torch-port parity tests (tests/test_torch_*.py):
-one small ViT and one small CaiT configuration, seeded inputs, and the same
+one small ViT, CaiT and TNT configuration each, seeded inputs, and the same
 flax tree loaded into both packages. Inputs come from numpy so both frameworks see the same
 numbers."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -97,4 +99,62 @@ def jax_cait(img_size, overrides=CAIT_SMALL, **kwargs):
 def torch_cait(params, img_size, overrides=CAIT_SMALL, **kwargs):
     """The port's CaiT of the same config with ``params`` loaded."""
     return torch_vit(params, img_size, name='cait_xxs_24', overrides=overrides,
+                     **kwargs)
+
+
+# TNT: 2 layers at 32 px with 8 x 8 patches (16 patches, 4 pixel tokens of
+# 4 x 4 each), outer D=128 H=2 (d=64: K1's constraints hold), inner D=24
+# H=4 (tnt_s_patch16's) or D=40 H=4 (tnt_b_patch16's). Four pixel tokens
+# keep the JAX inner kernel's interpret mode, whose unrolled loops grow with
+# L^2, at seconds; its 16-token shape is held against the JAX twin in
+# test_torch_tnt_inner.py.
+TNT_SMALL = dict(num_layers=2, outer_embed_dim=128, outer_num_heads=2,
+                 patch_shape=(8, 8))
+TNT_NAMES = ('tnt_s_patch16', 'tnt_b_patch16')
+
+
+def fill_biases(params, seed=3):
+    """Every ``bias`` of a Dense (not of a LayerNorm, which ``fill_body``
+    fills) drawn from N(0, 0.1^2): zero-initialised biases would let a
+    swapped or dropped bias pass unseen."""
+    rng = np.random.RandomState(seed)
+
+    def fill(tree, in_ln=False):
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                fill(tree[key], key.startswith('LayerNorm_'))
+            elif key == 'bias' and not in_ln:
+                tree[key] = 0.1 * rng.standard_normal(
+                    np.shape(tree[key])).astype(np.float32)
+
+    fill(params)
+    return params
+
+
+@functools.lru_cache(maxsize=None)
+def _tnt_params(name, img_size):
+    _, params = jax_vit(img_size, name=name, overrides=TNT_SMALL,
+                        use_kernel=False)
+    head = params['Dense_0']['kernel']
+    params['Dense_0']['kernel'] = head / np.sqrt(head.shape[0])
+    return fill_biases(fill_body(params))
+
+
+def jax_tnt(name='tnt_s_patch16', img_size=32, **kwargs):
+    """(flax model, params with the head, cls, LayerNorms and biases filled)
+    for a small TNT; the params are initialised once per name and size
+    (every use_kernel mode has the same tree) and are not to be modified.
+    TNT has no final LayerNorm, so its cls features grow over the layers;
+    the head kernel is scaled by 1/sqrt(D) (lecun's scale) so the logits
+    and the loss stay O(1-10), where f32 resolves the 1e-5 the step tests
+    hold them to (a loss of ~65 from the unscaled head is within two ulps
+    of it)."""
+    model = jax_create_model(name, num_classes=NUM_CLASSES, **TNT_SMALL,
+                             **kwargs)
+    return model, _tnt_params(name, img_size)
+
+
+def torch_tnt(params, name='tnt_s_patch16', img_size=32, **kwargs):
+    """The port's TNT of the same config with ``params`` loaded."""
+    return torch_vit(params, img_size, name=name, overrides=TNT_SMALL,
                      **kwargs)
