@@ -62,7 +62,25 @@
    outer sublayer's boundary, use_kernel='fused_layer_xla', with the f32
    per-op path as the noise floor), and TNT-S under
    use_kernel='fused_inner' (K7 inner, K4/K2 outer) beside it.
-8. Prints one JSON line of every ported kernel, then the result line
+8. BoTNet-T3 (slice 6): K9a (the relative-position attention forward)
+   against its twin at the BoT stage's serving and training shapes (B=32
+   and B=64, L=196 on a 14 x 14 grid, 4 heads of d=128, f32 rel logits),
+   K9b (its backward: the dq and the dkv kernel, dq/dk/dv and drel_h/
+   drel_w, two calls bit-identical) at B=64, two ragged grids (g = 5 and
+   13) on NaN-sentinel buffers, twice; serving @224 bs32 under
+   use_kernel='botnet_fused' (6 K9a launches per forward) and 'auto' (the
+   per-op path, no K9), logits against use_kernel=False with filled
+   BatchNorms and running statistics; training through the Trainer @224
+   bs64 under 'botnet_fused' (6 K9a-train + 6 K9b dq + 6 K9b dkv per step,
+   gradients against the same boundary on the K9 twins with the f32 per-op
+   path as the noise floor, every running statistic finite and moved by
+   the timed steps, eval in eval mode) and under 'auto' beside it.
+9. The factory names that ``auto`` routes on the card and no path above
+   builds (vit_l_patch16 @224 and @384, vit_ti_patch16, vit_s_patch16,
+   cait_xxs_24 @224 and @384, mixer_s/l_patch16) at depth 2: the kernels
+   a forward launches, logits against use_kernel=False, gradients against
+   the plain core by the same rule.
+10. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
 """
@@ -84,8 +102,10 @@ import torch.nn.functional as F
 from sav_tpu_torch import _build
 from sav_tpu_torch.data.preprocess import eval_preprocess
 from sav_tpu_torch.models import create_model, set_use_kernel
-from sav_tpu_torch.nn.normalization import LayerScaleBlock
+from sav_tpu_torch.models.botnet import set_attention_core
+from sav_tpu_torch.nn.normalization import BatchNorm, LayerScaleBlock
 from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
+from sav_tpu_torch.ops import botnet_attention as bot
 from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops import fused_layer
 from sav_tpu_torch.ops import mixer_token as mt
@@ -162,6 +182,16 @@ WGRAD_TOL = 2e-3
 # core.
 GRAD_TOL = 5e-2
 GRAD_NOISE = 3.0
+# drel_h and drel_w of K9b vs the twin, max |kernel - twin| over max |twin|:
+# each is a row-local f32 sum of g values of the f32 ds, from logits summed
+# in another order than the twin's (and exp2 vs exp), so they agree to f32
+# rounding of p and dp; a dropped or mis-binned key column moves a bin by
+# O(1/g) of max, which BWD_TOL might pass at g = 14.
+BOT_REL_TOL = 1e-3
+K9_GRADS = ('dq', 'dk', 'dv', 'drel_h', 'drel_w')
+# the plain_core of train_path for BoTNet: the same 'botnet_fused' autograd
+# boundary with bot_core on the K9 twins (models.botnet.set_attention_core)
+BOT_PLAIN = 'botnet_fused on the K9 twins'
 
 
 def nvidia_smi() -> str:
@@ -316,7 +346,7 @@ def fill_head(model, seed: int) -> None:
     random-init logit 0; fill them from the seed so logits can be compared.
     CaiT's LayerScale starts at 1e-6 (cait_s_24), which would hide every
     attention sublayer from the logits and the gradients downstream of it:
-    raise it to 0.1."""
+    raise it to 0.1. BoTNet's BatchNorms: ``fill_batchnorm``."""
     gen = torch.Generator().manual_seed(seed + 1)
     head = model.Dense_0.kernel
     with torch.no_grad():
@@ -327,6 +357,8 @@ def fill_head(model, seed: int) -> None:
         for sub in model.modules():
             if isinstance(sub, LayerScaleBlock):
                 sub.layerscale.fill_(0.1)
+    if any(isinstance(m, BatchNorm) for m in model.modules()):
+        fill_batchnorm(model, seed)
 
 
 def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
@@ -366,6 +398,9 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
                   and bool(torch.isfinite(logits).all()) and err <= LOGIT_TOL,
                   f'{name}: logits vs use_kernel=False: max err {err:.3g} of '
                   f'max|logit| (tol {LOGIT_TOL}), top-1 agreement {top1:.3f}')
+    if use_kernel == 'botnet_fused':
+        botnet_logit_floor(checks, name, model, model_name, img_size, x,
+                           logits, plain)
 
     iters = 10
     torch.cuda.synchronize()
@@ -383,6 +418,43 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+def botnet_logit_floor(checks, name, model, model_name, img_size, x, logits,
+                       plain) -> None:
+    """What the BoTNet logits check can see: the kernel route's logits
+    against its twins on the same boundary (core='plain', LOGIT_TOL), both
+    bf16 routes against the f32 per-op model of the same weights and
+    running statistics, and how far the logits move with every BoT block's
+    value kernel zeroed, which must be at least 5x LOGIT_TOL (the fill
+    leaves the attention in view)."""
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    with torch.no_grad():
+        set_attention_core(model, 'plain')
+        twin = model(x).float()
+        set_attention_core(model, 'kernel')
+        ref = create_model(model_name, num_classes=1000, dtype=torch.float32,
+                           img_size=img_size, device='cuda', use_kernel=False)
+        ref.load_state_dict(model.state_dict())
+        f32 = ref.eval()(x.float()).float()
+        del ref
+        values = [p for n, p in model.named_parameters()
+                  if n.endswith('value.kernel')]
+        saved = [p.clone() for p in values]
+        for p in values:
+            p.zero_()
+        blind = model(x).float()
+        for p, s in zip(values, saved):
+            p.copy_(s)
+    twin_err, moved = rel(logits, twin), rel(blind, logits)
+    checks.expect(twin_err <= LOGIT_TOL and moved >= 5 * LOGIT_TOL,
+                  f'{name}: logits vs the K9 twins on the same boundary '
+                  f'{twin_err:.3g} of max (tol {LOGIT_TOL}); vs f32 per-op: '
+                  f'kernel route {rel(logits, f32):.3g}, per-op bf16 '
+                  f'{rel(plain, f32):.3g}; the {len(values)} BoT value '
+                  f'kernels zeroed move the logits by {moved:.3g} of max '
+                  f'(at least {5 * LOGIT_TOL})')
+    torch.cuda.empty_cache()
 
 
 def _abs(a, b) -> float:
@@ -1212,17 +1284,265 @@ def check_k7_sentinels(rng, checks, n, d):
                   f'past untouched {kept}, launch codes {codes}')
 
 
+# ---- BoTNet relative-position attention (K9a, K9b; csrc/botnet_attention.cu)
+
+def _k9_case(rng, batch, g=14, heads=4, d=128):
+    """botnet_t3's BoT-stage core inputs at @224: qs (pre-scaled, a peaked
+    softmax), k, v [B, g*g, h*d] bf16; rel_h, rel_w [B, h, L, g] f32 at the
+    size qs . emb gives them (emb normal with std d^-0.5)."""
+    length, hd = g * g, heads * d
+    qs = _bf16(rng, (batch, length, hd), 2 / math.sqrt(d))
+    k, v = (_bf16(rng, (batch, length, hd)) for _ in range(2))
+    rel = [_bf16(rng, (batch, heads, length, g), 0.5).float() for _ in range(2)]
+    return qs, k, v, rel[0], rel[1]
+
+
+def _k9_library(qs, k, v, rel_h, rel_w, heads, g):
+    """The same function as one SDPA call with the bias expanded to
+    [B, h, L, L] (the expansion included; timed only)."""
+    b, length, hd = qs.shape
+    split = lambda a: a.view(b, length, heads, hd // heads).transpose(1, 2)
+    bias_h, bias_w = bot.expand_bias(rel_h, rel_w, g)
+    out = F.scaled_dot_product_attention(
+        split(qs), split(k), split(v), attn_mask=(bias_h + bias_w).to(qs.dtype),
+        scale=1.0)
+    return out.transpose(1, 2).reshape(b, length, hd)
+
+
+def _k9_bytes(batch, heads, length, g, d, bands, rels, stats):
+    """Bytes of ``bands`` [B, L, h*d] bf16 tensors, ``rels`` [B, h, L, g]
+    and ``stats`` [B, h, L] f32 rows, each moved once."""
+    return (bands * batch * length * heads * d * 2
+            + rels * batch * heads * length * g * 4
+            + stats * batch * heads * length * 4)
+
+
+def check_k9a(rng, checks, batch, train, g=14, heads=4, d=128):
+    """K9a vs its twin: out over max |twin|, lse (the training forward's)
+    absolute; returns the record."""
+    args = _k9_case(rng, batch, g, heads, d)
+    out, lse = bot.bot_fwd(*args, heads, g, save_lse=True)
+    p_out, p_lse = bot.bot_fwd_plain(*args, heads, g)
+    torch.cuda.synchronize()
+    err, lse_err = _abs(out, p_out), _abs(lse, p_lse)
+    rel = err / float(p_out.float().abs().max())
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    checks.expect(finite and rel <= OUT_TOL and lse_err <= LSE_TOL,
+                  f'K9a bot_fwd B={batch} g={g} h={heads} d={d}: out err '
+                  f'{rel:.3g} of max (tol {OUT_TOL}), lse abs err '
+                  f'{lse_err:.3g} (tol {LSE_TOL})')
+    length = g * g
+    flops = 4 * batch * heads * length * length * d
+    nbytes = _k9_bytes(batch, heads, length, g, d, 4, 2, 1 if train else 0)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rec = dict(ms=time_ms(lambda: bot.bot_fwd(*args, heads, g, save_lse=train)),
+               plain_ms=time_ms(lambda: bot.bot_fwd_plain(*args, heads, g),
+                                iters=5),
+               library_ms=time_ms(lambda: _k9_library(*args, heads, g)),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=max(err, lse_err))
+    print(f'  K9a B={batch} g={g}{" train" if train else ""}: kernel '
+          f'{rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  library '
+          f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}; '
+          f'{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)', flush=True)
+    return rec
+
+
+def _k9_raw(args, heads, g, out, lse, do=None, bufs=None):
+    """Launch of the C entry of K9a (``do`` None) or of K9b's two kernels
+    into caller-given buffers (``bufs``: delta, dq, dk, dv, drel_h, drel_w),
+    without the wrapper: the kernels' own time, and the ragged check's
+    sentinel buffers. Returns the launch, which returns its codes."""
+    qs, k, v, rel_h, rel_w = args
+    b, length, hd = qs.shape
+    dims = (b, length, heads, g, hd // heads, fa.stream_of(qs.device))
+    p = lambda *ts: [t.data_ptr() for t in ts]
+    if do is None:
+        fn = bot._fn('sav_bot_fwd', 7, 5)
+        return lambda: [fn(*p(qs, k, v, rel_h, rel_w, out, lse), *dims)]
+    delta, dq, dk, dv, drh, drw = bufs
+    fdq = bot._fn('sav_bot_bwd_dq', 12, 5)
+    fdkv = bot._fn('sav_bot_bwd_dkv', 10, 5)
+    dq_launch = lambda: fdq(*p(qs, k, v, out, do, rel_h, rel_w, lse, delta, dq,
+                               drh, drw), *dims)
+    dkv_launch = lambda: fdkv(*p(qs, k, v, do, rel_h, rel_w, lse, delta, dk,
+                                 dv), *dims)
+    return lambda: [dq_launch(), dkv_launch()], dq_launch, dkv_launch
+
+
+def _k9_bufs(qs, rel_h, lse, fill=None):
+    """delta, dq, dk, dv, drel_h, drel_w for K9b (NaN-filled when ``fill``)."""
+    new = (lambda t: torch.empty_like(t)) if fill is None else (
+        lambda t: torch.full_like(t, fill))
+    return (torch.empty_like(lse), new(qs), new(qs), new(qs), new(rel_h),
+            new(rel_h))
+
+
+def check_k9b(rng, checks, batch, g=14, heads=4, d=128):
+    """K9b vs its twin at the forward's out and lse: dq, dk, dv over max
+    |twin| (BWD_TOL), drel_h and drel_w (BOT_REL_TOL), two calls giving
+    identical bits. Returns the records of the dq and the dkv kernel, each
+    timed alone."""
+    args = _k9_case(rng, batch, g, heads, d)
+    out, lse = bot.bot_fwd_plain(*args, heads, g)
+    do = _bf16(rng, out.shape)
+    grads = bot.bot_bwd(*args, out, lse, do, heads, g)
+    twin = bot.bot_bwd_plain(*args, out, lse, do, heads, g)
+    again = bot.bot_bwd(*args, out, lse, do, heads, g)
+    torch.cuda.synchronize()
+    errs = [_rel(a, t) for a, t in zip(grads, twin)]
+    same = all(torch.equal(a, t) for a, t in zip(grads, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in grads)
+    checks.expect(finite and same and max(errs[:3]) <= BWD_TOL
+                  and max(errs[3:]) <= BOT_REL_TOL,
+                  f'K9b bot_bwd B={batch} g={g} h={heads} d={d}: ' + ', '.join(
+                      f'{n} {e:.3g}' for n, e in zip(K9_GRADS, errs))
+                  + f' of max (tol dq/dk/dv {BWD_TOL}, drel {BOT_REL_TOL}); '
+                  f'two calls identical {same}')
+    _, dq_launch, dkv_launch = _k9_raw(args, heads, g, out, lse, do,
+                                       _k9_bufs(args[0], args[3], lse))
+    leaves = [a.detach().requires_grad_() for a in args]
+    fwd = time_ms(lambda: _k9_library(*leaves, heads, g))
+    both = time_ms(lambda: torch.autograd.grad(
+        _k9_library(*leaves, heads, g), leaves, do))
+    library = max(both - fwd, 0.0)
+    plain_ms = time_ms(lambda: bot.bot_bwd_plain(*args, out, lse, do, heads,
+                                                 g), iters=3)
+    whole_ms = time_ms(lambda: bot.bot_bwd(*args, out, lse, do, heads, g))
+    length = g * g
+    mm = 2 * batch * heads * length * length * d
+    abs_errs = [_abs(a, t) for a, t in zip(grads, twin)]
+    recs = {}
+    for name, launch, products, bands, rels, stats, err in (
+            ('dq', dq_launch, 3, 6, 4, 2, max(abs_errs[0], *abs_errs[3:])),
+            ('dkv', dkv_launch, 4, 6, 2, 2, max(abs_errs[1:3]))):
+        b_ms, b_by = bound_ms(products * mm, _k9_bytes(
+            batch, heads, length, g, d, bands, rels, stats))
+        recs[name] = dict(ms=time_ms(launch), plain_ms=plain_ms,
+                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err, whole_ms=whole_ms,
+                          library_bwd_ms=library)
+    whole_bound, whole_by = bound_ms(5 * mm, _k9_bytes(batch, heads, length, g,
+                                                       d, 8, 4, 1))
+    for r in recs.values():
+        r['whole_bound_ms'] = whole_bound
+    print(f'  K9b B={batch} g={g}: dq kernel {recs["dq"]["ms"]:.4f} ms '
+          f'(bound {recs["dq"]["bound_ms"]:.4f}), dkv kernel '
+          f'{recs["dkv"]["ms"]:.4f} ms (bound {recs["dkv"]["bound_ms"]:.4f}); '
+          f'wrapper {whole_ms:.4f} ms  plain {plain_ms:.4f} ms  library '
+          f'(autograd of the SDPA chain) {library:.4f} ms  bound of the '
+          f'function {whole_bound:.4f} ms ({whole_by}; {5 * mm / 1e9:.2f} '
+          f'GFLOP)', flush=True)
+    return recs
+
+
+def check_k9_ragged(rng, checks, batch, g, heads=4, d=128):
+    """A grid whose L = g*g is ragged against the 64-row tiles, K9a and K9b
+    through their C entries into buffers 64 rows longer holding a NaN
+    sentinel (the rel gradients 64 rows past the last head's), twice: the
+    live rows match the twins, every sentinel stays, and the two calls give
+    identical bits."""
+    args = _k9_case(rng, batch, g, heads, d)
+    qs, _, _, rel_h, _ = args
+    b, length, hd = qs.shape
+    p_out, p_lse = bot.bot_fwd_plain(*args, heads, g)
+    do = _bf16(rng, p_out.shape)
+    twin = bot.bot_bwd_plain(*args, p_out, p_lse, do, heads, g)
+
+    def run():
+        nan = lambda n: torch.full((n,), float('nan'), device='cuda',
+                                   dtype=torch.bfloat16)
+        band = lambda: nan((b * length + 64) * hd)
+        rel = lambda: torch.full((rel_h.numel() + 64 * g,), float('nan'),
+                                 device='cuda')
+        out, bufs = band(), (torch.empty_like(p_lse), band(), band(), band(),
+                             rel(), rel())
+        lse = torch.empty_like(p_lse)
+        view = lambda t, like: t[:like.numel()].view(like.shape)
+        codes = _k9_raw(args, heads, g, view(out, p_out), lse)()
+        codes += _k9_raw(args, heads, g, p_out, p_lse, do, [
+            bufs[0], *(view(t, qs) for t in bufs[1:4]),
+            *(view(t, rel_h) for t in bufs[4:])])[0]()
+        torch.cuda.synchronize()
+        return codes, out, bufs[1:]
+
+    codes, out, grads = run()
+    codes2, out2, grads2 = run()
+    live = lambda t, like: t[:like.numel()].view(like.shape)
+    errs = [_rel(live(out, p_out), p_out)] + [
+        _rel(live(t, w), w) for t, w in zip(grads[:3], twin[:3])]
+    rel_errs = [_rel(live(t, w), w) for t, w in zip(grads[3:], twin[3:])]
+    kept = all(bool(torch.isnan(t[n:]).all()) for t, n in zip(
+        (out, *grads), [p_out.numel()] + [qs.numel()] * 3
+        + [rel_h.numel()] * 2))
+    same = all(torch.equal(live(a, w), live(c, w)) for a, c, w in zip(
+        (out, *grads), (out2, *grads2), (p_out, *twin)))
+    checks.expect(all(c == 0 for c in codes + codes2) and max(errs) <= BWD_TOL
+                  and max(rel_errs) <= BOT_REL_TOL and kept and same,
+                  f'K9a/K9b ragged g={g} (L={length}) B={batch} into sentinel '
+                  f'buffers: out/dq/dk/dv err {max(errs):.3g} of max (tol '
+                  f'{BWD_TOL}), drel {max(rel_errs):.3g} (tol {BOT_REL_TOL}), '
+                  f'rows past untouched {kept}, two calls identical {same}, '
+                  f'launch codes {codes + codes2}')
+
+
+def fill_batchnorm(model, seed: int) -> None:
+    """BoTNet: every BatchNorm's bias from N(0, 0.1^2) and its scale from
+    U(0.5, 1.5), except the last BN of each bottleneck, which starts at 0
+    (hiding the whole branch, attention included, from the logits and the
+    gradients): its scale from U(0.02, 0.1), so each block stays near the
+    identity it starts as. Filled like the others, the 16 blocks of a
+    random net amplify bf16 rounding until even the kernel route and its
+    twins on the same boundary disagree beyond LOGIT_TOL (``serve_path``
+    prints how far the attention moves the logits at this fill). Then the
+    running statistics from one training-mode forward at momentum 0 on 16
+    normal images, so that eval mode normalises (mean != 0 and var != 1
+    from the data, not the initial 0 and 1)."""
+    gen = torch.Generator().manual_seed(seed + 2)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    was_training = model.training
+    momenta = [bn.momentum for bn in norms]
+    with torch.no_grad():
+        for bn in norms:
+            lo, hi = (0.02, 0.1) if bn.zero_scale else (0.5, 1.5)
+            bn.scale.copy_(lo + (hi - lo) * torch.rand(bn.scale.shape,
+                                                       generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(bn.bias.shape, generator=gen))
+            bn.momentum = 0.0
+        size = model.img_size
+        model.train()(torch.randn((16, size, size, 3), generator=gen).cuda()
+                      .to(model.dtype))
+    for bn, momentum in zip(norms, momenta):
+        bn.momentum = momentum
+    model.train(was_training)
+
+
+def running_stats(model):
+    """A copy of every running statistic (BatchNorm buffers) by name."""
+    return {n: t.detach().clone() for n, t in model.named_buffers()}
+
+
+def load_running_stats(model, stats) -> None:
+    with torch.no_grad():
+        for n, t in model.named_buffers():
+            t.copy_(stats[n])
+
+
 def _grads(model, batch, seed):
     """Loss and gradients of one batch in training mode; the stochastic-depth
     masks come from a generator seeded from ``seed``, so every path that
-    this is called on draws the same masks."""
+    this is called on draws the same masks, and the running statistics
+    (BatchNorm) are restored after the forward."""
     model.train()
     model.zero_grad(set_to_none=True)
+    stats = running_stats(model)
     set_stochastic_depth_generator(
         model, torch.Generator(device='cuda').manual_seed(seed))
     loss, _ = loss_and_logits(model, batch, 1000, 0.1)
     loss.backward()
     set_stochastic_depth_generator(model, None)
+    # the forward in training mode moved the BatchNorm running statistics:
+    # put them back, so every path compared sees the same state
+    load_running_stats(model, stats)
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
@@ -1247,15 +1567,62 @@ def _grad_rule(g_kernel, g_plain, g_32):
     return worst, noisiest
 
 
+def check_grads(checks, name, model, batch, seed, model_name, img_size,
+                plain_core, use_kernel, **overrides):
+    """Gradients on one batch: the kernel path, the plain core on the same
+    boundary, and the f32 per-op path as the reference, held to
+    ``_grad_rule`` (the head filled so the encoder's gradients are not all
+    zero). ``overrides`` rebuild the reference as the model was built
+    (e.g. a cut depth)."""
+    fill_head(model, seed)
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, g_kernel = _grads(model, batch, seed)
+    _reroute(model, plain_core, use_kernel, True)
+    loss_x, g_plain = _grads(model, batch, seed)
+    _reroute(model, plain_core, use_kernel, False)
+    ref = create_model(model_name, num_classes=1000, dtype=torch.float32,
+                       img_size=img_size, device='cuda', use_kernel=False,
+                       **overrides)
+    ref.load_state_dict(model.state_dict())
+    loss_32, g_32 = _grads(ref, batch, seed)
+    grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ref
+    torch.cuda.empty_cache()
+    worst, noisiest = _grad_rule(g_kernel, g_plain, g_32)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_kernel.values())
+    checks.expect(finite and worst[0] <= 1.0,
+                  f'{name}: gradients vs {plain_core!r} on '
+                  f'{len(batch["labels"])} images, {len(g_plain)} '
+                  f'parameters, worst {worst[2]:.3g} (L2, tol {worst[3]:.3g}) '
+                  f'at {worst[1]} (there plain core vs f32 {worst[4]:.3g}, '
+                  f'kernels vs f32 {worst[5]:.3g}); loss {loss_k:.5f} vs '
+                  f'{loss_x:.5f} (f32 '
+                  f'{loss_32:.5f}); farthest from f32: {noisiest[1]}, plain '
+                  f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}; peak '
+                  f'{grad_peak:.2f} GiB allocated')
+
+
+def _reroute(model, plain_core, use_kernel, plain: bool) -> None:
+    """Puts ``model`` on the plain core of its boundary (``plain``) or back
+    on ``use_kernel``: a use_kernel mode, or BOT_PLAIN (BoTNet's attention
+    core on the K9 twins at the same 'botnet_fused' boundary)."""
+    if plain_core == BOT_PLAIN:
+        set_attention_core(model, 'plain' if plain else 'kernel')
+    else:
+        set_use_kernel(model, plain_core if plain else use_kernel)
+
+
 def train_path(checks, name, img_size, batch, want, seed, steps=10,
                profile=False, model_name='vit_b_patch16',
                plain_core='fused_layer_xla', use_kernel='auto'):
     """One Trainer step with the counts at 0 (want: the exact counts), then
-    gradients vs the plain core (the use_kernel mode ``plain_core``) on that
-    batch, img/s and one eval batch. ``use_kernel`` other than 'auto'
-    re-routes the Trainer's model first (the JAX package reaches 'fused_ff'
-    only through create_model, so the Trainer has no flag for it). Returns
-    the counts."""
+    gradients vs the plain core (``plain_core``: a use_kernel mode or
+    BOT_PLAIN; None skips the check) on that batch, img/s and one eval
+    batch; with BatchNorm, every running statistic finite and moved by the
+    timed steps. ``use_kernel`` other than 'auto' re-routes the Trainer's
+    model first (the JAX package reaches 'fused_ff' and 'botnet_fused' only
+    through create_model, so the Trainer has no flag for them). Returns the
+    counts."""
     trainer = Trainer(TrainConfig(model_name=model_name,
                                   img_size=img_size, batch_size=batch,
                                   seed=seed, dtype='bfloat16'), device='cuda')
@@ -1272,36 +1639,11 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
                                   f'(want {want})')
     checks.expect(math.isfinite(loss), f'{name}: loss {loss:.5g} finite')
 
-    # gradients on one batch: the kernel path, the plain core on the same
-    # boundary, and the f32 per-op path as the reference (head filled so
-    # the encoder's gradients are not all zero)
-    fill_head(trainer.model, seed)
-    torch.cuda.reset_peak_memory_stats()
-    loss_k, g_kernel = _grads(trainer.model, first, seed)
-    set_use_kernel(trainer.model, plain_core)
-    loss_x, g_plain = _grads(trainer.model, first, seed)
-    set_use_kernel(trainer.model, use_kernel)
-    ref = create_model(model_name, num_classes=1000,
-                       dtype=torch.float32, img_size=img_size, device='cuda',
-                       use_kernel=False)
-    ref.load_state_dict(trainer.model.state_dict())
-    loss_32, g_32 = _grads(ref, first, seed)
-    grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del ref
-    torch.cuda.empty_cache()
-    worst, noisiest = _grad_rule(g_kernel, g_plain, g_32)
-    finite = all(bool(torch.isfinite(g).all()) for g in g_kernel.values())
-    checks.expect(finite and worst[0] <= 1.0,
-                  f'{name}: gradients vs use_kernel={plain_core!r} on '
-                  f'{len(first["labels"])} images, {len(g_plain)} '
-                  f'parameters, worst {worst[2]:.3g} (L2, tol {worst[3]:.3g}) '
-                  f'at {worst[1]} (there plain core vs f32 {worst[4]:.3g}, '
-                  f'kernels vs f32 {worst[5]:.3g}); loss {loss_k:.5f} vs '
-                  f'{loss_x:.5f} (f32 '
-                  f'{loss_32:.5f}); farthest from f32: {noisiest[1]}, plain '
-                  f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}; peak '
-                  f'{grad_peak:.2f} GiB allocated')
+    if plain_core is not None:
+        check_grads(checks, name, trainer.model, first, seed, model_name,
+                    img_size, plain_core, use_kernel)
 
+    stats = running_stats(trainer.model)
     for i in range(2):                       # warm-up
         trainer.train_step(data.batch(1 + i))
     torch.cuda.synchronize()
@@ -1313,10 +1655,19 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
     torch.cuda.reset_peak_memory_stats()
     trainer.train_step(data.batch(3 + steps))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if stats:
+        after = dict(trainer.model.named_buffers())
+        finite = all(bool(torch.isfinite(t).all()) for t in after.values())
+        moved = sum(bool((after[n] != t).all()) for n, t in stats.items())
+        checks.expect(finite and moved == len(stats),
+                      f'{name}: running statistics after {steps + 3} steps: '
+                      f'finite {finite}, {moved} of {len(stats)} moved in '
+                      f'every channel')
     ev = trainer.evaluate(trainer.dataset(seed_offset=1), 1)
-    checks.expect(math.isfinite(loss) and math.isfinite(ev['eval_loss']),
+    checks.expect(math.isfinite(loss) and math.isfinite(ev['eval_loss'])
+                  and not trainer.model.training,
                   f'{name}: loss after {steps + 4} steps {loss:.5g}, eval loss '
-                  f'{ev["eval_loss"]:.5g}, finite')
+                  f'{ev["eval_loss"]:.5g} (eval mode), finite')
     print(f'  {name}: {steps * batch / secs:.1f} train img/s over {steps} '
           f'steps ({1e3 * secs / steps:.2f} ms/step incl. host), peak '
           f'{peak:.2f} GiB allocated', flush=True)
@@ -1325,6 +1676,68 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
     del trainer
     torch.cuda.empty_cache()
     return counts
+
+
+# (name, img_size, batch, the plain core on the same autograd boundary):
+# the distinct dispatch shapes that ``auto`` takes on the card among the
+# factory names the paths above do not build (H = 16 at L = 197 and 577 on
+# K1/K2/K3; D = 192 on the flash core; D = 384, H = 6; CaiT's H = 4 on K6
+# at L = 196 and 576; the Mixer's S and L widths on K8)
+SWEEP = (
+    ('vit_l_patch16', 224, 4, 'fused_layer_xla'),
+    ('vit_l_patch16', 384, 2, 'fused_layer_xla'),
+    ('vit_ti_patch16', 224, 4, 'fused_layer_xla'),
+    ('vit_s_patch16', 224, 4, 'fused_layer_xla'),
+    ('cait_xxs_24', 224, 4, 'fused_th_xla'),
+    ('cait_xxs_24', 384, 2, 'fused_th_xla'),
+    ('mixer_s_patch16', 224, 4, False),
+    ('mixer_l_patch16', 224, 4, False),
+)
+
+
+def sweep_factory(checks, seed: int, depth: int = 2) -> None:
+    """Each SWEEP entry at full width and ``depth`` layers under
+    use_kernel='auto': the kernels one forward launches, logits against
+    use_kernel=False on the same weights (LOGIT_TOL), and every parameter's
+    gradient by ``_grad_rule`` against the plain core with the f32 per-op
+    path as the noise floor. A shape that ``auto`` refuses on the card
+    prints its refusal, and use_kernel=False must run it."""
+    for name, img_size, batch, plain_core in SWEEP:
+        label = f'sweep {name} @{img_size} depth {depth} bs{batch}'
+        model = create_model(name, num_classes=1000, dtype=torch.bfloat16,
+                             img_size=img_size, seed=seed, device='cuda',
+                             num_layers=depth)
+        fill_head(model, seed)
+        gen = torch.Generator().manual_seed(seed + 3)
+        images = torch.randn((batch, img_size, img_size, 3), generator=gen)
+        data = {'images': images.cuda(),
+                'labels': torch.randint(0, 1000, (batch,),
+                                        generator=gen).cuda()}
+        x = data['images'].bfloat16()
+        model.eval()
+        with torch.no_grad():
+            set_use_kernel(model, False)
+            plain = model(x).float()
+            set_use_kernel(model, 'auto')
+            _build.reset_launches()
+            try:
+                logits = model(x).float()
+            except NotImplementedError as refusal:
+                checks.expect(bool(torch.isfinite(plain).all()),
+                              f'{label}: auto refuses on the card ({refusal}); '
+                              'use_kernel=False runs, logits finite')
+                continue
+        counts = dict(_build.launches)
+        err = _abs(logits, plain) / float(plain.abs().max())
+        checks.expect(bool(counts) and bool(torch.isfinite(logits).all())
+                      and err <= LOGIT_TOL,
+                      f'{label}: launches per forward {counts}; logits vs '
+                      f'use_kernel=False: max err {err:.3g} of max|logit| '
+                      f'(tol {LOGIT_TOL})')
+        check_grads(checks, label, model, data, seed, name, img_size,
+                    plain_core, 'auto', num_layers=depth)
+        del model
+        torch.cuda.empty_cache()
 
 
 def print_profile(fn, iters: int = 5) -> None:
@@ -1476,6 +1889,32 @@ def main(argv=None):
                        model_name='tnt_b_patch16',
                        plain_core='fused_layer_xla')
 
+    # BoTNet-T3 (slice 6): K9a at the serving (B=32) and training (B=64)
+    # shapes, K9b at B=64, two ragged grids into sentinel buffers, then the
+    # paths: serving and training on 'botnet_fused', and the per-op route
+    # ('auto', which runs no K9) beside each
+    k9a = {train: check_k9a(rng, checks, 64 if train else args.batch, train)
+           for train in (False, True)}
+    k9b = check_k9b(rng, checks, 64)
+    for g in (5, 13):
+        check_k9_ragged(rng, checks, 3, g)
+    bot_serve = serve_path(checks, 'BoTNet-T3 @224 botnet_fused', 224,
+                           'botnet_fused', {'bot_fwd': 6}, args.seed,
+                           args.batch, args.profile, model_name='botnet_t3')
+    serve_path(checks, 'BoTNet-T3 @224 auto (per-op)', 224, 'auto', {},
+               args.seed, args.batch, args.profile, model_name='botnet_t3')
+    bot_train = train_path(checks, 'train BoTNet-T3 @224 bs64 botnet_fused',
+                           224, 64, {'bot_fwd_train': 6, 'bot_bwd_dq': 6,
+                                     'bot_bwd_dkv': 6}, args.seed,
+                           profile=args.profile, model_name='botnet_t3',
+                           plain_core=BOT_PLAIN, use_kernel='botnet_fused')
+    train_path(checks, 'train BoTNet-T3 @224 bs64 auto (per-op)', 224, 64,
+               {}, args.seed, model_name='botnet_t3', plain_core=None)
+
+    # the factory names that `auto` routes on the card and no path above
+    # builds, at depth 2
+    sweep_factory(checks, args.seed)
+
     def th_entry(name, replaces, launches, rec, train=None, **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
         ``train``, the record at the training shape, adds train_* keys."""
@@ -1513,6 +1952,13 @@ def main(argv=None):
                     tntb_plain_ms=tntb['plain_ms'],
                     tntb_library_ms=tntb['library_ms'],
                     tntb_bound_ms=tntb['bound_ms'], **extra)
+
+    def bot_entry(name, replaces, launches, rec, **extra):
+        """A K9 line: ``rec`` at botnet_t3's BoT-stage shape."""
+        return dict(name=name, route='cuda',
+                    source='sav_tpu_torch/csrc/botnet_attention.cu',
+                    replaces=f'sav_tpu/ops/botnet_attention.py:{replaces}',
+                    launches=launches, **rec, **extra)
 
     kernels = [
         dict(name='fused_attention_fwd', route='cuda',
@@ -1593,6 +2039,21 @@ def main(argv=None):
         tnt_entry('tnt_inner_bwd', 169, ts224.get('tnt_inner_bwd', 0),
                   k7b[(64 * 196, 24)], k7b[(32 * 196, 40)],
                   tntb_launches=tb224.get('tnt_inner_bwd', 0)),
+        # K9a: BoTNet-T3 serving (B=32) launches and timing; the training
+        # forward (B=64, lse saved) under train_*. K9b is two kernels, each
+        # timed alone; library_bwd_ms and whole_ms are the whole backward's
+        bot_entry('bot_fwd', 123, bot_serve.get('bot_fwd', 0), dict(
+                      k9a[False], max_abs_err=max(r['max_abs_err']
+                                                  for r in k9a.values())),
+                  train_launches=bot_train.get('bot_fwd_train', 0),
+                  train_ms=k9a[True]['ms'],
+                  train_plain_ms=k9a[True]['plain_ms'],
+                  train_library_ms=k9a[True]['library_ms'],
+                  train_bound_ms=k9a[True]['bound_ms']),
+        bot_entry('bot_bwd_dq', 147, bot_train.get('bot_bwd_dq', 0),
+                  k9b['dq']),
+        bot_entry('bot_bwd_dkv', 147, bot_train.get('bot_bwd_dkv', 0),
+                  k9b['dkv']),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

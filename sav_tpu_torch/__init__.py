@@ -1,9 +1,11 @@
 """sav_tpu_torch: the PyTorch/CUDA port of sav_tpu for NVIDIA Hopper.
 
-Serving slice: ViT models, the attention sublayer on hand-written CUDA
-kernels (``ops.fused_layer``, ``ops.flash_attention``), the eval
-preprocessing and the ``predict`` CLI (``python -m sav_tpu_torch.predict``).
-Imports torch, numpy and the standard library only; never JAX or sav_tpu.
+The ViT, CaiT, MLP-Mixer, TNT and BoTNet families (``models``), served by
+``python -m sav_tpu_torch.predict`` and trained by ``python -m
+sav_tpu_torch.train`` on one card, with every TPU kernel on their paths
+ported to hand-written CUDA (``csrc/``, wrapped in ``ops``; ROADMAP.md
+lists the slices and what is still to come). Imports torch, numpy and the
+standard library only; never JAX or sav_tpu.
 """
 
 import torch

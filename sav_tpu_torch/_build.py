@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
 
 # library name -> its one translation unit
 SOURCES = {
+    'botnet_attention': 'botnet_attention.cu',
     'ff_bwd': 'ff_bwd.cu',
     'flash_bwd': 'flash_bwd.cu',
     'flash_fwd': 'flash_fwd.cu',

@@ -1,6 +1,7 @@
 """String-keyed model factory (counterpart of
-``sav_tpu/models/factory.py``): the ViT, CaiT, MLP-Mixer and TNT names so
-far."""
+``sav_tpu/models/factory.py``): the ViT, CaiT, MLP-Mixer, TNT and BoTNet
+names so far (28 of the JAX factory's 34; CeiT and CvT wait for their
+slices, ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ from typing import Any, Dict
 import torch
 
 from sav_tpu_torch import resolve_device
-from sav_tpu_torch.models import cait, mlp_mixer, tnt, vit
+from sav_tpu_torch.models import botnet, cait, mlp_mixer, tnt, vit
+from sav_tpu_torch.models.botnet import BoTNet
 from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.mlp_mixer import MLPMixer
 from sav_tpu_torch.models.tnt import TNT
@@ -59,6 +61,9 @@ MODEL_CONFIGS: Dict[str, Any] = {
     'mixer_b_patch16': _mixer(12, 768, 16),
     'mixer_l_patch32': _mixer(24, 1024, 32),
     'mixer_l_patch16': _mixer(32, 1024, 16),
+    'botnet_t3': (BoTNet, dict(stage_sizes=(3, 4, 6, 6))),
+    'botnet_t4': (BoTNet, dict(stage_sizes=(3, 4, 23, 6))),
+    'botnet_t5': (BoTNet, dict(stage_sizes=(3, 4, 23, 12))),
     'tnt_s_patch16': (TNT, dict(num_layers=12, inner_num_heads=4,
                                 outer_num_heads=6, inner_embed_dim=24,
                                 outer_embed_dim=384)),
@@ -81,7 +86,8 @@ def create_model(model_name: str, num_classes: int = 1000,
     (the card unless ``'cpu'`` is asked for).
 
     Extra keyword arguments override config fields (``use_kernel=False``
-    forces the plain attention path, ``num_layers=2`` cuts depth).
+    forces the plain attention path, ``num_layers=2`` or, for BoTNet,
+    ``stage_sizes`` cuts depth).
     """
     try:
         model_cls, config = MODEL_CONFIGS[model_name]
@@ -106,5 +112,7 @@ def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:
         mlp_mixer.set_use_kernel(model, use_kernel)
     elif isinstance(model, TNT):
         tnt.set_use_kernel(model, use_kernel)
+    elif isinstance(model, BoTNet):
+        botnet.set_use_kernel(model, use_kernel)
     else:
         vit.set_use_kernel(model, use_kernel)

@@ -1,0 +1,356 @@
+"""BoTNet's relative-position attention core as one differentiable call
+(counterpart of ``sav_tpu/ops/botnet_attention.py``).
+
+The decomposed 2-D relative logits stay library ops with torch autograd
+(``decomposed_rel_logits``: two einsums against the learned per-axis
+embeddings and the skew ``relative_shift``), as they stay XLA with
+autodiff in the JAX package; the attention core takes them as two
+``[B, h, L, g]`` f32 tensors and expands the bias per logit::
+
+    s[q, j] = qs[q] . k[j] + rel_h[q, j // g] + rel_w[q, j % g]
+
+on ``[B, L, h*d]`` head bands (qs pre-scaled, L = g*g keys in row-major
+grid order). ``bot_fwd`` is the port of K9a ``_fwd_kernel`` and
+``bot_bwd`` of K9b ``_bwd_kernel`` (``csrc/botnet_attention.cu``); on a
+CPU tensor each runs its plain twin, on a CUDA tensor its kernels, or it
+raises. ``bot_core`` is the ``torch.autograd.Function`` around them: like
+the JAX ``custom_vjp`` it saves the inputs, the output and the lse (no
+``[B, h, L, L]`` tensor) and its backward returns dq, dk, dv, drel_h and
+drel_w. ``bot_mhsa_reference`` mirrors the JAX package's jnp twin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from sav_tpu_torch import _build
+from sav_tpu_torch.ops import flash_attention as fa
+
+HEAD_DIMS = (64, 128)   # head widths the kernels are instantiated for
+
+
+# ------------------------------------------------------ relative logits
+
+def relative_shift(rel_logits: torch.Tensor) -> torch.Tensor:
+    """Skews ``[B, h, L, 2L-1]`` relative logits into absolute
+    ``[B, h, L, L]``: row q, column k ends up holding the logit for the
+    relative offset ``k - q`` (the pad-reshape-slice trick)."""
+    b, h, length, _ = rel_logits.shape
+    x = F.pad(rel_logits, (0, 1)).reshape(b, h, 2 * length * length)
+    x = F.pad(x, (0, length - 1)).reshape(b, h, length + 1, 2 * length - 1)
+    return x[:, :, :length, length - 1:]
+
+
+def decomposed_rel_logits(qs, emb_h, emb_w, num_heads: int, g: int):
+    """Per-axis relative logits of a scaled query in band layout.
+
+    qs ``[B, L, h*d]`` (L = g*g, row-major over the (H, W) grid);
+    emb_h/emb_w ``[2g-1, d]``. Returns ``(rel_h, rel_w)``, each
+    ``[B, h, L, g]`` f32 and contiguous: ``rel_h[..., (H, W), P]`` is the
+    height-offset term of key row P, ``rel_w[..., (H, W), Q]`` the
+    width-offset term of key column Q. The einsums run in f32, as JAX
+    promotes the bf16 query against the f32 embedding."""
+    b, length, hd = qs.shape
+    d = hd // num_heads
+    q5 = qs.float().reshape(b, g, g, num_heads, d).permute(0, 3, 1, 2, 4)
+
+    def one_axis(q5_axis, emb):
+        x = torch.einsum('bhHWd,md->bhHWm', q5_axis, emb.float())
+        x = relative_shift(x.reshape(b, num_heads * g, g, 2 * g - 1))
+        return x.reshape(b, num_heads, g, g, g)
+
+    rel_w = one_axis(q5, emb_w)                               # [B,h,H,W,Q]
+    rel_h = one_axis(q5.transpose(2, 3), emb_h).transpose(2, 3)   # [B,h,H,W,P]
+    flat = lambda r: r.reshape(b, num_heads, length, g).contiguous()
+    return flat(rel_h), flat(rel_w)
+
+
+def expand_bias(rel_h, rel_w, g: int):
+    """The two ``[B, h, L, L]`` bias terms: column j of the first takes
+    ``rel_h[..., j // g]``, of the second ``rel_w[..., j % g]`` (what the
+    kernels compute per logit)."""
+    return rel_h.repeat_interleave(g, dim=-1), rel_w.repeat(1, 1, 1, g)
+
+
+# ------------------------------------------------------------ geometry
+
+def _smem(which: int, g: int, head_d: int) -> int:
+    """Shared memory of K9a (``which`` 0) or of K9b's dq (1) or dkv (2)
+    kernel at grid side g and head width d, 0 where a block cannot hold
+    it: ``sav_bot_smem`` of ``csrc/botnet_attention.cu``, the one copy of
+    the layouts' formulas."""
+    fn = _build.library('botnet_attention').sav_bot_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn(which, g, head_d)
+
+
+def _refusal(g: int, num_heads: int, head_d: int, device) -> str | None:
+    """Why the K9 port does not take a g x g grid of ``num_heads`` heads of
+    width ``head_d`` on ``device``, or None where it does."""
+    if g < 1 or num_heads < 1:
+        return 'the grid side and the head count must be at least 1'
+    if head_d not in HEAD_DIMS:
+        return f'the kernels are built for head widths {HEAD_DIMS}'
+    if torch.device(device).type == 'cuda':
+        if min(_smem(w, g, head_d) for w in range(3)) == 0:
+            return ('a 64-row tile\'s operands and the grid\'s rel-logit '
+                    f'rows exceed a block\'s {fa.SMEM_LIMIT} bytes of shared '
+                    'memory')
+    return None
+
+
+def supported(g: int, num_heads: int, head_d: int, device='cuda') -> bool:
+    """Whether the K9 port takes a g x g grid (L = g*g) of ``num_heads``
+    heads of width ``head_d``: d in ``HEAD_DIMS`` and, on the card, each
+    kernel's tiles plus the rel-logit rows of a tile within one block's
+    227 KB of shared memory (the kernels' own formula, ``_smem``). Every
+    BoTNet config at 224 (g = 14, d = 128) fits. The TPU caps (g <= 28,
+    at most 16 heads, d a multiple of 64) were VMEM and lane limits and
+    have no counterpart here. Off the card the plain twins have no such
+    budget."""
+    return _refusal(g, num_heads, head_d, device) is None
+
+
+# ------------------------------------------------------------ plain twins
+
+def _heads(a, num_heads):
+    b, length, hd = a.shape
+    return a.reshape(b, length, num_heads, hd // num_heads)
+
+
+def _logits(qs, k, rel_h, rel_w, num_heads, g):
+    """f32 ``[B, h, L, L]`` logits with the bias, in the kernels' order
+    ``(qs k^T + rel_h) + rel_w``."""
+    s = torch.einsum('bqhd,bkhd->bhqk', _heads(qs, num_heads).float(),
+                     _heads(k, num_heads).float())
+    bias_h, bias_w = expand_bias(rel_h.float(), rel_w.float(), g)
+    return s + bias_h + bias_w
+
+
+def bot_fwd_plain(qs, k, v, rel_h, rel_w, num_heads: int, g: int):
+    """Plain twin of ``bot_fwd``: f32 logits with the bias, p = exp(s - m)
+    rounded to v's dtype before the value product, f32 accumulation, the
+    output divided by sum(p) and rounded to qs's dtype, as ``_fwd_kernel``
+    does. Returns ``(out [B, L, h*d], lse [B, h, L] f32)``."""
+    b, length, hd = qs.shape
+    s = _logits(qs, k, rel_h, rel_w, num_heads, g)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    lsum = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum('bhqk,bkhd->bhqd', p.to(v.dtype).float(),
+                     _heads(v, num_heads).float()) / lsum
+    out = o.permute(0, 2, 1, 3).reshape(b, length, hd).to(qs.dtype)
+    return out, (m + torch.log(lsum))[..., 0]
+
+
+def bot_bwd_plain(qs, k, v, rel_h, rel_w, out, lse, grad, num_heads: int,
+                  g: int):
+    """Plain twin of ``bot_bwd``, following ``_bwd_kernel``: p = exp(s -
+    lse) in f32; dv = p (rounded to grad's dtype)^T grad; dp = grad v^T;
+    di = rowsum(grad * out) in f32; ds = (dp - di) p in f32; dq = ds k and
+    dk = ds^T qs from ds rounded to qs's dtype; drel_h and drel_w sums of
+    the f32 ds over each key row P and key column Q of the grid. Returns
+    ``(dq, dk, dv, drel_h, drel_w)``: the first three in qs's dtype, the
+    rel gradients f32 ``[B, h, L, g]``."""
+    b, length, hd = qs.shape
+    cdt = qs.dtype
+    p = torch.exp(_logits(qs, k, rel_h, rel_w, num_heads, g) - lse[..., None])
+    gh = _heads(grad, num_heads).float()
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.to(cdt).float(), gh)
+    dp = torch.einsum('bqhd,bkhd->bhqk', gh, _heads(v, num_heads).float())
+    di = (grad.float() * out.float()).reshape(b, length, num_heads, -1).sum(-1)
+    ds = (dp - di.transpose(1, 2)[..., None]) * p
+    ds_c = ds.to(cdt).float()
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds_c, _heads(k, num_heads).float())
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds_c, _heads(qs, num_heads).float())
+    cells = ds.reshape(b, num_heads, length, g, g)
+    band = lambda a: a.reshape(b, length, hd).to(cdt)
+    return (band(dq), band(dk), band(dv), cells.sum(dim=-1),
+            cells.sum(dim=-2))
+
+
+# ------------------------------------------------------ kernel wrappers
+
+def _fn(name, pointers, ints):
+    fn = getattr(_build.library('botnet_attention'), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(qs, k, v, rel_h, rel_w, num_heads, g, **bands):
+    """Device, dtypes, layouts and geometry the K9 kernels take; returns
+    (B, L, d)."""
+    device = qs.device
+    for name, t in (('qs', qs), ('k', k), ('v', v), *bands.items()):
+        fa.check_cuda_bf16(name, t, device)
+    if qs.dim() != 3:
+        raise ValueError(f'qs must be [B, L, h*d], got {tuple(qs.shape)}')
+    b, length, hd = qs.shape
+    for name, t in (('k', k), ('v', v), *bands.items()):
+        if t.shape != qs.shape:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                             f'{tuple(qs.shape)}')
+    if length != g * g:
+        raise ValueError(f'L = {length} is not the g x g grid of g = {g}')
+    if num_heads < 1 or hd % num_heads:
+        raise ValueError(f'h*d = {hd} is not divisible by {num_heads} heads')
+    d = hd // num_heads
+    for name, t in (('rel_h', rel_h), ('rel_w', rel_w)):
+        if (t.device != device or t.dtype != torch.float32
+                or not t.is_contiguous()
+                or tuple(t.shape) != (b, num_heads, length, g)):
+            raise ValueError(
+                f'{name} must be contiguous float32 {(b, num_heads, length, g)} '
+                f'on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}')
+    why = 'B must be at least 1' if b < 1 else _refusal(g, num_heads, d, device)
+    if why is not None:
+        raise ValueError(f'the BoTNet attention kernels do not take B={b}, '
+                         f'g={g}, h={num_heads}, d={d}: {why}')
+    return b, length, d
+
+
+def bot_fwd(qs, k, v, rel_h, rel_w, num_heads: int, g: int,
+            save_lse: bool = False):
+    """Port of K9a: ``(out, lse)`` of attention with the decomposed bias on
+    ``[B, L, h*d]`` head bands (qs pre-scaled); lse ``[B, h, L]`` f32 when
+    ``save_lse`` (the training forward), else None. On the card one launch
+    (``csrc/botnet_attention.cu``), bf16 only."""
+    if qs.device.type == 'cpu':
+        out, lse = bot_fwd_plain(qs, k, v, rel_h, rel_w, num_heads, g)
+        return out, (lse if save_lse else None)
+    if qs.device.type != 'cuda':
+        raise ValueError(f'bot_fwd runs on cuda or cpu, not {qs.device}')
+    fa.check_no_grad(qs, k, v, rel_h, rel_w)
+    b, length, d = _check(qs, k, v, rel_h, rel_w, num_heads, g)
+    out = torch.empty_like(qs)
+    lse = (torch.empty(b, num_heads, length, dtype=torch.float32,
+                       device=qs.device) if save_lse else None)
+    with torch.cuda.device(qs.device):
+        err = _fn('sav_bot_fwd', 7, 5)(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
+            rel_w.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if save_lse else None, b, length, num_heads, g, d,
+            fa.stream_of(qs.device))
+    _build.check(err, 'bot_fwd')
+    _build.count('bot_fwd_train' if save_lse else 'bot_fwd')
+    return out, lse
+
+
+def bot_bwd(qs, k, v, rel_h, rel_w, out, lse, grad, num_heads: int, g: int):
+    """Port of K9b: ``(dq, dk, dv, drel_h, drel_w)`` of ``bot_fwd`` from its
+    inputs, its out and lse and the cotangent ``grad`` of out (order and
+    dtypes as ``bot_bwd_plain``). On the card two launches: the dq kernel
+    (dq, drel_h, drel_w and di) then the dkv kernel; every sum in a fixed
+    order, no float atomics, so two calls give the same bits."""
+    if qs.device.type == 'cpu':
+        return bot_bwd_plain(qs, k, v, rel_h, rel_w, out, lse, grad,
+                             num_heads, g)
+    if qs.device.type != 'cuda':
+        raise ValueError(f'bot_bwd runs on cuda or cpu, not {qs.device}')
+    fa.check_no_grad(qs, k, v, rel_h, rel_w, out, lse, grad)
+    b, length, d = _check(qs, k, v, rel_h, rel_w, num_heads, g, out=out,
+                          grad=grad)
+    if (lse.device != qs.device or lse.dtype != torch.float32
+            or not lse.is_contiguous()
+            or tuple(lse.shape) != (b, num_heads, length)):
+        raise ValueError(f'lse must be contiguous float32 '
+                         f'{(b, num_heads, length)} on {qs.device}, got '
+                         f'{lse.dtype} {tuple(lse.shape)}')
+    dq, dk, dv = (torch.empty_like(qs) for _ in range(3))
+    drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    delta = torch.empty_like(lse)
+    dims = (b, length, num_heads, g, d, fa.stream_of(qs.device))
+    with torch.cuda.device(qs.device):
+        err = _fn('sav_bot_bwd_dq', 12, 5)(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            grad.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            drel_h.data_ptr(), drel_w.data_ptr(), *dims)
+        _build.check(err, 'bot_bwd (dq)')
+        _build.count('bot_bwd_dq')
+        err = _fn('sav_bot_bwd_dkv', 10, 5)(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), grad.data_ptr(),
+            rel_h.data_ptr(), rel_w.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
+    _build.check(err, 'bot_bwd (dkv)')
+    _build.count('bot_bwd_dkv')
+    return dq, dk, dv, drel_h, drel_w
+
+
+# --------------------------------------------------------- autograd core
+
+CORES = ('kernel', 'plain')
+
+
+class _BotCore(torch.autograd.Function):
+    """``bot_core``'s ``custom_vjp``: saves qs, k, v, rel_h, rel_w, out and
+    lse; the backward is K9b (``core='kernel'``) or its twin."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, rel_h, rel_w, num_heads, g, core):
+        fwd = bot_fwd if core == 'kernel' else bot_fwd_plain
+        out, lse = fwd(qs, k, v, rel_h, rel_w, num_heads, g,
+                       **({'save_lse': True} if core == 'kernel' else {}))
+        ctx.save_for_backward(qs, k, v, rel_h, rel_w, out, lse)
+        ctx.num_heads, ctx.g, ctx.core = num_heads, g, core
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        bwd = bot_bwd if ctx.core == 'kernel' else bot_bwd_plain
+        grads = bwd(*saved, grad.to(saved[0].dtype).contiguous(),
+                    ctx.num_heads, ctx.g)
+        return (*grads, None, None, None)
+
+
+def bot_core(qs, k, v, rel_h, rel_w, num_heads: int, g: int,
+             core: str = 'kernel'):
+    """Attention with the decomposed rel-pos bias as one differentiable
+    call: qs ``[B, L, h*d]`` pre-scaled, k and v alike, rel_h/rel_w
+    ``[B, h, L, g]`` f32 (contiguous). Returns ``[B, L, h*d]`` in qs's
+    dtype. ``core='kernel'`` runs ``bot_fwd``/``bot_bwd`` (the kernels on a
+    CUDA tensor, the twins on a CPU one); ``core='plain'`` runs the same
+    Function on the twins, on any device: the card's gradient check holds
+    the kernels against it at the same boundary. With grad off it is the
+    forward alone."""
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
+    args = (qs, k, v, rel_h, rel_w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _BotCore.apply(*args, num_heads, g, core)
+    if core == 'plain':
+        return bot_fwd_plain(*args, num_heads, g)[0]
+    return bot_fwd(*args, num_heads, g)[0]
+
+
+def botnet_mhsa(qs, k, v, emb_h, emb_w, num_heads: int, g: int,
+                core: str = 'kernel'):
+    """The whole BoTMHSA core: the decomposed rel logits (library ops,
+    autograd) and ``bot_core``. qs is the pre-scaled query in band layout
+    ``[B, L, h*d]``; emb_h/emb_w the ``[2g-1, d]`` learned per-axis
+    embeddings. Returns ``[B, L, h*d]``."""
+    rel_h, rel_w = decomposed_rel_logits(qs, emb_h, emb_w, num_heads, g)
+    return bot_core(qs, k, v, rel_h, rel_w, num_heads, g, core)
+
+
+def bot_mhsa_reference(qs, k, v, emb_h, emb_w, num_heads: int, g: int):
+    """Per-op twin of the JAX package's ``bot_mhsa_reference``: f32 logits
+    plus the broadcast bias, softmax, probabilities in v's dtype,
+    differentiable by autograd."""
+    b, length, hd = qs.shape
+    rel_h, rel_w = decomposed_rel_logits(qs, emb_h, emb_w, num_heads, g)
+    s = torch.einsum('bqhd,bkhd->bhqk', _heads(qs, num_heads).float(),
+                     _heads(k, num_heads).float())
+    bias = (rel_h.reshape(b, num_heads, length, g, 1)
+            + rel_w.reshape(b, num_heads, length, 1, g))
+    s = s + bias.reshape(b, num_heads, length, length)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum('bhqk,bkhd->bqhd', p, _heads(v, num_heads))
+    return o.reshape(b, length, hd)

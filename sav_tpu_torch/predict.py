@@ -4,8 +4,9 @@ Decodes JPEGs on the host (PIL), runs the eval transform (resize-small ->
 central crop -> normalize) and the model forward on the device, and prints
 one JSON line per image with the top-k classes. ``-c`` names a directory:
 when it holds ``params.npz`` (the flax params tree flattened with ``/``
-keys) the weights load through ``utils.flax_bridge``; otherwise the model
-predicts from random init, with a warning.
+keys, and for BatchNorm models the running statistics under
+``batch_stats/``) the weights load through ``utils.flax_bridge``;
+otherwise the model predicts from random init, with a warning.
 
 Example:
     python -m sav_tpu_torch.predict -m vit_b_patch16 -c /tmp/ckpt \
@@ -56,11 +57,22 @@ def serve(model, frames_uint8, img_size: int, top_k: int):
 
 
 def load_params_npz(model, path: str) -> None:
-    """Loads a ``/``-keyed flat npz of the flax params tree into ``model``."""
+    """Loads a ``/``-keyed flat npz of the flax params tree into ``model``,
+    and the running statistics under its ``batch_stats/`` keys into the
+    BatchNorms' buffers. A model with running statistics raises on a file
+    without them rather than serve on the initial mean 0 and var 1."""
     with np.load(path) as npz:
         tree = unflatten_tree({k: npz[k] for k in npz.files})
-    state = flax_to_torch(tree)
-    model.load_state_dict(state, strict=True)
+    variables = {'params': tree}
+    stats = tree.pop('batch_stats', None)
+    if stats is not None:
+        variables['batch_stats'] = stats
+    elif next(model.buffers(), None) is not None:
+        raise ValueError(
+            f'{path} holds no batch_stats, but {type(model).__name__} '
+            'normalises by running statistics (BatchNorm); its Trainer '
+            'checkpoint writes them under batch_stats/')
+    model.load_state_dict(flax_to_torch(variables), strict=True)
 
 
 def _list_images(pattern: str):

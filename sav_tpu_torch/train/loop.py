@@ -3,8 +3,9 @@ train loop (counterpart of ``sav_tpu/train/loop.py``).
 
 What runs: the synthetic source, the step loop with periodic metrics,
 evaluation every ``eval_every_epochs`` and at the end, and ``params.npz``
-checkpoints (the flax params tree, ``/`` keys; what the port's ``predict
--c`` reads) at the checkpoint cadence and at the end. Real datasets, mesh
+checkpoints (the flax params tree, ``/`` keys, and a BatchNorm model's
+running statistics under ``batch_stats/``; what the port's ``predict -c``
+reads) at the checkpoint cadence and at the end. Real datasets, mesh
 parallelism, remat, quantization, chained dispatch, fine-tuning, resume
 and optimizer-state checkpoints are refused with their ROADMAP.md item.
 """
@@ -27,7 +28,7 @@ from sav_tpu_torch.train import steps as steps_lib
 from sav_tpu_torch.train.state import (DTYPES, TrainState, build_optimizer,
                                        warmup_cosine_schedule,
                                        warmup_stable_decay_schedule)
-from sav_tpu_torch.utils.flax_bridge import flatten_tree, torch_to_flax
+from sav_tpu_torch.utils.flax_bridge import flatten_tree, variables_of
 
 IMAGENET_TRAIN_IMAGES = 1_281_167
 CHECKPOINT_FILE = 'params.npz'
@@ -228,11 +229,17 @@ class Trainer:
         return {k: float(v) / count for k, v in sums.items()}
 
     def save_checkpoint(self) -> None:
-        """Writes the params tree to ``checkpoint_dir/params.npz``."""
+        """Writes the params tree to ``checkpoint_dir/params.npz`` and, for
+        a model with BatchNorm, its running statistics beside it under
+        ``batch_stats/`` keys."""
         os.makedirs(self.config.checkpoint_dir, exist_ok=True)
+        variables = variables_of(self.model)
+        flat = flatten_tree(variables['params'])
+        if 'batch_stats' in variables:
+            flat.update(flatten_tree(variables['batch_stats'], 'batch_stats'))
         tmp = f'{self.checkpoint_path}.{os.getpid()}.tmp'
         with open(tmp, 'wb') as f:
-            np.savez(f, **flatten_tree(torch_to_flax(self.model.state_dict())))
+            np.savez(f, **flat)
         os.replace(tmp, self.checkpoint_path)
 
     def run(self) -> Dict[str, float]:

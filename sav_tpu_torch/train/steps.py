@@ -62,7 +62,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
     ``generator`` (on the model's device) is the stochastic-depth stream,
     the JAX package's ``'stochastic_depth'`` key: each microbatch draws its
     masks from it in turn, so microbatches get different noise. Models
-    without stochastic depth never read it.
+    without stochastic depth never read it. The model runs in training
+    mode, so BatchNorm running statistics (module buffers, flax's
+    ``batch_stats``) update once per forward: once a step, or once per
+    microbatch in order, as the JAX package threads them through its
+    ``lax.scan``.
     """
     model = state.model
     model.train()
@@ -111,7 +115,11 @@ def _accumulate(model, batch, num_classes, label_smoothing, grad_accum):
 def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
               num_classes: int, use_ema: bool = False) -> Dict[str, torch.Tensor]:
     """Summed loss and top-k correct counts over the valid examples
-    (``mask``-aware, so padded eval batches do not skew the average)."""
+    (``mask``-aware, so padded eval batches do not skew the average). The
+    model runs in eval mode (BatchNorm on its running statistics); with
+    ``use_ema`` only the parameters are swapped for their EMA, and the live
+    running statistics are used, as the JAX package's
+    ``variables(use_ema=True)``."""
     model = state.model
     model.eval()
     images = batch['images'].to(model.dtype)

@@ -6,8 +6,11 @@ SelfAttentionBlock_0/queries/kernel`` is the state-dict key
 ``Encoder_0.EncoderBlock_3.SelfAttentionBlock_0.queries.kernel``, with the
 array unchanged (Dense kernels ``[in, out]``; q/k/v kernels ``[D, H, d]``,
 the out kernel ``[H, d, D]``; ``pos_embed`` ``[1, L, D]``; ``cls``
-``[1, 1, D]``). Covers the per-layer layout; the scan-stacked layout
-(``sav_tpu/utils/stacking.py``) is refused.
+``[1, 1, D]``; conv kernels HWIO). The ``batch_stats`` collection (the
+BatchNorms' running ``mean`` and ``var``) maps to the modules' buffers of
+the same path, beside their ``scale`` and ``bias`` parameters. Covers the
+per-layer layout; the scan-stacked layout (``sav_tpu/utils/stacking.py``)
+is refused.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ def _reject_scan_layout(path: str) -> None:
         if part in SCAN_NAMES:
             raise NotImplementedError(
                 f'{path!r} is a scan-stacked (scan_layers=True) tree; only the '
-                'per-layer layout is bridged so far (see ROADMAP.md, trainer '
-                'slice)')
+                'per-layer layout is bridged so far (ROADMAP.md Queue 1 item '
+                '1)')
 
 
 def flatten_tree(tree: Mapping, prefix: str = '') -> 'OrderedDict[str, np.ndarray]':
@@ -58,22 +61,52 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
+COLLECTIONS = ('params', 'batch_stats')
+
+
 def flax_to_torch(tree: Mapping) -> 'OrderedDict[str, torch.Tensor]':
     """A flax ``params`` tree (nested dict of arrays) -> torch state dict.
 
-    A full variables dict ``{'params': ...}`` is accepted too. Arrays are
-    copied, so the result owns its memory.
+    A full variables dict, ``{'params': ...}`` or ``{'params': ...,
+    'batch_stats': ...}``, is accepted too: the two collections merge into
+    one state dict (their leaves, ``kernel``/``scale``/``bias`` against
+    ``mean``/``var``, never share a path). Arrays are copied, so the result
+    owns its memory.
     """
-    if set(tree) == {'params'}:
-        tree = tree['params']
+    trees = ([tree[c] for c in COLLECTIONS if c in tree]
+             if 'params' in tree and set(tree) <= set(COLLECTIONS) else [tree])
     state = OrderedDict()
-    for path, array in flatten_tree(tree).items():
-        _reject_scan_layout(path)
-        state[path.replace('/', '.')] = torch.from_numpy(np.array(array))
+    for part in trees:
+        for path, array in flatten_tree(part).items():
+            _reject_scan_layout(path)
+            key = path.replace('/', '.')
+            if key in state:
+                raise ValueError(f'{path!r} is both a parameter and a '
+                                 'running statistic')
+            state[key] = torch.from_numpy(np.array(array))
     return state
 
 
-def torch_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
-    """A torch state dict -> flax ``params`` tree of numpy arrays."""
-    return unflatten_tree({key.replace('.', '/'): t.detach().cpu().numpy()
-                           for key, t in state.items()})
+def torch_to_flax(state: Mapping[str, torch.Tensor], buffers=()) -> dict:
+    """A torch state dict -> flax ``params`` tree of numpy arrays.
+
+    With ``buffers`` (the state's keys that are running statistics, e.g.
+    ``variables_of``'s ``model.named_buffers()``) non-empty, the result is
+    the variables dict ``{'params': ..., 'batch_stats': ...}`` with those
+    keys split off into ``batch_stats``."""
+    to_tree = lambda keys: unflatten_tree(
+        {key.replace('.', '/'): state[key].detach().cpu().numpy()
+         for key in keys})
+    buffers = set(buffers)
+    if not buffers:
+        return to_tree(state)
+    return {'params': to_tree(k for k in state if k not in buffers),
+            'batch_stats': to_tree(k for k in state if k in buffers)}
+
+
+def variables_of(model: torch.nn.Module) -> dict:
+    """The flax variables of a port model: ``{'params': ...}``, plus
+    ``'batch_stats'`` where it has running statistics (BatchNorm)."""
+    buffers = [name for name, _ in model.named_buffers()]
+    variables = torch_to_flax(model.state_dict(), buffers)
+    return variables if buffers else {'params': variables}

@@ -205,8 +205,7 @@ def test_th_attention_fwd_matches_twin(card, seq, residual):
     scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
     bias = _bf16(rng, (dim,), 0.1, card).float()
     ws = [_bf16(rng, (dim, dim), s / math.sqrt(dim), card) for s in (4, 1, 1, 1)]
-    m = [(torch.eye(heads) + 0.3 * torch.randn(heads, heads)).to(card)
-         for _ in range(2)]
+    m = _th_mixes(heads, seq, card)
     args = (x, scale, bias, *ws, *m, heads, th_attention.LN_EPS, residual)
     out = th_attention.th_attention_fwd(*args)
     out_t, (q, k, v, attn, lse) = th_attention.th_attention_fwd(
@@ -269,9 +268,32 @@ def test_th_kernels_write_no_row_past_the_length(card):
         assert torch.isnan(t[:, seq:]).all()
 
 
-@pytest.mark.parametrize('route,seq', [('fused', 196), ('blocked', 196),
-                                       ('blocked', 300)])
-def test_th_sublayer_gradients_match_plain_core(card, route, seq):
+TH_GRADS = ('x', 'scale', 'bias', 'wq', 'wk', 'wv', 'wo', 'm_pre', 'm_post')
+# The draws of the head mixes (seeds of _th_mixes) that put a gradient of
+# the fused route more than 2e-2 from the plain core's, found by
+# test_th_sublayer_gradients_over_seeds over seeds 0-63 on an H100: dx on
+# seeds 2, 12, 17 and 26 (0.0208-0.0238), dscale on 57 (0.0211). On each,
+# the plain core is as far from the f32 reference (0.0170-0.0289) as the
+# kernels are from it: the bf16 floor of the sublayer boundary, not K5b.
+# So each gradient is held to 2e-2 or 3x the plain core's distance from
+# f32, whichever is larger (_th_tol, the rule of chip_smoke.py).
+TH_SEEDS = (2, 12, 17, 26, 57)
+TH_SWEEP = range(64)
+
+
+def _th_mixes(heads, seed, card):
+    """The two [H, H] head mixes, I + 0.3 N(0, 1), from a generator seeded
+    with ``seed``: each run checks the same draws."""
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.eye(heads) + 0.3 * torch.randn(heads, heads, generator=gen))
+            .to(card) for _ in range(2)]
+
+
+def _th_sublayer_errors(card, route, seq, seed):
+    """[(gradient, kernel route vs the plain core, the plain core vs f32,
+    the kernel route vs f32)] of the nine gradients of the TH sublayer, each as max |a - b| over max
+    |b|: the kernel route and the plain core ('xla') in bf16 on the same
+    inputs and cotangent, the plain core in f32 as the reference."""
     rng = np.random.RandomState(2)
     dim, heads = 384, 8
     ins = [_bf16(rng, (2, seq, dim), 1, card),
@@ -280,16 +302,48 @@ def test_th_sublayer_gradients_match_plain_core(card, route, seq):
     ins += [_bf16(rng, (dim, heads, 48), s / math.sqrt(dim), card).float()
             for s in (4, 1, 1)]
     ins.append(_bf16(rng, (heads, 48, dim), 1 / math.sqrt(dim), card).float())
-    ins += [(torch.eye(heads) + 0.3 * torch.randn(heads, heads)).to(card)
-            for _ in range(2)]
+    ins += _th_mixes(heads, seed, card)
     g = _bf16(rng, (2, seq, dim), 1, card)
     grads = {}
-    for r in (route, 'xla'):
-        ts = [t.clone().requires_grad_() for t in ins]
-        out = th_attention.th_attention_sublayer(*ts, heads, route=r)
-        grads[r] = torch.autograd.grad(out, ts, g)
-    for ours, plain in zip(grads[route], grads['xla']):
-        assert _rel(ours, plain) <= 2e-2
+    for r, cast in ((route, None), ('xla', None), ('f32', torch.float32)):
+        ts = [(t if cast is None else t.to(cast)).clone().requires_grad_()
+              for t in ins]
+        out = th_attention.th_attention_sublayer(
+            *ts, heads, route='xla' if r == 'f32' else r)
+        grads[r] = torch.autograd.grad(out, ts, g if cast is None else g.to(cast))
+    return [(name, _rel(k, p), _rel(p, f), _rel(k, f)) for name, k, p, f in
+            zip(TH_GRADS, grads[route], grads['xla'], grads['f32'])]
+
+
+def _th_tol(noise):
+    """2e-2, or 3x the plain core's own distance from f32 where that is
+    larger (the rule of chip_smoke.py's gradient checks)."""
+    return max(2e-2, 3.0 * noise)
+
+
+@pytest.mark.parametrize('seed', TH_SEEDS)
+@pytest.mark.parametrize('route,seq', [('fused', 196), ('blocked', 196),
+                                       ('blocked', 300)])
+def test_th_sublayer_gradients_match_plain_core(card, route, seq, seed):
+    for name, err, noise, _ in _th_sublayer_errors(card, route, seq, seed):
+        assert err <= _th_tol(noise), (name, err, noise)
+
+
+def test_th_sublayer_gradients_over_seeds(card):
+    """The fused route at L = 196 over 64 draws of the head mixes: prints
+    every gradient more than 2e-2 from the plain core with its plain core vs
+    f32 distance, and holds each to ``_th_tol``."""
+    worst = []
+    for seed in TH_SWEEP:
+        for name, err, noise, far in _th_sublayer_errors(card, 'fused', 196,
+                                                         seed):
+            if err > 2e-2:
+                print(f'seed {seed}: {name} kernel vs plain {err:.4g}, plain '
+                      f'vs f32 {noise:.4g}, kernel vs f32 {far:.4g}')
+            worst.append((err / _th_tol(noise), seed, name, err, noise))
+    worst.sort(reverse=True)
+    print('worst by err/tol:', worst[:5])
+    assert worst[0][0] <= 1.0, worst[:5]
 
 
 def test_th_smem_formula_matches_the_kernel(card):
@@ -545,3 +599,144 @@ def test_tnt_inner_wrappers_refuse_and_count(card):
     assert _build.launches == {'tnt_inner_fwd': 1, 'tnt_inner_bwd': 1}
     assert tnt_inner.supported(16, 24, 4, device=card)
     assert tnt_inner.supported(16, 40, 4, device=card)
+
+
+# K9 (BoTNet's relative-position attention): out, dq, dk, dv at 2e-2 of max
+# |twin| (bf16 outputs, single one-ulp flips of p or ds); drel_h and drel_w
+# at BOT_REL_TOL of max: each is a row-local f32 sum of g values of the f32
+# ds, from logits summed in another order than the twin's (and exp2 vs
+# exp), so they agree to f32 rounding of p and dp; a dropped or mis-binned
+# key column moves a bin by O(1/g) of max
+BOT_REL_TOL = 1e-3
+
+
+def _k9_args(rng, b, g, heads, d, card):
+    """qs (pre-scaled, peaked softmax), k, v [B, g*g, h*d] bf16 and rel_h,
+    rel_w [B, h, L, g] f32 at the size of the path's rel logits."""
+    length, hd = g * g, heads * d
+    qs = _bf16(rng, (b, length, hd), 2 / math.sqrt(d), card)
+    k, v = (_bf16(rng, (b, length, hd), 1, card) for _ in range(2))
+    rel = [_bf16(rng, (b, heads, length, g), 0.5, card).float()
+           for _ in range(2)]
+    return qs, k, v, *rel
+
+
+@pytest.mark.parametrize('b,g,heads,d', [(1, 1, 1, 64), (2, 5, 4, 64),
+                                         (3, 14, 4, 128), (2, 13, 2, 128),
+                                         (1, 9, 3, 64)])
+def test_bot_fwd_matches_twin(card, b, g, heads, d):
+    from sav_tpu_torch.ops import botnet_attention as ba
+    args = _k9_args(np.random.RandomState(g * heads + d), b, g, heads, d, card)
+    out, lse = ba.bot_fwd(*args, heads, g, save_lse=True)
+    serve, none = ba.bot_fwd(*args, heads, g)
+    p_out, p_lse = ba.bot_fwd_plain(*args, heads, g)
+    assert none is None and torch.equal(out, serve)
+    assert _rel(out, p_out) <= 2e-2
+    assert (lse - p_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('b,g,heads,d', [(1, 2, 1, 64), (2, 5, 4, 64),
+                                         (3, 14, 4, 128), (2, 13, 2, 128)])
+def test_bot_bwd_matches_twin_and_repeats(card, b, g, heads, d):
+    from sav_tpu_torch.ops import botnet_attention as ba
+    rng = np.random.RandomState(g * heads + d + 1)
+    args = _k9_args(rng, b, g, heads, d, card)
+    out, lse = ba.bot_fwd_plain(*args, heads, g)
+    do = _bf16(rng, out.shape, 1, card)
+    grads = ba.bot_bwd(*args, out, lse, do, heads, g)
+    twin = ba.bot_bwd_plain(*args, out, lse, do, heads, g)
+    assert [a.shape for a in grads] == [t.shape for t in twin]
+    assert max(_rel(a, t) for a, t in zip(grads[:3], twin[:3])) <= 2e-2
+    assert max(_rel(a, t) for a, t in zip(grads[3:], twin[3:])) <= BOT_REL_TOL
+    again = ba.bot_bwd(*args, out, lse, do, heads, g)     # no float atomics
+    assert all(torch.equal(a, t) for a, t in zip(grads, again))
+
+
+def test_bot_kernels_write_no_row_past_the_length(card):
+    """Outputs hold exactly L rows (nothing is padded); rows the kernels
+    compute past L = 25 in their 64-row tiles are never stored: buffers 64
+    rows longer keep their NaN sentinel past L, and the rel gradients past
+    the last head's rows."""
+    from sav_tpu_torch.ops import botnet_attention as ba
+    from sav_tpu_torch.ops.flash_attention import stream_of
+    rng = np.random.RandomState(5)
+    g, heads, d = 5, 2, 128
+    length = g * g
+    qs, k, v, rh, rw = _k9_args(rng, 1, g, heads, d, card)
+    p_out, p_lse = ba.bot_fwd_plain(qs, k, v, rh, rw, heads, g)
+    do = _bf16(rng, p_out.shape, 1, card)
+    band = lambda: torch.full((1, length + 64, heads * d), float('nan'),
+                              device=card, dtype=torch.bfloat16)
+    rel = lambda: torch.full((heads * length * g + 64 * g,), float('nan'),
+                             device=card)
+    out, dq, dk, dv = band(), band(), band(), band()
+    drh, drw = rel(), rel()
+    lse = torch.empty(1, heads, length, device=card)
+    delta = torch.empty_like(lse)
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
+    dims = (1, length, heads, g, d, stream_of(card))
+    assert ba._fn('sav_bot_fwd', 7, 5)(*ptr(qs, k, v, rh, rw, out, lse),
+                                       *dims) == 0
+    assert ba._fn('sav_bot_bwd_dq', 12, 5)(
+        *ptr(qs, k, v, p_out, do, rh, rw, p_lse, delta, dq, drh, drw),
+        *dims) == 0
+    assert ba._fn('sav_bot_bwd_dkv', 10, 5)(
+        *ptr(qs, k, v, do, rh, rw, p_lse, delta, dk, dv), *dims) == 0
+    torch.cuda.synchronize()
+    twin = ba.bot_bwd_plain(qs, k, v, rh, rw, p_out, p_lse, do, heads, g)
+    assert _rel(out[:, :length], p_out) <= 2e-2
+    for ours, want in zip((dq, dk, dv), twin[:3]):
+        assert _rel(ours[:, :length], want) <= 2e-2
+    for ours, want in zip((drh, drw), twin[3:]):
+        assert _rel(ours[:heads * length * g].view(want.shape), want) <= BOT_REL_TOL
+        assert torch.isnan(ours[heads * length * g:]).all()
+    for t in (out, dq, dk, dv):
+        assert torch.isnan(t[:, length:]).all()
+
+
+def test_bot_core_gradients_match_plain_core(card):
+    """botnet_mhsa on the kernels against the same Function on the twins
+    (core='plain'): out and the gradients of qs, k, v, emb_h and emb_w at
+    botnet_t3's grid and head width."""
+    from sav_tpu_torch.ops import botnet_attention as ba
+    rng = np.random.RandomState(7)
+    g, heads, d = 14, 4, 128
+    qs, k, v, _, _ = _k9_args(rng, 2, g, heads, d, card)
+    embs = [_bf16(rng, (2 * g - 1, d), 1 / math.sqrt(d), card).float()
+            for _ in range(2)]
+    do = _bf16(rng, qs.shape, 1, card)
+    res = {}
+    for core in ba.CORES:
+        leaves = [t.clone().requires_grad_() for t in (qs, k, v, *embs)]
+        out = ba.botnet_mhsa(*leaves, heads, g, core=core)
+        res[core] = (out, *torch.autograd.grad(out, leaves, do))
+    for ours, plain in zip(res['kernel'], res['plain']):
+        assert _rel(ours, plain) <= 2e-2
+
+
+def test_bot_wrappers_refuse_and_count(card):
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import botnet_attention as ba
+    rng = np.random.RandomState(0)
+    qs, k, v, rh, rw = _k9_args(rng, 2, 5, 2, 64, card)
+    with pytest.raises(ValueError, match='bfloat16'):
+        ba.bot_fwd(qs.float(), k, v, rh, rw, 2, 5)
+    with pytest.raises(ValueError, match='grid'):
+        ba.bot_fwd(qs, k, v, rh, rw, 2, 4)
+    with pytest.raises(ValueError, match='float32'):
+        ba.bot_fwd(qs, k, v, rh.bfloat16(), rw, 2, 5)
+    with pytest.raises(ValueError, match='head widths'):
+        ba.bot_fwd(*(t[..., :96].contiguous() for t in (qs, k, v)),
+                   rh[:, :1].contiguous(), rw[:, :1].contiguous(), 1, 5)
+    leaves = [t.clone().requires_grad_() for t in (qs, k, v, rh, rw)]
+    with pytest.raises(RuntimeError, match='forward-only'):
+        ba.bot_fwd(*leaves, 2, 5)
+    assert ba.supported(14, 4, 128, device=card)        # botnet_t3 @224
+    assert ba.supported(24, 4, 128, device=card)        # @384
+    assert not ba.supported(14, 4, 96, device=card)
+    _build.reset_launches()
+    with torch.no_grad():
+        ba.bot_core(qs, k, v, rh, rw, 2, 5)
+    ba.bot_core(*leaves, 2, 5).float().sum().backward()
+    assert _build.launches == {'bot_fwd': 1, 'bot_fwd_train': 1,
+                               'bot_bwd_dq': 1, 'bot_bwd_dkv': 1}

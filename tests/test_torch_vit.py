@@ -66,7 +66,8 @@ def test_factory_names_and_refusals():
          'cait_s_48', 'cait_m_24', 'cait_m_36', 'cait_m_48',
          'mixer_s_patch32', 'mixer_s_patch16', 'mixer_b_patch32',
          'mixer_b_patch16', 'mixer_l_patch32', 'mixer_l_patch16',
-         'tnt_s_patch16', 'tnt_b_patch16'])
+         'tnt_s_patch16', 'tnt_b_patch16', 'botnet_t3', 'botnet_t4',
+         'botnet_t5'])
     with pytest.raises(RuntimeError, match='ROADMAP'):
         create_model('ceit_s', device='cpu')
     with pytest.raises(NotImplementedError, match='fused_qkv'):

@@ -158,3 +158,70 @@ def torch_tnt(params, name='tnt_s_patch16', img_size=32, **kwargs):
     """The port's TNT of the same config with ``params`` loaded."""
     return torch_vit(params, img_size, name=name, overrides=TNT_SMALL,
                      **kwargs)
+
+
+# BoTNet: botnet_t3's block types at 64 px, one block a stage, 16 initial
+# filters, so the BoT stage runs a 4 x 4 grid of 128 channels in 2 heads of
+# d = 64 (the K9 port's narrower head width; the JAX kernel takes it).
+BOTNET_SMALL = dict(stage_sizes=(1, 1, 1, 1), initial_filters=16,
+                    num_heads=2)
+BOTNET_IMG = 64
+
+
+def fill_batchnorm(variables, seed=4):
+    """Every BatchNorm's scale from U(0.5, 1.5) and bias from N(0, 0.1^2),
+    its running mean from N(0, 0.2^2) and var from U(0.5, 2), and every
+    Dense bias from N(0, 0.1^2). BoTNet's last BN of each bottleneck starts
+    at scale 0, so at init every block outputs swish(residual) and a
+    miswired attention, SE or conv could not reach a logit; a mean of 0 and
+    a var of 1 would hide a swapped mean/var or a flipped momentum."""
+    rng = np.random.RandomState(seed)
+
+    def fill(tree, kind):
+        for key in sorted(tree):
+            shape = np.shape(tree[key])
+            if isinstance(tree[key], dict):
+                fill(tree[key], 'bn' if key.startswith('BatchNorm_')
+                     else 'dense' if key.startswith('Dense_') else kind)
+            elif kind == 'bn' and key == 'scale':
+                tree[key] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+            elif kind == 'bn' and key == 'mean':
+                tree[key] = 0.2 * rng.standard_normal(shape).astype(np.float32)
+            elif kind == 'bn' and key == 'var':
+                tree[key] = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+            elif kind in ('bn', 'dense') and key == 'bias':
+                tree[key] = 0.1 * rng.standard_normal(shape).astype(np.float32)
+
+    fill(variables['params'], None)
+    fill(variables['batch_stats'], None)
+    return variables
+
+
+@functools.lru_cache(maxsize=None)
+def _botnet_variables():
+    model = jax_create_model('botnet_t3', num_classes=NUM_CLASSES,
+                             **BOTNET_SMALL)
+    # jitted: the eager init dispatches op by op (~4x slower on this host)
+    variables = jax.jit(model.init, static_argnames='is_training')(
+        jax.random.PRNGKey(0), jnp.ones((1, BOTNET_IMG, BOTNET_IMG, 3)),
+        is_training=False)
+    return fill_batchnorm(jax.tree_util.tree_map(np.array, dict(variables)))
+
+
+def jax_botnet(**kwargs):
+    """(flax model, a copy of its filled ``{'params', 'batch_stats'}``) for
+    the small BoTNet; the tree is initialised once (every use_kernel mode
+    has the same one)."""
+    model = jax_create_model('botnet_t3', num_classes=NUM_CLASSES,
+                             **BOTNET_SMALL, **kwargs)
+    return model, jax.tree_util.tree_map(np.copy, _botnet_variables())
+
+
+def torch_botnet(variables, **kwargs):
+    """The port's small BoTNet with ``variables`` (params and running
+    statistics) loaded."""
+    model = torch_create_model('botnet_t3', num_classes=NUM_CLASSES,
+                               img_size=BOTNET_IMG, device='cpu',
+                               **BOTNET_SMALL, **kwargs)
+    model.load_state_dict(flax_to_torch(variables), strict=True)
+    return model
