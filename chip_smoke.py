@@ -75,12 +75,30 @@
    gradients against the same boundary on the K9 twins with the f32 per-op
    path as the noise floor, every running statistic finite and moved by
    the timed steps, eval in eval mode) and under 'auto' beside it.
-9. The factory names that ``auto`` routes on the card and no path above
+9. int8 (slice 7): K15 (``csrc/int8_matmul.cu``), K12 and K13 serving and
+   ``save_hpre`` variants (``csrc/int8_ff.cu``) and K10
+   (``csrc/fused_attention_q8.cu``) against their twins at the paths'
+   shapes (K15 M = 6304 K = 768 N = 3072; K12 M = 32 x 196 and 192 x 196;
+   K13 M = 32 x 197 and 192 x 197; K10 B = 32, L = 197), outputs within
+   INT8_TOL and INT8_SHARE bit-identical, timed beside a library chain
+   (LayerNorm, ``torch._int_mm`` per product with the dequant in torch,
+   SDPA for K10's core); ragged M and K on NaN-sentinel buffers; serving
+   @224 bs32 ViT-B/16 ``quantized='ff'`` (12 K1 + 12 K13 per forward),
+   ``'all'`` (12 K10 + 12 K13), ``'int8'`` (12 K1, no int8 kernel),
+   ``'int8'`` with QuantizedDense(fused=True) (12 K1 + 24 K15), Mixer-B/16
+   ``'ff'`` (12 K8a + 12 K12), logits against the same model on the int8
+   twins (``set_int8_core``; 'int8' against use_kernel=False), and each
+   route's distance from its bf16 model printed for information; training
+   @224 bs192 ViT-B/16 ``'ff'`` (12 K1-train + 12 K2 + 12 K13-train per
+   step) and Mixer-B/16 ``'ff'`` (12 K8a + 12 K8b + 12 K12-train),
+   gradients against the same boundaries on the twins with the f32 path
+   as the noise floor, train img/s.
+10. The factory names that ``auto`` routes on the card and no path above
    builds (vit_l_patch16 @224 and @384, vit_ti_patch16, vit_s_patch16,
    cait_xxs_24 @224 and @384, mixer_s/l_patch16) at depth 2: the kernels
    a forward launches, logits against use_kernel=False, gradients against
    the plain core by the same rule.
-10. Prints one JSON line of every ported kernel, then the result line
+11. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
 """
@@ -101,17 +119,21 @@ import torch.nn.functional as F
 
 from sav_tpu_torch import _build
 from sav_tpu_torch.data.preprocess import eval_preprocess
-from sav_tpu_torch.models import create_model, set_use_kernel
+from sav_tpu_torch.models import create_model, set_int8_core, set_use_kernel
 from sav_tpu_torch.models.botnet import set_attention_core
 from sav_tpu_torch.nn.normalization import BatchNorm, LayerScaleBlock
+from sav_tpu_torch.nn.quantized_dense import QuantizedDense
 from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
 from sav_tpu_torch.ops import botnet_attention as bot
 from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops import fused_layer
+from sav_tpu_torch.ops import int8_ff
+from sav_tpu_torch.ops import int8_matmul_kernel as k15
 from sav_tpu_torch.ops import mixer_token as mt
 from sav_tpu_torch.ops import th_attention as th
 from sav_tpu_torch.ops import tnt_inner
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from sav_tpu_torch.ops.quantized import quantize_symmetric
 from sav_tpu_torch.predict import decode_size_for, serve
 from sav_tpu_torch.train import TrainConfig, Trainer
 from sav_tpu_torch.train.steps import loss_and_logits
@@ -119,6 +141,7 @@ from sav_tpu_torch.train.steps import loss_and_logits
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
+PEAK_INT8_OPS = 1979e12         # dense int8 tensor-core operations
 PEAK_BYTES = 3.35e12
 
 # Tolerances. Outputs: max |kernel - twin| over max |twin| (K1: over max
@@ -192,6 +215,20 @@ K9_GRADS = ('dq', 'dk', 'dv', 'drel_h', 'drel_w')
 # the plain_core of train_path for BoTNet: the same 'botnet_fused' autograd
 # boundary with bot_core on the K9 twins (models.botnet.set_attention_core)
 BOT_PLAIN = 'botnet_fused on the K9 twins'
+# The int8 kernels (K10, K12, K13, K15) vs their twins: both make the same
+# codes by the same IEEE divisions and sum int32 exactly, but the twins'
+# LayerNorm (K13, K10) and softmax sums (K10) and the kernels' run in
+# other orders, and an f32 ulp there moves a code that sits at .5 by one
+# step (1/127 of its row's scale). Held: max |kernel - twin| within
+# INT8_TOL of max |twin| (K13, K10: of max |twin - x|, the sublayer's own
+# part), and at least INT8_SHARE of the bf16 outputs (and of the bf16
+# hpre) bit-identical to the twin's. A wrong tile, scale, mask or code
+# moves most outputs by O(1).
+INT8_TOL = 2e-2
+INT8_SHARE = 0.9
+# the plain_core of the int8 train paths: the same autograd boundaries with
+# every int8 block on its twin (models.set_int8_core)
+INT8_PLAIN = 'int8 blocks on the twins'
 
 
 def nvidia_smi() -> str:
@@ -216,11 +253,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float, f32_flops: float = 0.0):
+def bound_ms(flops: float, nbytes: float, f32_flops: float = 0.0,
+             int8_ops: float = 0.0):
     """The least time for ``flops`` bf16 tensor-core operations plus
-    ``f32_flops`` scalar f32 operations (the talking-heads mixes) and
-    ``nbytes`` of device memory traffic: the larger of the two times."""
-    t_ops = flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    ``f32_flops`` scalar f32 operations (the talking-heads mixes) plus
+    ``int8_ops`` int8 tensor-core operations, and ``nbytes`` of device
+    memory traffic: the larger of the two times."""
+    t_ops = (flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+             + int8_ops / PEAK_INT8_OPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
@@ -362,13 +402,22 @@ def fill_head(model, seed: int) -> None:
 
 
 def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
-               profile=False, model_name='vit_b_patch16'):
+               profile=False, model_name='vit_b_patch16', quantized=False,
+               dense_fused=False):
     """Drives ``serve`` once with the counts at 0 (want: the exact counts
     per forward), then compares logits with the plain cores and measures
-    img/s. Returns the counts."""
+    img/s. Returns the counts. ``quantized`` builds an int8 route; with
+    ``dense_fused`` every QuantizedDense runs K15 (``fused=True``, the JAX
+    package's direct-use opt-in). A route through int8 kernels is held
+    against the same model on their twins (``set_int8_core``), and its
+    distance from the bf16 model of the same weights is printed."""
     model = create_model(model_name, num_classes=1000,
                          dtype=torch.bfloat16, img_size=img_size, seed=seed,
-                         device='cuda', use_kernel=use_kernel)
+                         device='cuda', use_kernel=use_kernel,
+                         **({'quantized': quantized} if quantized else {}))
+    for sub in model.modules():
+        if dense_fused and isinstance(sub, QuantizedDense):
+            sub.fused = True
     fill_head(model, seed)
     model.eval()
     size = decode_size_for(img_size)
@@ -385,19 +434,38 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
                   and bool(torch.isfinite(probs).all()),
                   f'{name}: top-5 of shape {tuple(idx.shape)}, finite')
 
+    int8_kernels = quantized in ('ff', 'all') or dense_fused
     with torch.inference_mode():
         x = eval_preprocess(torch.from_numpy(frames).cuda().float(),
                             img_size).bfloat16()
         logits = model(x).float()
-        set_use_kernel(model, False)
-        plain = model(x).float()
-        set_use_kernel(model, use_kernel)
+        if int8_kernels:
+            set_int8_core(model, 'plain')
+            plain = model(x).float()
+            set_int8_core(model, 'kernel')
+        else:
+            set_use_kernel(model, False)
+            plain = model(x).float()
+            set_use_kernel(model, use_kernel)
     err = (logits - plain).abs().max().item() / plain.abs().max().item()
     top1 = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    ref = 'the int8 twins' if int8_kernels else 'use_kernel=False'
     checks.expect(tuple(logits.shape) == (batch, 1000)
                   and bool(torch.isfinite(logits).all()) and err <= LOGIT_TOL,
-                  f'{name}: logits vs use_kernel=False: max err {err:.3g} of '
+                  f'{name}: logits vs {ref}: max err {err:.3g} of '
                   f'max|logit| (tol {LOGIT_TOL}), top-1 agreement {top1:.3f}')
+    if quantized:
+        bf16 = create_model(model_name, num_classes=1000, dtype=torch.bfloat16,
+                            img_size=img_size, device='cuda',
+                            use_kernel=use_kernel)
+        bf16.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            full = bf16.eval()(x).float()
+        del bf16
+        print(f'  {name}: vs the bf16 model of the same weights (information '
+              f'only): max err {_rel(logits, full):.3g} of max|logit|, top-1 '
+              f'agreement {(logits.argmax(-1) == full.argmax(-1)).float().mean().item():.3f}',
+              flush=True)
     if use_kernel == 'botnet_fused':
         botnet_logit_floor(checks, name, model, model_name, img_size, x,
                            logits, plain)
@@ -1584,6 +1652,8 @@ def check_grads(checks, name, model, batch, seed, model_name, img_size,
                        img_size=img_size, device='cuda', use_kernel=False,
                        **overrides)
     ref.load_state_dict(model.state_dict())
+    if plain_core == INT8_PLAIN:
+        set_int8_core(ref, 'plain')       # f32 activations: the twins
     loss_32, g_32 = _grads(ref, batch, seed)
     grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del ref
@@ -1604,28 +1674,34 @@ def check_grads(checks, name, model, batch, seed, model_name, img_size,
 
 def _reroute(model, plain_core, use_kernel, plain: bool) -> None:
     """Puts ``model`` on the plain core of its boundary (``plain``) or back
-    on ``use_kernel``: a use_kernel mode, or BOT_PLAIN (BoTNet's attention
-    core on the K9 twins at the same 'botnet_fused' boundary)."""
+    on ``use_kernel``: a use_kernel mode, BOT_PLAIN (BoTNet's attention
+    core on the K9 twins at the same 'botnet_fused' boundary) or INT8_PLAIN
+    (every int8 block on its twin at the same boundary)."""
     if plain_core == BOT_PLAIN:
         set_attention_core(model, 'plain' if plain else 'kernel')
+    elif plain_core == INT8_PLAIN:
+        set_int8_core(model, 'plain' if plain else 'kernel')
     else:
         set_use_kernel(model, plain_core if plain else use_kernel)
 
 
 def train_path(checks, name, img_size, batch, want, seed, steps=10,
                profile=False, model_name='vit_b_patch16',
-               plain_core='fused_layer_xla', use_kernel='auto'):
+               plain_core='fused_layer_xla', use_kernel='auto',
+               quantized=False):
     """One Trainer step with the counts at 0 (want: the exact counts), then
-    gradients vs the plain core (``plain_core``: a use_kernel mode or
-    BOT_PLAIN; None skips the check) on that batch, img/s and one eval
-    batch; with BatchNorm, every running statistic finite and moved by the
-    timed steps. ``use_kernel`` other than 'auto' re-routes the Trainer's
-    model first (the JAX package reaches 'fused_ff' and 'botnet_fused' only
-    through create_model, so the Trainer has no flag for them). Returns the
+    gradients vs the plain core (``plain_core``: a use_kernel mode,
+    BOT_PLAIN or INT8_PLAIN; None skips the check) on that batch, img/s and
+    one eval batch; with BatchNorm, every running statistic finite and moved
+    by the timed steps. ``use_kernel`` other than 'auto' re-routes the
+    Trainer's model first (the JAX package reaches 'fused_ff' and
+    'botnet_fused' only through create_model, so the Trainer has no flag
+    for them); ``quantized`` is the Trainer's own field. Returns the
     counts."""
     trainer = Trainer(TrainConfig(model_name=model_name,
                                   img_size=img_size, batch_size=batch,
-                                  seed=seed, dtype='bfloat16'), device='cuda')
+                                  seed=seed, dtype='bfloat16',
+                                  quantized=quantized), device='cuda')
     if use_kernel != 'auto':
         set_use_kernel(trainer.model, use_kernel)
     data = trainer.dataset()
@@ -1641,7 +1717,8 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
 
     if plain_core is not None:
         check_grads(checks, name, trainer.model, first, seed, model_name,
-                    img_size, plain_core, use_kernel)
+                    img_size, plain_core, use_kernel,
+                    **({'quantized': quantized} if quantized else {}))
 
     stats = running_stats(trainer.model)
     for i in range(2):                       # warm-up
@@ -1738,6 +1815,240 @@ def sweep_factory(checks, seed: int, depth: int = 2) -> None:
                     plain_core, 'auto', num_layers=depth)
         del model
         torch.cuda.empty_cache()
+
+
+# ---- int8 (slice 7): K15 (csrc/int8_matmul.cu), K12/K13 (csrc/int8_ff.cu),
+# K10 (csrc/fused_attention_q8.cu)
+
+def _int8_expect(checks, what, got, want, base=None) -> float:
+    """Holds a kernel's output against its twin's (INT8_TOL, INT8_SHARE);
+    returns max |kernel - twin|."""
+    got, want = got.float(), want.float()
+    ref = want if base is None else want - base.float()
+    err = float((got - want).abs().max())
+    rel = err / float(ref.abs().max())
+    same = float((got == want).float().mean())
+    checks.expect(bool(torch.isfinite(got).all()) and rel <= INT8_TOL
+                  and same >= INT8_SHARE,
+                  f'{what}: max err {rel:.3g} of max|twin'
+                  f'{"" if base is None else " - x"}| (tol {INT8_TOL}), '
+                  f'{same:.5f} of the values bit-identical (at least '
+                  f'{INT8_SHARE})')
+    return err
+
+
+def _time_int8(kernel, plain, library, int8_ops, nbytes, err, flops=0.0):
+    """The kernel record: times of the kernel, its twin and the library
+    chain, and the bound of the same work."""
+    b_ms, b_by = bound_ms(flops, nbytes, int8_ops=int8_ops)
+    return dict(ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
+                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def check_k15(rng, checks, m=6304, k=768, n=3072):
+    """K15 vs its twin at ViT-B's first FF product (bs32 @224); the
+    library chain: per-block codes in torch, one ``_int_mm`` per 256-wide
+    k-block, the fold and the column scales in torch."""
+    a = _bf16(rng, (m, k))
+    b_q, b_s = quantize_symmetric(_bf16(rng, (k, n), 1.0 / math.sqrt(k)), 0)
+    got = k15.int8_matmul_fused(a, b_q, b_s)
+    twin = k15.blockwise_int8_matmul_reference(a, b_q, b_s)
+    torch.cuda.synchronize()
+    err = _int8_expect(checks, f'K15 int8_matmul_fused M={m} K={k} N={n}',
+                       got, twin)
+
+    def library():
+        acc = 0.0
+        for j in range(0, k, k15.BLOCK_K):
+            q, s = k15._quantize_tile(a[:, j:j + k15.BLOCK_K])
+            acc = acc + torch._int_mm(q, b_q[j:j + k15.BLOCK_K]).float() * s
+        return (acc * b_s).bfloat16()
+
+    rec = _time_int8(lambda: k15.int8_matmul_fused(a, b_q, b_s),
+                     lambda: k15.blockwise_int8_matmul_reference(a, b_q, b_s),
+                     library, 2 * m * k * n,
+                     m * k * 2 + k * n + n * 4 + m * n * 2, err)
+    print(f'  K15 M={m} K={k} N={n}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    return rec
+
+
+def _int8_ff_case(rng, m, d=768, f=3072):
+    x = _bf16(rng, (m, d))
+    vec = lambda shape, std, mean=0.0: (mean + std * torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))).cuda()
+    w1_q, s1, w2_q, s2 = int8_ff._quantized_weights(
+        vec((d, f), 1.0 / math.sqrt(d)), vec((f, d), 1.0 / math.sqrt(f)))
+    return x, (vec(d, 0.1, 1.0), vec(d, 0.1)), (w1_q, s1, vec(f, 0.1), w2_q,
+                                                s2, vec(d, 0.1))
+
+
+def check_int8_ff(rng, checks, m, ln, save_hpre, d=768, f=3072):
+    """K13 (``ln``) or K12 vs its twin at M rows, with or without
+    ``save_hpre``; the library chain: LayerNorm (K13), codes in torch, two
+    ``_int_mm`` with the dequant, bias and gelu in torch (+ x for K13)."""
+    x, lnp, w = _int8_ff_case(rng, m, d, f)
+    args = (x, *lnp, *w) if ln else (x, *w)
+    raw = int8_ff.int8_ff_ln_raw if ln else int8_ff.int8_ff_raw
+    twin = int8_ff.int8_ff_ln_reference if ln else int8_ff.int8_ff_reference
+    got, want = raw(*args, save_hpre=save_hpre), twin(*args, save_hpre=save_hpre)
+    torch.cuda.synchronize()
+    name = f'K13 int8_ff_ln_raw' if ln else 'K12 int8_ff_raw'
+    name += f' M={m}{" save_hpre" if save_hpre else ""}'
+    errs = []
+    if save_hpre:
+        errs.append(_int8_expect(checks, f'{name}: hpre', got[1], want[1]))
+        got, want = got[0], want[0]
+    errs.append(_int8_expect(checks, name, got, want, x if ln else None))
+    w1_q, s1, b1, w2_q, s2, b2 = w
+
+    def library():
+        y = F.layer_norm(x.float(), (d,), lnp[0], lnp[1], 1e-6) if ln else x
+        q, s = k15._quantize_tile(y)
+        hp = torch._int_mm(q, w1_q).float() * (s * s1) + b1
+        hq, hs = k15._quantize_tile(F.gelu(hp, approximate='tanh'))
+        out = torch._int_mm(hq, w2_q).float() * (hs * s2) + b2
+        out = (x.float() + out if ln else out).bfloat16()
+        return (out, hp.bfloat16()) if save_hpre else out
+
+    nbytes = 2 * m * d * 2 + 2 * d * f + 4 * (3 * d + 2 * f) \
+        + (2 * m * f if save_hpre else 0)
+    rec = _time_int8(lambda: raw(*args, save_hpre=save_hpre),
+                     lambda: twin(*args, save_hpre=save_hpre), library,
+                     4 * m * d * f, nbytes, max(errs))
+    print(f'  {name}: kernel {rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} '
+          f'ms  library {rec["library_ms"]:.4f} ms  bound '
+          f'{rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    return rec
+
+
+def _k10_case(rng, batch, seq, dim=768, heads=12):
+    x = _bf16(rng, (batch, seq, dim))
+    w = lambda shape, std: (std * torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))).cuda()
+    scale, bias = 1.0 + w((dim,), 0.1), w((dim,), 0.1)
+    # wq 4x wider than lecun: a peaked softmax (as _k1_case)
+    ws = [w((dim, heads, 64), 4.0 / math.sqrt(dim))] + [
+        w((dim, heads, 64), 1.0 / math.sqrt(dim)) for _ in range(2)] + [
+        w((heads, 64, dim), 1.0 / math.sqrt(dim))]
+    codes = fused_layer._q8_weights(*ws, dim, heads * 64)
+    return x, scale, bias, [t for pair in codes for t in pair]
+
+
+def check_k10(rng, checks, batch, seq, dim=768, heads=12):
+    """K10 vs its twin at [batch, seq, dim]; the library chain: LayerNorm,
+    codes, three ``_int_mm`` with the dequant, SDPA, codes, ``_int_mm``,
+    + x."""
+    x, scale, bias, flat = _k10_case(rng, batch, seq, dim, heads)
+    hd = heads * 64
+    with torch.no_grad():
+        got = fused_layer.fused_attention_q8(x, scale, bias, *flat, heads)
+        want = fused_layer.fused_attention_q8_plain(x, scale, bias, *flat,
+                                                    heads)
+    torch.cuda.synchronize()
+    err = _int8_expect(checks, f'K10 fused_attention_q8 B={batch} L={seq}',
+                       got, want, x)
+    wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so = flat
+    m = batch * seq
+
+    def library():
+        y = F.layer_norm(x.float(), (dim,), scale, bias, 1e-6).view(m, dim)
+        q, s = k15._quantize_tile(y)
+        split = lambda t: t.bfloat16().view(batch, seq, heads, 64).transpose(1, 2)
+        proj = lambda wc, sc: torch._int_mm(q, wc).float() * (s * sc)
+        a = F.scaled_dot_product_attention(
+            split(proj(wq_q, sq) * 0.125), split(proj(wk_q, sk)),
+            split(proj(wv_q, sv)), scale=1.0)
+        aq, a_s = k15._quantize_tile(a.transpose(1, 2).reshape(m, hd))
+        out = torch._int_mm(aq, wo_q).float() * (a_s * so)
+        return (x.float() + out.view(batch, seq, dim)).bfloat16()
+
+    def kernel():
+        with torch.no_grad():
+            fused_layer.fused_attention_q8(x, scale, bias, *flat, heads)
+
+    def plain():
+        with torch.no_grad():
+            fused_layer.fused_attention_q8_plain(x, scale, bias, *flat, heads)
+
+    rec = _time_int8(kernel, plain, library, 2 * m * dim * 4 * hd,
+                     2 * m * dim * 2 + 4 * dim * hd + (3 * hd + 3 * dim) * 4,
+                     err, flops=4 * batch * heads * seq * seq * 64)
+    print(f'  K10 L={seq}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    return rec
+
+
+def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
+    """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
+    range: K12 and K13 (with hpre) at M = 1003 (not a multiple of the
+    48-row bands), K15 at M = 1003 with a ragged last k-block (K = 700),
+    K10 at B = 3, L = 197. Rows in range match the twins; rows past them
+    keep the sentinel: nothing padded, no row dropped, none written past."""
+    stream = fa.stream_of(torch.device('cuda'))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    nan = lambda rows, w: torch.full((rows + 64, w), float('nan'),
+                                     device='cuda', dtype=torch.bfloat16)
+    d, f = 768, 3072
+    x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _int8_ff_case(rng, m, d, f)
+    codes, kept = [], []
+    # every buffer is held by a name until the launch has been synchronised
+    w1t, w2t = w1_q.t().contiguous(), w2_q.t().contiguous()
+    for ln in (0, 1):
+        out, hpre = nan(m, d), nan(m, f)
+        bufs = [x, ls, lb, w1t, s1, b1, w2t, s2, b2, out, hpre]
+        codes.append(int8_ff._ff_lib('sav_int8_ff')(
+            *map(ptr, bufs), m, d, f, ln, 1e-6, stream))
+        torch.cuda.synchronize()
+        want = (int8_ff.int8_ff_ln_reference(x, ls, lb, w1_q, s1, b1, w2_q,
+                                             s2, b2, save_hpre=True) if ln
+                else int8_ff.int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2,
+                                               save_hpre=True))
+        what = 'K13' if ln else 'K12'
+        _int8_expect(checks, f'{what} M={m} into sentinels: out', out[:m],
+                     want[0], x if ln else None)
+        _int8_expect(checks, f'{what} M={m} into sentinels: hpre', hpre[:m],
+                     want[1])
+        kept += [out[m:], hpre[m:]]
+    k, kp, n = 700, 768, 256
+    a = x[:, :k].contiguous()
+    b_q, b_s = quantize_symmetric(_bf16(rng, (k, n), 1.0 / math.sqrt(k)), 0)
+    out = nan(m, n)
+    bufs = [a, F.pad(b_q.t(), (0, kp - k)).contiguous(),
+            b_s.reshape(-1).contiguous(),
+            torch.empty(m, kp, dtype=torch.int8, device='cuda'),
+            torch.empty(m, kp // k15.BLOCK_K, device='cuda'), out]
+    codes.append(k15._k15_lib()(*map(ptr, bufs), m, k, n, stream))
+    torch.cuda.synchronize()
+    _int8_expect(checks, f'K15 M={m} K={k} into sentinels', out[:m],
+                 k15.blockwise_int8_matmul_reference(a, b_q, b_s))
+    kept.append(out[m:])
+    xk, scale, bias, flat = _k10_case(rng, batch, seq)
+    rows, hd = batch * seq, 768
+    out = nan(rows, 768)
+    i8 = lambda w: torch.empty(rows, w, dtype=torch.int8, device='cuda')
+    bf = lambda: torch.empty(rows, hd, dtype=torch.bfloat16, device='cuda')
+    bufs = ([xk, scale, bias] + [t.t().contiguous() for t in flat[0::2]]
+            + [t.reshape(-1).contiguous() for t in flat[1::2]]
+            + [i8(768), torch.empty(rows, device='cuda')]
+            + [bf() for _ in range(4)]
+            + [i8(hd), torch.empty(rows, device='cuda'), out])
+    codes.append(fused_layer._k10_lib()(
+        *map(ptr, bufs), batch, seq, 768, 12, 1, fused_layer.LN_EPS, 0.125,
+        stream))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_layer.fused_attention_q8_plain(xk, scale, bias, *flat, 12)
+    _int8_expect(checks, f'K10 B={batch} L={seq} into sentinels',
+                 out[:rows], want.reshape(rows, 768), xk.reshape(rows, 768))
+    kept.append(out[rows:])
+    untouched = all(bool(torch.isnan(t).all()) for t in kept)
+    checks.expect(all(c == 0 for c in codes) and untouched,
+                  f'int8 kernels into sentinel buffers: rows past M untouched '
+                  f'{untouched}, launch codes {codes}')
 
 
 def print_profile(fn, iters: int = 5) -> None:
@@ -1911,6 +2222,47 @@ def main(argv=None):
     train_path(checks, 'train BoTNet-T3 @224 bs64 auto (per-op)', 224, 64,
                {}, args.seed, model_name='botnet_t3', plain_core=None)
 
+    # int8 (slice 7): K15, K12 and K13 (serve and save_hpre) and K10 at the
+    # paths' shapes, the ragged edges, then the int8 routes: serving ViT-B/16
+    # 'ff', 'all', 'int8' and 'int8' with QuantizedDense(fused=True), Mixer-B
+    # 'ff'; training ViT-B/16 'ff' and Mixer-B/16 'ff'
+    k15_rec = check_k15(rng, checks)
+    k12 = {hp: check_int8_ff(rng, checks, (192 if hp else args.batch) * 196,
+                             False, hp) for hp in (False, True)}
+    k13 = {hp: check_int8_ff(rng, checks, (192 if hp else args.batch) * 197,
+                             True, hp) for hp in (False, True)}
+    k10 = check_k10(rng, checks, args.batch, 197)
+    check_int8_sentinels(rng, checks)
+    q_ff = serve_path(checks, 'ViT-B/16 @224 quantized=ff', 224, 'auto',
+                      {'fused_attention_fwd': 12, 'int8_ff_ln': 12}, args.seed,
+                      args.batch, args.profile, quantized='ff')
+    q_all = serve_path(checks, 'ViT-B/16 @224 quantized=all', 224, 'auto',
+                       {'fused_attention_q8': 12, 'int8_ff_ln': 12}, args.seed,
+                       args.batch, args.profile, quantized='all')
+    serve_path(checks, 'ViT-B/16 @224 quantized=int8', 224, 'auto',
+               {'fused_attention_fwd': 12}, args.seed, args.batch,
+               args.profile, quantized=True)
+    q_dense = serve_path(checks, 'ViT-B/16 @224 quantized=int8 fused=True',
+                         224, 'auto', {'fused_attention_fwd': 12,
+                                       'int8_matmul': 24}, args.seed,
+                         args.batch, args.profile, quantized=True,
+                         dense_fused=True)
+    q_mix = serve_path(checks, 'Mixer-B/16 @224 quantized=ff', 224, 'auto',
+                       {'token_mix_fwd': 12, 'int8_ff': 12}, args.seed,
+                       args.batch, args.profile, model_name='mixer_b_patch16',
+                       quantized='ff')
+    q_train = train_path(checks, 'train ViT-B/16 @224 bs192 quantized=ff', 224,
+                         192, {'fused_attention_fwd_train': 12,
+                               'flash_bwd_fused': 12, 'int8_ff_ln_train': 12},
+                         args.seed, profile=args.profile,
+                         plain_core=INT8_PLAIN, quantized='ff')
+    q_mix_train = train_path(checks, 'train Mixer-B/16 @224 bs192 quantized=ff',
+                             224, 192, {'token_mix_fwd': 12,
+                                        'token_mix_bwd': 12,
+                                        'int8_ff_train': 12}, args.seed,
+                             steps=3, model_name='mixer_b_patch16',
+                             plain_core=INT8_PLAIN, quantized='ff')
+
     # the factory names that `auto` routes on the card and no path above
     # builds, at depth 2
     sweep_factory(checks, args.seed)
@@ -2054,6 +2406,34 @@ def main(argv=None):
                   k9b['dq']),
         bot_entry('bot_bwd_dkv', 147, bot_train.get('bot_bwd_dkv', 0),
                   k9b['dkv']),
+        # int8 (slice 7): K15 at ViT-B's first FF product (bs32), its
+        # launches from ViT-B 'int8' with QuantizedDense(fused=True); K12 at
+        # Mixer-B bs32 (serve) and bs192 (save_hpre, Mixer 'ff' training);
+        # K13 at ViT-B bs32 (serve) and bs192 (save_hpre, ViT 'ff'
+        # training); K10 at ViT-B bs32 (ViT 'all')
+        dict(name='int8_matmul', route='cuda',
+             source='sav_tpu_torch/csrc/int8_matmul.cu',
+             replaces='sav_tpu/ops/int8_matmul_kernel.py:67',
+             launches=q_dense.get('int8_matmul', 0), **k15_rec),
+        dict(name='int8_ff', route='cuda', source='sav_tpu_torch/csrc/int8_ff.cu',
+             replaces='sav_tpu/ops/int8_ff.py:49',
+             launches=q_mix.get('int8_ff', 0), **k12[False]),
+        dict(name='int8_ff_train', route='cuda',
+             source='sav_tpu_torch/csrc/int8_ff.cu',
+             replaces='sav_tpu/ops/int8_ff.py:49',
+             launches=q_mix_train.get('int8_ff_train', 0), **k12[True]),
+        dict(name='int8_ff_ln', route='cuda',
+             source='sav_tpu_torch/csrc/int8_ff.cu',
+             replaces='sav_tpu/ops/int8_ff.py:211',
+             launches=q_ff.get('int8_ff_ln', 0), **k13[False]),
+        dict(name='int8_ff_ln_train', route='cuda',
+             source='sav_tpu_torch/csrc/int8_ff.cu',
+             replaces='sav_tpu/ops/int8_ff.py:211',
+             launches=q_train.get('int8_ff_ln_train', 0), **k13[True]),
+        dict(name='fused_attention_q8', route='cuda',
+             source='sav_tpu_torch/csrc/fused_attention_q8.cu',
+             replaces='sav_tpu/ops/fused_layer.py:764',
+             launches=q_all.get('fused_attention_q8', 0), **k10),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

@@ -27,6 +27,9 @@ SOURCES = {
     'flash_bwd': 'flash_bwd.cu',
     'flash_fwd': 'flash_fwd.cu',
     'fused_attention': 'fused_attention.cu',
+    'fused_attention_q8': 'fused_attention_q8.cu',
+    'int8_ff': 'int8_ff.cu',
+    'int8_matmul': 'int8_matmul.cu',
     'mixer_token': 'mixer_token.cu',
     'th_attention': 'th_attention.cu',
     'tnt_inner': 'tnt_inner.cu',

@@ -22,6 +22,11 @@ constexpr int ATT_BK = 64;
 constexpr int ATT_LD = ATT_D + 8;   // padded row: conflict-free fragments
 
 // out row stride equals q's; lse is [B, H, q_len] f32 or null.
+// kExactMax (K10's core): a first sweep over the key tiles finds each row's
+// final max, so every p = exp(s - max) is rounded to bf16 against the max
+// the TPU kernel subtracts (one block over all keys); the second sweep never
+// rescales, and the output is divided by the row sum, as that kernel does.
+template <bool kExactMax = false>
 __global__ void __launch_bounds__(128)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -72,16 +77,9 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  // K/V tiles double-buffered: tile it+1 streams in while tile it is used;
-  // one barrier per tile both publishes tile it+1 and retires buffer it&1
-  for (int it = 0, k0 = 0; k0 < kv_len; ++it, k0 += ATT_BK) {
-    const int buf = it & 1;
-    if (k0 + ATT_BK < kv_len) load_kv(k0 + ATT_BK, buf ^ 1);
-    cp_async_commit();
-    const bf16* sKb = sK[buf];
-    const bf16* sVb = sV[buf];
-
-    float s[8][4];
+  // logits of this warp's 16 rows against key tile k0 (in sKb), keys past
+  // kv_len at -inf
+  auto logits = [&](const bf16* sKb, int k0, float (&s)[8][4]) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
@@ -108,6 +106,53 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
+  };
+
+  if (kExactMax) {
+    // sweep 1: the rows' final max, K tiles through buffer 1 (buffer 0
+    // holds tile 0 for sweep 2)
+    for (int k0 = 0; k0 < kv_len; k0 += ATT_BK) {
+      const bf16* sKb = sK[0];
+      if (k0 > 0) {
+        for (int i = tid; i < ATT_BK * 8; i += 128) {
+          const int r = i >> 3, c = (i & 7) * 8;
+          const bool in = k0 + r < kv_len;
+          cp_async_16(&sK[1][r * ATT_LD + c],
+                      kb + (size_t)(in ? k0 + r : 0) * kv_stride + c,
+                      in ? 16 : 0);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        sKb = sK[1];
+      }
+      float s[8][4];
+      logits(sKb, k0, s);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      __syncthreads();                  // buffer 1 is free again
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+  }
+
+  // K/V tiles double-buffered: tile it+1 streams in while tile it is used;
+  // one barrier per tile both publishes tile it+1 and retires buffer it&1
+  for (int it = 0, k0 = 0; k0 < kv_len; ++it, k0 += ATT_BK) {
+    const int buf = it & 1;
+    if (k0 + ATT_BK < kv_len) load_kv(k0 + ATT_BK, buf ^ 1);
+    cp_async_commit();
+    const bf16* sKb = sK[buf];
+    const bf16* sVb = sV[buf];
+
+    float s[8][4];
+    logits(sKb, k0, s);
 
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -129,10 +174,17 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f((s[nt][0] - m0) * kLog2e);
-      s[nt][1] = exp2f((s[nt][1] - m0) * kLog2e);
-      s[nt][2] = exp2f((s[nt][2] - m1) * kLog2e);
-      s[nt][3] = exp2f((s[nt][3] - m1) * kLog2e);
+      if (kExactMax) {                  // exp(s - max), as the TPU kernel
+        s[nt][0] = expf(s[nt][0] - m0);
+        s[nt][1] = expf(s[nt][1] - m0);
+        s[nt][2] = expf(s[nt][2] - m1);
+        s[nt][3] = expf(s[nt][3] - m1);
+      } else {
+        s[nt][0] = exp2f((s[nt][0] - m0) * kLog2e);
+        s[nt][1] = exp2f((s[nt][1] - m0) * kLog2e);
+        s[nt][2] = exp2f((s[nt][2] - m1) * kLog2e);
+        s[nt][3] = exp2f((s[nt][3] - m1) * kLog2e);
+      }
       rs0 += s[nt][0] + s[nt][1];
       rs1 += s[nt][2] + s[nt][3];
     }
@@ -177,12 +229,23 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ob = out + (size_t)b * q_len * q_stride + h * ATT_D + 2 * t;
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
+    if (kExactMax) {                    // divided by the sum
+      o[dt][0] = __fdiv_rn(o[dt][0], l0);
+      o[dt][1] = __fdiv_rn(o[dt][1], l0);
+      o[dt][2] = __fdiv_rn(o[dt][2], l1);
+      o[dt][3] = __fdiv_rn(o[dt][3], l1);
+    } else {
+      o[dt][0] *= inv0;
+      o[dt][1] *= inv0;
+      o[dt][2] *= inv1;
+      o[dt][3] *= inv1;
+    }
     if (row0 < q_len)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * q_stride + dt * 8) =
-          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
+          pack_bf16(o[dt][0], o[dt][1]);
     if (row1 < q_len)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * q_stride + dt * 8) =
-          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
+          pack_bf16(o[dt][2], o[dt][3]);
   }
   if (lse != nullptr && t == 0) {
     float* lb = lse + ((size_t)b * heads + h) * q_len;

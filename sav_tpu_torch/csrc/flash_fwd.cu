@@ -26,7 +26,7 @@ extern "C" int sav_flash_fwd(const void* q, const void* k, const void* v,
   using namespace sav;
   const int stride = heads * ATT_D;
   dim3 grid((q_len + ATT_BQ - 1) / ATT_BQ, heads, batch);
-  attention_fwd_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+  attention_fwd_kernel<false><<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse,
       q_len, kv_rows, kv_len, heads, stride, stride);
   return (int)cudaGetLastError();

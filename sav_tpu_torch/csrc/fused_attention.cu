@@ -68,10 +68,10 @@ extern "C" int sav_fused_attention_fwd(
       (const bf16*)y, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
       (bf16*)qs, (bf16*)ks, (bf16*)vs, nullptr, M, dim, hd, q_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_fwd_kernel<<<dim3((seq + ATT_BQ - 1) / ATT_BQ, heads, batch), 128,
-                         0, st>>>((const bf16*)qs, (const bf16*)ks,
-                                  (const bf16*)vs, (bf16*)attn, lse, seq,
-                                  seq, seq, heads, hd, hd);
+  attention_fwd_kernel<false>
+      <<<dim3((seq + ATT_BQ - 1) / ATT_BQ, heads, batch), 128, 0, st>>>(
+          (const bf16*)qs, (const bf16*)ks, (const bf16*)vs, (bf16*)attn, lse,
+          seq, seq, seq, heads, hd, hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   gemm_kernel<kOut><<<dim3(dim / GN, m_tiles), 256, GEMM_SMEM, st>>>(
       (const bf16*)attn, (const bf16*)wo, (const bf16*)wo, (const bf16*)wo,

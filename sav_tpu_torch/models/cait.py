@@ -33,7 +33,7 @@ from sav_tpu_torch.nn.normalization import LayerScaleBlock
 from sav_tpu_torch.nn.posembed import AddAbsPosEmbed
 from sav_tpu_torch.nn.regularization import StochasticDepthBlock
 from sav_tpu_torch.nn.stems import PatchEmbedBlock
-from sav_tpu_torch.ops import th_attention
+from sav_tpu_torch.ops import int8_ff, th_attention
 from sav_tpu_torch.ops.fused_layer import LN_EPS
 
 USE_KERNEL = (False, 'auto', 'fused_th', 'fused_th_xla')
@@ -64,7 +64,8 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, stoch_depth_rate: float,
                  layerscale_eps: float, expand_ratio: float = 4,
-                 dtype=torch.float32, use_kernel: Union[str, bool] = 'auto'):
+                 dtype=torch.float32, use_kernel: Union[str, bool] = 'auto',
+                 quantized: Union[bool, str] = False):
         super().__init__()
         _check_use_kernel(use_kernel)
         self.num_heads, self.dtype, self.use_kernel = num_heads, dtype, use_kernel
@@ -75,7 +76,9 @@ class EncoderBlock(nn.Module):
         self.LayerScaleBlock_0 = LayerScaleBlock(dim, layerscale_eps, dtype)
         self.StochasticDepthBlock_0 = StochasticDepthBlock(stoch_depth_rate)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
-        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype)
+        # 'ff' runs the bare int8 FF kernel (K12): LayerScale sits between
+        # the FF and the residual, so the LN-fused span (K13) does not apply
+        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype, quantized=quantized)
         self.LayerScaleBlock_1 = LayerScaleBlock(dim, layerscale_eps, dtype)
         self.StochasticDepthBlock_1 = StochasticDepthBlock(stoch_depth_rate)
 
@@ -181,10 +184,16 @@ class CaiT(nn.Module):
             raise NotImplementedError(
                 'scan_layers=True is not ported yet (the scan-stacked layout: '
                 'ROADMAP.md Queue 1 item 1)')
-        if quantized:
+        if quantized == 'all':
             raise NotImplementedError(
-                f'quantized={quantized!r}: int8 CaiT is not ported yet '
-                '(ROADMAP.md Queue 1 item 14)')
+                "CaiT quantized='all' runs the talking-heads attention on "
+                'K11 (int8 projections), which is not ported yet (ROADMAP.md '
+                "Queue 2 item 6); quantized='ff' quantizes the FF blocks")
+        if quantized == 'ff_sb':
+            raise NotImplementedError(int8_ff.SWITCHBACK_REFUSAL)
+        if quantized not in (False, True, 'ff'):
+            raise ValueError(f"CaiT quantized must be False, True or 'ff', "
+                             f'got {quantized!r}')
         if embed_dim % num_heads:
             raise ValueError(f'embed_dim {embed_dim} is not divisible by '
                              f'{num_heads} heads')
@@ -196,7 +205,8 @@ class CaiT(nn.Module):
                      dtype=dtype, use_kernel=use_kernel)
         self.PatchEmbedBlock_0 = PatchEmbedBlock(patch_shape, embed_dim,
                                                  dtype=dtype)
-        self.Encoder_0 = Encoder(seq_len, embed_dim, num_layers, **block)
+        self.Encoder_0 = Encoder(seq_len, embed_dim, num_layers,
+                                 quantized=quantized, **block)
         self.cls = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.num_layers_token_only = num_layers_token_only
         for i in range(num_layers_token_only):

@@ -87,7 +87,8 @@ def create_model(model_name: str, num_classes: int = 1000,
 
     Extra keyword arguments override config fields (``use_kernel=False``
     forces the plain attention path, ``num_layers=2`` or, for BoTNet,
-    ``stage_sizes`` cuts depth).
+    ``stage_sizes`` cuts depth, ``quantized`` picks an int8 route of the
+    ViT, CaiT and Mixer families and raises for the others).
     """
     try:
         model_cls, config = MODEL_CONFIGS[model_name]
@@ -96,11 +97,29 @@ def create_model(model_name: str, num_classes: int = 1000,
             f'Model not found: {model_name!r}. The torch port has '
             f'{", ".join(available_models())}; the other families wait for '
             'their slices (ROADMAP.md)') from None
+    if 'quantized' in overrides and model_cls not in (ViT, CaiT, MLPMixer):
+        if overrides.pop('quantized'):
+            raise RuntimeError(
+                f'{model_cls.__name__} does not support quantized (--quantized '
+                'is honored by the ViT, CaiT and Mixer families; this family '
+                'has no int8 path, as in the JAX package)')
     device = resolve_device(device)
     model = model_cls(num_classes=num_classes, dtype=dtype,
                       img_size=img_size, **{**config, **overrides})
     init_all(model, torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+def set_int8_core(model: torch.nn.Module, core: str) -> None:
+    """``'kernel'`` or ``'plain'``: what every int8 block of a built model
+    runs, the kernels (K10, K12, K13) or their twins on the same autograd
+    boundaries (the card's reference for them), on the same weights."""
+    from sav_tpu_torch.ops.int8_ff import CORES
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
+    for sub in model.modules():
+        if hasattr(sub, 'int8_core'):
+            sub.int8_core = core
 
 
 def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:

@@ -46,14 +46,18 @@ class MixerBlock(nn.Module):
 
     def __init__(self, num_tokens: int, dim: int, tokens_expand_ratio: float,
                  channels_expand_ratio: float, dtype=torch.float32,
-                 use_kernel: Union[str, bool] = 'auto'):
+                 use_kernel: Union[str, bool] = 'auto',
+                 quantized: Union[bool, str] = False):
         super().__init__()
         _check_use_kernel(use_kernel)
         self.dtype, self.use_kernel = dtype, use_kernel
         self.LayerNorm_0 = LayerNorm(dim, dtype)
         self.FFBlock_0 = FFBlock(num_tokens, tokens_expand_ratio, dtype)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
-        self.FFBlock_1 = FFBlock(dim, channels_expand_ratio, dtype)
+        # int8 serving quantizes the channel-mix FF only (K12); the
+        # token-mix products ([L, L/2]-sized) stay bf16, as in the JAX package
+        self.FFBlock_1 = FFBlock(dim, channels_expand_ratio, dtype,
+                                 quantized='ff' if quantized else False)
 
     def _token_kernel_route(self, inputs) -> bool:
         if self.use_kernel != 'auto':
@@ -99,11 +103,9 @@ class MLPMixer(nn.Module):
         if quantized and quantized not in ('ff', 'all'):
             raise ValueError(
                 f'MLPMixer quantized={quantized!r} is not supported: only '
-                "'ff'/'all' (channel-mix FFs int8), as in the JAX package")
-        if quantized:
-            raise NotImplementedError(
-                f'quantized={quantized!r}: int8 Mixer serving is not ported '
-                'yet (ROADMAP.md Queue 1 item 14)')
+                "'ff'/'all' (channel-mix FFs int8; token-mix GEMMs are too "
+                'narrow to beat the quantize passes), as in the JAX package. '
+                'Use --quantized ff for int8 serving.')
         if scan_layers:
             raise NotImplementedError(
                 'scan_layers=True is not ported yet (the scan-stacked layout: '
@@ -118,7 +120,7 @@ class MLPMixer(nn.Module):
         for i in range(num_layers):
             self.add_module(f'MixerBlock_{i}', MixerBlock(
                 num_tokens, embed_dim, tokens_expand_ratio,
-                channels_expand_ratio, dtype, use_kernel))
+                channels_expand_ratio, dtype, use_kernel, quantized))
         self.LayerNorm_0 = LayerNorm(embed_dim, dtype)
         self.Dense_0 = Dense(embed_dim, num_classes, dtype=dtype)
 

@@ -18,7 +18,7 @@ from sav_tpu_torch.nn.feedforward import FFBlock
 from sav_tpu_torch.nn.layers import Dense, LayerNorm
 from sav_tpu_torch.nn.posembed import AddAbsPosEmbed, FixedPositionalEmbedding
 from sav_tpu_torch.nn.stems import PatchEmbedBlock
-from sav_tpu_torch.ops import fused_layer
+from sav_tpu_torch.ops import fused_layer, int8_ff
 
 # use_kernel values that route the attention sublayer through
 # ops.fused_layer.attention_sublayer; the value picks the core.
@@ -31,6 +31,11 @@ PER_OP_MODES = (False, True, 'kernel', 'hybrid', 'auto')
 # per-op attention (dispatched as 'auto'), the FF sublayer as one autograd
 # Function with the K16 backward (ops.fused_layer.ff_sublayer)
 FUSED_FF = 'fused_ff'
+# int8 routes (JAX's ``quantized``): 'ff' runs LN_1 -> FF -> residual on
+# K13 (ops.int8_ff.int8_ff_sublayer); 'all' adds K10 for the attention
+# sublayer wherever a fused core is chosen (serving only); True runs both FF
+# products through the library int8 path (QuantizedDense)
+QUANTIZED = (False, True, 'ff', 'all')
 
 
 def _check_use_kernel(use_kernel) -> None:
@@ -40,23 +45,38 @@ def _check_use_kernel(use_kernel) -> None:
             f'use_kernel={use_kernel!r} is not ported yet (ROADMAP.md)')
 
 
+def _check_quantized(quantized, use_kernel) -> None:
+    if quantized == 'ff_sb':
+        raise NotImplementedError(int8_ff.SWITCHBACK_REFUSAL)
+    if quantized not in QUANTIZED:
+        raise ValueError(f'quantized must be one of {QUANTIZED}, got '
+                         f'{quantized!r}')
+    if quantized is True and use_kernel == FUSED_FF:
+        raise ValueError("use_kernel='fused_ff' is unquantized: its FF "
+                         'backward kernel (K16) assumes the bf16 forward')
+
+
 class EncoderBlock(nn.Module):
     """Pre-LN transformer block: LN->MHA->residual, LN->MLP->residual."""
 
     def __init__(self, dim: int, num_heads: int, expand_ratio: float = 4,
                  dtype=torch.float32, use_kernel: Union[str, bool] = 'auto',
                  fused_qkv: bool = False, attn_bias: bool = False,
-                 rotary: bool = False):
+                 rotary: bool = False, quantized: Union[bool, str] = False):
         super().__init__()
         _check_use_kernel(use_kernel)
+        _check_quantized(quantized, use_kernel)
         self.num_heads, self.dtype = num_heads, dtype
         self.use_kernel, self.rotary = use_kernel, rotary
+        self.quantized = quantized
+        self.int8_core = 'kernel'         # or 'plain': models.set_int8_core
         self.LayerNorm_0 = LayerNorm(dim, dtype)
         self.SelfAttentionBlock_0 = SelfAttentionBlock(
             dim, num_heads, dtype=dtype, use_kernel=use_kernel,
             fused_qkv=fused_qkv, use_bias=attn_bias, rotary=rotary)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
-        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype)
+        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype,
+                                 quantized=quantized is True)
 
     def _fused_core(self, inputs) -> Union[str, None]:
         if self.use_kernel in FUSED_LAYER_MODES:
@@ -73,6 +93,8 @@ class EncoderBlock(nn.Module):
             x = self._fused_attention_sublayer(inputs, core)
         else:
             x = self.SelfAttentionBlock_0(self.LayerNorm_0(inputs)) + inputs
+        if self.quantized in ('ff', 'all'):
+            return self._int8_ff_sublayer(x)
         if self.use_kernel == FUSED_FF:
             return self._ff_sublayer(x)
         return x + self.FFBlock_0(self.LayerNorm_1(x))
@@ -93,14 +115,32 @@ class EncoderBlock(nn.Module):
             ff.Dense_0.kernel, ff.Dense_0.bias, ff.Dense_1.kernel,
             ff.Dense_1.bias, fused_layer.LN_EPS)
 
+    def _int8_ff_sublayer(self, x):
+        """LN_1 -> int8 FF -> residual as one autograd Function on K13
+        (``ops.int8_ff.int8_ff_sublayer``), on the same parameters as the
+        per-op path."""
+        ff = self.FFBlock_0
+        return int8_ff.int8_ff_sublayer(
+            x.to(self.dtype), self.LayerNorm_1.scale, self.LayerNorm_1.bias,
+            ff.Dense_0.kernel, ff.Dense_0.bias, ff.Dense_1.kernel,
+            ff.Dense_1.bias, fused_layer.LN_EPS, self.int8_core)
+
     def _fused_attention_sublayer(self, inputs, core: str):
         """LN -> self-attention -> out-proj -> residual as one call, on the
-        same parameters as the per-op path."""
+        same parameters as the per-op path. With quantized='all' (and no
+        rotary embedding) the serving-only int8 sublayer (K10) runs
+        whatever the core, as in the JAX package."""
         dim = inputs.shape[-1]
+        attn = self.SelfAttentionBlock_0
+        if self.quantized == 'all' and not self.rotary:
+            return fused_layer.attention_sublayer_q8(
+                inputs.to(self.dtype), self.LayerNorm_0.scale,
+                self.LayerNorm_0.bias, attn.queries.kernel, attn.keys.kernel,
+                attn.values.kernel, attn.DenseGeneral_0.kernel,
+                self.num_heads, fused_layer.LN_EPS, True, self.int8_core)
         if core == 'fused' and not fused_layer.fused_supported(
                 inputs.shape[-2], self.num_heads, dim // self.num_heads):
             core = 'flash'
-        attn = self.SelfAttentionBlock_0
         return fused_layer.attention_sublayer(
             inputs.to(self.dtype), self.LayerNorm_0.scale,
             self.LayerNorm_0.bias, attn.queries.kernel, attn.keys.kernel,
@@ -112,6 +152,8 @@ def set_use_kernel(model: nn.Module, use_kernel: Union[str, bool]) -> None:
     """Re-routes every encoder block of a built model (same weights)."""
     _check_use_kernel(use_kernel)
     for sub in model.modules():
+        if isinstance(sub, EncoderBlock):
+            _check_quantized(sub.quantized, use_kernel)
         if isinstance(sub, (EncoderBlock, SelfAttentionBlock)):
             sub.use_kernel = use_kernel
 
@@ -123,7 +165,8 @@ class Encoder(nn.Module):
                  num_heads: int, expand_ratio: float = 4, dtype=torch.float32,
                  use_kernel: Union[str, bool] = 'auto',
                  pos_embed: str = 'learned', fused_qkv: bool = False,
-                 attn_bias: bool = False):
+                 attn_bias: bool = False,
+                 quantized: Union[bool, str] = False):
         super().__init__()
         if pos_embed == 'learned':
             self.AddAbsPosEmbed_0 = AddAbsPosEmbed(seq_len, dim)
@@ -136,7 +179,7 @@ class Encoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f'EncoderBlock_{i}', EncoderBlock(
                 dim, num_heads, expand_ratio, dtype, use_kernel, fused_qkv,
-                attn_bias, rotary=pos_embed == 'rotary'))
+                attn_bias, rotary=pos_embed == 'rotary', quantized=quantized))
         self.num_layers = num_layers
         self.LayerNorm_0 = LayerNorm(dim, dtype)
 
@@ -161,7 +204,8 @@ class ViT(nn.Module):
                  dtype=torch.float32, use_kernel: Union[str, bool] = 'auto',
                  pos_embed: str = 'learned', fused_qkv: bool = False,
                  attn_bias: bool = False, dropout_rate: float = 0.0,
-                 attn_dropout_rate: float = 0.0):
+                 attn_dropout_rate: float = 0.0,
+                 quantized: Union[bool, str] = False):
         super().__init__()
         if dropout_rate or attn_dropout_rate:
             raise NotImplementedError(
@@ -178,7 +222,7 @@ class ViT(nn.Module):
         self.cls = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.Encoder_0 = Encoder(seq_len, embed_dim, num_layers, num_heads,
                                  expand_ratio, dtype, use_kernel, pos_embed,
-                                 fused_qkv, attn_bias)
+                                 fused_qkv, attn_bias, quantized)
         self.Dense_0 = Dense(embed_dim, num_classes, dtype=dtype,
                              zero_init=True)
 

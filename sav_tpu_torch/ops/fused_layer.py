@@ -26,6 +26,8 @@ import torch
 from sav_tpu_torch import _build
 from sav_tpu_torch.nn.posembed import apply_rotary_heads, sincos_frequencies
 from sav_tpu_torch.ops import flash_attention as fa
+from sav_tpu_torch.ops.int8_matmul_kernel import _quantize_tile
+from sav_tpu_torch.ops.quantized import int_matmul, quantize_symmetric
 
 CORES = ('xla', 'flash', 'fused')
 LN_EPS = 1e-6
@@ -43,6 +45,18 @@ def _layernorm(x, scale, bias, eps):
     inv = torch.rsqrt(var + eps)
     xhat = (xf - mu) * inv
     return (xhat * scale.float() + bias.float()).to(x.dtype), xhat, inv
+
+
+def _ln_f32(x2, scale, bias, eps):
+    """The int8 kernels' in-kernel LayerNorm on flat ``[M, D]`` rows:
+    ((a - mu) * rsqrt(var + eps)) * scale + bias in f32 with the fast
+    variance, never rounded to x's dtype. Returns (a, y), a = f32(x)."""
+    a = x2.float()
+    mu = a.mean(dim=1, keepdim=True)
+    var = torch.clamp((a * a).mean(dim=1, keepdim=True) - mu * mu, min=0.0)
+    y = ((a - mu) * torch.rsqrt(var + eps)) * scale.float().reshape(1, -1) \
+        + bias.float().reshape(1, -1)
+    return a, y
 
 
 def _layernorm_bwd(dy, xhat, inv, scale):
@@ -329,6 +343,144 @@ def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
                                         rotary)
     return _forward(*args, num_heads, core, eps, residual, rotary,
                     save_residuals=False)[0]
+
+
+# ------------------------- int8 serving forward (K10): projections in int8
+
+SERVING_ONLY = (
+    "quantized='all' runs the attention sublayer on K10, a serving-only "
+    'forward with no backward (as in the JAX package); call it under '
+    'torch.no_grad() or torch.inference_mode(), and train with '
+    "quantized='ff' or True")
+
+
+def fused_attention_q8_plain(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv,
+                             wo_q, so, heads, eps=LN_EPS, residual=True):
+    """Plain twin of ``fused_attention_q8``, following
+    ``_fused_infer_q8_kernel``: LN in f32, one per-row quantisation of it
+    for q, k and v; q = (f32(acc) * (ys * sq)) / sqrt(d) and k, v rounded to
+    x's dtype; f32 logits, max, exp and sum, p rounded to x's dtype for the
+    PV product, then divided by the sum; the heads' bands in x's dtype
+    quantised per row over H*d; x + the out projection in f32."""
+    b, l, dim = x.shape
+    hd = wq_q.shape[1]
+    d = hd // heads
+    dt = x.dtype
+    xf, y = _ln_f32(x.reshape(b * l, dim), scale, bias, eps)
+    yq, ys = _quantize_tile(y)
+
+    def proj(w_q, s):
+        return int_matmul(yq, w_q).float() * (ys * s)
+
+    split = lambda t: t.reshape(b, l, heads, d).float()
+    q = split((proj(wq_q, sq) * (1.0 / d ** 0.5)).to(dt))
+    k = split(proj(wk_q, sk).to(dt))
+    v = split(proj(wv_q, sv).to(dt))
+    s = torch.einsum('bqhd,bkhd->bhqk', q, k)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    lsum = p.sum(dim=-1, keepdim=True)
+    band = torch.einsum('bhqk,bkhd->bhqd', p.to(dt).float(), v) / lsum
+    attn = band.to(dt).permute(0, 2, 1, 3).reshape(b * l, hd)
+    aq, a_s = _quantize_tile(attn)
+    out = int_matmul(aq, wo_q).float() * (a_s * so)
+    if residual:
+        out = xf + out
+    return out.to(dt).reshape(b, l, dim)
+
+
+def _k10_lib():
+    fn = _build.library('fused_attention_q8').sav_fused_attention_q8
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
+                       heads: int, eps: float = LN_EPS, residual: bool = True):
+    """Port of K10: ``x + W_o @ MHA(LN(x))`` with int8 projections, serving
+    only (raises under autograd).
+
+    x ``[B, L, D]``; wq_q, wk_q, wv_q ``[D, H*d]`` and wo_q ``[H*d, D]``
+    int8 codes with per-column f32 scales ``[1, H*d]`` / ``[1, D]``. On a
+    CUDA tensor: five launches (``csrc/fused_attention_q8.cu``), bf16 x,
+    d = 64, D and H*d multiples of 128, the codes transposed per call (the
+    s8 mma reads B k-major). On a CPU tensor: the plain twin.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias)):
+        raise RuntimeError(SERVING_ONLY)
+    if x.device.type == 'cpu':
+        return fused_attention_q8_plain(x, scale, bias, wq_q, sq, wk_q, sk,
+                                        wv_q, sv, wo_q, so, heads, eps,
+                                        residual)
+    if x.device.type != 'cuda':
+        raise ValueError(f'fused_attention_q8 runs on cuda or cpu, not {x.device}')
+    fa.check_cuda_bf16('x', x, x.device)
+    b, l, dim = x.shape
+    hd = heads * fa.BAND
+    if dim % GEMM_TILE or hd % GEMM_TILE:
+        raise ValueError(f'fused_attention_q8 needs D and H*{fa.BAND} to be '
+                         f'multiples of {GEMM_TILE}, got D={dim}, H={heads}')
+    for name, t, shape in (('wq_q', wq_q, (dim, hd)), ('wk_q', wk_q, (dim, hd)),
+                           ('wv_q', wv_q, (dim, hd)), ('wo_q', wo_q, (hd, dim))):
+        if t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    dev = x.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    codes = [w.t().contiguous() for w in (wq_q, wk_q, wv_q, wo_q)]
+    scales = [vec(sq, hd), vec(sk, hd), vec(sv, hd), vec(so, dim)]
+    m = b * l
+    i8 = dict(dtype=torch.int8, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    yq, ys = torch.empty(m, dim, **i8), torch.empty(m, **f32)
+    qkva = [torch.empty(m, hd, dtype=x.dtype, device=dev) for _ in range(4)]
+    aq, a_s = torch.empty(m, hd, **i8), torch.empty(m, **f32)
+    out = torch.empty_like(x)
+    bufs = [x, vec(scale, dim), vec(bias, dim), *codes, *scales, yq, ys,
+            *qkva, aq, a_s, out]
+    with torch.cuda.device(dev):
+        err = _k10_lib()(*[t.data_ptr() for t in bufs], b, l, dim, heads,
+                         int(residual), eps, 1.0 / math.sqrt(fa.BAND),
+                         fa.stream_of(dev))
+    _build.check(err, 'fused_attention_q8')
+    _build.count('fused_attention_q8')
+    return out
+
+
+def _q8_weights(wq, wk, wv, wo, dim, hd):
+    """Per-column codes and scales of the four projection kernels, from
+    their f32 values: [(wq_q, sq), (wk_q, sk), (wv_q, sv), (wo_q, so)]."""
+    qs = [quantize_symmetric(w.reshape(dim, hd).float(), axis=0)
+          for w in (wq, wk, wv)]
+    return qs + [quantize_symmetric(wo.reshape(hd, dim).float(), axis=0)]
+
+
+def attention_sublayer_q8(x, scale, bias, wq, wk, wv, wo, num_heads,
+                          eps=LN_EPS, residual=True, core='kernel'):
+    """Serving-only ``x + W_o @ MHA(LN(x))`` with int8 projections (K10).
+
+    Same parameters as ``attention_sublayer`` (minus its core). Where the
+    port's ``fused_supported`` refuses the shape it runs the bf16 sublayer
+    on the ``'flash'`` core, as the JAX package falls back off its kernel's
+    geometry. Raises under autograd on either route. ``core='plain'`` runs
+    K10's twin on any device (the card's reference for the kernel).
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias, wq, wk, wv, wo)):
+        raise RuntimeError(SERVING_ONLY)
+    b, l, dim = x.shape
+    head_d = wq.shape[2]
+    if not fused_supported(l, num_heads, head_d):
+        return attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
+                                  core='flash', eps=eps, residual=residual)
+    (wq_q, sq), (wk_q, sk), (wv_q, sv), (wo_q, so) = _q8_weights(
+        wq, wk, wv, wo, dim, num_heads * head_d)
+    fwd = fused_attention_q8 if core == 'kernel' else fused_attention_q8_plain
+    return fwd(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
+               num_heads, eps, residual)
 
 
 # ----------------------------------------- FF sublayer, kernel backward

@@ -1,0 +1,299 @@
+"""The whole int8 FF forward in one kernel (counterpart of
+``sav_tpu/ops/int8_ff.py``).
+
+``int8_ff_raw`` is the port of K12 ``_ff_kernel``: gelu(q(x) W1q (xs s1) +
+b1) quantised per row over all F columns from its f32 values, times W2q
+(hs s2), + b2. ``int8_ff_ln_raw`` is the port of K13 ``_ff_ln_kernel``: x +
+the same FF fed LN(x). With ``save_hpre`` both also return the
+pre-activation in bf16 ``[M, F]`` from the same pass (the training
+variant). On a CUDA tensor each launches ``csrc/int8_ff.cu``; on a CPU
+tensor each runs its plain twin (``int8_ff_reference``,
+``int8_ff_ln_reference``), which follows the TPU kernel's arithmetic step
+by step. The weights are quantised per column by ``_quantized_weights``
+outside the kernel, per call, as the JAX package quantises them in XLA.
+
+Autograd, as in the JAX package: ``int8_ff`` (the bare core, LN outside:
+the Mixer's and CaiT's ``FFBlock(quantized='ff')``) has the f32
+straight-through backward ``_ff_bwd``; ``int8_ff_sublayer`` (LN + FF +
+residual, one boundary: ViT's ``'ff'``/``'all'``) has ``_sublayer_bwd``,
+bf16 [M, 4D] elementwise work, f32-accumulated weight gradients, and the
+LayerNorm backward from statistics recomputed from x. Both backwards are
+library work on the stored bf16 hpre. The SwitchBack backward (K14) is not
+ported: ``switchback=True`` and ``int8_ff_sublayer_sb`` raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sav_tpu_torch import _build
+from sav_tpu_torch.ops import flash_attention as fa
+from sav_tpu_torch.ops.fused_layer import (LN_EPS, _gelu_bwd_from_t,
+                                           _gelu_fwd_t, _layernorm, _ln_f32,
+                                           _wgrad)
+from sav_tpu_torch.ops.int8_matmul_kernel import _quantize_tile
+from sav_tpu_torch.ops.quantized import int_matmul, quantize_symmetric
+
+_GELU_C = 0.7978845608028654        # sqrt(2/pi) as f32 rounds it
+_GELU_A = 0.044715
+CORES = ('kernel', 'plain')
+SWITCHBACK_REFUSAL = (
+    "quantized='ff_sb' (the SwitchBack backward) runs the int8 dx kernel K14, "
+    'which is not ported yet (ROADMAP.md Queue 2 item 7)')
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` in its own order of operations:
+    x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))), in x's
+    dtype."""
+    cdf = 0.5 * (1.0 + torch.tanh(_GELU_C * (x + _GELU_A * (x * x * x))))
+    return x * cdf
+
+
+def gelu_vjp(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``gelu`` at x for the output cotangent g, in x's
+    dtype (K16's closed form of gelu')."""
+    return g * _gelu_bwd_from_t(x, _gelu_fwd_t(x)[1])
+
+
+def _ff_body(xq, xs, w1_q, s1, b1, w2_q, s2, b2):
+    """The shared part of both twins: (f32 out before any residual, f32
+    hpre) from the input codes."""
+    hpre = int_matmul(xq, w1_q).float() * (xs * s1) + b1.reshape(1, -1).float()
+    hq, hs = _quantize_tile(gelu(hpre))
+    y = int_matmul(hq, w2_q).float() * (hs * s2) + b2.reshape(1, -1).float()
+    return y, hpre
+
+
+def int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2, save_hpre=False):
+    """Plain twin of ``int8_ff_raw``. Quantisation is per row, so the TPU
+    kernel's 256-row blocks need no counterpart here."""
+    xq, xs = _quantize_tile(x)
+    y, hpre = _ff_body(xq, xs, w1_q, s1, b1, w2_q, s2, b2)
+    out = y.to(x.dtype)
+    return (out, hpre.to(torch.bfloat16)) if save_hpre else out
+
+
+def int8_ff_ln_reference(x, scale, bias, w1_q, s1, b1, w2_q, s2, b2,
+                         eps=LN_EPS, save_hpre=False):
+    """Plain twin of ``int8_ff_ln_raw``: x + FF(LN(x)), LN in f32 and its
+    f32 output quantised (never rounded to x's dtype first)."""
+    a, y2 = _ln_f32(x, scale, bias, eps)
+    xq, xs = _quantize_tile(y2)
+    f, hpre = _ff_body(xq, xs, w1_q, s1, b1, w2_q, s2, b2)
+    out = (a + f).to(x.dtype)
+    return (out, hpre.to(torch.bfloat16)) if save_hpre else out
+
+
+def _ff_lib(name):
+    fn = getattr(_build.library('int8_ff'), name)
+    if fn.argtypes is None:
+        if name == 'sav_int8_ff_band':
+            fn.argtypes = [ctypes.c_int] * 2
+        else:
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                           + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, ln, w1_q, s1, b1, w2_q, s2, b2, eps, save_hpre, what):
+    """Checks and launches the K12/K13 kernel; ``ln`` is (scale, bias) for
+    K13 or None for K12."""
+    fa.check_no_grad(x)
+    fa.check_cuda_bf16('x', x, x.device)
+    m, d = x.shape
+    f = w1_q.shape[1]
+    for name, t, shape in (('w1_q', w1_q, (d, f)), ('w2_q', w2_q, (f, d))):
+        if t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    if m < 1 or d % 64 or f % 64:
+        raise ValueError(f'{what} needs M >= 1 and D, F multiples of 64, got '
+                         f'M={m}, D={d}, F={f}')
+    if _ff_lib('sav_int8_ff_band')(d, f) == 0:
+        raise ValueError(f'{what}: a 16-row band of D={d}, F={f} codes does '
+                         'not fit one block\'s shared memory')
+    dev = x.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    w1t, w2t = w1_q.t().contiguous(), w2_q.t().contiguous()
+    ln_s, ln_b = (None, None) if ln is None else (vec(ln[0], d), vec(ln[1], d))
+    out = torch.empty_like(x)
+    hpre = (torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+            if save_hpre else None)
+    args = [x, ln_s, ln_b, w1t, vec(s1, f), vec(b1, f), w2t, vec(s2, d),
+            vec(b2, d), out, hpre]
+    with torch.cuda.device(dev):
+        err = _ff_lib('sav_int8_ff')(
+            *[None if t is None else t.data_ptr() for t in args], m, d, f,
+            int(ln is not None), eps, fa.stream_of(dev))
+    _build.check(err, what)
+    return (out, hpre) if save_hpre else out
+
+
+def int8_ff_raw(x, w1_q, s1, b1, w2_q, s2, b2, *, save_hpre: bool = False):
+    """Port of K12: gelu(x @ deq(w1) + b1) @ deq(w2) + b2.
+
+    x [M, D]; w1_q [D, F] int8 with per-column scales s1 [1, F]; w2_q
+    [F, D] int8 with s2 [1, D]; biases f32. Returns [M, D] in x.dtype, or
+    (out, hpre bf16 [M, F]) with ``save_hpre``. On a CUDA tensor: one launch
+    (bf16 x, D and F multiples of 64); on a CPU tensor: the twin."""
+    if x.device.type == 'cpu':
+        return int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2, save_hpre)
+    if x.device.type != 'cuda':
+        raise ValueError(f'int8_ff_raw runs on cuda or cpu, not {x.device}')
+    out = _launch(x, None, w1_q, s1, b1, w2_q, s2, b2, 0.0, save_hpre,
+                  'int8_ff_raw')
+    _build.count('int8_ff_train' if save_hpre else 'int8_ff')
+    return out
+
+
+def int8_ff_ln_raw(x, scale, bias, w1_q, s1, b1, w2_q, s2, b2, *,
+                   eps: float = LN_EPS, save_hpre: bool = False):
+    """Port of K13: x + gelu(LN(x) @ deq(w1) + b1) @ deq(w2) + b2 in one
+    launch on a CUDA tensor; the twin on a CPU tensor. As ``int8_ff_raw``,
+    plus the LayerNorm's scale and bias [D]."""
+    if x.device.type == 'cpu':
+        return int8_ff_ln_reference(x, scale, bias, w1_q, s1, b1, w2_q, s2, b2,
+                                    eps, save_hpre)
+    if x.device.type != 'cuda':
+        raise ValueError(f'int8_ff_ln_raw runs on cuda or cpu, not {x.device}')
+    out = _launch(x, (scale, bias), w1_q, s1, b1, w2_q, s2, b2, eps,
+                  save_hpre, 'int8_ff_ln_raw')
+    _build.count('int8_ff_ln_train' if save_hpre else 'int8_ff_ln')
+    return out
+
+
+def _raw(core, ln):
+    """The forward ``core`` picks: the kernel's wrapper (the card's kernel
+    on a CUDA tensor, the twin on a CPU one) or the twin on any device."""
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
+    if ln:
+        return int8_ff_ln_raw if core == 'kernel' else int8_ff_ln_reference
+    return int8_ff_raw if core == 'kernel' else int8_ff_reference
+
+
+def _quantized_weights(w1, w2):
+    """Per-column codes and scales of W1 and W2, in f32 arithmetic."""
+    w1_q, s1 = quantize_symmetric(w1.float(), axis=0)
+    w2_q, s2 = quantize_symmetric(w2.float(), axis=0)
+    return w1_q, s1, w2_q, s2
+
+
+class _Int8FFCore(torch.autograd.Function):
+    """``_int8_ff_core``: K12's training variant forward (hpre stored in
+    bf16), the f32 straight-through backward ``_ff_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, core):
+        w1_q, s1, w2_q, s2 = _quantized_weights(w1, w2)
+        y, hpre = _raw(core, False)(x, w1_q, s1, b1, w2_q, s2, b2,
+                                    save_hpre=True)
+        ctx.save_for_backward(x, w1, b1, w2, b2, hpre)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, hpre = ctx.saved_tensors
+        hpre = hpre.float()
+        g32 = g.float()
+        dh = g32 @ w2.float().t()
+        dhpre = gelu_vjp(hpre, dh)
+        dx = dhpre @ w1.float().t()
+        dw1 = x.float().t() @ dhpre
+        db1 = dhpre.sum(dim=0)
+        dw2 = gelu(hpre).t() @ g32
+        db2 = g32.sum(dim=0)
+        return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype), None)
+
+
+def int8_ff(x, w1, b1, w2, b2, switchback: bool = False, core='kernel'):
+    """Quantized FF sublayer body (K12); x [..., D] -> [..., D].
+    ``core='plain'`` runs the same function on K12's twin on any device
+    (the card's reference for the kernel)."""
+    if switchback:
+        raise NotImplementedError(SWITCHBACK_REFUSAL)
+    flat = x.reshape(-1, x.shape[-1])
+    args = (flat, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = _Int8FFCore.apply(*args, core)
+    else:
+        w1_q, s1, w2_q, s2 = _quantized_weights(w1, w2)
+        out = _raw(core, False)(flat, w1_q, s1, b1, w2_q, s2, b2)
+    return out.reshape(*x.shape[:-1], w2.shape[-1])
+
+
+def _layernorm_bwd_flat(dy, xhat, inv, scale):
+    """(dx, dscale, dbias) of LayerNorm on flat [M, D] tensors, f32."""
+    dyf = dy.float()
+    dscale = (dyf * xhat).sum(dim=0)
+    dbias = dyf.sum(dim=0)
+    dxhat = dyf * scale.float()
+    dx = inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx, dscale, dbias
+
+
+class _Int8FFSublayer(torch.autograd.Function):
+    """``int8_ff_sublayer``'s ``_sublayer_fwd``/``_sublayer_bwd``: K13's
+    training variant forward, then library work in x's dtype on the [M, 4D]
+    tensors and f32-accumulated weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps, core):
+        w1_q, s1, w2_q, s2 = _quantized_weights(w1, w2)
+        flat = x.reshape(-1, x.shape[-1])
+        out, hpre = _raw(core, True)(flat, scale, bias, w1_q, s1, b1, w2_q,
+                                     s2, b2, eps=eps, save_hpre=True)
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2, hpre)
+        ctx.eps = eps
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, w1, b1, w2, b2, hpre = ctx.saved_tensors
+        cdt = x.dtype
+        shape3 = x.shape
+        xf = x.reshape(-1, shape3[-1])
+        gf = g.reshape(-1, shape3[-1]).to(cdt)
+        y2, xhat, inv = _layernorm(xf, scale, bias, ctx.eps)
+        hpre = hpre.to(cdt)
+        gact = gelu(hpre)
+        w1c, w2c = w1.to(cdt), w2.to(cdt)
+        dgact = gf @ w2c.t()
+        dw2 = _wgrad(gact, gf)
+        db2 = gf.float().sum(dim=0)
+        dh = gelu_vjp(hpre, dgact)
+        dw1 = _wgrad(y2, dh)
+        db1 = dh.float().sum(dim=0)
+        dy2 = dh @ w1c.t()
+        dx_ln, dscale, dbias = _layernorm_bwd_flat(dy2, xhat, inv, scale)
+        dx = (dx_ln + gf.float()).to(cdt)
+        return (dx.reshape(shape3), dscale.to(scale.dtype),
+                dbias.to(bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype), None, None)
+
+
+def int8_ff_sublayer(x, scale, bias, w1, b1, w2, b2, eps=LN_EPS,
+                     core='kernel'):
+    """``x + FF_int8(LN(x))`` on K13, with one autograd boundary for the
+    whole span. x is [B, L, D]; the parameters are LayerNorm_1's and
+    FFBlock_0's, so the tree is the unquantized model's. ``core='plain'``
+    runs the same Function on K13's twin on any device."""
+    args = (x, scale, bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Int8FFSublayer.apply(*args, eps, core)
+    w1_q, s1, w2_q, s2 = _quantized_weights(w1, w2)
+    flat = x.reshape(-1, x.shape[-1])
+    out = _raw(core, True)(flat, scale, bias, w1_q, s1, b1, w2_q, s2, b2,
+                           eps=eps)
+    return out.reshape(x.shape)
+
+
+def int8_ff_sublayer_sb(*args, **kwargs):
+    """``int8_ff_sublayer`` with the SwitchBack backward: needs K14."""
+    raise NotImplementedError(SWITCHBACK_REFUSAL)

@@ -108,7 +108,12 @@ def _parser():
                    help='optional text file, one class name per line')
     p.add_argument('--quantized', default='none',
                    choices=['none', 'int8', 'ff', 'all'],
-                   help='int8 serving is not ported yet; only none runs')
+                   help="int8 serving: 'ff' runs each FF sublayer as one "
+                        "int8 kernel (K13 for ViT, K12 for the Mixer's and "
+                        "CaiT's FF blocks); 'all' adds int8 attention "
+                        "projections (K10, ViT); 'int8' quantizes every FF "
+                        'product through the library int8 path. Weights '
+                        'quantize on the fly, per call')
     p.add_argument('--device', default=None,
                    help='cuda (default) or cpu')
     return p
@@ -116,14 +121,12 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.quantized != 'none':
-        raise NotImplementedError(
-            f'--quantized {args.quantized}: int8 serving is a later slice of '
-            'the torch port (ROADMAP.md)')
+    q = False if args.quantized == 'none' else (
+        True if args.quantized == 'int8' else args.quantized)   # train's mapping
     device = resolve_device(args.device)
     model = create_model(args.model_name, num_classes=args.num_classes,
                          dtype=DTYPES[args.dtype], img_size=args.img_size,
-                         device=device)
+                         device=device, **({'quantized': q} if q else {}))
     params = os.path.join(args.checkpoint_dir, 'params.npz')
     if os.path.exists(params):
         load_params_npz(model, params)

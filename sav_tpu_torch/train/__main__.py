@@ -92,7 +92,8 @@ def main(argv=None):
         remat=False if a.remat == 'none' else a.remat,
         mu_dtype=a.mu_dtype, ema_decay=a.ema_decay, schedule=a.schedule,
         pos_embed=a.pos_embed,
-        quantized=False if a.quantized == 'none' else a.quantized,
+        quantized=False if a.quantized == 'none' else (
+            True if a.quantized == 'int8' else a.quantized),
         grad_accum=a.grad_accum, steps_per_dispatch=a.steps_per_dispatch,
         prefetch_chunks=a.prefetch_chunks, data_workers=a.data_workers,
         eval_dataset=a.eval_data_dir, holdout_fraction=a.holdout_fraction,

@@ -102,7 +102,6 @@ UNPORTED = {
     'pipeline_microbatches': (4, 'the parallel tier: Queue 1 item 13'),
     'scan_layers': (False, 'the scan-stacked layout: Queue 1 item 1'),
     'remat': (False, 'remat policies: Queue 1 item 2'),
-    'quantized': (False, 'int8: Queue 1 item 14'),
     'steps_per_dispatch': (1, 'chained dispatch: Queue 1 item 6'),
     'finetune_from': (None, 'fine-tuning: Queue 1 item 6'),
     'finetune_use_ema': (False, 'fine-tuning: Queue 1 item 6'),
@@ -124,6 +123,18 @@ def check_ported(config: TrainConfig) -> None:
             raise NotImplementedError(
                 f'{name}={getattr(config, name)!r} is not ported to '
                 f'sav_tpu_torch yet ({item}, ROADMAP.md)')
+    if config.quantized == 'ff_sb':
+        raise NotImplementedError(
+            "quantized='ff_sb' (the SwitchBack backward) needs the int8 dx "
+            'kernel K14, not ported yet (ROADMAP.md Queue 2 item 7)')
+    if config.quantized == 'all':
+        raise ValueError(
+            "quantized='all' is serving-only: its attention kernel (K10) has "
+            'no backward, as in the JAX package, whose train.py does not '
+            "offer it; train with quantized='ff' or True (--quantized int8)")
+    if config.quantized not in (False, True, 'ff'):
+        raise ValueError(f"quantized must be False, True or 'ff', got "
+                         f'{config.quantized!r}')
 
 
 class MetricLogger:
@@ -171,6 +182,8 @@ class Trainer:
         model_kwargs = {}
         if config.pos_embed != 'learned':
             model_kwargs['pos_embed'] = config.pos_embed
+        if config.quantized:
+            model_kwargs['quantized'] = config.quantized
         self.model = create_model(config.model_name,
                                   num_classes=config.num_classes,
                                   dtype=DTYPES[config.dtype],

@@ -740,3 +740,162 @@ def test_bot_wrappers_refuse_and_count(card):
     ba.bot_core(*leaves, 2, 5).float().sum().backward()
     assert _build.launches == {'bot_fwd': 1, 'bot_fwd_train': 1,
                                'bot_bwd_dq': 1, 'bot_bwd_dkv': 1}
+
+
+# ---- int8 (slice 7): K15 (int8_matmul.cu), K12/K13 (int8_ff.cu), K10
+# (fused_attention_q8.cu) against their twins on the card. The kernels and
+# twins make the same codes by the same IEEE divisions and sum int32
+# exactly; the twins' LayerNorm (K13, K10) and softmax sums (K10) run in
+# another order, and an f32 ulp there can move a code that sits at .5 by
+# one step (1/127 of its row's scale). Held: outputs within INT8_TOL of max
+# |twin| (K13 and K10: of max |twin - x|), and at least INT8_SHARE of the
+# bf16 outputs (and of K12/K13's bf16 hpre) bit-identical to the twin's. A
+# wrong tile, scale or mask moves most outputs by O(1).
+INT8_TOL = 2e-2
+INT8_SHARE = 0.9
+
+
+def _int8_check(got, want, base=None):
+    got, want = got.float(), want.float()
+    ref = want if base is None else want - base.float()
+    err = float((got - want).abs().max() / ref.abs().max())
+    same = float((got == want).float().mean())
+    assert bool(torch.isfinite(got).all())
+    assert err <= INT8_TOL and same >= INT8_SHARE, (err, same)
+
+
+@pytest.mark.parametrize('m,k,n', [(1, 300, 64), (130, 768, 3072),
+                                   (1003, 3072, 768)])
+def test_int8_matmul_matches_twin(card, m, k, n):
+    from sav_tpu_torch.ops import int8_matmul_kernel as k15
+    from sav_tpu_torch.ops.quantized import quantize_symmetric
+    rng = np.random.RandomState(m)
+    a = _bf16(rng, (m, k), 1.0, card)
+    b_q, b_s = quantize_symmetric(_bf16(rng, (k, n), 1 / math.sqrt(k), card), 0)
+    _int8_check(k15.int8_matmul_fused(a, b_q, b_s),
+                k15.blockwise_int8_matmul_reference(a, b_q, b_s))
+
+
+def _ff_case(rng, m, d, f, card):
+    from sav_tpu_torch.ops import int8_ff
+    x = _bf16(rng, (m, d), 1.0, card)
+    vec = lambda n, std, mean=0.0: (mean + std * torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32))).to(card)
+    w1 = vec((d, f), 1 / math.sqrt(d))
+    w2 = vec((f, d), 1 / math.sqrt(f))
+    w1_q, s1, w2_q, s2 = int8_ff._quantized_weights(w1, w2)
+    return (x, (vec(d, 0.1, 1.0), vec(d, 0.1)),
+            (w1_q, s1, vec(f, 0.1), w2_q, s2, vec(d, 0.1)))
+
+
+@pytest.mark.parametrize('save_hpre', [False, True])
+@pytest.mark.parametrize('m,d,f', [(1, 768, 3072), (47, 768, 3072),
+                                   (1003, 768, 3072), (130, 1024, 4096)])
+def test_int8_ff_matches_twin(card, m, d, f, save_hpre):
+    """K12 and K13 at ragged M (48-row bands) and at a width whose band is
+    16 rows (D = 1024, F = 4096)."""
+    from sav_tpu_torch.ops import int8_ff
+    x, ln, w = _ff_case(np.random.RandomState(m + d), m, d, f, card)
+    for got, want, base in (
+            (int8_ff.int8_ff_raw(x, *w, save_hpre=save_hpre),
+             int8_ff.int8_ff_reference(x, *w, save_hpre=save_hpre), None),
+            (int8_ff.int8_ff_ln_raw(x, *ln, *w, save_hpre=save_hpre),
+             int8_ff.int8_ff_ln_reference(x, *ln, *w, save_hpre=save_hpre),
+             x)):
+        if save_hpre:
+            assert got[1].shape == (m, f) and got[1].dtype == torch.bfloat16
+            _int8_check(got[1], want[1])
+            got, want = got[0], want[0]
+        _int8_check(got, want, base)
+
+
+def test_int8_kernels_write_no_row_past_m(card):
+    """K12/K13 (with hpre) and K15 at M = 1003, K10 at B = 3, L = 197, into
+    NaN-sentinel buffers 64 rows longer: the rows past M keep the sentinel,
+    the rows in range match the twins."""
+    from sav_tpu_torch.ops import flash_attention as fa
+    from sav_tpu_torch.ops import int8_ff, int8_matmul_kernel as k15
+    from sav_tpu_torch.ops.quantized import quantize_symmetric
+    stream = fa.stream_of(card)
+    nan = lambda rows, w: torch.full((rows + 64, w), float('nan'), device=card,
+                                     dtype=torch.bfloat16)
+    m, d, f = 1003, 768, 3072
+    x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _ff_case(
+        np.random.RandomState(5), m, d, f, card)
+    # every buffer is held by a name until the launch has been synchronised
+    w1t, w2t = w1_q.t().contiguous(), w2_q.t().contiguous()
+    for ln in (0, 1):
+        out, hpre = nan(m, d), nan(m, f)
+        bufs = [x, ls, lb, w1t, s1, b1, w2t, s2, b2, out, hpre]
+        err = int8_ff._ff_lib('sav_int8_ff')(
+            *[t.data_ptr() for t in bufs], m, d, f, ln, 1e-6, stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        want = (int8_ff.int8_ff_ln_reference(x, ls, lb, w1_q, s1, b1, w2_q, s2,
+                                             b2, save_hpre=True) if ln else
+                int8_ff.int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2,
+                                          save_hpre=True))
+        _int8_check(out[:m], want[0], x if ln else None)
+        _int8_check(hpre[:m], want[1])
+        assert bool(torch.isnan(out[m:]).all() and torch.isnan(hpre[m:]).all())
+    k, kp = 700, 768                  # K15's last k-block is ragged
+    a = x[:, :k].contiguous()
+    b_q, b_s = quantize_symmetric(
+        _bf16(np.random.RandomState(6), (k, 256), 1 / math.sqrt(k), card), 0)
+    out = nan(m, 256)
+    bufs = [a, torch.nn.functional.pad(b_q.t(), (0, kp - k)).contiguous(),
+            b_s.reshape(-1).contiguous(),
+            torch.empty(m, kp, dtype=torch.int8, device=card),
+            torch.empty(m, kp // 256, device=card), out]
+    err = k15._k15_lib()(*[t.data_ptr() for t in bufs], m, k, 256, stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _int8_check(out[:m], k15.blockwise_int8_matmul_reference(a, b_q, b_s))
+    assert bool(torch.isnan(out[m:]).all())
+
+
+@pytest.mark.parametrize('b,seq,dim,heads', [(3, 5, 768, 12), (2, 17, 128, 2),
+                                             (2, 64, 128, 2),
+                                             (3, 197, 768, 12)])
+def test_fused_attention_q8_matches_twin(card, b, seq, dim, heads):
+    rng = np.random.RandomState(seq)
+    x = _bf16(rng, (b, seq, dim), 1.0, card)
+    w = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(card)
+    scale, bias = 1.0 + w((dim,), 0.1), w((dim,), 0.1)
+    ws = [w((dim, heads, 64), 4 / math.sqrt(dim)),
+          w((dim, heads, 64), 1 / math.sqrt(dim)),
+          w((dim, heads, 64), 1 / math.sqrt(dim)),
+          w((heads, 64, dim), 1 / math.sqrt(dim))]
+    with torch.no_grad():
+        got = fused_layer.attention_sublayer_q8(x, scale, bias, *ws, heads)
+        want = fused_layer.attention_sublayer_q8(x, scale, bias, *ws, heads,
+                                                 core='plain')
+    _int8_check(got, want, x)
+
+
+def test_int8_wrappers_refuse_and_count(card):
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import int8_ff, int8_matmul_kernel as k15
+    from sav_tpu_torch.ops.quantized import quantize_symmetric
+    rng = np.random.RandomState(9)
+    x, ln, w = _ff_case(rng, 64, 128, 512, card)
+    _build.reset_launches()
+    int8_ff.int8_ff_raw(x, *w)
+    int8_ff.int8_ff_ln_raw(x, *ln, *w, save_hpre=True)
+    b_q, b_s = quantize_symmetric(w[0].float(), 0)
+    k15.int8_matmul_fused(x, b_q.to(torch.int8), b_s)
+    assert _build.launches == {'int8_ff': 1, 'int8_ff_ln_train': 1,
+                               'int8_matmul': 1}
+    with pytest.raises(ValueError, match='bfloat16'):
+        int8_ff.int8_ff_raw(x.float(), *w)
+    with pytest.raises(ValueError, match='multiples of 64'):
+        int8_ff.int8_ff_raw(x[:, :96].contiguous(), w[0][:96], *w[1:3],
+                            w[3][:, :96], w[4][:, :96], w[5][:96])
+    with pytest.raises(RuntimeError, match='forward-only'):
+        int8_ff.int8_ff_raw(x.clone().requires_grad_(), *w)
+    xs = _bf16(rng, (2, 5, 128), 1.0, card)
+    ws = [torch.zeros(128, 2, 64, device=card, requires_grad=True)
+          for _ in range(3)] + [torch.zeros(2, 64, 128, device=card)]
+    with pytest.raises(RuntimeError, match='serving-only'):
+        fused_layer.attention_sublayer_q8(xs, ln[0], ln[1], *ws, 2)

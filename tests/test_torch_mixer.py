@@ -133,10 +133,13 @@ def test_factory_names_and_refusals():
     assert model.PatchEmbedBlock_0.Dense_0.bias is not None
     with pytest.raises(NotImplementedError, match='scan'):
         create_model('mixer_s_patch32', device='cpu', scan_layers=True)
-    with pytest.raises(NotImplementedError, match='int8'):
-        create_model('mixer_s_patch32', device='cpu', quantized='ff')
-    with pytest.raises(ValueError, match='quantized'):
-        create_model('mixer_s_patch32', device='cpu', quantized='ff_sb')
+    quantized = create_model('mixer_s_patch32', device='cpu', num_layers=1,
+                             quantized='ff')
+    assert quantized.MixerBlock_0.FFBlock_1.quantized == 'ff'
+    assert quantized.MixerBlock_0.FFBlock_0.quantized is False
+    for refused in ('ff_sb', True):
+        with pytest.raises(ValueError, match='quantized'):
+            create_model('mixer_s_patch32', device='cpu', quantized=refused)
 
 
 def test_layer_counts_and_widths_of_the_six_names():

@@ -117,7 +117,8 @@ def test_cli_without_params_warns_and_uses_random_init(tmp_path, capsys):
 
 
 def test_cli_refuses_int8(tmp_path):
-    with pytest.raises(NotImplementedError, match='int8'):
-        predict.main(['-m', 'vit_ti_patch16', '-c', str(tmp_path),
+    # families without an int8 path refuse --quantized, as the JAX factory does
+    with pytest.raises(RuntimeError, match='no int8 path'):
+        predict.main(['-m', 'tnt_s_patch16', '-c', str(tmp_path),
                       '--images', str(tmp_path), '--quantized', 'ff',
                       '--device', 'cpu'])

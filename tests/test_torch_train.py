@@ -275,7 +275,7 @@ def test_cli_trains_and_predict_reads_its_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize('flag', [
     ['--data_dir', '/data/imagenet'], ['--model_parallelism', '2'],
-    ['--scan_layers'], ['--remat', 'full'], ['--quantized', 'ff'],
+    ['--scan_layers'], ['--remat', 'full'], ['--quantized', 'ff_sb'],
     ['--steps_per_dispatch', '4'], ['--finetune_from', 'x'],
     ['--eval_data_dir', 'x'], ['--data_workers', '2']])
 def test_cli_refuses_unported_flags(tmp_path, flag):
