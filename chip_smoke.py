@@ -101,6 +101,23 @@
 11. Prints one JSON line of every ported kernel, then the result line
    ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
    prints no result line.
+12. int8 (slice 8; runs after 10, before the print of 11): K11
+   (``csrc/th_attention_q8.cu``) against its twin at CaiT-S/24 @224 bs32
+   (L = 196, D = 384, H = 8) and at cait_xxs's widths (D = 192, H = 4),
+   timed beside a library chain (LayerNorm, torch codes, ``torch._int_mm``
+   with the dequant for the four projections, the per-op TH core); K14
+   (``csrc/int8_ff.cu``) at ViT-B/16 bs192's M = 37,824 and CaiT-S/24
+   bs128's 25,088 rows, dy2 and dh, beside codes, ``_int_mm``, torch's
+   gelu backward, codes, ``_int_mm``; both on NaN-sentinel buffers at a
+   ragged M (K11 also on its two-sweep core, L = 250); serving CaiT-S/24
+   @224 bs32 ``quantized='all'`` (24 K11 + 24 K12 per forward), @384 at
+   depth 2 (th_supported fails: 2 K6a + 2 K12, no K11) and cait_xxs_24
+   @224 at depth 2 (2 K11 + 2 K12), logits against the int8 twins;
+   training @224 ViT-B/16 bs192 ``'ff_sb'`` (12 K1-train + 12 K2 + 12
+   K13-train + 12 K14 per step) and CaiT-S/24 bs128 ``'ff_sb'`` (24
+   K5a-train + 24 K5b + 24 K12-train + 24 K14), gradients against the same
+   boundaries on the int8 twins, and CaiT-S/24 ``'ff'`` beside them for
+   its train img/s.
 """
 
 from __future__ import annotations
@@ -403,17 +420,18 @@ def fill_head(model, seed: int) -> None:
 
 def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
                profile=False, model_name='vit_b_patch16', quantized=False,
-               dense_fused=False):
+               dense_fused=False, **overrides):
     """Drives ``serve`` once with the counts at 0 (want: the exact counts
     per forward), then compares logits with the plain cores and measures
     img/s. Returns the counts. ``quantized`` builds an int8 route; with
     ``dense_fused`` every QuantizedDense runs K15 (``fused=True``, the JAX
     package's direct-use opt-in). A route through int8 kernels is held
     against the same model on their twins (``set_int8_core``), and its
-    distance from the bf16 model of the same weights is printed."""
+    distance from the bf16 model of the same weights is printed.
+    ``overrides`` go to ``create_model`` (e.g. a cut depth)."""
     model = create_model(model_name, num_classes=1000,
                          dtype=torch.bfloat16, img_size=img_size, seed=seed,
-                         device='cuda', use_kernel=use_kernel,
+                         device='cuda', use_kernel=use_kernel, **overrides,
                          **({'quantized': quantized} if quantized else {}))
     for sub in model.modules():
         if dense_fused and isinstance(sub, QuantizedDense):
@@ -457,7 +475,7 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
     if quantized:
         bf16 = create_model(model_name, num_classes=1000, dtype=torch.bfloat16,
                             img_size=img_size, device='cuda',
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, **overrides)
         bf16.load_state_dict(model.state_dict())
         with torch.inference_mode():
             full = bf16.eval()(x).float()
@@ -1837,10 +1855,11 @@ def _int8_expect(checks, what, got, want, base=None) -> float:
     return err
 
 
-def _time_int8(kernel, plain, library, int8_ops, nbytes, err, flops=0.0):
+def _time_int8(kernel, plain, library, int8_ops, nbytes, err, flops=0.0,
+               f32_flops=0.0):
     """The kernel record: times of the kernel, its twin and the library
     chain, and the bound of the same work."""
-    b_ms, b_by = bound_ms(flops, nbytes, int8_ops=int8_ops)
+    b_ms, b_by = bound_ms(flops, nbytes, f32_flops, int8_ops=int8_ops)
     return dict(ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
@@ -2048,6 +2067,162 @@ def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     untouched = all(bool(torch.isnan(t).all()) for t in kept)
     checks.expect(all(c == 0 for c in codes) and untouched,
                   f'int8 kernels into sentinel buffers: rows past M untouched '
+                  f'{untouched}, launch codes {codes}')
+
+
+# ---- int8 (slice 8): K11 (csrc/th_attention_q8.cu), K14 (csrc/int8_ff.cu)
+
+def _k11_case(rng, batch, seq, dim, heads):
+    hd = heads * th.HEAD_CH
+    x = _bf16(rng, (batch, seq, dim))
+    w = lambda shape, std: (std * torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))).cuda()
+    scale, bias = 1.0 + w((dim,), 0.1), w((dim,), 0.1)
+    # wq 4x wider than lecun: a peaked softmax (as _k1_case)
+    ws = [w((dim, heads, th.HEAD_CH), 4.0 / math.sqrt(dim))] + [
+        w((dim, heads, th.HEAD_CH), 1.0 / math.sqrt(dim)) for _ in range(2)] + [
+        w((heads, th.HEAD_CH, dim), 1.0 / math.sqrt(hd))]
+    codes = fused_layer._q8_weights(*ws, dim, hd)
+    return x, scale, bias, [t for pair in codes for t in pair], _th_mixes(
+        rng, heads)
+
+
+def check_k11(rng, checks, batch, seq, dim, heads):
+    """K11 vs its twin at [batch, seq, dim] (no residual, as CaiT calls
+    it); the library chain: LayerNorm, codes, three ``_int_mm`` with the
+    dequant, the per-op TH core in bf16, codes, ``_int_mm``."""
+    x, scale, bias, flat, mixes = _k11_case(rng, batch, seq, dim, heads)
+    hd = heads * th.HEAD_CH
+    args = (x, scale, bias, *flat, *mixes, heads)
+    with torch.no_grad():
+        got, want = th.th_attention_q8(*args), th.th_q8_reference(*args)
+    torch.cuda.synchronize()
+    err = _int8_expect(checks, f'K11 th_attention_q8 B={batch} L={seq} '
+                               f'D={dim} H={heads}', got, want)
+    wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so = flat
+    m = batch * seq
+
+    def library():
+        y = F.layer_norm(x.float(), (dim,), scale, bias, 1e-6).view(m, dim)
+        q, s = k15._quantize_tile(y)
+        proj = lambda wc, sc: (torch._int_mm(q, wc).float() * (s * sc)
+                               ).bfloat16().view(batch, seq, hd)
+        a = _th_library(proj(wq_q, sq * (1.0 / math.sqrt(th.HEAD_CH))),
+                        proj(wk_q, sk), proj(wv_q, sv), *mixes, heads)
+        aq, a_s = k15._quantize_tile(a.reshape(m, hd))
+        return (torch._int_mm(aq, wo_q).float() * (a_s * so)).bfloat16()
+
+    def kernel():
+        with torch.no_grad():
+            th.th_attention_q8(*args)
+
+    def plain():
+        with torch.no_grad():
+            th.th_q8_reference(*args)
+
+    ops, f32_ops = _th_work(batch, seq, heads, 2, 2)
+    rec = _time_int8(kernel, plain, library, 2 * m * dim * 4 * hd,
+                     2 * m * dim * 2 + 4 * dim * hd + (3 * hd + 3 * dim) * 4
+                     + 2 * heads * heads * 4, err, flops=ops,
+                     f32_flops=f32_ops)
+    print(f'  K11 B={batch} L={seq} D={dim} H={heads}: kernel '
+          f'{rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  library '
+          f'{rec["library_ms"]:.4f} ms  bound {rec["bound_ms"]:.4f} ms '
+          f'({rec["bound_by"]})', flush=True)
+    return rec
+
+
+def _k14_case(rng, m, d, f):
+    g = _bf16(rng, (m, d), 0.02)
+    hpre = _bf16(rng, (m, f))
+    w = lambda shape, std: (std * torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))).cuda()
+    w1t_q, s1t = int8_ff._dx_quantized(w((d, f), 1.0 / math.sqrt(d)))
+    w2t_q, s2t = int8_ff._dx_quantized(w((f, d), 1.0 / math.sqrt(f)))
+    return g, hpre, (w1t_q, s1t, w2t_q, s2t)
+
+
+def check_k14(rng, checks, m, d=768, f=3072):
+    """K14 vs its twin at M rows, dy2 and dh; the library chain: codes of
+    g, ``_int_mm`` with the dequant, torch's gelu backward, codes of dh,
+    ``_int_mm`` with the dequant."""
+    g, hpre, w = _k14_case(rng, m, d, f)
+    got = int8_ff.int8_ff_dx_raw(g, hpre, *w)
+    want = int8_ff.int8_ff_dx_reference(g, hpre, *w)
+    torch.cuda.synchronize()
+    name = f'K14 int8_ff_dx_raw M={m} D={d} F={f}'
+    errs = [_int8_expect(checks, f'{name}: dy2', got[0], want[0]),
+            _int8_expect(checks, f'{name}: dh', got[1], want[1])]
+    w1t_q, s1t, w2t_q, s2t = w
+    w1c, w2c = w1t_q.contiguous(), w2t_q.contiguous()
+
+    def library():
+        q, s = k15._quantize_tile(g)
+        dgact = torch._int_mm(q, w2c).float() * (s * s2t)
+        dh = torch.ops.aten.gelu_backward(dgact, hpre.float(),
+                                          approximate='tanh')
+        hq, hs = k15._quantize_tile(dh)
+        dy2 = torch._int_mm(hq, w1c).float() * (hs * s1t)
+        return dy2.bfloat16(), dh.bfloat16()
+
+    nbytes = 2 * m * d * 2 + 2 * m * f * 2 + 2 * d * f + 4 * (d + f)
+    rec = _time_int8(lambda: int8_ff.int8_ff_dx_raw(g, hpre, *w),
+                     lambda: int8_ff.int8_ff_dx_reference(g, hpre, *w),
+                     library, 4 * m * d * f, nbytes, max(errs))
+    print(f'  {name}: kernel {rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} '
+          f'ms  library {rec["library_ms"]:.4f} ms  bound '
+          f'{rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    return rec
+
+
+def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
+    """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
+    range: K14 at M = 1003 (not a multiple of the 48-row bands), dy2 and
+    dh; K11 at B = 3, L = 197 (CaiT-S widths) and L = 250 (its two-sweep
+    core at H = 8). Rows in range match the twins; rows past them keep the
+    sentinel."""
+    stream = fa.stream_of(torch.device('cuda'))
+    nan = lambda rows, w: torch.full((rows + 64, w), float('nan'),
+                                     device='cuda', dtype=torch.bfloat16)
+    codes, kept = [], []
+    d, f = 768, 3072
+    g, hpre, (w1t_q, s1t, w2t_q, s2t) = _k14_case(rng, m, d, f)
+    dy, dh = nan(m, d), nan(m, f)
+    # every buffer is held by a name until the launch has been synchronised
+    bufs = [g, hpre, w2t_q.t().contiguous(), s2t.reshape(-1).contiguous(),
+            w1t_q.t().contiguous(), s1t.reshape(-1).contiguous(), dy, dh]
+    codes.append(int8_ff._ff_lib('sav_int8_ff_dx')(
+        *[t.data_ptr() for t in bufs], m, d, f, stream))
+    torch.cuda.synchronize()
+    want = int8_ff.int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
+    _int8_expect(checks, f'K14 M={m} into sentinels: dy2', dy[:m], want[0])
+    _int8_expect(checks, f'K14 M={m} into sentinels: dh', dh[:m], want[1])
+    kept += [dy[m:], dh[m:]]
+    for seq_i in (seq, 250):
+        dim, heads = 384, 8
+        hd = heads * th.HEAD_CH
+        x, scale, bias, flat, mixes = _k11_case(rng, batch, seq_i, dim, heads)
+        rows = batch * seq_i
+        out = nan(rows, dim)
+        i8 = lambda w: torch.empty(rows, w, dtype=torch.int8, device='cuda')
+        bf = lambda: torch.empty(rows, hd, dtype=torch.bfloat16, device='cuda')
+        bufs = ([x, scale, bias] + [t.t().contiguous() for t in flat[0::2]]
+                + [t.reshape(-1).contiguous() for t in flat[1::2]] + mixes
+                + [i8(dim), torch.empty(rows, device='cuda')]
+                + [bf() for _ in range(4)]
+                + [i8(hd), torch.empty(rows, device='cuda'), out])
+        codes.append(th._k11_lib()(
+            *[t.data_ptr() for t in bufs], batch, seq_i, dim, heads, 0,
+            fused_layer.LN_EPS, 1.0 / math.sqrt(th.HEAD_CH), stream))
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = th.th_q8_reference(x, scale, bias, *flat, *mixes, heads)
+        _int8_expect(checks, f'K11 B={batch} L={seq_i} into sentinels',
+                     out[:rows], want.reshape(rows, dim))
+        kept.append(out[rows:])
+    untouched = all(bool(torch.isnan(t).all()) for t in kept)
+    checks.expect(all(c == 0 for c in codes) and untouched,
+                  f'K11/K14 into sentinel buffers: rows past M untouched '
                   f'{untouched}, launch codes {codes}')
 
 
@@ -2267,6 +2442,41 @@ def main(argv=None):
     # builds, at depth 2
     sweep_factory(checks, args.seed)
 
+    # int8 (slice 8): K11 at CaiT-S's and cait_xxs's widths, K14 at ViT-B
+    # bs192's and CaiT-S bs128's FF rows, the ragged edges, then the paths:
+    # serving CaiT-S/24 'all' (and @384 and cait_xxs at depth 2), training
+    # ViT-B/16 and CaiT-S/24 'ff_sb', and CaiT-S/24 'ff' beside them
+    k11 = {(dim, heads): check_k11(rng, checks, args.batch, 196, dim, heads)
+           for dim, heads in ((384, 8), (192, 4))}
+    k14 = {m: check_k14(rng, checks, m, d, f)
+           for m, d, f in ((192 * 197, 768, 3072), (128 * 196, 384, 1536))}
+    check_slice8_sentinels(rng, checks)
+    q_cait = serve_path(checks, 'CaiT-S/24 @224 quantized=all', 224, 'auto',
+                        {'th_attention_q8': 24, 'int8_ff': 24}, args.seed,
+                        args.batch, args.profile, model_name='cait_s_24',
+                        quantized='all')
+    serve_path(checks, 'CaiT-S/24 @384 quantized=all depth 2', 384, 'auto',
+               {'th_core_fwd': 2, 'int8_ff': 2}, args.seed, args.batch,
+               model_name='cait_s_24', quantized='all', num_layers=2)
+    serve_path(checks, 'cait_xxs_24 @224 quantized=all depth 2', 224, 'auto',
+               {'th_attention_q8': 2, 'int8_ff': 2}, args.seed, args.batch,
+               model_name='cait_xxs_24', quantized='all', num_layers=2)
+    sb_vit = train_path(checks, 'train ViT-B/16 @224 bs192 quantized=ff_sb',
+                        224, 192, {'fused_attention_fwd_train': 12,
+                                   'flash_bwd_fused': 12,
+                                   'int8_ff_ln_train': 12, 'int8_ff_dx': 12},
+                        args.seed, profile=args.profile,
+                        plain_core=INT8_PLAIN, quantized='ff_sb')
+    cait_step = {'th_attention_fwd_train': 24, 'th_attention_bwd': 24,
+                 'int8_ff_train': 24}
+    sb_cait = train_path(checks, 'train CaiT-S/24 @224 bs128 quantized=ff_sb',
+                         224, 128, dict(cait_step, int8_ff_dx=24), args.seed,
+                         profile=args.profile, model_name='cait_s_24',
+                         plain_core=INT8_PLAIN, quantized='ff_sb')
+    train_path(checks, 'train CaiT-S/24 @224 bs128 quantized=ff', 224, 128,
+               cait_step, args.seed, model_name='cait_s_24', plain_core=None,
+               quantized='ff')
+
     def th_entry(name, replaces, launches, rec, train=None, **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
         ``train``, the record at the training shape, adds train_* keys."""
@@ -2434,6 +2644,30 @@ def main(argv=None):
              source='sav_tpu_torch/csrc/fused_attention_q8.cu',
              replaces='sav_tpu/ops/fused_layer.py:764',
              launches=q_all.get('fused_attention_q8', 0), **k10),
+        # int8 (slice 8): K11 at CaiT-S/24 bs32 (CaiT 'all' serving), the
+        # cait_xxs widths (D = 192, H = 4) under xxs_*; K14 at ViT-B/16
+        # bs192 (ViT 'ff_sb' training), CaiT-S/24 bs128 under cait_*
+        dict(name='th_attention_q8', route='cuda',
+             source='sav_tpu_torch/csrc/th_attention_q8.cu',
+             replaces='sav_tpu/ops/th_attention.py:717',
+             launches=q_cait.get('th_attention_q8', 0),
+             **dict(k11[(384, 8)], max_abs_err=max(
+                 r['max_abs_err'] for r in k11.values())),
+             xxs_ms=k11[(192, 4)]['ms'], xxs_plain_ms=k11[(192, 4)]['plain_ms'],
+             xxs_library_ms=k11[(192, 4)]['library_ms'],
+             xxs_bound_ms=k11[(192, 4)]['bound_ms']),
+        dict(name='int8_ff_dx', route='cuda',
+             source='sav_tpu_torch/csrc/int8_ff.cu',
+             replaces='sav_tpu/ops/int8_ff.py:378',
+             launches=sb_vit.get('int8_ff_dx', 0),
+             **dict(k14[192 * 197], max_abs_err=max(
+                 r['max_abs_err'] for r in k14.values())),
+             cait_launches=sb_cait.get('int8_ff_dx', 0),
+             cait_ms=k14[128 * 196]['ms'],
+             cait_plain_ms=k14[128 * 196]['plain_ms'],
+             cait_library_ms=k14[128 * 196]['library_ms'],
+             cait_bound_ms=k14[128 * 196]['bound_ms'],
+             cait_bound_by=k14[128 * 196]['bound_by']),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

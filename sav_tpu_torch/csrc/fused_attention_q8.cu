@@ -83,8 +83,8 @@ extern "C" int sav_fused_attention_q8(
   p.n_each = hd;
   p.K = dim;
   p.q_scale = q_scale;
-  gemm_s8_kernel<kQkv><<<dim3(3 * hd / TN, m_tiles), 256, GEMM_S8_SMEM, st>>>(
-      p);
+  gemm_s8_kernel<kQkv><<<dim3(gemm_s8_tiles<kQkv>(hd), m_tiles), 256,
+                         GEMM_S8_SMEM, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   attention_fwd_kernel<true>
@@ -108,6 +108,7 @@ extern "C" int sav_fused_attention_q8(
   o.n_each = dim;
   o.K = hd;
   o.q_scale = 1.f;
-  gemm_s8_kernel<kOut><<<dim3(dim / TN, m_tiles), 256, GEMM_S8_SMEM, st>>>(o);
+  gemm_s8_kernel<kOut><<<dim3(gemm_s8_tiles<kOut>(dim), m_tiles), 256,
+                         GEMM_S8_SMEM, st>>>(o);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// K12 and K13 ports: the whole int8 FF forward in one kernel.
+// K12 and K13 ports: the whole int8 FF forward in one kernel; K14: both
+// int8 dx products of its SwitchBack backward in one kernel.
 //
 // Replaces sav_tpu/ops/int8_ff.py::_ff_kernel (K12, launcher int8_ff_raw)
 // and ::_ff_ln_kernel (K13, launcher int8_ff_ln_raw), both with and
-// without save_hpre:
+// without save_hpre, and ::_ff_dx_kernel (K14, launcher int8_ff_dx_raw,
+// below ff_q8_kernel):
 //   K12: out = bf16(f32(hq W2q) * (hs * s2) + b2),
 //   K13: out = bf16(x + the same), the FF fed LN(x) instead of x,
 // where hpre = f32(xq W1q) * (xs * s1) + b1 (xq, xs: x's or LN(x)'s codes
@@ -261,11 +263,184 @@ int launch(const FFArgs& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------------ K14
+//
+// K14 computes, per row of the output cotangent g [M, D] and the stored
+// bf16 pre-activation hpre [M, F]:
+//   dgact = f32(gq W2q^T) * (gs * s2), gq, gs: g's codes per row over D,
+//     W2q [F, D] W2's codes per IN row (per F) with scales s2 [F];
+//   dh    = gelu'(hpre) * dgact in f32 (jax.vjp(jax.nn.gelu)'s order),
+//     written in bf16 [M, F];
+//   dy    = bf16(f32(dhq W1q^T) * (dhs * s1)), dhq, dhs: the codes of the
+//     f32 dh per row over all F, W1q [D, F] W1's codes per IN row (per D).
+// Codes per IN row are already the [N][K] layout the s8 mma's B operand
+// reads, so no transpose is made. The plan is K12's: a band of BM rows
+// keeps g's codes and dh's codes in shared memory; dh's row absmax needs
+// all F columns of an f32 value too large to keep, so the first product
+// runs twice over the same codes (int32 sums are exact): sweep 1 writes dh
+// and keeps each row's absmax, sweep 2 writes dh's codes. hpre is read in
+// both sweeps; rows past M read no hpre and store nothing.
+//
+// Bound on the card: ViT-B/16 @224 bs192 (M = 37,824, D = 768, F = 3072):
+// 357 G int8 operations (0.180 ms at 1979 TOPS) against 586 MB of g,
+// hpre, dh, dy and codes (0.175 ms): bound by operations. CaiT-S/24 bs128
+// (M = 25,088, D = 384, F = 1536): 59 G (0.030 ms) against 194 MB (0.058
+// ms), bound by bytes.
+
+struct DxArgs {
+  const bf16* g;                  // [M, D]
+  const bf16* hpre;               // [M, F]
+  const int8_t* w2c;              // [F, D] codes of W2 per F row
+  const float* s2;                // [F]
+  const int8_t* w1c;              // [D, F] codes of W1 per D row
+  const float* s1;                // [D]
+  bf16* dy;                       // [M, D]
+  bf16* dh;                       // [M, F]
+  int M, D, F;
+};
+
+// The cotangent of jax.nn.gelu (tanh form) at x for the output cotangent
+// g, in the operation order of jax.vjp's f32 graph:
+// e = 3 x^2; i = tanh(c (x + a x^3)); p = (0.5 (x g)) (1 - i);
+// s = c (p + p i); return (g (0.5 (1 + i)) + s) + (a s) e.
+__device__ __forceinline__ float gelu_vjp(float x, float g) {
+  const float x2 = __fmul_rn(x, x);
+  const float x3 = __fmul_rn(x, x2);
+  const float i = tanhf(__fmul_rn(0.7978845608028654f,
+                                  __fadd_rn(x, __fmul_rn(0.044715f, x3))));
+  const float p = __fmul_rn(__fmul_rn(0.5f, __fmul_rn(x, g)), __fsub_rn(1.f, i));
+  const float s = __fmul_rn(0.7978845608028654f, __fadd_rn(p, __fmul_rn(p, i)));
+  const float l = __fmul_rn(0.5f, __fadd_rn(1.f, i));
+  return __fadd_rn(__fadd_rn(__fmul_rn(g, l), s),
+                   __fmul_rn(__fmul_rn(0.044715f, s), __fmul_rn(3.f, x2)));
+}
+
+template <int BM>
+__global__ void __launch_bounds__(FF_THREADS, 1)
+ff_dx_q8_kernel(const DxArgs p) {
+  constexpr int MT = BM / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = p.D, F = p.F;
+  const int ldg = band_ld(D), ldh = band_ld(F);
+  int8_t* gq = reinterpret_cast<int8_t*>(smem_raw);
+  int8_t* hq = gq + BM * ldg;
+  float* gs = reinterpret_cast<float*>(hq + BM * ldh);
+  float* hs = gs + BM;
+  float* red = hs + BM;                     // [FF_WARPS][BM]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * BM;
+
+  // 1. the band's g codes; rows past M are zeros
+  for (int r = warp; r < BM; r += FF_WARPS) {
+    const int row = m0 + r;
+    int8_t* qr = gq + r * ldg;
+    if (row >= p.M) {
+      for (int c = 2 * lane; c < D; c += 64)
+        *reinterpret_cast<char2*>(qr + c) = make_char2(0, 0);
+      if (lane == 0) gs[r] = 0.f;
+      continue;
+    }
+    const bf16* gr = p.g + (size_t)row * D;
+    auto value = [&](int c) {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gr + c));
+    };
+    float amax = 0.f;
+    for (int c = 2 * lane; c < D; c += 64) {
+      const float2 v = value(c);
+      amax = fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y)));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float s = row_scale(amax);
+    for (int c = 2 * lane; c < D; c += 64) {
+      const float2 v = value(c);
+      *reinterpret_cast<char2*>(qr + c) = make_char2(
+          (signed char)quantize(v.x, s), (signed char)quantize(v.y, s));
+    }
+    if (lane == 0) gs[r] = s;
+  }
+  __syncthreads();
+
+  // dh at (band row r, columns col and col + 1) from the int32 sums
+  auto dh_of = [&](int r, int col, int v0, int v1) {
+    const int row = m0 + r;
+    float2 h = make_float2(0.f, 0.f);
+    if (row < p.M)
+      h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          p.hpre + (size_t)row * F + col));
+    return make_float2(gelu_vjp(h.x, dequant(v0, gs[r], p.s2[col])),
+                       gelu_vjp(h.y, dequant(v1, gs[r], p.s2[col + 1])));
+  };
+
+  // 2. sweep 1: bf16 dh out, each band row's absmax of the f32 dh
+  float amax[MT][2];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) amax[mi][0] = amax[mi][1] = 0.f;
+  band_gemm<MT, 4>(gq, ldg, p.w2c, F, D,
+                   [&](int mi, int half, int r, int col, int v0, int v1) {
+    const float2 d = dh_of(r, col, v0, v1);
+    const int row = m0 + r;
+    if (row < p.M)
+      *reinterpret_cast<uint32_t*>(p.dh + (size_t)row * F + col) =
+          pack_bf16(d.x, d.y);
+    amax[mi][half] = fmaxf(amax[mi][half], fmaxf(fabsf(d.x), fabsf(d.y)));
+  });
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v = amax[mi][half];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if (t == 0) red[warp * BM + mi * 16 + g + 8 * half] = v;
+    }
+  __syncthreads();
+  for (int r = threadIdx.x; r < BM; r += FF_THREADS) {
+    float m = 0.f;
+    for (int w = 0; w < FF_WARPS; ++w) m = fmaxf(m, red[w * BM + r]);
+    hs[r] = row_scale(m);
+  }
+  __syncthreads();
+
+  // 3. sweep 2: the same sums; dh's codes kept
+  band_gemm<MT, 4>(gq, ldg, p.w2c, F, D,
+                   [&](int mi, int half, int r, int col, int v0, int v1) {
+    const float2 d = dh_of(r, col, v0, v1);
+    *reinterpret_cast<char2*>(hq + r * ldh + col) =
+        make_char2((signed char)quantize(d.x, hs[r]),
+                   (signed char)quantize(d.y, hs[r]));
+  });
+  __syncthreads();
+
+  // 4. the second product and dy
+  band_gemm<MT, 2>(hq, ldh, p.w1c, D, F,
+                   [&](int mi, int half, int r, int col, int v0, int v1) {
+    const int row = m0 + r;
+    if (row >= p.M) return;
+    *reinterpret_cast<uint32_t*>(p.dy + (size_t)row * D + col) =
+        pack_bf16(dequant(v0, hs[r], p.s1[col]),
+                  dequant(v1, hs[r], p.s1[col + 1]));
+  });
+}
+
+template <int BM>
+int launch_dx(const DxArgs& p, cudaStream_t st) {
+  const int smem = band_smem(BM, p.D, p.F);
+  cudaError_t err = cudaFuncSetAttribute(
+      ff_dx_q8_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ff_dx_q8_kernel<BM><<<(p.M + BM - 1) / BM, FF_THREADS, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace q8ff
 }  // namespace sav
 
-// Rows per block the kernel takes at (D, F): 48, 16, or 0 where even a
-// 16-row band does not fit a block's shared memory.
+// Rows per block K12, K13 and K14 take at (D, F): 48, 16, or 0 where even
+// a 16-row band does not fit a block's shared memory.
 extern "C" int sav_int8_ff_band(int dim, int hidden) {
   using namespace sav::q8ff;
   if (band_smem(48, dim, hidden) <= SMEM_LIMIT) return 48;
@@ -291,5 +466,24 @@ extern "C" int sav_int8_ff(const void* x, const float* ln_scale,
   const int bm = sav_int8_ff_band(dim, hidden);
   if (bm == 48) return ln ? launch<48, true>(p, st) : launch<48, false>(p, st);
   if (bm == 16) return ln ? launch<16, true>(p, st) : launch<16, false>(p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K14. g [M, D] bf16; hpre [M, F] bf16; w2c [F, D] int8 with s2 [F] f32
+// (W2's codes per F row); w1c [D, F] int8 with s1 [D] f32 (W1's codes per
+// D row); dy [M, D] bf16; dh [M, F] bf16. Needs D % 64 == 0, F % 64 == 0
+// and sav_int8_ff_band(D, F) != 0.
+extern "C" int sav_int8_ff_dx(const void* g, const void* hpre, const void* w2c,
+                              const float* s2, const void* w1c,
+                              const float* s1, void* dy, void* dh, int M,
+                              int dim, int hidden, void* stream) {
+  using namespace sav::q8ff;
+  DxArgs p = {(const sav::bf16*)g, (const sav::bf16*)hpre, (const int8_t*)w2c,
+              s2, (const int8_t*)w1c, s1, (sav::bf16*)dy, (sav::bf16*)dh, M,
+              dim, hidden};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int bm = sav_int8_ff_band(dim, hidden);
+  if (bm == 48) return launch_dx<48>(p, st);
+  if (bm == 16) return launch_dx<16>(p, st);
   return (int)cudaErrorInvalidValue;
 }

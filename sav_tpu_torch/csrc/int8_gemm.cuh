@@ -1,5 +1,6 @@
 // Int8 building blocks shared by the int8 ports: K10 (fused_attention_q8.cu),
-// K12 and K13 (int8_ff.cu), K15 (int8_matmul.cu).
+// K11 (th_attention_q8.cu), K12, K13 and K14 (int8_ff.cu), K15
+// (int8_matmul.cu).
 //
 //  * The symmetric quantiser of sav_tpu/ops/int8_matmul_kernel.py::
 //    _quantize_tile, in f32: scale = max(absmax, 1e-8) / 127 (an IEEE
@@ -24,7 +25,7 @@
 //  * quantize_blocks_kernel: K15's per-(row, 256-wide k-block) codes.
 //  * gemm_s8_kernel: a 128 x 128 output tile per block over 64-byte
 //    contraction stages in a 4-deep cp.async ring, 8 warps of 64 x 32,
-//    with the epilogues of K10's projections and of K15.
+//    with the epilogues of K10's and K11's projections and of K15.
 // Rows past M and columns past N load as zeros and are never stored.
 #pragma once
 
@@ -204,8 +205,14 @@ struct GemmS8Args {
   float q_scale;
 };
 
-// grid (ceil(n_all / 128), ceil(M / 128)); for kQkv n_all = 3 * n_each and
-// n_each % 128 == 0, else n_all = n_each (any multiple of 2).
+// grid (gemm_s8_tiles<kEpi>(n_each), ceil(M / 128)): for kQkv each of the
+// three outputs has its own ceil(n_each / 128) column tiles, so n_each need
+// only be even (K11's H*48 = 192 at cait_xxs as well as K10's H*64).
+template <Epilogue kEpi>
+__host__ __device__ __forceinline__ int gemm_s8_tiles(int n_each) {
+  return (kEpi == kQkv ? 3 : 1) * ((n_each + TN - 1) / TN);
+}
+
 template <Epilogue kEpi>
 __global__ void __launch_bounds__(256)
 gemm_s8_kernel(const GemmS8Args p) {
@@ -217,8 +224,9 @@ gemm_s8_kernel(const GemmS8Args p) {
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * TM;
-  const int which = kEpi == kQkv ? blockIdx.x * TN / p.n_each : 0;
-  const int n0 = blockIdx.x * TN - which * p.n_each;
+  const int tiles = (p.n_each + TN - 1) / TN;
+  const int which = kEpi == kQkv ? blockIdx.x / tiles : 0;
+  const int n0 = (blockIdx.x - which * tiles) * TN;
   const int8_t* B = p.bt[which];
   const int K = p.K, M = p.M, N = p.n_each;
   const int k_tiles = K / TK;

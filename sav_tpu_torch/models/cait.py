@@ -17,6 +17,14 @@ built for raise there), and through the per-op path elsewhere;
 ``'fused_th_xla'`` is the span with the plain core (the yardstick of the
 kernels); ``False`` the per-op path. The 1-query class attention always
 takes the plain path, as in the JAX package.
+
+``quantized`` (the JAX package's int8 routes of the body; the class-attention
+blocks stay unquantized): ``'ff'`` runs each body FF on K12, ``'ff_sb'``
+the same with the SwitchBack backward (K14), ``True`` the library int8 FF
+path, and ``'all'`` (serving only) adds int8 projections to every body
+block that takes the talking-heads span (``th_attention_sublayer_q8``: K11
+where the JAX package's ``th_supported`` holds, else the bf16 span), with
+its FF on K12.
 """
 
 from __future__ import annotations
@@ -33,10 +41,11 @@ from sav_tpu_torch.nn.normalization import LayerScaleBlock
 from sav_tpu_torch.nn.posembed import AddAbsPosEmbed
 from sav_tpu_torch.nn.regularization import StochasticDepthBlock
 from sav_tpu_torch.nn.stems import PatchEmbedBlock
-from sav_tpu_torch.ops import int8_ff, th_attention
+from sav_tpu_torch.ops import th_attention
 from sav_tpu_torch.ops.fused_layer import LN_EPS
 
 USE_KERNEL = (False, 'auto', 'fused_th', 'fused_th_xla')
+QUANTIZED = (False, True, 'ff', 'ff_sb', 'all')
 
 
 def _check_use_kernel(use_kernel) -> None:
@@ -69,6 +78,8 @@ class EncoderBlock(nn.Module):
         super().__init__()
         _check_use_kernel(use_kernel)
         self.num_heads, self.dtype, self.use_kernel = num_heads, dtype, use_kernel
+        self.quantized = quantized
+        self.int8_core = 'kernel'         # or 'plain': models.set_int8_core
         self.LayerNorm_0 = LayerNorm(dim, dtype)
         self.SelfAttentionBlock_0 = SelfAttentionBlock(
             dim, num_heads, dtype=dtype,
@@ -76,9 +87,12 @@ class EncoderBlock(nn.Module):
         self.LayerScaleBlock_0 = LayerScaleBlock(dim, layerscale_eps, dtype)
         self.StochasticDepthBlock_0 = StochasticDepthBlock(stoch_depth_rate)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
-        # 'ff' runs the bare int8 FF kernel (K12): LayerScale sits between
-        # the FF and the residual, so the LN-fused span (K13) does not apply
-        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype, quantized=quantized)
+        # 'ff' (and 'all') run the bare int8 FF kernel (K12): LayerScale
+        # sits between the FF and the residual, so the LN-fused span (K13)
+        # does not apply
+        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype,
+                                 quantized='ff' if quantized == 'all'
+                                 else quantized)
         self.LayerScaleBlock_1 = LayerScaleBlock(dim, layerscale_eps, dtype)
         self.StochasticDepthBlock_1 = StochasticDepthBlock(stoch_depth_rate)
 
@@ -104,13 +118,18 @@ class EncoderBlock(nn.Module):
             attn = self.SelfAttentionBlock_0
             # residual=False: LayerScale and stochastic depth sit between
             # the sublayer and the skip connection
-            x = th_attention.th_attention_sublayer(
-                inputs.to(self.dtype), self.LayerNorm_0.scale,
-                self.LayerNorm_0.bias, attn.queries.kernel, attn.keys.kernel,
-                attn.values.kernel, attn.DenseGeneral_0.kernel,
-                attn.TalkingHeadsBlock_0.talking_heads_transform,
-                attn.TalkingHeadsBlock_1.talking_heads_transform,
-                self.num_heads, LN_EPS, False, route)
+            args = (inputs.to(self.dtype), self.LayerNorm_0.scale,
+                    self.LayerNorm_0.bias, attn.queries.kernel,
+                    attn.keys.kernel, attn.values.kernel,
+                    attn.DenseGeneral_0.kernel,
+                    attn.TalkingHeadsBlock_0.talking_heads_transform,
+                    attn.TalkingHeadsBlock_1.talking_heads_transform,
+                    self.num_heads, LN_EPS, False, route)
+            if self.quantized == 'all':
+                x = th_attention.th_attention_sublayer_q8(
+                    *args, core=self.int8_core)
+            else:
+                x = th_attention.th_attention_sublayer(*args)
         else:
             x = self.SelfAttentionBlock_0(self.LayerNorm_0(inputs))
         x = self.StochasticDepthBlock_0(self.LayerScaleBlock_0(x)) + inputs
@@ -184,15 +203,8 @@ class CaiT(nn.Module):
             raise NotImplementedError(
                 'scan_layers=True is not ported yet (the scan-stacked layout: '
                 'ROADMAP.md Queue 1 item 1)')
-        if quantized == 'all':
-            raise NotImplementedError(
-                "CaiT quantized='all' runs the talking-heads attention on "
-                'K11 (int8 projections), which is not ported yet (ROADMAP.md '
-                "Queue 2 item 6); quantized='ff' quantizes the FF blocks")
-        if quantized == 'ff_sb':
-            raise NotImplementedError(int8_ff.SWITCHBACK_REFUSAL)
-        if quantized not in (False, True, 'ff'):
-            raise ValueError(f"CaiT quantized must be False, True or 'ff', "
+        if quantized not in QUANTIZED:
+            raise ValueError(f'CaiT quantized must be one of {QUANTIZED}, '
                              f'got {quantized!r}')
         if embed_dim % num_heads:
             raise ValueError(f'embed_dim {embed_dim} is not divisible by '

@@ -112,7 +112,7 @@ def create_model(model_name: str, num_classes: int = 1000,
 
 def set_int8_core(model: torch.nn.Module, core: str) -> None:
     """``'kernel'`` or ``'plain'``: what every int8 block of a built model
-    runs, the kernels (K10, K12, K13) or their twins on the same autograd
+    runs, the kernels (K10-K14) or their twins on the same autograd
     boundaries (the card's reference for them), on the same weights."""
     from sav_tpu_torch.ops.int8_ff import CORES
     if core not in CORES:

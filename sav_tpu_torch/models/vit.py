@@ -32,10 +32,14 @@ PER_OP_MODES = (False, True, 'kernel', 'hybrid', 'auto')
 # Function with the K16 backward (ops.fused_layer.ff_sublayer)
 FUSED_FF = 'fused_ff'
 # int8 routes (JAX's ``quantized``): 'ff' runs LN_1 -> FF -> residual on
-# K13 (ops.int8_ff.int8_ff_sublayer); 'all' adds K10 for the attention
-# sublayer wherever a fused core is chosen (serving only); True runs both FF
-# products through the library int8 path (QuantizedDense)
-QUANTIZED = (False, True, 'ff', 'all')
+# K13 (ops.int8_ff.int8_ff_sublayer); 'ff_sb' is the same forward with the
+# SwitchBack backward on K14 (int8_ff_sublayer_sb); 'all' adds K10 for the
+# attention sublayer wherever a fused core is chosen (serving only); True
+# runs both FF products through the library int8 path (QuantizedDense)
+QUANTIZED = (False, True, 'ff', 'ff_sb', 'all')
+INT8_FF_SUBLAYER = {'ff': int8_ff.int8_ff_sublayer,
+                    'ff_sb': int8_ff.int8_ff_sublayer_sb,
+                    'all': int8_ff.int8_ff_sublayer}
 
 
 def _check_use_kernel(use_kernel) -> None:
@@ -46,8 +50,6 @@ def _check_use_kernel(use_kernel) -> None:
 
 
 def _check_quantized(quantized, use_kernel) -> None:
-    if quantized == 'ff_sb':
-        raise NotImplementedError(int8_ff.SWITCHBACK_REFUSAL)
     if quantized not in QUANTIZED:
         raise ValueError(f'quantized must be one of {QUANTIZED}, got '
                          f'{quantized!r}')
@@ -93,7 +95,7 @@ class EncoderBlock(nn.Module):
             x = self._fused_attention_sublayer(inputs, core)
         else:
             x = self.SelfAttentionBlock_0(self.LayerNorm_0(inputs)) + inputs
-        if self.quantized in ('ff', 'all'):
+        if self.quantized in INT8_FF_SUBLAYER:
             return self._int8_ff_sublayer(x)
         if self.use_kernel == FUSED_FF:
             return self._ff_sublayer(x)
@@ -117,10 +119,11 @@ class EncoderBlock(nn.Module):
 
     def _int8_ff_sublayer(self, x):
         """LN_1 -> int8 FF -> residual as one autograd Function on K13
-        (``ops.int8_ff.int8_ff_sublayer``), on the same parameters as the
-        per-op path."""
+        (``ops.int8_ff.int8_ff_sublayer``; with 'ff_sb'
+        ``int8_ff_sublayer_sb``, whose backward runs K14), on the same
+        parameters as the per-op path."""
         ff = self.FFBlock_0
-        return int8_ff.int8_ff_sublayer(
+        return INT8_FF_SUBLAYER[self.quantized](
             x.to(self.dtype), self.LayerNorm_1.scale, self.LayerNorm_1.bias,
             ff.Dense_0.kernel, ff.Dense_0.bias, ff.Dense_1.kernel,
             ff.Dense_1.bias, fused_layer.LN_EPS, self.int8_core)

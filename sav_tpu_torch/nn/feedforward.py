@@ -13,7 +13,7 @@ from sav_tpu_torch.nn.layers import Dense
 from sav_tpu_torch.nn.quantized_dense import QuantizedDense
 from sav_tpu_torch.ops import int8_ff
 
-QUANTIZED = (False, True, 'ff')
+QUANTIZED = (False, True, 'ff', 'ff_sb')
 
 
 class FFBlock(nn.Module):
@@ -23,16 +23,14 @@ class FFBlock(nn.Module):
     ``quantized=True`` runs both products through the library int8 path
     (``QuantizedDense``); ``quantized='ff'`` runs the whole block as one
     int8 kernel (K12, ``ops.int8_ff.int8_ff``) on W1 and W2 cast to
-    ``dtype``. The parameters are ``Dense_0``/``Dense_1`` on every route.
-    ``'ff_sb'`` (the SwitchBack backward) needs K14 and raises.
-    ``int8_core`` ('kernel' or 'plain', ``models.set_int8_core``) picks
-    K12 or its twin for ``'ff'``."""
+    ``dtype``; ``'ff_sb'`` is the same forward with the SwitchBack
+    backward (both dx products int8 on K14). The parameters are
+    ``Dense_0``/``Dense_1`` on every route. ``int8_core`` ('kernel' or
+    'plain', ``models.set_int8_core``) picks the kernels or their twins."""
 
     def __init__(self, in_ch: int, expand_ratio: float = 4,
                  dtype=torch.float32, quantized: Union[bool, str] = False):
         super().__init__()
-        if quantized == 'ff_sb':
-            raise NotImplementedError(int8_ff.SWITCHBACK_REFUSAL)
         if quantized not in QUANTIZED:
             raise ValueError(f'FFBlock quantized must be one of {QUANTIZED}, '
                              f'got {quantized!r}')
@@ -44,10 +42,11 @@ class FFBlock(nn.Module):
         self.Dense_1 = dense(hidden, in_ch, dtype=dtype)
 
     def forward(self, inputs):
-        if self.quantized == 'ff':
+        if self.quantized in ('ff', 'ff_sb'):
             d0, d1 = self.Dense_0, self.Dense_1
             return int8_ff.int8_ff(inputs.to(self.dtype),
                                    d0.kernel.to(self.dtype), d0.bias,
                                    d1.kernel.to(self.dtype), d1.bias,
+                                   switchback=self.quantized == 'ff_sb',
                                    core=self.int8_core)
         return self.Dense_1(F.gelu(self.Dense_0(inputs), approximate='tanh'))

@@ -18,8 +18,15 @@ straight-through backward ``_ff_bwd``; ``int8_ff_sublayer`` (LN + FF +
 residual, one boundary: ViT's ``'ff'``/``'all'``) has ``_sublayer_bwd``,
 bf16 [M, 4D] elementwise work, f32-accumulated weight gradients, and the
 LayerNorm backward from statistics recomputed from x. Both backwards are
-library work on the stored bf16 hpre. The SwitchBack backward (K14) is not
-ported: ``switchback=True`` and ``int8_ff_sublayer_sb`` raise.
+library work on the stored bf16 hpre.
+
+The SwitchBack backward (``int8_ff(switchback=True)``: ``_ff_sb_bwd``;
+``int8_ff_sublayer_sb``: ``_sublayer_sb_bwd``) runs both dx products in
+int8 on K14 (``int8_ff_dx_raw``, the port of ``_ff_dx_kernel``): g's codes
+times W2's codes per IN row, gelu' of the stored hpre, dh's codes times
+W1's codes per IN row, returning dy and the bf16 dh. The weight gradients
+stay bf16 products with f32 sums, as in the JAX package. Its plain twin is
+``int8_ff_dx_reference``.
 """
 
 from __future__ import annotations
@@ -39,9 +46,6 @@ from sav_tpu_torch.ops.quantized import int_matmul, quantize_symmetric
 _GELU_C = 0.7978845608028654        # sqrt(2/pi) as f32 rounds it
 _GELU_A = 0.044715
 CORES = ('kernel', 'plain')
-SWITCHBACK_REFUSAL = (
-    "quantized='ff_sb' (the SwitchBack backward) runs the int8 dx kernel K14, "
-    'which is not ported yet (ROADMAP.md Queue 2 item 7)')
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +60,18 @@ def gelu_vjp(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The cotangent of ``gelu`` at x for the output cotangent g, in x's
     dtype (K16's closed form of gelu')."""
     return g * _gelu_bwd_from_t(x, _gelu_fwd_t(x)[1])
+
+
+def gelu_vjp_f32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``gelu`` at f32 x for the f32 output cotangent g,
+    in the operation order of ``jax.vjp(jax.nn.gelu)``'s f32 graph (K14's
+    and its twin's): e = 3 x^2; i = tanh(c (x + a x^3)); p = (0.5 (x g))
+    (1 - i); s = c (p + p i); (g (0.5 (1 + i)) + s) + (a s) e."""
+    x2 = x * x
+    i = torch.tanh(_GELU_C * (x + _GELU_A * (x * x2)))
+    p = (0.5 * (x * g)) * (1.0 - i)
+    s = _GELU_C * (p + p * i)
+    return (g * (0.5 * (1.0 + i)) + s) + (_GELU_A * s) * (3.0 * x2)
 
 
 def _ff_body(xq, xs, w1_q, s1, b1, w2_q, s2, b2):
@@ -92,6 +108,9 @@ def _ff_lib(name):
     if fn.argtypes is None:
         if name == 'sav_int8_ff_band':
             fn.argtypes = [ctypes.c_int] * 2
+        elif name == 'sav_int8_ff_dx':
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
         else:
             fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_void_p])
@@ -193,6 +212,7 @@ class _Int8FFCore(torch.autograd.Function):
         y, hpre = _raw(core, False)(x, w1_q, s1, b1, w2_q, s2, b2,
                                     save_hpre=True)
         ctx.save_for_backward(x, w1, b1, w2, b2, hpre)
+        ctx.core = core
         return y
 
     @staticmethod
@@ -213,14 +233,15 @@ class _Int8FFCore(torch.autograd.Function):
 
 def int8_ff(x, w1, b1, w2, b2, switchback: bool = False, core='kernel'):
     """Quantized FF sublayer body (K12); x [..., D] -> [..., D].
-    ``core='plain'`` runs the same function on K12's twin on any device
-    (the card's reference for the kernel)."""
-    if switchback:
-        raise NotImplementedError(SWITCHBACK_REFUSAL)
+    ``switchback`` swaps the straight-through backward for the SwitchBack
+    one (dx products int8 on K14, weight gradients bf16); the forward is
+    the same. ``core='plain'`` runs the same function on the twins of K12
+    and K14 on any device (the card's reference for the kernels)."""
     flat = x.reshape(-1, x.shape[-1])
     args = (flat, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        out = _Int8FFCore.apply(*args, core)
+        fn = _Int8FFCoreSB if switchback else _Int8FFCore
+        out = fn.apply(*args, core)
     else:
         w1_q, s1, w2_q, s2 = _quantized_weights(w1, w2)
         out = _raw(core, False)(flat, w1_q, s1, b1, w2_q, s2, b2)
@@ -250,7 +271,7 @@ class _Int8FFSublayer(torch.autograd.Function):
         out, hpre = _raw(core, True)(flat, scale, bias, w1_q, s1, b1, w2_q,
                                      s2, b2, eps=eps, save_hpre=True)
         ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2, hpre)
-        ctx.eps = eps
+        ctx.eps, ctx.core = eps, core
         return out.reshape(x.shape)
 
     @staticmethod
@@ -294,6 +315,148 @@ def int8_ff_sublayer(x, scale, bias, w1, b1, w2, b2, eps=LN_EPS,
     return out.reshape(x.shape)
 
 
-def int8_ff_sublayer_sb(*args, **kwargs):
-    """``int8_ff_sublayer`` with the SwitchBack backward: needs K14."""
-    raise NotImplementedError(SWITCHBACK_REFUSAL)
+# ------------------------- SwitchBack backward (K14: both dx products int8)
+
+def _dx_quantized(w):
+    """Codes of ``w [in, out]`` for its dx product ``g @ w^T``: the
+    contraction runs over the OUT axis, so the scales are per IN row.
+    Returns (codes ``[out, in]``, a transposed view of the ``[in, out]``
+    codes, which are the k-contiguous B operand K14 reads as they are;
+    scales ``[1, in]`` f32)."""
+    wq, s = quantize_symmetric(w.float(), axis=1)
+    return wq.t(), s.reshape(1, -1)
+
+
+def int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t):
+    """Plain twin of ``int8_ff_dx_raw``, step for step as the JAX twin:
+    g's codes per row, dgact = f32(gq W2t) * (gs * s2t), dh = gelu'(hpre)
+    * dgact in f32, dh's codes per row over all F, dy2 = f32(dhq W1t) *
+    (dhs * s1t) in g's dtype. Returns (dy2, dh in bf16)."""
+    gq, gs = _quantize_tile(g)
+    dgact = int_matmul(gq, w2t_q).float() * (gs * s2t)
+    dh = gelu_vjp_f32(hpre.float(), dgact)
+    dhq, dhs = _quantize_tile(dh)
+    dy2 = int_matmul(dhq, w1t_q).float() * (dhs * s1t)
+    return dy2.to(g.dtype), dh.to(torch.bfloat16)
+
+
+def int8_ff_dx_raw(g, hpre, w1t_q, s1t, w2t_q, s2t):
+    """Port of K14: the dx path of the FF backward, both products int8.
+
+    g ``[M, D]`` output cotangent; hpre ``[M, F]`` the forward's stored
+    pre-activation; w2t_q ``[D, F]`` / w1t_q ``[F, D]`` and their scales
+    ``[1, F]`` / ``[1, D]`` from ``_dx_quantized``. Returns (dy2 ``[M, D]``
+    in g's dtype, dh ``[M, F]`` bf16). On a CUDA tensor one launch
+    (``csrc/int8_ff.cu``): bf16 g and hpre, D and F multiples of 64, any M
+    (the ragged last band is masked in the kernel; nothing is padded or
+    copied). On a CPU tensor: the twin."""
+    if g.device.type == 'cpu':
+        return int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
+    if g.device.type != 'cuda':
+        raise ValueError(f'int8_ff_dx_raw runs on cuda or cpu, not {g.device}')
+    fa.check_no_grad(g, hpre)
+    fa.check_cuda_bf16('g', g, g.device)
+    fa.check_cuda_bf16('hpre', hpre, g.device)
+    m, d = g.shape
+    f = hpre.shape[1]
+    if hpre.shape[0] != m:
+        raise ValueError(f'hpre has {hpre.shape[0]} rows, g has {m}')
+    for name, t, shape in (('w2t_q', w2t_q, (d, f)), ('w1t_q', w1t_q, (f, d))):
+        if t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    if m < 1 or d % 64 or f % 64:
+        raise ValueError(f'int8_ff_dx_raw needs M >= 1 and D, F multiples of '
+                         f'64, got M={m}, D={d}, F={f}')
+    if _ff_lib('sav_int8_ff_band')(d, f) == 0:
+        raise ValueError(f'int8_ff_dx_raw: a 16-row band of D={d}, F={f} '
+                         "codes does not fit one block's shared memory")
+    dev = g.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    # the per-IN-row codes [F, D] and [D, F], k-contiguous: no copy when
+    # they come from _dx_quantized
+    w2c, w1c = w2t_q.t().contiguous(), w1t_q.t().contiguous()
+    dy2 = torch.empty_like(g)
+    dh = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+    args = [g, hpre, w2c, vec(s2t, f), w1c, vec(s1t, d), dy2, dh]
+    with torch.cuda.device(dev):
+        fn = _ff_lib('sav_int8_ff_dx')
+        err = fn(*[t.data_ptr() for t in args], m, d, f, fa.stream_of(dev))
+    _build.check(err, 'int8_ff_dx_raw')
+    _build.count('int8_ff_dx')
+    return dy2, dh
+
+
+def _dx(core):
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
+    return int8_ff_dx_raw if core == 'kernel' else int8_ff_dx_reference
+
+
+def _switchback_dx(g2, hpre, w1, w2, core):
+    """(dy2, dh in g2's dtype) of the SwitchBack backward from the f32 or
+    bf16 weights."""
+    w1t_q, s1t = _dx_quantized(w1)
+    w2t_q, s2t = _dx_quantized(w2)
+    dy2, dh = _dx(core)(g2.contiguous(), hpre, w1t_q, s1t, w2t_q, s2t)
+    return dy2, dh.to(g2.dtype)
+
+
+def _switchback_wgrads(a, g2, hpre, dh):
+    """(dw1, db1, dw2, db2) in f32: bf16 products with f32 sums, as
+    ``_ff_sb_bwd``/``_sublayer_sb_bwd``; gelu(hpre) in the compute dtype."""
+    cdt = g2.dtype
+    dw1 = _wgrad(a, dh)
+    db1 = dh.float().sum(dim=0)
+    dw2 = _wgrad(gelu(hpre.to(cdt)), g2)
+    db2 = g2.float().sum(dim=0)
+    return dw1, db1, dw2, db2
+
+
+class _Int8FFCoreSB(_Int8FFCore):
+    """``_int8_ff_core_sb``: the same forward (``_ff_fwd``), the
+    SwitchBack backward ``_ff_sb_bwd`` (K14)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, hpre = ctx.saved_tensors
+        gf = g.to(x.dtype)
+        dx, dh = _switchback_dx(gf, hpre, w1, w2, ctx.core)
+        dw1, db1, dw2, db2 = _switchback_wgrads(x, gf, hpre, dh)
+        return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype), None)
+
+
+class _Int8FFSublayerSB(_Int8FFSublayer):
+    """``int8_ff_sublayer_sb``'s ``_sublayer_sb_fwd``/``_sublayer_sb_bwd``:
+    the same forward (K13's training variant), then the LayerNorm
+    statistics recomputed from x, both dx products on K14, bf16 weight
+    gradients with f32 sums, the LayerNorm backward and the skip."""
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, w1, b1, w2, b2, hpre = ctx.saved_tensors
+        cdt = x.dtype
+        shape3 = x.shape
+        xf = x.reshape(-1, shape3[-1])
+        gf = g.reshape(-1, shape3[-1]).to(cdt)
+        y2, xhat, inv = _layernorm(xf, scale, bias, ctx.eps)
+        dy2, dh = _switchback_dx(gf, hpre, w1, w2, ctx.core)
+        dw1, db1, dw2, db2 = _switchback_wgrads(y2, gf, hpre, dh)
+        dx_ln, dscale, dbias = _layernorm_bwd_flat(dy2, xhat, inv, scale)
+        dx = (dx_ln + gf.float()).to(cdt)
+        return (dx.reshape(shape3), dscale.to(scale.dtype),
+                dbias.to(bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype), None, None)
+
+
+def int8_ff_sublayer_sb(x, scale, bias, w1, b1, w2, b2, eps=LN_EPS,
+                        core='kernel'):
+    """``int8_ff_sublayer`` with the SwitchBack backward: the same K13
+    forward, the dx products int8 on K14, the weight gradients bf16 with
+    f32 sums. ``core='plain'`` runs the same Function on the twins of K13
+    and K14 on any device."""
+    args = (x, scale, bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Int8FFSublayerSB.apply(*args, eps, core)
+    return int8_ff_sublayer(x, scale, bias, w1, b1, w2, b2, eps, core)

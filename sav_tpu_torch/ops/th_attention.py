@@ -25,6 +25,13 @@ each kernel wrapper launches its hand-written kernel
 twin. head_ch 48 is taken as it is: the kernels tile d = 48 as three
 16-deep k-steps of ``mma.sync`` and six 8-wide n-tiles, so nothing is
 padded to 64 (the JAX package's ``_pad_weights`` has no counterpart).
+
+CaiT's ``quantized='all'`` serving span is ``th_attention_sublayer_q8``:
+where the JAX package's ``th_supported`` holds, the port of K11
+``_th_q8_kernel`` (``th_attention_q8``, ``csrc/th_attention_q8.cu``; twin
+``th_q8_reference``): LN in f32, one set of per-row codes for the int8
+q/k/v projections, K5a's core, int8 out-projection; elsewhere the bf16 span
+above, as the JAX package falls back. Serving only: no backward.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ import torch
 from sav_tpu_torch import _build
 from sav_tpu_torch.ops import flash_attention as fa
 from sav_tpu_torch.ops.fused_layer import (GEMM_TILE, LN_EPS, _layernorm,
-                                           _layernorm_bwd, _project_qkv,
-                                           _wgrad)
+                                           _layernorm_bwd, _ln_f32,
+                                           _project_qkv, _q8_weights, _wgrad)
+from sav_tpu_torch.ops.int8_matmul_kernel import _quantize_tile
+from sav_tpu_torch.ops.quantized import int_matmul
 
 ROUTES = ('fused', 'blocked', 'xla')
 HEAD_CH = 48                # the kernels' head width (every CaiT config)
@@ -99,8 +108,8 @@ def th_route(l: int, heads: int, head_ch: int, dim: int, device):
         raise NotImplementedError(
             f'{heads} heads of {head_ch}: the talking-heads kernels are built '
             f'for H in {KERNEL_HEADS} heads of {HEAD_CH} (H = 6 and 16 are '
-            f'ROADMAP.md Queue 2, K5/K6); use_kernel=False runs the per-op '
-            f'path')
+            f'ROADMAP.md Queue 2 item 9, K5/K6 and K11); use_kernel=False '
+            f'runs the per-op path')
     return 'fused' if fused_fits(l, heads, dim, device) else 'blocked'
 
 
@@ -493,3 +502,156 @@ def th_attention_sublayer(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _THSublayer.apply(*args, num_heads, route, eps, residual)
     return _forward(*args, num_heads, route, eps, residual, False)[0]
+
+
+# ------------------------- int8 serving forward (K11): projections in int8
+
+# the JAX package's geometry test of its unrolled TH kernels (lane band and
+# the cap on one f32 logit list); copied, not imported
+BAND = 64
+_MAX_LIST_BYTES = int(3.5 * 1024 * 1024)
+SERVING_ONLY = (
+    "CaiT quantized='all' runs the talking-heads span on K11, a serving-only "
+    'forward with no backward (as in the JAX package); call it under '
+    'torch.no_grad() or torch.inference_mode(), and train with '
+    "quantized='ff' or 'ff_sb'")
+
+
+def th_supported(l: int, num_heads: int, head_ch: int) -> bool:
+    """The JAX package's ``th_supported``: head_ch <= 64 and one f32 list
+    of H lane-padded logit tiles within 3.5 MB. Under ``quantized='all'``
+    it decides WHAT is computed, as in the JAX package: the int8 span (K11)
+    where it holds, the bf16 span where it does not (CaiT @384). It is not
+    a speed threshold and says nothing about the card: the port's K11 takes
+    any length (K5a's core where the logit rows fit shared memory, K6a's
+    two sweeps where they do not)."""
+    lp = max(-(-l // 16) * 16, 64)
+    lanes = -(-l // 128) * 128
+    return head_ch <= BAND and num_heads * lp * lanes * 4 <= _MAX_LIST_BYTES
+
+
+def th_q8_reference(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
+                    m_pre, m_post, heads: int, eps: float = LN_EPS,
+                    residual: bool = False):
+    """Plain twin of ``th_attention_q8``, following ``_th_q8_kernel``: LN in
+    f32, never rounded to x's dtype, one per-row quantisation of it for q,
+    k and v; q = (f32(acc) * (ys * sq)) * (1 / sqrt(d)) and k, v rounded to
+    x's dtype; the core of ``th_core_fwd_plain`` (f32 logits and mixes, a
+    whole-row softmax p / sum p, the post-mixed probabilities rounded to
+    x's dtype for the PV product); the bands in x's dtype quantised per row
+    over H*d; f32(aq Wo) * (as * so), + x with ``residual``."""
+    b, l, dim = x.shape
+    hd = wq_q.shape[1]
+    dt = x.dtype
+    xf, y = _ln_f32(x.reshape(b * l, dim), scale, bias, eps)
+    yq, ys = _quantize_tile(y)
+
+    def proj(w_q, s):
+        return int_matmul(yq, w_q).float() * (ys * s)
+
+    q = (proj(wq_q, sq) * (1.0 / (hd // heads) ** 0.5)).to(dt)
+    bands = [t.reshape(b, l, hd) for t in
+             (q, proj(wk_q, sk).to(dt), proj(wv_q, sv).to(dt))]
+    attn, _ = th_core_fwd_plain(*bands, m_pre, m_post, heads)
+    aq, a_s = _quantize_tile(attn.reshape(b * l, hd))
+    out = int_matmul(aq, wo_q).float() * (a_s * so)
+    if residual:
+        out = xf + out
+    return out.to(dt).reshape(b, l, dim)
+
+
+def _k11_lib():
+    fn = _build.library('th_attention_q8').sav_th_attention_q8
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def th_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
+                    m_pre, m_post, heads: int, eps: float = LN_EPS,
+                    residual: bool = False):
+    """Port of K11: ``W_o @ TalkingHeadsMHA(LN(x))`` (+x with
+    ``residual``) with int8 projections, serving only (raises under
+    autograd).
+
+    x ``[B, L, D]``; wq_q, wk_q, wv_q ``[D, H*48]`` and wo_q ``[H*48, D]``
+    int8 codes with per-column f32 scales ``[1, H*48]`` / ``[1, D]``;
+    m_pre, m_post ``[H, H]``. On a CUDA tensor: five launches
+    (``csrc/th_attention_q8.cu``), bf16 x, H in ``KERNEL_HEADS``, D a
+    multiple of 64, any L; the codes transposed per call (the s8 mma reads
+    B k-major). On a CPU tensor: the plain twin.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias, m_pre, m_post)):
+        raise RuntimeError(SERVING_ONLY)
+    if x.device.type == 'cpu':
+        return th_q8_reference(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv,
+                               wo_q, so, m_pre, m_post, heads, eps, residual)
+    if x.device.type != 'cuda':
+        raise ValueError(f'th_attention_q8 runs on cuda or cpu, not {x.device}')
+    fa.check_cuda_bf16('x', x, x.device)
+    b, l, dim = x.shape
+    hd = heads * HEAD_CH
+    if not kernel_supported(heads, wq_q.shape[1] // heads) or dim % 64:
+        raise ValueError(f'th_attention_q8 takes H in {KERNEL_HEADS} heads of '
+                         f'{HEAD_CH} and D a multiple of 64, got H*d='
+                         f'{wq_q.shape[1]} over {heads} heads, D={dim}')
+    for name, t, shape in (('wq_q', wq_q, (dim, hd)), ('wk_q', wk_q, (dim, hd)),
+                           ('wv_q', wv_q, (dim, hd)), ('wo_q', wo_q, (hd, dim))):
+        if t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+    dev = x.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    codes = [w.t().contiguous() for w in (wq_q, wk_q, wv_q, wo_q)]
+    scales = [vec(sq, hd), vec(sk, hd), vec(sv, hd), vec(so, dim)]
+    mpre, mpost = _mixes(m_pre, m_post, heads, dev)
+    m = b * l
+    i8 = dict(dtype=torch.int8, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    yq, ys = torch.empty(m, dim, **i8), torch.empty(m, **f32)
+    qkva = [torch.empty(m, hd, dtype=x.dtype, device=dev) for _ in range(4)]
+    aq, a_s = torch.empty(m, hd, **i8), torch.empty(m, **f32)
+    out = torch.empty_like(x)
+    bufs = [x, vec(scale, dim), vec(bias, dim), *codes, *scales, mpre, mpost,
+            yq, ys, *qkva, aq, a_s, out]
+    with torch.cuda.device(dev):
+        err = _k11_lib()(*[t.data_ptr() for t in bufs], b, l, dim, heads,
+                         int(residual), eps, 1.0 / HEAD_CH ** 0.5,
+                         fa.stream_of(dev))
+    _build.check(err, 'th_attention_q8')
+    _build.count('th_attention_q8')
+    return out
+
+
+def th_attention_sublayer_q8(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
+                             num_heads: int, eps: float = LN_EPS,
+                             residual: bool = False, route: str = 'fused',
+                             core: str = 'kernel'):
+    """Serving-only ``W_o @ TalkingHeadsMHA(LN(x))`` (+x if ``residual``)
+    with int8 projections: the JAX package's ``th_attention_sublayer_q8``.
+
+    Same parameters as ``th_attention_sublayer``. Where ``th_supported``
+    holds: K11 (``th_attention_q8``; the twin on a CPU tensor, or on any
+    device with ``core='plain'`` or the plain ``route='xla'``). Where it
+    does not: the bf16 span on ``route``, as the JAX package falls back to
+    its bf16 span. Raises under autograd on either route.
+    """
+    if core not in ('kernel', 'plain'):
+        raise ValueError(f"core must be 'kernel' or 'plain', got {core!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad
+            for t in (x, scale, bias, wq, wk, wv, wo, m_pre, m_post)):
+        raise RuntimeError(SERVING_ONLY)
+    b, l, dim = x.shape
+    head_d = wq.shape[2]
+    if not th_supported(l, num_heads, head_d):
+        return th_attention_sublayer(x, scale, bias, wq, wk, wv, wo, m_pre,
+                                     m_post, num_heads, eps, residual, route)
+    codes = _q8_weights(wq, wk, wv, wo, dim, num_heads * head_d)
+    fwd = (th_attention_q8 if core == 'kernel' and route != 'xla'
+           else th_q8_reference)
+    return fwd(x, scale, bias, *[t for pair in codes for t in pair], m_pre,
+               m_post, num_heads, eps, residual)

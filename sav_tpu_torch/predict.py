@@ -111,7 +111,8 @@ def _parser():
                    help="int8 serving: 'ff' runs each FF sublayer as one "
                         "int8 kernel (K13 for ViT, K12 for the Mixer's and "
                         "CaiT's FF blocks); 'all' adds int8 attention "
-                        "projections (K10, ViT); 'int8' quantizes every FF "
+                        "projections (K10 for ViT, K11 for CaiT's "
+                        "talking-heads span); 'int8' quantizes every FF "
                         'product through the library int8 path. Weights '
                         'quantize on the fly, per call')
     p.add_argument('--device', default=None,

@@ -123,18 +123,15 @@ def check_ported(config: TrainConfig) -> None:
             raise NotImplementedError(
                 f'{name}={getattr(config, name)!r} is not ported to '
                 f'sav_tpu_torch yet ({item}, ROADMAP.md)')
-    if config.quantized == 'ff_sb':
-        raise NotImplementedError(
-            "quantized='ff_sb' (the SwitchBack backward) needs the int8 dx "
-            'kernel K14, not ported yet (ROADMAP.md Queue 2 item 7)')
     if config.quantized == 'all':
         raise ValueError(
-            "quantized='all' is serving-only: its attention kernel (K10) has "
-            'no backward, as in the JAX package, whose train.py does not '
-            "offer it; train with quantized='ff' or True (--quantized int8)")
-    if config.quantized not in (False, True, 'ff'):
-        raise ValueError(f"quantized must be False, True or 'ff', got "
-                         f'{config.quantized!r}')
+            "quantized='all' is serving-only: its attention kernels (K10, "
+            'K11) have no backward, as in the JAX package, whose train.py '
+            "does not offer it; train with quantized='ff', 'ff_sb' or True "
+            '(--quantized int8)')
+    if config.quantized not in (False, True, 'ff', 'ff_sb'):
+        raise ValueError(f"quantized must be False, True, 'ff' or 'ff_sb', "
+                         f'got {config.quantized!r}')
 
 
 class MetricLogger:

@@ -191,8 +191,11 @@ def test_init_is_seeded_and_refusals():
         create_model('cait_xxs_24', scan_layers=True, **kw)
     with pytest.raises(NotImplementedError, match='dropout'):
         create_model('cait_xxs_24', dropout_rate=0.1, **kw)
-    with pytest.raises(NotImplementedError, match='int8'):
-        create_model('cait_xxs_24', quantized='all', **kw)
+    with pytest.raises(ValueError, match='quantized'):
+        create_model('cait_xxs_24', quantized='int4', **kw)
+    # 'all' (K11) is ported: the body blocks take it, their FFs run 'ff'
+    quantized = create_model('cait_xxs_24', quantized='all', **kw)
+    assert quantized.Encoder_0.EncoderBlock_0.FFBlock_0.quantized == 'ff'
 
 
 def test_class_attention_block_matches_jax():

@@ -899,3 +899,180 @@ def test_int8_wrappers_refuse_and_count(card):
           for _ in range(3)] + [torch.zeros(2, 64, 128, device=card)]
     with pytest.raises(RuntimeError, match='serving-only'):
         fused_layer.attention_sublayer_q8(xs, ln[0], ln[1], *ws, 2)
+
+
+# ---- int8 slice 8: K11 (csrc/th_attention_q8.cu), K14 (csrc/int8_ff.cu)
+
+def _k11_case(rng, b, seq, dim, heads, card):
+    hd = heads * 48
+    w = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(card)
+    x = _bf16(rng, (b, seq, dim), 1.0, card)
+    ws = [w((dim, heads, 48), 4 / math.sqrt(dim)),
+          w((dim, heads, 48), 1 / math.sqrt(dim)),
+          w((dim, heads, 48), 1 / math.sqrt(dim)),
+          w((heads, 48, dim), 1 / math.sqrt(hd))]
+    mixes = [torch.eye(heads, device=card) + w((heads, heads), 0.3)
+             for _ in range(2)]
+    return x, 1.0 + w((dim,), 0.1), w((dim,), 0.1), ws, mixes
+
+
+@pytest.mark.parametrize('b,seq,dim,heads,residual', [
+    (2, 1, 384, 8, False), (2, 17, 192, 4, False), (3, 196, 384, 8, False),
+    (2, 196, 192, 4, True), (2, 250, 384, 8, False), (1, 300, 192, 4, False)])
+def test_th_attention_q8_matches_twin(card, b, seq, dim, heads, residual):
+    """K11 against its twin, through th_attention_sublayer_q8: the resident
+    core (L <= 224 at H = 8, <= 256 at H = 4) and the two-sweep one (L =
+    250 at H = 8, 300 at H = 4)."""
+    x, scale, bias, ws, mixes = _k11_case(np.random.RandomState(seq + dim), b,
+                                          seq, dim, heads, card)
+    assert th_attention.th_supported(seq, heads, 48)
+    with torch.no_grad():
+        got = th_attention.th_attention_sublayer_q8(
+            x, scale, bias, *ws, *mixes, heads, residual=residual)
+        want = th_attention.th_attention_sublayer_q8(
+            x, scale, bias, *ws, *mixes, heads, residual=residual,
+            core='plain')
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    _int8_check(got, want, x if residual else None)
+
+
+def test_th_attention_q8_off_geometry_and_refusals(card):
+    """Where th_supported fails (L = 576 at H = 8) 'all' is the bf16 span on
+    the route given (K6a here, no K11); the wrapper refuses an unbuilt head
+    count and autograd, and counts its launches."""
+    from sav_tpu_torch import _build
+    x, scale, bias, ws, mixes = _k11_case(np.random.RandomState(3), 1, 576,
+                                          384, 8, card)
+    _build.reset_launches()
+    with torch.no_grad():
+        th_attention.th_attention_sublayer_q8(x, scale, bias, *ws, *mixes, 8,
+                                              route='blocked')
+        assert _build.launches == {'th_core_fwd': 1}
+        x17 = x[:, :17].contiguous()
+        th_attention.th_attention_sublayer_q8(x17, scale, bias, *ws, *mixes, 8)
+    assert _build.launches == {'th_core_fwd': 1, 'th_attention_q8': 1}
+    codes = [t for pair in fused_layer._q8_weights(*ws, 384, 384)
+             for t in pair]
+    with pytest.raises(ValueError, match='heads'):
+        th_attention.th_attention_q8(x17, scale, bias, *codes, *mixes, 6)
+    with pytest.raises(ValueError, match='bfloat16'):
+        th_attention.th_attention_q8(x17.float(), scale, bias, *codes, *mixes,
+                                     8)
+    with pytest.raises(RuntimeError, match='serving-only'):
+        th_attention.th_attention_sublayer_q8(
+            x17, scale, bias, ws[0].requires_grad_(), *ws[1:], *mixes, 8)
+
+
+def test_cait_all_auto_raises_for_unbuilt_heads(card):
+    """'all' under 'auto' on the card: H = 6 (cait_xs) has no TH kernel, so
+    the block raises naming its ROADMAP item rather than run anything
+    unasked."""
+    from sav_tpu_torch.models import create_model
+    model = create_model('cait_xs_24', num_layers=1, num_layers_token_only=1,
+                         quantized='all', dtype=torch.bfloat16, device=card)
+    x = torch.zeros(1, 224, 224, 3, device=card, dtype=torch.bfloat16)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
+            model(x)
+
+
+def _k14_case(rng, m, d, f, card):
+    from sav_tpu_torch.ops import int8_ff
+    w = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(card)
+    g = _bf16(rng, (m, d), 0.02, card)
+    hpre = _bf16(rng, (m, f), 1.0, card)
+    return g, hpre, (*int8_ff._dx_quantized(w((d, f), 1 / math.sqrt(d))),
+                     *int8_ff._dx_quantized(w((f, d), 1 / math.sqrt(f))))
+
+
+@pytest.mark.parametrize('m,d,f', [(1, 768, 3072), (50, 128, 512),
+                                   (1003, 768, 3072), (130, 1024, 4096),
+                                   (200, 384, 1536)])
+def test_int8_ff_dx_matches_twin(card, m, d, f):
+    """K14 at ragged M (48-row bands) and at a width whose band is 16 rows
+    (D = 1024, F = 4096): dy2 and dh."""
+    from sav_tpu_torch.ops import int8_ff
+    g, hpre, w = _k14_case(np.random.RandomState(m + d), m, d, f, card)
+    dy2, dh = int8_ff.int8_ff_dx_raw(g, hpre, *w)
+    want = int8_ff.int8_ff_dx_reference(g, hpre, *w)
+    assert dy2.shape == (m, d) and dh.shape == (m, f)
+    _int8_check(dy2, want[0])
+    _int8_check(dh, want[1])
+
+
+def test_int8_ff_dx_writes_no_row_past_m(card):
+    from sav_tpu_torch.ops import flash_attention as fa
+    from sav_tpu_torch.ops import int8_ff
+    m, d, f = 1003, 768, 3072
+    g, hpre, (w1t_q, s1t, w2t_q, s2t) = _k14_case(np.random.RandomState(7), m,
+                                                  d, f, card)
+    dy = torch.full((m + 64, d), float('nan'), device=card,
+                    dtype=torch.bfloat16)
+    dh = torch.full((m + 64, f), float('nan'), device=card,
+                    dtype=torch.bfloat16)
+    # every buffer is held by a name until the launch has been synchronised
+    bufs = [g, hpre, w2t_q.t().contiguous(), s2t.reshape(-1).contiguous(),
+            w1t_q.t().contiguous(), s1t.reshape(-1).contiguous(), dy, dh]
+    err = int8_ff._ff_lib('sav_int8_ff_dx')(
+        *[t.data_ptr() for t in bufs], m, d, f, fa.stream_of(card))
+    torch.cuda.synchronize()
+    assert err == 0
+    want = int8_ff.int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
+    _int8_check(dy[:m], want[0])
+    _int8_check(dh[:m], want[1])
+    assert bool(torch.isnan(dy[m:]).all() and torch.isnan(dh[m:]).all())
+
+
+@pytest.mark.parametrize('sublayer', [True, False])
+def test_switchback_gradients_match_plain_core(card, sublayer):
+    """int8_ff_sublayer_sb (K13 + K14) and int8_ff(switchback=True) (K12 +
+    K14) against the same Functions on the twins: every gradient within
+    2e-2 of max, as the other int8 checks."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import int8_ff
+    rng = np.random.RandomState(11)
+    d, f = 768, 3072
+    x = _bf16(rng, (2, 197, d), 1.0, card)
+    w = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(card)
+    params = ([1.0 + w((d,), 0.1), w((d,), 0.1)] if sublayer else []) + [
+        w((d, f), 1 / math.sqrt(d)), w((f,), 0.1), w((f, d), 1 / math.sqrt(f)),
+        w((d,), 0.1)]
+    if not sublayer:
+        params = [params[0].bfloat16(), params[1], params[2].bfloat16(),
+                  params[3]]
+    g = _bf16(rng, (2, 197, d), 0.02, card)
+    grads = []
+    for core in ('kernel', 'plain'):
+        leaves = [x.clone().requires_grad_()] + [
+            p.clone().requires_grad_() for p in params]
+        _build.reset_launches()
+        if sublayer:
+            out = int8_ff.int8_ff_sublayer_sb(*leaves, core=core)
+        else:
+            out = int8_ff.int8_ff(*leaves, switchback=True, core=core)
+        out.backward(g)
+        if core == 'kernel':
+            fwd = 'int8_ff_ln_train' if sublayer else 'int8_ff_train'
+            assert _build.launches == {fwd: 1, 'int8_ff_dx': 1}
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert err <= 2e-2, err
+
+
+def test_int8_ff_dx_refuses(card):
+    from sav_tpu_torch.ops import int8_ff
+    g, hpre, w = _k14_case(np.random.RandomState(2), 64, 128, 512, card)
+    with pytest.raises(ValueError, match='bfloat16'):
+        int8_ff.int8_ff_dx_raw(g.float(), hpre, *w)
+    with pytest.raises(ValueError, match='rows'):
+        int8_ff.int8_ff_dx_raw(g, hpre[:32].contiguous(), *w)
+    with pytest.raises(ValueError, match='multiples of 64'):
+        int8_ff.int8_ff_dx_raw(g[:, :96].contiguous(), hpre, w[0][:, :96],
+                               w[1][:, :96], w[2][:96], w[3])
+    with pytest.raises(RuntimeError, match='forward-only'):
+        int8_ff.int8_ff_dx_raw(g.clone().requires_grad_(), hpre, *w)

@@ -175,10 +175,24 @@ def test_int8_ff_sublayer_gradients_match_jax():
 
 
 def test_switchback_refuses():
-    x = torch.zeros(2, D, dtype=torch.bfloat16)
-    w1, w2 = torch.zeros(D, F), torch.zeros(F, D)
-    with pytest.raises(NotImplementedError, match='K14'):
-        tff.int8_ff(x, w1, torch.zeros(F), w2, torch.zeros(D), switchback=True)
-    with pytest.raises(NotImplementedError, match='Queue 2 item 7'):
-        tff.int8_ff_sublayer_sb(x, torch.ones(D), torch.zeros(D), w1,
-                                torch.zeros(F), w2, torch.zeros(D))
+    """SwitchBack (K14, ported: test_torch_switchback.py holds it against
+    the JAX package) refuses only what it does not take: an unknown core,
+    and a device that is neither the card nor the CPU. Under no_grad it is
+    the 'ff' forward."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.standard_normal((2, D)).astype(np.float32))
+    w1 = torch.from_numpy((rng.standard_normal((D, F)) / np.sqrt(D)).astype(
+        np.float32))
+    w2 = torch.from_numpy((rng.standard_normal((F, D)) / np.sqrt(F)).astype(
+        np.float32))
+    b1, b2 = torch.zeros(F), torch.zeros(D)
+    with torch.no_grad():
+        assert torch.equal(tff.int8_ff(x, w1, b1, w2, b2, switchback=True),
+                           tff.int8_ff(x, w1, b1, w2, b2))
+    with pytest.raises(ValueError, match='core'):
+        tff.int8_ff(x, w1.requires_grad_(), b1, w2, b2, switchback=True,
+                    core='library').sum().backward()
+    g = torch.zeros(2, D, dtype=torch.bfloat16, device='meta')
+    codes = (*tff._dx_quantized(w1.detach()), *tff._dx_quantized(w2))
+    with pytest.raises(ValueError, match='cuda or cpu'):
+        tff.int8_ff_dx_raw(g, torch.zeros(2, F, device='meta'), *codes)

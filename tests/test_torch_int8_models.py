@@ -3,7 +3,8 @@ one flax tree: ViT ``quantized='ff'`` (K13), ``'all'`` through
 ``use_kernel='fused_layer'`` (K10 + K13), ``True`` (``--quantized int8``,
 the library int8 path); the Mixer's ``'ff'`` (K12 on the channel-mix FF);
 CaiT's ``'ff'`` (K12 behind LayerScale). The quantized models keep the
-unquantized tree's keys; the refusals name their ROADMAP items; the
+unquantized tree's keys; the refusals name their ROADMAP items, and the
+routes that replaced the last two (ViT ``'ff_sb'``, CaiT ``'all'``) build; the
 predict CLI serves ``--quantized ff`` on the CPU over JPEGs made by
 ``scripts/make_jpeg_dataset.py``.
 
@@ -133,11 +134,17 @@ def test_quantized_models_keep_the_tree(route):
 
 def test_int8_refusals_name_their_roadmap_items(tmp_path):
     kw = dict(device='cpu', num_layers=1, img_size=IMG)
-    with pytest.raises(NotImplementedError, match='K14.*Queue 2 item 7'):
-        create_model('vit_ti_patch16', quantized='ff_sb', **kw)
-    with pytest.raises(NotImplementedError, match='K11.*Queue 2 item 6'):
-        create_model('cait_xxs_24', quantized='all', num_layers_token_only=1,
-                     **kw)
+    # 'ff_sb' (K14) and CaiT 'all' (K11) are ported: they build, on the
+    # JAX package's blocks, and refuse nothing
+    vit_sb = create_model('vit_ti_patch16', quantized='ff_sb', **kw)
+    assert vit_sb.Encoder_0.EncoderBlock_0.quantized == 'ff_sb'
+    cait_all = create_model('cait_xxs_24', quantized='all',
+                            num_layers_token_only=1, **kw)
+    assert cait_all.Encoder_0.EncoderBlock_0.quantized == 'all'
+    assert cait_all.Encoder_0.EncoderBlock_0.FFBlock_0.quantized == 'ff'
+    for name in ('vit_ti_patch16', 'cait_xxs_24'):
+        with pytest.raises(ValueError, match='quantized'):
+            create_model(name, quantized='int4', **kw)
     for name in ('tnt_s_patch16', 'botnet_t3'):
         with pytest.raises(RuntimeError, match='no int8 path'):
             create_model(name, quantized='ff', device='cpu')
@@ -146,11 +153,14 @@ def test_int8_refusals_name_their_roadmap_items(tmp_path):
                      **kw)
     with pytest.raises(ValueError, match='quantized'):
         create_model('mixer_s_patch32', quantized=True, **kw)
-    for quantized, error in (('all', ValueError), ('ff_sb', NotImplementedError)):
-        with pytest.raises(error, match='K10|K14'):
-            Trainer(TrainConfig(model_name='vit_ti_patch16', img_size=IMG,
-                                batch_size=2, quantized=quantized,
-                                checkpoint_dir=str(tmp_path)), device='cpu')
+    with pytest.raises(ValueError, match='K10'):
+        Trainer(TrainConfig(model_name='vit_ti_patch16', img_size=IMG,
+                            batch_size=2, quantized='all',
+                            checkpoint_dir=str(tmp_path)), device='cpu')
+    sb = Trainer(TrainConfig(model_name='vit_ti_patch16', img_size=IMG,
+                             batch_size=2, quantized='ff_sb',
+                             checkpoint_dir=str(tmp_path)), device='cpu')
+    assert sb.model.Encoder_0.EncoderBlock_0.quantized == 'ff_sb'
     # K10 has no backward: the 'all' route refuses under autograd
     model = create_model('vit_ti_patch16', quantized='all',
                          use_kernel='fused_layer', **kw)

@@ -273,9 +273,31 @@ def test_cli_trains_and_predict_reads_its_checkpoint(tmp_path, capsys):
                         '--total_steps', '2', '-c', str(ckpt)])
 
 
+def test_cli_trains_with_switchback(tmp_path, capsys):
+    """``--quantized ff_sb`` (refused until K14 was ported) trains: every
+    FF sublayer of the model is the SwitchBack span, and two steps end
+    finite on the CPU (the kernels' twins)."""
+    from sav_tpu_torch.ops import int8_ff
+    ckpt = tmp_path / 'ck'
+    config = loop.TrainConfig(model_name='vit_ti_patch16', img_size=32,
+                              batch_size=4, quantized='ff_sb',
+                              checkpoint_dir=str(ckpt))
+    model = loop.Trainer(config, device='cpu').model
+    blocks = [getattr(model.Encoder_0, f'EncoderBlock_{i}') for i in range(12)]
+    assert all(b.quantized == 'ff_sb' for b in blocks)
+    from sav_tpu_torch.models import vit
+    assert vit.INT8_FF_SUBLAYER['ff_sb'] is int8_ff.int8_ff_sublayer_sb
+    metrics = train_cli.main(['--device', 'cpu', '--data_dir', 'synthetic',
+                              '-m', 'vit_ti_patch16', '-s', '32', '-b', '4',
+                              '--total_steps', '2', '--quantized', 'ff_sb',
+                              '-c', str(ckpt)])
+    assert 'final metrics' in capsys.readouterr().out
+    assert np.isfinite(metrics['loss']) and np.isfinite(metrics['eval_loss'])
+
+
 @pytest.mark.parametrize('flag', [
     ['--data_dir', '/data/imagenet'], ['--model_parallelism', '2'],
-    ['--scan_layers'], ['--remat', 'full'], ['--quantized', 'ff_sb'],
+    ['--scan_layers'], ['--remat', 'full'], ['--pipeline_parallelism', '2'],
     ['--steps_per_dispatch', '4'], ['--finetune_from', 'x'],
     ['--eval_data_dir', 'x'], ['--data_workers', '2']])
 def test_cli_refuses_unported_flags(tmp_path, flag):
