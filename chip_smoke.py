@@ -11,7 +11,8 @@
    the serving shapes (for K1 also the sublayer on the 'flash' core, the
    route ``fused_layer.auto_core`` weighs it against); K1's training
    variant, K2 and K3 at the training shapes (K2 and K3 both at L = 197,
-   so the K2/K3 threshold is a measured one).
+   so the K2/K3 threshold is a measured one; K3 also as the pair against
+   SDPA's backward, and two calls bit-identical).
 3. Serves ViT-B/16 bf16 through ``sav_tpu_torch.predict.serve``: @224 with
    use_kernel='auto' (the K1 port, 12 launches per forward), @384 with
    use_kernel='fused_layer' (the K4 port, 12 launches) and @384 with 'auto'
@@ -613,8 +614,11 @@ def _bwd_bound(batch, seq, heads, matmuls, tensors, stats):
 
 def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
     """Each backward route ('fused': K2, 'split': K3a + K3b) vs the twin,
-    random do; returns the records of each kernel timed alone ({'fused':
-    .., 'dq': .., 'dkv': ..})."""
+    random do; K3's dq, dk, dv must also come out bit-identical from two
+    calls (no atomics). Returns the records of each kernel timed alone
+    ({'fused': .., 'dq': .., 'dkv': ..}); K3's also carry the pair's time
+    (pair_ms), the function's bound (pair_bound_ms) and SDPA's backward
+    (pair_library_ms, also their library_ms: one call for one function)."""
     kv_len = kv_len or seq
     hd = heads * 64
     q = _bf16(rng, (batch, seq, hd), 0.5)
@@ -646,6 +650,10 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=max(abs_errs))
         else:
+            again = bwd(q, k, v, out, lse, do, heads, kv_len)
+            checks.expect(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                          f'K3 flash_bwd B={batch} L={seq}: two calls give '
+                          f'bit-identical dq, dk, dv')
             dq, delta = fa.bwd_dq(q, k, v, out, lse, do, heads, kv_len)
             b_ms, b_by = _bwd_bound(batch, seq, heads, 3, 6, 2)
             recs['dq'] = dict(
@@ -660,6 +668,9 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=max(abs_errs[1:]))
         total = time_ms(lambda: bwd(q, k, v, out, lse, do, heads, kv_len))
+        if route == 'split':
+            for n in ('dq', 'dkv'):
+                recs[n]['pair_ms'] = total
         print(f'  {name} route={route} B={batch} L={seq}: backward '
               f'{total:.4f} ms  ' + '  '.join(
                   f'{n} {r["ms"]:.4f} ms (bound {r["bound_ms"]:.4f})'
@@ -678,12 +689,17 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
         dos))
     lib = max(both - fwd, 0.0)
     b_ms, _ = _bwd_bound(batch, seq, heads, 5, 8, 1)
+    pair = recs.get('dq', {}).get('pair_ms')
     print(f'  flash backward B={batch} L={seq}: SDPA backward {lib:.4f} ms '
           f'(fwd+bwd {both:.4f} - fwd {fwd:.4f}); bound of the function '
-          f'{b_ms:.4f} ms', flush=True)
+          f'{b_ms:.4f} ms' + (f'; K3 pair {pair:.4f} ms = {pair / lib:.2f}x '
+                              f'SDPA, {pair / b_ms:.2f}x the bound'
+                              if pair else ''), flush=True)
     for n, r in recs.items():
-        r['library_ms'] = lib if n == 'fused' else None
-        r['sdpa_bwd_ms'] = lib
+        r['library_ms'] = lib
+        if n != 'fused':
+            r['pair_library_ms'] = lib
+            r['pair_bound_ms'] = b_ms
     return recs
 
 
@@ -2262,6 +2278,11 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
+    # K3 (wgmma): each kernel's registers, spills and any wgmma warning
+    for line in _build.build_log.get('flash_bwd_split', '').splitlines():
+        if any(w in line for w in ('entry function', 'registers', 'spill',
+                                   'wgmma', 'arning')):
+            print(f'  K3 ptxas: {line.strip()}', flush=True)
 
     checks = Checks()
     rng = np.random.RandomState(args.seed)
@@ -2547,17 +2568,17 @@ def main(argv=None):
              source='sav_tpu_torch/csrc/flash_bwd.cu',
              replaces='sav_tpu/ops/flash_attention.py:330',
              launches=t224.get('flash_bwd_fused', 0),
-             **{k: v for k, v in bwd197['fused'].items() if k != 'sdpa_bwd_ms'}),
-        dict(name='flash_bwd_dq', route='cuda',
-             source='sav_tpu_torch/csrc/flash_bwd.cu',
-             replaces='sav_tpu/ops/flash_attention.py:363',
-             launches=t384.get('flash_bwd_dq', 0),
-             **{k: v for k, v in bwd577['dq'].items() if k != 'sdpa_bwd_ms'}),
-        dict(name='flash_bwd_dkv', route='cuda',
-             source='sav_tpu_torch/csrc/flash_bwd.cu',
-             replaces='sav_tpu/ops/flash_attention.py:392',
-             launches=t384.get('flash_bwd_dkv', 0),
-             **{k: v for k, v in bwd577['dkv'].items() if k != 'sdpa_bwd_ms'}),
+             **bwd197['fused']),
+        # K3a/K3b: timed at @384 bs48 (L = 577, the main path), the @224
+        # bs192 shape (L = 197, where K2 runs on the path) under l197_*
+        *(dict(name=f'flash_bwd_{n}', route='cuda',
+               source='sav_tpu_torch/csrc/flash_bwd_split.cu',
+               replaces=f'sav_tpu/ops/flash_attention.py:{line}',
+               launches=t384.get(f'flash_bwd_{n}', 0), **bwd577[n],
+               **{f'l197_{key}': bwd197[n][key] for key in (
+                   'ms', 'bound_ms', 'pair_ms', 'pair_library_ms',
+                   'pair_bound_ms')})
+          for n, line in (('dq', 363), ('dkv', 392))),
         # K5a: the serving launches and timing; its residual-writing variant
         # (train @224) under train_*
         th_entry('th_attention_fwd', 158,

@@ -25,6 +25,7 @@ SOURCES = {
     'botnet_attention': 'botnet_attention.cu',
     'ff_bwd': 'ff_bwd.cu',
     'flash_bwd': 'flash_bwd.cu',
+    'flash_bwd_split': 'flash_bwd_split.cu',
     'flash_fwd': 'flash_fwd.cu',
     'fused_attention': 'fused_attention.cu',
     'fused_attention_q8': 'fused_attention_q8.cu',

@@ -1,9 +1,10 @@
-// K2 and K3 ports: the flash attention backward.
+// K2 port: the flash attention backward in one launch.
 //
-// Replaces sav_tpu/ops/flash_attention.py::_fused_bwd_kernel (K2, the
-// single-block branch of _bwd), ::_dq_kernel (K3a) and ::_dkv_kernel (K3b).
-// Same function: q (pre-scaled), k, v, o, do as [B, L, H*64] bf16 head
-// bands, lse [B, H, Lq] f32 from the forward; per head
+// Replaces sav_tpu/ops/flash_attention.py::_fused_bwd_kernel (the
+// single-block branch of _bwd). Same function as K3 (flash_bwd_split.cu,
+// which takes the longer heads): q (pre-scaled), k, v, o, do as
+// [B, L, H*64] bf16 head bands, lse [B, H, Lq] f32 from the forward; per
+// head
 //   p  = exp(q k^T - lse)          (f32; keys past kv_len masked to -inf)
 //   d  = rowsum(o * do)            (f32 from o and do in bf16)
 //   dv = bf16(p)^T do
@@ -20,32 +21,20 @@
 // Bound on the card: the function is 10*L*L*d operations against 8 band
 // tensors of L*d bf16 per (image, head), ~80 operations per byte at
 // L = 197 (under the H100's ~295), so a kernel that reads each operand
-// once is bound by bytes; at L = 577 it is ~230 and the two operation
-// counts meet. In practice mma.sync's instruction rate and the exp/select
-// work on the CUDA cores bound these kernels first.
+// once is bound by bytes. In practice mma.sync's instruction rate and the
+// exp/select work on the CUDA cores bound it first.
 //
-// Design:
-//  * K2 (flash_bwd_fused_kernel): one block per (head, image) holds q, k,
-//    v, do of its head (4 x L16 x 64 bf16) and lse/delta in shared memory,
-//    plus ds^T (L16 x L16 bf16), so dq, dk, dv come out of ONE launch with
-//    no atomics and every operand read from device memory once. Phase A:
-//    each warp owns 16 key rows and walks the queries 16 at a time,
-//    accumulating dv and dk in registers and writing its ds^T rows to
-//    shared memory. Phase B: each warp owns 16 query rows and forms
-//    dq = ds k from the stored ds. 10*L*L*d operations, nothing
-//    recomputed. Shared memory bounds it: at L16 = 208 it needs 211 KB of
-//    the 227 KB a block may have (ViT @224, L = 197), at L16 = 224 it
-//    would need 229 KB, so flash_bwd_fused_smem() decides K2 vs K3; one
-//    block per SM, one warp per 16-row tile (up to 13 warps).
-//  * K3 (flash_bwd_dq_kernel + flash_bwd_dkv_kernel) for longer sequences
-//    (ViT @384, L = 577): the TPU's sequential grid axis becomes a loop
-//    inside the block, with no cross-block sum. K3a: one block per
-//    (64-query tile, head, image) loops over 64-key tiles (K/V
-//    double-buffered with cp.async), recomputing p and dp, accumulating
-//    dq; it also writes delta for K3b. K3b: one block per (64-key tile,
-//    head, image) loops over 64-query tiles (Q/dO double-buffered),
-//    accumulating dk and dv. The split recomputes s and dp once more:
-//    14*L*L*d operations for the 10*L*L*d of the function.
+// Design: one block per (head, image) holds q, k, v, do of its head
+// (4 x L16 x 64 bf16) and lse/delta in shared memory, plus ds^T (L16 x L16
+// bf16), so dq, dk, dv come out of ONE launch with no atomics and every
+// operand read from device memory once. Phase A: each warp owns 16 key rows
+// and walks the queries 16 at a time, accumulating dv and dk in registers
+// and writing its ds^T rows to shared memory. Phase B: each warp owns 16
+// query rows and forms dq = ds k from the stored ds. 10*L*L*d operations,
+// nothing recomputed. Shared memory bounds it: at L16 = 208 it needs 211 KB
+// of the 227 KB a block may have (ViT @224, L = 197), at L16 = 224 it would
+// need 229 KB, so flash_bwd_fused_smem() decides K2 vs K3; one block per
+// SM, one warp per 16-row tile (up to 13 warps).
 #include <math.h>
 
 #include "mma.cuh"
@@ -54,7 +43,6 @@ namespace sav {
 
 constexpr int BD = 64;              // head width
 constexpr int BLD = BD + 8;         // padded smem row: conflict-free ldmatrix
-constexpr int BT = 64;              // K3 tile rows
 constexpr int K2_MAX_WARPS = 13;    // one warp per 16-row tile, L16 <= 208
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may use
 constexpr float kLog2e = 1.4426950408889634f;
@@ -299,190 +287,6 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K3a: grid (q tiles, heads, batch), 4 warps of 16 query rows. Writes dq
-// and delta [B, H, q_len] (read by K3b).
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ o,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    bf16* __restrict__ dq, int q_len, int kv_rows, int kv_len,
-                    int heads) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + BT * BLD;
-  bf16* sK = sdO + BT * BLD;                // [2][BT * BLD]
-  bf16* sV = sK + 2 * BT * BLD;             // [2][BT * BLD]
-  float* sD = reinterpret_cast<float*>(sV + 2 * BT * BLD);
-
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int stride = heads * BD;
-  const size_t qoff = (size_t)b * q_len * stride + h * BD;
-  const size_t koff = (size_t)b * kv_rows * stride + h * BD;
-  const size_t soff = ((size_t)b * heads + h) * q_len;
-
-  load_band(sQ, q + qoff, stride, q0, BT, q_len, tid, 128);
-  load_band(sdO, dout + qoff, stride, q0, BT, q_len, tid, 128);
-  load_band(sK, k + koff, stride, 0, BT, kv_len, tid, 128);
-  load_band(sV, v + koff, stride, 0, BT, kv_len, tid, 128);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  row_delta(sD, o + qoff, sdO, stride, q0, BT, q_len, tid, 128);
-  __syncthreads();
-  if (tid < BT && q0 + tid < q_len) delta[soff + q0 + tid] = sD[tid];
-
-  const int wr = warp * 16;
-  uint32_t qf[4][4], df[4][4];
-  load_a(qf, sQ, wr, lane);
-  load_a(df, sdO, wr, lane);
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const float l0 = row0 < q_len ? lse[soff + row0] : INFINITY;
-  const float l1 = row1 < q_len ? lse[soff + row1] : INFINITY;
-  const float d0 = sD[wr + g], d1 = sD[wr + g + 8];
-  float adq[8][4];
-  zero(adq);
-
-  for (int it = 0, k0 = 0; k0 < kv_len; ++it, k0 += BT) {
-    const int buf = it & 1;
-    if (k0 + BT < kv_len) {
-      load_band(sK + (buf ^ 1) * BT * BLD, k + koff, stride, k0 + BT, BT,
-                kv_len, tid, 128);
-      load_band(sV + (buf ^ 1) * BT * BLD, v + koff, stride, k0 + BT, BT,
-                kv_len, tid, 128);
-    }
-    cp_async_commit();
-    const bf16* sKb = sK + buf * BT * BLD;
-    const bf16* sVb = sV + buf * BT * BLD;
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] =
-          dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t bb[4];
-        load_b_rows(bb, sKb, j * 16, kk, lane);     // s = Q_w K^T
-        mma_16816(s[2 * j], qf[kk], bb[0], bb[1]);
-        mma_16816(s[2 * j + 1], qf[kk], bb[2], bb[3]);
-        load_b_rows(bb, sVb, j * 16, kk, lane);     // dp = dO_w V^T
-        mma_16816(dp[2 * j], df[kk], bb[0], bb[1]);
-        mma_16816(dp[2 * j + 1], df[kk], bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = k0 + nt * 8 + 2 * t + (e & 1) < kv_len;
-        const float p = in ? exp2f((s[nt][e] - (e < 2 ? l0 : l1)) * kLog2e) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - (e < 2 ? d0 : d1));       // ds
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {                   // dq += dS K
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t bb[4];
-        load_b_cols(bb, sKb, j * 16, p, lane);
-        mma_16816(adq[2 * p], a, bb[0], bb[1]);
-        mma_16816(adq[2 * p + 1], a, bb[2], bb[3]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  store_rows(dq + qoff, stride, q0 + wr, q_len, adq, lane);
-}
-
-// K3b: grid (key tiles, heads, batch), 4 warps of 16 key rows; reads the
-// delta K3a wrote.
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int q_len, int kv_rows, int kv_len,
-                     int heads) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BT * BLD;
-  bf16* sQ = sV + BT * BLD;                 // [2][BT * BLD]
-  bf16* sdO = sQ + 2 * BT * BLD;            // [2][BT * BLD]
-  float* sL = reinterpret_cast<float*>(sdO + 2 * BT * BLD);   // [2][BT]
-  float* sD = sL + 2 * BT;                                     // [2][BT]
-
-  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int stride = heads * BD;
-  const size_t qoff = (size_t)b * q_len * stride + h * BD;
-  const size_t koff = (size_t)b * kv_rows * stride + h * BD;
-  const size_t soff = ((size_t)b * heads + h) * q_len;
-
-  auto load_stats = [&](int r0, int buf) {
-    if (tid < BT) {
-      const bool in = r0 + tid < q_len;
-      sL[buf * BT + tid] = in ? lse[soff + r0 + tid] : INFINITY;
-      sD[buf * BT + tid] = in ? delta[soff + r0 + tid] : 0.f;
-    }
-  };
-  load_band(sK, k + koff, stride, k0, BT, kv_len, tid, 128);
-  load_band(sV, v + koff, stride, k0, BT, kv_len, tid, 128);
-  load_band(sQ, q + qoff, stride, 0, BT, q_len, tid, 128);
-  load_band(sdO, dout + qoff, stride, 0, BT, q_len, tid, 128);
-  cp_async_commit();
-  load_stats(0, 0);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int wr = warp * 16;
-  uint32_t kf[4][4], vf[4][4];
-  load_a(kf, sK, wr, lane);
-  load_a(vf, sV, wr, lane);
-  const bool ok0 = k0 + wr + g < kv_len, ok1 = k0 + wr + g + 8 < kv_len;
-  float adk[8][4], adv[8][4];
-  zero(adk);
-  zero(adv);
-
-  for (int it = 0, r0 = 0; r0 < q_len; ++it, r0 += BT) {
-    const int buf = it & 1;
-    if (r0 + BT < q_len) {
-      load_band(sQ + (buf ^ 1) * BT * BLD, q + qoff, stride, r0 + BT, BT,
-                q_len, tid, 128);
-      load_band(sdO + (buf ^ 1) * BT * BLD, dout + qoff, stride, r0 + BT, BT,
-                q_len, tid, 128);
-      load_stats(r0 + BT, buf ^ 1);
-    }
-    cp_async_commit();
-    const bf16* sQb = sQ + buf * BT * BLD;
-    const bf16* sdOb = sdO + buf * BT * BLD;
-#pragma unroll
-    for (int c = 0; c < BT; c += 16) {
-      uint32_t dsa[4];
-      key_rows_step(kf, vf, sQb, sdOb, sL + buf * BT, sD + buf * BT, c, ok0,
-                    ok1, adv, adk, dsa, lane);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  store_rows(dk + koff, stride, k0 + wr, kv_rows, adk, lane);
-  store_rows(dv + koff, stride, k0 + wr, kv_rows, adv, lane);
-}
-
-constexpr int K3A_SMEM = 6 * BT * BLD * 2 + BT * 4;
-constexpr int K3B_SMEM = 6 * BT * BLD * 2 + 4 * BT * 4;
-
 }  // namespace sav
 
 // Shared memory K2 needs at these lengths, or 0 where K2 cannot run (more
@@ -515,41 +319,5 @@ extern "C" int sav_flash_bwd_fused(const void* q, const void* k, const void* v,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
       (const bf16*)dout, lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, q_len, kv_rows,
       kv_len, heads);
-  return (int)cudaGetLastError();
-}
-
-// As sav_flash_bwd_fused, dq only; also writes delta [B, H, q_len] f32.
-extern "C" int sav_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* o, const void* dout,
-                                const float* lse, float* delta, void* dq,
-                                int batch, int q_len, int kv_rows, int kv_len,
-                                int heads, void* stream) {
-  using namespace sav;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K3A_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<dim3((q_len + BT - 1) / BT, heads, batch), 128,
-                        K3A_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-      (const bf16*)dout, lse, delta, (bf16*)dq, q_len, kv_rows, kv_len, heads);
-  return (int)cudaGetLastError();
-}
-
-// dk, dv from the delta sav_flash_bwd_dq wrote.
-extern "C" int sav_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse,
-                                 const float* delta, void* dk, void* dv,
-                                 int batch, int q_len, int kv_rows, int kv_len,
-                                 int heads, void* stream) {
-  using namespace sav;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K3B_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<<<dim3((kv_rows + BT - 1) / BT, heads, batch), 128,
-                         K3B_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, q_len, kv_rows, kv_len, heads);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,303 @@
+// Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
+// mbarriers, TMA tile loads and their tensor maps, wgmma shared-memory
+// descriptors, and the bf16 wgmma products with A in registers.
+//
+// Tiles: every operand tile in shared memory is what one TMA box of 64 rows
+// x 64 bf16 (128 bytes a row) writes with the 128-byte swizzle: 8-row atoms
+// of 1024 bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8).
+// A tile must start on a 1024-byte boundary. wgmma reads such a tile two
+// ways (PTX ISA, "Matrix Descriptor Format"; CUTLASS's make_gmma_desc):
+//  * K-major (desc_k_major): rows are the M or N axis, the 64 columns the
+//    depth. One 16-deep step is 32 bytes of each row: advance the start
+//    address by 32 bytes (the hardware applies the swizzle to the address,
+//    so the step stays inside the atom's pattern).
+//  * MN-major (desc_mn_major, with the transpose bit of B): the 64 columns
+//    are the N axis, rows the depth. One 16-deep step is 16 rows: advance
+//    by 2048 bytes (two atoms).
+// Accumulator of m64nNk16 (f32): warp w of the warpgroup, lane l, g = l / 4,
+// t = l % 4; d[4i + j] is row 16w + g, column 8i + 2t + j, d[4i + 2 + j]
+// row 16w + g + 8 (j = 0, 1). The register A operand of one 16-deep step kk
+// is that accumulator's columns 16kk..16kk+15 packed to bf16 pairs:
+// {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
+// {d[8kk+6], d[8kk+7]} (a_frag below).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sav {
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p (the swizzle atom's alignment);
+// callers reserve 1024 bytes of slack in the dynamic shared memory.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// ---- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA); follow
+// with __syncthreads().
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// One arrival, and `bytes` more that the phase waits for (TMA's complete_tx).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A fresh barrier
+// is in phase 0: waiting on parity 1 returns at once (the producer's first
+// pass over empty slots). A wait inside a resident block lasts
+// microseconds; one that has polled 2^24 times is a deadlock, and traps
+// (the launch then fails with an error instead of holding the card).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+
+// ---- TMA
+
+// The box at element coordinates (c0 innermost, c1, c2) of `map` -> dst,
+// completing `bytes` of the barrier's transaction count (always the whole
+// box: elements past the tensor's extent arrive as zeros).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma
+
+__device__ __forceinline__ uint64_t desc_encode(const void* tile,
+                                                uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4)
+         | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32)
+         | (1ull << 62);                                  // 128-byte swizzle
+}
+
+// K-major: 8-row atoms 1024 bytes apart (SBO); LBO is not read for a
+// swizzled K-major operand (CUTLASS sets 1). Step: +32 bytes = +2.
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
+  return desc_encode(tile, 16, 1024);
+}
+constexpr uint64_t K_STEP = 32 >> 4;
+
+// MN-major: 8-row depth groups 1024 bytes apart (SBO). LBO is the stride
+// between 64-column chunks of the N axis; with N = 64 there is one chunk,
+// so it is never read. Step: +2048 bytes = +128.
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
+  return desc_encode(tile, 1024, 1024);
+}
+constexpr uint64_t MN_STEP = 2048 >> 4;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across a
+// wgmma launch or wait (the hardware writes it asynchronously in between).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define SAV_WG_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define SAV_WG_OUT32(d)                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+  "+f"(d[31])
+
+// d (+)= A B^T over one 16-deep step, A [64 x 16] in registers, B [N x 16]
+// K-major in shared memory (N = 64, or 16 for the _n16 form).
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SAV_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n\t}\n"
+      : SAV_WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_rs_k_n16(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %13, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d += A B over one 16-deep step, A [64 x 16] in registers (a_frag), B
+// [16 x 64] MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SAV_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}\n"
+      : SAV_WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef SAV_WG_D32
+#undef SAV_WG_OUT32
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The register A operand of 16-deep step kk from a 64 x N accumulator.
+template <int R>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[R],
+                                       int kk) {
+  a[0] = pack_bf16x2(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// Register budget of the calling warpgroup (all 128 threads, same count):
+// a producer gives registers back, consumers take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// The register A operands (4 depth steps of 16) of a warpgroup's 64 x 64
+// tile held K-major and swizzled in shared memory (as TMA writes it): warp
+// w's rows 16w.., by ldmatrix, which gives mma.sync's A fragment layout,
+// the same as wgmma's per warp.
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4],
+                                             const __nv_bfloat16* tile,
+                                             int warp, int lane) {
+  const int row = 16 * warp + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int chunk = (2 * kk + (lane >> 4)) ^ (row & 7);
+    const uint32_t addr = smem_addr(tile + row * 64 + chunk * 8);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+        : "r"(addr));
+  }
+}
+
+// Syncs the 128 threads of one warpgroup on named barrier `id` (1..15).
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+// ---- host: tensor maps
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a [batch, rows, width] bf16 array whose images lie
+// `image_rows` rows apart, for 64 x 64 boxes with the 128-byte swizzle.
+// Rows at or past `rows` (and never another image's) read as zeros.
+// Returns 0 or a cudaError_t.
+inline int band_map(CUtensorMap* map, const void* base, int batch, int rows,
+                    int image_rows, int width) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)width * 2 * image_rows};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace sm90
+}  // namespace sav

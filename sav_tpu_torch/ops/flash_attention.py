@@ -4,11 +4,12 @@
 ``flash_fwd`` is the port of the K4 kernel ``_fwd_kernel``: q, k, v as
 ``[B, L, H*d]`` (a free view of the projection output, q pre-scaled), out in
 the same layout, lse ``[B, H, Lq]`` f32. ``flash_bwd`` is the port of the
-backward: K2 ``_fused_bwd_kernel`` (one launch for dq, dk, dv) where one
-block's shared memory holds a whole head, else K3 ``_dq_kernel`` +
-``_dkv_kernel`` (``csrc/flash_bwd.cu``). On a CUDA tensor each launches its
-hand-written kernel; on a CPU tensor it runs its plain twin. No padding is
-needed: the kernels mask the ragged query and key tails themselves.
+backward: K2 ``_fused_bwd_kernel`` (one launch for dq, dk, dv,
+``csrc/flash_bwd.cu``) where one block's shared memory holds a whole head,
+else K3 ``_dq_kernel`` + ``_dkv_kernel`` (``csrc/flash_bwd_split.cu``: wgmma
+fed by TMA, launch plan in ``split_plan``). On a CUDA tensor each launches
+its hand-written kernel; on a CPU tensor it runs its plain twin. No padding
+is needed: the kernels mask the ragged query and key tails themselves.
 ``mha`` (K4 forward + kernel backward) and ``mha_hybrid`` (plain forward +
 kernel backward) are the differentiable ``[B, L, heads, d]`` entry points.
 """
@@ -16,6 +17,7 @@ kernel backward) are the differentiable ``[B, L, heads, d]`` entry points.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -24,6 +26,11 @@ from sav_tpu_torch import _build
 BAND = 64               # the kernels' head width
 SMEM_LIMIT = 232448     # dynamic shared memory one H100 block may use
 K2_MAX_TILES = 13       # K2 runs one warp per 16-row tile
+# K3's launch plan (csrc/flash_bwd_split.cu, k3::)
+SPLIT_BLOCK_ROWS = 128  # rows of a work tile: two consumer warpgroups of 64
+SPLIT_TILE_ROWS = 64    # rows of a TMA tile, the wgmma M and N
+SPLIT_STAGES = 3        # ring slots of the streamed tiles
+SPLIT_THREADS = 384     # two consumer warpgroups and a producer warpgroup
 
 
 def flash_fwd_plain(q, k, v, heads: int, kv_len: int):
@@ -152,8 +159,89 @@ def fused_bwd_fits(q_len: int, kv_rows: int) -> bool:
     return max(lq, lk) // 16 <= K2_MAX_TILES and smem <= SMEM_LIMIT
 
 
+def _check_bwd(q, k, v, lse, do, heads: int, kv_len: int, out=None,
+               delta=None):
+    """Raises ValueError on what the backward kernels do not take: bf16
+    ``[B, L, H*64]`` head bands, contiguous and 16-byte aligned, k like v,
+    out and do shaped as q; lse (and K3b's delta) contiguous f32 ``[B, H,
+    Lq]``; 1 <= kv_len <= kv_rows; all on q's device."""
+    bands = [('q', q), ('k', k), ('v', v), ('do', do)]
+    for name, t in bands + ([('out', out)] if out is not None else []):
+        check_cuda_bf16(name, t, q.device)
+    b, q_len, hd = q.shape
+    kv_rows = k.shape[1]
+    if hd != heads * BAND:
+        raise ValueError(f'flash_bwd needs head_dim {BAND}, got {hd}/{heads}')
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd:
+        raise ValueError(f'k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do '
+                         f'not match q {tuple(q.shape)}')
+    if do.shape != q.shape or (out is not None and out.shape != q.shape):
+        raise ValueError(f'out/do shapes must equal q {tuple(q.shape)}, got '
+                         f'{tuple(do.shape)}')
+    for name, t in [('lse', lse)] + ([('delta', delta)]
+                                     if delta is not None else []):
+        if (t.device != q.device or t.dtype != torch.float32
+                or not t.is_contiguous()
+                or tuple(t.shape) != (b, heads, q_len)):
+            raise ValueError(f'{name} must be contiguous float32 '
+                             f'{(b, heads, q_len)} on {q.device}, got '
+                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+    if not 1 <= kv_len <= kv_rows:
+        raise ValueError(f'kv_len {kv_len} outside [1, {kv_rows}]')
+
+
+def split_plan(batch: int, q_len: int, kv_rows: int, kv_len: int,
+               heads: int) -> dict:
+    """K3's launch plan, mirroring ``csrc/flash_bwd_split.cu``. Each kernel
+    is persistent (one block per SM, or one per work tile if fewer) and
+    walks work tiles of ``rows`` rows of one (head, image): ``work`` is
+    their count along (rows, heads, batch), ``steps`` the 64-row tiles its
+    producer streams per work tile, ``smem`` the dynamic shared memory (the
+    kernel's struct plus 1024 bytes to align the swizzled tiles). K3a
+    (``'dq'``) owns query rows and streams keys, K3b (``'dkv'``) the
+    reverse. Raises ValueError on lengths the kernels do not take."""
+    if min(batch, q_len, kv_rows, heads) < 1:
+        raise ValueError(f'empty backward: batch {batch}, q_len {q_len}, '
+                         f'kv_rows {kv_rows}, heads {heads}')
+    if not 1 <= kv_len <= kv_rows:
+        raise ValueError(f'kv_len {kv_len} outside [1, {kv_rows}]')
+    rows, tile_rows = SPLIT_BLOCK_ROWS, SPLIT_TILE_ROWS
+    ceil = lambda n, m: -(-n // m)
+    work_dq = (ceil(q_len, rows), heads, batch)
+    work_dkv = (ceil(kv_rows, rows), heads, batch)
+    if max(math.prod(work_dq), math.prod(work_dkv)) >= 2 ** 31:
+        raise ValueError(f'{math.prod(work_dq)} work tiles overflow the '
+                         f'kernels\' int tile index')
+    tile = tile_rows * BAND * 2
+    slots = 2 * (rows // tile_rows) * tile      # both slots of one tensor
+    ring = 2 * SPLIT_STAGES * tile              # two tensors per ring slot
+    barriers = (4 + 2 * SPLIT_STAGES) * 8
+    # K3a: q, do, o resident; the K/V ring; delta of the block's rows
+    dq_smem = 3 * slots + ring + rows * 4 + barriers + 1024
+    # K3b: k, v resident; the Q/dO ring with each tile's lse and delta
+    dkv_smem = (2 * slots + ring + 2 * SPLIT_STAGES * tile_rows * 4
+                + barriers + 1024)
+    return {
+        'dq': dict(work=work_dq, rows=rows, steps=ceil(kv_len, tile_rows),
+                   smem=dq_smem),
+        'dkv': dict(work=work_dkv, rows=rows, steps=ceil(q_len, tile_rows),
+                    smem=dkv_smem),
+        'tile_rows': tile_rows, 'stages': SPLIT_STAGES,
+        'threads': SPLIT_THREADS}
+
+
+def _split_checks(q, k, v, lse, do, heads, kv_len, out=None, delta=None):
+    """The checks of a K3 launch: ``_check_bwd``, the plan, and the card."""
+    _check_bwd(q, k, v, lse, do, heads, kv_len, out=out, delta=delta)
+    split_plan(q.shape[0], q.shape[1], k.shape[1], kv_len, heads)
+    if q.device.type != 'cuda':
+        raise ValueError(f'K3 runs on the card, got {q.device} tensors '
+                         f'(flash_bwd runs the plain twin on the CPU)')
+
+
 def _bwd_fn(name):
-    fn = getattr(_build.library('flash_bwd'), name)
+    lib = 'flash_bwd' if name == 'sav_flash_bwd_fused' else 'flash_bwd_split'
+    fn = getattr(_build.library(lib), name)
     if fn.argtypes is None:
         pointers = {'sav_flash_bwd_fused': 9, 'sav_flash_bwd_dq': 8,
                     'sav_flash_bwd_dkv': 8}[name]
@@ -176,30 +264,16 @@ def flash_bwd(q, k, v, out, lse, do, heads: int, kv_len: int):
         return flash_bwd_plain(q, k, v, out, lse, do, heads, kv_len)
     if q.device.type != 'cuda':
         raise ValueError(f'flash_bwd runs on cuda or cpu, not {q.device}')
-    for name, t in (('q', q), ('k', k), ('v', v), ('out', out), ('do', do)):
-        check_cuda_bf16(name, t, q.device)
-    b, q_len, hd = q.shape
+    _check_bwd(q, k, v, lse, do, heads, kv_len, out=out)
     kv_rows = k.shape[1]
-    if hd != heads * BAND:
-        raise ValueError(f'flash_bwd needs head_dim {BAND}, got {hd}/{heads}')
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd:
-        raise ValueError(f'k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do '
-                         f'not match q {tuple(q.shape)}')
-    if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f'out/do shapes {tuple(out.shape)}/{tuple(do.shape)} '
-                         f'must equal q {tuple(q.shape)}')
-    if (lse.device != q.device or lse.dtype != torch.float32
-            or not lse.is_contiguous() or tuple(lse.shape) != (b, heads, q_len)):
-        raise ValueError(f'lse must be contiguous float32 {(b, heads, q_len)} '
-                         f'on {q.device}, got {lse.dtype} {tuple(lse.shape)}')
-    if not 1 <= kv_len <= kv_rows:
-        raise ValueError(f'kv_len {kv_len} outside [1, {kv_rows}]')
+    q_len = q.shape[1]
     route = bwd_fused if fused_bwd_fits(q_len, kv_rows) else bwd_split
     return route(q, k, v, out, lse, do, heads, kv_len)
 
 
-# The kernel launches behind flash_bwd, on CUDA inputs it has checked
-# (chip_smoke.py calls both routes directly to time them at one shape).
+# The kernel launches behind flash_bwd (chip_smoke.py calls both routes
+# directly to time them at one shape). K2's takes the inputs flash_bwd has
+# checked; K3's check their own, and raise off the card.
 
 def _dims(q, k, heads, kv_len):
     return (q.shape[0], q.shape[1], k.shape[1], kv_len, heads,
@@ -221,6 +295,7 @@ def bwd_fused(q, k, v, out, lse, do, heads: int, kv_len: int):
 
 def bwd_dq(q, k, v, out, lse, do, heads: int, kv_len: int):
     """K3a: (dq, delta), delta = rowsum(out * do) ``[B, H, Lq]`` f32."""
+    _split_checks(q, k, v, lse, do, heads, kv_len, out=out)
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
     with torch.cuda.device(q.device):
         err = _bwd_fn('sav_flash_bwd_dq')(
@@ -234,6 +309,7 @@ def bwd_dq(q, k, v, out, lse, do, heads: int, kv_len: int):
 
 def bwd_dkv(q, k, v, do, lse, delta, heads: int, kv_len: int):
     """K3b: (dk, dv) from K3a's delta."""
+    _split_checks(q, k, v, lse, do, heads, kv_len, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _bwd_fn('sav_flash_bwd_dkv')(

@@ -100,20 +100,56 @@ def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
-@pytest.mark.parametrize('seq,kv_len,route', [
-    (17, 17, 'auto'), (197, 197, 'auto'), (200, 150, 'auto'),
-    (65, 65, 'split'), (197, 197, 'split'), (577, 500, 'split')])
-def test_flash_bwd_matches_twin(card, seq, kv_len, route):
+@pytest.mark.parametrize('seq,kv_len,route,heads,q_len', [
+    (17, 17, 'auto', 4, None), (197, 197, 'auto', 4, None),
+    (200, 150, 'auto', 4, None), (65, 65, 'split', 4, None),
+    (197, 197, 'split', 4, None), (577, 500, 'split', 4, None),
+    # K3's tile edges: 577 = 4 x 128 + 65 = 9 x 64 + 1, a 1-row last
+    # 128-row tile at 129, queries != keys (CvT's cross-length attention),
+    # H = 16 at d = 64
+    (577, 577, 'split', 4, None), (129, 129, 'split', 4, None),
+    (100, 90, 'split', 4, 300), (577, 577, 'split', 16, None)])
+def test_flash_bwd_matches_twin(card, seq, kv_len, route, heads, q_len):
+    """seq key rows (the first kv_len unmasked) and q_len query rows
+    (default seq)."""
     rng = np.random.RandomState(seq)
-    q, k, v, do = (_bf16(rng, (2, seq, 4 * 64), s, card) for s in (0.5, 1, 1, 1))
-    out, lse = flash_fwd(q, k, v, 4, kv_len)
+    q_len = q_len or seq
+    hd = heads * 64
+    q = _bf16(rng, (2, q_len, hd), 0.5, card)
+    k, v = (_bf16(rng, (2, seq, hd), 1, card) for _ in range(2))
+    do = _bf16(rng, (2, q_len, hd), 1, card)
+    out, lse = flash_fwd(q, k, v, heads, kv_len)
     bwd = {'auto': flash_attention.flash_bwd,
            'split': flash_attention.bwd_split}[route]
-    grads = bwd(q, k, v, out, lse, do, 4, kv_len)
-    twin = flash_attention.flash_bwd_plain(q, k, v, out, lse, do, 4, kv_len)
+    grads = bwd(q, k, v, out, lse, do, heads, kv_len)
+    twin = flash_attention.flash_bwd_plain(q, k, v, out, lse, do, heads, kv_len)
     for g, t in zip(grads, twin):
+        assert g.shape == t.shape
         assert _rel(g, t) <= 2e-2
     assert not grads[1][:, kv_len:].any() and not grads[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize('q_len,seq,kv_len', [(577, 577, 577), (300, 100, 90)])
+def test_flash_bwd_split_repeats_bitwise(card, q_len, seq, kv_len):
+    """K3 owns each dq row in one work tile and each dk/dv row in one (no
+    float atomics): two calls give bit-identical gradients."""
+    rng = np.random.RandomState(q_len)
+    q, do = (_bf16(rng, (3, q_len, 12 * 64), s, card) for s in (0.5, 1))
+    k, v = (_bf16(rng, (3, seq, 12 * 64), 1, card) for _ in range(2))
+    out, lse = flash_fwd(q, k, v, 12, kv_len)
+    first = flash_attention.bwd_split(q, k, v, out, lse, do, 12, kv_len)
+    again = flash_attention.bwd_split(q, k, v, out, lse, do, 12, kv_len)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_split_plan_matches_the_kernel(card):
+    """split_plan's shared memory is the kernels' own (their structs plus
+    the alignment slack), as the CPU tests read it."""
+    from sav_tpu_torch import _build
+    lib = _build.library('flash_bwd_split')
+    plan = flash_attention.split_plan(1, 577, 577, 577, 12)
+    assert lib.sav_flash_bwd_split_smem(0) == plan['dq']['smem']
+    assert lib.sav_flash_bwd_split_smem(1) == plan['dkv']['smem']
 
 
 def test_flash_bwd_counts_its_kernels(card):
