@@ -9,10 +9,15 @@
    card, in bf16, and times kernel, twin and one library call computing
    the same function (timed only; the port never calls it): K1 and K4 at
    the serving shapes (for K1 also the sublayer on the 'flash' core, the
-   route ``fused_layer.auto_core`` weighs it against); K1's training
-   variant, K2 and K3 at the training shapes (K2 and K3 both at L = 197,
-   so the K2/K3 threshold is a measured one; K3 also as the pair against
-   SDPA's backward, and two calls bit-identical).
+   route ``fused_layer.auto_core`` weighs it against), K4 also at the
+   ``fused_ff`` training shape (B=192, L=197); K1's training variant, K2
+   and K3 at the training shapes (K2 and K3 both at L = 197 and at 200
+   over 190 keys, so ``flash_attention.fused_bwd_fits`` routes by a
+   measured threshold; K3 also as the pair against SDPA's backward; K2 and K3 each
+   two calls bit-identical); K4 and K2 through their C entries into
+   NaN-sentinel buffers one image longer than the call, at L = 197, 200
+   over 190 keys, 577 (K4), a 1-row tail (129) and q_len != kv_len; each
+   flash kernel's ptxas line (registers, spills, any wgmma warning).
 3. Serves ViT-B/16 bf16 through ``sav_tpu_torch.predict.serve``: @224 with
    use_kernel='auto' (the K1 port, 12 launches per forward), @384 with
    use_kernel='fused_layer' (the K4 port, 12 launches) and @384 with 'auto'
@@ -155,6 +160,7 @@ from sav_tpu_torch.ops.quantized import quantize_symmetric
 from sav_tpu_torch.predict import decode_size_for, serve
 from sav_tpu_torch.train import TrainConfig, Trainer
 from sav_tpu_torch.train.steps import loss_and_logits
+from sav_tpu_torch.utils.timing import time_ms
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -254,21 +260,6 @@ def nvidia_smi() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound_ms(flops: float, nbytes: float, f32_flops: float = 0.0,
@@ -614,11 +605,12 @@ def _bwd_bound(batch, seq, heads, matmuls, tensors, stats):
 
 def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
     """Each backward route ('fused': K2, 'split': K3a + K3b) vs the twin,
-    random do; K3's dq, dk, dv must also come out bit-identical from two
-    calls (no atomics). Returns the records of each kernel timed alone
-    ({'fused': .., 'dq': .., 'dkv': ..}); K3's also carry the pair's time
-    (pair_ms), the function's bound (pair_bound_ms) and SDPA's backward
-    (pair_library_ms, also their library_ms: one call for one function)."""
+    random do; each route's dq, dk, dv must also come out bit-identical
+    from two calls (no atomics). Returns the records of each kernel timed
+    alone ({'fused': .., 'dq': .., 'dkv': ..}); K3's also carry the pair's
+    time (pair_ms), the function's bound (pair_bound_ms) and SDPA's
+    backward (pair_library_ms, also their library_ms: one call for one
+    function)."""
     kv_len = kv_len or seq
     hd = heads * 64
     q = _bf16(rng, (batch, seq, hd), 0.5)
@@ -642,6 +634,10 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
                       f'{name} flash_bwd B={batch} L={seq} kv_len={kv_len}: '
                       f'dq/dk/dv err {", ".join(f"{e:.3g}" for e in errs)} of '
                       f'max (tol {BWD_TOL}), masked key rows {tails}')
+        again = bwd(q, k, v, out, lse, do, heads, kv_len)
+        checks.expect(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                      f'{name} flash_bwd B={batch} L={seq}: two calls give '
+                      f'bit-identical dq, dk, dv')
         if route == 'fused':
             b_ms, b_by = _bwd_bound(batch, seq, heads, 5, 8, 1)
             recs['fused'] = dict(
@@ -650,10 +646,6 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=max(abs_errs))
         else:
-            again = bwd(q, k, v, out, lse, do, heads, kv_len)
-            checks.expect(all(torch.equal(a, g) for a, g in zip(again, grads)),
-                          f'K3 flash_bwd B={batch} L={seq}: two calls give '
-                          f'bit-identical dq, dk, dv')
             dq, delta = fa.bwd_dq(q, k, v, out, lse, do, heads, kv_len)
             b_ms, b_by = _bwd_bound(batch, seq, heads, 3, 6, 2)
             recs['dq'] = dict(
@@ -701,6 +693,68 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
             r['pair_library_ms'] = lib
             r['pair_bound_ms'] = b_ms
     return recs
+
+
+def check_flash_sentinels(rng, checks, heads=2):
+    """K4 and K2 through their C entries into buffers one image longer than
+    the call, filled with NaN: every output row of the call's images is
+    written and within tolerance of the twin (masked dk/dv rows exactly 0,
+    K2 twice bit-identical), and nothing lands in the extra image. Cases:
+    the ViT lengths 197 and 577 (K4 only: K2 holds 208 rows), 200 over 190
+    keys, a 1-row tail past two tiles (129), and q_len != kv_len."""
+    hd = heads * 64
+    nan = lambda b, rows, *more: torch.full((b + 1, rows, *more), float('nan'),
+                                            device='cuda', dtype=torch.bfloat16)
+    for b, q_len, kv_rows, kv_len in ((3, 197, 197, 197), (3, 200, 200, 190),
+                                      (2, 577, 577, 577), (3, 129, 129, 129),
+                                      (2, 300, 100, 90), (2, 150, 100, 90)):
+        q = _bf16(rng, (b, q_len, hd), 0.5)
+        k, v = (_bf16(rng, (b, kv_rows, hd)) for _ in range(2))
+        do = _bf16(rng, (b, q_len, hd))
+        k[:, kv_len:] = 1e4                 # masked keys must not leak in
+        v[:, kv_len:] = float('nan')
+        out = nan(b, q_len, hd)
+        lse = torch.full((b + 1, heads, q_len), float('nan'), device='cuda')
+        err = fa._lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), b, q_len, kv_rows,
+                        kv_len, heads, fa.stream_of(q.device))
+        torch.cuda.synchronize()
+        p_out, p_lse = flash_fwd_plain(q, k, v, heads, kv_len)
+        o_err = _rel(out[:b], p_out)
+        l_err = float((lse[:b] - p_lse).abs().max())
+        untouched = bool(torch.isnan(out[b]).all() and torch.isnan(lse[b]).all())
+        checks.expect(err == 0 and o_err <= OUT_TOL and l_err <= LSE_TOL
+                      and untouched,
+                      f'K4 sentinels B={b} q_len={q_len} kv={kv_rows}/{kv_len}: '
+                      f'out {o_err:.3g} (tol {OUT_TOL}), lse {l_err:.3g} (tol '
+                      f'{LSE_TOL}), extra image untouched {untouched}')
+        if not fa.fused_bwd_fits(q_len, kv_rows):
+            continue
+        v[:, kv_len:] = 0.0                 # the forward's own rows
+        o_in, lse_in = out[:b].contiguous(), lse[:b].contiguous()
+        twin = fa.flash_bwd_plain(q, k, v, o_in, lse_in, do, heads, kv_len)
+        runs = []
+        for _ in range(2):
+            grads = [nan(b, q_len, hd), nan(b, kv_rows, hd), nan(b, kv_rows, hd)]
+            err = fa._bwd_fn('sav_flash_bwd_fused')(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o_in.data_ptr(),
+                do.data_ptr(), lse_in.data_ptr(),
+                *[g.data_ptr() for g in grads], b, q_len, kv_rows, kv_len,
+                heads, fa.stream_of(q.device))
+            torch.cuda.synchronize()
+            runs.append((err, grads))
+        (err, grads), (err2, again) = runs
+        errs = [_rel(g[:b], t) for g, t in zip(grads, twin)]
+        tails = max(float(g[:b, kv_len:].float().abs().max())
+                    if kv_len < kv_rows else 0.0 for g in grads[1:])
+        untouched = all(bool(torch.isnan(g[b]).all()) for g in grads)
+        same = all(torch.equal(a[:b], g[:b]) for a, g in zip(again, grads))
+        checks.expect(err == 0 and err2 == 0 and max(errs) <= BWD_TOL
+                      and tails == 0.0 and untouched and same,
+                      f'K2 sentinels B={b} q_len={q_len} kv={kv_rows}/{kv_len}: '
+                      f'dq/dk/dv {", ".join(f"{e:.3g}" for e in errs)} (tol '
+                      f'{BWD_TOL}), masked key rows {tails}, extra image '
+                      f'untouched {untouched}, two calls identical {same}')
 
 
 # ---- talking-heads kernels (K5a, K5b, K6a, K6b; csrc/th_attention.cu)
@@ -2278,22 +2332,28 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
-    # K3 (wgmma): each kernel's registers, spills and any wgmma warning
-    for line in _build.build_log.get('flash_bwd_split', '').splitlines():
-        if any(w in line for w in ('entry function', 'registers', 'spill',
-                                   'wgmma', 'arning')):
-            print(f'  K3 ptxas: {line.strip()}', flush=True)
+    # the wgmma kernels (K4 and K1's attention, K2, K3): each kernel's
+    # registers, spills and any wgmma warning (C7510-C7515: serialized)
+    for lib, label in (('flash_fwd', 'K4'), ('flash_bwd', 'K2'),
+                       ('flash_bwd_split', 'K3')):
+        for line in _build.build_log.get(lib, '').splitlines():
+            if any(w in line for w in ('entry function', 'registers', 'spill',
+                                       'wgmma', 'arning')):
+                print(f'  {label} ptxas: {line.strip()}', flush=True)
 
     checks = Checks()
     rng = np.random.RandomState(args.seed)
     k1 = {seq: check_k1(rng, checks, args.batch, seq) for seq in (197, 577)}
     k4 = {seq: check_k4(rng, checks, args.batch, seq) for seq in (197, 577, 200)}
+    k4_train = check_k4(rng, checks, 192, 197)      # fused_ff's attention
     # the training path's shapes: @224 bs192 (L=197), @384 bs48 (L=577)
     k1t = {seq: check_k1_train(rng, checks, b, seq)
            for b, seq in ((192, 197), (48, 577))}
     bwd197 = check_bwd(rng, checks, 192, 197, routes=('fused', 'split'))
-    check_bwd(rng, checks, 192, 200, kv_len=190, routes=('fused', 'split'))
+    bwd200 = check_bwd(rng, checks, 192, 200, kv_len=190,
+                       routes=('fused', 'split'))
     bwd577 = check_bwd(rng, checks, 48, 577, routes=('split',))
+    check_flash_sentinels(rng, checks)
 
     k1_serve = serve_path(checks, 'ViT-B/16 @224 auto', 224, 'auto',
                              {'fused_attention_fwd': 12}, args.seed,
@@ -2551,12 +2611,18 @@ def main(argv=None):
              max_abs_err=max(r['max_abs_err'] for r in k1.values()),
              **{k: v for k, v in k1[197].items() if k != 'max_abs_err'},
              **nores(False, tnt_serve.get('fused_attention_fwd', 0))),
+        # K4: ViT-B/16 @384 serving (B=32, L=577) launches and timing; the
+        # fused_ff training shape (B=192, L=197) under train_*
         dict(name='flash_fwd', route='cuda',
-             source='sav_tpu_torch/csrc/flash_fwd.cu',
+             source='sav_tpu_torch/csrc/flash_fwd_sm90.cuh',
              replaces='sav_tpu/ops/flash_attention.py:228',
              launches=k4_serve.get('flash_fwd', 0),
-             max_abs_err=max(r['max_abs_err'] for r in k4.values()),
-             **{k: v for k, v in k4[577].items() if k != 'max_abs_err'}),
+             max_abs_err=max(r['max_abs_err']
+                             for r in (*k4.values(), k4_train)),
+             **{k: v for k, v in k4[577].items() if k != 'max_abs_err'},
+             train_launches=ff224.get('flash_fwd', 0),
+             **{f'train_{k}': v for k, v in k4_train.items()
+                if k != 'max_abs_err'}),
         dict(name='fused_attention_fwd_train', route='cuda',
              source='sav_tpu_torch/csrc/fused_attention.cu',
              replaces='sav_tpu/ops/fused_layer.py:127',
@@ -2564,11 +2630,16 @@ def main(argv=None):
              max_abs_err=max(r['max_abs_err'] for r in k1t.values()),
              **{k: v for k, v in k1t[197].items() if k != 'max_abs_err'},
              **nores(True, ts224.get('fused_attention_fwd_train', 0))),
+        # K2 at @224 bs192 (L = 197) beside the K3 pair on the same inputs
+        # (k3_pair_ms), and at 200 over 190 keys under l200_*
         dict(name='flash_bwd_fused', route='cuda',
              source='sav_tpu_torch/csrc/flash_bwd.cu',
              replaces='sav_tpu/ops/flash_attention.py:330',
              launches=t224.get('flash_bwd_fused', 0),
-             **bwd197['fused']),
+             **bwd197['fused'], k3_pair_ms=bwd197['dq']['pair_ms'],
+             l200_ms=bwd200['fused']['ms'],
+             l200_library_ms=bwd200['fused']['library_ms'],
+             l200_k3_pair_ms=bwd200['dq']['pair_ms']),
         # K3a/K3b: timed at @384 bs48 (L = 577, the main path), the @224
         # bs192 shape (L = 197, where K2 runs on the path) under l197_*
         *(dict(name=f'flash_bwd_{n}', route='cuda',

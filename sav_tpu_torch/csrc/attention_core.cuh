@@ -1,13 +1,17 @@
-// Online-softmax attention core on the head-band layout, shared by the K4
-// port (flash_fwd.cu) and the K1 port (fused_attention.cu).
+// K10's attention core (fused_attention_q8.cu) on the head-band layout.
 //
 // q, k, v, out are [B, rows, stride] bf16 with head h in columns
 // [h*64, h*64+64); q is pre-scaled by 1/sqrt(d). One block of 4 warps per
-// (64-query tile, head, image); each warp owns 16 query rows and walks the
-// keys in tiles of 64 with a running max m, sum l and f32 accumulator, as
-// flash_attention._fwd_kernel does per head. Query rows past q_len are
+// (64-query tile, head, image); each warp owns 16 query rows. A first
+// sweep over the key tiles of 64 finds each row's final max, so every
+// p = exp(s - max) is rounded to bf16 against the max the TPU kernel
+// subtracts (one block over all keys), which K10's int8 codes of the
+// output depend on; the second sweep never rescales, and the output is
+// divided by the row sum, as that kernel does. Query rows past q_len are
 // loaded as zeros and never stored; key rows past kv_len are loaded as
 // zeros and their logits set to -inf, so no tail row is dropped or leaks.
+// (The bf16 attention of K1 and K4 runs the Hopper kernel of
+// flash_fwd_sm90.cuh instead.)
 #pragma once
 
 #include <math.h>
@@ -21,17 +25,13 @@ constexpr int ATT_BQ = 64;
 constexpr int ATT_BK = 64;
 constexpr int ATT_LD = ATT_D + 8;   // padded row: conflict-free fragments
 
-// out row stride equals q's; lse is [B, H, q_len] f32 or null.
-// kExactMax (K10's core): a first sweep over the key tiles finds each row's
-// final max, so every p = exp(s - max) is rounded to bf16 against the max
-// the TPU kernel subtracts (one block over all keys); the second sweep never
-// rescales, and the output is divided by the row sum, as that kernel does.
-template <bool kExactMax = false>
+// out row stride equals q's.
 __global__ void __launch_bounds__(128)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int q_len, int kv_rows,
-                     int kv_len, int heads, int q_stride, int kv_stride) {
+attention_fwd_exact_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           int q_len, int kv_rows, int kv_len, int q_stride,
+                           int kv_stride) {
   __shared__ __align__(16) bf16 sQ[ATT_BQ * ATT_LD];
   __shared__ __align__(16) bf16 sK[2][ATT_BK * ATT_LD];
   __shared__ __align__(16) bf16 sV[2][ATT_BK * ATT_LD];
@@ -71,7 +71,6 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kk = 0; kk < 4; ++kk)
     ldmatrix_x4(qf[kk], &sQ[(wr + (lane & 15)) * ATT_LD + kk * 16 + (lane >> 4) * 8]);
 
-  const float kLog2e = 1.4426950408889634f;
   float o[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -108,42 +107,41 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  if (kExactMax) {
-    // sweep 1: the rows' final max, K tiles through buffer 1 (buffer 0
-    // holds tile 0 for sweep 2)
-    for (int k0 = 0; k0 < kv_len; k0 += ATT_BK) {
-      const bf16* sKb = sK[0];
-      if (k0 > 0) {
-        for (int i = tid; i < ATT_BK * 8; i += 128) {
-          const int r = i >> 3, c = (i & 7) * 8;
-          const bool in = k0 + r < kv_len;
-          cp_async_16(&sK[1][r * ATT_LD + c],
-                      kb + (size_t)(in ? k0 + r : 0) * kv_stride + c,
-                      in ? 16 : 0);
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        sKb = sK[1];
+  // sweep 1: the rows' final max, K tiles through buffer 1 (buffer 0
+  // holds tile 0 for sweep 2)
+  for (int k0 = 0; k0 < kv_len; k0 += ATT_BK) {
+    const bf16* sKb = sK[0];
+    if (k0 > 0) {
+      for (int i = tid; i < ATT_BK * 8; i += 128) {
+        const int r = i >> 3, c = (i & 7) * 8;
+        const bool in = k0 + r < kv_len;
+        cp_async_16(&sK[1][r * ATT_LD + c],
+                    kb + (size_t)(in ? k0 + r : 0) * kv_stride + c,
+                    in ? 16 : 0);
       }
-      float s[8][4];
-      logits(sKb, k0, s);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
-      }
-      __syncthreads();                  // buffer 1 is free again
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      sKb = sK[1];
     }
+    float s[8][4];
+    logits(sKb, k0, s);
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    for (int nt = 0; nt < 8; ++nt) {
+      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
     }
+    __syncthreads();                  // buffer 1 is free again
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
   }
 
-  // K/V tiles double-buffered: tile it+1 streams in while tile it is used;
-  // one barrier per tile both publishes tile it+1 and retires buffer it&1
+  // sweep 2, K/V tiles double-buffered: tile it+1 streams in while tile
+  // it is used; one barrier per tile both publishes tile it+1 and retires
+  // buffer it&1. m0/m1 are final, so nothing is rescaled.
   for (int it = 0, k0 = 0; k0 < kv_len; ++it, k0 += ATT_BK) {
     const int buf = it & 1;
     if (k0 + ATT_BK < kv_len) load_kv(k0 + ATT_BK, buf ^ 1);
@@ -154,49 +152,18 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[8][4];
     logits(sKb, k0, s);
 
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // the first tile always holds a valid key, so mx is finite here and
-    // exp2(-inf) = 0 clears the empty carry
-    const float a0 = exp2f((m0 - mx0) * kLog2e);
-    const float a1 = exp2f((m1 - mx1) * kLog2e);
-    m0 = mx0;
-    m1 = mx1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (kExactMax) {                  // exp(s - max), as the TPU kernel
-        s[nt][0] = expf(s[nt][0] - m0);
-        s[nt][1] = expf(s[nt][1] - m0);
-        s[nt][2] = expf(s[nt][2] - m1);
-        s[nt][3] = expf(s[nt][3] - m1);
-      } else {
-        s[nt][0] = exp2f((s[nt][0] - m0) * kLog2e);
-        s[nt][1] = exp2f((s[nt][1] - m0) * kLog2e);
-        s[nt][2] = exp2f((s[nt][2] - m1) * kLog2e);
-        s[nt][3] = exp2f((s[nt][3] - m1) * kLog2e);
-      }
+    for (int nt = 0; nt < 8; ++nt) {    // exp(s - max), as the TPU kernel
+      s[nt][0] = expf(s[nt][0] - m0);
+      s[nt][1] = expf(s[nt][1] - m0);
+      s[nt][2] = expf(s[nt][2] - m1);
+      s[nt][3] = expf(s[nt][3] - m1);
       rs0 += s[nt][0] + s[nt][1];
       rs1 += s[nt][2] + s[nt][3];
     }
-    l0 = l0 * a0 + rs0;                 // per-lane partial; reduced at the end
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
+    l0 += rs0;                          // per-lane partial; reduced at the end
+    l1 += rs1;
 
     // P (rounded to bf16, as the TPU kernel feeds its PV matmul) · V
 #pragma unroll
@@ -224,33 +191,20 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int row0 = q0 + wr + g, row1 = row0 + 8;
   bf16* ob = out + (size_t)b * q_len * q_stride + h * ATT_D + 2 * t;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    if (kExactMax) {                    // divided by the sum
-      o[dt][0] = __fdiv_rn(o[dt][0], l0);
-      o[dt][1] = __fdiv_rn(o[dt][1], l0);
-      o[dt][2] = __fdiv_rn(o[dt][2], l1);
-      o[dt][3] = __fdiv_rn(o[dt][3], l1);
-    } else {
-      o[dt][0] *= inv0;
-      o[dt][1] *= inv0;
-      o[dt][2] *= inv1;
-      o[dt][3] *= inv1;
-    }
+  for (int dt = 0; dt < 8; ++dt) {      // divided by the sum
+    o[dt][0] = __fdiv_rn(o[dt][0], l0);
+    o[dt][1] = __fdiv_rn(o[dt][1], l0);
+    o[dt][2] = __fdiv_rn(o[dt][2], l1);
+    o[dt][3] = __fdiv_rn(o[dt][3], l1);
     if (row0 < q_len)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * q_stride + dt * 8) =
           pack_bf16(o[dt][0], o[dt][1]);
     if (row1 < q_len)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * q_stride + dt * 8) =
           pack_bf16(o[dt][2], o[dt][3]);
-  }
-  if (lse != nullptr && t == 0) {
-    float* lb = lse + ((size_t)b * heads + h) * q_len;
-    if (row0 < q_len) lb[row0] = m0 + logf(l0);
-    if (row1 < q_len) lb[row1] = m1 + logf(l1);
   }
 }
 

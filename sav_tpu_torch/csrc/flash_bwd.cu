@@ -1,4 +1,5 @@
-// K2 port: the flash attention backward in one launch.
+// K2 port: the flash attention backward in one launch, on Hopper (wgmma,
+// TMA, mbarriers; helpers in sm90.cuh and flash_sm90.cuh).
 //
 // Replaces sav_tpu/ops/flash_attention.py::_fused_bwd_kernel (the
 // single-block branch of _bwd). Same function as K3 (flash_bwd_split.cu,
@@ -11,292 +12,284 @@
 //   ds = bf16(p * (do v^T - d))
 //   dq = ds k,  dk = ds^T q
 // with f32 accumulation, outputs in bf16, rounded where the TPU kernels
-// round. Query rows past q_len are loaded as zeros (with lse = +inf, so
-// p = 0) and never stored, so they add nothing to dk and dv (the TPU
-// wrapper zeroes do there for the same reason). Key rows past kv_len are
-// loaded as zeros and their logits are masked; their dk and dv rows come
-// out as exact zeros. No tail row is dropped: every row count is rounded
-// up to the 16-row mma tile and masked, never divided into blocks.
+// round. Query rows past q_len read as zeros with lse = +inf and d = 0 (so
+// p = 0) and are never stored; key rows past kv_len read as zeros, their
+// logits are masked and their dk and dv rows in [kv_len, kv_rows) are
+// written as exact zeros. No row is dropped: every tile count is a
+// ceiling. Five products and nothing recomputed (K3 forms s and dp twice),
+// no atomics (dq, dk, dv repeat bit for bit), no [L, L] tensor in device
+// memory.
 //
-// Bound on the card: the function is 10*L*L*d operations against 8 band
-// tensors of L*d bf16 per (image, head), ~80 operations per byte at
-// L = 197 (under the H100's ~295), so a kernel that reads each operand
-// once is bound by bytes. In practice mma.sync's instruction rate and the
-// exp/select work on the CUDA cores bound it first.
+// Bound on the card: 10*L*L*64 operations against 8 band tensors and lse
+// per (image, head), ~123 operations a byte at L = 197, under the H100's
+// ~295: reading and writing each band once bounds it, so a head's loads
+// have to overlap the products of the head before it.
 //
-// Design: one block per (head, image) holds q, k, v, do of its head
-// (4 x L16 x 64 bf16) and lse/delta in shared memory, plus ds^T (L16 x L16
-// bf16), so dq, dk, dv come out of ONE launch with no atomics and every
-// operand read from device memory once. Phase A: each warp owns 16 key rows
-// and walks the queries 16 at a time, accumulating dv and dk in registers
-// and writing its ds^T rows to shared memory. Phase B: each warp owns 16
-// query rows and forms dq = ds k from the stored ds. 10*L*L*d operations,
-// nothing recomputed. Shared memory bounds it: at L16 = 208 it needs 211 KB
-// of the 227 KB a block may have (ViT @224, L = 197), at L16 = 224 it would
-// need 229 KB, so flash_bwd_fused_smem() decides K2 vs K3; one block per
-// SM, one warp per 16-row tile (up to 13 warps).
-#include <math.h>
-
-#include "mma.cuh"
+// Design: persistent, one block per SM walking the (head, image) pairs,
+// the heads of an image in turn. 384 threads: two consumer warpgroups and
+// a producer warpgroup of which one thread issues TMA; setmaxnreg moves
+// registers to the consumers. A whole head (L <= 208: ViT @224, L = 197)
+// sits in shared memory:
+//  * Statistics: o arrives by TMA beside K (in the last ds^T tile, which
+//    phase A fills only later), and the consumers form delta =
+//    rowsum(o * do) from it and the resident dO, one thread a row, with
+//    lse log2 e read while the tiles arrive.
+//  * Phase A (keys on the rows, K3b's inner step with Q and dO resident):
+//    each consumer warpgroup takes key tiles of 64 in turn and holds its K
+//    and V rows as register A operands; for each 64-query chunk (a last
+//    chunk of 1-16 rows runs 16 wide) s^T = K Q^T and dp^T = V dO^T run
+//    on wgmma in two commit groups, p^T is formed while dp^T runs, then
+//    ds^T; both feed dV += p^T dO and dK += ds^T Q as register A operands
+//    with Q and dO read MN-major. ds^T goes to shared memory in the
+//    swizzled tile layout; dk and dv leave from registers.
+//  * Phase B: dq = ds K per 64-query chunk, with ds^T read from shared
+//    memory as an MN-major A operand and K as the MN-major B operand, in
+//    16-key steps up to kv_len.
+//  * Overlap: Q, dO and V are dead after phase A, so the producer loads
+//    the next head's into them while phase B runs; K and o after phase B.
+// Shared memory, sized for 208 rows: Q, dO, K, V (26 KB each) and ds^T as
+// four 64-query column tiles over 208 key rows (104 KB), 211 KB with the
+// statistics; mirrored by fused_bwd_plan in ops/flash_attention.py.
+#include "flash_sm90.cuh"
 
 namespace sav {
+namespace k2 {
 
-constexpr int BD = 64;              // head width
-constexpr int BLD = BD + 8;         // padded smem row: conflict-free ldmatrix
-constexpr int K2_MAX_WARPS = 13;    // one warp per 16-row tile, L16 <= 208
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may use
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace flash;
 
-__host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
+constexpr int MAX_ROWS = 208;             // longest head: 13 x 16 rows
+constexpr int CHUNKS = 4;                 // 64-query chunks of 208 rows
+constexpr int BAND = MAX_ROWS * BD;       // elements of one resident band
+constexpr int STAT_ROWS = CHUNKS * TILE;
 
-// Rows [r0, r0 + rows) of one head band -> smem (row pitch BLD); rows at or
-// past `valid` are zero-filled (src-size 0, clamped address).
-__device__ __forceinline__ void load_band(bf16* dst, const bf16* src,
-                                          int stride, int r0, int rows,
-                                          int valid, int tid, int nthreads) {
-  for (int i = tid; i < rows * 8; i += nthreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool in = r0 + r < valid;
-    cp_async_16(&dst[r * BLD + c],
-                src + (size_t)(in ? r0 + r : 0) * stride + c, in ? 16 : 0);
+struct Smem {
+  bf16 q[BAND], dout[BAND], k[BAND], v[BAND];
+  bf16 dst[CHUNKS][BAND];                 // ds^T: key rows x 64 queries;
+                                          // o in the last before phase A
+  float lse[STAT_ROWS];                   // times log2 e; +inf past q_len
+  float delta[STAT_ROWS];                 // 0 past q_len
+  uint64_t qdov_full, qdov_empty, k_full, k_empty;
+};
+
+// dynamic shared memory asked for: the struct and the alignment slack
+constexpr int SMEM = (int)sizeof(Smem) + 1024;
+
+// The consumers' named barrier over both warpgroups (1 and 2 are each
+// warpgroup's own).
+constexpr int BAR_CONSUMERS = 3;
+
+// Rows a band loads: full 64-row boxes, then a 16-row box for a tail of
+// 1-16 rows (flash::cover_rows).
+__device__ __forceinline__ void load_band(bf16* dst, const CUtensorMap* m64,
+                                          const CUtensorMap* m16,
+                                          uint64_t* bar, int rows, int col,
+                                          int b) {
+  const int wide = wide_tiles(rows);
+  for (int i = 0; i < wide; ++i)
+    tma_load_3d(dst + i * TILE_ELEMS, m64, bar, col, i * TILE, b);
+  if (wide * TILE < rows)
+    tma_load_3d(dst + wide * TILE_ELEMS, m16, bar, col, wide * TILE, b);
+}
+
+// ds^T (64 key rows x W query columns, accumulator layout) -> bf16 into
+// the swizzled column tile `dst` at key rows tile0 + r, rows at or past
+// `rows` skipped.
+template <int W>
+__device__ __forceinline__ void store_dst(bf16* dst, const float (&ds)[W / 2],
+                                          int tile0, int r0, int rows,
+                                          int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = tile0 + r0 + 8 * half;
+    if (row >= rows) continue;
+    unsigned char* base = reinterpret_cast<unsigned char*>(dst) + row * 128;
+#pragma unroll
+    for (int i = 0; i < W / 8; ++i)
+      *reinterpret_cast<uint32_t*>(base + ((i ^ (row & 7)) << 4) + 4 * t) =
+          pack_bf16x2(ds[4 * i + 2 * half], ds[4 * i + 2 * half + 1]);
   }
 }
 
-// A fragments of the 16 x 64 tile at smem row r (4 depth steps of 16).
-__device__ __forceinline__ void load_a(uint32_t (&f)[4][4], const bf16* s,
-                                       int r, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(f[kk], &s[(r + (lane & 15)) * BLD + kk * 16 + (lane >> 4) * 8]);
+// Phase A's step: key tile at tile0 (K, V rows as register A operands)
+// against query chunk c (W = 64, or 16 for a last chunk of 1-16 rows).
+template <int W>
+__device__ __forceinline__ void key_step(float (&adk)[32], float (&adv)[32],
+                                         Smem& s, int c, int tile0,
+                                         const uint32_t (&k_a)[4][4],
+                                         const uint32_t (&v_a)[4][4], int r0,
+                                         int ds_rows, bool ok0, bool ok1,
+                                         int t) {
+  const bf16* qc = s.q + c * TILE_ELEMS;
+  const bf16* dc = s.dout + c * TILE_ELEMS;
+  float sc[W / 2], dp[W / 2];
+  uint32_t pa[W / 16][4], da[W / 16][4];
+  wgmma_fence();
+  mma_xy<W>(sc, k_a, qc);                                  // s^T = K Q^T
+  mma_xy<W>(dp, v_a, dc);                                  // dp^T = V dO^T
+  wgmma_wait<1>();
+  fence_regs(sc);
+  keyrow_p<W>(sc, s.lse + c * TILE, ok0, ok1, t);
+  wgmma_wait<0>();
+  fence_regs(dp);
+  keyrow_ds<W>(sc, dp, s.delta + c * TILE, t);
+  pack_frags<W>(pa, sc);
+  pack_frags<W>(da, dp);
+  wgmma_fence();
+  mma_rs<W>(adv, pa, dc);                                  // dv += p^T dO
+  mma_rs<W>(adk, da, qc);                                  // dk += ds^T Q
+  wgmma_commit();
+  store_dst<W>(s.dst[c], dp, tile0, r0, ds_rows, t);
+  wgmma_wait<0>();
+  fence_regs(adv);
+  fence_regs(adk);
 }
 
-// B fragments for X . Y^T with Y's rows r..r+15 in smem as the n axis and
-// depth step kk: b[0..1] for rows r..r+7, b[2..3] for rows r+8..r+15.
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* s,
-                                            int r, int kk, int lane) {
-  ldmatrix_x4(b, &s[(r + (lane & 7) + ((lane >> 4) << 3)) * BLD + kk * 16
-                    + ((lane >> 3) & 1) * 8]);
-}
-
-// B fragments for X . Y with Y's rows r..r+15 in smem as the depth axis and
-// columns p*16..p*16+15 as n: b[0..1] for columns p*16.., b[2..3] for +8.
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* s,
-                                            int r, int p, int lane) {
-  ldmatrix_x4_trans(b, &s[(r + (lane & 7) + ((lane >> 3) & 1) * 8) * BLD
-                          + p * 16 + (lane >> 4) * 8]);
-}
-
-// 16 x 64 C accumulator -> bf16 rows r0.. of a head band (rows >= valid
-// are not stored).
-__device__ __forceinline__ void store_rows(bf16* dst, int stride, int r0,
-                                           int valid, const float (&acc)[8][4],
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = r0 + g, row1 = row0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    if (row0 < valid)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * stride + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][0], acc[dt][1]);
-    if (row1 < valid)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * stride + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// One warp owning 16 key rows (A fragments kf of K, vf of V; ok0/ok1: its
-// rows g and g+8 are below kv_len) against the 16 queries at smem row c of
-// sQ/sdO, whose lse and delta sit at sL[c..], sD[c..]. Adds bf16(p)^T do to
-// dv and ds^T q to dk; returns ds^T packed as an A fragment (dsa[0]: row g,
-// columns c+2t..; [1]: row g+8; [2]/[3]: columns c+8+2t..).
-__device__ __forceinline__ void key_rows_step(
-    const uint32_t (&kf)[4][4], const uint32_t (&vf)[4][4], const bf16* sQ,
-    const bf16* sdO, const float* sL, const float* sD, int c, bool ok0,
-    bool ok1, float (&dv)[8][4], float (&dk)[8][4], uint32_t (&dsa)[4],
-    int lane) {
-  const int t = lane & 3;
-  float st[2][4], dpt[2][4];
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-    st[n][0] = st[n][1] = st[n][2] = st[n][3] =
-        dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t b[4];
-    load_b_rows(b, sQ, c, kk, lane);          // s^T = K_w Q^T
-    mma_16816(st[0], kf[kk], b[0], b[1]);
-    mma_16816(st[1], kf[kk], b[2], b[3]);
-    load_b_rows(b, sdO, c, kk, lane);         // dp^T = V_w dO^T
-    mma_16816(dpt[0], vf[kk], b[0], b[1]);
-    mma_16816(dpt[1], vf[kk], b[2], b[3]);
-  }
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = c + n * 8 + 2 * t + (e & 1);
-      const bool ok = e < 2 ? ok0 : ok1;
-      const float p = ok ? exp2f((st[n][e] - sL[q]) * kLog2e) : 0.f;
-      st[n][e] = p;
-      dpt[n][e] = p * (dpt[n][e] - sD[q]);
-    }
-  }
-  uint32_t pa[4];
-  pa[0] = pack_bf16(st[0][0], st[0][1]);
-  pa[1] = pack_bf16(st[0][2], st[0][3]);
-  pa[2] = pack_bf16(st[1][0], st[1][1]);
-  pa[3] = pack_bf16(st[1][2], st[1][3]);
-  dsa[0] = pack_bf16(dpt[0][0], dpt[0][1]);
-  dsa[1] = pack_bf16(dpt[0][2], dpt[0][3]);
-  dsa[2] = pack_bf16(dpt[1][0], dpt[1][1]);
-  dsa[3] = pack_bf16(dpt[1][2], dpt[1][3]);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    uint32_t b[4];
-    load_b_cols(b, sdO, c, p, lane);          // dv += P^T dO
-    mma_16816(dv[2 * p], pa, b[0], b[1]);
-    mma_16816(dv[2 * p + 1], pa, b[2], b[3]);
-    load_b_cols(b, sQ, c, p, lane);           // dk += dS^T Q
-    mma_16816(dk[2 * p], dsa, b[0], b[1]);
-    mma_16816(dk[2 * p + 1], dsa, b[2], b[3]);
-  }
-}
-
-// delta[r] = sum_c o[r][c] * do[r][c] for `rows` rows (row r0 + r of the
-// band; do already in smem at sdO); rows at or past q_len get 0. Four
-// lanes per row; `rows * 4` is a multiple of 32, so each warp runs the loop
-// whole and the shuffles see all their lanes.
-__device__ __forceinline__ void row_delta(float* sD, const bf16* o,
-                                          const bf16* sdO, int stride, int r0,
-                                          int rows, int q_len, int tid,
-                                          int nthreads) {
-  for (int i = tid; i < rows * 4; i += nthreads) {
-    const int r = i >> 2, part = (i & 3) * 16;
-    float acc = 0.f;
-    if (r0 + r < q_len) {
-      const bf16* orow = o + (size_t)(r0 + r) * stride + part;
-      const bf16* drow = sdO + r * BLD + part;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint4 ou = *reinterpret_cast<const uint4*>(orow + h * 8);
-        uint4 du = *reinterpret_cast<const uint4*>(drow + h * 8);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ou);
-        const bf16* de = reinterpret_cast<const bf16*>(&du);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc += __bfloat162float(oe[j]) * __bfloat162float(de[j]);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if ((i & 3) == 0) sD[r] = acc;
-  }
-}
-
-__host__ __device__ inline size_t fused_smem_bytes(int lq16, int lk16) {
-  return (size_t)(2 * lq16 + 2 * lk16) * BLD * 2 + (size_t)lk16 * (lq16 + 8) * 2
-         + (size_t)2 * lq16 * 4;
-}
-
-// K2: grid (heads, batch), one warp per 16-row tile of the longer side.
-__global__ void __launch_bounds__(K2_MAX_WARPS * 32, 1)
-flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ o,
-                       const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tq16,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdo16,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tk16,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tv16,
+                       const __grid_constant__ CUtensorMap to,
+                       const __grid_constant__ CUtensorMap to16,
                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int q_len,
-                       int kv_rows, int kv_len, int heads) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lq16 = round16(q_len), lk16 = round16(kv_rows);
-  const int lds = lq16 + 8;                 // ds^T row pitch
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + lq16 * BLD;
-  bf16* sK = sdO + lq16 * BLD;
-  bf16* sV = sK + lk16 * BLD;
-  bf16* sDS = sV + lk16 * BLD;              // [lk16][lds]: ds^T
-  float* sL = reinterpret_cast<float*>(sDS + lk16 * lds);
-  float* sD = sL + lq16;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, nthreads = blockDim.x, nwarps = nthreads >> 5;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       int batch, int q_len, int kv_rows, int kv_len,
+                       int heads) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(align1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int items = heads * batch;
   const int stride = heads * BD;
-  const size_t qoff = (size_t)b * q_len * stride + h * BD;
-  const size_t koff = (size_t)b * kv_rows * stride + h * BD;
+  const int q_cover = cover_rows(q_len), kv_cover = cover_rows(kv_rows);
 
-  load_band(sQ, q + qoff, stride, 0, lq16, q_len, tid, nthreads);
-  load_band(sdO, dout + qoff, stride, 0, lq16, q_len, tid, nthreads);
-  load_band(sK, k + koff, stride, 0, lk16, kv_len, tid, nthreads);
-  load_band(sV, v + koff, stride, 0, lk16, kv_len, tid, nthreads);
-  cp_async_commit();
-  const float* lb = lse + ((size_t)b * heads + h) * q_len;
-  for (int i = tid; i < lq16; i += nthreads) sL[i] = i < q_len ? lb[i] : INFINITY;
-  cp_async_wait<0>();
-  __syncthreads();
-  row_delta(sD, o + qoff, sdO, stride, 0, lq16, q_len, tid, nthreads);
-  __syncthreads();
-
-  // phase A: 16 key rows per warp -> dk, dv, and ds^T into shared memory
-  for (int kr = warp * 16; kr < lk16; kr += nwarps * 16) {
-    uint32_t kf[4][4], vf[4][4];
-    load_a(kf, sK, kr, lane);
-    load_a(vf, sV, kr, lane);
-    const bool ok0 = kr + g < kv_len, ok1 = kr + g + 8 < kv_len;
-    float adv[8][4], adk[8][4];
-    zero(adv);
-    zero(adk);
-    for (int c = 0; c < lq16; c += 16) {
-      uint32_t dsa[4];
-      key_rows_step(kf, vf, sQ, sdO, sL, sD, c, ok0, ok1, adv, adk, dsa, lane);
-      bf16* r0 = sDS + (kr + g) * lds + c + 2 * t;
-      bf16* r1 = r0 + 8 * lds;
-      *reinterpret_cast<uint32_t*>(r0) = dsa[0];
-      *reinterpret_cast<uint32_t*>(r1) = dsa[1];
-      *reinterpret_cast<uint32_t*>(r0 + 8) = dsa[2];
-      *reinterpret_cast<uint32_t*>(r1 + 8) = dsa[3];
-    }
-    store_rows(dk + koff, stride, kr, kv_rows, adk, lane);
-    store_rows(dv + koff, stride, kr, kv_rows, adv, lane);
+  if (tid == 0) {
+    mbar_init(&s.qdov_full, 1);
+    mbar_init(&s.k_full, 1);
+    mbar_init(&s.qdov_empty, 2);            // one arrival per warpgroup
+    mbar_init(&s.k_empty, 2);
+    fence_mbar_init();
   }
   __syncthreads();
 
-  // phase B: 16 query rows per warp, dq = ds k from the stored ds^T
-  for (int qr = warp * 16; qr < lq16; qr += nwarps * 16) {
-    float adq[8][4];
-    zero(adq);
-    for (int j = 0; j < lk16; j += 16) {
-      // A = ds[qr.., j..] read transposed out of ds^T[j.., qr..]
-      uint32_t a[4];
-      ldmatrix_x4_trans(a, &sDS[(j + (lane & 7) + ((lane >> 4) & 1) * 8) * lds
-                                + qr + ((lane >> 3) & 1) * 8]);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t bb[4];
-        load_b_cols(bb, sK, j, p, lane);
-        mma_16816(adq[2 * p], a, bb[0], bb[1]);
-        mma_16816(adq[2 * p + 1], a, bb[2], bb[3]);
-      }
+  if (tid >= CONSUMERS) {                   // producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid != CONSUMERS) return;           // one thread works
+    for (int item = blockIdx.x, n = 0; item < items;
+         item += gridDim.x, ++n) {
+      const Work w = work_of(item, 1, heads);
+      const int col = w.h * BD, par = (n & 1) ^ 1;
+      mbar_wait(&s.qdov_empty, par);        // phase A of the last head done
+      mbar_arrive_expect_tx(&s.qdov_full, (2 * q_cover + kv_cover) * 128);
+      load_band(s.q, &tq, &tq16, &s.qdov_full, q_len, col, w.b);
+      load_band(s.dout, &tdo, &tdo16, &s.qdov_full, q_len, col, w.b);
+      load_band(s.v, &tv, &tv16, &s.qdov_full, kv_rows, col, w.b);
+      mbar_wait(&s.k_empty, par);           // its phase B done
+      mbar_arrive_expect_tx(&s.k_full, (kv_cover + q_cover) * 128);
+      load_band(s.k, &tk, &tk16, &s.k_full, kv_rows, col, w.b);
+      load_band(s.dst[CHUNKS - 1], &to, &to16, &s.k_full, q_len, col, w.b);
     }
-    store_rows(dq + qoff, stride, qr, q_len, adq, lane);
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = tid >> 7, wt = tid & 127, wi = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wi * 16 + g;               // rows r0, r0 + 8 of a tile
+  const bool leader = wt == 0;
+  const int q_wide = wide_tiles(q_len), q_chunks = (q_len + TILE - 1) / TILE;
+  const int k_tiles = (kv_rows + TILE - 1) / TILE;
+  const int ds_rows = (kv_len + 15) / 16 * 16;  // keys phase B sums over
+  for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+    const Work w = work_of(item, 1, heads);
+    const size_t qoff = (size_t)w.b * q_len * stride + w.h * BD;
+    const size_t koff = (size_t)w.b * kv_rows * stride + w.h * BD;
+    // statistics: thread `tid` forms row tid's (rows past q_len: lse = +inf,
+    // delta = 0); o and dO share the swizzle, so a row's 128 bytes hold the
+    // same columns in both tiles
+    const float l2 = tid < q_len
+        ? lse[((size_t)w.b * heads + w.h) * q_len + tid] * kLog2e : INFINITY;
+    mbar_wait(&s.qdov_full, n & 1);
+    mbar_wait(&s.k_full, n & 1);
+    if (tid < q_cover) {
+      float acc = 0.f;
+      if (tid < q_len) {
+        const uint4* ou =
+            reinterpret_cast<const uint4*>(s.dst[CHUNKS - 1] + tid * BD);
+        const uint4* du = reinterpret_cast<const uint4*>(s.dout + tid * BD);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const uint4 ov = ou[c], dv4 = du[c];
+          const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+          const bf16* de = reinterpret_cast<const bf16*>(&dv4);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc += __bfloat162float(oe[j]) * __bfloat162float(de[j]);
+        }
+      }
+      s.delta[tid] = acc;
+      s.lse[tid] = l2;
+    }
+    named_sync(BAR_CONSUMERS, CONSUMERS);   // statistics in, o read
+
+    // phase A: key tiles wg, wg + 2, ...
+    for (int kt = wg; kt < k_tiles; kt += 2) {
+      const int tile0 = kt * TILE, key0 = tile0 + r0;
+      uint32_t k_a[4][4], v_a[4][4];
+      if (tile0 + 16 * wi < kv_cover) {     // a 16-row tail tile: warp 0
+        load_a_frags(k_a, s.k + kt * TILE_ELEMS, wi, lane);
+        load_a_frags(v_a, s.v + kt * TILE_ELEMS, wi, lane);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) k_a[kk][e] = v_a[kk][e] = 0u;
+      }
+      const bool ok0 = key0 < kv_len, ok1 = key0 + 8 < kv_len;
+      float adk[32], adv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) adk[i] = adv[i] = 0.f;
+      for (int c = 0; c < q_wide; ++c)
+        key_step<64>(adk, adv, s, c, tile0, k_a, v_a, r0, ds_rows, ok0,
+                     ok1, t);
+      if (q_wide < q_chunks)
+        key_step<16>(adk, adv, s, q_wide, tile0, k_a, v_a, r0, ds_rows,
+                     ok0, ok1, t);
+      store_acc(dk + koff, stride, key0, kv_rows, kv_len, adk, t);
+      store_acc(dv + koff, stride, key0, kv_rows, kv_len, adv, t);
+    }
+    fence_proxy_async();                    // ds^T -> the wgmma operands
+    named_sync(BAR_CONSUMERS, CONSUMERS);
+    if (leader) mbar_arrive(&s.qdov_empty); // Q, dO, V free
+
+    // phase B: dq = ds K for query chunks wg, wg + 2, ...
+    for (int c = wg; c < q_chunks; c += 2) {
+      float adq[32];
+      const uint64_t ad = desc_mn_major(s.dst[c]), kd = desc_mn_major(s.k);
+      wgmma_fence();
+      for (int kk = 0; kk < ds_rows / 16; ++kk)
+        wgmma_ss_mn(adq, ad + kk * MN_STEP, kd + kk * MN_STEP, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(adq);
+      store_acc(dq + qoff, stride, c * TILE + r0, q_len, q_len, adq, t);
+    }
+    named_sync(1 + wg, 128);                // the warpgroup's reads done
+    if (leader) mbar_arrive(&s.k_empty);    // K and ds^T free
   }
 }
 
+}  // namespace k2
 }  // namespace sav
 
-// Shared memory K2 needs at these lengths, or 0 where K2 cannot run (more
-// than K2_MAX_WARPS 16-row tiles, or beyond a block's shared memory).
+// Dynamic shared memory of K2 where it takes these lengths, else 0;
+// mirrored by fused_bwd_fits in ops/flash_attention.py.
 extern "C" int sav_flash_bwd_fused_smem(int q_len, int kv_rows) {
-  using namespace sav;
-  const int lq16 = round16(q_len), lk16 = round16(kv_rows);
-  const size_t bytes = fused_smem_bytes(lq16, lk16);
-  const int tiles = (lq16 > lk16 ? lq16 : lk16) / 16;
-  return (tiles > K2_MAX_WARPS || bytes > (size_t)SMEM_LIMIT) ? 0 : (int)bytes;
+  using namespace sav::k2;
+  return q_len <= MAX_ROWS && kv_rows <= MAX_ROWS ? SMEM : 0;
 }
 
 // q, o, dout, dq [B, q_len, H*64]; k, v, dk, dv [B, kv_rows, H*64]; lse
@@ -306,18 +299,32 @@ extern "C" int sav_flash_bwd_fused(const void* q, const void* k, const void* v,
                                    const float* lse, void* dq, void* dk,
                                    void* dv, int batch, int q_len, int kv_rows,
                                    int kv_len, int heads, void* stream) {
-  using namespace sav;
-  const int smem = sav_flash_bwd_fused_smem(q_len, kv_rows);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int lq16 = round16(q_len), lk16 = round16(kv_rows);
-  const int warps = (lq16 > lk16 ? lq16 : lk16) / 16;
-  flash_bwd_fused_kernel<<<dim3(heads, batch), warps * 32, smem,
+  using namespace sav::k2;
+  using sav::sm90::band_map;
+  if (sav_flash_bwd_fused_smem(q_len, kv_rows) == 0)
+    return (int)cudaErrorInvalidValue;
+  const int width = heads * BD;
+  CUtensorMap maps[10];
+  const void* bases[5] = {q, dout, k, v, o};
+  int err = 0;
+  for (int i = 0; i < 5 && !err; ++i) {
+    const bool keys = i == 2 || i == 3;
+    const int rows = keys ? kv_len : q_len, image = keys ? kv_rows : q_len;
+    err = band_map(&maps[2 * i], bases[i], batch, rows, image, width, 64);
+    if (!err)
+      err = band_map(&maps[2 * i + 1], bases[i], batch, rows, image, width,
+                     16);
+  }
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_fused_kernel<<<persistent_grid(heads * batch), THREADS, SMEM,
                            (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-      (const bf16*)dout, lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, q_len, kv_rows,
-      kv_len, heads);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
+      maps[8], maps[9], lse,
+      (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, batch,
+      q_len, kv_rows, kv_len, heads);
   return (int)cudaGetLastError();
 }

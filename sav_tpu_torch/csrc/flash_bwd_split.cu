@@ -53,27 +53,15 @@
 //  * p = 2^(s log2 e - lse log2 e) by one FFMA and ex2.approx (the accurate
 //    exp2f, with its range fix-ups and the mask as branches, cost K3a a
 //    third of its time on the card).
-#include <math.h>
-
-#include "sm90.cuh"
+#include "flash_sm90.cuh"
 
 namespace sav {
-
-typedef __nv_bfloat16 bf16;
-
 namespace k3 {
 
-constexpr int BD = 64;                    // head width
-constexpr int TILE = 64;                  // rows of a TMA box / wgmma M
+using namespace flash;
+
 constexpr int BLOCK_ROWS = 128;           // rows of a work tile
 constexpr int STAGES = 3;                 // ring slots of streamed tiles
-constexpr int CONSUMERS = 256;            // two warpgroups
-constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
-constexpr int PRODUCER_REGS = 56;         // 128 x 56 + 256 x 224 <= 65536
-constexpr int CONSUMER_REGS = 224;
-constexpr int TILE_ELEMS = TILE * BD;
-constexpr uint32_t TILE_BYTES = TILE_ELEMS * 2;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of each kernel; tiles first, each on a 1024-byte boundary.
 // The rows a work tile keeps resident have two slots (tile n uses slot
@@ -101,76 +89,6 @@ struct DkvSmem {
 // dynamic shared memory asked for: the struct and the alignment slack
 constexpr int DQ_SMEM = (int)sizeof(DqSmem) + 1024;
 constexpr int DKV_SMEM = (int)sizeof(DkvSmem) + 1024;
-
-using namespace sm90;
-
-// 64 x 64 f32 accumulator rows (row0 = this thread's first row, row0 + 8
-// the second) -> bf16 band rows below `valid`; rows at or past `zero_from`
-// are written as zeros.
-__device__ __forceinline__ void store_acc(bf16* dst, int stride, int row0,
-                                          int valid, int zero_from,
-                                          const float (&acc)[32], int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 8 * half;
-    if (row >= valid) continue;
-    const bool keep = row < zero_from;
-    bf16* p = dst + (size_t)row * stride + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<uint32_t*>(p + 8 * i) =
-          keep ? pack_bf16x2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1])
-               : 0u;
-  }
-}
-
-// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A streamed tile's products run W = 64 columns wide, or W = 16 for a last
-// tile of at most 16 rows (the 1-row tail of L = 577 = 9 x 64 + 1): s and
-// dp then use m64n16k16 and the register-A products one 16-deep step.
-
-// d = X Y^T (64 x W, 64 deep; X the warpgroup's resident rows as register
-// A operands, Y's first W rows of a streamed tile, K-major) as one commit
-// group. Holding X in registers halves the products' shared-memory reads.
-template <int W>
-__device__ __forceinline__ void mma_xy(float (&d)[W / 2],
-                                         const uint32_t (&x)[4][4],
-                                         const bf16* y) {
-  const uint64_t yd = desc_k_major(y);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (W == 64)
-      wgmma_rs_k(d, x[kk], yd + kk * K_STEP, kk);
-    else
-      wgmma_rs_k_n16(d, x[kk], yd + kk * K_STEP, kk);
-  }
-  wgmma_commit();
-}
-
-// acc += A Y, A [64 x W] from registers, Y the first W rows of a streamed
-// tile read MN-major.
-template <int W>
-__device__ __forceinline__ void mma_rs(float (&acc)[32],
-                                         const uint32_t (&a)[W / 16][4],
-                                         const bf16* y) {
-  const uint64_t yd = desc_mn_major(y);
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk)
-    wgmma_rs_mn(acc, a[kk], yd + kk * MN_STEP);
-}
-
-template <int W>
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[W / 16][4],
-                                           const float (&d)[W / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) a_frag(a[kk], d, kk);
-}
 
 // p = 2^(s log2 e - lse log2 e): one FFMA and ex2; a masked or padded entry
 // gets the exponent -inf.
@@ -205,41 +123,6 @@ __device__ __forceinline__ void dq_ds(const float (&sc)[W / 2],
       dp[4 * i + j] = sc[4 * i + j] * (dp[4 * i + j] - da);
       dp[4 * i + 2 + j] = sc[4 * i + 2 + j] * (dp[4 * i + 2 + j] - db);
     }
-  }
-}
-
-// K3b: p^T of one query tile in place of its s^T; the tile's lse (times
-// log2 e; +inf on padded queries, so p = 0 there) from shared memory; keys
-// at or past kv_len (ok0, ok1) get p = 0.
-template <int W>
-__device__ __forceinline__ void dkv_p(float (&sc)[W / 2], const float* sl,
-                                      bool ok0, bool ok1, int t) {
-#pragma unroll
-  for (int i = 0; i < W / 8; ++i) {
-    const float2 l = *reinterpret_cast<const float2*>(sl + 8 * i + 2 * t);
-    sc[4 * i] = exp2_approx(ok0 ? fmaf(sc[4 * i], kLog2e, -l.x) : -INFINITY);
-    sc[4 * i + 1] =
-        exp2_approx(ok0 ? fmaf(sc[4 * i + 1], kLog2e, -l.y) : -INFINITY);
-    sc[4 * i + 2] =
-        exp2_approx(ok1 ? fmaf(sc[4 * i + 2], kLog2e, -l.x) : -INFINITY);
-    sc[4 * i + 3] =
-        exp2_approx(ok1 ? fmaf(sc[4 * i + 3], kLog2e, -l.y) : -INFINITY);
-  }
-}
-
-// K3b: ds^T in place of dp^T (p^T in sc); the tile's delta from shared
-// memory (0 on padded queries).
-template <int W>
-__device__ __forceinline__ void dkv_ds(const float (&sc)[W / 2],
-                                       float (&dp)[W / 2], const float* sd,
-                                       int t) {
-#pragma unroll
-  for (int i = 0; i < W / 8; ++i) {
-    const float2 d = *reinterpret_cast<const float2*>(sd + 8 * i + 2 * t);
-    dp[4 * i] = sc[4 * i] * (dp[4 * i] - d.x);
-    dp[4 * i + 1] = sc[4 * i + 1] * (dp[4 * i + 1] - d.y);
-    dp[4 * i + 2] = sc[4 * i + 2] * (dp[4 * i + 2] - d.x);
-    dp[4 * i + 3] = sc[4 * i + 3] * (dp[4 * i + 3] - d.y);
   }
 }
 
@@ -297,10 +180,10 @@ __device__ __forceinline__ void dkv_tile(float (&adk)[32], float (&adv)[32],
   mma_xy<W>(dp, v_a, s.dout[st]);                          // dp^T = V dO^T
   wgmma_wait<1>();
   fence_regs(sc);
-  dkv_p<W>(sc, s.lse[st], ok0, ok1, t);
+  keyrow_p<W>(sc, s.lse[st], ok0, ok1, t);
   wgmma_wait<0>();
   fence_regs(dp);
-  dkv_ds<W>(sc, dp, s.delta[st], t);
+  keyrow_ds<W>(sc, dp, s.delta[st], t);
   pack_frags<W>(pa, sc);
   pack_frags<W>(da, dp);
   wgmma_fence();
@@ -313,27 +196,10 @@ __device__ __forceinline__ void dkv_tile(float (&adk)[32], float (&adv)[32],
   if (leader) mbar_arrive(&s.empty[st]);
 }
 
-// Tiles of `rows` rows run W = 64 wide, but a last tile of 1-16 rows W = 16:
-// the count of full-width tiles.
-__device__ __forceinline__ int wide_tiles(int rows) {
-  const int rem = rows % TILE;
-  return rem == 0 || rem > 16 ? (rows + TILE - 1) / TILE : rows / TILE;
-}
-
-// Both kernels are persistent: one block per SM walks the work tiles
-// blockIdx.x, + gridDim.x, ... of (128-row tile, head, image), the tile
-// fastest, so concurrent blocks share a head's streamed rows in L2. The
-// producer runs ahead across work tiles: the next tile's resident rows go
-// into the other slot while this tile's loop runs, and the ring of streamed
-// tiles continues from one work tile into the next (its step counts on).
-
-struct Work {
-  int x, h, b;
-};
-
-__device__ __forceinline__ Work work_of(int tile, int nx, int heads) {
-  return {tile % nx, (tile / nx) % heads, tile / (nx * heads)};
-}
+// Both kernels are persistent (flash::work_of). The producer runs ahead
+// across work tiles: the next tile's resident rows go into the other slot
+// while this tile's loop runs, and the ring of streamed tiles continues
+// from one work tile into the next (its step counts on).
 
 // K3a: 384 threads. Work tiles of 128 query rows. Writes dq and delta
 // [B, H, q_len] (read by K3b).
@@ -572,14 +438,6 @@ extern "C" int sav_flash_bwd_split_smem(int which) {
   return which == 0 ? sav::k3::DQ_SMEM : sav::k3::DKV_SMEM;
 }
 
-// Persistent grid: one block per SM, or one per work tile if fewer.
-static int persistent_grid(int tiles) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return tiles < sms || sms <= 0 ? tiles : sms;
-}
-
 // q, o, dout, dq [B, q_len, H*64]; k, v [B, kv_rows, H*64]; lse, delta
 // [B, H, q_len] f32. All bf16 unless noted; writes dq and delta.
 extern "C" int sav_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -602,9 +460,9 @@ extern "C" int sav_flash_bwd_dq(const void* q, const void* k, const void* v,
       DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (q_len + BLOCK_ROWS - 1) / BLOCK_ROWS * heads * batch;
-  flash_bwd_dq_kernel<<<persistent_grid(tiles), THREADS, DQ_SMEM,
+  flash_bwd_dq_kernel<<<sav::flash::persistent_grid(tiles), THREADS, DQ_SMEM,
                         (cudaStream_t)stream>>>(
-      tq, tk, tv, to, tdo, lse, delta, (sav::bf16*)dq, batch, q_len, kv_len,
+      tq, tk, tv, to, tdo, lse, delta, (__nv_bfloat16*)dq, batch, q_len, kv_len,
       heads);
   return (int)cudaGetLastError();
 }
@@ -629,9 +487,9 @@ extern "C" int sav_flash_bwd_dkv(const void* q, const void* k, const void* v,
       DKV_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (kv_rows + BLOCK_ROWS - 1) / BLOCK_ROWS * heads * batch;
-  flash_bwd_dkv_kernel<<<persistent_grid(tiles), THREADS, DKV_SMEM,
+  flash_bwd_dkv_kernel<<<sav::flash::persistent_grid(tiles), THREADS, DKV_SMEM,
                          (cudaStream_t)stream>>>(
-      tq, tk, tv, tdo, lse, delta, (sav::bf16*)dk, (sav::bf16*)dv, batch,
+      tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, batch,
       q_len, kv_rows, kv_len, heads);
   return (int)cudaGetLastError();
 }

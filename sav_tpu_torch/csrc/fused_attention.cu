@@ -17,11 +17,13 @@
 // 34 us at B = 32, L = 197 at the bf16 peak). The two projection GEMMs
 // carry 88% of them.
 //
-// Decomposition: four launches per call, all hand-written (mma.sync).
+// Decomposition: four launches per call, all hand-written (LN and the GEMMs
+// on mma.sync, the attention on wgmma).
 //  1. layernorm_kernel: one warp per row, y = LN(x) in bf16.
 //  2. gemm_kernel<kQkv>: y @ [Wq | Wk | Wv], q scaled by 1/sqrt(d) in the
 //     epilogue. Writes q, k, v [B*L, H*d] bf16.
-//  3. attention_fwd_kernel (shared with K4): per (q tile, head, image).
+//  3. k4::flash_fwd_kernel (flash_fwd_sm90.cuh, K4's kernel: wgmma, TMA,
+//     persistent), writing lse when the caller keeps residuals.
 //  4. gemm_kernel<kOut>: attn @ Wo, with +x in the epilogue when residual
 //     is not 0.
 // The TPU kernel runs one program per image with x and all four weights
@@ -35,7 +37,7 @@
 // of the products. LN gets its own pass so that both GEMMs are plain bf16
 // GEMMs whose tiles stream in with cp.async through a 3-stage ring: the
 // operation bound is met only if the tensor cores never wait on loads.
-#include "attention_core.cuh"
+#include "flash_fwd_sm90.cuh"
 #include "gemm_ln.cuh"
 
 // x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*64], wo [H*64, D];
@@ -51,7 +53,7 @@ extern "C" int sav_fused_attention_fwd(
     float q_scale, void* stream) {
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
-  const int M = batch * seq, hd = heads * ATT_D;
+  const int M = batch * seq, hd = heads * k4::BD;
   const int m_tiles = (M + GM - 1) / GM;
   cudaError_t err = cudaFuncSetAttribute(
       gemm_kernel<kQkv>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
@@ -68,11 +70,9 @@ extern "C" int sav_fused_attention_fwd(
       (const bf16*)y, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
       (bf16*)qs, (bf16*)ks, (bf16*)vs, nullptr, M, dim, hd, q_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_fwd_kernel<false>
-      <<<dim3((seq + ATT_BQ - 1) / ATT_BQ, heads, batch), 128, 0, st>>>(
-          (const bf16*)qs, (const bf16*)ks, (const bf16*)vs, (bf16*)attn, lse,
-          seq, seq, seq, heads, hd, hd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int att = k4::flash_fwd(qs, ks, vs, attn, lse, batch, seq, seq, seq,
+                                heads, st);
+  if (att != 0) return att;
   gemm_kernel<kOut><<<dim3(dim / GN, m_tiles), 256, GEMM_SMEM, st>>>(
       (const bf16*)attn, (const bf16*)wo, (const bf16*)wo, (const bf16*)wo,
       (bf16*)out, (bf16*)out, (bf16*)out, residual ? (const bf16*)x : nullptr,

@@ -24,8 +24,9 @@
 // shared memory, and the out projection sums over heads):
 //  1. quantize_rows_kernel<LN>: y codes and scales, one warp per row.
 //  2. gemm_s8_kernel<kQkv>: yq @ [Wq | Wk | Wv] with the dequant epilogue.
-//  3. attention_fwd_kernel<true>: K1's core, per (64-query tile, head,
-//     image), with a first sweep over the keys for each row's final max:
+//  3. attention_fwd_exact_kernel (attention_core.cuh), per (64-query
+//     tile, head, image), with a first sweep over the keys for each row's
+//     final max:
 //     p = exp(s - max) is rounded to bf16 against the same max as in the
 //     TPU kernel (an online softmax would round it against a running max,
 //     and requantising the bands would turn those roundings into other
@@ -87,10 +88,10 @@ extern "C" int sav_fused_attention_q8(
                          GEMM_S8_SMEM, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  attention_fwd_kernel<true>
+  attention_fwd_exact_kernel
       <<<dim3((seq + ATT_BQ - 1) / ATT_BQ, heads, batch), 128, 0, st>>>(
           (const bf16*)qs, (const bf16*)ks, (const bf16*)vs, (bf16*)attn,
-          nullptr, seq, seq, seq, heads, hd, hd);
+          seq, seq, seq, hd, hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   quantize_rows_kernel<false><<<(M + 7) / 8, 256, 0, st>>>(

@@ -194,6 +194,19 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= A B over one 16-deep step, both from shared memory MN-major (the
+// transpose bits): A [64 x 16] as 16 rows of the depth axis x 64 columns
+// of M, B [16 x 64] as for wgmma_rs_mn.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SAV_WG_D32
+      ", %32, %33, p, 1, 1, 1, 1;\n\t}\n"
+      : SAV_WG_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef SAV_WG_D32
 #undef SAV_WG_OUT32
 
@@ -242,6 +255,17 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4],
   }
 }
 
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, TMA); follow with a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Syncs `threads` threads (a multiple of 32) on named barrier `id` (1..15).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // Syncs the 128 threads of one warpgroup on named barrier `id` (1..15).
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
@@ -277,18 +301,19 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Tensor map of a [batch, rows, width] bf16 array whose images lie
-// `image_rows` rows apart, for 64 x 64 boxes with the 128-byte swizzle.
-// Rows at or past `rows` (and never another image's) read as zeros.
-// Returns 0 or a cudaError_t.
+// `image_rows` rows apart, for boxes of `box_rows` rows x 64 columns with
+// the 128-byte swizzle (a box of 16 rows is two atoms, laid out as the
+// first 16 rows of a 64-row box). Rows at or past `rows` (and never
+// another image's) read as zeros. Returns 0 or a cudaError_t.
 inline int band_map(CUtensorMap* map, const void* base, int batch, int rows,
-                    int image_rows, int width) {
+                    int image_rows, int width, int box_rows = 64) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows,
                               (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
                                  (cuuint64_t)width * 2 * image_rows};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box, unit,

@@ -1,17 +1,20 @@
 """Flash attention on the head-band layout (counterpart of
 ``sav_tpu/ops/flash_attention.py``).
 
-``flash_fwd`` is the port of the K4 kernel ``_fwd_kernel``: q, k, v as
-``[B, L, H*d]`` (a free view of the projection output, q pre-scaled), out in
-the same layout, lse ``[B, H, Lq]`` f32. ``flash_bwd`` is the port of the
-backward: K2 ``_fused_bwd_kernel`` (one launch for dq, dk, dv,
-``csrc/flash_bwd.cu``) where one block's shared memory holds a whole head,
-else K3 ``_dq_kernel`` + ``_dkv_kernel`` (``csrc/flash_bwd_split.cu``: wgmma
-fed by TMA, launch plan in ``split_plan``). On a CUDA tensor each launches
-its hand-written kernel; on a CPU tensor it runs its plain twin. No padding
-is needed: the kernels mask the ragged query and key tails themselves.
-``mha`` (K4 forward + kernel backward) and ``mha_hybrid`` (plain forward +
-kernel backward) are the differentiable ``[B, L, heads, d]`` entry points.
+``flash_fwd`` is the port of the K4 kernel ``_fwd_kernel``
+(``csrc/flash_fwd.cu`` on the Hopper kernel of ``csrc/flash_fwd_sm90.cuh``:
+wgmma fed by TMA, persistent, launch plan in ``fwd_plan``): q, k, v as
+``[B, L, H*d]`` (a free view of the projection output, q pre-scaled), out
+in the same layout, lse ``[B, H, Lq]`` f32. ``flash_bwd`` is the port of the backward: K2
+``_fused_bwd_kernel`` (one launch for dq, dk, dv, ``csrc/flash_bwd.cu``, a
+whole head in shared memory, plan in ``fused_bwd_plan``) where
+``fused_bwd_fits`` (up to 208 rows), else K3 ``_dq_kernel`` + ``_dkv_kernel``
+(``csrc/flash_bwd_split.cu``, plan in ``split_plan``); all three on wgmma
+and TMA. On a CUDA tensor each launches its hand-written kernel or raises;
+on a CPU tensor it runs its plain twin. No padding is needed: the kernels
+mask the ragged query and key tails themselves. ``mha`` (K4 forward +
+kernel backward) and ``mha_hybrid`` (plain forward + kernel backward) are
+the differentiable ``[B, L, heads, d]`` entry points.
 """
 
 from __future__ import annotations
@@ -25,12 +28,69 @@ from sav_tpu_torch import _build
 
 BAND = 64               # the kernels' head width
 SMEM_LIMIT = 232448     # dynamic shared memory one H100 block may use
-K2_MAX_TILES = 13       # K2 runs one warp per 16-row tile
+THREADS = 384           # two consumer warpgroups and a producer warpgroup
+TILE_ROWS = 64          # rows of a TMA tile, the wgmma M and N
+# K4's launch plan (csrc/flash_fwd_sm90.cuh, k4::)
+FWD_BLOCK_ROWS = 128    # query rows of a work tile: two warpgroups of 64
+FWD_STAGES = 4          # ring slots of the K/V tiles
+# K2's (csrc/flash_bwd.cu, k2::): a whole head of up to 208 rows resident
+K2_MAX_ROWS = 208
+K2_STAT_ROWS = 256      # lse and delta slots: four 64-query chunks
 # K3's launch plan (csrc/flash_bwd_split.cu, k3::)
 SPLIT_BLOCK_ROWS = 128  # rows of a work tile: two consumer warpgroups of 64
-SPLIT_TILE_ROWS = 64    # rows of a TMA tile, the wgmma M and N
 SPLIT_STAGES = 3        # ring slots of the streamed tiles
-SPLIT_THREADS = 384     # two consumer warpgroups and a producer warpgroup
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m)
+
+
+def wide_tiles(rows: int) -> int:
+    """Tiles of ``rows`` rows run 64 wide, a last tile of 1-16 rows 16 wide
+    (``flash::wide_tiles``): the count of 64-wide tiles."""
+    rem = rows % TILE_ROWS
+    if rem == 0 or rem > 16:
+        return _ceil(rows, TILE_ROWS)
+    return rows // TILE_ROWS
+
+
+def cover_rows(rows: int) -> int:
+    """Rows those tiles cover (``flash::cover_rows``)."""
+    wide = wide_tiles(rows) * TILE_ROWS
+    return wide + (16 if wide < rows else 0)
+
+
+def _check_lengths(batch, q_len, kv_rows, kv_len, heads):
+    if min(batch, q_len, kv_rows, heads) < 1:
+        raise ValueError(f'empty attention: batch {batch}, q_len {q_len}, '
+                         f'kv_rows {kv_rows}, heads {heads}')
+    if not 1 <= kv_len <= kv_rows:
+        raise ValueError(f'kv_len {kv_len} outside [1, {kv_rows}]')
+
+
+def fwd_plan(batch: int, q_len: int, kv_rows: int, kv_len: int,
+             heads: int) -> dict:
+    """K4's launch plan, mirroring ``csrc/flash_fwd_sm90.cuh``: a persistent
+    kernel (one block per SM, or one per work tile if fewer) walking
+    ``work`` = (query tiles, heads, batch) work tiles of ``rows`` query
+    rows; each streams ``steps`` key/value tiles (``wide`` of them 64 rows,
+    the rest one of 16) through a ring of ``stages`` slots; ``smem`` is the
+    dynamic shared memory (the kernel's struct plus 1024 bytes to align the
+    swizzled tiles). Raises ValueError on lengths the kernel does not
+    take."""
+    _check_lengths(batch, q_len, kv_rows, kv_len, heads)
+    work = (_ceil(q_len, FWD_BLOCK_ROWS), heads, batch)
+    if math.prod(work) >= 2 ** 31:
+        raise ValueError(f'{math.prod(work)} work tiles overflow the '
+                         f'kernel\'s int tile index')
+    tile = TILE_ROWS * BAND * 2
+    q_slots = 2 * (FWD_BLOCK_ROWS // TILE_ROWS) * tile
+    ring = 2 * FWD_STAGES * tile                # K and V per slot
+    barriers = (4 + 2 * FWD_STAGES) * 8
+    return dict(work=work, rows=FWD_BLOCK_ROWS,
+                steps=_ceil(kv_len, TILE_ROWS), wide=wide_tiles(kv_len),
+                stages=FWD_STAGES, threads=THREADS, tile_rows=TILE_ROWS,
+                smem=q_slots + ring + barriers + 1024)
 
 
 def flash_fwd_plain(q, k, v, heads: int, kv_len: int):
@@ -87,12 +147,21 @@ def flash_fwd(q, k, v, heads: int, kv_len: int):
     """Attention over ``[B, L, H*d]`` head bands (q pre-scaled).
 
     Keys at or past ``kv_len`` are masked. Returns ``(out, lse)``: out like
-    q, lse ``[B, H, Lq]`` float32.
+    q, lse ``[B, H, Lq]`` float32. K4 (``fwd_kernel``) on the card, the
+    plain twin on the CPU.
     """
     if q.device.type == 'cpu':
         return flash_fwd_plain(q, k, v, heads, kv_len)
     if q.device.type != 'cuda':
         raise ValueError(f'flash_fwd runs on cuda or cpu, not {q.device}')
+    return fwd_kernel(q, k, v, heads, kv_len)
+
+
+def fwd_kernel(q, k, v, heads: int, kv_len: int):
+    """K4's launch. Raises ValueError, before anything is launched, on what
+    the kernel does not take: bf16 ``[B, L, H*64]`` head bands, contiguous
+    and 16-byte aligned, k like v, lengths ``fwd_plan`` takes, all on one
+    card."""
     check_no_grad(q, k, v)
     for name, t in (('q', q), ('k', k), ('v', v)):
         check_cuda_bf16(name, t, q.device)
@@ -102,8 +171,10 @@ def flash_fwd(q, k, v, heads: int, kv_len: int):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd:
         raise ValueError(f'k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do '
                          f'not match q {tuple(q.shape)}')
-    if not 1 <= kv_len <= k.shape[1]:
-        raise ValueError(f'kv_len {kv_len} outside [1, {k.shape[1]}]')
+    fwd_plan(b, q_len, k.shape[1], kv_len, heads)
+    if q.device.type != 'cuda':
+        raise ValueError(f'K4 runs on the card, got {q.device} tensors '
+                         f'(flash_fwd runs the plain twin on the CPU)')
     out = torch.empty_like(q)
     lse = torch.empty(b, heads, q_len, dtype=torch.float32, device=q.device)
     fn = _lib()
@@ -147,16 +218,41 @@ def flash_bwd_plain(q, k, v, out, lse, do, heads: int, kv_len: int):
     return dq.reshape(b, q_len, hd).to(q.dtype), rows(dk, k), rows(dv, v)
 
 
+def fused_bwd_plan(batch: int, q_len: int, kv_rows: int, kv_len: int,
+                   heads: int) -> dict:
+    """K2's launch plan, mirroring ``csrc/flash_bwd.cu``: a persistent
+    kernel walking the ``items`` (head, image) pairs, each with its whole
+    head resident. Phase A runs ``key_tiles`` 64-row key tiles against
+    ``q_wide`` 64-wide query chunks and a 16-wide last one if ``q_chunks``
+    is larger; phase B forms dq over ``q_chunks`` chunks in 16-key steps
+    up to ``ds_rows``. Q and dO load ``q_cover`` rows, K and V ``kv_cover``;
+    ``smem`` is fixed: four resident bands and ds^T as four 64-query column
+    tiles (the last holds o until delta is formed), each over 208 rows, lse
+    and delta, the barriers, and 1024 bytes of alignment slack. Raises
+    ValueError on lengths the kernel does not take (past 208 rows: K3's)."""
+    _check_lengths(batch, q_len, kv_rows, kv_len, heads)
+    if not fused_bwd_fits(q_len, kv_rows):
+        raise ValueError(f'K2 holds at most {K2_MAX_ROWS} rows a head, got '
+                         f'q_len {q_len}, kv_rows {kv_rows}')
+    band = K2_MAX_ROWS * BAND * 2
+    smem = 8 * band + 2 * K2_STAT_ROWS * 4 + 4 * 8 + 1024
+    return dict(items=heads * batch, q_wide=wide_tiles(q_len),
+                q_chunks=_ceil(q_len, TILE_ROWS),
+                key_tiles=_ceil(kv_rows, TILE_ROWS),
+                ds_rows=_ceil(kv_len, 16) * 16, q_cover=cover_rows(q_len),
+                kv_cover=cover_rows(kv_rows), threads=THREADS, smem=smem)
+
+
+# flash_bwd's route: K2 wherever it holds the head, K3 past it. Measured
+# in one call of chip_smoke.py (H100 80GB HBM3, 700 W; B=192, H=12): K2
+# 0.3361 ms against the K3 pair's 0.3865 at L = 197, and K2 0.3309
+# against 0.3718 at 200 rows over 190 keys, so no shorter threshold.
 def fused_bwd_fits(q_len: int, kv_rows: int) -> bool:
-    """Whether K2 (the one-launch backward) takes these lengths on the card:
-    one block holds q, k, v, do of a head, its ds^T and lse/delta in
-    shared memory (mirrors ``sav_flash_bwd_fused_smem`` in
-    ``csrc/flash_bwd.cu``). At the ViT lengths that is L = 197 (rounded to
-    208: 211 KB of a block's 227 KB); from 209 on it no longer fits and K3
-    takes over."""
-    lq, lk = -(-q_len // 16) * 16, -(-kv_rows // 16) * 16
-    smem = (2 * lq + 2 * lk) * (BAND + 8) * 2 + lk * (lq + 8) * 2 + 2 * lq * 4
-    return max(lq, lk) // 16 <= K2_MAX_TILES and smem <= SMEM_LIMIT
+    """Whether ``flash_bwd`` runs K2 (else K3) at these lengths: one block
+    holds a whole head of up to ``K2_MAX_ROWS`` = 208 query and key rows
+    (ViT @224, L = 197) with its ds^T in shared memory
+    (``fused_bwd_plan``); from 209 on only K3 does."""
+    return max(q_len, kv_rows) <= K2_MAX_ROWS
 
 
 def _check_bwd(q, k, v, lse, do, heads: int, kv_len: int, out=None,
@@ -200,15 +296,10 @@ def split_plan(batch: int, q_len: int, kv_rows: int, kv_len: int,
     kernel's struct plus 1024 bytes to align the swizzled tiles). K3a
     (``'dq'``) owns query rows and streams keys, K3b (``'dkv'``) the
     reverse. Raises ValueError on lengths the kernels do not take."""
-    if min(batch, q_len, kv_rows, heads) < 1:
-        raise ValueError(f'empty backward: batch {batch}, q_len {q_len}, '
-                         f'kv_rows {kv_rows}, heads {heads}')
-    if not 1 <= kv_len <= kv_rows:
-        raise ValueError(f'kv_len {kv_len} outside [1, {kv_rows}]')
-    rows, tile_rows = SPLIT_BLOCK_ROWS, SPLIT_TILE_ROWS
-    ceil = lambda n, m: -(-n // m)
-    work_dq = (ceil(q_len, rows), heads, batch)
-    work_dkv = (ceil(kv_rows, rows), heads, batch)
+    _check_lengths(batch, q_len, kv_rows, kv_len, heads)
+    rows, tile_rows = SPLIT_BLOCK_ROWS, TILE_ROWS
+    work_dq = (_ceil(q_len, rows), heads, batch)
+    work_dkv = (_ceil(kv_rows, rows), heads, batch)
     if max(math.prod(work_dq), math.prod(work_dkv)) >= 2 ** 31:
         raise ValueError(f'{math.prod(work_dq)} work tiles overflow the '
                          f'kernels\' int tile index')
@@ -222,20 +313,22 @@ def split_plan(batch: int, q_len: int, kv_rows: int, kv_len: int,
     dkv_smem = (2 * slots + ring + 2 * SPLIT_STAGES * tile_rows * 4
                 + barriers + 1024)
     return {
-        'dq': dict(work=work_dq, rows=rows, steps=ceil(kv_len, tile_rows),
+        'dq': dict(work=work_dq, rows=rows, steps=_ceil(kv_len, tile_rows),
                    smem=dq_smem),
-        'dkv': dict(work=work_dkv, rows=rows, steps=ceil(q_len, tile_rows),
+        'dkv': dict(work=work_dkv, rows=rows, steps=_ceil(q_len, tile_rows),
                     smem=dkv_smem),
         'tile_rows': tile_rows, 'stages': SPLIT_STAGES,
-        'threads': SPLIT_THREADS}
+        'threads': THREADS}
 
 
-def _split_checks(q, k, v, lse, do, heads, kv_len, out=None, delta=None):
-    """The checks of a K3 launch: ``_check_bwd``, the plan, and the card."""
+def _launch_checks(plan, name, q, k, v, lse, do, heads, kv_len, out=None,
+                   delta=None):
+    """The checks of a K2 or K3 launch: ``_check_bwd``, the kernel's plan,
+    and the card."""
     _check_bwd(q, k, v, lse, do, heads, kv_len, out=out, delta=delta)
-    split_plan(q.shape[0], q.shape[1], k.shape[1], kv_len, heads)
+    plan(q.shape[0], q.shape[1], k.shape[1], kv_len, heads)
     if q.device.type != 'cuda':
-        raise ValueError(f'K3 runs on the card, got {q.device} tensors '
+        raise ValueError(f'{name} runs on the card, got {q.device} tensors '
                          f'(flash_bwd runs the plain twin on the CPU)')
 
 
@@ -264,16 +357,13 @@ def flash_bwd(q, k, v, out, lse, do, heads: int, kv_len: int):
         return flash_bwd_plain(q, k, v, out, lse, do, heads, kv_len)
     if q.device.type != 'cuda':
         raise ValueError(f'flash_bwd runs on cuda or cpu, not {q.device}')
-    _check_bwd(q, k, v, lse, do, heads, kv_len, out=out)
-    kv_rows = k.shape[1]
-    q_len = q.shape[1]
-    route = bwd_fused if fused_bwd_fits(q_len, kv_rows) else bwd_split
+    route = bwd_fused if fused_bwd_fits(q.shape[1], k.shape[1]) else bwd_split
     return route(q, k, v, out, lse, do, heads, kv_len)
 
 
 # The kernel launches behind flash_bwd (chip_smoke.py calls both routes
-# directly to time them at one shape). K2's takes the inputs flash_bwd has
-# checked; K3's check their own, and raise off the card.
+# directly to time them at one shape); each checks its own inputs and
+# raises off the card or on lengths its kernel does not take.
 
 def _dims(q, k, heads, kv_len):
     return (q.shape[0], q.shape[1], k.shape[1], kv_len, heads,
@@ -282,6 +372,8 @@ def _dims(q, k, heads, kv_len):
 
 def bwd_fused(q, k, v, out, lse, do, heads: int, kv_len: int):
     """K2: (dq, dk, dv) in one launch."""
+    _launch_checks(fused_bwd_plan, 'K2', q, k, v, lse, do, heads, kv_len,
+                   out=out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _bwd_fn('sav_flash_bwd_fused')(
@@ -295,7 +387,8 @@ def bwd_fused(q, k, v, out, lse, do, heads: int, kv_len: int):
 
 def bwd_dq(q, k, v, out, lse, do, heads: int, kv_len: int):
     """K3a: (dq, delta), delta = rowsum(out * do) ``[B, H, Lq]`` f32."""
-    _split_checks(q, k, v, lse, do, heads, kv_len, out=out)
+    _launch_checks(split_plan, 'K3', q, k, v, lse, do, heads, kv_len,
+                   out=out)
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
     with torch.cuda.device(q.device):
         err = _bwd_fn('sav_flash_bwd_dq')(
@@ -309,7 +402,8 @@ def bwd_dq(q, k, v, out, lse, do, heads: int, kv_len: int):
 
 def bwd_dkv(q, k, v, do, lse, delta, heads: int, kv_len: int):
     """K3b: (dk, dv) from K3a's delta."""
-    _split_checks(q, k, v, lse, do, heads, kv_len, delta=delta)
+    _launch_checks(split_plan, 'K3', q, k, v, lse, do, heads, kv_len,
+                   delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _bwd_fn('sav_flash_bwd_dkv')(

@@ -1,4 +1,6 @@
-"""Times the port's training step for two or more checkouts on one card.
+"""Times the port's training step (or, with ``--serve``, its serving; with
+``--kernels``, its flash-attention kernels) for two or more checkouts on
+one card.
 
 Each checkout (a directory holding ``sav_tpu_torch/``) runs in a process of
 its own, in turns (a, b, ..., then the reverse, ``--rounds`` times), so two
@@ -7,10 +9,27 @@ the checkout's kernels, makes the Trainer on the synthetic source, takes 3
 warm-up steps, then prints the train img/s over ``--steps`` steps (host
 clock around work that ends in a synchronize). With ``--profile`` it also
 prints torch.profiler's device time by kernel over 2 steps, the device
-time per step and the idle share (1 - device / wall).
+time per step and the idle share (1 - device / wall). ``--use_kernel``
+re-routes the Trainer's model (``models.set_use_kernel``) before the first
+step, for the modes the Trainer has no flag for, as ``fused_ff``. With
+``--serve`` each run builds the model instead (random weights from seed 0,
+``use_kernel`` as given) and prints the img/s of ``predict.serve`` on
+uint8 frames over ``--steps`` batches after 3 (host clock, H2D included).
+With ``--kernels`` each run times, through the checkout's own wrappers on
+inputs made from seed 0 with numpy, K1 (the attention sublayer forward,
+whose attention launch is K4's kernel) at its four timed shapes, K4 at
+ViT-B/16's serving and ``fused_ff`` training shapes and K2 at the @224
+training shape and at 200 rows over 190 keys, each with this checkout's
+``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
+uses, handed to every run as source).
 
     python scripts/torch_train_ab.py PARENT_DIR . --model vit_b_patch16 \\
         --img 384 --batch 48 --profile
+    python scripts/torch_train_ab.py PARENT_DIR . --img 224 --batch 192 \\
+        --use_kernel fused_ff
+    python scripts/torch_train_ab.py PARENT_DIR . --serve --img 384 \\
+        --batch 32 --use_kernel fused_layer
+    python scripts/torch_train_ab.py PARENT_DIR . --kernels
 
 Needs an NVIDIA card; there is no CPU fallback.
 """
@@ -18,23 +37,84 @@ Needs an NVIDIA card; there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
 import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from sav_tpu_torch.utils import timing  # noqa: E402
 
 CHILD = r'''
 import json, sys, time
 import torch
 sys.path.insert(0, {root!r})
 from sav_tpu_torch import _build
+from sav_tpu_torch.models import set_use_kernel
 from sav_tpu_torch.train import TrainConfig, Trainer
 assert _build.__file__.startswith({root!r}), _build.__file__
 args = {args!r}
 _build.build_all()
+if args['kernels']:
+    import math
+    import numpy as np
+    from sav_tpu_torch.ops import flash_attention as fa
+    from sav_tpu_torch.ops import fused_layer
+    rng = np.random.RandomState(0)
+    bf16 = lambda shape, std=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).cuda().bfloat16()
+    out = {{}}
+    dim, heads = 768, 12
+    for b, seq, train in ((32, 197, False), (32, 577, False),
+                          (192, 197, True), (48, 577, True)):
+        x = bf16((b, seq, dim))
+        scale = (1 + 0.1 * bf16((dim,))).float()
+        bias = (0.1 * bf16((dim,))).float()
+        w = [bf16((dim, dim), s / math.sqrt(dim)) for s in (4, 1, 1, 1)]
+        name = f'K1 B={{b}} L={{seq}}' + (' save_residuals' if train else '')
+        out[name] = time_ms(lambda: fused_layer.fused_attention_fwd(
+            x, scale, bias, *w, heads, save_residuals=train))
+    for b, seq in ((32, 577), (192, 197)):
+        q, k, v = (bf16((b, seq, dim), s) for s in (0.5, 1, 1))
+        out[f'K4 B={{b}} L={{seq}}'] = time_ms(
+            lambda: fa.flash_fwd(q, k, v, heads, seq))
+    for b, seq, kv_len in ((192, 197, 197), (192, 200, 190)):
+        q, k, v, do = (bf16((b, seq, dim), s) for s in (0.5, 1, 1, 1))
+        o, lse = fa.flash_fwd(q, k, v, heads, kv_len)
+        out[f'K2 B={{b}} L={{seq}} kv_len={{kv_len}}'] = time_ms(
+            lambda: fa.bwd_fused(q, k, v, o, lse, do, heads, kv_len))
+    print('RESULT ' + json.dumps(out), flush=True)
+    sys.exit(0)
+if args['serve']:
+    import numpy as np
+    from sav_tpu_torch.models import create_model
+    from sav_tpu_torch.predict import decode_size_for, serve
+    model = create_model(args['model'], num_classes=1000,
+                         dtype=torch.bfloat16, img_size=args['img'], seed=0,
+                         device='cuda', use_kernel=args['use_kernel']).eval()
+    size = decode_size_for(args['img'])
+    frames = np.random.RandomState(0).randint(
+        0, 256, (args['batch'], size, size, 3), dtype=np.uint8)
+    for _ in range(3):
+        serve(model, frames, args['img'], 5)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(args['steps']):
+        serve(model, frames, args['img'], 5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    print('RESULT ' + json.dumps(dict(
+        img_s=args['steps'] * args['batch'] / secs,
+        ms_step=1e3 * secs / args['steps'])), flush=True)
+    sys.exit(0)
 trainer = Trainer(TrainConfig(model_name=args['model'], img_size=args['img'],
                               batch_size=args['batch'], seed=0,
                               dtype='bfloat16'), device='cuda')
+if args['use_kernel'] != 'auto':
+    set_use_kernel(trainer.model, args['use_kernel'])
 data = trainer.dataset()
 for i in range(3):
     trainer.train_step(data.batch(i))
@@ -75,7 +155,8 @@ print('RESULT ' + json.dumps(out), flush=True)
 
 
 def run(root: str, args: dict) -> dict:
-    code = CHILD.format(root=os.path.abspath(root), args=args)
+    code = (inspect.getsource(timing)
+            + CHILD.format(root=os.path.abspath(root), args=args))
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, cwd=os.path.abspath(root))
     for line in proc.stdout.splitlines():
@@ -94,22 +175,39 @@ def main(argv=None) -> int:
     parser.add_argument('--steps', type=int, default=10)
     parser.add_argument('--rounds', type=int, default=1,
                         help='each round runs the roots forward, then back')
+    parser.add_argument('--use_kernel', default='auto',
+                        help="the model's use_kernel mode, e.g. fused_ff")
     parser.add_argument('--profile', action='store_true')
+    parser.add_argument('--serve', action='store_true',
+                        help='time predict.serve instead of a train step')
+    parser.add_argument('--kernels', action='store_true',
+                        help='time the flash kernels instead of a step')
     opts = parser.parse_args(argv)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     args = dict(model=opts.model, img=opts.img, batch=opts.batch,
-                steps=opts.steps, profile=opts.profile)
+                steps=opts.steps, profile=opts.profile,
+                use_kernel=opts.use_kernel, serve=opts.serve,
+                kernels=opts.kernels)
     order = []
     for _ in range(opts.rounds):
         order += list(opts.roots) + list(reversed(opts.roots))
     for root in order:
         res = run(root, args)
-        print(f'{root}: {opts.model} @{opts.img} bs{opts.batch}: '
-              f'{res["img_s"]:.1f} train img/s ({res["ms_step"]:.2f} ms/step '
-              f'incl. host), loss {res["loss"]:.4f}', flush=True)
+        if opts.kernels:
+            print(f'{root}: ' + '  '.join(f'{k} {v:.4f}' for k, v in
+                                          res.items()) + ' (ms)', flush=True)
+            continue
+        what = (f'{root}: {opts.model} ({opts.use_kernel}) @{opts.img} '
+                f'bs{opts.batch}: {res["img_s"]:.1f}')
+        if opts.serve:
+            print(f'{what} serve img/s ({res["ms_step"]:.2f} ms/batch incl. '
+                  f'host)', flush=True)
+            continue
+        print(f'{what} train img/s ({res["ms_step"]:.2f} ms/step incl. '
+              f'host), loss {res["loss"]:.4f}', flush=True)
         if 'device_ms_step' in res:
             print(f'  device {res["device_ms_step"]:.2f} ms of '
                   f'{res["wall_ms_step"]:.2f} ms a step (idle '

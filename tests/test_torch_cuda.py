@@ -142,6 +142,70 @@ def test_flash_bwd_split_repeats_bitwise(card, q_len, seq, kv_len):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize('b,q_len,kv_rows,kv_len', [
+    (3, 197, 197, 197), (3, 200, 200, 190), (2, 577, 577, 577),
+    (3, 129, 129, 129), (2, 300, 100, 90), (1, 3136, 784, 784)])
+def test_flash_fwd_writes_every_row_and_no_more(card, b, q_len, kv_rows,
+                                                kv_len):
+    """K4 through its C entry into NaN-filled out and lse one image longer
+    than the call: every row of the call's images written and as the
+    twin's, none past them; masked keys (1e4 logits, NaN values) do not
+    leak in."""
+    rng = np.random.RandomState(q_len)
+    q = _bf16(rng, (b, q_len, 128), 0.5, card)
+    k, v = (_bf16(rng, (b, kv_rows, 128), 1, card) for _ in range(2))
+    k[:, kv_len:] = 1e4
+    v[:, kv_len:] = float('nan')
+    out = torch.full((b + 1, q_len, 128), float('nan'), device=card,
+                     dtype=torch.bfloat16)
+    lse = torch.full((b + 1, 2, q_len), float('nan'), device=card)
+    err = flash_attention._lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, q_len, kv_rows, kv_len, 2,
+        flash_attention.stream_of(card))
+    torch.cuda.synchronize()
+    assert err == 0
+    p_out, p_lse = flash_fwd_plain(q, k, v, 2, kv_len)
+    assert _rel(out[:b], p_out) <= 2e-2
+    assert (lse[:b] - p_lse).abs().max() <= 1e-3
+    assert bool(torch.isnan(out[b]).all() and torch.isnan(lse[b]).all())
+
+
+@pytest.mark.parametrize('q_len,seq,kv_len', [(197, 197, 197), (200, 200, 190),
+                                              (150, 100, 90), (1, 1, 1)])
+def test_flash_bwd_fused_repeats_bitwise(card, q_len, seq, kv_len):
+    """K2 owns each dq row in one warpgroup's phase B and each dk/dv row in
+    one key tile (no atomics): two calls give bit-identical gradients."""
+    rng = np.random.RandomState(q_len)
+    q, do = (_bf16(rng, (3, q_len, 12 * 64), s, card) for s in (0.5, 1))
+    k, v = (_bf16(rng, (3, seq, 12 * 64), 1, card) for _ in range(2))
+    out, lse = flash_fwd(q, k, v, 12, kv_len)
+    first = flash_attention.bwd_fused(q, k, v, out, lse, do, 12, kv_len)
+    again = flash_attention.bwd_fused(q, k, v, out, lse, do, 12, kv_len)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    twin = flash_attention.flash_bwd_plain(q, k, v, out, lse, do, 12, kv_len)
+    for g, t in zip(first, twin):           # L = 1: dq = dk = 0 exactly
+        scale = max(float(t.float().abs().max()), 1e-3)
+        assert float((g.float() - t.float()).abs().max()) <= 2e-2 * scale
+
+
+def test_flash_plans_match_the_kernels(card):
+    """fwd_plan's and fused_bwd_plan's shared memory is the kernels' own
+    (their structs plus the alignment slack), as the CPU tests read it;
+    K2 refuses a head past 208 rows on the card as well."""
+    from sav_tpu_torch import _build
+    fwd = _build.library('flash_fwd').sav_flash_fwd_smem()
+    assert fwd == flash_attention.fwd_plan(1, 577, 577, 577, 12)['smem']
+    k2 = _build.library('flash_bwd').sav_flash_bwd_fused_smem
+    assert k2(197, 197) == flash_attention.fused_bwd_plan(
+        1, 197, 197, 197, 12)['smem']
+    assert k2(209, 209) == 0
+    x = torch.zeros(1, 209, 128, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 209, device=card)
+    with pytest.raises(ValueError, match='208'):
+        flash_attention.bwd_fused(x, x, x, x, lse, x, 2, 209)
+
+
 def test_split_plan_matches_the_kernel(card):
     """split_plan's shared memory is the kernels' own (their structs plus
     the alignment slack), as the CPU tests read it."""

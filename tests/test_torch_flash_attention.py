@@ -37,6 +37,7 @@ def _pad(a, rows):
     (197, 208, 256),        # the ViT @224 single block
     (200, 208, 128),        # two kv blocks: online-softmax carry, key tail
     (200, 112, 128),        # two q blocks and two kv blocks
+    (129, 144, 256),        # a 1-row tail past two 64-row tiles (K4's)
 ])
 def test_flash_twin_matches_pallas_fwd(l, block_q, block_k):
     q, k, v = _qkv(l)

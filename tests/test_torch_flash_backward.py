@@ -70,9 +70,10 @@ def _port_bwd(l, kv_len, out, lse):
     return [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize('l,pad', [(17, 128), (65, 128)])
+@pytest.mark.parametrize('l,pad', [(17, 128), (65, 128), (129, 256)])
 def test_twin_matches_single_block_kernel(l, pad):
-    """K2's function: one q block and one kv block."""
+    """K2's function: one q block and one kv block (129: a 1-row tail past
+    two of K2's 64-row tiles)."""
     out, lse, *want, single = _jax_bwd(l, l, pad, pad, pad)
     assert single
     for ours, ref in zip(_port_bwd(l, l, out, lse), want):
