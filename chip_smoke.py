@@ -34,8 +34,10 @@
    img/s over 10 steps after warm-up; one eval batch.
 5. CaiT-S/24 (slice 3): the talking-heads kernels against their twins at
    the path's shapes (K5a serve B=32 and train B=128 at L=196, K5b B=128;
-   K6a B=32 and B=48 at L=576, K6b B=48), outputs, lse, dq/dk/dv and
-   dM_pre/dM_post, the ragged last tile on its own; serving @224 (24 K5a
+   K6a B=32 and B=48 at L=576, K6b B=48; K5b and K6b also at cait_xxs's
+   four heads), outputs, lse, dq/dk/dv and dM_pre/dM_post, the backward's
+   two calls bit-identical and its ptxas lines, the ragged last tile on its
+   own at L = 196, 197, 576 and 577; serving @224 (24 K5a
    launches per forward) and @384 (24 K6a) at batch 32 with logits against
    the per-op path; training through the Trainer @224 bs128 (24 K5a-train +
    24 K5b per step) and @384 bs48 (24 K6a + 24 K6b) at stochastic depth
@@ -757,7 +759,8 @@ def check_flash_sentinels(rng, checks, heads=2):
                       f'untouched {untouched}, two calls identical {same}')
 
 
-# ---- talking-heads kernels (K5a, K5b, K6a, K6b; csrc/th_attention.cu)
+# ---- talking-heads kernels (K5a, K6a: csrc/th_attention.cu; K5b, K6b:
+# csrc/th_bwd.cu)
 
 def _th_mixes(rng, heads):
     """Two [H, H] f32 mixes near the identity."""
@@ -884,29 +887,34 @@ def check_k6a(rng, checks, batch, seq, heads=8):
     return rec
 
 
-def check_th_bwd(rng, checks, batch, seq, entry, heads=8):
-    """K5b (``th_attention_bwd``) or K6b (``th_core_bwd``) vs the backward
-    twin: dq, dk, dv and dM_pre, dM_post, each as max |kernel - twin| over
-    max |twin|. Returns the kernel record."""
+def check_th_bwd(rng, checks, batch, seq, entry, heads=8, timed=True):
+    """K5b (``th_attention_bwd``) or K6b (``th_core_bwd``; both run the three
+    kernels of ``csrc/th_bwd.cu``) vs the backward twin: dq, dk, dv and
+    dM_pre, dM_post, each as max |kernel - twin| over max |twin|, and two
+    calls bit-identical (no float atomics). With ``timed``, returns the
+    kernel record; the per-op chain's backward is its library time."""
     q, k, v, do, m = _th_core_inputs(rng, batch, seq, heads)
     _, lse = th.th_core_fwd_plain(q, k, v, *m, heads)
     fn = getattr(th, entry)
     run = lambda: fn(q, k, v, do, lse, *m, heads)
     plain = lambda: th.th_core_bwd_plain(q, k, v, do, lse, *m, heads)
-    grads, twin = run(), plain()
+    grads, again, twin = run(), run(), plain()
     torch.cuda.synchronize()
     errs = [_rel(g, t) for g, t in zip(grads, twin)]
+    same = all(torch.equal(g, a) for g, a in zip(grads, again))
     shapes = all(g.shape == t.shape for g, t in zip(grads, twin))
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
     name = 'K5b' if entry == 'th_attention_bwd' else 'K6b'
-    checks.expect(shapes and finite and max(errs[:3]) <= BWD_TOL
+    checks.expect(shapes and finite and same and max(errs[:3]) <= BWD_TOL
                   and max(errs[3:]) <= DM_TOL,
-                  f'{name} {entry} B={batch} L={seq}: dq/dk/dv err '
+                  f'{name} {entry} B={batch} L={seq} H={heads}: dq/dk/dv err '
                   f'{", ".join(f"{e:.3g}" for e in errs[:3])} of max (tol '
                   f'{BWD_TOL}); dM_pre/dM_post err '
                   f'{", ".join(f"{e:.3g}" for e in errs[3:])} of max (tol '
-                  f'{DM_TOL})')
-
+                  f'{DM_TOL}); two calls identical {same}')
+    if not timed:
+        return None
+    del again
     # library yardstick: the per-op chain's backward (fwd+bwd minus fwd)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     fwd = time_ms(lambda: _th_library(*leaves, *m, heads))
@@ -927,8 +935,9 @@ def check_th_bwd(rng, checks, batch, seq, entry, heads=8):
 
 
 def check_th_tails(rng, checks, seq, heads=8):
-    """The ragged last tile on its own (L = 196 and 576 are not multiples of
-    the kernels' 16- or 32-row tiles): every output of the TH kernels goes
+    """The ragged last tile on its own (L = 196, 197, 576 and 577 are not
+    multiples of the forwards' 32-row tiles or the backward's 64-row work
+    tiles; 197 and 577 leave one row): every output of the TH kernels goes
     into a buffer of 64 more rows holding a NaN sentinel; the L rows must
     match the twins and the rows past L must keep the sentinel (nothing is
     padded, no row is dropped, none is written past the length)."""
@@ -944,13 +953,13 @@ def check_th_tails(rng, checks, seq, heads=8):
     errs = [th._fn('sav_th_core_fwd', 7, 3)(
         ptr(q), ptr(k), ptr(v), ptr(m[0]), ptr(m[1]), ptr(attn), ptr(lse), 1,
         seq, heads, stream)]
+    # the backward (csrc/th_bwd.cu) with its scratch as _core_bwd makes it
     delta = torch.empty_like(lse)
-    dm = torch.empty(1, -(-seq // (th.ROWS_PER_BLOCK // heads)), 2, heads,
-                     heads, device='cuda')
-    errs.append(th._fn('sav_th_core_bwd', 12, 3)(
-        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(m[0]), ptr(m[1]),
-        ptr(delta), ptr(dm), ptr(dq), ptr(dk), ptr(dv), 1, seq, heads,
-        stream))
+    dm = th._dm_partials(1, seq, heads, q.device)
+    mix = torch.stack((m[0], m[0] * th.LOG2E, m[1])).contiguous()
+    errs.append(th._fn('sav_th_core_bwd', 11, 3, lib='th_bwd')(
+        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(mix), ptr(delta),
+        ptr(dm), ptr(dq), ptr(dk), ptr(dv), 1, seq, heads, stream))
     # K5a's span where it takes the length: its attn scratch and out in
     # sentinel buffers
     spans = []
@@ -2332,10 +2341,10 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
-    # the wgmma kernels (K4 and K1's attention, K2, K3): each kernel's
+    # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b): each kernel's
     # registers, spills and any wgmma warning (C7510-C7515: serialized)
     for lib, label in (('flash_fwd', 'K4'), ('flash_bwd', 'K2'),
-                       ('flash_bwd_split', 'K3')):
+                       ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
                                        'wgmma', 'arning')):
@@ -2378,7 +2387,11 @@ def main(argv=None):
     k6a = {train: check_k6a(rng, checks, 48 if train else args.batch, 576)
            for train in (False, True)}
     k6b = check_th_bwd(rng, checks, 48, 576, 'th_core_bwd')
-    for seq in (196, 576):
+    # cait_xxs's four heads (K6 at every length), both entries
+    check_th_bwd(rng, checks, 8, 577, 'th_core_bwd', heads=4, timed=False)
+    check_th_bwd(rng, checks, 16, 196, 'th_attention_bwd', heads=4,
+                 timed=False)
+    for seq in (196, 197, 576, 577):
         check_th_tails(rng, checks, seq)
     k5a_serve = serve_path(checks, 'CaiT-S/24 @224 auto', 224, 'auto',
                               {'th_attention_fwd': 24}, args.seed, args.batch,
@@ -2558,7 +2571,8 @@ def main(argv=None):
                cait_step, args.seed, model_name='cait_s_24', plain_core=None,
                quantized='ff')
 
-    def th_entry(name, replaces, launches, rec, train=None, **extra):
+    def th_entry(name, replaces, launches, rec, train=None,
+                 source='th_attention.cu', **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
         ``train``, the record at the training shape, adds train_* keys."""
         if train is not None:
@@ -2566,7 +2580,7 @@ def main(argv=None):
                                             train['max_abs_err']),
                        train_ms=train['ms'], train_bound_ms=train['bound_ms'])
         return dict(name=name, route='cuda',
-                    source='sav_tpu_torch/csrc/th_attention.cu',
+                    source=f'sav_tpu_torch/csrc/{source}',
                     replaces=f'sav_tpu/ops/th_attention.py:{replaces}',
                     launches=launches, **rec, **extra)
 
@@ -2655,11 +2669,13 @@ def main(argv=None):
         th_entry('th_attention_fwd', 158,
                  k5a_serve.get('th_attention_fwd', 0), k5a[False], k5a[True],
                  train_launches=c224.get('th_attention_fwd_train', 0)),
-        th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b),
+        th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b,
+                 source='th_bwd.cu'),
         th_entry('th_core_fwd', 362, k6a_serve.get('th_core_fwd', 0),
                  k6a[False], k6a[True],
                  train_launches=c384.get('th_core_fwd', 0)),
-        th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b),
+        th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b,
+                 source='th_bwd.cu'),
         # K8a: Mixer-B/16 serving (B=32) launches and timing; the training
         # shape (B=192) under train_*
         dict(name='token_mix_fwd', route='cuda',

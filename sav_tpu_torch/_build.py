@@ -34,6 +34,7 @@ SOURCES = {
     'mixer_token': 'mixer_token.cu',
     'th_attention': 'th_attention.cu',
     'th_attention_q8': 'th_attention_q8.cu',
+    'th_bwd': 'th_bwd.cu',
     'tnt_inner': 'tnt_inner.cu',
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

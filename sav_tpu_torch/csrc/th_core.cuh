@@ -12,8 +12,8 @@
 namespace sav {
 
 constexpr int TD = 48;          // head width
-constexpr int TK = 32;          // keys (forward, dq) or queries (dkv) per tile
-constexpr int TROWS = 128;      // (query or key row, head) pairs per block
+constexpr int TK = 32;          // keys per tile
+constexpr int TROWS = 128;      // (query row, head) pairs per block
 constexpr int TTHREADS = 256;   // 8 warps
 constexpr int TSMEM_LIMIT = 232448;
 constexpr int SLD = TK + 4;     // f32 tile pitch

@@ -12,7 +12,7 @@ H, L, L]`` tensor is kept. Routes:
                     (``th_attention_fwd``: LN, QKV GEMM with q scaled,
                     the talking-heads core with the logits of whole kv rows
                     resident in shared memory, out GEMM), backward core on
-                    the K5b port (``th_attention_bwd``).
+                    the K5b port (``th_attention_bwd``, ``csrc/th_bwd.cu``).
   * ``'blocked'`` - LN and projections as library ops, the core on the K6a
                     port (``th_core_fwd``: two sweeps over the keys, any
                     length), backward core on the K6b port (``th_core_bwd``).
@@ -20,11 +20,11 @@ H, L, L]`` tensor is kept. Routes:
                     package's name for its jnp path).
 The out-projection, weight gradients and LayerNorm backward are library
 ops in every route, as they are XLA in the JAX package. On a CUDA tensor
-each kernel wrapper launches its hand-written kernel
-(``csrc/th_attention.cu``) or raises; on a CPU tensor it runs its plain
-twin. head_ch 48 is taken as it is: the kernels tile d = 48 as three
-16-deep k-steps of ``mma.sync`` and six 8-wide n-tiles, so nothing is
-padded to 64 (the JAX package's ``_pad_weights`` has no counterpart).
+each kernel wrapper launches its hand-written kernel (the forwards in
+``csrc/th_attention.cu``, the backward in ``csrc/th_bwd.cu``) or raises; on
+a CPU tensor it runs its plain twin. head_ch 48 is taken as it is: the
+kernels run d = 48 as three 16-deep k-steps, so nothing is padded to 64
+(the JAX package's ``_pad_weights`` has no counterpart).
 
 CaiT's ``quantized='all'`` serving span is ``th_attention_sublayer_q8``:
 where the JAX package's ``th_supported`` holds, the port of K11
@@ -53,7 +53,40 @@ from sav_tpu_torch.ops.quantized import int_matmul
 ROUTES = ('fused', 'blocked', 'xla')
 HEAD_CH = 48                # the kernels' head width (every CaiT config)
 KERNEL_HEADS = (4, 8)       # head counts the kernels are instantiated for
-ROWS_PER_BLOCK = 128        # (row, head) pairs of a block (csrc TROWS)
+LOG2E = 1.4426950408889634
+
+
+def th_bwd_plan(l: int, heads: int) -> dict:
+    """Launch geometry of the backward (``csrc/th_bwd.cu``), mirrored from
+    its ``Plan``: three persistent kernels (``'dq'``, ``'dk'``, ``'dv'``)
+    whose work tiles are ``rows`` = 64 resident rows of one image, each
+    streaming ``cols`` = 16-row tiles through ``stages`` ring slots (DQ
+    sweeps the keys twice). ``smem``: the dynamic shared memory of each
+    kernel; ``dm_partials``: the ``[H, H]`` partials a call leaves per
+    image (4 of dM_post from DV and 4 of dM_pre from DK a work tile), which
+    the wrapper sums (``dm_post`` and ``dm_pre`` of them)."""
+    if heads not in KERNEL_HEADS:
+        raise ValueError(f'the TH backward is built for H in {KERNEL_HEADS}, '
+                         f'got {heads}')
+    rows, cols, stages = 64, 16, 3
+    nb = heads * HEAD_CH // 64                      # 64-column boxes
+    tiles = -(-l // rows)
+    smem = {}
+    for mode in ('dq', 'dk', 'dv'):
+        nbytes = (2 * nb * rows * 64 * 2                # resident boxes
+                  + stages * nb * cols * 64 * 2         # streamed, own boxes
+                  + stages * heads * cols * 64 * 2      # streamed, per head
+                  + 2 * heads * rows * cols * 2         # exchange buffers
+                  + (2 * heads * rows * 4 if mode == 'dq'
+                     else stages * 2 * heads * cols * 4)  # statistics
+                  + (2 + 2 * stages + 4) * 8            # mbarriers
+                  + 1024)                               # alignment slack
+        smem[mode] = nbytes
+    return dict(rows=rows, cols=cols, stages=stages, tiles=tiles,
+                steps={'dq': 2 * -(-l // cols), 'dk': -(-l // cols),
+                       'dv': -(-l // cols)},
+                smem=smem, dm_post=4 * tiles, dm_pre=4 * tiles,
+                dm_partials=8 * tiles)
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,8 +257,8 @@ def th_sublayer_reference(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
 
 # ------------------------------------------------------- kernel wrappers
 
-def _fn(name, pointers, ints, floats=0):
-    fn = getattr(_build.library('th_attention'), name)
+def _fn(name, pointers, ints, floats=0, lib='th_attention'):
+    fn = getattr(_build.library(lib), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                        + [ctypes.c_float] * floats + [ctypes.c_void_p])
@@ -342,48 +375,75 @@ def th_attention_fwd(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
     return out, (*qkva, lse)
 
 
-def _core_bwd(q, k, v, do, lse, m_pre, m_post, heads, what):
-    """The two backward launches (dq + delta + dM partials, then dk and
-    dv) on CUDA inputs; ``what`` names the entry point."""
-    fa.check_no_grad(q, k, v, do, lse, m_pre, m_post)
+def _check_bwd(q, k, v, do, lse, heads):
+    """What the backward kernels take: q, k, v, do bf16 ``[B, L, H*48]`` on
+    one device, H in ``KERNEL_HEADS``, lse contiguous f32 ``[B, H, L]``
+    there. Raises ValueError otherwise."""
     _check_core(q, k, v, heads)
     fa.check_cuda_bf16('do', do, q.device)
-    b, l, hd = q.shape
+    b, l, _ = q.shape
     if do.shape != q.shape:
         raise ValueError(f'do has shape {tuple(do.shape)}, expected {tuple(q.shape)}')
     if (lse.device != q.device or lse.dtype != torch.float32
             or not lse.is_contiguous() or tuple(lse.shape) != (b, heads, l)):
         raise ValueError(f'lse must be contiguous float32 {(b, heads, l)} on '
-                         f'{q.device}, got {lse.dtype} {tuple(lse.shape)}')
+                         f'{q.device}, got {lse.dtype} {tuple(lse.shape)} on '
+                         f'{lse.device}')
+
+
+def _core_bwd(q, k, v, do, lse, m_pre, m_post, heads, what):
+    """The backward's three launches (``csrc/th_bwd.cu``: DQ with delta, DK
+    with the dM_pre partials, DV with the dM_post partials) on CUDA inputs;
+    ``what`` names the entry point."""
+    fa.check_no_grad(q, k, v, do, lse, m_pre, m_post)
+    _check_bwd(q, k, v, do, lse, heads)
+    b, l, hd = q.shape
     mpre, mpost = _mixes(m_pre, m_post, heads, q.device)
+    # M_pre, M_pre log2 e (the exponent's pre-mix), M_post: the kernels'
+    # constant bank
+    mix = torch.stack((mpre, mpre * LOG2E, mpost)).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
-    tiles = -(-l // (ROWS_PER_BLOCK // heads))
-    dm = torch.empty(b, tiles, 2, heads, heads, dtype=torch.float32,
-                     device=q.device)
+    dm = _dm_partials(b, l, heads, q.device)
     with torch.cuda.device(q.device):
-        err = _fn('sav_th_core_bwd', 12, 3)(
+        err = _fn('sav_th_core_bwd', 11, 3, lib='th_bwd')(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), mpre.data_ptr(), mpost.data_ptr(),
-            delta.data_ptr(), dm.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, l, heads, fa.stream_of(q.device))
+            lse.data_ptr(), mix.data_ptr(), delta.data_ptr(), dm.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, heads,
+            fa.stream_of(q.device))
     _build.check(err, what)
     _build.count(what)
-    # per-block partials summed in a fixed order: deterministic, as the JAX
-    # package sums its per-image [B, H, 128] partials in XLA
-    dm = dm.sum(dim=(0, 1))
-    return dq, dk, dv, dm[0], dm[1]
+    return (dq, dk, dv, *_sum_dm(dm, b, l, heads))
+
+
+def _dm_partials(b, l, heads, device):
+    """The [H, H] partials the backward writes, one a warp of a work tile's
+    mixing warpgroup, as ``[2, H*H, B tiles 4]``: DV's dM_post, then DK's
+    dM_pre, partial ``tile * 4 + warp`` of entry e at ``[:, e, tile * 4 +
+    warp]``, so each entry sums along a contiguous row."""
+    n = b * th_bwd_plan(l, heads)['dm_post']
+    return torch.empty(2, heads * heads, n, dtype=torch.float32,
+                       device=device)
+
+
+def _sum_dm(dm, b, l, heads):
+    """(dM_pre, dM_post) from the partials, each entry's summed in a fixed
+    order: deterministic, as the JAX package sums its per-image partials in
+    XLA."""
+    sums = dm.sum(dim=2).view(2, heads, heads)
+    return sums[1], sums[0]
 
 
 def th_attention_bwd(q, k, v, do, lse, m_pre, m_post, heads: int):
     """Port of K5b ``_th_bwd_kernel``: (dq, dk, dv, dm_pre, dm_post) of the
     TH core from the K5a forward's residuals, ``do`` the cotangent of
-    attn (dq is the gradient of the pre-scaled q). On the card two
-    launches of ``csrc/th_attention.cu``, shared with K6b: the rowsum of
-    dpn * pn under the post-mix is not rowsum(o * do), so a block per
-    query tile sweeps the keys once for it and once for dq and the dM
-    partials; a block per key tile then sweeps the queries for dk and dv.
-    No float atomics: dM partials are summed afterwards in a fixed order."""
+    attn (dq is the gradient of the pre-scaled q). On the card three
+    launches of ``csrc/th_bwd.cu``, shared with K6b (``th_bwd_plan``): the
+    rowsum of dpn * pn under the post-mix is not rowsum(o * do), so DQ
+    sweeps the keys of 64 query rows once for it and once for dq; DK and DV
+    sweep the queries of 64 key rows for dk (and dM_pre) and dv (and
+    dM_post). No float atomics: dM partials are summed afterwards in a fixed
+    order. bf16 only; H in ``KERNEL_HEADS`` heads of 48."""
     if q.device.type == 'cpu':
         return th_attention_bwd_plain(q, k, v, do, lse, m_pre, m_post, heads)
     if q.device.type != 'cuda':
@@ -394,7 +454,7 @@ def th_attention_bwd(q, k, v, do, lse, m_pre, m_post, heads: int):
 
 def th_core_bwd(q, k, v, do, lse, m_pre, m_post, heads: int):
     """Port of K6b ``_th_blk_bwd_kernel`` (K5b's contract on the blocked
-    route's residuals): the same two launches as ``th_attention_bwd``."""
+    route's residuals): the same three launches as ``th_attention_bwd``."""
     if q.device.type == 'cpu':
         return th_core_bwd_plain(q, k, v, do, lse, m_pre, m_post, heads)
     if q.device.type != 'cuda':

@@ -1,5 +1,5 @@
 """Times the port's training step (or, with ``--serve``, its serving; with
-``--kernels``, its flash-attention kernels) for two or more checkouts on
+``--kernels``, its attention kernels) for two or more checkouts on
 one card.
 
 Each checkout (a directory holding ``sav_tpu_torch/``) runs in a process of
@@ -11,15 +11,18 @@ clock around work that ends in a synchronize). With ``--profile`` it also
 prints torch.profiler's device time by kernel over 2 steps, the device
 time per step and the idle share (1 - device / wall). ``--use_kernel``
 re-routes the Trainer's model (``models.set_use_kernel``) before the first
-step, for the modes the Trainer has no flag for, as ``fused_ff``. With
+step, for the modes the Trainer has no flag for, as ``fused_ff``;
+``--quantized ff|ff_sb`` trains the int8 mode. With
 ``--serve`` each run builds the model instead (random weights from seed 0,
 ``use_kernel`` as given) and prints the img/s of ``predict.serve`` on
 uint8 frames over ``--steps`` batches after 3 (host clock, H2D included).
 With ``--kernels`` each run times, through the checkout's own wrappers on
 inputs made from seed 0 with numpy, K1 (the attention sublayer forward,
 whose attention launch is K4's kernel) at its four timed shapes, K4 at
-ViT-B/16's serving and ``fused_ff`` training shapes and K2 at the @224
-training shape and at 200 rows over 190 keys, each with this checkout's
+ViT-B/16's serving and ``fused_ff`` training shapes, K2 at the @224
+training shape and at 200 rows over 190 keys, and the talking-heads
+backward at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48
+L=576) with K6a at B=48 L=576 as an unchanged control, each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -30,6 +33,8 @@ uses, handed to every run as source).
     python scripts/torch_train_ab.py PARENT_DIR . --serve --img 384 \\
         --batch 32 --use_kernel fused_layer
     python scripts/torch_train_ab.py PARENT_DIR . --kernels
+    python scripts/torch_train_ab.py PARENT_DIR . --model cait_s_24 \\
+        --img 384 --batch 48
 
 Needs an NVIDIA card; there is no CPU fallback.
 """
@@ -86,6 +91,23 @@ if args['kernels']:
         o, lse = fa.flash_fwd(q, k, v, heads, kv_len)
         out[f'K2 B={{b}} L={{seq}} kv_len={{kv_len}}'] = time_ms(
             lambda: fa.bwd_fused(q, k, v, o, lse, do, heads, kv_len))
+    # the talking-heads backward at CaiT-S/24's training shapes, K6a (whose
+    # code no PR of the backward touches) as the control
+    from sav_tpu_torch.ops import th_attention as th
+    heads = 8
+    hd = heads * th.HEAD_CH
+    for name, b, seq, fn in (('K5b', 128, 196, th.th_attention_bwd),
+                             ('K6b', 48, 576, th.th_core_bwd)):
+        q = bf16((b, seq, hd), 0.4)
+        k, v, do = (bf16((b, seq, hd)) for _ in range(3))
+        m = [(torch.eye(heads) + 0.3 * torch.from_numpy(rng.standard_normal(
+            (heads, heads)).astype(np.float32))).cuda() for _ in range(2)]
+        _, lse = th.th_core_fwd(q, k, v, *m, heads)
+        out[f'{{name}} B={{b}} L={{seq}}'] = time_ms(
+            lambda: fn(q, k, v, do, lse, *m, heads))
+        if name == 'K6b':
+            out[f'K6a (control) B={{b}} L={{seq}}'] = time_ms(
+                lambda: th.th_core_fwd(q, k, v, *m, heads))
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
 if args['serve']:
@@ -112,7 +134,8 @@ if args['serve']:
     sys.exit(0)
 trainer = Trainer(TrainConfig(model_name=args['model'], img_size=args['img'],
                               batch_size=args['batch'], seed=0,
-                              dtype='bfloat16'), device='cuda')
+                              dtype='bfloat16', quantized=args['quantized']),
+                  device='cuda')
 if args['use_kernel'] != 'auto':
     set_use_kernel(trainer.model, args['use_kernel'])
 data = trainer.dataset()
@@ -177,11 +200,15 @@ def main(argv=None) -> int:
                         help='each round runs the roots forward, then back')
     parser.add_argument('--use_kernel', default='auto',
                         help="the model's use_kernel mode, e.g. fused_ff")
+    parser.add_argument('--quantized', default='none',
+                        choices=('none', 'ff', 'ff_sb'),
+                        help="the Trainer's int8 mode (train only)")
     parser.add_argument('--profile', action='store_true')
     parser.add_argument('--serve', action='store_true',
                         help='time predict.serve instead of a train step')
     parser.add_argument('--kernels', action='store_true',
-                        help='time the flash kernels instead of a step')
+                        help='time the flash and TH backward kernels '
+                             'instead of a step')
     opts = parser.parse_args(argv)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -190,7 +217,8 @@ def main(argv=None) -> int:
     args = dict(model=opts.model, img=opts.img, batch=opts.batch,
                 steps=opts.steps, profile=opts.profile,
                 use_kernel=opts.use_kernel, serve=opts.serve,
-                kernels=opts.kernels)
+                kernels=opts.kernels,
+                quantized=False if opts.quantized == 'none' else opts.quantized)
     order = []
     for _ in range(opts.rounds):
         order += list(opts.roots) + list(reversed(opts.roots))
@@ -200,7 +228,9 @@ def main(argv=None) -> int:
             print(f'{root}: ' + '  '.join(f'{k} {v:.4f}' for k, v in
                                           res.items()) + ' (ms)', flush=True)
             continue
-        what = (f'{root}: {opts.model} ({opts.use_kernel}) @{opts.img} '
+        mode = opts.use_kernel + ('' if opts.quantized == 'none'
+                                  else f', quantized={opts.quantized}')
+        what = (f'{root}: {opts.model} ({mode}) @{opts.img} '
                 f'bs{opts.batch}: {res["img_s"]:.1f}')
         if opts.serve:
             print(f'{what} serve img/s ({res["ms_step"]:.2f} ms/batch incl. '

@@ -331,12 +331,51 @@ def test_th_bwd_matches_twin(card, entry, seq, heads):
     twin = th_attention.th_core_bwd_plain(q, k, v, do, lse, *m, heads)
     for g, t in zip(grads[:3], twin[:3]):
         assert g.shape == t.shape and _rel(g, t) <= 2e-2
-    # dM_pre, dM_post: the same f32 products summed in another order (9.3e-6
-    # of max on an H100 at K5b's and K6b's shapes); one dropped or
-    # mis-masked per-block partial of the B x ceil(L / (128 / H)) moves them
-    # by far more (~1/(that count) of max at B = 48, L = 576: 6e-4)
+    # dM_pre, dM_post: the same f32 products summed in another order; one
+    # dropped or mis-masked per-warp partial of the B x ceil(L / 64) x 4 (or
+    # x 8) moves them by far more (~1/(that count) of max)
     for g, t in zip(grads[3:], twin[3:]):
         assert g.shape == t.shape and _rel(g, t) <= 1e-4
+
+
+@pytest.mark.parametrize('entry', ['th_attention_bwd', 'th_core_bwd'])
+@pytest.mark.parametrize('seq,heads', [(197, 8), (577, 4)])
+def test_th_bwd_repeats_bitwise(card, entry, seq, heads):
+    """No float atomics: dq, dk, dv and the dM sums repeat bit for bit."""
+    rng = np.random.RandomState(seq)
+    q, k, v, do, m = _th_core_case(rng, 3, seq, heads, card)
+    _, lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    fn = getattr(th_attention, entry)
+    first = fn(q, k, v, do, lse, *m, heads)
+    second = fn(q, k, v, do, lse, *m, heads)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_th_bwd_survives_back_to_back_calls(card):
+    """Many calls queued without a synchronize between them (CaiT-S/24's
+    K5b shape; a deadlock in the kernels' barrier protocol shows as a
+    launch failure here) give the first call's result every time."""
+    rng = np.random.RandomState(11)
+    q, k, v, do, m = _th_core_case(rng, 128, 196, 8, card)
+    _, lse = th_attention.th_core_fwd_plain(q, k, v, *m, 8)
+    first = th_attention.th_attention_bwd(q, k, v, do, lse, *m, 8)
+    for _ in range(20):
+        outs = [th_attention.th_attention_bwd(q, k, v, do, lse, *m, 8)
+                for _ in range(10)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for g in outs for a, b in zip(g, first))
+
+
+def test_th_bwd_plan_matches_the_kernel(card):
+    """th_bwd_plan mirrors the kernels' shared memory (sav_th_bwd_smem)."""
+    import ctypes
+    from sav_tpu_torch import _build
+    fn = _build.library('th_bwd').sav_th_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for heads in th_attention.KERNEL_HEADS:
+        plan = th_attention.th_bwd_plan(577, heads)['smem']
+        assert [fn(heads, mode) for mode in range(3)] == [
+            plan['dq'], plan['dk'], plan['dv']]
 
 
 def test_th_kernels_write_no_row_past_the_length(card):
@@ -352,16 +391,17 @@ def test_th_kernels_write_no_row_past_the_length(card):
     attn, dq, dk, dv = big(), big(), big(), big()
     lse = torch.empty(1, heads, seq, device=card)
     delta = torch.empty_like(lse)
-    dm = torch.empty(1, 3, 2, heads, heads, device=card)
+    dm = th_attention._dm_partials(1, seq, heads, card)
+    mix = torch.stack((m[0], m[0] * th_attention.LOG2E, m[1])).contiguous()
     fwd = th_attention._fn('sav_th_core_fwd', 7, 3)
     assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), m[0].data_ptr(),
                m[1].data_ptr(), attn.data_ptr(), lse.data_ptr(), 1, seq, heads,
                stream_of(card)) == 0
-    bwd = th_attention._fn('sav_th_core_bwd', 12, 3)
+    bwd = th_attention._fn('sav_th_core_bwd', 11, 3, lib='th_bwd')
     assert bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-               lse.data_ptr(), m[0].data_ptr(), m[1].data_ptr(),
-               delta.data_ptr(), dm.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-               dv.data_ptr(), 1, seq, heads, stream_of(card)) == 0
+               lse.data_ptr(), mix.data_ptr(), delta.data_ptr(),
+               dm.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1,
+               seq, heads, stream_of(card)) == 0
     torch.cuda.synchronize()
     for t in (attn, dq, dk, dv):
         assert torch.isfinite(t[:, :seq]).all()
