@@ -35,8 +35,8 @@
 5. CaiT-S/24 (slice 3): the talking-heads kernels against their twins at
    the path's shapes (K5a serve B=32 and train B=128 at L=196, K5b B=128;
    K6a B=32 and B=48 at L=576, K6b B=48; K5b and K6b also at cait_xxs's
-   four heads), outputs, lse, dq/dk/dv and dM_pre/dM_post, the backward's
-   two calls bit-identical and its ptxas lines, the ragged last tile on its
+   four heads), outputs, lse, dq/dk/dv and dM_pre/dM_post, K6a's and the
+   backward's two calls bit-identical and their ptxas lines, the ragged last tile on its
    own at L = 196, 197, 576 and 577; serving @224 (24 K5a
    launches per forward) and @384 (24 K6a) at batch 32 with logits against
    the per-op path; training through the Trainer @224 bs128 (24 K5a-train +
@@ -48,8 +48,9 @@
    against its twin at the factory's token-mix shapes (L/K/D 196/98/768 at
    B=32 and B=192, 49/24/512, 196/98/1024), K8b (its backward) at B=192
    with all seven gradients, K16 (the FF-sublayer backward) at ViT-B/16
-   @224 bs192's M = 37,824 rows and at a ragged M (weight gradients of
-   both at WGRAD_TOL); NaN-sentinel buffers past the last token row and
+   @224 bs192's M = 37,824 rows and at ragged M = 1003 and 129 (weight
+   gradients of both at WGRAD_TOL; K16's two calls bit-identical);
+   NaN-sentinel buffers past the last token row and
    past M, with an odd batch; serving Mixer-B/16 @224 bs32 (12 K8a
    launches per forward, logits against the per-op path); training it
    @224 bs192 (12 K8a + 12 K8b per step, gradients against
@@ -860,19 +861,20 @@ def _th_core_inputs(rng, batch, seq, heads=8):
 
 
 def check_k6a(rng, checks, batch, seq, heads=8):
-    """K6a (the TH core, two sweeps over the keys) vs its twin; returns the
-    kernel record."""
+    """K6a (the TH core, two sweeps over the keys) vs its twin, and two
+    calls bit-identical; returns the kernel record."""
     q, k, v, _, m = _th_core_inputs(rng, batch, seq, heads)
     run = lambda: th.th_core_fwd(q, k, v, *m, heads)
     plain = lambda: th.th_core_fwd_plain(q, k, v, *m, heads)
-    (attn, lse), (p_attn, p_lse) = run(), plain()
+    (attn, lse), again, (p_attn, p_lse) = run(), run(), plain()
     torch.cuda.synchronize()
     err, lse_err = _rel(attn, p_attn), _abs(lse, p_lse)
     finite = bool(torch.isfinite(attn).all() and torch.isfinite(lse).all())
-    checks.expect(finite and err <= OUT_TOL and lse_err <= LSE_TOL,
+    same = torch.equal(attn, again[0]) and torch.equal(lse, again[1])
+    checks.expect(finite and same and err <= OUT_TOL and lse_err <= LSE_TOL,
                   f'K6a th_core_fwd B={batch} L={seq}: attn err {err:.3g} of '
                   f'max (tol {OUT_TOL}), lse abs err {lse_err:.3g} (tol '
-                  f'{LSE_TOL})')
+                  f'{LSE_TOL}); two calls identical {same}')
     ops, f32_ops = _th_work(batch, seq, heads, 2, 2)
     hd = heads * th.HEAD_CH
     nbytes = 4 * batch * seq * hd * 2 + batch * heads * seq * 4
@@ -950,13 +952,13 @@ def check_th_tails(rng, checks, seq, heads=8):
     stream = fa.stream_of(q.device)
     attn, dq, dk, dv = big(hd), big(hd), big(hd), big(hd)
     lse = torch.empty(1, heads, seq, device='cuda')
-    errs = [th._fn('sav_th_core_fwd', 7, 3)(
-        ptr(q), ptr(k), ptr(v), ptr(m[0]), ptr(m[1]), ptr(attn), ptr(lse), 1,
-        seq, heads, stream)]
+    mix = th._mix_bank(*m, heads, q.device)
+    errs = [th._fn('sav_th_core_fwd', 6, 3)(
+        ptr(q), ptr(k), ptr(v), ptr(mix), ptr(attn), ptr(lse), 1, seq, heads,
+        stream)]
     # the backward (csrc/th_bwd.cu) with its scratch as _core_bwd makes it
     delta = torch.empty_like(lse)
     dm = th._dm_partials(1, seq, heads, q.device)
-    mix = torch.stack((m[0], m[0] * th.LOG2E, m[1])).contiguous()
     errs.append(th._fn('sav_th_core_bwd', 11, 3, lib='th_bwd')(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(mix), ptr(delta),
         ptr(dm), ptr(dq), ptr(dk), ptr(dv), 1, seq, heads, stream))
@@ -1099,17 +1101,24 @@ K16_GRADS = ('dy', 'dw1', 'dw2', 'db1')
 
 def check_k16(rng, checks, m, d=768, f=3072, timed=True):
     """K16 vs its twin at M rows: dy, dW1, dW2, db1 as max |kernel - twin|
-    over max |twin|. Returns the kernel record (``timed``) or None."""
+    over max |twin|, and two calls bit-identical (split-K partials summed
+    in a fixed order, no float atomics). Returns the kernel record
+    (``timed``) or None."""
     args = _k16_case(rng, m, d, f)
     got = fused_layer.ff_bwd(*args)
+    again = fused_layer.ff_bwd(*args)
     twin = fused_layer.ff_bwd_plain(*args)
     torch.cuda.synchronize()
     errs = [_rel(a, b) for a, b in zip(got, twin)]
     finite = all(bool(torch.isfinite(a).all()) for a in got)
-    checks.expect(finite and errs[0] <= BWD_TOL and max(errs[1:]) <= WGRAD_TOL,
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    checks.expect(finite and same and errs[0] <= BWD_TOL
+                  and max(errs[1:]) <= WGRAD_TOL,
                   f'K16 ff_bwd M={m} D={d} F={f}: '
                   + ', '.join(f'{n} {e:.3g}' for n, e in zip(K16_GRADS, errs))
-                  + f' of max (tol dy {BWD_TOL}, the others {WGRAD_TOL})')
+                  + f' of max (tol dy {BWD_TOL}, the others {WGRAD_TOL}); '
+                  f'two calls identical {same}')
     if not timed:
         return None
     g, hpre, y, w1, w2 = args
@@ -1171,13 +1180,7 @@ def check_ff_sentinels(rng, checks, batch=65, l=196, k=98, d=768, m=1003):
         *map(ptr, grads), ptr(ws), batch, l, k, d, mt.LN_EPS, stream))
     gk, hpre, y, w1f, w2f = _k16_case(rng, m)
     dy = nan_rows(m, 768)
-    scratch = [torch.empty(m, 3072, device='cuda', dtype=torch.bfloat16)
-               for _ in range(2)]
-    kgrads = [f32(768, 3072), f32(3072, 768), f32(3072)]
-    colsum = f32(-(-m // fused_layer.GEMM_TILE), 3072)
-    codes.append(fused_layer._k16_lib()(
-        ptr(gk), ptr(hpre), ptr(y), ptr(w1f), ptr(w2f), *map(ptr, scratch),
-        ptr(dy), *map(ptr, kgrads), ptr(colsum), m, 768, 3072, stream))
+    kgrads = list(fused_layer._ff_bwd_into(gk, hpre, y, w1f, w2f, dy[:m]))
     torch.cuda.synchronize()
     want_out = mt.token_mix_fwd_plain(x, ls, lb, w1, b1, w2, b2)
     twin = mt.token_mix_bwd_plain(x, ls, lb, w1, b1, w2, b2, g)
@@ -2341,10 +2344,12 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
-    # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b): each kernel's
-    # registers, spills and any wgmma warning (C7510-C7515: serialized)
+    # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b, K6a, K16):
+    # each kernel's registers, spills and any wgmma warning (C7510-C7515:
+    # serialized)
     for lib, label in (('flash_fwd', 'K4'), ('flash_bwd', 'K2'),
-                       ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b')):
+                       ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b'),
+                       ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
                                        'wgmma', 'arning')):
@@ -2417,7 +2422,8 @@ def main(argv=None):
                               (args.batch, 196, 98, 1024))}
     k8b = check_k8b(rng, checks, 192)
     k16 = check_k16(rng, checks, 192 * 197)
-    check_k16(rng, checks, 1003, timed=False)
+    for m in (1003, 129):
+        check_k16(rng, checks, m, timed=False)
     check_ff_sentinels(rng, checks)
     k8a_serve = serve_path(checks, 'Mixer-B/16 @224 auto', 224, 'auto',
                               {'token_mix_fwd': 12}, args.seed, args.batch,
@@ -2672,7 +2678,7 @@ def main(argv=None):
         th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b,
                  source='th_bwd.cu'),
         th_entry('th_core_fwd', 362, k6a_serve.get('th_core_fwd', 0),
-                 k6a[False], k6a[True],
+                 k6a[False], k6a[True], source='th_fwd_sm90.cuh',
                  train_launches=c384.get('th_core_fwd', 0)),
         th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b,
                  source='th_bwd.cu'),

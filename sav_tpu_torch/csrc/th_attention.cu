@@ -31,11 +31,14 @@
 //        the softmax is exact in one pass over the keys, like the TPU's
 //        unrolled lists. It fits while L <= 224 at H = 8 (221.5 KB of the
 //        227 KB a block may have at CaiT-S/24 @224, L = 196).
-//      K6a (th_fwd_kernel<H, false>): 32 query rows x 32-key tiles; a
-//        first sweep over the keys computes the lse of each mixed head
+//      K6a (th_fwd_sm90.cuh, wgmma + TMA): 64 query rows x 16-key tiles;
+//        a first sweep over the keys computes the lse of each mixed head
 //        (online max and sum per mixed head), a second recomputes the
 //        logits and forms pn = exp(st - lse), the post-mix and P V. Any L;
 //        it pays one more q k^T sweep (~1.5x the forward's tensor work).
+//        Its mixes run in registers (th_fwd_sm90.cuh's header); K11 keeps
+//        the mma.sync two-sweep core of th_core.cuh (th_fwd_kernel<H,
+//        false>) where K5a's rows do not fit.
 //  * K5a is four launches, the first two and the last shared with K1
 //    (gemm_ln.cuh): LN, the QKV GEMM with q scaled in its epilogue, the
 //    resident core, and the out GEMM without the residual (CaiT adds
@@ -54,6 +57,7 @@
 // NaN), so their probabilities are exact zeros. Nothing is padded.
 #include "gemm_ln.cuh"
 #include "th_core.cuh"
+#include "th_fwd_sm90.cuh"
 
 // Shared memory of the K5a core at length seq (0 for an unbuilt H); the
 // wrapper's router reads it (fused_smem).
@@ -64,20 +68,25 @@ extern "C" int sav_th_fwd_smem(int seq, int heads) {
   return 0;
 }
 
-// K6a. q, k, v, attn [B, L, H*48] bf16; mixes [H, H] f32; lse [B, H, L].
+// Dynamic shared memory of the K6a kernel at H heads (0 for an unbuilt
+// H); mirrored by th_fwd_plan in ops/th_attention.py.
+extern "C" int sav_th_core_fwd_smem(int heads) {
+  using namespace sav::thf;
+  if (heads == 4) return Plan<4>::SMEM;
+  if (heads == 8) return Plan<8>::SMEM;
+  return 0;
+}
+
+// K6a. q, k, v, attn [B, L, H*48] bf16; mix [3, H, H] f32 (M_pre, M_pre *
+// log2 e, M_post); lse [B, H, L] f32.
 extern "C" int sav_th_core_fwd(const void* q, const void* k, const void* v,
-                               const float* mpre, const float* mpost,
-                               void* attn, float* lse, int batch, int seq,
-                               int heads, void* stream) {
-  using namespace sav;
+                               const float* mix, void* attn, float* lse,
+                               int batch, int seq, int heads, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
   if (heads == 4)
-    return (int)th_core_launch<4, false>(qq, kk, vv, mpre, mpost, (bf16*)attn,
-                                         lse, batch, seq, st);
+    return sav::thf::run<4>(q, k, v, mix, attn, lse, batch, seq, st);
   if (heads == 8)
-    return (int)th_core_launch<8, false>(qq, kk, vv, mpre, mpost, (bf16*)attn,
-                                         lse, batch, seq, st);
+    return sav::thf::run<8>(q, k, v, mix, attn, lse, batch, seq, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,377 @@
+// K6a on Hopper: the talking-heads forward core in two sweeps over the keys
+// (wgmma, TMA, mbarriers; the pieces it shares with the backward are in
+// th_sm90.cuh). th_attention.cu's header says what the core computes.
+//
+// What bounds it: per (image, query, key) three 48-deep products a head
+// (q k^T twice, P V once) and three [H, H] mixes (the pre-mix in both
+// sweeps, the post-mix in the second: 6 H^2 f32 operations), plus one exp
+// per head in each sweep. At H = 8 the mixes are 384 f32 operations
+// against 2304 bf16 tensor operations, and the card's f32 rate is 1/15 of
+// its bf16 tensor rate: the CUDA-core work bounds the kernel. So every mix
+// runs in registers with its weights as constant-bank operands of FFMA,
+// and every exp is one ex2.approx with log2 e folded into the pre-mix
+// weights (c_mix's second matrix) and into the lse.
+//
+// Two sweeps, because the post-mix adds NORMALIZED probabilities of
+// different heads: each mixed head's lse must be known before any of them
+// is mixed again. Work tile: 64 query rows of one image, all H heads;
+// persistent blocks of 384 threads:
+//  * the mix warpgroup computes s_h = q_h k_h^T of a 16-key tile for every
+//    head (wgmma m64n16k16, q resident, k streamed, both K-major) so that
+//    each thread holds 8 positions x H heads, and pre-mixes them;
+//    sweep 1 keeps, per lane, the running max and sum of 2^x of each mixed
+//    head over its own columns (one exp a position and head, one rescale
+//    a tile of four), combined over the 4 lanes of a row at the end into
+//    lse (written for the rows below L);
+//    sweep 2 forms pn_i = 2^(x_i - lse_i log2 e), the post-mix pt, and
+//    writes pt of every head as bf16 to an exchange buffer;
+//  * the accumulate warpgroup runs o_h += pt_h v_h on wgmma m64n48k16 from
+//    the exchange buffer (register A) and one TMA box of v per head at
+//    column 48h (MN-major), its 64 x 48 x H outputs in registers, and
+//    stores the rows below L; in sweep 1 it only frees the slots;
+//  * the producer warp loads q (64-row boxes) once a tile, and streams k
+//    (sweep 1), then k and v (sweep 2), through a ring of STAGES slots.
+// Keys past L read zeros and their mixed logit is set to -inf after the
+// pre-mix (a signed mix of -inf would be NaN): their pn is an exact zero.
+// Query rows past L read zeros and are never stored. Nothing is padded.
+// The mixes reach the kernel through c_mix, filled from device memory on
+// the caller's stream before the launch.
+#pragma once
+
+#include <type_traits>
+
+#include "th_sm90.cuh"
+
+namespace sav {
+namespace thf {
+
+// declared here: th_attention.cu also sees th_core.cuh's sav::TD
+using namespace sm90;
+using thb::ACC_REGS;
+using thb::BOX_RES;
+using thb::BOX_STR;
+using thb::COLS;
+using thb::CONSUMERS;
+using thb::MIX_REGS;
+using thb::PRODUCER_REGS;
+using thb::ROWS;
+using thb::TD;
+using thb::THREADS;
+using thb::XHEAD;
+using thb::acc_step;
+using thb::c_mix;
+using thb::exp2_approx;
+using thb::fence_all;
+using thb::kLog2e;
+using thb::m_post;
+using thb::m_pre2;
+using thb::pos_col;
+using thb::store_rows;
+using thb::wait;
+using thb::wgmma_ss_n16;
+using thb::xidx;
+
+constexpr int STAGES = 4;                 // ring slots of streamed tiles
+
+// Shared memory (bytes from a 1024-byte aligned base); the Python mirror
+// is th_fwd_plan in ops/th_attention.py.
+template <int H>
+struct Plan {
+  static constexpr int HD = H * TD;
+  static constexpr int NB = HD / 64;                   // 64-column boxes
+  static constexpr int OFF_K = NB * BOX_RES * 2;       // after resident q
+  static constexpr int OFF_V = OFF_K + STAGES * NB * BOX_STR * 2;
+  static constexpr int OFF_EXCH = OFF_V + STAGES * H * BOX_STR * 2;
+  static constexpr int OFF_BAR = OFF_EXCH + 2 * H * XHEAD * 2;
+  static constexpr int BARS = 2 + 2 * STAGES + 4;
+  static constexpr int SMEM = OFF_BAR + BARS * 8 + 1024;
+  static constexpr uint32_t RES_TX = NB * BOX_RES * 2;
+  static constexpr uint32_t K_TX = NB * BOX_STR * 2;
+  static constexpr uint32_t V_TX = H * BOX_STR * 2;
+};
+
+// s_h = q_h k_h^T of the slot's 16 keys for every head, one commit group.
+template <int H>
+__device__ __forceinline__ void qk_products(float (&s)[H][8], uint64_t res,
+                                            uint64_t str) {
+  asm volatile("" : "+l"(res), "+l"(str));  // descriptors formed per call
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int kk = 0; kk < 3; ++kk) {
+      const int c = TD * h + 16 * kk;      // column of the 16-deep step
+      wgmma_ss_n16(s[h],
+                   res + ((c >> 6) * BOX_RES * 2 + (c & 63) * 2) / 16,
+                   str + ((c >> 6) * BOX_STR * 2 + (c & 63) * 2) / 16, kk);
+    }
+  wgmma_commit();
+}
+
+// x_i = sum_j M_pre[j, i] log2 e s_j at position p, -inf for a key past L.
+template <int H>
+__device__ __forceinline__ void premix(float (&x)[H], const float (&s)[H][8],
+                                       int p, bool ok) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) a = fmaf(m_pre2<H>(j, i), s[j][p], a);
+    x[i] = ok ? a : -INFINITY;
+  }
+}
+
+// Sweep 1 on one tile: the lane's running max mx and sum sm of 2^x of
+// every mixed head, per row half; key0 is the key of the lane's column 0.
+template <int H>
+__device__ __forceinline__ void sweep1_mix(const float (&s)[H][8],
+                                           float (&mx)[2][H],
+                                           float (&sm)[2][H], int key0,
+                                           int L) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    float x[4][H];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {          // the row half's 4 positions
+      const int p = 2 * rh + (q & 1) + 4 * (q >> 1);
+      premix<H>(x[q], s, p, key0 + pos_col(p, 0) < L);
+    }
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float m_new = fmaxf(mx[rh][i], fmaxf(fmaxf(x[0][i], x[1][i]),
+                                                 fmaxf(x[2][i], x[3][i])));
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      sm[rh][i] = sm[rh][i] * exp2_approx(mx[rh][i] - base)
+                  + ((exp2_approx(x[0][i] - base) + exp2_approx(x[1][i] - base))
+                     + (exp2_approx(x[2][i] - base)
+                        + exp2_approx(x[3][i] - base)));
+      mx[rh][i] = m_new;
+    }
+  }
+}
+
+// Sweep 2 on one tile: pn = 2^(x - lse2), pt = the post-mix of pn, as bf16
+// into the exchange tile x of every head.
+template <int H>
+__device__ __forceinline__ void sweep2_mix(const float (&s)[H][8],
+                                           const float (&l2)[2][H], bf16* xb,
+                                           int lrow, int t, int key0, int L) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int rh = (p >> 1) & 1, col = pos_col(p, t);
+    float x[H];
+    premix<H>(x, s, p, key0 + pos_col(p, 0) < L);
+#pragma unroll
+    for (int i = 0; i < H; ++i) x[i] = exp2_approx(x[i] - l2[rh][i]);
+    const int at = xidx(lrow + 8 * rh, col);
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < H; ++j) a = fmaf(m_post<H>(j, i), x[j], a);
+      xb[i * XHEAD + at] = __float2bfloat16(a);
+    }
+  }
+}
+
+// qmap: q in 64-row boxes; kmap, vmap: k and v in 16-row boxes (k read in
+// its 64-column boxes, v one box per head at column 48h). attn [B, L,
+// H*48] bf16, lse [B, H, L] f32 or null.
+template <int H>
+__global__ void __launch_bounds__(THREADS, 1)
+th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   bf16* __restrict__ attn, float* __restrict__ lse,
+                   int batch, int L) {
+  using P = Plan<H>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(base);
+  bf16* sk = reinterpret_cast<bf16*>(base + P::OFF_K);
+  bf16* sv = reinterpret_cast<bf16*>(base + P::OFF_V);
+  bf16* sx = reinterpret_cast<bf16*>(base + P::OFF_EXCH);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + P::OFF_BAR);
+  uint64_t* res_full = bars;
+  uint64_t* res_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = full + STAGES;
+  uint64_t* xfull = empty + STAGES;
+  uint64_t* xempty = xfull + 2;
+
+  const int tid = threadIdx.x;
+  const int nx = (L + ROWS - 1) / ROWS, tiles = nx * batch;
+  const int nc = (L + COLS - 1) / COLS;     // key tiles of a sweep
+
+  if (tid == 0) {
+    mbar_init(res_full, 1);
+    mbar_init(res_empty, 2);                // one arrival per consumer group
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&xfull[i], 128);            // every mixing thread
+      mbar_init(&xempty[i], 1);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {                   // producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid != CONSUMERS) return;           // one thread issues every load
+    int step = 0;
+    for (int tile = blockIdx.x, n = 0; tile < tiles;
+         tile += gridDim.x, ++n) {
+      const int b = tile / nx, r0 = (tile % nx) * ROWS;
+      mbar_wait(res_empty, (n & 1) ^ 1);
+      mbar_arrive_expect_tx(res_full, P::RES_TX);
+      for (int c = 0; c < P::NB; ++c)
+        tma_load_3d(sq + c * BOX_RES, &qmap, res_full, 64 * c, r0, b);
+      for (int sw = 0; sw < 2; ++sw)
+        for (int j = 0; j < nc; ++j, ++step) {
+          const int st = step % STAGES;
+          mbar_wait(&empty[st], ((step / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], sw ? P::K_TX + P::V_TX : P::K_TX);
+          for (int c = 0; c < P::NB; ++c)
+            tma_load_3d(sk + (st * P::NB + c) * BOX_STR, &kmap, &full[st],
+                        64 * c, j * COLS, b);
+          if (sw)
+            for (int h = 0; h < H; ++h)
+              tma_load_3d(sv + (st * H + h) * BOX_STR, &vmap, &full[st],
+                          TD * h, j * COLS, b);
+        }
+    }
+    return;
+  }
+
+  // consumers: warpgroup 0 mixes, warpgroup 1 accumulates, each in its own
+  // copy of the code (so ptxas knows each one's register budget)
+  const int wg = tid >> 7, wt = tid & 127, wi = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lrow = 16 * wi + g;             // local rows lrow, lrow + 8
+  const bool leader = wt == 0;
+  auto consumer = [&](auto role) {
+    constexpr int WG = decltype(role)::value;
+    const uint64_t dq = desc_k_major(sq), dk = desc_k_major(sk);
+    const uint64_t mv = desc_mn_major(sv);
+    constexpr uint64_t K_SLOT = P::NB * BOX_STR * 2 / 16;
+    constexpr uint64_t V_SLOT = H * BOX_STR * 2 / 16;
+    int step = 0, xstep = 0;
+    for (int tile = blockIdx.x, n = 0; tile < tiles; tile += gridDim.x, ++n) {
+      const int b = tile / nx, r0 = (tile % nx) * ROWS;
+      wait(res_full, n & 1);
+      if constexpr (WG == 0) {              // the mix
+        float mx[2][H], sm[2][H];
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+          for (int i = 0; i < H; ++i) {
+            mx[rh][i] = -INFINITY;
+            sm[rh][i] = 0.f;
+          }
+        for (int j = 0; j < nc; ++j, ++step) {
+          const int st = step % STAGES;
+          wait(&full[st], (step / STAGES) & 1);
+          float s[H][8];
+          qk_products<H>(s, dq, dk + st * K_SLOT);
+          wgmma_wait<0>();
+          fence_all(s);
+          warpgroup_sync(1);
+          if (leader) mbar_arrive(&empty[st]);
+          sweep1_mix<H>(s, mx, sm, j * COLS + 2 * t, L);
+        }
+        // the 4 lanes of a row: lse2 = max + log2(sum), in mx
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+          for (int i = 0; i < H; ++i) {
+            float m_all = mx[rh][i];
+            m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, 1));
+            m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, 2));
+            float part = mx[rh][i] == -INFINITY
+                             ? 0.f : sm[rh][i] * exp2_approx(mx[rh][i] - m_all);
+            part += __shfl_xor_sync(0xffffffffu, part, 1);
+            part += __shfl_xor_sync(0xffffffffu, part, 2);
+            mx[rh][i] = m_all + __log2f(part);
+            const int row = r0 + lrow + 8 * rh;
+            if (lse != nullptr && t == 0 && row < L)
+              lse[((size_t)b * H + i) * L + row] = mx[rh][i] / kLog2e;
+          }
+        for (int j = 0; j < nc; ++j, ++step, ++xstep) {
+          const int st = step % STAGES, xb = xstep & 1;
+          wait(&full[st], (step / STAGES) & 1);
+          float s[H][8];
+          qk_products<H>(s, dq, dk + st * K_SLOT);
+          wgmma_wait<0>();
+          fence_all(s);
+          warpgroup_sync(1);
+          if (leader) mbar_arrive(&empty[st]);
+          wait(&xempty[xb], ((xstep >> 1) & 1) ^ 1);
+          sweep2_mix<H>(s, mx, sx + xb * H * XHEAD, lrow, t, j * COLS + 2 * t,
+                        L);
+          mbar_arrive(&xfull[xb]);
+        }
+      } else {                              // the accumulation
+        for (int j = 0; j < nc; ++j, ++step) {   // sweep 1: free the slots
+          const int st = step % STAGES;
+          wait(&full[st], (step / STAGES) & 1);
+          if (leader) mbar_arrive(&empty[st]);
+        }
+        float o[H][24];
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int i = 0; i < 24; ++i) o[h][i] = 0.f;
+        for (int j = 0; j < nc; ++j, ++step, ++xstep) {
+          const int st = step % STAGES, xb = xstep & 1;
+          wait(&full[st], (step / STAGES) & 1);
+          wait(&xfull[xb], (xstep >> 1) & 1);
+          acc_step<H>(o, sx + xb * H * XHEAD, mv + st * V_SLOT, wi, lane);
+          warpgroup_sync(2);
+          if (leader) {
+            mbar_arrive(&xempty[xb]);
+            mbar_arrive(&empty[st]);
+          }
+        }
+        store_rows<H>(o, attn + (size_t)b * L * (H * TD), r0, lrow, t, L);
+      }
+      if (leader) mbar_arrive(res_empty);
+    }
+  };
+  if (wg == 0) {
+    setmaxnreg_inc<MIX_REGS>();
+    consumer(std::integral_constant<int, 0>{});
+  } else {
+    setmaxnreg_inc<ACC_REGS>();
+    consumer(std::integral_constant<int, 1>{});
+  }
+}
+
+// mix [3, H, H] f32 (M_pre, M_pre * log2 e, M_post) in device memory.
+template <int H>
+int run(const void* q, const void* k, const void* v, const float* mix,
+        void* attn, float* lse, int batch, int L, cudaStream_t st) {
+  using P = Plan<H>;
+  static_assert(P::SMEM <= 232448, "over the block's shared memory");
+  cudaError_t e = cudaMemcpyToSymbolAsync(
+      c_mix, mix, 3 * H * H * sizeof(float), 0, cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap qmap, kmap, vmap;
+  int err = band_map(&qmap, q, batch, L, L, H * TD, ROWS);
+  if (!err) err = band_map(&kmap, k, batch, L, L, H * TD, COLS);
+  if (!err) err = band_map(&vmap, v, batch, L, L, H * TD, COLS);
+  if (err) return err;
+  e = cudaFuncSetAttribute(th_fwd_sm90_kernel<H>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           P::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (L + ROWS - 1) / ROWS * batch;
+  th_fwd_sm90_kernel<H><<<flash::persistent_grid(tiles), THREADS, P::SMEM,
+                          st>>>(qmap, kmap, vmap, (bf16*)attn, lse, batch, L);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace thf
+}  // namespace sav

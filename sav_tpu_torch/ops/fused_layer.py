@@ -528,12 +528,88 @@ def ff_bwd_plain(g2, hpre2, y2, w1, w2):
     return dy2, dw1, dw2, dh32.sum(dim=0)
 
 
-def _k16_lib():
-    fn = _build.library('ff_bwd').sav_ff_bwd
+# K16's launch plan (csrc/ff_bwd_sm90.cuh): 128 x 256 output tiles (a 128 x
+# 128 quadrant to each of two consumer warpgroups), 64-deep steps, a ring
+# of 4 slots of A and B (48 KB a slot), split-K of the weight gradients
+# into at most 16 chunks
+FF_TILE, FF_TILE_N, FF_STEP, FF_STAGES, FF_MAX_CHUNKS = 128, 256, 64, 4, 16
+
+
+def ff_bwd_plan(m: int, dim: int, hidden: int, sms: int = 132) -> dict:
+    """Launch plan of the K16 kernels on ``sms`` SMs, mirrored from
+    ``sav_ff_bwd_plan`` in ``csrc/ff_bwd.cu``: ``row_tiles`` (128-row tiles
+    of the dgact and dy products, and db1 partials), ``steps`` (64-row
+    depth steps of the weight gradients over M), ``chunks`` and
+    ``steps_per_chunk`` (their split-K: the chunk count, none empty, that
+    least takes ceil(units / SMs) rounds of a chunk's steps plus the
+    partials' write and sum), ``units`` of the three GEMM launches
+    (``dgact``, ``dy``, ``dw``; 128 x 256 tiles), ``smem`` (dynamic shared
+    memory) and the f32 scratch the wrapper allocates (``part_floats``,
+    ``colsum_floats``). Raises ValueError where the kernel does not take
+    the geometry."""
+    if m < 1 or not ff_kernel_supported(dim, hidden):
+        raise ValueError(f'ff_bwd needs M >= 1 and D, F multiples of '
+                         f'{FF_TILE}, got M={m}, D={dim}, F={hidden}')
+    row_tiles, steps = -(-m // FF_TILE), -(-m // FF_STEP)
+    cols = lambda n: -(-n // FF_TILE_N)
+    tiles = dim // FF_TILE * cols(hidden) + hidden // FF_TILE * cols(dim)
+    best = None
+    for s in range(1, min(FF_MAX_CHUNKS, steps) + 1):
+        per = -(-steps // s)
+        if -(-steps // per) != s:               # a chunk would be empty
+            continue
+        cost = 6 * -(-(tiles * s) // max(sms, 1)) * per + s * tiles
+        if best is None or cost < best[0]:
+            best = (cost, s, per)
+    _, chunks, per = best
+    smem = (FF_STAGES * (FF_TILE + FF_TILE_N) * FF_STEP * 2  # the ring
+            + 2 * 4 * FF_TILE * 4                            # column sums
+            + 2 * FF_STAGES * 8 + 1024)              # mbarriers, alignment
+    return dict(row_tiles=row_tiles, steps=steps, chunks=chunks,
+                steps_per_chunk=per,
+                units={'dgact': row_tiles * cols(hidden),
+                       'dy': row_tiles * cols(dim), 'dw': tiles * chunks},
+                smem=smem, part_floats=chunks * 2 * dim * hidden,
+                colsum_floats=row_tiles * hidden)
+
+
+def _k16_fn(name):
+    fn = getattr(_build.library('ff_bwd'), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        if name == 'sav_ff_bwd':
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+        else:                                   # sav_ff_bwd_plan
+            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _ff_bwd_into(g2, hpre2, y2, w1, w2, dy2):
+    """K16's launches with dy written into ``dy2`` (``[M, D]``, or the first
+    M rows of a longer buffer); returns (dw1, dw2, db1)."""
+    m, dim = g2.shape
+    hidden = hpre2.shape[-1]
+    dev = g2.device
+    plan = ff_bwd_plan(m, dim, hidden,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    dh, h = (torch.empty(m, hidden, dtype=g2.dtype, device=dev)
+             for _ in range(2))
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty(plan['part_floats'], **f32)
+    colsum = torch.empty(plan['colsum_floats'], **f32)
+    dw = torch.empty(2 * dim * hidden, **f32)
+    db1 = torch.empty(hidden, **f32)
+    with torch.cuda.device(dev):
+        err = _k16_fn('sav_ff_bwd')(
+            g2.data_ptr(), hpre2.data_ptr(), y2.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), dh.data_ptr(), h.data_ptr(), dy2.data_ptr(),
+            part.data_ptr(), colsum.data_ptr(), dw.data_ptr(), db1.data_ptr(),
+            m, dim, hidden, plan['chunks'], fa.stream_of(dev))
+    _build.check(err, 'ff_bwd')
+    _build.count('ff_bwd')
+    return (dw[:dim * hidden].view(dim, hidden),
+            dw[dim * hidden:].view(hidden, dim), db1)
 
 
 def ff_bwd(g2, hpre2, y2, w1, w2):
@@ -541,9 +617,10 @@ def ff_bwd(g2, hpre2, y2, w1, w2):
     w1 ``[D, F]``, w2 ``[F, D]`` -> (dy2 ``[M, D]``, dw1 ``[D, F]`` f32, dw2
     ``[F, D]`` f32, db1 ``[F]`` f32). On the card (``csrc/ff_bwd.cu``, one
     call): the dgact GEMM with the gelu' epilogue writing dh, gelu(hpre)
-    and per-row-tile db1 partials; dy = dh W1^T; dW1 and dW2 one block per
-    output tile over all rows; the db1 partials summed in a fixed order.
-    bf16 only; no float atomics."""
+    and per-row-tile db1 partials; dy = dh W1^T; dW1 and dW2 in one launch
+    split over M (``ff_bwd_plan``), each chunk's partial and the db1
+    partials summed in a fixed order. The GEMMs are ``wgmma`` + TMA
+    (``csrc/ff_bwd_sm90.cuh``). bf16 only; no float atomics."""
     if g2.device.type == 'cpu':
         return ff_bwd_plain(g2, hpre2, y2, w1, w2)
     if g2.device.type != 'cuda':
@@ -558,26 +635,9 @@ def ff_bwd(g2, hpre2, y2, w1, w2):
                            ('w2', w2, (hidden, dim))):
         if tuple(t.shape) != shape:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
-    if m < 1 or not ff_kernel_supported(dim, hidden):
-        raise ValueError(f'ff_bwd needs M >= 1 and D, F multiples of '
-                         f'{GEMM_TILE}, got M={m}, D={dim}, F={hidden}')
-    dev = g2.device
-    dh, h = (torch.empty(m, hidden, dtype=g2.dtype, device=dev)
-             for _ in range(2))
+    ff_bwd_plan(m, dim, hidden)                 # raises on the geometry
     dy2 = torch.empty_like(g2)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dw1, dw2 = torch.empty(dim, hidden, **f32), torch.empty(hidden, dim, **f32)
-    db1 = torch.empty(hidden, **f32)
-    colsum = torch.empty(-(-m // GEMM_TILE), hidden, **f32)
-    with torch.cuda.device(dev):
-        err = _k16_lib()(
-            g2.data_ptr(), hpre2.data_ptr(), y2.data_ptr(), w1.data_ptr(),
-            w2.data_ptr(), dh.data_ptr(), h.data_ptr(), dy2.data_ptr(),
-            dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(), colsum.data_ptr(),
-            m, dim, hidden, fa.stream_of(dev))
-    _build.check(err, 'ff_bwd')
-    _build.count('ff_bwd')
-    return dy2, dw1, dw2, db1
+    return (dy2, *_ff_bwd_into(g2, hpre2, y2, w1, w2, dy2))
 
 
 def _ff_fwd_res(x, scale2, bias2, w1, b1, w2, b2, eps, residual):

@@ -89,6 +89,29 @@ def th_bwd_plan(l: int, heads: int) -> dict:
                 dm_partials=8 * tiles)
 
 
+def th_fwd_plan(l: int, heads: int) -> dict:
+    """Launch geometry of K6a (``csrc/th_fwd_sm90.cuh``), mirrored from its
+    ``Plan``: persistent work tiles of ``rows`` = 64 query rows of one
+    image, each sweeping the keys twice in ``cols`` = 16-key tiles through
+    ``stages`` ring slots (k in the first sweep, k and v in the second);
+    ``smem``: the kernel's dynamic shared memory (resident q, the ring, two
+    bf16 exchange tiles of every head, mbarriers). Raises ValueError for a
+    head count the kernel is not built for."""
+    if heads not in KERNEL_HEADS:
+        raise ValueError(
+            f'the TH forward is built for H in {KERNEL_HEADS}, got {heads} '
+            f'(H = 6 and 16 are ROADMAP.md Queue 2 item 9)')
+    rows, cols, stages = 64, 16, 4
+    nb = heads * HEAD_CH // 64                      # 64-column boxes
+    smem = (nb * rows * 64 * 2                      # resident q
+            + stages * (nb + heads) * cols * 64 * 2  # k boxes, v per head
+            + 2 * heads * rows * cols * 2           # exchange buffers
+            + (2 + 2 * stages + 4) * 8              # mbarriers
+            + 1024)                                 # alignment slack
+    return dict(rows=rows, cols=cols, stages=stages, tiles=-(-l // rows),
+                steps=2 * -(-l // cols), smem=smem)
+
+
 @functools.lru_cache(maxsize=None)
 def fused_smem(l: int, heads: int) -> int:
     """Shared memory of the K5a core at length ``l``: ``sav_th_fwd_smem``
@@ -291,12 +314,20 @@ def _mixes(m_pre, m_post, heads, device):
     return out
 
 
+def _mix_bank(m_pre, m_post, heads, device):
+    """M_pre, M_pre log2 e (the exponent's pre-mix) and M_post as one
+    ``[3, H, H]`` f32 tensor: the TH kernels' constant bank."""
+    mpre, mpost = _mixes(m_pre, m_post, heads, device)
+    return torch.stack((mpre, mpre * LOG2E, mpost)).contiguous()
+
+
 def th_core_fwd(q, k, v, m_pre, m_post, heads: int):
     """Port of K6a ``_th_blk_fwd_kernel``: the talking-heads core on ``[B,
     L, H*48]`` bands (q pre-scaled) -> (attn like q, lse ``[B, H, L]`` f32
-    of each mixed head). On the card one block per (32 query rows, image)
-    sweeps the keys twice (the lse of each mixed head, then the
-    probabilities, post-mix and PV), so any L is taken. bf16 only."""
+    of each mixed head). On the card one persistent ``wgmma`` + TMA kernel
+    (``th_fwd_plan``) sweeps the keys of 64 query rows twice (the lse of
+    each mixed head, then the probabilities, post-mix and PV), so any L is
+    taken. bf16 only."""
     if q.device.type == 'cpu':
         return th_core_fwd_plain(q, k, v, m_pre, m_post, heads)
     if q.device.type != 'cuda':
@@ -304,13 +335,13 @@ def th_core_fwd(q, k, v, m_pre, m_post, heads: int):
     fa.check_no_grad(q, k, v, m_pre, m_post)
     _check_core(q, k, v, heads)
     b, l, _ = q.shape
-    mpre, mpost = _mixes(m_pre, m_post, heads, q.device)
+    mix = _mix_bank(m_pre, m_post, heads, q.device)
     attn = torch.empty_like(q)
     lse = torch.empty(b, heads, l, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _fn('sav_th_core_fwd', 7, 3)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mpre.data_ptr(),
-            mpost.data_ptr(), attn.data_ptr(), lse.data_ptr(), b, l, heads,
+        err = _fn('sav_th_core_fwd', 6, 3)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mix.data_ptr(),
+            attn.data_ptr(), lse.data_ptr(), b, l, heads,
             fa.stream_of(q.device))
     _build.check(err, 'th_core_fwd')
     _build.count('th_core_fwd')
@@ -398,10 +429,7 @@ def _core_bwd(q, k, v, do, lse, m_pre, m_post, heads, what):
     fa.check_no_grad(q, k, v, do, lse, m_pre, m_post)
     _check_bwd(q, k, v, do, lse, heads)
     b, l, hd = q.shape
-    mpre, mpost = _mixes(m_pre, m_post, heads, q.device)
-    # M_pre, M_pre log2 e (the exponent's pre-mix), M_post: the kernels'
-    # constant bank
-    mix = torch.stack((mpre, mpre * LOG2E, mpost)).contiguous()
+    mix = _mix_bank(m_pre, m_post, heads, q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
     dm = _dm_partials(b, l, heads, q.device)

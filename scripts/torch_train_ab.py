@@ -20,9 +20,11 @@ With ``--kernels`` each run times, through the checkout's own wrappers on
 inputs made from seed 0 with numpy, K1 (the attention sublayer forward,
 whose attention launch is K4's kernel) at its four timed shapes, K4 at
 ViT-B/16's serving and ``fused_ff`` training shapes, K2 at the @224
-training shape and at 200 rows over 190 keys, and the talking-heads
-backward at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48
-L=576) with K6a at B=48 L=576 as an unchanged control, each with this checkout's
+training shape and at 200 rows over 190 keys, the talking-heads backward
+at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
+CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576), K5a at
+B=32 L=196, K16 at ViT-B/16 @224 bs192's 37,824 rows and K8b at Mixer-B/16
+bs192 (K5a and K8b as controls), each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -91,23 +93,53 @@ if args['kernels']:
         o, lse = fa.flash_fwd(q, k, v, heads, kv_len)
         out[f'K2 B={{b}} L={{seq}} kv_len={{kv_len}}'] = time_ms(
             lambda: fa.bwd_fused(q, k, v, o, lse, do, heads, kv_len))
-    # the talking-heads backward at CaiT-S/24's training shapes, K6a (whose
-    # code no PR of the backward touches) as the control
+    # the talking-heads kernels at CaiT-S/24's shapes: the backward (K5b,
+    # K6b) at the training shapes, K6a at the serving (B=32) and training
+    # (B=48) shapes @384, K5a (a control: its code is not K6a's) @224
     from sav_tpu_torch.ops import th_attention as th
     heads = 8
     hd = heads * th.HEAD_CH
+    mixes = lambda: [(torch.eye(heads) + 0.3 * torch.from_numpy(
+        rng.standard_normal((heads, heads)).astype(np.float32))).cuda()
+        for _ in range(2)]
     for name, b, seq, fn in (('K5b', 128, 196, th.th_attention_bwd),
                              ('K6b', 48, 576, th.th_core_bwd)):
         q = bf16((b, seq, hd), 0.4)
         k, v, do = (bf16((b, seq, hd)) for _ in range(3))
-        m = [(torch.eye(heads) + 0.3 * torch.from_numpy(rng.standard_normal(
-            (heads, heads)).astype(np.float32))).cuda() for _ in range(2)]
-        _, lse = th.th_core_fwd(q, k, v, *m, heads)
+        m = mixes()
+        _, lse = th.th_core_fwd_plain(q, k, v, *m, heads)
         out[f'{{name}} B={{b}} L={{seq}}'] = time_ms(
             lambda: fn(q, k, v, do, lse, *m, heads))
-        if name == 'K6b':
-            out[f'K6a (control) B={{b}} L={{seq}}'] = time_ms(
-                lambda: th.th_core_fwd(q, k, v, *m, heads))
+    for b in (32, 48):
+        q = bf16((b, 576, hd), 0.4)
+        k, v = (bf16((b, 576, hd)) for _ in range(2))
+        m = mixes()
+        out[f'K6a B={{b}} L=576'] = time_ms(
+            lambda: th.th_core_fwd(q, k, v, *m, heads))
+    dim = 384
+    x = bf16((32, 196, dim))
+    w = [bf16((dim, hd), 1 / math.sqrt(dim)) for _ in range(3)]
+    wo = bf16((hd, dim), 1 / math.sqrt(hd))
+    ones, zeros = torch.ones(dim, device='cuda'), torch.zeros(dim, device='cuda')
+    m = mixes()
+    out['K5a (control) B=32 L=196'] = time_ms(lambda: th.th_attention_fwd(
+        x, ones, zeros, *w, wo, *m, heads))
+    # the FF backward (K16) at ViT-B/16 @224 bs192's rows, and K8b (a
+    # control: its GEMMs are ff_common.cuh's, which K16 no longer runs) at
+    # Mixer-B/16 bs192
+    mrows, d, f = 192 * 197, 768, 3072
+    args16 = (bf16((mrows, d)), bf16((mrows, f)), bf16((mrows, d)),
+              bf16((d, f), 1 / math.sqrt(d)), bf16((f, d), 1 / math.sqrt(f)))
+    out[f'K16 M={{mrows}}'] = time_ms(lambda: fused_layer.ff_bwd(*args16))
+    del args16
+    from sav_tpu_torch.ops import mixer_token as mt
+    lt, kt = 196, 98
+    x8 = bf16((192, lt, d))
+    args8 = (x8, (1 + 0.1 * bf16((d,))).float(), (0.1 * bf16((d,))).float(),
+             bf16((lt, kt), 1 / math.sqrt(lt)), (0.1 * bf16((kt,))).float(),
+             bf16((kt, lt), 1 / math.sqrt(kt)), (0.1 * bf16((lt,))).float(),
+             bf16((192, lt, d)))
+    out['K8b (control) B=192'] = time_ms(lambda: mt.token_mix_bwd(*args8))
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
 if args['serve']:
@@ -207,7 +239,7 @@ def main(argv=None) -> int:
     parser.add_argument('--serve', action='store_true',
                         help='time predict.serve instead of a train step')
     parser.add_argument('--kernels', action='store_true',
-                        help='time the flash and TH backward kernels '
+                        help='time the flash, TH and FF-backward kernels '
                              'instead of a step')
     opts = parser.parse_args(argv)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -366,6 +366,47 @@ def test_th_bwd_survives_back_to_back_calls(card):
         assert all(torch.equal(a, b) for g in outs for a, b in zip(g, first))
 
 
+@pytest.mark.parametrize('b', [32, 48])
+@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('seq', [196, 197, 576, 577])
+def test_th_core_fwd_at_cait_shapes(card, seq, heads, b):
+    """K6a at CaiT's lengths (@224 and @384, each with a one-row tail) and
+    batches, with lse, against the twin at chip_smoke.py's tolerances
+    (OUT_TOL, LSE_TOL); two calls identical."""
+    rng = np.random.RandomState(seq + heads + b)
+    q, k, v, _, m = _th_core_case(rng, b, seq, heads, card)
+    attn, lse = th_attention.th_core_fwd(q, k, v, *m, heads)
+    again = th_attention.th_core_fwd(q, k, v, *m, heads)
+    p_attn, p_lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    assert _rel(attn, p_attn) <= 2e-2
+    assert (lse - p_lse).abs().max() <= 1e-3
+    assert torch.equal(attn, again[0]) and torch.equal(lse, again[1])
+
+
+def test_th_core_fwd_survives_back_to_back_calls(card):
+    """200 K6a calls queued without a synchronize (CaiT-S/24 @384 bs48)
+    give the first call's result every time."""
+    rng = np.random.RandomState(12)
+    q, k, v, _, m = _th_core_case(rng, 48, 576, 8, card)
+    first = th_attention.th_core_fwd(q, k, v, *m, 8)
+    for _ in range(20):
+        outs = [th_attention.th_core_fwd(q, k, v, *m, 8) for _ in range(10)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for g in outs for a, b in zip(g, first))
+
+
+def test_th_fwd_plan_matches_the_kernel(card):
+    """th_fwd_plan mirrors K6a's shared memory (sav_th_core_fwd_smem); an
+    unbuilt head count reads 0."""
+    import ctypes
+    from sav_tpu_torch import _build
+    fn = _build.library('th_attention').sav_th_core_fwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for heads in th_attention.KERNEL_HEADS:
+        assert fn(heads) == th_attention.th_fwd_plan(577, heads)['smem']
+    assert fn(6) == 0 and fn(16) == 0
+
+
 def test_th_bwd_plan_matches_the_kernel(card):
     """th_bwd_plan mirrors the kernels' shared memory (sav_th_bwd_smem)."""
     import ctypes
@@ -393,9 +434,9 @@ def test_th_kernels_write_no_row_past_the_length(card):
     delta = torch.empty_like(lse)
     dm = th_attention._dm_partials(1, seq, heads, card)
     mix = torch.stack((m[0], m[0] * th_attention.LOG2E, m[1])).contiguous()
-    fwd = th_attention._fn('sav_th_core_fwd', 7, 3)
-    assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), m[0].data_ptr(),
-               m[1].data_ptr(), attn.data_ptr(), lse.data_ptr(), 1, seq, heads,
+    fwd = th_attention._fn('sav_th_core_fwd', 6, 3)
+    assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mix.data_ptr(),
+               attn.data_ptr(), lse.data_ptr(), 1, seq, heads,
                stream_of(card)) == 0
     bwd = th_attention._fn('sav_th_core_bwd', 11, 3, lib='th_bwd')
     assert bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -576,6 +617,76 @@ def test_ff_bwd_matches_twin_and_repeats(card, m):
     assert max(_rel(a, b) for a, b in zip(got[1:], twin[1:])) <= WGRAD_TOL
     assert all(torch.equal(a, b)
                for a, b in zip(got, fused_layer.ff_bwd(*args)))
+
+
+@pytest.mark.parametrize('m', [37824, 1003, 129])
+def test_ff_bwd_at_vit_b_widths(card, m):
+    """K16 at ViT-B/16's widths: the rows of @224 bs192 (split-K over 8
+    chunks) and two ragged counts, against the twin, two calls identical."""
+    rng = np.random.RandomState(m)
+    d, f = 768, 3072
+    args = (_bf16(rng, (m, d), 1, card), _bf16(rng, (m, f), 1, card),
+            _bf16(rng, (m, d), 1, card),
+            _bf16(rng, (d, f), 1 / math.sqrt(d), card),
+            _bf16(rng, (f, d), 1 / math.sqrt(f), card))
+    got = fused_layer.ff_bwd(*args)
+    again = fused_layer.ff_bwd(*args)
+    twin = fused_layer.ff_bwd_plain(*args)
+    assert _rel(got[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(got[1:], twin[1:])) <= WGRAD_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize('m,d,f', [(300, 384, 640), (129, 128, 128)])
+def test_ff_bwd_odd_column_tiles(card, m, d, f):
+    """D and F an odd number of 128-wide tiles: the second half of a 128 x
+    256 tile lies past the matrix (zeros in, nothing stored)."""
+    rng = np.random.RandomState(m + d)
+    args = (_bf16(rng, (m, d), 1, card), _bf16(rng, (m, f), 1, card),
+            _bf16(rng, (m, d), 1, card),
+            _bf16(rng, (d, f), 1 / math.sqrt(d), card),
+            _bf16(rng, (f, d), 1 / math.sqrt(f), card))
+    got = fused_layer.ff_bwd(*args)
+    twin = fused_layer.ff_bwd_plain(*args)
+    assert _rel(got[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(got[1:], twin[1:])) <= WGRAD_TOL
+
+
+def test_ff_bwd_plan_matches_the_kernel(card):
+    """ff_bwd_plan mirrors sav_ff_bwd_plan on this card's SM count."""
+    import ctypes
+    from sav_tpu_torch import _build
+    fn = _build.library('ff_bwd').sav_ff_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for m, d, f in ((1, 768, 3072), (129, 768, 3072), (1003, 768, 3072),
+                    (37824, 768, 3072), (700, 128, 256), (50000, 1024, 4096)):
+        out = (ctypes.c_int * 8)()
+        assert fn(m, d, f, sms, out) == 0
+        plan = fused_layer.ff_bwd_plan(m, d, f, sms)
+        assert list(out) == [plan['row_tiles'], plan['steps'], plan['chunks'],
+                             plan['steps_per_chunk'], plan['units']['dgact'],
+                             plan['units']['dy'], plan['units']['dw'],
+                             plan['smem']]
+    assert fn(16, 100, 3072, sms, (ctypes.c_int * 8)()) != 0
+
+
+def test_ff_bwd_survives_back_to_back_calls(card):
+    """200 calls queued without a synchronize between them (a deadlock in
+    the two consumers' rings shows as a launch failure) all give the first
+    call's result."""
+    rng = np.random.RandomState(5)
+    m, d, f = 4 * 197, 768, 3072
+    args = (_bf16(rng, (m, d), 1, card), _bf16(rng, (m, f), 1, card),
+            _bf16(rng, (m, d), 1, card),
+            _bf16(rng, (d, f), 1 / math.sqrt(d), card),
+            _bf16(rng, (f, d), 1 / math.sqrt(f), card))
+    first = fused_layer.ff_bwd(*args)
+    for _ in range(20):
+        outs = [fused_layer.ff_bwd(*args) for _ in range(10)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for g in outs for a, b in zip(g, first))
 
 
 def test_ff_sublayer_gradients_match_the_library_backward(card):
