@@ -49,7 +49,8 @@
    B=32 and B=192, 49/24/512, 196/98/1024), K8b (its backward) at B=192
    with all seven gradients, K16 (the FF-sublayer backward) at ViT-B/16
    @224 bs192's M = 37,824 rows and at ragged M = 1003 and 129 (weight
-   gradients of both at WGRAD_TOL; K16's two calls bit-identical);
+   gradients of both at WGRAD_TOL; K8b's and K16's two calls
+   bit-identical);
    NaN-sentinel buffers past the last token row and
    past M, with an odd batch; serving Mixer-B/16 @224 bs32 (12 K8a
    launches per forward, logits against the per-op path); training it
@@ -116,7 +117,8 @@
    timed beside a library chain (LayerNorm, torch codes, ``torch._int_mm``
    with the dequant for the four projections, the per-op TH core); K14
    (``csrc/int8_ff.cu``) at ViT-B/16 bs192's M = 37,824 and CaiT-S/24
-   bs128's 25,088 rows, dy2 and dh, beside codes, ``_int_mm``, torch's
+   bs128's 25,088 rows, dy2 and dh, two calls bit-identical, beside
+   codes, ``_int_mm``, torch's
    gelu backward, codes, ``_int_mm``; both on NaN-sentinel buffers at a
    ragged M (K11 also on its two-sweep core, L = 250); serving CaiT-S/24
    @224 bs32 ``quantized='all'`` (24 K11 + 24 K12 per forward), @384 at
@@ -1053,20 +1055,25 @@ K8_GRADS = ('dx', 'dln_scale', 'dln_bias', 'dw1', 'db1', 'dw2', 'db2')
 
 def check_k8b(rng, checks, batch, l=196, k=98, d=768):
     """K8b vs its twin: each of the seven gradients as max |kernel - twin|
-    over max |twin|. Returns the kernel record."""
+    over max |twin|, and two calls bit-identical (fixed-order sums, no
+    float atomics). Returns the kernel record."""
     args = _k8_case(rng, batch, l, k, d)
     g = _bf16(rng, (batch, l, d))
     grads = mt.token_mix_bwd(*args, g)
+    again = mt.token_mix_bwd(*args, g)
     twin = mt.token_mix_bwd_plain(*args, g)
     torch.cuda.synchronize()
     errs = [_rel(a, b) for a, b in zip(grads, twin)]
     shapes = all(a.shape == b.shape for a, b in zip(grads, twin))
     finite = all(bool(torch.isfinite(a).all()) for a in grads)
-    checks.expect(shapes and finite and errs[0] <= BWD_TOL
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    checks.expect(shapes and finite and same and errs[0] <= BWD_TOL
                   and max(errs[1:]) <= WGRAD_TOL,
                   f'K8b token_mix_bwd B={batch} L={l} K={k} D={d}: '
                   + ', '.join(f'{n} {e:.3g}' for n, e in zip(K8_GRADS, errs))
-                  + f' of max (tol dx {BWD_TOL}, the others {WGRAD_TOL})')
+                  + f' of max (tol dx {BWD_TOL}, the others {WGRAD_TOL}); '
+                  f'two calls identical {same}')
     leaves = [t.detach().requires_grad_() for t in args]
     fwd = time_ms(lambda: _k8_library(*leaves))
     both = time_ms(lambda: torch.autograd.grad(_k8_library(*leaves), leaves, g))
@@ -2230,11 +2237,15 @@ def check_k14(rng, checks, m, d=768, f=3072):
     ``_int_mm`` with the dequant."""
     g, hpre, w = _k14_case(rng, m, d, f)
     got = int8_ff.int8_ff_dx_raw(g, hpre, *w)
+    again = int8_ff.int8_ff_dx_raw(g, hpre, *w)
     want = int8_ff.int8_ff_dx_reference(g, hpre, *w)
     torch.cuda.synchronize()
     name = f'K14 int8_ff_dx_raw M={m} D={d} F={f}'
     errs = [_int8_expect(checks, f'{name}: dy2', got[0], want[0]),
             _int8_expect(checks, f'{name}: dh', got[1], want[1])]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    checks.expect(same, f'{name}: two calls identical {same}')
     w1t_q, s1t, w2t_q, s2t = w
     w1c, w2c = w1t_q.contiguous(), w2t_q.contiguous()
 
@@ -2259,7 +2270,7 @@ def check_k14(rng, checks, m, d=768, f=3072):
 
 def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
-    range: K14 at M = 1003 (not a multiple of the 48-row bands), dy2 and
+    range: K14 at M = 1003 (not a multiple of its 128-row tiles), dy2 and
     dh; K11 at B = 3, L = 197 (CaiT-S widths) and L = 250 (its two-sweep
     core at H = 8). Rows in range match the twins; rows past them keep the
     sentinel."""
@@ -2270,11 +2281,8 @@ def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     d, f = 768, 3072
     g, hpre, (w1t_q, s1t, w2t_q, s2t) = _k14_case(rng, m, d, f)
     dy, dh = nan(m, d), nan(m, f)
-    # every buffer is held by a name until the launch has been synchronised
-    bufs = [g, hpre, w2t_q.t().contiguous(), s2t.reshape(-1).contiguous(),
-            w1t_q.t().contiguous(), s1t.reshape(-1).contiguous(), dy, dh]
-    codes.append(int8_ff._ff_lib('sav_int8_ff_dx')(
-        *[t.data_ptr() for t in bufs], m, d, f, stream))
+    # the C entry into the first M rows (it raises on a failed launch)
+    int8_ff._int8_dx_into(g, hpre, w1t_q, s1t, w2t_q, s2t, dy[:m], dh[:m])
     torch.cuda.synchronize()
     want = int8_ff.int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
     _int8_expect(checks, f'K14 M={m} into sentinels: dy2', dy[:m], want[0])
@@ -2344,12 +2352,14 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
-    # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b, K6a, K16):
+    # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b, K6a, K16,
+    # K8b, K14; their files' mma.sync kernels beside them):
     # each kernel's registers, spills and any wgmma warning (C7510-C7515:
     # serialized)
     for lib, label in (('flash_fwd', 'K4'), ('flash_bwd', 'K2'),
                        ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b'),
-                       ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16')):
+                       ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16'),
+                       ('mixer_token', 'K8a/K8b'), ('int8_ff', 'K12-K14')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
                                        'wgmma', 'arning')):

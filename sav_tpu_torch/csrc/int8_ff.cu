@@ -1,5 +1,5 @@
 // K12 and K13 ports: the whole int8 FF forward in one kernel; K14: both
-// int8 dx products of its SwitchBack backward in one kernel.
+// int8 dx products of its SwitchBack backward (int8_dx_sm90.cuh).
 //
 // Replaces sav_tpu/ops/int8_ff.py::_ff_kernel (K12, launcher int8_ff_raw)
 // and ::_ff_ln_kernel (K13, launcher int8_ff_ln_raw), both with and
@@ -37,6 +37,7 @@
 // ahead. 16 warps split the columns. At ViT-B's M = 6304 the 48-row bands
 // make 132 blocks: one wave over the H100's 132 SMs. The price of the
 // band is that every block reads W1q twice and W2q once (7 MB) through L2.
+#include "int8_dx_sm90.cuh"
 #include "int8_gemm.cuh"
 
 namespace sav {
@@ -274,173 +275,27 @@ int launch(const FFArgs& p, cudaStream_t st) {
 //     written in bf16 [M, F];
 //   dy    = bf16(f32(dhq W1q^T) * (dhs * s1)), dhq, dhs: the codes of the
 //     f32 dh per row over all F, W1q [D, F] W1's codes per IN row (per D).
-// Codes per IN row are already the [N][K] layout the s8 mma's B operand
-// reads, so no transpose is made. The plan is K12's: a band of BM rows
-// keeps g's codes and dh's codes in shared memory; dh's row absmax needs
-// all F columns of an f32 value too large to keep, so the first product
-// runs twice over the same codes (int32 sums are exact): sweep 1 writes dh
-// and keeps each row's absmax, sweep 2 writes dh's codes. hpre is read in
-// both sweeps; rows past M read no hpre and store nothing.
+// Codes per IN row are already the [N][K] layout s8 wgmma reads, so no
+// transpose is made. dh's row absmax needs all F columns of an f32 value
+// too large to keep, so the first product runs twice over the same codes
+// (int32 sums are exact): once for dh and the absmax partials, once for
+// dh's codes. Five launches (int8_dx_sm90.cuh): g's codes (one warp a row,
+// the shared quantiser), ABSMAX, dh's row scales, CODES, DY. Rows past M
+// read no hpre and store nothing.
 //
 // Bound on the card: ViT-B/16 @224 bs192 (M = 37,824, D = 768, F = 3072):
 // 357 G int8 operations (0.180 ms at 1979 TOPS) against 586 MB of g,
 // hpre, dh, dy and codes (0.175 ms): bound by operations. CaiT-S/24 bs128
 // (M = 25,088, D = 384, F = 1536): 59 G (0.030 ms) against 194 MB (0.058
-// ms), bound by bytes.
-
-struct DxArgs {
-  const bf16* g;                  // [M, D]
-  const bf16* hpre;               // [M, F]
-  const int8_t* w2c;              // [F, D] codes of W2 per F row
-  const float* s2;                // [F]
-  const int8_t* w1c;              // [D, F] codes of W1 per D row
-  const float* s1;                // [D]
-  bf16* dy;                       // [M, D]
-  bf16* dh;                       // [M, F]
-  int M, D, F;
-};
-
-// The cotangent of jax.nn.gelu (tanh form) at x for the output cotangent
-// g, in the operation order of jax.vjp's f32 graph:
-// e = 3 x^2; i = tanh(c (x + a x^3)); p = (0.5 (x g)) (1 - i);
-// s = c (p + p i); return (g (0.5 (1 + i)) + s) + (a s) e.
-__device__ __forceinline__ float gelu_vjp(float x, float g) {
-  const float x2 = __fmul_rn(x, x);
-  const float x3 = __fmul_rn(x, x2);
-  const float i = tanhf(__fmul_rn(0.7978845608028654f,
-                                  __fadd_rn(x, __fmul_rn(0.044715f, x3))));
-  const float p = __fmul_rn(__fmul_rn(0.5f, __fmul_rn(x, g)), __fsub_rn(1.f, i));
-  const float s = __fmul_rn(0.7978845608028654f, __fadd_rn(p, __fmul_rn(p, i)));
-  const float l = __fmul_rn(0.5f, __fadd_rn(1.f, i));
-  return __fadd_rn(__fadd_rn(__fmul_rn(g, l), s),
-                   __fmul_rn(__fmul_rn(0.044715f, s), __fmul_rn(3.f, x2)));
-}
-
-template <int BM>
-__global__ void __launch_bounds__(FF_THREADS, 1)
-ff_dx_q8_kernel(const DxArgs p) {
-  constexpr int MT = BM / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int D = p.D, F = p.F;
-  const int ldg = band_ld(D), ldh = band_ld(F);
-  int8_t* gq = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* hq = gq + BM * ldg;
-  float* gs = reinterpret_cast<float*>(hq + BM * ldh);
-  float* hs = gs + BM;
-  float* red = hs + BM;                     // [FF_WARPS][BM]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM;
-
-  // 1. the band's g codes; rows past M are zeros
-  for (int r = warp; r < BM; r += FF_WARPS) {
-    const int row = m0 + r;
-    int8_t* qr = gq + r * ldg;
-    if (row >= p.M) {
-      for (int c = 2 * lane; c < D; c += 64)
-        *reinterpret_cast<char2*>(qr + c) = make_char2(0, 0);
-      if (lane == 0) gs[r] = 0.f;
-      continue;
-    }
-    const bf16* gr = p.g + (size_t)row * D;
-    auto value = [&](int c) {
-      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gr + c));
-    };
-    float amax = 0.f;
-    for (int c = 2 * lane; c < D; c += 64) {
-      const float2 v = value(c);
-      amax = fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y)));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float s = row_scale(amax);
-    for (int c = 2 * lane; c < D; c += 64) {
-      const float2 v = value(c);
-      *reinterpret_cast<char2*>(qr + c) = make_char2(
-          (signed char)quantize(v.x, s), (signed char)quantize(v.y, s));
-    }
-    if (lane == 0) gs[r] = s;
-  }
-  __syncthreads();
-
-  // dh at (band row r, columns col and col + 1) from the int32 sums
-  auto dh_of = [&](int r, int col, int v0, int v1) {
-    const int row = m0 + r;
-    float2 h = make_float2(0.f, 0.f);
-    if (row < p.M)
-      h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          p.hpre + (size_t)row * F + col));
-    return make_float2(gelu_vjp(h.x, dequant(v0, gs[r], p.s2[col])),
-                       gelu_vjp(h.y, dequant(v1, gs[r], p.s2[col + 1])));
-  };
-
-  // 2. sweep 1: bf16 dh out, each band row's absmax of the f32 dh
-  float amax[MT][2];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi) amax[mi][0] = amax[mi][1] = 0.f;
-  band_gemm<MT, 4>(gq, ldg, p.w2c, F, D,
-                   [&](int mi, int half, int r, int col, int v0, int v1) {
-    const float2 d = dh_of(r, col, v0, v1);
-    const int row = m0 + r;
-    if (row < p.M)
-      *reinterpret_cast<uint32_t*>(p.dh + (size_t)row * F + col) =
-          pack_bf16(d.x, d.y);
-    amax[mi][half] = fmaxf(amax[mi][half], fmaxf(fabsf(d.x), fabsf(d.y)));
-  });
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v = amax[mi][half];
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      if (t == 0) red[warp * BM + mi * 16 + g + 8 * half] = v;
-    }
-  __syncthreads();
-  for (int r = threadIdx.x; r < BM; r += FF_THREADS) {
-    float m = 0.f;
-    for (int w = 0; w < FF_WARPS; ++w) m = fmaxf(m, red[w * BM + r]);
-    hs[r] = row_scale(m);
-  }
-  __syncthreads();
-
-  // 3. sweep 2: the same sums; dh's codes kept
-  band_gemm<MT, 4>(gq, ldg, p.w2c, F, D,
-                   [&](int mi, int half, int r, int col, int v0, int v1) {
-    const float2 d = dh_of(r, col, v0, v1);
-    *reinterpret_cast<char2*>(hq + r * ldh + col) =
-        make_char2((signed char)quantize(d.x, hs[r]),
-                   (signed char)quantize(d.y, hs[r]));
-  });
-  __syncthreads();
-
-  // 4. the second product and dy
-  band_gemm<MT, 2>(hq, ldh, p.w1c, D, F,
-                   [&](int mi, int half, int r, int col, int v0, int v1) {
-    const int row = m0 + r;
-    if (row >= p.M) return;
-    *reinterpret_cast<uint32_t*>(p.dy + (size_t)row * D + col) =
-        pack_bf16(dequant(v0, hs[r], p.s1[col]),
-                  dequant(v1, hs[r], p.s1[col + 1]));
-  });
-}
-
-template <int BM>
-int launch_dx(const DxArgs& p, cudaStream_t st) {
-  const int smem = band_smem(BM, p.D, p.F);
-  cudaError_t err = cudaFuncSetAttribute(
-      ff_dx_q8_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  ff_dx_q8_kernel<BM><<<(p.M + BM - 1) / BM, FF_THREADS, smem, st>>>(p);
-  return (int)cudaGetLastError();
-}
+// ms), bound by bytes. The design does 536 G (the first product twice)
+// and moves ~1.1 GB at ViT-B; K12's 48-row band plan would stream 5.6 GB
+// of weight codes from L2 into registers.
 
 }  // namespace q8ff
 }  // namespace sav
 
-// Rows per block K12, K13 and K14 take at (D, F): 48, 16, or 0 where even
-// a 16-row band does not fit a block's shared memory.
+// Rows per block K12 and K13 take at (D, F): 48, 16, or 0 where even a
+// 16-row band does not fit a block's shared memory.
 extern "C" int sav_int8_ff_band(int dim, int hidden) {
   using namespace sav::q8ff;
   if (band_smem(48, dim, hidden) <= SMEM_LIMIT) return 48;
@@ -469,21 +324,85 @@ extern "C" int sav_int8_ff(const void* x, const float* ln_scale,
   return (int)cudaErrorInvalidValue;
 }
 
+// K14's launch plan at (M, D, F): out[0] row tiles (128 rows), [1] column
+// tiles of F (ABSMAX, CODES) and [2] of D (DY, 128 columns each), [3]
+// units of ABSMAX and of CODES, [4] units of DY, [5] 64-deep stages of the
+// first product and [6] 128-deep stages of the second, [7] absmax partials a row, [8]
+// dynamic shared memory, [9] workspace bytes. Returns 0, or
+// cudaErrorInvalidValue for a geometry the kernels do not take. Mirrored
+// by int8_dx_plan in ops/int8_ff.py.
+extern "C" int sav_int8_ff_dx_plan(int m, int dim, int hidden,
+                                   long long* out) {
+  using namespace sav::q8dx;
+  if (m < 1 || dim < 64 || hidden < 64 || dim % 64 || hidden % 64)
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.m = m;
+  a.dim = dim;
+  a.hidden = hidden;
+  out[0] = (m + BM - 1) / BM;
+  out[1] = col_tiles(hidden);
+  out[2] = col_tiles(dim);
+  out[3] = units_of<ABSMAX>(a);
+  out[4] = units_of<DY>(a);
+  out[5] = stages_of<ABSMAX>(a);
+  out[6] = stages_of<DY>(a);
+  out[7] = parts(hidden);
+  out[8] = Plan::SMEM;
+  out[9] = (long long)Workspace(m, dim, hidden).total;
+  return 0;
+}
+
 // K14. g [M, D] bf16; hpre [M, F] bf16; w2c [F, D] int8 with s2 [F] f32
 // (W2's codes per F row); w1c [D, F] int8 with s1 [D] f32 (W1's codes per
-// D row); dy [M, D] bf16; dh [M, F] bf16. Needs D % 64 == 0, F % 64 == 0
-// and sav_int8_ff_band(D, F) != 0.
+// D row); dy [M, D] bf16; dh [M, F] bf16; ws the workspace of
+// sav_int8_ff_dx_plan's out[9] bytes. Needs D % 64 == 0, F % 64 == 0.
 extern "C" int sav_int8_ff_dx(const void* g, const void* hpre, const void* w2c,
                               const float* s2, const void* w1c,
-                              const float* s1, void* dy, void* dh, int M,
-                              int dim, int hidden, void* stream) {
-  using namespace sav::q8ff;
-  DxArgs p = {(const sav::bf16*)g, (const sav::bf16*)hpre, (const int8_t*)w2c,
-              s2, (const int8_t*)w1c, s1, (sav::bf16*)dy, (sav::bf16*)dh, M,
-              dim, hidden};
+                              const float* s1, void* dy, void* dh, void* ws,
+                              int M, int dim, int hidden, void* stream) {
+  using namespace sav::q8dx;
   cudaStream_t st = (cudaStream_t)stream;
-  const int bm = sav_int8_ff_band(dim, hidden);
-  if (bm == 48) return launch_dx<48>(p, st);
-  if (bm == 16) return launch_dx<16>(p, st);
-  return (int)cudaErrorInvalidValue;
+  if (M < 1 || dim < 64 || hidden < 64 || dim % 64 || hidden % 64)
+    return (int)cudaErrorInvalidValue;
+  const Workspace lay(M, dim, hidden);
+  unsigned char* w = (unsigned char*)ws;
+  int8_t* gq = (int8_t*)(w + lay.gq);
+  int8_t* dhq = (int8_t*)(w + lay.dhq);
+  float* dhs = (float*)(w + lay.dhs);
+  Args a = {};
+  a.m = M;
+  a.dim = dim;
+  a.hidden = hidden;
+  a.gs = (float*)(w + lay.gs);
+  a.s2 = s2;
+  a.s1 = s1;
+  a.amax = (float*)(w + lay.amax);
+  a.dhs = dhs;
+  a.dy = (sav::bf16*)dy;
+
+  // the first product's operands: boxes of 128 rows x 64 codes; DY's and
+  // dh's codes out of the staging tile: 128 x 128; hpre and dh: 128 x 64
+  // bf16
+  CUtensorMap mg, mw2, mdhq, mw1, mh, mdh;
+  int err = codes_map(&mg, gq, M, dim, 64);
+  if (!err) err = codes_map(&mw2, w2c, hidden, dim, 64);
+  if (!err) err = codes_map(&mdhq, dhq, M, hidden, 128);
+  if (!err) err = codes_map(&mw1, w1c, dim, hidden, 128);
+  if (!err) err = sav::sm90::band_map(&mh, hpre, 1, M, M, hidden, BM);
+  if (!err) err = sav::sm90::band_map(&mdh, dh, 1, M, M, hidden, BM);
+  if (err) return err;
+
+  sav::q8::quantize_rows_kernel<false><<<(M + 7) / 8, 256, 0, st>>>(
+      (const sav::bf16*)g, nullptr, nullptr, 0.f, gq, (float*)a.gs, M, dim);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = launch<ABSMAX>(mg, mw2, mh, mdh, a, st);
+  if (e == cudaSuccess) {
+    dx_scale_kernel<<<(M + 255) / 256, 256, 0, st>>>(a.amax, parts(hidden),
+                                                      dhs, M);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess) e = launch<CODES>(mg, mw2, mh, mdhq, a, st);
+  if (e == cudaSuccess) e = launch<DY>(mdhq, mw1, mdhq, mdhq, a, st);
+  return (int)e;
 }

@@ -19,7 +19,8 @@
 // ~295: both K8a and K8b are bound by device-memory bytes (0.0345 ms and
 // 0.0518 ms at bs192).
 //
-// Design (all products mma.sync m16n8k16 on operands in shared memory):
+// Design (K8a, and K8b past the Hopper kernel's widths: mma.sync m16n8k16
+// on operands in shared memory):
 //  * L = 196 and K = 98 are not multiples of 16: W1 and W2 are padded to
 //    Lp x Kp in shared memory with zeros (W1's padded columns, W2's padded
 //    rows, b1's and b2's padded entries), so every padded hidden unit is
@@ -34,19 +35,27 @@
 //    at Mixer-B/16); the batch needs no padding: the grid has one block
 //    row per image.
 //  * K8b: the LN backward couples all bands of a token row through
-//    mean(dxhat) and mean(dxhat * xhat). A block per image looping over the
-//    bands would give 192 blocks on 132 SMs at bs192 and hold one image's
-//    dy; instead a block per (64-channel band, image) writes dy (f32) and
+//    mean(dxhat) and mean(dxhat * xhat). For L <= 200, K <= 112 and D <=
+//    1024 (every Mixer config at 224) the band work is mixer_bwd_sm90.cuh's
+//    persistent wgmma + TMA kernel (channel-major, the weights resident,
+//    the products' results in registers; it also forms each image's
+//    dscale and dbias), which writes dy (f32), and the LN backward is one
+//    pass a token row (mixer_ln_bwd_kernel: the row sums and dx). Past those
+//    widths the mma.sync band kernel below (one block per (64-channel
+//    band, image), mma.sync on operands in shared memory) writes dy and
 //    its bands' row sums, and mixer_finish_kernel (one warp per row) adds
 //    the row sums in band order and forms dx. The weight gradients sum
-//    over images and channels: the band blocks write y, gact and bf16(dhp)
+//    over images and channels: the band work writes y, gact and bf16(dhp)
 //    (the operands the TPU kernel feeds its dW products), and dW1 and dW2
-//    are the shared tiled GEMM of ff_common.cuh with that contraction
-//    split into image chunks. Every partial (chunk of dW, band of db1,
-//    db2, image of dscale and dbias) is written by one block and summed in
-//    a fixed order by sum_partials: no float atomics, the same gradients on
-//    every run.
+//    are a GEMM with that contraction split into image chunks: on the
+//    Hopper route mixer_bwd_sm90.cuh's wgmma + TMA kernel, else the shared
+//    tiled mma.sync GEMM of ff_common.cuh. Every
+//    partial (chunk of dW; band or warp of db1, db2; image of dscale and
+//    dbias) is written by one block and summed in a fixed order
+//    (sum_partials, or sum_columns, a block a column, where there are
+//    thousands): no float atomics, the same gradients on every run.
 #include "ff_common.cuh"
+#include "mixer_bwd_sm90.cuh"
 
 namespace sav {
 namespace mix {
@@ -212,7 +221,8 @@ mixer_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ stats,
   });
 }
 
-// K8b, the band part: one block per (64-channel band, image).
+// K8b, the band part past mixer_bwd_sm90.cuh's widths (L > 200 or K >
+// 112: mixb::route_of gives 0): one block per (64-channel band, image).
 struct BwdOut {
   bf16* y;          // [B, L, D]
   bf16* gact;       // [B, K, D]
@@ -393,7 +403,9 @@ mixer_finish_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
 
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-// The backward's scratch, carved from one workspace in this order.
+// The backward's scratch, carved from one workspace in this order (rows:
+// the mma.sync band kernel's partials of the LN row sums; db1 holds a partial a
+// band, or a warp of a band on the Hopper route).
 struct BwdLayout {
   size_t stats, y, gact, dh, dy, rows, db1, db2, dls, dlb, w1, w2, total;
   int chunks, per_chunk;
@@ -410,7 +422,7 @@ struct BwdLayout {
     dh = take(bk * d * 2);
     dy = take(bl * d * 4);
     rows = take(bl * bands * 2 * 4);
-    db1 = take(bk * bands * 4);
+    db1 = take(bk * bands * 4 * 4);
     db2 = take(bl * bands * 4);
     dls = take((size_t)batch * d * 4);
     dlb = take((size_t)batch * d * 4);
@@ -438,6 +450,42 @@ extern "C" int sav_mixer_bwd_smem(int l, int k) {
 
 extern "C" long long sav_mixer_bwd_workspace(int batch, int l, int k, int d) {
   return (long long)sav::mix::BwdLayout(batch, l, k, d).total;
+}
+
+// K8b's launch plan on `sms` SMs: out[0] the band work's route (2: the
+// Hopper kernel at <200, 112>, 1: at <56, 32>, both with the LN pass; 0:
+// the mma.sync band kernel and finish pass), [1] its token width LN and [2] hidden width KP (0 on route 0),
+// [3] (image, band) units, [4] blocks, [5] units of the busiest warpgroup
+// (route 0: 1), [6] the band kernel's dynamic shared memory, [7] dW GEMM
+// image chunks, [8] images a chunk, [9] workspace bytes. Returns 0, or
+// cudaErrorInvalidValue where sav_mixer_bwd refuses the geometry.
+// Mirrored by mixer_bwd_plan in ops/mixer_token.py.
+extern "C" int sav_mixer_bwd_plan(int batch, int l, int k, int d, int sms,
+                                  long long* out) {
+  using namespace sav::mix;
+  namespace mb = sav::mixb;
+  if (!geometry_ok(l, k, d) || batch < 1) return (int)cudaErrorInvalidValue;
+  const BwdLayout lay(batch, l, k, d);
+  const int route = mb::route_of(l, k, d);
+  const long long units = (long long)batch * (d / BWD_BAND);
+  out[0] = route;
+  out[1] = route == 2 ? 200 : route == 1 ? 56 : 0;
+  out[2] = route == 2 ? 112 : route == 1 ? 32 : 0;
+  out[3] = units;
+  if (route == 0) {
+    out[4] = units;
+    out[5] = 1;
+    out[6] = (long long)bwd_smem(l, k);
+  } else {
+    const int grid = mb::grid_for((int)units, sms);
+    out[4] = grid;
+    out[5] = (units + 2LL * grid - 1) / (2LL * grid);
+    out[6] = route == 2 ? mb::Geo<200, 112>::SMEM : mb::Geo<56, 32>::SMEM;
+  }
+  out[7] = lay.chunks;
+  out[8] = lay.per_chunk;
+  out[9] = (long long)lay.total;
+  return 0;
 }
 
 // K8a. x, out [B, L, D] bf16; ln_scale/ln_bias [D], b1 [K], b2 [L] f32;
@@ -496,45 +544,74 @@ extern "C" int sav_mixer_bwd(const void* x, const void* dout,
   float* pw2 = (float*)(w + lay.w2);
   const int bands = d / BWD_BAND, rows = batch * l;
 
-  const size_t smem = bwd_smem(l, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      mixer_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
   mixer_stats_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const bf16*)x, stats,
                                                      rows, d, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mixer_bwd_kernel<<<dim3(bands, batch), 256, smem, st>>>(
-      (const bf16*)x, (const bf16*)dout, stats, ln_scale, ln_bias,
-      (const bf16*)w1, b1, (const bf16*)w2, o, l, k, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mixer_finish_kernel<<<(rows + 7) / 8, 256, 0, st>>>(
-      (const bf16*)x, (const bf16*)dout, stats, ln_scale, o.dy, o.rows,
-      (bf16*)dx, batch, l, d, bands);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int route = sav::mixb::route_of(l, k, d);
+  if (route != 0) {
+    sav::mixb::Args a = {(const bf16*)x, (const bf16*)dout, stats, ln_scale,
+                         ln_bias, (const bf16*)w1, b1, (const bf16*)w2, o.y,
+                         o.gact, o.dh, o.dy, o.db1, o.db2, o.dls, o.dlb,
+                         batch, l, k, d};
+    err = route == 2 ? sav::mixb::launch<200, 112>(a, st)
+                     : sav::mixb::launch<56, 32>(a, st);
+    if (err == cudaSuccess)
+      err = sav::mixb::ln_bwd((const bf16*)x, (const bf16*)dout, stats,
+                              ln_scale, o.dy, (bf16*)dx, rows, d, st);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const size_t smem = bwd_smem(l, k);
+    err = cudaFuncSetAttribute(mixer_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mixer_bwd_kernel<<<dim3(bands, batch), 256, smem, st>>>(
+        (const bf16*)x, (const bf16*)dout, stats, ln_scale, ln_bias,
+        (const bf16*)w1, b1, (const bf16*)w2, o, l, k, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    mixer_finish_kernel<<<(rows + 7) / 8, 256, 0, st>>>(
+        (const bf16*)x, (const bf16*)dout, stats, ln_scale, o.dy, o.rows,
+        (bf16*)dx, batch, l, d, bands);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
 
-  // dW2[k, l] = sum over images and channels of gact[k, c] do[l, c]
-  ff::GemmArgs g = {};
-  g.A = o.gact; g.B = (const bf16*)dout; g.M = k; g.N = l; g.Kc = d;
-  g.lda = d; g.ldb = d; g.sa = (long long)k * d; g.sb = (long long)l * d;
-  g.nbatch = batch; g.per_chunk = lay.per_chunk;
-  g.cf = pw2; g.ldc = l; g.sc = (long long)k * l;
-  if ((err = ff::gemm_launch<false, true, ff::kF32>(g, lay.chunks, st))
-      != cudaSuccess)
-    return (int)err;
-  // dW1[l, k] = sum of y[l, c] bf16(dhp)[k, c]
-  g.A = o.y; g.B = o.dh; g.M = l; g.N = k;
-  g.sa = (long long)l * d; g.sb = (long long)k * d;
-  g.cf = pw1; g.ldc = k; g.sc = (long long)l * k;
-  if ((err = ff::gemm_launch<false, true, ff::kF32>(g, lay.chunks, st))
-      != cudaSuccess)
-    return (int)err;
+  if (route != 0) {
+    // dW1 and dW2 (transposed partials) on the wgmma GEMM
+    const sav::mixb::DwArgs da = {batch, l, k, d, lay.chunks, lay.per_chunk,
+                                  pw1, pw2};
+    if ((err = sav::mixb::dw_launch(o.y, o.dh, (const bf16*)dout, o.gact, da,
+                                    st)) != cudaSuccess)
+      return (int)err;
+  } else {
+    // dW2[k, l] = sum over images and channels of gact[k, c] do[l, c]
+    ff::GemmArgs g = {};
+    g.A = o.gact; g.B = (const bf16*)dout; g.M = k; g.N = l; g.Kc = d;
+    g.lda = d; g.ldb = d; g.sa = (long long)k * d; g.sb = (long long)l * d;
+    g.nbatch = batch; g.per_chunk = lay.per_chunk;
+    g.cf = pw2; g.ldc = l; g.sc = (long long)k * l;
+    if ((err = ff::gemm_launch<false, true, ff::kF32>(g, lay.chunks, st))
+        != cudaSuccess)
+      return (int)err;
+    // dW1[l, k] = sum of y[l, c] bf16(dhp)[k, c]
+    g.A = o.y; g.B = o.dh; g.M = l; g.N = k;
+    g.sa = (long long)l * d; g.sb = (long long)k * d;
+    g.cf = pw1; g.ldc = k; g.sc = (long long)l * k;
+    if ((err = ff::gemm_launch<false, true, ff::kF32>(g, lay.chunks, st))
+        != cudaSuccess)
+      return (int)err;
+  }
 
   // every partial summed in a fixed order
+  namespace mb = sav::mixb;
   const long long lk = (long long)l * k;
+  const int db1_parts = batch * bands * (route != 0 ? 4 : 1);
   if ((err = ff::sum_launch(pw1, lay.chunks, lk, l * k, dw1, st)) != cudaSuccess ||
       (err = ff::sum_launch(pw2, lay.chunks, lk, l * k, dw2, st)) != cudaSuccess ||
-      (err = ff::sum_launch(o.db1, batch * bands, k, k, db1, st)) != cudaSuccess ||
-      (err = ff::sum_launch(o.db2, batch * bands, l, l, db2, st)) != cudaSuccess ||
+      (err = mb::sum_columns_launch(o.db1, db1_parts, k, k, db1, st))
+          != cudaSuccess ||
+      (err = mb::sum_columns_launch(o.db2, batch * bands, l, l, db2, st))
+          != cudaSuccess ||
       (err = ff::sum_launch(o.dls, batch, d, d, dls, st)) != cudaSuccess ||
       (err = ff::sum_launch(o.dlb, batch, d, d, dlb, st)) != cudaSuccess)
     return (int)err;

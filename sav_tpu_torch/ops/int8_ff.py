@@ -109,8 +109,10 @@ def _ff_lib(name):
         if name == 'sav_int8_ff_band':
             fn.argtypes = [ctypes.c_int] * 2
         elif name == 'sav_int8_ff_dx':
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
+        elif name == 'sav_int8_ff_dx_plan':
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         else:
             fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_void_p])
@@ -340,16 +342,82 @@ def int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t):
     return dy2.to(g.dtype), dh.to(torch.bfloat16)
 
 
+# K14's tile, its ring slots' depth (first product; DY's) and their count
+DX_TILE, DX_STAGE, DX_STAGE_DY, DX_RING = 128, 64, 128, 5
+
+
+def int8_dx_plan(m: int, dim: int, hidden: int) -> dict:
+    """Launch plan of K14's kernels, mirrored from ``sav_int8_ff_dx_plan``
+    in ``csrc/int8_ff.cu`` (``csrc/int8_dx_sm90.cuh``): ``row_tiles`` (128
+    rows), ``col_tiles`` of the first product's [M, F] (``'dh'``) and the
+    second's [M, D] (``'dy'``, 128 columns each), ``units`` of the three
+    GEMM launches (``absmax`` and ``codes`` over [M, F], ``dy``; 128 x 128
+    tiles), ``stages`` (the ring slots of a contraction: 64-deep over D,
+    128-deep over F), ``parts`` (the absmax
+    partials of a row, one per 128 columns of F), ``smem`` (dynamic shared
+    memory: two teams' rings of five slots of two 8 KB boxes, their 32 KB
+    staging tiles, the mbarriers, alignment slack) and the workspace the
+    wrapper allocates: ``scratch`` (name -> (offset, bytes): g's codes and
+    scales, the absmax partials, dh's scales and codes, each at a 256-byte
+    offset) and ``workspace`` (their total bytes). Raises ValueError where
+    the kernels do not take the geometry."""
+    if m < 1 or dim < 64 or hidden < 64 or dim % 64 or hidden % 64:
+        raise ValueError(f'int8_ff_dx_raw needs M >= 1 and D, F multiples of '
+                         f'64, got M={m}, D={dim}, F={hidden}')
+    cdiv = lambda a, b: -(-a // b)
+    row_tiles = cdiv(m, DX_TILE)
+    col = {'dh': cdiv(hidden, DX_TILE), 'dy': cdiv(dim, DX_TILE)}
+    scratch, at = {}, 0
+    for name, nbytes in (('gq', m * dim), ('gs', 4 * m),
+                         ('amax', 4 * m * col['dh']), ('dhs', 4 * m),
+                         ('dhq', m * hidden)):
+        scratch[name] = (at, nbytes)
+        at += cdiv(nbytes, 256) * 256
+    smem = (2 * DX_RING * 2 * DX_TILE * DX_STAGE   # two teams' rings
+            + 2 * DX_TILE * DX_TILE * 2            # their staging tiles
+            + (4 * DX_RING + 6) * 8 + 1024)        # mbarriers, alignment
+    return dict(row_tiles=row_tiles, col_tiles=col,
+                units={'absmax': row_tiles * col['dh'],
+                       'codes': row_tiles * col['dh'],
+                       'dy': row_tiles * col['dy']},
+                stages={'dh': cdiv(dim, DX_STAGE),
+                        'dy': cdiv(hidden, DX_STAGE_DY)},
+                parts=col['dh'], smem=smem, scratch=scratch, workspace=at)
+
+
+def _int8_dx_into(g, hpre, w1t_q, s1t, w2t_q, s2t, dy2, dh):
+    """K14's five launches on checked operands, writing ``dy2 [M, D]`` and
+    ``dh [M, F]`` (or the first M rows of longer buffers)."""
+    m, d = g.shape
+    f = hpre.shape[1]
+    dev = g.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    # the per-IN-row codes [F, D] and [D, F], k-contiguous: no copy when
+    # they come from _dx_quantized
+    w2c, w1c = w2t_q.t().contiguous(), w1t_q.t().contiguous()
+    ws = torch.empty(int8_dx_plan(m, d, f)['workspace'], dtype=torch.uint8,
+                     device=dev)
+    # every buffer is held by a name until the launches are queued
+    args = [g, hpre, w2c, vec(s2t, f), w1c, vec(s1t, d), dy2, dh, ws]
+    with torch.cuda.device(dev):
+        err = _ff_lib('sav_int8_ff_dx')(*[t.data_ptr() for t in args], m, d,
+                                        f, fa.stream_of(dev))
+    _build.check(err, 'int8_ff_dx_raw')
+
+
 def int8_ff_dx_raw(g, hpre, w1t_q, s1t, w2t_q, s2t):
     """Port of K14: the dx path of the FF backward, both products int8.
 
     g ``[M, D]`` output cotangent; hpre ``[M, F]`` the forward's stored
     pre-activation; w2t_q ``[D, F]`` / w1t_q ``[F, D]`` and their scales
     ``[1, F]`` / ``[1, D]`` from ``_dx_quantized``. Returns (dy2 ``[M, D]``
-    in g's dtype, dh ``[M, F]`` bf16). On a CUDA tensor one launch
-    (``csrc/int8_ff.cu``): bf16 g and hpre, D and F multiples of 64, any M
-    (the ragged last band is masked in the kernel; nothing is padded or
-    copied). On a CPU tensor: the twin."""
+    in g's dtype, dh ``[M, F]`` bf16). On a CUDA tensor five launches
+    (``csrc/int8_ff.cu``, ``csrc/int8_dx_sm90.cuh``): g's codes; a
+    persistent s8 ``wgmma`` + TMA GEMM with the gelu' epilogue writing dh
+    and each row's absmax partials; dh's row scales; the same product and
+    epilogue again for dh's codes; the same GEMM for dy. bf16 g and hpre, D
+    and F multiples of 64, any M (rows past M are neither read nor stored;
+    nothing is padded or copied). On a CPU tensor: the twin."""
     if g.device.type == 'cpu':
         return int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
     if g.device.type != 'cuda':
@@ -365,24 +433,10 @@ def int8_ff_dx_raw(g, hpre, w1t_q, s1t, w2t_q, s2t):
         if t.dtype != torch.int8 or tuple(t.shape) != shape:
             raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
-    if m < 1 or d % 64 or f % 64:
-        raise ValueError(f'int8_ff_dx_raw needs M >= 1 and D, F multiples of '
-                         f'64, got M={m}, D={d}, F={f}')
-    if _ff_lib('sav_int8_ff_band')(d, f) == 0:
-        raise ValueError(f'int8_ff_dx_raw: a 16-row band of D={d}, F={f} '
-                         "codes does not fit one block's shared memory")
-    dev = g.device
-    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
-    # the per-IN-row codes [F, D] and [D, F], k-contiguous: no copy when
-    # they come from _dx_quantized
-    w2c, w1c = w2t_q.t().contiguous(), w1t_q.t().contiguous()
+    int8_dx_plan(m, d, f)                       # raises on the geometry
     dy2 = torch.empty_like(g)
-    dh = torch.empty(m, f, dtype=torch.bfloat16, device=dev)
-    args = [g, hpre, w2c, vec(s2t, f), w1c, vec(s1t, d), dy2, dh]
-    with torch.cuda.device(dev):
-        fn = _ff_lib('sav_int8_ff_dx')
-        err = fn(*[t.data_ptr() for t in args], m, d, f, fa.stream_of(dev))
-    _build.check(err, 'int8_ff_dx_raw')
+    dh = torch.empty(m, f, dtype=torch.bfloat16, device=g.device)
+    _int8_dx_into(g, hpre, w1t_q, s1t, w2t_q, s2t, dy2, dh)
     _build.count('int8_ff_dx')
     return dy2, dh
 

@@ -43,6 +43,86 @@ def _smem(which: str, l: int, k: int) -> int:
     return fn(l, k)
 
 
+BWD_BAND = 64           # channels of a K8b work unit (csrc BWD_BAND, BAND)
+MAX_CHUNKS = 64         # image chunks of K8b's dW GEMMs (csrc MAX_CHUNKS)
+# the Hopper band kernel's widths (csrc/mixer_bwd_sm90.cuh): route ->
+# (tokens LN, hidden KP); route 0 is the mma.sync band kernel. Its
+# LN pass holds up to SM90_MAX_D channels of a row.
+SM90_WIDTHS = {2: (200, 112), 1: (56, 32)}
+SM90_MAX_D = 1024
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _band_bwd_smem(l: int, k: int) -> int:
+    """``bwd_smem`` of ``csrc/mixer_token.cu``: the mma.sync band block
+    (W1, W2 padded, the y/do union or f32 dy, f32 hp, bf16 dhp, b1, row
+    statistics, the band's LN scale)."""
+    lp, kp = _up(l, 16), _up(k, 16)
+    union = max(2 * lp * (BWD_BAND + 8) * 2, lp * (BWD_BAND + 4) * 4)
+    return ((lp * (kp + 8) + kp * (lp + 8)) * 2 + union
+            + kp * (BWD_BAND + 4) * 4 + kp * (BWD_BAND + 8) * 2
+            + (kp + 2 * lp + BWD_BAND) * 4)
+
+
+def _sm90_smem(ln: int, kp: int) -> int:
+    """``Geo<LN, KP>::SMEM`` of ``csrc/mixer_bwd_sm90.cuh``: W1 and W2 as
+    KP rows x LP tokens in 64-token chunks, two warpgroups' x and do tiles
+    (LP x 128 bytes), their row statistics and band parameters, b1, four
+    mbarriers, 1024 bytes of alignment slack."""
+    lp = _up(ln, 16)
+    nch = -(-lp // 64)
+    return (2 * nch * kp * 128 + 4 * lp * 128 + 2 * 2 * lp * 4
+            + 2 * 2 * BWD_BAND * 4 + kp * 4 + 4 * 8 + 1024)
+
+
+def mixer_bwd_plan(batch: int, l: int, k: int, d: int, sms: int = 132) -> dict:
+    """Launch plan of K8b on ``sms`` SMs, mirrored from ``sav_mixer_bwd_plan``
+    in ``csrc/mixer_token.cu``: ``route`` (2 and 1: the Hopper band kernel
+    at ``widths`` (LN, KP) = (200, 112) and (56, 32), with the LN row
+    pass; 0: the ``mma.sync`` band kernel and finish pass, past those
+    widths or past 1024 channels), ``units`` ((image,
+    64-channel band) pairs), ``ctas`` (blocks of the band work; route 0 one
+    a unit), ``units_per_wg`` (units of the busiest warpgroup), ``smem``
+    (the band kernel's dynamic shared memory), ``chunks`` and
+    ``per_chunk`` (the dW GEMMs' image chunks), ``scratch`` (name ->
+    (offset, bytes) in the workspace, each at a 256-byte offset) and
+    ``workspace`` (its bytes). Raises ValueError where ``sav_mixer_bwd``
+    refuses the geometry (the shared memory of the K8a block and of the
+    ``mma.sync`` K8b block is held by ``supported`` on the card)."""
+    if batch < 1 or l < 1 or k < 1 or d % FWD_BAND:
+        raise ValueError(f'token_mix_bwd needs B, L, K >= 1 and D a multiple '
+                         f'of {FWD_BAND}, got B={batch}, L={l}, K={k}, D={d}')
+    bands = d // BWD_BAND
+    route = (0 if d > SM90_MAX_D else 1 if l <= 56 and k <= 32
+             else 2 if l <= 200 and k <= 112 else 0)
+    units = batch * bands
+    if route:
+        ctas = min(-(-units // 2), max(sms, 1)) if sms > 0 else -(-units // 2)
+        per_wg = -(-units // (2 * ctas))
+        smem = _sm90_smem(*SM90_WIDTHS[route])
+    else:
+        ctas, per_wg, smem = units, 1, _band_bwd_smem(l, k)
+    per_chunk = -(-batch // MAX_CHUNKS)
+    chunks = -(-batch // per_chunk)
+    bl, bk = batch * l, batch * k
+    scratch, at = {}, 0
+    for name, nbytes in (('stats', bl * 2 * 4), ('y', bl * d * 2),
+                         ('gact', bk * d * 2), ('dh', bk * d * 2),
+                         ('dy', bl * d * 4), ('rows', bl * bands * 2 * 4),
+                         ('db1', bk * bands * 4 * 4), ('db2', bl * bands * 4),
+                         ('dls', batch * d * 4), ('dlb', batch * d * 4),
+                         ('w1', chunks * l * k * 4), ('w2', chunks * k * l * 4)):
+        scratch[name] = (at, nbytes)
+        at += _up(nbytes, 256)
+    return dict(route=route, widths=SM90_WIDTHS.get(route, (0, 0)),
+                units=units, ctas=ctas, units_per_wg=per_wg, smem=smem,
+                chunks=chunks, per_chunk=per_chunk, scratch=scratch,
+                workspace=at)
+
+
 def _refusal(l: int, k: int, d: int, device) -> str | None:
     """Why the K8 port does not take tokens ``l``, token hidden ``k`` and
     channels ``d`` on ``device``, or None where it does."""
@@ -147,6 +227,9 @@ def token_mix_reference(x, ln_scale, ln_bias, w1, b1, w2, b2):
 # ------------------------------------------------------ kernel wrappers
 
 def _fn(name, pointers, ints, floats=0, restype=ctypes.c_int):
+    """The C entry ``name`` of ``csrc/mixer_token.cu`` with its argument
+    types: ``pointers`` pointers, ``ints`` ints, ``floats`` floats, then a
+    stream for a launching entry (``restype`` int)."""
     fn = getattr(_build.library('mixer_token'), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
@@ -209,12 +292,14 @@ def token_mix_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=LN_EPS):
 def token_mix_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, g, eps=LN_EPS):
     """Port of K8b: (dx, dls, dlb, dw1, db1, dw2, db2) of ``token_mix_fwd``
     from x and the cotangent g, recomputing the forward. On the card
-    (``csrc/mixer_token.cu``): row statistics; one block per (64-channel
-    band, image) for the band-local work (hp, dgact, dhp, dy, the band's
-    LN row sums and per-image dscale/dbias); a warp per row for dx; the
-    dW1/dW2 GEMMs over image chunks; every partial summed in a fixed
-    order. No float atomics: the gradients are the same on every run. bf16
-    only; gradients f32."""
+    (``csrc/mixer_token.cu``): row statistics; the band-local work (hp,
+    dgact, dhp, dy, the band's LN row sums and per-image dscale/dbias) for
+    every (image, 64-channel band) unit, on the persistent ``wgmma`` + TMA
+    kernel of ``csrc/mixer_bwd_sm90.cuh`` up to 200 tokens and 112 hidden
+    units (``mixer_bwd_plan``'s route; past them an ``mma.sync`` block per
+    unit); a warp per row for dx; the dW1/dW2 GEMMs over image chunks;
+    every partial summed in a fixed order. No float atomics: the gradients
+    are the same on every run. bf16 only; gradients f32."""
     if x.device.type == 'cpu':
         return token_mix_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, g, eps)
     if x.device.type != 'cuda':
@@ -231,9 +316,8 @@ def token_mix_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, g, eps=LN_EPS):
     dls, dlb = torch.empty(d, **f32), torch.empty(d, **f32)
     dw1, db1 = torch.empty(l, k, **f32), torch.empty(k, **f32)
     dw2, db2 = torch.empty(k, l, **f32), torch.empty(l, **f32)
-    ws_bytes = _fn('sav_mixer_bwd_workspace', 0, 4,
-                   restype=ctypes.c_longlong)(b, l, k, d)
-    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    ws = torch.empty(mixer_bwd_plan(b, l, k, d)['workspace'],
+                     dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = _fn('sav_mixer_bwd', 15, 4, 1)(
             x.data_ptr(), g.data_ptr(), ls.data_ptr(), lb.data_ptr(),

@@ -9,8 +9,15 @@ with parts taken out, through the same C entries, on one card.
                                            # CaiT-S/24 @384 bs48 and bs32
     python scripts/torch_ablate.py k16     # csrc/ff_bwd_sm90.cuh (K16),
                                            # ViT-B/16 @224 bs192's rows
+    python scripts/torch_ablate.py k8b     # csrc/mixer_bwd_sm90.cuh (K8b),
+                                           # Mixer-B/16 bs192
+    python scripts/torch_ablate.py k14     # csrc/int8_dx_sm90.cuh (K14),
+                                           # ViT-B/16 bs192's and CaiT-S/24
+                                           # bs128's FF rows
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py th_fwd_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k8b_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k14_mma --csrc OLD/sav_tpu_torch/csrc
 
 Each variant of the kernel's table (``KERNELS``) is the source with the
 headers it names (the shared pieces, the exp among them) inlined and its
@@ -47,6 +54,17 @@ K16's (``k16``, and ``k16_mma`` for the older five launches): full;
 no_epi, dgact stored as bf16 with no gelu', no h and no column sums;
 no_dw, the weight-gradient products and their sum not launched (``k16``
 also no_tanh, the gelu's tanh replaced by a multiply).
+K8b's (``k8b``): full; no_y, no_gact, no_dy (the band kernel stores no y,
+no gact and bf16(dhp), no f32 dy); no_ln (the LN row pass not launched);
+no_dw (the dW GEMM and its sums not launched). The older ``mma.sync`` K8b's
+(``k8b_mma``): full; no_wload (the band blocks' W1/W2 loads skipped),
+no_sums (their db2, db1, row-sum and dscale/dbias loops skipped), no_dw.
+K14's (``k14``): full; no_epi (the dh passes' elementwise work skipped),
+no_tanh, no_quant (the codes by a cast), no_hload, no_store (the staging
+tiles neither loaded nor stored), no_turn (the teams multiply at once).
+The older 48-row-band K14's (``k14_mma``): full; no_sweep1 (one pass of
+the first product, its row scale fixed), w_once (each warp's weight
+fragments loaded once), no_hpre (a constant for hpre).
 The outputs of the ablated variants are wrong by design; only their times
 mean something. Each launch of the full variant is also timed on its own
 (torch.profiler). Every variant is timed twice, the variants in order and
@@ -223,6 +241,95 @@ def _th_chain_bwd(t, b, seq, heads):
             f'{plain:.4f} ms at B={b} L={seq} H={heads}')
 
 
+def _k8b_inputs(b, l, k, d):
+    """The token-mixing backward's operands at Mixer-B/16 bs192 (x, the
+    cotangent g, the LN and FF parameters as the kernels read them) and
+    the outputs and workspace of its C entry."""
+    from sav_tpu_torch.ops import mixer_token as mt
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: (torch.randn(*s, device='cuda', generator=gen)
+                              * std).bfloat16()
+    f32 = lambda *s: torch.empty(*s, device='cuda')
+    ws = mt._fn('sav_mixer_bwd_workspace', 0, 4,
+                restype=ctypes.c_longlong)(b, l, k, d)
+    return dict(x=mk(b, l, d), g=mk(b, l, d),
+                ls=(1 + 0.1 * mk(d)).float(), lb=(0.1 * mk(d)).float(),
+                w1=mk(l, k, std=l ** -0.5), b1=(0.1 * mk(k)).float(),
+                w2=mk(k, l, std=k ** -0.5), b2=(0.1 * mk(l)).float(),
+                dx=mk(b, l, d), dls=f32(d), dlb=f32(d), dw1=f32(l, k),
+                db1=f32(k), dw2=f32(k, l), db2=f32(l),
+                ws=torch.empty(ws, dtype=torch.uint8, device='cuda'))
+
+
+def _k8b_library(t, b, l, k, d):
+    """The per-op bf16 chain's autograd backward on the same inputs (timed
+    only), as chip_smoke.py's K8b yardstick."""
+    leaves = [t[n].detach().requires_grad_()
+              for n in ('x', 'ls', 'lb', 'w1', 'b1', 'w2', 'b2')]
+
+    def fwd():
+        x, ls, lb, w1, b1, w2, b2 = leaves
+        y = F.layer_norm(x, (d,), ls.bfloat16(), lb.bfloat16(), 1e-6)
+        h = F.gelu(y.transpose(1, 2) @ w1 + b1.bfloat16(), approximate='tanh')
+        return x + (h @ w2 + b2.bfloat16()).transpose(1, 2)
+
+    both = time_ms(lambda: torch.autograd.grad(fwd(), leaves, t['g']))
+    return (f'per-op chain backward {both - time_ms(fwd):.4f} ms at B={b} '
+            f'L={l} K={k} D={d}')
+
+
+def _k14_inputs(m, dim, hidden):
+    """K14's operands (g at the SwitchBack scale, hpre, the weights' codes
+    per IN row with their scales, as int8_ff._dx_quantized makes them) and
+    its outputs."""
+    from sav_tpu_torch.ops import int8_ff
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    w1t_q, s1t = int8_ff._dx_quantized(mk(dim, hidden, std=dim ** -0.5))
+    w2t_q, s2t = int8_ff._dx_quantized(mk(hidden, dim, std=hidden ** -0.5))
+    return dict(g=mk(m, dim, std=0.02).bfloat16(), hpre=mk(m, hidden).bfloat16(),
+                w2c=w2t_q.t().contiguous(), s2=s2t.reshape(-1).contiguous(),
+                w1c=w1t_q.t().contiguous(), s1=s1t.reshape(-1).contiguous(),
+                w1t_q=w1t_q, s1t=s1t, w2t_q=w2t_q, s2t=s2t,
+                dy=torch.empty(m, dim, device='cuda', dtype=torch.bfloat16),
+                dh=torch.empty(m, hidden, device='cuda', dtype=torch.bfloat16))
+
+
+def _k14_library(t, m, dim, hidden):
+    """The int8 chain of torch codes and ``torch._int_mm`` (timed only), as
+    chip_smoke.py's K14 yardstick."""
+    from sav_tpu_torch.ops import int8_matmul_kernel as k15
+    w1c, w2c = t['w1t_q'].contiguous(), t['w2t_q'].contiguous()
+
+    def chain():
+        q, s = k15._quantize_tile(t['g'])
+        dgact = torch._int_mm(q, w2c).float() * (s * t['s2t'])
+        dh = torch.ops.aten.gelu_backward(dgact, t['hpre'].float(),
+                                          approximate='tanh')
+        hq, hs = k15._quantize_tile(dh)
+        return (torch._int_mm(hq, w1c).float() * (hs * t['s1t'])).bfloat16()
+
+    return f'int8 torch chain {time_ms(chain):.4f} ms at M={m} D={dim} F={hidden}'
+
+
+def _k8b_sm90_inputs(b, l, k, d):
+    """``_k8b_inputs`` with the workspace sized by ``mixer_bwd_plan``."""
+    from sav_tpu_torch.ops import mixer_token as mt
+    t = _k8b_inputs(b, l, k, d)
+    t['ws'] = torch.empty(mt.mixer_bwd_plan(b, l, k, d)['workspace'],
+                          dtype=torch.uint8, device='cuda')
+    return t
+
+
+def _k14_sm90_inputs(m, dim, hidden):
+    """``_k14_inputs`` and the workspace of ``int8_dx_plan``."""
+    from sav_tpu_torch.ops import int8_ff
+    t = _k14_inputs(m, dim, hidden)
+    t['ws'] = torch.empty(int8_ff.int8_dx_plan(m, dim, hidden)['workspace'],
+                          dtype=torch.uint8, device='cuda')
+    return t
+
+
 KERNELS = {
     'k2': dict(
         source='flash_bwd.cu', inline='flash_sm90.cuh',
@@ -390,6 +497,159 @@ KERNELS = {
                 ('s[j] = sS[(j * BQ + r) * sld + c];',
                  's[j] = __int_as_float(0x3f000000 + j + c);')],
         }),
+    # the Hopper K8b (csrc/mixer_bwd_sm90.cuh) and K14 (csrc/int8_dx_sm90.cuh)
+    'k8b': dict(
+        source='mixer_token.cu', inline='mixer_bwd_sm90.cuh',
+        shapes=[(192, 196, 98, 768)], inputs=_k8b_sm90_inputs,
+        label='B={} L={} K={} D={}',
+        entries={'sav_mixer_bwd': ('x', 'g', 'ls', 'lb', 'w1', 'b1', 'w2',
+                                   'dx', 'dls', 'dlb', 'dw1', 'db1', 'dw2',
+                                   'db2', 'ws')},
+        dims=lambda b, l, k, d, t: (b, l, k, d, 1e-6),
+        others=[_k8b_library],
+        variants={
+            'full': [],
+            # the band kernel stores no y (for the dW1 GEMM)
+            'no_y': [('        *reinterpret_cast<uint4*>(a.y + img',
+                      '        if (v.x == 0x12345u) '
+                      '*reinterpret_cast<uint4*>(a.y + img')],
+            # no gact and bf16(dhp) stores (for the dW GEMMs)
+            'no_gact': [('          if (kc < k) {\n            const size_t '
+                         'off', '          if (kc < 0) {\n            const '
+                         'size_t off')],
+            # no f32 dy store (for the LN pass)
+            'no_dy': [('          a.dy[img + (size_t)lc * d + c0 + c] = v;',
+                       '          if (v == 1234.5f) a.dy[img + (size_t)lc * d + '
+                       'c0 + c] = v;')],
+            # the LN pass not launched
+            'no_ln': [('    if (err == cudaSuccess)\n      err = sav::mixb::'
+                       'ln_bwd(', '    if (err == cudaSuccess && l < 0)\n'
+                       '      err = sav::mixb::ln_bwd(')],
+            # the dW GEMM and its sums not launched
+            'no_dw': [('    if ((err = sav::mixb::dw_launch(o.y, o.dh, (const '
+                       'bf16*)dout, o.gact, da,\n                                 '
+                       '   st)) != cudaSuccess)\n      return (int)err;\n', ''),
+                      ('  if ((err = ff::sum_launch(pw1, lay.chunks, lk, l * k, '
+                       'dw1, st)) != cudaSuccess ||\n      (err = ff::sum_launch('
+                       'pw2, lay.chunks, lk, l * k, dw2, st)) != cudaSuccess ||\n'
+                       '      (err = mb::sum_columns_launch(',
+                       '  if ((err = mb::sum_columns_launch(')],
+        }),
+    'k14': dict(
+        source='int8_ff.cu', inline='int8_dx_sm90.cuh',
+        shapes=[(192 * 197, 768, 3072), (128 * 196, 384, 1536)],
+        inputs=_k14_sm90_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff_dx': ('g', 'hpre', 'w2c', 's2', 'w1c', 's1',
+                                    'dy', 'dh', 'ws')},
+        dims=lambda m, dim, hidden, t: (m, dim, hidden),
+        others=[_k14_library],
+        variants={
+            'full': [],
+            # the dh passes' elementwise work skipped (the staging tile's
+            # loads and stores kept)
+            'no_epi': [('      for (int i = 0; i < 16; ++i) {\n        const int '
+                        'c = 8 * i + 2 * t;',
+                        '      for (int i = 0; i < (args.m < 0 ? 16 : 0); ++i) '
+                        '{\n        const int c = 8 * i + 2 * t;')],
+            # gelu'(hpre)'s tanh replaced by a multiply
+            'no_tanh': [('  const float i = tanhf(__fmul_rn(0.7978845608028654f,',
+                         '  const float i = 0.5f * (__fmul_rn('
+                         '0.7978845608028654f,')],
+            # the teams multiply at once (no turns)
+            'no_turn': [('    if (STAGED) wait(&turn[team], team == 0 ? (j & 1) '
+                         '^ 1 : j & 1);', ''),
+                        ('      if (STAGED) mbar_arrive(&turn[team ^ 1]);', '')],
+            # no hpre tile loads (the staging tile's stale contents are used)
+            'no_hload': [('    mbar_arrive_expect_tx(stg_full, STG_BYTES);\n'
+                          '    tma_load_3d(stg, pmh, stg_full, col0, row0, 0);\n'
+                          '    tma_load_3d(stg + BM * 128, pmh, stg_full, col0 + '
+                          '64, row0, 0);', '    mbar_arrive(stg_full);')],
+            # no staging tile stores
+            'no_store': [('        tma_store_3d(&mo, stg, col0, row0, 0);\n'
+                          '        if (MODE == ABSMAX)\n'
+                          '          tma_store_3d(&mo, stg + BM * 128, col0 + '
+                          '64, row0, 0);\n', '')],
+            # dh's codes without the quantiser (a float to int cast)
+            'no_quant': [('  const float q = __fmul_rn(v, inv);\n'
+                          '  const float r = rintf(q);\n'
+                          '  if (fabsf(fabsf(__fsub_rn(q, r)) - 0.5f) < 1e-4f) '
+                          'return quantize(v, scale);\n'
+                          '  return (int)fminf(fmaxf(r, -127.f), 127.f);',
+                          '  return (int)v;')],
+        }),
+    # the mma.sync K8b (11 launches) and K14 (48-row bands) of an older
+    # checkout, with --csrc on its csrc/
+    'k8b_mma': dict(
+        source='mixer_token.cu', inline='ff_common.cuh',
+        shapes=[(192, 196, 98, 768)], inputs=_k8b_inputs,
+        label='B={} L={} K={} D={}',
+        entries={'sav_mixer_bwd': ('x', 'g', 'ls', 'lb', 'w1', 'b1', 'w2',
+                                   'dx', 'dls', 'dlb', 'dw1', 'db1', 'dw2',
+                                   'db2', 'ws')},
+        dims=lambda b, l, k, d, t: (b, l, k, d, 1e-6),
+        others=[_k8b_library],
+        variants={
+            'full': [],
+            # the band blocks' W1/W2 loads skipped (garbage weights)
+            'no_wload': [('  load_weights(w1, w2, sW1, sW2, l, k);\n'
+                          '  for (int i = threadIdx.x; i < kp; i += '
+                          'blockDim.x) sB1[i] = i < k ? b1[i] : 0.f;\n'
+                          '  for (int i = threadIdx.x; i < NB;',
+                          '  for (int i = threadIdx.x; i < kp; i += '
+                          'blockDim.x) sB1[i] = i < k ? b1[i] : 0.f;\n'
+                          '  for (int i = threadIdx.x; i < NB;')],
+            # the db2, db1, LN row-sum and dscale/dbias loops skipped
+            'no_sums': [(f'{decl}\n  for (', f'{decl}\n  if (false) for (')
+                        for decl in (
+                '  float* db2 = o.db2 + ((size_t)b * bands + band) * l;',
+                '  float* db1 = o.db1 + ((size_t)b * bands + band) * k;',
+                '  float* rows = o.rows + ((size_t)b * bands + band) * l * 2;',
+                '  // per channel of the band: this image\'s dscale and dbias')],
+            # the two dW GEMMs and their sums not launched
+            'no_dw': [('  if ((err = ff::gemm_launch<false, true, ff::kF32>'
+                       '(g, lay.chunks, st))\n      != cudaSuccess)\n'
+                       '    return (int)err;\n', ''),
+                      ('(err = ff::sum_launch(pw1, lay.chunks, lk, l * k, '
+                       'dw1, st)) != cudaSuccess ||\n      (err = '
+                       'ff::sum_launch(pw2, lay.chunks, lk, l * k, dw2, st)) '
+                       '!= cudaSuccess ||\n      ', '')],
+        }),
+    'k14_mma': dict(
+        source='int8_ff.cu', inline='int8_gemm.cuh',
+        shapes=[(192 * 197, 768, 3072), (128 * 196, 384, 1536)],
+        inputs=_k14_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff_dx': ('g', 'hpre', 'w2c', 's2', 'w1c', 's1',
+                                    'dy', 'dh')},
+        dims=lambda m, dim, hidden, t: (m, dim, hidden),
+        others=[_k14_library],
+        variants={
+            'full': [],
+            # sweep 1 not run (each row's dh scale fixed); sweep 2 writes dh
+            'no_sweep1': [
+                ('  band_gemm<MT, 4>(gq, ldg, p.w2c, F, D,\n'
+                 '                   [&](int mi, int half, int r, int col, '
+                 'int v0, int v1) {\n    const float2 d = dh_of(r, col, v0, '
+                 'v1);\n    const int row = m0 + r;',
+                 '  if (false) band_gemm<MT, 4>(gq, ldg, p.w2c, F, D,\n'
+                 '                   [&](int mi, int half, int r, int col, '
+                 'int v0, int v1) {\n    const float2 d = dh_of(r, col, v0, '
+                 'v1);\n    const int row = m0 + r;'),
+                ('    const float2 d = dh_of(r, col, v0, v1);\n'
+                 '    *reinterpret_cast<char2*>(hq + r * ldh + col) =',
+                 '    const float2 d = dh_of(r, col, v0, v1);\n'
+                 '    if (m0 + r < p.M)\n'
+                 '      *reinterpret_cast<uint32_t*>(p.dh + (size_t)(m0 + r) '
+                 '* F + col) = pack_bf16(d.x, d.y);\n'
+                 '    *reinterpret_cast<char2*>(hq + r * ldh + col) =')],
+            # each warp's weight fragments loaded once, reused every step
+            'w_once': [('        nb[j] = more ? __ldg(reinterpret_cast<const '
+                        'uint4*>(brow[j] + k0 + 64))\n                     : '
+                        'b[j];', '        nb[j] = b[j];')],
+            # hpre not read: a constant instead
+            'no_hpre': [('      h = __bfloat1622float2(*reinterpret_cast<const '
+                         '__nv_bfloat162*>(\n          p.hpre + (size_t)row * '
+                         'F + col));', '      h = make_float2(0.5f, -0.25f);')],
+        }),
 }
 
 
@@ -423,7 +683,9 @@ def launches(kernel: str, lib, t: dict, shape) -> list:
     for entry, names in spec['entries'].items():
         fn = getattr(lib, entry)
         fn.argtypes = ([ctypes.c_void_p] * len(names)
-                       + [ctypes.c_int] * len(dims) + [ctypes.c_void_p])
+                       + [ctypes.c_float if isinstance(v, float)
+                          else ctypes.c_int for v in dims]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         runs.append(lambda fn=fn, names=names: fn(
             *[t[n].data_ptr() for n in names], *dims, stream()))

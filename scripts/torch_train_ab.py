@@ -23,8 +23,9 @@ ViT-B/16's serving and ``fused_ff`` training shapes, K2 at the @224
 training shape and at 200 rows over 190 keys, the talking-heads backward
 at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
 CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576), K5a at
-B=32 L=196, K16 at ViT-B/16 @224 bs192's 37,824 rows and K8b at Mixer-B/16
-bs192 (K5a and K8b as controls), each with this checkout's
+B=32 L=196, K8b at Mixer-B/16 bs192, K14 at ViT-B/16 @224 bs192's and
+CaiT-S/24 @224 bs128's FF rows, and as controls K5a, K16 (37,824 rows),
+K8a's training launch, K12 and K13 with save_hpre, each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -35,6 +36,10 @@ uses, handed to every run as source).
     python scripts/torch_train_ab.py PARENT_DIR . --serve --img 384 \\
         --batch 32 --use_kernel fused_layer
     python scripts/torch_train_ab.py PARENT_DIR . --kernels
+    python scripts/torch_train_ab.py PARENT_DIR . --model mixer_b_patch16 \\
+        --img 224 --batch 192
+    python scripts/torch_train_ab.py PARENT_DIR . --img 224 --batch 192 \\
+        --quantized ff_sb
     python scripts/torch_train_ab.py PARENT_DIR . --model cait_s_24 \\
         --img 384 --batch 48
 
@@ -124,22 +129,52 @@ if args['kernels']:
     m = mixes()
     out['K5a (control) B=32 L=196'] = time_ms(lambda: th.th_attention_fwd(
         x, ones, zeros, *w, wo, *m, heads))
-    # the FF backward (K16) at ViT-B/16 @224 bs192's rows, and K8b (a
-    # control: its GEMMs are ff_common.cuh's, which K16 no longer runs) at
-    # Mixer-B/16 bs192
+    # the kernels under test: K8b at Mixer-B/16 bs192 and K14 at ViT-B/16
+    # @224 bs192's and CaiT-S/24 @224 bs128's FF rows; the controls, whose
+    # code neither changes: K16 (ViT-B/16 @224 bs192's rows), K8a's
+    # training launch (Mixer-B/16 bs192), K12 and K13 with save_hpre (Mixer
+    # 'ff' and ViT 'ff' bs192's rows)
+    from sav_tpu_torch.ops import int8_ff
+    from sav_tpu_torch.ops import mixer_token as mt
     mrows, d, f = 192 * 197, 768, 3072
     args16 = (bf16((mrows, d)), bf16((mrows, f)), bf16((mrows, d)),
               bf16((d, f), 1 / math.sqrt(d)), bf16((f, d), 1 / math.sqrt(f)))
-    out[f'K16 M={{mrows}}'] = time_ms(lambda: fused_layer.ff_bwd(*args16))
+    out[f'K16 (control) M={{mrows}}'] = time_ms(
+        lambda: fused_layer.ff_bwd(*args16))
     del args16
-    from sav_tpu_torch.ops import mixer_token as mt
     lt, kt = 196, 98
     x8 = bf16((192, lt, d))
     args8 = (x8, (1 + 0.1 * bf16((d,))).float(), (0.1 * bf16((d,))).float(),
              bf16((lt, kt), 1 / math.sqrt(lt)), (0.1 * bf16((kt,))).float(),
-             bf16((kt, lt), 1 / math.sqrt(kt)), (0.1 * bf16((lt,))).float(),
-             bf16((192, lt, d)))
-    out['K8b (control) B=192'] = time_ms(lambda: mt.token_mix_bwd(*args8))
+             bf16((kt, lt), 1 / math.sqrt(kt)), (0.1 * bf16((lt,))).float())
+    g8 = bf16((192, lt, d))
+    out['K8b B=192'] = time_ms(lambda: mt.token_mix_bwd(*args8, g8))
+    out['K8a train (control) B=192'] = time_ms(
+        lambda: mt.token_mix_fwd(*args8))
+    del x8, args8, g8
+    wf = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).cuda()
+    for rows, dd, ff in ((192 * 197, 768, 3072), (128 * 196, 384, 1536)):
+        g14 = bf16((rows, dd), 0.02)
+        h14 = bf16((rows, ff))
+        w14 = (*int8_ff._dx_quantized(wf((dd, ff), 1 / math.sqrt(dd))),
+               *int8_ff._dx_quantized(wf((ff, dd), 1 / math.sqrt(ff))))
+        out[f'K14 M={{rows}} D={{dd}}'] = time_ms(
+            lambda: int8_ff.int8_ff_dx_raw(g14, h14, *w14))
+        del g14, h14
+    for name, rows, raw in (('K12 train (control)', 192 * 196,
+                             int8_ff.int8_ff_raw),
+                            ('K13 train (control)', 192 * 197,
+                             int8_ff.int8_ff_ln_raw)):
+        xq = bf16((rows, d))
+        w1q, s1, w2q, s2 = int8_ff._quantized_weights(
+            wf((d, f), 1 / math.sqrt(d)), wf((f, d), 1 / math.sqrt(f)))
+        b1, b2 = 0.1 * wf((f,), 1), 0.1 * wf((d,), 1)
+        lnp = ((1 + 0.1 * wf((d,), 1), 0.1 * wf((d,), 1))
+               if raw is int8_ff.int8_ff_ln_raw else ())
+        out[f'{{name}} M={{rows}}'] = time_ms(
+            lambda: raw(xq, *lnp, w1q, s1, b1, w2q, s2, b2, save_hpre=True))
+        del xq
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
 if args['serve']:
@@ -239,8 +274,8 @@ def main(argv=None) -> int:
     parser.add_argument('--serve', action='store_true',
                         help='time predict.serve instead of a train step')
     parser.add_argument('--kernels', action='store_true',
-                        help='time the flash, TH and FF-backward kernels '
-                             'instead of a step')
+                        help='time the flash, TH, FF-backward, token-mixing '
+                             'and int8 kernels instead of a step')
     opts = parser.parse_args(argv)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

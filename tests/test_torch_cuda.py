@@ -1254,7 +1254,6 @@ def test_int8_ff_dx_matches_twin(card, m, d, f):
 
 
 def test_int8_ff_dx_writes_no_row_past_m(card):
-    from sav_tpu_torch.ops import flash_attention as fa
     from sav_tpu_torch.ops import int8_ff
     m, d, f = 1003, 768, 3072
     g, hpre, (w1t_q, s1t, w2t_q, s2t) = _k14_case(np.random.RandomState(7), m,
@@ -1263,13 +1262,9 @@ def test_int8_ff_dx_writes_no_row_past_m(card):
                     dtype=torch.bfloat16)
     dh = torch.full((m + 64, f), float('nan'), device=card,
                     dtype=torch.bfloat16)
-    # every buffer is held by a name until the launch has been synchronised
-    bufs = [g, hpre, w2t_q.t().contiguous(), s2t.reshape(-1).contiguous(),
-            w1t_q.t().contiguous(), s1t.reshape(-1).contiguous(), dy, dh]
-    err = int8_ff._ff_lib('sav_int8_ff_dx')(
-        *[t.data_ptr() for t in bufs], m, d, f, fa.stream_of(card))
+    # the C entry into the first M rows (it raises on a failed launch)
+    int8_ff._int8_dx_into(g, hpre, w1t_q, s1t, w2t_q, s2t, dy[:m], dh[:m])
     torch.cuda.synchronize()
-    assert err == 0
     want = int8_ff.int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
     _int8_check(dy[:m], want[0])
     _int8_check(dh[:m], want[1])
@@ -1327,3 +1322,102 @@ def test_int8_ff_dx_refuses(card):
                                w[1][:, :96], w[2][:96], w[3])
     with pytest.raises(RuntimeError, match='forward-only'):
         int8_ff.int8_ff_dx_raw(g.clone().requires_grad_(), hpre, *w)
+
+
+# ---- the Hopper K8b (csrc/mixer_bwd_sm90.cuh) and K14 (csrc/int8_dx_sm90.cuh)
+
+@pytest.mark.parametrize('batch,l,k,d', [(192, 196, 98, 768), (192, 49, 24, 512),
+                                         (5, 13, 6, 128)])
+def test_token_mix_bwd_at_mixer_widths(card, batch, l, k, d):
+    """K8b on its Hopper route at Mixer-B/16 bs192, Mixer-S/32's widths and
+    a small ragged shape: dx within 2e-2, the six others within WGRAD_TOL
+    of max, two calls identical."""
+    from sav_tpu_torch.ops import mixer_token
+    assert mixer_token.mixer_bwd_plan(batch, l, k, d)['route'] != 0
+    rng = np.random.RandomState(batch + l)
+    args = _k8_args(rng, batch, l, k, d, card)
+    g = _bf16(rng, (batch, l, d), 1, card)
+    grads = mixer_token.token_mix_bwd(*args, g)
+    again = mixer_token.token_mix_bwd(*args, g)
+    twin = mixer_token.token_mix_bwd_plain(*args, g)
+    assert _rel(grads[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(grads[1:], twin[1:])) <= WGRAD_TOL
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize('m,d,f', [(37824, 768, 3072), (25088, 384, 1536),
+                                   (1003, 768, 3072), (129, 768, 3072),
+                                   (1, 768, 3072)])
+def test_int8_ff_dx_at_path_widths(card, m, d, f):
+    """K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224 bs128's FF rows and
+    ragged counts: dy2 and dh against the twin, two calls identical."""
+    from sav_tpu_torch.ops import int8_ff
+    g, hpre, w = _k14_case(np.random.RandomState(m), m, d, f, card)
+    got = int8_ff.int8_ff_dx_raw(g, hpre, *w)
+    again = int8_ff.int8_ff_dx_raw(g, hpre, *w)
+    want = int8_ff.int8_ff_dx_reference(g, hpre, *w)
+    _int8_check(got[0], want[0])
+    _int8_check(got[1], want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_k8b_and_k14_repeat_bitwise_over_queued_calls(card):
+    """50 calls of each queued without a synchronize between them (a
+    deadlock in a ring or a staging tile shows as a launch failure) all
+    give the first call's bits."""
+    from sav_tpu_torch.ops import int8_ff, mixer_token
+    rng = np.random.RandomState(9)
+    args = _k8_args(rng, 24, 196, 98, 768, card)
+    g8 = _bf16(rng, (24, 196, 768), 1, card)
+    first8 = mixer_token.token_mix_bwd(*args, g8)
+    g, hpre, w = _k14_case(rng, 4 * 197, 768, 3072, card)
+    first14 = int8_ff.int8_ff_dx_raw(g, hpre, *w)
+    for _ in range(5):
+        outs8 = [mixer_token.token_mix_bwd(*args, g8) for _ in range(10)]
+        outs14 = [int8_ff.int8_ff_dx_raw(g, hpre, *w) for _ in range(10)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for o in outs8 for a, b in zip(o, first8))
+        assert all(torch.equal(a, b) for o in outs14
+                   for a, b in zip(o, first14))
+
+
+def test_mixer_bwd_plan_matches_the_kernel(card):
+    """mixer_bwd_plan mirrors sav_mixer_bwd_plan on this card's SM count,
+    on both routes."""
+    import ctypes
+    from sav_tpu_torch.ops import mixer_token
+    fn = mixer_token._fn('sav_mixer_bwd_plan', 0, 5)
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for b, l, k, d in ((192, 196, 98, 768), (65, 196, 98, 768),
+                       (1, 196, 98, 768), (192, 49, 24, 512),
+                       (5, 13, 6, 128), (2, 208, 16, 128),
+                       (3, 196, 98, 1152)):
+        out = (ctypes.c_longlong * 10)()
+        assert fn(b, l, k, d, sms, out) == 0
+        plan = mixer_token.mixer_bwd_plan(b, l, k, d, sms)
+        assert list(out) == [plan['route'], *plan['widths'], plan['units'],
+                             plan['ctas'], plan['units_per_wg'], plan['smem'],
+                             plan['chunks'], plan['per_chunk'],
+                             plan['workspace']]
+        assert plan['workspace'] == mixer_token._fn(
+            'sav_mixer_bwd_workspace', 0, 4,
+            restype=ctypes.c_longlong)(b, l, k, d)
+
+
+def test_int8_dx_plan_matches_the_kernel(card):
+    """int8_dx_plan mirrors sav_int8_ff_dx_plan."""
+    import ctypes
+    from sav_tpu_torch.ops import int8_ff
+    fn = int8_ff._ff_lib('sav_int8_ff_dx_plan')
+    for m, d, f in ((37824, 768, 3072), (25088, 384, 1536), (1003, 768, 3072),
+                    (1, 768, 3072), (77, 320, 704)):
+        out = (ctypes.c_longlong * 10)()
+        assert fn(m, d, f, out) == 0
+        plan = int8_ff.int8_dx_plan(m, d, f)
+        assert list(out) == [plan['row_tiles'], plan['col_tiles']['dh'],
+                             plan['col_tiles']['dy'], plan['units']['absmax'],
+                             plan['units']['dy'], plan['stages']['dh'],
+                             plan['stages']['dy'], plan['parts'], plan['smem'],
+                             plan['workspace']]
+    assert fn(16, 96, 3072, (ctypes.c_longlong * 10)()) != 0
