@@ -86,11 +86,13 @@
    path as the noise floor, every running statistic finite and moved by
    the timed steps, eval in eval mode) and under 'auto' beside it.
 9. int8 (slice 7): K15 (``csrc/int8_matmul.cu``), K12 and K13 serving and
-   ``save_hpre`` variants (``csrc/int8_ff.cu``) and K10
-   (``csrc/fused_attention_q8.cu``) against their twins at the paths'
-   shapes (K15 M = 6304 K = 768 N = 3072; K12 M = 32 x 196 and 192 x 196;
-   K13 M = 32 x 197 and 192 x 197; K10 B = 32, L = 197), outputs within
-   INT8_TOL and INT8_SHARE bit-identical, timed beside a library chain
+   ``save_hpre`` variants (``csrc/int8_ff.cu``, ``csrc/int8_ff_sm90.cuh``)
+   and K10 (``csrc/fused_attention_q8.cu``) against their twins at the
+   paths' shapes (K15 M = 6304 K = 768 N = 3072; K12 M = 32 x 196 and 192
+   x 196, and save_hpre at CaiT-S/24 bs128's 128 x 196 rows, D = 384, F =
+   1536; K13 M = 32 x 197 and 192 x 197; K10 B = 32, L = 197), outputs
+   within INT8_TOL and INT8_SHARE bit-identical (K12 and K13 also two
+   calls bit-identical), timed beside a library chain
    (LayerNorm, ``torch._int_mm`` per product with the dequant in torch,
    SDPA for K10's core); ragged M and K on NaN-sentinel buffers; serving
    @224 bs32 ViT-B/16 ``quantized='ff'`` (12 K1 + 12 K13 per forward),
@@ -1995,16 +1997,23 @@ def _int8_ff_case(rng, m, d=768, f=3072):
 
 def check_int8_ff(rng, checks, m, ln, save_hpre, d=768, f=3072):
     """K13 (``ln``) or K12 vs its twin at M rows, with or without
-    ``save_hpre``; the library chain: LayerNorm (K13), codes in torch, two
-    ``_int_mm`` with the dequant, bias and gelu in torch (+ x for K13)."""
+    ``save_hpre``, and two calls bit-identical; the library chain:
+    LayerNorm (K13), codes in torch, two ``_int_mm`` with the dequant, bias
+    and gelu in torch (+ x for K13)."""
     x, lnp, w = _int8_ff_case(rng, m, d, f)
     args = (x, *lnp, *w) if ln else (x, *w)
     raw = int8_ff.int8_ff_ln_raw if ln else int8_ff.int8_ff_raw
     twin = int8_ff.int8_ff_ln_reference if ln else int8_ff.int8_ff_reference
     got, want = raw(*args, save_hpre=save_hpre), twin(*args, save_hpre=save_hpre)
+    again = raw(*args, save_hpre=save_hpre)
     torch.cuda.synchronize()
     name = f'K13 int8_ff_ln_raw' if ln else 'K12 int8_ff_raw'
-    name += f' M={m}{" save_hpre" if save_hpre else ""}'
+    name += f' M={m}{"" if d == 768 else f" D={d} F={f}"}'
+    name += " save_hpre" if save_hpre else ""
+    pairs = zip(got, again) if save_hpre else [(got, again)]
+    same = all(torch.equal(a, b) for a, b in pairs)
+    del again
+    checks.expect(same, f'{name}: two calls identical {same}')
     errs = []
     if save_hpre:
         errs.append(_int8_expect(checks, f'{name}: hpre', got[1], want[1]))
@@ -2092,8 +2101,8 @@ def check_k10(rng, checks, batch, seq, dim=768, heads=12):
 
 def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
-    range: K12 and K13 (with hpre) at M = 1003 (not a multiple of the
-    48-row bands), K15 at M = 1003 with a ragged last k-block (K = 700),
+    range: K12 and K13 (with hpre) at M = 1003 (not a multiple of their
+    128-row tiles), K15 at M = 1003 with a ragged last k-block (K = 700),
     K10 at B = 3, L = 197. Rows in range match the twins; rows past them
     keep the sentinel: nothing padded, no row dropped, none written past."""
     stream = fa.stream_of(torch.device('cuda'))
@@ -2103,13 +2112,11 @@ def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     d, f = 768, 3072
     x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _int8_ff_case(rng, m, d, f)
     codes, kept = [], []
-    # every buffer is held by a name until the launch has been synchronised
-    w1t, w2t = w1_q.t().contiguous(), w2_q.t().contiguous()
     for ln in (0, 1):
         out, hpre = nan(m, d), nan(m, f)
-        bufs = [x, ls, lb, w1t, s1, b1, w2t, s2, b2, out, hpre]
-        codes.append(int8_ff._ff_lib('sav_int8_ff')(
-            *map(ptr, bufs), m, d, f, ln, 1e-6, stream))
+        # the C entry into the first M rows (it raises on a failed launch)
+        int8_ff._int8_ff_into(x, (ls, lb) if ln else None, w1_q, s1, b1,
+                              w2_q, s2, b2, 1e-6, out[:m], hpre[:m])
         torch.cuda.synchronize()
         want = (int8_ff.int8_ff_ln_reference(x, ls, lb, w1_q, s1, b1, w2_q,
                                              s2, b2, save_hpre=True) if ln
@@ -2353,13 +2360,15 @@ def main(argv=None):
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
     # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b, K6a, K16,
-    # K8b, K14; their files' mma.sync kernels beside them):
+    # K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel); their files'
+    # mma.sync kernels beside them):
     # each kernel's registers, spills and any wgmma warning (C7510-C7515:
     # serialized)
     for lib, label in (('flash_fwd', 'K4'), ('flash_bwd', 'K2'),
                        ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b'),
                        ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16'),
-                       ('mixer_token', 'K8a/K8b'), ('int8_ff', 'K12-K14')):
+                       ('mixer_token', 'K8a/K8b'),
+                       ('int8_ff', 'K12/K13/K14')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
                                        'wgmma', 'arning')):
@@ -2516,6 +2525,8 @@ def main(argv=None):
                              False, hp) for hp in (False, True)}
     k13 = {hp: check_int8_ff(rng, checks, (192 if hp else args.batch) * 197,
                              True, hp) for hp in (False, True)}
+    # K12 save_hpre at CaiT-S/24 bs128's FF rows ('ff' and 'ff_sb' training)
+    k12_cait = check_int8_ff(rng, checks, 128 * 196, False, True, 384, 1536)
     k10 = check_k10(rng, checks, args.batch, 197)
     check_int8_sentinels(rng, checks)
     q_ff = serve_path(checks, 'ViT-B/16 @224 quantized=ff', 224, 'auto',
@@ -2742,7 +2753,8 @@ def main(argv=None):
                   k9b['dkv']),
         # int8 (slice 7): K15 at ViT-B's first FF product (bs32), its
         # launches from ViT-B 'int8' with QuantizedDense(fused=True); K12 at
-        # Mixer-B bs32 (serve) and bs192 (save_hpre, Mixer 'ff' training);
+        # Mixer-B bs32 (serve) and bs192 (save_hpre, Mixer 'ff' training),
+        # CaiT-S bs128 (save_hpre, CaiT 'ff_sb' training) under cait_*;
         # K13 at ViT-B bs32 (serve) and bs192 (save_hpre, ViT 'ff'
         # training); K10 at ViT-B bs32 (ViT 'all')
         dict(name='int8_matmul', route='cuda',
@@ -2755,7 +2767,14 @@ def main(argv=None):
         dict(name='int8_ff_train', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:49',
-             launches=q_mix_train.get('int8_ff_train', 0), **k12[True]),
+             launches=q_mix_train.get('int8_ff_train', 0),
+             **dict(k12[True], max_abs_err=max(k12[True]['max_abs_err'],
+                                               k12_cait['max_abs_err'])),
+             cait_launches=sb_cait.get('int8_ff_train', 0),
+             cait_ms=k12_cait['ms'], cait_plain_ms=k12_cait['plain_ms'],
+             cait_library_ms=k12_cait['library_ms'],
+             cait_bound_ms=k12_cait['bound_ms'],
+             cait_bound_by=k12_cait['bound_by']),
         dict(name='int8_ff_ln', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:211',

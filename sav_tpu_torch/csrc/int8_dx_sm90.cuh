@@ -1,7 +1,8 @@
 // The K14 port on Hopper (wgmma, TMA, mbarriers; sm90.cuh): the two int8 dx
 // products of the SwitchBack FF backward on one persistent, warp-
 // specialised s8 GEMM with three epilogues (int8_ff.cu says what is
-// computed and in which order each value is rounded).
+// computed and in which order each value is rounded; the pieces it shares
+// with K12 and K13 are in int8_sm90.cuh).
 //
 //  ABSMAX  gq W2q^T over 128 x 128 tiles of [M, F], dequant, gelu'(hpre):
 //          the f32 dh; dh in bf16 (the output) and each (row, tile)'s
@@ -9,8 +10,8 @@
 //  CODES   the same product and epilogue again (int32 sums are exact and
 //          the epilogue is the same instructions: the same f32 dh), now
 //          with each row's scale dhs = row_scale(the max of its partials),
-//          exact and independent of order (dx_scale_kernel, between the
-//          two): dh's codes dhq [M, F] int8.
+//          exact and independent of order (row_scale_kernel, between
+//          the two): dh's codes dhq [M, F] int8.
 //  DY      dhq W1q^T over 128 x 128 tiles of [M, D], dequant, bf16.
 // dh's codes are per row over all F columns of the f32 dh, which does not
 // fit on chip, so the first product runs twice. (Its f32 result through
@@ -44,55 +45,19 @@
 // each), so that one team's epilogue runs under the other's products.
 #pragma once
 
-#include "int8_gemm.cuh"
-#include "sm90.cuh"
+#include "int8_sm90.cuh"
 
 namespace sav {
 namespace q8dx {
 
-using namespace sm90;
+using namespace q8w;
 using q8::dequant;
-using q8::quantize;
-using q8::row_scale;
-
-constexpr int BM = 128, BN = 128;           // a unit's tile
-constexpr int MAX_STAGES = 5;                // ring slots a team, at most
-constexpr int TEAM_WARPS = 8;
-constexpr int THREADS = (2 * TEAM_WARPS + 4) * 32;   // + a producer warpgroup
-// 640 threads start at 96 registers a thread; the producer warpgroup gives
-// back to 24 so that the consumers can take 112, from the block's own
-// registers (4 x 112 + 24 = 472 <= 5 x 96; an increase past them waits
-// forever): without it the epilogues spill.
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 112;
-constexpr uint32_t STG_BYTES = BM * BN * 2;          // bf16 staging tile
 
 enum Mode { ABSMAX = 0, CODES = 1, DY = 2 };
 
-// A mode's ring: ABSMAX and CODES (beside the staging tiles) five slots of
-// 64 codes of depth (64-byte swizzle); DY (no staging) three of 128
-// (128-byte swizzle), fewer waits a product.
+// DY's ring is the deep one (int8_sm90.cuh).
 template <int MODE>
-struct Ring {
-  static constexpr int BK = MODE == DY ? 128 : 64;
-  static constexpr int STAGES = MODE == DY ? 3 : 5;
-  static constexpr uint32_t A_BYTES = BM * BK;
-  static constexpr uint32_t STAGE_BYTES = A_BYTES + BN * BK;
-};
-
-// Shared memory (bytes from a 1024-byte aligned base): two rings, two
-// staging tiles, the mbarriers (full[2][STAGES], empty[2][STAGES], the
-// staging tiles' full[2], the product turns[2], the staging tiles'
-// written[2]). Mirrored by
-// int8_dx_plan in ops/int8_ff.py.
-struct Plan {
-  static constexpr int OFF_STG = 2 * Ring<ABSMAX>::STAGES
-                                 * Ring<ABSMAX>::STAGE_BYTES;
-  static constexpr int OFF_BAR = OFF_STG + 2 * STG_BYTES;
-  static constexpr int SMEM = OFF_BAR + (4 * MAX_STAGES + 6) * 8 + 1024;
-  static_assert(2 * Ring<DY>::STAGES * Ring<DY>::STAGE_BYTES <= OFF_BAR,
-                "DY's rings (no staging tiles) below the mbarriers");
-};
+using Ring = RingOf<MODE == DY>;
 
 struct Args {
   int m, dim, hidden;
@@ -103,15 +68,6 @@ struct Args {
   const float* dhs;     // CODES, DY in [M]
   bf16* dy;             // DY out [M, D]
 };
-
-__host__ __device__ __forceinline__ int col_tiles(int n) {
-  return (n + BN - 1) / BN;
-}
-
-// The absmax partials of a row: one per 128-column tile of F.
-__host__ __device__ __forceinline__ int parts(int hidden) {
-  return col_tiles(hidden);
-}
 
 template <int MODE>
 __host__ __device__ __forceinline__ int out_cols(const Args& a) {
@@ -144,47 +100,6 @@ __device__ __forceinline__ float gelu_vjp(float x, float g) {
   const float l = __fmul_rn(0.5f, __fadd_rn(1.f, i));
   return __fadd_rn(__fadd_rn(__fmul_rn(g, l), s),
                    __fmul_rn(__fmul_rn(0.044715f, s), __fmul_rn(3.f, x2)));
-}
-
-// q8::quantize(v, scale), with inv = __frcp_rn(scale): v * inv rounds to
-// within 3 * 2^-24 |v / scale| (< 2.3e-5 for |v / scale| <= 128, as every
-// code of a row is) of the IEEE quotient, so unless it lies within 1e-4 of
-// a half-integer its rint is the quotient's; there the division decides.
-// The same codes, fewer instructions.
-__device__ __forceinline__ int quantize_by(float v, float scale, float inv) {
-  const float q = __fmul_rn(v, inv);
-  const float r = rintf(q);
-  if (fabsf(fabsf(__fsub_rn(q, r)) - 0.5f) < 1e-4f) return quantize(v, scale);
-  return (int)fminf(fmaxf(r, -127.f), 127.f);
-}
-
-// dh's row scale: row_scale of the max of the row's absmax partials.
-__global__ void __launch_bounds__(256)
-dx_scale_kernel(const float* __restrict__ amax, int nparts,
-                float* __restrict__ dhs, int m) {
-  const int row = blockIdx.x * 256 + threadIdx.x;
-  if (row >= m) return;
-  float v = 0.f;
-  for (int p = 0; p < nparts; ++p) v = fmaxf(v, amax[(size_t)row * nparts + p]);
-  dhs[row] = row_scale(v);
-}
-
-// sm90::mbar_wait, then the warp reconverged (the .aligned instructions
-// after it need the whole warp).
-__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
-  mbar_wait(bar, parity);
-  __syncwarp();
-}
-
-// Byte offset of element (r, c) of the staging tile: bf16 as two boxes of
-// 64 columns (rows of 128 bytes), int8 codes as one box of 128 columns,
-// both with the 128-byte swizzle (16-byte chunk j of row r at j ^ (r % 8)).
-__device__ __forceinline__ int stg_bf16(int r, int c) {
-  return (c >> 6) * (BM * 128) + r * 128
-         + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-__device__ __forceinline__ int stg_code(int r, int c) {
-  return r * 128 + (((c >> 4) ^ (r & 7)) << 4) + (c & 15);
 }
 
 // ma/mb: the A and B maps of the mode's product; mh: hpre's (bf16, boxes of
@@ -406,15 +321,6 @@ dx_gemm_kernel(const __grid_constant__ CUtensorMap ma,
   }
 }
 
-// Blocks: one per SM, or one per pair of units if fewer.
-inline int grid_for(int units) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int pairs = (units + 1) / 2;
-  return pairs < sms || sms <= 0 ? pairs : sms;
-}
-
 template <int MODE>
 cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb,
                    const CUtensorMap& mh, const CUtensorMap& mo,
@@ -428,53 +334,6 @@ cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb,
                          st>>>(ma, mb, mh, mo, args);
   return cudaGetLastError();
 }
-
-// Tensor map of a [rows, width] int8 array for boxes of 128 rows x
-// `box_codes` codes with the swizzle of that width (64: the products'
-// operands, SWIZZLE_64B; 128: the staging tile's codes, SWIZZLE_128B);
-// rows past `rows` and codes past `width` read as zeros. Returns 0 or a
-// cudaError_t.
-inline int codes_map(CUtensorMap* map, const void* base, int rows, int width,
-                     int box_codes) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, 1};
-  const cuuint64_t strides[2] = {(cuuint64_t)width,
-                                 (cuuint64_t)width * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)box_codes, (cuuint32_t)BM, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        box_codes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                        : CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
-
-// The scratch of one call, carved from one workspace in this order: g's
-// codes [M, D] and scales [M], the absmax partials [M, parts(F)], dh's
-// scales [M] and codes [M, F]. Mirrored by int8_dx_plan.
-struct Workspace {
-  size_t gq, gs, amax, dhs, dhq, total;
-  Workspace(int m, int dim, int hidden) {
-    size_t at = 0;
-    auto take = [&](size_t bytes) {
-      const size_t here = at;
-      at += align256(bytes);
-      return here;
-    };
-    gq = take((size_t)m * dim);
-    gs = take((size_t)m * 4);
-    amax = take((size_t)m * parts(hidden) * 4);
-    dhs = take((size_t)m * 4);
-    dhq = take((size_t)m * hidden);
-    total = at;
-  }
-};
 
 }  // namespace q8dx
 }  // namespace sav

@@ -1,4 +1,4 @@
-"""The whole int8 FF forward in one kernel (counterpart of
+"""The whole int8 FF forward on the card's kernels (counterpart of
 ``sav_tpu/ops/int8_ff.py``).
 
 ``int8_ff_raw`` is the port of K12 ``_ff_kernel``: gelu(q(x) W1q (xs s1) +
@@ -6,8 +6,13 @@ b1) quantised per row over all F columns from its f32 values, times W2q
 (hs s2), + b2. ``int8_ff_ln_raw`` is the port of K13 ``_ff_ln_kernel``: x +
 the same FF fed LN(x). With ``save_hpre`` both also return the
 pre-activation in bf16 ``[M, F]`` from the same pass (the training
-variant). On a CUDA tensor each launches ``csrc/int8_ff.cu``; on a CPU
-tensor each runs its plain twin (``int8_ff_reference``,
+variant). On a CUDA tensor each makes six launches of ``csrc/int8_ff.cu``
+(``csrc/int8_ff_sm90.cuh``): the weights' codes transposed to the K-major
+operands 8-bit ``wgmma`` reads; x's codes (LN first for K13); a persistent s8
+``wgmma`` + TMA GEMM with the hpre and gelu epilogue writing each row's
+absmax partials (and bf16 hpre); the rows' scales; the same product and
+epilogue again for the hidden codes; the second product with the b2 (+ x)
+epilogue. On a CPU tensor each runs its plain twin (``int8_ff_reference``,
 ``int8_ff_ln_reference``), which follows the TPU kernel's arithmetic step
 by step. The weights are quantised per column by ``_quantized_weights``
 outside the kernel, per call, as the JAX package quantises them in XLA.
@@ -106,22 +111,100 @@ def int8_ff_ln_reference(x, scale, bias, w1_q, s1, b1, w2_q, s2, b2,
 def _ff_lib(name):
     fn = getattr(_build.library('int8_ff'), name)
     if fn.argtypes is None:
-        if name == 'sav_int8_ff_band':
-            fn.argtypes = [ctypes.c_int] * 2
-        elif name == 'sav_int8_ff_dx':
+        if name == 'sav_int8_ff_dx':
             fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
-        elif name == 'sav_int8_ff_dx_plan':
+        elif name in ('sav_int8_ff_plan', 'sav_int8_ff_dx_plan'):
             fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         else:
-            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+# The int8 GEMMs' tile (K12, K13 and K14: int8_sm90.cuh), the first
+# product's ring slots' depth, the second's, and the slots a team
+DX_TILE, DX_STAGE, DX_STAGE_DY, DX_RING = 128, 64, 128, 5
+
+
+def _q8_plan(m, dim, hidden, what, first, second, scratch):
+    """The launch plan the int8 GEMMs of K12/K13 and K14 share: ``first``
+    names the first product's [M, F] tiles, ``second`` the second's [M, D];
+    ``scratch`` names the workspace's regions in order (the five both
+    have, then K12/K13's two transposed weight codes, [D, F] each)."""
+    if m < 1 or dim < 64 or hidden < 64 or dim % 64 or hidden % 64:
+        raise ValueError(f'{what} needs M >= 1 and D, F multiples of 64, got '
+                         f'M={m}, D={dim}, F={hidden}')
+    cdiv = lambda a, b: -(-a // b)
+    row_tiles = cdiv(m, DX_TILE)
+    col = {first: cdiv(hidden, DX_TILE), second: cdiv(dim, DX_TILE)}
+    regions, at = {}, 0
+    for name, nbytes in zip(scratch, (m * dim, 4 * m, 4 * m * col[first],
+                                      4 * m, m * hidden, dim * hidden,
+                                      dim * hidden)):
+        regions[name] = (at, nbytes)
+        at += cdiv(nbytes, 256) * 256
+    smem = (2 * DX_RING * 2 * DX_TILE * DX_STAGE   # two teams' rings
+            + 2 * DX_TILE * DX_TILE * 2            # their staging tiles
+            + (4 * DX_RING + 6) * 8 + 1024)        # mbarriers, alignment
+    return dict(row_tiles=row_tiles, col_tiles=col,
+                units={'absmax': row_tiles * col[first],
+                       'codes': row_tiles * col[first],
+                       second: row_tiles * col[second]},
+                stages={first: cdiv(dim, DX_STAGE),
+                        second: cdiv(hidden, DX_STAGE_DY)},
+                parts=col[first], smem=smem, scratch=regions, workspace=at)
+
+
+def int8_ff_plan(m: int, dim: int, hidden: int) -> dict:
+    """Launch plan of K12's and K13's kernels, mirrored from
+    ``sav_int8_ff_plan`` in ``csrc/int8_ff.cu`` (``csrc/int8_ff_sm90.cuh``):
+    ``row_tiles`` (128 rows), ``col_tiles`` of the first product's [M, F]
+    (``'hidden'``) and the second's [M, D] (``'out'``, 128 columns each),
+    ``units`` of the three GEMM launches (``absmax`` and ``codes`` over
+    [M, F], ``out``; 128 x 128 tiles), ``out_pairs`` (OUT's blocks take
+    pair units, a row tile's column tiles 2c and 2c + 1 on their two teams,
+    where D / 128 is even), ``stages`` (the ring slots of a contraction:
+    64-deep over D, 128-deep over F), ``parts`` (the absmax partials of a
+    row, one per 128 columns of F), ``smem`` (dynamic shared
+    memory: two teams' rings of five slots of two 8 KB boxes, their 32 KB
+    staging tiles, the mbarriers, alignment slack) and the workspace the
+    C entry carves: ``scratch`` (name -> (offset, bytes): x's codes and
+    scales, the absmax partials, the hidden codes' scales and the codes,
+    W1's and W2's codes transposed, each at a 256-byte offset) and
+    ``workspace`` (their total bytes). Raises ValueError where the kernels
+    do not take the geometry."""
+    plan = _q8_plan(m, dim, hidden, 'int8_ff_raw', 'hidden', 'out',
+                    ('xq', 'xs', 'amax', 'hs', 'hq', 'w1t', 'w2t'))
+    plan['out_pairs'] = plan['col_tiles']['out'] % 2 == 0
+    return plan
+
+
+def _int8_ff_into(x, ln, w1_q, s1, b1, w2_q, s2, b2, eps, out, hpre):
+    """K12's (``ln`` None) or K13's (``ln`` = (scale, bias)) six launches
+    on checked operands, writing ``out [M, D]`` and, unless it is None,
+    ``hpre [M, F]`` (or the first M rows of longer buffers)."""
+    m, d = x.shape
+    f = w1_q.shape[1]
+    dev = x.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    ln_s, ln_b = (None, None) if ln is None else (vec(ln[0], d), vec(ln[1], d))
+    ws = torch.empty(int8_ff_plan(m, d, f)['workspace'], dtype=torch.uint8,
+                     device=dev)
+    # every buffer is held by a name until the launches are queued; the
+    # kernels transpose the weights' codes into the workspace
+    args = [x, ln_s, ln_b, w1_q.contiguous(), vec(s1, f), vec(b1, f),
+            w2_q.contiguous(), vec(s2, d), vec(b2, d), out, hpre, ws]
+    with torch.cuda.device(dev):
+        err = _ff_lib('sav_int8_ff')(
+            *[None if t is None else t.data_ptr() for t in args], m, d, f,
+            int(ln is not None), eps, fa.stream_of(dev))
+    _build.check(err, 'int8_ff_ln_raw' if ln is not None else 'int8_ff_raw')
+
+
 def _launch(x, ln, w1_q, s1, b1, w2_q, s2, b2, eps, save_hpre, what):
-    """Checks and launches the K12/K13 kernel; ``ln`` is (scale, bias) for
+    """Checks and launches the K12/K13 kernels; ``ln`` is (scale, bias) for
     K13 or None for K12."""
     fa.check_no_grad(x)
     fa.check_cuda_bf16('x', x, x.device)
@@ -131,26 +214,11 @@ def _launch(x, ln, w1_q, s1, b1, w2_q, s2, b2, eps, save_hpre, what):
         if t.dtype != torch.int8 or tuple(t.shape) != shape:
             raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
-    if m < 1 or d % 64 or f % 64:
-        raise ValueError(f'{what} needs M >= 1 and D, F multiples of 64, got '
-                         f'M={m}, D={d}, F={f}')
-    if _ff_lib('sav_int8_ff_band')(d, f) == 0:
-        raise ValueError(f'{what}: a 16-row band of D={d}, F={f} codes does '
-                         'not fit one block\'s shared memory')
-    dev = x.device
-    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
-    w1t, w2t = w1_q.t().contiguous(), w2_q.t().contiguous()
-    ln_s, ln_b = (None, None) if ln is None else (vec(ln[0], d), vec(ln[1], d))
+    _q8_plan(m, d, f, what, 'hidden', 'out', ())    # raises on the geometry
     out = torch.empty_like(x)
-    hpre = (torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+    hpre = (torch.empty(m, f, dtype=torch.bfloat16, device=x.device)
             if save_hpre else None)
-    args = [x, ln_s, ln_b, w1t, vec(s1, f), vec(b1, f), w2t, vec(s2, d),
-            vec(b2, d), out, hpre]
-    with torch.cuda.device(dev):
-        err = _ff_lib('sav_int8_ff')(
-            *[None if t is None else t.data_ptr() for t in args], m, d, f,
-            int(ln is not None), eps, fa.stream_of(dev))
-    _build.check(err, what)
+    _int8_ff_into(x, ln, w1_q, s1, b1, w2_q, s2, b2, eps, out, hpre)
     return (out, hpre) if save_hpre else out
 
 
@@ -159,8 +227,9 @@ def int8_ff_raw(x, w1_q, s1, b1, w2_q, s2, b2, *, save_hpre: bool = False):
 
     x [M, D]; w1_q [D, F] int8 with per-column scales s1 [1, F]; w2_q
     [F, D] int8 with s2 [1, D]; biases f32. Returns [M, D] in x.dtype, or
-    (out, hpre bf16 [M, F]) with ``save_hpre``. On a CUDA tensor: one launch
-    (bf16 x, D and F multiples of 64); on a CPU tensor: the twin."""
+    (out, hpre bf16 [M, F]) with ``save_hpre``. On a CUDA tensor: the
+    kernels' six launches (bf16 x, D and F multiples of 64, any M >= 1);
+    on a CPU tensor: the twin."""
     if x.device.type == 'cpu':
         return int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2, save_hpre)
     if x.device.type != 'cuda':
@@ -173,8 +242,8 @@ def int8_ff_raw(x, w1_q, s1, b1, w2_q, s2, b2, *, save_hpre: bool = False):
 
 def int8_ff_ln_raw(x, scale, bias, w1_q, s1, b1, w2_q, s2, b2, *,
                    eps: float = LN_EPS, save_hpre: bool = False):
-    """Port of K13: x + gelu(LN(x) @ deq(w1) + b1) @ deq(w2) + b2 in one
-    launch on a CUDA tensor; the twin on a CPU tensor. As ``int8_ff_raw``,
+    """Port of K13: x + gelu(LN(x) @ deq(w1) + b1) @ deq(w2) + b2 on the
+    kernels on a CUDA tensor; the twin on a CPU tensor. As ``int8_ff_raw``,
     plus the LayerNorm's scale and bias [D]."""
     if x.device.type == 'cpu':
         return int8_ff_ln_reference(x, scale, bias, w1_q, s1, b1, w2_q, s2, b2,
@@ -342,10 +411,6 @@ def int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t):
     return dy2.to(g.dtype), dh.to(torch.bfloat16)
 
 
-# K14's tile, its ring slots' depth (first product; DY's) and their count
-DX_TILE, DX_STAGE, DX_STAGE_DY, DX_RING = 128, 64, 128, 5
-
-
 def int8_dx_plan(m: int, dim: int, hidden: int) -> dict:
     """Launch plan of K14's kernels, mirrored from ``sav_int8_ff_dx_plan``
     in ``csrc/int8_ff.cu`` (``csrc/int8_dx_sm90.cuh``): ``row_tiles`` (128
@@ -361,28 +426,8 @@ def int8_dx_plan(m: int, dim: int, hidden: int) -> dict:
     scales, the absmax partials, dh's scales and codes, each at a 256-byte
     offset) and ``workspace`` (their total bytes). Raises ValueError where
     the kernels do not take the geometry."""
-    if m < 1 or dim < 64 or hidden < 64 or dim % 64 or hidden % 64:
-        raise ValueError(f'int8_ff_dx_raw needs M >= 1 and D, F multiples of '
-                         f'64, got M={m}, D={dim}, F={hidden}')
-    cdiv = lambda a, b: -(-a // b)
-    row_tiles = cdiv(m, DX_TILE)
-    col = {'dh': cdiv(hidden, DX_TILE), 'dy': cdiv(dim, DX_TILE)}
-    scratch, at = {}, 0
-    for name, nbytes in (('gq', m * dim), ('gs', 4 * m),
-                         ('amax', 4 * m * col['dh']), ('dhs', 4 * m),
-                         ('dhq', m * hidden)):
-        scratch[name] = (at, nbytes)
-        at += cdiv(nbytes, 256) * 256
-    smem = (2 * DX_RING * 2 * DX_TILE * DX_STAGE   # two teams' rings
-            + 2 * DX_TILE * DX_TILE * 2            # their staging tiles
-            + (4 * DX_RING + 6) * 8 + 1024)        # mbarriers, alignment
-    return dict(row_tiles=row_tiles, col_tiles=col,
-                units={'absmax': row_tiles * col['dh'],
-                       'codes': row_tiles * col['dh'],
-                       'dy': row_tiles * col['dy']},
-                stages={'dh': cdiv(dim, DX_STAGE),
-                        'dy': cdiv(hidden, DX_STAGE_DY)},
-                parts=col['dh'], smem=smem, scratch=scratch, workspace=at)
+    return _q8_plan(m, dim, hidden, 'int8_ff_dx_raw', 'dh', 'dy',
+                    ('gq', 'gs', 'amax', 'dhs', 'dhq'))
 
 
 def _int8_dx_into(g, hpre, w1t_q, s1t, w2t_q, s2t, dy2, dh):

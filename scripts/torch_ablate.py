@@ -14,10 +14,20 @@ with parts taken out, through the same C entries, on one card.
     python scripts/torch_ablate.py k14     # csrc/int8_dx_sm90.cuh (K14),
                                            # ViT-B/16 bs192's and CaiT-S/24
                                            # bs128's FF rows
+    python scripts/torch_ablate.py k13     # csrc/int8_ff_sm90.cuh (K13 with
+                                           # hpre), ViT-B/16 bs192's rows
+    python scripts/torch_ablate.py k12     # (K12 with hpre) Mixer-B/16
+                                           # bs192's, CaiT-S/24 bs128's
+    python scripts/torch_ablate.py k13s    # serving: ViT-B/16 bs32's rows
+    python scripts/torch_ablate.py k12s    # Mixer-B/16's, CaiT-S/24's bs32
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py th_fwd_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k8b_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k14_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k12_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k13_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k13 --same-as k13_mma \\
+        --other-csrc OLD/sav_tpu_torch/csrc   # outputs bit for bit
 
 Each variant of the kernel's table (``KERNELS``) is the source with the
 headers it names (the shared pieces, the exp among them) inlined and its
@@ -65,6 +75,13 @@ tiles neither loaded nor stored), no_turn (the teams multiply at once).
 The older 48-row-band K14's (``k14_mma``): full; no_sweep1 (one pass of
 the first product, its row scale fixed), w_once (each warp's weight
 fragments loaded once), no_hpre (a constant for hpre).
+K12's and K13's (``k12``, ``k13``, serving ``k12s``, ``k13s``): full;
+no_epi (the first product's elementwise work skipped), no_tanh (the
+gelu's tanh by a multiply), no_store (no staging tile stored), no_out (the
+second product not launched). The older 48-row-band K12's and K13's
+(``k12_mma``, ``k13_mma``, with hpre): full; no_sweep1 (the first sweep
+not run, the hidden scale fixed), w_once, no_gelu (the identity for the
+gelu), no_hpre (no hpre stored), no_second (the second product skipped).
 The outputs of the ablated variants are wrong by design; only their times
 mean something. Each launch of the full variant is also timed on its own
 (torch.profiler). Every variant is timed twice, the variants in order and
@@ -330,6 +347,131 @@ def _k14_sm90_inputs(m, dim, hidden):
     return t
 
 
+def _ff_inputs(m, dim, hidden):
+    """K12's and K13's operands (x, the LayerNorm's scale and bias, the
+    weights' codes per column transposed as the kernels read them, their
+    scales and the biases) and the outputs with hpre (the training
+    variant)."""
+    from sav_tpu_torch.ops import int8_ff
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    w1_q, s1, w2_q, s2 = int8_ff._quantized_weights(
+        mk(dim, hidden, std=dim ** -0.5), mk(hidden, dim, std=hidden ** -0.5))
+    return dict(x=mk(m, dim).bfloat16(), ls=1 + mk(dim, std=0.1),
+                lb=mk(dim, std=0.1), w1_q=w1_q, w2_q=w2_q,
+                w1t=w1_q.t().contiguous(), s1=s1.reshape(-1).contiguous(),
+                b1=mk(hidden, std=0.1), w2t=w2_q.t().contiguous(),
+                s2=s2.reshape(-1).contiguous(), b2=mk(dim, std=0.1),
+                out=torch.empty(m, dim, device='cuda', dtype=torch.bfloat16),
+                hpre=torch.empty(m, hidden, device='cuda',
+                                 dtype=torch.bfloat16))
+
+
+def _ff_sm90_inputs(m, dim, hidden):
+    """``_ff_inputs`` and the workspace of ``int8_ff_plan``."""
+    from sav_tpu_torch.ops import int8_ff
+    t = _ff_inputs(m, dim, hidden)
+    t['ws'] = torch.empty(int8_ff.int8_ff_plan(m, dim, hidden)['workspace'],
+                          dtype=torch.uint8, device='cuda')
+    return t
+
+
+class _Null:
+    """A null pointer among the C entry's buffers."""
+
+    @staticmethod
+    def data_ptr():
+        return None
+
+
+def _ff_serve_inputs(m, dim, hidden):
+    """``_ff_sm90_inputs`` without hpre (the serving variant)."""
+    return dict(_ff_sm90_inputs(m, dim, hidden), hpre=_Null())
+
+
+def _ff_library(ln):
+    """The int8 chain of torch codes and ``torch._int_mm`` (timed only), as
+    chip_smoke.py's K12/K13 yardstick, with hpre."""
+    def other(t, m, dim, hidden):
+        from sav_tpu_torch.ops import int8_matmul_kernel as k15
+        s1, s2 = t['s1'].reshape(1, -1), t['s2'].reshape(1, -1)
+
+        def chain():
+            y = (F.layer_norm(t['x'].float(), (dim,), t['ls'], t['lb'], 1e-6)
+                 if ln else t['x'])
+            q, s = k15._quantize_tile(y)
+            hp = torch._int_mm(q, t['w1_q']).float() * (s * s1) + t['b1']
+            hq, hs = k15._quantize_tile(F.gelu(hp, approximate='tanh'))
+            out = torch._int_mm(hq, t['w2_q']).float() * (hs * s2) + t['b2']
+            return (t['x'].float() + out if ln else out).bfloat16(), \
+                hp.bfloat16()
+
+        return (f'int8 torch chain {time_ms(chain):.4f} ms at M={m} D={dim} '
+                f'F={hidden}')
+    return other
+
+
+# the int8 GEMMs' headers (K12/K13 and K14 on Hopper), each inlined once
+Q8_HEADERS = ('int8_dx_sm90.cuh', 'int8_ff_sm90.cuh', 'int8_sm90.cuh')
+FF_ARGS = ('x', 'ls', 'lb', 'w1_q', 's1', 'b1', 'w2_q', 's2', 'b2', 'out',
+           'hpre', 'ws')
+# the older band kernel's entry: the weights' codes transposed, no workspace
+FF_MMA_ARGS = ('x', 'ls', 'lb', 'w1t', 's1', 'b1', 'w2t', 's2', 'b2', 'out',
+               'hpre')
+K12_SHAPES = [(192 * 196, 768, 3072), (128 * 196, 384, 1536)]
+K13_SHAPES = [(192 * 197, 768, 3072)]
+# K12's and K13's Hopper kernels with parts taken out
+FF_VARIANTS = {
+    'full': [],
+    # the first product's elementwise work skipped (hpre, gelu, the codes,
+    # the absmax; the staging tiles still stored)
+    'no_epi': [('      for (int i = 0; i < 16; ++i) {\n        const int c = '
+                '8 * i + 2 * t;\n        // columns past N',
+                '      for (int i = 0; i < (args.m < 0 ? 16 : 0); ++i) {\n'
+                '        const int c = 8 * i + 2 * t;\n        // columns '
+                'past N')],
+    # the gelu's tanh replaced by a multiply
+    'no_tanh': [('__fadd_rn(1.f, tanhf(inner))',
+                 '__fadd_rn(1.f, 0.5f * inner)')],
+    # no staging tile stores (the tile is freed at once)
+    'no_store': [('          tma_store_3d(&mo, stg, col0, row0, 0);\n'
+                  '          if (MODE == HPRE)\n'
+                  '            tma_store_3d(&mo, stg + BM * 128, col0 + 64, '
+                  'row0, 0);\n', '')],
+    # the second product (OUT) not launched
+    'no_out': [('  if (e == cudaSuccess)\n    e = ln ? launch_out<OUT_RES>',
+                '  if (e == cudaSuccess && M < 0)\n    e = ln ? '
+                'launch_out<OUT_RES>')],
+}
+
+
+# the older 48-row-band K12/K13 (``ff_q8_kernel``) with parts taken out
+FF_MMA_VARIANTS = {
+    'full': [],
+    # sweep 1 not run (each row's hidden scale fixed)
+    'no_sweep1': [('  band_gemm<MT, 4>(xq, ldx, p.w1t, F, D,\n'
+                   '                   [&](int mi, int half, int r, int '
+                   'col, int v0, int v1) {\n    amax[mi][half]',
+                   '  if (false) band_gemm<MT, 4>(xq, ldx, p.w1t, F, D,\n'
+                   '                   [&](int mi, int half, int r, int '
+                   'col, int v0, int v1) {\n    amax[mi][half]'),
+                  ('    hs[r] = row_scale(m);', '    hs[r] = 0.01f;')],
+    # each warp's weight fragments loaded once, reused every step
+    'w_once': [('        nb[j] = more ? __ldg(reinterpret_cast<const '
+                'uint4*>(brow[j] + k0 + 64))\n                     : '
+                'b[j];', '        nb[j] = b[j];')],
+    # the gelu replaced by the identity
+    'no_gelu': [('  return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, '
+                 'tanhf(inner))));', '  return x;')],
+    # no hpre stores
+    'no_hpre': [('    if (p.hpre != nullptr && row < p.M)',
+                 '    if (p.hpre != nullptr && row < 0)')],
+    # the second product skipped
+    'no_second': [('  band_gemm<MT, 2>(hq, ldh, p.w2t, D, F,',
+                   '  if (false) band_gemm<MT, 2>(hq, ldh, p.w2t, D, F,')],
+}
+
+
 KERNELS = {
     'k2': dict(
         source='flash_bwd.cu', inline='flash_sm90.cuh',
@@ -536,7 +678,7 @@ KERNELS = {
                        '  if ((err = mb::sum_columns_launch(')],
         }),
     'k14': dict(
-        source='int8_ff.cu', inline='int8_dx_sm90.cuh',
+        source='int8_ff.cu', inline=Q8_HEADERS,
         shapes=[(192 * 197, 768, 3072), (128 * 196, 384, 1536)],
         inputs=_k14_sm90_inputs, label='M={} D={} F={}',
         entries={'sav_int8_ff_dx': ('g', 'hpre', 'w2c', 's2', 'w1c', 's1',
@@ -577,6 +719,19 @@ KERNELS = {
                           '  return (int)fminf(fmaxf(r, -127.f), 127.f);',
                           '  return (int)v;')],
         }),
+    # the Hopper K12 and K13 (csrc/int8_ff_sm90.cuh), with hpre
+    'k12': dict(
+        source='int8_ff.cu', inline=Q8_HEADERS, shapes=K12_SHAPES,
+        inputs=_ff_sm90_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff': FF_ARGS}, outputs=('out', 'hpre'),
+        dims=lambda m, dim, hidden, t: (m, dim, hidden, 0, 1e-6),
+        others=[_ff_library(False)], variants=FF_VARIANTS),
+    'k13': dict(
+        source='int8_ff.cu', inline=Q8_HEADERS, shapes=K13_SHAPES,
+        inputs=_ff_sm90_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff': FF_ARGS}, outputs=('out', 'hpre'),
+        dims=lambda m, dim, hidden, t: (m, dim, hidden, 1, 1e-6),
+        others=[_ff_library(True)], variants=FF_VARIANTS),
     # the mma.sync K8b (11 launches) and K14 (48-row bands) of an older
     # checkout, with --csrc on its csrc/
     'k8b_mma': dict(
@@ -650,6 +805,35 @@ KERNELS = {
                          '__nv_bfloat162*>(\n          p.hpre + (size_t)row * '
                          'F + col));', '      h = make_float2(0.5f, -0.25f);')],
         }),
+    # the same, serving (no hpre) at ViT-B/16's and Mixer-B/16's bs32 rows
+    # and CaiT-S/24's
+    'k13s': dict(
+        source='int8_ff.cu', inline=Q8_HEADERS, shapes=[(32 * 197, 768, 3072)],
+        inputs=_ff_serve_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff': FF_ARGS},
+        dims=lambda m, dim, hidden, t: (m, dim, hidden, 1, 1e-6),
+        others=[], variants=FF_VARIANTS),
+    'k12s': dict(
+        source='int8_ff.cu', inline=Q8_HEADERS,
+        shapes=[(32 * 196, 768, 3072), (32 * 196, 384, 1536)],
+        inputs=_ff_serve_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff': FF_ARGS},
+        dims=lambda m, dim, hidden, t: (m, dim, hidden, 0, 1e-6),
+        others=[], variants=FF_VARIANTS),
+    # the mma.sync 48-row-band K12 and K13 of an older checkout (with
+    # --csrc on its csrc/), with hpre
+    'k12_mma': dict(
+        source='int8_ff.cu', inline=(), shapes=K12_SHAPES,
+        inputs=_ff_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff': FF_MMA_ARGS},
+        dims=lambda m, dim, hidden, t: (m, dim, hidden, 0, 1e-6),
+        others=[_ff_library(False)], variants=FF_MMA_VARIANTS),
+    'k13_mma': dict(
+        source='int8_ff.cu', inline=(), shapes=K13_SHAPES,
+        inputs=_ff_inputs, label='M={} D={} F={}',
+        entries={'sav_int8_ff': FF_MMA_ARGS},
+        dims=lambda m, dim, hidden, t: (m, dim, hidden, 1, 1e-6),
+        others=[_ff_library(True)], variants=FF_MMA_VARIANTS),
 }
 
 
@@ -659,8 +843,11 @@ def build(kernel: str, name: str, edits, out_dir: str,
     src = open(os.path.join(csrc, spec['source'])).read()
     inline = spec['inline']
     for header in (inline,) if isinstance(inline, str) else inline:
-        src = src.replace(f'#include "{header}"',
-                          open(os.path.join(csrc, header)).read())
+        # once, where it is first included (a later header may include it
+        # again)
+        inc = f'#include "{header}"'
+        src = src.replace(inc, open(os.path.join(csrc, header)).read(),
+                          1).replace(inc, '')
     for old, new in edits:
         if old not in src:
             raise RuntimeError(f'{name}: the source no longer has {old!r}')
@@ -700,6 +887,12 @@ def main(argv=None) -> int:
     parser.add_argument('--csrc', default=_build.CSRC,
                         help="the csrc/ whose kernel is ablated (a parent "
                              "checkout's for the *_mma entries)")
+    parser.add_argument('--same-as', dest='same_as', choices=sorted(KERNELS),
+                        help='also run this entry\'s full variant (from '
+                             '--other-csrc) on the same inputs and print '
+                             'whether the outputs are bit-identical')
+    parser.add_argument('--other-csrc', dest='other_csrc',
+                        default=_build.CSRC)
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('torch_ablate: no CUDA device', file=sys.stderr)
@@ -709,16 +902,22 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     spec = KERNELS[opts.kernel]
     os.makedirs(opts.build, exist_ok=True)
-    procs = {name: build(opts.kernel, name, edits, opts.build, opts.csrc)
-             for name, edits in spec['variants'].items()}
+    jobs = [(opts.kernel, name, edits, opts.csrc)
+            for name, edits in spec['variants'].items()]
+    if opts.same_as:
+        jobs.append((opts.same_as, 'full', [], opts.other_csrc))
+    procs = {(k, name): build(k, name, edits, opts.build, csrc)
+             for k, name, edits, csrc in jobs}
     libs = {}
-    for name, proc in procs.items():
+    for (k, name, _, csrc), proc in zip(jobs, procs.values()):
         log, _ = proc.communicate()
-        os.remove(os.path.join(opts.csrc, f'_ablate_{opts.kernel}_{name}.cu'))
+        os.remove(os.path.join(csrc, f'_ablate_{k}_{name}.cu'))
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {name}:\n{log}')
-        libs[name] = ctypes.CDLL(
-            os.path.join(opts.build, f'lib_{opts.kernel}_{name}.so'))
+            raise RuntimeError(f'nvcc failed for {k} {name}:\n{log}')
+        libs[(k, name)] = ctypes.CDLL(
+            os.path.join(opts.build, f'lib_{k}_{name}.so'))
+    same_lib = libs.pop((opts.same_as, 'full'), None)
+    libs = {name: lib for (_, name), lib in libs.items()}
 
     for shape in spec['shapes']:
         print(spec.get('label', 'B={} L={} H={}').format(*shape) + ':',
@@ -740,6 +939,16 @@ def main(argv=None) -> int:
         for other in spec['others']:
             print(other(t, *shape), flush=True)
         print(per_kernel(runs['full']), flush=True)
+        if same_lib is not None:
+            for fn in runs['full']:
+                fn()
+            mine = {n: t[n].clone() for n in spec['outputs']}
+            for fn in launches(opts.same_as, same_lib, t, shape):
+                fn()
+            torch.cuda.synchronize()
+            same = {n: torch.equal(mine[n], t[n]) for n in spec['outputs']}
+            print(f'full against {opts.same_as} (full, {opts.other_csrc}): '
+                  f'bit-identical {same}', flush=True)
     return 0
 
 

@@ -14,8 +14,9 @@ re-routes the Trainer's model (``models.set_use_kernel``) before the first
 step, for the modes the Trainer has no flag for, as ``fused_ff``;
 ``--quantized ff|ff_sb`` trains the int8 mode. With
 ``--serve`` each run builds the model instead (random weights from seed 0,
-``use_kernel`` as given) and prints the img/s of ``predict.serve`` on
-uint8 frames over ``--steps`` batches after 3 (host clock, H2D included).
+``use_kernel`` as given, ``--quantized ff|all`` its int8 route) and
+prints the img/s of ``predict.serve`` on uint8 frames over ``--steps``
+batches after 3 (host clock, H2D included).
 With ``--kernels`` each run times, through the checkout's own wrappers on
 inputs made from seed 0 with numpy, K1 (the attention sublayer forward,
 whose attention launch is K4's kernel) at its four timed shapes, K4 at
@@ -23,9 +24,11 @@ ViT-B/16's serving and ``fused_ff`` training shapes, K2 at the @224
 training shape and at 200 rows over 190 keys, the talking-heads backward
 at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
 CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576), K5a at
-B=32 L=196, K8b at Mixer-B/16 bs192, K14 at ViT-B/16 @224 bs192's and
-CaiT-S/24 @224 bs128's FF rows, and as controls K5a, K16 (37,824 rows),
-K8a's training launch, K12 and K13 with save_hpre, each with this checkout's
+B=32 L=196, K8b at Mixer-B/16 bs192, K13 and K12 at their paths' rows
+(ViT-B/16 and Mixer-B/16 bs192 with save_hpre and bs32 serving, CaiT-S/24
+bs128 with save_hpre), and as controls K5a, K16 (37,824 rows), K8a's
+training launch and K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224
+bs128's FF rows, each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -42,6 +45,8 @@ uses, handed to every run as source).
         --quantized ff_sb
     python scripts/torch_train_ab.py PARENT_DIR . --model cait_s_24 \\
         --img 384 --batch 48
+    python scripts/torch_train_ab.py PARENT_DIR . --serve --img 224 \\
+        --batch 32 --model cait_s_24 --quantized all
 
 Needs an NVIDIA card; there is no CPU fallback.
 """
@@ -129,11 +134,10 @@ if args['kernels']:
     m = mixes()
     out['K5a (control) B=32 L=196'] = time_ms(lambda: th.th_attention_fwd(
         x, ones, zeros, *w, wo, *m, heads))
-    # the kernels under test: K8b at Mixer-B/16 bs192 and K14 at ViT-B/16
-    # @224 bs192's and CaiT-S/24 @224 bs128's FF rows; the controls, whose
-    # code neither changes: K16 (ViT-B/16 @224 bs192's rows), K8a's
-    # training launch (Mixer-B/16 bs192), K12 and K13 with save_hpre (Mixer
-    # 'ff' and ViT 'ff' bs192's rows)
+    # K8b at Mixer-B/16 bs192; the controls, whose code does not change:
+    # K16 (ViT-B/16 @224 bs192's rows), K8a's training launch (Mixer-B/16
+    # bs192), K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224 bs128's FF
+    # rows
     from sav_tpu_torch.ops import int8_ff
     from sav_tpu_torch.ops import mixer_token as mt
     mrows, d, f = 192 * 197, 768, 3072
@@ -159,21 +163,28 @@ if args['kernels']:
         h14 = bf16((rows, ff))
         w14 = (*int8_ff._dx_quantized(wf((dd, ff), 1 / math.sqrt(dd))),
                *int8_ff._dx_quantized(wf((ff, dd), 1 / math.sqrt(ff))))
-        out[f'K14 M={{rows}} D={{dd}}'] = time_ms(
+        out[f'K14 (control) M={{rows}} D={{dd}}'] = time_ms(
             lambda: int8_ff.int8_ff_dx_raw(g14, h14, *w14))
         del g14, h14
-    for name, rows, raw in (('K12 train (control)', 192 * 196,
-                             int8_ff.int8_ff_raw),
-                            ('K13 train (control)', 192 * 197,
-                             int8_ff.int8_ff_ln_raw)):
-        xq = bf16((rows, d))
+    # the kernels under test: K13 at ViT-B/16 'ff' bs192 (save_hpre) and
+    # bs32 (serving), K12 at Mixer-B/16 'ff' bs192 and bs32, and save_hpre
+    # at CaiT-S/24 'ff'/'ff_sb' bs128 (D = 384, F = 1536)
+    for name, rows, dd, ff, train in (
+            ('K13', 192 * 197, 768, 3072, True),
+            ('K13', 32 * 197, 768, 3072, False),
+            ('K12', 192 * 196, 768, 3072, True),
+            ('K12', 32 * 196, 768, 3072, False),
+            ('K12', 128 * 196, 384, 1536, True)):
+        raw = int8_ff.int8_ff_ln_raw if name == 'K13' else int8_ff.int8_ff_raw
+        xq = bf16((rows, dd))
         w1q, s1, w2q, s2 = int8_ff._quantized_weights(
-            wf((d, f), 1 / math.sqrt(d)), wf((f, d), 1 / math.sqrt(f)))
-        b1, b2 = 0.1 * wf((f,), 1), 0.1 * wf((d,), 1)
-        lnp = ((1 + 0.1 * wf((d,), 1), 0.1 * wf((d,), 1))
-               if raw is int8_ff.int8_ff_ln_raw else ())
-        out[f'{{name}} M={{rows}}'] = time_ms(
-            lambda: raw(xq, *lnp, w1q, s1, b1, w2q, s2, b2, save_hpre=True))
+            wf((dd, ff), 1 / math.sqrt(dd)), wf((ff, dd), 1 / math.sqrt(ff)))
+        b1, b2 = 0.1 * wf((ff,), 1), 0.1 * wf((dd,), 1)
+        lnp = ((1 + 0.1 * wf((dd,), 1), 0.1 * wf((dd,), 1))
+               if name == 'K13' else ())
+        key = f'{{name}} {{"train" if train else "serve"}} M={{rows}} D={{dd}}'
+        out[key] = time_ms(
+            lambda: raw(xq, *lnp, w1q, s1, b1, w2q, s2, b2, save_hpre=train))
         del xq
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
@@ -181,9 +192,11 @@ if args['serve']:
     import numpy as np
     from sav_tpu_torch.models import create_model
     from sav_tpu_torch.predict import decode_size_for, serve
+    q = {{'quantized': args['quantized']}} if args['quantized'] else {{}}
     model = create_model(args['model'], num_classes=1000,
                          dtype=torch.bfloat16, img_size=args['img'], seed=0,
-                         device='cuda', use_kernel=args['use_kernel']).eval()
+                         device='cuda', use_kernel=args['use_kernel'],
+                         **q).eval()
     size = decode_size_for(args['img'])
     frames = np.random.RandomState(0).randint(
         0, 256, (args['batch'], size, size, 3), dtype=np.uint8)
@@ -268,8 +281,9 @@ def main(argv=None) -> int:
     parser.add_argument('--use_kernel', default='auto',
                         help="the model's use_kernel mode, e.g. fused_ff")
     parser.add_argument('--quantized', default='none',
-                        choices=('none', 'ff', 'ff_sb'),
-                        help="the Trainer's int8 mode (train only)")
+                        choices=('none', 'ff', 'ff_sb', 'all'),
+                        help="the int8 route: the Trainer's ff or ff_sb, "
+                             "or with --serve the model's ff or all")
     parser.add_argument('--profile', action='store_true')
     parser.add_argument('--serve', action='store_true',
                         help='time predict.serve instead of a train step')

@@ -1043,8 +1043,8 @@ def _ff_case(rng, m, d, f, card):
 @pytest.mark.parametrize('m,d,f', [(1, 768, 3072), (47, 768, 3072),
                                    (1003, 768, 3072), (130, 1024, 4096)])
 def test_int8_ff_matches_twin(card, m, d, f, save_hpre):
-    """K12 and K13 at ragged M (48-row bands) and at a width whose band is
-    16 rows (D = 1024, F = 4096)."""
+    """K12 and K13 at ragged M (not multiples of their 128-row tiles) and at
+    the widest factory width (D = 1024, F = 4096)."""
     from sav_tpu_torch.ops import int8_ff
     x, ln, w = _ff_case(np.random.RandomState(m + d), m, d, f, card)
     for got, want, base in (
@@ -1073,15 +1073,12 @@ def test_int8_kernels_write_no_row_past_m(card):
     m, d, f = 1003, 768, 3072
     x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _ff_case(
         np.random.RandomState(5), m, d, f, card)
-    # every buffer is held by a name until the launch has been synchronised
-    w1t, w2t = w1_q.t().contiguous(), w2_q.t().contiguous()
     for ln in (0, 1):
         out, hpre = nan(m, d), nan(m, f)
-        bufs = [x, ls, lb, w1t, s1, b1, w2t, s2, b2, out, hpre]
-        err = int8_ff._ff_lib('sav_int8_ff')(
-            *[t.data_ptr() for t in bufs], m, d, f, ln, 1e-6, stream)
+        # the C entry into the first M rows (it raises on a failed launch)
+        int8_ff._int8_ff_into(x, (ls, lb) if ln else None, w1_q, s1, b1,
+                              w2_q, s2, b2, 1e-6, out[:m], hpre[:m])
         torch.cuda.synchronize()
-        assert err == 0
         want = (int8_ff.int8_ff_ln_reference(x, ls, lb, w1_q, s1, b1, w2_q, s2,
                                              b2, save_hpre=True) if ln else
                 int8_ff.int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2,
@@ -1421,3 +1418,99 @@ def test_int8_dx_plan_matches_the_kernel(card):
                              plan['stages']['dy'], plan['parts'], plan['smem'],
                              plan['workspace']]
     assert fn(16, 96, 3072, (ctypes.c_longlong * 10)()) != 0
+
+
+def _ff_pair(x, ln, w, save_hpre):
+    """K12's (``ln`` None) or K13's kernel outputs and its twin's."""
+    from sav_tpu_torch.ops import int8_ff
+    if ln is None:
+        return (int8_ff.int8_ff_raw(x, *w, save_hpre=save_hpre),
+                int8_ff.int8_ff_reference(x, *w, save_hpre=save_hpre))
+    return (int8_ff.int8_ff_ln_raw(x, *ln, *w, save_hpre=save_hpre),
+            int8_ff.int8_ff_ln_reference(x, *ln, *w, save_hpre=save_hpre))
+
+
+# K12's and K13's path shapes: ViT-B/16 @224 bs192 and bs32 (K13), Mixer-B/16
+# bs192 and bs32 (K12), CaiT-S/24 bs128 and bs32 (K12)
+FF_PATH_SHAPES = [(192 * 197, 768, 3072), (32 * 197, 768, 3072),
+                  (192 * 196, 768, 3072), (32 * 196, 768, 3072),
+                  (128 * 196, 384, 1536), (32 * 196, 384, 1536)]
+
+
+@pytest.mark.parametrize('m,d,f', FF_PATH_SHAPES)
+def test_int8_ff_at_path_widths(card, m, d, f):
+    """K12 and K13, serving and save_hpre, at the paths' rows and widths:
+    out (and hpre) against the twins."""
+    x, ln, w = _ff_case(np.random.RandomState(m + d), m, d, f, card)
+    for lnp in (None, ln):
+        for save_hpre in (False, True):
+            got, want = _ff_pair(x, lnp, w, save_hpre)
+            if save_hpre:
+                _int8_check(got[1], want[1])
+                got, want = got[0], want[0]
+            _int8_check(got, want, None if lnp is None else x)
+
+
+def test_int8_ff_repeats_bitwise_over_queued_calls(card):
+    """50 calls each of K12 and K13 (save_hpre) queued without a
+    synchronize between them (a deadlock in a ring, a turn or a staging
+    tile shows as a launch failure) all give the first call's bits."""
+    from sav_tpu_torch.ops import int8_ff
+    x, ln, w = _ff_case(np.random.RandomState(11), 4 * 197, 768, 3072, card)
+    calls = (lambda: int8_ff.int8_ff_raw(x, *w, save_hpre=True),
+             lambda: int8_ff.int8_ff_ln_raw(x, *ln, *w, save_hpre=True))
+    for call in calls:
+        first = call()
+        for _ in range(5):
+            outs = [call() for _ in range(10)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for o in outs
+                       for a, b in zip(o, first))
+
+
+def test_int8_ff_plan_matches_the_kernel(card):
+    """int8_ff_plan mirrors sav_int8_ff_plan."""
+    import ctypes
+    from sav_tpu_torch.ops import int8_ff
+    fn = int8_ff._ff_lib('sav_int8_ff_plan')
+    for m, d, f in ((37824, 768, 3072), (37632, 768, 3072),
+                    (25088, 384, 1536), (6304, 768, 3072), (1003, 768, 3072),
+                    (1, 768, 3072), (77, 192, 768), (130, 1024, 4096),
+                    (100, 2048, 512)):
+        out = (ctypes.c_longlong * 11)()
+        assert fn(m, d, f, out) == 0
+        plan = int8_ff.int8_ff_plan(m, d, f)
+        assert list(out) == [plan['row_tiles'], plan['col_tiles']['hidden'],
+                             plan['col_tiles']['out'],
+                             plan['units']['absmax'], plan['units']['out'],
+                             plan['stages']['hidden'], plan['stages']['out'],
+                             plan['parts'], plan['smem'], plan['workspace'],
+                             int(plan['out_pairs'])]
+    assert fn(16, 96, 3072, (ctypes.c_longlong * 11)()) != 0
+    assert fn(0, 768, 3072, (ctypes.c_longlong * 11)()) != 0
+
+
+@pytest.mark.parametrize('m,d,f', [(1003, 768, 3072), (1003, 384, 1536),
+                                   (1, 192, 768), (333, 2048, 512)])
+def test_int8_ff_writes_no_row_past_m(card, m, d, f):
+    """K12 and K13, with and without hpre, through ``_int8_ff_into`` into
+    NaN-sentinel buffers 64 rows longer: the rows in range match the twins,
+    the rows past M keep the sentinel (D = 2048: wider than any factory
+    model, which the earlier band kernel took too)."""
+    from sav_tpu_torch.ops import int8_ff
+    nan = lambda rows, w: torch.full((rows + 64, w), float('nan'), device=card,
+                                     dtype=torch.bfloat16)
+    x, ln, w = _ff_case(np.random.RandomState(m + f), m, d, f, card)
+    for lnp in (None, ln):
+        for save_hpre in (False, True):
+            out, hpre = nan(m, d), nan(m, f)
+            int8_ff._int8_ff_into(x, lnp, *w, 1e-6, out[:m],
+                                  hpre[:m] if save_hpre else None)
+            torch.cuda.synchronize()
+            want = _ff_pair(x, lnp, w, True)[1]
+            _int8_check(out[:m], want[0], None if lnp is None else x)
+            if save_hpre:
+                _int8_check(hpre[:m], want[1])
+            assert bool(torch.isnan(out[m:]).all())
+            assert bool(torch.isnan(hpre).all() if not save_hpre
+                        else torch.isnan(hpre[m:]).all())

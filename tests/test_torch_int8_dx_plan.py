@@ -108,9 +108,9 @@ def test_plan_refuses_what_the_kernels_do_not_take(m, dim, hidden):
 
 
 def test_plan_takes_every_band_geometry():
-    """Every D and F multiple of 64 whose 16-row band fits a block (K12's
-    and K13's condition, ``sav_int8_ff_band``) plans: the kernels need no
-    band."""
+    """Every D and F multiple of 64 whose 16-row band fitted a block (the
+    condition of K12's and K13's earlier band kernel) plans: the kernels
+    need no band."""
     for dim in (64, 128, 320, 384, 768, 1024):
         for hidden in (256, 512, 704, 1536, 3072, 4096):
             tff.int8_dx_plan(129, dim, hidden)
