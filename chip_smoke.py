@@ -17,7 +17,9 @@
    two calls bit-identical); K4 and K2 through their C entries into
    NaN-sentinel buffers one image longer than the call, at L = 197, 200
    over 190 keys, 577 (K4), a 1-row tail (129) and q_len != kv_len; each
-   flash kernel's ptxas line (registers, spills, any wgmma warning).
+   flash kernel's ptxas line (registers, spills, any wgmma warning), and
+   K1's (its LN and projection GEMMs); each K1 and K5a launch's device
+   time (torch.profiler) on a line of its own.
 3. Serves ViT-B/16 bf16 through ``sav_tpu_torch.predict.serve``: @224 with
    use_kernel='auto' (the K1 port, 12 launches per forward), @384 with
    use_kernel='fused_layer' (the K4 port, 12 launches) and @384 with 'auto'
@@ -33,17 +35,19 @@
    per-op path as the reference that sets the bf16 noise floor; train
    img/s over 10 steps after warm-up; one eval batch.
 5. CaiT-S/24 (slice 3): the talking-heads kernels against their twins at
-   the path's shapes (K5a serve B=32 and train B=128 at L=196, K5b B=128;
-   K6a B=32 and B=48 at L=576, K6b B=48; K5b and K6b also at cait_xxs's
-   four heads), outputs, lse, dq/dk/dv and dM_pre/dM_post, K6a's and the
-   backward's two calls bit-identical and their ptxas lines, the ragged last tile on its
-   own at L = 196, 197, 576 and 577; serving @224 (24 K5a
-   launches per forward) and @384 (24 K6a) at batch 32 with logits against
-   the per-op path; training through the Trainer @224 bs128 (24 K5a-train +
-   24 K5b per step) and @384 bs48 (24 K6a + 24 K6b) at stochastic depth
-   0.1, gradients against the plain core (use_kernel='fused_th_xla') with
-   the f32 per-op path as the noise floor on the step's whole batch,
-   train img/s and peak memory.
+   the paths' shapes (K5a serve B=32 and train B=128 at L=196, B=32 and
+   B=48 at L=576, K5b B=128; K6a and K6b, the blocked route's, at
+   cait_xxs_24's four heads, B=32 and B=128 at L=196, and at L=576 with
+   eight; K5b also at four heads), outputs, lse, dq/dk/dv and
+   dM_pre/dM_post, K6a's and the backward's two calls bit-identical and
+   their ptxas lines, the ragged last tile on its own at L = 196, 197, 576
+   and 577; serving CaiT-S/24 @224 and @384 (24 K5a launches per forward)
+   and cait_xxs_24 @224 (24 K6a) at batch 32 with logits against the
+   per-op path; training through the Trainer CaiT-S/24 @224 bs128 and
+   @384 bs48 (24 K5a-train + 24 K5b per step) and cait_xxs_24 @224 bs128
+   (24 K6a + 24 K6b) at stochastic depth 0.1, gradients against the plain
+   core (use_kernel='fused_th_xla') with the f32 per-op path as the noise
+   floor on the step's whole batch, train img/s and peak memory.
 6. Mixer-B/16 and the FF backward (slice 4): K8a (token mixing forward)
    against its twin at the factory's token-mix shapes (L/K/D 196/98/768 at
    B=32 and B=192, 49/24/512, 196/98/1024), K8b (its backward) at B=192
@@ -124,7 +128,7 @@
    gelu backward, codes, ``_int_mm``; both on NaN-sentinel buffers at a
    ragged M (K11 also on its two-sweep core, L = 250); serving CaiT-S/24
    @224 bs32 ``quantized='all'`` (24 K11 + 24 K12 per forward), @384 at
-   depth 2 (th_supported fails: 2 K6a + 2 K12, no K11) and cait_xxs_24
+   depth 2 (th_supported fails: 2 K5a + 2 K12, no K11) and cait_xxs_24
    @224 at depth 2 (2 K11 + 2 K12), logits against the int8 twins;
    training @224 ViT-B/16 bs192 ``'ff_sb'`` (12 K1-train + 12 K2 + 12
    K13-train + 12 K14 per step) and CaiT-S/24 bs128 ``'ff_sb'`` (24
@@ -167,7 +171,7 @@ from sav_tpu_torch.ops.quantized import quantize_symmetric
 from sav_tpu_torch.predict import decode_size_for, serve
 from sav_tpu_torch.train import TrainConfig, Trainer
 from sav_tpu_torch.train.steps import loss_and_logits
-from sav_tpu_torch.utils.timing import time_ms
+from sav_tpu_torch.utils.timing import launch_ms, time_ms
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -297,6 +301,15 @@ def _bf16(rng, shape, std=1.0):
         (rng.standard_normal(shape) * std).astype(np.float32)).cuda().bfloat16()
 
 
+def launch_split(fn) -> str:
+    """Device time of each kernel one call of ``fn`` launches
+    (``timing.launch_ms``; the wrapper's own small torch launches
+    included): which of a C entry's kernels costs what."""
+    short = lambda name: name.split('(')[0].replace('void ', '')[-40:]
+    return '; '.join(f'{short(name)} {ms:.4f} ms'
+                     for name, ms in launch_ms([fn], 5))
+
+
 def _k1_case(rng, batch, seq, dim, heads):
     """Random K1 inputs at [batch, seq, dim], the library chain computing
     the same sublayer (LN + matmuls + SDPA; timed only) and its operation
@@ -358,6 +371,8 @@ def check_k1(rng, checks, batch, seq, dim=768, heads=12):
           f'ms  library {rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}, '
           f'{flops / 1e9:.2f} GFLOP)  flash core {time_ms(flash_core):.4f} ms',
           flush=True)
+    print(f'  K1 L={seq} launches: ' + launch_split(
+        lambda: fused_layer.fused_attention_fwd(*args)), flush=True)
     return rec
 
 
@@ -598,6 +613,9 @@ def check_k1_train(rng, checks, batch, seq, dim=768, heads=12):
     print(f'  K1 train B={batch} L={seq}: kernel {rec["ms"]:.4f} ms  plain '
           f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
           f'bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP)', flush=True)
+    print(f'  K1 train B={batch} L={seq} launches: ' + launch_split(
+        lambda: fused_layer.fused_attention_fwd(*args, save_residuals=True)),
+        flush=True)
     return rec
 
 
@@ -852,6 +870,8 @@ def check_k5a(rng, checks, batch, seq, save_residuals, dim=384, heads=8):
           f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
           f'bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.2f} GFLOP tensor, '
           f'{f32_ops / 1e9:.2f} GFLOP f32 mixes)', flush=True)
+    print(f'  {name} B={batch} L={seq} launches: ' + launch_split(run),
+          flush=True)
     return rec
 
 
@@ -978,9 +998,9 @@ def check_th_tails(rng, checks, seq, heads=8):
                    for _ in range(3)]
         y = torch.empty(seq, dim, device='cuda', dtype=torch.bfloat16)
         attn5, out5 = big(hd), big(dim)
-        errs.append(th._fn('sav_th_attention_fwd', 16, 5, 2)(
-            ptr(x), ptr(ones), ptr(zeros), *map(ptr, ws), ptr(m[0]),
-            ptr(m[1]), ptr(y), *map(ptr, scratch), ptr(attn5), ptr(out5),
+        errs.append(th._fn('sav_th_attention_fwd', 15, 5, 2)(
+            ptr(x), ptr(ones), ptr(zeros), *map(ptr, ws), ptr(mix),
+            ptr(y), *map(ptr, scratch), ptr(attn5), ptr(out5),
             None, 1, seq, dim, heads, 0, fused_layer.LN_EPS,
             1.0 / math.sqrt(th.HEAD_CH), stream))
         spans = [(attn5, None), (out5, th.th_attention_fwd_plain(
@@ -1271,6 +1291,8 @@ def check_k1_nores(rng, checks, batch, seq, dim, heads, train):
     print(f'  {name} B={batch} D={dim}: kernel {rec["ms"]:.4f} ms  plain '
           f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
           f'bound {b_ms:.4f} ms ({b_by})', flush=True)
+    print(f'  {name} B={batch} D={dim} launches: ' + launch_split(run),
+          flush=True)
     return rec
 
 
@@ -2359,12 +2381,14 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
-    # the wgmma kernels (K4 and K1's attention, K2, K3, K5b/K6b, K6a, K16,
+    # the wgmma kernels (K4 and K1's attention, K1's and K5a's projection
+    # GEMM (proj_gemm_kernel), K2, K3, K5b/K6b, K6a (also K5a's core), K16,
     # K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel); their files'
     # mma.sync kernels beside them):
     # each kernel's registers, spills and any wgmma warning (C7510-C7515:
     # serialized)
-    for lib, label in (('flash_fwd', 'K4'), ('flash_bwd', 'K2'),
+    for lib, label in (('flash_fwd', 'K4'), ('fused_attention', 'K1'),
+                       ('flash_bwd', 'K2'),
                        ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b'),
                        ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16'),
                        ('mixer_token', 'K8a/K8b'),
@@ -2407,10 +2431,19 @@ def main(argv=None):
     # CaiT-S/24: the TH kernels at the path's shapes, then the paths
     k5a = {train: check_k5a(rng, checks, 128 if train else args.batch, 196,
                             save_residuals=train) for train in (False, True)}
+    # K5a at CaiT-S/24 @384's shapes (serving B=32, training B=48, L=576)
+    k5a384 = {train: check_k5a(rng, checks, 48 if train else args.batch, 576,
+                               save_residuals=train)
+              for train in (False, True)}
     k5b = check_th_bwd(rng, checks, 128, 196, 'th_attention_bwd')
-    k6a = {train: check_k6a(rng, checks, 48 if train else args.batch, 576)
-           for train in (False, True)}
-    k6b = check_th_bwd(rng, checks, 48, 576, 'th_core_bwd')
+    # K6a and K6b: the blocked route's (cait_xxs_24 @224: D = 192, H = 4),
+    # and at L = 576
+    k6a = {train: check_k6a(rng, checks, 128 if train else args.batch, 196,
+                            heads=4) for train in (False, True)}
+    k6a576 = {train: check_k6a(rng, checks, 48 if train else args.batch, 576)
+              for train in (False, True)}
+    k6b = check_th_bwd(rng, checks, 128, 196, 'th_core_bwd', heads=4)
+    k6b576 = check_th_bwd(rng, checks, 48, 576, 'th_core_bwd')
     # cait_xxs's four heads (K6 at every length), both entries
     check_th_bwd(rng, checks, 8, 577, 'th_core_bwd', heads=4, timed=False)
     check_th_bwd(rng, checks, 16, 196, 'th_attention_bwd', heads=4,
@@ -2420,16 +2453,23 @@ def main(argv=None):
     k5a_serve = serve_path(checks, 'CaiT-S/24 @224 auto', 224, 'auto',
                               {'th_attention_fwd': 24}, args.seed, args.batch,
                               args.profile, model_name='cait_s_24')
-    k6a_serve = serve_path(checks, 'CaiT-S/24 @384 auto', 384, 'auto',
-                              {'th_core_fwd': 24}, args.seed, args.batch,
+    k5a_serve384 = serve_path(checks, 'CaiT-S/24 @384 auto', 384, 'auto',
+                              {'th_attention_fwd': 24}, args.seed, args.batch,
                               args.profile, model_name='cait_s_24')
+    k6a_serve = serve_path(checks, 'cait_xxs_24 @224 auto', 224, 'auto',
+                           {'th_core_fwd': 24}, args.seed, args.batch,
+                           args.profile, model_name='cait_xxs_24')
     c224 = train_path(checks, 'train CaiT-S/24 @224 bs128', 224, 128,
                       {'th_attention_fwd_train': 24, 'th_attention_bwd': 24},
                       args.seed, profile=args.profile, model_name='cait_s_24',
                       plain_core='fused_th_xla')
     c384 = train_path(checks, 'train CaiT-S/24 @384 bs48', 384, 48,
+                      {'th_attention_fwd_train': 24, 'th_attention_bwd': 24},
+                      args.seed, profile=args.profile, model_name='cait_s_24',
+                      plain_core='fused_th_xla')
+    cxxs = train_path(checks, 'train cait_xxs_24 @224 bs128', 224, 128,
                       {'th_core_fwd': 24, 'th_core_bwd': 24}, args.seed,
-                      profile=args.profile, model_name='cait_s_24',
+                      profile=args.profile, model_name='cait_xxs_24',
                       plain_core='fused_th_xla')
 
     # Mixer-B/16 (slice 4): K8a at the factory's token-mix shapes, K8b at
@@ -2577,7 +2617,7 @@ def main(argv=None):
                         args.batch, args.profile, model_name='cait_s_24',
                         quantized='all')
     serve_path(checks, 'CaiT-S/24 @384 quantized=all depth 2', 384, 'auto',
-               {'th_core_fwd': 2, 'int8_ff': 2}, args.seed, args.batch,
+               {'th_attention_fwd': 2, 'int8_ff': 2}, args.seed, args.batch,
                model_name='cait_s_24', quantized='all', num_layers=2)
     serve_path(checks, 'cait_xxs_24 @224 quantized=all depth 2', 224, 'auto',
                {'th_attention_q8': 2, 'int8_ff': 2}, args.seed, args.batch,
@@ -2691,18 +2731,30 @@ def main(argv=None):
                    'ms', 'bound_ms', 'pair_ms', 'pair_library_ms',
                    'pair_bound_ms')})
           for n, line in (('dq', 363), ('dkv', 392))),
-        # K5a: the serving launches and timing; its residual-writing variant
-        # (train @224) under train_*
+        # K5a: the serving launches and timing @224; its residual-writing
+        # variant (train @224) under train_*, @384 (L = 576) under l576_*
         th_entry('th_attention_fwd', 158,
                  k5a_serve.get('th_attention_fwd', 0), k5a[False], k5a[True],
-                 train_launches=c224.get('th_attention_fwd_train', 0)),
+                 train_launches=c224.get('th_attention_fwd_train', 0),
+                 l576_launches=k5a_serve384.get('th_attention_fwd', 0),
+                 l576_train_launches=c384.get('th_attention_fwd_train', 0),
+                 l576_ms=k5a384[False]['ms'],
+                 l576_train_ms=k5a384[True]['ms'],
+                 l576_bound_ms=k5a384[False]['bound_ms'],
+                 l576_train_bound_ms=k5a384[True]['bound_ms']),
         th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b,
-                 source='th_bwd.cu'),
+                 source='th_bwd.cu',
+                 l576_launches=c384.get('th_attention_bwd', 0)),
+        # K6a and K6b: the blocked route's launches and timing (cait_xxs_24
+        # @224), at L = 576 under l576_*
         th_entry('th_core_fwd', 362, k6a_serve.get('th_core_fwd', 0),
                  k6a[False], k6a[True], source='th_fwd_sm90.cuh',
-                 train_launches=c384.get('th_core_fwd', 0)),
-        th_entry('th_core_bwd', 387, c384.get('th_core_bwd', 0), k6b,
-                 source='th_bwd.cu'),
+                 train_launches=cxxs.get('th_core_fwd', 0),
+                 l576_ms=k6a576[False]['ms'], l576_train_ms=k6a576[True]['ms'],
+                 l576_bound_ms=k6a576[False]['bound_ms']),
+        th_entry('th_core_bwd', 387, cxxs.get('th_core_bwd', 0), k6b,
+                 source='th_bwd.cu', l576_ms=k6b576['ms'],
+                 l576_bound_ms=k6b576['bound_ms']),
         # K8a: Mixer-B/16 serving (B=32) launches and timing; the training
         # shape (B=192) under train_*
         dict(name='token_mix_fwd', route='cuda',

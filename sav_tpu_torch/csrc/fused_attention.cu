@@ -17,15 +17,16 @@
 // 34 us at B = 32, L = 197 at the bf16 peak). The two projection GEMMs
 // carry 88% of them.
 //
-// Decomposition: four launches per call, all hand-written (LN and the GEMMs
-// on mma.sync, the attention on wgmma).
-//  1. layernorm_kernel: one warp per row, y = LN(x) in bf16.
-//  2. gemm_kernel<kQkv>: y @ [Wq | Wk | Wv], q scaled by 1/sqrt(d) in the
-//     epilogue. Writes q, k, v [B*L, H*d] bf16.
+// Decomposition: four launches per call, all hand-written, all but the LN
+// on wgmma + TMA.
+//  1. layernorm_kernel (proj_sm90.cuh): one warp per row, y = LN(x) in
+//     bf16.
+//  2. proj_gemm_kernel<QKV> (proj_sm90.cuh): y @ [Wq | Wk | Wv], q scaled
+//     by 1/sqrt(d) in the epilogue. Writes q, k, v [B*L, H*d] bf16.
 //  3. k4::flash_fwd_kernel (flash_fwd_sm90.cuh, K4's kernel: wgmma, TMA,
 //     persistent), writing lse when the caller keeps residuals.
-//  4. gemm_kernel<kOut>: attn @ Wo, with +x in the epilogue when residual
-//     is not 0.
+//  4. proj_gemm_kernel<OUT>: attn @ Wo, with +x in the epilogue when
+//     residual is not 0.
 // The TPU kernel runs one program per image with x and all four weights
 // resident in its VMEM. That does not carry over: one image's x at L = 197
 // is 303 KB and each weight 1.18 MB, beyond a block's 227 KB of shared
@@ -35,10 +36,9 @@
 // is writing y, q, k, v and attn (5 x B*L*D bf16) through L2/HBM, ~48 MB
 // at B = 32, L = 197, about 15 us at 3.35 TB/s, under the operation bound
 // of the products. LN gets its own pass so that both GEMMs are plain bf16
-// GEMMs whose tiles stream in with cp.async through a 3-stage ring: the
-// operation bound is met only if the tensor cores never wait on loads.
+// GEMMs whose tiles TMA streams in unchanged.
 #include "flash_fwd_sm90.cuh"
-#include "gemm_ln.cuh"
+#include "proj_sm90.cuh"
 
 // x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*64], wo [H*64, D];
 // y [B*L, D] and qs/ks/vs/attn [B*L, H*64] scratch; out [B, L, D]; lse
@@ -54,28 +54,31 @@ extern "C" int sav_fused_attention_fwd(
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = batch * seq, hd = heads * k4::BD;
-  const int m_tiles = (M + GM - 1) / GM;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<kQkv>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_kernel<kOut>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               GEMM_SMEM);
+  if (dim % 128 || hd % 128) return (int)cudaErrorInvalidValue;
+  cudaError_t err = layernorm(x, ln_scale, ln_bias, y, M, dim, eps, st);
   if (err != cudaSuccess) return (int)err;
-
-  layernorm_kernel<<<(M + 7) / 8, 256, 0, st>>>(
-      (const bf16*)x, ln_scale, ln_bias, (bf16*)y, M, dim, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  gemm_kernel<kQkv><<<dim3(3 * hd / GN, m_tiles), 256, GEMM_SMEM, st>>>(
-      (const bf16*)y, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
-      (bf16*)qs, (bf16*)ks, (bf16*)vs, nullptr, M, dim, hd, q_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const void* wqkv[3] = {wq, wk, wv};
+  void* qkv[3] = {qs, ks, vs};
+  int e = proj::run<proj::QKV>(y, wqkv, qkv, nullptr, M, dim, hd, 3,
+                               q_scale, st);
+  if (e != 0) return e;
   const int att = k4::flash_fwd(qs, ks, vs, attn, lse, batch, seq, seq, seq,
                                 heads, st);
   if (att != 0) return att;
-  gemm_kernel<kOut><<<dim3(dim / GN, m_tiles), 256, GEMM_SMEM, st>>>(
-      (const bf16*)attn, (const bf16*)wo, (const bf16*)wo, (const bf16*)wo,
-      (bf16*)out, (bf16*)out, (bf16*)out, residual ? (const bf16*)x : nullptr,
-      M, hd, dim, 1.f);
-  return (int)cudaGetLastError();
+  const void* wout[3] = {wo, nullptr, nullptr};
+  void* outs[3] = {out, nullptr, nullptr};
+  return proj::run<proj::OUT>(attn, wout, outs, residual ? x : nullptr, M, hd,
+                              dim, 1, 1.f, st);
+}
+
+// The projection GEMM's plan for an M x (parts x n_each) product on this
+// card: out[0] the tile width (0: none), out[1] its dynamic shared memory,
+// out[2] its units; mirrored by proj_plan in ops/fused_layer.py.
+extern "C" void sav_proj_plan(int m, int n_each, int parts, int sms,
+                              int* out) {
+  using namespace sav::proj;
+  const int bn = plan_bn(m, n_each, parts, sms);
+  out[0] = bn;
+  out[1] = smem_of(bn);
+  out[2] = bn ? units_of(m, n_each, parts, bn) : 0;
 }

@@ -10,39 +10,37 @@
 //   pt_i = sum_j M_post[j, i] pn_j         (post-softmax head mix)
 //   o_i  = bf16(pt_i) v_i,  lse_i = logsumexp(st_i)
 // rounded to bf16 where the TPU kernels round, with f32 accumulation.
-// head_ch 48 is taken as it is: q k^T is three 16-deep k-steps of mma.sync
-// m16n8k16 and P V six 8-wide n-tiles, so nothing is padded to 64.
+// head_ch 48 is taken as it is: q k^T is three 16-deep steps of wgmma
+// m64n16k16 a head and P V one m64n48k16, so nothing is padded to 64.
 //
-// The forward core (th_fwd_kernel and its tile helpers) lives in
-// th_core.cuh, which K11's int8 span (th_attention_q8.cu) shares.
+// The two-sweep core (th_fwd_sm90.cuh) is K6a's kernel and K5a's core
+// launch; th_core.cuh's mma.sync core stays for K11's int8 span
+// (th_attention_q8.cu).
 //
 // What is new against flash attention (csrc/attention_core.cuh):
 //  * The mixes couple all heads: one mixed logit takes the logits of all H
-//    heads at the same (query, key). So one block owns EVERY head of its
-//    query rows: 8 warps compute the per-head tiles with mma.sync into
-//    f32 shared memory, then all 256 threads mix them position by
-//    position (H^2 scalar FMAs per mix, the [H, H] matrices in shared
-//    memory), and the warps take the mixed tiles back to the tensor cores.
-//    A block holds 128 (query row, head) pairs: 16 query rows at H = 8.
+//    heads at the same (query, key). So one work tile owns EVERY head of
+//    its 64 query rows: a mix warpgroup holds all H heads of its positions
+//    in registers (H^2 FMAs per mix, the [H, H] weights in the constant
+//    bank) and hands the mixed, bf16-rounded tiles to an accumulate
+//    warpgroup's tensor cores.
 //  * No single-pass online softmax: the post-mix sums NORMALIZED
-//    probabilities of different heads. Two answers, one per route:
-//      K5a core (th_fwd_kernel<H, true>): the logits of whole kv rows of
-//        all heads stay resident in shared memory (f32, 128 rows x L), so
-//        the softmax is exact in one pass over the keys, like the TPU's
-//        unrolled lists. It fits while L <= 224 at H = 8 (221.5 KB of the
-//        227 KB a block may have at CaiT-S/24 @224, L = 196).
-//      K6a (th_fwd_sm90.cuh, wgmma + TMA): 64 query rows x 16-key tiles;
-//        a first sweep over the keys computes the lse of each mixed head
-//        (online max and sum per mixed head), a second recomputes the
-//        logits and forms pn = exp(st - lse), the post-mix and P V. Any L;
-//        it pays one more q k^T sweep (~1.5x the forward's tensor work).
-//        Its mixes run in registers (th_fwd_sm90.cuh's header); K11 keeps
-//        the mma.sync two-sweep core of th_core.cuh (th_fwd_kernel<H,
-//        false>) where K5a's rows do not fit.
-//  * K5a is four launches, the first two and the last shared with K1
-//    (gemm_ln.cuh): LN, the QKV GEMM with q scaled in its epilogue, the
-//    resident core, and the out GEMM without the residual (CaiT adds
-//    LayerScale and stochastic depth before the skip connection).
+//    probabilities of different heads, so each mixed head's lse must be
+//    known before any of them is mixed again. The core (th_fwd_sm90.cuh,
+//    wgmma + TMA): 64 query rows x 16-key tiles; a first sweep over the
+//    keys computes the lse of each mixed head (online max and sum per mixed
+//    head), a second recomputes the logits and forms pn = exp(st - lse),
+//    the post-mix and P V. Any L; it pays one more q k^T sweep (~1.5x the
+//    forward's tensor work, small beside the mixes). Its mixes run in
+//    registers with the weights in the constant bank. It is also K5a's
+//    core: one pass over whole logit rows resident in shared memory
+//    (th_core.cuh, which K11 keeps) measured 2.2x slower at L = 196, from
+//    per-block K/V re-reads, shared-memory mixes and one 8-warp block an
+//    SM.
+//  * K5a is four launches: the LN and the projection GEMMs of
+//    proj_sm90.cuh (the QKV GEMM with q scaled in its epilogue, the out
+//    GEMM without the residual: CaiT adds LayerScale and stochastic depth
+//    before the skip connection; K1's launches too) around the core.
 //
 // Bound on the card: per (image, head, query, key) the forward does 192
 // tensor-core operations (q k^T and P V at d = 48) and 4H scalar
@@ -55,21 +53,12 @@
 // stored; keys past L load as zeros and their mixed logits are set to -inf
 // AFTER the pre-mix (a mix of -inf logits with signed weights would be
 // NaN), so their probabilities are exact zeros. Nothing is padded.
-#include "gemm_ln.cuh"
-#include "th_core.cuh"
+#include "proj_sm90.cuh"
 #include "th_fwd_sm90.cuh"
 
-// Shared memory of the K5a core at length seq (0 for an unbuilt H); the
-// wrapper's router reads it (fused_smem).
-extern "C" int sav_th_fwd_smem(int seq, int heads) {
-  using namespace sav;
-  if (heads == 4) return (int)ThFwd<4, true>::smem(seq);
-  if (heads == 8) return (int)ThFwd<8, true>::smem(seq);
-  return 0;
-}
-
-// Dynamic shared memory of the K6a kernel at H heads (0 for an unbuilt
-// H); mirrored by th_fwd_plan in ops/th_attention.py.
+// Dynamic shared memory of the K6a kernel, also K5a's core, at H heads (0
+// for an unbuilt H); mirrored by th_fwd_plan in ops/th_attention.py, read
+// by the K5a router (fused_smem).
 extern "C" int sav_th_core_fwd_smem(int heads) {
   using namespace sav::thf;
   if (heads == 4) return Plan<4>::SMEM;
@@ -91,47 +80,33 @@ extern "C" int sav_th_core_fwd(const void* q, const void* k, const void* v,
 }
 
 // K5a. x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*48], wo
-// [H*48, D]; y [B*L, D] and q/k/v/attn [B, L, H*48] scratch; out [B, L, D];
-// lse [B, H, L] f32 or null (inference). Needs D % 128 == 0, H*48 % 128
-// == 0 and the resident core's shared memory (sav_th_fwd_smem).
+// [H*48, D]; mix [3, H, H] f32 as for K6a; y [B*L, D] and q/k/v/attn [B,
+// L, H*48] scratch; out [B, L, D]; lse [B, H, L] f32 or null (inference).
+// Needs D % 128 == 0 and H*48 % 128 == 0 (whole GEMM tiles), H = 4 or 8.
 extern "C" int sav_th_attention_fwd(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo,
-    const float* mpre, const float* mpost, void* y, void* qs, void* ks,
-    void* vs, void* attn, void* out, float* lse, int batch, int seq, int dim,
-    int heads, int residual, float eps, float q_scale, void* stream) {
+    const float* mix, void* y, void* qs, void* ks, void* vs, void* attn,
+    void* out, float* lse, int batch, int seq, int dim, int heads,
+    int residual, float eps, float q_scale, void* stream) {
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
-  const int M = batch * seq, hd = heads * TD;
-  const int m_tiles = (M + GM - 1) / GM;
-  if (dim % GN || hd % GN || (heads != 4 && heads != 8))
+  const int M = batch * seq, hd = heads * thb::TD;
+  if (dim % 128 || hd % 128 || (heads != 4 && heads != 8))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<kQkv>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_kernel<kOut>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               GEMM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-
-  layernorm_kernel<<<(M + 7) / 8, 256, 0, st>>>(
-      (const bf16*)x, ln_scale, ln_bias, (bf16*)y, M, dim, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  gemm_kernel<kQkv><<<dim3(3 * hd / GN, m_tiles), 256, GEMM_SMEM, st>>>(
-      (const bf16*)y, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
-      (bf16*)qs, (bf16*)ks, (bf16*)vs, nullptr, M, dim, hd, q_scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int err = (int)layernorm(x, ln_scale, ln_bias, y, M, dim, eps, st);
+  if (err != 0) return err;
+  const void* wqkv[3] = {wq, wk, wv};
+  void* qkv[3] = {qs, ks, vs};
+  err = proj::run<proj::QKV>(y, wqkv, qkv, nullptr, M, dim, hd, 3, q_scale,
+                             st);
+  if (err != 0) return err;
   err = heads == 4
-      ? th_core_launch<4, true>((const bf16*)qs, (const bf16*)ks,
-                                (const bf16*)vs, mpre, mpost, (bf16*)attn, lse,
-                                batch, seq, st)
-      : th_core_launch<8, true>((const bf16*)qs, (const bf16*)ks,
-                                (const bf16*)vs, mpre, mpost, (bf16*)attn, lse,
-                                batch, seq, st);
-  if (err != cudaSuccess) return (int)err;
-  gemm_kernel<kOut><<<dim3(dim / GN, m_tiles), 256, GEMM_SMEM, st>>>(
-      (const bf16*)attn, (const bf16*)wo, (const bf16*)wo, (const bf16*)wo,
-      (bf16*)out, (bf16*)out, (bf16*)out,
-      residual ? (const bf16*)x : nullptr, M, hd, dim, 1.f);
-  return (int)cudaGetLastError();
+      ? thf::run<4>(qs, ks, vs, mix, attn, lse, batch, seq, st)
+      : thf::run<8>(qs, ks, vs, mix, attn, lse, batch, seq, st);
+  if (err != 0) return err;
+  const void* wout[3] = {wo, nullptr, nullptr};
+  void* outs[3] = {out, nullptr, nullptr};
+  return proj::run<proj::OUT>(attn, wout, outs, residual ? x : nullptr, M, hd,
+                              dim, 1, 1.f, st);
 }

@@ -31,7 +31,7 @@ from sav_tpu_torch.ops.quantized import int_matmul, quantize_symmetric
 
 CORES = ('xla', 'flash', 'fused')
 LN_EPS = 1e-6
-GEMM_TILE = 128         # the K1 port's GEMM tile along N and K
+GEMM_TILE = 128         # the multiple of N and K the K1 port's GEMM takes
 
 
 def _layernorm(x, scale, bias, eps):
@@ -99,6 +99,44 @@ def _project_qkv(y, wq, wk, wv, num_heads, head_d):
             v.reshape(b, l, num_heads, head_d))
 
 
+def proj_plan(m: int, n_each: int, parts: int, k: int, sms: int) -> dict:
+    """Launch geometry of the projection GEMM of K1 and K5a (the QKV and
+    out products, ``csrc/proj_sm90.cuh``), mirrored from its ``plan_bn``
+    and ``Plan``: persistent units of 128 rows x ``bn`` columns of the M x
+    (``parts`` x ``n_each``) output (``parts`` = 3 for q, k, v; 1 for the
+    out product), ``bn`` the one of 256, 192 and 128 dividing ``n_each`` (a
+    tile never straddles two weights) whose estimated time is least:
+    ``rounds`` = ceil(units / sms) rounds of a unit costing ``bn`` + 48
+    columns' worth, ties to the wider tile. ``smem``: the kernel's dynamic
+    shared memory (a ring of ``stages`` slots, 3 at bn = 256 and else 4,
+    each a 128 x 64 box of A and bn / 64 boxes of 64 x 64 of the weight;
+    two 64 x bn bf16 staging tiles for the TMA stores; the mbarriers; 1024
+    bytes of alignment slack); ``steps``: 64-deep steps a unit. Raises ValueError where
+    ``n_each`` or ``k`` is not a multiple of 128 (the port's contract:
+    D and H*d multiples of 128)."""
+    if n_each % GEMM_TILE or k % GEMM_TILE or n_each < 1 or k < 1:
+        raise ValueError(f'the projection GEMM needs N and K to be multiples '
+                         f'of {GEMM_TILE}, got N={n_each}, K={k}')
+    if m < 1 or parts not in (1, 3):
+        raise ValueError(f'the projection GEMM takes M >= 1 rows and 1 or 3 '
+                         f'weights, got M={m}, parts={parts}')
+    slots = max(sms, 1)
+    best = None
+    for bn in (256, 192, 128):
+        if n_each % bn:
+            continue
+        units = -(-m // 128) * parts * (n_each // bn)
+        cost = -(-units // slots) * (bn + 48)
+        if best is None or cost < best[0]:
+            best = (cost, bn, units)
+    _, bn, units = best
+    stages = 3 if bn == 256 else 4
+    smem = (stages * (128 * 64 * 2 + 64 * bn * 2) + 2 * 64 * bn * 2
+            + 2 * stages * 8 + 1024)
+    return dict(bn=bn, units=units, rounds=-(-units // slots), steps=k // 64,
+                stages=stages, smem=smem)
+
+
 def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
                               save_residuals=False, residual=True):
     """Plain twin of ``fused_attention_fwd``, rounding where the TPU kernel
@@ -146,8 +184,10 @@ def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
 
     x ``[B, L, D]``; scale, bias ``[D]``; wq, wk, wv ``[D, H*d]`` and wo
     ``[H*d, D]`` in x's dtype. On a CUDA tensor: the hand-written kernels
-    (four launches, see ``csrc/fused_attention.cu``), bf16 only, d = 64,
-    D and H*d multiples of 128. On a CPU tensor: the plain twin.
+    (four launches, see ``csrc/fused_attention.cu``: LN, the ``wgmma``
+    QKV GEMM of ``proj_plan``, K4's attention kernel, the out GEMM), bf16
+    only, d = 64, D and H*d multiples of 128. On a CPU tensor: the plain
+    twin.
 
     Returns ``out``; with ``save_residuals`` (the training variant)
     ``(out, (q, k, v, attn, lse))``: q (pre-scaled), k, v and attn as
@@ -199,8 +239,8 @@ def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
 
 
 def fused_supported(l: int, num_heads: int, head_d: int) -> bool:
-    """Whether the K1 port takes the shape. Its GEMM tiles are 128 wide
-    along N and K, so H*d (= D in ViT) must be a multiple of 128, and its
+    """Whether the K1 port takes the shape. Its GEMM (``proj_plan``) takes
+    N and K in multiples of 128, so H*d (= D in ViT) must be one, and its
     attention core is written for d = 64. Any L works: every launch masks
     its ragged row tail, so (unlike the TPU kernel) no single-block limit."""
     return l >= 1 and head_d == fa.BAND and (num_heads * head_d) % GEMM_TILE == 0
@@ -213,10 +253,15 @@ def auto_core(l: int, num_heads: int, head_ch: int, device):
     On the card: ``'fused'`` wherever the K1 port takes the shape;
     otherwise ``'flash'`` where the K4 port does (d = 64 and at least one
     full 64-row query tile); else None. Off the card None, as the JAX
-    package does off the TPU. At ViT-B, B = 32 on an H100 the K1 port beat
-    the ``'flash'`` core (torch LayerNorm, library projections, K4) at both
-    serving lengths, 0.206 vs 0.479 ms at L = 197 and 0.590 vs 0.794 ms at
-    L = 577 (``chip_smoke.py``), so no length threshold sits between them.
+    package does off the TPU. ViT-B/16 on an H100 (80GB HBM3, 700 W),
+    ``'fused'`` (``use_kernel='auto'``) against ``'flash'`` (torch
+    LayerNorm, library projections, K4; ``use_kernel='fused_layer'``) in one
+    call of ``scripts/torch_train_ab.py``: serving @224 bs32 2216-3431
+    against 1893-2480 img/s (host-bound, both spread), training @224 bs192
+    1694-1718 against 1582-1583 and @384 bs48 540-542 against 501; the
+    sublayer alone at B = 32, 0.1027 against 0.2864 ms at L = 197 and
+    0.3033 against 0.7151 at L = 577 (``chip_smoke.py``). No shape of these
+    sits on the flash side.
     """
     if torch.device(device).type != 'cuda':
         return None

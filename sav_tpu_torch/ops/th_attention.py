@@ -9,13 +9,14 @@ TalkingHeadsMHA(LN(x))`` (``+x`` optional) is one
 H, L, L]`` tensor is kept. Routes:
 
   * ``'fused'``   - the whole forward on the K5a port
-                    (``th_attention_fwd``: LN, QKV GEMM with q scaled,
-                    the talking-heads core with the logits of whole kv rows
-                    resident in shared memory, out GEMM), backward core on
-                    the K5b port (``th_attention_bwd``, ``csrc/th_bwd.cu``).
+                    (``th_attention_fwd``: LN, the ``wgmma`` QKV GEMM with q
+                    scaled, K6a's two-sweep talking-heads core, the out
+                    GEMM), backward core on the K5b port
+                    (``th_attention_bwd``, ``csrc/th_bwd.cu``).
   * ``'blocked'`` - LN and projections as library ops, the core on the K6a
                     port (``th_core_fwd``: two sweeps over the keys, any
-                    length), backward core on the K6b port (``th_core_bwd``).
+                    length; also K5a's core), backward core on the K6b port
+                    (``th_core_bwd``): where K1's GEMMs do not take D.
   * ``'xla'``     - the same boundary with the plain torch core (the JAX
                     package's name for its jnp path).
 The out-projection, weight gradients and LayerNorm backward are library
@@ -90,13 +91,14 @@ def th_bwd_plan(l: int, heads: int) -> dict:
 
 
 def th_fwd_plan(l: int, heads: int) -> dict:
-    """Launch geometry of K6a (``csrc/th_fwd_sm90.cuh``), mirrored from its
-    ``Plan``: persistent work tiles of ``rows`` = 64 query rows of one
-    image, each sweeping the keys twice in ``cols`` = 16-key tiles through
-    ``stages`` ring slots (k in the first sweep, k and v in the second);
-    ``smem``: the kernel's dynamic shared memory (resident q, the ring, two
-    bf16 exchange tiles of every head, mbarriers). Raises ValueError for a
-    head count the kernel is not built for."""
+    """Launch geometry of K6a, also K5a's core (``csrc/th_fwd_sm90.cuh``),
+    mirrored from its ``Plan``: persistent work tiles of ``rows`` = 64
+    query rows of one image, each sweeping the keys twice in ``cols`` =
+    16-key tiles through ``stages`` ring slots (k in the first sweep, k and
+    v in the second); ``smem``: the kernel's dynamic shared memory
+    (resident q, the ring, two bf16 exchange tiles of every head,
+    mbarriers). Raises ValueError for a head count the kernel is not built
+    for."""
     if heads not in KERNEL_HEADS:
         raise ValueError(
             f'the TH forward is built for H in {KERNEL_HEADS}, got {heads} '
@@ -113,16 +115,15 @@ def th_fwd_plan(l: int, heads: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def fused_smem(l: int, heads: int) -> int:
-    """Shared memory of the K5a core at length ``l``: ``sav_th_fwd_smem``
-    of ``csrc/th_attention.cu``, the one copy of the formula (the f32
-    logits of 128 / H query rows x whole kv rows for all H heads, their
-    bf16 mixed probabilities, a double-buffered ring of 32-key K/V tiles,
-    the mixes). Builds the library at first call, so it runs on the
-    machine with the card only."""
-    fn = _build.library('th_attention').sav_th_fwd_smem
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return fn(l, heads)
+def fused_smem(heads: int) -> int:
+    """Shared memory of the K5a core, K6a's two-sweep kernel:
+    ``sav_th_core_fwd_smem`` of ``csrc/th_attention.cu``, the card's own
+    formula (``th_fwd_plan`` mirrors it; the same at every length). Builds
+    the library at first call, so it runs on the machine with the card
+    only."""
+    fn = _build.library('th_attention').sav_th_core_fwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(heads)
 
 
 def kernel_supported(heads: int, head_ch: int) -> bool:
@@ -133,13 +134,13 @@ def kernel_supported(heads: int, head_ch: int) -> bool:
 def fused_fits(l: int, heads: int, dim: int, device='cuda') -> bool:
     """Whether the K5a port takes the shape: its LN/GEMM launches (shared
     with K1) need D and H*48 to be multiples of 128, and on the card its
-    core keeps whole logit rows in one block's 227 KB (``fused_smem``). Off
-    the card the plain twin has no such budget."""
+    core's shared memory (``fused_smem``, the same at every L) must fit one
+    block's 227 KB. Off the card the plain twin has no such budget."""
     if (dim % GEMM_TILE or (heads * HEAD_CH) % GEMM_TILE
             or not kernel_supported(heads, HEAD_CH)):
         return False
     return (torch.device(device).type != 'cuda'
-            or fused_smem(l, heads) <= fa.SMEM_LIMIT)
+            or fused_smem(heads) <= fa.SMEM_LIMIT)
 
 
 def th_route(l: int, heads: int, head_ch: int, dim: int, device):
@@ -147,14 +148,15 @@ def th_route(l: int, heads: int, head_ch: int, dim: int, device):
     (the per-op path) off the card, as the JAX package takes its jnp path
     off the TPU.
 
-    On the card: ``'fused'`` (K5) where its core's resident logit rows fit
-    in shared memory and K1's GEMM tiles take D; else ``'blocked'`` (K6,
-    any length and D). With H = 8 the rows fit up to L = 224 (CaiT-S/24
-    @224, L = 196: 221.5 KB of 227 KB); @384 (L = 576) they would need
-    ~500 KB, so K6 streams the keys twice instead. This is the card's
-    shared-memory threshold, not the TPU's VMEM caps (``_MAX_LIST_BYTES``,
-    the ``l >= 320`` floor). cait_xxs (D = 192) takes K6 at every length:
-    K1's GEMMs need D % 128 == 0. Head geometries the kernels are not built
+    On the card: ``'fused'`` (K5) where ``fused_fits`` holds: K1's GEMM
+    tiles take D and H*48 and the core's shared memory fits, at every
+    length (CaiT-S/24 @224 and @384); else ``'blocked'`` (K6, any D).
+    Both run the same two-sweep core; the blocked route's LN and
+    projections are library ops, 0.33 ms slower a layer than K5a's at
+    CaiT-S/24 @384 bs48 (``PERF.md``). These are the card's limits, not
+    the TPU's VMEM caps (``_MAX_LIST_BYTES``, the ``l >= 320`` floor).
+    cait_xxs (D = 192) takes K6 at every length: K1's GEMMs need D % 128
+    == 0. Head geometries the kernels are not built
     for (cait_xs, H = 6; cait_m, H = 16) raise rather than run the per-op
     path unasked: ``use_kernel=False`` asks for it.
     """
@@ -356,10 +358,10 @@ def th_attention_fwd(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
 
     x ``[B, L, D]``; scale, bias ``[D]``; wq, wk, wv ``[D, H*48]``, wo
     ``[H*48, D]`` in x's dtype; m_pre, m_post ``[H, H]``. On the card four
-    launches (``csrc/th_attention.cu``): K1's LN and QKV GEMM (q scaled by
-    1/sqrt(48) in its epilogue), the talking-heads core with whole logit
-    rows resident in shared memory (so ``fused_fits`` must hold), K1's out
-    GEMM without or with the residual. bf16 only. Returns ``out``; with
+    launches (``csrc/th_attention.cu``): K1's LN and ``wgmma`` QKV GEMM (q
+    scaled by 1/sqrt(48) in its epilogue; ``proj_plan``), K6a's two-sweep
+    talking-heads core, K1's out GEMM without or with the residual
+    (``fused_fits`` must hold). bf16 only. Returns ``out``; with
     ``save_residuals`` ``(out, (q, k, v, attn, lse))``, the backward's
     residuals (lse ``[B, H, L]`` f32 of each mixed head).
     """
@@ -381,7 +383,7 @@ def th_attention_fwd(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
                            ('wv', wv, (dim, hd)), ('wo', wo, (hd, dim))):
         if tuple(t.shape) != shape:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
-    mpre, mpost = _mixes(m_pre, m_post, heads, x.device)
+    mix = _mix_bank(m_pre, m_post, heads, x.device)
     scale = scale.to(x.device, torch.float32).contiguous()
     bias = bias.to(x.device, torch.float32).contiguous()
     y = torch.empty(b * l, dim, dtype=x.dtype, device=x.device)
@@ -391,10 +393,10 @@ def th_attention_fwd(x, scale, bias, wq, wk, wv, wo, m_pre, m_post,
            if save_residuals else None)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _fn('sav_th_attention_fwd', 16, 5, 2)(
+        err = _fn('sav_th_attention_fwd', 15, 5, 2)(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wq.data_ptr(),
-            wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), mpre.data_ptr(),
-            mpost.data_ptr(), y.data_ptr(), *[t.data_ptr() for t in qkva],
+            wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), mix.data_ptr(),
+            y.data_ptr(), *[t.data_ptr() for t in qkva],
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             b, l, dim, heads, int(residual), eps, 1.0 / math.sqrt(HEAD_CH),
             fa.stream_of(x.device))

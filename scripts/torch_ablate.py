@@ -20,6 +20,13 @@ with parts taken out, through the same C entries, on one card.
                                            # bs192's, CaiT-S/24 bs128's
     python scripts/torch_ablate.py k13s    # serving: ViT-B/16 bs32's rows
     python scripts/torch_ablate.py k12s    # Mixer-B/16's, CaiT-S/24's bs32
+    python scripts/torch_ablate.py k1      # csrc/fused_attention.cu (K1),
+                                           # ViT-B/16 @224 bs192 and bs32,
+                                           # TNT-S bs64 and TNT-B bs32
+    python scripts/torch_ablate.py k5a     # csrc/th_attention.cu (K5a),
+                                           # CaiT-S/24 @224 bs128 and bs32
+    python scripts/torch_ablate.py k1_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k5a_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py th_fwd_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k8b_mma --csrc OLD/sav_tpu_torch/csrc
@@ -82,6 +89,15 @@ second product not launched). The older 48-row-band K12's and K13's
 (``k12_mma``, ``k13_mma``, with hpre): full; no_sweep1 (the first sweep
 not run, the hidden scale fixed), w_once, no_gelu (the identity for the
 gelu), no_hpre (no hpre stored), no_second (the second product skipped).
+K1's and K5a's (``k1``, ``k5a``; ``k1_mma`` and ``k5a_mma`` for an older
+checkout's entries on the mma.sync GEMMs and resident core): full;
+no_core, the attention launch (K4's kernel, or the talking-heads core)
+not run; the Hopper GEMM's (``k1``, ``k5a``) no_epi, its epilogue (the
+staging tile and its TMA stores) skipped, and no_mma, its products skipped (the TMA ring alone); their
+yardsticks
+are the library chain (LN, matmuls, SDPA) and, for K5a, K6a's core
+(``th_core_fwd``) on the same q, k, v and the blocked route's forward (K5a
+also at CaiT @384's L = 576, B = 48, where the router takes that route).
 The outputs of the ablated variants are wrong by design; only their times
 mean something. Each launch of the full variant is also timed on its own
 (torch.profiler). Every variant is timed twice, the variants in order and
@@ -111,7 +127,7 @@ from sav_tpu_torch import _build  # noqa: E402
 from sav_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from sav_tpu_torch.ops import fused_layer as fl  # noqa: E402
 from sav_tpu_torch.ops import th_attention as th  # noqa: E402
-from sav_tpu_torch.utils.timing import time_ms  # noqa: E402
+from sav_tpu_torch.utils.timing import launch_ms, time_ms  # noqa: E402
 
 NO_EXP = ('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
           '  y = x;')
@@ -389,6 +405,89 @@ def _ff_serve_inputs(m, dim, hidden):
     return dict(_ff_sm90_inputs(m, dim, hidden), hpre=_Null())
 
 
+def _k1_inputs(b, seq, heads, dim, train, residual):
+    """K1's operands (x, the LayerNorm's f32 scale and bias, wq/wk/wv [D,
+    H*64] and wo [H*64, D] bf16), its scratch and its outputs; lse only for
+    the training variant."""
+    return _sublayer_inputs(b, seq, heads * 64, dim, train, heads)
+
+
+def _k5a_inputs(b, seq, heads, dim, train, residual):
+    """K5a's operands (as K1's at head width 48, and the [H, H] mixes near
+    the identity), scratch and outputs."""
+    t = _sublayer_inputs(b, seq, heads * th.HEAD_CH, dim, train, heads)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    t['mpre'], t['mpost'] = (
+        torch.eye(heads, device='cuda')
+        + 0.3 * torch.randn(heads, heads, device='cuda', generator=gen)
+        for _ in range(2))
+    t['mix'] = th._mix_bank(t['mpre'], t['mpost'], heads, 'cuda')
+    return t
+
+
+def _th_blocked(t, b, seq, heads, dim, train, residual):
+    """The blocked route's forward on the same inputs (torch LN and
+    projections around K6a's ``th_core_fwd``, the out matmul; grad off, so
+    no residuals; timed only)."""
+    w3 = [t[n].view(dim, heads, th.HEAD_CH) for n in ('wq', 'wk', 'wv')]
+    wo = t['wo'].view(heads, th.HEAD_CH, dim)
+    with torch.no_grad():
+        ms = time_ms(lambda: th.th_attention_sublayer(
+            t['x'], t['ls'], t['lb'], *w3, wo, t['mpre'], t['mpost'], heads,
+            route='blocked'))
+    return f'blocked route forward {ms:.4f} ms'
+
+
+def _sublayer_inputs(b, seq, hd, dim, train, heads):
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    bf = lambda *s: torch.empty(*s, device='cuda', dtype=torch.bfloat16)
+    return dict(x=mk(b, seq, dim).bfloat16(), ls=1 + mk(dim, std=0.1),
+                lb=mk(dim, std=0.1),
+                wq=mk(dim, hd, std=4 * dim ** -0.5).bfloat16(),
+                wk=mk(dim, hd, std=dim ** -0.5).bfloat16(),
+                wv=mk(dim, hd, std=dim ** -0.5).bfloat16(),
+                wo=mk(hd, dim, std=hd ** -0.5).bfloat16(),
+                y=bf(b * seq, dim), qs=bf(b, seq, hd), ks=bf(b, seq, hd),
+                vs=bf(b, seq, hd), attn=bf(b, seq, hd), out=bf(b, seq, dim),
+                lse=(torch.empty(b, heads, seq, device='cuda') if train
+                     else _Null()))
+
+
+def _sublayer_chain(d):
+    """The library chain of the sublayer on the same inputs (timed only):
+    F.layer_norm, three matmuls (q scaled), the attention (SDPA at d = 64,
+    the per-op talking-heads chain at d = 48), the out matmul, + x."""
+    def other(t, b, seq, heads, dim, train, residual):
+        split = lambda a: a.view(b, seq, heads, d).transpose(1, 2)
+
+        def chain():
+            y = F.layer_norm(t['x'], (dim,), t['ls'].bfloat16(),
+                             t['lb'].bfloat16(), 1e-6)
+            q = (y @ t['wq']) * d ** -0.5
+            k, v = y @ t['wk'], y @ t['wv']
+            if d == 64:
+                a = F.scaled_dot_product_attention(split(q), split(k),
+                                                   split(v), scale=1.0)
+            else:
+                s = split(q) @ split(k).transpose(-1, -2)
+                s = torch.einsum('hi,bhqk->biqk', t['mpre'].bfloat16(), s)
+                a = torch.einsum('hi,bhqk->biqk', t['mpost'].bfloat16(),
+                                 s.softmax(-1)) @ split(v)
+            out = a.transpose(1, 2).reshape(b, seq, -1) @ t['wo']
+            return t['x'] + out if residual else out
+
+        return f'library chain {time_ms(chain):.4f} ms'
+    return other
+
+
+def _k6a_core(t, b, seq, heads, dim, train, residual):
+    """K6a's core (this checkout's ``th_core_fwd``) on the q, k, v the full
+    variant left in the scratch (timed only)."""
+    return 'K6a core th_core_fwd %.4f ms' % time_ms(lambda: th.th_core_fwd(
+        t['qs'], t['ks'], t['vs'], t['mpre'], t['mpost'], heads))
+
+
 def _ff_library(ln):
     """The int8 chain of torch codes and ``torch._int_mm`` (timed only), as
     chip_smoke.py's K12/K13 yardstick, with hpre."""
@@ -472,7 +571,81 @@ FF_MMA_VARIANTS = {
 }
 
 
+# K1's attention launch not run
+K1_VARIANTS = {
+    'full': [],
+    'no_core': [('  const int att = k4::flash_fwd(',
+                 '  const int att = M >= 0 ? 0 : k4::flash_fwd(')],
+}
+# the projection GEMM (csrc/proj_sm90.cuh) without its epilogue's stores,
+# or without its products (what the TMA ring alone costs)
+PROJ_VARIANTS = {
+    'no_epi': [('    if (leader) bulk_wait_read();',
+                '    if (args.m >= 0) continue;\n    if (leader) '
+                'bulk_wait_read();')],
+    'no_mma': [('        wgmma_kmn<BN>(acc, da + kk * K_STEP, db + kk * '
+                'MN_STEP);', '        ;')],
+}
+K5A_SHAPES = [(128, 196, 8, 384, True, False),
+              (32, 196, 8, 384, False, False)]
+# K5a's core launch not run
+K5A_NO_CORE = [('  err = heads == 4\n',
+                '  err = M >= 0 ? cudaSuccess : heads == 4\n')]
+
+
 KERNELS = {
+    # K1 and K5a: LN, QKV GEMM, attention core, out GEMM (four launches)
+    'k1': dict(
+        source='fused_attention.cu', inline='proj_sm90.cuh',
+        shapes=[(192, 197, 12, 768, True, True),
+                (32, 197, 12, 768, False, True),
+                (64, 197, 6, 384, True, False),
+                (32, 197, 10, 640, True, False)],
+        inputs=_k1_inputs, label='B={} L={} H={} D={} train={} residual={}',
+        entries={'sav_fused_attention_fwd': (
+            'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'y', 'qs', 'ks', 'vs',
+            'attn', 'out', 'lse')},
+        dims=lambda b, seq, heads, dim, train, res, t: (
+            b, seq, dim, heads, int(res), 1e-6, 0.125),
+        others=[_sublayer_chain(64)],
+        variants=dict(K1_VARIANTS, **PROJ_VARIANTS)),
+    # the mma.sync K1 of an older checkout (with --csrc on its csrc/)
+    'k1_mma': dict(
+        source='fused_attention.cu', inline=(),
+        shapes=[(192, 197, 12, 768, True, True),
+                (32, 197, 12, 768, False, True),
+                (64, 197, 6, 384, True, False),
+                (32, 197, 10, 640, True, False)],
+        inputs=_k1_inputs, label='B={} L={} H={} D={} train={} residual={}',
+        entries={'sav_fused_attention_fwd': (
+            'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'y', 'qs', 'ks', 'vs',
+            'attn', 'out', 'lse')},
+        dims=lambda b, seq, heads, dim, train, res, t: (
+            b, seq, dim, heads, int(res), 1e-6, 0.125),
+        others=[_sublayer_chain(64)],
+        variants=K1_VARIANTS),
+    'k5a': dict(
+        source='th_attention.cu', inline='proj_sm90.cuh', shapes=K5A_SHAPES + [(48, 576, 8, 384, False, False)],
+        inputs=_k5a_inputs, label='B={} L={} H={} D={} train={} residual={}',
+        entries={'sav_th_attention_fwd': (
+            'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'mix', 'y', 'qs', 'ks',
+            'vs', 'attn', 'out', 'lse')},
+        dims=lambda b, seq, heads, dim, train, res, t: (
+            b, seq, dim, heads, int(res), 1e-6, 48 ** -0.5),
+        others=[_sublayer_chain(48), _k6a_core, _th_blocked],
+        variants=dict({'full': [], 'no_core': K5A_NO_CORE}, **PROJ_VARIANTS)),
+    # the mma.sync K5a of an older checkout (with --csrc on its csrc/; its
+    # C entry takes M_pre and M_post apart)
+    'k5a_mma': dict(
+        source='th_attention.cu', inline=(), shapes=K5A_SHAPES,
+        inputs=_k5a_inputs, label='B={} L={} H={} D={} train={} residual={}',
+        entries={'sav_th_attention_fwd': (
+            'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'mpre', 'mpost', 'y',
+            'qs', 'ks', 'vs', 'attn', 'out', 'lse')},
+        dims=lambda b, seq, heads, dim, train, res, t: (
+            b, seq, dim, heads, int(res), 1e-6, 48 ** -0.5),
+        others=[_sublayer_chain(48), _k6a_core],
+        variants={'full': [], 'no_core': K5A_NO_CORE}),
     'k2': dict(
         source='flash_bwd.cu', inline='flash_sm90.cuh',
         shapes=[(192, 197, 12)], inputs=_flash_inputs,
@@ -535,7 +708,8 @@ KERNELS = {
             'no_acc': [('      wgmma_rs_n48(acc[2 * hg + hh], a[hh],\n'
                         '                   str1 + (2 * hg + hh) * '
                         '(BOX_STR * 2 / 16));', '      ;')],
-        }),    'k16': dict(
+        }),
+    'k16': dict(
         source='ff_bwd.cu', inline='ff_bwd_sm90.cuh',
         shapes=[(192 * 197, 768, 3072)], inputs=_k16_inputs,
         label='M={} D={} F={}',
@@ -953,29 +1127,10 @@ def main(argv=None) -> int:
 
 
 def per_kernel(fns, calls: int = 10) -> str:
-    """Device time of each launch of the full variant's C entries, in
-    launch order (torch.profiler, mean over ``calls`` calls): two launches
-    of one kernel are two entries."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.name.startswith(('Memcpy', 'Memset'))),
-                     key=lambda e: e.time_range.start)
-    per = len(kernels) // calls
-    rows = [(kernels[i].name, sum(kernels[i + c * per].time_range.elapsed_us()
-                                  for c in range(calls)) / calls / 1e3)
-            for i in range(per)]
+    """Device time of each kernel of the full variant's C entries a call
+    (``timing.launch_ms``)."""
     return 'full, by launch: ' + '; '.join(
-        f'{name[:48]} {ms:.4f} ms' for name, ms in rows)
+        f'{name[:48]} {ms:.4f} ms' for name, ms in launch_ms(fns, calls))
 
 
 if __name__ == '__main__':

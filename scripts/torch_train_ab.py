@@ -24,9 +24,11 @@ ViT-B/16's serving and ``fused_ff`` training shapes, K2 at the @224
 training shape and at 200 rows over 190 keys, the talking-heads backward
 at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
 CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576), K5a at
-B=32 L=196, K8b at Mixer-B/16 bs192, K13 and K12 at their paths' rows
-(ViT-B/16 and Mixer-B/16 bs192 with save_hpre and bs32 serving, CaiT-S/24
-bs128 with save_hpre), and as controls K5a, K16 (37,824 rows), K8a's
+B=32 and 128 L=196, K1 without the residual at TNT-S/16's and TNT-B/16's
+widths (serving bs32, training bs64 and bs32), K8b at Mixer-B/16 bs192,
+K13 and K12 at their paths' rows (ViT-B/16 and Mixer-B/16 bs192 with
+save_hpre and bs32 serving, CaiT-S/24 bs128 with save_hpre), and as
+controls K16 (37,824 rows), K8a's
 training launch and K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224
 bs128's FF rows, each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
@@ -105,7 +107,7 @@ if args['kernels']:
             lambda: fa.bwd_fused(q, k, v, o, lse, do, heads, kv_len))
     # the talking-heads kernels at CaiT-S/24's shapes: the backward (K5b,
     # K6b) at the training shapes, K6a at the serving (B=32) and training
-    # (B=48) shapes @384, K5a (a control: its code is not K6a's) @224
+    # (B=48) shapes @384
     from sav_tpu_torch.ops import th_attention as th
     heads = 8
     hd = heads * th.HEAD_CH
@@ -126,14 +128,32 @@ if args['kernels']:
         m = mixes()
         out[f'K6a B={{b}} L=576'] = time_ms(
             lambda: th.th_core_fwd(q, k, v, *m, heads))
+    # K5a at CaiT-S/24 @224's serving (B=32) and training (B=128) shapes
     dim = 384
-    x = bf16((32, 196, dim))
     w = [bf16((dim, hd), 1 / math.sqrt(dim)) for _ in range(3)]
     wo = bf16((hd, dim), 1 / math.sqrt(hd))
     ones, zeros = torch.ones(dim, device='cuda'), torch.zeros(dim, device='cuda')
     m = mixes()
-    out['K5a (control) B=32 L=196'] = time_ms(lambda: th.th_attention_fwd(
-        x, ones, zeros, *w, wo, *m, heads))
+    for b, train in ((32, False), (128, True)):
+        x = bf16((b, 196, dim))
+        out[f'K5a B={{b}} L=196' + (' save_residuals' if train else '')] = \
+            time_ms(lambda: th.th_attention_fwd(
+                x, ones, zeros, *w, wo, *m, heads, save_residuals=train))
+    # K1 without the residual at TNT's outer widths (TNT-S D=384 H=6,
+    # TNT-B D=640 H=10, L=197): serving bs32, training bs64 and bs32
+    for name, b, dim, heads1, train in (('TNT-S', 32, 384, 6, False),
+                                        ('TNT-B', 32, 640, 10, False),
+                                        ('TNT-S', 64, 384, 6, True),
+                                        ('TNT-B', 32, 640, 10, True)):
+        x = bf16((b, 197, dim))
+        scale = (1 + 0.1 * bf16((dim,))).float()
+        bias = (0.1 * bf16((dim,))).float()
+        w1 = [bf16((dim, dim), s / math.sqrt(dim)) for s in (4, 1, 1, 1)]
+        key = f'K1 residual=False {{name}} B={{b}}' + (
+            ' save_residuals' if train else '')
+        out[key] = time_ms(lambda: fused_layer.fused_attention_fwd(
+            x, scale, bias, *w1, heads1, save_residuals=train,
+            residual=False))
     # K8b at Mixer-B/16 bs192; the controls, whose code does not change:
     # K16 (ViT-B/16 @224 bs192's rows), K8a's training launch (Mixer-B/16
     # bs192), K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224 bs128's FF

@@ -252,6 +252,52 @@ def test_fused_attention_training_variant(card, seq):
     assert (lse - own).abs().max() <= 1e-3
 
 
+# the projection GEMM (csrc/proj_sm90.cuh) at every width its plan tiles
+# differently (D = 384: 192-wide tiles; 640: 128; 768: 256), at ragged M
+# (3 x 197 and 5 x 131 rows), inference and training, with and without +x
+@pytest.mark.parametrize('train', [False, True])
+@pytest.mark.parametrize('residual', [False, True])
+@pytest.mark.parametrize('dim,b,seq', [(384, 3, 197), (640, 5, 131),
+                                       (768, 3, 197)])
+def test_projection_gemm_widths(card, dim, b, seq, residual, train):
+    rng = np.random.RandomState(dim + seq + 2 * residual + train)
+    heads = dim // 64
+    x = _bf16(rng, (b, seq, dim), 1, card)
+    scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
+    bias = _bf16(rng, (dim,), 0.1, card).float()
+    wq, wk, wv, wo = (_bf16(rng, (dim, dim), s / math.sqrt(dim), card)
+                      for s in (4, 1, 1, 1))
+    args = (x, scale, bias, wq, wk, wv, wo, heads, fused_layer.LN_EPS, train)
+    out = fused_layer.fused_attention_fwd(*args, residual=residual)
+    plain = fused_layer.fused_attention_fwd_plain(*args, residual=residual)
+    if train:
+        (out, res), (plain, p_res) = out, plain
+        for ours, twin in zip(res[:4], p_res[:4]):
+            assert _rel(ours, twin) <= 2e-2
+    contrib = (plain.float() - (x.float() if residual else 0)).abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * contrib
+
+
+def test_proj_plan_matches_the_kernel(card):
+    """proj_plan mirrors the GEMM's plan_bn and Plan (sav_proj_plan) at the
+    paths' rows and widths and at ragged and tiny M."""
+    import ctypes
+
+    from sav_tpu_torch import _build
+    fn = _build.library('fused_attention').sav_proj_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    for m in (1, 129, 591, 6272, 6304, 12608, 25088, 37824):
+        for n, parts in ((384, 3), (384, 1), (640, 3), (640, 1), (768, 3),
+                         (768, 1), (256, 3)):
+            for sms in (132, 114):
+                fn(m, n, parts, sms, ctypes.addressof(out))
+                plan = fused_layer.proj_plan(m, n, parts, 128, sms)
+                assert (out[0], out[1], out[2]) == (
+                    plan['bn'], plan['smem'], plan['units']), (m, n, parts)
+
+
 @pytest.mark.parametrize('core,seq', [('fused', 197), ('flash', 197),
                                       ('fused', 300)])
 def test_sublayer_gradients_match_plain_core(card, core, seq):
@@ -297,7 +343,7 @@ def test_th_core_fwd_matches_twin(card, seq, heads):
 
 
 @pytest.mark.parametrize('seq,residual', [(5, False), (196, False),
-                                          (224, True)])
+                                          (224, True), (577, False)])
 def test_th_attention_fwd_matches_twin(card, seq, residual):
     rng = np.random.RandomState(seq)
     dim, heads = 384, 8
@@ -529,12 +575,15 @@ def test_th_sublayer_gradients_over_seeds(card):
 
 def test_th_smem_formula_matches_the_kernel(card):
     """The kernel's own shared-memory formula decides K5 vs K6 on the card:
-    the resident rows fit up to L = 224 at H = 8."""
-    assert th_attention.fused_smem(196, 8) == 226816 <= 232448
-    assert th_attention.fused_smem(576, 8) > 232448
-    for l, want in ((196, 'fused'), (224, 'fused'), (225, 'blocked'),
-                    (576, 'blocked')):
+    K5a's core is the two-sweep core, whose shared memory fits at every
+    length, so K5 takes every L where K1's GEMMs take D (cait_xxs's D = 192
+    is K6's)."""
+    assert th_attention.fused_smem(8) == th_attention.th_fwd_plan(
+        196, 8)['smem'] <= 232448
+    for l, want in ((196, 'fused'), (224, 'fused'), (225, 'fused'),
+                    (576, 'fused')):
         assert th_attention.th_route(l, 8, 48, 384, card) == want
+    assert th_attention.th_route(196, 4, 48, 192, card) == 'blocked'
 
 
 def test_th_wrappers_refuse_and_count(card):
@@ -550,11 +599,13 @@ def test_th_wrappers_refuse_and_count(card):
     with pytest.raises(RuntimeError, match='forward-only'):
         th_attention.th_core_fwd(q.float().requires_grad_().bfloat16(), k, v,
                                  *m, 8)
-    x = torch.zeros(1, 577, 384, device=card, dtype=torch.bfloat16)
-    w = torch.zeros(384, 384, device=card, dtype=torch.bfloat16)
+    # D = 192 (cait_xxs's width): K1's GEMMs take multiples of 128
+    x = torch.zeros(1, 40, 192, device=card, dtype=torch.bfloat16)
+    w = torch.zeros(192, 192, device=card, dtype=torch.bfloat16)
+    m4 = [torch.eye(4, device=card)] * 2
     with pytest.raises(ValueError, match='fused_fits'):
         th_attention.th_attention_fwd(x, w[0].float(), w[0].float(), w, w, w,
-                                      w, *m, 8)
+                                      w, *m4, 4)
     _build.reset_launches()
     attn, lse = th_attention.th_core_fwd(q, k, v, *m, 8)
     th_attention.th_core_bwd(q, k, v, do, lse, *m, 8)

@@ -17,6 +17,12 @@ CPU (``csrc/th_fwd_sm90.cuh``, K6a; the kernel runs only on the card,
   1e-5: f32 sums in another order) and, at one ragged shape, against the
   JAX package's ``_th_blk_fwd_kernel`` (K6a) in Pallas interpret mode at
   the same bounds.
+* ``k5a_algebra``, K5a's whole span as the card runs it: the LayerNorm, the
+  projection GEMM's one rounding of an f32 sum (q scaled first), the core
+  of ``kernel_algebra`` (K6a's kernel is K5a's core), the out GEMM. Held at the same bounds (lse 1e-5, the rest 2^-8 of max) against
+  ``th_attention_fwd_plain`` and, at the ragged L = 68 = 64 + 4 (the tail
+  of CaiT-S/24 @224's 196 = 3 x 64 + 4), against the JAX package's
+  ``_th_fwd_kernel`` (K5a) in Pallas interpret mode.
 """
 
 import functools
@@ -29,6 +35,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from sav_tpu.ops import th_attention as jax_th
+from sav_tpu_torch.ops import fused_layer as fl
 from sav_tpu_torch.ops import th_attention as th
 
 import torch_parity  # noqa: F401  (pins torch to one thread)
@@ -174,3 +181,81 @@ def test_kernel_algebra_matches_jax_blocked_kernel():
     want = (torch.from_numpy(np.array(attn_p[:, :l], np.float32)),
             torch.from_numpy(np.array(lse_p[:, :, :l, 0], np.float32)))
     _hold(kernel_algebra(q, k, v, *m, heads), want)
+
+
+def _span_inputs(b, l, dim, heads, seed):
+    rng = np.random.RandomState(seed)
+    hd = heads * 48
+    mk = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32))
+    x = mk((b, l, dim), 1.0).bfloat16()
+    scale, bias = 1.0 + mk((dim,), 0.1), mk((dim,), 0.1)
+    ws = [mk((dim, hd), s / np.sqrt(dim)).bfloat16() for s in (4, 1, 1)]
+    ws.append(mk((hd, dim), 1 / np.sqrt(hd)).bfloat16())
+    mixes = [torch.from_numpy((np.eye(heads) + 0.3 * rng.standard_normal(
+        (heads, heads))).astype(np.float32)) for _ in range(2)]
+    return x, scale, bias, ws, mixes
+
+
+def _gemm(a, w, sc=1.0):
+    """The projection GEMM's arithmetic: bf16 operands, one f32 sum, q's
+    scale on the f32 result, one rounding."""
+    return ((a.float() @ w.float()) * sc).to(a.dtype)
+
+
+def k5a_algebra(x, scale, bias, wq, wk, wv, wo, m_pre, m_post, heads):
+    """K5a on the card in torch (test only): (out, (q, k, v, attn, lse))
+    like ``th_attention_fwd_plain`` with ``save_residuals``."""
+    y = fl._layernorm(x, scale, bias, fl.LN_EPS)[0]
+    q, k, v = _gemm(y, wq, 48 ** -0.5), _gemm(y, wk), _gemm(y, wv)
+    attn, lse = kernel_algebra(q, k, v, m_pre, m_post, heads)
+    return _gemm(attn, wo), (q, k, v, attn, lse)
+
+
+def _rel_ok(ours, ref):
+    err = float((ours.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    assert err <= ATTN_TOL, err
+
+
+def _hold_span(got, want):
+    (out, res), (w_out, w_res) = got, want
+    for ours, ref in zip((out, *res[:4]), (w_out, *w_res[:4])):
+        _rel_ok(ours, ref)
+    lse_err = float((res[4] - w_res[4]).abs().max())
+    assert lse_err <= LSE_TOL, lse_err
+
+
+@pytest.mark.parametrize('b,l', [(2, 68), (1, 130)])
+def test_k5a_algebra_matches_twin(b, l):
+    x, scale, bias, ws, m = _span_inputs(b, l, 128, 8, l)
+    _hold_span(k5a_algebra(x, scale, bias, *ws, *m, 8),
+               th.th_attention_fwd_plain(x, scale, bias, *ws, *m, 8,
+                                         save_residuals=True))
+
+
+def test_k5a_algebra_matches_jax_fused_kernel():
+    """At L = 68, H = 8, D = 128: the JAX package's K5a (``_th_fwd_kernel``
+    through its launcher, Pallas interpret mode on the CPU) on the same
+    bf16 inputs, stage by stage so that each stage sees the same bf16
+    operands (one q element rounded to its neighbour moves attn by more
+    than a rounding): q, k, v from x; the core from the JAX q, k, v; out
+    from the JAX attn. Its rows past L are padding."""
+    b, l, dim, heads = 1, 68, 128, 8
+    x, scale, bias, ws, m = _span_inputs(b, l, dim, heads, 5)
+    j = lambda t: jnp.asarray(t.float().numpy())
+    fwd = jax.jit(functools.partial(
+        jax_th._th_fused_fwd, heads=heads, dp=48, d_logical=48,
+        eps=fl.LN_EPS, residual=False, save_residuals=True))
+    out, res = fwd(j(x).astype(jnp.bfloat16), j(scale), j(bias),
+                   *[j(w).astype(jnp.bfloat16) for w in ws], j(m[0]),
+                   j(m[1]))
+    back = lambda a: torch.from_numpy(
+        np.array(a[:, :l].astype(jnp.float32))).bfloat16()
+    jq, jk, jv, jattn = (back(t) for t in res[:4])
+    jlse = torch.from_numpy(np.array(res[4][:, :, :l, 0], np.float32))
+    _, (q, k, v, _, _) = k5a_algebra(x, scale, bias, *ws, *m, heads)
+    for ours, ref in zip((q, k, v), (jq, jk, jv)):
+        _rel_ok(ours, ref)
+    _hold(kernel_algebra(jq, jk, jv, *m, heads), (jattn, jlse))
+    _rel_ok(_gemm(jattn, ws[3]), back(out))
