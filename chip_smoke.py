@@ -48,9 +48,11 @@
    (24 K6a + 24 K6b) at stochastic depth 0.1, gradients against the plain
    core (use_kernel='fused_th_xla') with the f32 per-op path as the noise
    floor on the step's whole batch, train img/s and peak memory.
-6. Mixer-B/16 and the FF backward (slice 4): K8a (token mixing forward)
-   against its twin at the factory's token-mix shapes (L/K/D 196/98/768 at
-   B=32 and B=192, 49/24/512, 196/98/1024), K8b (its backward) at B=192
+6. Mixer-B/16 and the FF backward (slice 4): K8a (token mixing forward;
+   the Hopper band kernel of mixer_bwd_sm90.cuh at both factory widths,
+   with its launches' split) against its twin at the factory's token-mix
+   shapes (L/K/D 196/98/768 at B=32 and B=192, 49/24/512, 196/98/1024),
+   K8b (its backward) at B=192
    with all seven gradients, K16 (the FF-sublayer backward) at ViT-B/16
    @224 bs192's M = 37,824 rows and at ragged M = 1003 and 129 (weight
    gradients of both at WGRAD_TOL; K8b's and K16's two calls
@@ -68,8 +70,9 @@
    L=197, D/H 384/6 and 640/10); K7a (the whole inner layer) at TNT-S's
    serving and training shapes (B*P = 32 x 196 and 64 x 196, D=24) and
    TNT-B's (32 x 196, D=40), K7b (its backward: dx and 12 parameter
-   gradients, two calls bit-identical) at TNT-S bs64 and TNT-B bs32, the
-   ragged tail (an odd B*P) on NaN-sentinel buffers; serving TNT-S @224
+   gradients from per-block partials, two calls bit-identical, with its
+   launches' split) at TNT-S bs64 and TNT-B bs32, the ragged tail (an odd
+   B*P, at both widths) on NaN-sentinel buffers; serving TNT-S @224
    bs32 (12 K7a + 12 K1 launches per forward, logits against the per-op
    path); training TNT-S @224 bs64 and TNT-B @224 bs32 (12 K7a + 12 K7b +
    12 K1-train + 12 K2 per step, gradients against the plain core on the
@@ -303,11 +306,16 @@ def _bf16(rng, shape, std=1.0):
 
 def launch_split(fn) -> str:
     """Device time of each kernel one call of ``fn`` launches
-    (``timing.launch_ms``; the wrapper's own small torch launches
-    included): which of a C entry's kernels costs what."""
+    (``timing.launch_ms`` over 10 calls; the wrapper's own small torch
+    launches included): which of a C entry's kernels costs what. Late in
+    this long process the profiler keeps only part of the records (K8a's
+    and K7b's splits summed to ~40% of their CUDA-event times over 5 calls
+    on the card, 73-77% over 10): read the shares, and take the times from
+    ``scripts/torch_ablate.py``, whose split in a fresh process matches
+    the events."""
     short = lambda name: name.split('(')[0].replace('void ', '')[-40:]
     return '; '.join(f'{short(name)} {ms:.4f} ms'
-                     for name, ms in launch_ms([fn], 5))
+                     for name, ms in launch_ms([fn], 10))
 
 
 def _k1_case(rng, batch, seq, dim, heads):
@@ -1069,6 +1077,9 @@ def check_k8a(rng, checks, batch, l, k, d):
           f'plain {rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms'
           f'  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, '
           f'{nbytes / 1e6:.1f} MB)', flush=True)
+    print(f'  K8a B={batch} L={l} D={d} launches (route '
+          f'{mt.mixer_fwd_plan(batch, l, k, d)["route"]}): '
+          + launch_split(lambda: mt.token_mix_fwd(*args)), flush=True)
     return rec
 
 
@@ -1445,13 +1456,18 @@ def check_k7b(rng, checks, n, d):
           f'(per-op backward) {rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms '
           f'({b_by}; {ops / 1e9:.2f} GFLOP tensor, {f32_ops / 1e9:.2f} GFLOP '
           f'f32, {nbytes / 1e6:.1f} MB)', flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tnt_inner.tnt_bwd_plan(n, d, 4 * d, 4, sms)
+    print(f'  K7b B*P={n} D={d} launches ({plan["warps"]} warps x '
+          f'{plan["blocks"]} blocks, workspace {plan["workspace"]} B): '
+          + launch_split(_k7_raw(args, g)[0]), flush=True)
     return rec
 
 
 def check_k7_sentinels(rng, checks, n, d):
     """The ragged tail: K7a's out and K7b's dx for n patches (odd, so not a
-    multiple of a block's warps nor of the 4-patch rows of the dW GEMMs)
-    written into buffers 64 patches longer holding a NaN sentinel. The n
+    multiple of a block's warps: K7b's last round is part-filled) written
+    into buffers 64 patches longer holding a NaN sentinel. The n
     patches must match the twins and the rest keep the sentinel: nothing
     padded, no patch dropped, none written past; the weight gradients of
     that call at WGRAD_TOL."""
@@ -2383,15 +2399,15 @@ def main(argv=None):
                 print(f'  {name}: {line.strip()}', flush=True)
     # the wgmma kernels (K4 and K1's attention, K1's and K5a's projection
     # GEMM (proj_gemm_kernel), K2, K3, K5b/K6b, K6a (also K5a's core), K16,
-    # K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel); their files'
-    # mma.sync kernels beside them):
+    # K8a, K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel); their
+    # files' mma.sync kernels beside them, K7a and K7b among them):
     # each kernel's registers, spills and any wgmma warning (C7510-C7515:
     # serialized)
     for lib, label in (('flash_fwd', 'K4'), ('fused_attention', 'K1'),
                        ('flash_bwd', 'K2'),
                        ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b'),
                        ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16'),
-                       ('mixer_token', 'K8a/K8b'),
+                       ('mixer_token', 'K8a/K8b'), ('tnt_inner', 'K7a/K7b'),
                        ('int8_ff', 'K12/K13/K14')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
@@ -2509,6 +2525,7 @@ def main(argv=None):
     k7b = {(n, d): check_k7b(rng, checks, n, d)
            for n, d in ((64 * 196, 24), (32 * 196, 40))}
     check_k7_sentinels(rng, checks, 65 * 196 - 1, 24)
+    check_k7_sentinels(rng, checks, 33 * 196 - 1, 40)
     tnt_serve = serve_path(checks, 'TNT-S/16 @224 auto', 224, 'auto',
                            {'tnt_inner_fwd': 12, 'fused_attention_fwd': 12},
                            args.seed, args.batch, args.profile,

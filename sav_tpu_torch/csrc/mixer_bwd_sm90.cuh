@@ -1,8 +1,9 @@
-// The K8b port on Hopper (wgmma, TMA, mbarriers; sm90.cuh): the token-
-// mixing backward's band work as one persistent kernel, channel-major, with
-// the three products on wgmma and their results kept in registers, and the
-// LayerNorm backward as one pass a row (mixer_token.cu says what the
-// backward computes).
+// The K8a and K8b ports on Hopper (wgmma, TMA, mbarriers; sm90.cuh). K8a,
+// the token-mixing forward, is the forward band kernel below ("K8a"). K8b:
+// the token-mixing backward's band work as one persistent kernel,
+// channel-major, with the three products on wgmma and their results kept
+// in registers, and the LayerNorm backward as one pass a row
+// (mixer_token.cu says what the backward computes).
 //
 // Band work, for a unit (image b, channels c0..c0+63), M = the 64 channels:
 //   hp^T [c, K]    = y^T W1 + b1: A the normalised x tile (y, bf16, MN-
@@ -134,6 +135,308 @@ __device__ __forceinline__ void stage(const bf16* __restrict__ src, int n,
   for (int i = done + threadIdx.x; i < n; i += THREADS) raw[i] = src[i];
 }
 
+// W1 and W2 into the block's shared memory once (with the barriers'
+// initialisation): staged as they are in `raw` (four x tiles), then laid
+// out zero-padded and swizzled, W1 transposed to [k][l].
+template <int KP, int NCH, int CB>
+__device__ __forceinline__ void load_weights(const bf16* w1, const bf16* w2,
+                                             const float* b1, int l, int k,
+                                             unsigned char* sW1,
+                                             unsigned char* sW2, float* sB1,
+                                             bf16* raw1, bf16* raw2,
+                                             uint64_t* bars) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bars[i], 1);
+    fence_mbar_init();
+  }
+  stage(w1, l * k, raw1);
+  stage(w2, k * l, raw2);
+  for (int i = tid; i < KP; i += THREADS) sB1[i] = i < k ? b1[i] : 0.f;
+  __syncthreads();
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < KP * NCH * 64; i += THREADS) {
+    const int kk = i / (NCH * 64), ll = i % (NCH * 64);
+    const int off = (ll >> 6) * CB + swz(kk, ll & 63);
+    const bool in = kk < k && ll < l;
+    *reinterpret_cast<bf16*>(sW1 + off) = in ? raw1[ll * k + kk] : zero;
+    *reinterpret_cast<bf16*>(sW2 + off) = in ? raw2[kk * l + ll] : zero;
+  }
+  fence_proxy_async();                     // read by wgmma and by TMA's
+  __syncthreads();                         // writes into the tiles
+}
+
+// ---- K8a: the forward band kernel
+//
+// Replaces sav_tpu/ops/mixer_token.py::_fwd_kernel on this route (what it
+// computes: mixer_token.cu). A unit (image b, channels c0..c0+63) as the
+// backward's, M = the 64 channels:
+//   y^T [c, LP]    the x tile read transposed by ldmatrix straight into
+//                  wgmma's register A operand and normalised there (the
+//                  row statistics by token, the LN scale and bias by
+//                  channel, two channels a thread): no y tile;
+//   hp^T [c, KP]   = y^T W1 on wgmma, B W1 K-major as the backward's hp;
+//   gact = bf16(gelu(hp + b1)) in registers, packed as the next A;
+//   out^T [c, LN]  = gact^T W2 on wgmma, B W2 [k][l] read MN-major (as the
+//                  backward reads W1 for dy);
+//   out = bf16(x + (out + b2)): x read transposed again (ldmatrix), the
+//   result written over it (stmatrix), and the tile stored by one TMA
+//   store (rows past L are not written).
+// Bound on the card: x read once and out written once (0.0345 ms at
+// Mixer-B/16 bs192); the products are ~98 operations a byte. Each
+// warpgroup holds two x tiles: the next unit's x is loaded into the other
+// one (once that tile's store has been read) as the unit's products start,
+// and the next unit's row statistics and LN parameters into registers, so
+// neither waits on device memory at the unit's start. Shared memory at
+// <200, 112>: W1 and W2 114,688 bytes, four tiles 106,496, the statistics
+// and biases.
+template <int LN, int KP>
+struct FwdGeo {
+  static constexpr int LP = Geo<LN, KP>::LP;
+  static constexpr int NCH = Geo<LN, KP>::NCH;
+  static constexpr int CB = Geo<LN, KP>::CB;
+  static constexpr int TILE = Geo<LN, KP>::TILE;
+  static constexpr int OFF_W1 = 0;
+  static constexpr int OFF_W2 = NCH * CB;
+  static constexpr int OFF_X = 2 * NCH * CB;         // [2 warpgroups][2]
+  static constexpr int OFF_STAT = OFF_X + 4 * TILE;  // [2][2][LP] f32
+  static constexpr int OFF_B2 = OFF_STAT + 2 * 2 * LP * 4;  // [LP] f32
+  static constexpr int OFF_B1 = OFF_B2 + LP * 4;     // [KP] f32
+  static constexpr int OFF_BAR = OFF_B1 + KP * 4;    // [2][2] mbarriers
+  static constexpr int SMEM = OFF_BAR + 4 * 8 + 1024;
+  static_assert(LN * KP * 2 <= 2 * TILE, "weights staged in the tiles");
+};
+
+struct FwdArgs {
+  const float* stats;   // [B L, 2] mu, 1/sigma
+  const float* ls;      // [D]
+  const float* lb;      // [D]
+  const bf16* w1;       // [L, K]
+  const float* b1;      // [K]
+  const bf16* w2;       // [K, L]
+  const float* b2;      // [L]
+  int batch, l, k, d;
+};
+
+// The register A operand of 16-deep step s of y^T, rows the warp's 16
+// channels (16 w.. of the tile's 64), depth tokens 16 s..: four 8 x 8
+// blocks of the x tile (tokens x channels) read transposed.
+__device__ __forceinline__ void x_frag_t(uint32_t (&a)[4],
+                                         const unsigned char* tile, int s,
+                                         int w, int lane) {
+  const int mi = lane >> 3;
+  const int tok = 16 * s + 8 * (mi >> 1) + (lane & 7);
+  const uint32_t addr = smem_addr(tile + swz(tok, 8 * (2 * w + (mi & 1))));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
+
+// The inverse of x_frag_t: four packed bf16 pairs written back to the same
+// places of the tile (stmatrix, transposed).
+__device__ __forceinline__ void x_store_t(const uint32_t (&a)[4],
+                                          unsigned char* tile, int s, int w,
+                                          int lane) {
+  const int mi = lane >> 3;
+  const int tok = 16 * s + 8 * (mi >> 1) + (lane & 7);
+  const uint32_t addr = smem_addr(tile + swz(tok, 8 * (2 * w + (mi & 1))));
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]) : "memory");
+}
+
+// bf16(x + (o + b)) of two tokens of one channel, packed: x the pair as
+// x_frag_t gives it.
+__device__ __forceinline__ uint32_t out_pair(uint32_t xv, float o0, float o1,
+                                             float2 b) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&xv));
+  return pack_bf16x2(x.x + (o0 + b.x), x.y + (o1 + b.y));
+}
+
+// bf16(LN) of two tokens' x of one channel, packed.
+__device__ __forceinline__ uint32_t ln_pair(uint32_t xv, float2 mu, float2 inv,
+                                            float sc, float bi) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&xv));
+  return pack_bf16x2((x.x - mu.x) * inv.x * sc + bi,
+                     (x.y - mu.y) * inv.y * sc + bi);
+}
+
+template <int LN, int KP>
+__global__ void __launch_bounds__(THREADS, 1)
+mixer_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                      const __grid_constant__ CUtensorMap mout, FwdArgs a) {
+  using G = FwdGeo<LN, KP>;
+  constexpr int LP = G::LP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int wi = wt >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int l = a.l, k = a.k, d = a.d, bands = d / BAND;
+  const int units = a.batch * bands;
+  unsigned char* sW1 = base + G::OFF_W1;
+  unsigned char* sW2 = base + G::OFF_W2;
+  unsigned char* tiles = base + G::OFF_X + 2 * wg * G::TILE;
+  float* sMu = reinterpret_cast<float*>(base + G::OFF_STAT) + wg * 2 * LP;
+  float* sInv = sMu + LP;
+  float* sB2 = reinterpret_cast<float*>(base + G::OFF_B2);
+  float* sB1 = reinterpret_cast<float*>(base + G::OFF_B1);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + G::OFF_BAR);
+  uint64_t* bar = bars + 2 * wg;
+
+  for (int i = tid; i < LP; i += THREADS) sB2[i] = i < l ? a.b2[i] : 0.f;
+  load_weights<KP, G::NCH, G::CB>(
+      a.w1, a.w2, a.b1, l, k, sW1, sW2, sB1,
+      reinterpret_cast<bf16*>(base + G::OFF_X),
+      reinterpret_cast<bf16*>(base + G::OFF_X + 2 * G::TILE), bars);
+
+  const int stride = 2 * gridDim.x;
+  const CUtensorMap* pmx = &mx;
+  auto load_x = [=](int uu, int slot) {    // unit uu's x tile
+    mbar_arrive_expect_tx(&bar[slot], G::TILE);
+    tma_load_3d(tiles + slot * G::TILE, pmx, &bar[slot], (uu % bands) * BAND,
+                0, uu / bands);
+  };
+  // unit uu's row statistics (this thread's rows wt, wt + 128) and the LN
+  // scale and bias of its two channels, into registers a unit ahead
+  float mu_n[2], inv_n[2], par_n[4];
+  auto fetch = [&](int uu) {
+    const int bb = uu / bands, ch = (uu % bands) * BAND + 16 * wi + g;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = wt + 128 * j;
+      mu_n[j] = r < l ? a.stats[2 * ((size_t)bb * l + r)] : 0.f;
+      inv_n[j] = r < l ? a.stats[2 * ((size_t)bb * l + r) + 1] : 0.f;
+    }
+    par_n[0] = a.ls[ch];
+    par_n[1] = a.ls[ch + 8];
+    par_n[2] = a.lb[ch];
+    par_n[3] = a.lb[ch + 8];
+  };
+  int u = 2 * blockIdx.x + wg;
+  if (u < units) {
+    if (wt == 0) load_x(u, 0);
+    fetch(u);
+  }
+  for (int it = 0; u < units; u += stride, ++it) {
+    const int cur = it & 1;
+    unsigned char* sX = tiles + cur * G::TILE;
+    const int b = u / bands, c0 = (u % bands) * BAND;
+    // 1. the unit's row statistics and LN parameters, fetched a unit ahead
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = wt + 128 * j;
+      if (r < LP) {
+        sMu[r] = mu_n[j];
+        sInv[r] = inv_n[j];
+      }
+    }
+    const float sc0 = par_n[0], sc1 = par_n[1];
+    const float bi0 = par_n[2], bi1 = par_n[3];
+    warpgroup_sync(1 + wg);
+
+    // 2. y^T in registers: the x tile read transposed, normalised
+    wait(&bar[cur], (it >> 1) & 1);
+    uint32_t yf[LP / 16][4];
+#pragma unroll
+    for (int s = 0; s < LP / 16; ++s) {
+      x_frag_t(yf[s], sX, s, wi, lane);
+      const int t0 = 16 * s + 2 * t;
+      const float2 mu0 = *reinterpret_cast<const float2*>(sMu + t0);
+      const float2 in0 = *reinterpret_cast<const float2*>(sInv + t0);
+      const float2 mu1 = *reinterpret_cast<const float2*>(sMu + t0 + 8);
+      const float2 in1 = *reinterpret_cast<const float2*>(sInv + t0 + 8);
+      yf[s][0] = ln_pair(yf[s][0], mu0, in0, sc0, bi0);
+      yf[s][1] = ln_pair(yf[s][1], mu0, in0, sc1, bi1);
+      yf[s][2] = ln_pair(yf[s][2], mu1, in1, sc0, bi0);
+      yf[s][3] = ln_pair(yf[s][3], mu1, in1, sc1, bi1);
+    }
+
+    // 3. the next unit's statistics and, once the other tile's store has
+    // been read, its x: both arrive under this unit's products (started
+    // here, not between a product and its wait, where the divergent TMA
+    // code would serialize the wgmmas)
+    if (u + stride < units) {
+      fetch(u + stride);
+      if (wt == 0) {
+        bulk_wait_read();
+        load_x(u + stride, cur ^ 1);
+      }
+    }
+    __syncwarp();
+    // hp^T = y^T W1, 64 x KP
+    float hp[KP / 2];
+#pragma unroll
+    for (int i = 0; i < KP / 2; ++i) hp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < LP / 16; ++s)
+      wgmma_rs_kn<KP>(hp, yf[s],
+                      desc_k_major(sW1 + (s >> 2) * G::CB) + (s & 3) * K_STEP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(hp);
+
+    // 4. gact = bf16(gelu(hp + b1)) as the next product's A; thread (wi,
+    // g, t) holds channels 16 wi + g (+ 8), hidden units 8 i + 2 t (+ 1)
+#pragma unroll
+    for (int i = 0; i < KP / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float b1 = sB1[8 * i + 2 * t + j];
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const float h = hp[4 * i + 2 * rh + j] + b1;
+          hp[4 * i + 2 * rh + j] = 0.5f * h * (1.f + gelu_t(h));
+        }
+      }
+    uint32_t af[KP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KP / 16; ++kk) a_frag(af[kk], hp, kk);
+
+    // 5. out^T = gact^T W2, 64 x LN
+    float o[LN / 2];
+#pragma unroll
+    for (int i = 0; i < LN / 2; ++i) o[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KP / 16; ++kk)
+      wgmma_rs_mn_n<LN>(o, af[kk],
+                        desc_encode(sW2, G::CB, 1024) + kk * MN_STEP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    // 6. out = bf16(x + (out + b2)) over x in the tile, 16 tokens at a
+    // time: x read transposed as in step 2, the result written back
+    // transposed (stmatrix); accumulator blocks i = 2 s and 2 s + 1 (tokens
+    // 8 i + 2 t (+ 1)) hold the step's two halves. Tokens past LN keep x
+    // (past L, nothing is stored).
+#pragma unroll
+    for (int s = 0; s < LP / 16; ++s) {
+      uint32_t xr[4];
+      x_frag_t(xr, sX, s, wi, lane);
+      const int t0 = 16 * s + 2 * t;
+      const int i0 = 2 * s, i1 = 2 * s + 1;
+      const float2 b0 = *reinterpret_cast<const float2*>(sB2 + t0);
+      xr[0] = out_pair(xr[0], o[4 * i0], o[4 * i0 + 1], b0);
+      xr[1] = out_pair(xr[1], o[4 * i0 + 2], o[4 * i0 + 3], b0);
+      if (i1 < LN / 8) {
+        const float2 b1 = *reinterpret_cast<const float2*>(sB2 + t0 + 8);
+        xr[2] = out_pair(xr[2], o[4 * i1], o[4 * i1 + 1], b1);
+        xr[3] = out_pair(xr[3], o[4 * i1 + 2], o[4 * i1 + 3], b1);
+      }
+      x_store_t(xr, sX, s, wi, lane);
+    }
+    fence_proxy_async();                   // the tile is read by TMA
+    warpgroup_sync(1 + wg);
+    if (wt == 0) {
+      tma_store_3d(&mout, sX, c0, 0, b);
+      bulk_commit();
+    }
+  }
+  if (wt == 0) bulk_wait_all();
+}
+
 template <int LN, int KP>
 __global__ void __launch_bounds__(THREADS, 1)
 mixer_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
@@ -157,29 +460,12 @@ mixer_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
   float* sB1 = reinterpret_cast<float*>(base + G::OFF_B1);
   uint64_t* bar = reinterpret_cast<uint64_t*>(base + G::OFF_BAR) + 2 * wg;
 
-  // the weights, once: staged as they are in the tiles, then laid out
-  // (W1 transposed) zero-padded and swizzled
-  if (tid == 0) {
-    uint64_t* all = reinterpret_cast<uint64_t*>(base + G::OFF_BAR);
-    for (int i = 0; i < 4; ++i) mbar_init(&all[i], 1);
-    fence_mbar_init();
-  }
-  bf16* raw1 = reinterpret_cast<bf16*>(base + G::OFF_X);
-  bf16* raw2 = reinterpret_cast<bf16*>(base + G::OFF_DO);
-  stage(a.w1, l * k, raw1);
-  stage(a.w2, k * l, raw2);
-  for (int i = tid; i < KP; i += THREADS) sB1[i] = i < k ? a.b1[i] : 0.f;
-  __syncthreads();
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < KP * G::NCH * 64; i += THREADS) {
-    const int kk = i / (G::NCH * 64), ll = i % (G::NCH * 64);
-    const int off = (ll >> 6) * G::CB + swz(kk, ll & 63);
-    const bool in = kk < k && ll < l;
-    *reinterpret_cast<bf16*>(sW1 + off) = in ? raw1[ll * k + kk] : zero;
-    *reinterpret_cast<bf16*>(sW2 + off) = in ? raw2[kk * l + ll] : zero;
-  }
-  fence_proxy_async();                     // read by wgmma and by TMA's
-  __syncthreads();                         // writes into the tiles
+  // the weights, once
+  load_weights<KP, G::NCH, G::CB>(
+      a.w1, a.w2, a.b1, l, k, sW1, sW2, sB1,
+      reinterpret_cast<bf16*>(base + G::OFF_X),
+      reinterpret_cast<bf16*>(base + G::OFF_DO),
+      reinterpret_cast<uint64_t*>(base + G::OFF_BAR));
 
   const int stride = 2 * gridDim.x;
   const CUtensorMap* pmx = &mx;
@@ -642,6 +928,29 @@ cudaError_t launch(const Args& args, cudaStream_t st) {
   const int units = args.batch * (args.d / BAND);
   mixer_bwd_sm90_kernel<LN, KP><<<grid_for(units, sms), THREADS, G::SMEM,
                                   st>>>(mx, mdo, args);
+  return cudaGetLastError();
+}
+
+template <int LN, int KP>
+cudaError_t fwd_launch(const bf16* x, bf16* out, const FwdArgs& args,
+                       cudaStream_t st) {
+  using G = FwdGeo<LN, KP>;
+  static_assert(G::SMEM <= 232448, "over the block's shared memory");
+  CUtensorMap mx, mout;
+  int err = band_map(&mx, x, args.batch, args.l, args.l, args.d, G::LP);
+  if (!err) err = band_map(&mout, out, args.batch, args.l, args.l, args.d,
+                           G::LP);
+  if (err) return (cudaError_t)err;
+  cudaError_t e = cudaFuncSetAttribute(
+      mixer_fwd_sm90_kernel<LN, KP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int units = args.batch * (args.d / BAND);
+  mixer_fwd_sm90_kernel<LN, KP><<<grid_for(units, sms), THREADS, G::SMEM,
+                                  st>>>(mx, mout, args);
   return cudaGetLastError();
 }
 

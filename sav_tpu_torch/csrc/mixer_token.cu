@@ -19,8 +19,8 @@
 // ~295: both K8a and K8b are bound by device-memory bytes (0.0345 ms and
 // 0.0518 ms at bs192).
 //
-// Design (K8a, and K8b past the Hopper kernel's widths: mma.sync m16n8k16
-// on operands in shared memory):
+// Design (the mma.sync kernels below, K8a and K8b past the Hopper kernels'
+// widths: mma.sync m16n8k16 on operands in shared memory):
 //  * L = 196 and K = 98 are not multiples of 16: W1 and W2 are padded to
 //    Lp x Kp in shared memory with zeros (W1's padded columns, W2's padded
 //    rows, b1's and b2's padded entries), so every padded hidden unit is
@@ -30,10 +30,16 @@
 //    over tokens is whole inside it. The statistics need the whole D-wide
 //    row: a first launch (mixer_stats_kernel, one warp per row) writes mu
 //    and 1/sigma of every row, which the band blocks read.
-//  * K8a: one block per (128-channel band, image): W1, W2 (~49 KB each),
-//    the normalised band y and the gelu band stay in shared memory (188 KB
-//    at Mixer-B/16); the batch needs no padding: the grid has one block
-//    row per image.
+//  * K8a: for L <= 200, K <= 112 and D <= 1024 (every Mixer config at
+//    224) the band work is mixer_bwd_sm90.cuh's persistent wgmma + TMA
+//    forward band kernel (two warpgroups, each its own (image, 64-channel
+//    band) unit; W1 and W2 resident per block; y normalised in registers
+//    as the first product's A, gact from registers as the second's, the
+//    result written over x in its tile and stored by TMA). Past those
+//    widths (route 0, which no factory config reaches) one mma.sync block
+//    per (128-channel band, image): W1, W2, the normalised band y and the
+//    gelu band in shared memory (188 KB at Mixer-B/16 widths), W1 and W2
+//    loaded element by element in every block.
 //  * K8b: the LN backward couples all bands of a token row through
 //    mean(dxhat) and mean(dxhat * xhat). For L <= 200, K <= 112 and D <=
 //    1024 (every Mixer config at 224) the band work is mixer_bwd_sm90.cuh's
@@ -488,8 +494,41 @@ extern "C" int sav_mixer_bwd_plan(int batch, int l, int k, int d, int sms,
   return 0;
 }
 
+// K8a's launch plan on `sms` SMs: out[0] the band work's route (2: the
+// Hopper forward band kernel at <200, 112>, 1: at <56, 32>; 0: the
+// mma.sync block per (128-channel band, image)), [1] its token width LN
+// and [2] hidden width KP (0 on route 0), [3] units ((image, 64-channel
+// band) pairs; route 0: (image, 128-channel band)), [4] blocks, [5] units
+// of the busiest warpgroup (route 0: 1), [6] the band kernel's dynamic
+// shared memory. Returns 0, or cudaErrorInvalidValue where sav_mixer_fwd
+// refuses the geometry. Mirrored by mixer_fwd_plan in ops/mixer_token.py.
+extern "C" int sav_mixer_fwd_plan(int batch, int l, int k, int d, int sms,
+                                  long long* out) {
+  using namespace sav::mix;
+  namespace mb = sav::mixb;
+  if (!geometry_ok(l, k, d) || batch < 1) return (int)cudaErrorInvalidValue;
+  const int route = mb::route_of(l, k, d);
+  out[0] = route;
+  out[1] = route == 2 ? 200 : route == 1 ? 56 : 0;
+  out[2] = route == 2 ? 112 : route == 1 ? 32 : 0;
+  if (route == 0) {
+    out[3] = out[4] = (long long)batch * (d / FWD_BAND);
+    out[5] = 1;
+    out[6] = (long long)fwd_smem(l, k);
+  } else {
+    const long long units = (long long)batch * (d / mb::BAND);
+    const int grid = mb::grid_for((int)units, sms);
+    out[3] = units;
+    out[4] = grid;
+    out[5] = (units + 2LL * grid - 1) / (2LL * grid);
+    out[6] = route == 2 ? mb::FwdGeo<200, 112>::SMEM : mb::FwdGeo<56, 32>::SMEM;
+  }
+  return 0;
+}
+
 // K8a. x, out [B, L, D] bf16; ln_scale/ln_bias [D], b1 [K], b2 [L] f32;
-// w1 [L, K], w2 [K, L] bf16; stats [B*L, 2] f32 scratch.
+// w1 [L, K], w2 [K, L] bf16; stats [B*L, 2] f32 scratch. Two launches: the
+// row statistics, then the band work (route as sav_mixer_fwd_plan).
 extern "C" int sav_mixer_fwd(const void* x, const float* ln_scale,
                              const float* ln_bias, const void* w1,
                              const float* b1, const void* w2, const float* b2,
@@ -497,16 +536,27 @@ extern "C" int sav_mixer_fwd(const void* x, const float* ln_scale,
                              int d, float eps, void* stream) {
   using namespace sav;
   using namespace sav::mix;
+  namespace mb = sav::mixb;
   cudaStream_t st = (cudaStream_t)stream;
   if (!geometry_ok(l, k, d) || batch < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(l, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      mixer_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int rows = batch * l;
   mixer_stats_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const bf16*)x, stats,
                                                      rows, d, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int route = mb::route_of(l, k, d);
+  if (route != 0) {
+    const mb::FwdArgs a = {stats, ln_scale, ln_bias, (const bf16*)w1, b1,
+                           (const bf16*)w2, b2, batch, l, k, d};
+    return (int)(route == 2
+                     ? mb::fwd_launch<200, 112>((const bf16*)x, (bf16*)out, a, st)
+                     : mb::fwd_launch<56, 32>((const bf16*)x, (bf16*)out, a, st));
+  }
+  const size_t smem = fwd_smem(l, k);
+  err = cudaFuncSetAttribute(mixer_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
   mixer_fwd_kernel<<<dim3(d / FWD_BAND, batch), 256, smem, st>>>(
       (const bf16*)x, stats, ln_scale, ln_bias, (const bf16*)w1, b1,
       (const bf16*)w2, b2, (bf16*)out, l, k, d);

@@ -326,11 +326,6 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   __syncwarp();
 }
 
-// Waits until this thread's committed bulk stores have completed.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 template <int MODE, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 proj_gemm_kernel(const __grid_constant__ Maps maps, Args args) {

@@ -32,26 +32,40 @@
 //    block in shared memory, zero-padded from D to Dp = 16-multiple (24 ->
 //    32, 40 -> 48) along every axis that is a contraction or a 16-wide
 //    fragment, so padded channels contribute exact zeros and are never
-//    stored. Blocks are persistent: a warp walks patches w, w + warps in
-//    the grid, ..., so the weights are loaded once per block and the last
-//    patch needs no padding (patches past B*P are never touched).
+//    stored. Blocks are persistent, so the weights are loaded once per
+//    block and the last patch needs no padding (patches past B*P are never
+//    touched).
 //  * The kernels are instantiated for TNT-S's and TNT-B's inner widths
 //    (constant loop bounds and index arithmetic) and once with the widths
 //    read at run time, for any other shape supported() takes.
 //  * The attention is 16 x 16 x hd per (patch, head) with hd = 6 or 10:
 //    below any tensor-core shape, so each lane takes (query row, head)
 //    pairs with scalar f32 FMAs over registers holding one logit row.
-//  * K7b: the TPU carries the weight gradients in one f32 scratch across
-//    its sequential grid. Blocks here run in no order, and an f32 partial
-//    of every weight gradient per warp does not fit shared memory at D =
-//    40 (78 KB). So the per-patch kernel writes the bf16 operands of the
-//    weight-gradient products (y, dq|dk|dv, bf16(o), bf16(dx2), y2,
-//    bf16(dhp), bf16(gelu)) to a workspace, and the four products dW =
-//    A^T B run as the tiled GEMM of ff_common.cuh with the contraction
-//    over rows split into chunks; the LN and bias gradients are per-lane
-//    column sums kept by each warp. Every partial (chunk, block, warp) is
-//    summed in a fixed order: no float atomics, identical bits on every
-//    call on one card.
+//  * K7b: the weight gradients are products contracting over the patch
+//    rows (dW = A^T B). The TPU carries them in one f32 scratch across its
+//    sequential grid; here each block holds one f32 partial of all four
+//    (4 D^2 + 2 D F floats: 27.6 KB at TNT-S, 76.8 KB at TNT-B) in shared
+//    memory beside the weights. The block's warps take patches in rounds,
+//    one patch a warp, in step; at product points of a round the block
+//    meets at a barrier and its warps multiply the round's operands, which
+//    each warp holds in its own shared memory, into the partial: mma.sync
+//    over the round's patches in warp order, each 16 x 16 tile of a
+//    gradient owned by one warp, so no two threads add to one element. The
+//    points: each 16-column tile of F (gelu and bf16(dhp) tiles, double-
+//    buffered, so one barrier a tile; dy2 accumulates in registers), then
+//    after dO (dWo), then after dq|dk|dv (dWqkv), each followed by a
+//    barrier that frees the operands. The LN and bias gradients are
+//    per-lane column sums kept by each warp. At the end each block writes
+//    its partial once and the partials are summed in a fixed order: no
+//    operand rows in device memory, no float atomics, identical bits on
+//    every call on one card.
+//  * K7b's working set a warp is small so that more warps share an SM (10
+//    at TNT-S, 4 at TNT-B): the FF operands a 16-column tile at a time,
+//    and in the attention backward only each query row's max, sum and
+//    delta (pass 2 forms a, da and ds again, flash-style, from q, k, v and
+//    dO). Its f32 row buffers have the row stride D + 2, twice an odd
+//    number, so the attention's lanes, one a query row, read 16 different
+//    banks, and a head's columns load as float2.
 #include "ff_common.cuh"
 
 namespace sav {
@@ -60,7 +74,11 @@ namespace tnt {
 using namespace sav::ff;
 
 constexpr int L = 16;            // pixel tokens per patch: one m16 tile
-constexpr int MAX_WARPS = 8;
+constexpr int MAX_WARPS = 8;     // K7a's warps a block
+constexpr int BWD_MAX_WARPS = 12;  // K7b's
+constexpr int LDT = 24;          // bf16 row stride of K7b's [16][16] FF tiles
+constexpr int MAX_HD = 128;      // the widest head the kernels take
+constexpr int MAX_NT = 4;        // K7b's dy2 accumulator: Dp <= 64
 constexpr int SMEM_CAP = 232448;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -68,9 +86,11 @@ struct Geo {
   int d, f, h, hd;
   int dp;      // D padded to a multiple of 16
   int ldy;     // bf16 row stride of [16][Dp] operands and of Wo, W2
-  int ldq;     // bf16 row stride of Wqkv and dq|dk|dv: 3 Dp + 8
+  int ldq;     // bf16 row stride of Wqkv: 3 Dp + 8
   int ldf;     // bf16 row stride of W1 and [16][F] operands: F + 8
+  int lf;      // f32 row stride of the backward's [16][D] buffers: D + 2
   int nvec;    // LN parameters and biases: 5 D + F
+  int total;   // weight-gradient floats: 4 D^2 + 2 D F
 };
 
 __host__ __device__ inline Geo geo(int d, int f, int h) {
@@ -80,7 +100,9 @@ __host__ __device__ inline Geo geo(int d, int f, int h) {
   g.ldy = g.dp + 8;
   g.ldq = 3 * g.dp + 8;
   g.ldf = f + 8;
+  g.lf = d + 2;
   g.nvec = 5 * d + f;
+  g.total = 4 * d * d + 2 * d * f;
   return g;
 }
 
@@ -107,34 +129,100 @@ __host__ __device__ inline size_t fwd_warp_bytes(const Geo& g) {
          + fwd_region(g);
 }
 
-// Per warp, K7b: x and x2/dx2 f32 [16][D]; q, k, v and a scratch T f32
-// [16][Dp]; y/y2, o/dao and do bf16 [16][ldy]; one region holding hp/dhp
-// f32 [16][F] and bf16(dhp) [16][ldf] until dy2 is formed, then the
-// softmax rows and ds f32 [2][H][16][16] and dq|dk|dv bf16 [16][ldq]; the
-// row statistics [2][16][2]; the column sums of the LN and bias gradients
-// [nvec].
-__host__ __device__ inline size_t bwd_region(const Geo& g) {
-  const size_t ff = up16((size_t)L * g.f * 4) + up16((size_t)L * g.ldf * 2);
-  const size_t at = up16((size_t)2 * g.h * L * L * 4)
-                    + up16((size_t)L * g.ldq * 2);
-  return ff > at ? ff : at;
+// K7b's block-shared part past the weights: the block's f32 partial of the
+// four weight gradients, laid out as the output (dWqkv [D][3D], dWo
+// [D][D], dW1 [D][F], dW2 [F][D]).
+__host__ __device__ inline size_t part_bytes(const Geo& g) {
+  return up16((size_t)4 * g.total);
 }
 
-// Offset of the column sums in a warp's part (they come last).
-__host__ __device__ inline size_t bwd_vec_offset(const Geo& g) {
-  return 2 * up16((size_t)L * g.d * 4) + 4 * up16((size_t)L * g.dp * 4)
-         + 3 * up16((size_t)L * g.ldy * 2) + bwd_region(g) + 256;
+// Per warp, K7b, in this order: x bf16 [16][D]; x2 (then dx2), q, k, v
+// and a scratch T f32 [16][lf]; y, o and do bf16 [16][ldy] (in the
+// attention backward: dq, dk and dv); one region; the row statistics
+// [2][16][2]; the column sums of the LN and bias gradients [nvec]. The
+// region holds in turn, in the resident layout, gelu and bf16(dhp) bf16
+// [16][ldf] (all of F), the softmax rows and ds f32 [2][H][16][16] (key k
+// of row r at k ^ r: pass 1's lanes, one a row, and pass 2's, one a key,
+// hit distinct banks), and y
+// again; in the F-tiled layout two pairs of 16-column FF tiles (gelu and
+// bf16(dhp), bf16 [16][LDT]), the softmax statistics of each (head, query
+// row) (max, sum, delta) f32 [H][16][4], and y again.
+struct BwdOff {
+  size_t x, x2, q, k, v, t, y, o, dob, region, stat, vec, bytes;
+};
+
+constexpr size_t TILE_BYTES = (size_t)L * LDT * 2;   // one [16][LDT] tile
+
+__host__ __device__ inline size_t bwd_region(const Geo& g, bool tiled) {
+  const size_t ff = tiled ? 4 * TILE_BYTES
+                          : 2 * up16((size_t)L * g.ldf * 2);
+  const size_t at = tiled ? (size_t)g.h * L * 4 * 4
+                          : up16((size_t)2 * g.h * L * L * 4);
+  const size_t y = up16((size_t)L * g.ldy * 2);
+  const size_t m = ff > at ? ff : at;
+  return m > y ? m : y;
 }
 
-__host__ __device__ inline size_t bwd_warp_bytes(const Geo& g) {
-  return bwd_vec_offset(g) + up16((size_t)4 * g.nvec);
+__host__ __device__ inline BwdOff bwd_off(const Geo& g, bool tiled) {
+  BwdOff o;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    const size_t here = at;
+    at += up16(bytes);
+    return here;
+  };
+  const size_t f32row = (size_t)L * g.lf * 4, bfrow = (size_t)L * g.ldy * 2;
+  o.x = take((size_t)L * g.d * 2);
+  o.x2 = take(f32row);
+  o.q = take(f32row);
+  o.k = take(f32row);
+  o.v = take(f32row);
+  o.t = take(f32row);
+  o.y = take(bfrow);
+  o.o = take(bfrow);
+  o.dob = take(bfrow);
+  o.region = take(bwd_region(g, tiled));
+  o.stat = take(4 * L * 4);
+  o.vec = take((size_t)4 * g.nvec);
+  o.bytes = at;
+  return o;
 }
 
-// Warps per block (at most 8) whose shared memory fits one block, or 0.
-__host__ __device__ inline int warps_for(size_t per_warp, size_t shared) {
+__host__ __device__ inline size_t bwd_warp_bytes(const Geo& g, bool tiled) {
+  return bwd_off(g, tiled).bytes;
+}
+
+// Warps per block (at most `most`) whose shared memory fits one block, or
+// 0.
+__host__ __device__ inline int warps_for(size_t per_warp, size_t shared,
+                                         int most = MAX_WARPS) {
   if (shared + per_warp > (size_t)SMEM_CAP) return 0;
   const size_t w = ((size_t)SMEM_CAP - shared) / per_warp;
-  return w > MAX_WARPS ? MAX_WARPS : (int)w;
+  return w > (size_t)most ? most : (int)w;
+}
+
+// K7b's layout at D, F, H: the resident one (all of F's FF operands and
+// the attention's softmax rows kept a patch) wherever it leaves a block at
+// least MIN_RESIDENT warps; else the F-tiled one (16 columns of F at a
+// time, one barrier each, and the attention's pass 2 forming a, da and ds
+// again from each row's statistics), which a warp needs less of. Measured
+// on an H100 80GB HBM3 (700 W): TNT-S resident 8 warps 0.36 ms against
+// tiled 10 warps 0.40; TNT-B resident 3 warps 0.70 against tiled 4 warps
+// 0.60.
+constexpr int MIN_RESIDENT = 4;
+
+__host__ __device__ inline int bwd_warps(const Geo& g, bool tiled) {
+  if ((tiled && g.dp > 16 * MAX_NT) || g.hd > MAX_HD) return 0;
+  return warps_for(bwd_warp_bytes(g, tiled), weight_bytes(g) + part_bytes(g),
+                   BWD_MAX_WARPS);
+}
+
+__host__ __device__ inline int fwd_warps(const Geo& g) {
+  return g.hd > MAX_HD ? 0 : warps_for(fwd_warp_bytes(g), weight_bytes(g));
+}
+
+__host__ __device__ inline bool bwd_tiled(const Geo& g) {
+  return bwd_warps(g, false) < MIN_RESIDENT && bwd_warps(g, true) > 0;
 }
 
 // ----------------------------------------------------------- warp pieces
@@ -165,15 +253,20 @@ __device__ __forceinline__ void warp_mma(const bf16* a, int lda, const bf16* b,
   }
 }
 
-// y = bf16(LN(x)) over the D columns of x f32 [16][D], zeros in columns D
-// .. Dp - 1; two lanes per row. stat[2r], stat[2r + 1] = mu, 1/sigma.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// y = bf16(LN(x)) over the D columns of x [16][ldx] (f32 or bf16), zeros
+// in columns D .. Dp - 1; two lanes per row. stat[2r], stat[2r + 1] = mu,
+// 1/sigma.
+template <typename T>
 __device__ __forceinline__ void
-ln_rows(const float* x, const float* s, const float* b, bf16* y, float* stat,
-        const Geo& g, float eps, int lane) {
+ln_rows(const T* x, int ldx, const float* s, const float* b, bf16* y,
+        float* stat, const Geo& g, float eps, int lane) {
   const int r = lane >> 1, half = lane & 1;
   float sum = 0.f, sq = 0.f;
   for (int c = half; c < g.d; c += 2) {
-    const float v = x[r * g.d + c];
+    const float v = to_f(x[r * ldx + c]);
     sum += v;
     sq += v * v;
   }
@@ -183,51 +276,119 @@ ln_rows(const float* x, const float* s, const float* b, bf16* y, float* stat,
   const float inv = rsqrtf(fmaxf(sq / g.d - mu * mu, 0.f) + eps);
   for (int c = half; c < g.dp; c += 2)
     y[r * g.ldy + c] = __float2bfloat16(
-        c < g.d ? (x[r * g.d + c] - mu) * inv * s[c] + b[c] : 0.f);
+        c < g.d ? (to_f(x[r * ldx + c]) - mu) * inv * s[c] + b[c] : 0.f);
   if (half == 0) {
     stat[2 * r] = mu;
     stat[2 * r + 1] = inv;
   }
 }
 
-// One logit row of query r, head hh: s[p] = q[r] . k[p] over the head's
-// columns, then the softmax in place (a = e / sum e, as the TPU kernel).
-__device__ __forceinline__ void softmax_row(const float* q, const float* k,
-                                            const Geo& g, int r, int c0,
-                                            float* s) {
-  float m = -INFINITY;
-#pragma unroll
-  for (int p = 0; p < L; ++p) {
-    float acc = 0.f;
+// The logit of query row r and key row p over the head's columns c0..: q
+// and k f32 with row stride ld.
+__device__ __forceinline__ float logit(const float* q, const float* k,
+                                       const Geo& g, int ld, int r, int p,
+                                       int c0) {
+  float acc = 0.f;
+  if (g.hd % 2 == 0) {                     // ld and c0 even: float2 loads
+    const float2* q2 = reinterpret_cast<const float2*>(q + r * ld + c0);
+    const float2* k2 = reinterpret_cast<const float2*>(k + p * ld + c0);
+    for (int c = 0; c < g.hd / 2; ++c) {
+      const float2 a = q2[c], b = k2[c];
+      acc += a.x * b.x;
+      acc += a.y * b.y;
+    }
+  } else {
     for (int c = 0; c < g.hd; ++c)
-      acc += q[r * g.dp + c0 + c] * k[p * g.dp + c0 + c];
-    s[p] = acc;
-    m = fmaxf(m, acc);
+      acc += q[r * ld + c0 + c] * k[p * ld + c0 + c];
+  }
+  return acc;
+}
+
+// out[c] += w row[c] for c < hd (row 8-byte aligned where hd is even:
+// float2 loads).
+template <int HD>
+__device__ __forceinline__ void axpy_row(float (&out)[HD], float w,
+                                         const float* row, const Geo& g) {
+  if (g.hd % 2 == 0) {
+    const float2* r2 = reinterpret_cast<const float2*>(row);
+    for (int c = 0; c < g.hd / 2; ++c) {
+      const float2 v = r2[c];
+      out[2 * c] += w * v.x;
+      out[2 * c + 1] += w * v.y;
+    }
+  } else {
+    for (int c = 0; c < g.hd; ++c) out[c] += w * row[c];
+  }
+}
+
+// out[c] = sum over the 16 rows p of w[p] m[p][c0 + c] for c < hd (m f32
+// with row stride ld; ld and c0 even where hd is), each column's sum in
+// row order; the row loop unrolled U times.
+template <int HD, int U>
+__device__ __forceinline__ void weighted_rows(const float* w, const float* m,
+                                             const Geo& g, int ld, int c0,
+                                             float (&out)[HD]) {
+  for (int c = 0; c < g.hd; ++c) out[c] = 0.f;
+#pragma unroll U
+  for (int p = 0; p < L; ++p) axpy_row(out, w[p], m + p * ld + c0, g);
+}
+
+// The head width a kernel instantiation holds in registers: its own, or
+// MAX_HD (the widest the kernels take) where it reads the widths at run
+// time.
+template <int kD, int kH>
+__host__ __device__ constexpr int head_regs() { return kD ? kD / kH : MAX_HD; }
+
+// How far an instantiation unrolls its loops over a patch's 16 rows: fully
+// where the widths are built in; not at all where it reads them at run
+// time (that instantiation takes the shapes no config has, and unrolled it
+// took most of the library's build).
+template <int kD>
+__host__ __device__ constexpr int row_unroll() { return kD ? L : 1; }
+
+// One logit row of query r, head hh: s[p] = q[r] . k[p] over the head's
+// columns, then the softmax in place (a = e / sum e, as the TPU kernel);
+// q and k f32 with row stride ld. *mx and *sum get the row's max and the
+// sum of its exponentials.
+template <int U>
+__device__ __forceinline__ void softmax_row(const float* q, const float* k,
+                                            const Geo& g, int ld, int r,
+                                            int c0, float* s,
+                                            float* mx = nullptr,
+                                            float* sum = nullptr) {
+  float m = -INFINITY;
+#pragma unroll U
+  for (int p = 0; p < L; ++p) {
+    s[p] = logit(q, k, g, ld, r, p, c0);
+    m = fmaxf(m, s[p]);
   }
   float l = 0.f;
-#pragma unroll
+#pragma unroll U
   for (int p = 0; p < L; ++p) {
     s[p] = expf(s[p] - m);
     l += s[p];
   }
-#pragma unroll
+#pragma unroll U
   for (int p = 0; p < L; ++p) s[p] = s[p] / l;
+  if (mx) {
+    *mx = m;
+    *sum = l;
+  }
 }
 
-// o = bf16(softmax(q k^T) v) per head into [16][ldy], zeros past D.
+// o = bf16(softmax(q k^T) v) per head into [16][ldy], zeros past D; q, k,
+// v f32 with row stride ld.
+template <int HD, int U>
 __device__ __forceinline__ void
 attention_fwd(const float* q, const float* k, const float* v, bf16* o,
-              const Geo& g, int lane) {
+              const Geo& g, int ld, int lane) {
   for (int pr = lane; pr < L * g.h; pr += 32) {
     const int r = pr & (L - 1), c0 = (pr / L) * g.hd;
-    float s[L];
-    softmax_row(q, k, g, r, c0, s);
-    for (int c = 0; c < g.hd; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int p = 0; p < L; ++p) acc += s[p] * v[p * g.dp + c0 + c];
-      o[r * g.ldy + c0 + c] = __float2bfloat16(acc);
-    }
+    float s[L], acc[HD];
+    softmax_row<U>(q, k, g, ld, r, c0, s);
+    weighted_rows<HD, U>(s, v, g, ld, c0, acc);
+    for (int c = 0; c < g.hd; ++c)
+      o[r * g.ldy + c0 + c] = __float2bfloat16(acc[c]);
   }
   const int pad = g.dp - g.d;
   for (int i = lane; i < L * pad; i += 32)
@@ -326,7 +487,7 @@ tnt_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     const bf16* xp = x + (size_t)p * L * d;
     for (int i = lane; i < L * d; i += 32) sX[i] = __bfloat162float(xp[i]);
     __syncwarp();
-    ln_rows(sX, ln1s, ln1b, sY, sStat, g, eps, lane);
+    ln_rows(sX, d, ln1s, ln1b, sY, sStat, g, eps, lane);
     __syncwarp();
     warp_mma<false>(sY, g.ldy, S.wqkv, g.ldq, 3 * g.dp, g.dp, lane,
                     [&](int r, int c, float v0, float v1) {
@@ -337,7 +498,8 @@ tnt_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       dst[r * g.dp + cc + 1] = v1 * m;
     });
     __syncwarp();
-    attention_fwd(sQ, sK, sV, sO, g, lane);
+    attention_fwd<head_regs<kD, kH>(), row_unroll<kD>()>(sQ, sK, sV, sO, g,
+                                                         g.dp, lane);
     __syncwarp();
     // x2 = x + bf16(o) Wo, kept in f32 (in place of x)
     warp_mma<false>(sO, g.ldy, S.wo, g.ldy, g.dp, g.dp, lane,
@@ -348,7 +510,7 @@ tnt_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       }
     });
     __syncwarp();
-    ln_rows(sX, ln2s, ln2b, sY, sStat, g, eps, lane);
+    ln_rows(sX, d, ln2s, ln2b, sY, sStat, g, eps, lane);
     __syncwarp();
     warp_mma<false>(sY, g.ldy, S.w1, g.ldf, f, g.dp, lane,
                     [&](int r, int c, float v0, float v1) {
@@ -372,29 +534,24 @@ tnt_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 
 // ------------------------------------------------------------------ K7b
 
-// The workspace the backward's per-patch kernel fills: bf16 row operands of
-// the weight-gradient products, [rows][width] each.
-struct Rows {
-  bf16 *y, *dqkv, *ob, *dao, *y2, *dh, *gact;
-};
-
-// LayerNorm backward of one patch from dy f32 [16][Dp] (stride dp) and
-// the forward's input xin f32 [16][D] with its row statistics: the column
+// LayerNorm backward of one patch from dy f32 [16][ldd] and the forward's
+// input xin [16][ldx] (f32 or bf16) with its row statistics: the column
 // sums of dy * xhat and dy into dscale/dbias (one lane per column, rows in
 // order), then dx_ln = inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat))
 // handed to emit(r, c, dx_ln) (two lanes per row; each element is read
 // from xin by the lane that emits it, after every other read of xin, so
 // emit may overwrite xin).
-template <typename Emit>
+template <typename T, typename Emit>
 __device__ __forceinline__ void
-ln_bwd(const float* dy, const float* xin, const float* stat, const float* scale,
-       float* dscale, float* dbias, const Geo& g, int lane, Emit emit) {
+ln_bwd(const float* dy, int ldd, const T* xin, int ldx, const float* stat,
+       const float* scale, float* dscale, float* dbias, const Geo& g,
+       int lane, Emit emit) {
   for (int c = lane; c < g.d; c += 32) {
     float ds = 0.f, db = 0.f;
     for (int r = 0; r < L; ++r) {
-      const float xh = (xin[r * g.d + c] - stat[2 * r]) * stat[2 * r + 1];
-      ds += dy[r * g.dp + c] * xh;
-      db += dy[r * g.dp + c];
+      const float xh = (to_f(xin[r * ldx + c]) - stat[2 * r]) * stat[2 * r + 1];
+      ds += dy[r * ldd + c] * xh;
+      db += dy[r * ldd + c];
     }
     dscale[c] += ds;
     dbias[c] += db;
@@ -403,9 +560,9 @@ ln_bwd(const float* dy, const float* xin, const float* stat, const float* scale,
   const float mu = stat[2 * r], inv = stat[2 * r + 1];
   float m1 = 0.f, m2 = 0.f;
   for (int c = half; c < g.d; c += 2) {
-    const float dxh = dy[r * g.dp + c] * scale[c];
+    const float dxh = dy[r * ldd + c] * scale[c];
     m1 += dxh;
-    m2 += dxh * (xin[r * g.d + c] - mu) * inv;
+    m2 += dxh * (to_f(xin[r * ldx + c]) - mu) * inv;
   }
   m1 += __shfl_xor_sync(FULL, m1, 1);
   m2 += __shfl_xor_sync(FULL, m2, 1);
@@ -413,27 +570,145 @@ ln_bwd(const float* dy, const float* xin, const float* stat, const float* scale,
   m2 /= g.d;
   __syncwarp();
   for (int c = half; c < g.d; c += 2) {
-    const float xh = (xin[r * g.d + c] - mu) * inv;
-    const float dxh = dy[r * g.dp + c] * scale[c];
+    const float xh = (to_f(xin[r * ldx + c]) - mu) * inv;
+    const float dxh = dy[r * ldd + c] * scale[c];
     emit(r, c, inv * (dxh - m1 - xh * m2));
   }
 }
 
+// The FF products of one patch at the columns n0..n1 of F, 16 at a time:
+// hp = y2 W1 + b1 and dgact = do W2^T, then gelu(hp) and dhp = dgact
+// gelu'(hp) (f32) to bf16 [16][ldt] buffers at column n - c0 (the operands
+// of dW2, dW1 and dy2), and dhp's column sums over the 16 rows (a fixed
+// shuffle tree) into vb1.
 __device__ __forceinline__ void
-store_rows(bf16* __restrict__ dst, const bf16* src, int lds, int width,
-           int lane) {
-  for (int i = lane; i < L * width; i += 32)
-    dst[i] = src[(i / width) * lds + i % width];
+ff_cols(const bf16* sY, const bf16* sDo, const bf16* w1s, const bf16* w2s,
+        const float* b1, int n0, int n1, int c0, bf16* tg, bf16* th, int ldt,
+        float* vb1, const Geo& g, int lane) {
+  const int gq = lane >> 2, t = lane & 3;
+  for (int nb = n0; nb < n1; nb += 16) {
+    float ah[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float ad[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < g.dp; k0 += 16) {
+      uint32_t af[4], bfr[4];
+      load_a(af, sY, g.ldy, 0, k0, lane);
+      load_b(bfr, w1s, g.ldf, k0, nb, lane);
+      mma_16816(ah[0], af, bfr[0], bfr[1]);
+      mma_16816(ah[1], af, bfr[2], bfr[3]);
+      load_a(af, sDo, g.ldy, 0, k0, lane);
+      load_b_t(bfr, w2s, g.ldy, k0, nb, lane);
+      mma_16816(ad[0], af, bfr[0], bfr[1]);
+      mma_16816(ad[1], af, bfr[2], bfr[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = nb + 8 * j + 2 * t;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = gq + 8 * hf;
+        const float h0 = ah[j][2 * hf] + b1[c];
+        const float h1 = ah[j][2 * hf + 1] + b1[c + 1];
+        const float t0 = gelu_t(h0), t1 = gelu_t(h1);
+        const float d0 = ad[j][2 * hf] * gelu_bwd(h0, t0);
+        const float d1 = ad[j][2 * hf + 1] * gelu_bwd(h1, t1);
+        *reinterpret_cast<uint32_t*>(tg + r * ldt + c - c0) =
+            pack_bf16(0.5f * h0 * (1.f + t0), 0.5f * h1 * (1.f + t1));
+        *reinterpret_cast<uint32_t*>(th + r * ldt + c - c0) = pack_bf16(d0, d1);
+        s0 += d0;
+        s1 += d1;
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(FULL, s0, off);
+        s1 += __shfl_xor_sync(FULL, s1, off);
+      }
+      if (gq == 0) {
+        vb1[c] += s0;
+        vb1[c + 1] += s1;
+      }
+    }
+  }
 }
 
-template <int kD, int kF, int kH>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-tnt_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
-                    const bf16* __restrict__ wqkv, const bf16* __restrict__ wo,
-                    const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                    const float* __restrict__ par, bf16* __restrict__ dx,
-                    Rows ws, float* __restrict__ vec_part, int n, int d, int f,
-                    int h, float eps, float q_scale) {
+// A product point: dW[M][N] (+)= the sum over the round's nv patches of
+// A_w^T B_w, with A_w [16][lda] at a0 + w stride and B_w [16][ldb] at b0 +
+// w stride (warp w's operands). The block's warps take dW's 16 x 16 tiles
+// in turn from warp `first` on, two at a time, each tile's products in two
+// chains (even and odd patches, in warp order, then added: a fixed order)
+// for the latency; every pair of sums (columns col, col + 1 of a row) goes
+// once to add(row, col, v0, v1). Returns the tile count (the next point's
+// `first` offset).
+// p[0] += a, p[1] += b, as one float2 (p 8-byte aligned: an even element
+// of a partial whose rows have an even length).
+__device__ __forceinline__ void add2(float* p, float a, float b) {
+  float2 v = *reinterpret_cast<float2*>(p);
+  v.x += a;
+  v.y += b;
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+template <typename Add>
+__device__ __forceinline__ int
+point(const unsigned char* a0, int lda, const unsigned char* b0, int ldb,
+      size_t stride, int M, int N, int nv, int first, int warp, int nwarps,
+      int lane, Add add) {
+  const int gq = lane >> 2, t = lane & 3;
+  const int nt = N / 16, tiles = (M / 16) * nt;
+  for (int tile = ((warp - first) % nwarps + nwarps) % nwarps; tile < tiles;
+       tile += 2 * nwarps) {
+    const bool two = tile + nwarps < tiles;
+    int m0[2], n0[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ti = tile + i * nwarps;
+      m0[i] = (ti / nt) * 16;
+      n0[i] = (ti % nt) * 16;
+    }
+    float acc[2][2][2][4] = {};          // [tile][chain][n8][4]
+    for (int w = 0; w < nv; ++w) {
+      const bf16* a = reinterpret_cast<const bf16*>(a0 + w * stride);
+      const bf16* b = reinterpret_cast<const bf16*>(b0 + w * stride);
+      const int ch = w & 1;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i == 1 && !two) break;
+        uint32_t af[4], bfr[4];
+        load_a_t(af, a, lda, m0[i], 0, lane);
+        load_b(bfr, b, ldb, 0, n0[i], lane);
+        if (ch == 0) {
+          mma_16816(acc[i][0][0], af, bfr[0], bfr[1]);
+          mma_16816(acc[i][0][1], af, bfr[2], bfr[3]);
+        } else {
+          mma_16816(acc[i][1][0], af, bfr[0], bfr[1]);
+          mma_16816(acc[i][1][1], af, bfr[2], bfr[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i == 1 && !two) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n0[i] + 8 * j + 2 * t;
+        const float* e = acc[i][0][j];
+        const float* o = acc[i][1][j];
+        add(m0[i] + gq, col, e[0] + o[0], e[1] + o[1]);
+        add(m0[i] + gq + 8, col, e[2] + o[2], e[3] + o[3]);
+      }
+    }
+  }
+  return tiles;
+}
+
+template <int kD, int kF, int kH, bool kTiled>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32)
+tnt_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
+               const bf16* __restrict__ wqkv, const bf16* __restrict__ wo,
+               const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+               const float* __restrict__ par, bf16* __restrict__ dx,
+               float* __restrict__ part, int n, int d, int f, int h,
+               float eps, float q_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (kD) {
     d = kD;
@@ -442,224 +717,318 @@ tnt_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
   }
   const Geo g = geo(d, f, h);
   const Shared S = carve(smem_raw, g);
+  const BwdOff off = bwd_off(g, kTiled);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  const int dp = g.dp;
+  const int dp = g.dp, lf = g.lf, ldy = g.ldy;
   const float *ln1s = S.par, *ln1b = S.par + d, *ln2s = S.par + 2 * d,
               *ln2b = S.par + 3 * d, *b1 = S.par + 5 * d;
+  float* sPart = reinterpret_cast<float*>(S.warps);
+  float *pqkv = sPart, *po = sPart + 3 * d * d, *p1 = sPart + 4 * d * d,
+        *p2 = p1 + d * f;
 
-  unsigned char* cur = S.warps + (size_t)warp * bwd_warp_bytes(g);
-  auto take = [&](size_t bytes) {
-    unsigned char* p = cur;
-    cur += up16(bytes);
-    return p;
-  };
-  float* sX = reinterpret_cast<float*>(take((size_t)L * d * 4));
-  float* sX2 = reinterpret_cast<float*>(take((size_t)L * d * 4));
-  float* sQ = reinterpret_cast<float*>(take((size_t)L * dp * 4));
-  float* sK = reinterpret_cast<float*>(take((size_t)L * dp * 4));
-  float* sV = reinterpret_cast<float*>(take((size_t)L * dp * 4));
-  float* sT = reinterpret_cast<float*>(take((size_t)L * dp * 4));
-  bf16* sY = reinterpret_cast<bf16*>(take((size_t)L * g.ldy * 2));
-  bf16* sO = reinterpret_cast<bf16*>(take((size_t)L * g.ldy * 2));
-  bf16* sDo = reinterpret_cast<bf16*>(take((size_t)L * g.ldy * 2));
-  unsigned char* region = take(bwd_region(g));
-  float* sStat = reinterpret_cast<float*>(take(256));   // [2][16][2]
-  float* sVec = reinterpret_cast<float*>(take((size_t)4 * g.nvec));
-  // region, first half of the backward: hp -> dhp f32, bf16(dhp)
-  float* sH = reinterpret_cast<float*>(region);
-  bf16* sDh = reinterpret_cast<bf16*>(region + up16((size_t)L * f * 4));
-  // region, attention backward: softmax rows, ds, then dq|dk|dv bf16
-  float* sA = reinterpret_cast<float*>(region);
+  unsigned char* warps = S.warps + part_bytes(g);
+  const size_t wb = off.bytes;
+  unsigned char* mine = warps + (size_t)warp * wb;
+  bf16* sX = reinterpret_cast<bf16*>(mine + off.x);
+  float* sX2 = reinterpret_cast<float*>(mine + off.x2);
+  float* sQ = reinterpret_cast<float*>(mine + off.q);
+  float* sK = reinterpret_cast<float*>(mine + off.k);
+  float* sV = reinterpret_cast<float*>(mine + off.v);
+  float* sT = reinterpret_cast<float*>(mine + off.t);
+  bf16* sY = reinterpret_cast<bf16*>(mine + off.y);
+  bf16* sO = reinterpret_cast<bf16*>(mine + off.o);
+  bf16* sDo = reinterpret_cast<bf16*>(mine + off.dob);
+  // region (bwd_off): the FF operands; the attention backward's softmax
+  // rows and ds (resident) or row statistics (F-tiled); y again for dWqkv
+  bf16* sG = reinterpret_cast<bf16*>(mine + off.region);
+  const size_t ff_half = kTiled ? TILE_BYTES : up16((size_t)L * g.ldf * 2);
+  float* sA = reinterpret_cast<float*>(mine + off.region);
   float* sDs = sA + h * L * L;
-  bf16* sDqkv = reinterpret_cast<bf16*>(region
-                                        + up16((size_t)2 * h * L * L * 4));
+  float4* sAt = reinterpret_cast<float4*>(mine + off.region);
+  bf16* sY1 = reinterpret_cast<bf16*>(mine + off.region);
+  float* sStat = reinterpret_cast<float*>(mine + off.stat);   // [2][16][2]
+  float* sVec = reinterpret_cast<float*>(mine + off.vec);
   float *vln1s = sVec, *vln1b = sVec + d, *vln2s = sVec + 2 * d,
         *vln2b = sVec + 3 * d, *vb2 = sVec + 4 * d, *vb1 = sVec + 5 * d;
 
   load_weights(wqkv, wo, w1, w2, par, g, S.wqkv, S.wo, S.w1, S.w2, S.par);
+  for (int i = threadIdx.x; i < g.total; i += blockDim.x) sPart[i] = 0.f;
   for (int i = lane; i < g.nvec; i += 32) sVec[i] = 0.f;
   __syncthreads();
 
-  for (int p = blockIdx.x * nwarps + warp; p < n; p += gridDim.x * nwarps) {
-    const size_t row0 = (size_t)p * L;
-    const bf16* xp = x + row0 * d;
-    const bf16* gp = gout + row0 * d;
-    for (int i = lane; i < L * d; i += 32) sX[i] = __bfloat162float(xp[i]);
-    for (int i = lane; i < L * dp; i += 32) {
-      const int r = i / dp, c = i % dp;
-      sDo[r * g.ldy + c] = c < d ? gp[r * d + c] : __float2bfloat16(0.f);
-    }
-    __syncwarp();
+  const bf16 zero = __float2bfloat16(0.f);
+  const int pad = dp - d;
+  constexpr int HD = head_regs<kD, kH>(), U = row_unroll<kD>();
+  for (int base = blockIdx.x * nwarps; base < n; base += gridDim.x * nwarps) {
+    const int nv = min(nwarps, n - base);
+    const bool mine_valid = warp < nv;
+    const size_t row0 = (size_t)(base + warp) * L;
+    if (mine_valid) {
+      const bf16* xp = x + row0 * d;
+      const bf16* gp = gout + row0 * d;
+      for (int i = lane; i < L * d / 8; i += 32)
+        reinterpret_cast<uint4*>(sX)[i] = reinterpret_cast<const uint4*>(xp)[i];
+      for (int i = lane; i < L * dp; i += 32) {
+        const int r = i / dp, c = i % dp;
+        sDo[r * ldy + c] = c < d ? gp[r * d + c] : zero;
+      }
+      __syncwarp();
 
-    // ---- recompute the forward
-    ln_rows(sX, ln1s, ln1b, sY, sStat, g, eps, lane);
-    __syncwarp();
-    store_rows(ws.y + row0 * d, sY, g.ldy, d, lane);
-    warp_mma<false>(sY, g.ldy, S.wqkv, g.ldq, 3 * dp, dp, lane,
-                    [&](int r, int c, float v0, float v1) {
-      const int sec = c / dp, cc = c - sec * dp;
-      float* dst = sec == 0 ? sQ : (sec == 1 ? sK : sV);
-      const float m = sec == 0 ? q_scale : 1.f;
-      dst[r * dp + cc] = v0 * m;
-      dst[r * dp + cc + 1] = v1 * m;
-    });
-    __syncwarp();
-    attention_fwd(sQ, sK, sV, sO, g, lane);
-    __syncwarp();
-    store_rows(ws.ob + row0 * d, sO, g.ldy, d, lane);
-    warp_mma<false>(sO, g.ldy, S.wo, g.ldy, dp, dp, lane,
-                    [&](int r, int c, float v0, float v1) {
-      if (c < d) {
-        sX2[r * d + c] = sX[r * d + c] + v0;
-        sX2[r * d + c + 1] = sX[r * d + c + 1] + v1;
-      }
-    });
-    __syncwarp();
-    ln_rows(sX2, ln2s, ln2b, sY, sStat + 2 * L, g, eps, lane);
-    __syncwarp();
-    store_rows(ws.y2 + row0 * d, sY, g.ldy, d, lane);
-    bf16* gact = ws.gact + row0 * f;
-    warp_mma<false>(sY, g.ldy, S.w1, g.ldf, f, dp, lane,
-                    [&](int r, int c, float v0, float v1) {
-      const float h0 = v0 + b1[c], h1 = v1 + b1[c + 1];
-      sH[r * f + c] = h0;
-      sH[r * f + c + 1] = h1;
-      *reinterpret_cast<uint32_t*>(gact + r * f + c) =
-          pack_bf16(0.5f * h0 * (1.f + gelu_t(h0)),
-                    0.5f * h1 * (1.f + gelu_t(h1)));
-    });
-    __syncwarp();
-
-    // ---- FF backward: dgact = do W2^T, dhp = dgact gelu'(hp)
-    bf16* dhg = ws.dh + row0 * f;
-    warp_mma<true>(sDo, g.ldy, S.w2, g.ldy, f, dp, lane,
-                   [&](int r, int c, float v0, float v1) {
-      const float h0 = sH[r * f + c], h1 = sH[r * f + c + 1];
-      const float d0 = v0 * gelu_bwd(h0, gelu_t(h0));
-      const float d1 = v1 * gelu_bwd(h1, gelu_t(h1));
-      sH[r * f + c] = d0;
-      sH[r * f + c + 1] = d1;
-      const uint32_t pk = pack_bf16(d0, d1);
-      *reinterpret_cast<uint32_t*>(sDh + r * g.ldf + c) = pk;
-      *reinterpret_cast<uint32_t*>(dhg + r * f + c) = pk;
-    });
-    __syncwarp();
-    for (int c = lane; c < f; c += 32) {
-      float s = 0.f;
-      for (int r = 0; r < L; ++r) s += sH[r * f + c];
-      vb1[c] += s;
-    }
-    for (int c = lane; c < d; c += 32) {
-      float s = 0.f;
-      for (int r = 0; r < L; ++r) s += __bfloat162float(sDo[r * g.ldy + c]);
-      vb2[c] += s;
-    }
-    // dy2 = bf16(dhp) W1^T
-    warp_mma<true>(sDh, g.ldf, S.w1, g.ldf, dp, f, lane,
-                   [&](int r, int c, float v0, float v1) {
-      sT[r * dp + c] = v0;
-      sT[r * dp + c + 1] = v1;
-    });
-    __syncwarp();
-    // LN2 backward: dx2 = LN2'(dy2) + do in f32, in place of x2; dao =
-    // bf16(dx2) in place of bf16(o)
-    ln_bwd(sT, sX2, sStat + 2 * L, ln2s, vln2s, vln2b, g, lane,
-           [&](int r, int c, float v) {
-      const float dx2 = v + __bfloat162float(sDo[r * g.ldy + c]);
-      sX2[r * d + c] = dx2;
-      sO[r * g.ldy + c] = __float2bfloat16(dx2);
-    });
-    __syncwarp();
-    for (int i = lane; i < L * (dp - d); i += 32)
-      sO[(i / (dp - d)) * g.ldy + d + i % (dp - d)] = __float2bfloat16(0.f);
-    __syncwarp();
-    store_rows(ws.dao + row0 * d, sO, g.ldy, d, lane);
-    // dO = bf16(dx2) Wo^T
-    warp_mma<true>(sO, g.ldy, S.wo, g.ldy, dp, dp, lane,
-                   [&](int r, int c, float v0, float v1) {
-      sT[r * dp + c] = v0;
-      sT[r * dp + c + 1] = v1;
-    });
-    __syncwarp();
-
-    // ---- attention backward, pass 1 per (query row, head): a, ds, dq
-    for (int pr = lane; pr < L * h; pr += 32) {
-      const int r = pr & (L - 1), hh = pr / L, c0 = hh * g.hd;
-      float a[L], ds[L];
-      softmax_row(sQ, sK, g, r, c0, a);
-      float sum = 0.f;
-#pragma unroll
-      for (int k = 0; k < L; ++k) {
-        float acc = 0.f;
-        for (int c = 0; c < g.hd; ++c)
-          acc += sT[r * dp + c0 + c] * sV[k * dp + c0 + c];
-        ds[k] = acc;               // da
-        sum += acc * a[k];
-      }
-#pragma unroll
-      for (int k = 0; k < L; ++k) {
-        ds[k] = a[k] * (ds[k] - sum);
-        sA[(hh * L + r) * L + k] = a[k];
-        sDs[(hh * L + r) * L + k] = ds[k];
-      }
-      for (int c = 0; c < g.hd; ++c) {
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < L; ++k) acc += ds[k] * sK[k * dp + c0 + c];
-        sDqkv[r * g.ldq + c0 + c] = __float2bfloat16(acc * q_scale);
-      }
-    }
-    __syncwarp();
-    // pass 2 per (key row, head): dk = ds^T qs, dv = a^T dO
-    for (int pr = lane; pr < L * h; pr += 32) {
-      const int kr = pr & (L - 1), hh = pr / L, c0 = hh * g.hd;
-      for (int c = 0; c < g.hd; ++c) {
-        float dk = 0.f, dv = 0.f;
-#pragma unroll
-        for (int q = 0; q < L; ++q) {
-          dk += sDs[(hh * L + q) * L + kr] * sQ[q * dp + c0 + c];
-          dv += sA[(hh * L + q) * L + kr] * sT[q * dp + c0 + c];
+      // ---- recompute the forward
+      ln_rows(sX, d, ln1s, ln1b, sY, sStat, g, eps, lane);
+      __syncwarp();
+      warp_mma<false>(sY, ldy, S.wqkv, g.ldq, 3 * dp, dp, lane,
+                      [&](int r, int c, float v0, float v1) {
+        const int sec = c / dp, cc = c - sec * dp;
+        if (cc >= d) return;
+        float* dst = sec == 0 ? sQ : (sec == 1 ? sK : sV);
+        const float m = sec == 0 ? q_scale : 1.f;
+        dst[r * lf + cc] = v0 * m;
+        dst[r * lf + cc + 1] = v1 * m;
+      });
+      __syncwarp();
+      attention_fwd<HD, U>(sQ, sK, sV, sO, g, lf, lane);
+      __syncwarp();
+      warp_mma<false>(sO, ldy, S.wo, ldy, dp, dp, lane,
+                      [&](int r, int c, float v0, float v1) {
+        if (c < d) {
+          sX2[r * lf + c] = to_f(sX[r * d + c]) + v0;
+          sX2[r * lf + c + 1] = to_f(sX[r * d + c + 1]) + v1;
         }
-        sDqkv[kr * g.ldq + dp + c0 + c] = __float2bfloat16(dk);
-        sDqkv[kr * g.ldq + 2 * dp + c0 + c] = __float2bfloat16(dv);
+      });
+      __syncwarp();
+      ln_rows(sX2, lf, ln2s, ln2b, sY, sStat + 2 * L, g, eps, lane);
+      __syncwarp();
+
+      for (int c = lane; c < d; c += 32) {
+        float s = 0.f;
+        for (int r = 0; r < L; ++r) s += __bfloat162float(sDo[r * ldy + c]);
+        vb2[c] += s;
       }
     }
-    for (int i = lane; i < L * 3 * (dp - d); i += 32) {
-      const int r = i / (3 * (dp - d)), j = i % (3 * (dp - d));
-      sDqkv[r * g.ldq + (j / (dp - d)) * dp + d + j % (dp - d)] =
-          __float2bfloat16(0.f);
+
+    int first = 0;
+    if constexpr (kTiled) {
+      // ---- the FF backward a 16-column tile of F at a time: gelu and
+      // bf16(dhp) tiles (double-buffered), dy2 = bf16(dhp) W1^T
+      // accumulated in registers; point 1 on each tile: dW2's rows and
+      // dW1's columns n0.. (gelu^T do, y2^T bf16(dhp)). One barrier a
+      // tile: a warp writes a buffer again only after every warp has
+      // passed the barrier that follows its previous point.
+      float dy2[MAX_NT][2][4] = {};
+      for (int j = 0, n0 = 0; n0 < f; ++j, n0 += 16) {
+        const size_t buf = off.region + (size_t)(j & 1) * 2 * TILE_BYTES;
+        if (mine_valid) {
+          bf16* tg = sG + (j & 1) * 2 * L * LDT;
+          bf16* th = tg + L * LDT;
+          ff_cols(sY, sDo, S.w1, S.w2, b1, n0, n0 + 16, n0, tg, th, LDT, vb1,
+                  g, lane);
+          __syncwarp();
+          uint32_t af[4];
+          load_a(af, th, LDT, 0, 0, lane);
+#pragma unroll
+          for (int nt = 0; nt < MAX_NT; ++nt) {
+            if (16 * nt >= dp) break;
+            uint32_t bfr[4];
+            load_b_t(bfr, S.w1, g.ldf, n0, 16 * nt, lane);
+            mma_16816(dy2[nt][0], af, bfr[0], bfr[1]);
+            mma_16816(dy2[nt][1], af, bfr[2], bfr[3]);
+          }
+        }
+        __syncthreads();
+        first += point(warps + buf, LDT, warps + off.dob, ldy, wb, 16, dp, nv,
+                       first, warp, nwarps, lane,
+                       [&](int r, int c, float v0, float v1) {
+          if (c < d) add2(p2 + (n0 + r) * d + c, v0, v1);
+        });
+        first += point(warps + off.y, ldy, warps + buf + TILE_BYTES, LDT, wb,
+                       dp, 16, nv, first, warp, nwarps, lane,
+                       [&](int r, int c, float v0, float v1) {
+          if (r < d) add2(p1 + r * f + n0 + c, v0, v1);
+        });
+      }
+      if (mine_valid) {
+        const int gq = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int nt = 0; nt < MAX_NT; ++nt)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int c = 16 * nt + 8 * jj + 2 * t;
+            if (c >= d) continue;
+            sT[gq * lf + c] = dy2[nt][jj][0];
+            sT[gq * lf + c + 1] = dy2[nt][jj][1];
+            sT[(gq + 8) * lf + c] = dy2[nt][jj][2];
+            sT[(gq + 8) * lf + c + 1] = dy2[nt][jj][3];
+          }
+      }
+      __syncthreads();           // the last tile's point has read y2 and do
+    } else {
+      // ---- the FF backward over all of F: gelu and bf16(dhp) [16][ldf];
+      // point 1: dW2 += gelu^T do, dW1 += y2^T bf16(dhp); then dy2 =
+      // bf16(dhp) W1^T
+      bf16* sDh = reinterpret_cast<bf16*>(mine + off.region + ff_half);
+      if (mine_valid)
+        ff_cols(sY, sDo, S.w1, S.w2, b1, 0, f, 0, sG, sDh, g.ldf, vb1, g,
+                lane);
+      __syncthreads();
+      first += point(warps + off.region, g.ldf, warps + off.dob, ldy, wb, f,
+                     dp, nv, first, warp, nwarps, lane,
+                     [&](int r, int c, float v0, float v1) {
+        if (c < d) add2(p2 + r * d + c, v0, v1);
+      });
+      first += point(warps + off.y, ldy, warps + off.region + ff_half, g.ldf,
+                     wb, dp, f, nv, first, warp, nwarps, lane,
+                     [&](int r, int c, float v0, float v1) {
+        if (r < d) add2(p1 + r * f + c, v0, v1);
+      });
+      __syncthreads();           // point 1 has read y2, do, gelu, dhp
+      if (mine_valid) {
+        warp_mma<true>(sDh, g.ldf, S.w1, g.ldf, dp, f, lane,
+                       [&](int r, int c, float v0, float v1) {
+          if (c < d) {
+            sT[r * lf + c] = v0;
+            sT[r * lf + c + 1] = v1;
+          }
+        });
+        __syncwarp();
+      }
     }
-    __syncwarp();
-    bf16* dqg = ws.dqkv + row0 * 3 * d;
-    for (int i = lane; i < L * 3 * d; i += 32) {
-      const int r = i / (3 * d), j = i % (3 * d);
-      dqg[i] = sDqkv[r * g.ldq + (j / d) * dp + j % d];
+
+    if (mine_valid) {
+      // LN2 backward: dx2 = LN2'(dy2) + do in f32, in place of x2; dao =
+      // bf16(dx2) in place of y2
+      ln_bwd(sT, lf, sX2, lf, sStat + 2 * L, ln2s, vln2s, vln2b, g, lane,
+             [&](int r, int c, float v) {
+        const float dx2 = v + __bfloat162float(sDo[r * ldy + c]);
+        sX2[r * lf + c] = dx2;
+        sY[r * ldy + c] = __float2bfloat16(dx2);
+      });
+      for (int i = lane; i < L * pad; i += 32)
+        sY[(i / pad) * ldy + d + i % pad] = zero;
+      __syncwarp();
+      // dO = bf16(dx2) Wo^T
+      warp_mma<true>(sY, ldy, S.wo, ldy, dp, dp, lane,
+                     [&](int r, int c, float v0, float v1) {
+        if (c < d) {
+          sT[r * lf + c] = v0;
+          sT[r * lf + c + 1] = v1;
+        }
+      });
+      __syncwarp();
     }
-    // dy = [dq|dk|dv] Wqkv^T
-    warp_mma<true>(sDqkv, g.ldq, S.wqkv, g.ldq, dp, 3 * dp, lane,
+    // ---- point 2: dWo += bf16(o)^T bf16(dx2)
+    __syncthreads();
+    first += point(warps + off.o, ldy, warps + off.y, ldy, wb, dp, dp, nv,
+                   first, warp, nwarps, lane,
                    [&](int r, int c, float v0, float v1) {
-      sT[r * dp + c] = v0;
-      sT[r * dp + c + 1] = v1;
+      if (r < d && c < d) add2(po + r * d + c, v0, v1);
     });
-    __syncwarp();
-    bf16* dxp = dx + row0 * d;
-    ln_bwd(sT, sX, sStat, ln1s, vln1s, vln1b, g, lane,
-           [&](int r, int c, float v) {
-      dxp[r * d + c] = __float2bfloat16(v + sX2[r * d + c]);
-    });
-    __syncwarp();
+    __syncthreads();
+
+    if (mine_valid) {
+      // ---- attention backward, pass 1 per (query row, head): a, da,
+      // delta = sum da a, ds = a (da - delta), dq; a and ds kept
+      // (resident), or the row's max, sum and delta (F-tiled)
+      for (int pr = lane; pr < L * h; pr += 32) {
+        const int r = pr & (L - 1), hh = pr / L, c0 = hh * g.hd;
+        float a[L], ds[L], m, l;
+        softmax_row<U>(sQ, sK, g, lf, r, c0, a, &m, &l);
+        float sum = 0.f;
+#pragma unroll U
+        for (int k = 0; k < L; ++k) {
+          ds[k] = logit(sT, sV, g, lf, r, k, c0);     // da
+          sum += ds[k] * a[k];
+        }
+#pragma unroll U
+        for (int k = 0; k < L; ++k) {
+          ds[k] = a[k] * (ds[k] - sum);
+          if (!kTiled) {
+            sA[(hh * L + r) * L + (k ^ r)] = a[k];
+            sDs[(hh * L + r) * L + (k ^ r)] = ds[k];
+          }
+        }
+        if (kTiled) sAt[hh * L + r] = make_float4(m, l, sum, 0.f);
+        float dq[HD];
+        weighted_rows<HD, U>(ds, sK, g, lf, c0, dq);
+        for (int c = 0; c < g.hd; ++c)
+          sY[r * ldy + c0 + c] = __float2bfloat16(dq[c] * q_scale);
+      }
+      __syncwarp();
+      // pass 2 per (key row, head): dk = ds^T qs, dv = a^T dO, with each
+      // query row's a and ds read back (resident) or formed again from its
+      // statistics by pass 1's arithmetic (F-tiled)
+      for (int pr = lane; pr < L * h; pr += 32) {
+        const int kr = pr & (L - 1), hh = pr / L, c0 = hh * g.hd;
+        float dk[HD], dv[HD];
+        for (int c = 0; c < g.hd; ++c) dk[c] = dv[c] = 0.f;
+#pragma unroll U
+        for (int q = 0; q < L; ++q) {
+          float a, ds;
+          if constexpr (kTiled) {
+            const float4 st = sAt[hh * L + q];
+            a = expf(logit(sQ, sK, g, lf, q, kr, c0) - st.x) / st.y;
+            ds = a * (logit(sT, sV, g, lf, q, kr, c0) - st.z);
+          } else {
+            a = sA[(hh * L + q) * L + (kr ^ q)];
+            ds = sDs[(hh * L + q) * L + (kr ^ q)];
+          }
+          axpy_row(dk, ds, sQ + q * lf + c0, g);
+          axpy_row(dv, a, sT + q * lf + c0, g);
+        }
+        for (int c = 0; c < g.hd; ++c) {
+          sO[kr * ldy + c0 + c] = __float2bfloat16(dk[c]);
+          sDo[kr * ldy + c0 + c] = __float2bfloat16(dv[c]);
+        }
+      }
+      for (int i = lane; i < L * pad; i += 32) {
+        const int r = i / pad, c = d + i % pad;
+        sY[r * ldy + c] = zero;
+        sO[r * ldy + c] = zero;
+        sDo[r * ldy + c] = zero;
+      }
+      __syncwarp();
+      // dy = dq Wq^T + dk Wk^T + dv Wv^T
+      for (int sec = 0; sec < 3; ++sec)
+        warp_mma<true>(sec == 0 ? sY : (sec == 1 ? sO : sDo), ldy,
+                       S.wqkv + sec * dp, g.ldq, dp, dp, lane,
+                       [&](int r, int c, float v0, float v1) {
+          if (c < d) {
+            float* t = sT + r * lf + c;
+            t[0] = sec == 0 ? v0 : t[0] + v0;
+            t[1] = sec == 0 ? v1 : t[1] + v1;
+          }
+        });
+      // y again (for dWqkv) over the softmax rows, which pass 2 has read
+      ln_rows(sX, d, ln1s, ln1b, sY1, sStat, g, eps, lane);
+      __syncwarp();
+      bf16* dxp = dx + row0 * d;
+      ln_bwd(sT, lf, sX, d, sStat, ln1s, vln1s, vln1b, g, lane,
+             [&](int r, int c, float v) {
+        dxp[r * d + c] = __float2bfloat16(v + sX2[r * lf + c]);
+      });
+    }
+    // ---- point 3: dWq, dWk, dWv += y^T dq, dk, dv
+    __syncthreads();
+    const size_t secs[3] = {off.y, off.o, off.dob};
+    for (int sec = 0; sec < 3; ++sec)
+      first += point(warps + off.region, ldy, warps + secs[sec], ldy, wb, dp,
+                     dp, nv, first, warp, nwarps, lane,
+                     [&](int r, int c, float v0, float v1) {
+        if (r < d && c < d) add2(pqkv + r * 3 * d + sec * d + c, v0, v1);
+      });
+    __syncthreads();
   }
 
-  // the block's column sums: the warps' sums added in warp order
-  __syncthreads();
+  // the block's partial: the weight gradients, then the column sums, the
+  // warps' added in warp order
+  float* out = part + (size_t)blockIdx.x * (g.total + g.nvec);
+  for (int i = threadIdx.x; i < g.total; i += blockDim.x) out[i] = sPart[i];
   for (int i = threadIdx.x; i < g.nvec; i += blockDim.x) {
     float s = 0.f;
     for (int w = 0; w < nwarps; ++w)
-      s += reinterpret_cast<const float*>(
-               S.warps + (size_t)w * bwd_warp_bytes(g)
-               + bwd_vec_offset(g))[i];
-    vec_part[(size_t)blockIdx.x * g.nvec + i] = s;
+      s += reinterpret_cast<const float*>(warps + (size_t)w * wb + off.vec)[i];
+    out[g.total + i] = s;
   }
 }
 
@@ -685,13 +1054,20 @@ inline auto fwd_kernel(int d, int f, int h) {
               tnt_fwd_kernel<0, 0, 0>);
 }
 
-inline auto bwd_kernel(int d, int f, int h) {
-  return pick(d, f, h, tnt_bwd_rows_kernel<24, 96, 4>,
-              tnt_bwd_rows_kernel<40, 160, 4>, tnt_bwd_rows_kernel<0, 0, 0>);
+// K7b's: TNT-S's in the resident layout, TNT-B's F-tiled (bwd_tiled),
+// any other shape in the layout bwd_tiled gives it.
+inline auto bwd_kernel(int d, int f, int h, bool tiled) {
+  const auto any = tiled ? tnt_bwd_kernel<0, 0, 0, true>
+                         : tnt_bwd_kernel<0, 0, 0, false>;
+  if (d == 24 && f == 96 && h == 4 && !tiled)
+    return tnt_bwd_kernel<24, 96, 4, false>;
+  if (d == 40 && f == 160 && h == 4 && tiled)
+    return tnt_bwd_kernel<40, 160, 4, true>;
+  return any;
 }
 
-// Persistent grid of a per-patch kernel: at most the blocks the card holds
-// at once, at most one warp per patch.
+// Persistent grid of the forward: at most the blocks the card holds at
+// once, at most one warp per patch.
 template <typename K>
 inline cudaError_t grid_for(K kernel, int warps, size_t smem, int n,
                             int* blocks) {
@@ -708,37 +1084,30 @@ inline cudaError_t grid_for(K kernel, int warps, size_t smem, int n,
   return cudaSuccess;
 }
 
+// K7b's launch plan on `sms` SMs: warps a block, blocks (one an SM, at
+// most one round of warps per patch), the block's dynamic shared memory,
+// the f32 partial a block writes (the weight gradients, then the column
+// sums) and the workspace (one partial a block: it grows with blocks, not
+// with patches). Mirrored by tnt_bwd_plan in ops/tnt_inner.py.
 struct BwdPlan {
-  int warps, blocks;          // per-patch kernel
-  int per_item, items, chunks, per_chunk;   // dW GEMMs over row items
-  size_t rows_bytes, vec_bytes, part_bytes;
-  long long total;            // f32 elements of all weight gradients
+  bool tiled;
+  int warps, blocks;
+  size_t smem;
+  int part_floats;
+  size_t workspace;
 };
 
-inline size_t up256(size_t n) { return (n + 255) / 256 * 256; }
-
-inline cudaError_t plan_bwd(int n, int d, int f, int h, BwdPlan* pl) {
+inline cudaError_t plan_bwd(int n, int d, int f, int h, int sms, BwdPlan* pl) {
   const Geo g = geo(d, f, h);
-  pl->warps = warps_for(bwd_warp_bytes(g), weight_bytes(g));
-  if (pl->warps < 1) return cudaErrorInvalidValue;
-  const size_t smem = weight_bytes(g) + pl->warps * bwd_warp_bytes(g);
-  cudaError_t err = grid_for(bwd_kernel(d, f, h), pl->warps, smem, n,
-                             &pl->blocks);
-  if (err != cudaSuccess) return err;
-  // rows of one GEMM batch item: 4 patches where they divide B*P (always
-  // at 196 patches an image), so a 32-row contraction tile is whole
-  pl->per_item = n % 4 == 0 ? 4 : (n % 2 == 0 ? 2 : 1);
-  pl->items = n / pl->per_item;
-  const int want = 2 * sm_count();
-  pl->per_chunk = (pl->items + want - 1) / want;
-  pl->chunks = (pl->items + pl->per_chunk - 1) / pl->per_chunk;
-  const size_t rows = (size_t)n * L;
-  // y, ob, dao, y2 [rows][D]; dqkv [rows][3D]; dh, gact [rows][F]
-  pl->rows_bytes = 4 * up256(rows * d * 2) + up256(rows * 3 * d * 2)
-                   + 2 * up256(rows * f * 2);
-  pl->vec_bytes = up256((size_t)pl->blocks * g.nvec * 4);
-  pl->total = 4LL * d * d + 2LL * d * f;
-  pl->part_bytes = up256((size_t)pl->chunks * pl->total * 4);
+  pl->tiled = bwd_tiled(g);
+  pl->warps = bwd_warps(g, pl->tiled);
+  if (pl->warps < 1 || n < 1 || sms < 1) return cudaErrorInvalidValue;
+  pl->smem = weight_bytes(g) + part_bytes(g)
+             + pl->warps * bwd_warp_bytes(g, pl->tiled);
+  const int need = (n + pl->warps - 1) / pl->warps;
+  pl->blocks = need < sms ? need : sms;
+  pl->part_floats = g.total + g.nvec;
+  pl->workspace = (size_t)pl->blocks * pl->part_floats * 4;
   return cudaSuccess;
 }
 
@@ -748,13 +1117,12 @@ inline cudaError_t plan_bwd(int n, int d, int f, int h, BwdPlan* pl) {
 using namespace sav;
 using namespace sav::tnt;
 
-// Warps per block of the forward (which = 0) or the backward's per-patch
-// kernel (which = 1) at D, F, H, from the kernels' shared-memory layout;
-// 0 where not even one warp fits a block.
+// Warps per block of the forward (which = 0) or the backward (which = 1)
+// at D, F, H, from the kernels' shared-memory layout; 0 where not even one
+// warp fits a block.
 extern "C" int sav_tnt_warps(int which, int d, int f, int h) {
   const Geo g = geo(d, f, h);
-  return warps_for(which ? bwd_warp_bytes(g) : fwd_warp_bytes(g),
-                   weight_bytes(g));
+  return which ? bwd_warps(g, bwd_tiled(g)) : fwd_warps(g);
 }
 
 // x, out [n, 16, D] bf16; wqkv [D, 3D] = [Wq | Wk | Wv], wo [D, D], w1
@@ -766,7 +1134,7 @@ extern "C" int sav_tnt_fwd(const void* x, const void* wqkv, const void* wo,
                            void* out, int n, int d, int f, int h, float eps,
                            float q_scale, void* stream) {
   const Geo g = geo(d, f, h);
-  const int warps = warps_for(fwd_warp_bytes(g), weight_bytes(g));
+  const int warps = fwd_warps(g);
   if (warps < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = weight_bytes(g) + warps * fwd_warp_bytes(g);
   int blocks = 0;
@@ -779,86 +1147,63 @@ extern "C" int sav_tnt_fwd(const void* x, const void* wqkv, const void* wo,
   return (int)cudaGetLastError();
 }
 
+// K7b's plan at n patches on `sms` SMs: out[0] warps a block, [1] blocks,
+// [2] dynamic shared memory, [3] the f32 partial a block writes, [4]
+// workspace bytes, [5] a warp's shared memory, [6] 1 for the F-tiled
+// layout, 0 for the resident one. Returns 0, or cudaErrorInvalidValue where
+// sav_tnt_bwd refuses the shape.
+extern "C" int sav_tnt_bwd_plan(int n, int d, int f, int h, int sms,
+                                long long* out) {
+  BwdPlan pl;
+  if (plan_bwd(n, d, f, h, sms, &pl) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+  out[0] = pl.warps;
+  out[1] = pl.blocks;
+  out[2] = (long long)pl.smem;
+  out[3] = pl.part_floats;
+  out[4] = (long long)pl.workspace;
+  out[5] = (long long)bwd_warp_bytes(geo(d, f, h), pl.tiled);
+  out[6] = pl.tiled;
+  return 0;
+}
+
 // Bytes of the workspace sav_tnt_bwd needs at n patches on the current
 // device, or -1 where the shape is not taken.
 extern "C" long long sav_tnt_bwd_workspace(int n, int d, int f, int h) {
   BwdPlan pl;
-  if (n < 1 || plan_bwd(n, d, f, h, &pl) != cudaSuccess) return -1;
-  return (long long)(pl.rows_bytes + pl.vec_bytes + pl.part_bytes);
+  if (plan_bwd(n, d, f, h, sm_count(), &pl) != cudaSuccess) return -1;
+  return (long long)pl.workspace;
 }
 
 // The backward of sav_tnt_fwd from x and the cotangent g [n, 16, D] bf16:
 // dx [n, 16, D] bf16; gw f32 [4 D^2 + 2 D F] = dWqkv [D][3D], dWo [D][D],
 // dW1 [D][F], dW2 [F][D]; gvec f32 [5D + F] in par's order. ws: the bytes
-// sav_tnt_bwd_workspace gives.
+// sav_tnt_bwd_workspace gives (the blocks' partials). Three launches: the
+// patches, then the partials' fixed-order sums.
 extern "C" int sav_tnt_bwd(const void* x, const void* gout, const void* wqkv,
                            const void* wo, const void* w1, const void* w2,
                            const float* par, void* dx, float* gw, float* gvec,
                            void* ws, int n, int d, int f, int h, float eps,
                            float q_scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Geo g = geo(d, f, h);
   BwdPlan pl;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = plan_bwd(n, d, f, h, &pl);
+  cudaError_t err = plan_bwd(n, d, f, h, sm_count(), &pl);
   if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)n * L;
-  unsigned char* cur = (unsigned char*)ws;
-  auto take = [&](size_t bytes) {
-    unsigned char* p = cur;
-    cur += up256(bytes);
-    return p;
-  };
-  Rows R;
-  R.y = (bf16*)take(rows * d * 2);
-  R.ob = (bf16*)take(rows * d * 2);
-  R.dao = (bf16*)take(rows * d * 2);
-  R.y2 = (bf16*)take(rows * d * 2);
-  R.dqkv = (bf16*)take(rows * 3 * d * 2);
-  R.dh = (bf16*)take(rows * f * 2);
-  R.gact = (bf16*)take(rows * f * 2);
-  float* vec_part = (float*)take((size_t)pl.blocks * g.nvec * 4);
-  float* part = (float*)take((size_t)pl.chunks * pl.total * 4);
-
-  const size_t smem = weight_bytes(g) + pl.warps * bwd_warp_bytes(g);
-  const auto rows_kernel = bwd_kernel(d, f, h);
-  rows_kernel<<<pl.blocks, pl.warps * 32, smem, st>>>(
+  const auto kernel = bwd_kernel(d, f, h, pl.tiled);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  float* part = (float*)ws;
+  kernel<<<pl.blocks, pl.warps * 32, pl.smem, st>>>(
       (const bf16*)x, (const bf16*)gout, (const bf16*)wqkv, (const bf16*)wo,
-      (const bf16*)w1, (const bf16*)w2, par, (bf16*)dx, R, vec_part, n, d, f,
-      h, eps, q_scale);
+      (const bf16*)w1, (const bf16*)w2, par, (bf16*)dx, part, n, d, f, h,
+      eps, q_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = sum_launch(vec_part, pl.blocks, g.nvec, g.nvec, gvec, st))
+  const Geo g = geo(d, f, h);
+  if ((err = sum_launch(part, pl.blocks, pl.part_floats, g.total, gw, st))
       != cudaSuccess)
     return (int)err;
-
-  // dW = A^T B over all rows, rows split into items of per_item patches
-  const int kc = L * pl.per_item;
-  struct Product { const bf16* a; int m; const bf16* b; int n; long long off; };
-  const Product prods[4] = {
-      {R.y, d, R.dqkv, 3 * d, 0},
-      {R.ob, d, R.dao, d, 3LL * d * d},
-      {R.y2, d, R.dh, f, 4LL * d * d},
-      {R.gact, f, (const bf16*)gout, d, 4LL * d * d + (long long)d * f},
-  };
-  for (const Product& pr : prods) {
-    GemmArgs p = {};
-    p.A = pr.a;
-    p.B = pr.b;
-    p.M = pr.m;
-    p.N = pr.n;
-    p.Kc = kc;
-    p.lda = pr.m;
-    p.ldb = pr.n;
-    p.sa = (long long)kc * pr.m;
-    p.sb = (long long)kc * pr.n;
-    p.nbatch = pl.items;
-    p.per_chunk = pl.per_chunk;
-    p.cf = part + pr.off;
-    p.ldc = pr.n;
-    p.sc = pl.total;
-    if ((err = gemm_launch<true, false, kF32>(p, pl.chunks, st))
-        != cudaSuccess)
-      return (int)err;
-  }
-  return (int)sum_launch(part, pl.chunks, pl.total, (int)pl.total, gw, st);
+  return (int)sum_launch(part + g.total, pl.blocks, pl.part_floats, g.nvec,
+                         gvec, st);
 }

@@ -108,10 +108,10 @@ class EncoderBlock(nn.Module):
         three things the kernel's closed-form backward assumes."""
         ff = self.FFBlock_0
         dim, hidden = ff.Dense_0.kernel.shape
-        if not fused_layer.ff_kernel_supported(dim, hidden):
-            raise ValueError(
-                f"use_kernel='fused_ff' needs D and the FF hidden width to be "
-                f'multiples of {fused_layer.GEMM_TILE}, got {dim} and {hidden}')
+        why = fused_layer.ff_refusal(dim, hidden, x.device)
+        if why is not None:
+            raise ValueError(f"use_kernel='fused_ff' does not take D={dim}, "
+                             f'F={hidden} on {x.device}: {why}')
         return fused_layer.ff_sublayer(
             x.to(self.dtype), self.LayerNorm_1.scale, self.LayerNorm_1.bias,
             ff.Dense_0.kernel, ff.Dense_0.bias, ff.Dense_1.kernel,

@@ -556,6 +556,23 @@ def ff_kernel_supported(dim: int, hidden: int) -> bool:
         and hidden % GEMM_TILE == 0
 
 
+def ff_refusal(dim: int, hidden: int, device) -> str | None:
+    """Why ``use_kernel='fused_ff'`` does not take D = ``dim`` and FF width
+    ``hidden`` on ``device``, or None where it does. Off the card the
+    Function runs its plain twins at any width, as the JAX package runs
+    192/768; on the card K16 needs whole 128-wide tiles
+    (``ff_kernel_supported``), and a width it does not tile is refused
+    rather than run per-op unasked."""
+    if dim < 1 or hidden < 1:
+        return 'D and the FF hidden width must be at least 1'
+    if torch.device(device).type == 'cuda' and \
+            not ff_kernel_supported(dim, hidden):
+        return (f'K16 on the card takes D and the FF hidden width in whole '
+                f'{GEMM_TILE}-wide tiles, got {dim} and {hidden} (ROADMAP.md '
+                f'Queue 2 item 12); use_kernel=False runs the per-op path')
+    return None
+
+
 def ff_bwd_plain(g2, hpre2, y2, w1, w2):
     """Plain twin of ``ff_bwd``, following ``_ff_bwd_kernel`` line by line:
     dgact = g W2^T (f32); dh = dgact * gelu'(hpre) in f32, rounded to g's

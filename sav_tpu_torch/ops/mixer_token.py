@@ -19,6 +19,7 @@ backward recomputes the forward from x.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +33,7 @@ FWD_BAND = 128          # channels of a K8a block (csrc FWD_BAND)
 
 # ------------------------------------------------------------ geometry
 
+@functools.lru_cache(maxsize=None)
 def _smem(which: str, l: int, k: int) -> int:
     """Shared memory of a K8a block (``which='fwd'``: W1 and W2 zero-padded
     to 16-multiples, the normalised and the gelu band, biases, row
@@ -78,6 +80,65 @@ def _sm90_smem(ln: int, kp: int) -> int:
             + 2 * 2 * BWD_BAND * 4 + kp * 4 + 4 * 8 + 1024)
 
 
+def _sm90_fwd_smem(ln: int, kp: int) -> int:
+    """``FwdGeo<LN, KP>::SMEM`` of ``csrc/mixer_bwd_sm90.cuh``: W1 and W2
+    as the backward holds them, two x tiles a warpgroup (LP x 128 bytes),
+    each warpgroup's row statistics, b2 over LP tokens, b1, four mbarriers,
+    1024 bytes of alignment slack."""
+    lp = _up(ln, 16)
+    nch = -(-lp // 64)
+    return (2 * nch * kp * 128 + 4 * lp * 128 + 2 * 2 * lp * 4 + lp * 4
+            + kp * 4 + 4 * 8 + 1024)
+
+
+def _fwd_band_smem(l: int, k: int) -> int:
+    """``fwd_smem`` of ``csrc/mixer_token.cu``: the mma.sync forward block
+    (W1, W2 padded, the y and gelu bands, b1, b2, row statistics, the band's
+    LN scale and bias)."""
+    lp, kp = _up(l, 16), _up(k, 16)
+    return ((lp * (kp + 8) + kp * (lp + 8) + lp * (FWD_BAND + 8)
+             + kp * (FWD_BAND + 8)) * 2 + (kp + 3 * lp + 2 * FWD_BAND) * 4)
+
+
+def _route(l: int, k: int, d: int) -> int:
+    """The band kernels' route (``mixb::route_of``): 1 and 2 the Hopper
+    kernels at (56, 32) and (200, 112), 0 past them or past 1024
+    channels."""
+    return (0 if d > SM90_MAX_D else 1 if l <= 56 and k <= 32
+            else 2 if l <= 200 and k <= 112 else 0)
+
+
+def _check_geometry(what: str, batch: int, l: int, k: int, d: int) -> None:
+    if batch < 1 or l < 1 or k < 1 or d % FWD_BAND:
+        raise ValueError(f'{what} needs B, L, K >= 1 and D a multiple of '
+                         f'{FWD_BAND}, got B={batch}, L={l}, K={k}, D={d}')
+
+
+def mixer_fwd_plan(batch: int, l: int, k: int, d: int, sms: int = 132) -> dict:
+    """Launch plan of K8a on ``sms`` SMs, mirrored from
+    ``sav_mixer_fwd_plan`` in ``csrc/mixer_token.cu``: ``route`` (2 and 1:
+    the Hopper forward band kernel at ``widths`` (LN, KP) = (200, 112) and
+    (56, 32); 0: an ``mma.sync`` block per (128-channel band, image), past
+    those widths or past 1024 channels), ``units`` ((image, 64-channel
+    band) pairs; route 0 (image, 128-channel band)), ``ctas`` (blocks of
+    the band work), ``units_per_wg`` (units of the busiest warpgroup; route
+    0: 1) and ``smem`` (the band kernel's dynamic shared memory). Both
+    routes follow a launch of the row statistics. Raises ValueError where
+    ``sav_mixer_fwd`` refuses the geometry."""
+    _check_geometry('token_mix_fwd', batch, l, k, d)
+    route = _route(l, k, d)
+    if route:
+        units = batch * (d // BWD_BAND)
+        ctas = min(-(-units // 2), max(sms, 1)) if sms > 0 else -(-units // 2)
+        per_wg = -(-units // (2 * ctas))
+        smem = _sm90_fwd_smem(*SM90_WIDTHS[route])
+    else:
+        units = ctas = batch * (d // FWD_BAND)
+        per_wg, smem = 1, _fwd_band_smem(l, k)
+    return dict(route=route, widths=SM90_WIDTHS.get(route, (0, 0)),
+                units=units, ctas=ctas, units_per_wg=per_wg, smem=smem)
+
+
 def mixer_bwd_plan(batch: int, l: int, k: int, d: int, sms: int = 132) -> dict:
     """Launch plan of K8b on ``sms`` SMs, mirrored from ``sav_mixer_bwd_plan``
     in ``csrc/mixer_token.cu``: ``route`` (2 and 1: the Hopper band kernel
@@ -92,12 +153,9 @@ def mixer_bwd_plan(batch: int, l: int, k: int, d: int, sms: int = 132) -> dict:
     ``workspace`` (its bytes). Raises ValueError where ``sav_mixer_bwd``
     refuses the geometry (the shared memory of the K8a block and of the
     ``mma.sync`` K8b block is held by ``supported`` on the card)."""
-    if batch < 1 or l < 1 or k < 1 or d % FWD_BAND:
-        raise ValueError(f'token_mix_bwd needs B, L, K >= 1 and D a multiple '
-                         f'of {FWD_BAND}, got B={batch}, L={l}, K={k}, D={d}')
+    _check_geometry('token_mix_bwd', batch, l, k, d)
     bands = d // BWD_BAND
-    route = (0 if d > SM90_MAX_D else 1 if l <= 56 and k <= 32
-             else 2 if l <= 200 and k <= 112 else 0)
+    route = _route(l, k, d)
     units = batch * bands
     if route:
         ctas = min(-(-units // 2), max(sms, 1)) if sms > 0 else -(-units // 2)
@@ -268,8 +326,12 @@ def _check(x, ls, lb, w1, b1, w2, b2):
 def token_mix_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=LN_EPS):
     """Port of K8a: ``x + W2^T gelu(W1^T LN(x) + b1) + b2`` contracting
     over tokens, on ``[B, L, D]``. On the card two launches
-    (``csrc/mixer_token.cu``): the LN statistics of every row, then one
-    block per (128-channel band, image). bf16 only."""
+    (``csrc/mixer_token.cu``): the LN statistics of every row, then the
+    band work: up to 200 tokens and 112 hidden units the persistent
+    ``wgmma`` + TMA kernel of ``csrc/mixer_bwd_sm90.cuh`` over (image,
+    64-channel band) units, W1 and W2 resident per block
+    (``mixer_fwd_plan``'s route; past them an ``mma.sync`` block per
+    (128-channel band, image)). bf16 only."""
     if x.device.type == 'cpu':
         return token_mix_fwd_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     if x.device.type != 'cuda':

@@ -47,6 +47,80 @@ def _warps(which: str, d: int, hidden: int, num_heads: int) -> int:
     return fn(1 if which == 'bwd' else 0, d, hidden, num_heads)
 
 
+BWD_MAX_WARPS = 12      # K7b's warps a block (csrc BWD_MAX_WARPS)
+MAX_NT = 4              # K7b's dy2 accumulator: Dp <= 64 (csrc MAX_NT)
+LDT = 24                # bf16 row stride of K7b's 16-column FF tiles
+MAX_HD = 128            # the widest head the kernels take (csrc MAX_HD)
+SMEM_CAP = 232448       # a block's dynamic shared memory on the card
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+MIN_RESIDENT = 4        # the resident layout's least warps (csrc)
+
+
+def tnt_bwd_plan(n: int, d: int, hidden: int, num_heads: int,
+                 sms: int = 132) -> dict:
+    """Launch plan of K7b at ``n`` patches on ``sms`` SMs, mirrored from
+    ``plan_bwd``/``sav_tnt_bwd_plan`` in ``csrc/tnt_inner.cu``: ``tiled``
+    (the layout: the resident one, all of F's FF operands and the softmax
+    rows kept a patch, wherever it leaves a block at least
+    ``MIN_RESIDENT`` warps, else the F-tiled one, 16 columns of F at a
+    time), ``warps`` a block (at most 12; the weights, the block's f32
+    partial of the four weight gradients and the warps' working sets
+    within one block's shared memory), ``blocks`` (one an SM, no more than
+    one round of warps per patch needs), ``smem``, ``warp_bytes`` (one
+    warp's working set), ``layout`` (name -> (offset, floats) of each
+    gradient in a block's partial: dWqkv [D, 3D], dWo [D, D], dW1 [D, F],
+    dW2 [F, D], then the LN and bias column sums [5D + F] in ``par``'s
+    order), ``part_floats`` and ``workspace`` (one partial a block: it
+    grows with the blocks, not with the patches). Raises ValueError where
+    the kernel refuses the shape."""
+    if n < 1 or sms < 1 or d < 8 or d % 8 or num_heads < 1 or \
+            d % num_heads or hidden < 16 or hidden % 16:
+        raise ValueError(f'inner_layer_bwd does not take B*P={n}, D={d}, '
+                         f'F={hidden}, H={num_heads} on {sms} SMs')
+    f, h = hidden, num_heads
+    dp = _up16(d)
+    ldy, ldq, ldf, lf = dp + 8, 3 * dp + 8, f + 8, d + 2
+    nvec, total = 5 * d + f, 4 * d * d + 2 * d * f
+    weights = _up16(2 * (dp * ldq + dp * ldy + dp * ldf + f * ldy)) \
+        + _up16(4 * nvec)
+    shared = weights + _up16(4 * total)
+
+    def warp_bytes(tiled):
+        region = max(4 * 16 * LDT * 2 if tiled else 2 * _up16(16 * ldf * 2),
+                     h * 16 * 16 if tiled else _up16(2 * h * 16 * 16 * 4),
+                     _up16(16 * ldy * 2))
+        return (_up16(16 * d * 2) + 5 * _up16(16 * lf * 4)
+                + 3 * _up16(16 * ldy * 2) + region + _up16(4 * 16 * 4)
+                + _up16(4 * nvec))
+
+    def warps(tiled):
+        if (tiled and dp > 16 * MAX_NT) or d // h > MAX_HD or \
+                shared + warp_bytes(tiled) > SMEM_CAP:
+            return 0
+        return min(BWD_MAX_WARPS, (SMEM_CAP - shared) // warp_bytes(tiled))
+
+    tiled = warps(False) < MIN_RESIDENT and warps(True) > 0
+    w = warps(tiled)
+    if w < 1:
+        raise ValueError(f'inner_layer_bwd: the weights, the partial and one '
+                         f'warp need more than {SMEM_CAP} bytes of shared '
+                         f'memory at D = {d}, F = {f}')
+    blocks = min(-(-n // w), sms)
+    layout = dict(dwqkv=(0, 3 * d * d), dwo=(3 * d * d, d * d),
+                  dw1=(4 * d * d, d * f), dw2=(4 * d * d + d * f, d * f),
+                  vec=(total, nvec))
+    return dict(tiled=tiled, warps=w, blocks=blocks,
+                smem=shared + w * warp_bytes(tiled),
+                warp_bytes=warp_bytes(tiled), layout=layout,
+                part_floats=total + nvec,
+                workspace=blocks * (total + nvec) * 4)
+
+
 def _refusal(l: int, d: int, num_heads: int, hidden: int,
              device) -> str | None:
     """Why the K7 port does not take ``l`` tokens of ``d`` channels in
@@ -137,14 +211,16 @@ def inner_layer_fwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1,
 
 
 def inner_layer_bwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1,
-                          w2, b2, g, num_heads, eps=LN_EPS):
+                          w2, b2, g, num_heads, eps=LN_EPS, wsum=None):
     """Plain twin of ``inner_layer_bwd``, following ``_bwd_kernel``'s
     closed form line by line: recompute from x; dgact = do W2^T, dhp =
     dgact gelu'(hp) (f32 up to db1), dy2 from bf16(dhp), the LN2 backward,
     dx2 = dx2_ln + do; dO from bf16(dx2); the softmax backward in f32; dq,
     dk, dv rounded before their products; the LN1 backward, dx = dx_ln +
     dx2. Returns (dx, dln1s, dln1b, dwq, dwk, dwv, dwo, dln2s, dln2b, dw1,
-    db1, dw2, db2): dx in x.dtype, the rest f32 in checkpoint layout."""
+    db1, dw2, db2): dx in x.dtype, the rest f32 in checkpoint layout.
+    ``wsum(a, b)`` sums the weight-gradient products a^T b over the patches
+    (``a``, ``b`` [n, 16, .]); by default in one einsum."""
     n, l, d = x.shape
     cdt = x.dtype
     hd = d // num_heads
@@ -152,7 +228,8 @@ def inner_layer_bwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1,
                         b2, num_heads, eps)
     wq2, wk2, wv2, wo2, w1c, w2c = st['ws']
     rnd = lambda t: t.to(cdt).float()
-    wsum = lambda a, b: torch.einsum('nli,nlj->ij', a, b)
+    if wsum is None:
+        wsum = lambda a, b: torch.einsum('nli,nlj->ij', a, b)
 
     do = rnd(g)
     dw2 = wsum(st['gb'], do)
@@ -183,6 +260,38 @@ def inner_layer_bwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1,
     return ((dx_ln + dx2).to(cdt), dln1s, dln1b, dwq.reshape(shape_w),
             dwk.reshape(shape_w), dwv.reshape(shape_w),
             dwo.reshape(num_heads, hd, d), dln2s, dln2b, dw1, db1, dw2, db2)
+
+
+def blocked_wsum(blocks: int, warps: int):
+    """K7b's order of the weight-gradient sums (``csrc/tnt_inner.cu``):
+    block i's warps take patches in rounds, patch (r blocks + i) warps + w
+    in round r; each block adds its rounds' products into its own partial,
+    round by round; the partials are then added in block order. Returns
+    the ``wsum`` of ``inner_layer_bwd_plain`` that sums in that order."""
+    def wsum(a, b):
+        n = a.shape[0]
+        per_patch = torch.einsum('nli,nlj->nij', a, b)
+        owner = (torch.arange(n) // warps) % blocks
+        total = None
+        for blk in range(blocks):
+            part = torch.zeros_like(per_patch[0])
+            for p in torch.nonzero(owner == blk).flatten().tolist():
+                part = part + per_patch[p]
+            total = part if total is None else total + part
+        return total
+    return wsum
+
+
+def inner_layer_bwd_blocked(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1,
+                            b1, w2, b2, g, num_heads, sms=132, eps=LN_EPS):
+    """``inner_layer_bwd_plain`` with the weight gradients summed in K7b's
+    order on ``sms`` SMs (``tnt_bwd_plan``'s blocks and warps,
+    ``blocked_wsum``): per-block partials over rounds of patches, then the
+    partials in block order."""
+    plan = tnt_bwd_plan(x.shape[0], x.shape[-1], w1.shape[-1], num_heads, sms)
+    return inner_layer_bwd_plain(
+        x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2, g,
+        num_heads, eps, wsum=blocked_wsum(plan['blocks'], plan['warps']))
 
 
 def inner_layer_reference(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1,
@@ -283,12 +392,14 @@ def inner_layer_bwd(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2,
                     b2, g, num_heads, eps=LN_EPS):
     """Port of K7b: the 13 gradients of ``inner_layer_fwd`` from x and the
     cotangent g, recomputing the forward (order as
-    ``inner_layer_bwd_plain``). On the card (``csrc/tnt_inner.cu``): a
-    warp per patch recomputes and writes dx, its LN and bias column sums
-    and the bf16 operands of the weight-gradient products; the four dW
-    products run as tiled GEMMs over row chunks; every partial is summed
-    in a fixed order. No float atomics: the same gradients on every call.
-    bf16 only; gradients f32."""
+    ``inner_layer_bwd_plain``). On the card (``csrc/tnt_inner.cu``, three
+    launches): a warp per patch recomputes and writes dx and keeps its LN
+    and bias column sums; the block's warps, a round of patches at a time,
+    add the four weight-gradient products of the round into the block's
+    f32 partial in shared memory (``tnt_bwd_plan``); then the partials are
+    summed in a fixed order (``inner_layer_bwd_blocked`` mirrors the
+    order). No operand rows in device memory, no float atomics: the same
+    gradients on every call. bf16 only; gradients f32."""
     if x.device.type == 'cpu':
         return inner_layer_bwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s,
                                      ln2b, w1, b1, w2, b2, g, num_heads, eps)

@@ -25,12 +25,18 @@ with parts taken out, through the same C entries, on one card.
                                            # TNT-S bs64 and TNT-B bs32
     python scripts/torch_ablate.py k5a     # csrc/th_attention.cu (K5a),
                                            # CaiT-S/24 @224 bs128 and bs32
+    python scripts/torch_ablate.py k8a     # csrc/mixer_bwd_sm90.cuh (K8a),
+                                           # Mixer-B/16 bs192 and bs32
+    python scripts/torch_ablate.py k7b     # csrc/tnt_inner.cu (K7b), TNT-S
+                                           # bs64 and TNT-B bs32
     python scripts/torch_ablate.py k1_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k5a_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py th_fwd_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k8b_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k14_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k8a_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k7b_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k12_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k13_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k13 --same-as k13_mma \\
@@ -76,6 +82,19 @@ no gact and bf16(dhp), no f32 dy); no_ln (the LN row pass not launched);
 no_dw (the dW GEMM and its sums not launched). The older ``mma.sync`` K8b's
 (``k8b_mma``): full; no_wload (the band blocks' W1/W2 loads skipped),
 no_sums (their db2, db1, row-sum and dscale/dbias loops skipped), no_dw.
+K8a's (``k8a``, the forward band kernel of ``csrc/mixer_bwd_sm90.cuh``):
+full; no_epi (the epilogue skipped: the x tile stored as loaded);
+fetch_at_start (the next unit's x and statistics fetched at the unit's
+start instead of as its products start); no_ln (the first product's A
+not normalised). The parent's ``mma.sync`` K8a (``k8a_mma``): full;
+no_wload. K7b's (``k7b``, ``csrc/tnt_inner.cu``): full; no_points (the
+weight-gradient product points multiply nothing; their barriers stay);
+no_attn (the attention backward's two passes skipped); no_attn_fwd (its
+forward recompute skipped); no_ff (the FF products and gelu skipped);
+no_ln_sums (the LayerNorm backwards' column sums skipped). The parent's
+K7b (``k7b_mma``: a warp a patch writing the dW operand rows, four tiled
+GEMMs over them): full; no_rows (no operand rows stored); no_dw (the
+GEMMs and their sum not launched).
 K14's (``k14``): full; no_epi (the dh passes' elementwise work skipped),
 no_tanh, no_quant (the codes by a cast), no_hload, no_store (the staging
 tiles neither loaded nor stored), no_turn (the teams multiply at once).
@@ -309,6 +328,83 @@ def _k8b_library(t, b, l, k, d):
     both = time_ms(lambda: torch.autograd.grad(fwd(), leaves, t['g']))
     return (f'per-op chain backward {both - time_ms(fwd):.4f} ms at B={b} '
             f'L={l} K={k} D={d}')
+
+
+def _k8a_inputs(b, l, k, d):
+    """The token-mixing forward's operands at Mixer-B/16 (``_k8b_inputs``'s
+    x and parameters), its row-statistics scratch and its output."""
+    t = _k8b_inputs(b, l, k, d)
+    return dict(t, stats=torch.empty(b * l, 2, device='cuda'),
+                out=torch.empty_like(t['x']))
+
+
+def _k8a_library(t, b, l, k, d):
+    """The per-op bf16 chain on the same inputs (timed only), as
+    chip_smoke.py's K8a yardstick."""
+    def fwd():
+        y = F.layer_norm(t['x'], (d,), t['ls'].bfloat16(), t['lb'].bfloat16(),
+                         1e-6)
+        h = F.gelu(y.transpose(1, 2) @ t['w1'] + t['b1'].bfloat16(),
+                   approximate='tanh')
+        return t['x'] + (h @ t['w2'] + t['b2'].bfloat16()).transpose(1, 2)
+
+    return f'per-op chain {time_ms(fwd):.4f} ms at B={b} L={l} K={k} D={d}'
+
+
+def _k7b_inputs(n, d, f, h):
+    """The TNT inner layer's backward operands at n patches of width d (x,
+    the cotangent g, the weights and the f32 vector as ``tnt_inner._check``
+    prepares them), its outputs and the workspace its C entry asks for."""
+    from sav_tpu_torch.ops import tnt_inner
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: (torch.randn(*s, device='cuda', generator=gen)
+                              * std)
+    hd = d // h
+    x = mk(n, 16, d).bfloat16()
+    wqkv, wo, w1, w2, par = tnt_inner._check(
+        x, 1 + mk(d, std=0.1), mk(d, std=0.1),
+        mk(d, h, hd, std=2 * d ** -0.5), mk(d, h, hd, std=d ** -0.5),
+        mk(d, h, hd, std=d ** -0.5), mk(h, hd, d, std=d ** -0.5),
+        1 + mk(d, std=0.1), mk(d, std=0.1), mk(d, f, std=d ** -0.5),
+        mk(f, std=0.1), mk(f, d, std=f ** -0.5), mk(d, std=0.1), h)
+    ws = tnt_inner._fn('sav_tnt_bwd_workspace', 0, 4,
+                       restype=ctypes.c_longlong)(n, d, f, h)
+    return dict(x=x, g=mk(n, 16, d).bfloat16(), wqkv=wqkv, wo=wo, w1=w1,
+                w2=w2, par=par, dx=torch.empty_like(x),
+                gw=torch.empty(4 * d * d + 2 * d * f, device='cuda'),
+                gvec=torch.empty(5 * d + f, device='cuda'),
+                ws=torch.empty(ws, dtype=torch.uint8, device='cuda'))
+
+
+def _k7b_library(t, n, d, f, h):
+    """The per-op bf16 chain's autograd backward on the same inputs (LN,
+    matmuls, SDPA, gelu; timed only), as chip_smoke.py's K7b yardstick."""
+    leaves = [t[k].detach().requires_grad_() for k in ('x', 'wqkv', 'wo',
+                                                      'w1', 'w2')]
+    par = t['par'].bfloat16()
+    ln1s, ln1b, ln2s, ln2b, b2 = par[:5 * d].view(5, d)
+    b1 = par[5 * d:]
+    split = lambda a: a.view(n, 16, h, d // h).transpose(1, 2)
+
+    def fwd():
+        x, wqkv, wo, w1, w2 = leaves
+        y = F.layer_norm(x, (d,), ln1s, ln1b, 1e-6)
+        a = F.scaled_dot_product_attention(*(split(y @ w) for w in
+                                             wqkv.split(d, dim=1)))
+        x2 = x + a.transpose(1, 2).reshape(n, 16, d) @ wo
+        hh = F.gelu(F.layer_norm(x2, (d,), ln2s, ln2b, 1e-6) @ w1 + b1,
+                    approximate='tanh')
+        return x2 + hh @ w2 + b2
+
+    both = time_ms(lambda: torch.autograd.grad(fwd(), leaves, t['g']))
+    return (f'per-op chain backward {both - time_ms(fwd):.4f} ms at B*P={n} '
+            f'D={d} F={f} H={h}')
+
+
+K7B_ARGS = ('x', 'g', 'wqkv', 'wo', 'w1', 'w2', 'par', 'dx', 'gw', 'gvec',
+            'ws')
+# TNT-S/16 bs64's and TNT-B/16 bs32's inner layers: B*P patches, D, F, H
+K7B_SHAPES = [(64 * 196, 24, 96, 4), (32 * 196, 40, 160, 4)]
 
 
 def _k14_inputs(m, dim, hidden):
@@ -942,6 +1038,136 @@ KERNELS = {
                        'dw1, st)) != cudaSuccess ||\n      (err = '
                        'ff::sum_launch(pw2, lay.chunks, lk, l * k, dw2, st)) '
                        '!= cudaSuccess ||\n      ', '')],
+        }),
+    # K8a's Hopper band kernel (csrc/mixer_bwd_sm90.cuh) and K7b's
+    # per-block partials (csrc/tnt_inner.cu)
+    'k8a': dict(
+        source='mixer_token.cu', inline='mixer_bwd_sm90.cuh',
+        shapes=[(192, 196, 98, 768), (32, 196, 98, 768)],
+        inputs=_k8a_inputs, label='B={} L={} K={} D={}',
+        entries={'sav_mixer_fwd': ('x', 'ls', 'lb', 'w1', 'b1', 'w2', 'b2',
+                                   'stats', 'out')},
+        dims=lambda b, l, k, d, t: (b, l, k, d, 1e-6),
+        others=[_k8a_library],
+        variants={
+            'full': [],
+            # the epilogue (+ b2 + x over the tile) skipped: the tile is
+            # stored as loaded
+            'no_epi': [('    for (int s = 0; s < LP / 16; ++s) {\n'
+                        '      uint32_t xr[4];',
+                        '    for (int s = 0; s < 0; ++s) {\n'
+                        '      uint32_t xr[4];')],
+            # the next unit's x and statistics fetched at the unit's start
+            # (the next x once the other tile's store is read) instead of
+            # after its normalisation, as its products start
+            'fetch_at_start': [
+                ('    if (u + stride < units) {\n      fetch(u + stride);\n'
+                 '      if (wt == 0) {\n        bulk_wait_read();\n'
+                 '        load_x(u + stride, cur ^ 1);\n      }\n    }\n'
+                 '    __syncwarp();\n    // hp^T', '    // hp^T'),
+                ('    const int b = u / bands, c0 = (u % bands) * BAND;\n'
+                 '    // 1. the unit\'s row statistics and LN parameters, '
+                 'fetched a unit ahead\n',
+                 '    const int b = u / bands, c0 = (u % bands) * BAND;\n'
+                 '    if (wt == 0 && u + stride < units) {\n'
+                 '      bulk_wait_read();\n      load_x(u + stride, cur ^ 1);\n'
+                 '    }\n    fetch(u);\n')],
+            # the LayerNorm of the first product's A skipped (x as it is)
+            'no_ln': [('      yf[s][0] = ln_pair(yf[s][0], mu0, in0, sc0, '
+                       'bi0);\n      yf[s][1] = ln_pair(yf[s][1], mu0, in0, '
+                       'sc1, bi1);\n      yf[s][2] = ln_pair(yf[s][2], mu1, '
+                       'in1, sc0, bi0);\n      yf[s][3] = ln_pair(yf[s][3], '
+                       'mu1, in1, sc1, bi1);', '')],
+        }),
+    'k7b': dict(
+        source='tnt_inner.cu', inline=(), shapes=K7B_SHAPES,
+        inputs=_k7b_inputs, label='B*P={} D={} F={} H={}',
+        entries={'sav_tnt_bwd': K7B_ARGS},
+        dims=lambda n, d, f, h, t: (n, d, f, h, 1e-6, (d // h) ** -0.5),
+        others=[_k7b_library],
+        variants={
+            'full': [],
+            # the product points multiply nothing (the barriers stay)
+            'no_points': [('  for (int tile = ((warp - first) % nwarps + '
+                           'nwarps) % nwarps; tile < tiles;',
+                           '  for (int tile = tiles; tile < tiles;')],
+            # the attention backward's two passes skipped
+            'no_attn': [('      for (int pr = lane; pr < L * h; pr += 32) {\n'
+                         '        const int r = pr & (L - 1), hh = pr / L, '
+                         'c0 = hh * g.hd;\n        float a[L], ds[L], m, l;',
+                         '      for (int pr = lane + 32 * L * h; pr < L * h; '
+                         'pr += 32) {\n        const int r = pr & (L - 1), '
+                         'hh = pr / L, c0 = hh * g.hd;\n        float a[L], '
+                         'ds[L], m, l;'),
+                        ('      for (int pr = lane; pr < L * h; pr += 32) {\n'
+                         '        const int kr = pr & (L - 1)',
+                         '      for (int pr = lane + 32 * L * h; pr < L * h; '
+                         'pr += 32) {\n        const int kr = pr & (L - 1)')],
+            # the attention forward's recompute skipped (o as it was)
+            'no_attn_fwd': [('      attention_fwd<HD, U>(sQ, sK, sV, sO, g, '
+                             'lf, lane);', '')],
+            # the FF products and their gelu/gelu' epilogue skipped
+            'no_ff': [('    for (int k0 = 0; k0 < g.dp; k0 += 16) {\n'
+                       '      uint32_t af[4], bfr[4];\n'
+                       '      load_a(af, sY, g.ldy, 0, k0, lane);',
+                       '    for (int k0 = 0; k0 < 0; k0 += 16) {\n'
+                       '      uint32_t af[4], bfr[4];\n'
+                       '      load_a(af, sY, g.ldy, 0, k0, lane);'),
+                      ('        const float t0 = gelu_t(h0), t1 = gelu_t(h1);',
+                       '        const float t0 = h0, t1 = h1;')],
+            # the two LayerNorm backwards' column sums skipped
+            'no_ln_sums': [('  for (int c = lane; c < g.d; c += 32) {\n'
+                            '    float ds = 0.f, db = 0.f;',
+                            '  for (int c = lane + g.d; c < g.d; c += 32) {\n'
+                            '    float ds = 0.f, db = 0.f;')],
+        }),
+    # the parent's K8a (one mma.sync block per 128-channel band and image)
+    # and K7b (a warp a patch writing the dW operand rows, four tiled GEMMs
+    # over them), with --csrc on an older checkout's csrc/
+    'k8a_mma': dict(
+        source='mixer_token.cu', inline=(),
+        shapes=[(192, 196, 98, 768), (32, 196, 98, 768)],
+        inputs=_k8a_inputs, label='B={} L={} K={} D={}',
+        entries={'sav_mixer_fwd': ('x', 'ls', 'lb', 'w1', 'b1', 'w2', 'b2',
+                                   'stats', 'out')},
+        dims=lambda b, l, k, d, t: (b, l, k, d, 1e-6),
+        others=[_k8a_library],
+        variants={
+            'full': [],
+            # the band blocks' W1/W2 loads skipped (garbage weights)
+            'no_wload': [('  load_weights(w1, w2, sW1, sW2, l, k);\n'
+                          '  for (int i = threadIdx.x; i < kp; i += '
+                          'blockDim.x) sB1[i] = i < k ? b1[i] : 0.f;\n'
+                          '  for (int i = threadIdx.x; i < lp;',
+                          '  for (int i = threadIdx.x; i < kp; i += '
+                          'blockDim.x) sB1[i] = i < k ? b1[i] : 0.f;\n'
+                          '  for (int i = threadIdx.x; i < lp;')],
+        }),
+    'k7b_mma': dict(
+        source='tnt_inner.cu', inline=(), shapes=K7B_SHAPES,
+        inputs=_k7b_inputs, label='B*P={} D={} F={} H={}',
+        entries={'sav_tnt_bwd': K7B_ARGS},
+        dims=lambda n, d, f, h, t: (n, d, f, h, 1e-6, (d // h) ** -0.5),
+        others=[_k7b_library],
+        variants={
+            'full': [],
+            # the rows kernel writes no operand rows (y, o, dx2, y2, dq|dk|dv,
+            # bf16(dhp), gelu) to the workspace
+            'no_rows': [('    store_rows(', '    if (false) store_rows('),
+                        ('      dqg[i] = sDqkv', '      if (i < 0) dqg[i] = '
+                         'sDqkv'),
+                        ('      *reinterpret_cast<uint32_t*>(gact + r * f + c) '
+                         '=', '      if (r < 0) *reinterpret_cast<uint32_t*>'
+                         '(gact + r * f + c) ='),
+                        ('      *reinterpret_cast<uint32_t*>(dhg + r * f + c) '
+                         '= pk;', '      if (r < 0) *reinterpret_cast<uint32_t*>'
+                         '(dhg + r * f + c) = pk;')],
+            # the four dW GEMMs and their sum not launched
+            'no_dw': [('  for (const Product& pr : prods) {',
+                       '  for (const Product& pr : prods) {\n    if (n > 0) '
+                       'break;'),
+                      ('  return (int)sum_launch(part, pl.chunks, pl.total, '
+                       '(int)pl.total, gw, st);', '  return 0;')],
         }),
     'k14_mma': dict(
         source='int8_ff.cu', inline='int8_gemm.cuh',

@@ -26,11 +26,12 @@ at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
 CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576), K5a at
 B=32 and 128 L=196, K1 without the residual at TNT-S/16's and TNT-B/16's
 widths (serving bs32, training bs64 and bs32), K8b at Mixer-B/16 bs192,
-K13 and K12 at their paths' rows (ViT-B/16 and Mixer-B/16 bs192 with
+K8a at Mixer-B/16 bs192 and bs32 and K7b at TNT-S/16 bs64's and TNT-B/16
+bs32's inner layers (each through its wrapper and its C entry alone), K13
+and K12 at their paths' rows (ViT-B/16 and Mixer-B/16 bs192 with
 save_hpre and bs32 serving, CaiT-S/24 bs128 with save_hpre), and as
-controls K16 (37,824 rows), K8a's
-training launch and K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224
-bs128's FF rows, each with this checkout's
+controls K16 (37,824 rows) and K14 at ViT-B/16 @224 bs192's and CaiT-S/24
+@224 bs128's FF rows, each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -155,9 +156,8 @@ if args['kernels']:
             x, scale, bias, *w1, heads1, save_residuals=train,
             residual=False))
     # K8b at Mixer-B/16 bs192; the controls, whose code does not change:
-    # K16 (ViT-B/16 @224 bs192's rows), K8a's training launch (Mixer-B/16
-    # bs192), K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224 bs128's FF
-    # rows
+    # K16 (ViT-B/16 @224 bs192's rows), K14 at ViT-B/16 @224 bs192's and
+    # CaiT-S/24 @224 bs128's FF rows
     from sav_tpu_torch.ops import int8_ff
     from sav_tpu_torch.ops import mixer_token as mt
     mrows, d, f = 192 * 197, 768, 3072
@@ -173,9 +173,53 @@ if args['kernels']:
              bf16((kt, lt), 1 / math.sqrt(kt)), (0.1 * bf16((lt,))).float())
     g8 = bf16((192, lt, d))
     out['K8b B=192'] = time_ms(lambda: mt.token_mix_bwd(*args8, g8))
-    out['K8a train (control) B=192'] = time_ms(
-        lambda: mt.token_mix_fwd(*args8))
-    del x8, args8, g8
+    del g8
+    # K8a at Mixer-B/16's training (B=192) and serving (B=32) shapes,
+    # through the wrapper and through its C entry alone (the wrapper's
+    # host work is most of a B=32 call)
+    import ctypes
+    for b8 in (192, 32):
+        a8 = (args8[0][:b8].contiguous(),) + args8[1:]
+        out[f'K8a B={{b8}}'] = time_ms(lambda: mt.token_mix_fwd(*a8))
+        st8 = torch.empty(b8 * lt, 2, device='cuda')
+        o8 = torch.empty_like(a8[0])
+        fn8 = mt._fn('sav_mixer_fwd', 9, 4, 1)
+        p8 = [t.data_ptr() for t in a8] + [st8.data_ptr(), o8.data_ptr()]
+        s8 = fa.stream_of(torch.device('cuda'))
+        out[f'K8a C entry B={{b8}}'] = time_ms(
+            lambda: fn8(*p8, b8, lt, kt, d, 1e-6, s8))
+    del x8, args8
+    # K7b at TNT-S/16 bs64's and TNT-B/16 bs32's inner layers (B*P = 196 B
+    # patches, D = 24 and 40, H = 4, F = 4 D), through the wrapper and its C
+    # entry alone (weights prepared and the workspace allocated once)
+    from sav_tpu_torch.ops import tnt_inner
+    for name, n7, d7 in (('TNT-S', 64 * 196, 24), ('TNT-B', 32 * 196, 40)):
+        f7, h7 = 4 * d7, 4
+        w7 = lambda *s, std=1.0: (bf16(s, std / math.sqrt(s[0]))).float()
+        a7 = (bf16((n7, 16, d7)), (1 + 0.1 * bf16((d7,))).float(),
+              (0.1 * bf16((d7,))).float(), w7(d7, h7, d7 // h7, std=2.0),
+              w7(d7, h7, d7 // h7), w7(d7, h7, d7 // h7),
+              w7(h7, d7 // h7, d7), (1 + 0.1 * bf16((d7,))).float(),
+              (0.1 * bf16((d7,))).float(), w7(d7, f7),
+              (0.1 * bf16((f7,))).float(), w7(f7, d7),
+              (0.1 * bf16((d7,))).float())
+        g7 = bf16((n7, 16, d7))
+        out[f'K7b {{name}} B*P={{n7}}'] = time_ms(
+            lambda: tnt_inner.inner_layer_bwd(*a7, g7, h7))
+        wqkv, wo7, w17, w27, par7 = tnt_inner._check(a7[0], *a7[1:], h7)
+        gw7 = torch.empty(4 * d7 * d7 + 2 * d7 * f7, device='cuda')
+        gv7 = torch.empty(5 * d7 + f7, device='cuda')
+        dx7 = torch.empty_like(a7[0])
+        ws7 = torch.empty(tnt_inner._fn(
+            'sav_tnt_bwd_workspace', 0, 4, restype=ctypes.c_longlong)(
+                n7, d7, f7, h7), dtype=torch.uint8, device='cuda')
+        fn7 = tnt_inner._fn('sav_tnt_bwd', 11, 4, 2)
+        p7 = [t.data_ptr() for t in (a7[0], g7, wqkv, wo7, w17, w27, par7,
+                                     dx7, gw7, gv7, ws7)]
+        s7 = fa.stream_of(torch.device('cuda'))
+        out[f'K7b C entry {{name}} B*P={{n7}}'] = time_ms(
+            lambda: fn7(*p7, n7, d7, f7, h7, 1e-6, (d7 // h7) ** -0.5, s7))
+        del a7, g7
     wf = lambda shape, std: torch.from_numpy(
         (rng.standard_normal(shape) * std).astype(np.float32)).cuda()
     for rows, dd, ff in ((192 * 197, 768, 3072), (128 * 196, 384, 1536)):

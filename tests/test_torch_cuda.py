@@ -882,6 +882,42 @@ def test_tnt_inner_bwd_matches_twin_and_repeats(card, n, d):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+@pytest.mark.parametrize('n,d', [(2 * 132 * 8 + 37, 24),
+                                 (2 * 132 * 3 + 5, 40)])
+def test_tnt_inner_bwd_over_rounds_matches_twin_and_repeats(card, n, d):
+    """K7b with every block over several rounds of patches, the last one
+    part-filled: the gradients against the twin and, from per-block
+    partials summed in a fixed order, bit-identical over two calls."""
+    from sav_tpu_torch.ops import tnt_inner
+    rng = np.random.RandomState(n)
+    args = _k7_args(rng, n, d, 4, card)
+    g = _bf16(rng, (n, 16, d), 1, card)
+    grads = tnt_inner.inner_layer_bwd(*args, g, 4)
+    twin = tnt_inner.inner_layer_bwd_plain(*args, g, 4)
+    assert _rel(grads[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(grads[1:], twin[1:])) <= K7_WGRAD_TOL
+    again = tnt_inner.inner_layer_bwd(*args, g, 4)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize('n,d,f,heads,tiled', [(37, 16, 64, 2, False),
+                                               (29, 48, 192, 4, True)])
+def test_tnt_inner_bwd_any_width_matches_twin(card, n, d, f, heads, tiled):
+    """K7b's instantiation that reads the widths at run time, in both
+    layouts (tnt_bwd_plan's choice), against the twin, and repeatable."""
+    from sav_tpu_torch.ops import tnt_inner
+    assert tnt_inner.tnt_bwd_plan(n, d, f, heads)['tiled'] == tiled
+    rng = np.random.RandomState(d)
+    args = _k7_args(rng, n, d, heads, card, f)
+    g = _bf16(rng, (n, 16, d), 1, card)
+    grads = tnt_inner.inner_layer_bwd(*args, g, heads)
+    twin = tnt_inner.inner_layer_bwd_plain(*args, g, heads)
+    assert _rel(grads[0], twin[0]) <= 2e-2
+    assert max(_rel(a, b) for a, b in zip(grads[1:], twin[1:])) <= K7_WGRAD_TOL
+    again = tnt_inner.inner_layer_bwd(*args, g, heads)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
 def test_tnt_inner_wrappers_refuse_and_count(card):
     from sav_tpu_torch import _build
     from sav_tpu_torch.ops import tnt_inner
@@ -1451,6 +1487,73 @@ def test_mixer_bwd_plan_matches_the_kernel(card):
         assert plan['workspace'] == mixer_token._fn(
             'sav_mixer_bwd_workspace', 0, 4,
             restype=ctypes.c_longlong)(b, l, k, d)
+
+
+def test_mixer_fwd_plan_matches_the_kernel(card):
+    """mixer_fwd_plan mirrors sav_mixer_fwd_plan on this card's SM count,
+    on all three routes."""
+    import ctypes
+    from sav_tpu_torch.ops import mixer_token
+    fn = mixer_token._fn('sav_mixer_fwd_plan', 0, 5)
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for b, l, k, d in ((192, 196, 98, 768), (32, 196, 98, 768),
+                       (65, 196, 98, 768), (1, 196, 98, 1024),
+                       (192, 49, 24, 512), (5, 13, 6, 128), (2, 208, 16, 128),
+                       (3, 196, 98, 1152)):
+        out = (ctypes.c_longlong * 7)()
+        assert fn(b, l, k, d, sms, out) == 0
+        plan = mixer_token.mixer_fwd_plan(b, l, k, d, sms)
+        assert list(out) == [plan['route'], *plan['widths'], plan['units'],
+                             plan['ctas'], plan['units_per_wg'], plan['smem']]
+
+
+@pytest.mark.parametrize('batch,l,k,d,route', [(65, 196, 98, 768, 2),
+                                               (33, 196, 98, 1024, 2),
+                                               (133, 13, 6, 128, 1),
+                                               (7, 49, 24, 512, 1),
+                                               (2, 208, 16, 128, 0)])
+def test_token_mix_fwd_routes_match_twin(card, batch, l, k, d, route):
+    """K8a on each route, the Hopper band kernel's at a batch whose units do
+    not fill its warpgroups evenly; out into a NaN-sentinel buffer longer
+    than B x L rows, whose rows past it keep the sentinel."""
+    from sav_tpu_torch.ops import mixer_token
+    assert mixer_token.mixer_fwd_plan(batch, l, k, d)['route'] == route
+    args = _k8_args(np.random.RandomState(batch + l), batch, l, k, d, card)
+    out = torch.full((batch * l + 64, d), float('nan'), device=card,
+                     dtype=torch.bfloat16)
+    stats = torch.empty(batch * l, 2, device=card)
+    ptr = lambda t: t.data_ptr()
+    fn = mixer_token._fn('sav_mixer_fwd', 9, 4, 1)
+    assert fn(*map(ptr, args), ptr(stats), ptr(out), batch, l, k, d,
+              fused_layer.LN_EPS, flash_attention.stream_of(card)) == 0
+    plain = mixer_token.token_mix_fwd_plain(*args)
+    x = args[0]
+    got = out[:batch * l].view(batch, l, d)
+    assert _rel(got.float() - x.float(), plain.float() - x.float()) <= 2e-2
+    assert torch.isnan(out[batch * l:]).all()
+
+
+def test_tnt_bwd_plan_matches_the_kernel(card):
+    """tnt_bwd_plan mirrors sav_tnt_bwd_plan on this card's SM count, and
+    the workspace is the one sav_tnt_bwd_workspace asks for."""
+    import ctypes
+    from sav_tpu_torch.ops import tnt_inner
+    fn = tnt_inner._fn('sav_tnt_bwd_plan', 0, 5)
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for n, d, f, h in ((64 * 196, 24, 96, 4), (32 * 196, 40, 160, 4),
+                       (1, 24, 96, 4), (1001, 16, 64, 2), (37, 32, 128, 4),
+                       (5, 48, 192, 4)):
+        out = (ctypes.c_longlong * 7)()
+        assert fn(n, d, f, h, sms, out) == 0
+        plan = tnt_inner.tnt_bwd_plan(n, d, f, h, sms)
+        assert list(out) == [plan['warps'], plan['blocks'], plan['smem'],
+                             plan['part_floats'], plan['workspace'],
+                             plan['warp_bytes'], int(plan['tiled'])]
+        assert plan['workspace'] == tnt_inner._fn(
+            'sav_tnt_bwd_workspace', 0, 4,
+            restype=ctypes.c_longlong)(n, d, f, h)
 
 
 def test_int8_dx_plan_matches_the_kernel(card):

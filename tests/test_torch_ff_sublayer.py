@@ -4,7 +4,9 @@ twin here) against ``sav_tpu.ops.fused_layer.ff_sublayer``, whose Pallas
 backward runs in interpret mode off the TPU: forward, the seven gradients,
 a 1 x 3-row tail and ``residual=False``. ViT under ``use_kernel='fused_ff'``
 (per-op attention dispatched as 'auto', the FF span) from one flax tree
-against the JAX model: logits and every parameter's gradient. And the
+against the JAX model: logits and every parameter's gradient, at D = 128
+and at vit_ti's D = 192 (which the card's K16 refuses, ``ff_refusal``).
+And the
 attention dispatch: a ``use_kernel`` string that is not a flash mode goes
 to ``dispatch_mode`` as 'auto' does, as in the JAX package.
 
@@ -137,12 +139,48 @@ def test_vit_fused_ff_routes_the_ff_through_the_function(monkeypatch):
 
 
 def test_vit_fused_ff_refuses_what_k16_does_not_tile():
-    _, params = jax_vit(IMG, use_kernel=False)
-    model = torch_vit(params, IMG, use_kernel='fused_ff')
-    ff = model.Encoder_0.EncoderBlock_0.FFBlock_0
-    ff.Dense_0.kernel = torch.nn.Parameter(ff.Dense_0.kernel[:, :200])
-    with pytest.raises(ValueError, match='fused_ff'):
-        model(torch.from_numpy(images(1, IMG)))
+    """The card's refusal, asked on the CPU with ``device='cuda'``: K16
+    tiles D and F in 128-wide tiles, so ViT-Ti's 192/768 is refused there
+    (naming the roadmap item) and taken off the card."""
+    why = fused_layer.ff_refusal(192, 768, 'cuda')
+    assert why is not None and 'Queue 2 item 12' in why
+    assert fused_layer.ff_refusal(768, 3000, 'cuda') is not None
+    assert fused_layer.ff_refusal(768, 3072, 'cuda') is None
+    assert fused_layer.ff_refusal(192, 768, 'cpu') is None
+    assert fused_layer.ff_refusal(0, 768, 'cpu') is not None
+
+
+@pytest.mark.parametrize('dim,hidden', [(192, 768), (128, 200), (768, 3072)])
+def test_ff_refusal_off_the_card_takes_any_width(dim, hidden):
+    assert fused_layer.ff_refusal(dim, hidden, 'cpu') is None
+    assert (fused_layer.ff_refusal(dim, hidden, 'cuda') is None) == \
+        fused_layer.ff_kernel_supported(dim, hidden)
+
+
+def test_vit_ti_fused_ff_logits_and_gradients_match_jax():
+    """ViT-Ti's widths (2 layers, D = 192, H = 3, FF 768) under
+    ``use_kernel='fused_ff'``, which K16's tiling refuses on the card: on
+    the CPU the Function runs its plain twins, as the JAX package runs its
+    kernel at 192/768. Tolerances of the D = 128 test above."""
+    ti = dict(num_layers=2)
+    model_j, params = jax_vit(IMG, overrides=ti, use_kernel='fused_ff')
+    x = images(2, IMG, seed=4)
+    want = np.asarray(model_j.apply({'params': params}, jnp.asarray(x),
+                                    is_training=False))
+    want_g = jax.grad(lambda p: jnp.sum(jnp.square(model_j.apply(
+        {'params': p}, jnp.asarray(x), is_training=False))))(params)
+    want_g = {k.replace('/', '.'): v for k, v in flatten_tree(want_g).items()}
+    model = torch_vit(params, IMG, overrides=ti, use_kernel='fused_ff')
+    assert model.Encoder_0.EncoderBlock_0.FFBlock_0.Dense_0.kernel.shape == \
+        (192, 768)
+    logits = model(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.detach().numpy(), want, atol=1e-4,
+                               rtol=0)
+    logits.square().sum().backward()
+    names = dict(model.named_parameters())
+    assert sorted(names) == sorted(want_g)
+    for name, p in names.items():
+        _close_rel(p.grad.numpy(), want_g[name], 5e-4, name)
 
 
 @pytest.mark.parametrize('mode', ['fused_ff', 'fused_layer', 'anything'])
