@@ -95,7 +95,8 @@
 9. int8 (slice 7): K15 (``csrc/int8_matmul.cu``), K12 and K13 serving and
    ``save_hpre`` variants (``csrc/int8_ff.cu``, ``csrc/int8_ff_sm90.cuh``)
    and K10 (``csrc/fused_attention_q8.cu``) against their twins at the
-   paths' shapes (K15 M = 6304 K = 768 N = 3072; K12 M = 32 x 196 and 192
+   paths' shapes (K15 M = 6304 K = 768 N = 3072 and K = 3072 N = 768, its
+   C entry timed alone too; K12 M = 32 x 196 and 192
    x 196, and save_hpre at CaiT-S/24 bs128's 128 x 196 rows, D = 384, F =
    1536; K13 M = 32 x 197 and 192 x 197; K10 B = 32, L = 197), outputs
    within INT8_TOL and INT8_SHARE bit-identical (K12 and K13 also two
@@ -123,13 +124,16 @@
 12. int8 (slice 8; runs after 10, before the print of 11): K11
    (``csrc/th_attention_q8.cu``) against its twin at CaiT-S/24 @224 bs32
    (L = 196, D = 384, H = 8) and at cait_xxs's widths (D = 192, H = 4),
-   timed beside a library chain (LayerNorm, torch codes, ``torch._int_mm``
-   with the dequant for the four projections, the per-op TH core); K14
+   timed through its wrapper and its C entry alone beside a library chain
+   (LayerNorm, torch codes, ``torch._int_mm`` with the dequant for the
+   four projections, the per-op TH core), each launch's device time; the
+   quantiser K11 and K15 share (``q8::quantize_exact``) against the IEEE
+   division for every bf16 value and row absmax; K14
    (``csrc/int8_ff.cu``) at ViT-B/16 bs192's M = 37,824 and CaiT-S/24
    bs128's 25,088 rows, dy2 and dh, two calls bit-identical, beside
    codes, ``_int_mm``, torch's
    gelu backward, codes, ``_int_mm``; both on NaN-sentinel buffers at a
-   ragged M (K11 also on its two-sweep core, L = 250); serving CaiT-S/24
+   ragged M (K11 also at L = 250); serving CaiT-S/24
    @224 bs32 ``quantized='all'`` (24 K11 + 24 K12 per forward), @384 at
    depth 2 (th_supported fails: 2 K5a + 2 K12, no K11) and cait_xxs_24
    @224 at depth 2 (2 K11 + 2 K12), logits against the int8 twins;
@@ -1995,9 +1999,12 @@ def _time_int8(kernel, plain, library, int8_ops, nbytes, err, flops=0.0,
 
 
 def check_k15(rng, checks, m=6304, k=768, n=3072):
-    """K15 vs its twin at ViT-B's first FF product (bs32 @224); the
-    library chain: per-block codes in torch, one ``_int_mm`` per 256-wide
-    k-block, the fold and the column scales in torch."""
+    """K15 vs its twin at one of ViT-B's FF products (bs32 @224: FF1 K =
+    768 N = 3072, FF2 K = 3072 N = 768); the library chain: per-block codes
+    in torch, one ``_int_mm`` per 256-wide k-block, the fold and the column
+    scales in torch. Also times its C entry alone (``entry_ms``: the
+    wrapper's host work is most of a small call) and prints each
+    launch's device time."""
     a = _bf16(rng, (m, k))
     b_q, b_s = quantize_symmetric(_bf16(rng, (k, n), 1.0 / math.sqrt(k)), 0)
     got = k15.int8_matmul_fused(a, b_q, b_s)
@@ -2017,9 +2024,20 @@ def check_k15(rng, checks, m=6304, k=768, n=3072):
                      lambda: k15.blockwise_int8_matmul_reference(a, b_q, b_s),
                      library, 2 * m * k * n,
                      m * k * 2 + k * n + n * 4 + m * n * 2, err)
-    print(f'  K15 M={m} K={k} N={n}: kernel {rec["ms"]:.4f} ms  plain '
-          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
-          f'bound {rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    plan = k15.int8_matmul_plan(m, k, n)
+    ws = torch.empty(plan['workspace'], dtype=torch.uint8, device='cuda')
+    out = torch.empty(m, plan['ldo'], dtype=torch.bfloat16, device='cuda')
+    ptrs = [t.data_ptr() for t in (a, b_q, b_s.reshape(n).contiguous(), ws,
+                                   out)]
+    stream, fn = fa.stream_of(torch.device('cuda')), k15._k15_lib()
+    entry = lambda: fn(*ptrs, m, k, n, stream)
+    rec['entry_ms'] = time_ms(entry)
+    print(f'  K15 M={m} K={k} N={n}: kernel {rec["ms"]:.4f} ms  C entry '
+          f'{rec["entry_ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  library '
+          f'{rec["library_ms"]:.4f} ms  bound {rec["bound_ms"]:.4f} ms '
+          f'({rec["bound_by"]})', flush=True)
+    print(f'  K15 M={m} K={k} N={n} launches: {launch_split(entry)}',
+          flush=True)
     return rec
 
 
@@ -2166,15 +2184,12 @@ def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
         _int8_expect(checks, f'{what} M={m} into sentinels: hpre', hpre[:m],
                      want[1])
         kept += [out[m:], hpre[m:]]
-    k, kp, n = 700, 768, 256
+    k, n = 700, 256
     a = x[:, :k].contiguous()
     b_q, b_s = quantize_symmetric(_bf16(rng, (k, n), 1.0 / math.sqrt(k)), 0)
     out = nan(m, n)
-    bufs = [a, F.pad(b_q.t(), (0, kp - k)).contiguous(),
-            b_s.reshape(-1).contiguous(),
-            torch.empty(m, kp, dtype=torch.int8, device='cuda'),
-            torch.empty(m, kp // k15.BLOCK_K, device='cuda'), out]
-    codes.append(k15._k15_lib()(*map(ptr, bufs), m, k, n, stream))
+    # the C entry into the first M rows (it raises on a failed launch)
+    k15._int8_matmul_into(a, b_q, b_s, out[:m])
     torch.cuda.synchronize()
     _int8_expect(checks, f'K15 M={m} K={k} into sentinels', out[:m],
                  k15.blockwise_int8_matmul_reference(a, b_q, b_s))
@@ -2259,10 +2274,26 @@ def check_k11(rng, checks, batch, seq, dim, heads):
                      2 * m * dim * 2 + 4 * dim * hd + (3 * hd + 3 * dim) * 4
                      + 2 * heads * heads * 4, err, flops=ops,
                      f32_flops=f32_ops)
+    # the C entry alone, on buffers made once (the wrapper's host work is
+    # most of a bs32 call)
+    vec = lambda t, n: t.reshape(n).float().contiguous()
+    ws = torch.empty(th.th_q8_plan(batch, seq, dim, heads)['workspace'],
+                     dtype=torch.uint8, device='cuda')
+    out = torch.empty_like(x)
+    bufs = [x, scale, bias, *flat[0::2],
+            *[vec(t, n) for t, n in zip(flat[1::2], (hd, hd, hd, dim))],
+            th._mix_bank(*mixes, heads, x.device), ws, out]
+    ptrs = [t.data_ptr() for t in bufs]
+    stream, fn = fa.stream_of(x.device), th._k11_lib()
+    entry = lambda: fn(*ptrs, batch, seq, dim, heads, 0, fused_layer.LN_EPS,
+                       1.0 / math.sqrt(th.HEAD_CH), stream)
+    rec['entry_ms'] = time_ms(entry)
     print(f'  K11 B={batch} L={seq} D={dim} H={heads}: kernel '
-          f'{rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  library '
-          f'{rec["library_ms"]:.4f} ms  bound {rec["bound_ms"]:.4f} ms '
-          f'({rec["bound_by"]})', flush=True)
+          f'{rec["ms"]:.4f} ms  C entry {rec["entry_ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    print(f'  K11 B={batch} L={seq} D={dim} H={heads} launches: '
+          f'{launch_split(entry)}', flush=True)
     return rec
 
 
@@ -2316,13 +2347,11 @@ def check_k14(rng, checks, m, d=768, f=3072):
 def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
     range: K14 at M = 1003 (not a multiple of its 128-row tiles), dy2 and
-    dh; K11 at B = 3, L = 197 (CaiT-S widths) and L = 250 (its two-sweep
-    core at H = 8). Rows in range match the twins; rows past them keep the
-    sentinel."""
-    stream = fa.stream_of(torch.device('cuda'))
+    dh; K11 at B = 3, L = 197 and 250 (CaiT-S widths). Rows in range match
+    the twins; rows past them keep the sentinel."""
     nan = lambda rows, w: torch.full((rows + 64, w), float('nan'),
                                      device='cuda', dtype=torch.bfloat16)
-    codes, kept = [], []
+    kept = []
     d, f = 768, 3072
     g, hpre, (w1t_q, s1t, w2t_q, s2t) = _k14_case(rng, m, d, f)
     dy, dh = nan(m, d), nan(m, f)
@@ -2335,20 +2364,12 @@ def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     kept += [dy[m:], dh[m:]]
     for seq_i in (seq, 250):
         dim, heads = 384, 8
-        hd = heads * th.HEAD_CH
         x, scale, bias, flat, mixes = _k11_case(rng, batch, seq_i, dim, heads)
         rows = batch * seq_i
         out = nan(rows, dim)
-        i8 = lambda w: torch.empty(rows, w, dtype=torch.int8, device='cuda')
-        bf = lambda: torch.empty(rows, hd, dtype=torch.bfloat16, device='cuda')
-        bufs = ([x, scale, bias] + [t.t().contiguous() for t in flat[0::2]]
-                + [t.reshape(-1).contiguous() for t in flat[1::2]] + mixes
-                + [i8(dim), torch.empty(rows, device='cuda')]
-                + [bf() for _ in range(4)]
-                + [i8(hd), torch.empty(rows, device='cuda'), out])
-        codes.append(th._k11_lib()(
-            *[t.data_ptr() for t in bufs], batch, seq_i, dim, heads, 0,
-            fused_layer.LN_EPS, 1.0 / math.sqrt(th.HEAD_CH), stream))
+        # the C entry into the first B*L rows (it raises on a failed launch)
+        th._th_q8_into(x, scale, bias, flat[0::2], flat[1::2], *mixes, heads,
+                       fused_layer.LN_EPS, False, out[:rows])
         torch.cuda.synchronize()
         with torch.no_grad():
             want = th.th_q8_reference(x, scale, bias, *flat, *mixes, heads)
@@ -2356,9 +2377,26 @@ def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
                      out[:rows], want.reshape(rows, dim))
         kept.append(out[rows:])
     untouched = all(bool(torch.isnan(t).all()) for t in kept)
-    checks.expect(all(c == 0 for c in codes) and untouched,
-                  f'K11/K14 into sentinel buffers: rows past M untouched '
-                  f'{untouched}, launch codes {codes}')
+    checks.expect(untouched, f'K11/K14 into sentinel buffers: rows past M '
+                             f'untouched {untouched}')
+
+
+def check_quantizer(checks):
+    """``q8::quantize_exact`` (K11's band codes, K15's a codes) against
+    the IEEE division's codes for every bf16 value against every bf16 row
+    absmax (``sav_q8_quantizer_check``); the product with the reciprocal
+    alone, counted beside it, must differ somewhere, or the check did not
+    reach the ties."""
+    fn = _build.library('int8_matmul').sav_q8_quantizer_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    counts = torch.zeros(2, dtype=torch.int64, device='cuda')
+    code = fn(counts.data_ptr(), fa.stream_of(torch.device('cuda')))
+    torch.cuda.synchronize()
+    exact, naive = counts.tolist()
+    checks.expect(code == 0 and exact == 0 and naive > 0,
+                  f'K11/K15 quantiser: {exact} codes of quantize_exact differ '
+                  f'from the IEEE division over every bf16 value and row '
+                  f'absmax (the reciprocal alone: {naive})')
 
 
 def print_profile(fn, iters: int = 5) -> None:
@@ -2399,7 +2437,8 @@ def main(argv=None):
                 print(f'  {name}: {line.strip()}', flush=True)
     # the wgmma kernels (K4 and K1's attention, K1's and K5a's projection
     # GEMM (proj_gemm_kernel), K2, K3, K5b/K6b, K6a (also K5a's core), K16,
-    # K8a, K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel); their
+    # K8a, K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel), K11
+    # and K15 (q8_gemm_kernel, K11's core th_fwd_sm90_kernel<H, true>); their
     # files' mma.sync kernels beside them, K7a and K7b among them):
     # each kernel's registers, spills and any wgmma warning (C7510-C7515:
     # serialized)
@@ -2408,7 +2447,8 @@ def main(argv=None):
                        ('flash_bwd_split', 'K3'), ('th_bwd', 'K5b/K6b'),
                        ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16'),
                        ('mixer_token', 'K8a/K8b'), ('tnt_inner', 'K7a/K7b'),
-                       ('int8_ff', 'K12/K13/K14')):
+                       ('int8_ff', 'K12/K13/K14'), ('th_attention_q8', 'K11'),
+                       ('int8_matmul', 'K15')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
                                        'wgmma', 'arning')):
@@ -2578,6 +2618,7 @@ def main(argv=None):
     # 'ff', 'all', 'int8' and 'int8' with QuantizedDense(fused=True), Mixer-B
     # 'ff'; training ViT-B/16 'ff' and Mixer-B/16 'ff'
     k15_rec = check_k15(rng, checks)
+    k15_ff2 = check_k15(rng, checks, 6304, 3072, 768)
     k12 = {hp: check_int8_ff(rng, checks, (192 if hp else args.batch) * 196,
                              False, hp) for hp in (False, True)}
     k13 = {hp: check_int8_ff(rng, checks, (192 if hp else args.batch) * 197,
@@ -2629,6 +2670,7 @@ def main(argv=None):
     k14 = {m: check_k14(rng, checks, m, d, f)
            for m, d, f in ((192 * 197, 768, 3072), (128 * 196, 384, 1536))}
     check_slice8_sentinels(rng, checks)
+    check_quantizer(checks)
     q_cait = serve_path(checks, 'CaiT-S/24 @224 quantized=all', 224, 'auto',
                         {'th_attention_q8': 24, 'int8_ff': 24}, args.seed,
                         args.batch, args.profile, model_name='cait_s_24',
@@ -2820,8 +2862,9 @@ def main(argv=None):
                   k9b['dq']),
         bot_entry('bot_bwd_dkv', 147, bot_train.get('bot_bwd_dkv', 0),
                   k9b['dkv']),
-        # int8 (slice 7): K15 at ViT-B's first FF product (bs32), its
-        # launches from ViT-B 'int8' with QuantizedDense(fused=True); K12 at
+        # int8 (slice 7): K15 at ViT-B's first FF product (bs32), the
+        # second under ff2_*, its launches from ViT-B 'int8' with
+        # QuantizedDense(fused=True); K12 at
         # Mixer-B bs32 (serve) and bs192 (save_hpre, Mixer 'ff' training),
         # CaiT-S bs128 (save_hpre, CaiT 'ff_sb' training) under cait_*;
         # K13 at ViT-B bs32 (serve) and bs192 (save_hpre, ViT 'ff'
@@ -2829,7 +2872,14 @@ def main(argv=None):
         dict(name='int8_matmul', route='cuda',
              source='sav_tpu_torch/csrc/int8_matmul.cu',
              replaces='sav_tpu/ops/int8_matmul_kernel.py:67',
-             launches=q_dense.get('int8_matmul', 0), **k15_rec),
+             launches=q_dense.get('int8_matmul', 0),
+             **dict(k15_rec, max_abs_err=max(k15_rec['max_abs_err'],
+                                             k15_ff2['max_abs_err'])),
+             ff2_ms=k15_ff2['ms'], ff2_entry_ms=k15_ff2['entry_ms'],
+             ff2_plain_ms=k15_ff2['plain_ms'],
+             ff2_library_ms=k15_ff2['library_ms'],
+             ff2_bound_ms=k15_ff2['bound_ms'],
+             ff2_bound_by=k15_ff2['bound_by']),
         dict(name='int8_ff', route='cuda', source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:49',
              launches=q_mix.get('int8_ff', 0), **k12[False]),
@@ -2865,7 +2915,9 @@ def main(argv=None):
              launches=q_cait.get('th_attention_q8', 0),
              **dict(k11[(384, 8)], max_abs_err=max(
                  r['max_abs_err'] for r in k11.values())),
-             xxs_ms=k11[(192, 4)]['ms'], xxs_plain_ms=k11[(192, 4)]['plain_ms'],
+             xxs_ms=k11[(192, 4)]['ms'],
+             xxs_entry_ms=k11[(192, 4)]['entry_ms'],
+             xxs_plain_ms=k11[(192, 4)]['plain_ms'],
              xxs_library_ms=k11[(192, 4)]['library_ms'],
              xxs_bound_ms=k11[(192, 4)]['bound_ms']),
         dict(name='int8_ff_dx', route='cuda',

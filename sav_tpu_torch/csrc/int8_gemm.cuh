@@ -11,7 +11,10 @@
 //    scales multiplied first, as the TPU kernels bracket it; the int32 sum
 //    converts round-to-nearest (__int2float_rn). Every product and sum that
 //    the twins round on their own goes through __fmul_rn / __fadd_rn, so
-//    nvcc cannot contract it into an FMA that rounds once.
+//    nvcc cannot contract it into an FMA that rounds once. quantize_by is
+//    the same quantiser by the IEEE reciprocal where that cannot move a
+//    code, quantize_exact the same by the reciprocal and an FMA
+//    correction.
 //  * mma.sync m16n8k32 s8 x s8 -> s32 on fragments loaded under a fixed
 //    permutation of each 64-byte slice of the contraction axis: thread
 //    (g, t) = (lane / 4, lane % 4) reads bytes [16t, 16t + 16) of A rows g
@@ -20,12 +23,13 @@
 //    and 16t+8..16t+15 to the second. A and B see the same permutation,
 //    and int32 sums are exact in any order, so the product is the plain
 //    one. B is stored transposed ([N][K], k contiguous), as s8 mma reads it.
-//  * quantize_rows_kernel: one warp per row, optionally LayerNorm first
-//    (f32 statistics, fast variance), per-row codes and scale.
-//  * quantize_blocks_kernel: K15's per-(row, 256-wide k-block) codes.
+//  * quantize_rows_kernel (quantize_row): one warp per row, optionally
+//    LayerNorm first (f32 statistics, fast variance), per-row codes and
+//    scale.
+//  * quantize_block: K15's per-(row, 256-wide k-block) codes.
 //  * gemm_s8_kernel: a 128 x 128 output tile per block over 64-byte
 //    contraction stages in a 4-deep cp.async ring, 8 warps of 64 x 32,
-//    with the epilogues of K10's and K11's projections and of K15.
+//    with the epilogues of K10's projections.
 // Rows past M and columns past N load as zeros and are never stored.
 #pragma once
 
@@ -41,6 +45,35 @@ __device__ __forceinline__ float row_scale(float absmax) {
 __device__ __forceinline__ int quantize(float v, float scale) {
   const float r = rintf(__fdiv_rn(v, scale));
   return (int)fminf(fmaxf(r, -127.f), 127.f);
+}
+
+// quantize(v, scale), with inv = __frcp_rn(scale): v * inv rounds to
+// within 3 * 2^-24 |v / scale| (< 2.3e-5 for |v / scale| <= 128, as every
+// code of a row is) of the IEEE quotient, so unless it lies within 1e-4 of
+// a half-integer its rint is the quotient's; there the division decides.
+// The same codes, fewer instructions.
+__device__ __forceinline__ int quantize_by(float v, float scale, float inv) {
+  const float q = __fmul_rn(v, inv);
+  const float r = rintf(q);
+  if (fabsf(fabsf(__fsub_rn(q, r)) - 0.5f) < 1e-4f) return quantize(v, scale);
+  return (int)fminf(fmaxf(r, -127.f), 127.f);
+}
+
+// quantize(v, scale) without a division: q0 = v * inv with inv =
+// __frcp_rn(scale) (the correctly rounded reciprocal), the residual v - q0
+// scale by one FMA (exact: q0 is within an ulp of the quotient), then q0 +
+// residual * inv rounded once, which is the correctly rounded quotient
+// (Markstein's correction); so the codes are quantize's at .5 ties too.
+// Branch-free, where quantize_by's test for ties sends bf16 values, whose
+// quotients sit on ties often, to the division. sav_q8_quantizer_check
+// (int8_matmul.cu) holds it against quantize for every bf16 value against
+// every bf16 row absmax (tests/test_torch_cuda.py, chip_smoke.py).
+__device__ __forceinline__ int quantize_exact(float v, float scale,
+                                              float inv) {
+  const float q0 = __fmul_rn(v, inv);
+  const float r = __fmaf_rn(-q0, scale, v);
+  const float q = __fmaf_rn(r, inv, q0);
+  return (int)fminf(fmaxf(rintf(q), -127.f), 127.f);
 }
 
 __device__ __forceinline__ float dequant(int acc, float rs, float cs) {
@@ -110,15 +143,12 @@ __device__ __forceinline__ float ln_value(float a, float mu, float rs,
 // scale [M] f32. One warp per row, 8 rows per 256-thread block. Needs
 // K % 2 == 0.
 template <bool kLN>
-__global__ void __launch_bounds__(256)
-quantize_rows_kernel(const bf16* __restrict__ x,
-                     const float* __restrict__ ln_scale,
-                     const float* __restrict__ ln_bias, float eps,
-                     int8_t* __restrict__ q, float* __restrict__ scale, int M,
-                     int K) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (row >= M) return;
+__device__ __forceinline__ void quantize_row(const bf16* __restrict__ x,
+                                             const float* __restrict__ ln_scale,
+                                             const float* __restrict__ ln_bias,
+                                             float eps, int8_t* __restrict__ q,
+                                             float* __restrict__ scale,
+                                             int row, int K, int lane) {
   const bf16* xr = x + (size_t)row * K;
   float mu = 0.f, rs = 1.f;
   if (kLN) row_stats(xr, K, eps, lane, mu, rs);
@@ -149,38 +179,73 @@ quantize_rows_kernel(const bf16* __restrict__ x,
   if (lane == 0) scale[row] = s;
 }
 
-// K15's activation codes: a [M, K] bf16 -> q [M, KB * 256] int8 (zeros past
-// K) and scale [M, KB] f32, one scale per (row, 256-wide k-block), the
-// block's values taken to f32 first. One warp per row; any K.
-constexpr int QBLOCK = 256;
-
+template <bool kLN>
 __global__ void __launch_bounds__(256)
-quantize_blocks_kernel(const bf16* __restrict__ a, int8_t* __restrict__ q,
-                       float* __restrict__ scale, int M, int K, int KB) {
-  const int lane = threadIdx.x & 31;
+quantize_rows_kernel(const bf16* __restrict__ x,
+                     const float* __restrict__ ln_scale,
+                     const float* __restrict__ ln_bias, float eps,
+                     int8_t* __restrict__ q, float* __restrict__ scale, int M,
+                     int K) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= M) return;
+  quantize_row<kLN>(x, ln_scale, ln_bias, eps, q, scale, row, K,
+                    threadIdx.x & 31);
+}
+
+// K15's activation codes, one warp's share: item w = (row, pair of 256-wide
+// k-blocks) of a [M, K] bf16 -> q [M, ld] int8 (rows ld bytes apart, ld >=
+// K a multiple of 16; zeros past K) and scale [M, KB] f32, one scale per
+// (row, k-block), the block's values taken to f32 first; a half-warp a
+// k-block, two 16-byte loads and one 16-byte store a lane where K % 8 ==
+// 0, the codes by quantize_exact. Any K. Launched from q8g::codes_kernel
+// (q8_gemm_sm90.cuh), one warp an item, k-blocks fastest, with no loop,
+// so every warp's loads are in flight at once.
+constexpr int QBLOCK = 256;
+
+__device__ __forceinline__ void quantize_block(const bf16* __restrict__ a,
+                                               int8_t* __restrict__ q,
+                                               float* __restrict__ scale,
+                                               int K, int KB, int ld, int w,
+                                               int lane) {
+  const int pairs = (KB + 1) / 2;
+  const int row = w / pairs, kb = 2 * (w % pairs) + (lane >> 4);
   const bf16* ar = a + (size_t)row * K;
-  for (int kb = 0; kb < KB; ++kb) {
-    const int c0 = kb * QBLOCK + lane * 8;
-    float v[8];
-    float amax = 0.f;
+  const int c0 = kb * QBLOCK + (lane & 15) * 16;
+  float v[16];
+  if (K % 8 == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = c0 + j < K ? __bfloat162float(ar[c0 + j]) : 0.f;
-      amax = fmaxf(amax, fabsf(v[j]));
+    for (int h = 0; h < 2; ++h) {
+      uint4 raw = make_uint4(0, 0, 0, 0);  // zeros past K (and past KB)
+      if (c0 + 8 * h < K)
+        raw = *reinterpret_cast<const uint4*>(ar + c0 + 8 * h);
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(p[j]);
+        v[8 * h + 2 * j] = f.x;
+        v[8 * h + 2 * j + 1] = f.y;
+      }
     }
+  } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float s = row_scale(amax);
-    uint2 packed;
-    signed char* b = reinterpret_cast<signed char*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = (signed char)quantize(v[j], s);
-    *reinterpret_cast<uint2*>(q + (size_t)row * KB * QBLOCK + c0) = packed;
-    if (lane == 0) scale[(size_t)row * KB + kb] = s;
+    for (int j = 0; j < 16; ++j)
+      v[j] = c0 + j < K ? __bfloat162float(ar[c0 + j]) : 0.f;
   }
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) amax = fmaxf(amax, fabsf(v[j]));
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)    // the half-warp of the k-block
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = row_scale(amax), inv = __frcp_rn(s);
+  uint4 packed;
+  signed char* b = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    b[j] = (signed char)quantize_exact(v[j], s, inv);
+  if (kb < KB && c0 < ld)
+    *reinterpret_cast<uint4*>(q + (size_t)row * ld + c0) = packed;
+  if (kb < KB && (lane & 15) == 0) scale[(size_t)row * KB + kb] = s;
 }
 
 // ------------------------------------------------------------- tiled GEMM
@@ -191,23 +256,22 @@ constexpr int GEMM_S8_SMEM = TSTAGES * (TM + TN) * TK;   // 65,536 bytes
 enum Epilogue {
   kQkv,     // three outputs side by side: q (x q_scale), k, v
   kOut,     // one output, + resid (f32 add) when resid is not null
-  kBlock,   // K15: per-256-block row scales folded in k order
 };
 
 struct GemmS8Args {
   const int8_t* a;            // [M, K] codes
   const int8_t* bt[3];        // [n_each, K] codes (B transposed)
-  const float* row_scale;     // [M] (kBlock: [M, K / 256])
+  const float* row_scale;     // [M]
   const float* col_scale[3];  // [n_each]
   bf16* out[3];               // [M, n_each]
   const bf16* resid;          // kOut: [M, n_each] or null
-  int M, n_each, K;           // K % 64 == 0 (kBlock: % 256)
+  int M, n_each, K;           // K % 64 == 0
   float q_scale;
 };
 
 // grid (gemm_s8_tiles<kEpi>(n_each), ceil(M / 128)): for kQkv each of the
 // three outputs has its own ceil(n_each / 128) column tiles, so n_each need
-// only be even (K11's H*48 = 192 at cait_xxs as well as K10's H*64).
+// only be even.
 template <Epilogue kEpi>
 __host__ __device__ __forceinline__ int gemm_s8_tiles(int n_each) {
   return (kEpi == kQkv ? 3 : 1) * ((n_each + TN - 1) / TN);
@@ -249,21 +313,12 @@ gemm_s8_kernel(const GemmS8Args p) {
   };
 
   int acc[4][4][4];
-  float facc[kEpi == kBlock ? 4 : 1][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  if (kEpi == kBlock) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) facc[i][j][e] = 0.f;
-  }
 
 #pragma unroll
   for (int s = 0; s < TSTAGES - 1; ++s) {
@@ -290,27 +345,6 @@ gemm_s8_kernel(const GemmS8Args p) {
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) mma_k64(acc[mi][ni], af, bf[ni]);
     }
-    if (kEpi == kBlock && (kt + 1) % (QBLOCK / TK) == 0) {
-      // fold this k-block's int32 sums into the f32 accumulator, in k order
-      const int kb = kt / (QBLOCK / TK), kbs = K / QBLOCK;
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-          const float s = row < M ? p.row_scale[(size_t)row * kbs + kb] : 0.f;
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              int& c = acc[mi][ni][2 * half + e];
-              float& f = facc[kEpi == kBlock ? mi : 0][ni][2 * half + e];
-              f = __fadd_rn(f, __fmul_rn(__int2float_rn(c), s));
-              c = 0;
-            }
-        }
-      }
-    }
   }
   cp_async_wait<0>();
 
@@ -326,16 +360,9 @@ gemm_s8_kernel(const GemmS8Args p) {
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
         if (row >= M) continue;
-        float v0, v1;
-        if (kEpi == kBlock) {
-          v0 = __fmul_rn(facc[kEpi == kBlock ? mi : 0][ni][2 * half], cs[col]);
-          v1 = __fmul_rn(facc[kEpi == kBlock ? mi : 0][ni][2 * half + 1],
-                         cs[col + 1]);
-        } else {
-          const float rs = p.row_scale[row];
-          v0 = dequant(acc[mi][ni][2 * half], rs, cs[col]);
-          v1 = dequant(acc[mi][ni][2 * half + 1], rs, cs[col + 1]);
-        }
+        const float rs = p.row_scale[row];
+        float v0 = dequant(acc[mi][ni][2 * half], rs, cs[col]);
+        float v1 = dequant(acc[mi][ni][2 * half + 1], rs, cs[col + 1]);
         const size_t off = (size_t)row * N + col;
         if (kEpi == kQkv && which == 0) {
           v0 = __fmul_rn(v0, p.q_scale);

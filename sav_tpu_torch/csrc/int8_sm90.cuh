@@ -21,6 +21,7 @@ namespace q8w {
 
 using namespace sm90;
 using q8::quantize;
+using q8::quantize_by;
 using q8::row_scale;
 
 constexpr int BM = 128, BN = 128;           // a unit's tile
@@ -69,18 +70,6 @@ __host__ __device__ __forceinline__ int col_tiles(int n) {
 // The absmax partials of a row: one per 128-column tile of F.
 __host__ __device__ __forceinline__ int parts(int hidden) {
   return col_tiles(hidden);
-}
-
-// q8::quantize(v, scale), with inv = __frcp_rn(scale): v * inv rounds to
-// within 3 * 2^-24 |v / scale| (< 2.3e-5 for |v / scale| <= 128, as every
-// code of a row is) of the IEEE quotient, so unless it lies within 1e-4 of
-// a half-integer its rint is the quotient's; there the division decides.
-// The same codes, fewer instructions.
-__device__ __forceinline__ int quantize_by(float v, float scale, float inv) {
-  const float q = __fmul_rn(v, inv);
-  const float r = rintf(q);
-  if (fabsf(fabsf(__fsub_rn(q, r)) - 0.5f) < 1e-4f) return quantize(v, scale);
-  return (int)fminf(fmaxf(r, -127.f), 127.f);
 }
 
 // A row's scale: row_scale of the max of the row's absmax partials (exact,

@@ -13,9 +13,8 @@
 // head_ch 48 is taken as it is: q k^T is three 16-deep steps of wgmma
 // m64n16k16 a head and P V one m64n48k16, so nothing is padded to 64.
 //
-// The two-sweep core (th_fwd_sm90.cuh) is K6a's kernel and K5a's core
-// launch; th_core.cuh's mma.sync core stays for K11's int8 span
-// (th_attention_q8.cu).
+// The two-sweep core (th_fwd_sm90.cuh) is K6a's kernel, K5a's core launch
+// and, in its Q8 form, K11's core (th_attention_q8.cu).
 //
 // What is new against flash attention (csrc/attention_core.cuh):
 //  * The mixes couple all heads: one mixed logit takes the logits of all H
@@ -34,7 +33,7 @@
 //    forward's tensor work, small beside the mixes). Its mixes run in
 //    registers with the weights in the constant bank. It is also K5a's
 //    core: one pass over whole logit rows resident in shared memory
-//    (th_core.cuh, which K11 keeps) measured 2.2x slower at L = 196, from
+//    measured 2.2x slower at L = 196, from
 //    per-block K/V re-reads, shared-memory mixes and one 8-warp block an
 //    SM.
 //  * K5a is four launches: the LN and the projection GEMMs of

@@ -36,16 +36,30 @@
 // Query rows past L read zeros and are never stored. Nothing is padded.
 // The mixes reach the kernel through c_mix, filled from device memory on
 // the caller's stream before the launch.
+//
+// Q8 (K11, th_attention_q8.cu): the accumulate warpgroup's store takes the
+// codes of its rows instead of writing bf16 bands. It holds every head's 48
+// columns of its 64 rows, and K11 quantises a band row over exactly those
+// H*48 values, so no band goes to device memory: each output is rounded to
+// bf16 first (the twin's bands), the row's absmax is taken in-thread over
+// the heads and then over the 4 lanes of a row, scale = max(absmax, 1e-8) /
+// 127 by IEEE division, and the codes come from q8::quantize_exact
+// (int8_gemm.cuh: the IEEE quotient's codes without a division, where
+// quantize_by's tie test would send most bf16 values, whose quotients sit
+// on ties often, to the division: `scripts/torch_ablate.py k11`, tie_test)
+// into a staging tile in shared memory, and out to aq [B, L, H*48] int8 in
+// 16-byte stores (the accumulator's layout gives 2-byte ones); as [B, L]
+// f32.
 #pragma once
 
 #include <type_traits>
 
+#include "int8_gemm.cuh"
 #include "th_sm90.cuh"
 
 namespace sav {
 namespace thf {
 
-// declared here: th_attention.cu also sees th_core.cuh's sav::TD
 using namespace sm90;
 using thb::ACC_REGS;
 using thb::BOX_RES;
@@ -174,15 +188,80 @@ __device__ __forceinline__ void sweep2_mix(const float (&s)[H][8],
   }
 }
 
+// Q8: a work tile's codes are staged in shared memory after the mbarriers,
+// 64 rows of H*48 bytes 16 bytes apart (400 at H = 8: the 8 rows of a
+// store fall in 8 bank groups), then copied out in 16-byte chunks.
+template <int H>
+struct CodesPlan {
+  static constexpr int LD = H * TD + 16;
+  static constexpr int OFF =
+      (Plan<H>::OFF_BAR + Plan<H>::BARS * 8 + 15) / 16 * 16;
+  static constexpr int SMEM = OFF + ROWS * LD + 1024;
+};
+
+// Q8's store: the rows of a 64-row accumulator (24 registers a head) as
+// codes of their bf16 values over all H*48 columns -> aq rows < L (an
+// image's [L, H*48]), their scales -> as (the image's [L]). wt: the thread
+// in the warpgroup.
+template <int H>
+__device__ __forceinline__ void store_codes(float (&acc)[H][24],
+                                            int8_t* stage, int8_t* aq,
+                                            float* as, int row0, int lrow,
+                                            int t, int wt, int L) {
+  constexpr int LD = CodesPlan<H>::LD, CH = H * TD / 16;
+  warpgroup_sync(2);                       // the last tile's rows are out
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    float mx = 0.f;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& v = acc[h][4 * i + 2 * rh + j];
+          v = __bfloat162float(__float2bfloat16(v));
+          mx = fmaxf(mx, fabsf(v));
+        }
+    // the 4 lanes of a row (equal g); every lane takes part
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float scale = q8::row_scale(mx), inv = __frcp_rn(scale);
+    const int r = lrow + 8 * rh;
+    int8_t* dst = stage + r * LD + 2 * t;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        char2 c;
+        c.x = (signed char)q8::quantize_exact(acc[h][4 * i + 2 * rh], scale,
+                                              inv);
+        c.y = (signed char)q8::quantize_exact(acc[h][4 * i + 2 * rh + 1],
+                                              scale, inv);
+        *reinterpret_cast<char2*>(dst + TD * h + 8 * i) = c;
+      }
+    if (t == 0 && row0 + r < L) as[row0 + r] = scale;
+  }
+  warpgroup_sync(2);
+  for (int c = wt; c < ROWS * CH; c += 128) {
+    const int r = c / CH, k = c % CH;
+    if (row0 + r < L)
+      *reinterpret_cast<uint4*>(aq + (size_t)(row0 + r) * (H * TD) + 16 * k) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + 16 * k);
+  }
+}
+
 // qmap: q in 64-row boxes; kmap, vmap: k and v in 16-row boxes (k read in
 // its 64-column boxes, v one box per head at column 48h). attn [B, L,
-// H*48] bf16, lse [B, H, L] f32 or null.
-template <int H>
+// H*48] bf16, lse [B, H, L] f32 or null; Q8: aq [B, L, H*48] int8 and as
+// [B, L] f32 instead of attn (lse null).
+template <int H, bool Q8 = false>
 __global__ void __launch_bounds__(THREADS, 1)
 th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    bf16* __restrict__ attn, float* __restrict__ lse,
+                   int8_t* __restrict__ aq, float* __restrict__ as,
                    int batch, int L) {
   using P = Plan<H>;
   extern __shared__ unsigned char smem_raw[];
@@ -335,7 +414,13 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             mbar_arrive(&empty[st]);
           }
         }
-        store_rows<H>(o, attn + (size_t)b * L * (H * TD), r0, lrow, t, L);
+        if constexpr (Q8)
+          store_codes<H>(o, reinterpret_cast<int8_t*>(
+                                base + CodesPlan<H>::OFF),
+                         aq + (size_t)b * L * (H * TD), as + (size_t)b * L,
+                         r0, lrow, t, wt, L);
+        else
+          store_rows<H>(o, attn + (size_t)b * L * (H * TD), r0, lrow, t, L);
       }
       if (leader) mbar_arrive(res_empty);
     }
@@ -349,12 +434,14 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// mix [3, H, H] f32 (M_pre, M_pre * log2 e, M_post) in device memory.
-template <int H>
-int run(const void* q, const void* k, const void* v, const float* mix,
-        void* attn, float* lse, int batch, int L, cudaStream_t st) {
-  using P = Plan<H>;
-  static_assert(P::SMEM <= 232448, "over the block's shared memory");
+// mix [3, H, H] f32 (M_pre, M_pre * log2 e, M_post) in device memory;
+// Q8: aq and as instead of attn and lse.
+template <int H, bool Q8>
+int launch(const void* q, const void* k, const void* v, const float* mix,
+           void* attn, float* lse, void* aq, float* as, int batch, int L,
+           cudaStream_t st) {
+  constexpr int SMEM = Q8 ? CodesPlan<H>::SMEM : Plan<H>::SMEM;
+  static_assert(SMEM <= 232448, "over the block's shared memory");
   cudaError_t e = cudaMemcpyToSymbolAsync(
       c_mix, mix, 3 * H * H * sizeof(float), 0, cudaMemcpyDeviceToDevice, st);
   if (e != cudaSuccess) return (int)e;
@@ -363,14 +450,30 @@ int run(const void* q, const void* k, const void* v, const float* mix,
   if (!err) err = band_map(&kmap, k, batch, L, L, H * TD, COLS);
   if (!err) err = band_map(&vmap, v, batch, L, L, H * TD, COLS);
   if (err) return err;
-  e = cudaFuncSetAttribute(th_fwd_sm90_kernel<H>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           P::SMEM);
+  e = cudaFuncSetAttribute(th_fwd_sm90_kernel<H, Q8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (L + ROWS - 1) / ROWS * batch;
-  th_fwd_sm90_kernel<H><<<flash::persistent_grid(tiles), THREADS, P::SMEM,
-                          st>>>(qmap, kmap, vmap, (bf16*)attn, lse, batch, L);
+  th_fwd_sm90_kernel<H, Q8><<<flash::persistent_grid(tiles), THREADS, SMEM,
+                              st>>>(qmap, kmap, vmap, (bf16*)attn, lse,
+                                    (int8_t*)aq, as, batch, L);
   return (int)cudaGetLastError();
+}
+
+// K6a, and K5a's core: attn [B, L, H*48] bf16, lse [B, H, L] f32 or null.
+template <int H>
+int run(const void* q, const void* k, const void* v, const float* mix,
+        void* attn, float* lse, int batch, int L, cudaStream_t st) {
+  return launch<H, false>(q, k, v, mix, attn, lse, nullptr, nullptr, batch,
+                          L, st);
+}
+
+// K11's core: the bands' codes aq [B, L, H*48] int8 and scales as [B, L].
+template <int H>
+int run_q8(const void* q, const void* k, const void* v, const float* mix,
+           void* aq, float* as, int batch, int L, cudaStream_t st) {
+  return launch<H, true>(q, k, v, mix, nullptr, nullptr, aq, as, batch, L,
+                         st);
 }
 
 }  // namespace thf

@@ -30,9 +30,10 @@ kernels run d = 48 as three 16-deep k-steps, so nothing is padded to 64
 CaiT's ``quantized='all'`` serving span is ``th_attention_sublayer_q8``:
 where the JAX package's ``th_supported`` holds, the port of K11
 ``_th_q8_kernel`` (``th_attention_q8``, ``csrc/th_attention_q8.cu``; twin
-``th_q8_reference``): LN in f32, one set of per-row codes for the int8
-q/k/v projections, K5a's core, int8 out-projection; elsewhere the bf16 span
-above, as the JAX package falls back. Serving only: no backward.
+``th_q8_reference``; launch plan ``th_q8_plan``): LN in f32, one set of
+per-row codes for the int8 q/k/v projections, K6a's two-sweep core taking
+the bands' codes in its epilogue, int8 out-projection; elsewhere the bf16
+span above, as the JAX package falls back. Serving only: no backward.
 """
 
 from __future__ import annotations
@@ -613,8 +614,7 @@ def th_supported(l: int, num_heads: int, head_ch: int) -> bool:
     it decides WHAT is computed, as in the JAX package: the int8 span (K11)
     where it holds, the bf16 span where it does not (CaiT @384). It is not
     a speed threshold and says nothing about the card: the port's K11 takes
-    any length (K5a's core where the logit rows fit shared memory, K6a's
-    two sweeps where they do not)."""
+    any length (K6a's two sweeps over the keys)."""
     lp = max(-(-l // 16) * 16, 64)
     lanes = -(-l // 128) * 128
     return head_ch <= BAND and num_heads * lp * lanes * 4 <= _MAX_LIST_BYTES
@@ -653,10 +653,88 @@ def th_q8_reference(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
 def _k11_lib():
     fn = _build.library('th_attention_q8').sav_th_attention_q8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+# K11's projections (csrc/q8_gemm_sm90.cuh): 128 x 64 units, their ring
+# slots' depth and count
+Q8_ROWS, Q8_TILE, Q8_SLOT_K, Q8_SLOTS = 128, 64, 64, 6
+Q8_REGIONS = ('yq', 'ys', 'wqkv', 'wo', 'q', 'k', 'v', 'aq', 'as')
+
+
+def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
+    """Launch plan of K11, mirrored from ``sav_th_q8_plan`` in
+    ``csrc/th_attention_q8.cu``: ``tile`` (the column tile of the QKV and
+    the OUT GEMMs, 64), ``row_tiles`` (128 rows of B*L), ``units`` of the two GEMMs
+    (QKV: each of q, k and v its own column tiles, so none straddles two
+    outputs), ``slots`` (64-deep ring slots a unit: over D, over H*48),
+    ``smem`` of the two GEMMs (six slots of a 128-row A box and a
+    tile-row B box, a 64 x tile bf16 staging tile for each of the two
+    consumer warpgroups, mbarriers, alignment slack) and of the core
+    (``th_fwd_plan``'s and a staging tile of the bands' codes, 64 rows
+    H*48 + 16 bytes apart), ``core_tiles`` (64 rows of one image) and the
+    workspace the C entry carves: ``scratch`` (name -> (offset, bytes):
+    y's codes and scales, the transposed codes of Wq|Wk|Wv [3 H*48, D] and
+    of Wo [D, H*48], q, k, v [B*L, H*48] bf16, the bands' codes and
+    scales, each at a 256-byte offset) and ``workspace`` (their total).
+    Raises ValueError where the kernels do not take the geometry (H in
+    ``KERNEL_HEADS``, D a multiple of 64)."""
+    if b < 1 or l < 1 or dim < 64 or dim % 64 or heads not in KERNEL_HEADS:
+        raise ValueError(f'th_attention_q8 takes H in {KERNEL_HEADS} heads of '
+                         f'{HEAD_CH} and D a multiple of 64, got B={b}, L={l}, '
+                         f'D={dim}, H={heads}')
+    m, hd = b * l, heads * HEAD_CH
+    cdiv = lambda x, y: -(-x // y)
+    tile = {'qkv': Q8_TILE, 'out': Q8_TILE}
+    rows = cdiv(m, Q8_ROWS)
+
+    def smem(t):
+        return (Q8_SLOTS * (Q8_ROWS + t) * Q8_SLOT_K + 2 * 64 * t * 2
+                + 2 * Q8_SLOTS * 8 + 1024)
+
+    # the core's, with the codes' staging rows (H*48 + 16 bytes apart)
+    # after its mbarriers
+    core = th_fwd_plan(l, heads)['smem'] - 1024
+    core = cdiv(core, 16) * 16 + 64 * (hd + 16) + 1024
+    regions, at = {}, 0
+    for name, nbytes in zip(Q8_REGIONS, (m * dim, 4 * m, 3 * hd * dim,
+                                         dim * hd, 2 * m * hd, 2 * m * hd,
+                                         2 * m * hd, m * hd, 4 * m)):
+        regions[name] = (at, nbytes)
+        at += cdiv(nbytes, 256) * 256
+    return dict(tile=tile, row_tiles=rows,
+                units={'qkv': rows * 3 * (hd // tile['qkv']),
+                       'out': rows * cdiv(dim, tile['out'])},
+                slots={'qkv': dim // Q8_SLOT_K, 'out': hd // Q8_SLOT_K},
+                smem={'qkv': smem(tile['qkv']), 'out': smem(tile['out']),
+                      'core': core},
+                core_tiles=b * cdiv(l, 64), scratch=regions, workspace=at)
+
+
+def _th_q8_into(x, scale, bias, codes, scales, m_pre, m_post, heads, eps,
+                residual, out):
+    """K11's five launches on checked operands, writing ``out`` (``[B, L,
+    D]``, or the first B*L rows of a longer ``[*, D]`` buffer)."""
+    b, l, dim = x.shape
+    dev = x.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    hd = heads * HEAD_CH
+    ws = torch.empty(th_q8_plan(b, l, dim, heads)['workspace'],
+                     dtype=torch.uint8, device=dev)
+    # every buffer is held by a name until the launches are queued; the
+    # kernels transpose the weight codes into the workspace
+    bufs = [x, vec(scale, dim), vec(bias, dim),
+            *[w.contiguous() for w in codes],
+            *[vec(s, n) for s, n in zip(scales, (hd, hd, hd, dim))],
+            _mix_bank(m_pre, m_post, heads, dev), ws, out]
+    with torch.cuda.device(dev):
+        err = _k11_lib()(*[t.data_ptr() for t in bufs], b, l, dim, heads,
+                         int(residual), eps, 1.0 / HEAD_CH ** 0.5,
+                         fa.stream_of(dev))
+    _build.check(err, 'th_attention_q8')
 
 
 def th_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
@@ -669,9 +747,10 @@ def th_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
     x ``[B, L, D]``; wq_q, wk_q, wv_q ``[D, H*48]`` and wo_q ``[H*48, D]``
     int8 codes with per-column f32 scales ``[1, H*48]`` / ``[1, D]``;
     m_pre, m_post ``[H, H]``. On a CUDA tensor: five launches
-    (``csrc/th_attention_q8.cu``), bf16 x, H in ``KERNEL_HEADS``, D a
-    multiple of 64, any L; the codes transposed per call (the s8 mma reads
-    B k-major). On a CPU tensor: the plain twin.
+    (``csrc/th_attention_q8.cu``: the codes transposed in the workspace,
+    LN(x)'s codes, the QKV and OUT GEMMs on s8 ``wgmma`` + TMA around K6a's
+    core taking the bands' codes), bf16 x, H in ``KERNEL_HEADS``, D a
+    multiple of 64, any L. On a CPU tensor: the plain twin.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, scale, bias, m_pre, m_post)):
@@ -693,25 +772,9 @@ def th_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
         if t.dtype != torch.int8 or tuple(t.shape) != shape:
             raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
-    dev = x.device
-    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
-    codes = [w.t().contiguous() for w in (wq_q, wk_q, wv_q, wo_q)]
-    scales = [vec(sq, hd), vec(sk, hd), vec(sv, hd), vec(so, dim)]
-    mpre, mpost = _mixes(m_pre, m_post, heads, dev)
-    m = b * l
-    i8 = dict(dtype=torch.int8, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    yq, ys = torch.empty(m, dim, **i8), torch.empty(m, **f32)
-    qkva = [torch.empty(m, hd, dtype=x.dtype, device=dev) for _ in range(4)]
-    aq, a_s = torch.empty(m, hd, **i8), torch.empty(m, **f32)
     out = torch.empty_like(x)
-    bufs = [x, vec(scale, dim), vec(bias, dim), *codes, *scales, mpre, mpost,
-            yq, ys, *qkva, aq, a_s, out]
-    with torch.cuda.device(dev):
-        err = _k11_lib()(*[t.data_ptr() for t in bufs], b, l, dim, heads,
-                         int(residual), eps, 1.0 / HEAD_CH ** 0.5,
-                         fa.stream_of(dev))
-    _build.check(err, 'th_attention_q8')
+    _th_q8_into(x, scale, bias, (wq_q, wk_q, wv_q, wo_q), (sq, sk, sv, so),
+                m_pre, m_post, heads, eps, residual, out)
     _build.count('th_attention_q8')
     return out
 

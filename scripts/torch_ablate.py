@@ -29,6 +29,10 @@ with parts taken out, through the same C entries, on one card.
                                            # Mixer-B/16 bs192 and bs32
     python scripts/torch_ablate.py k7b     # csrc/tnt_inner.cu (K7b), TNT-S
                                            # bs64 and TNT-B bs32
+    python scripts/torch_ablate.py k11     # csrc/th_attention_q8.cu (K11),
+                                           # CaiT-S/24 and cait_xxs_24 bs32
+    python scripts/torch_ablate.py k15     # csrc/int8_matmul.cu (K15),
+                                           # ViT-B/16 bs32's FF products
     python scripts/torch_ablate.py k1_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k5a_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
@@ -689,6 +693,184 @@ K5A_NO_CORE = [('  err = heads == 4\n',
                 '  err = M >= 0 ? cudaSuccess : heads == 4\n')]
 
 
+def _k11_inputs(b, seq, heads, dim):
+    """K11's operands (x, the LayerNorm's f32 scale and bias, the weight
+    codes [D, H*48] x 3 and [H*48, D] with their f32 column scales, the
+    [3, H, H] mix bank), its workspace and its output."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    hd = heads * th.HEAD_CH
+    ws = [mk(dim, heads, th.HEAD_CH, std=s / dim ** 0.5) for s in (4, 1, 1)]
+    ws.append(mk(heads, th.HEAD_CH, dim, std=hd ** -0.5))
+    codes = fl._q8_weights(*ws, dim, hd)
+    t = dict(x=mk(b, seq, dim).bfloat16(), ls=1 + 0.1 * mk(dim),
+             lb=0.1 * mk(dim), out=torch.empty(b, seq, dim, device='cuda',
+                                               dtype=torch.bfloat16))
+    for name, (c, sc), n in zip(('q', 'k', 'v', 'o'), codes,
+                                (hd, hd, hd, dim)):
+        t['w' + name], t['s' + name] = c, sc.reshape(n).contiguous()
+    mixes = [torch.eye(heads, device='cuda') + 0.3 * mk(heads, heads)
+             for _ in range(2)]
+    t['mix'] = th._mix_bank(*mixes, heads, 'cuda')
+    t['ws'] = torch.empty(th.th_q8_plan(b, seq, dim, heads)['workspace'],
+                          dtype=torch.uint8, device='cuda')
+    return t
+
+
+def _k15_inputs(m, k, n):
+    """K15's operands (a bf16, the weight codes [K, N] with their f32
+    column scales), its workspace and its output."""
+    from sav_tpu_torch.ops import int8_matmul_kernel as k15
+    from sav_tpu_torch.ops.quantized import quantize_symmetric
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    bq, bs = quantize_symmetric(mk(k, n, std=k ** -0.5).bfloat16(), 0)
+    return dict(a=mk(m, k).bfloat16(), bq=bq, bs=bs.reshape(n).contiguous(),
+                ws=torch.empty(k15.int8_matmul_plan(m, k, n)['workspace'],
+                               dtype=torch.uint8, device='cuda'),
+                out=torch.empty(m, n, device='cuda', dtype=torch.bfloat16))
+
+
+# K15's GEMM (q8_gemm_sm90.cuh, inlined), BLOCK: no_mma, the products not
+# issued (the ring, the folds and the epilogue on garbage); no_fold, only
+# the first k-block's int32 sums kept; no_epi, no epilogue or store;
+# six_slots, a ring of six 128-deep slots (three k-blocks); staggered, the
+# second consumer warpgroup a k-block behind the first from the start (six
+# slots), so that one's fold and epilogue run under the other's products;
+# two_acc, k-blocks in pairs on two int32 accumulators, the second's
+# products under the first's fold (six slots).
+K15_FOLD = ('              f = __fadd_rn(f, __fmul_rn(__int2float_rn('
+            'acc[4 * i + 2 * rh + j]),\n'
+            '                                         s[rh]));')
+K15_SIX = ('static constexpr int STAGES = MODE == BLOCK ? 4 : 6;',
+           'static constexpr int STAGES = 6;')
+K15_TWO_ACC = r"""      int acc2[BN / 2];
+      auto scales = [&](int kb, float (&sc)[2]) {
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int row = row0 + 16 * wi + g + 8 * rh;
+          sc[rh] = row < args.m ? args.rs[(size_t)row * args.kb + kb] : 0.f;
+        }
+      };
+      auto fold = [&](const int (&p)[BN / 2], const float (&sc)[2]) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float& f = facc[4 * i + 2 * rh + j];
+              f = __fadd_rn(f, __fmul_rn(__int2float_rn(p[4 * i + 2 * rh + j]),
+                                         sc[rh]));
+            }
+      };
+      auto issue = [&](int (&p)[BN / 2]) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h, ++step) {
+          const int sl = step % STAGES;
+          wait(&full[sl], (step / STAGES) & 1);
+          slot_products<MODE, BN>(p, base + sl * P::STAGE_BYTES, wg, h == 0);
+        }
+      };
+      int kb = 0;
+      for (; kb + 1 < args.kb; kb += 2) {
+        float s0[2], s1[2];
+        scales(kb, s0);
+        scales(kb + 1, s1);
+        issue(acc);
+        issue(acc2);
+        wgmma_wait<2>();
+        fence_regs(acc);
+        release((step - 4) % STAGES);
+        release((step - 3) % STAGES);
+        fold(acc, s0);
+        wgmma_wait<0>();
+        fence_regs(acc2);
+        release((step - 2) % STAGES);
+        release((step - 1) % STAGES);
+        fold(acc2, s1);
+      }
+      if (kb < args.kb) {
+        float s0[2];
+        scales(kb, s0);
+        issue(acc);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release((step - 2) % STAGES);
+        release((step - 1) % STAGES);
+        fold(acc, s0);
+      }
+    } else {"""
+K15_BLOCK_LOOP = ('      for (int kb = 0; kb < args.kb; ++kb) {\n'
+                  '        // the block\'s row scales, fetched under its '
+                  'products')
+K15_VARIANTS = {
+    'full': [],
+    'no_mma': [('          slot_products<MODE, BN>(acc, base + sl * '
+                'P::STAGE_BYTES, wg,\n                                  '
+                'h == 0);', '')],
+    'no_fold': [(K15_FOLD, '              if (kb == 0) f = (float)acc[4 * i '
+                           '+ 2 * rh + j];')],
+    'no_epi': [("    if (leader) bulk_wait_read();          // the last "
+                "tile's store read it",
+                "    if (MODE == BLOCK) continue;\n"
+                "    if (leader) bulk_wait_read();")],
+    'six_slots': [K15_SIX],
+    'staggered': [K15_SIX,
+                  ('  int step = 0;\n  for (int u = blockIdx.x; u < units; '
+                   'u += gridDim.x) {\n    const int row0 = (u / nt) * BM + '
+                   '64 * wg;',
+                   '  int step = 0;\n  if (MODE == BLOCK && wg == 1) '
+                   'named_sync(3, 256);\n  bool lead = MODE == BLOCK && wg '
+                   '== 0;\n  for (int u = blockIdx.x; u < units; u += '
+                   'gridDim.x) {\n    const int row0 = (u / nt) * BM + 64 * '
+                   'wg;'),
+                  ('        release((step - 1) % STAGES);\n        // thread',
+                   '        release((step - 1) % STAGES);\n        if (lead) '
+                   '{\n          asm volatile("bar.arrive 3, 256;\\n" ::: '
+                   '"memory");\n          lead = false;\n        }\n'
+                   '        // thread')],
+    'two_acc': [K15_SIX],                      # + the loop, below
+}
+
+
+def _k15_two_acc():
+    """two_acc's loop in place of the k-block loop of the BLOCK epilogue's
+    products (the text of this tree's q8_gemm_sm90.cuh)."""
+    src = open(os.path.join(_build.CSRC, 'q8_gemm_sm90.cuh')).read()
+    a = src.index(K15_BLOCK_LOOP)
+    b = src.index('    } else {', a) + len('    } else {')
+    return src[a:b], K15_TWO_ACC
+
+
+K15_VARIANTS['two_acc'].append(_k15_two_acc())
+# K11's core store (th_fwd_sm90.cuh, inlined): tie_test, the codes by
+# quantize_by (the IEEE division where the product lies near a .5 tie)
+# instead of quantize_exact; no_copy, the staged codes not copied out;
+# no_quant, every code a plain conversion (no quantiser at all). Its
+# GEMMs: tiles128, 128-column tiles (QKV 441 units at CaiT-S bs32 instead
+# of 882; at D = 192 it leaves columns out: read its time at CaiT-S only).
+K11_VARIANTS = {
+    'full': [],
+    'tiles128': [('constexpr int TILE = 64;', 'constexpr int TILE = 128;')],
+    'tie_test': [('q8::quantize_exact(acc[h][4 * i + 2 * rh], scale,',
+                  'q8::quantize_by(acc[h][4 * i + 2 * rh], scale,'),
+                 ('q8::quantize_exact(acc[h][4 * i + 2 * rh + 1],',
+                  'q8::quantize_by(acc[h][4 * i + 2 * rh + 1],')],
+    'no_copy': [('  for (int c = wt; c < ROWS * CH; c += 128) {',
+                 '  for (int c = wt; c < ROWS * CH && L < 0; c += 128) {')],
+    'no_quant': [('        c.x = (signed char)q8::quantize_exact(acc[h][4 * i '
+                  '+ 2 * rh], scale,\n                                       '
+                  '       inv);',
+                  '        c.x = (signed char)(int)acc[h][4 * i + 2 * rh];'),
+                 ('        c.y = (signed char)q8::quantize_exact(acc[h][4 * i '
+                  '+ 2 * rh + 1],\n                                         '
+                  '     scale, inv);',
+                  '        c.y = (signed char)(int)acc[h][4 * i + 2 * rh + '
+                  '1];')],
+}
+
+
 KERNELS = {
     # K1 and K5a: LN, QKV GEMM, attention core, out GEMM (four launches)
     'k1': dict(
@@ -1207,6 +1389,25 @@ KERNELS = {
         }),
     # the same, serving (no hpre) at ViT-B/16's and Mixer-B/16's bs32 rows
     # and CaiT-S/24's
+    # K11 and K15: both on q8_gemm_sm90.cuh
+    'k11': dict(
+        source='th_attention_q8.cu',
+        inline=('th_fwd_sm90.cuh', 'q8_gemm_sm90.cuh'),
+        shapes=[(32, 196, 8, 384), (32, 196, 4, 192)],
+        inputs=_k11_inputs, label='B={} L={} H={} D={}',
+        entries={'sav_th_attention_q8': (
+            'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'sq', 'sk', 'sv', 'so',
+            'mix', 'ws', 'out')},
+        dims=lambda b, seq, heads, dim, t: (
+            b, seq, dim, heads, 0, 1e-6, 48 ** -0.5),
+        others=[], variants=K11_VARIANTS),
+    'k15': dict(
+        source='int8_matmul.cu', inline=('q8_gemm_sm90.cuh',),
+        shapes=[(6304, 768, 3072), (6304, 3072, 768)],
+        inputs=_k15_inputs, label='M={} K={} N={}',
+        entries={'sav_int8_matmul': ('a', 'bq', 'bs', 'ws', 'out')},
+        dims=lambda m, k, n, t: (m, k, n),
+        others=[], variants=K15_VARIANTS),
     'k13s': dict(
         source='int8_ff.cu', inline=Q8_HEADERS, shapes=[(32 * 197, 768, 3072)],
         inputs=_ff_serve_inputs, label='M={} D={} F={}',

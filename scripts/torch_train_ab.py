@@ -14,9 +14,11 @@ re-routes the Trainer's model (``models.set_use_kernel``) before the first
 step, for the modes the Trainer has no flag for, as ``fused_ff``;
 ``--quantized ff|ff_sb`` trains the int8 mode. With
 ``--serve`` each run builds the model instead (random weights from seed 0,
-``use_kernel`` as given, ``--quantized ff|all`` its int8 route) and
-prints the img/s of ``predict.serve`` on uint8 frames over ``--steps``
-batches after 3 (host clock, H2D included).
+``use_kernel`` as given, ``--quantized ff|all|int8`` its int8 route, and
+with ``--dense_fused`` every QuantizedDense of 'int8' on K15) and prints
+the img/s of ``predict.serve`` on uint8 frames over ``--steps`` batches
+after 3 (host clock, H2D included); ``--profile`` adds the device time a
+batch over 2 batches, by kernel.
 With ``--kernels`` each run times, through the checkout's own wrappers on
 inputs made from seed 0 with numpy, K1 (the attention sublayer forward,
 whose attention launch is K4's kernel) at its four timed shapes, K4 at
@@ -31,7 +33,10 @@ bs32's inner layers (each through its wrapper and its C entry alone), K13
 and K12 at their paths' rows (ViT-B/16 and Mixer-B/16 bs192 with
 save_hpre and bs32 serving, CaiT-S/24 bs128 with save_hpre), and as
 controls K16 (37,824 rows) and K14 at ViT-B/16 @224 bs192's and CaiT-S/24
-@224 bs128's FF rows, each with this checkout's
+@224 bs128's FF rows, and K11 (CaiT-S/24's and cait_xxs_24's widths, B=32
+L=196) and K15 (ViT-B/16 bs32's two FF products), each through its wrapper
+and its C entry alone (the parent's and this tree's C entries differ in
+their arguments: each run calls its own), each with this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -49,7 +54,9 @@ uses, handed to every run as source).
     python scripts/torch_train_ab.py PARENT_DIR . --model cait_s_24 \\
         --img 384 --batch 48
     python scripts/torch_train_ab.py PARENT_DIR . --serve --img 224 \\
-        --batch 32 --model cait_s_24 --quantized all
+        --batch 32 --model cait_s_24 --quantized all --profile
+    python scripts/torch_train_ab.py PARENT_DIR . --serve --img 224 \\
+        --batch 32 --quantized int8 --dense_fused --profile
 
 Needs an NVIDIA card; there is no CPU fallback.
 """
@@ -78,6 +85,35 @@ from sav_tpu_torch.train import TrainConfig, Trainer
 assert _build.__file__.startswith({root!r}), _build.__file__
 args = {args!r}
 _build.build_all()
+
+
+def profile_steps(step, iters=2):
+    """Device time by kernel over ``iters`` calls of ``step(i)``, the
+    device time a call and the idle share (1 - device / wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for i in range(iters):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_name = {{}}
+    for e in prof.events():                 # kernels only: no double count
+        if e.device_type == DeviceType.CUDA:
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    rows = sorted(((ms / iters, calls // iters, name)
+                   for name, (ms, calls) in by_name.items()), reverse=True)
+    device = sum(r[0] for r in rows)
+    return dict(device_ms_step=device, wall_ms_step=1e3 * wall / iters,
+                idle_share=1 - device / (1e3 * wall / iters),
+                top=[dict(ms=r[0], calls=r[1], name=r[2][:90])
+                     for r in rows[:15]])
+
+
 if args['kernels']:
     import math
     import numpy as np
@@ -250,17 +286,88 @@ if args['kernels']:
         out[key] = time_ms(
             lambda: raw(xq, *lnp, w1q, s1, b1, w2q, s2, b2, save_hpre=train))
         del xq
+    # K11 at CaiT-S/24's and cait_xxs_24's widths @224 bs32 ('all'
+    # serving) and K15 at ViT-B/16 bs32's two FF products ('int8' with
+    # QuantizedDense(fused=True)), each through its wrapper and its C entry
+    # alone on buffers made once (this tree's entries take the codes as
+    # they are and one workspace; the parent's took them transposed and
+    # its scratch buffer by buffer)
+    from sav_tpu_torch.ops import int8_matmul_kernel as k15
+    from sav_tpu_torch.ops.quantized import quantize_symmetric
+    st = fa.stream_of(torch.device('cuda'))
+    vec = lambda t, n: t.reshape(n).float().contiguous()
+    for dd, hh in ((384, 8), (192, 4)):
+        hd, m11 = hh * th.HEAD_CH, 32 * 196
+        xq = bf16((32, 196, dd))
+        scq, biq = 1 + 0.1 * wf((dd,), 1), 0.1 * wf((dd,), 1)
+        w11 = [wf((dd, hh, 48), 4 / math.sqrt(dd))] + [
+            wf((dd, hh, 48), 1 / math.sqrt(dd)) for _ in range(2)] + [
+            wf((hh, 48, dd), 1 / math.sqrt(hd))]
+        flat = [t for p in fused_layer._q8_weights(*w11, dd, hd) for t in p]
+        mq = [torch.eye(hh, device='cuda') + 0.3 * wf((hh, hh), 1)
+              for _ in range(2)]
+        key = f'B=32 L=196 D={{dd}} H={{hh}}'
+        with torch.no_grad():
+            out['K11 ' + key] = time_ms(
+                lambda: th.th_attention_q8(xq, scq, biq, *flat, *mq, hh))
+        scales = [vec(t, n) for t, n in zip(flat[1::2], (hd, hd, hd, dd))]
+        o11 = torch.empty_like(xq)
+        if hasattr(th, 'th_q8_plan'):
+            ws11 = torch.empty(th.th_q8_plan(32, 196, dd, hh)['workspace'],
+                               dtype=torch.uint8, device='cuda')
+            b11 = [xq, scq, biq, *flat[0::2], *scales,
+                   th._mix_bank(*mq, hh, xq.device), ws11, o11]
+        else:
+            i8 = lambda w: torch.empty(m11, w, dtype=torch.int8, device='cuda')
+            bfb = lambda: torch.empty(m11, hd, dtype=torch.bfloat16,
+                                      device='cuda')
+            b11 = ([xq, scq, biq] + [t.t().contiguous() for t in flat[0::2]]
+                   + scales + [t.float().contiguous() for t in mq]
+                   + [i8(dd), torch.empty(m11, device='cuda')]
+                   + [bfb() for _ in range(4)]
+                   + [i8(hd), torch.empty(m11, device='cuda'), o11])
+        p11, fn11 = [t.data_ptr() for t in b11], th._k11_lib()
+        out['K11 C entry ' + key] = time_ms(
+            lambda: fn11(*p11, 32, 196, dd, hh, 0, 1e-6, 1 / math.sqrt(48), st))
+        del xq, b11
+    for k5, n5 in ((768, 3072), (3072, 768)):
+        a5 = bf16((6304, k5))
+        bq5, bs5 = quantize_symmetric(bf16((k5, n5), 1 / math.sqrt(k5)), 0)
+        key = f'M=6304 K={{k5}} N={{n5}}'
+        out['K15 ' + key] = time_ms(
+            lambda: k15.int8_matmul_fused(a5, bq5, bs5))
+        o5 = torch.empty(6304, n5, dtype=torch.bfloat16, device='cuda')
+        if hasattr(k15, 'int8_matmul_plan'):
+            ws5 = torch.empty(k15.int8_matmul_plan(6304, k5, n5)['workspace'],
+                              dtype=torch.uint8, device='cuda')
+            b5 = [a5, bq5, bs5.reshape(n5).contiguous(), ws5, o5]
+        else:
+            kp = -(-k5 // 256) * 256
+            b5 = [a5, torch.nn.functional.pad(bq5.t(), (0, kp - k5)).contiguous(),
+                  bs5.reshape(n5).contiguous(),
+                  torch.empty(6304, kp, dtype=torch.int8, device='cuda'),
+                  torch.empty(6304, kp // 256, device='cuda'), o5]
+        p5, fn15 = [t.data_ptr() for t in b5], k15._k15_lib()
+        out['K15 C entry ' + key] = time_ms(
+            lambda: fn15(*p5, 6304, k5, n5, st))
+        del a5, b5
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
 if args['serve']:
     import numpy as np
     from sav_tpu_torch.models import create_model
     from sav_tpu_torch.predict import decode_size_for, serve
-    q = {{'quantized': args['quantized']}} if args['quantized'] else {{}}
+    quant = True if args['quantized'] == 'int8' else args['quantized']
+    q = {{'quantized': quant}} if quant else {{}}
     model = create_model(args['model'], num_classes=1000,
                          dtype=torch.bfloat16, img_size=args['img'], seed=0,
                          device='cuda', use_kernel=args['use_kernel'],
                          **q).eval()
+    if args['dense_fused']:
+        from sav_tpu_torch.nn.quantized_dense import QuantizedDense
+        for sub in model.modules():
+            if isinstance(sub, QuantizedDense):
+                sub.fused = True
     size = decode_size_for(args['img'])
     frames = np.random.RandomState(0).randint(
         0, 256, (args['batch'], size, size, 3), dtype=np.uint8)
@@ -272,9 +379,12 @@ if args['serve']:
         serve(model, frames, args['img'], 5)
     torch.cuda.synchronize()
     secs = time.perf_counter() - start
-    print('RESULT ' + json.dumps(dict(
-        img_s=args['steps'] * args['batch'] / secs,
-        ms_step=1e3 * secs / args['steps'])), flush=True)
+    res = dict(img_s=args['steps'] * args['batch'] / secs,
+               ms_step=1e3 * secs / args['steps'])
+    if args['profile']:
+        res.update(profile_steps(lambda i: serve(model, frames, args['img'],
+                                                 5)))
+    print('RESULT ' + json.dumps(res), flush=True)
     sys.exit(0)
 trainer = Trainer(TrainConfig(model_name=args['model'], img_size=args['img'],
                               batch_size=args['batch'], seed=0,
@@ -294,29 +404,7 @@ secs = time.perf_counter() - start
 out = dict(img_s=args['steps'] * args['batch'] / secs,
            ms_step=1e3 * secs / args['steps'], loss=loss)
 if args['profile']:
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    iters = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for i in range(iters):
-            trainer.train_step(data.batch(i))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-    from torch.autograd import DeviceType
-    by_name = {{}}
-    for e in prof.events():                 # kernels only: no double count
-        if e.device_type == DeviceType.CUDA:
-            ms, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-    rows = sorted(((ms / iters, calls // iters, name)
-                   for name, (ms, calls) in by_name.items()), reverse=True)
-    device = sum(r[0] for r in rows)
-    out.update(device_ms_step=device, wall_ms_step=1e3 * wall / iters,
-               idle_share=1 - device / (1e3 * wall / iters),
-               top=[dict(ms=r[0], calls=r[1], name=r[2][:90])
-                    for r in rows[:15]])
+    out.update(profile_steps(lambda i: trainer.train_step(data.batch(i))))
 print('RESULT ' + json.dumps(out), flush=True)
 '''
 
@@ -345,9 +433,12 @@ def main(argv=None) -> int:
     parser.add_argument('--use_kernel', default='auto',
                         help="the model's use_kernel mode, e.g. fused_ff")
     parser.add_argument('--quantized', default='none',
-                        choices=('none', 'ff', 'ff_sb', 'all'),
+                        choices=('none', 'ff', 'ff_sb', 'all', 'int8'),
                         help="the int8 route: the Trainer's ff or ff_sb, "
-                             "or with --serve the model's ff or all")
+                             "or with --serve the model's ff, all or int8")
+    parser.add_argument('--dense_fused', action='store_true',
+                        help="with --serve --quantized int8: every "
+                             "QuantizedDense on K15 (fused=True)")
     parser.add_argument('--profile', action='store_true')
     parser.add_argument('--serve', action='store_true',
                         help='time predict.serve instead of a train step')
@@ -362,7 +453,7 @@ def main(argv=None) -> int:
     args = dict(model=opts.model, img=opts.img, batch=opts.batch,
                 steps=opts.steps, profile=opts.profile,
                 use_kernel=opts.use_kernel, serve=opts.serve,
-                kernels=opts.kernels,
+                kernels=opts.kernels, dense_fused=opts.dense_fused,
                 quantized=False if opts.quantized == 'none' else opts.quantized)
     order = []
     for _ in range(opts.rounds):
@@ -375,17 +466,19 @@ def main(argv=None) -> int:
             continue
         mode = opts.use_kernel + ('' if opts.quantized == 'none'
                                   else f', quantized={opts.quantized}')
+        mode += ', dense_fused' if opts.dense_fused else ''
         what = (f'{root}: {opts.model} ({mode}) @{opts.img} '
                 f'bs{opts.batch}: {res["img_s"]:.1f}')
         if opts.serve:
             print(f'{what} serve img/s ({res["ms_step"]:.2f} ms/batch incl. '
                   f'host)', flush=True)
-            continue
-        print(f'{what} train img/s ({res["ms_step"]:.2f} ms/step incl. '
-              f'host), loss {res["loss"]:.4f}', flush=True)
+        else:
+            print(f'{what} train img/s ({res["ms_step"]:.2f} ms/step incl. '
+                  f'host), loss {res["loss"]:.4f}', flush=True)
         if 'device_ms_step' in res:
             print(f'  device {res["device_ms_step"]:.2f} ms of '
-                  f'{res["wall_ms_step"]:.2f} ms a step (idle '
+                  f'{res["wall_ms_step"]:.2f} ms a '
+                  f'{"batch" if opts.serve else "step"} (idle '
                   f'{100 * res["idle_share"]:.1f}%), by kernel:', flush=True)
             for row in res['top']:
                 print(f'    {row["ms"]:8.3f} ms  x{row["calls"]:<4d} '

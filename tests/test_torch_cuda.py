@@ -1103,8 +1103,12 @@ def _int8_check(got, want, base=None):
 
 
 @pytest.mark.parametrize('m,k,n', [(1, 300, 64), (130, 768, 3072),
-                                   (1003, 3072, 768)])
+                                   (1003, 3072, 768), (6304, 768, 3072),
+                                   (6304, 3072, 768), (40, 300, 100),
+                                   (3, 1, 2)])
 def test_int8_matmul_matches_twin(card, m, k, n):
+    """K15 at ViT-B/16 bs32's two FF products (FF1, FF2), ragged M, K and
+    N (N = 100: the output's rows 104 apart, returned as a view)."""
     from sav_tpu_torch.ops import int8_matmul_kernel as k15
     from sav_tpu_torch.ops.quantized import quantize_symmetric
     rng = np.random.RandomState(m)
@@ -1151,10 +1155,8 @@ def test_int8_kernels_write_no_row_past_m(card):
     """K12/K13 (with hpre) and K15 at M = 1003, K10 at B = 3, L = 197, into
     NaN-sentinel buffers 64 rows longer: the rows past M keep the sentinel,
     the rows in range match the twins."""
-    from sav_tpu_torch.ops import flash_attention as fa
     from sav_tpu_torch.ops import int8_ff, int8_matmul_kernel as k15
     from sav_tpu_torch.ops.quantized import quantize_symmetric
-    stream = fa.stream_of(card)
     nan = lambda rows, w: torch.full((rows + 64, w), float('nan'), device=card,
                                      dtype=torch.bfloat16)
     m, d, f = 1003, 768, 3072
@@ -1173,18 +1175,14 @@ def test_int8_kernels_write_no_row_past_m(card):
         _int8_check(out[:m], want[0], x if ln else None)
         _int8_check(hpre[:m], want[1])
         assert bool(torch.isnan(out[m:]).all() and torch.isnan(hpre[m:]).all())
-    k, kp = 700, 768                  # K15's last k-block is ragged
+    k = 700                           # K15's last k-block is ragged
     a = x[:, :k].contiguous()
     b_q, b_s = quantize_symmetric(
         _bf16(np.random.RandomState(6), (k, 256), 1 / math.sqrt(k), card), 0)
     out = nan(m, 256)
-    bufs = [a, torch.nn.functional.pad(b_q.t(), (0, kp - k)).contiguous(),
-            b_s.reshape(-1).contiguous(),
-            torch.empty(m, kp, dtype=torch.int8, device=card),
-            torch.empty(m, kp // 256, device=card), out]
-    err = k15._k15_lib()(*[t.data_ptr() for t in bufs], m, k, 256, stream)
+    # the C entry into the first M rows (it raises on a failed launch)
+    k15._int8_matmul_into(a, b_q, b_s, out[:m])
     torch.cuda.synchronize()
-    assert err == 0
     _int8_check(out[:m], k15.blockwise_int8_matmul_reference(a, b_q, b_s))
     assert bool(torch.isnan(out[m:]).all())
 
@@ -1668,3 +1666,154 @@ def test_int8_ff_writes_no_row_past_m(card, m, d, f):
             assert bool(torch.isnan(out[m:]).all())
             assert bool(torch.isnan(hpre).all() if not save_hpre
                         else torch.isnan(hpre[m:]).all())
+
+
+# ---- K11 and K15 on s8 wgmma + TMA (q8_gemm_sm90.cuh; K11's codes in
+# K6a's core)
+
+def test_int8_matmul_plan_matches_the_kernel(card):
+    """int8_matmul_plan mirrors sav_int8_matmul_plan."""
+    import ctypes
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import int8_matmul_kernel as k15
+    fn = _build.library('int8_matmul').sav_int8_matmul_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for m, k, n in ((6304, 768, 3072), (6304, 3072, 768), (6272, 768, 3072),
+                    (1003, 700, 256), (1, 300, 64), (40, 300, 100)):
+        out = (ctypes.c_longlong * 12)()
+        assert fn(m, k, n, out) == 0
+        p = k15.int8_matmul_plan(m, k, n)
+        assert list(out) == [p['row_tiles'], p['col_tiles'], p['units'],
+                             p['k_blocks'], p['slots'], p['ldk'], p['ldo'],
+                             p['smem'], p['workspace'], p['scratch']['bt'][0],
+                             p['scratch']['aq'][0], p['scratch']['as'][0]]
+    assert fn(16, 768, 255, (ctypes.c_longlong * 12)()) != 0
+    assert fn(0, 768, 256, (ctypes.c_longlong * 12)()) != 0
+
+
+def test_th_q8_plan_matches_the_kernel(card):
+    """th_q8_plan mirrors sav_th_q8_plan."""
+    import ctypes
+    from sav_tpu_torch import _build
+    fn = _build.library('th_attention_q8').sav_th_q8_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for b, l, d, h in ((32, 196, 384, 8), (32, 196, 192, 4), (3, 250, 384, 8),
+                       (2, 17, 128, 8), (1, 1, 768, 4)):
+        out = (ctypes.c_longlong * 21)()
+        assert fn(b, l, d, h, out) == 0
+        p = th_attention.th_q8_plan(b, l, d, h)
+        assert list(out) == (
+            [p['tile']['qkv'], p['tile']['out'], p['row_tiles'],
+             p['units']['qkv'], p['units']['out'], p['slots']['qkv'],
+             p['slots']['out'], p['smem']['qkv'], p['smem']['out'],
+             p['smem']['core'], p['core_tiles'], p['workspace']]
+            + [p['scratch'][r][0] for r in th_attention.Q8_REGIONS])
+    assert fn(2, 17, 96, 8, (ctypes.c_longlong * 21)()) != 0
+    assert fn(2, 17, 384, 6, (ctypes.c_longlong * 21)()) != 0
+
+
+def test_quantizer_matches_the_division(card):
+    """q8::quantize_exact (K11's band codes, K15's a codes) gives the IEEE
+    division's code for every bf16 value against every bf16 row absmax
+    (sav_q8_quantizer_check: ~2.1e9 pairs), where the product with the
+    reciprocal alone would differ: the count of the second is the check's
+    own test that it reaches the ties."""
+    import ctypes
+    from sav_tpu_torch import _build
+    fn = _build.library('int8_matmul').sav_q8_quantizer_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    counts = torch.zeros(2, dtype=torch.int64, device=card)
+    assert fn(counts.data_ptr(), flash_attention.stream_of(card)) == 0
+    torch.cuda.synchronize()
+    exact, naive = counts.tolist()
+    assert exact == 0 and naive > 0, (exact, naive)
+
+
+@pytest.mark.parametrize('seq,dim,heads', [(197, 384, 8), (250, 384, 8),
+                                           (197, 192, 4), (1, 192, 4)])
+def test_th_attention_q8_writes_no_row_past_the_length(card, seq, dim,
+                                                       heads):
+    """K11 through ``_th_q8_into`` into a NaN-sentinel buffer 64 rows
+    longer at B = 3: the rows in range match the twin, the rows past B*L
+    keep the sentinel."""
+    x, scale, bias, ws, mixes = _k11_case(np.random.RandomState(seq + dim), 3,
+                                          seq, dim, heads, card)
+    hd = heads * 48
+    codes = fused_layer._q8_weights(*ws, dim, hd)
+    rows = 3 * seq
+    out = torch.full((rows + 64, dim), float('nan'), device=card,
+                     dtype=torch.bfloat16)
+    th_attention._th_q8_into(x, scale, bias, [c for c, _ in codes],
+                             [s for _, s in codes], *mixes, heads,
+                             fused_layer.LN_EPS, False, out[:rows])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = th_attention.th_q8_reference(
+            x, scale, bias, *[t for pair in codes for t in pair], *mixes,
+            heads)
+    _int8_check(out[:rows], want.reshape(rows, dim))
+    assert bool(torch.isnan(out[rows:]).all())
+
+
+def test_q8_kernels_repeat_bitwise_over_queued_calls(card):
+    """50 calls each of K11 (CaiT-S/24 widths) and K15 (FF2) queued without
+    a synchronize between them (a deadlock in a ring or a staging tile
+    shows as a launch failure) all give the first call's bits."""
+    from sav_tpu_torch.ops import int8_matmul_kernel as k15
+    from sav_tpu_torch.ops.quantized import quantize_symmetric
+    rng = np.random.RandomState(12)
+    x, scale, bias, ws, mixes = _k11_case(rng, 4, 196, 384, 8, card)
+    flat = [t for pair in fused_layer._q8_weights(*ws, 384, 384)
+            for t in pair]
+    a = _bf16(rng, (1003, 3072), 1.0, card)
+    b_q, b_s = quantize_symmetric(_bf16(rng, (3072, 768), 1 / 55.4, card), 0)
+    calls = (lambda: th_attention.th_attention_q8(x, scale, bias, *flat,
+                                                  *mixes, 8),
+             lambda: k15.int8_matmul_fused(a, b_q, b_s))
+    with torch.no_grad():
+        for call in calls:
+            first = call()
+            for _ in range(5):
+                outs = [call() for _ in range(10)]
+                torch.cuda.synchronize()
+                assert all(torch.equal(o, first) for o in outs)
+
+
+@pytest.mark.parametrize('name,quantized,dense_fused,want', [
+    ('cait_s_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
+    ('cait_xxs_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
+    ('vit_b_patch16', True, True, {'fused_attention_fwd': 2,
+                                   'int8_matmul': 4})])
+def test_int8_serving_paths_at_depth_2(card, name, quantized, dense_fused,
+                                       want):
+    """CaiT-S/24 and cait_xxs_24 'all' (K11 + K12) and ViT-B/16 'int8' with
+    QuantizedDense(fused=True) (K1 + K15) at 224 px, depth 2, batch 4: the
+    launches of one forward, and logits within 5e-2 of max |logit| of the
+    same model on the int8 twins (set_int8_core)."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import create_model, set_int8_core
+    from sav_tpu_torch.nn.quantized_dense import QuantizedDense
+    model = create_model(name, num_classes=1000, dtype=torch.bfloat16,
+                         img_size=224, seed=3, device=card,
+                         quantized=quantized, num_layers=2)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        head = model.Dense_0.kernel
+        head.copy_(torch.randn(head.shape, generator=gen) / head.shape[0] ** 0.5)
+        for pname, p in model.named_parameters():
+            if pname.endswith('layerscale'):
+                p.fill_(0.1)
+    for sub in model.modules():
+        if dense_fused and isinstance(sub, QuantizedDense):
+            sub.fused = True
+    model.eval()
+    x = _bf16(np.random.RandomState(5), (4, 224, 224, 3), 1.0, card)
+    with torch.inference_mode():
+        _build.reset_launches()
+        logits = model(x).float()
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == want
+        set_int8_core(model, 'plain')
+        plain = model(x).float()
+    err = float((logits - plain).abs().max() / plain.abs().max())
+    assert bool(torch.isfinite(logits).all()) and err <= 5e-2, err
