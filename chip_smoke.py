@@ -98,7 +98,8 @@
    paths' shapes (K15 M = 6304 K = 768 N = 3072 and K = 3072 N = 768, its
    C entry timed alone too; K12 M = 32 x 196 and 192
    x 196, and save_hpre at CaiT-S/24 bs128's 128 x 196 rows, D = 384, F =
-   1536; K13 M = 32 x 197 and 192 x 197; K10 B = 32, L = 197), outputs
+   1536; K13 M = 32 x 197 and 192 x 197; K10 B = 32, L = 197, its C
+   entry timed alone too), outputs
    within INT8_TOL and INT8_SHARE bit-identical (K12 and K13 also two
    calls bit-identical), timed beside a library chain
    (LayerNorm, ``torch._int_mm`` per product with the dequant in torch,
@@ -2149,9 +2150,26 @@ def check_k10(rng, checks, batch, seq, dim=768, heads=12):
     rec = _time_int8(kernel, plain, library, 2 * m * dim * 4 * hd,
                      2 * m * dim * 2 + 4 * dim * hd + (3 * hd + 3 * dim) * 4,
                      err, flops=4 * batch * heads * seq * seq * 64)
-    print(f'  K10 L={seq}: kernel {rec["ms"]:.4f} ms  plain '
-          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
-          f'bound {rec["bound_ms"]:.4f} ms ({rec["bound_by"]})', flush=True)
+    # the C entry alone, on buffers made once (the wrapper's host work is
+    # part of a bs32 call)
+    vec = lambda t, n: t.reshape(n).float().contiguous()
+    ws = torch.empty(fused_layer.fused_q8_plan(batch, seq, dim, heads)[
+        'workspace'], dtype=torch.uint8, device='cuda')
+    out = torch.empty_like(x)
+    bufs = [x, scale, bias, *flat[0::2],
+            *[vec(t, n) for t, n in zip(flat[1::2], (hd, hd, hd, dim))],
+            ws, out]
+    ptrs = [t.data_ptr() for t in bufs]
+    stream, fn = fa.stream_of(x.device), fused_layer._k10_lib()
+    entry = lambda: fn(*ptrs, batch, seq, dim, heads, 1, fused_layer.LN_EPS,
+                       0.125, stream)
+    rec['entry_ms'] = time_ms(entry)
+    print(f'  K10 L={seq}: kernel {rec["ms"]:.4f} ms  C entry '
+          f'{rec["entry_ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  '
+          f'library {rec["library_ms"]:.4f} ms  bound {rec["bound_ms"]:.4f} '
+          f'ms ({rec["bound_by"]})', flush=True)
+    print(f'  K10 B={batch} L={seq} launches: {launch_split(entry)}',
+          flush=True)
     return rec
 
 
@@ -2161,13 +2179,11 @@ def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     128-row tiles), K15 at M = 1003 with a ragged last k-block (K = 700),
     K10 at B = 3, L = 197. Rows in range match the twins; rows past them
     keep the sentinel: nothing padded, no row dropped, none written past."""
-    stream = fa.stream_of(torch.device('cuda'))
-    ptr = lambda t: None if t is None else t.data_ptr()
     nan = lambda rows, w: torch.full((rows + 64, w), float('nan'),
                                      device='cuda', dtype=torch.bfloat16)
     d, f = 768, 3072
     x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _int8_ff_case(rng, m, d, f)
-    codes, kept = [], []
+    kept = []
     for ln in (0, 1):
         out, hpre = nan(m, d), nan(m, f)
         # the C entry into the first M rows (it raises on a failed launch)
@@ -2195,18 +2211,11 @@ def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
                  k15.blockwise_int8_matmul_reference(a, b_q, b_s))
     kept.append(out[m:])
     xk, scale, bias, flat = _k10_case(rng, batch, seq)
-    rows, hd = batch * seq, 768
+    rows = batch * seq
     out = nan(rows, 768)
-    i8 = lambda w: torch.empty(rows, w, dtype=torch.int8, device='cuda')
-    bf = lambda: torch.empty(rows, hd, dtype=torch.bfloat16, device='cuda')
-    bufs = ([xk, scale, bias] + [t.t().contiguous() for t in flat[0::2]]
-            + [t.reshape(-1).contiguous() for t in flat[1::2]]
-            + [i8(768), torch.empty(rows, device='cuda')]
-            + [bf() for _ in range(4)]
-            + [i8(hd), torch.empty(rows, device='cuda'), out])
-    codes.append(fused_layer._k10_lib()(
-        *map(ptr, bufs), batch, seq, 768, 12, 1, fused_layer.LN_EPS, 0.125,
-        stream))
+    # the C entry into the first B*L rows (it raises on a failed launch)
+    fused_layer._fused_q8_into(xk, scale, bias, flat[0::2], flat[1::2], 12,
+                               fused_layer.LN_EPS, True, out[:rows])
     torch.cuda.synchronize()
     with torch.no_grad():
         want = fused_layer.fused_attention_q8_plain(xk, scale, bias, *flat, 12)
@@ -2214,9 +2223,8 @@ def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
                  out[:rows], want.reshape(rows, 768), xk.reshape(rows, 768))
     kept.append(out[rows:])
     untouched = all(bool(torch.isnan(t).all()) for t in kept)
-    checks.expect(all(c == 0 for c in codes) and untouched,
-                  f'int8 kernels into sentinel buffers: rows past M untouched '
-                  f'{untouched}, launch codes {codes}')
+    checks.expect(untouched, f'int8 kernels into sentinel buffers: rows past '
+                             f'M untouched {untouched}')
 
 
 # ---- int8 (slice 8): K11 (csrc/th_attention_q8.cu), K14 (csrc/int8_ff.cu)
@@ -2437,9 +2445,11 @@ def main(argv=None):
                 print(f'  {name}: {line.strip()}', flush=True)
     # the wgmma kernels (K4 and K1's attention, K1's and K5a's projection
     # GEMM (proj_gemm_kernel), K2, K3, K5b/K6b, K6a (also K5a's core), K16,
-    # K8a, K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel), K11
-    # and K15 (q8_gemm_kernel, K11's core th_fwd_sm90_kernel<H, true>); their
-    # files' mma.sync kernels beside them, K7a and K7b among them):
+    # K8a, K8b, K12, K13 and K14 (ff_gemm_kernel, dx_gemm_kernel), K10, K11
+    # and K15 (q8_gemm_kernel; K10's core k10_core_kernel, K11's
+    # th_fwd_sm90_kernel<H, true>), K9b (bot_bwd_dq_kernel,
+    # bot_bwd_dkv_kernel); their files' mma.sync kernels beside them, K7a,
+    # K7b and K9a among them):
     # each kernel's registers, spills and any wgmma warning (C7510-C7515:
     # serialized)
     for lib, label in (('flash_fwd', 'K4'), ('fused_attention', 'K1'),
@@ -2448,7 +2458,8 @@ def main(argv=None):
                        ('th_attention', 'K5a/K6a'), ('ff_bwd', 'K16'),
                        ('mixer_token', 'K8a/K8b'), ('tnt_inner', 'K7a/K7b'),
                        ('int8_ff', 'K12/K13/K14'), ('th_attention_q8', 'K11'),
-                       ('int8_matmul', 'K15')):
+                       ('int8_matmul', 'K15'), ('fused_attention_q8', 'K10'),
+                       ('botnet_attention', 'K9a/K9b')):
         for line in _build.build_log.get(lib, '').splitlines():
             if any(w in line for w in ('entry function', 'registers', 'spill',
                                        'wgmma', 'arning')):

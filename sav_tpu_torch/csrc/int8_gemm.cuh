@@ -1,6 +1,8 @@
 // Int8 building blocks shared by the int8 ports: K10 (fused_attention_q8.cu),
 // K11 (th_attention_q8.cu), K12, K13 and K14 (int8_ff.cu), K15
-// (int8_matmul.cu).
+// (int8_matmul.cu); their GEMMs are the s8 wgmma + TMA kernels of
+// q8_gemm_sm90.cuh (K10, K11, K15), int8_ff_sm90.cuh (K12, K13) and
+// int8_dx_sm90.cuh (K14).
 //
 //  * The symmetric quantiser of sav_tpu/ops/int8_matmul_kernel.py::
 //    _quantize_tile, in f32: scale = max(absmax, 1e-8) / 127 (an IEEE
@@ -15,22 +17,10 @@
 //    the same quantiser by the IEEE reciprocal where that cannot move a
 //    code, quantize_exact the same by the reciprocal and an FMA
 //    correction.
-//  * mma.sync m16n8k32 s8 x s8 -> s32 on fragments loaded under a fixed
-//    permutation of each 64-byte slice of the contraction axis: thread
-//    (g, t) = (lane / 4, lane % 4) reads bytes [16t, 16t + 16) of A rows g
-//    and g + 8 and of B^T row g (two 16-byte loads per 16 x 64 A tile, one
-//    per 8 x 64 B tile) and feeds bytes 16t..16t+7 to the first k32 step
-//    and 16t+8..16t+15 to the second. A and B see the same permutation,
-//    and int32 sums are exact in any order, so the product is the plain
-//    one. B is stored transposed ([N][K], k contiguous), as s8 mma reads it.
 //  * quantize_rows_kernel (quantize_row): one warp per row, optionally
 //    LayerNorm first (f32 statistics, fast variance), per-row codes and
 //    scale.
 //  * quantize_block: K15's per-(row, 256-wide k-block) codes.
-//  * gemm_s8_kernel: a 128 x 128 output tile per block over 64-byte
-//    contraction stages in a 4-deep cp.async ring, 8 warps of 64 x 32,
-//    with the epilogues of K10's projections.
-// Rows past M and columns past N load as zeros and are never stored.
 #pragma once
 
 #include "mma.cuh"
@@ -80,34 +70,6 @@ __device__ __forceinline__ float dequant(int acc, float rs, float cs) {
   return __fmul_rn(__int2float_rn(acc), __fmul_rn(rs, cs));
 }
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The two A fragments (k32 steps) of a 16 x 64 int8 tile at s (row stride
-// ld bytes), under the permutation above.
-__device__ __forceinline__ void load_a64(uint32_t (&a)[2][4], const int8_t* s,
-                                         int ld, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const uint4 lo = *reinterpret_cast<const uint4*>(s + g * ld + 16 * t);
-  const uint4 hi = *reinterpret_cast<const uint4*>(s + (g + 8) * ld + 16 * t);
-  a[0][0] = lo.x; a[0][1] = hi.x; a[0][2] = lo.y; a[0][3] = hi.y;
-  a[1][0] = lo.z; a[1][1] = hi.z; a[1][2] = lo.w; a[1][3] = hi.w;
-}
-
-// acc += A(16 x 64) B(64 x 8), b = this thread's 16 bytes of B^T row g.
-__device__ __forceinline__ void mma_k64(int* acc, const uint32_t (&a)[2][4],
-                                        const uint4& b) {
-  mma_s8(acc, a[0], b.x, b.y);
-  mma_s8(acc, a[1], b.z, b.w);
-}
-
 // ---------------------------------------------------------- LayerNorm rows
 
 // mu and 1/sqrt(var + eps) of a row of K bf16 values, by one warp (f32
@@ -142,6 +104,77 @@ __device__ __forceinline__ float ln_value(float a, float mu, float rs,
 // Per-row codes of y = LN(x) (kLN) or y = x over K values: q [M, K] int8,
 // scale [M] f32. One warp per row, 8 rows per 256-thread block. Needs
 // K % 2 == 0.
+// The row held in registers where K <= 64 * ROW_PAIRS (every ViT width up
+// to 1024): each lane loads its pairs once, all loads in flight together,
+// and the statistics, absmax and codes come from the registers in the
+// order of the loop below (the same sums); the codes by quantize_by (the
+// same codes: an f32 LN value's quotient seldom lies near a tie, where
+// the division still decides), whose IEEE division a value bounded the
+// launch by instructions.
+constexpr int ROW_PAIRS = 16;
+
+template <bool kLN>
+__device__ __forceinline__ void quantize_row_cached(
+    const bf16* __restrict__ xr, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, float eps, int8_t* __restrict__ qr,
+    float* __restrict__ scale, int row, int K, int lane) {
+  float2 v[ROW_PAIRS];
+#pragma unroll
+  for (int i = 0; i < ROW_PAIRS; ++i) {
+    const int c = 2 * lane + 64 * i;
+    v[i] = c < K ? __bfloat1622float2(
+                       *reinterpret_cast<const __nv_bfloat162*>(xr + c))
+                 : make_float2(0.f, 0.f);
+  }
+  if (kLN) {
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < ROW_PAIRS; ++i)
+      if (2 * lane + 64 * i < K) {
+        s = __fadd_rn(__fadd_rn(s, v[i].x), v[i].y);
+        ss = __fadd_rn(__fadd_rn(ss, __fmul_rn(v[i].x, v[i].x)),
+                       __fmul_rn(v[i].y, v[i].y));
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    const float mu = __fdiv_rn(s, (float)K);
+    const float var = fmaxf(
+        __fsub_rn(__fdiv_rn(ss, (float)K), __fmul_rn(mu, mu)), 0.f);
+    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+    for (int i = 0; i < ROW_PAIRS; ++i) {
+      const int c = 2 * lane + 64 * i;
+      if (c < K)
+        v[i] = make_float2(ln_value(v[i].x, mu, rs, ln_scale[c], ln_bias[c]),
+                           ln_value(v[i].y, mu, rs, ln_scale[c + 1],
+                                    ln_bias[c + 1]));
+    }
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < ROW_PAIRS; ++i)
+    if (2 * lane + 64 * i < K)
+      amax = fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = row_scale(amax), inv = __frcp_rn(s);
+#pragma unroll
+  for (int i = 0; i < ROW_PAIRS; ++i) {
+    const int c = 2 * lane + 64 * i;
+    if (c < K) {
+      char2 out;
+      out.x = (signed char)quantize_by(v[i].x, s, inv);
+      out.y = (signed char)quantize_by(v[i].y, s, inv);
+      *reinterpret_cast<char2*>(qr + c) = out;
+    }
+  }
+  if (lane == 0) scale[row] = s;
+}
+
 template <bool kLN>
 __device__ __forceinline__ void quantize_row(const bf16* __restrict__ x,
                                              const float* __restrict__ ln_scale,
@@ -150,6 +183,11 @@ __device__ __forceinline__ void quantize_row(const bf16* __restrict__ x,
                                              float* __restrict__ scale,
                                              int row, int K, int lane) {
   const bf16* xr = x + (size_t)row * K;
+  if (K <= 64 * ROW_PAIRS) {
+    quantize_row_cached<kLN>(xr, ln_scale, ln_bias, eps, q + (size_t)row * K,
+                             scale, row, K, lane);
+    return;
+  }
   float mu = 0.f, rs = 1.f;
   if (kLN) row_stats(xr, K, eps, lane, mu, rs);
   auto value = [&](int c) {
@@ -246,138 +284,6 @@ __device__ __forceinline__ void quantize_block(const bf16* __restrict__ a,
   if (kb < KB && c0 < ld)
     *reinterpret_cast<uint4*>(q + (size_t)row * ld + c0) = packed;
   if (kb < KB && (lane & 15) == 0) scale[(size_t)row * KB + kb] = s;
-}
-
-// ------------------------------------------------------------- tiled GEMM
-
-constexpr int TM = 128, TN = 128, TK = 64, TSTAGES = 4;
-constexpr int GEMM_S8_SMEM = TSTAGES * (TM + TN) * TK;   // 65,536 bytes
-
-enum Epilogue {
-  kQkv,     // three outputs side by side: q (x q_scale), k, v
-  kOut,     // one output, + resid (f32 add) when resid is not null
-};
-
-struct GemmS8Args {
-  const int8_t* a;            // [M, K] codes
-  const int8_t* bt[3];        // [n_each, K] codes (B transposed)
-  const float* row_scale;     // [M]
-  const float* col_scale[3];  // [n_each]
-  bf16* out[3];               // [M, n_each]
-  const bf16* resid;          // kOut: [M, n_each] or null
-  int M, n_each, K;           // K % 64 == 0
-  float q_scale;
-};
-
-// grid (gemm_s8_tiles<kEpi>(n_each), ceil(M / 128)): for kQkv each of the
-// three outputs has its own ceil(n_each / 128) column tiles, so n_each need
-// only be even.
-template <Epilogue kEpi>
-__host__ __device__ __forceinline__ int gemm_s8_tiles(int n_each) {
-  return (kEpi == kQkv ? 3 : 1) * ((n_each + TN - 1) / TN);
-}
-
-template <Epilogue kEpi>
-__global__ void __launch_bounds__(256)
-gemm_s8_kernel(const GemmS8Args p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* sA = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* sB = sA + TSTAGES * TM * TK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * TM;
-  const int tiles = (p.n_each + TN - 1) / TN;
-  const int which = kEpi == kQkv ? blockIdx.x / tiles : 0;
-  const int n0 = (blockIdx.x - which * tiles) * TN;
-  const int8_t* B = p.bt[which];
-  const int K = p.K, M = p.M, N = p.n_each;
-  const int k_tiles = K / TK;
-
-  auto load_stage = [&](int kt, int stage) {
-    const int k0 = kt * TK;
-    int8_t* a = sA + stage * TM * TK;
-    int8_t* b = sB + stage * TN * TK;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * 256;
-      const int r = i >> 2, c = (i & 3) * 16;
-      const bool in_a = m0 + r < M, in_b = n0 + r < N;
-      cp_async_16(&a[r * TK + c],
-                  p.a + (size_t)(in_a ? m0 + r : 0) * K + k0 + c,
-                  in_a ? 16 : 0);
-      cp_async_16(&b[r * TK + c], B + (size_t)(in_b ? n0 + r : 0) * K + k0 + c,
-                  in_b ? 16 : 0);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < TSTAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<TSTAGES - 2>();
-    __syncthreads();
-    if (kt + TSTAGES - 1 < k_tiles)
-      load_stage(kt + TSTAGES - 1, (kt + TSTAGES - 1) % TSTAGES);
-    cp_async_commit();
-    const int8_t* a = sA + (kt % TSTAGES) * TM * TK;
-    const int8_t* b = sB + (kt % TSTAGES) * TN * TK;
-    uint4 bf[4];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      bf[ni] = *reinterpret_cast<const uint4*>(
-          b + (wn * 32 + ni * 8 + g) * TK + 16 * t);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      uint32_t af[2][4];
-      load_a64(af, a + (wm * 64 + mi * 16) * TK, TK, lane);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_k64(acc[mi][ni], af, bf[ni]);
-    }
-  }
-  cp_async_wait<0>();
-
-  bf16* C = p.out[which];
-  const float* cs = p.col_scale[which];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-      if (col >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-        if (row >= M) continue;
-        const float rs = p.row_scale[row];
-        float v0 = dequant(acc[mi][ni][2 * half], rs, cs[col]);
-        float v1 = dequant(acc[mi][ni][2 * half + 1], rs, cs[col + 1]);
-        const size_t off = (size_t)row * N + col;
-        if (kEpi == kQkv && which == 0) {
-          v0 = __fmul_rn(v0, p.q_scale);
-          v1 = __fmul_rn(v1, p.q_scale);
-        }
-        if (kEpi == kOut && p.resid != nullptr) {
-          const float2 x2 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.resid + off));
-          v0 = __fadd_rn(x2.x, v0);
-          v1 = __fadd_rn(x2.y, v1);
-        }
-        *reinterpret_cast<uint32_t*>(C + off) = pack_bf16(v0, v1);
-      }
-    }
-  }
 }
 
 }  // namespace q8

@@ -27,12 +27,14 @@
 // epilogue, and each warpgroup's TMA store runs under the next unit's
 // products (the staging tile is reused once bulk_wait_read has returned).
 //
-// Rings: QKV and OUT contract over D or H*48, multiples of 64: six slots
-// of 64-code-deep boxes (64-byte swizzle), so cait_xxs's D = 192 takes
-// three steps and no padded one. BLOCK: four slots of 128-code-deep boxes
-// (128-byte swizzle), two a k-block, always both (a box past K arrives as
-// zeros), so no product is issued under a condition and no commit group
-// stays in flight across a loop's back edge. BN = 64 for K11 (H*48 and D
+// Rings: K11's QKV and OUT contract over D or H*48, multiples of 64: six
+// slots of 64-code-deep boxes (64-byte swizzle), so cait_xxs's D = 192
+// takes three steps and no padded one; K10's over D or H*64, multiples of
+// 128: four slots of 128-code-deep boxes (128-byte swizzle; half the slots
+// a unit, 0.0086 ms off K10 at ViT-B bs32: scripts/torch_ablate.py k10,
+// deep). BLOCK: four slots of 128-code-deep boxes, two a k-block, always
+// both (a box past K arrives as zeros), so no product is issued under a
+// condition and no commit group stays in flight across a loop's back edge. BN = 64 for K11 (H*48 and D
 // are multiples of 64: tiles never straddle two outputs and none is
 // padded), 128 for K15.
 //
@@ -63,19 +65,25 @@ constexpr int KBLOCK = q8::QBLOCK;         // K15's k-block, 256 codes
 constexpr uint32_t BOX = 64 * 128;         // a 64 x 64 bf16 staging box
 
 // Shared memory (bytes from a 1024-byte aligned base): the ring, one
-// staging tile a warpgroup (64 x BN bf16), the mbarriers (full[STAGES],
-// empty[STAGES]). Mirrored by th_q8_plan (ops/th_attention.py) and
+// staging tile a warpgroup (64 x BN bf16), OUT's two x tiles (128 x BN
+// bf16 each, a unit's loaded by TMA before its first slot, units taking
+// them in turn so that the next unit's loads never wait on this one's
+// epilogue), the mbarriers (full[STAGES], empty[STAGES], OUT's xfull[2]
+// and xempty[2]). Mirrored by th_q8_plan (ops/th_attention.py) and
 // int8_matmul_plan (ops/int8_matmul_kernel.py).
-template <int MODE, int BN>
+template <int MODE, int BN, int BK_ = (MODE == BLOCK ? 128 : 64)>
 struct Plan {
-  static constexpr int BK = MODE == BLOCK ? 128 : 64;
-  static constexpr int STAGES = MODE == BLOCK ? 4 : 6;
+  static constexpr int BK = BK_;
+  static constexpr int STAGES = BK == 128 ? 4 : 6;
   static constexpr uint32_t A_BYTES = BM * BK;
   static constexpr uint32_t STAGE_BYTES = A_BYTES + BN * BK;
   static constexpr uint32_t STG_BYTES = 64 * BN * 2;
   static constexpr int OFF_STG = STAGES * STAGE_BYTES;
-  static constexpr int OFF_BAR = OFF_STG + 2 * STG_BYTES;
-  static constexpr int SMEM = OFF_BAR + 2 * STAGES * 8 + 1024;
+  static constexpr uint32_t X_BYTES = MODE == OUT ? BM * BN * 2 : 0;
+  static constexpr int OFF_X = OFF_STG + 2 * STG_BYTES;
+  static constexpr int OFF_BAR = OFF_X + 2 * X_BYTES;
+  static constexpr int BARS = 2 * STAGES + (MODE == OUT ? 4 : 0);
+  static constexpr int SMEM = OFF_BAR + BARS * 8 + 1024;
   static_assert(SMEM <= 232448, "over the block's shared memory");
 };
 
@@ -91,9 +99,9 @@ struct Args {
 };
 
 // A: 128-row boxes of the mode's depth; B: BN-row boxes; the outputs:
-// 64 x 64 bf16 boxes (QKV: q, k, v; else o[0]).
+// 64 x 64 bf16 boxes (QKV: q, k, v; else o[0]); OUT's x as its output.
 struct Maps {
-  CUtensorMap a, b, o[3];
+  CUtensorMap a, b, o[3], x;
 };
 
 template <int BN>
@@ -106,9 +114,11 @@ __host__ __device__ __forceinline__ int row_tiles(int m) {
   return (m + BM - 1) / BM;
 }
 
-// Ring slots a unit takes: QKV, OUT k / 64; BLOCK two a k-block.
-__host__ __device__ __forceinline__ int stages_of(int mode, int k, int kb) {
-  return mode == BLOCK ? 2 * kb : k / 64;
+// Ring slots a unit takes: QKV, OUT k / bk (the slots' depth); BLOCK two
+// a k-block.
+__host__ __device__ __forceinline__ int stages_of(int mode, int k, int kb,
+                                                  int bk = 64) {
+  return mode == BLOCK ? 2 * kb : k / bk;
 }
 
 // d (+)= A B^T over one 32-deep step of int8 codes, 64 x N, A [64 x 32]
@@ -161,11 +171,11 @@ __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
 
 // One slot's products: BK / 32 steps of the warpgroup's 64 rows of A
 // against the slot's B; `first`: the first step overwrites acc.
-template <int MODE, int BN>
+template <int MODE, int BN, int BK_>
 __device__ __forceinline__ void slot_products(int (&acc)[BN / 2],
                                               const unsigned char* st,
                                               int wg, bool first) {
-  using P = Plan<MODE, BN>;
+  using P = Plan<MODE, BN, BK_>;
   constexpr int BK = P::BK;
   const unsigned char* a = st + wg * (64 * BK);
   const unsigned char* b = st + P::A_BYTES;
@@ -179,18 +189,22 @@ __device__ __forceinline__ void slot_products(int (&acc)[BN / 2],
   wgmma_commit();
 }
 
-template <int MODE, int BN>
+template <int MODE, int BN, int BK_>
 __global__ void __launch_bounds__(THREADS, 1)
 q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
-  using P = Plan<MODE, BN>;
+  using P = Plan<MODE, BN, BK_>;
   constexpr int BK = P::BK, STAGES = P::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + P::OFF_BAR);
   uint64_t* empty = full + STAGES;
+  uint64_t* xfull = empty + STAGES;         // OUT with x only: [2]
+  uint64_t* xempty = xfull + 2;
+  unsigned char* xt0 = base + P::OFF_X;
+  const bool has_x = MODE == OUT && args.x != nullptr;
   const int nt = col_tiles<BN>(MODE, args.n, args.n_each);
   const int units = row_tiles(args.m) * nt;
-  const int nk = stages_of(MODE, args.k, args.kb);
+  const int nk = stages_of(MODE, args.k, args.kb, BK);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -198,6 +212,11 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
       mbar_init(&full[i], 1);              // the producer's expect_tx
       mbar_init(&empty[i], 8);             // each consumer warp once
     }
+    if (MODE == OUT)
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&xfull[i], 1);
+        mbar_init(&xempty[i], 2);          // each warpgroup's leader
+      }
     fence_mbar_init();
   }
   __syncthreads();
@@ -206,8 +225,18 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (tid != CONSUMERS) return;          // one thread issues every load
     int step = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
       const int row0 = (u / nt) * BM, col0 = (u % nt) * BN;
+      if (has_x) {                         // the unit's x, for its epilogue
+        const int xs = n & 1;
+        mbar_wait(&xempty[xs], ((n >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&xfull[xs], P::X_BYTES);
+        for (int h = 0; h < 2; ++h)
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_3d(xt0 + xs * P::X_BYTES + (h * (BN / 64) + c) * BOX,
+                        &maps.x, &xfull[xs], col0 + 64 * c, row0 + 64 * h,
+                        0);
+      }
       for (int k = 0; k < nk; ++k, ++step) {
         const int s = step % STAGES;
         mbar_wait(&empty[s], ((step / STAGES) & 1) ^ 1);
@@ -230,7 +259,7 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
     if (lane == 0) mbar_arrive(&empty[s]);
   };
   int step = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+  for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
     const int row0 = (u / nt) * BM + 64 * wg;   // this warpgroup's rows
     const int col0 = (u % nt) * BN;
     int acc[BN / 2];
@@ -250,8 +279,8 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
         for (int h = 0; h < 2; ++h, ++step) {
           const int sl = step % STAGES;
           wait(&full[sl], (step / STAGES) & 1);
-          slot_products<MODE, BN>(acc, base + sl * P::STAGE_BYTES, wg,
-                                  h == 0);
+          slot_products<MODE, BN, BK>(acc, base + sl * P::STAGE_BYTES, wg,
+                                      h == 0);
         }
         wgmma_wait<0>();
         fence_regs(acc);
@@ -274,7 +303,8 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
       for (int k = 0; k < nk; ++k, ++step) {
         const int sl = step % STAGES;
         wait(&full[sl], (step / STAGES) & 1);
-        slot_products<MODE, BN>(acc, base + sl * P::STAGE_BYTES, wg, k == 0);
+        slot_products<MODE, BN, BK>(acc, base + sl * P::STAGE_BYTES, wg,
+                                    k == 0);
         // the previous slot's products are done: it is free
         wgmma_wait<1>();
         if (k > 0) release((step - 1) % STAGES);
@@ -296,6 +326,9 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
                                  : which == 1 ? args.cs[1] : args.cs[2];
     const float qs = MODE == QKV && which == 0 ? args.q_scale : 1.f;
     if (leader) bulk_wait_read();          // the last tile's store read it
+    if (has_x) wait(&xfull[n & 1], (n >> 1) & 1);
+    const unsigned char* xt =
+        xt0 + (n & 1) * P::X_BYTES + wg * (BN / 64) * BOX;
     warpgroup_sync(1 + wg);
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
@@ -306,6 +339,9 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
         const int c = 8 * i + 2 * t, col = ocol0 + c;
+        // the output's (and x's) place in a swizzled 64 x 64 box
+        const int sw = (c >> 6) * BOX + r * 128
+                       + ((((c & 63) >> 3) ^ (r & 7)) << 4) + 4 * t;
         const float2 cv = col < args.n_each
                               ? *reinterpret_cast<const float2*>(cs + col)
                               : make_float2(0.f, 0.f);
@@ -322,20 +358,17 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
           }
           if (add && col < args.n_each) {
             const float2 x2 = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(
-                    args.x + (size_t)row * args.n + col));
+                *reinterpret_cast<const __nv_bfloat162*>(xt + sw));
             v0 = __fadd_rn(x2.x, v0);
             v1 = __fadd_rn(x2.y, v1);
           }
         }
-        *reinterpret_cast<uint32_t*>(
-            stg + (c >> 6) * BOX + r * 128
-            + ((((c & 63) >> 3) ^ (r & 7)) << 4) + 4 * t) =
-            pack_bf16x2(v0, v1);
+        *reinterpret_cast<uint32_t*>(stg + sw) = pack_bf16x2(v0, v1);
       }
     }
     fence_proxy_async();                   // the tile is TMA's to store
     warpgroup_sync(1 + wg);
+    if (leader && has_x) mbar_arrive(&xempty[n & 1]);   // x is read
     if (leader && row0 < args.m) {
 #pragma unroll
       for (int c = 0; c < BN / 64; ++c)
@@ -393,35 +426,39 @@ inline int output_map(CUtensorMap* map, const void* base, int rows,
 
 // The maps of one launch: A [m, k] codes (rows `lda` bytes apart), B [n,
 // k] codes (`ldb`), the outputs [m, n_each] bf16 (`ldo` elements apart).
-template <int MODE, int BN>
+template <int MODE, int BN, int BK_>
 int make_maps(Maps* maps, const void* a, int lda, const void* b, int ldb,
               void* const (&out)[3], int ldo, const Args& args) {
-  constexpr int BK = Plan<MODE, BN>::BK;
+  constexpr int BK = Plan<MODE, BN, BK_>::BK;
   int err = operand_map(&maps->a, a, args.m, args.k, lda, BK, BM);
   if (!err) err = operand_map(&maps->b, b, args.n, args.k, ldb, BK, BN);
   for (int i = 0; i < (MODE == QKV ? 3 : 1) && !err; ++i)
     err = output_map(&maps->o[i], out[i], args.m, args.n_each, ldo);
   if (MODE != QKV) maps->o[1] = maps->o[2] = maps->o[0];
+  if (!err && MODE == OUT && args.x != nullptr)
+    err = output_map(&maps->x, args.x, args.m, args.n_each, args.n);
   return err;
 }
 
-// One launch on `args`, blocks persistent (one an SM, or one a unit).
-template <int MODE, int BN>
+// One launch on `args`, blocks persistent (one an SM, or one a unit);
+// BK_: the ring slots' depth (QKV and OUT: 64, or 128 where K is a
+// multiple of 128).
+template <int MODE, int BN, int BK_ = (MODE == BLOCK ? 128 : 64)>
 int launch(const void* a, int lda, const void* b, int ldb,
            void* const (&out)[3], int ldo, const Args& args,
            cudaStream_t st) {
-  using P = Plan<MODE, BN>;
+  using P = Plan<MODE, BN, BK_>;
   Maps maps;
-  int err = make_maps<MODE, BN>(&maps, a, lda, b, ldb, out, ldo, args);
+  int err = make_maps<MODE, BN, BK_>(&maps, a, lda, b, ldb, out, ldo, args);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      q8_gemm_kernel<MODE, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::SMEM);
+      q8_gemm_kernel<MODE, BN, BK_>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int units = row_tiles(args.m)
                     * col_tiles<BN>(MODE, args.n, args.n_each);
-  q8_gemm_kernel<MODE, BN><<<flash::persistent_grid(units), THREADS, P::SMEM,
-                             st>>>(maps, args);
+  q8_gemm_kernel<MODE, BN, BK_><<<flash::persistent_grid(units), THREADS,
+                                  P::SMEM, st>>>(maps, args);
   return (int)cudaGetLastError();
 }
 
@@ -494,9 +531,20 @@ codes_kernel(const __grid_constant__ Transposes p, const bf16* __restrict__ a,
     q8::quantize_block(a, q, scale, K, KB, ld, w, threadIdx.x & 31);
 }
 
-// K11's first launch: blocks [0, count x per) transpose the weight codes
-// (matrix b / per, its tile b % per; `per` the most tiles of a matrix),
-// the rest take LN(x)'s codes a warp a row (q8::quantize_row<true>).
+// Transpose tiles a block of ln_codes_kernel takes: 576 one-tile blocks
+// (four 768 x 768 matrices) and ViT-B bs32's 788 row blocks made two waves
+// of the card's 1056 resident blocks.
+constexpr int TRANSPOSE_TILES = 4;
+
+// Blocks a matrix of up to `tiles` tiles takes in ln_codes_kernel.
+__host__ __device__ __forceinline__ int transpose_blocks(int tiles) {
+  return (tiles + TRANSPOSE_TILES - 1) / TRANSPOSE_TILES;
+}
+
+// K10's and K11's first launch: blocks [0, count x per) transpose the
+// weight codes (matrix b / per, its tiles TRANSPOSE_TILES (b % per) ..;
+// `per` = transpose_blocks of the most tiles of a matrix), the rest take
+// LN(x)'s codes a warp a row (q8::quantize_row<true>).
 __global__ void __launch_bounds__(256)
 ln_codes_kernel(const __grid_constant__ Transposes p, int count, int per,
                 const bf16* __restrict__ x, const float* __restrict__ ln_scale,
@@ -505,9 +553,14 @@ ln_codes_kernel(const __grid_constant__ Transposes p, int count, int per,
                 int K) {
   __shared__ __align__(16) int8_t buf[64][64 + 16];
   if ((int)blockIdx.x < count * per) {
-    const int z = blockIdx.x / per, tile = blockIdx.x % per;
-    if (tile < transpose_tiles(p.cols[z], p.ld[z]))
+    const int z = blockIdx.x / per;
+    const int tiles = transpose_tiles(p.cols[z], p.ld[z]);
+    for (int i = 0; i < TRANSPOSE_TILES; ++i) {
+      const int tile = (blockIdx.x % per) * TRANSPOSE_TILES + i;
+      if (tile >= tiles) break;
+      if (i > 0) __syncthreads();          // the last tile's reads are done
       transpose_tile(p, z, tile, buf);
+    }
     return;
   }
   const int row = ((int)blockIdx.x - count * per) * 8 + (threadIdx.x >> 5);

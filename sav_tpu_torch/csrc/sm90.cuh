@@ -247,6 +247,30 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B^T over one 16-deep step, A [64 x 16] and B [N x 16] both
+// K-major in shared memory (desc_k_major), N = 64 or 16 (_n16): BoTNet's
+// backward (botnet_attention.cu), whose d = 128 operands leave no
+// registers to hold them as A.
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SAV_WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n\t}\n"
+      : SAV_WG_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_ss_k_n16(float (&d)[8], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %10, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef SAV_WG_D32
 #undef SAV_WG_OUT32
 

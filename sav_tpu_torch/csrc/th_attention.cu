@@ -16,7 +16,7 @@
 // The two-sweep core (th_fwd_sm90.cuh) is K6a's kernel, K5a's core launch
 // and, in its Q8 form, K11's core (th_attention_q8.cu).
 //
-// What is new against flash attention (csrc/attention_core.cuh):
+// What is new against flash attention (csrc/flash_fwd_sm90.cuh):
 //  * The mixes couple all heads: one mixed logit takes the logits of all H
 //    heads at the same (query, key). So one work tile owns EVERY head of
 //    its 64 query rows: a mix warpgroup holds all H heads of its positions

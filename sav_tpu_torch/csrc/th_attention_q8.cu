@@ -142,8 +142,9 @@ extern "C" int sav_th_attention_q8(
     tr.ld[i] = i < 3 ? dim : hd;
     tr.out[i] = i < 3 ? wqkv + (size_t)i * hd * dim : (int8_t*)at(kWo);
   }
-  const int per = transpose_tiles(hd, dim) > transpose_tiles(dim, hd)
-                      ? transpose_tiles(hd, dim) : transpose_tiles(dim, hd);
+  const int per = transpose_blocks(
+      transpose_tiles(hd, dim) > transpose_tiles(dim, hd)
+          ? transpose_tiles(hd, dim) : transpose_tiles(dim, hd));
   ln_codes_kernel<<<4 * per + (m + 7) / 8, 256, 0, st>>>(
       tr, 4, per, (const sav::bf16*)x, ln_scale, ln_bias, eps,
       (int8_t*)at(kYq), (float*)at(kYs), m, dim);

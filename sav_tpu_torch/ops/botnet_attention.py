@@ -80,11 +80,51 @@ def expand_bias(rel_h, rel_w, g: int):
 def _smem(which: int, g: int, head_d: int) -> int:
     """Shared memory of K9a (``which`` 0) or of K9b's dq (1) or dkv (2)
     kernel at grid side g and head width d, 0 where a block cannot hold
-    it: ``sav_bot_smem`` of ``csrc/botnet_attention.cu``, the one copy of
-    the layouts' formulas."""
+    it: ``sav_bot_smem`` of ``csrc/botnet_attention.cu`` (the card's own
+    count, which ``bot_plan`` mirrors)."""
     fn = _build.library('botnet_attention').sav_bot_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     return fn(which, g, head_d)
+
+
+_BOX = 64 * 64 * 2          # a 64 x 64 bf16 TMA box
+_DS_PITCH = 65              # f32 pitch of the dq kernel's ds tile rows
+
+
+def bot_bwd_plan(g: int, head_d: int) -> dict:
+    """K9b's shared memory at grid side g and head width d, mirrored from
+    ``dq_plan``/``dkv_plan`` (``sav_bot_bwd_plan``) in
+    ``csrc/botnet_attention.cu``. ``pitch``: the drel_w bins' f32 pitch
+    (g | 1). ``dq``: Q and dO of a unit's 128 rows, a ring of K and V
+    tiles, one region for O and then the two warpgroups' f32 ds tiles, the
+    unit's rel rows (g f32 each), each warpgroup's drel_w bins, delta, the
+    mbarriers, 1024 bytes of alignment slack. ``dkv``: K and V of 128 keys, a ring of slots (each a
+    query tile's Q and dO, its rel rows, lse and delta, 1024-byte aligned)
+    and the mbarriers. Each takes the most ring ``stages`` (<= 4) that fit
+    a block; ``smem`` and ``stages`` are 0 where not even one does."""
+    nb, gp = head_d // 64, g | 1
+    res = 2 * nb * _BOX
+    ods = max(res, 2 * 64 * _DS_PITCH * 4)
+    dq_fixed = 2 * res + ods + 2 * 128 * g * 4 + 2 * 64 * gp * 4 + 128 * 4
+    slot = -(-(2 * nb * _BOX + 2 * 64 * g * 4 + 2 * 64 * 4) // 1024) * 1024
+
+    def fit(fixed, per_stage):
+        for stages in range(4, 0, -1):
+            smem = fixed + stages * per_stage + (2 + 2 * stages) * 8 + 1024
+            if smem <= fa.SMEM_LIMIT:
+                return dict(smem=smem, stages=stages)
+        return dict(smem=0, stages=0)
+
+    return dict(pitch=gp, dq=fit(dq_fixed, 2 * nb * _BOX),
+                dkv=dict(fit(2 * res, slot), slot=slot))
+
+
+def fwd_smem(g: int, head_d: int) -> int:
+    """K9a's shared memory (``fwd_smem`` in the C source): five 64-row
+    tiles of d + 8 bf16 (Q, K and V double-buffered) and the tile's rel_h
+    and rel_w rows; 0 past a block's."""
+    smem = 5 * 64 * (head_d + 8) * 2 + 2 * 64 * g * 4
+    return smem if smem <= fa.SMEM_LIMIT else 0
 
 
 def _refusal(g: int, num_heads: int, head_d: int, device) -> str | None:
@@ -95,9 +135,11 @@ def _refusal(g: int, num_heads: int, head_d: int, device) -> str | None:
     if head_d not in HEAD_DIMS:
         return f'the kernels are built for head widths {HEAD_DIMS}'
     if torch.device(device).type == 'cuda':
-        if min(_smem(w, g, head_d) for w in range(3)) == 0:
-            return ('a 64-row tile\'s operands and the grid\'s rel-logit '
-                    f'rows exceed a block\'s {fa.SMEM_LIMIT} bytes of shared '
+        plan = bot_bwd_plan(g, head_d)
+        if min(fwd_smem(g, head_d), plan['dq']['smem'],
+               plan['dkv']['smem']) == 0:
+            return ('a tile\'s operands and the grid\'s rel-logit rows '
+                    f'exceed a block\'s {fa.SMEM_LIMIT} bytes of shared '
                     'memory')
     return None
 
@@ -106,8 +148,9 @@ def supported(g: int, num_heads: int, head_d: int, device='cuda') -> bool:
     """Whether the K9 port takes a g x g grid (L = g*g) of ``num_heads``
     heads of width ``head_d``: d in ``HEAD_DIMS`` and, on the card, each
     kernel's tiles plus the rel-logit rows of a tile within one block's
-    227 KB of shared memory (the kernels' own formula, ``_smem``). Every
-    BoTNet config at 224 (g = 14, d = 128) fits. The TPU caps (g <= 28,
+    227 KB of shared memory (``fwd_smem`` and ``bot_bwd_plan``, the
+    kernels' formulas). Every BoTNet config at 224 (g = 14, d = 128)
+    fits; g <= 49 at d = 128, g <= 69 at d = 64 and more. The TPU caps (g <= 28,
     at most 16 heads, d a multiple of 64) were VMEM and lane limits and
     have no counterpart here. Off the card the plain twins have no such
     budget."""
@@ -245,9 +288,10 @@ def bot_fwd(qs, k, v, rel_h, rel_w, num_heads: int, g: int,
 def bot_bwd(qs, k, v, rel_h, rel_w, out, lse, grad, num_heads: int, g: int):
     """Port of K9b: ``(dq, dk, dv, drel_h, drel_w)`` of ``bot_fwd`` from its
     inputs, its out and lse and the cotangent ``grad`` of out (order and
-    dtypes as ``bot_bwd_plain``). On the card two launches: the dq kernel
-    (dq, drel_h, drel_w and di) then the dkv kernel; every sum in a fixed
-    order, no float atomics, so two calls give the same bits."""
+    dtypes as ``bot_bwd_plain``). On the card two persistent ``wgmma`` +
+    TMA launches: the dq kernel (dq, drel_h, drel_w and di) then the dkv
+    kernel; every sum in a fixed order, no float atomics, so two calls
+    give the same bits."""
     if qs.device.type == 'cpu':
         return bot_bwd_plain(qs, k, v, rel_h, rel_w, out, lse, grad,
                              num_heads, g)

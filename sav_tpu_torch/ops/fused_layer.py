@@ -433,13 +433,117 @@ def fused_attention_q8_plain(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv,
     return out.to(dt).reshape(b, l, dim)
 
 
+# K10's launch plan (csrc/fused_attention_q8.cu): the projections' GEMMs
+# (q8_gemm_sm90.cuh) take 128-row units, 128-deep ring slots (four) and
+# QKV's and OUT's column tile Q8_TILE; the core, 64-row units of one image
+# over every head, three consumer warpgroups each with a ring of K/V slots
+Q8_ROWS, Q8_TILE, Q8_SLOT_K, Q8_SLOTS = 128, 128, 128, 4
+Q8_REGIONS = ('yq', 'ys', 'wqkv', 'wo', 'q', 'k', 'v', 'aq', 'as', 'stage')
+CORE_ROWS, CORE_MAX_STAGES, CORE_WGS = 64, 4, 3
+
+
+def _core_smem(hd: int) -> tuple:
+    """K10's core at H*64 = hd: (shared memory, ring slots a warpgroup,
+    whether the bands are staged in shared memory), as ``core_plan`` in
+    the C source: a q slot (a 64 x 64 box) for each of the three consumer
+    warpgroups, each one's ring of K and V boxes, the staging tile (64 rows
+    of hd + 8 bf16) where it fits beside at least two slots, the rows'
+    absmax of each warpgroup, the mbarriers, 1024 bytes of alignment
+    slack; where the tile does not fit it lies in the workspace and the
+    rings take four slots."""
+    box, w = 64 * 64 * 2, CORE_WGS
+    for staged in (True, False):
+        for stages in range(CORE_MAX_STAGES, 1, -1):
+            smem = (w * box + w * stages * 2 * box
+                    + (CORE_ROWS * (hd + 8) * 2 if staged else 0)
+                    + w * CORE_ROWS * 4 + w * (2 + 2 * stages) * 8 + 1024)
+            if smem <= fa.SMEM_LIMIT:
+                return smem, stages, staged
+    raise AssertionError('four ring slots always fit')
+
+
+def fused_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
+    """Launch plan of K10, mirrored from ``sav_fused_q8_plan`` in
+    ``csrc/fused_attention_q8.cu``: ``tile`` (the column tile of the QKV
+    and the OUT GEMMs), ``row_tiles`` (128 rows of B*L), ``units`` of the
+    two GEMMs (QKV: each of q, k and v its own column tiles) and of the
+    ``core`` (64 query rows of one image over every head), ``slots`` (the
+    GEMMs' 128-deep ring slots a unit: over D, over H*64; the core's K/V
+    slots a warpgroup), ``smem`` of the three kernels, ``staged`` (the core
+    stages a unit's bf16 bands in shared memory, or in the workspace past
+    what fits there) and the workspace the C entry carves: ``scratch``
+    (name -> (offset, bytes): y's codes and scales, the transposed codes of
+    Wq|Wk|Wv [3 H*64, D] and of Wo [D, H*64], q, k, v [B*L, H*64] bf16, the
+    bands' codes and scales, the core's staging tiles (none where they are
+    staged in shared memory), each at a 256-byte offset) and
+    ``workspace`` (their total). Raises ValueError where the kernels do not
+    take the geometry (D and H*64 multiples of 128)."""
+    hd = heads * fa.BAND
+    if b < 1 or l < 1 or heads < 1 or dim < GEMM_TILE or dim % GEMM_TILE \
+            or hd % GEMM_TILE:
+        raise ValueError(f'fused_attention_q8 needs D and H*{fa.BAND} to be '
+                         f'multiples of {GEMM_TILE}, got B={b}, L={l}, '
+                         f'D={dim}, H={heads}')
+    m = b * l
+    cdiv = lambda x, y: -(-x // y)
+    rows = cdiv(m, Q8_ROWS)
+    core_units = b * cdiv(l, CORE_ROWS)
+    core_smem, stages, staged = _core_smem(hd)
+
+    def smem(t, out):
+        # four slots of a 128-row A box and a t-row B box, a 64 x t bf16
+        # staging tile a consumer warpgroup, OUT's two 128 x t bf16 x tiles,
+        # the mbarriers, alignment slack
+        return (Q8_SLOTS * (Q8_ROWS + t) * Q8_SLOT_K + 2 * 64 * t * 2
+                + (2 * Q8_ROWS * t * 2 + 4 * 8 if out else 0)
+                + 2 * Q8_SLOTS * 8 + 1024)
+
+    regions, at = {}, 0
+    for name, nbytes in zip(Q8_REGIONS, (
+            m * dim, 4 * m, 3 * hd * dim, dim * hd, 2 * m * hd, 2 * m * hd,
+            2 * m * hd, m * hd, 4 * m,
+            0 if staged else core_units * CORE_ROWS * (hd + 8) * 2)):
+        regions[name] = (at, nbytes)
+        at += cdiv(nbytes, 256) * 256
+    return dict(tile={'qkv': Q8_TILE, 'out': Q8_TILE}, row_tiles=rows,
+                units={'qkv': rows * 3 * (hd // Q8_TILE),
+                       'out': rows * cdiv(dim, Q8_TILE), 'core': core_units},
+                slots={'qkv': dim // Q8_SLOT_K, 'out': hd // Q8_SLOT_K,
+                       'core': stages},
+                smem={'qkv': smem(Q8_TILE, False),
+                      'out': smem(Q8_TILE, True),
+                      'core': core_smem},
+                staged=staged, scratch=regions, workspace=at)
+
+
 def _k10_lib():
     fn = _build.library('fused_attention_q8').sav_fused_attention_q8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _fused_q8_into(x, scale, bias, codes, scales, heads, eps, residual, out):
+    """K10's four launches on checked operands, writing ``out`` (``[B, L,
+    D]``, or the first B*L rows of a longer ``[*, D]`` buffer)."""
+    b, l, dim = x.shape
+    dev = x.device
+    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
+    hd = heads * fa.BAND
+    ws = torch.empty(fused_q8_plan(b, l, dim, heads)['workspace'],
+                     dtype=torch.uint8, device=dev)
+    # every buffer is held by a name until the launches are queued; the
+    # kernels transpose the weight codes into the workspace
+    bufs = [x, vec(scale, dim), vec(bias, dim),
+            *[w.contiguous() for w in codes],
+            *[vec(s, n) for s, n in zip(scales, (hd, hd, hd, dim))], ws, out]
+    with torch.cuda.device(dev):
+        err = _k10_lib()(*[t.data_ptr() for t in bufs], b, l, dim, heads,
+                         int(residual), eps, 1.0 / math.sqrt(fa.BAND),
+                         fa.stream_of(dev))
+    _build.check(err, 'fused_attention_q8')
 
 
 def fused_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
@@ -449,9 +553,11 @@ def fused_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
 
     x ``[B, L, D]``; wq_q, wk_q, wv_q ``[D, H*d]`` and wo_q ``[H*d, D]``
     int8 codes with per-column f32 scales ``[1, H*d]`` / ``[1, D]``. On a
-    CUDA tensor: five launches (``csrc/fused_attention_q8.cu``), bf16 x,
-    d = 64, D and H*d multiples of 128, the codes transposed per call (the
-    s8 mma reads B k-major). On a CPU tensor: the plain twin.
+    CUDA tensor: four launches (``csrc/fused_attention_q8.cu``: the codes
+    transposed in the workspace beside LN(x)'s codes, the QKV and OUT GEMMs
+    on s8 ``wgmma`` + TMA around a ``wgmma`` + TMA attention core that takes
+    the bands' codes), bf16 x, d = 64, D and H*d multiples of 128, any L.
+    On a CPU tensor: the plain twin.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, scale, bias)):
@@ -473,24 +579,9 @@ def fused_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
         if t.dtype != torch.int8 or tuple(t.shape) != shape:
             raise ValueError(f'{name} must be int8 {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
-    dev = x.device
-    vec = lambda t, n: t.reshape(n).to(dev, torch.float32).contiguous()
-    codes = [w.t().contiguous() for w in (wq_q, wk_q, wv_q, wo_q)]
-    scales = [vec(sq, hd), vec(sk, hd), vec(sv, hd), vec(so, dim)]
-    m = b * l
-    i8 = dict(dtype=torch.int8, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    yq, ys = torch.empty(m, dim, **i8), torch.empty(m, **f32)
-    qkva = [torch.empty(m, hd, dtype=x.dtype, device=dev) for _ in range(4)]
-    aq, a_s = torch.empty(m, hd, **i8), torch.empty(m, **f32)
     out = torch.empty_like(x)
-    bufs = [x, vec(scale, dim), vec(bias, dim), *codes, *scales, yq, ys,
-            *qkva, aq, a_s, out]
-    with torch.cuda.device(dev):
-        err = _k10_lib()(*[t.data_ptr() for t in bufs], b, l, dim, heads,
-                         int(residual), eps, 1.0 / math.sqrt(fa.BAND),
-                         fa.stream_of(dev))
-    _build.check(err, 'fused_attention_q8')
+    _fused_q8_into(x, scale, bias, (wq_q, wk_q, wv_q, wo_q), (sq, sk, sv, so),
+                   heads, eps, residual, out)
     _build.count('fused_attention_q8')
     return out
 

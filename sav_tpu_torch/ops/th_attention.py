@@ -673,7 +673,8 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
     outputs), ``slots`` (64-deep ring slots a unit: over D, over H*48),
     ``smem`` of the two GEMMs (six slots of a 128-row A box and a
     tile-row B box, a 64 x tile bf16 staging tile for each of the two
-    consumer warpgroups, mbarriers, alignment slack) and of the core
+    consumer warpgroups, OUT's two 128 x tile bf16 tiles of x, mbarriers,
+    alignment slack) and of the core
     (``th_fwd_plan``'s and a staging tile of the bands' codes, 64 rows
     H*48 + 16 bytes apart), ``core_tiles`` (64 rows of one image) and the
     workspace the C entry carves: ``scratch`` (name -> (offset, bytes):
@@ -691,8 +692,10 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
     tile = {'qkv': Q8_TILE, 'out': Q8_TILE}
     rows = cdiv(m, Q8_ROWS)
 
-    def smem(t):
+    def smem(t, out):
+        # OUT: and two 128-row x tiles, and their four mbarriers
         return (Q8_SLOTS * (Q8_ROWS + t) * Q8_SLOT_K + 2 * 64 * t * 2
+                + (2 * Q8_ROWS * t * 2 + 4 * 8 if out else 0)
                 + 2 * Q8_SLOTS * 8 + 1024)
 
     # the core's, with the codes' staging rows (H*48 + 16 bytes apart)
@@ -709,7 +712,8 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
                 units={'qkv': rows * 3 * (hd // tile['qkv']),
                        'out': rows * cdiv(dim, tile['out'])},
                 slots={'qkv': dim // Q8_SLOT_K, 'out': hd // Q8_SLOT_K},
-                smem={'qkv': smem(tile['qkv']), 'out': smem(tile['out']),
+                smem={'qkv': smem(tile['qkv'], False),
+                      'out': smem(tile['out'], True),
                       'core': core},
                 core_tiles=b * cdiv(l, 64), scratch=regions, workspace=at)
 

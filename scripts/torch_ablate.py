@@ -33,6 +33,11 @@ with parts taken out, through the same C entries, on one card.
                                            # CaiT-S/24 and cait_xxs_24 bs32
     python scripts/torch_ablate.py k15     # csrc/int8_matmul.cu (K15),
                                            # ViT-B/16 bs32's FF products
+    python scripts/torch_ablate.py k10     # csrc/fused_attention_q8.cu
+                                           # (K10), ViT-B/16 bs32, ViT-S/16
+                                           # @384 bs32
+    python scripts/torch_ablate.py k9b     # csrc/botnet_attention.cu (K9b),
+                                           # BoTNet-T3 @224 bs64
     python scripts/torch_ablate.py k1_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k5a_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
@@ -121,6 +126,8 @@ yardsticks
 are the library chain (LN, matmuls, SDPA) and, for K5a, K6a's core
 (``th_core_fwd``) on the same q, k, v and the blocked route's forward (K5a
 also at CaiT @384's L = 576, B = 48, where the router takes that route).
+K11's, K15's, K10's and K9b's variants are listed beside their tables
+(``K11_VARIANTS``, ``K15_VARIANTS``, ``K10_VARIANTS``, ``K9B_VARIANTS``).
 The outputs of the ablated variants are wrong by design; only their times
 mean something. Each launch of the full variant is also timed on its own
 (torch.profiler). Every variant is timed twice, the variants in order and
@@ -742,7 +749,7 @@ def _k15_inputs(m, k, n):
 K15_FOLD = ('              f = __fadd_rn(f, __fmul_rn(__int2float_rn('
             'acc[4 * i + 2 * rh + j]),\n'
             '                                         s[rh]));')
-K15_SIX = ('static constexpr int STAGES = MODE == BLOCK ? 4 : 6;',
+K15_SIX = ('static constexpr int STAGES = BK == 128 ? 4 : 6;',
            'static constexpr int STAGES = 6;')
 K15_TWO_ACC = r"""      int acc2[BN / 2];
       auto scales = [&](int kb, float (&sc)[2]) {
@@ -769,7 +776,8 @@ K15_TWO_ACC = r"""      int acc2[BN / 2];
         for (int h = 0; h < 2; ++h, ++step) {
           const int sl = step % STAGES;
           wait(&full[sl], (step / STAGES) & 1);
-          slot_products<MODE, BN>(p, base + sl * P::STAGE_BYTES, wg, h == 0);
+          slot_products<MODE, BN, BK>(p, base + sl * P::STAGE_BYTES, wg,
+                                      h == 0);
         }
       };
       int kb = 0;
@@ -806,8 +814,8 @@ K15_BLOCK_LOOP = ('      for (int kb = 0; kb < args.kb; ++kb) {\n'
                   'products')
 K15_VARIANTS = {
     'full': [],
-    'no_mma': [('          slot_products<MODE, BN>(acc, base + sl * '
-                'P::STAGE_BYTES, wg,\n                                  '
+    'no_mma': [('          slot_products<MODE, BN, BK>(acc, base + sl * '
+                'P::STAGE_BYTES, wg,\n                                      '
                 'h == 0);', '')],
     'no_fold': [(K15_FOLD, '              if (kb == 0) f = (float)acc[4 * i '
                            '+ 2 * rh + j];')],
@@ -817,14 +825,14 @@ K15_VARIANTS = {
                 "    if (leader) bulk_wait_read();")],
     'six_slots': [K15_SIX],
     'staggered': [K15_SIX,
-                  ('  int step = 0;\n  for (int u = blockIdx.x; u < units; '
-                   'u += gridDim.x) {\n    const int row0 = (u / nt) * BM + '
-                   '64 * wg;',
+                  ('  int step = 0;\n  for (int u = blockIdx.x, n = 0; u < '
+                   'units; u += gridDim.x, ++n) {\n    const int row0 = (u '
+                   '/ nt) * BM + 64 * wg;',
                    '  int step = 0;\n  if (MODE == BLOCK && wg == 1) '
                    'named_sync(3, 256);\n  bool lead = MODE == BLOCK && wg '
-                   '== 0;\n  for (int u = blockIdx.x; u < units; u += '
-                   'gridDim.x) {\n    const int row0 = (u / nt) * BM + 64 * '
-                   'wg;'),
+                   '== 0;\n  for (int u = blockIdx.x, n = 0; u < units; '
+                   'u += gridDim.x, ++n) {\n    const int row0 = (u / nt) '
+                   '* BM + 64 * wg;'),
                   ('        release((step - 1) % STAGES);\n        // thread',
                    '        release((step - 1) % STAGES);\n        if (lead) '
                    '{\n          asm volatile("bar.arrive 3, 256;\\n" ::: '
@@ -868,6 +876,137 @@ K11_VARIANTS = {
                   '     scale, inv);',
                   '        c.y = (signed char)(int)acc[h][4 * i + 2 * rh + '
                   '1];')],
+}
+
+
+def _k10_inputs(b, seq, heads, dim):
+    """K10's operands (x, the LayerNorm's f32 scale and bias, the weight
+    codes [D, H*64] x 3 and [H*64, D] with their f32 column scales), its
+    workspace and its output."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    hd = heads * 64
+    ws = [mk(dim, heads, 64, std=s / dim ** 0.5) for s in (4, 1, 1)]
+    ws.append(mk(heads, 64, dim, std=hd ** -0.5))
+    codes = fl._q8_weights(*ws, dim, hd)
+    t = dict(x=mk(b, seq, dim).bfloat16(), ls=1 + 0.1 * mk(dim),
+             lb=0.1 * mk(dim), out=torch.empty(b, seq, dim, device='cuda',
+                                               dtype=torch.bfloat16))
+    for name, (c, sc), n in zip(('q', 'k', 'v', 'o'), codes,
+                                (hd, hd, hd, dim)):
+        t['w' + name], t['s' + name] = c, sc.reshape(n).contiguous()
+    t['ws'] = torch.empty(fl.fused_q8_plan(b, seq, dim, heads)['workspace'],
+                          dtype=torch.uint8, device='cuda')
+    return t
+
+
+# K10 (fused_attention_q8.cu; q8_gemm_sm90.cuh inlined): no_core, the
+# attention core not launched; no_codes, the core's codes pass skipped (the
+# bands staged, nothing quantised or stored); no_sweep1, sweep 1's products
+# not issued (the max from whatever the registers hold: timing only);
+# expf, p by expf(s - m) instead of one FFMA and ex2.approx; tiles64, the
+# GEMMs' 64-column tiles; shallow, the GEMMs' ring slots 64 codes deep (six
+# of them, the 64-byte swizzle: K11's) instead of 128 (four); no_transpose,
+# the codes launch without the weight codes' transposes; no_x, the out
+# projection without + x; ln_reload, LN(x)'s rows read three times from
+# memory instead of held in registers.
+K10_VARIANTS = {
+    'full': [],
+    'no_core': [('  err = sav::k10::core_launch(',
+                 '  if (batch < 0) err = sav::k10::core_launch(')],
+    'no_codes': [('    for (int c = tid; c < ROWS * ch; c += CONS) {',
+                  '    for (int c = tid; c < ROWS * ch && L < 0; '
+                  'c += CONS) {')],
+    'no_sweep1': [('  mma_xy<W0>(a, q_a, k + s0 * (SLOT / 2));\n'
+                   '  mma_xy<W1>(c, q_a, k + s1 * (SLOT / 2));',
+                   '  wgmma_commit();\n  wgmma_commit();'),
+                  ('  mma_xy<W>(sc, q_a, k + st * (SLOT / 2));\n'
+                   '  wgmma_wait<0>();',
+                   '  wgmma_wait<0>();')],
+    'expf': [('      sc[4 * i + j] = exp2_approx(in ? fmaf(sc[4 * i + j], '
+              'kLog2e, -r.n0)\n                                     : '
+              '-INFINITY);\n      sc[4 * i + 2 + j] = exp2_approx(\n'
+              '          in ? fmaf(sc[4 * i + 2 + j], kLog2e, -r.n1) : '
+              '-INFINITY);',
+              '      sc[4 * i + j] = in ? expf(sc[4 * i + j] - r.m0) : 0.f;\n'
+              '      sc[4 * i + 2 + j] = in ? expf(sc[4 * i + 2 + j] - r.m1)'
+              ' : 0.f;')],
+    'tiles64': [('constexpr int TILE = 128;', 'constexpr int TILE = 64;')],
+    'shallow': [('constexpr int DEPTH = 128;', 'constexpr int DEPTH = 64;')],
+    'no_transpose': [('  ln_codes_kernel<<<4 * per + (m + 7) / 8, 256, 0, st>>>(\n'
+                      '      tr, 4, per,',
+                      '  ln_codes_kernel<<<(m + 7) / 8, 256, 0, st>>>(\n'
+                      '      tr, 0, per,')],
+    'no_x': [('  o.x = residual ? (const sav::bf16*)x : nullptr;',
+              '  o.x = nullptr;')],
+    'ln_reload': [('  if (K <= 64 * ROW_PAIRS) {', '  if (K < 0) {')],
+    'ln_occ4': [('__global__ void __launch_bounds__(256)\nln_codes_kernel(',
+                 '__global__ void __launch_bounds__(256, 4)\nln_codes_kernel(')],
+}
+
+
+def _k9b_inputs(b, g, heads, d):
+    """K9b's operands at a g x g grid (qs, k, v, the forward's out and lse
+    from the plain twin, the cotangent, rel_h and rel_w) and its outputs
+    (delta, dq, dk, dv, drel_h, drel_w)."""
+    from sav_tpu_torch.ops import botnet_attention as bot
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    length, hd = g * g, heads * d
+    t = dict(qs=mk(b, length, hd, std=2 / d ** 0.5).bfloat16(),
+             k=mk(b, length, hd).bfloat16(), v=mk(b, length, hd).bfloat16(),
+             do=mk(b, length, hd).bfloat16(),
+             rh=mk(b, heads, length, g, std=0.5), rw=mk(b, heads, length, g,
+                                                        std=0.5))
+    t['o'], t['lse'] = bot.bot_fwd_plain(t['qs'], t['k'], t['v'], t['rh'],
+                                         t['rw'], heads, g)
+    t['delta'] = torch.empty_like(t['lse'])
+    for name in ('dq', 'dk', 'dv'):
+        t[name] = torch.empty_like(t['qs'])
+    t['drh'], t['drw'] = torch.empty_like(t['rh']), torch.empty_like(t['rw'])
+    return t
+
+
+# K9b (botnet_attention.cu; flash_sm90.cuh inlined): no_bins, the dq
+# kernel's drel sums of each tile's ds skipped (the ds tile still stored);
+# no_bias, the rel bias not added to the logits in either kernel; no_exp,
+# 2^x replaced by x; no_copy, the producers' copies of the rel rows (and
+# the dkv kernel's lse and delta: bulk copies at even g, cp.async at odd g)
+# not issued.
+K9B_VARIANTS = {
+    'full': [],
+    'no_bins': [('                                         int wt, bool '
+                 'row_ok) {\n  const int r = wt & 63;',
+                 '                                         int wt, bool '
+                 'row_ok) {\n  if (n >= 0) return;\n  const int r = wt & '
+                 '63;')],
+    'no_bias': [('      const float x0 = (sc[4 * i + e] + rr.rh0[hb]) + '
+                 'rr.rw0[wb];\n      const float x1 = (sc[4 * i + 2 + e] '
+                 '+ rr.rh1[hb]) + rr.rw1[wb];',
+                 '      const float x0 = sc[4 * i + e];\n      const float '
+                 'x1 = sc[4 * i + 2 + e];'),
+                ('      const float x0 = (sc[4 * i + e] + rh[q * g + hb0]) + '
+                 'rw[q * g + wb0];\n      const float x1 = (sc[4 * i + 2 + '
+                 'e] + rh[q * g + hb1]) + rw[q * g + wb1];',
+                 '      const float x0 = sc[4 * i + e];\n      const float '
+                 'x1 = sc[4 * i + 2 + e];')],
+    'no_exp': [NO_EXP],
+    'no_copy': [("      if (!bulk) {       // the unit's rel rows (zeros past L), "
+                 "at once", '      if (false) {'),
+                ('        copy_rel(reinterpret_cast<float*>(slot + '
+                 'plan.s_rh)', '        if (false) copy_rel('
+                 'reinterpret_cast<float*>(slot + plan.s_rh)'),
+                ('        copy_rel(reinterpret_cast<float*>(slot + '
+                 'plan.s_rw)', '        if (false) copy_rel('
+                 'reinterpret_cast<float*>(slot + plan.s_rw)'),
+                ('const uint32_t rel = bulk ? rows * g * 4 : 0;',
+                 'const uint32_t rel = 0;'),
+                ('const uint32_t stat = bulk ? rows * 4 : 0;',
+                 'const uint32_t stat = 0;'),
+                ('                                          uint32_t bytes, '
+                 'uint64_t* bar) {\n  asm volatile(',
+                 '                                          uint32_t bytes, '
+                 'uint64_t* bar) {\n  if (bytes) asm volatile(')],
 }
 
 
@@ -1130,7 +1269,7 @@ KERNELS = {
                        '  if ((err = mb::sum_columns_launch(')],
         }),
     'k14': dict(
-        source='int8_ff.cu', inline=Q8_HEADERS,
+        source='int8_ff.cu', inline=Q8_HEADERS + ('int8_gemm.cuh',),
         shapes=[(192 * 197, 768, 3072), (128 * 196, 384, 1536)],
         inputs=_k14_sm90_inputs, label='M={} D={} F={}',
         entries={'sav_int8_ff_dx': ('g', 'hpre', 'w2c', 's2', 'w1c', 's1',
@@ -1401,6 +1540,27 @@ KERNELS = {
         dims=lambda b, seq, heads, dim, t: (
             b, seq, dim, heads, 0, 1e-6, 48 ** -0.5),
         others=[], variants=K11_VARIANTS),
+    'k10': dict(
+        source='fused_attention_q8.cu',
+        inline=('q8_gemm_sm90.cuh', 'int8_sm90.cuh', 'int8_gemm.cuh'),
+        shapes=[(32, 197, 12, 768), (32, 577, 6, 384)],
+        inputs=_k10_inputs, label='B={} L={} H={} D={}',
+        entries={'sav_fused_attention_q8': (
+            'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'sq', 'sk', 'sv', 'so',
+            'ws', 'out')},
+        dims=lambda b, seq, heads, dim, t: (
+            b, seq, dim, heads, 1, 1e-6, 0.125),
+        others=[], variants=K10_VARIANTS),
+    'k9b': dict(
+        source='botnet_attention.cu', inline=('flash_sm90.cuh',),
+        shapes=[(64, 14, 4, 128)], inputs=_k9b_inputs,
+        label='B={} g={} h={} d={}',
+        entries={'sav_bot_bwd_dq': ('qs', 'k', 'v', 'o', 'do', 'rh', 'rw',
+                                    'lse', 'delta', 'dq', 'drh', 'drw'),
+                 'sav_bot_bwd_dkv': ('qs', 'k', 'v', 'do', 'rh', 'rw', 'lse',
+                                     'delta', 'dk', 'dv')},
+        dims=lambda b, g, heads, d, t: (b, g * g, heads, g, d),
+        others=[], variants=K9B_VARIANTS),
     'k15': dict(
         source='int8_matmul.cu', inline=('q8_gemm_sm90.cuh',),
         shapes=[(6304, 768, 3072), (6304, 3072, 768)],

@@ -34,9 +34,11 @@ and K12 at their paths' rows (ViT-B/16 and Mixer-B/16 bs192 with
 save_hpre and bs32 serving, CaiT-S/24 bs128 with save_hpre), and as
 controls K16 (37,824 rows) and K14 at ViT-B/16 @224 bs192's and CaiT-S/24
 @224 bs128's FF rows, and K11 (CaiT-S/24's and cait_xxs_24's widths, B=32
-L=196) and K15 (ViT-B/16 bs32's two FF products), each through its wrapper
-and its C entry alone (the parent's and this tree's C entries differ in
-their arguments: each run calls its own), each with this checkout's
+L=196), K15 (ViT-B/16 bs32's two FF products), K10 (ViT-B/16 bs32) and
+K9b (BoTNet-T3 bs64, each of its two C entries), each through its wrapper
+and its C entry alone (the parent's and this tree's K10, K11 and K15 C
+entries differ in their arguments: each run calls its own), each with
+this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
 
@@ -351,6 +353,64 @@ if args['kernels']:
         out['K15 C entry ' + key] = time_ms(
             lambda: fn15(*p5, 6304, k5, n5, st))
         del a5, b5
+    # K10 at ViT-B/16 @224 bs32 ('all' serving), through its wrapper and its
+    # C entry alone on buffers made once (this tree's entry takes the codes
+    # as they are and one workspace; the parent's took them transposed and
+    # its scratch buffer by buffer)
+    dd, hh = 768, 12
+    hd, m10 = hh * 64, 32 * 197
+    x10 = bf16((32, 197, dd))
+    sc10, bi10 = 1 + 0.1 * wf((dd,), 1), 0.1 * wf((dd,), 1)
+    w10 = [wf((dd, hh, 64), 4 / math.sqrt(dd))] + [
+        wf((dd, hh, 64), 1 / math.sqrt(dd)) for _ in range(2)] + [
+        wf((hh, 64, dd), 1 / math.sqrt(hd))]
+    flat10 = [t for p in fused_layer._q8_weights(*w10, dd, hd) for t in p]
+    with torch.no_grad():
+        out['K10 B=32 L=197'] = time_ms(
+            lambda: fused_layer.fused_attention_q8(x10, sc10, bi10, *flat10,
+                                                   hh))
+    scales10 = [vec(t, n) for t, n in zip(flat10[1::2], (hd, hd, hd, dd))]
+    o10 = torch.empty_like(x10)
+    if hasattr(fused_layer, 'fused_q8_plan'):
+        ws10 = torch.empty(fused_layer.fused_q8_plan(32, 197, dd, hh)[
+            'workspace'], dtype=torch.uint8, device='cuda')
+        b10 = [x10, sc10, bi10, *flat10[0::2], *scales10, ws10, o10]
+    else:
+        i8 = lambda w: torch.empty(m10, w, dtype=torch.int8, device='cuda')
+        bfb = lambda: torch.empty(m10, hd, dtype=torch.bfloat16,
+                                  device='cuda')
+        b10 = ([x10, sc10, bi10] + [t.t().contiguous() for t in flat10[0::2]]
+               + scales10 + [i8(dd), torch.empty(m10, device='cuda')]
+               + [bfb() for _ in range(4)]
+               + [i8(hd), torch.empty(m10, device='cuda'), o10])
+    p10, fn10 = [t.data_ptr() for t in b10], fused_layer._k10_lib()
+    out['K10 C entry B=32 L=197'] = time_ms(
+        lambda: fn10(*p10, 32, 197, dd, hh, 1, 1e-6, 0.125, st))
+    del x10, b10
+    # K9b at BoTNet-T3 @224 bs64 (g = 14, 4 heads of d = 128), through its
+    # wrapper and each of its two C entries alone (the same arguments in
+    # either tree)
+    from sav_tpu_torch.ops import botnet_attention as bot
+    g9, h9, d9, b9 = 14, 4, 128, 64
+    l9 = g9 * g9
+    qs9 = bf16((b9, l9, h9 * d9), 2 / math.sqrt(d9))
+    k9, v9, do9 = (bf16((b9, l9, h9 * d9)) for _ in range(3))
+    rh9, rw9 = (bf16((b9, h9, l9, g9), 0.5).float() for _ in range(2))
+    o9, lse9 = bot.bot_fwd_plain(qs9, k9, v9, rh9, rw9, h9, g9)
+    out['K9b B=64 g=14'] = time_ms(lambda: bot.bot_bwd(
+        qs9, k9, v9, rh9, rw9, o9, lse9, do9, h9, g9))
+    delta9 = torch.empty_like(lse9)
+    dq9, dk9, dv9 = (torch.empty_like(qs9) for _ in range(3))
+    drh9, drw9 = torch.empty_like(rh9), torch.empty_like(rw9)
+    dims9 = (b9, l9, h9, g9, d9, st)
+    f_dq, f_dkv = bot._fn('sav_bot_bwd_dq', 12, 5), bot._fn(
+        'sav_bot_bwd_dkv', 10, 5)
+    p_dq = [t.data_ptr() for t in (qs9, k9, v9, o9, do9, rh9, rw9, lse9,
+                                   delta9, dq9, drh9, drw9)]
+    p_dkv = [t.data_ptr() for t in (qs9, k9, v9, do9, rh9, rw9, lse9, delta9,
+                                    dk9, dv9)]
+    out['K9b dq C entry B=64 g=14'] = time_ms(lambda: f_dq(*p_dq, *dims9))
+    out['K9b dkv C entry B=64 g=14'] = time_ms(lambda: f_dkv(*p_dkv, *dims9))
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
 if args['serve']:

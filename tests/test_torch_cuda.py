@@ -1207,6 +1207,84 @@ def test_fused_attention_q8_matches_twin(card, b, seq, dim, heads):
     _int8_check(got, want, x)
 
 
+@pytest.mark.parametrize('b,seq,dim,heads', [(3, 197, 768, 12),
+                                             (2, 50, 1024, 16),
+                                             (2, 20, 1536, 24)])
+def test_fused_attention_q8_writes_no_row_past_m(card, b, seq, dim, heads):
+    """K10 through its C entry into a NaN-sentinel buffer 64 rows longer:
+    ViT-B's widths (the bands staged in shared memory), ViT-L's and 24
+    heads (staged in the workspace). The rows in range match the twin, the
+    rows past them keep the sentinel."""
+    rng = np.random.RandomState(seq + heads)
+    x = _bf16(rng, (b, seq, dim), 1.0, card)
+    w = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(card)
+    scale, bias = 1.0 + w((dim,), 0.1), w((dim,), 0.1)
+    ws = [w((dim, heads, 64), 4 / math.sqrt(dim)),
+          w((dim, heads, 64), 1 / math.sqrt(dim)),
+          w((dim, heads, 64), 1 / math.sqrt(dim)),
+          w((heads, 64, dim), 1 / math.sqrt(dim))]
+    codes = fused_layer._q8_weights(*ws, dim, heads * 64)
+    rows = b * seq
+    out = torch.full((rows + 64, dim), float('nan'), device=card,
+                     dtype=torch.bfloat16)
+    fused_layer._fused_q8_into(x, scale, bias, [c for c, _ in codes],
+                               [s for _, s in codes], heads,
+                               fused_layer.LN_EPS, True, out[:rows])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_layer.fused_attention_q8_plain(
+            x, scale, bias, *[t for pair in codes for t in pair], heads)
+    _int8_check(out[:rows], want.reshape(rows, dim), x.reshape(rows, dim))
+    assert bool(torch.isnan(out[rows:]).all())
+
+
+def test_fused_q8_plan_matches_the_kernel(card):
+    """fused_q8_plan mirrors sav_fused_q8_plan."""
+    import ctypes
+    from sav_tpu_torch import _build
+    fn = _build.library('fused_attention_q8').sav_fused_q8_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for b, l, d, h in ((32, 197, 768, 12), (32, 577, 384, 6),
+                       (3, 197, 768, 12), (2, 50, 1024, 16), (2, 17, 128, 2),
+                       (2, 20, 1536, 24), (1, 1, 768, 12)):
+        out = (ctypes.c_longlong * 24)()
+        assert fn(b, l, d, h, out) == 0
+        p = fused_layer.fused_q8_plan(b, l, d, h)
+        assert list(out) == (
+            [p['tile']['qkv'], p['tile']['out'], p['row_tiles'],
+             p['units']['qkv'], p['units']['out'], p['slots']['qkv'],
+             p['slots']['out'], p['smem']['qkv'], p['smem']['out'],
+             p['smem']['core'], p['units']['core'], p['slots']['core'],
+             int(p['staged']), p['workspace']]
+            + [p['scratch'][r][0] for r in fused_layer.Q8_REGIONS])
+    assert fn(2, 17, 192, 3, (ctypes.c_longlong * 24)()) != 0
+    assert fn(2, 17, 640, 5, (ctypes.c_longlong * 24)()) != 0
+
+
+def test_bot_bwd_plan_matches_the_kernel(card):
+    """bot_bwd_plan and fwd_smem mirror sav_bot_bwd_plan and sav_bot_smem
+    (K9b's dq and dkv kernels, K9a) over g = 1..60 at d = 64 and 128."""
+    import ctypes
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import botnet_attention as ba
+    fn = _build.library('botnet_attention').sav_bot_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for d in (64, 128):
+        for g in range(1, 61):
+            p = ba.bot_bwd_plan(g, d)
+            out = (ctypes.c_longlong * 6)()
+            rc = fn(g, d, out)
+            assert list(out) == [p['dq']['smem'], p['dq']['stages'],
+                                 p['dkv']['smem'], p['dkv']['stages'],
+                                 p['dkv']['slot'], p['pitch']], (g, d)
+            assert (rc == 0) == (p['dq']['stages'] > 0
+                                 and p['dkv']['stages'] > 0)
+            assert [ba._smem(w, g, d) for w in range(3)] == [
+                ba.fwd_smem(g, d), p['dq']['smem'], p['dkv']['smem']]
+    assert fn(14, 96, (ctypes.c_longlong * 6)()) != 0
+
+
 def test_int8_wrappers_refuse_and_count(card):
     from sav_tpu_torch import _build
     from sav_tpu_torch.ops import int8_ff, int8_matmul_kernel as k15
