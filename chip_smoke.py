@@ -72,7 +72,9 @@
    TNT-B's (32 x 196, D=40), K7b (its backward: dx and 12 parameter
    gradients from per-block partials, two calls bit-identical, with its
    launches' split) at TNT-S bs64 and TNT-B bs32, the ragged tail (an odd
-   B*P, at both widths) on NaN-sentinel buffers; serving TNT-S @224
+   B*P, at both widths) on NaN-sentinel buffers, K7a's last 4-patch unit
+   holding 1, 2 and 3 patches (both widths, sentinel buffers) and the
+   warp-a-patch route at two other widths; serving TNT-S @224
    bs32 (12 K7a + 12 K1 launches per forward, logits against the per-op
    path); training TNT-S @224 bs64 and TNT-B @224 bs32 (12 K7a + 12 K7b +
    12 K1-train + 12 K2 per step, gradients against the plain core on the
@@ -83,8 +85,9 @@
    against its twin at the BoT stage's serving and training shapes (B=32
    and B=64, L=196 on a 14 x 14 grid, 4 heads of d=128, f32 rel logits),
    K9b (its backward: the dq and the dkv kernel, dq/dk/dv and drel_h/
-   drel_w, two calls bit-identical) at B=64, two ragged grids (g = 5 and
-   13) on NaN-sentinel buffers, twice; serving @224 bs32 under
+   drel_w, two calls bit-identical) at B=64, three ragged grids (g = 5,
+   13 and 20: ragged against 64-row tiles and K9a's key tiles) on
+   NaN-sentinel buffers, twice; serving @224 bs32 under
    use_kernel='botnet_fused' (6 K9a launches per forward) and 'auto' (the
    per-op path, no K9), logits against use_kernel=False with filled
    BatchNorms and running statistics; training through the Trainer @224
@@ -1365,31 +1368,31 @@ def _k7_work(n, d, backward):
 
 
 def _k7_raw(args, g=None, out=None):
-    """(launch, outputs) of the C entry of K7a (``g`` None) or K7b alone,
-    on weights prepared once (bf16 concatenation and casts, the f32
-    vector) and, for K7b, a workspace allocated once: the kernels' own
-    time, without the wrapper's per-call preparation, which the wrapper's
-    time includes. Outputs: (out,) or (dx, dW f32, LN/bias gradients f32);
-    ``out`` may supply the buffer of out or dx."""
+    """(launch, outputs) of the C entry of K7a (``g`` None) or K7b alone on
+    the parameters as the model holds them (f32: the kernels cast the
+    weights as they stage them) and, for K7b, a workspace allocated once:
+    the kernels' own time, without the wrapper's checks. Outputs: (out,)
+    or (dx, dW f32, LN/bias gradients f32); ``out`` may supply the buffer
+    of out or dx."""
     x = args[0]
     n, _, d = x.shape
     f = 4 * d
-    wqkv, wo, w1, w2, par = tnt_inner._check(x, *args[1:], 4)
+    raw = tnt_inner._check(x, args[1:], 4)
     stream = fa.stream_of(x.device)
     qs = 1.0 / math.sqrt(d // 4)
-    ptrs = [t.data_ptr() for t in (x, wqkv, wo, w1, w2, par)]
+    ptrs = [t.data_ptr() for t in raw]
     out = torch.empty_like(x) if out is None else out
     if g is None:
-        fn = tnt_inner._fn('sav_tnt_fwd', 7, 4, 2)
-        return (lambda: fn(*ptrs, out.data_ptr(), n, d, f, 4,
+        fn = tnt_inner._fn('sav_tnt_fwd', 14, 4, 2)
+        return (lambda: fn(x.data_ptr(), *ptrs, out.data_ptr(), n, d, f, 4,
                            fused_layer.LN_EPS, qs, stream)), (out,)
     gw = torch.empty(4 * d * d + 2 * d * f, device='cuda')
     gvec = torch.empty(5 * d + f, device='cuda')
     ws = torch.empty(tnt_inner._fn('sav_tnt_bwd_workspace', 0, 4,
                                    restype=ctypes.c_longlong)(n, d, f, 4),
                      dtype=torch.uint8, device='cuda')
-    fn = tnt_inner._fn('sav_tnt_bwd', 11, 4, 2)
-    return (lambda: fn(ptrs[0], g.data_ptr(), *ptrs[1:], out.data_ptr(),
+    fn = tnt_inner._fn('sav_tnt_bwd', 18, 4, 2)
+    return (lambda: fn(x.data_ptr(), g.data_ptr(), *ptrs, out.data_ptr(),
                        gw.data_ptr(), gvec.data_ptr(), ws.data_ptr(), n, d, f,
                        4, fused_layer.LN_EPS, qs, stream)), (out, gw, gvec)
 
@@ -1397,8 +1400,8 @@ def _k7_raw(args, g=None, out=None):
 def check_k7a(rng, checks, n, d):
     """K7a vs its twin on n patches of width d: the layer's own part, out -
     x, as max |kernel - twin| over max |twin - x|. Returns the record: ms
-    of the kernel alone, wrapper_ms of ``inner_layer_fwd`` (the weights
-    prepared on every call, as the model's path does)."""
+    of the kernel alone (its C entry), wrapper_ms of ``inner_layer_fwd``
+    (its checks and launch, as the model's path calls it)."""
     args = _k7_case(rng, n, d)
     x = args[0]
     run = lambda: tnt_inner.inner_layer_fwd(*args, 4)
@@ -1422,7 +1425,59 @@ def check_k7a(rng, checks, n, d):
           f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}; '
           f'{ops / 1e9:.2f} GFLOP tensor, {f32_ops / 1e9:.2f} GFLOP f32, '
           f'{nbytes / 1e6:.1f} MB)', flush=True)
+    # a wrapper call launches K7a alone: no preparation of the weights
+    names = [name for name, _ in launch_ms([run], 20)]
+    checks.expect(len(names) > 0 and all('tnt_fwd_sm90_kernel' in name
+                                         for name in names),
+                  f'K7a B*P={n} D={d}: a wrapper call launches '
+                  f'{[name.split("(")[0][-40:] for name in names]} (the '
+                  f'Hopper K7a alone)')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tnt_inner.tnt_fwd_plan(n, d, 4 * d, 4, sms)
+    print(f'  K7a B*P={n} D={d} plan: route {plan["route"]}, '
+          f'{plan["wgs"]} warpgroups x {plan["blocks"]} blocks, '
+          f'{plan["units"]} units of 4 patches, {plan["smem"]} B shared',
+          flush=True)
     return rec
+
+
+def check_k7a_units(rng, checks, base=4 * 331):
+    """K7a's 4-patch units at B*P = 1, 2 and 3 (mod 4), both Hopper
+    widths, through the C entry into buffers 64 patches longer holding a
+    NaN sentinel: the n patches match the twin (OUT_TOL of max |twin -
+    x|) and the rest keep the sentinel, so the last unit's patches past
+    B*P are neither read nor written; then widths outside the Hopper
+    kernel's instantiations (tnt_fwd_plan's route 0, the warp-a-patch
+    kernel) through the wrapper against their twins."""
+    for d in (24, 40):
+        for n in (base + 1, base + 2, base + 3):
+            args = _k7_case(rng, n, d)
+            x = args[0]
+            out = torch.full((n + 64, 16, d), float('nan'), device='cuda',
+                             dtype=torch.bfloat16)
+            code = _k7_raw(args, out=out)[0]()
+            torch.cuda.synchronize()
+            want = tnt_inner.inner_layer_fwd_plain(*args, 4)
+            rel = _abs(out[:n], want) / float((want.float()
+                                               - x.float()).abs().max())
+            kept = bool(torch.isnan(out[n:]).all())
+            checks.expect(code == 0 and rel <= OUT_TOL and kept,
+                          f'K7a B*P={n} ({n % 4} mod 4) D={d} into sentinel '
+                          f'buffers: err {rel:.3g} of max|out-x| (tol '
+                          f'{OUT_TOL}), patches past untouched {kept}, '
+                          f'launch code {code}')
+    for n, d, heads in ((37, 16, 2), (29, 48, 4)):
+        args = _k7_case(rng, n, d, heads)
+        x = args[0]
+        plan = tnt_inner.tnt_fwd_plan(n, d, 4 * d, heads)
+        out = tnt_inner.inner_layer_fwd(*args, heads)
+        want = tnt_inner.inner_layer_fwd_plain(*args, heads)
+        torch.cuda.synchronize()
+        rel = _abs(out, want) / float((want.float() - x.float()).abs().max())
+        checks.expect(plan['route'] == 0 and rel <= OUT_TOL,
+                      f'K7a route {plan["route"]} (warp a patch) B*P={n} '
+                      f'D={d} H={heads}: err {rel:.3g} of max|out-x| (tol '
+                      f'{OUT_TOL})')
 
 
 def check_k7b(rng, checks, n, d):
@@ -1539,7 +1594,8 @@ def _k9_bytes(batch, heads, length, g, d, bands, rels, stats):
 
 def check_k9a(rng, checks, batch, train, g=14, heads=4, d=128):
     """K9a vs its twin: out over max |twin|, lse (the training forward's)
-    absolute; returns the record."""
+    absolute; returns the record: ms of its C entry alone, wrapper_ms of
+    ``bot_fwd`` (its checks and launch)."""
     args = _k9_case(rng, batch, g, heads, d)
     out, lse = bot.bot_fwd(*args, heads, g, save_lse=True)
     p_out, p_lse = bot.bot_fwd_plain(*args, heads, g)
@@ -1555,15 +1611,24 @@ def check_k9a(rng, checks, batch, train, g=14, heads=4, d=128):
     flops = 4 * batch * heads * length * length * d
     nbytes = _k9_bytes(batch, heads, length, g, d, 4, 2, 1 if train else 0)
     b_ms, b_by = bound_ms(flops, nbytes)
-    rec = dict(ms=time_ms(lambda: bot.bot_fwd(*args, heads, g, save_lse=train)),
+    raw_out = torch.empty_like(out)
+    raw_lse = torch.empty_like(lse) if train else None
+    rec = dict(ms=time_ms(_k9_raw(args, heads, g, raw_out, raw_lse)),
+               wrapper_ms=time_ms(lambda: bot.bot_fwd(*args, heads, g,
+                                                      save_lse=train)),
                plain_ms=time_ms(lambda: bot.bot_fwd_plain(*args, heads, g),
                                 iters=5),
                library_ms=time_ms(lambda: _k9_library(*args, heads, g)),
                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(err, lse_err))
+    plan = bot.bot_fwd_plan(g, d)
     print(f'  K9a B={batch} g={g}{" train" if train else ""}: kernel '
-          f'{rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  library '
+          f'{rec["ms"]:.4f} ms (wrapper {rec["wrapper_ms"]:.4f})  plain '
+          f'{rec["plain_ms"]:.4f} ms  library '
           f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}; '
-          f'{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)', flush=True)
+          f'{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); plan: '
+          f'{plan["tiles"]} key tiles of {plan["width"]}, {plan["qbufs"]} '
+          f'Q buffers, {plan["stages"]} ring slots, {plan["smem"]} B shared, '
+          f'{-(-g * g // 128) * heads * batch} units', flush=True)
     return rec
 
 
@@ -1575,7 +1640,7 @@ def _k9_raw(args, heads, g, out, lse, do=None, bufs=None):
     qs, k, v, rel_h, rel_w = args
     b, length, hd = qs.shape
     dims = (b, length, heads, g, hd // heads, fa.stream_of(qs.device))
-    p = lambda *ts: [t.data_ptr() for t in ts]
+    p = lambda *ts: [None if t is None else t.data_ptr() for t in ts]
     if do is None:
         fn = bot._fn('sav_bot_fwd', 7, 5)
         return lambda: [fn(*p(qs, k, v, rel_h, rel_w, out, lse), *dims)]
@@ -2577,6 +2642,7 @@ def main(argv=None):
            for n, d in ((64 * 196, 24), (32 * 196, 40))}
     check_k7_sentinels(rng, checks, 65 * 196 - 1, 24)
     check_k7_sentinels(rng, checks, 33 * 196 - 1, 40)
+    check_k7a_units(rng, checks)
     tnt_serve = serve_path(checks, 'TNT-S/16 @224 auto', 224, 'auto',
                            {'tnt_inner_fwd': 12, 'fused_attention_fwd': 12},
                            args.seed, args.batch, args.profile,
@@ -2609,7 +2675,10 @@ def main(argv=None):
     k9a = {train: check_k9a(rng, checks, 64 if train else args.batch, train)
            for train in (False, True)}
     k9b = check_k9b(rng, checks, 64)
-    for g in (5, 13):
+    # ragged against 64-row tiles and the plan's key tiles: g = 5 (one
+    # 64-key tile, 25 keys), 13 (three, the last 41), 20 (four 104-key
+    # steps, the last 88)
+    for g in (5, 13, 20):
         check_k9_ragged(rng, checks, 3, g)
     bot_serve = serve_path(checks, 'BoTNet-T3 @224 botnet_fused', 224,
                            'botnet_fused', {'bot_fwd': 6}, args.seed,
@@ -2854,6 +2923,7 @@ def main(argv=None):
                   train_launches=ts224.get('tnt_inner_fwd', 0),
                   tntb_train_launches=tb224.get('tnt_inner_fwd', 0),
                   train_ms=k7a[(64 * 196, 24)]['ms'],
+                  train_wrapper_ms=k7a[(64 * 196, 24)]['wrapper_ms'],
                   train_bound_ms=k7a[(64 * 196, 24)]['bound_ms']),
         tnt_entry('tnt_inner_bwd', 169, ts224.get('tnt_inner_bwd', 0),
                   k7b[(64 * 196, 24)], k7b[(32 * 196, 40)],
@@ -2866,6 +2936,7 @@ def main(argv=None):
                                                   for r in k9a.values())),
                   train_launches=bot_train.get('bot_fwd_train', 0),
                   train_ms=k9a[True]['ms'],
+                  train_wrapper_ms=k9a[True]['wrapper_ms'],
                   train_plain_ms=k9a[True]['plain_ms'],
                   train_library_ms=k9a[True]['library_ms'],
                   train_bound_ms=k9a[True]['bound_ms']),

@@ -33,12 +33,31 @@
 //
 // Design. d is a template parameter (64 or 128); the ragged edge is masked
 // in the kernels (rows past L read as zeros and are never stored).
-//  * K9a (bot_fwd_kernel, mma.sync): one block of 4 warps per (64-query
-//    tile, head, image), as the K4 port was first written: each warp owns
-//    16 query rows and sweeps the keys in 64-row tiles with an online
-//    softmax; K/V double-buffered with cp.async. The block's rel_h/rel_w
-//    rows (64 x g f32 each) sit in shared memory and each logit fragment
-//    gets its bias added in registers.
+//  * K9a (botf::bot_fwd_kernel<NB, W>): persistent wgmma + TMA on K9b's
+//    frame. 384 threads: a producer warpgroup (thread 0 issues the TMA
+//    loads and the rel rows' bulk copies; at odd g all 128 copy the rel
+//    rows by cp.async) and two consumer warpgroups of 64 query rows. A
+//    unit is (128-query tile, head, image): its Q and rel rows in one of
+//    two buffers (the next unit's land under this one's work), K and V
+//    tiles of W keys through a ring whose slots hold one K or one V tile.
+//    The keys a tile W come from a plan per L (fwd_width: the width of
+//    64 or 104 that covers L with the fewest columns; L = 196 is two
+//    104-key steps, 208 columns instead of the 256 of 64-key tiles). s = Q
+//    K^T on wgmma with both operands in shared memory, the bias added to
+//    the fragments from the resident rel rows, keys past L at -inf, the
+//    softmax online across tiles (one tile: the exact max), p = 2^(s log2
+//    e - m log2 e) by ex2.approx, rounded to bf16 as the register A
+//    operand of o += p V (V MN-major, K = W rounded up to 16, p 0 past the
+//    tile and V rows past L zero). Registers at W = 104, d = 128: s 52 + o
+//    64 a thread beside the row state and p's 28, within the 168 ptxas
+//    gives a thread of 384 (one 208-key tile, s 104 + o 64, spilled). out
+//    is normalised in registers, staged in the warpgroup's Q half (free
+//    once the unit's products are in) and
+//    stored by TMA, which clips the rows past L. The short tile of L =
+//    196 (rows 192-195) shares its unit with rows 128-191: it runs in the
+//    block's second warpgroup beside a full tile, on the same K/V loads,
+//    not as a unit of its own (B = 32: 256 units, 1.94 waves on 132 SMs;
+//    B = 64: 512 units, 3.88 waves).
 //  * K9b as two persistent wgmma + TMA kernels on K3's split
 //    (flash_bwd_split.cu), so every sum runs in a fixed order with no
 //    float atomics (two calls give identical bits); 384 threads, a
@@ -66,23 +85,9 @@
 #include <math.h>
 
 #include "flash_sm90.cuh"
-#include "mma.cuh"
 
 namespace sav {
 namespace bot {
-
-constexpr int BT = 64;              // rows of a query or key tile: 4 warps x 16
-constexpr int THREADS = 128;
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory one block may use
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-struct Geo {
-  static constexpr int LD = D + 8;  // padded smem row: conflict-free ldmatrix
-  static constexpr int KS = D / 16; // mma depth steps over d
-  static constexpr int NT = D / 8;  // n8 tiles of a d-wide accumulator
-  static constexpr int CH = D / 8;  // 16-byte chunks of a row
-};
 
 // The rel rows' pitch in shared memory: odd, so rows fall in other banks.
 __host__ __device__ inline int odd_pitch(int g) { return g | 1; }
@@ -95,289 +100,11 @@ __device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
                :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
 }
 
-// Rows [r0, r0 + BT) of one head band -> smem (pitch LD); rows at or past
-// `valid` are zero-filled (src-size 0, clamped address).
-template <int D>
-__device__ __forceinline__ void load_band(bf16* dst, const bf16* src,
-                                          int stride, int r0, int valid,
-                                          int tid) {
-  constexpr int CH = Geo<D>::CH, LD = Geo<D>::LD;
-  for (int i = tid; i < BT * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = r0 + r < valid;
-    cp_async_16(&dst[r * LD + c],
-                src + (size_t)(in ? r0 + r : 0) * stride + c, in ? 16 : 0);
-  }
-}
-
-// Rows [r0, r0 + BT) of one (image, head) slice [L, g] f32 -> smem [BT][g];
-// rows at or past L are zero-filled.
-__device__ __forceinline__ void load_rel(float* dst, const float* src, int r0,
-                                         int L, int g, int tid) {
-  const int valid = (L - r0 < BT ? L - r0 : BT) * g;
-  const float* base = src + (size_t)r0 * g;
-  for (int i = tid; i < BT * g; i += THREADS) {
-    const bool in = i < valid;
-    cp_async_4(&dst[i], in ? base + i : src, in ? 4 : 0);
-  }
-}
-
 // Key column j -> (j / g, j % g) without an integer division.
 __device__ __forceinline__ void grid_cell(int j, int g, float inv_g, int& hb,
                                           int& wb) {
   hb = (int)(((float)j + 0.5f) * inv_g);
   wb = j - hb * g;
-}
-
-// A fragment of the 16 x 16 tile at smem row r, depth step kk.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* s, int r,
-                                       int kk, int lane) {
-  ldmatrix_x4(f, &s[(r + (lane & 15)) * Geo<D>::LD + kk * 16 + (lane >> 4) * 8]);
-}
-
-// B fragments for X . Y^T with Y's rows r..r+15 as the n axis, depth step
-// kk: b[0..1] for rows r..r+7, b[2..3] for rows r+8..r+15.
-template <int D>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* s,
-                                            int r, int kk, int lane) {
-  ldmatrix_x4(b, &s[(r + (lane & 7) + ((lane >> 4) << 3)) * Geo<D>::LD
-                    + kk * 16 + ((lane >> 3) & 1) * 8]);
-}
-
-// B fragments for X . Y with Y's rows r..r+15 as the depth axis and
-// columns p*16..p*16+15 as n: b[0..1] for columns p*16.., b[2..3] for +8.
-template <int D>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* s,
-                                            int r, int p, int lane) {
-  ldmatrix_x4_trans(b, &s[(r + (lane & 7) + ((lane >> 3) & 1) * 8) * Geo<D>::LD
-                          + p * 16 + (lane >> 4) * 8]);
-}
-
-// 16 x d accumulator -> bf16 rows r0.. of a head band (rows >= valid are
-// not stored).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, int stride, int r0,
-                                           int valid,
-                                           const float (&acc)[Geo<D>::NT][4],
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = r0 + g, row1 = row0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < Geo<D>::NT; ++dt) {
-    if (row0 < valid)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * stride + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][0], acc[dt][1]);
-    if (row1 < valid)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * stride + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// ------------------------------------------------------------------ K9a
-
-template <int D>
-__host__ __device__ inline size_t fwd_smem(int g) {
-  return (size_t)5 * BT * Geo<D>::LD * 2 + (size_t)2 * BT * g * 4;
-}
-
-// grid (query tiles, heads, batch); lse is [B, h, L] f32 or null.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-bot_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const float* __restrict__ rel_h,
-               const float* __restrict__ rel_w, bf16* __restrict__ out,
-               float* __restrict__ lse, int L, int heads, int g, float inv_g) {
-  constexpr int LD = Geo<D>::LD, KS = Geo<D>::KS, NT = Geo<D>::NT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BT * LD;                  // [2][BT * LD]
-  bf16* sV = sK + 2 * BT * LD;              // [2][BT * LD]
-  float* sRh = reinterpret_cast<float*>(sV + 2 * BT * LD);   // [BT][g]
-  float* sRw = sRh + BT * g;
-
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int stride = heads * D;
-  const size_t off = (size_t)b * L * stride + h * D;
-  const size_t roff = ((size_t)b * heads + h) * L * g;
-
-  load_band<D>(sQ, q + off, stride, q0, L, tid);
-  load_band<D>(sK, k + off, stride, 0, L, tid);
-  load_band<D>(sV, v + off, stride, 0, L, tid);
-  load_rel(sRh, rel_h + roff, q0, L, g, tid);
-  load_rel(sRw, rel_w + roff, q0, L, g, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int wr = warp * 16;
-  // a warp whose 16 rows all lie past L takes part in the loads and
-  // barriers only
-  const bool active = q0 + wr < L;
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a<D>(qf[kk], sQ, wr, kk, lane);
-  const float* rh0 = sRh + (wr + gr) * g;
-  const float* rh1 = rh0 + 8 * g;
-  const float* rw0 = sRw + (wr + gr) * g;
-  const float* rw1 = rw0 + 8 * g;
-
-  float o[NT][4];
-  zero(o);
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int it = 0, k0 = 0; k0 < L; ++it, k0 += BT) {
-    const int buf = it & 1;
-    if (k0 + BT < L) {
-      load_band<D>(sK + (buf ^ 1) * BT * LD, k + off, stride, k0 + BT, L, tid);
-      load_band<D>(sV + (buf ^ 1) * BT * LD, v + off, stride, k0 + BT, L, tid);
-    }
-    cp_async_commit();
-    const bf16* sKb = sK + buf * BT * LD;
-    const bf16* sVb = sV + buf * BT * LD;
-
-    if (active) {
-      float s[8][4];
-      zero(s);
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t kf[4];
-          load_b_rows<D>(kf, sKb, j * 16, kk, lane);
-          mma_16816(s[2 * j], qf[kk], kf[0], kf[1]);
-          mma_16816(s[2 * j + 1], qf[kk], kf[2], kf[3]);
-        }
-      }
-      // the bias, in the TPU kernel's order (s + rel_h) + rel_w; key
-      // columns past L never reach the softmax
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = k0 + nt * 8 + 2 * t + e;
-          if (j < L) {
-            int hb, wb;
-            grid_cell(j, g, inv_g, hb, wb);
-            s[nt][e] = s[nt][e] + rh0[hb] + rw0[wb];
-            s[nt][2 + e] = s[nt][2 + e] + rh1[hb] + rw1[wb];
-          } else {
-            s[nt][e] = -INFINITY;
-            s[nt][2 + e] = -INFINITY;
-          }
-        }
-      }
-
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-#pragma unroll
-      for (int sh = 1; sh < 4; sh <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-      }
-      // the first tile always holds a key, so mx is finite here and
-      // exp2(-inf) = 0 clears the empty carry
-      const float a0 = exp2f((m0 - mx0) * kLog2e);
-      const float a1 = exp2f((m1 - mx1) * kLog2e);
-      m0 = mx0;
-      m1 = mx1;
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][0] = exp2f((s[nt][0] - m0) * kLog2e);
-        s[nt][1] = exp2f((s[nt][1] - m0) * kLog2e);
-        s[nt][2] = exp2f((s[nt][2] - m1) * kLog2e);
-        s[nt][3] = exp2f((s[nt][3] - m1) * kLog2e);
-        rs0 += s[nt][0] + s[nt][1];
-        rs1 += s[nt][2] + s[nt][3];
-      }
-      l0 = l0 * a0 + rs0;               // per-lane partial; reduced at the end
-      l1 = l1 * a1 + rs1;
-#pragma unroll
-      for (int dt = 0; dt < NT; ++dt) {
-        o[dt][0] *= a0;
-        o[dt][1] *= a0;
-        o[dt][2] *= a1;
-        o[dt][3] *= a1;
-      }
-      // P (rounded to bf16, as the TPU kernel feeds its PV matmul) . V
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-        pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-        pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-        pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-        for (int p = 0; p < D / 16; ++p) {
-          uint32_t vf[4];
-          load_b_cols<D>(vf, sVb, j * 16, p, lane);
-          mma_16816(o[2 * p], pa, vf[0], vf[1]);
-          mma_16816(o[2 * p + 1], pa, vf[2], vf[3]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  if (!active) return;
-
-#pragma unroll
-  for (int sh = 1; sh < 4; sh <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-#pragma unroll
-  for (int dt = 0; dt < NT; ++dt) {
-    o[dt][0] *= inv0;
-    o[dt][1] *= inv0;
-    o[dt][2] *= inv1;
-    o[dt][3] *= inv1;
-  }
-  store_rows<D>(out + off, stride, q0 + wr, L, o, lane);
-  if (lse != nullptr && t == 0) {
-    float* lb = lse + ((size_t)b * heads + h) * L;
-    const int row0 = q0 + wr + gr, row1 = row0 + 8;
-    if (row0 < L) lb[row0] = m0 + logf(l0);
-    if (row1 < L) lb[row1] = m1 + logf(l1);
-  }
-}
-
-// ------------------------------------------------------------- launch
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-template <int D>
-int fwd(const void* q, const void* k, const void* v, const float* rel_h,
-        const float* rel_w, void* out, float* lse, int batch, int L,
-        int heads, int g, cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>(g);
-  cudaError_t err = prepare(bot_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  bot_fwd_kernel<D><<<dim3((L + BT - 1) / BT, heads, batch), THREADS, smem,
-                      stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, rel_h, rel_w,
-      (bf16*)out, lse, L, heads, g, 1.f / (float)g);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace bot
@@ -1161,6 +888,429 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace botb
 }  // namespace sav
 
+
+// ------------------------------------------------------------------ K9a
+
+namespace sav {
+namespace botf {
+
+using namespace flash;
+using bot::grid_cell;
+using botb::bulk_load;
+using botb::bulk_rows;
+using botb::copy_rel;
+using botb::cp_async_arrive;
+using botb::round1024;
+
+constexpr int BLOCK_ROWS = 128;           // query rows of a unit (2 x 64)
+constexpr int MAX_STAGES = 4;             // ring slots, each a K or a V tile
+constexpr int MAX_QBUFS = 2;              // Q + rel-row buffers
+constexpr int SMEM_LIMIT = 232448;
+constexpr int PRODUCER_REGS = 40;         // 40 + 2 x 232 = 3 x 168
+constexpr int CONSUMER_REGS = 232;
+
+// The keys a tile at L keys: 104 where 104-key steps cover L in no more
+// columns than 64-key tiles do (L = 196: two steps, 208 columns against
+// 256), else 64 (L = 169: 192 against 208). A 104-key step's box holds 112
+// rows (p V runs 16-key steps; p is 0 on the 8 past the step), and its
+// logits take 52 registers a thread beside o's 64 at d = 128: within the
+// 168 ptxas gives a thread of 384 (one 208-key tile, 104 + 64, spilled).
+__host__ __device__ inline int fwd_width(int L) {
+  return (L + 103) / 104 * 104 <= (L + 63) / 64 * 64 ? 104 : 64;
+}
+
+// The rows of a key tile's box: W rounded up to 16.
+__host__ __device__ constexpr int box_rows(int w) { return (w + 15) / 16 * 16; }
+
+// K9a's layout at L keys, grid side g, head width d (bytes from a
+// 1024-byte aligned base): qbufs buffers, each Q's two 64-row halves (d /
+// 64 boxes each) and the unit's rel_h and rel_w rows (g f32 a row, as in
+// device memory); the ring of stages slots, each one K or one V tile
+// (box_rows(W) rows, d / 64 boxes); the mbarriers (res_full, res_empty [qbufs], full,
+// empty [stages]). Two buffers and the most slots (2-4) that fit, else one
+// buffer; else 64-key tiles; stages 0 where nothing fits. Mirrored by
+// bot_fwd_plan in ops/botnet_attention.py.
+struct FwdPlan {
+  int nb, w, tiles, qbufs, stages;
+  int off_rel, res, slot, off_ring, off_bar, smem;
+};
+
+__host__ __device__ inline FwdPlan fwd_plan(int L, int g, int d) {
+  FwdPlan p;
+  p.nb = d / 64;
+  p.off_rel = 2 * p.nb * (int)TILE_BYTES;
+  p.res = round1024(p.off_rel + 2 * BLOCK_ROWS * g * 4);
+  for (int w = fwd_width(L);; w = 64) {
+    p.w = w;
+    p.tiles = (L + w - 1) / w;
+    p.slot = p.nb * box_rows(w) * 128;
+    for (int qb = MAX_QBUFS; qb >= 1; --qb)
+      for (int s = MAX_STAGES; s >= 2; --s) {
+        p.qbufs = qb;
+        p.stages = s;
+        p.off_ring = qb * p.res;
+        p.off_bar = p.off_ring + s * p.slot;
+        p.smem = p.off_bar + (2 * qb + 2 * s) * 8 + 1024;
+        if (p.smem <= SMEM_LIMIT) return p;
+      }
+    if (w == 64) break;
+  }
+  p.stages = 0;
+  return p;
+}
+
+// A consumer thread's rows lrow and lrow + 8 of its warpgroup's 64: the
+// running max (raw logits), the per-thread partial sums, the rel rows.
+struct FwdRows {
+  float m0, m1, l0, l1;
+  const float* rh0;
+  const float* rh1;
+  const float* rw0;
+  const float* rw1;
+};
+
+// s = Q K^T of one key tile, 64 x W, as one commit group: Q's 64 rows
+// (d / 64 boxes of 64 rows at q) against the tile's W keys (d / 64 boxes
+// of box_rows(W) rows at kt), both K-major.
+template <int W, int NB>
+__device__ __forceinline__ void s_products(float (&sc)[W / 2], const bf16* q,
+                                           const bf16* kt) {
+  const uint64_t qd = desc_k_major(q), kd = desc_k_major(kt);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    const uint64_t qo = (kk >> 2) * (TILE_BYTES >> 4) + (kk & 3) * K_STEP;
+    const uint64_t ko =
+        (kk >> 2) * ((box_rows(W) * 128) >> 4) + (kk & 3) * K_STEP;
+    if constexpr (W == 64)
+      wgmma_ss_k(sc, qd + qo, kd + ko, kk);
+    else
+      wgmma_ss_kn<W>(sc, qd + qo, kd + ko, kk);
+  }
+  wgmma_commit();
+}
+
+// o[c] += p V for each 64-column box c of the V tile (WP rows at vt,
+// MN-major), p the WP-deep register operand; one commit group.
+template <int WP, int NB>
+__device__ __forceinline__ void pv_products(float (&o)[NB][32],
+                                            const uint32_t (&pa)[WP / 16][4],
+                                            const bf16* vt) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    const uint64_t vd = desc_mn_major(vt + c * WP * 64);
+#pragma unroll
+    for (int kk = 0; kk < WP / 16; ++kk)
+      wgmma_rs_mn(o[c], pa[kk], vd + kk * MN_STEP);
+  }
+  wgmma_commit();
+}
+
+// Key tile logits in sc's first W / 2 (this thread's first key key0) ->
+// the bias in the TPU kernel's order (s + rel_h) + rel_w, keys past L at
+// -inf; the running max and sums move on, p = 2^(s log2 e - m log2 e) (0
+// on the box's rows past the tile) packed as the A operand of p V, and
+// (a0, a1) the factor o takes first.
+template <int W, int WP>
+__device__ __forceinline__ void bias_softmax(FwdRows& r, float (&sc)[WP / 2],
+                                             uint32_t (&pa)[WP / 16][4],
+                                             int key0, int L, int g,
+                                             float inv_g, float& a0,
+                                             float& a1) {
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = key0 + 8 * i + e;
+      int hb = 0, wb = 0;
+      const bool in = key < L;
+      if (in) grid_cell(key, g, inv_g, hb, wb);
+      const float x0 = (sc[4 * i + e] + r.rh0[hb]) + r.rw0[wb];
+      const float x1 = (sc[4 * i + 2 + e] + r.rh1[hb]) + r.rw1[wb];
+      sc[4 * i + e] = in ? x0 : -INFINITY;
+      sc[4 * i + 2 + e] = in ? x1 : -INFINITY;
+    }
+  float mx0 = r.m0, mx1 = r.m1;
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  // key 0 is in the first tile, so mx is finite from there on and the
+  // empty carry (m = -inf) gets the factor 2^-inf = 0
+  a0 = exp2_approx((r.m0 - mx0) * kLog2e);
+  a1 = exp2_approx((r.m1 - mx1) * kLog2e);
+  const float n0 = -mx0 * kLog2e, n1 = -mx1 * kLog2e;
+  r.m0 = mx0;
+  r.m1 = mx1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    sc[4 * i] = exp2_approx(fmaf(sc[4 * i], kLog2e, n0));
+    sc[4 * i + 1] = exp2_approx(fmaf(sc[4 * i + 1], kLog2e, n0));
+    sc[4 * i + 2] = exp2_approx(fmaf(sc[4 * i + 2], kLog2e, n1));
+    sc[4 * i + 3] = exp2_approx(fmaf(sc[4 * i + 3], kLog2e, n1));
+    rs0 += sc[4 * i] + sc[4 * i + 1];
+    rs1 += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+  r.l0 = r.l0 * a0 + rs0;
+  r.l1 = r.l1 * a1 + rs1;
+#pragma unroll
+  for (int i = W / 2; i < WP / 2; ++i) sc[i] = 0.f;
+  pack_frags<WP>(pa, sc);
+}
+
+// Persistent; units (128-query tile, head, image) by flash::work_of, so a
+// head's units follow each other and share its K and V in L2. lse is [B,
+// h, L] f32 or null (serving).
+template <int NB, int W>
+__global__ void __launch_bounds__(THREADS, 1)
+bot_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to,
+               const float* __restrict__ rel_h,
+               const float* __restrict__ rel_w, float* __restrict__ lse,
+               const FwdPlan plan, int batch, int L, int heads, int g,
+               float inv_g) {
+  constexpr int D = 64 * NB, WP = box_rows(W);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int QB = plan.qbufs, S = plan.stages, T = plan.tiles;
+  unsigned char* ring = base + plan.off_ring;
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(base + plan.off_bar);
+  uint64_t* res_empty = res_full + QB;
+  uint64_t* full = res_empty + QB;
+  uint64_t* empty = full + S;
+  const int tid = threadIdx.x;
+  const int nx = (L + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int units = nx * heads * batch;
+
+  const bool bulk = bulk_rows(g);
+  if (tid == 0) {
+    for (int i = 0; i < QB; ++i) {
+      // the TMA thread, and the 128 copiers where they copy
+      mbar_init(&res_full[i], bulk ? 1 : 1 + 128);
+      mbar_init(&res_empty[i], 2);           // each consumer warpgroup
+    }
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {                    // producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int pt = tid - CONSUMERS;
+    if (bulk && pt != 0) return;
+    int step = 0;
+    for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
+      const Work w = work_of(u, nx, heads);
+      const int q0 = w.x * BLOCK_ROWS;
+      const int rows = L - q0 < BLOCK_ROWS ? L - q0 : BLOCK_ROWS;
+      const size_t roff = ((size_t)w.b * heads + w.h) * L * g;
+      const int rb = n % QB;
+      unsigned char* res = base + rb * plan.res;
+      float* srh = reinterpret_cast<float*>(res + plan.off_rel);
+      float* srw = srh + BLOCK_ROWS * g;
+      mbar_wait(&res_empty[rb], ((n / QB) & 1) ^ 1);
+      if (pt == 0) {
+        const uint32_t rel = bulk ? rows * g * 4 : 0;
+        mbar_arrive_expect_tx(&res_full[rb], 2 * NB * TILE_BYTES + 2 * rel);
+        if (bulk) {
+          bulk_load(srh, rel_h + roff + (size_t)q0 * g, rel, &res_full[rb]);
+          bulk_load(srw, rel_w + roff + (size_t)q0 * g, rel, &res_full[rb]);
+        }
+        for (int grp = 0; grp < 2; ++grp)
+          for (int c = 0; c < NB; ++c)
+            tma_load_3d(res + (grp * NB + c) * TILE_BYTES, &tq,
+                        &res_full[rb], w.h * D + 64 * c, q0 + 64 * grp, w.b);
+      }
+      if (!bulk) {       // the unit's rel rows (zeros past L), at once
+        copy_rel(srh, rel_h + roff, q0, BLOCK_ROWS, L, g, pt);
+        copy_rel(srw, rel_w + roff, q0, BLOCK_ROWS, L, g, pt);
+        cp_async_arrive(&res_full[rb]);
+      }
+      if (pt != 0) continue;
+      for (int j = 0; j < 2 * T; ++j, ++step) {   // K_0, V_0, K_1, V_1, ...
+        const int st = step % S;
+        mbar_wait(&empty[st], ((step / S) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], plan.slot);
+        for (int c = 0; c < NB; ++c)
+          tma_load_3d(ring + st * plan.slot + c * WP * 128,
+                      (j & 1) ? &tv : &tk, &full[st], w.h * D + 64 * c,
+                      (j >> 1) * W, w.b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = tid >> 7, wt = tid & 127, wi = wt >> 5, lane = tid & 31;
+  const int t = lane & 3, gq = lane >> 2;
+  const int lrow = 16 * wi + gq;             // the warpgroup's rows lrow, +8
+  const bool leader = wt == 0;
+  int step = 0, held = -1;                   // held: a buffer still to free
+  for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
+    const Work w = work_of(u, nx, heads);
+    const int q0 = w.x * BLOCK_ROWS, r0 = q0 + 64 * wg, row0 = r0 + lrow;
+    const int rb = n % QB;
+    unsigned char* res = base + rb * plan.res;
+    bf16* sq = reinterpret_cast<bf16*>(res) + wg * NB * TILE_ELEMS;
+    FwdRows r;
+    r.rh0 = reinterpret_cast<const float*>(res + plan.off_rel)
+            + (64 * wg + lrow) * g;
+    r.rh1 = r.rh0 + 8 * g;
+    r.rw0 = r.rh0 + BLOCK_ROWS * g;
+    r.rw1 = r.rw0 + 8 * g;
+    r.m0 = r.m1 = -INFINITY;
+    r.l0 = r.l1 = 0.f;
+    float o[NB][32];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    mbar_wait(&res_full[rb], (n / QB) & 1);
+
+    for (int j = 0; j < T; ++j) {
+      int st = step % S;
+      float sc[WP / 2];
+      mbar_wait(&full[st], (step / S) & 1);
+      wgmma_fence();
+      s_products<W, NB>(*reinterpret_cast<float(*)[W / 2]>(sc), sq,
+                        reinterpret_cast<const bf16*>(ring + st * plan.slot));
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (leader) {
+        mbar_arrive(&empty[st]);             // the K tile is read
+        if (held >= 0) {                     // the last unit's store has
+          bulk_wait_read();                  // read its staging tile
+          mbar_arrive(&res_empty[held]);
+          held = -1;
+        }
+      }
+      ++step;
+      uint32_t pa[WP / 16][4];
+      float a0, a1;
+      bias_softmax<W, WP>(r, sc, pa, j * W + 2 * t, L, g, inv_g, a0, a1);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[c][4 * i] *= a0;
+          o[c][4 * i + 1] *= a0;
+          o[c][4 * i + 2] *= a1;
+          o[c][4 * i + 3] *= a1;
+        }
+      st = step % S;
+      mbar_wait(&full[st], (step / S) & 1);
+      wgmma_fence();
+      pv_products<WP, NB>(o, pa,
+                          reinterpret_cast<const bf16*>(ring + st * plan.slot));
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) fence_regs(o[c]);
+      if (leader) mbar_arrive(&empty[st]);   // the V tile is read
+      ++step;
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, off);
+      r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, off);
+    }
+    const float inv0 = 1.f / r.l0, inv1 = 1.f / r.l1;
+    if (lse != nullptr && t == 0) {
+      float* lb = lse + ((size_t)w.b * heads + w.h) * L;
+      if (row0 < L) lb[row0] = r.m0 + logf(r.l0);
+      if (row0 + 8 < L) lb[row0 + 8] = r.m1 + logf(r.l1);
+    }
+    // out through the warpgroup's Q half, in TMA's swizzled box layout
+    // (the 16-byte chunk i of row rr at i ^ (rr % 8): a store's 8 rows hit
+    // 8 different chunks), then one TMA store a box, which writes only the
+    // rows below L
+    warpgroup_sync(1 + wg);                  // every read of Q is done
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = lrow + 8 * h;
+        const float inv = h ? inv1 : inv0;
+        unsigned char* dst = reinterpret_cast<unsigned char*>(sq)
+                             + c * TILE_BYTES + rr * 128 + 4 * t;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          *reinterpret_cast<uint32_t*>(dst + ((i ^ (rr & 7)) << 4)) =
+              pack_bf16x2(o[c][4 * i + 2 * h] * inv,
+                          o[c][4 * i + 2 * h + 1] * inv);
+      }
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+    if (leader) {
+      if (r0 < L) {
+        for (int c = 0; c < NB; ++c)
+          tma_store_3d(&to, sq + c * TILE_ELEMS, w.h * D + 64 * c, r0, w.b);
+        bulk_commit();
+      }
+      if (QB == 1) {                         // the producer waits for it
+        bulk_wait_read();
+        mbar_arrive(&res_empty[rb]);
+      } else {
+        held = rb;                           // freed under the next unit
+      }
+    }
+  }
+  if (leader) bulk_wait_all();
+}
+
+template <int NB, int W>
+int fwd_launch(const void* q, const void* k, const void* v,
+               const float* rel_h, const float* rel_w, void* out, float* lse,
+               const FwdPlan& plan, int batch, int L, int heads, int g,
+               cudaStream_t stream) {
+  const int width = heads * 64 * NB;
+  CUtensorMap tq, tk, tv, to;
+  int err = band_map(&tq, q, batch, L, L, width);
+  if (!err) err = band_map(&tk, k, batch, L, L, width, box_rows(W));
+  if (!err) err = band_map(&tv, v, batch, L, L, width, box_rows(W));
+  if (!err) err = band_map(&to, out, batch, L, L, width);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      bot_fwd_kernel<NB, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      plan.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int units = (L + BLOCK_ROWS - 1) / BLOCK_ROWS * heads * batch;
+  bot_fwd_kernel<NB, W><<<persistent_grid(units), THREADS, plan.smem,
+                          stream>>>(tq, tk, tv, to, rel_h, rel_w, lse, plan,
+                                    batch, L, heads, g, 1.f / (float)g);
+  return (int)cudaGetLastError();
+}
+
+inline int fwd(const void* q, const void* k, const void* v,
+               const float* rel_h, const float* rel_w, void* out, float* lse,
+               int batch, int L, int heads, int g, int d,
+               cudaStream_t stream) {
+  if (g < 1 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  const FwdPlan plan = fwd_plan(L, g, d);
+  if (plan.stages == 0) return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto launch) {
+    return launch(q, k, v, rel_h, rel_w, out, lse, plan, batch, L, heads, g,
+                  stream);
+  };
+  if (d == 64)
+    return plan.w == 104 ? run(fwd_launch<1, 104>) : run(fwd_launch<1, 64>);
+  return plan.w == 104 ? run(fwd_launch<2, 104>) : run(fwd_launch<2, 64>);
+}
+
+}  // namespace botf
+}  // namespace sav
+
 // Shared memory of kernel `which` (0: K9a, 1: K9b's dq kernel, 2: its dkv
 // kernel) at grid side g and head width d, or 0 where it cannot run (d not
 // 64 or 128, g < 1, or beyond a block's shared memory).
@@ -1175,8 +1325,27 @@ extern "C" int sav_bot_smem(int which, int g, int d) {
     const botb::DkvPlan p = botb::dkv_plan(g, d);
     return p.stages ? p.smem : 0;
   }
-  const size_t bytes = d == 64 ? bot::fwd_smem<64>(g) : bot::fwd_smem<128>(g);
-  return bytes > (size_t)bot::SMEM_LIMIT ? 0 : (int)bytes;
+  const botf::FwdPlan p = botf::fwd_plan(g * g, g, d);
+  return p.stages ? p.smem : 0;
+}
+
+// K9a's launch plan at grid side g and head width d (L = g g): out[0] the
+// key tile width, [1] key tiles a unit, [2] Q + rel buffers, [3] ring
+// slots, [4] a buffer's bytes, [5] a slot's bytes, [6] shared memory;
+// returns 0, or cudaErrorInvalidValue where the kernel cannot run.
+// Mirrored by bot_fwd_plan in ops/botnet_attention.py.
+extern "C" int sav_bot_fwd_plan(int g, int d, long long* out) {
+  using namespace sav::botf;
+  if (g < 1 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  const FwdPlan p = fwd_plan(g * g, g, d);
+  out[0] = p.w;
+  out[1] = p.tiles;
+  out[2] = p.qbufs;
+  out[3] = p.stages;
+  out[4] = p.res;
+  out[5] = p.slot;
+  out[6] = p.stages ? p.smem : 0;
+  return p.stages ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // K9b's launch plan at grid side g and head width d: out[0] the dq
@@ -1204,11 +1373,9 @@ extern "C" int sav_bot_fwd(const void* q, const void* k, const void* v,
                            const float* rel_h, const float* rel_w, void* out,
                            float* lse, int batch, int L, int heads, int g,
                            int d, void* stream) {
-  using namespace sav::bot;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return fwd<64>(q, k, v, rel_h, rel_w, out, lse, batch, L, heads, g, s);
-  if (d == 128) return fwd<128>(q, k, v, rel_h, rel_w, out, lse, batch, L, heads, g, s);
-  return (int)cudaErrorInvalidValue;
+  if (L != g * g) return (int)cudaErrorInvalidValue;
+  return sav::botf::fwd(q, k, v, rel_h, rel_w, out, lse, batch, L, heads, g,
+                        d, (cudaStream_t)stream);
 }
 
 // dq [B, L, h*d] bf16, drel_h/drel_w [B, h, L, g] f32 and di [B, h, L] f32

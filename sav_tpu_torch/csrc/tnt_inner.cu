@@ -12,7 +12,9 @@
 //   out = bf16(x2 + bf16(gact) W2 + b2)
 // rounding where the TPU kernel rounds; weights bf16, LN parameters and
 // biases f32. K7b recomputes all of it from x (the only saved residual)
-// and returns dx (bf16) and the 12 parameter gradients (f32).
+// and returns dx (bf16) and the 12 parameter gradients (f32). Both read
+// the parameters as the model holds them (f32, checkpoint layout) and
+// cast the weights to bf16 as each block stages them.
 //
 // Bound on the card: at TNT-S (D = 24, F = 96, H = 4) a patch is 16 x 24
 // bf16 in and out (1.5 KB) against 0.22 MFLOP of products and 25 kFLOP of
@@ -24,7 +26,32 @@
 // tensor-core shape, so issue and latency, not either roofline, set the
 // kernels' times.
 //
-// Design:
+// Design of K7a at TNT-S's and TNT-B's widths (hop::tnt_fwd_sm90_kernel,
+// route 1 of plan_fwd):
+//  * Persistent consumer warpgroups, 4 a block at TNT-S and 3 at TNT-B
+//    (their registers; TNT-B's shared memory), each walking units of 4
+//    patches: 64 rows, one m64 wgmma tile, warp w holding patch w. x
+//    arrives by TMA into two tiles a warpgroup (the next units' loads
+//    under this one's work); out is staged over the unit's q, k, v rows
+//    and stored by TMA, which also masks the last unit's patches past
+//    B*P (neither read nor written).
+//  * Every product is one wgmma chain with A in registers and the
+//    block's weights as K-major 128-byte-swizzled B tiles: QKV (n = 3
+//    Dp), Wo (n = Dp), W1 (n = F), W2 (n = Dp, k = F). y and y2 come from
+//    the accumulator layout (a row lies in one quad: the LN statistics
+//    are quad shuffles), bf16(o) by ldmatrix from the warp's o tile, x2
+//    stays in registers, gelu(hp) is packed from W1's accumulators as
+//    W2's A operand (its tanh by tanh.approx, ~2^-11, under the bf16
+//    rounding that follows).
+//  * The attention stays f32 on the CUDA cores, warp-local: q, k, v in
+//    shared memory at the row stride D + 2 (a head's 16 query rows in 16
+//    banks), a lane taking query rows r and r + 8 of one head, so each k
+//    and v row it reads feeds both; p by ex2.approx.
+//  * The block fetches the f32 parameters by 4-byte cp.async into the
+//    warpgroups' work regions, then converts them (8 channels a 16-byte
+//    store), while the first units' x tiles arrive.
+// Design of K7b, and of K7a at any other width supported() takes
+// (tnt_fwd_kernel<0, 0, 0>, route 0):
 //  * One warp owns one patch: its 16 rows are exactly one m16 tile of
 //    mma.sync m16n8k16, so every product of the layer (QKV, Wo, W1, W2 and
 //    their transposes in the backward) is a warp-local row of tiles whose
@@ -35,9 +62,9 @@
 //    stored. Blocks are persistent, so the weights are loaded once per
 //    block and the last patch needs no padding (patches past B*P are never
 //    touched).
-//  * The kernels are instantiated for TNT-S's and TNT-B's inner widths
-//    (constant loop bounds and index arithmetic) and once with the widths
-//    read at run time, for any other shape supported() takes.
+//  * K7b is instantiated for TNT-S's and TNT-B's inner widths (constant
+//    loop bounds and index arithmetic) and, as K7a's route 0, once with
+//    the widths read at run time, for any other shape supported() takes.
 //  * The attention is 16 x 16 x hd per (patch, head) with hd = 6 or 10:
 //    below any tensor-core shape, so each lane takes (query row, head)
 //    pairs with scalar f32 FMAs over registers holding one logit row.
@@ -67,6 +94,7 @@
 //    number, so the attention's lanes, one a query row, read 16 different
 //    banks, and a head's columns load as float2.
 #include "ff_common.cuh"
+#include "sm90.cuh"
 
 namespace sav {
 namespace tnt {
@@ -74,7 +102,7 @@ namespace tnt {
 using namespace sav::ff;
 
 constexpr int L = 16;            // pixel tokens per patch: one m16 tile
-constexpr int MAX_WARPS = 8;     // K7a's warps a block
+constexpr int MAX_WARPS = 8;     // the warp-a-patch K7a's warps a block
 constexpr int BWD_MAX_WARPS = 12;  // K7b's
 constexpr int LDT = 24;          // bf16 row stride of K7b's [16][16] FF tiles
 constexpr int MAX_HD = 128;      // the widest head the kernels take
@@ -395,32 +423,47 @@ attention_fwd(const float* q, const float* k, const float* v, bf16* o,
     o[(i / pad) * g.ldy + g.d + i % pad] = __float2bfloat16(0.f);
 }
 
-// The block's weights into shared memory, zero-padded.
-__device__ __forceinline__ void
-load_weights(const bf16* __restrict__ wqkv, const bf16* __restrict__ wo,
-             const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-             const float* __restrict__ par, const Geo& g, bf16* sWqkv,
-             bf16* sWo, bf16* sW1, bf16* sW2, float* sPar) {
+// The inner layer's parameters as the model holds them: f32 in checkpoint
+// layout (wq, wk, wv [D, H, hd] = [D][D]; wo [H, hd, D] = [D][D]; w1 [D][F];
+// w2 [F][D]; the LayerNorm scales and biases, b1 and b2 as vectors). The
+// kernels cast the weights to bf16 (round to nearest even, the bits of
+// torch's .to(bfloat16)) as each block stages them.
+struct Params {
+  const float *ln1s, *ln1b, *wq, *wk, *wv, *wo, *ln2s, *ln2b, *w1, *b1,
+      *w2, *b2;
+};
+
+// The block's weights into shared memory, zero-padded: Wqkv [Dp][ldq]
+// (Wq | Wk | Wv, Dp columns each), Wo [Dp][ldy], W1 [Dp][ldf], W2 [F][ldy]
+// in bf16; ln1s, ln1b, ln2s, ln2b, b2 [D] and b1 [F] in f32.
+__device__ __forceinline__ void load_weights(const Params& p, const Geo& g,
+                                             bf16* sWqkv, bf16* sWo,
+                                             bf16* sW1, bf16* sW2,
+                                             float* sPar) {
   const bf16 zero = __float2bfloat16(0.f);
   const int d = g.d, dp = g.dp, f = g.f;
   for (int i = threadIdx.x; i < dp * 3 * dp; i += blockDim.x) {
     const int r = i / (3 * dp), c = i % (3 * dp), sec = c / dp, cc = c % dp;
+    const float* w = sec == 0 ? p.wq : (sec == 1 ? p.wk : p.wv);
     sWqkv[r * g.ldq + c] =
-        (r < d && cc < d) ? wqkv[r * 3 * d + sec * d + cc] : zero;
+        (r < d && cc < d) ? __float2bfloat16(w[r * d + cc]) : zero;
   }
   for (int i = threadIdx.x; i < dp * dp; i += blockDim.x) {
     const int r = i / dp, c = i % dp;
-    sWo[r * g.ldy + c] = (r < d && c < d) ? wo[r * d + c] : zero;
+    sWo[r * g.ldy + c] =
+        (r < d && c < d) ? __float2bfloat16(p.wo[r * d + c]) : zero;
   }
   for (int i = threadIdx.x; i < dp * f; i += blockDim.x) {
     const int r = i / f, c = i % f;
-    sW1[r * g.ldf + c] = r < d ? w1[r * f + c] : zero;
+    sW1[r * g.ldf + c] = r < d ? __float2bfloat16(p.w1[r * f + c]) : zero;
   }
   for (int i = threadIdx.x; i < f * dp; i += blockDim.x) {
     const int r = i / dp, c = i % dp;
-    sW2[r * g.ldy + c] = c < d ? w2[r * d + c] : zero;
+    sW2[r * g.ldy + c] = c < d ? __float2bfloat16(p.w2[r * d + c]) : zero;
   }
-  for (int i = threadIdx.x; i < g.nvec; i += blockDim.x) sPar[i] = par[i];
+  const float* vecs[5] = {p.ln1s, p.ln1b, p.ln2s, p.ln2b, p.b2};
+  for (int i = threadIdx.x; i < g.nvec; i += blockDim.x)
+    sPar[i] = i < 5 * d ? vecs[i / d][i % d] : p.b1[i - 5 * d];
 }
 
 struct Shared {
@@ -450,9 +493,7 @@ __device__ inline Shared carve(unsigned char* smem, const Geo& g) {
 // <0, 0, 0> reads them from its arguments and takes any supported shape.
 template <int kD, int kF, int kH>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-tnt_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
-               const bf16* __restrict__ wo, const bf16* __restrict__ w1,
-               const bf16* __restrict__ w2, const float* __restrict__ par,
+tnt_fwd_kernel(const bf16* __restrict__ x, const Params prm,
                bf16* __restrict__ out, int n, int d, int f, int h, float eps,
                float q_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -480,7 +521,7 @@ tnt_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   float* sV = sK + L * g.dp;
   bf16* sG = reinterpret_cast<bf16*>(region);
 
-  load_weights(wqkv, wo, w1, w2, par, g, S.wqkv, S.wo, S.w1, S.w2, S.par);
+  load_weights(prm, g, S.wqkv, S.wo, S.w1, S.w2, S.par);
   __syncthreads();
 
   for (int p = blockIdx.x * nwarps + warp; p < n; p += gridDim.x * nwarps) {
@@ -704,9 +745,7 @@ point(const unsigned char* a0, int lda, const unsigned char* b0, int ldb,
 template <int kD, int kF, int kH, bool kTiled>
 __global__ void __launch_bounds__(BWD_MAX_WARPS * 32)
 tnt_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
-               const bf16* __restrict__ wqkv, const bf16* __restrict__ wo,
-               const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-               const float* __restrict__ par, bf16* __restrict__ dx,
+               const Params prm, bf16* __restrict__ dx,
                float* __restrict__ part, int n, int d, int f, int h,
                float eps, float q_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -752,7 +791,7 @@ tnt_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
   float *vln1s = sVec, *vln1b = sVec + d, *vln2s = sVec + 2 * d,
         *vln2b = sVec + 3 * d, *vb2 = sVec + 4 * d, *vb1 = sVec + 5 * d;
 
-  load_weights(wqkv, wo, w1, w2, par, g, S.wqkv, S.wo, S.w1, S.w2, S.par);
+  load_weights(prm, g, S.wqkv, S.wo, S.w1, S.w2, S.par);
   for (int i = threadIdx.x; i < g.total; i += blockDim.x) sPart[i] = 0.f;
   for (int i = lane; i < g.nvec; i += 32) sVec[i] = 0.f;
   __syncthreads();
@@ -1032,6 +1071,477 @@ tnt_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
   }
 }
 
+// ------------------------------------------------------- K7a on Hopper
+
+// The unit of the Hopper K7a is 4 patches, 64 rows: one m64 wgmma tile,
+// warp w of a consumer warpgroup holding patch w's 16 rows (rows 16w + g
+// and 16w + g + 8 of the accumulator layout, sm90.cuh). Built for
+// TNT-S's (24, 96, 4) and TNT-B's (40, 160, 4) widths; any other shape
+// supported() takes runs tnt_fwd_kernel<0, 0, 0> (route 0).
+namespace hop {
+
+using namespace sav::sm90;
+
+constexpr int UNIT = 64;                  // rows of a unit: 4 patches
+constexpr int XSLOTS = 2;                 // x tiles a warpgroup: the next
+                                          // units' loads under this one
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int MAX_WGS = 4;                // warpgroups a block (TNT-S)
+constexpr int MAX_WGS_B = 3;              // at TNT-B's widths
+
+// Compile-time widths of an instantiation.
+template <int kD, int kF, int kH>
+struct W {
+  static constexpr int D = kD, F = kF, H = kH, HD = kD / kH;
+  static constexpr int DP = (kD + 15) / 16 * 16;    // 32, 48
+  static constexpr int KS = DP / 16;                // k-steps over Dp
+  static constexpr int FS = kF / 16;                // k-steps over F
+  static constexpr int LQ = kD + 2;   // f32 row stride of q, k, v: twice an
+                                      // odd number, so the 16 rows a head's
+                                      // lanes read fall in 16 banks
+  static constexpr int LO = DP + 8;   // bf16 row stride of the o tile
+  static_assert(HD % 2 == 0, "the attention reads head columns as float2");
+};
+
+__host__ __device__ inline int up1024(int n) { return (n + 1023) / 1024 * 1024; }
+
+// The layout at D, F (bytes from a 1024-byte aligned base): the block's
+// weights as K-major 128-byte-swizzled wgmma B tiles (rows the output
+// axis, up to 64 input channels a 128-byte row: Wqkv^T 3 Dp rows, Wo^T Dp,
+// W1^T F, W2^T ceil(F / 64) boxes of Dp rows), the f32 vectors (ln1s,
+// ln1b, ln2s, ln2b, b2 zero-padded to Dp, then b1 [F]); then each
+// warpgroup's two x tiles (64 rows of D bf16); then each warpgroup's work
+// region: its warps' q, k, v (f32, row stride D + 2; the unit's out is
+// staged there once they are read) and o tiles (bf16, row stride Dp + 8);
+// then the x tiles' mbarriers. Before the first unit the work regions
+// hold the f32 parameters as they arrive (f32_bytes).
+struct Lay {
+  int dp, wqkv, wo, w1, w2, vec, weights;
+  int xtile, qkv, otile, per_wg;
+};
+
+// The f32 parameters' bytes: wq, wk, wv, wo, w1, w2, then ln1s, ln1b,
+// ln2s, ln2b, b2 and b1.
+__host__ __device__ inline int f32_bytes(int d, int f) {
+  return (4 * d * d + 2 * d * f + 5 * d + f) * 4;
+}
+
+__host__ __device__ inline Lay lay(int d, int f) {
+  Lay l;
+  l.dp = (d + 15) / 16 * 16;
+  l.wqkv = 0;
+  l.wo = l.wqkv + 3 * l.dp * 128;
+  l.w1 = l.wo + l.dp * 128;
+  l.w2 = l.w1 + f * 128;
+  l.vec = l.w2 + (f + 63) / 64 * l.dp * 128;
+  l.weights = up1024(l.vec + (5 * l.dp + f) * 4);
+  l.xtile = up1024(UNIT * d * 2);
+  l.qkv = up1024(4 * 3 * 16 * (d + 2) * 4);
+  l.otile = up1024(4 * 16 * (l.dp + 8) * 2);
+  l.per_wg = XSLOTS * l.xtile + l.qkv + l.otile;
+  return l;
+}
+
+// Shared memory at wgs warpgroups a block.
+__host__ __device__ inline int smem_at(const Lay& l, int wgs) {
+  return l.weights + wgs * l.per_wg + wgs * XSLOTS * 8 + 1024;
+}
+
+// 4-byte asynchronous copy global -> shared.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem) : "memory");
+}
+
+// The f32 parameters into shared memory at f (f32_bytes' order), all in
+// flight at once: 4-byte copies, as a caller's tensor need not be 16-byte
+// aligned. The caller waits (cp_async_wait<0>) and syncs.
+template <class C>
+__device__ __forceinline__ void fetch_params(const Params& p, float* f) {
+  constexpr int D = C::D, F = C::F;
+  const float* src[12] = {p.wq, p.wk, p.wv, p.wo, p.w1, p.w2,
+                          p.ln1s, p.ln1b, p.ln2s, p.ln2b, p.b2, p.b1};
+  const int len[12] = {D * D, D * D, D * D, D * D, D * F, F * D,
+                       D, D, D, D, D, F};
+  for (int a = 0; a < 12; ++a) {
+    for (int i = threadIdx.x; i < len[a]; i += blockDim.x)
+      cp_async_4(f + i, src[a] + i);
+    f += len[a];
+  }
+  cp_async_commit();
+}
+
+// Row n, channels 8 kc .. 8 kc + 7 of one 64-channel box of a K-major
+// wgmma tile (boxes of `rows` rows) from column col of the f32 weight w
+// [K][N] (B = w), bf16, zeros past K and where !valid: one 16-byte store
+// at chunk kc ^ (n % 8).
+__device__ __forceinline__ void put_chunk(unsigned char* tile, int rows,
+                                          int box, int n, int kc,
+                                          const float* w, int K, int N,
+                                          int col, bool valid) {
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int k = 64 * box + 8 * kc + 2 * e;
+    v[e] = pack_bf16x2(valid && k < K ? w[k * N + col] : 0.f,
+                       valid && k + 1 < K ? w[(k + 1) * N + col] : 0.f);
+  }
+  *reinterpret_cast<uint4*>(tile + box * rows * 128 + n * 128
+                            + ((kc ^ (n & 7)) << 4)) =
+      make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// The block's weights (bf16, zeros in every padded row and channel) and
+// vectors, from the f32 parameters fetch_params put at f. A thread writes
+// 8 channels of a row at once; a warp's lanes take consecutive rows, so
+// their f32 reads fall in consecutive banks.
+template <class C>
+__device__ __forceinline__ void stage_weights(const float* f,
+                                              unsigned char* base,
+                                              const Lay& l) {
+  constexpr int D = C::D, F = C::F, DP = C::DP, KB = (F + 63) / 64;
+  const float *wq = f, *wk = wq + D * D, *wv = wk + D * D, *wo = wv + D * D,
+              *w1 = wo + D * D, *w2 = w1 + D * F, *vecs = w2 + F * D;
+  for (int i = threadIdx.x; i < 3 * DP * 8; i += blockDim.x) {
+    const int n = i % (3 * DP), sec = n / DP, c = n - sec * DP;
+    put_chunk(base + l.wqkv, 3 * DP, 0, n, i / (3 * DP),
+              sec == 0 ? wq : (sec == 1 ? wk : wv), D, D, c, c < D);
+  }
+  for (int i = threadIdx.x; i < DP * 8; i += blockDim.x)
+    put_chunk(base + l.wo, DP, 0, i % DP, i / DP, wo, D, D, i % DP,
+              i % DP < D);
+  for (int i = threadIdx.x; i < F * 8; i += blockDim.x)
+    put_chunk(base + l.w1, F, 0, i % F, i / F, w1, D, F, i % F, true);
+  for (int i = threadIdx.x; i < KB * 8 * DP; i += blockDim.x) {
+    const int n = i % DP, kc = (i / DP) & 7, box = i / (8 * DP);
+    put_chunk(base + l.w2, DP, box, n, kc, w2, F, D, n, n < D);
+  }
+  float* vec = reinterpret_cast<float*>(base + l.vec);
+  for (int i = threadIdx.x; i < 5 * DP + F; i += blockDim.x) {
+    const int j = i / DP, c = i - j * DP;
+    vec[i] = i < 5 * DP ? (c < D ? vecs[j * D + c] : 0.f)
+                        : vecs[5 * D + i - 5 * DP];
+  }
+}
+
+// 0.5 h (1 + tanh(C (h + A h^3))), the tanh on the special-function unit
+// (tanh.approx, relative error ~2^-11, under the bf16 rounding gelu(h)
+// takes next as W2's A operand).
+__device__ __forceinline__ float gelu_approx(float h) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t)
+      : "f"(ff::GELU_C * (h + ff::GELU_A * h * h * h)));
+  return 0.5f * h * (1.f + t);
+}
+
+// x's rows 16 w.. of a unit tile (64 rows of D bf16) in the accumulator
+// layout, f32: xf[8 kk + 0..7] from one ldmatrix of the 16 x 16 block at
+// column 16 kk (a_frag's inverse); channels past D are zeros.
+template <class C>
+__device__ __forceinline__ void load_x(float (&xf)[C::DP / 2],
+                                       const unsigned char* tile, int warp,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) {
+    const int col = 16 * kk + (lane >> 4) * 8;
+    const int row = 16 * warp + (lane & 15);
+    uint32_t a[4];
+    ldmatrix_x4(a, tile + row * (C::D * 2) + (col < C::D ? col : 0) * 2);
+    if (16 * kk + 8 >= C::D) a[2] = a[3] = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[e]);
+      xf[8 * kk + 2 * e] = __low2float(v);
+      xf[8 * kk + 2 * e + 1] = __high2float(v);
+    }
+  }
+}
+
+// y = bf16(LN(x)) of this thread's two rows as the register A operands of
+// a product over Dp: the row's sums over the thread's columns (in column
+// order, then the quad's lanes by xor 1 and 2: a row lies in one quad),
+// mu = sum / D, 1/sigma = rsqrt(max(sq / D - mu^2, 0) + eps); scale and
+// bias (zero past D, which zeroes the padded channels) from vec.
+template <class C>
+__device__ __forceinline__ void ln_frags(const float (&xf)[C::DP / 2],
+                                         const float* scale,
+                                         const float* bias, float eps,
+                                         uint32_t (&ya)[C::KS][4], int t) {
+  float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::DP / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = xf[4 * i + j], b = xf[4 * i + 2 + j];
+      s0 += a;
+      q0 += a * a;
+      s1 += b;
+      q1 += b * b;
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    s0 += __shfl_xor_sync(FULL, s0, off);
+    q0 += __shfl_xor_sync(FULL, q0, off);
+    s1 += __shfl_xor_sync(FULL, s1, off);
+    q1 += __shfl_xor_sync(FULL, q1, off);
+  }
+  const float mu0 = s0 / C::D, mu1 = s1 / C::D;
+  const float in0 = rsqrtf(fmaxf(q0 / C::D - mu0 * mu0, 0.f) + eps);
+  const float in1 = rsqrtf(fmaxf(q1 / C::D - mu1 * mu1, 0.f) + eps);
+  float y[C::DP / 2];
+#pragma unroll
+  for (int i = 0; i < C::DP / 8; ++i) {
+    const float2 sc = *reinterpret_cast<const float2*>(scale + 8 * i + 2 * t);
+    const float2 bi = *reinterpret_cast<const float2*>(bias + 8 * i + 2 * t);
+    y[4 * i] = (xf[4 * i] - mu0) * in0 * sc.x + bi.x;
+    y[4 * i + 1] = (xf[4 * i + 1] - mu0) * in0 * sc.y + bi.y;
+    y[4 * i + 2] = (xf[4 * i + 2] - mu1) * in1 * sc.x + bi.x;
+    y[4 * i + 3] = (xf[4 * i + 3] - mu1) * in1 * sc.y + bi.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) a_frag(ya[kk], y, kk);
+}
+
+// acc = A B over `steps` 16-deep steps, A from registers, B the K-major
+// tile at b (boxes of `rows` rows, 64 channels each); one commit group,
+// waited for.
+template <int N, int STEPS>
+__device__ __forceinline__ void product(float (&acc)[N / 2],
+                                        const uint32_t (&a)[STEPS][4],
+                                        const unsigned char* b, int rows) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const uint64_t bd = desc_k_major(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk)
+    wgmma_rs_kn<N>(acc, a[kk],
+                   bd + (kk >> 2) * ((rows * 128) >> 4) + (kk & 3) * K_STEP);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// One patch's attention, f32 on the CUDA cores: a lane takes query rows
+// r and r + 8 of one head, both q rows in registers, so each k and v row
+// it loads (float2s) feeds both: the 16 logits of each row, the softmax
+// (p = 2^(s log2 e - m log2 e) by ex2.approx) and o = (sum p v) / sum p,
+// written as bf16 to the warp's o tile.
+template <class C>
+__device__ __forceinline__ void attention(const float* sq, bf16* so,
+                                          int lane) {
+  constexpr int HD = C::HD, LQ = C::LQ;
+  const float* sk = sq + L * LQ;
+  const float* sv = sk + L * LQ;
+  for (int pr = lane; pr < 8 * C::H; pr += 32) {
+    const int r = pr & 7, c0 = (pr >> 3) * HD;
+    float q[2][HD], s[2][L], o[2][HD], m[2], l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < HD; ++c) {
+        q[h][c] = sq[(r + 8 * h) * LQ + c0 + c];
+        o[h][c] = 0.f;
+      }
+      m[h] = -INFINITY;
+      l[h] = 0.f;
+    }
+#pragma unroll
+    for (int p = 0; p < L; ++p) {             // HD, LQ, c0 even: float2
+      const float2* kr = reinterpret_cast<const float2*>(sk + p * LQ + c0);
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < HD / 2; ++c) {
+        const float2 kv = kr[c];
+        a0 = fmaf(q[0][2 * c + 1], kv.y, fmaf(q[0][2 * c], kv.x, a0));
+        a1 = fmaf(q[1][2 * c + 1], kv.y, fmaf(q[1][2 * c], kv.x, a1));
+      }
+      s[0][p] = a0;
+      s[1][p] = a1;
+      m[0] = fmaxf(m[0], a0);
+      m[1] = fmaxf(m[1], a1);
+    }
+    const float n0 = -m[0] * kLog2e, n1 = -m[1] * kLog2e;
+#pragma unroll
+    for (int p = 0; p < L; ++p) {
+      float e0, e1;
+      asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e0)
+          : "f"(fmaf(s[0][p], kLog2e, n0)));
+      asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e1)
+          : "f"(fmaf(s[1][p], kLog2e, n1)));
+      l[0] += e0;
+      l[1] += e1;
+      const float2* vr = reinterpret_cast<const float2*>(sv + p * LQ + c0);
+#pragma unroll
+      for (int c = 0; c < HD / 2; ++c) {
+        const float2 vv = vr[c];
+        o[0][2 * c] = fmaf(e0, vv.x, o[0][2 * c]);
+        o[0][2 * c + 1] = fmaf(e0, vv.y, o[0][2 * c + 1]);
+        o[1][2 * c] = fmaf(e1, vv.x, o[1][2 * c]);
+        o[1][2 * c + 1] = fmaf(e1, vv.y, o[1][2 * c + 1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / l[h];
+#pragma unroll
+      for (int c = 0; c < HD; c += 2)
+        *reinterpret_cast<uint32_t*>(so + (r + 8 * h) * C::LO + c0 + c) =
+            pack_bf16x2(o[h][c] * inv, o[h][c + 1] * inv);
+    }
+  }
+}
+
+template <int kD, int kF, int kH, int kWgs>
+__global__ void __launch_bounds__(kWgs * 128, 1)
+tnt_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tout,
+                    const Params prm, int n, float eps, float q_scale) {
+  using C = W<kD, kF, kH>;
+  constexpr int D = C::D, F = C::F, DP = C::DP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const Lay l = lay(D, F);
+  const int wgs = blockDim.x >> 7;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
+  const bool leader = wt == 0;
+  const int units = (n + 3) / 4;
+  const int stride = gridDim.x * wgs;
+  const int first = blockIdx.x * wgs + wg;
+  unsigned char* mine = base + l.weights + wg * XSLOTS * l.xtile;
+  unsigned char* work = base + l.weights + wgs * XSLOTS * l.xtile;
+  unsigned char* qkv = work + wg * (l.qkv + l.otile);
+  float* sq = reinterpret_cast<float*>(qkv) + warp * 3 * L * C::LQ;
+  bf16* so = reinterpret_cast<bf16*>(qkv + l.qkv) + warp * L * C::LO;
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(base + l.weights
+                                                + wgs * l.per_wg)
+                    + wg * XSLOTS;
+  const float* vec = reinterpret_cast<const float*>(base + l.vec);
+  const float *ln1s = vec, *ln1b = vec + DP, *ln2s = vec + 2 * DP,
+              *ln2b = vec + 3 * DP, *b2 = vec + 4 * DP, *b1 = vec + 5 * DP;
+
+  float* params = reinterpret_cast<float*>(work);
+  fetch_params<C>(prm, params);
+  if (leader) {
+    for (int i = 0; i < XSLOTS; ++i) mbar_init(&xfull[i], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (leader)                                // the first units' x, under
+    for (int i = 0; i < XSLOTS; ++i) {       // the weights' staging
+      const int u = first + i * stride;
+      if (u >= units) break;
+      mbar_arrive_expect_tx(&xfull[i], UNIT * D * 2);
+      tma_load_3d(mine + i * l.xtile, &tx, &xfull[i], 0, u * UNIT, 0);
+    }
+  cp_async_wait<0>();
+  __syncthreads();                           // every parameter has landed
+  stage_weights<C>(params, base, l);
+  fence_proxy_async();                       // the weights are wgmma's
+  __syncthreads();                           // the f32 copies are read
+  // the o tiles' padded channels stay zero: the attention writes below D
+  // (the unit loop's first warpgroup barrier orders them before use)
+  for (int i = wt; i < l.otile / 4; i += 128)
+    reinterpret_cast<uint32_t*>(qkv + l.qkv)[i] = 0u;
+
+  for (int k = 0, u = first; u < units; ++k, u += stride) {
+    const int slot = k % XSLOTS;
+    mbar_wait(&xfull[slot], (k / XSLOTS) & 1);
+    float xf[DP / 2];
+    load_x<C>(xf, mine + slot * l.xtile, warp, lane);
+    if (leader) bulk_wait_read();            // the last unit's out is read
+    warpgroup_sync(1 + wg);                  // the slot and staging are free
+    if (leader && u + XSLOTS * stride < units) {
+      mbar_arrive_expect_tx(&xfull[slot], UNIT * D * 2);
+      tma_load_3d(mine + slot * l.xtile, &tx, &xfull[slot], 0,
+                  (u + XSLOTS * stride) * UNIT, 0);
+    }
+
+    // y = bf16(LN1(x)); q (scaled), k, v = y Wqkv to the warp's f32 rows
+    uint32_t ya[C::KS][4];
+    ln_frags<C>(xf, ln1s, ln1b, eps, ya, t);
+    {
+      float acc[3 * DP / 2];
+      product<3 * DP, C::KS>(acc, ya, base + l.wqkv, 3 * DP);
+#pragma unroll
+      for (int i = 0; i < 3 * DP / 8; ++i) {
+        const int sec = i / (DP / 8), c = 8 * (i % (DP / 8)) + 2 * t;
+        if (c >= D) continue;
+        const float m = sec == 0 ? q_scale : 1.f;
+        float* dst = sq + sec * L * C::LQ + c;
+        *reinterpret_cast<float2*>(dst + gq * C::LQ) =
+            make_float2(acc[4 * i] * m, acc[4 * i + 1] * m);
+        *reinterpret_cast<float2*>(dst + (gq + 8) * C::LQ) =
+            make_float2(acc[4 * i + 2] * m, acc[4 * i + 3] * m);
+      }
+    }
+    __syncwarp();
+    attention<C>(sq, so, lane);
+    __syncwarp();
+
+    // x2 = x + bf16(o) Wo, in f32 in xf
+    {
+      uint32_t oa[C::KS][4];
+#pragma unroll
+      for (int kk = 0; kk < C::KS; ++kk)
+        ldmatrix_x4(oa[kk], so + (lane & 15) * C::LO + 16 * kk
+                                + (lane >> 4) * 8);
+      float acc[DP / 2];
+      product<DP, C::KS>(acc, oa, base + l.wo, DP);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) xf[i] += acc[i];
+    }
+
+    // hp = bf16(LN2(x2)) W1 + b1; gact = gelu(hp) as W2's A operand
+    uint32_t ga[C::FS][4];
+    {
+      ln_frags<C>(xf, ln2s, ln2b, eps, ya, t);
+      float hp[F / 2];
+      product<F, C::KS>(hp, ya, base + l.w1, F);
+#pragma unroll
+      for (int i = 0; i < F / 8; ++i) {
+        const float2 bb = *reinterpret_cast<const float2*>(b1 + 8 * i + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float h = hp[4 * i + e] + ((e & 1) ? bb.y : bb.x);
+          hp[4 * i + e] = gelu_approx(h);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::FS; ++kk) a_frag(ga[kk], hp, kk);
+    }
+
+    // out = bf16(x2 + bf16(gact) W2 + b2), staged over the q, k, v rows
+    // (every warp has read them: the products since waited for all four)
+    // and stored by one TMA store, which drops the rows past B*P
+    float acc[DP / 2];
+    product<DP, C::FS>(acc, ga, base + l.w2, DP);
+    warpgroup_sync(1 + wg);
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      if (c >= D) continue;
+      const float2 bb = *reinterpret_cast<const float2*>(b2 + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(
+            qkv + ((16 * warp + gq + 8 * h) * D + c) * 2) =
+            pack_bf16x2(xf[4 * i + 2 * h] + acc[4 * i + 2 * h] + bb.x,
+                        xf[4 * i + 2 * h + 1] + acc[4 * i + 2 * h + 1] + bb.y);
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+    if (leader) {
+      tma_store_3d(&tout, qkv, 0, u * UNIT, 0);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait_all();
+}
+
+}  // namespace hop
+
 // ----------------------------------------------------------------- host
 
 inline int sm_count() {
@@ -1041,17 +1551,55 @@ inline int sm_count() {
   return sms;
 }
 
-// The instantiation of a kernel for (D, F, H).
-template <typename K>
-inline K pick(int d, int f, int h, K tnt_s, K tnt_b, K any) {
-  if (d == 24 && f == 96 && h == 4) return tnt_s;
-  if (d == 40 && f == 160 && h == 4) return tnt_b;
-  return any;
+// K7a's launch plan at n patches of D, F, H on `sms` SMs. Route 1, the
+// Hopper kernel at TNT-S's and TNT-B's widths: `wgs` warpgroups a block
+// (at most its instantiation's, which its registers set: 4 at TNT-S, 3 at
+// TNT-B; fewer where shared memory holds fewer), units of 4 patches, at
+// most one block an SM. Route 0, tnt_fwd_kernel<0, 0, 0> (a warp a patch,
+// mma.sync) for any other shape supported() takes: `wgs` its warps a
+// block, its blocks from the occupancy query at launch (0 here).
+// Mirrored by tnt_fwd_plan in ops/tnt_inner.py.
+struct FwdPlan {
+  int route, wgs, blocks, units, smem, per_wg, weights;
+};
+
+inline int hop_wgs(int d, int f, int h) {
+  if (d == 24 && f == 96 && h == 4) return hop::MAX_WGS;
+  if (d == 40 && f == 160 && h == 4) return hop::MAX_WGS_B;
+  return 0;
 }
 
-inline auto fwd_kernel(int d, int f, int h) {
-  return pick(d, f, h, tnt_fwd_kernel<24, 96, 4>, tnt_fwd_kernel<40, 160, 4>,
-              tnt_fwd_kernel<0, 0, 0>);
+inline cudaError_t plan_fwd(int n, int d, int f, int h, int sms,
+                            FwdPlan* pl) {
+  if (n < 1 || sms < 1 || h < 1 || d < 8 || d % 8 || d % h || f < 16
+      || f % 16)
+    return cudaErrorInvalidValue;
+  const hop::Lay l = hop::lay(d, f);
+  int w = hop_wgs(d, f, h);
+  while (w > 0 && hop::smem_at(l, w) > SMEM_CAP) --w;
+  if (w * (l.qkv + l.otile) < hop::f32_bytes(d, f)) w = 0;
+  if (w > 0) {
+    pl->route = 1;
+    pl->wgs = w;
+    pl->units = (n + 3) / 4;
+    const int need = (pl->units + w - 1) / w;
+    pl->blocks = need < sms ? need : sms;
+    pl->smem = hop::smem_at(l, w);
+    pl->per_wg = l.per_wg;
+    pl->weights = l.weights;
+    return cudaSuccess;
+  }
+  const Geo g = geo(d, f, h);
+  const int warps = fwd_warps(g);
+  if (warps < 1) return cudaErrorInvalidValue;
+  pl->route = 0;
+  pl->wgs = warps;
+  pl->blocks = 0;
+  pl->units = n;
+  pl->smem = (int)(weight_bytes(g) + warps * fwd_warp_bytes(g));
+  pl->per_wg = (int)fwd_warp_bytes(g);
+  pl->weights = (int)weight_bytes(g);
+  return cudaSuccess;
 }
 
 // K7b's: TNT-S's in the resident layout, TNT-B's F-tiled (bwd_tiled),
@@ -1117,33 +1665,62 @@ inline cudaError_t plan_bwd(int n, int d, int f, int h, int sms, BwdPlan* pl) {
 using namespace sav;
 using namespace sav::tnt;
 
-// Warps per block of the forward (which = 0) or the backward (which = 1)
-// at D, F, H, from the kernels' shared-memory layout; 0 where not even one
-// warp fits a block.
-extern "C" int sav_tnt_warps(int which, int d, int f, int h) {
-  const Geo g = geo(d, f, h);
-  return which ? bwd_warps(g, bwd_tiled(g)) : fwd_warps(g);
+// K7a's plan at n patches on `sms` SMs: out[0] the route (1: the Hopper
+// kernel, 0: the warp-a-patch one), [1] warpgroups a block (route 0: its
+// warps), [2] blocks (route 0: 0, set by the occupancy query at launch),
+// [3] dynamic shared memory, [4] units (route 1: 4 patches each; route 0:
+// the patches), [5] a warpgroup's (route 0: a warp's) shared memory, [6]
+// the block's weights'. Returns 0, or cudaErrorInvalidValue where
+// sav_tnt_fwd refuses the shape.
+extern "C" int sav_tnt_fwd_plan(int n, int d, int f, int h, int sms,
+                                long long* out) {
+  FwdPlan pl;
+  if (plan_fwd(n, d, f, h, sms, &pl) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+  const long long v[7] = {pl.route, pl.wgs, pl.blocks, pl.smem, pl.units,
+                          pl.per_wg, pl.weights};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
-// x, out [n, 16, D] bf16; wqkv [D, 3D] = [Wq | Wk | Wv], wo [D, D], w1
-// [D, F], w2 [F, D] bf16; par f32 [5D + F] = ln1 scale, ln1 bias, ln2
-// scale, ln2 bias, b2 [D] each, b1 [F]. Needs D % 8 == 0, D % H == 0,
-// F % 16 == 0 and sav_tnt_warps(0, ...) >= 1.
-extern "C" int sav_tnt_fwd(const void* x, const void* wqkv, const void* wo,
-                           const void* w1, const void* w2, const float* par,
-                           void* out, int n, int d, int f, int h, float eps,
-                           float q_scale, void* stream) {
-  const Geo g = geo(d, f, h);
-  const int warps = fwd_warps(g);
-  if (warps < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = weight_bytes(g) + warps * fwd_warp_bytes(g);
-  int blocks = 0;
-  const auto kernel = fwd_kernel(d, f, h);
-  cudaError_t err = grid_for(kernel, warps, smem, n, &blocks);
+// x, out [n, 16, D] bf16; the parameters f32 in checkpoint layout (ln1
+// scale and bias [D], wq, wk, wv [D, H, hd], wo [H, hd, D], ln2 scale and
+// bias [D], w1 [D, F], b1 [F], w2 [F, D], b2 [D]), contiguous. Needs D % 8
+// == 0, D % H == 0, F % 16 == 0 and a plan (sav_tnt_fwd_plan).
+extern "C" int sav_tnt_fwd(const void* x, const float* ln1s,
+                           const float* ln1b, const float* wq,
+                           const float* wk, const float* wv, const float* wo,
+                           const float* ln2s, const float* ln2b,
+                           const float* w1, const float* b1, const float* w2,
+                           const float* b2, void* out, int n, int d, int f,
+                           int h, float eps, float q_scale, void* stream) {
+  const Params prm{ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2};
+  cudaStream_t st = (cudaStream_t)stream;
+  FwdPlan pl;
+  cudaError_t err = plan_fwd(n, d, f, h, sm_count(), &pl);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)wqkv, (const bf16*)wo, (const bf16*)w1,
-      (const bf16*)w2, par, (bf16*)out, n, d, f, h, eps, q_scale);
+  if (pl.route == 1) {
+    CUtensorMap tx, tout;
+    int e = sm90::rows_map(&tx, x, n * L, d);
+    if (!e) e = sm90::rows_map(&tout, out, n * L, d);
+    if (e) return e;
+    const auto kernel =
+        d == 24 ? hop::tnt_fwd_sm90_kernel<24, 96, 4, hop::MAX_WGS>
+                : hop::tnt_fwd_sm90_kernel<40, 160, 4, hop::MAX_WGS_B>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<pl.blocks, pl.wgs * 128, pl.smem, st>>>(tx, tout, prm, n, eps,
+                                                      q_scale);
+    return (int)cudaGetLastError();
+  }
+  int blocks = 0;
+  const auto kernel = tnt_fwd_kernel<0, 0, 0>;
+  err = grid_for(kernel, pl.wgs, pl.smem, n, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, pl.wgs * 32, pl.smem, st>>>((const bf16*)x, prm,
+                                               (bf16*)out, n, d, f, h, eps,
+                                               q_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1175,16 +1752,21 @@ extern "C" long long sav_tnt_bwd_workspace(int n, int d, int f, int h) {
   return (long long)pl.workspace;
 }
 
-// The backward of sav_tnt_fwd from x and the cotangent g [n, 16, D] bf16:
-// dx [n, 16, D] bf16; gw f32 [4 D^2 + 2 D F] = dWqkv [D][3D], dWo [D][D],
+// The backward of sav_tnt_fwd from x and the cotangent g [n, 16, D] bf16
+// and the parameters as sav_tnt_fwd takes them: dx [n, 16, D] bf16; gw f32 [4 D^2 + 2 D F] = dWqkv [D][3D], dWo [D][D],
 // dW1 [D][F], dW2 [F][D]; gvec f32 [5D + F] in par's order. ws: the bytes
 // sav_tnt_bwd_workspace gives (the blocks' partials). Three launches: the
 // patches, then the partials' fixed-order sums.
-extern "C" int sav_tnt_bwd(const void* x, const void* gout, const void* wqkv,
-                           const void* wo, const void* w1, const void* w2,
-                           const float* par, void* dx, float* gw, float* gvec,
-                           void* ws, int n, int d, int f, int h, float eps,
-                           float q_scale, void* stream) {
+extern "C" int sav_tnt_bwd(const void* x, const void* gout,
+                           const float* ln1s, const float* ln1b,
+                           const float* wq, const float* wk, const float* wv,
+                           const float* wo, const float* ln2s,
+                           const float* ln2b, const float* w1,
+                           const float* b1, const float* w2, const float* b2,
+                           void* dx, float* gw, float* gvec, void* ws, int n,
+                           int d, int f, int h, float eps, float q_scale,
+                           void* stream) {
+  const Params prm{ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2};
   cudaStream_t st = (cudaStream_t)stream;
   BwdPlan pl;
   cudaError_t err = plan_bwd(n, d, f, h, sm_count(), &pl);
@@ -1196,8 +1778,7 @@ extern "C" int sav_tnt_bwd(const void* x, const void* gout, const void* wqkv,
   if (err != cudaSuccess) return (int)err;
   float* part = (float*)ws;
   kernel<<<pl.blocks, pl.warps * 32, pl.smem, st>>>(
-      (const bf16*)x, (const bf16*)gout, (const bf16*)wqkv, (const bf16*)wo,
-      (const bf16*)w1, (const bf16*)w2, par, (bf16*)dx, part, n, d, f, h,
+      (const bf16*)x, (const bf16*)gout, prm, (bf16*)dx, part, n, d, f, h,
       eps, q_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const Geo g = geo(d, f, h);

@@ -22,6 +22,7 @@ drel_w. ``bot_mhsa_reference`` mirrors the JAX package's jnp twin.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -119,17 +120,59 @@ def bot_bwd_plan(g: int, head_d: int) -> dict:
                 dkv=dict(fit(2 * res, slot), slot=slot))
 
 
+_UNIT_ROWS = 128            # query rows of a K9a unit (two 64-row halves)
+
+
+def fwd_width(length: int) -> int:
+    """K9a's keys a tile at ``length`` keys (``fwd_width`` in the C
+    source): 104 where 104-key steps cover the keys in no more columns
+    than 64-key tiles do (L = 196: two steps, 208 columns against 256),
+    else 64 (L = 169: 192 against 208). A 104-key step's box holds 112
+    rows (``box_rows``: p V runs 16-key steps)."""
+    return 104 if -(-length // 104) * 104 <= -(-length // 64) * 64 else 64
+
+
+def box_rows(width: int) -> int:
+    """Rows of a K9a key tile's box: the width rounded up to 16."""
+    return -(-width // 16) * 16
+
+
+def bot_fwd_plan(g: int, head_d: int) -> dict:
+    """K9a's launch plan at grid side g and head width d, mirrored from
+    ``fwd_plan``/``sav_bot_fwd_plan`` in ``csrc/botnet_attention.cu``:
+    ``width`` (the key tile, ``fwd_width`` of L = g*g), ``tiles`` (key
+    tiles a unit of 128 query rows), ``qbufs`` (buffers of a unit's Q and
+    rel rows: 2 lets the next unit's land under this one's work),
+    ``stages`` (ring slots, each one K or one V tile), ``res`` (a buffer's
+    bytes: Q's two 64-row halves, then the rel_h and rel_w rows, g f32
+    each, 1024-byte aligned), ``slot`` (``box_rows(width)`` rows of d
+    bf16) and ``smem`` (buffers, slots, the mbarriers, 1024 bytes of
+    alignment slack). Two buffers and the most slots (2-4) that fit, else
+    one buffer, else 64-key tiles; ``stages`` and ``smem`` 0 where nothing
+    fits."""
+    nb, length = head_d // 64, g * g
+    res = -(-(2 * nb * _BOX + 2 * _UNIT_ROWS * g * 4) // 1024) * 1024
+    for w in dict.fromkeys((fwd_width(length), 64)):
+        slot = nb * box_rows(w) * 128
+        for qbufs in (2, 1):
+            for stages in (4, 3, 2):
+                smem = (qbufs * res + stages * slot
+                        + (2 * qbufs + 2 * stages) * 8 + 1024)
+                if smem <= fa.SMEM_LIMIT:
+                    return dict(width=w, tiles=-(-length // w), qbufs=qbufs,
+                                stages=stages, res=res, slot=slot, smem=smem)
+    return dict(width=64, tiles=-(-length // 64), qbufs=1, stages=0,
+                res=res, slot=nb * 64 * 128, smem=0)
+
+
 def fwd_smem(g: int, head_d: int) -> int:
-    """K9a's shared memory (``fwd_smem`` in the C source): five 64-row
-    tiles of d + 8 bf16 (Q, K and V double-buffered) and the tile's rel_h
-    and rel_w rows; 0 past a block's."""
-    smem = 5 * 64 * (head_d + 8) * 2 + 2 * 64 * g * 4
-    return smem if smem <= fa.SMEM_LIMIT else 0
+    """K9a's shared memory (``bot_fwd_plan``), 0 past a block's."""
+    return bot_fwd_plan(g, head_d)['smem']
 
 
 def _refusal(g: int, num_heads: int, head_d: int, device) -> str | None:
     """Why the K9 port does not take a g x g grid of ``num_heads`` heads of
-    width ``head_d`` on ``device``, or None where it does."""
+    width ``head_d`` on a ``device`` of that type, or None where it does."""
     if g < 1 or num_heads < 1:
         return 'the grid side and the head count must be at least 1'
     if head_d not in HEAD_DIMS:
@@ -144,13 +187,20 @@ def _refusal(g: int, num_heads: int, head_d: int, device) -> str | None:
     return None
 
 
+# the wrappers' own copy of _refusal's answers, by shape and device type:
+# a call checks its shape once, not on every launch
+_refusal_of = functools.lru_cache(maxsize=None)(
+    lambda *key: _refusal(*key))
+
+
 def supported(g: int, num_heads: int, head_d: int, device='cuda') -> bool:
     """Whether the K9 port takes a g x g grid (L = g*g) of ``num_heads``
     heads of width ``head_d``: d in ``HEAD_DIMS`` and, on the card, each
     kernel's tiles plus the rel-logit rows of a tile within one block's
     227 KB of shared memory (``fwd_smem`` and ``bot_bwd_plan``, the
     kernels' formulas). Every BoTNet config at 224 (g = 14, d = 128)
-    fits; g <= 49 at d = 128, g <= 69 at d = 64 and more. The TPU caps (g <= 28,
+    fits; every grid the parent's kernels took (g <= 49 at d = 128, g <=
+    69 at d = 64) and more. The TPU caps (g <= 28,
     at most 16 heads, d a multiple of 64) were VMEM and lane limits and
     have no counterpart here. Off the card the plain twins have no such
     budget."""
@@ -251,7 +301,8 @@ def _check(qs, k, v, rel_h, rel_w, num_heads, g, **bands):
             raise ValueError(
                 f'{name} must be contiguous float32 {(b, num_heads, length, g)} '
                 f'on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}')
-    why = 'B must be at least 1' if b < 1 else _refusal(g, num_heads, d, device)
+    why = ('B must be at least 1' if b < 1
+           else _refusal_of(g, num_heads, d, device.type))
     if why is not None:
         raise ValueError(f'the BoTNet attention kernels do not take B={b}, '
                          f'g={g}, h={num_heads}, d={d}: {why}')
@@ -262,8 +313,9 @@ def bot_fwd(qs, k, v, rel_h, rel_w, num_heads: int, g: int,
             save_lse: bool = False):
     """Port of K9a: ``(out, lse)`` of attention with the decomposed bias on
     ``[B, L, h*d]`` head bands (qs pre-scaled); lse ``[B, h, L]`` f32 when
-    ``save_lse`` (the training forward), else None. On the card one launch
-    (``csrc/botnet_attention.cu``), bf16 only."""
+    ``save_lse`` (the training forward), else None. On the card one
+    persistent ``wgmma`` + TMA launch (``csrc/botnet_attention.cu``; key
+    tiles by ``bot_fwd_plan``), bf16 only."""
     if qs.device.type == 'cpu':
         out, lse = bot_fwd_plain(qs, k, v, rel_h, rel_w, num_heads, g)
         return out, (lse if save_lse else None)

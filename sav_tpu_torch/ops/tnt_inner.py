@@ -12,7 +12,9 @@ kernels ``[D, H, hd]``, the out kernel ``[H, hd, D]``, the FFBlock's
 ``inner_layer_fwd`` is the port of K7a ``_fwd_kernel`` and
 ``inner_layer_bwd`` of K7b ``_bwd_kernel`` (``csrc/tnt_inner.cu``); on a
 CPU tensor each runs its plain twin, on a CUDA tensor its kernel, or it
-raises. ``inner_layer`` is the ``torch.autograd.Function`` around them:
+raises. Both kernels read the parameters as the model holds them (f32,
+checkpoint layout) and cast the weights to bf16 as they stage them, so a
+call launches its kernel and allocates its outputs, nothing else. ``inner_layer`` is the ``torch.autograd.Function`` around them:
 like the JAX ``custom_vjp`` it saves x and the parameters only, and the
 backward recomputes the forward from x. ``inner_layer_reference`` mirrors
 the JAX package's jnp twin, differentiable by autograd.
@@ -21,6 +23,7 @@ the JAX package's jnp twin, differentiable by autograd.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -36,16 +39,6 @@ TOKENS = 16             # pixel tokens per patch the kernels take (one m16 tile)
 
 
 # ------------------------------------------------------------ geometry
-
-def _warps(which: str, d: int, hidden: int, num_heads: int) -> int:
-    """Warps per block of K7a (``which='fwd'``) or of K7b's per-patch
-    kernel (``'bwd'``) whose shared memory fits one block, 0 where none
-    does: ``sav_tnt_warps`` of ``csrc/tnt_inner.cu``, the one copy of the
-    layout's formulas."""
-    fn = _build.library('tnt_inner').sav_tnt_warps
-    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
-    return fn(1 if which == 'bwd' else 0, d, hidden, num_heads)
-
 
 BWD_MAX_WARPS = 12      # K7b's warps a block (csrc BWD_MAX_WARPS)
 MAX_NT = 4              # K7b's dy2 accumulator: Dp <= 64 (csrc MAX_NT)
@@ -78,10 +71,7 @@ def tnt_bwd_plan(n: int, d: int, hidden: int, num_heads: int,
     order), ``part_floats`` and ``workspace`` (one partial a block: it
     grows with the blocks, not with the patches). Raises ValueError where
     the kernel refuses the shape."""
-    if n < 1 or sms < 1 or d < 8 or d % 8 or num_heads < 1 or \
-            d % num_heads or hidden < 16 or hidden % 16:
-        raise ValueError(f'inner_layer_bwd does not take B*P={n}, D={d}, '
-                         f'F={hidden}, H={num_heads} on {sms} SMs')
+    _check_shape(n, d, hidden, num_heads, sms, 'inner_layer_bwd')
     f, h = hidden, num_heads
     dp = _up16(d)
     ldy, ldq, ldf, lf = dp + 8, 3 * dp + 8, f + 8, d + 2
@@ -121,19 +111,107 @@ def tnt_bwd_plan(n: int, d: int, hidden: int, num_heads: int,
                 workspace=blocks * (total + nvec) * 4)
 
 
+MAX_WARPS = 8           # the warp-a-patch K7a's warps a block (csrc)
+# the Hopper K7a's instantiations (D, F, H) and their warpgroups a block,
+# which their registers set (csrc hop_wgs)
+HOP_WGS = {(24, 96, 4): 4, (40, 160, 4): 3}
+UNIT = 64               # rows of a Hopper K7a unit: 4 patches
+XSLOTS = 2              # x tiles a warpgroup
+
+
+def _up1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def _check_shape(n, d, hidden, num_heads, sms, what):
+    if n < 1 or sms < 1 or d < 8 or d % 8 or num_heads < 1 or \
+            d % num_heads or hidden < 16 or hidden % 16:
+        raise ValueError(f'{what} does not take B*P={n}, D={d}, '
+                         f'F={hidden}, H={num_heads} on {sms} SMs')
+
+
+def hop_layout(d: int, hidden: int) -> dict:
+    """The Hopper K7a's shared memory at D, F (``hop::lay`` in
+    ``csrc/tnt_inner.cu``), bytes: the block's weights as K-major
+    128-byte-swizzled ``wgmma`` B tiles (Wqkv^T 3 Dp rows, Wo^T Dp, W1^T F,
+    W2^T ceil(F / 64) boxes of Dp rows; a row is 128 bytes of up to 64
+    input channels) and the f32 vectors (five of Dp, b1 of F), 1024-byte
+    aligned; then per warpgroup two x tiles (64 rows of D bf16), the four
+    warps' q, k, v (f32 rows of D + 2) and o tiles (bf16 rows of Dp + 8),
+    each region 1024-byte aligned."""
+    dp = _up16(d)
+    wo = 3 * dp * 128
+    w1 = wo + dp * 128
+    w2 = w1 + hidden * 128
+    vec = w2 + -(-hidden // 64) * dp * 128
+    weights = _up1024(vec + (5 * dp + hidden) * 4)
+    xtile = _up1024(UNIT * d * 2)
+    qkv = _up1024(4 * 3 * 16 * (d + 2) * 4)
+    otile = _up1024(4 * 16 * (dp + 8) * 2)
+    return dict(dp=dp, wqkv=0, wo=wo, w1=w1, w2=w2, vec=vec, weights=weights,
+                xtile=xtile, qkv=qkv, otile=otile,
+                per_wg=XSLOTS * xtile + qkv + otile)
+
+
+def tnt_fwd_plan(n: int, d: int, hidden: int, num_heads: int,
+                 sms: int = 132) -> dict:
+    """Launch plan of K7a at ``n`` patches on ``sms`` SMs, mirrored from
+    ``plan_fwd``/``sav_tnt_fwd_plan`` in ``csrc/tnt_inner.cu``. ``route``
+    1, the Hopper kernel (``wgmma`` + TMA) at the widths it is built for
+    (``HOP_WGS``: TNT-S's and TNT-B's): ``wgs`` warpgroups a block (the
+    instantiation's, fewer where shared memory holds fewer), ``units`` of
+    4 patches (64 rows, one ``wgmma`` tile), ``blocks`` (one an SM at most,
+    no more than the units need), ``smem`` (``hop_layout``'s weights,
+    ``wgs`` warpgroups' regions and their x tiles' mbarriers, 1024 bytes
+    of alignment slack), ``per_wg``, ``weights``. ``route`` 0, the
+    warp-a-patch ``tnt_fwd_kernel<0, 0, 0>`` (``mma.sync``) for any other
+    shape the kernels take: ``wgs`` its warps a block, ``blocks`` 0 (the
+    occupancy query at launch sets them), ``units`` the patches,
+    ``per_wg`` a warp's shared memory. Raises ValueError where the kernel
+    refuses the shape."""
+    _check_shape(n, d, hidden, num_heads, sms, 'inner_layer_fwd')
+    lay = hop_layout(d, hidden)
+    smem = lambda w: lay['weights'] + w * lay['per_wg'] + w * XSLOTS * 8 + 1024
+    wgs = HOP_WGS.get((d, hidden, num_heads), 0)
+    while wgs and smem(wgs) > SMEM_CAP:
+        wgs -= 1
+    if wgs:
+        units = -(-n // 4)
+        return dict(route=1, wgs=wgs, blocks=min(-(-units // wgs), sms),
+                    units=units, smem=smem(wgs), per_wg=lay['per_wg'],
+                    weights=lay['weights'])
+    f, dp = hidden, _up16(d)
+    ldy, ldq, ldf = dp + 8, 3 * dp + 8, f + 8
+    weights = (_up16(2 * (dp * ldq + dp * ldy + dp * ldf + f * ldy))
+               + _up16(4 * (5 * d + f)))
+    per_warp = (_up16(16 * d * 4) + 2 * _up16(16 * ldy * 2) + 128
+                + _up16(max(3 * 16 * dp * 4, 16 * ldf * 2)))
+    if d // num_heads > MAX_HD or weights + per_warp > SMEM_CAP:
+        raise ValueError(f'inner_layer_fwd: the weights and one patch\'s '
+                         f'working set need more than {SMEM_CAP} bytes of '
+                         f'shared memory at D = {d}, F = {f}')
+    warps = min(MAX_WARPS, (SMEM_CAP - weights) // per_warp)
+    return dict(route=0, wgs=warps, blocks=0, units=n,
+                smem=weights + warps * per_warp, per_wg=per_warp,
+                weights=weights)
+
+
 def _refusal(l: int, d: int, num_heads: int, hidden: int,
-             device) -> str | None:
+             device_type: str) -> str | None:
     """Why the K7 port does not take ``l`` tokens of ``d`` channels in
-    ``num_heads`` heads with FF width ``hidden`` on ``device``, or None."""
+    ``num_heads`` heads with FF width ``hidden`` on a ``device_type``
+    device, or None."""
     if l != TOKENS:
         return f'the kernels take {TOKENS} pixel tokens a patch (one m16 tile)'
     if d < 8 or d % 8 or num_heads < 1 or d % num_heads:
         return 'D must be a multiple of 8 and of the head count'
     if hidden < 16 or hidden % 16:
         return 'the FF width must be a multiple of 16'
-    if torch.device(device).type == 'cuda':
-        if min(_warps('fwd', d, hidden, num_heads),
-               _warps('bwd', d, hidden, num_heads)) < 1:
+    if device_type == 'cuda':
+        try:
+            tnt_fwd_plan(1, d, hidden, num_heads)
+            tnt_bwd_plan(1, d, hidden, num_heads)
+        except ValueError:
             return ('the weights and one patch\'s working set exceed a '
                     f'block\'s {fa.SMEM_LIMIT} bytes of shared memory')
     return None
@@ -144,12 +222,14 @@ def supported(l: int, d: int, num_heads: int, hidden: int | None = None,
     """Whether the K7 port takes the shape: 16 tokens a patch, D a multiple
     of 8 and of H, F (default 4 D, TNT's) a multiple of 16, and on the card
     the weights plus one warp's working set of both kernels within one
-    block's 227 KB (the kernel's own formula, ``_warps``): TNT-S (D = 24)
+    block's 227 KB (``tnt_fwd_plan`` and ``tnt_bwd_plan``, the kernels'
+    formulas): TNT-S (D = 24)
     and TNT-B (D = 40) fit. The TPU bound ``4 <= l <= 32 and d <= 64`` and
     its VMEM patch budget ``_nb_for`` have no counterpart here. Off the
     card the plain twins have no shared-memory budget."""
     hidden = 4 * d if hidden is None else hidden
-    return _refusal(l, d, num_heads, hidden, device) is None
+    return _refusal(l, d, num_heads, hidden,
+                    torch.device(device).type) is None
 
 
 def auto_route(l: int, d: int, num_heads: int, hidden: int, device) -> bool:
@@ -159,7 +239,7 @@ def auto_route(l: int, d: int, num_heads: int, hidden: int, device) -> bool:
     per-op path unasked (``use_kernel=False`` asks for it)."""
     if torch.device(device).type != 'cuda':
         return False
-    why = _refusal(l, d, num_heads, hidden, device)
+    why = _refusal(l, d, num_heads, hidden, 'cuda')
     if why is not None:
         raise NotImplementedError(
             f'the TNT inner-layer kernels do not take L={l}, D={d}, '
@@ -329,44 +409,52 @@ def _fn(name, pointers, ints, floats=0, restype=ctypes.c_int):
     return fn
 
 
-def _check(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2,
-           num_heads):
-    """Device, dtype and geometry the K7 kernels take; returns (wqkv [D,
-    3D], wo [D, D], w1, w2 in x's dtype; par f32 [5D + F] = ln1 scale,
-    ln1 bias, ln2 scale, ln2 bias, b2, b1), contiguous on x's device."""
+def _check(x, params, num_heads):
+    """Device, dtype and geometry the K7 kernels take for x and the twelve
+    parameters (``inner_layer_fwd``'s order after x); returns the
+    parameters f32 and contiguous on x's device, as the kernels read them
+    (a tensor already so is passed as it is: no copy, no launch)."""
     fa.check_cuda_bf16('x', x, x.device)
     if x.dim() != 3:
         raise ValueError(f'x must be [B*P, L, D], got {tuple(x.shape)}')
     n, l, d = x.shape
-    hidden = w1.shape[-1]
+    hidden = params[8].shape[-1]
     hd = d // num_heads if num_heads > 0 else 0
-    shapes = (('ln1s', ln1s, (d,)), ('ln1b', ln1b, (d,)),
-              ('wq', wq, (d, num_heads, hd)), ('wk', wk, (d, num_heads, hd)),
-              ('wv', wv, (d, num_heads, hd)), ('wo', wo, (num_heads, hd, d)),
-              ('ln2s', ln2s, (d,)), ('ln2b', ln2b, (d,)),
-              ('w1', w1, (d, hidden)), ('b1', b1, (hidden,)),
-              ('w2', w2, (hidden, d)), ('b2', b2, (d,)))
-    for name, t, shape in shapes:
+    shapes = ((d,), (d,), (d, num_heads, hd), (d, num_heads, hd),
+              (d, num_heads, hd), (num_heads, hd, d), (d,), (d,),
+              (d, hidden), (hidden,), (hidden, d), (d,))
+    for name, t, shape in zip(PARAMS, params, shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
     why = ('B*P must be at least 1' if n < 1
-           else _refusal(l, d, num_heads, hidden, x.device))
+           else _refusal_of(l, d, num_heads, hidden, x.device.type))
     if why is not None:
         raise ValueError(
             f'the TNT inner-layer kernels do not take B*P={n}, L={l}, D={d}, '
             f'H={num_heads}, F={hidden}: {why}')
-    cast = lambda t: t.to(x.device, x.dtype).contiguous()
-    wqkv = torch.cat([w.reshape(d, d) for w in (wq, wk, wv)], dim=1)
-    par = torch.cat([ln1s, ln1b, ln2s, ln2b, b2, b1]).to(
-        x.device, torch.float32).contiguous()
-    return cast(wqkv), cast(wo.reshape(d, d)), cast(w1), cast(w2), par
+    return [t if (t.dtype == torch.float32 and t.device == x.device
+                  and t.is_contiguous())
+            else t.to(x.device, torch.float32).contiguous() for t in params]
+
+
+# the wrappers' own copy of _refusal's answers, by shape and device type:
+# a call checks its shape once, not on every launch
+_refusal_of = functools.lru_cache(maxsize=None)(
+    lambda *key: _refusal(*key))
+
+
+PARAMS = ('ln1s', 'ln1b', 'wq', 'wk', 'wv', 'wo', 'ln2s', 'ln2b', 'w1', 'b1',
+          'w2', 'b2')
 
 
 def inner_layer_fwd(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2,
                     b2, num_heads, eps=LN_EPS):
     """Port of K7a: the whole inner layer on ``[B*P, 16, D]``. On the card
-    one launch (``csrc/tnt_inner.cu``): a warp per patch, the weights once
-    per block in shared memory. bf16 only."""
+    one launch (``csrc/tnt_inner.cu``, ``tnt_fwd_plan``): at TNT-S's and
+    TNT-B's widths persistent warpgroups on units of 4 patches, every
+    product on ``wgmma``, x in and out by TMA; elsewhere a warp per patch.
+    The weights are staged once per block from the f32 parameters. bf16
+    only."""
     if x.device.type == 'cpu':
         return inner_layer_fwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s,
                                      ln2b, w1, b1, w2, b2, num_heads, eps)
@@ -374,14 +462,13 @@ def inner_layer_fwd(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2,
         raise ValueError(f'inner_layer_fwd runs on cuda or cpu, not {x.device}')
     params = (ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2)
     fa.check_no_grad(x, *params)
-    wqkv, wo2, w1c, w2c, par = _check(x, *params, num_heads)
+    raw = _check(x, params, num_heads)
     n, _, d = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _fn('sav_tnt_fwd', 7, 4, 2)(
-            x.data_ptr(), wqkv.data_ptr(), wo2.data_ptr(), w1c.data_ptr(),
-            w2c.data_ptr(), par.data_ptr(), out.data_ptr(), n, d,
-            w1c.shape[1], num_heads, eps, 1.0 / math.sqrt(d // num_heads),
+        err = _fn('sav_tnt_fwd', 14, 4, 2)(
+            x.data_ptr(), *(t.data_ptr() for t in raw), out.data_ptr(), n, d,
+            raw[8].shape[1], num_heads, eps, 1.0 / math.sqrt(d // num_heads),
             fa.stream_of(x.device))
     _build.check(err, 'inner_layer_fwd')
     _build.count('tnt_inner_fwd')
@@ -399,7 +486,8 @@ def inner_layer_bwd(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2,
     f32 partial in shared memory (``tnt_bwd_plan``); then the partials are
     summed in a fixed order (``inner_layer_bwd_blocked`` mirrors the
     order). No operand rows in device memory, no float atomics: the same
-    gradients on every call. bf16 only; gradients f32."""
+    gradients on every call. The weights are staged from the f32
+    parameters as the forward's are. bf16 only; gradients f32."""
     if x.device.type == 'cpu':
         return inner_layer_bwd_plain(x, ln1s, ln1b, wq, wk, wv, wo, ln2s,
                                      ln2b, w1, b1, w2, b2, g, num_heads, eps)
@@ -407,13 +495,13 @@ def inner_layer_bwd(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2,
         raise ValueError(f'inner_layer_bwd runs on cuda or cpu, not {x.device}')
     params = (ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2, b2)
     fa.check_no_grad(x, *params, g)
-    wqkv, wo2, w1c, w2c, par = _check(x, *params, num_heads)
+    raw = _check(x, params, num_heads)
     g = g.to(x.dtype).contiguous()
     fa.check_cuda_bf16('g', g, x.device)
     if g.shape != x.shape:
         raise ValueError(f'g has shape {tuple(g.shape)}, expected {tuple(x.shape)}')
     n, _, d = x.shape
-    hidden = w1c.shape[1]
+    hidden = raw[8].shape[1]
     h, hd = num_heads, d // num_heads
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -425,11 +513,10 @@ def inner_layer_bwd(x, ln1s, ln1b, wq, wk, wv, wo, ln2s, ln2b, w1, b1, w2,
         if ws_bytes < 0:
             raise RuntimeError('sav_tnt_bwd_workspace refused the shape')
         ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
-        err = _fn('sav_tnt_bwd', 11, 4, 2)(
-            x.data_ptr(), g.data_ptr(), wqkv.data_ptr(), wo2.data_ptr(),
-            w1c.data_ptr(), w2c.data_ptr(), par.data_ptr(), dx.data_ptr(),
-            gw.data_ptr(), gvec.data_ptr(), ws.data_ptr(), n, d, hidden, h,
-            eps, 1.0 / math.sqrt(hd), fa.stream_of(x.device))
+        err = _fn('sav_tnt_bwd', 18, 4, 2)(
+            x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in raw),
+            dx.data_ptr(), gw.data_ptr(), gvec.data_ptr(), ws.data_ptr(), n,
+            d, hidden, h, eps, 1.0 / math.sqrt(hd), fa.stream_of(x.device))
     _build.check(err, 'inner_layer_bwd')
     _build.count('tnt_inner_bwd')
     dwqkv = gw[:3 * d * d].view(d, 3 * d)

@@ -38,6 +38,10 @@ with parts taken out, through the same C entries, on one card.
                                            # @384 bs32
     python scripts/torch_ablate.py k9b     # csrc/botnet_attention.cu (K9b),
                                            # BoTNet-T3 @224 bs64
+    python scripts/torch_ablate.py k9a     # (K9a) BoTNet-T3 bs32, the
+                                           # training forward bs64
+    python scripts/torch_ablate.py k7a     # csrc/tnt_inner.cu (K7a), TNT-S
+                                           # bs32 and bs64, TNT-B bs32
     python scripts/torch_ablate.py k1_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k5a_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k16_mma --csrc OLD/sav_tpu_torch/csrc
@@ -48,6 +52,8 @@ with parts taken out, through the same C entries, on one card.
     python scripts/torch_ablate.py k7b_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k12_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k13_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k7a_mma --csrc OLD/sav_tpu_torch/csrc
+    python scripts/torch_ablate.py k9a_mma --csrc OLD/sav_tpu_torch/csrc
     python scripts/torch_ablate.py k13 --same-as k13_mma \\
         --other-csrc OLD/sav_tpu_torch/csrc   # outputs bit for bit
 
@@ -126,8 +132,12 @@ yardsticks
 are the library chain (LN, matmuls, SDPA) and, for K5a, K6a's core
 (``th_core_fwd``) on the same q, k, v and the blocked route's forward (K5a
 also at CaiT @384's L = 576, B = 48, where the router takes that route).
-K11's, K15's, K10's and K9b's variants are listed beside their tables
-(``K11_VARIANTS``, ``K15_VARIANTS``, ``K10_VARIANTS``, ``K9B_VARIANTS``).
+K11's, K15's, K10's, K9b's, K7a's and K9a's variants are listed beside
+their tables (``K11_VARIANTS``, ``K15_VARIANTS``, ``K10_VARIANTS``,
+``K9B_VARIANTS``, ``K7A_VARIANTS``, ``K9A_VARIANTS``; the parent's
+``mma.sync`` K7a and K9a, ``k7a_mma`` and ``k9a_mma``, in
+``K7A_MMA_VARIANTS`` and ``K9A_MMA_VARIANTS``: point ``--csrc`` at an
+older checkout, whose C entries took the bf16 weights prepared).
 The outputs of the ablated variants are wrong by design; only their times
 mean something. Each launch of the full variant is also timed on its own
 (torch.profiler). Every variant is timed twice, the variants in order and
@@ -364,24 +374,17 @@ def _k8a_library(t, b, l, k, d):
 
 def _k7b_inputs(n, d, f, h):
     """The TNT inner layer's backward operands at n patches of width d (x,
-    the cotangent g, the weights and the f32 vector as ``tnt_inner._check``
-    prepares them), its outputs and the workspace its C entry asks for."""
+    the cotangent g, the parameters as the model holds them and, for the
+    parent's entry, as it prepared them), its outputs and the workspace
+    its C entry asks for."""
     from sav_tpu_torch.ops import tnt_inner
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    mk = lambda *s, std=1.0: (torch.randn(*s, device='cuda', generator=gen)
-                              * std)
-    hd = d // h
-    x = mk(n, 16, d).bfloat16()
-    wqkv, wo, w1, w2, par = tnt_inner._check(
-        x, 1 + mk(d, std=0.1), mk(d, std=0.1),
-        mk(d, h, hd, std=2 * d ** -0.5), mk(d, h, hd, std=d ** -0.5),
-        mk(d, h, hd, std=d ** -0.5), mk(h, hd, d, std=d ** -0.5),
-        1 + mk(d, std=0.1), mk(d, std=0.1), mk(d, f, std=d ** -0.5),
-        mk(f, std=0.1), mk(f, d, std=f ** -0.5), mk(d, std=0.1), h)
+    x, p = _k7_params(n, d, f, h)
     ws = tnt_inner._fn('sav_tnt_bwd_workspace', 0, 4,
                        restype=ctypes.c_longlong)(n, d, f, h)
-    return dict(x=x, g=mk(n, 16, d).bfloat16(), wqkv=wqkv, wo=wo, w1=w1,
-                w2=w2, par=par, dx=torch.empty_like(x),
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    return dict(x=x, g=torch.randn(n, 16, d, device='cuda',
+                                   generator=gen).bfloat16(),
+                **p, **_k7_prepared(x, p, d), dx=torch.empty_like(x),
                 gw=torch.empty(4 * d * d + 2 * d * f, device='cuda'),
                 gvec=torch.empty(5 * d + f, device='cuda'),
                 ws=torch.empty(ws, dtype=torch.uint8, device='cuda'))
@@ -412,8 +415,189 @@ def _k7b_library(t, n, d, f, h):
             f'D={d} F={f} H={h}')
 
 
-K7B_ARGS = ('x', 'g', 'wqkv', 'wo', 'w1', 'w2', 'par', 'dx', 'gw', 'gvec',
-            'ws')
+def _k7_params(n, d, f, h):
+    """x [n, 16, d] bf16 and the inner layer's twelve parameters in
+    checkpoint layout, f32 as the model holds them (seed 0)."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: (torch.randn(*s, device='cuda', generator=gen)
+                              * std)
+    hd = d // h
+    x = mk(n, 16, d).bfloat16()
+    params = dict(
+        ln1s=1 + mk(d, std=0.1), ln1b=mk(d, std=0.1),
+        wq=mk(d, h, hd, std=2 * d ** -0.5), wk=mk(d, h, hd, std=d ** -0.5),
+        wv=mk(d, h, hd, std=d ** -0.5), wo=mk(h, hd, d, std=d ** -0.5),
+        ln2s=1 + mk(d, std=0.1), ln2b=mk(d, std=0.1),
+        w1=mk(d, f, std=d ** -0.5), b1=mk(f, std=0.1),
+        w2=mk(f, d, std=f ** -0.5), b2=mk(d, std=0.1))
+    return x, params
+
+
+def _k7_prepared(x, p, d):
+    """The bf16 weights and the f32 vector that the parent's K7 C entries
+    took (wqkv [D, 3D], wo, w1, w2 in bf16; ln1 scale, ln1 bias, ln2 scale,
+    ln2 bias, b2, b1 as one f32 vector), prepared here once."""
+    cast = lambda t: t.to(torch.bfloat16).contiguous()
+    wqkv = torch.cat([p[k].reshape(d, d) for k in ('wq', 'wk', 'wv')], 1)
+    par = torch.cat([p[k] for k in ('ln1s', 'ln1b', 'ln2s', 'ln2b', 'b2',
+                                    'b1')]).float().contiguous()
+    return dict(wqkv=cast(wqkv), wo=cast(p['wo'].reshape(d, d)),
+                w1=cast(p['w1']), w2=cast(p['w2']), par=par)
+
+
+def _k7a_mma_inputs(n, d, f, h):
+    """The parent's K7a operands (its prepared weights) and its output."""
+    x, p = _k7_params(n, d, f, h)
+    return dict(x=x, out=torch.empty_like(x), **_k7_prepared(x, p, d))
+
+
+def _k9a_inputs(b, g, heads, d, train):
+    """K9a's operands at a g x g grid (qs pre-scaled, k, v, rel_h, rel_w)
+    and its outputs (out; lse for the training forward, else None)."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    mk = lambda *s, std=1.0: torch.randn(*s, device='cuda', generator=gen) * std
+    length, hd = g * g, heads * d
+    t = dict(qs=mk(b, length, hd, std=2 / d ** 0.5).bfloat16(),
+             k=mk(b, length, hd).bfloat16(), v=mk(b, length, hd).bfloat16(),
+             rh=mk(b, heads, length, g, std=0.5),
+             rw=mk(b, heads, length, g, std=0.5))
+    t['out'] = torch.empty_like(t['qs'])
+    t['lse'] = (torch.empty(b, heads, length, device='cuda') if train
+                else None)
+    return t
+
+
+def _k9a_library(t, b, g, heads, d, train):
+    """One SDPA call with the bias expanded to [B, h, L, L] (the expansion
+    included), as chip_smoke.py's K9a yardstick."""
+    from sav_tpu_torch.ops import botnet_attention as bot
+    length = g * g
+    split = lambda a: a.view(b, length, heads, d).transpose(1, 2)
+
+    def run():
+        bias_h, bias_w = bot.expand_bias(t['rh'], t['rw'], g)
+        return F.scaled_dot_product_attention(
+            split(t['qs']), split(t['k']), split(t['v']),
+            attn_mask=(bias_h + bias_w).to(torch.bfloat16), scale=1.0)
+
+    return f'SDPA with the expanded bias {time_ms(run):.4f} ms'
+
+
+K9A_ARGS = ('qs', 'k', 'v', 'rh', 'rw', 'out', 'lse')
+K7A_ARGS = ('x', 'ln1s', 'ln1b', 'wq', 'wk', 'wv', 'wo', 'ln2s', 'ln2b',
+            'w1', 'b1', 'w2', 'b2', 'out')
+
+
+def _k7a_inputs(n, d, f, h):
+    """K7a's operands as the model holds them (x bf16, the parameters f32
+    in checkpoint layout) and its output."""
+    x, p = _k7_params(n, d, f, h)
+    return dict(x=x, out=torch.empty_like(x), **p)
+
+
+# the Hopper K7a (4-patch units on wgmma): no_stage, the block's weights
+# not converted from the fetched f32 parameters (the products read
+# whatever shared memory holds); no_attn, the attention skipped; no_ln,
+# both LayerNorms' statistics not formed (mu 0, 1/sigma 1); no_gelu, the
+# identity for the gelu; tanhf, the gelu's tanh by tanhf; no_products, no
+# wgmma issued (the accumulators stay zero); no_store, out not stored;
+# wgs5, wgs6, 5 or 6 warpgroups a block at TNT-S's widths
+K7A_VARIANTS = {
+    'full': [],
+    'no_stage': [('  stage_weights<C>(params, base, l);\n', '')],
+    'no_attn': [('    attention<C>(sq, so, lane);\n', '')],
+    'no_ln': [('  const float mu0 = s0 / C::D, mu1 = s1 / C::D;\n'
+               '  const float in0 = rsqrtf(fmaxf(q0 / C::D - mu0 * mu0, 0.f) '
+               '+ eps);\n  const float in1 = rsqrtf(fmaxf(q1 / C::D - mu1 * '
+               'mu1, 0.f) + eps);',
+               '  const float mu0 = 0.f, mu1 = 0.f, in0 = 1.f, in1 = 1.f;')],
+    'no_gelu': [('          hp[4 * i + e] = gelu_approx(h);',
+                 '          hp[4 * i + e] = h;')],
+    # the gelu's tanh by tanhf, as the twin (not the special-function unit)
+    'tanhf': [('  asm("tanh.approx.f32 %0, %1;" : "=f"(t)\n'
+               '      : "f"(ff::GELU_C * (h + ff::GELU_A * h * h * h)));',
+               '  t = tanhf(ff::GELU_C * (h + ff::GELU_A * h * h * h));')],
+    'no_products': [('    wgmma_rs_kn<N>(acc, a[kk],',
+                     '    if (kk < 0) wgmma_rs_kn<N>(acc, a[kk],')],
+    'no_store': [('      tma_store_3d(&tout, qkv, 0, u * UNIT, 0);\n', '')],
+    # 5 and 6 warpgroups a block at TNT-S's widths (4 built)
+    'wgs5': [('constexpr int MAX_WGS = 4;', 'constexpr int MAX_WGS = 5;')],
+    'wgs6': [('constexpr int MAX_WGS = 4;', 'constexpr int MAX_WGS = 6;')],
+}
+# the Hopper K9a (104-key steps on wgmma + TMA): no_bias, the rel bias not
+# added; no_pv, the p V products not issued; no_store, out not stored
+K9A_VARIANTS = {
+    'full': [],
+    'no_bias': [('      const float x0 = (sc[4 * i + e] + r.rh0[hb]) + '
+                 'r.rw0[wb];\n      const float x1 = (sc[4 * i + 2 + e] + '
+                 'r.rh1[hb]) + r.rw1[wb];',
+                 '      const float x0 = sc[4 * i + e];\n      const float '
+                 'x1 = sc[4 * i + 2 + e];')],
+    'no_pv': [('      wgmma_rs_mn(o[c], pa[kk], vd + kk * MN_STEP);',
+               '      if (kk < 0) wgmma_rs_mn(o[c], pa[kk], vd + kk * '
+               'MN_STEP);')],
+    'no_store': [('          tma_store_3d(&to, sq + c * TILE_ELEMS, w.h * D '
+                  '+ 64 * c, r0, w.b);\n', '')],
+}
+# BoTNet-T3 @224's BoT stage, serving bs32 and the training forward bs64
+K9A_SHAPES = [(32, 14, 4, 128, False), (64, 14, 4, 128, True)]
+# TNT-S/16 serving bs32 and training bs64, TNT-B/16 bs32: B*P, D, F, H
+K7A_SHAPES = [(32 * 196, 24, 96, 4), (64 * 196, 24, 96, 4),
+              (32 * 196, 40, 160, 4)]
+# the parent's mma.sync K7a (a warp a patch): no_attn, the attention
+# skipped (o as the tile held it); no_ff, the FF products and the gelu
+# skipped (the epilogues still run); no_ln, both LayerNorm row passes
+# skipped; stride, q, k and v at the f32 row stride D + 2 (K7b's) instead
+# of Dp
+K7A_MMA_VARIANTS = {
+    'full': [],
+    'no_attn': [('    attention_fwd<head_regs<kD, kH>(), row_unroll<kD>()>'
+                 '(sQ, sK, sV, sO, g,\n', '    if (false) attention_fwd<'
+                 'head_regs<kD, kH>(), row_unroll<kD>()>(sQ, sK, sV, sO, '
+                 'g,\n')],
+    'no_ff': [('    warp_mma<false>(sY, g.ldy, S.w1, g.ldf, f, g.dp, lane,',
+               '    warp_mma<false>(sY, g.ldy, S.w1, g.ldf, f, 0, lane,'),
+              ('          pack_bf16(0.5f * h0 * (1.f + gelu_t(h0)),\n'
+               '                    0.5f * h1 * (1.f + gelu_t(h1)));',
+               '          pack_bf16(h0, h1);'),
+              ('    warp_mma<false>(sG, g.ldf, S.w2, g.ldy, g.dp, f, lane,',
+               '    warp_mma<false>(sG, g.ldf, S.w2, g.ldy, g.dp, 0, lane,')],
+    'no_ln': [('    ln_rows(sX, d, ln1s, ln1b, sY, sStat, g, eps, lane);\n'
+               '    __syncwarp();\n    warp_mma<false>(sY, g.ldy, S.wqkv',
+               '    __syncwarp();\n    warp_mma<false>(sY, g.ldy, S.wqkv'),
+              ('    ln_rows(sX, d, ln2s, ln2b, sY, sStat, g, eps, lane);', '')],
+    'stride': [('  float* sK = sQ + L * g.dp;\n  float* sV = sK + L * g.dp;',
+                '  float* sK = sQ + L * g.lf;\n  float* sV = sK + L * g.lf;'),
+               ('      dst[r * g.dp + cc] = v0 * m;\n'
+                '      dst[r * g.dp + cc + 1] = v1 * m;',
+                '      if (cc < d) {\n        dst[r * g.lf + cc] = v0 * m;\n'
+                '        dst[r * g.lf + cc + 1] = v1 * m;\n      }'),
+               ('(sQ, sK, sV, sO, g,\n                                      '
+                '                   g.dp, lane);',
+                '(sQ, sK, sV, sO, g,\n                                      '
+                '                   g.lf, lane);')],
+}
+# the parent's mma.sync K9a (a 128-thread block per 64-query tile, head
+# and image): no_bias, the rel bias not added; no_q4, the fourth (4-row)
+# query tile's blocks not launched; no_k4, the fourth (4-key) key tile
+# not swept (its rows still loaded)
+K9A_MMA_VARIANTS = {
+    'full': [],
+    'no_bias': [('            s[nt][e] = s[nt][e] + rh0[hb] + rw0[wb];\n'
+                 '            s[nt][2 + e] = s[nt][2 + e] + rh1[hb] + '
+                 'rw1[wb];', '')],
+    'no_q4': [('bot_fwd_kernel<D><<<dim3((L + BT - 1) / BT, heads, batch)',
+               'bot_fwd_kernel<D><<<dim3(L / BT, heads, batch)')],
+    'no_k4': [('  for (int it = 0, k0 = 0; k0 < L; ++it, k0 += BT) {',
+               '  for (int it = 0, k0 = 0; k0 + BT <= L; ++it, k0 += BT) {')],
+}
+
+
+K7B_ARGS = ('x', 'g', 'ln1s', 'ln1b', 'wq', 'wk', 'wv', 'wo', 'ln2s', 'ln2b',
+            'w1', 'b1', 'w2', 'b2', 'dx', 'gw', 'gvec', 'ws')
+# the parent's K7b entry: the bf16 weights and the f32 vector prepared
+K7B_MMA_ARGS = ('x', 'g', 'wqkv', 'wo', 'w1', 'w2', 'par', 'dx', 'gw',
+                'gvec', 'ws')
 # TNT-S/16 bs64's and TNT-B/16 bs32's inner layers: B*P patches, D, F, H
 K7B_SHAPES = [(64 * 196, 24, 96, 4), (32 * 196, 40, 160, 4)]
 
@@ -1467,7 +1651,7 @@ KERNELS = {
     'k7b_mma': dict(
         source='tnt_inner.cu', inline=(), shapes=K7B_SHAPES,
         inputs=_k7b_inputs, label='B*P={} D={} F={} H={}',
-        entries={'sav_tnt_bwd': K7B_ARGS},
+        entries={'sav_tnt_bwd': K7B_MMA_ARGS},
         dims=lambda n, d, f, h, t: (n, d, f, h, 1e-6, (d // h) ** -0.5),
         others=[_k7b_library],
         variants={
@@ -1490,6 +1674,33 @@ KERNELS = {
                       ('  return (int)sum_launch(part, pl.chunks, pl.total, '
                        '(int)pl.total, gw, st);', '  return 0;')],
         }),
+    'k7a': dict(
+        source='tnt_inner.cu', inline=(), shapes=K7A_SHAPES,
+        inputs=_k7a_inputs, label='B*P={} D={} F={} H={}',
+        entries={'sav_tnt_fwd': K7A_ARGS},
+        dims=lambda n, d, f, h, t: (n, d, f, h, 1e-6, (d // h) ** -0.5),
+        others=[], variants=K7A_VARIANTS),
+    'k9a': dict(
+        source='botnet_attention.cu', inline=('flash_sm90.cuh',),
+        shapes=K9A_SHAPES, inputs=_k9a_inputs,
+        label='B={} g={} h={} d={} lse={}',
+        entries={'sav_bot_fwd': K9A_ARGS},
+        dims=lambda b, g, heads, d, train, t: (b, g * g, heads, g, d),
+        others=[_k9a_library], variants=K9A_VARIANTS),
+    # the parent's mma.sync K7a and K9a, with --csrc on its csrc/
+    'k7a_mma': dict(
+        source='tnt_inner.cu', inline=(), shapes=K7A_SHAPES,
+        inputs=_k7a_mma_inputs, label='B*P={} D={} F={} H={}',
+        entries={'sav_tnt_fwd': ('x', 'wqkv', 'wo', 'w1', 'w2', 'par',
+                                 'out')},
+        dims=lambda n, d, f, h, t: (n, d, f, h, 1e-6, (d // h) ** -0.5),
+        others=[], variants=K7A_MMA_VARIANTS),
+    'k9a_mma': dict(
+        source='botnet_attention.cu', inline=(), shapes=K9A_SHAPES,
+        inputs=_k9a_inputs, label='B={} g={} h={} d={} lse={}',
+        entries={'sav_bot_fwd': K9A_ARGS},
+        dims=lambda b, g, heads, d, train, t: (b, g * g, heads, g, d),
+        others=[_k9a_library], variants=K9A_MMA_VARIANTS),
     'k14_mma': dict(
         source='int8_ff.cu', inline='int8_gemm.cuh',
         shapes=[(192 * 197, 768, 3072), (128 * 196, 384, 1536)],
@@ -1636,7 +1847,8 @@ def launches(kernel: str, lib, t: dict, shape) -> list:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         runs.append(lambda fn=fn, names=names: fn(
-            *[t[n].data_ptr() for n in names], *dims, stream()))
+            *[None if t[n] is None else t[n].data_ptr() for n in names],
+            *dims, stream()))
     return runs
 
 

@@ -34,10 +34,13 @@ and K12 at their paths' rows (ViT-B/16 and Mixer-B/16 bs192 with
 save_hpre and bs32 serving, CaiT-S/24 bs128 with save_hpre), and as
 controls K16 (37,824 rows) and K14 at ViT-B/16 @224 bs192's and CaiT-S/24
 @224 bs128's FF rows, and K11 (CaiT-S/24's and cait_xxs_24's widths, B=32
-L=196), K15 (ViT-B/16 bs32's two FF products), K10 (ViT-B/16 bs32) and
-K9b (BoTNet-T3 bs64, each of its two C entries), each through its wrapper
-and its C entry alone (the parent's and this tree's K10, K11 and K15 C
-entries differ in their arguments: each run calls its own), each with
+L=196), K15 (ViT-B/16 bs32's two FF products), K10 (ViT-B/16 bs32), K9b
+(BoTNet-T3 bs64, each of its two C entries), K9a (BoTNet-T3 serving bs32,
+training bs64) and K7a (TNT-S/16 serving bs32 and training bs64, TNT-B/16
+bs32), each through its wrapper and its C entry alone (the parent's and
+this tree's K7, K10, K11 and K15 C entries differ in their arguments: each
+run calls its own), and a digest of K7b's outputs (equal where the two
+trees' K7b outputs are bit-identical), each with
 this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
@@ -227,37 +230,76 @@ if args['kernels']:
         out[f'K8a C entry B={{b8}}'] = time_ms(
             lambda: fn8(*p8, b8, lt, kt, d, 1e-6, s8))
     del x8, args8
-    # K7b at TNT-S/16 bs64's and TNT-B/16 bs32's inner layers (B*P = 196 B
-    # patches, D = 24 and 40, H = 4, F = 4 D), through the wrapper and its C
-    # entry alone (weights prepared and the workspace allocated once)
+    # K7a at TNT-S/16 serving bs32 and training bs64 and TNT-B/16 bs32, K7b
+    # at TNT-S/16 bs64's and TNT-B/16 bs32's inner layers (B*P = 196 B
+    # patches, D = 24 and 40, H = 4, F = 4 D), each through its wrapper and
+    # its C entry alone (the parameters prepared and the workspace
+    # allocated once); the trees' C entries differ: since the Hopper K7a
+    # both take the f32 parameters as the model holds them, before it the
+    # bf16 weights concatenated and cast. Then a digest of K7b's 13
+    # outputs (48 bits of their bytes' SHA-256, exact in a float), equal in
+    # two trees where they are bit-identical.
+    import hashlib
     from sav_tpu_torch.ops import tnt_inner
-    for name, n7, d7 in (('TNT-S', 64 * 196, 24), ('TNT-B', 32 * 196, 40)):
+    raw_abi = hasattr(tnt_inner, 'tnt_fwd_plan')
+    s7 = fa.stream_of(torch.device('cuda'))
+
+    def k7_case(n7, d7):
         f7, h7 = 4 * d7, 4
         w7 = lambda *s, std=1.0: (bf16(s, std / math.sqrt(s[0]))).float()
-        a7 = (bf16((n7, 16, d7)), (1 + 0.1 * bf16((d7,))).float(),
-              (0.1 * bf16((d7,))).float(), w7(d7, h7, d7 // h7, std=2.0),
-              w7(d7, h7, d7 // h7), w7(d7, h7, d7 // h7),
-              w7(h7, d7 // h7, d7), (1 + 0.1 * bf16((d7,))).float(),
-              (0.1 * bf16((d7,))).float(), w7(d7, f7),
-              (0.1 * bf16((f7,))).float(), w7(f7, d7),
-              (0.1 * bf16((d7,))).float())
+        return (bf16((n7, 16, d7)), (1 + 0.1 * bf16((d7,))).float(),
+                (0.1 * bf16((d7,))).float(), w7(d7, h7, d7 // h7, std=2.0),
+                w7(d7, h7, d7 // h7), w7(d7, h7, d7 // h7),
+                w7(h7, d7 // h7, d7), (1 + 0.1 * bf16((d7,))).float(),
+                (0.1 * bf16((d7,))).float(), w7(d7, f7),
+                (0.1 * bf16((f7,))).float(), w7(f7, d7),
+                (0.1 * bf16((d7,))).float())
+
+    def k7_params(a7):
+        if raw_abi:
+            return tnt_inner._check(a7[0], a7[1:], 4)
+        return list(tnt_inner._check(a7[0], *a7[1:], 4))
+
+    for name, n7, d7 in (('TNT-S serve', 32 * 196, 24),
+                         ('TNT-S train', 64 * 196, 24),
+                         ('TNT-B', 32 * 196, 40)):
+        a7 = k7_case(n7, d7)
+        out[f'K7a {{name}} B*P={{n7}}'] = time_ms(
+            lambda: tnt_inner.inner_layer_fwd(*a7, 4))
+        o7 = torch.empty_like(a7[0])
+        p7 = ([a7[0].data_ptr()] + [t.data_ptr() for t in k7_params(a7)]
+              + [o7.data_ptr()])
+        fn7 = tnt_inner._fn('sav_tnt_fwd', len(p7), 4, 2)
+        out[f'K7a C entry {{name}} B*P={{n7}}'] = time_ms(
+            lambda: fn7(*p7, n7, d7, 4 * d7, 4, 1e-6, (d7 // 4) ** -0.5, s7))
+        del a7
+    for name, n7, d7 in (('TNT-S', 64 * 196, 24), ('TNT-B', 32 * 196, 40)):
+        f7, h7 = 4 * d7, 4
+        a7 = k7_case(n7, d7)
         g7 = bf16((n7, 16, d7))
         out[f'K7b {{name}} B*P={{n7}}'] = time_ms(
             lambda: tnt_inner.inner_layer_bwd(*a7, g7, h7))
-        wqkv, wo7, w17, w27, par7 = tnt_inner._check(a7[0], *a7[1:], h7)
+        grads7 = tnt_inner.inner_layer_bwd(*a7, g7, h7)
+        torch.cuda.synchronize()
+        sha7 = hashlib.sha256()
+        for t in grads7:
+            sha7.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes())
+        out[f'K7b outputs digest {{name}}'] = float(
+            int(sha7.hexdigest()[:12], 16))
         gw7 = torch.empty(4 * d7 * d7 + 2 * d7 * f7, device='cuda')
         gv7 = torch.empty(5 * d7 + f7, device='cuda')
         dx7 = torch.empty_like(a7[0])
         ws7 = torch.empty(tnt_inner._fn(
             'sav_tnt_bwd_workspace', 0, 4, restype=ctypes.c_longlong)(
                 n7, d7, f7, h7), dtype=torch.uint8, device='cuda')
-        fn7 = tnt_inner._fn('sav_tnt_bwd', 11, 4, 2)
-        p7 = [t.data_ptr() for t in (a7[0], g7, wqkv, wo7, w17, w27, par7,
-                                     dx7, gw7, gv7, ws7)]
-        s7 = fa.stream_of(torch.device('cuda'))
+        p7 = ([a7[0].data_ptr(), g7.data_ptr()]
+              + [t.data_ptr() for t in k7_params(a7)]
+              + [t.data_ptr() for t in (dx7, gw7, gv7, ws7)])
+        fn7 = tnt_inner._fn('sav_tnt_bwd', len(p7), 4, 2)
         out[f'K7b C entry {{name}} B*P={{n7}}'] = time_ms(
             lambda: fn7(*p7, n7, d7, f7, h7, 1e-6, (d7 // h7) ** -0.5, s7))
-        del a7, g7
+        del a7, g7, grads7
     wf = lambda shape, std: torch.from_numpy(
         (rng.standard_normal(shape) * std).astype(np.float32)).cuda()
     for rows, dd, ff in ((192 * 197, 768, 3072), (128 * 196, 384, 1536)):
@@ -411,6 +453,23 @@ if args['kernels']:
                                     dk9, dv9)]
     out['K9b dq C entry B=64 g=14'] = time_ms(lambda: f_dq(*p_dq, *dims9))
     out['K9b dkv C entry B=64 g=14'] = time_ms(lambda: f_dkv(*p_dkv, *dims9))
+    # K9a at BoTNet-T3 serving bs32 and the training forward (lse) bs64,
+    # through its wrapper and its C entry alone (the same arguments in
+    # either tree)
+    f_fwd = bot._fn('sav_bot_fwd', 7, 5)
+    for b9a, train in ((32, False), (64, True)):
+        a9 = (qs9[:b9a].contiguous(), k9[:b9a].contiguous(),
+              v9[:b9a].contiguous(), rh9[:b9a].contiguous(),
+              rw9[:b9a].contiguous())
+        tag = 'train' if train else 'serve'
+        out[f'K9a {{tag}} B={{b9a}} g=14'] = time_ms(
+            lambda: bot.bot_fwd(*a9, h9, g9, save_lse=train))
+        o9a = torch.empty_like(a9[0])
+        l9a = torch.empty(b9a, h9, l9, device='cuda') if train else None
+        p9a = [t.data_ptr() for t in (*a9, o9a)] + [
+            l9a.data_ptr() if train else None]
+        out[f'K9a C entry {{tag}} B={{b9a}} g=14'] = time_ms(
+            lambda: f_fwd(*p9a, b9a, l9, h9, g9, d9, st))
     print('RESULT ' + json.dumps(out), flush=True)
     sys.exit(0)
 if args['serve']:

@@ -75,7 +75,11 @@ def test_supported_keeps_every_grid_the_parent_took(d, last):
     assert took == list(range(1, last + 1))
     for g in took:
         assert ba.supported(g, 4, d, device='cuda'), g
-    assert ba.fwd_smem(14, 128) == 5 * 64 * 136 * 2 + 2 * 64 * 14 * 4
+    # K9a at botnet_t3's grid: two buffers of Q's 128 rows and the rel
+    # rows (1024-byte aligned), four ring slots of one 104-key step's K
+    # or V box (112 rows), twelve mbarriers, alignment slack
+    assert ba.fwd_smem(14, 128) == (2 * (4 * 64 * 64 * 2 + 2 * 128 * 14 * 4)
+                                    + 4 * 2 * 112 * 128 + 12 * 8 + 1024)
 
 
 def _grid_cells(length, g):

@@ -918,6 +918,58 @@ def test_tnt_inner_bwd_any_width_matches_twin(card, n, d, f, heads, tiled):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+@pytest.mark.parametrize('n,d,f,heads', [(4 * 37 + 1, 24, 96, 4),
+                                         (4 * 37 + 2, 24, 96, 4),
+                                         (4 * 37 + 3, 40, 160, 4),
+                                         (4 * 400 + 2, 40, 160, 4),
+                                         (37, 16, 64, 2), (29, 48, 192, 4),
+                                         (21, 32, 128, 4)])
+def test_tnt_inner_fwd_units_and_routes(card, n, d, f, heads):
+    """K7a with the last 4-patch unit holding 1-3 patches (the Hopper
+    kernel, route 1), and at widths outside its instantiations (route 0,
+    the warp-a-patch kernel), into buffers 64 patches longer holding a NaN
+    sentinel: the n patches against the twin, the rest untouched."""
+    from sav_tpu_torch.ops import tnt_inner
+    from sav_tpu_torch.ops.flash_attention import stream_of
+    args = _k7_args(np.random.RandomState(n + d), n, d, heads, card, f)
+    plan = tnt_inner.tnt_fwd_plan(n, d, f, heads)
+    assert plan['route'] == (1 if (d, f, heads) in tnt_inner.HOP_WGS else 0)
+    raw = tnt_inner._check(args[0], args[1:], heads)
+    out = torch.full((n + 64, 16, d), float('nan'), device=card,
+                     dtype=torch.bfloat16)
+    err = tnt_inner._fn('sav_tnt_fwd', 14, 4, 2)(
+        args[0].data_ptr(), *(t.data_ptr() for t in raw), out.data_ptr(), n,
+        d, f, heads, fused_layer.LN_EPS, (d // heads) ** -0.5,
+        stream_of(card))
+    torch.cuda.synchronize()
+    assert err == 0
+    plain = tnt_inner.inner_layer_fwd_plain(*args, heads)
+    x = args[0]
+    assert _rel(out[:n].float() - x.float(), plain.float() - x.float()) <= 2e-2
+    assert torch.isnan(out[n:]).all()
+
+
+def test_tnt_fwd_plan_matches_the_kernel(card):
+    """tnt_fwd_plan mirrors sav_tnt_fwd_plan on this card's SM count, both
+    routes."""
+    import ctypes
+    from sav_tpu_torch.ops import tnt_inner
+    fn = tnt_inner._fn('sav_tnt_fwd_plan', 0, 5)
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for n, d, f, h in ((32 * 196, 24, 96, 4), (64 * 196, 24, 96, 4),
+                       (32 * 196, 40, 160, 4), (1, 24, 96, 4),
+                       (7, 40, 160, 4), (1001, 16, 64, 2), (37, 32, 128, 4),
+                       (5, 48, 192, 4), (5, 64, 256, 4), (3, 24, 192, 4)):
+        out = (ctypes.c_longlong * 7)()
+        plan = tnt_inner.tnt_fwd_plan(n, d, f, h, sms)
+        assert fn(n, d, f, h, sms, out) == 0
+        assert list(out) == [plan['route'], plan['wgs'], plan['blocks'],
+                             plan['smem'], plan['units'], plan['per_wg'],
+                             plan['weights']], (n, d, f, h)
+    assert fn(5, 12, 48, 4, sms, (ctypes.c_longlong * 7)()) != 0
+
+
 def test_tnt_inner_wrappers_refuse_and_count(card):
     from sav_tpu_torch import _build
     from sav_tpu_torch.ops import tnt_inner
@@ -988,6 +1040,44 @@ def test_bot_bwd_matches_twin_and_repeats(card, b, g, heads, d):
     assert max(_rel(a, t) for a, t in zip(grads[3:], twin[3:])) <= BOT_REL_TOL
     again = ba.bot_bwd(*args, out, lse, do, heads, g)     # no float atomics
     assert all(torch.equal(a, t) for a, t in zip(grads, again))
+
+
+@pytest.mark.parametrize('b,g,heads,d', [(2, 13, 2, 128), (2, 20, 2, 128),
+                                         (2, 9, 3, 64), (1, 15, 2, 64),
+                                         (1, 24, 1, 128)])
+def test_bot_fwd_ragged_key_tiles(card, b, g, heads, d):
+    """K9a where L is ragged against the plan's key tile (g = 13: three
+    64-key tiles, the last 41; 20: four 104-key steps, the last 88; 9: one
+    104-key step of 81; 15: four 64-key tiles, the last 33; 24: nine full
+    64-key tiles), out and lse against the twin."""
+    from sav_tpu_torch.ops import botnet_attention as ba
+    plan = ba.bot_fwd_plan(g, d)
+    assert plan['tiles'] == -(-g * g // plan['width'])
+    args = _k9_args(np.random.RandomState(g + d), b, g, heads, d, card)
+    out, lse = ba.bot_fwd(*args, heads, g, save_lse=True)
+    p_out, p_lse = ba.bot_fwd_plain(*args, heads, g)
+    assert _rel(out, p_out) <= 2e-2
+    assert (lse - p_lse).abs().max() <= 1e-3
+
+
+def test_bot_fwd_plan_matches_the_kernel(card):
+    """bot_fwd_plan mirrors sav_bot_fwd_plan (K9a) over g = 1..70 at d = 64
+    and 128."""
+    import ctypes
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.ops import botnet_attention as ba
+    fn = _build.library('botnet_attention').sav_bot_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for d in (64, 128):
+        for g in range(1, 71):
+            p = ba.bot_fwd_plan(g, d)
+            out = (ctypes.c_longlong * 7)()
+            rc = fn(g, d, out)
+            assert list(out) == [p['width'], p['tiles'], p['qbufs'],
+                                 p['stages'], p['res'], p['slot'],
+                                 p['smem']], (g, d)
+            assert (rc == 0) == (p['stages'] > 0)
+    assert fn(14, 96, (ctypes.c_longlong * 7)()) != 0
 
 
 def test_bot_kernels_write_no_row_past_the_length(card):

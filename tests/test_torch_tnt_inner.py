@@ -119,10 +119,16 @@ def test_supported_shapes():
 def test_auto_route_refuses_on_the_card(monkeypatch):
     """'auto' takes the kernels on the card and the per-op path off it; on
     the card a shape the kernels do not take raises and points to
-    use_kernel=False. The kernel's shared-memory formula is stood in for by
-    one that D = 40 exceeds."""
-    monkeypatch.setattr(tnt_inner, '_warps',
-                        lambda which, d, hidden, heads: 8 if d < 32 else 0)
+    use_kernel=False. The forward's launch plan (the kernel's shared-memory
+    formula) is stood in for by one that D = 40 exceeds."""
+    real = tnt_inner.tnt_fwd_plan
+
+    def plan(n, d, hidden, heads, sms=132):
+        if d >= 32:
+            raise ValueError('past shared memory')
+        return real(n, d, hidden, heads, sms)
+
+    monkeypatch.setattr(tnt_inner, 'tnt_fwd_plan', plan)
     assert tnt_inner.auto_route(16, 24, 4, 96, 'cuda')
     assert not tnt_inner.auto_route(16, 40, 4, 160, 'cpu')
     with pytest.raises(NotImplementedError,
