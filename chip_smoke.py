@@ -108,7 +108,7 @@
    (LayerNorm, ``torch._int_mm`` per product with the dequant in torch,
    SDPA for K10's core); ragged M and K on NaN-sentinel buffers; serving
    @224 bs32 ViT-B/16 ``quantized='ff'`` (12 K1 + 12 K13 per forward),
-   ``'all'`` (12 K10 + 12 K13), ``'int8'`` (12 K1, no int8 kernel),
+   ``'all'`` (12 K10 + 12 K13), ``'int8'`` at depth 4 (4 K1, no int8 kernel),
    ``'int8'`` with QuantizedDense(fused=True) (12 K1 + 24 K15), Mixer-B/16
    ``'ff'`` (12 K8a + 12 K12), logits against the same model on the int8
    twins (``set_int8_core``; 'int8' against use_kernel=False), and each
@@ -146,6 +146,20 @@
    K5a-train + 24 K5b + 24 K12-train + 24 K14), gradients against the same
    boundaries on the int8 twins, and CaiT-S/24 ``'ff'`` beside them for
    its train img/s.
+13. CeiT (slice 9; after 12, before the print of 11): K1's post-LN route
+   (``pre_ln=False``: three launches, the QKV GEMM reading x) against its
+   twin at CeiT-S's widths (B = 32 and 64, L = 197, D = 384, H = 6), both
+   variants; K1 at D = 192, H = 3 (the projection GEMM's 192-wide tile:
+   ceit_t's post-LN and vit_ti's pre-LN route; each launched by the
+   sweep of 11, whose ceit_t entry is this slice's); ViT-B/16's K1 outputs
+   against the digests the GEMM gave before it took D = 192
+   (``scripts/k1_digest.py``'s ``K1_VITB_DIGESTS``); serving CeiT-S @224
+   bs32 on ``'auto'`` and ``'fused_layer_full'`` (12 post-LN K1 launches
+   per forward, none pre-LN), logits against use_kernel=False with the
+   head filled and the BatchNorms calibrated; training CeiT-S @224 bs64 (12 post-LN K1
+   train + 12 K2 per step), gradients against the plain core
+   (use_kernel='fused_layer_xla') with the f32 per-op path as the noise
+   floor, every running statistic finite and moved, train img/s.
 """
 
 from __future__ import annotations
@@ -459,6 +473,7 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
     against the same model on their twins (``set_int8_core``), and its
     distance from the bf16 model of the same weights is printed.
     ``overrides`` go to ``create_model`` (e.g. a cut depth)."""
+    t_path = time.perf_counter()
     model = create_model(model_name, num_classes=1000,
                          dtype=torch.bfloat16, img_size=img_size, seed=seed,
                          device='cuda', use_kernel=use_kernel, **overrides,
@@ -528,7 +543,8 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
     fwd_ms = time_ms(lambda: serve(model, frames, img_size, 5), iters=5)
     print(f'  {name}: {ips:.1f} img/s (serve incl. H2D of uint8 frames, '
           f'batch {batch}), {fwd_ms:.3f} ms/batch between CUDA events '
-          f'(includes host waits)', flush=True)
+          f'(includes host waits); the path took '
+          f'{time.perf_counter() - t_path:.1f} s', flush=True)
     if profile:
         print_profile(lambda: serve(model, frames, img_size, 5))
     del model
@@ -1253,65 +1269,73 @@ def check_ff_sentinels(rng, checks, batch=65, l=196, k=98, d=768, m=1003):
 # ---- TNT (slice 5): K1 without the residual (csrc/fused_attention.cu) and
 # the inner layer K7a/K7b (csrc/tnt_inner.cu)
 
-def check_k1_nores(rng, checks, batch, seq, dim, heads, train):
-    """K1 without the residual (TNT's outer sublayer), inference or
-    residual-writing variant, vs its twin: out (and with ``train`` q, k,
-    v, attn) as max |kernel - twin| over max |twin|, there being no x to
-    subtract; lse against the logsumexp of the kernel's own q and k.
-    Returns the kernel record."""
+def check_k1_route(rng, checks, batch, seq, dim, heads, train, pre_ln=True,
+                   residual=True):
+    """K1 on one of its routes vs its twin, inference or residual-writing
+    variant: pre-LN (here at D = 192, vit_ti's) or post-LN
+    (``pre_ln=False``, CeiT's blocks), with the residual or without it
+    (TNT's outer sublayer). out as max |kernel - twin| over max |twin - x|
+    (the sublayer's own part; over max |twin| without the residual, there
+    being no x to subtract); with ``train`` q, k, v, attn over max |twin|
+    and lse against the logsumexp of the kernel's own q and k. Timed beside
+    the twin and the library chain computing the same function ((LN,) three
+    matmuls, SDPA, the out matmul, (+ x)). Returns the record."""
     hd = heads * 64
     args, _, flops = _k1_case(rng, batch, seq, dim, heads)
     x, scale, bias, wq, wk, wv, wo, _ = args
     run = lambda: fused_layer.fused_attention_fwd(
-        *args, save_residuals=train, residual=False)
+        *args, save_residuals=train, residual=residual, pre_ln=pre_ln)
     plain = lambda: fused_layer.fused_attention_fwd_plain(
-        *args, fused_layer.LN_EPS, save_residuals=train, residual=False)
+        *args, fused_layer.LN_EPS, save_residuals=train, residual=residual,
+        pre_ln=pre_ln)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    lse_err, errs = 0.0, []
+    (out, res), (p_out, p_res) = (got, want) if train else ((got, ()),
+                                                           (want, ()))
+    own_part = p_out.float() - (x.float() if residual else 0.0)
+    err_out = _abs(out, p_out) / float(own_part.abs().max())
+    errs = [_rel(a, b) for a, b in zip(res[:4], p_res[:4])]
+    abs_err = max(_abs(a, b) for a, b in zip((out, *res[:4]),
+                                             (p_out, *p_res[:4])))
+    lse_err = 0.0
     if train:
-        (out, res), (p_out, p_res) = got, want
-        errs = [_rel(a, b) for a, b in zip(res[:4], p_res[:4])]
-        abs_err = max(_abs(a, b) for a, b in zip((out, *res[:4]),
-                                                 (p_out, *p_res[:4])))
         split = lambda a: a.float().view(batch, seq, heads, 64)
         own = torch.logsumexp(torch.einsum('bqhd,bkhd->bhqk', split(res[0]),
                                            split(res[1])), dim=-1)
         lse_err = _abs(res[4], own)
-        finite = all(bool(torch.isfinite(t).all()) for t in (out, *res))
-    else:
-        out, p_out = got, want
-        abs_err, finite = _abs(out, p_out), bool(torch.isfinite(out).all())
-    err_out = _rel(out, p_out)
-    name = f'K1 residual=False{" train" if train else ""}'
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *res))
+    name = (f'K1 {"pre-LN" if pre_ln else "post-LN"}'
+            f'{"" if residual else " residual=False"}'
+            f'{" train" if train else ""} B={batch} L={seq} D={dim} H={heads}')
     checks.expect(finite and max([err_out] + errs) <= OUT_TOL
                   and lse_err <= LSE_TOL,
-                  f'{name} B={batch} L={seq} D={dim} H={heads}: out '
-                  f'{err_out:.3g} of max|out|' + (
-                      f', q/k/v/attn {", ".join(f"{e:.3g}" for e in errs)} '
-                      f'of max; lse vs its own q,k {lse_err:.3g} (tol '
-                      f'{LSE_TOL})' if train else '') + f' (tol {OUT_TOL})')
+                  f'{name}: out {err_out:.3g} of max|out{"-x" if residual else ""}|'
+                  + (f', q/k/v/attn {", ".join(f"{e:.3g}" for e in errs)} '
+                     f'of max; lse vs its own q,k {lse_err:.3g} (tol '
+                     f'{LSE_TOL})' if train else '') + f' (tol {OUT_TOL})')
 
     def library():
-        y = F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
+        y = (F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
+             if pre_ln else x)
         split = lambda a: a.view(batch, seq, heads, 64).transpose(1, 2)
         a = F.scaled_dot_product_attention(*(split(y @ w)
                                              for w in (wq, wk, wv)))
-        return a.transpose(1, 2).reshape(batch, seq, hd) @ wo
+        a = a.transpose(1, 2).reshape(batch, seq, hd) @ wo
+        return x + a if residual else a
 
     m = batch * seq
-    nbytes = 2 * m * dim * 2 + 4 * dim * hd * 2 + 2 * dim * 4
+    nbytes = 2 * m * dim * 2 + 4 * dim * hd * 2 + (2 * dim * 4 if pre_ln
+                                                    else 0)
     if train:
         nbytes += 4 * m * hd * 2 + batch * heads * seq * 4
     b_ms, b_by = bound_ms(flops, nbytes)
     rec = dict(ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
                max_abs_err=max(abs_err, lse_err))
-    print(f'  {name} B={batch} D={dim}: kernel {rec["ms"]:.4f} ms  plain '
-          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
-          f'bound {b_ms:.4f} ms ({b_by})', flush=True)
-    print(f'  {name} B={batch} D={dim} launches: ' + launch_split(run),
-          flush=True)
+    print(f'  {name}: kernel {rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} '
+          f'ms  library {rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms '
+          f'({b_by}, {flops / 1e9:.2f} GFLOP)', flush=True)
+    print(f'  {name} launches: ' + launch_split(run), flush=True)
     return rec
 
 
@@ -1858,10 +1882,13 @@ def check_grads(checks, name, model, batch, seed, model_name, img_size,
     boundary, and the f32 per-op path as the reference, held to
     ``_grad_rule`` (the head filled so the encoder's gradients are not all
     zero). ``overrides`` rebuild the reference as the model was built
-    (e.g. a cut depth)."""
+    (e.g. a cut depth). Returns the launches of the kernel path's forward
+    and backward, counted from 0."""
     fill_head(model, seed)
     torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
     loss_k, g_kernel = _grads(model, batch, seed)
+    counts = dict(_build.launches)
     _reroute(model, plain_core, use_kernel, True)
     loss_x, g_plain = _grads(model, batch, seed)
     _reroute(model, plain_core, use_kernel, False)
@@ -1887,6 +1914,7 @@ def check_grads(checks, name, model, batch, seed, model_name, img_size,
                   f'{loss_32:.5f}); farthest from f32: {noisiest[1]}, plain '
                   f'core {noisiest[0]:.3g}, kernels {noisiest[2]:.3g}; peak '
                   f'{grad_peak:.2f} GiB allocated')
+    return counts
 
 
 def _reroute(model, plain_core, use_kernel, plain: bool) -> None:
@@ -1915,6 +1943,7 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
     'botnet_fused' only through create_model, so the Trainer has no flag
     for them); ``quantized`` is the Trainer's own field. Returns the
     counts."""
+    t_path = time.perf_counter()
     trainer = Trainer(TrainConfig(model_name=model_name,
                                   img_size=img_size, batch_size=batch,
                                   seed=seed, dtype='bfloat16',
@@ -1964,7 +1993,8 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
                   f'{ev["eval_loss"]:.5g} (eval mode), finite')
     print(f'  {name}: {steps * batch / secs:.1f} train img/s over {steps} '
           f'steps ({1e3 * secs / steps:.2f} ms/step incl. host), peak '
-          f'{peak:.2f} GiB allocated', flush=True)
+          f'{peak:.2f} GiB allocated; the path took '
+          f'{time.perf_counter() - t_path:.1f} s', flush=True)
     if profile:
         print_profile(lambda: trainer.train_step(data.batch(0)), iters=2)
     del trainer
@@ -1975,12 +2005,14 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
 # (name, img_size, batch, the plain core on the same autograd boundary):
 # the distinct dispatch shapes that ``auto`` takes on the card among the
 # factory names the paths above do not build (H = 16 at L = 197 and 577 on
-# K1/K2/K3; D = 192 on the flash core; D = 384, H = 6; CaiT's H = 4 on K6
-# at L = 196 and 576; the Mixer's S and L widths on K8)
+# K1/K2/K3; D = 192 on K1's 192-wide GEMM tile, pre-LN (vit_ti) and
+# post-LN (ceit_t); D = 384, H = 6; CaiT's H = 4 on K6 at L = 196 and 576;
+# the Mixer's S and L widths on K8)
 SWEEP = (
     ('vit_l_patch16', 224, 4, 'fused_layer_xla'),
     ('vit_l_patch16', 384, 2, 'fused_layer_xla'),
     ('vit_ti_patch16', 224, 4, 'fused_layer_xla'),
+    ('ceit_t', 224, 4, 'fused_layer_xla'),
     ('vit_s_patch16', 224, 4, 'fused_layer_xla'),
     ('cait_xxs_24', 224, 4, 'fused_th_xla'),
     ('cait_xxs_24', 384, 2, 'fused_th_xla'),
@@ -1995,8 +2027,12 @@ def sweep_factory(checks, seed: int, depth: int = 2) -> None:
     use_kernel=False on the same weights (LOGIT_TOL), and every parameter's
     gradient by ``_grad_rule`` against the plain core with the f32 per-op
     path as the noise floor. A shape that ``auto`` refuses on the card
-    prints its refusal, and use_kernel=False must run it."""
+    prints its refusal, and use_kernel=False must run it. Returns each
+    entry's launches per forward by its name and size, and those of its
+    gradient step by (name, size, 'grad')."""
+    launched = {}
     for name, img_size, batch, plain_core in SWEEP:
+        t_entry = time.perf_counter()
         label = f'sweep {name} @{img_size} depth {depth} bs{batch}'
         model = create_model(name, num_classes=1000, dtype=torch.bfloat16,
                              img_size=img_size, seed=seed, device='cuda',
@@ -2022,16 +2058,21 @@ def sweep_factory(checks, seed: int, depth: int = 2) -> None:
                               'use_kernel=False runs, logits finite')
                 continue
         counts = dict(_build.launches)
+        launched[(name, img_size)] = counts
         err = _abs(logits, plain) / float(plain.abs().max())
         checks.expect(bool(counts) and bool(torch.isfinite(logits).all())
                       and err <= LOGIT_TOL,
                       f'{label}: launches per forward {counts}; logits vs '
                       f'use_kernel=False: max err {err:.3g} of max|logit| '
                       f'(tol {LOGIT_TOL})')
-        check_grads(checks, label, model, data, seed, name, img_size,
-                    plain_core, 'auto', num_layers=depth)
+        grad = launched[(name, img_size, 'grad')] = check_grads(
+            checks, label, model, data, seed, name, img_size, plain_core,
+            'auto', num_layers=depth)
+        print(f'  {label}: launches per gradient step {grad}; the entry took '
+              f'{time.perf_counter() - t_entry:.1f} s', flush=True)
         del model
         torch.cuda.empty_cache()
+    return launched
 
 
 # ---- int8 (slice 7): K15 (csrc/int8_matmul.cu), K12/K13 (csrc/int8_ff.cu),
@@ -2472,6 +2513,34 @@ def check_quantizer(checks):
                   f'absmax (the reciprocal alone: {naive})')
 
 
+# ---- CeiT (slice 9): K1's post-LN route (csrc/fused_attention.cu with
+# pre_ln 0; check_k1_route above) and its projection GEMM at D = 192
+# (csrc/proj_sm90.cuh), the widths it took before unchanged
+
+def k1_digest_module():
+    """``scripts/k1_digest.py`` of this checkout, loaded by its path."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'scripts', 'k1_digest.py')
+    spec = importlib.util.spec_from_file_location('k1_digest', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_k1_bits(checks) -> None:
+    """ViT-B/16's K1 outputs bit-identical to what the projection GEMM gave
+    before it took D = 192 (``scripts/k1_digest.py``, which also says when
+    the pin goes)."""
+    mod = k1_digest_module()
+    got = mod.k1_digests(fused_layer)
+    for key, want in mod.K1_VITB_DIGESTS.items():
+        checks.expect(got[key] == want,
+                      f'K1 ViT-B/16 {key}: outputs digest {got[key]}, the '
+                      f'128-multiple GEMM gave {want} (bit-identical)')
+
+
 def print_profile(fn, iters: int = 5) -> None:
     """Device time by kernel over ``iters`` calls (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2632,8 +2701,8 @@ def main(argv=None):
     # sublayer's shapes (both variants), K7a at the inner layer's serving
     # and training shapes, K7b at both training shapes, the ragged tail,
     # then the paths ('fused_inner' timed beside 'auto' on TNT-S)
-    k1n = {(dim, train): check_k1_nores(rng, checks, args.batch, 197, dim,
-                                        heads, train)
+    k1n = {(dim, train): check_k1_route(rng, checks, args.batch, 197, dim,
+                                        heads, train, residual=False)
            for dim, heads in ((384, 6), (640, 10)) for train in (False, True)}
     k7a = {(n, d): check_k7a(rng, checks, n, d)
            for n, d in ((args.batch * 196, 24), (64 * 196, 24),
@@ -2713,9 +2782,9 @@ def main(argv=None):
     q_all = serve_path(checks, 'ViT-B/16 @224 quantized=all', 224, 'auto',
                        {'fused_attention_q8': 12, 'int8_ff_ln': 12}, args.seed,
                        args.batch, args.profile, quantized='all')
-    serve_path(checks, 'ViT-B/16 @224 quantized=int8', 224, 'auto',
-               {'fused_attention_fwd': 12}, args.seed, args.batch,
-               args.profile, quantized=True)
+    serve_path(checks, 'ViT-B/16 @224 quantized=int8 depth 4', 224, 'auto',
+               {'fused_attention_fwd': 4}, args.seed, args.batch,
+               args.profile, quantized=True, num_layers=4)
     q_dense = serve_path(checks, 'ViT-B/16 @224 quantized=int8 fused=True',
                          224, 'auto', {'fused_attention_fwd': 12,
                                        'int8_matmul': 24}, args.seed,
@@ -2739,7 +2808,7 @@ def main(argv=None):
 
     # the factory names that `auto` routes on the card and no path above
     # builds, at depth 2
-    sweep_factory(checks, args.seed)
+    swept = sweep_factory(checks, args.seed)
 
     # int8 (slice 8): K11 at CaiT-S's and cait_xxs's widths, K14 at ViT-B
     # bs192's and CaiT-S bs128's FF rows, the ragged edges, then the paths:
@@ -2777,6 +2846,44 @@ def main(argv=None):
                cait_step, args.seed, model_name='cait_s_24', plain_core=None,
                quantized='ff')
 
+    # CeiT (slice 9): K1's post-LN route at CeiT-S's widths (D = 384, H =
+    # 6, L = 197), both variants at the serving and training batches; K1 at
+    # D = 192 (H = 3: ceit_t's post-LN and vit_ti's pre-LN, their launches
+    # from the sweep above); ViT-B/16's K1 outputs against the pinned
+    # digests; then the paths: serving CeiT-S @224 bs32 on 'auto' and
+    # 'fused_layer_full' (12 K1 post-LN launches per forward, no pre-LN one),
+    # training CeiT-S @224 bs64 (12 K1 post-LN train + 12 K2 per step)
+    k1c = {(b, train): check_k1_route(rng, checks, b, 197, 384, 6, train,
+                                      False)
+           for b in (args.batch, 64) for train in (False, True)}
+    k1_192 = {(pre_ln, train): check_k1_route(
+                  rng, checks, 64 if train else args.batch, 197, 192, 3, train,
+                  pre_ln)
+              for pre_ln in (False, True) for train in (False, True)}
+    check_k1_bits(checks)
+    ceit_serve = serve_path(checks, 'CeiT-S @224 auto', 224, 'auto',
+                            {'fused_attention_fwd_noln': 12}, args.seed,
+                            args.batch, args.profile, model_name='ceit_s')
+    serve_path(checks, 'CeiT-S @224 fused_layer_full', 224, 'fused_layer_full',
+               {'fused_attention_fwd_noln': 12}, args.seed, args.batch,
+               args.profile, model_name='ceit_s')
+    # K1 at D = 192 on counted paths: the sweep's depth-2 vit_ti (pre-LN)
+    # and ceit_t (post-LN), a forward and a gradient step each
+    d192_runs = {}
+    for pre_ln, name in ((True, 'vit_ti_patch16'), (False, 'ceit_t')):
+        for train in (False, True):
+            kernel = ('fused_attention_fwd' + ('' if pre_ln else '_noln')
+                      + ('_train' if train else ''))
+            run = swept.get((name, 224, 'grad') if train else (name, 224), {})
+            got = d192_runs[(pre_ln, train)] = run.get(kernel, 0)
+            step = 'gradient step' if train else 'forward'
+            checks.expect(got > 0, f'K1 at D = 192: {got} {kernel} launches '
+                                   f'on the sweep\'s {name} depth-2 {step}')
+    ceit_train = train_path(checks, 'train CeiT-S @224 bs64', 224, 64,
+                            {'fused_attention_fwd_noln_train': 12,
+                             'flash_bwd_fused': 12}, args.seed,
+                            profile=args.profile, model_name='ceit_s')
+
     def th_entry(name, replaces, launches, rec, train=None,
                  source='th_attention.cu', **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
@@ -2802,6 +2909,22 @@ def main(argv=None):
                     nores_tntb_ms=b['ms'], nores_tntb_plain_ms=b['plain_ms'],
                     nores_tntb_library_ms=b['library_ms'],
                     nores_tntb_bound_ms=b['bound_ms'])
+
+    def d192(rec, launches):
+        """K1 at D = 192, H = 3 (vit_ti's pre-LN, ceit_t's post-LN) under
+        d192_*; ``launches`` from the sweep's depth-2 run of vit_ti or
+        ceit_t (a forward, or a gradient step for a train variant)."""
+        return dict(d192_launches=launches,
+                    **{f'd192_{k}': v for k, v in rec.items()})
+
+    def noln_entry(name, launches, rec, other, tag, extra):
+        """K1's post-LN route: ``rec`` at its path's batch, ``other`` (the
+        other batch) under ``tag``_*, ``extra`` (d192_*) beside them."""
+        return dict(name=name, route='cuda',
+                    source='sav_tpu_torch/csrc/fused_attention.cu',
+                    replaces='sav_tpu/ops/fused_layer.py:127',
+                    launches=launches, **rec,
+                    **{f'{tag}_{k}': v for k, v in other.items()}, **extra)
 
     def tnt_entry(name, replaces, launches, rec, tntb, **extra):
         """A K7 line: ``rec`` at TNT-S's shape, ``tntb`` at TNT-B's."""
@@ -2830,7 +2953,8 @@ def main(argv=None):
              launches=k1_serve.get('fused_attention_fwd', 0),
              max_abs_err=max(r['max_abs_err'] for r in k1.values()),
              **{k: v for k, v in k1[197].items() if k != 'max_abs_err'},
-             **nores(False, tnt_serve.get('fused_attention_fwd', 0))),
+             **nores(False, tnt_serve.get('fused_attention_fwd', 0)),
+             **d192(k1_192[(True, False)], d192_runs[(True, False)])),
         # K4: ViT-B/16 @384 serving (B=32, L=577) launches and timing; the
         # fused_ff training shape (B=192, L=197) under train_*
         dict(name='flash_fwd', route='cuda',
@@ -2849,7 +2973,19 @@ def main(argv=None):
              launches=t224.get('fused_attention_fwd_train', 0),
              max_abs_err=max(r['max_abs_err'] for r in k1t.values()),
              **{k: v for k, v in k1t[197].items() if k != 'max_abs_err'},
-             **nores(True, ts224.get('fused_attention_fwd_train', 0))),
+             **nores(True, ts224.get('fused_attention_fwd_train', 0)),
+             **d192(k1_192[(True, True)], d192_runs[(True, True)])),
+        # K1's post-LN route (CeiT): CeiT-S serving (B=32) and training
+        # (B=64) launches and timing, the other batch under b64_*/b32_*,
+        # ceit_t's D = 192 under d192_*
+        noln_entry('fused_attention_fwd_noln',
+                   ceit_serve.get('fused_attention_fwd_noln', 0),
+                   k1c[(args.batch, False)], k1c[(64, False)], 'b64',
+                   d192(k1_192[(False, False)], d192_runs[(False, False)])),
+        noln_entry('fused_attention_fwd_noln_train',
+                   ceit_train.get('fused_attention_fwd_noln_train', 0),
+                   k1c[(64, True)], k1c[(args.batch, True)], 'b32',
+                   d192(k1_192[(False, True)], d192_runs[(False, True)])),
         # K2 at @224 bs192 (L = 197) beside the K3 pair on the same inputs
         # (k3_pair_ms), and at 200 over 190 keys under l200_*
         dict(name='flash_bwd_fused', route='cuda',

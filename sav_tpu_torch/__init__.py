@@ -1,7 +1,7 @@
 """sav_tpu_torch: the PyTorch/CUDA port of sav_tpu for NVIDIA Hopper.
 
-The ViT, CaiT, MLP-Mixer, TNT and BoTNet families (``models``), served by
-``python -m sav_tpu_torch.predict`` and trained by ``python -m
+The ViT, CaiT, MLP-Mixer, TNT, BoTNet and CeiT families (``models``),
+served by ``python -m sav_tpu_torch.predict`` and trained by ``python -m
 sav_tpu_torch.train`` on one card, with every TPU kernel on their paths
 ported to hand-written CUDA (``csrc/``, wrapped in ``ops``; ROADMAP.md
 lists the slices and what is still to come). Imports torch, numpy and the

@@ -190,6 +190,17 @@ __host__ __device__ inline int plan_bn(int m, int n_each, int parts,
   return best;
 }
 
+// Whether the GEMM takes an output width n_each and a depth k: a tile of
+// 256, 192 or 128 columns divides n_each (plan_bn finds one: multiples of
+// 128, and 192, 576, ... of 192) and k is whole 64-deep steps. The
+// widths of every model the port runs but D = 192 (ceit_t, vit_ti,
+// cait_xxs) are multiples of 128; at D = 192 the whole width is one
+// 192-column tile and the depth three steps.
+__host__ __device__ inline bool takes(int n_each, int k) {
+  return k >= BK && k % BK == 0 && n_each > 0
+         && (n_each % 128 == 0 || n_each % 192 == 0);
+}
+
 // d += A B over one 16-deep step, 64 x N: A [64 x 16] K-major in shared
 // memory (desc_k_major), B [16 x N] MN-major (the transpose bit; 64-column
 // boxes 8 KB apart: desc_encode(tile, BOX, 1024)).
@@ -497,13 +508,13 @@ cudaError_t launch(const Maps& maps, const Args& args, int sms,
 }
 
 // C_p[M, n_each] = A[M, K] @ W_p[K, n_each] for the `parts` weights (QKV:
-// 3, c0 scaled by q_scale; OUT: 1, + resid when not null). Needs K % 64 ==
-// 0 and n_each % 128 == 0; any M >= 1. Returns 0 or a cudaError_t.
+// 3, c0 scaled by q_scale; OUT: 1, + resid when not null). Needs
+// takes(n_each, k); any M >= 1. Returns 0 or a cudaError_t.
 template <int MODE>
 int run(const void* a, const void* const (&w)[3], void* const (&c)[3],
         const void* resid, int m, int k, int n_each, int parts,
         float q_scale, cudaStream_t st) {
-  if (m < 1 || k % BK || n_each % 128 || parts < 1 || parts > 3)
+  if (m < 1 || !takes(n_each, k) || parts < 1 || parts > 3)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);

@@ -1,7 +1,7 @@
 """String-keyed model factory (counterpart of
-``sav_tpu/models/factory.py``): the ViT, CaiT, MLP-Mixer, TNT and BoTNet
-names so far (28 of the JAX factory's 34; CeiT and CvT wait for their
-slices, ROADMAP.md)."""
+``sav_tpu/models/factory.py``): the ViT, CaiT, MLP-Mixer, TNT, BoTNet and
+CeiT names so far (31 of the JAX factory's 34; CvT waits for its slice,
+ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -10,9 +10,10 @@ from typing import Any, Dict
 import torch
 
 from sav_tpu_torch import resolve_device
-from sav_tpu_torch.models import botnet, cait, mlp_mixer, tnt, vit
+from sav_tpu_torch.models import botnet, cait, ceit, mlp_mixer, tnt, vit
 from sav_tpu_torch.models.botnet import BoTNet
 from sav_tpu_torch.models.cait import CaiT
+from sav_tpu_torch.models.ceit import CeiT
 from sav_tpu_torch.models.mlp_mixer import MLPMixer
 from sav_tpu_torch.models.tnt import TNT
 from sav_tpu_torch.models.vit import ViT
@@ -70,6 +71,9 @@ MODEL_CONFIGS: Dict[str, Any] = {
     'tnt_b_patch16': (TNT, dict(num_layers=12, inner_num_heads=4,
                                 outer_num_heads=10, inner_embed_dim=40,
                                 outer_embed_dim=640)),
+    'ceit_t': (CeiT, dict(num_layers=12, num_heads=3, embed_dim=192)),
+    'ceit_s': (CeiT, dict(num_layers=12, num_heads=6, embed_dim=384)),
+    'ceit_b': (CeiT, dict(num_layers=12, num_heads=12, embed_dim=768)),
 }
 
 
@@ -133,5 +137,7 @@ def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:
         tnt.set_use_kernel(model, use_kernel)
     elif isinstance(model, BoTNet):
         botnet.set_use_kernel(model, use_kernel)
+    elif isinstance(model, CeiT):
+        ceit.set_use_kernel(model, use_kernel)
     else:
         vit.set_use_kernel(model, use_kernel)

@@ -93,6 +93,7 @@ class LayerNorm(nn.Module):
         return _layernorm(x, self.scale, self.bias, LN_EPS)[0].to(self.dtype)
 
 
+# 'SAME', 'VALID' or explicit ((lo, hi), (lo, hi))
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
 
@@ -111,6 +112,8 @@ def _pads(x: torch.Tensor, window, strides, padding: Padding):
     if padding == 'SAME':
         return tuple(same_pads(x.shape[1 + i], window[i], strides[i])
                      for i in range(2))
+    if padding == 'VALID':
+        return ((0, 0), (0, 0))
     return tuple(tuple(p) for p in padding)
 
 
@@ -121,42 +124,58 @@ def _pad_nchw(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
+CONV_INITS = {'he_uniform': he_uniform_, 'lecun_normal': lecun_normal_}
+
+
 class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias on NHWC images: ``kernel [kh, kw, in,
-    out]`` (he-uniform init, BoTNet's), ``padding`` 'SAME' (flax's
-    asymmetric rule, ``same_pads``) or explicit ((lo, hi), (lo, hi)). A 1 x 1 kernel is a matmul over the strided grid; any other runs
+    """flax ``nn.Conv`` on NHWC images: ``kernel [kh, kw, in, out]`` and,
+    with ``use_bias``, ``bias [out]`` (zero init), ``padding`` 'SAME'
+    (flax's asymmetric rule, ``same_pads``) or explicit ((lo, hi), (lo,
+    hi)). ``init`` is the kernel's: ``'he_uniform'`` (BoTNet's, the
+    default) or ``'lecun_normal'`` (flax's own default, CeiT's convs). A
+    1 x 1 kernel is a matmul over the strided grid; any other runs
     ``F.conv2d`` on the NCHW view (channels-last in memory)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, int] = (1, 1),
                  strides: Tuple[int, int] = (1, 1), padding: Padding = 'SAME',
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_bias: bool = False,
+                 init: str = 'he_uniform'):
         super().__init__()
+        if init not in CONV_INITS:
+            raise ValueError(f'init must be one of {sorted(CONV_INITS)}, got '
+                             f'{init!r}')
         self.kernel_size, self.strides = tuple(kernel_size), tuple(strides)
-        self.padding, self.dtype = padding, dtype
+        self.padding, self.dtype, self.init = padding, dtype, init
         self.kernel = nn.Parameter(
             torch.empty(*kernel_size, in_features, features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def init_params(self, generator: torch.Generator) -> None:
         kh, kw, cin, _ = self.kernel.shape
-        he_uniform_(self.kernel, kh * kw * cin, generator)
+        CONV_INITS[self.init](self.kernel, kh * kw * cin, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         x = x.to(self.dtype)
         w = self.kernel.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         pads = _pads(x, self.kernel_size, self.strides, self.padding)
         sh, sw = self.strides
         if self.kernel_size == (1, 1) and pads == ((0, 0), (0, 0)):
-            return x[:, ::sh, ::sw] @ w[0, 0]
+            y = x[:, ::sh, ::sw] @ w[0, 0]
+            return y if b is None else y + b
         y = F.conv2d(_pad_nchw(x.permute(0, 3, 1, 2), pads),
-                     w.permute(3, 2, 0, 1), stride=self.strides)
+                     w.permute(3, 2, 0, 1), b, stride=self.strides)
         return y.permute(0, 2, 3, 1)
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int],
              strides: Tuple[int, int], padding: Padding):
-    """flax ``nn.max_pool`` on NHWC: padded positions are -inf, so they
-    never win."""
+    """flax ``nn.max_pool`` on NHWC (``padding`` 'VALID', flax's
+    default, 'SAME' or explicit): padded positions are -inf, so they never
+    win."""
     pads = _pads(x, window, strides, padding)
     y = F.max_pool2d(_pad_nchw(x.permute(0, 3, 1, 2), pads, -math.inf),
                      window, strides)

@@ -1,5 +1,6 @@
-"""The pre-LN attention sublayer ``x + W_o @ MHA(LN(x))`` as one
-differentiable call (counterpart of ``sav_tpu/ops/fused_layer.py``).
+"""The pre-LN attention sublayer ``x + W_o @ MHA(LN(x))`` and the post-LN
+one ``x + W_o @ MHA(x)`` (CeiT's) as one differentiable call each
+(counterpart of ``sav_tpu/ops/fused_layer.py``).
 
 Three cores, as in the JAX package:
   * ``'xla'``   - plain torch everywhere (the name is the JAX package's).
@@ -12,8 +13,10 @@ residuals are flash-style for every core, ``(x, q, k, v, attn, lse)``: no
 ``[B, H, L, L]`` tensor is saved. Its backward follows ``_sublayer_bwd``:
 the out-projection, weight-gradient and LayerNorm backward as library ops,
 the attention core on the K2/K3 port (``flash_attention.flash_bwd``; the
-plain twin on the ``'xla'`` core). A call with grad off (inference, eval)
-runs the forward that writes no residuals.
+plain twin on the ``'xla'`` core); without the LN (``pre_ln=False``) the
+weight gradients read x where the pre-LN span reads LN(x), and dx is dy
+(+ g). A call with grad off (inference, eval) runs the forward that writes
+no residuals.
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ from sav_tpu_torch.ops.quantized import int_matmul, quantize_symmetric
 
 CORES = ('xla', 'flash', 'fused')
 LN_EPS = 1e-6
-GEMM_TILE = 128         # the multiple of N and K the K1 port's GEMM takes
+# the tile of the port's 128-wide GEMM contracts (K5a's route, K10, K16)
+GEMM_TILE = 128
+# the column tiles of the projection GEMM (csrc/proj_sm90.cuh, plan_bn),
+# widest first, and the depth of one of its steps
+PROJ_TILES, PROJ_STEP = (256, 192, 128), 64
 
 
 def _layernorm(x, scale, bias, eps):
@@ -99,6 +106,16 @@ def _project_qkv(y, wq, wk, wv, num_heads, head_d):
             v.reshape(b, l, num_heads, head_d))
 
 
+def proj_takes(n_each: int, k: int) -> bool:
+    """Whether the projection GEMM takes an output width ``n_each`` and a
+    depth ``k`` (``proj::takes``): a tile of ``PROJ_TILES`` divides
+    ``n_each`` (multiples of 128, and 192, 576, ... of 192) and ``k`` is
+    whole 64-deep steps. D = 192 (ceit_t, vit_ti) is one 192-column tile
+    and three steps."""
+    return (k >= PROJ_STEP and k % PROJ_STEP == 0 and n_each > 0
+            and (n_each % 128 == 0 or n_each % 192 == 0))
+
+
 def proj_plan(m: int, n_each: int, parts: int, k: int, sms: int) -> dict:
     """Launch geometry of the projection GEMM of K1 and K5a (the QKV and
     out products, ``csrc/proj_sm90.cuh``), mirrored from its ``plan_bn``
@@ -111,18 +128,19 @@ def proj_plan(m: int, n_each: int, parts: int, k: int, sms: int) -> dict:
     shared memory (a ring of ``stages`` slots, 3 at bn = 256 and else 4,
     each a 128 x 64 box of A and bn / 64 boxes of 64 x 64 of the weight;
     two 64 x bn bf16 staging tiles for the TMA stores; the mbarriers; 1024
-    bytes of alignment slack); ``steps``: 64-deep steps a unit. Raises ValueError where
-    ``n_each`` or ``k`` is not a multiple of 128 (the port's contract:
-    D and H*d multiples of 128)."""
-    if n_each % GEMM_TILE or k % GEMM_TILE or n_each < 1 or k < 1:
-        raise ValueError(f'the projection GEMM needs N and K to be multiples '
-                         f'of {GEMM_TILE}, got N={n_each}, K={k}')
+    bytes of alignment slack); ``steps``: 64-deep steps a unit. Raises
+    ValueError where ``proj_takes`` fails (no tile divides ``n_each``, or
+    ``k`` is not whole steps)."""
+    if not proj_takes(n_each, k):
+        raise ValueError(f'the projection GEMM needs N to be a multiple of '
+                         f'128 or of 192 and K of {PROJ_STEP}, got N={n_each}, '
+                         f'K={k}')
     if m < 1 or parts not in (1, 3):
         raise ValueError(f'the projection GEMM takes M >= 1 rows and 1 or 3 '
                          f'weights, got M={m}, parts={parts}')
     slots = max(sms, 1)
     best = None
-    for bn in (256, 192, 128):
+    for bn in PROJ_TILES:
         if n_each % bn:
             continue
         units = -(-m // 128) * parts * (n_each // bn)
@@ -138,16 +156,18 @@ def proj_plan(m: int, n_each: int, parts: int, k: int, sms: int) -> dict:
 
 
 def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
-                              save_residuals=False, residual=True):
+                              save_residuals=False, residual=True,
+                              pre_ln=True):
     """Plain twin of ``fused_attention_fwd``, rounding where the TPU kernel
-    ``_fused_fwd_kernel`` rounds: y, q, k, v, each head's output band and
-    the result in x.dtype; products accumulated in f32; x added in f32
-    when ``residual``."""
+    ``_fused_fwd_kernel`` rounds: y (LN(x), or x itself without
+    ``pre_ln``), q, k, v, each head's output band and the result in
+    x.dtype; products accumulated in f32; x added in f32 when
+    ``residual``."""
     b, l, dim = x.shape
     hd = wq.shape[1]
     d = hd // heads
     dt = x.dtype
-    y = _layernorm(x, scale, bias, eps)[0].float()
+    y = (_layernorm(x, scale, bias, eps)[0] if pre_ln else x).float()
     q = ((y @ wq.float()) * (1.0 / d ** 0.5)).to(dt)
     k = (y @ wk.float()).to(dt)
     v = (y @ wv.float()).to(dt)
@@ -168,7 +188,7 @@ def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,
 def _k1_lib():
     fn = _build.library('fused_attention').sav_fused_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -176,18 +196,21 @@ def _k1_lib():
 
 def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
                         eps: float = LN_EPS, save_residuals: bool = False,
-                        residual: bool = True):
+                        residual: bool = True, pre_ln: bool = True):
     """Port of K1: ``x + W_o @ MHA(LN(x))`` in one call; with
     ``residual=False`` the sublayer alone, ``W_o @ MHA(LN(x))`` (the out
     GEMM's epilogue skips the add, as the TPU kernel does; TNT's outer
-    sublayer adds the pre-bridge stream itself).
+    sublayer adds the pre-bridge stream itself); with ``pre_ln=False`` the
+    post-LN span ``x + W_o @ MHA(x)`` (CeiT's; scale and bias are not read
+    and may be None).
 
     x ``[B, L, D]``; scale, bias ``[D]``; wq, wk, wv ``[D, H*d]`` and wo
     ``[H*d, D]`` in x's dtype. On a CUDA tensor: the hand-written kernels
     (four launches, see ``csrc/fused_attention.cu``: LN, the ``wgmma``
-    QKV GEMM of ``proj_plan``, K4's attention kernel, the out GEMM), bf16
-    only, d = 64, D and H*d multiples of 128. On a CPU tensor: the plain
-    twin.
+    QKV GEMM of ``proj_plan``, K4's attention kernel, the out GEMM; three
+    without the LN, the QKV GEMM reading x), bf16 only, d = 64, D and H*d
+    widths ``proj_takes`` (multiples of 128, and 192). On a CPU tensor: the
+    plain twin.
 
     Returns ``out``; with ``save_residuals`` (the training variant)
     ``(out, (q, k, v, attn, lse))``: q (pre-scaled), k, v and attn as
@@ -198,52 +221,62 @@ def fused_attention_fwd(x, scale, bias, wq, wk, wv, wo, heads: int,
     """
     if x.device.type == 'cpu':
         return fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo,
-                                         heads, eps, save_residuals, residual)
+                                         heads, eps, save_residuals, residual,
+                                         pre_ln)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_attention_fwd runs on cuda or cpu, not {x.device}')
-    fa.check_no_grad(x, scale, bias, wq, wk, wv, wo)
+    fa.check_no_grad(*[t for t in (x, scale, bias, wq, wk, wv, wo)
+                       if t is not None])
     b, l, dim = x.shape
     hd = heads * fa.BAND
     for name, t in (('x', x), ('wq', wq), ('wk', wk), ('wv', wv), ('wo', wo)):
         fa.check_cuda_bf16(name, t, x.device)
-    if dim % GEMM_TILE or hd % GEMM_TILE:
+    if not (proj_takes(dim, hd) and proj_takes(hd, dim)):
         raise ValueError(f'fused_attention_fwd needs D and H*{fa.BAND} to be '
-                         f'multiples of {GEMM_TILE}, got D={dim}, H={heads}')
+                         f'multiples of 128, or of 192 (proj_takes), got '
+                         f'D={dim}, H={heads}')
     for name, t, shape in (('wq', wq, (dim, hd)), ('wk', wk, (dim, hd)),
                            ('wv', wv, (dim, hd)), ('wo', wo, (hd, dim))):
         if tuple(t.shape) != shape:
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
-    scale = scale.to(x.device, torch.float32).contiguous()
-    bias = bias.to(x.device, torch.float32).contiguous()
-    y = torch.empty(b * l, dim, dtype=x.dtype, device=x.device)
+    y = None
+    if pre_ln:
+        scale = scale.to(x.device, torch.float32).contiguous()
+        bias = bias.to(x.device, torch.float32).contiguous()
+        y = torch.empty(b * l, dim, dtype=x.dtype, device=x.device)
     qkva = [torch.empty(b, l, hd, dtype=x.dtype, device=x.device)
             for _ in range(4)]                    # q, k, v, attn
     lse = (torch.empty(b, heads, l, dtype=torch.float32, device=x.device)
            if save_residuals else None)
     out = torch.empty_like(x)
     fn = _k1_lib()
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        err = fn(x.data_ptr(), ptr(scale if pre_ln else None),
+                 ptr(bias if pre_ln else None),
                  wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-                 y.data_ptr(), *[t.data_ptr() for t in qkva], out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 b, l, dim, heads, int(residual), eps,
+                 ptr(y), *[t.data_ptr() for t in qkva], out.data_ptr(),
+                 ptr(lse), b, l, dim, heads, int(residual), int(pre_ln), eps,
                  1.0 / math.sqrt(fa.BAND),
                  fa.stream_of(x.device))
     _build.check(err, 'fused_attention_fwd')
+    # the post-LN route counts under names of its own
+    name = 'fused_attention_fwd' + ('' if pre_ln else '_noln')
     if not save_residuals:
-        _build.count('fused_attention_fwd')
+        _build.count(name)
         return out
-    _build.count('fused_attention_fwd_train')
+    _build.count(name + '_train')
     return out, (*qkva, lse)
 
 
 def fused_supported(l: int, num_heads: int, head_d: int) -> bool:
     """Whether the K1 port takes the shape. Its GEMM (``proj_plan``) takes
-    N and K in multiples of 128, so H*d (= D in ViT) must be one, and its
+    N and K where ``proj_takes`` holds (multiples of 128, and 192), so H*d
+    (= D in the models that call it) must be such a width, and its
     attention core is written for d = 64. Any L works: every launch masks
     its ragged row tail, so (unlike the TPU kernel) no single-block limit."""
-    return l >= 1 and head_d == fa.BAND and (num_heads * head_d) % GEMM_TILE == 0
+    hd = num_heads * head_d
+    return l >= 1 and head_d == fa.BAND and proj_takes(hd, hd)
 
 
 def auto_core(l: int, num_heads: int, head_ch: int, device):
@@ -273,10 +306,11 @@ def auto_core(l: int, num_heads: int, head_ch: int, device):
 
 
 def _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
-             residual, rotary, save_residuals):
+             residual, rotary, save_residuals, pre_ln=True):
     """(out, residuals): residuals ``(q, k, v, attn, lse)`` on the
     ``[B, L, H*d]`` layout (q pre-scaled and, with ``rotary``, rotated) when
-    ``save_residuals``, else None."""
+    ``save_residuals``, else None. Without ``pre_ln`` the projections read
+    x itself (scale and bias unused)."""
     b, l, dim = x.shape
     head_d = wq.shape[2]
     hd = num_heads * head_d
@@ -287,11 +321,12 @@ def _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
         ws.append(wo.reshape(hd, dim).to(cdt))
         if save_residuals:
             return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps,
-                                       save_residuals=True, residual=residual)
+                                       save_residuals=True, residual=residual,
+                                       pre_ln=pre_ln)
         return fused_attention_fwd(x, scale, bias, *ws, num_heads, eps,
-                                   residual=residual), None
+                                   residual=residual, pre_ln=pre_ln), None
 
-    y = _layernorm(x, scale, bias, eps)[0]
+    y = _layernorm(x, scale, bias, eps)[0] if pre_ln else x
     qs, k, v = _project_qkv(y, wq, wk, wv, num_heads, head_d)
     if rotary:
         freqs = sincos_frequencies(l, head_d, device=x.device)
@@ -313,21 +348,24 @@ def _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
 
 
 class _AttentionSublayer(torch.autograd.Function):
-    """``_sublayer_fwd``/``_sublayer_bwd`` of the JAX package."""
+    """``_sublayer_fwd``/``_sublayer_bwd`` of the JAX package; with
+    ``pre_ln=False`` (scale and bias None) ``_sublayer_noln_fwd``/
+    ``_sublayer_noln_bwd``."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, wq, wk, wv, wo, num_heads, core, eps,
-                residual, rotary):
+                residual, rotary, pre_ln):
         out, res = _forward(x, scale, bias, wq, wk, wv, wo, num_heads, core,
-                            eps, residual, rotary, save_residuals=True)
+                            eps, residual, rotary, save_residuals=True,
+                            pre_ln=pre_ln)
         ctx.save_for_backward(x, scale, bias, wq, wk, wv, wo, *res)
-        ctx.config = (num_heads, core, eps, residual, rotary)
+        ctx.config = (num_heads, core, eps, residual, rotary, pre_ln)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, scale, bias, wq, wk, wv, wo, qs, k, v, attn, lse = ctx.saved_tensors
-        num_heads, core, eps, residual, rotary = ctx.config
+        num_heads, core, eps, residual, rotary, pre_ln = ctx.config
         b, l, dim = x.shape
         head_d = wq.shape[2]
         hd = num_heads * head_d
@@ -351,19 +389,28 @@ class _AttentionSublayer(torch.autograd.Function):
                 a.reshape(b, l, num_heads, head_d), -freqs).reshape(b, l, hd)
             dq, dk = unrot(dq), unrot(dk)
 
-        # projection weight gradients and dy; y recomputed from x
-        y, xhat, inv = _layernorm(x, scale, bias, eps)
+        # projection weight gradients and dy; y recomputed from x (or x
+        # itself without the LN)
+        if pre_ln:
+            y, xhat, inv = _layernorm(x, scale, bias, eps)
+        else:
+            y = x
         dwq, dwk, dwv = (_wgrad(y, t) for t in (dq, dk, dv))
         dy = dq @ w2[0].t() + dk @ w2[1].t() + dv @ w2[2].t()
-        dx_ln, dscale, dbias = _layernorm_bwd(dy, xhat, inv, scale)
+        dscale = dbias = None
+        if pre_ln:
+            dx_ln, dscale, dbias = _layernorm_bwd(dy, xhat, inv, scale)
+            dscale, dbias = dscale.to(scale.dtype), dbias.to(bias.dtype)
+        else:
+            dx_ln = dy.float()
         dx = (dx_ln + g.float()).to(cdt) if residual else dx_ln.to(cdt)
         shape_w = (dim, num_heads, head_d)
-        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype),
+        return (dx, dscale, dbias,
                 dwq.reshape(shape_w).to(wq.dtype),
                 dwk.reshape(shape_w).to(wk.dtype),
                 dwv.reshape(shape_w).to(wv.dtype),
                 dwo.reshape(num_heads, head_d, dim).to(wo.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
@@ -385,9 +432,33 @@ def attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
     args = (x, scale, bias, wq, wk, wv, wo)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _AttentionSublayer.apply(*args, num_heads, core, eps, residual,
-                                        rotary)
+                                        rotary, True)
     return _forward(*args, num_heads, core, eps, residual, rotary,
                     save_residuals=False)[0]
+
+
+def attention_sublayer_noln(x, wq, wk, wv, wo, num_heads, core='flash',
+                            residual=True):
+    """``x + W_o @ MHA(x)``: the post-LN attention sublayer (CeiT's encoder
+    blocks normalise after the residual, outside this span), differentiable
+    in its five tensors. Same cores, residuals and residual policy as
+    ``attention_sublayer``; on the ``'fused'`` core the K1 port's post-LN
+    route (three launches: QKV GEMM on x, K4's attention, out GEMM + x).
+
+    Args:
+      x: ``[B, L, D]`` activations.
+      wq, wk, wv: projection kernels ``[D, H, d]``; wo: ``[H, d, D]``.
+      num_heads, core, residual: as in ``attention_sublayer``.
+    """
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
+    args = (x, None, None, wq, wk, wv, wo)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wq, wk, wv, wo)):
+        return _AttentionSublayer.apply(*args, num_heads, core, LN_EPS,
+                                        residual, False, False)
+    return _forward(*args, num_heads, core, LN_EPS, residual, False,
+                    save_residuals=False, pre_ln=False)[0]
 
 
 # ------------------------- int8 serving forward (K10): projections in int8
@@ -586,6 +657,14 @@ def fused_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
     return out
 
 
+def q8_supported(l: int, dim: int, num_heads: int, head_d: int) -> bool:
+    """Whether the K10 port takes the shape: d = 64, and D and H*d
+    multiples of 128, as ``fused_q8_plan`` requires. Any L."""
+    hd = num_heads * head_d
+    return (l >= 1 and head_d == fa.BAND and dim >= GEMM_TILE
+            and dim % GEMM_TILE == 0 and hd % GEMM_TILE == 0)
+
+
 def _q8_weights(wq, wk, wv, wo, dim, hd):
     """Per-column codes and scales of the four projection kernels, from
     their f32 values: [(wq_q, sq), (wk_q, sk), (wv_q, sv), (wo_q, so)]."""
@@ -598,9 +677,10 @@ def attention_sublayer_q8(x, scale, bias, wq, wk, wv, wo, num_heads,
                           eps=LN_EPS, residual=True, core='kernel'):
     """Serving-only ``x + W_o @ MHA(LN(x))`` with int8 projections (K10).
 
-    Same parameters as ``attention_sublayer`` (minus its core). Where the
-    port's ``fused_supported`` refuses the shape it runs the bf16 sublayer
-    on the ``'flash'`` core, as the JAX package falls back off its kernel's
+    Same parameters as ``attention_sublayer`` (minus its core). Where
+    ``q8_supported`` refuses the shape (K10 takes narrower widths than K1:
+    ViT-Ti's D = 192 is K1's but not K10's) it runs the bf16 sublayer on
+    the ``'flash'`` core, as the JAX package falls back off its kernel's
     geometry. Raises under autograd on either route. ``core='plain'`` runs
     K10's twin on any device (the card's reference for the kernel).
     """
@@ -609,7 +689,7 @@ def attention_sublayer_q8(x, scale, bias, wq, wk, wv, wo, num_heads,
         raise RuntimeError(SERVING_ONLY)
     b, l, dim = x.shape
     head_d = wq.shape[2]
-    if not fused_supported(l, num_heads, head_d):
+    if not q8_supported(l, dim, num_heads, head_d):
         return attention_sublayer(x, scale, bias, wq, wk, wv, wo, num_heads,
                                   core='flash', eps=eps, residual=residual)
     (wq_q, sq), (wk_q, sk), (wv_q, sv), (wo_q, so) = _q8_weights(

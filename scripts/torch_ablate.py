@@ -1206,8 +1206,9 @@ KERNELS = {
         entries={'sav_fused_attention_fwd': (
             'x', 'ls', 'lb', 'wq', 'wk', 'wv', 'wo', 'y', 'qs', 'ks', 'vs',
             'attn', 'out', 'lse')},
+        # the 1 after the residual flag: pre_ln (0 is the post-LN route)
         dims=lambda b, seq, heads, dim, train, res, t: (
-            b, seq, dim, heads, int(res), 1e-6, 0.125),
+            b, seq, dim, heads, int(res), 1, 1e-6, 0.125),
         others=[_sublayer_chain(64)],
         variants=dict(K1_VARIANTS, **PROJ_VARIANTS)),
     # the mma.sync K1 of an older checkout (with --csrc on its csrc/)

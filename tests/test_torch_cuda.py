@@ -258,7 +258,7 @@ def test_fused_attention_training_variant(card, seq):
 @pytest.mark.parametrize('train', [False, True])
 @pytest.mark.parametrize('residual', [False, True])
 @pytest.mark.parametrize('dim,b,seq', [(384, 3, 197), (640, 5, 131),
-                                       (768, 3, 197)])
+                                       (768, 3, 197), (192, 3, 197)])
 def test_projection_gemm_widths(card, dim, b, seq, residual, train):
     rng = np.random.RandomState(dim + seq + 2 * residual + train)
     heads = dim // 64
@@ -290,7 +290,7 @@ def test_proj_plan_matches_the_kernel(card):
     out = (ctypes.c_int * 3)()
     for m in (1, 129, 591, 6272, 6304, 12608, 25088, 37824):
         for n, parts in ((384, 3), (384, 1), (640, 3), (640, 1), (768, 3),
-                         (768, 1), (256, 3)):
+                         (768, 1), (256, 3), (192, 3), (192, 1), (576, 3)):
             for sms in (132, 114):
                 fn(m, n, parts, sms, ctypes.addressof(out))
                 plan = fused_layer.proj_plan(m, n, parts, 128, sms)
@@ -1951,13 +1951,16 @@ def test_q8_kernels_repeat_bitwise_over_queued_calls(card):
     ('cait_s_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
     ('cait_xxs_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
     ('vit_b_patch16', True, True, {'fused_attention_fwd': 2,
-                                   'int8_matmul': 4})])
+                                   'int8_matmul': 4}),
+    ('vit_ti_patch16', 'all', False, {'flash_fwd': 2, 'int8_ff_ln': 2})])
 def test_int8_serving_paths_at_depth_2(card, name, quantized, dense_fused,
                                        want):
-    """CaiT-S/24 and cait_xxs_24 'all' (K11 + K12) and ViT-B/16 'int8' with
-    QuantizedDense(fused=True) (K1 + K15) at 224 px, depth 2, batch 4: the
-    launches of one forward, and logits within 5e-2 of max |logit| of the
-    same model on the int8 twins (set_int8_core)."""
+    """CaiT-S/24 and cait_xxs_24 'all' (K11 + K12), ViT-B/16 'int8' with
+    QuantizedDense(fused=True) (K1 + K15) and ViT-Ti/16 'all' (D = 192,
+    which K1 takes and K10 does not: the bf16 sublayer on K4 + K13) at 224
+    px, depth 2, batch 4: the launches of one forward, and logits within
+    5e-2 of max |logit| of the same model on the int8 twins
+    (set_int8_core)."""
     from sav_tpu_torch import _build
     from sav_tpu_torch.models import create_model, set_int8_core
     from sav_tpu_torch.nn.quantized_dense import QuantizedDense
@@ -1985,3 +1988,98 @@ def test_int8_serving_paths_at_depth_2(card, name, quantized, dense_fused,
         plain = model(x).float()
     err = float((logits - plain).abs().max() / plain.abs().max())
     assert bool(torch.isfinite(logits).all()) and err <= 5e-2, err
+
+
+# ---- CeiT (slice 9): K1's post-LN route (pre_ln=False: no LN launch, the
+# QKV GEMM reads x) and the projection GEMM's 192-wide outputs
+
+def _k1_inputs(rng, b, seq, dim, heads, card):
+    x = _bf16(rng, (b, seq, dim), 1, card)
+    scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
+    bias = _bf16(rng, (dim,), 0.1, card).float()
+    hd = heads * 64
+    wq, wk, wv = (_bf16(rng, (dim, hd), s / math.sqrt(dim), card)
+                  for s in (4, 1, 1))
+    wo = _bf16(rng, (hd, dim), 1 / math.sqrt(hd), card)
+    return x, scale, bias, wq, wk, wv, wo, heads
+
+
+@pytest.mark.parametrize('train', [False, True])
+@pytest.mark.parametrize('pre_ln', [False, True])
+@pytest.mark.parametrize('dim,heads,b,seq', [(384, 6, 2, 197), (192, 3, 3, 65),
+                                             (256, 4, 1, 5)])
+def test_fused_attention_routes_match_twin(card, dim, heads, b, seq, pre_ln,
+                                           train):
+    """K1 with and without its LN, both variants, at CeiT-S's width, at
+    D = 192 (the GEMM's 192-wide tile) and at a 5-row sequence; the
+    post-LN route counts under its own names."""
+    from sav_tpu_torch import _build
+    rng = np.random.RandomState(dim + seq + 2 * pre_ln + train)
+    args = _k1_inputs(rng, b, seq, dim, heads, card)
+    x = args[0]
+    _build.reset_launches()
+    out = fused_layer.fused_attention_fwd(*args, save_residuals=train,
+                                          pre_ln=pre_ln)
+    plain = fused_layer.fused_attention_fwd_plain(
+        *args, fused_layer.LN_EPS, save_residuals=train, pre_ln=pre_ln)
+    name = 'fused_attention_fwd' + ('' if pre_ln else '_noln') + (
+        '_train' if train else '')
+    assert _build.launches == {name: 1}
+    if train:
+        (out, res), (plain, p_res) = out, plain
+        for ours, twin in zip(res[:4], p_res[:4]):
+            assert _rel(ours, twin) <= 2e-2
+        split = lambda a: a.float().view(b, seq, heads, 64)
+        own = torch.logsumexp(torch.einsum('bqhd,bkhd->bhqk', split(res[0]),
+                                           split(res[1])), dim=-1)
+        assert (res[4] - own).abs().max() <= 1e-3
+    delta = (plain.float() - x.float()).abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * delta
+
+
+def test_noln_route_reads_no_ln_parameters(card):
+    """The post-LN route takes None for the LN's scale and bias."""
+    args = list(_k1_inputs(np.random.RandomState(7), 2, 65, 384, 6, card))
+    want = fused_layer.fused_attention_fwd(*args, pre_ln=False)
+    args[1] = args[2] = None
+    assert torch.equal(fused_layer.fused_attention_fwd(*args, pre_ln=False),
+                       want)
+
+
+def test_vit_b_k1_outputs_match_the_pinned_digests(card):
+    """ViT-B/16's K1 outputs (pre-LN, both variants) bit-identical to the
+    digests the 128-multiple GEMM gave before it took D = 192
+    (scripts/k1_digest.py's K1_VITB_DIGESTS, which says when the pin
+    goes)."""
+    import chip_smoke
+    mod = chip_smoke.k1_digest_module()
+    assert mod.k1_digests(fused_layer) == mod.K1_VITB_DIGESTS
+
+
+@pytest.mark.parametrize('use_kernel', ['auto', 'fused_layer_full'])
+def test_ceit_launch_counts(card, use_kernel):
+    """CeiT-S's widths at depth 2: every encoder block's attention sublayer
+    on K1's post-LN route (2 launches a forward, no pre-LN one), 2 of its
+    train variant + 2 K2 a training forward and backward; the LCA's one
+    query on the 1-query path, and under use_kernel=True it raises."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import create_model, set_use_kernel
+    model = create_model('ceit_s', num_classes=10, dtype=torch.bfloat16,
+                         img_size=224, seed=3, device=card, num_layers=2,
+                         use_kernel=use_kernel)
+    x = _bf16(np.random.RandomState(5), (2, 224, 224, 3), 1.0, card)
+    model.eval()
+    with torch.no_grad():
+        _build.reset_launches()
+        assert bool(torch.isfinite(model(x)).all())
+        assert _build.launches == {'fused_attention_fwd_noln': 2}
+    model.train()
+    _build.reset_launches()
+    model(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launches == {'fused_attention_fwd_noln_train': 2,
+                               'flash_bwd_fused': 2}
+    set_use_kernel(model, True)
+    with pytest.raises(ValueError, match='one query'):
+        with torch.no_grad():
+            model.eval()(x)

@@ -111,9 +111,13 @@ def test_layernorm_matches_jax():
 
 
 @pytest.mark.parametrize('l,heads,d,want', [
-    (197, 12, 64, 'fused'), (577, 12, 64, 'fused'), (197, 3, 64, 'flash'),
-    (17, 3, 64, None), (197, 6, 32, None)])
+    (197, 12, 64, 'fused'), (577, 12, 64, 'fused'), (197, 3, 64, 'fused'),
+    (17, 3, 64, 'fused'), (197, 5, 64, 'flash'), (17, 5, 64, None),
+    (197, 6, 32, None)])
 def test_auto_core_on_the_card(l, heads, d, want):
+    """K1 wherever its GEMM takes H*64 (since the 192-wide tile, H = 3:
+    vit_ti, ceit_t), else K4 from 64 rows; H = 5 (320) no GEMM tile
+    divides."""
     assert fused_layer.auto_core(l, heads, d, 'cuda') == want
 
 

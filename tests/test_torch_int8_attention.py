@@ -94,6 +94,23 @@ def test_k10_off_geometry_is_the_bf16_span_on_both_sides():
     np.testing.assert_array_equal(_np(ours), _np(bf16_span))
 
 
+def test_k10_at_d192_is_the_bf16_span():
+    """ViT-Ti's width (D = H*64 = 192) is K1's but not K10's: the port's
+    int8 sublayer serves it on the bf16 'flash' core, where K10 would
+    raise on the card."""
+    c, heads = _case(17, heads=3)
+    assert tfl.fused_supported(17, heads, 64)
+    assert not tfl.q8_supported(17, 192, heads, 64)
+    assert tfl.q8_supported(17, 128, 2, 64)
+    tx = torch.from_numpy(c['x']).to(torch.bfloat16)
+    args = [torch.from_numpy(c[k]) for k in
+            ('scale', 'bias', 'wq', 'wk', 'wv', 'wo')]
+    with torch.no_grad():
+        ours = tfl.attention_sublayer_q8(tx, *args, heads)
+        bf16_span = tfl.attention_sublayer(tx, *args, heads, 'flash')
+    np.testing.assert_array_equal(_np(ours), _np(bf16_span))
+
+
 def test_k10_raises_under_autograd():
     c, heads = _case(17)
     args = [torch.from_numpy(c[k]).requires_grad_()

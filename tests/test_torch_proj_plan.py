@@ -10,8 +10,11 @@ entry ``sav_proj_plan``):
 * its units, laid out as the kernel walks them (column tiles fastest, a tile
   never across two weights), cover every row and column of the output once;
 * its shared memory fits a block's 232,448 bytes;
-* widths and depths the port does not take (not multiples of 128) and
-  weight counts other than 1 and 3 raise ValueError.
+* D = 192 (ceit_t, vit_ti): one 192-wide tile a row tile and weight,
+  three 64-deep steps, as ``proj_takes`` (the C ``proj::takes``) says;
+* widths no tile divides (not multiples of 128 or 192), depths that are
+  not whole 64-deep steps and weight counts other than 1 and 3 raise
+  ValueError.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ SMS = 132
 VIT_B_TRAIN, VIT_B_SERVE = 192 * 197, 32 * 197
 CAIT_S_TRAIN, CAIT_S_SERVE = 128 * 196, 32 * 196
 TNT_S_TRAIN, TNT_B_TRAIN = 64 * 197, 32 * 197
+CEIT_T_SERVE, CEIT_T_TRAIN = 32 * 197, 64 * 197
 
 
 @pytest.mark.parametrize('m,n,parts,want', [
@@ -35,7 +39,10 @@ TNT_S_TRAIN, TNT_B_TRAIN = 64 * 197, 32 * 197
     (CAIT_S_TRAIN, 384, 3, 192), (CAIT_S_TRAIN, 384, 1, 192),
     (CAIT_S_SERVE, 384, 3, 128), (CAIT_S_SERVE, 384, 1, 192),
     (TNT_S_TRAIN, 384, 3, 192), (TNT_B_TRAIN, 640, 3, 128),
-    (TNT_B_TRAIN, 640, 1, 128)])
+    (TNT_B_TRAIN, 640, 1, 128),
+    # D = 192: no other tile divides it
+    (CEIT_T_SERVE, 192, 3, 192), (CEIT_T_SERVE, 192, 1, 192),
+    (CEIT_T_TRAIN, 192, 3, 192), (CEIT_T_TRAIN, 576, 3, 192)])
 def test_plan_picks_the_tile(m, n, parts, want):
     plan = fl.proj_plan(m, n, parts, n if parts == 1 else 768, SMS)
     assert plan['bn'] == want
@@ -53,7 +60,7 @@ def _units(m, n, parts, bn):
 @pytest.mark.parametrize('m', [1, 129, 591, VIT_B_SERVE, CAIT_S_TRAIN,
                                VIT_B_TRAIN])
 @pytest.mark.parametrize('n,parts', [(384, 3), (384, 1), (640, 3), (768, 3),
-                                     (768, 1)])
+                                     (768, 1), (192, 3), (192, 1), (576, 3)])
 def test_units_cover_every_row_and_column_once(m, n, parts):
     plan = fl.proj_plan(m, n, parts, 384, SMS)
     bn = plan['bn']
@@ -80,12 +87,25 @@ def test_plan_fits_a_block(m, n):
         assert plan['steps'] == 768 // 64
 
 
-@pytest.mark.parametrize('n,k,parts', [(192, 384, 3), (384, 192, 3),
+@pytest.mark.parametrize('n,k,parts', [(320, 384, 3), (384, 160, 3),
                                        (320, 768, 1), (384, 384, 2),
                                        (384, 384, 0)])
 def test_plan_refuses_what_the_kernel_does_not_take(n, k, parts):
     with pytest.raises(ValueError):
         fl.proj_plan(591, n, parts, k, SMS)
+
+
+@pytest.mark.parametrize('n,k', [(192, 192), (192, 384), (384, 192),
+                                 (576, 192), (128, 64)])
+def test_plan_takes_192_wide_outputs_and_64_deep_steps(n, k):
+    """The widths proj_takes admits since the GEMM's 192-wide tile takes a
+    whole output (D = 192): the plan's tile divides N, its steps cover K."""
+    assert fl.proj_takes(n, k)
+    for m in (1, CEIT_T_SERVE, CEIT_T_TRAIN):
+        plan = fl.proj_plan(m, n, 3, k, SMS)
+        assert n % plan['bn'] == 0 and plan['steps'] * 64 == k
+        assert plan['units'] == -(-m // 128) * 3 * (n // plan['bn'])
+    assert not fl.proj_takes(n, k + 32)
 
 
 def test_plan_refuses_no_rows():

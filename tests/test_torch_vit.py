@@ -67,9 +67,9 @@ def test_factory_names_and_refusals():
          'mixer_s_patch32', 'mixer_s_patch16', 'mixer_b_patch32',
          'mixer_b_patch16', 'mixer_l_patch32', 'mixer_l_patch16',
          'tnt_s_patch16', 'tnt_b_patch16', 'botnet_t3', 'botnet_t4',
-         'botnet_t5'])
+         'botnet_t5', 'ceit_t', 'ceit_s', 'ceit_b'])
     with pytest.raises(RuntimeError, match='ROADMAP'):
-        create_model('ceit_s', device='cpu')
+        create_model('cvt-13', device='cpu')
     with pytest.raises(NotImplementedError, match='fused_qkv'):
         create_model('vit_ti_patch16', device='cpu', num_layers=1,
                      fused_qkv=True)

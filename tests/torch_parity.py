@@ -225,3 +225,45 @@ def torch_botnet(variables, **kwargs):
                                **BOTNET_SMALL, **kwargs)
     model.load_state_dict(flax_to_torch(variables), strict=True)
     return model
+
+
+# CeiT: 2 layers, D=128, H=2 (d=64: K1's constraints hold) at 64 px: the
+# I2T stem's 33 x 33 conv grid pools to 16 x 16, so 4 x 4 patches of 4 x 4
+# and L = 17; each LeFF's 3 x 3 conv runs on the 4 x 4 grid
+CEIT_SMALL = dict(num_layers=2, embed_dim=128, num_heads=2)
+CEIT_IMG = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _ceit_variables():
+    model = jax_create_model('ceit_t', num_classes=NUM_CLASSES, **CEIT_SMALL)
+    variables = jax.jit(model.init, static_argnames='is_training')(
+        jax.random.PRNGKey(0), jnp.ones((1, CEIT_IMG, CEIT_IMG, 3)),
+        is_training=False)
+    variables = fill_batchnorm(jax.tree_util.tree_map(np.array,
+                                                      dict(variables)))
+    params = fill_head(fill_biases(fill_body(variables['params'])))
+    head = params['Dense_0']['kernel']
+    params['Dense_0']['kernel'] = head / np.sqrt(head.shape[0])
+    return {'params': params, 'batch_stats': variables['batch_stats']}
+
+
+def jax_ceit(**kwargs):
+    """(flax model, a copy of its ``{'params', 'batch_stats'}``) for the
+    small CeiT: the head (scaled by 1/sqrt(D), so the loss resolves to
+    1e-5 in f32) and cls filled, and every LayerNorm, BatchNorm (running
+    statistics too) and bias (the Dense ones and the LeFF convs') drawn
+    away from its init, so a swapped or dropped one shows; the tree is
+    initialised once (every use_kernel mode has the same one)."""
+    model = jax_create_model('ceit_t', num_classes=NUM_CLASSES, **CEIT_SMALL,
+                             **kwargs)
+    return model, jax.tree_util.tree_map(np.copy, _ceit_variables())
+
+
+def torch_ceit(variables, **kwargs):
+    """The port's small CeiT with ``variables`` loaded."""
+    model = torch_create_model('ceit_t', num_classes=NUM_CLASSES,
+                               img_size=CEIT_IMG, device='cpu', **CEIT_SMALL,
+                               **kwargs)
+    model.load_state_dict(flax_to_torch(variables), strict=True)
+    return model
