@@ -118,8 +118,9 @@
    gradients against the same boundaries on the twins with the f32 path
    as the noise floor, train img/s.
 10. The factory names that ``auto`` routes on the card and no path above
-   builds (vit_l_patch16 @224 and @384, vit_ti_patch16, vit_s_patch16,
-   cait_xxs_24 @224 and @384, mixer_s/l_patch16) at depth 2: the kernels
+   builds (vit_l_patch16 @224 and @384, vit_ti_patch16, ceit_t,
+   vit_s_patch16, cait_xxs_24 @224 and @384, mixer_s/l_patch16, cvt-w24
+   @384 at stage sizes (1, 1, 2)) at depth 2: the kernels
    a forward launches, logits against use_kernel=False, gradients against
    the plain core by the same rule.
 11. Prints one JSON line of every ported kernel, then the result line
@@ -160,6 +161,24 @@
    train + 12 K2 per step), gradients against the plain core
    (use_kernel='fused_layer_xla') with the f32 per-op path as the noise
    floor, every running statistic finite and moved, train img/s.
+14. CvT (slice 10; after 13, before the print of 11): K4 at cvt-13's three
+   stage shapes @224 (one head at 3136 queries over 784 keys, three at 784
+   over 196, six at the padded 225 over 64) at B = 32 and 64, and the K3
+   pair at B = 64, against their twins (K3 two calls bit-identical), timed
+   beside SDPA and its backward and the bound; K13 at cvt-13's stage 3 (D
+   = 384, F = 1536, the ragged B x 225 rows, both variants) and cvt-w24's
+   (D = 1024, 16 x 625 rows); serving cvt-13 @224 bs32 on 'auto' (13 K4
+   launches per forward and nothing else), logits against use_kernel=False
+   with the head and cls filled and the BatchNorms calibrated; training it
+   @224 bs64 (13 K4 + 13 K3a + 13 K3b per step, no K2), gradients against
+   the same ``flash_attention.mha`` boundary on the K4 and K3 twins
+   (``models.cvt.set_attention_core``) with the f32 per-op path as the
+   noise floor; serving ``quantized='ff'`` and ``'all'`` (+ 10 K13 per
+   forward, stage 3 only) and training ``'ff'`` (+ 10 K13-train per step)
+   against the int8 twins. With ``--profile`` each CvT path also prints
+   its device time by module kind (``print_module_split``). cvt-w24 @384
+   (stage sizes (1, 1, 2), bs2) is in the sweep of 10: K4 and K3 at 9216
+   over 2304 keys in 3 heads, 2304 over 576 in 12 and 625 over 169 in 16.
 """
 
 from __future__ import annotations
@@ -180,6 +199,10 @@ from sav_tpu_torch import _build
 from sav_tpu_torch.data.preprocess import eval_preprocess
 from sav_tpu_torch.models import create_model, set_int8_core, set_use_kernel
 from sav_tpu_torch.models.botnet import set_attention_core
+from sav_tpu_torch.models.cvt import set_attention_core as cvt_attention_core
+from sav_tpu_torch.nn.cvt_attention import CvTAttentionBlock
+from sav_tpu_torch.nn.feedforward import FFBlock
+from sav_tpu_torch.nn.layers import Conv, LayerNorm
 from sav_tpu_torch.nn.normalization import BatchNorm, LayerScaleBlock
 from sav_tpu_torch.nn.quantized_dense import QuantizedDense
 from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
@@ -289,6 +312,10 @@ INT8_SHARE = 0.9
 # the plain_core of the int8 train paths: the same autograd boundaries with
 # every int8 block on its twin (models.set_int8_core)
 INT8_PLAIN = 'int8 blocks on the twins'
+# the plain_core of CvT: the same flash_attention.mha boundary (bf16 out and
+# f32 lse saved) with K4 and K3 on their twins (models.cvt.
+# set_attention_core)
+CVT_PLAIN = 'mha on the flash twins'
 
 
 def nvidia_smi() -> str:
@@ -406,39 +433,44 @@ def check_k1(rng, checks, batch, seq, dim=768, heads=12):
     return rec
 
 
-def check_k4(rng, checks, batch, seq, heads=12):
-    """K4 port vs its twin on [batch, seq, heads*64]; returns the record."""
+def check_k4(rng, checks, batch, seq, heads=12, kv_seq=None):
+    """K4 port vs its twin on [batch, seq, heads*64] queries over
+    ``kv_seq`` keys (default seq; CvT's stride-2 key grids are shorter);
+    returns the record."""
     hd = heads * 64
+    kv_seq = kv_seq or seq
     q = _bf16(rng, (batch, seq, hd), 0.5)      # pre-scaled, peaked softmax
-    k = _bf16(rng, (batch, seq, hd))
-    v = _bf16(rng, (batch, seq, hd))
-    out, lse = flash_fwd(q, k, v, heads, seq)
-    p_out, p_lse = flash_fwd_plain(q, k, v, heads, seq)
+    k = _bf16(rng, (batch, kv_seq, hd))
+    v = _bf16(rng, (batch, kv_seq, hd))
+    out, lse = flash_fwd(q, k, v, heads, kv_seq)
+    p_out, p_lse = flash_fwd_plain(q, k, v, heads, kv_seq)
     torch.cuda.synchronize()
     err = (out.float() - p_out.float()).abs().max().item()
     rel = err / p_out.float().abs().max().item()
     lse_err = (lse - p_lse).abs().max().item()
     finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    shape = f'L={seq}' + ('' if kv_seq == seq else f' over {kv_seq} keys')
     checks.expect(finite and rel <= OUT_TOL and lse_err <= LSE_TOL,
-                  f'K4 flash_fwd B={batch} L={seq}: out err {rel:.3g} of max '
-                  f'(tol {OUT_TOL}), lse abs err {lse_err:.3g} (tol {LSE_TOL})')
+                  f'K4 flash_fwd B={batch} {shape} H={heads}: out err '
+                  f'{rel:.3g} of max (tol {OUT_TOL}), lse abs err '
+                  f'{lse_err:.3g} (tol {LSE_TOL})')
 
     def library():
-        split = lambda a: a.view(batch, seq, heads, 64).transpose(1, 2)
+        split = lambda a: a.view(batch, -1, heads, 64).transpose(1, 2)
         return F.scaled_dot_product_attention(split(q), split(k), split(v),
                                               scale=1.0)
 
-    flops = 4 * batch * heads * seq * seq * 64
-    nbytes = 4 * batch * seq * hd * 2 + batch * heads * seq * 4
+    flops = 4 * batch * heads * seq * kv_seq * 64
+    nbytes = 2 * batch * (seq + kv_seq) * hd * 2 + batch * heads * seq * 4
     b_ms, b_by = bound_ms(flops, nbytes)
-    rec = dict(ms=time_ms(lambda: flash_fwd(q, k, v, heads, seq)),
-               plain_ms=time_ms(lambda: flash_fwd_plain(q, k, v, heads, seq),
-                                iters=5),
+    rec = dict(ms=time_ms(lambda: flash_fwd(q, k, v, heads, kv_seq)),
+               plain_ms=time_ms(lambda: flash_fwd_plain(q, k, v, heads,
+                                                        kv_seq), iters=5),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
                max_abs_err=max(err, lse_err))
-    print(f'  K4 L={seq}: kernel {rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} '
-          f'ms  library {rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by})',
-          flush=True)
+    print(f'  K4 B={batch} {shape} H={heads}: kernel {rec["ms"]:.4f} ms  plain '
+          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
+          f'bound {b_ms:.4f} ms ({b_by})', flush=True)
     return rec
 
 
@@ -450,11 +482,13 @@ def fill_head(model, seed: int) -> None:
     raise it to 0.1. BoTNet's BatchNorms: ``fill_batchnorm``."""
     gen = torch.Generator().manual_seed(seed + 1)
     head = model.Dense_0.kernel
+    # ViT's, CaiT's and CeiT's cls, CvT's Stage_2.cls; the Mixer has none
+    cls = [p for n, p in model.named_parameters() if n.split('.')[-1] == 'cls']
     with torch.no_grad():
         head.copy_(torch.randn(head.shape, generator=gen)
                    / math.sqrt(head.shape[0]))
-        if hasattr(model, 'cls'):           # ViT and CaiT; the Mixer has none
-            model.cls.copy_(torch.randn(model.cls.shape, generator=gen) * 0.02)
+        for token in cls:
+            token.copy_(torch.randn(token.shape, generator=gen) * 0.02)
         for sub in model.modules():
             if isinstance(sub, LayerScaleBlock):
                 sub.layerscale.fill_(0.1)
@@ -547,6 +581,9 @@ def serve_path(checks, name, img_size, use_kernel, want, seed, batch,
           f'{time.perf_counter() - t_path:.1f} s', flush=True)
     if profile:
         print_profile(lambda: serve(model, frames, img_size, 5))
+        if model_name.startswith('cvt'):
+            print_module_split(model, lambda: serve(model, frames, img_size,
+                                                    5))
     del model
     torch.cuda.empty_cache()
     return counts
@@ -651,27 +688,34 @@ def check_k1_train(rng, checks, batch, seq, dim=768, heads=12):
     return rec
 
 
-def _bwd_bound(batch, seq, heads, matmuls, tensors, stats):
-    """bound_ms of a backward pass: ``matmuls`` L x L x 64 products per
-    (image, head), ``tensors`` [B, L, H*64] bf16 moved once, ``stats``
-    [B, H, L] f32 rows moved once."""
-    flops = matmuls * 2 * batch * heads * seq * seq * 64
-    nbytes = tensors * batch * seq * heads * 64 * 2 + stats * batch * heads * seq * 4
+def _bwd_bound(batch, q_len, kv_len, heads, matmuls, q_tensors, kv_tensors,
+               stats):
+    """bound_ms of a backward pass: ``matmuls`` Lq x Lkv x 64 products per
+    (image, head), ``q_tensors`` [B, Lq, H*64] and ``kv_tensors`` [B, Lkv,
+    H*64] bf16 moved once, ``stats`` [B, H, Lq] f32 rows moved once."""
+    flops = matmuls * 2 * batch * heads * q_len * kv_len * 64
+    nbytes = ((q_tensors * q_len + kv_tensors * kv_len) * batch * heads * 64 * 2
+              + stats * batch * heads * q_len * 4)
     return bound_ms(flops, nbytes)
 
 
-def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
+def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=(),
+              q_len=None):
     """Each backward route ('fused': K2, 'split': K3a + K3b) vs the twin,
-    random do; each route's dq, dk, dv must also come out bit-identical
-    from two calls (no atomics). Returns the records of each kernel timed
+    random do, ``q_len`` queries (default seq) over ``seq`` key rows; each
+    route's dq, dk, dv must also come out bit-identical from two calls (no
+    atomics). Returns the records of each kernel timed
     alone ({'fused': .., 'dq': .., 'dkv': ..}); K3's also carry the pair's
     time (pair_ms), the function's bound (pair_bound_ms) and SDPA's
     backward (pair_library_ms, also their library_ms: one call for one
     function)."""
     kv_len = kv_len or seq
+    q_len = q_len or seq
     hd = heads * 64
-    q = _bf16(rng, (batch, seq, hd), 0.5)
-    k, v, do = (_bf16(rng, (batch, seq, hd)) for _ in range(3))
+    q = _bf16(rng, (batch, q_len, hd), 0.5)
+    k, v = (_bf16(rng, (batch, seq, hd)) for _ in range(2))
+    do = _bf16(rng, (batch, q_len, hd))
+    shape = f'L={seq}' if q_len == seq else f'{q_len} over {seq} keys H={heads}'
     out, lse = flash_fwd(q, k, v, heads, kv_len)
     twin = fa.flash_bwd_plain(q, k, v, out, lse, do, heads, kv_len)
     plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, heads,
@@ -688,15 +732,15 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
         finite = all(bool(torch.isfinite(g).all()) for g in grads)
         name = 'K2' if route == 'fused' else 'K3'
         checks.expect(finite and max(errs) <= BWD_TOL and tails == 0.0,
-                      f'{name} flash_bwd B={batch} L={seq} kv_len={kv_len}: '
+                      f'{name} flash_bwd B={batch} {shape} kv_len={kv_len}: '
                       f'dq/dk/dv err {", ".join(f"{e:.3g}" for e in errs)} of '
                       f'max (tol {BWD_TOL}), masked key rows {tails}')
         again = bwd(q, k, v, out, lse, do, heads, kv_len)
         checks.expect(all(torch.equal(a, g) for a, g in zip(again, grads)),
-                      f'{name} flash_bwd B={batch} L={seq}: two calls give '
+                      f'{name} flash_bwd B={batch} {shape}: two calls give '
                       f'bit-identical dq, dk, dv')
         if route == 'fused':
-            b_ms, b_by = _bwd_bound(batch, seq, heads, 5, 8, 1)
+            b_ms, b_by = _bwd_bound(batch, q_len, seq, heads, 5, 4, 4, 1)
             recs['fused'] = dict(
                 ms=time_ms(lambda: fa.bwd_fused(q, k, v, out, lse, do, heads,
                                                 kv_len)),
@@ -704,13 +748,13 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
                 max_abs_err=max(abs_errs))
         else:
             dq, delta = fa.bwd_dq(q, k, v, out, lse, do, heads, kv_len)
-            b_ms, b_by = _bwd_bound(batch, seq, heads, 3, 6, 2)
+            b_ms, b_by = _bwd_bound(batch, q_len, seq, heads, 3, 4, 2, 2)
             recs['dq'] = dict(
                 ms=time_ms(lambda: fa.bwd_dq(q, k, v, out, lse, do, heads,
                                              kv_len)),
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=abs_errs[0])
-            b_ms, b_by = _bwd_bound(batch, seq, heads, 4, 6, 2)
+            b_ms, b_by = _bwd_bound(batch, q_len, seq, heads, 4, 2, 4, 2)
             recs['dkv'] = dict(
                 ms=time_ms(lambda: fa.bwd_dkv(q, k, v, do, lse, delta, heads,
                                               kv_len)),
@@ -720,7 +764,7 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
         if route == 'split':
             for n in ('dq', 'dkv'):
                 recs[n]['pair_ms'] = total
-        print(f'  {name} route={route} B={batch} L={seq}: backward '
+        print(f'  {name} route={route} B={batch} {shape}: backward '
               f'{total:.4f} ms  ' + '  '.join(
                   f'{n} {r["ms"]:.4f} ms (bound {r["bound_ms"]:.4f})'
                   for n, r in recs.items() if (n == 'fused') == (route == 'fused'))
@@ -729,17 +773,17 @@ def check_bwd(rng, checks, batch, seq, kv_len=None, heads=12, routes=()):
     # library yardstick: SDPA's backward, timed as forward+backward minus
     # forward on the same (head-major) inputs
     split = lambda a: a[:, :kv_len].reshape(batch, -1, heads, 64).transpose(1, 2)
-    qs = q.view(batch, seq, heads, 64).transpose(1, 2).detach().requires_grad_()
+    qs = q.view(batch, q_len, heads, 64).transpose(1, 2).detach().requires_grad_()
     ks, vs = (split(a).detach().requires_grad_() for a in (k, v))
-    dos = do.view(batch, seq, heads, 64).transpose(1, 2)
+    dos = do.view(batch, q_len, heads, 64).transpose(1, 2)
     fwd = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0))
     both = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), (qs, ks, vs),
         dos))
     lib = max(both - fwd, 0.0)
-    b_ms, _ = _bwd_bound(batch, seq, heads, 5, 8, 1)
+    b_ms, _ = _bwd_bound(batch, q_len, seq, heads, 5, 4, 4, 1)
     pair = recs.get('dq', {}).get('pair_ms')
-    print(f'  flash backward B={batch} L={seq}: SDPA backward {lib:.4f} ms '
+    print(f'  flash backward B={batch} {shape}: SDPA backward {lib:.4f} ms '
           f'(fwd+bwd {both:.4f} - fwd {fwd:.4f}); bound of the function '
           f'{b_ms:.4f} ms' + (f'; K3 pair {pair:.4f} ms = {pair / lib:.2f}x '
                               f'SDPA, {pair / b_ms:.2f}x the bound'
@@ -1920,10 +1964,13 @@ def check_grads(checks, name, model, batch, seed, model_name, img_size,
 def _reroute(model, plain_core, use_kernel, plain: bool) -> None:
     """Puts ``model`` on the plain core of its boundary (``plain``) or back
     on ``use_kernel``: a use_kernel mode, BOT_PLAIN (BoTNet's attention
-    core on the K9 twins at the same 'botnet_fused' boundary) or INT8_PLAIN
-    (every int8 block on its twin at the same boundary)."""
+    core on the K9 twins at the same 'botnet_fused' boundary), CVT_PLAIN
+    (CvT's flash route on the K4 and K3 twins at the same boundary) or
+    INT8_PLAIN (every int8 block on its twin at the same boundary)."""
     if plain_core == BOT_PLAIN:
         set_attention_core(model, 'plain' if plain else 'kernel')
+    elif plain_core == CVT_PLAIN:
+        cvt_attention_core(model, 'plain' if plain else 'kernel')
     elif plain_core == INT8_PLAIN:
         set_int8_core(model, 'plain' if plain else 'kernel')
     else:
@@ -1997,6 +2044,9 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
           f'{time.perf_counter() - t_path:.1f} s', flush=True)
     if profile:
         print_profile(lambda: trainer.train_step(data.batch(0)), iters=2)
+        if model_name.startswith('cvt'):
+            print_module_split(trainer.model,
+                               lambda: trainer.train_step(data.batch(0)), 2)
     del trainer
     torch.cuda.empty_cache()
     return counts
@@ -2007,7 +2057,8 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
 # factory names the paths above do not build (H = 16 at L = 197 and 577 on
 # K1/K2/K3; D = 192 on K1's 192-wide GEMM tile, pre-LN (vit_ti) and
 # post-LN (ceit_t); D = 384, H = 6; CaiT's H = 4 on K6 at L = 196 and 576;
-# the Mixer's S and L widths on K8)
+# the Mixer's S and L widths on K8; cvt-w24 @384 on K4 + K3 at 9216 over
+# 2304 keys in 3 heads, 2304 over 576 in 12, the padded 625 over 169 in 16)
 SWEEP = (
     ('vit_l_patch16', 224, 4, 'fused_layer_xla'),
     ('vit_l_patch16', 384, 2, 'fused_layer_xla'),
@@ -2018,7 +2069,17 @@ SWEEP = (
     ('cait_xxs_24', 384, 2, 'fused_th_xla'),
     ('mixer_s_patch16', 224, 4, False),
     ('mixer_l_patch16', 224, 4, False),
+    ('cvt-w24', 384, 2, CVT_PLAIN),
 )
+
+
+def depth_cut(name: str, depth: int) -> dict:
+    """``create_model`` overrides that cut a factory name to ``depth``
+    blocks: ``num_layers``, or for CvT one block in each of its first two
+    stages and ``depth`` in the last."""
+    if name.startswith('cvt'):
+        return {'stage_sizes': (1, 1, depth)}
+    return {'num_layers': depth}
 
 
 def sweep_factory(checks, seed: int, depth: int = 2) -> None:
@@ -2034,9 +2095,9 @@ def sweep_factory(checks, seed: int, depth: int = 2) -> None:
     for name, img_size, batch, plain_core in SWEEP:
         t_entry = time.perf_counter()
         label = f'sweep {name} @{img_size} depth {depth} bs{batch}'
+        cut = depth_cut(name, depth)
         model = create_model(name, num_classes=1000, dtype=torch.bfloat16,
-                             img_size=img_size, seed=seed, device='cuda',
-                             num_layers=depth)
+                             img_size=img_size, seed=seed, device='cuda', **cut)
         fill_head(model, seed)
         gen = torch.Generator().manual_seed(seed + 3)
         images = torch.randn((batch, img_size, img_size, 3), generator=gen)
@@ -2067,7 +2128,7 @@ def sweep_factory(checks, seed: int, depth: int = 2) -> None:
                       f'(tol {LOGIT_TOL})')
         grad = launched[(name, img_size, 'grad')] = check_grads(
             checks, label, model, data, seed, name, img_size, plain_core,
-            'auto', num_layers=depth)
+            'auto', **cut)
         print(f'  {label}: launches per gradient step {grad}; the entry took '
               f'{time.perf_counter() - t_entry:.1f} s', flush=True)
         del model
@@ -2555,6 +2616,97 @@ def print_profile(fn, iters: int = 5) -> None:
                                     max_name_column_width=60), flush=True)
 
 
+# CvT's module kinds, by the forward ranges print_module_split opens
+CVT_SPLIT = ('BatchNorm', 'depthwise conv', 'pointwise conv',
+             'token-embed conv', 'LayerNorm', 'FF', 'attention block')
+
+
+def _cvt_kind(name: str, module) -> str:
+    if isinstance(module, BatchNorm):
+        return 'BatchNorm'
+    if isinstance(module, Conv):
+        if module.groups > 1:
+            return 'depthwise conv'
+        return ('token-embed conv' if 'ConvTokenEmbedBlock' in name
+                else 'pointwise conv')
+    if isinstance(module, LayerNorm):
+        return 'LayerNorm'
+    if isinstance(module, FFBlock):
+        return 'FF'
+    if isinstance(module, CvTAttentionBlock):
+        return 'attention block'
+    return ''
+
+
+def print_module_split(model, fn, iters: int = 3) -> None:
+    """Device time a call of ``fn`` by the CvT module kinds whose forwards
+    launched it: forward hooks open a torch.profiler range per module,
+    named by its kind (``CVT_SPLIT``), which the profiler also marks on the
+    card's timeline; each kernel counts for the innermost range whose span
+    holds its start (the attention block's own kernels are its core, the
+    output projection and their reshapes and casts). Kernels in no range
+    (the backward, the optimizer, the int8 FF span, the residual adds, the
+    head, serving's preprocessing) count as outside. Then every kernel by
+    name: the port's own (``sav::``), convolutions, GEMMs, elementwise and
+    reductions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    stack, handles = [], []
+
+    def enter(kind):
+        def hook(module, args):
+            rng = record_function(kind)
+            rng.__enter__()
+            stack.append(rng)
+        return hook
+
+    def leave(module, args, out):
+        stack.pop().__exit__(None, None, None)
+
+    for name, module in model.named_modules():
+        kind = _cvt_kind(name, module)
+        if kind:
+            handles += [module.register_forward_pre_hook(enter(kind)),
+                        module.register_forward_hook(leave)]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in device
+             if e.name in CVT_SPLIT]
+    kernels = [e for e in device if e.name not in CVT_SPLIT
+               and not e.name.startswith(('Memcpy', 'Memset'))]
+    ms = dict.fromkeys(CVT_SPLIT + ('outside',), 0.0)
+    for e in kernels:
+        start = e.time_range.start
+        inner = min((s for s in spans if s[0] <= start < s[1]),
+                    key=lambda s: s[1] - s[0], default=None)
+        ms[inner[2] if inner else 'outside'] += (e.time_range.elapsed_us()
+                                                 / iters / 1e3)
+    print(f'  device ms a call ({iters} calls, {len(spans)} module spans on '
+          f'the timeline): {sum(ms.values()):.3f} in kernels; '
+          + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()), flush=True)
+    # (kind, words of its kernel names), the first that matches wins
+    rules = (('sav::', ('sav::',)),
+             ('conv', ('conv', 'fprop', 'dgrad', 'wgrad', 'depthwise')),
+             ('gemm', ('gemm', 'xmma', 'cutlass', 'sm90_')),
+             ('elementwise', ('elementwise',)), ('reduce', ('reduce',)))
+    kinds = dict.fromkeys([k for k, _ in rules] + ['other'], 0.0)
+    for e in kernels:
+        name = e.name.lower()
+        kind = next((k for k, words in rules
+                     if any(w in name for w in words)), 'other')
+        kinds[kind] += e.time_range.elapsed_us() / iters / 1e3
+    print('  device ms a call by kernel name: ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in kinds.items()), flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2884,6 +3036,60 @@ def main(argv=None):
                              'flash_bwd_fused': 12}, args.seed,
                             profile=args.profile, model_name='ceit_s')
 
+    # CvT (slice 10): K4 and the K3 pair at cvt-13's three stage shapes @224
+    # (one head at 3136 queries over 784 keys, three at 784 over 196, six at
+    # the padded 225 over 64), K4 at the serving (B=32) and training (B=64)
+    # batches, K3 at B=64 (every CvT length is past K2's 208 rows); K13 at
+    # cvt-13's stage-3 width (D = 384) over its ragged B x 225 rows, both
+    # variants, and at cvt-w24's last stage (D = 1024, 16 x 625 rows @384,
+    # bench.py:91's batch); then the paths: serving cvt-13 @224 (13 K4 a
+    # forward), training it @224 bs64 (13 K4 + 13 K3a + 13 K3b a step, no K2),
+    # and under quantized 'ff' (+ 10 K13 a forward, 10 K13-train a step: the
+    # 384-wide stage 3 only) and 'all' (the same kernels). cvt-w24 @384 runs
+    # in the sweep above.
+    t_cvt = time.perf_counter()
+    cvt_shapes = ((1, 3136, 784), (3, 784, 196), (6, 225, 64))
+    k4c = {(b, shape): check_k4(rng, checks, b, shape[1], heads=shape[0],
+                                kv_seq=shape[2])
+           for b in (args.batch, 64) for shape in cvt_shapes}
+    k3c = {shape: check_bwd(rng, checks, 64, shape[2], heads=shape[0],
+                            routes=('split',), q_len=shape[1])
+           for shape in cvt_shapes}
+    k13c = {hp: check_int8_ff(rng, checks, (64 if hp else args.batch) * 225,
+                              True, hp, 384, 1536) for hp in (False, True)}
+    k13w = check_int8_ff(rng, checks, 16 * 625, True, False, 1024, 4096)
+    print(f'  CvT kernel checks took {time.perf_counter() - t_cvt:.1f} s',
+          flush=True)
+    cvt_step = {'flash_fwd': 13, 'flash_bwd_dq': 13, 'flash_bwd_dkv': 13}
+    cvt_serve = serve_path(checks, 'CvT-13 @224 auto', 224, 'auto',
+                           {'flash_fwd': 13}, args.seed, args.batch,
+                           args.profile, model_name='cvt-13')
+    cvt_train = train_path(checks, 'train CvT-13 @224 bs64', 224, 64,
+                           cvt_step, args.seed, profile=args.profile,
+                           model_name='cvt-13', plain_core=CVT_PLAIN)
+    cvt_q_serve = serve_path(checks, 'CvT-13 @224 quantized=ff', 224, 'auto',
+                             {'flash_fwd': 13, 'int8_ff_ln': 10}, args.seed,
+                             args.batch, args.profile, model_name='cvt-13',
+                             quantized='ff')
+    serve_path(checks, 'CvT-13 @224 quantized=all', 224, 'auto',
+               {'flash_fwd': 13, 'int8_ff_ln': 10}, args.seed, args.batch,
+               model_name='cvt-13', quantized='all')
+    cvt_q_train = train_path(checks, 'train CvT-13 @224 bs64 quantized=ff',
+                             224, 64, dict(cvt_step, int8_ff_ln_train=10),
+                             args.seed, steps=3, profile=args.profile,
+                             model_name='cvt-13', plain_core=INT8_PLAIN,
+                             quantized='ff')
+    print(f'  the CvT phase took {time.perf_counter() - t_cvt:.1f} s',
+          flush=True)
+
+    def cvt_fields(prefix, recs, keys=('ms', 'bound_ms', 'bound_by',
+                                       'plain_ms', 'library_ms')):
+        """CvT's per-stage records (cvt-13 @224's stages 1-3) under
+        ``prefix``_s1_* .. _s3_*, and their largest error."""
+        return {f'{prefix}_max_abs_err': max(r['max_abs_err'] for r in recs),
+                **{f'{prefix}_s{i}_{k}': r[k] for i, r in enumerate(recs, 1)
+                   for k in keys}}
+
     def th_entry(name, replaces, launches, rec, train=None,
                  source='th_attention.cu', **extra):
         """A TH kernel's line: ``rec`` at its serving (or only) shape;
@@ -2966,7 +3172,13 @@ def main(argv=None):
              **{k: v for k, v in k4[577].items() if k != 'max_abs_err'},
              train_launches=ff224.get('flash_fwd', 0),
              **{f'train_{k}': v for k, v in k4_train.items()
-                if k != 'max_abs_err'}),
+                if k != 'max_abs_err'},
+             # CvT-13 @224: serving (B=32) and training (B=64) launches,
+             # each stage's shape timed at both batches
+             cvt_launches=cvt_serve.get('flash_fwd', 0),
+             cvt_train_launches=cvt_train.get('flash_fwd', 0),
+             **cvt_fields('cvt', [k4c[(args.batch, c)] for c in cvt_shapes]),
+             **cvt_fields('cvt_train', [k4c[(64, c)] for c in cvt_shapes])),
         dict(name='fused_attention_fwd_train', route='cuda',
              source='sav_tpu_torch/csrc/fused_attention.cu',
              replaces='sav_tpu/ops/fused_layer.py:127',
@@ -2998,13 +3210,19 @@ def main(argv=None):
              l200_k3_pair_ms=bwd200['dq']['pair_ms']),
         # K3a/K3b: timed at @384 bs48 (L = 577, the main path), the @224
         # bs192 shape (L = 197, where K2 runs on the path) under l197_*
+        # and CvT-13 @224 bs64's three stages under cvt_s1_* .. cvt_s3_*
+        # (library_ms: SDPA's backward, the whole function)
         *(dict(name=f'flash_bwd_{n}', route='cuda',
                source='sav_tpu_torch/csrc/flash_bwd_split.cu',
                replaces=f'sav_tpu/ops/flash_attention.py:{line}',
                launches=t384.get(f'flash_bwd_{n}', 0), **bwd577[n],
                **{f'l197_{key}': bwd197[n][key] for key in (
                    'ms', 'bound_ms', 'pair_ms', 'pair_library_ms',
-                   'pair_bound_ms')})
+                   'pair_bound_ms')},
+               cvt_launches=cvt_train.get(f'flash_bwd_{n}', 0),
+               **cvt_fields('cvt', [k3c[c][n] for c in cvt_shapes],
+                            ('ms', 'bound_ms', 'bound_by', 'plain_ms',
+                             'library_ms', 'pair_ms', 'pair_bound_ms')))
           for n, line in (('dq', 363), ('dkv', 392))),
         # K5a: the serving launches and timing @224; its residual-writing
         # variant (train @224) under train_*, @384 (L = 576) under l576_*
@@ -3112,14 +3330,22 @@ def main(argv=None):
              cait_library_ms=k12_cait['library_ms'],
              cait_bound_ms=k12_cait['bound_ms'],
              cait_bound_by=k12_cait['bound_by']),
+        # K13 also at CvT-13's stage 3 (D = 384, B x 225 rows: bs32 serving,
+        # bs64 training) under cvt_*, and at cvt-w24's (D = 1024, 16 x 625
+        # rows) under w24_*
         dict(name='int8_ff_ln', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:211',
-             launches=q_ff.get('int8_ff_ln', 0), **k13[False]),
+             launches=q_ff.get('int8_ff_ln', 0), **k13[False],
+             cvt_launches=cvt_q_serve.get('int8_ff_ln', 0),
+             **{f'cvt_{k}': v for k, v in k13c[False].items()},
+             **{f'w24_{k}': v for k, v in k13w.items()}),
         dict(name='int8_ff_ln_train', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:211',
-             launches=q_train.get('int8_ff_ln_train', 0), **k13[True]),
+             launches=q_train.get('int8_ff_ln_train', 0), **k13[True],
+             cvt_launches=cvt_q_train.get('int8_ff_ln_train', 0),
+             **{f'cvt_{k}': v for k, v in k13c[True].items()}),
         dict(name='fused_attention_q8', route='cuda',
              source='sav_tpu_torch/csrc/fused_attention_q8.cu',
              replaces='sav_tpu/ops/fused_layer.py:764',

@@ -1,6 +1,6 @@
 """sav_tpu_torch: the PyTorch/CUDA port of sav_tpu for NVIDIA Hopper.
 
-The ViT, CaiT, MLP-Mixer, TNT, BoTNet and CeiT families (``models``),
+The ViT, CaiT, MLP-Mixer, TNT, BoTNet, CeiT and CvT families (``models``),
 served by ``python -m sav_tpu_torch.predict`` and trained by ``python -m
 sav_tpu_torch.train`` on one card, with every TPU kernel on their paths
 ported to hand-written CUDA (``csrc/``, wrapped in ``ops``; ROADMAP.md

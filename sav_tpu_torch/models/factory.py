@@ -1,7 +1,6 @@
 """String-keyed model factory (counterpart of
-``sav_tpu/models/factory.py``): the ViT, CaiT, MLP-Mixer, TNT, BoTNet and
-CeiT names so far (31 of the JAX factory's 34; CvT waits for its slice,
-ROADMAP.md)."""
+``sav_tpu/models/factory.py``): every name of the JAX factory, the ViT,
+CaiT, MLP-Mixer, TNT, BoTNet, CeiT and CvT families (all 34)."""
 
 from __future__ import annotations
 
@@ -10,10 +9,11 @@ from typing import Any, Dict
 import torch
 
 from sav_tpu_torch import resolve_device
-from sav_tpu_torch.models import botnet, cait, ceit, mlp_mixer, tnt, vit
+from sav_tpu_torch.models import botnet, cait, ceit, cvt, mlp_mixer, tnt, vit
 from sav_tpu_torch.models.botnet import BoTNet
 from sav_tpu_torch.models.cait import CaiT
 from sav_tpu_torch.models.ceit import CeiT
+from sav_tpu_torch.models.cvt import CvT
 from sav_tpu_torch.models.mlp_mixer import MLPMixer
 from sav_tpu_torch.models.tnt import TNT
 from sav_tpu_torch.models.vit import ViT
@@ -74,6 +74,12 @@ MODEL_CONFIGS: Dict[str, Any] = {
     'ceit_t': (CeiT, dict(num_layers=12, num_heads=3, embed_dim=192)),
     'ceit_s': (CeiT, dict(num_layers=12, num_heads=6, embed_dim=384)),
     'ceit_b': (CeiT, dict(num_layers=12, num_heads=12, embed_dim=768)),
+    'cvt-13': (CvT, dict(stage_sizes=(1, 2, 10), num_heads=(1, 3, 6),
+                         embed_dim=(64, 192, 384))),
+    'cvt-21': (CvT, dict(stage_sizes=(1, 4, 16), num_heads=(1, 3, 6),
+                         embed_dim=(64, 192, 384))),
+    'cvt-w24': (CvT, dict(stage_sizes=(2, 2, 20), num_heads=(3, 12, 16),
+                          embed_dim=(192, 768, 1024))),
 }
 
 
@@ -90,23 +96,23 @@ def create_model(model_name: str, num_classes: int = 1000,
     (the card unless ``'cpu'`` is asked for).
 
     Extra keyword arguments override config fields (``use_kernel=False``
-    forces the plain attention path, ``num_layers=2`` or, for BoTNet,
-    ``stage_sizes`` cuts depth, ``quantized`` picks an int8 route of the
-    ViT, CaiT and Mixer families and raises for the others).
+    forces the plain attention path, ``num_layers=2`` or, for BoTNet and
+    CvT, ``stage_sizes`` cuts depth, ``quantized`` picks an int8 route of
+    the ViT, CaiT, Mixer and CvT families and raises for the others).
     """
     try:
         model_cls, config = MODEL_CONFIGS[model_name]
     except KeyError:
         raise RuntimeError(
             f'Model not found: {model_name!r}. The torch port has '
-            f'{", ".join(available_models())}; the other families wait for '
-            'their slices (ROADMAP.md)') from None
-    if 'quantized' in overrides and model_cls not in (ViT, CaiT, MLPMixer):
+            f'{", ".join(available_models())}') from None
+    if ('quantized' in overrides
+            and model_cls not in (ViT, CaiT, MLPMixer, CvT)):
         if overrides.pop('quantized'):
             raise RuntimeError(
                 f'{model_cls.__name__} does not support quantized (--quantized '
-                'is honored by the ViT, CaiT and Mixer families; this family '
-                'has no int8 path, as in the JAX package)')
+                'is honored by the ViT, CaiT, Mixer and CvT families; this '
+                'family has no int8 path, as in the JAX package)')
     device = resolve_device(device)
     model = model_cls(num_classes=num_classes, dtype=dtype,
                       img_size=img_size, **{**config, **overrides})
@@ -139,5 +145,7 @@ def set_use_kernel(model: torch.nn.Module, use_kernel) -> None:
         botnet.set_use_kernel(model, use_kernel)
     elif isinstance(model, CeiT):
         ceit.set_use_kernel(model, use_kernel)
+    elif isinstance(model, CvT):
+        cvt.set_use_kernel(model, use_kernel)
     else:
         vit.set_use_kernel(model, use_kernel)

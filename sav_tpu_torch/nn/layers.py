@@ -128,27 +128,37 @@ CONV_INITS = {'he_uniform': he_uniform_, 'lecun_normal': lecun_normal_}
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on NHWC images: ``kernel [kh, kw, in, out]`` and,
-    with ``use_bias``, ``bias [out]`` (zero init), ``padding`` 'SAME'
-    (flax's asymmetric rule, ``same_pads``) or explicit ((lo, hi), (lo,
-    hi)). ``init`` is the kernel's: ``'he_uniform'`` (BoTNet's, the
-    default) or ``'lecun_normal'`` (flax's own default, CeiT's convs). A
-    1 x 1 kernel is a matmul over the strided grid; any other runs
-    ``F.conv2d`` on the NCHW view (channels-last in memory)."""
+    """flax ``nn.Conv`` on NHWC images: ``kernel [kh, kw, in / groups,
+    out]`` and, with ``use_bias``, ``bias [out]`` (zero init), ``padding``
+    'SAME' (flax's asymmetric rule, ``same_pads``) or explicit ((lo, hi),
+    (lo, hi)). ``feature_group_count`` is flax's: the channels split into
+    that many groups, each convolved with its own slice of the kernel
+    (``in_features`` groups: a depthwise conv, CvT's projections). ``init``
+    is the kernel's, over its fan-in kh * kw * in / groups:
+    ``'he_uniform'`` (BoTNet's, the default) or ``'lecun_normal'`` (flax's
+    own default, CeiT's and CvT's convs). An ungrouped 1 x 1 kernel is a
+    matmul over the strided grid; any other runs ``F.conv2d`` on the NCHW
+    view (channels-last in memory)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, int] = (1, 1),
                  strides: Tuple[int, int] = (1, 1), padding: Padding = 'SAME',
                  dtype=torch.float32, use_bias: bool = False,
-                 init: str = 'he_uniform'):
+                 init: str = 'he_uniform', feature_group_count: int = 1):
         super().__init__()
         if init not in CONV_INITS:
             raise ValueError(f'init must be one of {sorted(CONV_INITS)}, got '
                              f'{init!r}')
+        groups = feature_group_count
+        if in_features % groups or features % groups:
+            raise ValueError(f'{in_features} input and {features} output '
+                             f'features are not divisible into {groups} '
+                             'groups')
         self.kernel_size, self.strides = tuple(kernel_size), tuple(strides)
         self.padding, self.dtype, self.init = padding, dtype, init
+        self.groups = groups
         self.kernel = nn.Parameter(
-            torch.empty(*kernel_size, in_features, features))
+            torch.empty(*kernel_size, in_features // groups, features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -163,11 +173,13 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         pads = _pads(x, self.kernel_size, self.strides, self.padding)
         sh, sw = self.strides
-        if self.kernel_size == (1, 1) and pads == ((0, 0), (0, 0)):
+        if (self.kernel_size == (1, 1) and pads == ((0, 0), (0, 0))
+                and self.groups == 1):
             y = x[:, ::sh, ::sw] @ w[0, 0]
             return y if b is None else y + b
         y = F.conv2d(_pad_nchw(x.permute(0, 3, 1, 2), pads),
-                     w.permute(3, 2, 0, 1), b, stride=self.strides)
+                     w.permute(3, 2, 0, 1), b, stride=self.strides,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 

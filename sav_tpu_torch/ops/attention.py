@@ -65,12 +65,14 @@ def multi_head_attention(
     pre_softmax_transform: Optional[torch.Tensor] = None,
     post_softmax_transform: Optional[torch.Tensor] = None,
     use_kernel='auto',
+    core: str = 'kernel',
 ) -> torch.Tensor:
     """Scaled-dot-product multi-head attention on ``[..., len, heads, d]``
     (query unscaled). ``use_kernel``: 'auto' (and any other string) picks
     the flash port where it applies, True/'kernel' forces it, 'hybrid'
     forces the plain forward with the kernel backward, False forces the
-    plain path."""
+    plain path. ``core`` is ``flash_attention.mha``'s where the flash port
+    runs ('plain': its twins at the same autograd boundary)."""
     head_dim = query.shape[-1]
     # sqrt(d) rounded to the query dtype, as the JAX package divides
     sqrt_d = torch.tensor(float(head_dim)).sqrt().to(query.dtype).item()
@@ -92,7 +94,7 @@ def multi_head_attention(
                                  or post_softmax_transform is not None):
             raise ValueError('the flash kernels take no bias or head mixing')
         if mode == 'kernel':
-            return flash_attention.mha(query, key, value)
+            return flash_attention.mha(query, key, value, core)
         if mode == 'hybrid':
             return flash_attention.mha_hybrid(query, key, value)
 

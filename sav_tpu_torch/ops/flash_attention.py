@@ -449,40 +449,53 @@ def attention_plain(qs, k, v):
     return torch.einsum('bhqk,bkhd->bqhd', p, v), lse
 
 
+# what ``mha`` runs: the kernels (K4 forward, K2/K3 backward; the twins on
+# a CPU tensor) or their plain twins on any device
+CORES = ('kernel', 'plain')
+
+
 class _MHA(torch.autograd.Function):
     """Attention on [B, L, heads, d] with the flash residuals (q, k, v, out,
     lse; no [B, H, Lq, Lkv] tensor) and the kernel backward. ``hybrid``
-    picks the plain forward instead of K4 (``_hybrid`` in the JAX package)."""
+    picks the plain forward instead of K4 (``_hybrid`` in the JAX package);
+    ``core='plain'`` runs K4's and the backward's twins at the same
+    boundary."""
 
     @staticmethod
-    def forward(ctx, query, key, value, hybrid):
+    def forward(ctx, query, key, value, hybrid, core):
         b, q_len, heads, d = query.shape
         q, k, v = _bands(query, key, value)
         if hybrid:
             out, lse = attention_plain(query, key, value)
             out = _bands(out)[0]
         else:
-            out, lse = flash_fwd(q, k, v, heads, k.shape[1])
+            fwd = flash_fwd if core == 'kernel' else flash_fwd_plain
+            out, lse = fwd(q, k, v, heads, k.shape[1])
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.heads = heads
+        ctx.heads, ctx.core = heads, core
         return out.reshape(b, q_len, heads, d)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, *_bands(dout), ctx.heads,
-                               k.shape[1])
+        bwd = flash_bwd if ctx.core == 'kernel' else flash_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, *_bands(dout), ctx.heads,
+                         k.shape[1])
         shape = lambda a: a.reshape(a.shape[0], a.shape[1], ctx.heads, -1)
-        return shape(dq), shape(dk), shape(dv), None
+        return shape(dq), shape(dk), shape(dv), None, None
 
 
-def mha(query, key, value):
+def mha(query, key, value, core: str = 'kernel'):
     """Flash attention on ``[B, L, heads, d]`` (query pre-scaled), returning
     ``[B, Lq, heads, d]`` like ``sav_tpu_torch.ops.attention``'s plain path;
-    forward on K4, backward on K2/K3."""
-    return _MHA.apply(query, key, value, False)
+    forward on K4, backward on K2/K3. ``core='plain'`` runs the same
+    Function on their twins, on any device (the card's gradient reference
+    for the kernels at this boundary)."""
+    if core not in CORES:
+        raise ValueError(f'core must be one of {CORES}, got {core!r}')
+    return _MHA.apply(query, key, value, False, core)
 
 
 def mha_hybrid(query, key, value):
     """As ``mha`` with the plain forward and the kernel backward."""
-    return _MHA.apply(query, key, value, True)
+    return _MHA.apply(query, key, value, True, 'kernel')

@@ -109,11 +109,12 @@ def _parser():
     p.add_argument('--quantized', default='none',
                    choices=['none', 'int8', 'ff', 'all'],
                    help="int8 serving: 'ff' runs each FF sublayer as one "
-                        "int8 kernel (K13 for ViT, K12 for the Mixer's and "
-                        "CaiT's FF blocks); 'all' adds int8 attention "
-                        "projections (K10 for ViT, K11 for CaiT's "
-                        "talking-heads span); 'int8' quantizes every FF "
-                        'product through the library int8 path. Weights '
+                        "int8 kernel (K13 for ViT and CvT's stages at least "
+                        "256 wide, K12 for the Mixer's and CaiT's FF "
+                        "blocks); 'all' adds int8 attention projections "
+                        "(K10 for ViT, K11 for CaiT's talking-heads span; "
+                        "CvT quantizes its FF only); 'int8' quantizes every "
+                        'FF product through the library int8 path. Weights '
                         'quantize on the fly, per call')
     p.add_argument('--device', default=None,
                    help='cuda (default) or cpu')

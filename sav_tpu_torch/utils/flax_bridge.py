@@ -23,8 +23,9 @@ import torch
 
 
 # the names of nn.scan-stacked block stacks (no _N suffix): ViT/CaiT's
-# encoder and the Mixer's blocks (sav_tpu/models/mlp_mixer.py:148)
-SCAN_NAMES = ('EncoderBlock', 'MixerBlock')
+# encoder, the Mixer's blocks (sav_tpu/models/mlp_mixer.py:148) and CvT's
+# stage blocks past the first (sav_tpu/models/cvt.py:171-181)
+SCAN_NAMES = ('EncoderBlock', 'MixerBlock', 'StageBlock')
 
 
 def _reject_scan_layout(path: str) -> None:

@@ -106,9 +106,11 @@ def _rel(a, b):
     (197, 197, 'split', 4, None), (577, 500, 'split', 4, None),
     # K3's tile edges: 577 = 4 x 128 + 65 = 9 x 64 + 1, a 1-row last
     # 128-row tile at 129, queries != keys (CvT's cross-length attention),
-    # H = 16 at d = 64
+    # H = 16 at d = 64; cvt-13's stage 1 (3136 queries over 784 keys in one
+    # head) and stage 3 (the padded 225 over 64 keys, 6 heads), both K3's
     (577, 577, 'split', 4, None), (129, 129, 'split', 4, None),
-    (100, 90, 'split', 4, 300), (577, 577, 'split', 16, None)])
+    (100, 90, 'split', 4, 300), (577, 577, 'split', 16, None),
+    (784, 784, 'auto', 1, 3136), (64, 64, 'auto', 6, 225)])
 def test_flash_bwd_matches_twin(card, seq, kv_len, route, heads, q_len):
     """seq key rows (the first kv_len unmasked) and q_len query rows
     (default seq)."""
@@ -2083,3 +2085,63 @@ def test_ceit_launch_counts(card, use_kernel):
     with pytest.raises(ValueError, match='one query'):
         with torch.no_grad():
             model.eval()(x)
+
+
+# ---- CvT (slice 10): per-op attention on K4 + K3 at CvT's cross lengths
+
+def _cvt(card, use_kernel, img_size=224):
+    """cvt-13 at full width, stage sizes (1, 1, 2), bf16, its head and cls
+    token filled (zero-initialised, they would make every logit 0)."""
+    from sav_tpu_torch.models import create_model
+    model = create_model('cvt-13', num_classes=10, dtype=torch.bfloat16,
+                         img_size=img_size, seed=3, device=card,
+                         stage_sizes=(1, 1, 2), use_kernel=use_kernel)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        head = model.Dense_0.kernel
+        head.copy_(torch.randn(head.shape, generator=gen) / 384 ** 0.5)
+        model.Stage_2.cls.copy_(torch.randn(model.Stage_2.cls.shape,
+                                            generator=gen))
+    return model
+
+
+def test_cvt_logits_and_launch_counts(card):
+    """cvt-13's stages at @224 (3136 over 784 keys in one head, 784 over
+    196 in three, the padded 225 over 64 in six): under 'auto' every
+    block's attention is one K4 launch a forward (4 at stage sizes
+    (1, 1, 2)) and K4 + K3a + K3b a training step (no K2: every query
+    length is past 208 rows), logits within 5e-2 of max |logit| of
+    use_kernel=False on the same weights."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import set_use_kernel
+    model = _cvt(card, 'auto')
+    x = _bf16(np.random.RandomState(5), (2, 224, 224, 3), 1.0, card)
+    model.eval()
+    with torch.no_grad():
+        _build.reset_launches()
+        logits = model(x).float()
+        assert _build.launches == {'flash_fwd': 4}
+        set_use_kernel(model, False)
+        plain = model(x).float()
+    err = _rel(logits, plain)
+    assert bool(torch.isfinite(logits).all()) and err <= 5e-2, err
+    set_use_kernel(model, 'auto')
+    model.train()
+    _build.reset_launches()
+    model(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launches == {'flash_fwd': 4, 'flash_bwd_dq': 4,
+                               'flash_bwd_dkv': 4}
+
+
+def test_cvt_auto_refuses_what_k4_does_not_take(card):
+    """At 32 px stage 3's query grid is 3 x 3 (below K4's 64-row floor):
+    'auto' raises on the card, and use_kernel=False runs it per-op."""
+    from sav_tpu_torch.models import set_use_kernel
+    model = _cvt(card, 'auto', img_size=32).eval()
+    x = _bf16(np.random.RandomState(6), (2, 32, 32, 3), 1.0, card)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match='use_kernel=False'):
+            model(x)
+        set_use_kernel(model, False)
+        assert bool(torch.isfinite(model(x)).all())

@@ -31,10 +31,14 @@ TOL = 1e-5
 DH = 64
 SMEM_LIMIT = 232448         # dynamic shared memory one H100 block may use
 
-# (q_len, kv_rows): ViT-Ti..L at 32..384 px and CvT's stage-1 cross-length
-# attention (3136 queries over 784 keys)
-LENGTHS = [(17, 17), (65, 65), (129, 129), (197, 197), (577, 577),
-           (3136, 784)]
+# CvT's cross-length attention, queries over the stride-2 key grid:
+# cvt-13 @224 (3136/784, 784/196, 225/64) and cvt-w24 @384 (9216/2304,
+# 2304/576, 625/169); every one is past K2's 208 rows, so K3's
+CVT_LENGTHS = [(3136, 784), (784, 196), (225, 64), (9216, 2304), (2304, 576),
+               (625, 169)]
+# (q_len, kv_rows): ViT-Ti..L at 32..384 px and CvT's
+LENGTHS = [(17, 17), (65, 65), (129, 129), (197, 197),
+           (577, 577)] + CVT_LENGTHS
 
 
 @pytest.mark.parametrize('q_len,kv_rows', LENGTHS)
@@ -66,6 +70,21 @@ def test_plan_tiles_cover_every_row(q_len, kv_rows):
     assert covers(dq['steps'], tile, kv_len)               # keys K3a reads
     assert covers(dkv['work'][0], dkv['rows'], kv_rows)    # dk/dv rows
     assert covers(dkv['steps'], tile, q_len)               # queries K3b reads
+
+
+@pytest.mark.parametrize('q_len,kv_rows', CVT_LENGTHS)
+def test_plan_at_one_head(q_len, kv_rows):
+    """One 64-wide head band (cvt-13's stage 1, H = 1): both kernels walk
+    the row tiles of each image in the footprint of any head count, and
+    flash_bwd routes every CvT length to K3."""
+    plan = flash_attention.split_plan(64, q_len, kv_rows, kv_rows, 1)
+    wide = flash_attention.split_plan(64, q_len, kv_rows, kv_rows, 12)
+    rows = plan['dq']['rows']
+    assert plan['dq']['work'] == (-(-q_len // rows), 1, 64)
+    assert plan['dkv']['work'] == (-(-kv_rows // rows), 1, 64)
+    for kernel in ('dq', 'dkv'):
+        assert plan[kernel]['smem'] == wide[kernel]['smem']
+    assert not flash_attention.fused_bwd_fits(q_len, kv_rows)
 
 
 def _bands(q_len, kv_rows, heads=2, batch=1, dtype=torch.bfloat16):

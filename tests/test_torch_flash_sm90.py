@@ -21,11 +21,16 @@ from sav_tpu_torch.ops import flash_attention as fa
 SMEM_LIMIT = 232448         # dynamic shared memory one H100 block may use
 DH = 64
 
+# CvT's cross-length attention, queries over the stride-2 key grid:
+# cvt-13 @224 (3136/784, 784/196, 225/64) and cvt-w24 @384 (9216/2304,
+# 2304/576, 625/169); stage 3's query grid is the padded 15 x 15 or 25 x 25
+CVT_LENGTHS = [(3136, 784, 784), (784, 196, 196), (225, 64, 64),
+               (9216, 2304, 2304), (2304, 576, 576), (625, 169, 169)]
 # (q_len, kv_rows, kv_len): ViT-Ti..L at 32..384 px (17, 65, 197, 577), a
 # 1-row tail past two tiles (129), a masked key tail (200 over 190 keys),
-# and CvT's stage-1 cross-length attention (3136 queries over 784 keys)
+# and CvT's
 LENGTHS = [(17, 17, 17), (65, 65, 65), (129, 129, 129), (197, 197, 197),
-           (200, 200, 190), (577, 577, 577), (3136, 784, 784)]
+           (200, 200, 190), (577, 577, 577)] + CVT_LENGTHS
 
 
 def _covers(starts_sizes, rows):
@@ -64,6 +69,19 @@ def test_fwd_plan_covers_every_row(q_len, kv_rows, kv_len):
     assert len(tiles) == plan['steps']
     assert _covers(tiles, kv_len)
     assert all(n == 64 for _, n in tiles[:-1])      # only the last is short
+
+
+@pytest.mark.parametrize('q_len,kv_rows,kv_len', CVT_LENGTHS)
+def test_fwd_plan_at_one_head(q_len, kv_rows, kv_len):
+    """One 64-wide head band (cvt-13's stage 1, H = 1): the work tiles walk
+    the query tiles of each image, every row covered, in the same
+    footprint."""
+    plan = fa.fwd_plan(32, q_len, kv_rows, kv_len, 1)
+    assert plan['work'] == (-(-q_len // plan['rows']), 1, 32)
+    assert plan['smem'] == fa.fwd_plan(32, q_len, kv_rows, kv_len, 12)['smem']
+    assert _covers([(plan['rows'] * i, plan['rows'])
+                    for i in range(plan['work'][0])], q_len)
+    assert _covers(_streamed(kv_len, plan['wide']), kv_len)
 
 
 @pytest.mark.parametrize('q_len,kv_rows,kv_len', LENGTHS)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from sav_tpu.models import available_models as jax_available_models
 from sav_tpu_torch.models import available_models, create_model
 from sav_tpu_torch.models.vit import set_use_kernel
 from torch_parity import images, jax_vit, torch_vit
@@ -59,17 +60,13 @@ def test_set_use_kernel_reroutes_the_same_weights():
 
 
 def test_factory_names_and_refusals():
-    assert available_models() == sorted(
-        ['vit_ti_patch16', 'vit_s_patch32', 'vit_s_patch16', 'vit_b_patch32',
-         'vit_b_patch16', 'vit_l_patch32', 'vit_l_patch16', 'cait_xxs_24',
-         'cait_xxs_36', 'cait_xs_24', 'cait_xs_36', 'cait_s_24', 'cait_s_36',
-         'cait_s_48', 'cait_m_24', 'cait_m_36', 'cait_m_48',
-         'mixer_s_patch32', 'mixer_s_patch16', 'mixer_b_patch32',
-         'mixer_b_patch16', 'mixer_l_patch32', 'mixer_l_patch16',
-         'tnt_s_patch16', 'tnt_b_patch16', 'botnet_t3', 'botnet_t4',
-         'botnet_t5', 'ceit_t', 'ceit_s', 'ceit_b'])
-    with pytest.raises(RuntimeError, match='ROADMAP'):
-        create_model('cvt-13', device='cpu')
+    """The port's factory has every name of the JAX factory (all 34, the
+    three CvT names with them); a name neither has raises."""
+    assert available_models() == jax_available_models()
+    assert len(available_models()) == 34
+    assert {'cvt-13', 'cvt-21', 'cvt-w24'} <= set(available_models())
+    with pytest.raises(RuntimeError, match='Model not found'):
+        create_model('vit_h_patch14', device='cpu')
     with pytest.raises(NotImplementedError, match='fused_qkv'):
         create_model('vit_ti_patch16', device='cpu', num_layers=1,
                      fused_qkv=True)

@@ -267,3 +267,59 @@ def torch_ceit(variables, **kwargs):
                                **kwargs)
     model.load_state_dict(flax_to_torch(variables), strict=True)
     return model
+
+
+# CvT: cvt-13's block types at 32 px, stage sizes (1, 1, 2), every head
+# d = 64 (widths 64, 128, 256 in 1, 2 and 4 heads): query grids 8 x 8,
+# 4 x 4 and 3 x 3 over key grids 4 x 4, 2 x 2 and 2 x 2; stage 3's 5
+# tokens (cls + 2 x 2) zero-pad to 3 x 3, and its width, 256, is the
+# narrowest that takes the int8 FF under quantized='ff'/'all'
+CVT_SMALL = dict(stage_sizes=(1, 1, 2), num_heads=(1, 2, 4),
+                 embed_dim=(64, 128, 256))
+CVT_IMG = 32
+
+
+def fill_cvt_head(params, seed=1):
+    """CvT's zero-initialised head (scaled by 1/sqrt(D), so the loss
+    resolves to 1e-5 in f32) and its last stage's cls token, drawn from the
+    seed: zero, they would make every logit 0 and hide the cls row."""
+    rng = np.random.RandomState(seed)
+    head = params['Dense_0']
+    head['kernel'] = (rng.standard_normal(head['kernel'].shape)
+                      / np.sqrt(head['kernel'].shape[0])).astype(np.float32)
+    head['bias'] = rng.standard_normal(head['bias'].shape).astype(np.float32)
+    last = params[f'Stage_{len(CVT_SMALL["stage_sizes"]) - 1}']
+    last['cls'] = rng.standard_normal(last['cls'].shape).astype(np.float32)
+    return params
+
+
+@functools.lru_cache(maxsize=None)
+def _cvt_variables():
+    model = jax_create_model('cvt-13', num_classes=NUM_CLASSES, **CVT_SMALL)
+    variables = jax.jit(model.init, static_argnames='is_training')(
+        jax.random.PRNGKey(0), jnp.ones((1, CVT_IMG, CVT_IMG, 3)),
+        is_training=False)
+    variables = fill_batchnorm(jax.tree_util.tree_map(np.array,
+                                                      dict(variables)))
+    params = fill_cvt_head(fill_biases(fill_body(variables['params'])))
+    return {'params': params, 'batch_stats': variables['batch_stats']}
+
+
+def jax_cvt(**kwargs):
+    """(flax model, a copy of its ``{'params', 'batch_stats'}``) for the
+    small CvT: the head and cls filled, and every LayerNorm, BatchNorm
+    (running statistics too) and bias drawn away from its init, so a
+    swapped or dropped one shows; the tree is initialised once (every
+    use_kernel and quantized mode has the same one)."""
+    model = jax_create_model('cvt-13', num_classes=NUM_CLASSES, **CVT_SMALL,
+                             **kwargs)
+    return model, jax.tree_util.tree_map(np.copy, _cvt_variables())
+
+
+def torch_cvt(variables, **kwargs):
+    """The port's small CvT with ``variables`` loaded."""
+    model = torch_create_model('cvt-13', num_classes=NUM_CLASSES,
+                               img_size=CVT_IMG, device='cpu', **CVT_SMALL,
+                               **kwargs)
+    model.load_state_dict(flax_to_torch(variables), strict=True)
+    return model
