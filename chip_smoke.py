@@ -179,6 +179,21 @@
    its device time by module kind (``print_module_split``). cvt-w24 @384
    (stage sizes (1, 1, 2), bs2) is in the sweep of 10: K4 and K3 at 9216
    over 2304 keys in 3 heads, 2304 over 576 in 12 and 625 over 169 in 16.
+15. CaiT-M (slice 11; after 14, before the print of 11): the TH kernels at
+   16 heads of 48 (D = 768) at cait_m_48 @224's shapes: K5a (both
+   variants) and K6a at B = 16, L = 196 (the forward core in two head
+   groups, a group a block at this batch), K5b and K6b (the staged
+   backward, ``csrc/th_bwd_staged.cuh``) at B = 16, K11 at the int8
+   serving B = 32, against their twins and timed beside the per-op
+   chains and the bound; K6a, K5b/K6b and K5a at L = 197 and 577 into
+   NaN-sentinel buffers; K11 at B = 3, L = 197 and 250 into sentinels;
+   K11's codes and row scales against the twin's quantiser on K6a's
+   bands, bit for bit. Then serving cait_m_48 @224 bs16 on 'auto' (48 K5a
+   per forward), logits against use_kernel=False; training it bs16 (48
+   K5a-train + 48 K5b per step), gradients against 'fused_th_xla' with
+   the f32 per-op path as the noise floor; serving ``quantized='all'``
+   bs32 (48 K11 + 48 K12 per forward) against the int8 twins. cait_m_24
+   @384 (K5 at L = 576) is in the sweep of 10 at depth 2.
 """
 
 from __future__ import annotations
@@ -1056,11 +1071,17 @@ def check_th_tails(rng, checks, seq, heads=8):
     errs = [th._fn('sav_th_core_fwd', 6, 3)(
         ptr(q), ptr(k), ptr(v), ptr(mix), ptr(attn), ptr(lse), 1, seq, heads,
         stream)]
-    # the backward (csrc/th_bwd.cu) with its scratch as _core_bwd makes it
-    delta = torch.empty_like(lse)
+    # the backward (csrc/th_bwd.cu) with its scratch as _core_bwd makes it:
+    # delta, or at H = 16 the staged workspace
+    if heads == 16:
+        scratch = torch.empty(th.th_bwd_staged_plan(1, seq)['workspace'],
+                              dtype=torch.uint8, device='cuda')
+        entry = 'sav_th_core_bwd_staged'
+    else:
+        scratch, entry = torch.empty_like(lse), 'sav_th_core_bwd'
     dm = th._dm_partials(1, seq, heads, q.device)
-    errs.append(th._fn('sav_th_core_bwd', 11, 3, lib='th_bwd')(
-        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(mix), ptr(delta),
+    errs.append(th._fn(entry, 11, 3, lib='th_bwd')(
+        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(mix), ptr(scratch),
         ptr(dm), ptr(dq), ptr(dk), ptr(dv), 1, seq, heads, stream))
     # K5a's span where it takes the length: its attn scratch and out in
     # sentinel buffers
@@ -1090,7 +1111,7 @@ def check_th_tails(rng, checks, seq, heads=8):
     kept = all(bool(torch.isnan(t[:, seq:]).all()) for t, _ in pairs)
     what = 'K6a, K5b/K6b' + (' and K5a' if spans else '')
     checks.expect(all(e == 0 for e in errs) and rel <= OUT_TOL and kept,
-                  f'{what} at L={seq} into sentinel buffers: rows < L err '
+                  f'{what} H={heads} at L={seq} into sentinel buffers: rows < L err '
                   f'{rel:.3g} of max (tol {OUT_TOL}), rows past L untouched '
                   f'{kept}, launch codes {errs}')
 
@@ -2056,7 +2077,8 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
 # the distinct dispatch shapes that ``auto`` takes on the card among the
 # factory names the paths above do not build (H = 16 at L = 197 and 577 on
 # K1/K2/K3; D = 192 on K1's 192-wide GEMM tile, pre-LN (vit_ti) and
-# post-LN (ceit_t); D = 384, H = 6; CaiT's H = 4 on K6 at L = 196 and 576;
+# post-LN (ceit_t); D = 384, H = 6; CaiT's H = 4 on K6 at L = 196 and 576,
+# and H = 16 on K5 at L = 576 (cait_m_24 @384);
 # the Mixer's S and L widths on K8; cvt-w24 @384 on K4 + K3 at 9216 over
 # 2304 keys in 3 heads, 2304 over 576 in 12, the padded 625 over 169 in 16)
 SWEEP = (
@@ -2067,6 +2089,7 @@ SWEEP = (
     ('vit_s_patch16', 224, 4, 'fused_layer_xla'),
     ('cait_xxs_24', 224, 4, 'fused_th_xla'),
     ('cait_xxs_24', 384, 2, 'fused_th_xla'),
+    ('cait_m_24', 384, 2, 'fused_th_xla'),
     ('mixer_s_patch16', 224, 4, False),
     ('mixer_l_patch16', 224, 4, False),
     ('cvt-w24', 384, 2, CVT_PLAIN),
@@ -2537,23 +2560,71 @@ def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     _int8_expect(checks, f'K14 M={m} into sentinels: dy2', dy[:m], want[0])
     _int8_expect(checks, f'K14 M={m} into sentinels: dh', dh[:m], want[1])
     kept += [dy[m:], dh[m:]]
-    for seq_i in (seq, 250):
-        dim, heads = 384, 8
+    kept += check_k11_sentinels(rng, checks, batch, (seq, 250), 384, 8)
+    untouched = all(bool(torch.isnan(t).all()) for t in kept)
+    checks.expect(untouched, f'K11/K14 into sentinel buffers: rows past M '
+                             f'untouched {untouched}')
+
+
+def check_k11_sentinels(rng, checks, batch, seqs, dim, heads):
+    """K11 at B = ``batch`` and each length of ``seqs`` into a NaN-sentinel
+    buffer 64 rows longer than B*L: rows in range against the twin; returns
+    the rows past them, which must keep the sentinel."""
+    kept = []
+    for seq_i in seqs:
         x, scale, bias, flat, mixes = _k11_case(rng, batch, seq_i, dim, heads)
         rows = batch * seq_i
-        out = nan(rows, dim)
+        out = torch.full((rows + 64, dim), float('nan'), device='cuda',
+                         dtype=torch.bfloat16)
         # the C entry into the first B*L rows (it raises on a failed launch)
         th._th_q8_into(x, scale, bias, flat[0::2], flat[1::2], *mixes, heads,
                        fused_layer.LN_EPS, False, out[:rows])
         torch.cuda.synchronize()
         with torch.no_grad():
             want = th.th_q8_reference(x, scale, bias, *flat, *mixes, heads)
-        _int8_expect(checks, f'K11 B={batch} L={seq_i} into sentinels',
-                     out[:rows], want.reshape(rows, dim))
+        _int8_expect(checks, f'K11 B={batch} L={seq_i} D={dim} H={heads} into '
+                             f'sentinels', out[:rows], want.reshape(rows, dim))
         kept.append(out[rows:])
-    untouched = all(bool(torch.isnan(t).all()) for t in kept)
-    checks.expect(untouched, f'K11/K14 into sentinel buffers: rows past M '
-                             f'untouched {untouched}')
+    return kept
+
+
+def check_k11_codes(rng, checks, batch, seq, dim, heads):
+    """K11's core takes the bands' codes in its store (at H = 16 over two
+    passes of 8 heads, the row's absmax combined first): its codes and row
+    scales, read from the workspace, against the twin's quantiser
+    (``_quantize_tile``) on the bands K6a's kernel computes from the same
+    q, k, v (the same core without the codes): bit for bit."""
+    x, scale, bias, flat, mixes = _k11_case(rng, batch, seq, dim, heads)
+    hd, m = heads * th.HEAD_CH, batch * seq
+    plan = th.th_q8_plan(batch, seq, dim, heads)
+    ws = torch.empty(plan['workspace'], dtype=torch.uint8, device='cuda')
+    vec = lambda t, n: t.reshape(n).float().contiguous()
+    out = torch.empty_like(x)
+    bufs = [x, scale, bias, *flat[0::2],
+            *[vec(t, n) for t, n in zip(flat[1::2], (hd, hd, hd, dim))],
+            th._mix_bank(*mixes, heads, x.device), ws, out]
+    err = th._k11_lib()(*[t.data_ptr() for t in bufs], batch, seq, dim,
+                        heads, 0, fused_layer.LN_EPS, 1.0 / th.HEAD_CH ** 0.5,
+                        fa.stream_of(x.device))
+    torch.cuda.synchronize()
+
+    def region(name, dtype, shape):
+        at, nbytes = plan['scratch'][name]
+        return ws[at:at + nbytes].view(dtype).view(shape)
+
+    q, k, v = (region(n, torch.bfloat16, (batch, seq, hd))
+               for n in ('q', 'k', 'v'))
+    attn, _ = th.th_core_fwd(q, k, v, *mixes, heads)
+    codes, scales = k15._quantize_tile(attn.reshape(m, hd))
+    aq, a_s = region('aq', torch.int8, (m, hd)), region('as', torch.float32,
+                                                         (m,))
+    same_codes = float((aq == codes).float().mean())
+    same_scales = bool(torch.equal(a_s, scales.reshape(m)))
+    checks.expect(err == 0 and same_codes == 1.0 and same_scales,
+                  f'K11 B={batch} L={seq} D={dim} H={heads}: codes of the '
+                  f'core\'s store vs the twin\'s quantiser on K6a\'s bands: '
+                  f'{same_codes:.6f} identical, row scales identical '
+                  f'{same_scales} (launch code {err})')
 
 
 def check_quantizer(checks):
@@ -3082,6 +3153,46 @@ def main(argv=None):
     print(f'  the CvT phase took {time.perf_counter() - t_cvt:.1f} s',
           flush=True)
 
+    # CaiT-M (slice 11): the TH kernels at H = 16 (cait_m's 16 heads of 48,
+    # D = 768) at cait_m_48 @224's shapes (L = 196: serving and training
+    # B = 16, K11 at the int8 serving B = 32), the blocked route's entries
+    # (K6a, K6b) on the same kernels, ragged lengths on NaN sentinels and
+    # K11's codes bit for bit; then the paths: serving cait_m_48 @224 bs16
+    # (48 K5a a forward), training it bs16 (48 K5a-train + 48 K5b a step),
+    # serving it quantized='all' bs32 (48 K11 + 48 K12). cait_m_24 @384 (K5
+    # at L = 576) runs in the sweep above.
+    t_m = time.perf_counter()
+    k5a_m = {train: check_k5a(rng, checks, 16, 196, save_residuals=train,
+                              dim=768, heads=16) for train in (False, True)}
+    k6a_m = {train: check_k6a(rng, checks, 16, 196, heads=16)
+             for train in (False, True)}
+    k5b_m = check_th_bwd(rng, checks, 16, 196, 'th_attention_bwd', heads=16)
+    k6b_m = check_th_bwd(rng, checks, 16, 196, 'th_core_bwd', heads=16)
+    for seq in (197, 577):
+        check_th_tails(rng, checks, seq, heads=16)
+    k11_m = check_k11(rng, checks, 32, 196, 768, 16)
+    check_k11_codes(rng, checks, 2, 197, 768, 16)
+    kept = check_k11_sentinels(rng, checks, 3, (197, 250), 768, 16)
+    untouched = all(bool(torch.isnan(t).all()) for t in kept)
+    checks.expect(untouched, f'K11 H=16 into sentinel buffers: rows past '
+                             f'B*L untouched {untouched}')
+    print(f'  CaiT-M kernel checks took {time.perf_counter() - t_m:.1f} s',
+          flush=True)
+    m_serve = serve_path(checks, 'CaiT-M/48 @224 auto', 224, 'auto',
+                         {'th_attention_fwd': 48}, args.seed, 16,
+                         args.profile, model_name='cait_m_48')
+    m_train = train_path(checks, 'train CaiT-M/48 @224 bs16', 224, 16,
+                         {'th_attention_fwd_train': 48,
+                          'th_attention_bwd': 48}, args.seed,
+                         profile=args.profile, model_name='cait_m_48',
+                         plain_core='fused_th_xla')
+    m_q = serve_path(checks, 'CaiT-M/48 @224 quantized=all', 224, 'auto',
+                     {'th_attention_q8': 48, 'int8_ff': 48}, args.seed,
+                     args.batch, args.profile, model_name='cait_m_48',
+                     quantized='all')
+    print(f'  the CaiT-M phase took {time.perf_counter() - t_m:.1f} s',
+          flush=True)
+
     def cvt_fields(prefix, recs, keys=('ms', 'bound_ms', 'bound_by',
                                        'plain_ms', 'library_ms')):
         """CvT's per-stage records (cvt-13 @224's stages 1-3) under
@@ -3102,6 +3213,21 @@ def main(argv=None):
                     source=f'sav_tpu_torch/csrc/{source}',
                     replaces=f'sav_tpu/ops/th_attention.py:{replaces}',
                     launches=launches, **rec, **extra)
+
+    def h16(prefix, launches, rec, train_launches=None, train=None):
+        """A TH kernel at H = 16 under ``prefix``_*: its launches on the
+        cait_m path (a forward or a step, read from that path's counts: 0
+        where the path reaches the same kernel through another entry) and
+        ``rec`` at the path's shape; ``train``, the training shape's
+        record, under ``prefix``_train_*."""
+        keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+                'max_abs_err')
+        out = {f'{prefix}_launches': launches,
+               **{f'{prefix}_{k}': rec[k] for k in keys}}
+        if train is not None:
+            out[f'{prefix}_train_launches'] = train_launches
+            out.update({f'{prefix}_train_{k}': train[k] for k in keys})
+        return out
 
     def nores(train, launches):
         """K1 without the residual (TNT's outer sublayer), under nores_*:
@@ -3234,20 +3360,27 @@ def main(argv=None):
                  l576_ms=k5a384[False]['ms'],
                  l576_train_ms=k5a384[True]['ms'],
                  l576_bound_ms=k5a384[False]['bound_ms'],
-                 l576_train_bound_ms=k5a384[True]['bound_ms']),
+                 l576_train_bound_ms=k5a384[True]['bound_ms'],
+                 **h16('m48', m_serve.get('th_attention_fwd', 0), k5a_m[False],
+                       m_train.get('th_attention_fwd_train', 0),
+                       k5a_m[True])),
         th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b,
                  source='th_bwd.cu',
-                 l576_launches=c384.get('th_attention_bwd', 0)),
+                 l576_launches=c384.get('th_attention_bwd', 0),
+                 **h16('m48', m_train.get('th_attention_bwd', 0), k5b_m)),
         # K6a and K6b: the blocked route's launches and timing (cait_xxs_24
         # @224), at L = 576 under l576_*
         th_entry('th_core_fwd', 362, k6a_serve.get('th_core_fwd', 0),
                  k6a[False], k6a[True], source='th_fwd_sm90.cuh',
                  train_launches=cxxs.get('th_core_fwd', 0),
                  l576_ms=k6a576[False]['ms'], l576_train_ms=k6a576[True]['ms'],
-                 l576_bound_ms=k6a576[False]['bound_ms']),
+                 l576_bound_ms=k6a576[False]['bound_ms'],
+                 **h16('h16', m_serve.get('th_core_fwd', 0), k6a_m[False],
+                       m_train.get('th_core_fwd', 0), k6a_m[True])),
         th_entry('th_core_bwd', 387, cxxs.get('th_core_bwd', 0), k6b,
                  source='th_bwd.cu', l576_ms=k6b576['ms'],
-                 l576_bound_ms=k6b576['bound_ms']),
+                 l576_bound_ms=k6b576['bound_ms'],
+                 **h16('h16', m_train.get('th_core_bwd', 0), k6b_m)),
         # K8a: Mixer-B/16 serving (B=32) launches and timing; the training
         # shape (B=192) under train_*
         dict(name='token_mix_fwd', route='cuda',
@@ -3363,7 +3496,8 @@ def main(argv=None):
              xxs_entry_ms=k11[(192, 4)]['entry_ms'],
              xxs_plain_ms=k11[(192, 4)]['plain_ms'],
              xxs_library_ms=k11[(192, 4)]['library_ms'],
-             xxs_bound_ms=k11[(192, 4)]['bound_ms']),
+             xxs_bound_ms=k11[(192, 4)]['bound_ms'],
+             **h16('m48', m_q.get('th_attention_q8', 0), k11_m)),
         dict(name='int8_ff_dx', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:378',

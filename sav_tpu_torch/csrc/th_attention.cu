@@ -41,6 +41,9 @@
 //    GEMM without the residual: CaiT adds LayerScale and stochastic depth
 //    before the skip connection; K1's launches too) around the core.
 //
+// At H = 16 (cait_m) the core accumulates its heads in two groups of 8
+// (th_fwd_sm90.cuh's header says why and what it costs).
+//
 // Bound on the card: per (image, head, query, key) the forward does 192
 // tensor-core operations (q k^T and P V at d = 48) and 4H scalar
 // operations for the two mixes. At H = 8 the mixes are 32 CUDA-core FMAs
@@ -56,12 +59,13 @@
 #include "th_fwd_sm90.cuh"
 
 // Dynamic shared memory of the K6a kernel, also K5a's core, at H heads (0
-// for an unbuilt H); mirrored by th_fwd_plan in ops/th_attention.py, read
-// by the K5a router (fused_smem).
+// for an unbuilt H); mirrored by th_fwd_plan in ops/th_attention.py, which
+// the K5a router decides on.
 extern "C" int sav_th_core_fwd_smem(int heads) {
   using namespace sav::thf;
   if (heads == 4) return Plan<4>::SMEM;
   if (heads == 8) return Plan<8>::SMEM;
+  if (heads == 16) return Plan<16>::SMEM;
   return 0;
 }
 
@@ -75,13 +79,16 @@ extern "C" int sav_th_core_fwd(const void* q, const void* k, const void* v,
     return sav::thf::run<4>(q, k, v, mix, attn, lse, batch, seq, st);
   if (heads == 8)
     return sav::thf::run<8>(q, k, v, mix, attn, lse, batch, seq, st);
+  if (heads == 16)
+    return sav::thf::run<16>(q, k, v, mix, attn, lse, batch, seq, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // K5a. x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*48], wo
 // [H*48, D]; mix [3, H, H] f32 as for K6a; y [B*L, D] and q/k/v/attn [B,
 // L, H*48] scratch; out [B, L, D]; lse [B, H, L] f32 or null (inference).
-// Needs D % 128 == 0 and H*48 % 128 == 0 (whole GEMM tiles), H = 4 or 8.
+// Needs D % 128 == 0 and H*48 % 128 == 0 (whole GEMM tiles), H = 4, 8 or
+// 16.
 extern "C" int sav_th_attention_fwd(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo,
@@ -91,7 +98,7 @@ extern "C" int sav_th_attention_fwd(
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = batch * seq, hd = heads * thb::TD;
-  if (dim % 128 || hd % 128 || (heads != 4 && heads != 8))
+  if (dim % 128 || hd % 128 || (heads != 4 && heads != 8 && heads != 16))
     return (int)cudaErrorInvalidValue;
   int err = (int)layernorm(x, ln_scale, ln_bias, y, M, dim, eps, st);
   if (err != 0) return err;
@@ -100,9 +107,9 @@ extern "C" int sav_th_attention_fwd(
   err = proj::run<proj::QKV>(y, wqkv, qkv, nullptr, M, dim, hd, 3, q_scale,
                              st);
   if (err != 0) return err;
-  err = heads == 4
-      ? thf::run<4>(qs, ks, vs, mix, attn, lse, batch, seq, st)
-      : thf::run<8>(qs, ks, vs, mix, attn, lse, batch, seq, st);
+  err = heads == 4 ? thf::run<4>(qs, ks, vs, mix, attn, lse, batch, seq, st)
+        : heads == 8 ? thf::run<8>(qs, ks, vs, mix, attn, lse, batch, seq, st)
+        : thf::run<16>(qs, ks, vs, mix, attn, lse, batch, seq, st);
   if (err != 0) return err;
   const void* wout[3] = {wo, nullptr, nullptr};
   void* outs[3] = {out, nullptr, nullptr};

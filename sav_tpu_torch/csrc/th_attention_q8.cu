@@ -38,7 +38,8 @@
 //     the epilogue;
 //  3. K6a's two-sweep wgmma core (th_fwd_sm90.cuh, K5a's core too) in its
 //     Q8 form: the accumulate warpgroup takes each row's codes over its H
-//     heads x 48 columns in registers and writes aq and as;
+//     heads x 48 columns in registers and writes aq and as (at H = 16 over
+//     two passes of 8 heads, the absmax combined before any code);
 //  4. q8g OUT: aq Wo with the dequant epilogue (+ x).
 // The core forms p = 2^(x - lse log2 e) by ex2.approx where the twin takes
 // p / sum p: a band may move by a bf16 ulp, and a code at .5 with it (the
@@ -50,7 +51,7 @@ namespace {
 
 bool bad_geometry(int batch, int seq, int dim, int heads) {
   return batch < 1 || seq < 1 || dim < 64 || dim % 64
-         || (heads != 4 && heads != 8);
+         || (heads != 4 && heads != 8 && heads != 16);
 }
 
 // The projections' column tile: 64 divides H*48 and D at every CaiT width
@@ -104,8 +105,9 @@ extern "C" int sav_th_q8_plan(int batch, int seq, int dim, int heads,
   out[6] = stages_of(OUT, hd, 0);
   out[7] = Plan<QKV, TILE>::SMEM;
   out[8] = Plan<OUT, TILE>::SMEM;
-  out[9] = heads == 4 ? sav::thf::CodesPlan<4>::SMEM
-                      : sav::thf::CodesPlan<8>::SMEM;
+  out[9] = heads == 4   ? sav::thf::CodesPlan<4>::SMEM
+            : heads == 8 ? sav::thf::CodesPlan<8>::SMEM
+                         : sav::thf::CodesPlan<16>::SMEM;
   out[10] = (long long)(seq + sav::thb::ROWS - 1) / sav::thb::ROWS * batch;
   const Workspace ws(m, dim, hd);
   out[11] = (long long)ws.total;
@@ -117,7 +119,7 @@ extern "C" int sav_th_q8_plan(int batch, int seq, int dim, int heads,
 // [H*48, D] int8 codes (per output column) with column scales sq/sk/sv
 // [H*48] and so [D] f32; mix [3, H, H] f32 (M_pre, M_pre * log2 e,
 // M_post); ws the workspace of sav_th_q8_plan's out[11] bytes; out [B, L,
-// D] bf16; residual 1 adds x. Needs H in {4, 8} and D % 64 == 0.
+// D] bf16; residual 1 adds x. Needs H in {4, 8, 16} and D % 64 == 0.
 extern "C" int sav_th_attention_q8(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo,
@@ -165,11 +167,11 @@ extern "C" int sav_th_attention_q8(
   int err = launch<QKV, TILE>(at(kYq), dim, wqkv, dim, qkv, hd, a, st);
   if (err) return err;
 
-  err = heads == 4
-      ? sav::thf::run_q8<4>(at(kQ), at(kK), at(kV), mix, at(kAq),
-                            (float*)at(kAs), batch, seq, st)
-      : sav::thf::run_q8<8>(at(kQ), at(kK), at(kV), mix, at(kAq),
-                            (float*)at(kAs), batch, seq, st);
+  auto core = heads == 4   ? sav::thf::run_q8<4>
+              : heads == 8 ? sav::thf::run_q8<8>
+                           : sav::thf::run_q8<16>;
+  err = core(at(kQ), at(kK), at(kV), mix, at(kAq), (float*)at(kAs), batch,
+             seq, st);
   if (err) return err;
 
   Args o = {};

@@ -83,8 +83,13 @@
 // The mixes reach the kernels through c_mix, which the C entry fills from
 // device memory on the caller's stream before its launches: calls on one
 // stream are ordered, calls of one device on two streams must not overlap.
+//
+// At H = 16 (cait_m) these kernels do not fit a block (two resident bands
+// of 96 KB each): sav_th_core_bwd_staged runs the same function staged
+// through device memory (th_bwd_staged.cuh says how and why).
 #include <type_traits>
 
+#include "th_bwd_staged.cuh"
 #include "th_sm90.cuh"
 
 namespace sav {
@@ -114,19 +119,6 @@ struct Plan {
   static constexpr uint32_t RES_TX = 2 * NB * BOX_RES * 2;
   static constexpr uint32_t STAGE_TX = (NB + H) * BOX_STR * 2;
 };
-
-// ---- wgmma shapes of this kernel (with th_sm90.cuh's)
-
-// wgmma_ss_n16's 64 x 8 form (B is one 8-row atom).
-__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %6, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n\t}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
 
 // ---- the mix warpgroup's products
 
@@ -613,7 +605,7 @@ th_bwd_kernel(const __grid_constant__ CUtensorMap res0,
             mbar_arrive(&empty[st]);
           }
         }
-        store_rows<H>(acc, outb, r0, lrow, t, L);
+        store_rows<H>(acc, outb, H * TD, r0, lrow, t, L);
       }
       if (leader) mbar_arrive(res_empty);
     }
@@ -709,4 +701,40 @@ extern "C" int sav_th_core_bwd(const void* q, const void* k, const void* v,
     return run<8>(q, k, v, dout, lse, mix, delta, dm, dq, dk, dv, batch, seq,
                   st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The staged backward's plan at (B, L, 16 heads) (th_bwd_staged.cuh): out[0]
+// LP (the row pitch of DS and PT), [1..4] the workspace offsets of S, DA,
+// DS, PT, [5] workspace bytes, [6..8] dynamic shared memory of the
+// products, mix and GEMM kernels, [9..11] their blocks (the GEMM's a
+// launch; the mix's are the dM partials of each kind). Returns 0, or
+// cudaErrorInvalidValue for another head count. Mirrored by th_bwd_plan.
+extern "C" int sav_th_bwd_staged_plan(int batch, int seq, int heads,
+                                      long long* out) {
+  using namespace sav::ths;
+  if (heads != H || batch < 1 || seq < 1) return (int)cudaErrorInvalidValue;
+  const Layout lay(batch, seq);
+  const int nt = tiles_of(seq);
+  const long long vals[12] = {lay.lp, (long long)lay.s, (long long)lay.da,
+                              (long long)lay.ds, (long long)lay.pt,
+                              (long long)lay.total, PRODUCTS_SMEM, MIX_SMEM,
+                              GEMM_SMEM, (long long)batch * H * nt * nt,
+                              mix_blocks(batch, seq), (long long)batch * H * nt};
+  for (int i = 0; i < 12; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// K5b and K6b at H = 16: as sav_th_core_bwd, with ws the workspace of
+// sav_th_bwd_staged_plan's out[5] bytes and dm [2, H H, out[10]] f32
+// partials (dM_post, then dM_pre), and no delta scratch.
+extern "C" int sav_th_core_bwd_staged(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* mix,
+                                      void* ws, float* dm, void* dq, void* dk,
+                                      void* dv, int batch, int seq, int heads,
+                                      void* stream) {
+  if (heads != sav::ths::H || batch < 1 || seq < 1)
+    return (int)cudaErrorInvalidValue;
+  return sav::ths::run(q, k, v, dout, lse, mix, ws, dm, dq, dk, dv, batch,
+                       seq, (cudaStream_t)stream);
 }

@@ -37,6 +37,27 @@
 // The mixes reach the kernel through c_mix, filled from device memory on
 // the caller's stream before the launch.
 //
+// H = 16 (cait_m): one thread cannot hold the outputs of every head (24 H
+// = 384 accumulator registers against a ceiling of 255), and the H = 8
+// plan's shared memory doubles past a block's 227 KB. So the second sweep
+// runs once per group of G = 8 output heads (NG = 2 passes): the mix
+// warpgroup recomputes s and the pre-mix of all 16 heads in each pass and
+// post-mixes only the group's 8 heads; the accumulate warpgroup holds the
+// group's 8 x 24 registers (H = 8's) and stores them after each pass; the
+// ring's slots carry k and the group's 8 v boxes. Against one second sweep
+// this repeats the q k^T products and the pre-mix once (~1.5x the mix
+// work). The mix warpgroup takes each 16-key tile as two 8-key halves
+// (wgmma m64n8k16: s is 4 H = 64 registers beside 4 H of running max and
+// sum), and the ring has 2 slots: q 96 KB + 2 x (k 24 KB + v 16 KB) + the
+// exchange 32 KB = 214,096 bytes. (A two-CTA cluster splitting the heads
+// would avoid the repeat, at the price of partial mixes swapped through
+// distributed shared memory every tile.) Where the work tiles fill less
+// than one wave of SMs and their two groups would fill at most one
+// (cait_m_48 @224 bs16: 64 tiles on 132 SMs), each group is a work unit
+// of its own (split_of): a unit sweeps the keys for the lse and then for
+// its group, 2 sweeps against a tile's 3, on twice the SMs. At H <= 8,
+// G = H: one pass, the kernel as before.
+//
 // Q8 (K11, th_attention_q8.cu): the accumulate warpgroup's store takes the
 // codes of its rows instead of writing bf16 bands. It holds every head's 48
 // columns of its 64 rows, and K11 quantises a band row over exactly those
@@ -49,7 +70,14 @@
 // on ties often, to the division: `scripts/torch_ablate.py k11`, tie_test)
 // into a staging tile in shared memory, and out to aq [B, L, H*48] int8 in
 // 16-byte stores (the accumulator's layout gives 2-byte ones); as [B, L]
-// f32.
+// f32. At H = 16 the row's absmax spans both groups: the first group's
+// bf16 values wait in the tile's own aq rows (8 heads x 48 bf16 = the
+// row's 768 bytes) with their absmax in registers; after the second group
+// each thread reads its own values back, and every code is taken against
+// the absmax of all 16 heads. The staging tile then lies over the
+// resident q, which no one reads by then (the mix warpgroup's last
+// products precede the last exchange tile, and the producer reloads q
+// only after the store).
 #pragma once
 
 #include <type_traits>
@@ -85,46 +113,63 @@ using thb::wait;
 using thb::wgmma_ss_n16;
 using thb::xidx;
 
-constexpr int STAGES = 4;                 // ring slots of streamed tiles
+// Heads a pass of the second sweep accumulates (G) and passes (NG);
+// positions of one product a mix thread holds (P: a 16-key tile, or one
+// 8-key half of it at H = 16) and products a tile (HALVES); ring slots.
+template <int H>
+struct Geo {
+  static constexpr int G = H <= 8 ? H : 8;
+  static constexpr int NG = H / G;
+  static constexpr int P = H <= 8 ? 8 : 4;
+  static constexpr int HALVES = 8 / P;
+  static constexpr int STAGES = H <= 8 ? 4 : 2;
+};
 
 // Shared memory (bytes from a 1024-byte aligned base); the Python mirror
 // is th_fwd_plan in ops/th_attention.py.
 template <int H>
 struct Plan {
+  static constexpr int G = Geo<H>::G;
+  static constexpr int STAGES = Geo<H>::STAGES;
   static constexpr int HD = H * TD;
   static constexpr int NB = HD / 64;                   // 64-column boxes
   static constexpr int OFF_K = NB * BOX_RES * 2;       // after resident q
   static constexpr int OFF_V = OFF_K + STAGES * NB * BOX_STR * 2;
-  static constexpr int OFF_EXCH = OFF_V + STAGES * H * BOX_STR * 2;
-  static constexpr int OFF_BAR = OFF_EXCH + 2 * H * XHEAD * 2;
+  static constexpr int OFF_EXCH = OFF_V + STAGES * G * BOX_STR * 2;
+  static constexpr int OFF_BAR = OFF_EXCH + 2 * G * XHEAD * 2;
   static constexpr int BARS = 2 + 2 * STAGES + 4;
   static constexpr int SMEM = OFF_BAR + BARS * 8 + 1024;
   static constexpr uint32_t RES_TX = NB * BOX_RES * 2;
   static constexpr uint32_t K_TX = NB * BOX_STR * 2;
-  static constexpr uint32_t V_TX = H * BOX_STR * 2;
+  static constexpr uint32_t V_TX = G * BOX_STR * 2;
 };
 
-// s_h = q_h k_h^T of the slot's 16 keys for every head, one commit group.
-template <int H>
-__device__ __forceinline__ void qk_products(float (&s)[H][8], uint64_t res,
-                                            uint64_t str) {
+// s_h = q_h k_h^T of the slot's 16 keys (P = 8), or of its keys 8 half..
+// (P = 4), for every head, one commit group.
+template <int H, int P>
+__device__ __forceinline__ void qk_products(float (&s)[H][P], uint64_t res,
+                                            uint64_t str, int half) {
   asm volatile("" : "+l"(res), "+l"(str));  // descriptors formed per call
+  if constexpr (P == 4) str += half * (1024 / 16);
   wgmma_fence();
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
     for (int kk = 0; kk < 3; ++kk) {
       const int c = TD * h + 16 * kk;      // column of the 16-deep step
-      wgmma_ss_n16(s[h],
-                   res + ((c >> 6) * BOX_RES * 2 + (c & 63) * 2) / 16,
-                   str + ((c >> 6) * BOX_STR * 2 + (c & 63) * 2) / 16, kk);
+      const uint64_t a = res + ((c >> 6) * BOX_RES * 2 + (c & 63) * 2) / 16;
+      const uint64_t b = str + ((c >> 6) * BOX_STR * 2 + (c & 63) * 2) / 16;
+      if constexpr (P == 8)
+        wgmma_ss_n16(s[h], a, b, kk);
+      else
+        thb::wgmma_ss_n8(s[h], a, b, kk);
     }
   wgmma_commit();
 }
 
 // x_i = sum_j M_pre[j, i] log2 e s_j at position p, -inf for a key past L.
-template <int H>
-__device__ __forceinline__ void premix(float (&x)[H], const float (&s)[H][8],
+template <int H, int P>
+__device__ __forceinline__ void premix(float (&x)[H], const float (&s)[H][P],
                                        int p, bool ok) {
 #pragma unroll
   for (int i = 0; i < H; ++i) {
@@ -135,86 +180,97 @@ __device__ __forceinline__ void premix(float (&x)[H], const float (&s)[H][8],
   }
 }
 
-// Sweep 1 on one tile: the lane's running max mx and sum sm of 2^x of
-// every mixed head, per row half; key0 is the key of the lane's column 0.
-template <int H>
-__device__ __forceinline__ void sweep1_mix(const float (&s)[H][8],
+// Sweep 1 on one product: the lane's running max mx and sum sm of 2^x of
+// every mixed head, per row half, over the row half's P / 2 positions;
+// key0 is the key of the lane's column 0.
+template <int H, int P>
+__device__ __forceinline__ void sweep1_mix(const float (&s)[H][P],
                                            float (&mx)[2][H],
                                            float (&sm)[2][H], int key0,
-                                           int L) {
+                                           int L, int half) {
+  constexpr int NQ = P / 2;
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
-    float x[4][H];
+    float x[NQ][H];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {          // the row half's 4 positions
+    for (int q = 0; q < NQ; ++q) {         // the row half's positions
       const int p = 2 * rh + (q & 1) + 4 * (q >> 1);
-      premix<H>(x[q], s, p, key0 + pos_col(p, 0) < L);
+      premix<H, P>(x[q], s, p, key0 + pos_col<P>(p, 0, half) < L);
     }
 #pragma unroll
     for (int i = 0; i < H; ++i) {
-      const float m_new = fmaxf(mx[rh][i], fmaxf(fmaxf(x[0][i], x[1][i]),
-                                                 fmaxf(x[2][i], x[3][i])));
+      float m_new = fmaxf(x[0][i], x[1][i]);
+      if constexpr (NQ == 4)
+        m_new = fmaxf(m_new, fmaxf(x[2][i], x[3][i]));
+      m_new = fmaxf(mx[rh][i], m_new);
       const float base = m_new == -INFINITY ? 0.f : m_new;
-      sm[rh][i] = sm[rh][i] * exp2_approx(mx[rh][i] - base)
-                  + ((exp2_approx(x[0][i] - base) + exp2_approx(x[1][i] - base))
-                     + (exp2_approx(x[2][i] - base)
-                        + exp2_approx(x[3][i] - base)));
+      float e = exp2_approx(x[0][i] - base) + exp2_approx(x[1][i] - base);
+      if constexpr (NQ == 4)
+        e += exp2_approx(x[2][i] - base) + exp2_approx(x[3][i] - base);
+      sm[rh][i] = sm[rh][i] * exp2_approx(mx[rh][i] - base) + e;
       mx[rh][i] = m_new;
     }
   }
 }
 
-// Sweep 2 on one tile: pn = 2^(x - lse2), pt = the post-mix of pn, as bf16
-// into the exchange tile x of every head.
-template <int H>
-__device__ __forceinline__ void sweep2_mix(const float (&s)[H][8],
+// Sweep 2 on one product: pn = 2^(x - lse2) of every head, the post-mix pt
+// of group grp's G heads, as bf16 into their exchange tiles xb.
+template <int H, int P, int G>
+__device__ __forceinline__ void sweep2_mix(const float (&s)[H][P],
                                            const float (&l2)[2][H], bf16* xb,
-                                           int lrow, int t, int key0, int L) {
+                                           int lrow, int t, int key0, int L,
+                                           int half, int grp) {
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int rh = (p >> 1) & 1, col = pos_col(p, t);
+  for (int p = 0; p < P; ++p) {
+    const int rh = (p >> 1) & 1, col = pos_col<P>(p, t, half);
     float x[H];
-    premix<H>(x, s, p, key0 + pos_col(p, 0) < L);
+    premix<H, P>(x, s, p, key0 + pos_col<P>(p, 0, half) < L);
 #pragma unroll
     for (int i = 0; i < H; ++i) x[i] = exp2_approx(x[i] - l2[rh][i]);
     const int at = xidx(lrow + 8 * rh, col);
 #pragma unroll
-    for (int i = 0; i < H; ++i) {
+    for (int i = 0; i < G; ++i) {
       float a = 0.f;
 #pragma unroll
-      for (int j = 0; j < H; ++j) a = fmaf(m_post<H>(j, i), x[j], a);
+      for (int j = 0; j < H; ++j) a = fmaf(m_post<H>(j, G * grp + i), x[j], a);
       xb[i * XHEAD + at] = __float2bfloat16(a);
     }
   }
 }
 
-// Q8: a work tile's codes are staged in shared memory after the mbarriers,
-// 64 rows of H*48 bytes 16 bytes apart (400 at H = 8: the 8 rows of a
-// store fall in 8 bank groups), then copied out in 16-byte chunks.
+// Q8: a work tile's codes are staged in shared memory, 64 rows of H*48
+// bytes 16 bytes apart (400 at H = 8: the 8 rows of a store fall in 8 bank
+// groups), then copied out in 16-byte chunks: after the mbarriers, or at H
+// = 16 over the resident q (the header says why that is free).
 template <int H>
 struct CodesPlan {
+  static constexpr bool OVER_Q = Geo<H>::NG > 1;
   static constexpr int LD = H * TD + 16;
   static constexpr int OFF =
-      (Plan<H>::OFF_BAR + Plan<H>::BARS * 8 + 15) / 16 * 16;
-  static constexpr int SMEM = OFF + ROWS * LD + 1024;
+      OVER_Q ? 0 : (Plan<H>::OFF_BAR + Plan<H>::BARS * 8 + 15) / 16 * 16;
+  static constexpr int SMEM = OVER_Q ? Plan<H>::SMEM : OFF + ROWS * LD + 1024;
+  static_assert(!OVER_Q || ROWS * LD <= Plan<H>::OFF_K, "over q's region");
 };
 
-// Q8's store: the rows of a 64-row accumulator (24 registers a head) as
-// codes of their bf16 values over all H*48 columns -> aq rows < L (an
-// image's [L, H*48]), their scales -> as (the image's [L]). wt: the thread
-// in the warpgroup.
+// Q8's store of pass grp: the rows of a 64-row accumulator of G heads (24
+// registers a head) as codes of their bf16 values over all H*48 columns ->
+// aq rows < L (an image's [L, H*48]), their scales -> as (the image's
+// [L]). With two passes, pass 0 leaves its bf16 values in the aq rows and
+// their absmax in mx0; pass 1 takes every code. wt: the thread in the
+// warpgroup.
 template <int H>
-__device__ __forceinline__ void store_codes(float (&acc)[H][24],
+__device__ __forceinline__ void store_codes(float (&acc)[Geo<H>::G][24],
                                             int8_t* stage, int8_t* aq,
                                             float* as, int row0, int lrow,
-                                            int t, int wt, int L) {
-  constexpr int LD = CodesPlan<H>::LD, CH = H * TD / 16;
-  warpgroup_sync(2);                       // the last tile's rows are out
+                                            int t, int wt, int L, int grp,
+                                            float (&mx0)[2]) {
+  constexpr int G = Geo<H>::G, HD = H * TD;
+  constexpr int LD = CodesPlan<H>::LD, CH = HD / 16;
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
     float mx = 0.f;
 #pragma unroll
-    for (int h = 0; h < H; ++h)
+    for (int h = 0; h < G; ++h)
 #pragma unroll
       for (int i = 0; i < 6; ++i)
 #pragma unroll
@@ -223,14 +279,49 @@ __device__ __forceinline__ void store_codes(float (&acc)[H][24],
           v = __bfloat162float(__float2bfloat16(v));
           mx = fmaxf(mx, fabsf(v));
         }
+    const int r = lrow + 8 * rh, row = row0 + r;
+    if constexpr (Geo<H>::NG > 1) {
+      if (grp == 0) {                      // park the bf16 values in aq
+        mx0[rh] = mx;
+        if (row < L) {
+          uint32_t* dst = reinterpret_cast<uint32_t*>(aq + (size_t)row * HD);
+#pragma unroll
+          for (int h = 0; h < G; ++h)
+#pragma unroll
+            for (int i = 0; i < 6; ++i)
+              dst[(TD * h + 8 * i + 2 * t) / 2] = pack_bf16x2(
+                  acc[h][4 * i + 2 * rh], acc[h][4 * i + 2 * rh + 1]);
+        }
+        continue;
+      }
+      mx = fmaxf(mx, mx0[rh]);
+    }
+    if (rh == 0) warpgroup_sync(2);        // the last tile's rows are out
     // the 4 lanes of a row (equal g); every lane takes part
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float scale = q8::row_scale(mx), inv = __frcp_rn(scale);
-    const int r = lrow + 8 * rh;
     int8_t* dst = stage + r * LD + 2 * t;
+    if constexpr (Geo<H>::NG > 1) {        // pass 0's codes from aq
+      if (row < L) {
+        const uint32_t* src =
+            reinterpret_cast<const uint32_t*>(aq + (size_t)row * HD);
 #pragma unroll
-    for (int h = 0; h < H; ++h)
+        for (int h = 0; h < G; ++h)
+#pragma unroll
+          for (int i = 0; i < 6; ++i) {
+            const uint32_t w = src[(TD * h + 8 * i + 2 * t) / 2];
+            const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(&w);
+            char2 c;
+            c.x = (signed char)q8::quantize_exact(__low2float(v2), scale, inv);
+            c.y = (signed char)q8::quantize_exact(__high2float(v2), scale, inv);
+            *reinterpret_cast<char2*>(dst + TD * h + 8 * i) = c;
+          }
+      }
+      dst += G * TD;
+    }
+#pragma unroll
+    for (int h = 0; h < G; ++h)
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
         char2 c;
@@ -240,21 +331,37 @@ __device__ __forceinline__ void store_codes(float (&acc)[H][24],
                                               scale, inv);
         *reinterpret_cast<char2*>(dst + TD * h + 8 * i) = c;
       }
-    if (t == 0 && row0 + r < L) as[row0 + r] = scale;
+    if (t == 0 && row < L) as[row] = scale;
   }
+  if (grp + 1 < Geo<H>::NG) return;
   warpgroup_sync(2);
   for (int c = wt; c < ROWS * CH; c += 128) {
     const int r = c / CH, k = c % CH;
     if (row0 + r < L)
-      *reinterpret_cast<uint4*>(aq + (size_t)(row0 + r) * (H * TD) + 16 * k) =
+      *reinterpret_cast<uint4*>(aq + (size_t)(row0 + r) * HD + 16 * k) =
           *reinterpret_cast<const uint4*>(stage + r * LD + 16 * k);
   }
+  if constexpr (CodesPlan<H>::OVER_Q) {    // q's region goes back to TMA
+    fence_proxy_async();
+    warpgroup_sync(2);
+  }
+}
+
+// Work units a tile: its NG head groups apart (NG) where the tiles fill
+// less than a wave of `sms` and the groups at most one, else 1 (and
+// always 1 for Q8, whose codes take a row over every group).
+template <int H, bool Q8>
+inline int split_of(int tiles, int sms) {
+  constexpr int NG = Geo<H>::NG;
+  return !Q8 && NG > 1 && tiles * NG <= sms ? NG : 1;
 }
 
 // qmap: q in 64-row boxes; kmap, vmap: k and v in 16-row boxes (k read in
 // its 64-column boxes, v one box per head at column 48h). attn [B, L,
 // H*48] bf16, lse [B, H, L] f32 or null; Q8: aq [B, L, H*48] int8 and as
-// [B, L] f32 instead of attn (lse null).
+// [B, L] f32 instead of attn (lse null). split: work units a tile
+// (split_of); a unit takes head groups [g0, g1) of its tile and the first
+// writes the lse.
 template <int H, bool Q8 = false>
 __global__ void __launch_bounds__(THREADS, 1)
 th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -262,8 +369,10 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap vmap,
                    bf16* __restrict__ attn, float* __restrict__ lse,
                    int8_t* __restrict__ aq, float* __restrict__ as,
-                   int batch, int L) {
+                   int batch, int L, int split) {
   using P = Plan<H>;
+  constexpr int G = Geo<H>::G, NG = Geo<H>::NG, STAGES = P::STAGES;
+  constexpr int PP = Geo<H>::P, HALVES = Geo<H>::HALVES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   bf16* sq = reinterpret_cast<bf16*>(base);
@@ -279,8 +388,19 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* xempty = xfull + 2;
 
   const int tid = threadIdx.x;
-  const int nx = (L + ROWS - 1) / ROWS, tiles = nx * batch;
+  // work units a tile: a compile-time 1 where no split can happen (H <= 8,
+  // K11), so that there the group loops fold to their passes
+  const int sp = NG > 1 && !Q8 ? split : 1;
+  const int nx = (L + ROWS - 1) / ROWS, units = nx * batch * sp;
   const int nc = (L + COLS - 1) / COLS;     // key tiles of a sweep
+  // tile of a unit and its head groups [g0, g1)
+  auto unit_of = [=](int unit, int& b, int& r0, int& g0, int& g1) {
+    const int tile = unit / sp;
+    b = tile / nx;
+    r0 = (tile % nx) * ROWS;
+    g0 = sp == 1 ? 0 : unit % sp;
+    g1 = sp == 1 ? NG : g0 + 1;
+  };
 
   if (tid == 0) {
     mbar_init(res_full, 1);
@@ -301,14 +421,15 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     setmaxnreg_dec<PRODUCER_REGS>();
     if (tid != CONSUMERS) return;           // one thread issues every load
     int step = 0;
-    for (int tile = blockIdx.x, n = 0; tile < tiles;
-         tile += gridDim.x, ++n) {
-      const int b = tile / nx, r0 = (tile % nx) * ROWS;
+    for (int unit = blockIdx.x, n = 0; unit < units;
+         unit += gridDim.x, ++n) {
+      int b, r0, g0, g1;
+      unit_of(unit, b, r0, g0, g1);
       mbar_wait(res_empty, (n & 1) ^ 1);
       mbar_arrive_expect_tx(res_full, P::RES_TX);
       for (int c = 0; c < P::NB; ++c)
         tma_load_3d(sq + c * BOX_RES, &qmap, res_full, 64 * c, r0, b);
-      for (int sw = 0; sw < 2; ++sw)
+      for (int sw = 0; sw <= g1 - g0; ++sw)  // sweep 1, then a pass a group
         for (int j = 0; j < nc; ++j, ++step) {
           const int st = step % STAGES;
           mbar_wait(&empty[st], ((step / STAGES) & 1) ^ 1);
@@ -317,9 +438,9 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             tma_load_3d(sk + (st * P::NB + c) * BOX_STR, &kmap, &full[st],
                         64 * c, j * COLS, b);
           if (sw)
-            for (int h = 0; h < H; ++h)
-              tma_load_3d(sv + (st * H + h) * BOX_STR, &vmap, &full[st],
-                          TD * h, j * COLS, b);
+            for (int h = 0; h < G; ++h)
+              tma_load_3d(sv + (st * G + h) * BOX_STR, &vmap, &full[st],
+                          TD * (G * (g0 + sw - 1) + h), j * COLS, b);
         }
     }
     return;
@@ -336,10 +457,11 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint64_t dq = desc_k_major(sq), dk = desc_k_major(sk);
     const uint64_t mv = desc_mn_major(sv);
     constexpr uint64_t K_SLOT = P::NB * BOX_STR * 2 / 16;
-    constexpr uint64_t V_SLOT = H * BOX_STR * 2 / 16;
+    constexpr uint64_t V_SLOT = G * BOX_STR * 2 / 16;
     int step = 0, xstep = 0;
-    for (int tile = blockIdx.x, n = 0; tile < tiles; tile += gridDim.x, ++n) {
-      const int b = tile / nx, r0 = (tile % nx) * ROWS;
+    for (int unit = blockIdx.x, n = 0; unit < units; unit += gridDim.x, ++n) {
+      int b, r0, g0, g1;
+      unit_of(unit, b, r0, g0, g1);
       wait(res_full, n & 1);
       if constexpr (WG == 0) {              // the mix
         float mx[2][H], sm[2][H];
@@ -353,13 +475,18 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int j = 0; j < nc; ++j, ++step) {
           const int st = step % STAGES;
           wait(&full[st], (step / STAGES) & 1);
-          float s[H][8];
-          qk_products<H>(s, dq, dk + st * K_SLOT);
-          wgmma_wait<0>();
-          fence_all(s);
-          warpgroup_sync(1);
-          if (leader) mbar_arrive(&empty[st]);
-          sweep1_mix<H>(s, mx, sm, j * COLS + 2 * t, L);
+#pragma unroll 1
+          for (int half = 0; half < HALVES; ++half) {
+            float s[H][PP];
+            qk_products<H, PP>(s, dq, dk + st * K_SLOT, half);
+            wgmma_wait<0>();
+            fence_all(s);
+            if (half == HALVES - 1) {       // the slot is read
+              warpgroup_sync(1);
+              if (leader) mbar_arrive(&empty[st]);
+            }
+            sweep1_mix<H, PP>(s, mx, sm, j * COLS + 2 * t, L, half);
+          }
         }
         // the 4 lanes of a row: lse2 = max + log2(sum), in mx
 #pragma unroll
@@ -375,52 +502,64 @@ th_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             part += __shfl_xor_sync(0xffffffffu, part, 2);
             mx[rh][i] = m_all + __log2f(part);
             const int row = r0 + lrow + 8 * rh;
-            if (lse != nullptr && t == 0 && row < L)
+            if (lse != nullptr && g0 == 0 && t == 0 && row < L)
               lse[((size_t)b * H + i) * L + row] = mx[rh][i] / kLog2e;
           }
-        for (int j = 0; j < nc; ++j, ++step, ++xstep) {
-          const int st = step % STAGES, xb = xstep & 1;
-          wait(&full[st], (step / STAGES) & 1);
-          float s[H][8];
-          qk_products<H>(s, dq, dk + st * K_SLOT);
-          wgmma_wait<0>();
-          fence_all(s);
-          warpgroup_sync(1);
-          if (leader) mbar_arrive(&empty[st]);
-          wait(&xempty[xb], ((xstep >> 1) & 1) ^ 1);
-          sweep2_mix<H>(s, mx, sx + xb * H * XHEAD, lrow, t, j * COLS + 2 * t,
-                        L);
-          mbar_arrive(&xfull[xb]);
-        }
+#pragma unroll 1
+        for (int grp = g0; grp < g1; ++grp)
+          for (int j = 0; j < nc; ++j, ++step, ++xstep) {
+            const int st = step % STAGES, xb = xstep & 1;
+            wait(&full[st], (step / STAGES) & 1);
+#pragma unroll 1
+            for (int half = 0; half < HALVES; ++half) {
+              float s[H][PP];
+              qk_products<H, PP>(s, dq, dk + st * K_SLOT, half);
+              wgmma_wait<0>();
+              fence_all(s);
+              if (half == HALVES - 1) {
+                warpgroup_sync(1);
+                if (leader) mbar_arrive(&empty[st]);
+              }
+              if (half == 0) wait(&xempty[xb], ((xstep >> 1) & 1) ^ 1);
+              sweep2_mix<H, PP, G>(s, mx, sx + xb * G * XHEAD, lrow, t,
+                                   j * COLS + 2 * t, L, half, grp);
+            }
+            mbar_arrive(&xfull[xb]);
+          }
       } else {                              // the accumulation
         for (int j = 0; j < nc; ++j, ++step) {   // sweep 1: free the slots
           const int st = step % STAGES;
           wait(&full[st], (step / STAGES) & 1);
           if (leader) mbar_arrive(&empty[st]);
         }
-        float o[H][24];
+        [[maybe_unused]] float mx0[2] = {0.f, 0.f};  // Q8: pass 0's absmax
+#pragma unroll 1
+        for (int grp = g0; grp < g1; ++grp) {
+          float o[G][24];
 #pragma unroll
-        for (int h = 0; h < H; ++h)
+          for (int h = 0; h < G; ++h)
 #pragma unroll
-          for (int i = 0; i < 24; ++i) o[h][i] = 0.f;
-        for (int j = 0; j < nc; ++j, ++step, ++xstep) {
-          const int st = step % STAGES, xb = xstep & 1;
-          wait(&full[st], (step / STAGES) & 1);
-          wait(&xfull[xb], (xstep >> 1) & 1);
-          acc_step<H>(o, sx + xb * H * XHEAD, mv + st * V_SLOT, wi, lane);
-          warpgroup_sync(2);
-          if (leader) {
-            mbar_arrive(&xempty[xb]);
-            mbar_arrive(&empty[st]);
+            for (int i = 0; i < 24; ++i) o[h][i] = 0.f;
+          for (int j = 0; j < nc; ++j, ++step, ++xstep) {
+            const int st = step % STAGES, xb = xstep & 1;
+            wait(&full[st], (step / STAGES) & 1);
+            wait(&xfull[xb], (xstep >> 1) & 1);
+            acc_step<G>(o, sx + xb * G * XHEAD, mv + st * V_SLOT, wi, lane);
+            warpgroup_sync(2);
+            if (leader) {
+              mbar_arrive(&xempty[xb]);
+              mbar_arrive(&empty[st]);
+            }
           }
+          if constexpr (Q8)
+            store_codes<H>(o, reinterpret_cast<int8_t*>(
+                                  base + CodesPlan<H>::OFF),
+                           aq + (size_t)b * L * (H * TD), as + (size_t)b * L,
+                           r0, lrow, t, wt, L, grp, mx0);
+          else
+            store_rows<G>(o, attn + (size_t)b * L * (H * TD) + G * TD * grp,
+                          H * TD, r0, lrow, t, L);
         }
-        if constexpr (Q8)
-          store_codes<H>(o, reinterpret_cast<int8_t*>(
-                                base + CodesPlan<H>::OFF),
-                         aq + (size_t)b * L * (H * TD), as + (size_t)b * L,
-                         r0, lrow, t, wt, L);
-        else
-          store_rows<H>(o, attn + (size_t)b * L * (H * TD), r0, lrow, t, L);
       }
       if (leader) mbar_arrive(res_empty);
     }
@@ -454,9 +593,16 @@ int launch(const void* q, const void* k, const void* v, const float* mix,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (L + ROWS - 1) / ROWS * batch;
-  th_fwd_sm90_kernel<H, Q8><<<flash::persistent_grid(tiles), THREADS, SMEM,
-                              st>>>(qmap, kmap, vmap, (bf16*)attn, lse,
-                                    (int8_t*)aq, as, batch, L);
+  int split = 1;
+  if constexpr (!Q8 && Geo<H>::NG > 1) {   // H <= 8 and K11 never split
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    split = split_of<H, Q8>(tiles, sms);
+  }
+  th_fwd_sm90_kernel<H, Q8><<<flash::persistent_grid(tiles * split),
+                              THREADS, SMEM, st>>>(
+      qmap, kmap, vmap, (bf16*)attn, lse, (int8_t*)aq, as, batch, L, split);
   return (int)cudaGetLastError();
 }
 

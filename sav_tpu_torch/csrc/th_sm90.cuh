@@ -8,7 +8,9 @@
 // from an exchange buffer (xidx) as wgmma's register A operand against
 // one TMA box per head at column 48h (acc_step), its 64 x 48 x H outputs in
 // registers (store_rows); a producer warp streams 16-row tiles by TMA.
-// Layout of every band tile: th_bwd.cu's header.
+// Layout of every band tile: th_bwd.cu's header. At H = 16 the forward
+// accumulates its heads in two groups of 8 (th_fwd_sm90.cuh's header) and
+// the backward is staged through device memory (th_bwd_staged.cuh).
 #pragma once
 
 #include "flash_sm90.cuh"
@@ -38,8 +40,8 @@ constexpr int BOX_RES = ROWS * 64;        // elements of a resident box
 constexpr int BOX_STR = COLS * 64;        // elements of a streamed box
 constexpr int XHEAD = ROWS * COLS;        // elements of one head's exchange
 
-// [M_pre; M_pre * log2 e; M_post], each [H][H] row-major, for H <= 8
-__constant__ float c_mix[3 * 64];
+// [M_pre; M_pre * log2 e; M_post], each [H][H] row-major, for H <= 16
+__constant__ float c_mix[3 * 256];
 
 template <int H>
 __device__ __forceinline__ float m_pre(int j, int i) {
@@ -55,6 +57,18 @@ __device__ __forceinline__ float m_post(int j, int i) {
 }
 
 // ---- wgmma shapes
+
+// d (+)= A B^T, 64 x 8 over one 16-deep step (B is one 8-row atom), both
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %6, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // d (+)= A B^T, 64 x 16 over one 16-deep step, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
@@ -147,18 +161,19 @@ __device__ __forceinline__ void acc_step(float (&acc)[H][24], const bf16* x,
   }
 }
 
-// Rows of a 64-row accumulator (24 registers a head) -> out rows < L.
-template <int H>
-__device__ __forceinline__ void store_rows(const float (&acc)[H][24],
-                                           bf16* out, int row0, int lrow,
-                                           int t, int L) {
+// Rows of a 64-row accumulator (24 registers a head) of G heads -> out
+// rows < L, rows ld elements apart (out at the first head's column).
+template <int G>
+__device__ __forceinline__ void store_rows(const float (&acc)[G][24],
+                                           bf16* out, int ld, int row0,
+                                           int lrow, int t, int L) {
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
     const int row = row0 + lrow + 8 * rh;
     if (row >= L) continue;
-    bf16* dst = out + (size_t)row * (H * TD) + 2 * t;
+    bf16* dst = out + (size_t)row * ld + 2 * t;
 #pragma unroll
-    for (int h = 0; h < H; ++h)
+    for (int h = 0; h < G; ++h)
 #pragma unroll
       for (int i = 0; i < 6; ++i)
         *reinterpret_cast<uint32_t*>(dst + TD * h + 8 * i) =

@@ -39,7 +39,6 @@ span above, as the JAX package falls back. Serving only: no backward.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -54,25 +53,42 @@ from sav_tpu_torch.ops.quantized import int_matmul
 
 ROUTES = ('fused', 'blocked', 'xla')
 HEAD_CH = 48                # the kernels' head width (every CaiT config)
-KERNEL_HEADS = (4, 8)       # head counts the kernels are instantiated for
+KERNEL_HEADS = (4, 8, 16)   # head counts the kernels are instantiated for
+UNBUILT = ('H = 6 (cait_xs) is ROADMAP.md Queue 2 item 9 with item 11: '
+           'the 288-wide tiles of the TH core, K11 and K12-K14')
 LOG2E = 1.4426950408889634
 
 
 def th_bwd_plan(l: int, heads: int) -> dict:
     """Launch geometry of the backward (``csrc/th_bwd.cu``), mirrored from
-    its ``Plan``: three persistent kernels (``'dq'``, ``'dk'``, ``'dv'``)
-    whose work tiles are ``rows`` = 64 resident rows of one image, each
-    streaming ``cols`` = 16-row tiles through ``stages`` ring slots (DQ
-    sweeps the keys twice). ``smem``: the dynamic shared memory of each
+    its ``Plan``. At H = 4 and 8 (``design`` ``'fused'``): three persistent
+    kernels (``'dq'``, ``'dk'``, ``'dv'``) whose work tiles are ``rows`` =
+    64 resident rows of one image, each streaming ``cols`` = 16-row tiles
+    through ``stages`` ring slots (DQ sweeps the keys twice). At H = 16
+    (``design`` ``'staged'``, ``csrc/th_bwd_staged.cuh``): the products
+    kernel on 64 x 64 (query, key) tiles of one head, the mix kernel on
+    ``mix_rows`` query rows of one image, and three GEMM launches
+    (``'dq'``, ``'dk'``, ``'dv'``) on 64-row tiles of one head stepping
+    ``cols`` = 64 rows of depth at a time, read from the one mirror of
+    that plan, ``th_bwd_staged_plan``. ``smem``: the dynamic shared memory of each
     kernel; ``dm_partials``: the ``[H, H]`` partials a call leaves per
-    image (4 of dM_post from DV and 4 of dM_pre from DK a work tile), which
-    the wrapper sums (``dm_post`` and ``dm_pre`` of them)."""
+    image (``dm_post`` of dM_post and ``dm_pre`` of dM_pre: 4 of each a
+    work tile, or 1 of each a mix block), which the wrapper sums."""
     if heads not in KERNEL_HEADS:
         raise ValueError(f'the TH backward is built for H in {KERNEL_HEADS}, '
-                         f'got {heads}')
-    rows, cols, stages = 64, 16, 3
-    nb = heads * HEAD_CH // 64                      # 64-column boxes
+                         f'got {heads} ({UNBUILT})')
+    rows = 64
     tiles = -(-l // rows)
+    if heads == 16:
+        staged = th_bwd_staged_plan(1, l)
+        per = staged['blocks']['mix']          # dM partials an image
+        return dict(design='staged', rows=rows, cols=64, stages=2,
+                    tiles=tiles, mix_rows=STAGED_MIX_ROWS,
+                    steps={'dq': tiles, 'dk': tiles, 'dv': tiles},
+                    smem=staged['smem'], dm_post=per, dm_pre=per,
+                    dm_partials=2 * per)
+    cols, stages = 16, 3
+    nb = heads * HEAD_CH // 64                      # 64-column boxes
     smem = {}
     for mode in ('dq', 'dk', 'dv'):
         nbytes = (2 * nb * rows * 64 * 2                # resident boxes
@@ -84,47 +100,85 @@ def th_bwd_plan(l: int, heads: int) -> dict:
                   + (2 + 2 * stages + 4) * 8            # mbarriers
                   + 1024)                               # alignment slack
         smem[mode] = nbytes
-    return dict(rows=rows, cols=cols, stages=stages, tiles=tiles,
+    return dict(design='fused', rows=rows, cols=cols, stages=stages,
+                tiles=tiles,
                 steps={'dq': 2 * -(-l // cols), 'dk': -(-l // cols),
                        'dv': -(-l // cols)},
                 smem=smem, dm_post=4 * tiles, dm_pre=4 * tiles,
                 dm_partials=8 * tiles)
 
 
+STAGED_MIX_ROWS = 4         # query rows a block of the staged mix kernel
+
+
+def th_bwd_staged_plan(b: int, l: int) -> dict:
+    """The staged backward's workspace at H = 16, mirrored from
+    ``sav_th_bwd_staged_plan``: ``lp`` (the row pitch of DS and PT, L
+    rounded up to 8), ``regions`` (name -> (offset, bytes) of S and DA, f32
+    ``[B, H, L, L]``, and DS and PT, bf16 ``[B, H, L, lp]``, each at a
+    256-byte offset), ``workspace`` (their total), and the ``smem`` and
+    ``blocks`` of the products, mix and GEMM launches (``th_bwd_plan``'s
+    H = 16 geometry reads them at B = 1)."""
+    heads, rows = 16, 64
+    lp = -(-l // 8) * 8
+    up = lambda n: -(-n // 256) * 256
+    regions, at = {}, 0
+    for name, nbytes in (('s', 4 * b * heads * l * l),
+                         ('da', 4 * b * heads * l * l),
+                         ('ds', 2 * b * heads * l * lp),
+                         ('pt', 2 * b * heads * l * lp)):
+        regions[name] = (at, nbytes)
+        at += up(nbytes)
+    nt = -(-l // rows)
+    gemm = 2 * 2 * rows * 64 * 2 + 2 * 8 + 1024   # 2 slots of A and B
+    return dict(lp=lp, regions=regions, workspace=at,
+                smem={'products': 4 * rows * 64 * 2 + 8 + 1024,
+                      'mix': (256 * (4 * heads + 1) + 10 * heads) * 4,
+                      'dq': gemm, 'dk': gemm, 'dv': gemm},
+                blocks={'products': b * heads * nt * nt,
+                        'mix': b * -(-l // STAGED_MIX_ROWS),
+                        'gemm': b * heads * nt})
+
+
 def th_fwd_plan(l: int, heads: int) -> dict:
     """Launch geometry of K6a, also K5a's core (``csrc/th_fwd_sm90.cuh``),
-    mirrored from its ``Plan``: persistent work tiles of ``rows`` = 64
-    query rows of one image, each sweeping the keys twice in ``cols`` =
-    16-key tiles through ``stages`` ring slots (k in the first sweep, k and
-    v in the second); ``smem``: the kernel's dynamic shared memory
-    (resident q, the ring, two bf16 exchange tiles of every head,
-    mbarriers). Raises ValueError for a head count the kernel is not built
-    for."""
+    mirrored from its ``Geo`` and ``Plan``: persistent work tiles of
+    ``rows`` = 64 query rows of one image, each sweeping the keys once for
+    the lse and then once per ``groups`` of ``group`` output heads (one
+    group at H <= 8, two of 8 at H = 16) in ``cols`` = 16-key tiles through
+    ``stages`` ring slots (k in the first sweep, k and the group's v boxes
+    after it); the mix warpgroup takes a tile as ``halves`` products;
+    ``smem``: the kernel's dynamic shared memory (resident q, the ring, two
+    bf16 exchange tiles of a group's heads, mbarriers). Raises ValueError
+    for a head count the kernel is not built for."""
     if heads not in KERNEL_HEADS:
-        raise ValueError(
-            f'the TH forward is built for H in {KERNEL_HEADS}, got {heads} '
-            f'(H = 6 and 16 are ROADMAP.md Queue 2 item 9)')
-    rows, cols, stages = 64, 16, 4
+        raise ValueError(f'the TH forward is built for H in {KERNEL_HEADS}, '
+                         f'got {heads} ({UNBUILT})')
+    rows, cols = 64, 16
+    group = min(heads, 8)
+    stages = 4 if heads <= 8 else 2
     nb = heads * HEAD_CH // 64                      # 64-column boxes
     smem = (nb * rows * 64 * 2                      # resident q
-            + stages * (nb + heads) * cols * 64 * 2  # k boxes, v per head
-            + 2 * heads * rows * cols * 2           # exchange buffers
+            + stages * (nb + group) * cols * 64 * 2  # k boxes, group's v
+            + 2 * group * rows * cols * 2           # exchange buffers
             + (2 + 2 * stages + 4) * 8              # mbarriers
             + 1024)                                 # alignment slack
+    groups = heads // group
     return dict(rows=rows, cols=cols, stages=stages, tiles=-(-l // rows),
-                steps=2 * -(-l // cols), smem=smem)
+                group=group, groups=groups, halves=1 if heads <= 8 else 2,
+                steps=(1 + groups) * -(-l // cols), smem=smem)
 
 
-@functools.lru_cache(maxsize=None)
-def fused_smem(heads: int) -> int:
-    """Shared memory of the K5a core, K6a's two-sweep kernel:
-    ``sav_th_core_fwd_smem`` of ``csrc/th_attention.cu``, the card's own
-    formula (``th_fwd_plan`` mirrors it; the same at every length). Builds
-    the library at first call, so it runs on the machine with the card
-    only."""
-    fn = _build.library('th_attention').sav_th_core_fwd_smem
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(heads)
+def th_fwd_split(b: int, l: int, heads: int, sms: int = 132) -> int:
+    """Work units a 64-row tile of K6a's kernel takes on a card of ``sms``
+    SMs, mirrored from its ``split_of``: at H = 16 the two head groups go
+    to blocks of their own (each sweeping the keys for the lse and then for
+    its group) where the tiles fill less than a wave and the groups at most
+    one, e.g. cait_m_48 @224 at B = 16 (64 tiles); else 1. K11's core never
+    splits (a row's codes span both groups)."""
+    tiles = b * -(-l // 64)
+    groups = th_fwd_plan(l, heads)['groups']
+    return groups if groups > 1 and tiles * groups <= sms else 1
 
 
 def kernel_supported(heads: int, head_ch: int) -> bool:
@@ -135,13 +189,14 @@ def kernel_supported(heads: int, head_ch: int) -> bool:
 def fused_fits(l: int, heads: int, dim: int, device='cuda') -> bool:
     """Whether the K5a port takes the shape: its LN/GEMM launches (shared
     with K1) need D and H*48 to be multiples of 128, and on the card its
-    core's shared memory (``fused_smem``, the same at every L) must fit one
-    block's 227 KB. Off the card the plain twin has no such budget."""
+    core's shared memory (``th_fwd_plan``, the mirror of the kernel's
+    ``sav_th_core_fwd_smem`` that the card tests hold equal; the same at
+    every L) must fit one block's 227 KB. Off the card the plain twin has no such budget."""
     if (dim % GEMM_TILE or (heads * HEAD_CH) % GEMM_TILE
             or not kernel_supported(heads, HEAD_CH)):
         return False
     return (torch.device(device).type != 'cuda'
-            or fused_smem(heads) <= fa.SMEM_LIMIT)
+            or th_fwd_plan(l, heads)['smem'] <= fa.SMEM_LIMIT)
 
 
 def th_route(l: int, heads: int, head_ch: int, dim: int, device):
@@ -157,18 +212,17 @@ def th_route(l: int, heads: int, head_ch: int, dim: int, device):
     CaiT-S/24 @384 bs48 (``PERF.md``). These are the card's limits, not
     the TPU's VMEM caps (``_MAX_LIST_BYTES``, the ``l >= 320`` floor).
     cait_xxs (D = 192) takes K6 at every length: K1's GEMMs need D % 128
-    == 0. Head geometries the kernels are not built
-    for (cait_xs, H = 6; cait_m, H = 16) raise rather than run the per-op
-    path unasked: ``use_kernel=False`` asks for it.
+    == 0; cait_m (H = 16, D = 768) takes K5 at every length. A head
+    geometry the kernels are not built for (cait_xs, H = 6) raises rather
+    than run the per-op path unasked: ``use_kernel=False`` asks for it.
     """
     if torch.device(device).type != 'cuda':
         return None
     if not kernel_supported(heads, head_ch):
         raise NotImplementedError(
             f'{heads} heads of {head_ch}: the talking-heads kernels are built '
-            f'for H in {KERNEL_HEADS} heads of {HEAD_CH} (H = 6 and 16 are '
-            f'ROADMAP.md Queue 2 item 9, K5/K6 and K11); use_kernel=False '
-            f'runs the per-op path')
+            f'for H in {KERNEL_HEADS} heads of {HEAD_CH} ({UNBUILT}); '
+            f'use_kernel=False runs the per-op path')
     return 'fused' if fused_fits(l, heads, dim, device) else 'blocked'
 
 
@@ -434,14 +488,20 @@ def _core_bwd(q, k, v, do, lse, m_pre, m_post, heads, what):
     b, l, hd = q.shape
     mix = _mix_bank(m_pre, m_post, heads, q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
     dm = _dm_partials(b, l, heads, q.device)
+    if heads == 16:                     # staged: workspace, no delta
+        scratch = torch.empty(th_bwd_staged_plan(b, l)['workspace'],
+                              dtype=torch.uint8, device=q.device)
+        entry = 'sav_th_core_bwd_staged'
+    else:
+        scratch = torch.empty_like(lse)   # delta
+        entry = 'sav_th_core_bwd'
     with torch.cuda.device(q.device):
-        err = _fn('sav_th_core_bwd', 11, 3, lib='th_bwd')(
+        err = _fn(entry, 11, 3, lib='th_bwd')(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), mix.data_ptr(), delta.data_ptr(), dm.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, heads,
-            fa.stream_of(q.device))
+            lse.data_ptr(), mix.data_ptr(), scratch.data_ptr(),
+            dm.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l,
+            heads, fa.stream_of(q.device))
     _build.check(err, what)
     _build.count(what)
     return (dq, dk, dv, *_sum_dm(dm, b, l, heads))
@@ -451,7 +511,8 @@ def _dm_partials(b, l, heads, device):
     """The [H, H] partials the backward writes, one a warp of a work tile's
     mixing warpgroup, as ``[2, H*H, B tiles 4]``: DV's dM_post, then DK's
     dM_pre, partial ``tile * 4 + warp`` of entry e at ``[:, e, tile * 4 +
-    warp]``, so each entry sums along a contiguous row."""
+    warp]``, so each entry sums along a contiguous row. At H = 16 one
+    partial of each kind a mix block: ``[2, H*H, B ceil(L / 4)]``."""
     n = b * th_bwd_plan(l, heads)['dm_post']
     return torch.empty(2, heads * heads, n, dtype=torch.float32,
                        device=device)
@@ -474,7 +535,9 @@ def th_attention_bwd(q, k, v, do, lse, m_pre, m_post, heads: int):
     sweeps the keys of 64 query rows once for it and once for dq; DK and DV
     sweep the queries of 64 key rows for dk (and dM_pre) and dv (and
     dM_post). No float atomics: dM partials are summed afterwards in a fixed
-    order. bf16 only; H in ``KERNEL_HEADS`` heads of 48."""
+    order. At H = 16 five launches staged through a device workspace
+    (``th_bwd_staged_plan``): s and da per head, the mix, dq, dk and dv per
+    head. bf16 only; H in ``KERNEL_HEADS`` heads of 48."""
     if q.device.type == 'cpu':
         return th_attention_bwd_plain(q, k, v, do, lse, m_pre, m_post, heads)
     if q.device.type != 'cuda':
@@ -686,7 +749,7 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
     if b < 1 or l < 1 or dim < 64 or dim % 64 or heads not in KERNEL_HEADS:
         raise ValueError(f'th_attention_q8 takes H in {KERNEL_HEADS} heads of '
                          f'{HEAD_CH} and D a multiple of 64, got B={b}, L={l}, '
-                         f'D={dim}, H={heads}')
+                         f'D={dim}, H={heads} ({UNBUILT})')
     m, hd = b * l, heads * HEAD_CH
     cdiv = lambda x, y: -(-x // y)
     tile = {'qkv': Q8_TILE, 'out': Q8_TILE}
@@ -699,9 +762,10 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
                 + 2 * Q8_SLOTS * 8 + 1024)
 
     # the core's, with the codes' staging rows (H*48 + 16 bytes apart)
-    # after its mbarriers
-    core = th_fwd_plan(l, heads)['smem'] - 1024
-    core = cdiv(core, 16) * 16 + 64 * (hd + 16) + 1024
+    # after its mbarriers, or at H = 16 over its resident q
+    core = th_fwd_plan(l, heads)['smem']
+    if heads <= 8:
+        core = cdiv(core - 1024, 16) * 16 + 64 * (hd + 16) + 1024
     regions, at = {}, 0
     for name, nbytes in zip(Q8_REGIONS, (m * dim, 4 * m, 3 * hd * dim,
                                          dim * hd, 2 * m * hd, 2 * m * hd,

@@ -25,7 +25,8 @@ whose attention launch is K4's kernel) at its four timed shapes, K4 at
 ViT-B/16's serving and ``fused_ff`` training shapes, K2 at the @224
 training shape and at 200 rows over 190 keys, the talking-heads backward
 at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
-CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576), K5a at
+CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576) and at
+cait_xxs_24 @224's (H=4, B=32 and 128, L=196), K5a at
 B=32 and 128 L=196, K1 without the residual at TNT-S/16's and TNT-B/16's
 widths (serving bs32, training bs64 and bs32), K8b at Mixer-B/16 bs192,
 K8a at Mixer-B/16 bs192 and bs32 and K7b at TNT-S/16 bs64's and TNT-B/16
@@ -170,6 +171,16 @@ if args['kernels']:
         m = mixes()
         out[f'K6a B={{b}} L=576'] = time_ms(
             lambda: th.th_core_fwd(q, k, v, *m, heads))
+    # K6a at cait_xxs_24 @224's serving (B=32) and training (B=128) shapes
+    # (H = 4, L = 196)
+    m4 = [(torch.eye(4) + 0.3 * torch.from_numpy(
+        rng.standard_normal((4, 4)).astype(np.float32))).cuda()
+        for _ in range(2)]
+    for b in (32, 128):
+        q = bf16((b, 196, 4 * th.HEAD_CH), 0.4)
+        k, v = (bf16((b, 196, 4 * th.HEAD_CH)) for _ in range(2))
+        out[f'K6a H=4 B={{b}} L=196'] = time_ms(
+            lambda: th.th_core_fwd(q, k, v, *m4, 4))
     # K5a at CaiT-S/24 @224's serving (B=32) and training (B=128) shapes
     dim = 384
     w = [bf16((dim, hd), 1 / math.sqrt(dim)) for _ in range(3)]

@@ -334,7 +334,7 @@ def _th_core_case(rng, b, seq, heads, card):
 
 
 @pytest.mark.parametrize('seq,heads', [(1, 8), (37, 4), (196, 8), (200, 8),
-                                       (576, 8)])
+                                       (576, 8), (37, 16), (197, 16)])
 def test_th_core_fwd_matches_twin(card, seq, heads):
     rng = np.random.RandomState(seq)
     q, k, v, _, m = _th_core_case(rng, 2, seq, heads, card)
@@ -370,7 +370,8 @@ def test_th_attention_fwd_matches_twin(card, seq, residual):
 
 
 @pytest.mark.parametrize('entry', ['th_attention_bwd', 'th_core_bwd'])
-@pytest.mark.parametrize('seq,heads', [(37, 4), (196, 8), (577, 8)])
+@pytest.mark.parametrize('seq,heads', [(37, 4), (196, 8), (577, 8), (37, 16),
+                                       (197, 16)])
 def test_th_bwd_matches_twin(card, entry, seq, heads):
     rng = np.random.RandomState(seq + heads)
     q, k, v, do, m = _th_core_case(rng, 2, seq, heads, card)
@@ -387,7 +388,7 @@ def test_th_bwd_matches_twin(card, entry, seq, heads):
 
 
 @pytest.mark.parametrize('entry', ['th_attention_bwd', 'th_core_bwd'])
-@pytest.mark.parametrize('seq,heads', [(197, 8), (577, 4)])
+@pytest.mark.parametrize('seq,heads', [(197, 8), (577, 4), (197, 16)])
 def test_th_bwd_repeats_bitwise(card, entry, seq, heads):
     """No float atomics: dq, dk, dv and the dM sums repeat bit for bit."""
     rng = np.random.RandomState(seq)
@@ -415,7 +416,7 @@ def test_th_bwd_survives_back_to_back_calls(card):
 
 
 @pytest.mark.parametrize('b', [32, 48])
-@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('heads', [4, 8, 16])
 @pytest.mark.parametrize('seq', [196, 197, 576, 577])
 def test_th_core_fwd_at_cait_shapes(card, seq, heads, b):
     """K6a at CaiT's lengths (@224 and @384, each with a one-row tail) and
@@ -443,28 +444,52 @@ def test_th_core_fwd_survives_back_to_back_calls(card):
         assert all(torch.equal(a, b) for g in outs for a, b in zip(g, first))
 
 
-def test_th_fwd_plan_matches_the_kernel(card):
-    """th_fwd_plan mirrors K6a's shared memory (sav_th_core_fwd_smem); an
-    unbuilt head count reads 0."""
+def _th_core_fwd_smem(heads):
+    """The built library's shared memory of the K5a/K6a core."""
     import ctypes
     from sav_tpu_torch import _build
     fn = _build.library('th_attention').sav_th_core_fwd_smem
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(heads)
+
+
+def test_th_fwd_plan_matches_the_kernel(card):
+    """th_fwd_plan mirrors K6a's shared memory (sav_th_core_fwd_smem); an
+    unbuilt head count reads 0."""
     for heads in th_attention.KERNEL_HEADS:
-        assert fn(heads) == th_attention.th_fwd_plan(577, heads)['smem']
-    assert fn(6) == 0 and fn(16) == 0
+        assert _th_core_fwd_smem(heads) == th_attention.th_fwd_plan(
+            577, heads)['smem']
+    assert _th_core_fwd_smem(6) == 0 and _th_core_fwd_smem(16) == 214096
 
 
 def test_th_bwd_plan_matches_the_kernel(card):
-    """th_bwd_plan mirrors the kernels' shared memory (sav_th_bwd_smem)."""
+    """th_bwd_plan mirrors the kernels' shared memory (sav_th_bwd_smem);
+    at H = 16, th_bwd_plan and th_bwd_staged_plan mirror the staged
+    backward's (sav_th_bwd_staged_plan: row pitch, workspace regions,
+    shared memory and blocks of its launches)."""
     import ctypes
     from sav_tpu_torch import _build
-    fn = _build.library('th_bwd').sav_th_bwd_smem
+    lib = _build.library('th_bwd')
+    fn = lib.sav_th_bwd_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
-    for heads in th_attention.KERNEL_HEADS:
+    for heads in (4, 8):
         plan = th_attention.th_bwd_plan(577, heads)['smem']
         assert [fn(heads, mode) for mode in range(3)] == [
             plan['dq'], plan['dk'], plan['dv']]
+    assert [fn(16, mode) for mode in range(3)] == [0, 0, 0]
+    staged = lib.sav_th_bwd_staged_plan
+    staged.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for b, l in ((1, 1), (2, 197), (16, 196), (1, 577)):
+        out = (ctypes.c_longlong * 12)()
+        assert staged(b, l, 16, out) == 0
+        p = th_attention.th_bwd_staged_plan(b, l)
+        smem = p['smem']
+        assert list(out) == (
+            [p['lp']] + [p['regions'][r][0] for r in ('s', 'da', 'ds', 'pt')]
+            + [p['workspace'], smem['products'], smem['mix'], smem['dq'],
+               p['blocks']['products'], p['blocks']['mix'],
+               p['blocks']['gemm']])
+    assert staged(2, 197, 8, (ctypes.c_longlong * 12)()) != 0
 
 
 def test_th_kernels_write_no_row_past_the_length(card):
@@ -580,12 +605,98 @@ def test_th_smem_formula_matches_the_kernel(card):
     K5a's core is the two-sweep core, whose shared memory fits at every
     length, so K5 takes every L where K1's GEMMs take D (cait_xxs's D = 192
     is K6's)."""
-    assert th_attention.fused_smem(8) == th_attention.th_fwd_plan(
+    assert _th_core_fwd_smem(8) == th_attention.th_fwd_plan(
         196, 8)['smem'] <= 232448
     for l, want in ((196, 'fused'), (224, 'fused'), (225, 'fused'),
                     (576, 'fused')):
         assert th_attention.th_route(l, 8, 48, 384, card) == want
     assert th_attention.th_route(196, 4, 48, 192, card) == 'blocked'
+
+
+def test_th_route_at_16_heads_reads_the_kernel(card):
+    """cait_m (16 heads, D = 768): the built library's shared memory of
+    the core (sav_th_core_fwd_smem(16), two groups of 8 output heads) is
+    the plan th_route decides on, and fits: K5 at @224 and @384."""
+    assert _th_core_fwd_smem(16) == th_attention.th_fwd_plan(
+        196, 16)['smem'] <= 232448
+    for l in (196, 197, 576, 577):
+        assert th_attention.th_route(l, 16, 48, 768, card) == 'fused'
+    with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
+        th_attention.th_route(196, 6, 48, 288, card)
+
+
+@pytest.mark.parametrize('seq,residual', [(37, False), (196, False),
+                                          (197, True)])
+def test_th_attention_fwd_matches_twin_at_16_heads(card, seq, residual):
+    """K5a at cait_m's widths (D = 768, 16 heads of 48), with and without
+    its residuals, against the twin; two calls identical."""
+    rng = np.random.RandomState(seq + 16)
+    dim, heads = 768, 16
+    x = _bf16(rng, (2, seq, dim), 1, card)
+    scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
+    bias = _bf16(rng, (dim,), 0.1, card).float()
+    ws = [_bf16(rng, (dim, dim), s / math.sqrt(dim), card) for s in (4, 1, 1, 1)]
+    m = _th_mixes(heads, seq, card)
+    args = (x, scale, bias, *ws, *m, heads, th_attention.LN_EPS, residual)
+    out = th_attention.th_attention_fwd(*args)
+    out_t, (q, k, v, attn, lse) = th_attention.th_attention_fwd(
+        *args, save_residuals=True)
+    again = th_attention.th_attention_fwd(*args)
+    plain = th_attention.th_attention_fwd_plain(*args)
+    contrib = (plain.float() - (x.float() if residual else 0)).abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * contrib
+    assert torch.equal(out, out_t) and torch.equal(out, again)
+    own_attn, own_lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    assert _rel(attn, own_attn) <= 2e-2
+    assert (lse - own_lse).abs().max() <= 1e-3
+
+
+def test_th_staged_bwd_survives_back_to_back_calls(card):
+    """50 calls of the staged backward (cait_m_48 @224 bs16's K5b shape)
+    queued without a synchronize give the first call's result every
+    time."""
+    rng = np.random.RandomState(13)
+    q, k, v, do, m = _th_core_case(rng, 16, 196, 16, card)
+    _, lse = th_attention.th_core_fwd_plain(q, k, v, *m, 16)
+    first = th_attention.th_attention_bwd(q, k, v, do, lse, *m, 16)
+    for _ in range(5):
+        outs = [th_attention.th_attention_bwd(q, k, v, do, lse, *m, 16)
+                for _ in range(10)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for g in outs for a, b in zip(g, first))
+
+
+def test_cait_m_launch_counts(card):
+    """cait_m_24 at depth 2 @224 under 'auto': a forward launches K5a once
+    a body block, a gradient step K5a-train + K5b, and quantized='all'
+    serving K11 + K12; logits finite."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import create_model
+    from sav_tpu_torch.nn.regularization import set_stochastic_depth_generator
+    kw = dict(num_layers=2, num_layers_token_only=1, dtype=torch.bfloat16,
+              device=card)
+    x = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(0)
+                    ).to(card, torch.bfloat16)
+    model = create_model('cait_m_24', **kw)
+    model.eval()
+    _build.reset_launches()
+    with torch.no_grad():
+        logits = model(x)
+    assert _build.launches == {'th_attention_fwd': 2}
+    assert bool(torch.isfinite(logits).all())
+    model.train()
+    set_stochastic_depth_generator(
+        model, torch.Generator(device=card).manual_seed(1))
+    _build.reset_launches()
+    model(x).float().square().mean().backward()
+    assert _build.launches == {'th_attention_fwd_train': 2,
+                               'th_attention_bwd': 2}
+    quantized = create_model('cait_m_24', quantized='all', **kw)
+    quantized.eval()
+    _build.reset_launches()
+    with torch.no_grad():
+        assert bool(torch.isfinite(quantized(x)).all())
+    assert _build.launches == {'th_attention_q8': 2, 'int8_ff': 2}
 
 
 def test_th_wrappers_refuse_and_count(card):
@@ -1422,7 +1533,8 @@ def _k11_case(rng, b, seq, dim, heads, card):
 
 @pytest.mark.parametrize('b,seq,dim,heads,residual', [
     (2, 1, 384, 8, False), (2, 17, 192, 4, False), (3, 196, 384, 8, False),
-    (2, 196, 192, 4, True), (2, 250, 384, 8, False), (1, 300, 192, 4, False)])
+    (2, 196, 192, 4, True), (2, 250, 384, 8, False), (1, 300, 192, 4, False),
+    (3, 196, 768, 16, False), (2, 197, 768, 16, True)])
 def test_th_attention_q8_matches_twin(card, b, seq, dim, heads, residual):
     """K11 against its twin, through th_attention_sublayer_q8: the resident
     core (L <= 224 at H = 8, <= 256 at H = 4) and the two-sweep one (L =
@@ -1868,7 +1980,8 @@ def test_th_q8_plan_matches_the_kernel(card):
     fn = _build.library('th_attention_q8').sav_th_q8_plan
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for b, l, d, h in ((32, 196, 384, 8), (32, 196, 192, 4), (3, 250, 384, 8),
-                       (2, 17, 128, 8), (1, 1, 768, 4)):
+                       (2, 17, 128, 8), (1, 1, 768, 4), (32, 196, 768, 16),
+                       (3, 250, 768, 16)):
         out = (ctypes.c_longlong * 21)()
         assert fn(b, l, d, h, out) == 0
         p = th_attention.th_q8_plan(b, l, d, h)
@@ -1880,6 +1993,44 @@ def test_th_q8_plan_matches_the_kernel(card):
             + [p['scratch'][r][0] for r in th_attention.Q8_REGIONS])
     assert fn(2, 17, 96, 8, (ctypes.c_longlong * 21)()) != 0
     assert fn(2, 17, 384, 6, (ctypes.c_longlong * 21)()) != 0
+
+
+@pytest.mark.parametrize('b,seq,dim,heads', [(2, 197, 768, 16),
+                                            (3, 250, 768, 16),
+                                            (2, 197, 384, 8)])
+def test_k11_codes_match_the_quantiser_on_k6a_bands(card, b, seq, dim, heads):
+    """K11's core takes the bands' codes in its store (at H = 16 over two
+    passes of 8 heads, the row absmax combined first): the codes and row
+    scales it leaves in the workspace equal, bit for bit, the twin's
+    quantiser on the bands K6a's kernel computes from the same q, k, v."""
+    from sav_tpu_torch.ops.int8_matmul_kernel import _quantize_tile
+    x, scale, bias, ws, mixes = _k11_case(np.random.RandomState(seq), b, seq,
+                                          dim, heads, card)
+    hd, m = heads * 48, b * seq
+    codes = fused_layer._q8_weights(*ws, dim, hd)
+    plan = th_attention.th_q8_plan(b, seq, dim, heads)
+    work = torch.empty(plan['workspace'], dtype=torch.uint8, device=card)
+    vec = lambda t, n: t.reshape(n).float().contiguous()
+    out = torch.empty_like(x)
+    bufs = [x, vec(scale, dim), vec(bias, dim),
+            *[c.contiguous() for c, _ in codes],
+            *[vec(s, n) for (_, s), n in zip(codes, (hd, hd, hd, dim))],
+            th_attention._mix_bank(*mixes, heads, card), work, out]
+    assert th_attention._k11_lib()(
+        *[t.data_ptr() for t in bufs], b, seq, dim, heads, 0,
+        fused_layer.LN_EPS, 48 ** -0.5, flash_attention.stream_of(card)) == 0
+    torch.cuda.synchronize()
+
+    def region(name, dtype, shape):
+        at, nbytes = plan['scratch'][name]
+        return work[at:at + nbytes].view(dtype).view(shape)
+
+    q, k, v = (region(n, torch.bfloat16, (b, seq, hd)) for n in 'qkv')
+    attn, _ = th_attention.th_core_fwd(q, k, v, *mixes, heads)
+    want_codes, want_scales = _quantize_tile(attn.reshape(m, hd))
+    assert torch.equal(region('aq', torch.int8, (m, hd)), want_codes)
+    assert torch.equal(region('as', torch.float32, (m,)),
+                       want_scales.reshape(m))
 
 
 def test_quantizer_matches_the_division(card):
@@ -1900,7 +2051,8 @@ def test_quantizer_matches_the_division(card):
 
 
 @pytest.mark.parametrize('seq,dim,heads', [(197, 384, 8), (250, 384, 8),
-                                           (197, 192, 4), (1, 192, 4)])
+                                           (197, 192, 4), (1, 192, 4),
+                                           (197, 768, 16), (1, 768, 16)])
 def test_th_attention_q8_writes_no_row_past_the_length(card, seq, dim,
                                                        heads):
     """K11 through ``_th_q8_into`` into a NaN-sentinel buffer 64 rows

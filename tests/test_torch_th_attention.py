@@ -155,13 +155,13 @@ def test_core_twins_agree_with_each_other():
     (196, 4, 192, 'blocked'),       # cait_xxs: D = 192 is not K1's GEMM tile
     (576, 4, 192, 'blocked'),
     (196, 6, 288, None),            # cait_xs: H = 6 is not built
-    (196, 16, 768, None),           # cait_m: H = 16 is not built
+    (196, 16, 768, 'fused'),        # cait_m: K5 (D = 768 is K1's tile)
     (196, 8, 512, None),            # head_ch 64, not 48
 ])
 def test_router_on_the_card(l, heads, dim, want):
-    """The card's routes that need no kernel library (the shared-memory
-    threshold between K5 and K6 is a card test, test_torch_cuda.py); a
-    head geometry the kernels are not built for raises there."""
+    """The card's routes, decided by the plans' Python mirrors without a
+    kernel library (the card tests hold the mirrors equal to the kernels);
+    a head geometry the kernels are not built for raises there."""
     assert th.th_route(l, heads, dim // heads, dim, 'cpu') is None
     if want is None:
         with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -172,7 +172,7 @@ def test_router_on_the_card(l, heads, dim, want):
 
 @pytest.mark.parametrize('l,heads,dim,want', [
     (196, 8, 384, True), (576, 8, 384, True), (196, 4, 192, False),
-    (196, 16, 768, False)])
+    (196, 16, 768, True)])
 def test_fused_fits_off_the_card(l, heads, dim, want):
     """Off the card K5a's twin has no shared-memory budget: only K1's GEMM
     tiles and the built head counts decide."""

@@ -5,7 +5,10 @@ the card, ``tests/test_torch_cuda.py``).
 * ``th_bwd_plan``, the Python mirror of the kernels' ``Plan``: each of the
   three kernels fits a block's 232,448 bytes of shared memory, its work
   tiles and streamed tiles cover every row, and the dM partials it counts
-  are the ones ``_core_bwd`` allocates and sums.
+  are the ones ``_core_bwd`` allocates and sums. At H = 16 (the staged
+  backward of ``csrc/th_bwd_staged.cuh``) the same for its products, mix
+  and GEMM launches, and ``th_bwd_staged_plan``'s workspace regions lie
+  apart and hold S, DA, DS and PT.
 * The wrappers' checks raise ValueError (never assert) on what the kernels
   do not take.
 * ``kernel_algebra``, a test-only torch mirror of the kernels' arithmetic:
@@ -19,6 +22,12 @@ the card, ``tests/test_torch_cuda.py``).
   another order), and at one ragged shape against the JAX package's
   ``_th_blk_bwd_kernel`` (K6b) in Pallas interpret mode, at the same
   bounds.
+* ``staged_algebra``, the staged backward's arithmetic at H = 16: s and da
+  per head, delta summed over each query row's keys, ds and pt rounded to
+  bf16, dq, dk and dv as 64-deep steps over the length, dM as one partial
+  a block of 4 query rows summed in block order. Held against
+  ``th_core_bwd_plain`` at the same bounds (the JAX kernel at 16 heads is
+  held against the twin through the span, ``test_torch_cait_m.py``).
 """
 
 import jax.numpy as jnp
@@ -41,7 +50,11 @@ LENGTHS = (1, 17, 196, 197, 576, 577)
 @pytest.mark.parametrize('l', LENGTHS)
 def test_plan_fits_a_block(l, heads):
     plan = th.th_bwd_plan(l, heads)
-    assert set(plan['smem']) == {'dq', 'dk', 'dv'}
+    launches = {'dq', 'dk', 'dv'}
+    if plan['design'] == 'staged':
+        launches |= {'products', 'mix'}
+    assert plan['design'] == ('staged' if heads == 16 else 'fused')
+    assert set(plan['smem']) == launches
     for mode, nbytes in plan['smem'].items():
         assert 0 < nbytes <= SMEM_LIMIT, (mode, nbytes)
 
@@ -57,34 +70,73 @@ def test_plan_covers_every_row(l, heads):
     assert (plan['tiles'] - 1) * rows < l <= plan['tiles'] * rows
     per_sweep = plan['steps']['dk']
     assert (per_sweep - 1) * cols < l <= per_sweep * cols
+    if plan['design'] == 'staged':
+        # each GEMM steps 64 rows of depth over the length; the mix takes
+        # mix_rows query rows a block
+        assert plan['steps'] == {'dq': per_sweep, 'dk': per_sweep,
+                                 'dv': per_sweep}
+        per = plan['dm_post']
+        assert (per - 1) * plan['mix_rows'] < l <= per * plan['mix_rows']
+        return
     assert plan['steps'] == {'dq': 2 * per_sweep, 'dk': per_sweep,
                              'dv': per_sweep}
 
 
-@pytest.mark.parametrize('b,l,heads', [(1, 1, 4), (3, 197, 8), (2, 577, 8)])
+@pytest.mark.parametrize('b,l,heads', [(1, 1, 4), (3, 197, 8), (2, 577, 8),
+                                       (2, 197, 16), (1, 1, 16)])
 def test_dm_partials_match_the_allocation(b, l, heads):
     """The kernels write the partial of (work tile, warp) of entry e at
     [0, e, tile * 4 + warp] (DV, dM_post) and [1, e, tile * 4 + warp] (DK,
-    dM_pre): the buffer ``_core_bwd`` allocates holds every one of them
-    once, and ``_sum_dm`` sums each kind into its own [H, H]."""
+    dM_pre), or at H = 16 the partial of mix block n at [0, e, n] and [1,
+    e, n]: the buffer ``_core_bwd`` allocates holds every one of them once,
+    and ``_sum_dm`` sums each kind into its own [H, H]."""
     plan = th.th_bwd_plan(l, heads)
     tiles = b * plan['tiles']
     dm = th._dm_partials(b, l, heads, 'cpu')
     assert dm.numel() == b * plan['dm_partials'] * heads * heads
-    assert dm.shape == (2, heads * heads, tiles * 4)
-    assert plan['dm_post'] == plan['dm_pre'] == 4 * plan['tiles']
+    if plan['design'] == 'staged':
+        per = b * -(-l // plan['mix_rows'])        # mix blocks
+        assert plan['dm_post'] == plan['dm_pre'] == per // b
+        assert per == th.th_bwd_staged_plan(b, l)['blocks']['mix']
+        writes = [(kind, n) for kind in range(2) for n in range(per)]
+    else:
+        per = tiles * 4
+        assert plan['dm_post'] == plan['dm_pre'] == 4 * plan['tiles']
+        writes = [(kind, tile * 4 + w) for kind in range(2)
+                  for tile in range(tiles) for w in range(4)]
+    assert dm.shape == (2, heads * heads, per)
     written = torch.zeros_like(dm)
-    for kind in range(2):
-        for tile in range(tiles):
-            for w in range(4):
-                written[kind, :, tile * 4 + w] += 1
+    for kind, n in writes:
+        written[kind, :, n] += 1
     assert torch.equal(written, torch.ones_like(dm))
     dm[0] = 1.0
     dm[1] = torch.arange(heads * heads, dtype=torch.float32)[:, None]
     dm_pre, dm_post = th._sum_dm(dm, b, l, heads)
-    assert torch.equal(dm_post, torch.full((heads, heads), 4.0 * tiles))
-    assert torch.equal(dm_pre, 4.0 * tiles * torch.arange(
+    assert torch.equal(dm_post, torch.full((heads, heads), float(per)))
+    assert torch.equal(dm_pre, per * torch.arange(
         heads * heads, dtype=torch.float32).view(heads, heads))
+
+
+@pytest.mark.parametrize('b,l', [(1, 1), (2, 197), (16, 196), (1, 577)])
+def test_staged_workspace_regions(b, l):
+    """``th_bwd_staged_plan`` (mirror of ``sav_th_bwd_staged_plan``): S
+    and DA f32 [B, 16, L, L], DS and PT bf16 [B, 16, L, lp] with lp = L
+    rounded up to 8 (16-byte rows for TMA), 256-byte aligned and apart;
+    the products' 64 x 64 tiles, the mix's 4-row blocks and the GEMMs'
+    64-row tiles of every (image, head) cover the length."""
+    plan = th.th_bwd_staged_plan(b, l)
+    lp = plan['lp']
+    assert lp % 8 == 0 and l <= lp < l + 8
+    assert {k: v[1] for k, v in plan['regions'].items()} == {
+        's': 4 * b * 16 * l * l, 'da': 4 * b * 16 * l * l,
+        'ds': 2 * b * 16 * l * lp, 'pt': 2 * b * 16 * l * lp}
+    spans = sorted(plan['regions'].values())
+    for (a, na), (c, _) in zip(spans, spans[1:]):
+        assert a % 256 == 0 and a + na <= c
+    assert spans[-1][0] + spans[-1][1] <= plan['workspace']
+    nt = -(-l // 64)
+    assert plan['blocks'] == {'products': b * 16 * nt * nt,
+                              'mix': b * -(-l // 4), 'gemm': b * 16 * nt}
 
 
 def _bands(b, l, heads, seed, head_ch=48, dtype=torch.bfloat16):
@@ -179,6 +231,45 @@ def kernel_algebra(q, k, v, do, lse, m_pre, m_post, heads):
     return flat(dq), flat(dk), flat(dv), dm_pre, dm_post
 
 
+def staged_algebra(q, k, v, do, lse, m_pre, m_post, heads):
+    """The staged backward's arithmetic at H = 16 in torch (test only):
+    returns (dq, dk, dv, dm_pre, dm_post) like ``th_core_bwd_plain``."""
+    b, l, hd = q.shape
+    d = hd // heads
+    split = lambda a: a.reshape(b, l, heads, d).float()
+    q4, k4, v4, do4 = split(q), split(k), split(v), split(do)
+    pre, post = m_pre.float(), m_post.float()
+    pre2 = pre * th.LOG2E
+    # 1. s and da per head, f32 (one 48-deep product a position)
+    s = torch.einsum('bqhd,bkhd->bhqk', q4, k4)
+    da = torch.einsum('bqhd,bkhd->bhqk', do4, v4)
+    # 2. the mix, a block of 4 query rows: pn, dpn, delta over the row's
+    # keys, dst, ds and pt in bf16, dM partials summed in block order
+    pn = torch.exp2(torch.einsum('ji,bjqk->biqk', pre2, s)
+                    - (lse.float() * th.LOG2E)[..., None])
+    dpn = torch.einsum('ji,biqk->bjqk', post, da)
+    delta = (dpn * pn).sum(dim=-1, keepdim=True)
+    dst = pn * (dpn - delta)
+    ds = torch.einsum('ji,biqk->bjqk', pre, dst).bfloat16().float()
+    pt = torch.einsum('ij,biqk->bjqk', post, pn).bfloat16().float()
+    dm_pre = torch.zeros(heads, heads)
+    dm_post = torch.zeros(heads, heads)
+    for bi in range(b):
+        for r0 in range(0, l, th.STAGED_MIX_ROWS):
+            rr = slice(r0, min(r0 + th.STAGED_MIX_ROWS, l))
+            dm_pre += torch.einsum('iqk,jqk->ji', dst[bi, :, rr], s[bi, :, rr])
+            dm_post += torch.einsum('iqk,jqk->ji', da[bi, :, rr], pn[bi, :, rr])
+    # 3. dq = ds k, dk = ds^T q, dv = pt^T do: 64 rows of depth a step
+    dq, dk, dv = (torch.zeros(b, l, heads, d) for _ in range(3))
+    for c0 in range(0, l, 64):
+        cc = slice(c0, min(c0 + 64, l))
+        dq += torch.einsum('bhqk,bkhd->bqhd', ds[..., cc], k4[:, cc])
+        dk += torch.einsum('bhqk,bqhd->bkhd', ds[:, :, cc], q4[:, cc])
+        dv += torch.einsum('bhqk,bqhd->bkhd', pt[:, :, cc], do4[:, cc])
+    flat = lambda a: a.reshape(b, l, hd).to(q.dtype)
+    return flat(dq), flat(dk), flat(dv), dm_pre, dm_post
+
+
 def _rel(a, b):
     a, b = torch.as_tensor(np.asarray(a, np.float32)), torch.as_tensor(
         np.asarray(b, np.float32))
@@ -200,6 +291,14 @@ def test_kernel_algebra_matches_twin(b, l, heads):
     _, lse = th.th_core_fwd_plain(q, k, v, *m, heads)
     _hold(kernel_algebra(q, k, v, do, lse, *m, heads),
           th.th_core_bwd_plain(q, k, v, do, lse, *m, heads))
+
+
+@pytest.mark.parametrize('b,l', [(2, 21), (1, 70)])
+def test_staged_algebra_matches_twin(b, l):
+    q, k, v, do, m = _bands(b, l, 16, l)
+    _, lse = th.th_core_fwd_plain(q, k, v, *m, 16)
+    _hold(staged_algebra(q, k, v, do, lse, *m, 16),
+          th.th_core_bwd_plain(q, k, v, do, lse, *m, 16))
 
 
 def test_kernel_algebra_matches_jax_blocked_kernel():

@@ -4,14 +4,18 @@ CPU (``csrc/th_fwd_sm90.cuh``, K6a; the kernel runs only on the card,
 
 * ``th_fwd_plan``, the Python mirror of the kernel's ``Plan`` (read on the
   card through ``sav_th_core_fwd_smem``): the shared memory fits a block's
-  232,448 bytes at H = 4 and 8, the 64-row work tiles and 16-key tiles
-  cover every row and key, and a head count the kernel is not built for
-  raises ValueError naming ROADMAP.md Queue 2 item 9.
+  232,448 bytes at H = 4, 8 and 16, the 64-row work tiles and 16-key tiles
+  cover every row and key in every sweep (at H = 16 the lse sweep and one
+  sweep a group of 8 output heads), and a head count the kernel is not
+  built for (H = 6) raises ValueError naming ROADMAP.md Queue 2 item 9.
 * ``kernel_algebra``, a test-only torch mirror of the kernel's arithmetic:
   64 query rows against 16-key tiles, the logits pre-mixed with M_pre log2
   e, keys past L set to -inf after the mix, a running max and sum of 2^x
   per mixed head over the first sweep, pn = 2^(x - lse log2 e) in the
-  second, the post-mix rounded to bf16 before P V. Held against
+  second, the post-mix rounded to bf16 before P V; at H = 16 the first
+  sweep's running max and sum step over 8-key halves (the mix
+  warpgroup's m64n8k16 products) and the second sweep runs once a group of
+  8 output heads. Held against
   ``th_core_fwd_plain`` (attn within 2^-8 of max: both are bf16, and f32
   sums in another order may round to the neighbouring value; lse within
   1e-5: f32 sums in another order) and, at one ragged shape, against the
@@ -61,15 +65,45 @@ def test_plan_covers_every_row_and_key(l, heads):
     plan = th.th_fwd_plan(l, heads)
     rows, cols = plan['rows'], plan['cols']
     assert (plan['tiles'] - 1) * rows < l <= plan['tiles'] * rows
-    per_sweep = plan['steps'] // 2
-    assert plan['steps'] == 2 * per_sweep
+    sweeps = 1 + plan['groups']          # the lse, then one a head group
+    per_sweep = plan['steps'] // sweeps
+    assert plan['steps'] == sweeps * per_sweep
     assert (per_sweep - 1) * cols < l <= per_sweep * cols
+    assert plan['groups'] * plan['group'] == heads
+    assert plan['group'] <= 8
+    assert plan['halves'] == (1 if heads <= 8 else 2)
 
 
 @pytest.mark.parametrize('heads', [6, 16])
 def test_plan_refuses_unbuilt_heads(heads):
-    with pytest.raises(ValueError, match='Queue 2 item 9'):
-        th.th_fwd_plan(576, heads)
+    """A head count is refused exactly where the kernel is not built for
+    it: H = 6 (cait_xs) raises naming its ROADMAP item; H = 16 (cait_m) is
+    built, as two groups of 8 output heads in a block's shared memory."""
+    if heads not in th.KERNEL_HEADS:
+        with pytest.raises(ValueError, match='Queue 2 item 9'):
+            th.th_fwd_plan(576, heads)
+        return
+    plan = th.th_fwd_plan(576, heads)
+    assert (plan['group'], plan['groups'], plan['stages']) == (8, 2, 2)
+    assert plan['smem'] <= SMEM_LIMIT
+    # q of every head stays resident (96 KB), the ring carries k and the
+    # group's v: 214,096 bytes
+    assert plan['smem'] == 214096
+
+
+@pytest.mark.parametrize('b,l,heads,want', [
+    (16, 196, 16, 2),          # cait_m_48 @224 bs16: 64 tiles, 128 units
+    (33, 196, 16, 1),          # 132 tiles: already a wave
+    (32, 196, 16, 1),          # 128 tiles: split would take two waves
+    (1, 577, 16, 2), (16, 196, 8, 1), (1, 17, 4, 1)])
+def test_split_takes_head_groups_apart_within_one_wave(b, l, heads, want):
+    """Work units a tile: H = 16's two head groups apart only where the
+    tiles fill less than a wave of the H100's 132 SMs and the groups at
+    most one."""
+    split = th.th_fwd_split(b, l, heads)
+    assert split == want
+    tiles = b * th.th_fwd_plan(l, heads)['tiles']
+    assert tiles * split <= 132 or split == 1
 
 
 def _bands(b, l, heads, seed):
@@ -118,23 +152,32 @@ def kernel_algebra(q, k, v, m_pre, m_post, heads):
         x[..., cc.stop - c0:] = -torch.inf
         return x
 
+    step = cols if heads <= 8 else cols // 2        # keys a product takes
+    group = min(heads, 8)                           # heads a second sweep
     for r0 in range(0, l, rows):
         rr = span(r0, rows)
         mx = torch.full((b, heads, rr.stop - r0), -torch.inf)
         sm = torch.zeros_like(mx)
         for c0 in range(0, l, cols):                # sweep 1
             x = logits(rr, c0)
-            m_new = torch.maximum(mx, x.amax(dim=-1))
-            sm = sm * torch.exp2(mx - m_new) + torch.exp2(
-                x - m_new[..., None]).sum(dim=-1)
-            mx = m_new
+            for h0 in range(0, cols, step):
+                xh = x[..., h0:h0 + step]
+                m_new = torch.maximum(mx, xh.amax(dim=-1))
+                base = torch.where(m_new == -torch.inf, 0.0, m_new)
+                sm = sm * torch.exp2(mx - base) + torch.exp2(
+                    xh - base[..., None]).sum(dim=-1)
+                mx = m_new
         l2 = mx + torch.log2(sm)
         lse2[:, :, rr] = l2
-        for c0 in range(0, l, cols):                # sweep 2
-            cc = span(c0, cols)
-            pn = torch.exp2(logits(rr, c0) - l2[..., None])[..., :cc.stop - c0]
-            pt = torch.einsum('ji,bjqk->biqk', post, pn).bfloat16().float()
-            attn[:, rr] += torch.einsum('bhqk,bkhd->bqhd', pt, v4[:, cc])
+        for g0 in range(0, heads, group):           # sweep 2, a pass a group
+            for c0 in range(0, l, cols):
+                cc = span(c0, cols)
+                pn = torch.exp2(logits(rr, c0)
+                                - l2[..., None])[..., :cc.stop - c0]
+                pt = torch.einsum('ji,bjqk->biqk', post[:, g0:g0 + group],
+                                  pn).bfloat16().float()
+                attn[:, rr, g0:g0 + group] += torch.einsum(
+                    'bhqk,bkhd->bqhd', pt, v4[:, cc, g0:g0 + group])
     return attn.reshape(b, l, hd).to(q.dtype), lse2 / th.LOG2E
 
 
@@ -148,7 +191,7 @@ def _hold(got, want):
 
 
 @pytest.mark.parametrize('b,l,heads', [(2, 5, 4), (2, 17, 8), (1, 80, 4),
-                                       (1, 130, 8)])
+                                       (1, 130, 8), (2, 21, 16), (1, 70, 16)])
 def test_kernel_algebra_matches_twin(b, l, heads):
     q, k, v, m = _bands(b, l, heads, l + heads)
     _hold(kernel_algebra(q, k, v, *m, heads),
@@ -231,6 +274,14 @@ def test_k5a_algebra_matches_twin(b, l):
     x, scale, bias, ws, m = _span_inputs(b, l, 128, 8, l)
     _hold_span(k5a_algebra(x, scale, bias, *ws, *m, 8),
                th.th_attention_fwd_plain(x, scale, bias, *ws, *m, 8,
+                                         save_residuals=True))
+
+
+def test_k5a_algebra_matches_twin_at_16_heads():
+    """cait_m's head geometry (16 heads of 48) at D = 128, L = 68."""
+    x, scale, bias, ws, m = _span_inputs(1, 68, 128, 16, 3)
+    _hold_span(k5a_algebra(x, scale, bias, *ws, *m, 16),
+               th.th_attention_fwd_plain(x, scale, bias, *ws, *m, 16,
                                          save_residuals=True))
 
 

@@ -2,7 +2,8 @@
 the kernel wrapper ``th_attention_q8`` and its plain twin
 ``th_q8_reference``) against the JAX package's ``th_attention_sublayer_q8``
 (its kernel ``_th_q8_kernel`` in interpret mode on the CPU) at B = 2, H = 4,
-d = 48, D = 192 (cait_xxs's heads) and L = 17 (a ragged 16-row tile); the
+d = 48, D = 192 (cait_xxs's heads), H = 8 and 16 at D = 128, and L = 17 (a
+ragged 16-row tile); the
 geometry test ``th_supported`` against the JAX one; a shape where it does
 not hold (d = 72) is the bf16 span on both sides; CaiT
 ``quantized='all'`` under ``use_kernel='fused_th'`` from one flax tree (2
@@ -85,12 +86,15 @@ def test_th_supported_matches_jax(l, heads, head_ch):
         l, heads, head_ch)
 
 
-@pytest.mark.parametrize('heads,dim,seed', [(4, 192, 0), (8, 128, 1)])
+@pytest.mark.parametrize('heads,dim,seed', [(4, 192, 0), (8, 128, 1),
+                                            (16, 128, 4)])
 def test_k11_twin_matches_jax(heads, dim, seed):
-    """cait_xxs's four heads at D = H*48, and eight heads (CaiT-S's) at a
-    D narrower than H*48 (its own draw: at seed 0 the int8 span lies
-    0.0398 of max |out| from the bf16 one, a hair inside the 2 x OUT_TOL
-    this test asks of a draw to tell the two routes apart)."""
+    """cait_xxs's four heads at D = H*48, and eight heads (CaiT-S's) and
+    sixteen (cait_m's) at a D narrower than H*48, each its own draw: at
+    seed 0 the eight-head int8 span lies 0.0398 of max |out| from the bf16
+    one, and the sixteen-head one 0.0387 at seed 2 and 0.0394 at seed 3, a
+    hair inside the 2 x OUT_TOL this test asks of a draw to tell the two
+    routes apart."""
     c = _case(17, heads, seed=seed, dim=dim)
     assert tth.th_supported(17, heads, 48)
     jw = tfl._q8_weights(*[torch.from_numpy(c[k])
@@ -198,8 +202,9 @@ def test_cait_quantized_all_matches_jax():
 def test_cait_all_routes(tmp_path):
     """Off the card 'auto' is the per-op path (bf16 attention, FF on K12's
     twin), as the JAX package off the TPU; on the card a head count the TH
-    kernels are not built for raises under 'auto', naming its ROADMAP item
-    (the decision, taken without a card); the Trainer refuses 'all'."""
+    kernels are not built for (cait_xs) raises under 'auto', naming its
+    ROADMAP item, and cait_m takes K5 (the decision, taken without a card);
+    the Trainer refuses 'all'."""
     model = create_model('cait_xxs_24', num_classes=NUM_CLASSES, img_size=IMG,
                          device='cpu', quantized='all', **CAIT)
     block = model.Encoder_0.EncoderBlock_0
@@ -207,8 +212,9 @@ def test_cait_all_routes(tmp_path):
     assert block.th_route(tokens) is None
     for l, heads in ((196, 6), (196, 16)):
         assert tth.th_supported(l, heads, 48)
-        with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
-            tth.th_route(l, heads, 48, heads * 48, 'cuda')
+    with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
+        tth.th_route(196, 6, 48, 288, 'cuda')
+    assert tth.th_route(196, 16, 48, 768, 'cuda') == 'fused'
     # @384 (L = 576) th_supported fails: 'all' is the bf16 span there
     assert not tth.th_supported(576, 8, 48)
     from sav_tpu_torch.train import TrainConfig, Trainer

@@ -7,13 +7,16 @@ on the CPU (``csrc/th_attention_q8.cu`` + ``csrc/q8_gemm_sm90.cuh`` +
   QKV GEMM's column tiles cover every row and column of each of q, k and v
   once (no tile straddles two of them) and the OUT GEMM's those of out;
   the persistent blocks take every unit once (at B*L = 6304, 6272, 1003
-  and 1, CaiT-S/24's and cait_xxs_24's widths); the shared memory of the
+  and 1, CaiT-S/24's, cait_xxs_24's and cait_m's widths); the shared memory of the
   three kernels fits a block, and the workspace regions lie apart at
   256-byte offsets.
-* The geometry the kernels do not take raises ValueError.
+* The geometry the kernels do not take raises ValueError (H = 6 and 12
+  are not built; H = 16 is, since cait_m's slice).
 * ``band_codes``, a test-only torch mirror of the core's Q8 store: each
   f32 output rounded to bf16 first, each lane's absmax over its columns
-  of every head, the max over the 4 lanes of a row, scale = max(absmax,
+  of every head (at H = 16 the kernel takes it over two passes of 8 heads
+  and their maximum: the same value), the max over the 4 lanes of a row,
+  scale = max(absmax,
   1e-8) / 127 by IEEE division, the codes of the IEEE quotient (the
   kernel's ``q8::quantize_exact`` gives them without a division; the card
   holds it against the division for every bf16 value and row absmax,
@@ -36,8 +39,8 @@ SMS = 132
 # (B, L): B*L = 6304 (ViT-B/16 bs32's rows), 6272 (CaiT @224 bs32), a ragged
 # 1003 and 1
 BATCHES = [(32, 197), (32, 196), (17, 59), (1, 1)]
-# (D, H): CaiT-S/24 and cait_xxs_24
-WIDTHS = [(384, 8), (192, 4)]
+# (D, H): CaiT-S/24, cait_xxs_24 and cait_m
+WIDTHS = [(384, 8), (192, 4), (768, 16)]
 
 
 def _cdiv(a, b):
@@ -91,15 +94,21 @@ def test_plan_fits_and_workspace_regions_lie_apart(b, l, dim, heads):
     assert last % 256 == 0 and last + nlast <= plan['workspace']
     for what in ('qkv', 'out', 'core'):
         assert 0 < plan['smem'][what] <= SMEM_LIMIT
-    # K6a's kernel and, after its mbarriers, the codes' staging rows
-    assert plan['smem']['core'] >= (tth.th_fwd_plan(l, heads)['smem']
-                                    + 64 * (hd + 16))
+    core = tth.th_fwd_plan(l, heads)['smem']
+    if heads <= 8:
+        # K6a's kernel and, after its mbarriers, the codes' staging rows
+        assert plan['smem']['core'] >= core + 64 * (hd + 16)
+    else:
+        # at H = 16 the staging rows lie over the resident q (64 x H*48
+        # bf16), free by the time the codes are taken
+        assert plan['smem']['core'] == core
+        assert 64 * (hd + 16) <= 64 * hd * 2
 
 
 @pytest.mark.parametrize('b,l,dim,heads', [(0, 196, 384, 8), (2, 0, 384, 8),
                                            (2, 196, 96, 8), (2, 196, 0, 8),
                                            (2, 196, 384, 6),
-                                           (2, 196, 768, 16)])
+                                           (2, 196, 768, 12)])
 def test_plan_refuses_what_the_kernels_do_not_take(b, l, dim, heads):
     with pytest.raises(ValueError, match='multiple of 64'):
         tth.th_q8_plan(b, l, dim, heads)
@@ -130,7 +139,7 @@ def _bands(b, l, heads, seed):
     return attn.reshape(b * l, hd)
 
 
-@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('heads', [4, 8, 16])
 def test_band_codes_equal_the_twins_codes_of_its_bands(heads):
     bands = _bands(2, 37, heads, heads)
     codes, scale = band_codes(bands.float(), heads)
@@ -139,7 +148,7 @@ def test_band_codes_equal_the_twins_codes_of_its_bands(heads):
     assert torch.equal(scale, want_scale)
 
 
-@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('heads', [4, 8, 16])
 def test_band_codes_round_to_bf16_first(heads):
     """f32 accumulators a hair off bf16 values and rows whose codes sit at
     .5 after the bf16 rounding: the mirror's codes are the twin's codes of
