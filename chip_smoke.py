@@ -36,16 +36,17 @@
    img/s over 10 steps after warm-up; one eval batch.
 5. CaiT-S/24 (slice 3): the talking-heads kernels against their twins at
    the paths' shapes (K5a serve B=32 and train B=128 at L=196, B=32 and
-   B=48 at L=576, K5b B=128; K6a and K6b, the blocked route's, at
-   cait_xxs_24's four heads, B=32 and B=128 at L=196, and at L=576 with
-   eight; K5b also at four heads), outputs, lse, dq/dk/dv and
+   B=48 at L=576, K5b B=128; K5a and K5b also at cait_xxs_24's four heads
+   and D = 192, B=32 and B=128 at L=196; K6a and K6b, the blocked route's
+   entries, at four heads, B=32 and B=128 at L=196, and at L=576 with
+   eight), outputs, lse, dq/dk/dv and
    dM_pre/dM_post, K6a's and the backward's two calls bit-identical and
    their ptxas lines, the ragged last tile on its own at L = 196, 197, 576
    and 577; serving CaiT-S/24 @224 and @384 (24 K5a launches per forward)
-   and cait_xxs_24 @224 (24 K6a) at batch 32 with logits against the
+   and cait_xxs_24 @224 (24 K5a) at batch 32 with logits against the
    per-op path; training through the Trainer CaiT-S/24 @224 bs128 and
    @384 bs48 (24 K5a-train + 24 K5b per step) and cait_xxs_24 @224 bs128
-   (24 K6a + 24 K6b) at stochastic depth 0.1, gradients against the plain
+   (the same) at stochastic depth 0.1, gradients against the plain
    core (use_kernel='fused_th_xla') with the f32 per-op path as the noise
    floor on the step's whole batch, train img/s and peak memory.
 6. Mixer-B/16 and the FF backward (slice 4): K8a (token mixing forward;
@@ -152,7 +153,7 @@
    twin at CeiT-S's widths (B = 32 and 64, L = 197, D = 384, H = 6), both
    variants; K1 at D = 192, H = 3 (the projection GEMM's 192-wide tile:
    ceit_t's post-LN and vit_ti's pre-LN route; each launched by the
-   sweep of 11, whose ceit_t entry is this slice's); ViT-B/16's K1 outputs
+   sweep, whose ceit_t entry is this slice's); ViT-B/16's K1 outputs
    against the digests the GEMM gave before it took D = 192
    (``scripts/k1_digest.py``'s ``K1_VITB_DIGESTS``); serving CeiT-S @224
    bs32 on ``'auto'`` and ``'fused_layer_full'`` (12 post-LN K1 launches
@@ -177,7 +178,7 @@
    forward, stage 3 only) and training ``'ff'`` (+ 10 K13-train per step)
    against the int8 twins. With ``--profile`` each CvT path also prints
    its device time by module kind (``print_module_split``). cvt-w24 @384
-   (stage sizes (1, 1, 2), bs2) is in the sweep of 10: K4 and K3 at 9216
+   (stage sizes (1, 1, 2), bs2) is in the sweep: K4 and K3 at 9216
    over 2304 keys in 3 heads, 2304 over 576 in 12 and 625 over 169 in 16.
 15. CaiT-M (slice 11; after 14, before the print of 11): the TH kernels at
    16 heads of 48 (D = 768) at cait_m_48 @224's shapes: K5a (both
@@ -193,7 +194,33 @@
    K5a-train + 48 K5b per step), gradients against 'fused_th_xla' with
    the f32 per-op path as the noise floor; serving ``quantized='all'``
    bs32 (48 K11 + 48 K12 per forward) against the int8 twins. cait_m_24
-   @384 (K5 at L = 576) is in the sweep of 10 at depth 2.
+   @384 (K5 at L = 576) is in the sweep at depth 2.
+16. CaiT-XS (slice 12; after 15, before the print of 11): the TH kernels
+   at 6 heads of 48 (D = 288: 4.5 boxes of 64 columns, read as 5) and the
+   int8 FF kernels at D = 288, F = 1152 (a 32-wide last OUT tile, a
+   half-zero last slot over D) at cait_xs_24 @224's shapes: K6a at B = 32
+   and 128 (L = 196) and B = 32 at L = 576, K6b through both entries at
+   B = 128, K11 at B = 32, K12 at the serving rows (32 x 196) and its
+   training variant at 128 x 196, K13 at the serving rows, K14 at 128 x
+   196, against their twins and timed beside the library chains and the
+   bound, the last 32 columns of each output also on their own; K6a and
+   K5b/K6b at L = 197 and 577 into NaN-sentinel buffers; K11 at B = 3, L
+   = 197 and 250, and K12, K13 and K14 at the odd M = 1003 into
+   sentinels; K11's codes and row scales against the twin's quantiser on
+   K6a's bands, bit for bit; the ptxas line of each H = 6 instantiation;
+   K5a (its LN and its projection GEMMs, whose last column tile and
+   64-deep step are ragged at 288, around the core) at B = 32 and 128 (L
+   = 196) and B = 32 at L = 576, each output's last 32 columns also on
+   their own, and at L = 197 and 577 into NaN sentinels. Then serving
+   cait_xs_24 @224 bs32 on 'auto' (24 K5a per forward), training it
+   bs128 (24 K5a-train + 24 K5b per step, gradients against
+   'fused_th_xla'), serving ``quantized='all'`` bs32 (24 K11 + 24 K12)
+   and training ``'ff_sb'`` bs128 (+ 24 K12-train + 24 K14 per step)
+   against the int8 twins; and the blocked route's own path, which no
+   factory CaiT takes on the card any more: 24 sublayers chained through
+   ``th_attention_sublayer(route='blocked')`` at bs128 (24 K6a + 24 K6b
+   in a forward and backward), against route 'xla'. cait_xs_24 @384 (K5
+   at L = 576) is in the sweep at depth 2.
 """
 
 from __future__ import annotations
@@ -939,8 +966,14 @@ def check_k5a(rng, checks, batch, seq, save_residuals, dim=384, heads=8):
     err_out = _rel(out, p_out)
     checks.expect(finite and max([err_out] + errs) <= OUT_TOL
                   and lse_err <= LSE_TOL,
-                  f'{name} B={batch} L={seq}: out {err_out:.3g} of max (tol '
-                  f'{OUT_TOL}){extra}')
+                  f'{name} B={batch} L={seq} D={dim} H={heads}: out '
+                  f'{err_out:.3g} of max (tol {OUT_TOL}){extra}')
+    tails = [('out', out, p_out)]
+    if save_residuals:
+        tails += list(zip(('q', 'k', 'v', 'attn'), res[:4], p_res[:4]))
+    for what, ours, twin in tails:
+        check_tail(checks, f'{name} B={batch} L={seq} D={dim} H={heads}: '
+                           f'{what}', ours, twin)
 
     def library():
         y = F.layer_norm(x, (dim,), scale.bfloat16(), bias.bfloat16(), 1e-6)
@@ -957,12 +990,13 @@ def check_k5a(rng, checks, batch, seq, save_residuals, dim=384, heads=8):
     rec = dict(ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
                max_abs_err=max(abs_err, lse_err))
-    print(f'  {name} B={batch} L={seq}: kernel {rec["ms"]:.4f} ms  plain '
-          f'{rec["plain_ms"]:.4f} ms  library {rec["library_ms"]:.4f} ms  '
-          f'bound {b_ms:.4f} ms ({b_by}; {ops / 1e9:.2f} GFLOP tensor, '
-          f'{f32_ops / 1e9:.2f} GFLOP f32 mixes)', flush=True)
-    print(f'  {name} B={batch} L={seq} launches: ' + launch_split(run),
-          flush=True)
+    print(f'  {name} B={batch} L={seq} D={dim} H={heads}: kernel '
+          f'{rec["ms"]:.4f} ms  plain {rec["plain_ms"]:.4f} ms  library '
+          f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by}; '
+          f'{ops / 1e9:.2f} GFLOP tensor, {f32_ops / 1e9:.2f} GFLOP f32 '
+          f'mixes)', flush=True)
+    print(f'  {name} B={batch} L={seq} D={dim} H={heads} launches: '
+          + launch_split(run), flush=True)
     return rec
 
 
@@ -987,9 +1021,11 @@ def check_k6a(rng, checks, batch, seq, heads=8):
     finite = bool(torch.isfinite(attn).all() and torch.isfinite(lse).all())
     same = torch.equal(attn, again[0]) and torch.equal(lse, again[1])
     checks.expect(finite and same and err <= OUT_TOL and lse_err <= LSE_TOL,
-                  f'K6a th_core_fwd B={batch} L={seq}: attn err {err:.3g} of '
-                  f'max (tol {OUT_TOL}), lse abs err {lse_err:.3g} (tol '
-                  f'{LSE_TOL}); two calls identical {same}')
+                  f'K6a th_core_fwd B={batch} L={seq} H={heads}: attn err '
+                  f'{err:.3g} of max (tol {OUT_TOL}), lse abs err '
+                  f'{lse_err:.3g} (tol {LSE_TOL}); two calls identical {same}')
+    check_tail(checks, f'K6a B={batch} L={seq} H={heads}: attn', attn,
+               p_attn)
     ops, f32_ops = _th_work(batch, seq, heads, 2, 2)
     hd = heads * th.HEAD_CH
     nbytes = 4 * batch * seq * hd * 2 + batch * heads * seq * 4
@@ -1029,6 +1065,9 @@ def check_th_bwd(rng, checks, batch, seq, entry, heads=8, timed=True):
                   f'{BWD_TOL}); dM_pre/dM_post err '
                   f'{", ".join(f"{e:.3g}" for e in errs[3:])} of max (tol '
                   f'{DM_TOL}); two calls identical {same}')
+    for what, g, t in zip(('dq', 'dk', 'dv'), grads, twin):
+        check_tail(checks, f'{name} B={batch} L={seq} H={heads}: {what}', g, t,
+                   BWD_TOL)
     if not timed:
         return None
     del again
@@ -1049,6 +1088,28 @@ def check_th_bwd(rng, checks, batch, seq, entry, heads=8, timed=True):
           f'{rec["library_ms"]:.4f} ms  bound {b_ms:.4f} ms ({b_by})',
           flush=True)
     return rec
+
+
+def check_tail(checks, what, got, want, tol=OUT_TOL, base=None):
+    """Where the last dimension is not a whole number of 64-column boxes
+    or tiles (cait_xs: H*48 = D = 288, 4.5 of them), its ragged last
+    columns held against the twin's on their own (bf16 outputs: over their
+    own max |twin|, at ``tol``; int8 outputs: ``_int8_expect``'s rule), so
+    that a half box or tile dropped, zeroed or read from the next band
+    cannot hide in a max over the other columns. Nothing where the width
+    is whole."""
+    ragged = got.shape[-1] % 64
+    if not ragged:
+        return
+    tail = lambda t: None if t is None else t[..., -ragged:]
+    if tol is None:
+        _int8_expect(checks, f'{what}: its last {ragged} columns', tail(got),
+                     tail(want), tail(base))
+        return
+    err = _rel(tail(got), tail(want))
+    checks.expect(bool(torch.isfinite(tail(got)).all()) and err <= tol,
+                  f'{what}: its last {ragged} columns alone: err {err:.3g} '
+                  f'of their max (tol {tol})')
 
 
 def check_th_tails(rng, checks, seq, heads=8):
@@ -1998,6 +2059,75 @@ def _reroute(model, plain_core, use_kernel, plain: bool) -> None:
         set_use_kernel(model, plain_core if plain else use_kernel)
 
 
+def blocked_path(checks, label, batch, seq, heads, layers, seed):
+    """The blocked route's own path: ``layers`` talking-heads sublayers
+    chained as CaiT's body chains them (x + 0.1 span(x)) through the op's
+    entry ``th_attention_sublayer(..., route='blocked')`` (library LN and
+    projections around the K6a port, the K6b port in the backward): the
+    route of a width K5a's GEMMs do not take, which no factory CaiT has
+    on the card. The counts are set to 0 just before one forward and
+    backward and read just after (want: ``layers`` of K6a and of K6b); the
+    output by relative L2 (5e-2) and every gradient (x and the eight
+    tensors of each sublayer, f32 parameters as a model holds them) by
+    ``_grad_rule`` against the same chain on route 'xla' (the plain core),
+    with the chain of f32 per-op sublayers (``th_sublayer_reference``) as
+    the noise floor, as the model paths' gradients are held. Returns the
+    counts."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+    dim = heads * th.HEAD_CH
+    rnd = lambda shape, std: (torch.randn(shape, generator=gen) * std).cuda()
+    x0 = rnd((batch, seq, dim), 1.0).bfloat16()
+    params = [[1.0 + rnd((dim,), 0.1), rnd((dim,), 0.1),
+               rnd((dim, heads, th.HEAD_CH), 4.0 / math.sqrt(dim)),
+               rnd((dim, heads, th.HEAD_CH), 1.0 / math.sqrt(dim)),
+               rnd((dim, heads, th.HEAD_CH), 1.0 / math.sqrt(dim)),
+               rnd((heads, th.HEAD_CH, dim), 1.0 / math.sqrt(dim)),
+               torch.eye(heads, device='cuda') + rnd((heads, heads), 0.3),
+               torch.eye(heads, device='cuda') + rnd((heads, heads), 0.3)]
+              for _ in range(layers)]
+
+    names = ['x'] + [f'{i}.{n}' for i in range(layers)
+                     for n in ('scale', 'bias', 'wq', 'wk', 'wv', 'wo',
+                               'm_pre', 'm_post')]
+
+    def run(route):
+        leaves = [(x0.float() if route is None else x0).clone()
+                  .requires_grad_()] + [
+            t.clone().requires_grad_() for p in params for t in p]
+        y = leaves[0]
+        for i in range(layers):
+            p = leaves[1 + 8 * i:9 + 8 * i]
+            y = y + 0.1 * (
+                th.th_sublayer_reference(y, *p, th.LN_EPS) if route is None
+                else th.th_attention_sublayer(y, *p, heads, th.LN_EPS, False,
+                                              route))
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        return y.detach(), dict(zip(names, [t.grad for t in leaves]))
+
+    _build.reset_launches()
+    out, grads = run('blocked')
+    counts = dict(_build.launches)
+    want_out, want = run('xla')
+    _, ref = run(None)
+    (ratio, name, g_err, tol, noise, far), _ = _grad_rule(grads, want, ref)
+    err = _rel_l2(out, want_out)
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in [out, *grads.values()])
+    expected = {'th_core_fwd': layers, 'th_core_bwd': layers}
+    checks.expect(counts == expected and finite and err <= GRAD_TOL
+                  and ratio <= 1.0,
+                  f'{label}: launches {counts} (want {expected}); out '
+                  f'{err:.3g} relative L2 from route xla (tol {GRAD_TOL}); '
+                  f'{len(grads)} gradients, worst {g_err:.3g} (L2, tol '
+                  f'{tol:.3g}) at {name} (there plain core vs f32 '
+                  f'{noise:.3g}, kernels vs f32 {far:.3g})')
+    print(f'  {label}: the path took {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    return counts
+
+
 def train_path(checks, name, img_size, batch, want, seed, steps=10,
                profile=False, model_name='vit_b_patch16',
                plain_core='fused_layer_xla', use_kernel='auto',
@@ -2077,8 +2207,9 @@ def train_path(checks, name, img_size, batch, want, seed, steps=10,
 # the distinct dispatch shapes that ``auto`` takes on the card among the
 # factory names the paths above do not build (H = 16 at L = 197 and 577 on
 # K1/K2/K3; D = 192 on K1's 192-wide GEMM tile, pre-LN (vit_ti) and
-# post-LN (ceit_t); D = 384, H = 6; CaiT's H = 4 on K6 at L = 196 and 576,
-# and H = 16 on K5 at L = 576 (cait_m_24 @384);
+# post-LN (ceit_t); D = 384, H = 6; CaiT's H = 4 on K5 at L = 196 and 576,
+# H = 16 on K5 at L = 576 (cait_m_24 @384) and H = 6 on K5 at L = 576
+# (cait_xs_24 @384);
 # the Mixer's S and L widths on K8; cvt-w24 @384 on K4 + K3 at 9216 over
 # 2304 keys in 3 heads, 2304 over 576 in 12, the padded 625 over 169 in 16)
 SWEEP = (
@@ -2090,6 +2221,7 @@ SWEEP = (
     ('cait_xxs_24', 224, 4, 'fused_th_xla'),
     ('cait_xxs_24', 384, 2, 'fused_th_xla'),
     ('cait_m_24', 384, 2, 'fused_th_xla'),
+    ('cait_xs_24', 384, 2, 'fused_th_xla'),
     ('mixer_s_patch16', 224, 4, False),
     ('mixer_l_patch16', 224, 4, False),
     ('cvt-w24', 384, 2, CVT_PLAIN),
@@ -2266,6 +2398,7 @@ def check_int8_ff(rng, checks, m, ln, save_hpre, d=768, f=3072):
         errs.append(_int8_expect(checks, f'{name}: hpre', got[1], want[1]))
         got, want = got[0], want[0]
     errs.append(_int8_expect(checks, name, got, want, x if ln else None))
+    check_tail(checks, name, got, want, None, x if ln else None)
     w1_q, s1, b1, w2_q, s2, b2 = w
 
     def library():
@@ -2365,33 +2498,16 @@ def check_k10(rng, checks, batch, seq, dim=768, heads=12):
 
 def check_int8_sentinels(rng, checks, m=1003, batch=3, seq=197):
     """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
-    range: K12 and K13 (with hpre) at M = 1003 (not a multiple of their
-    128-row tiles), K15 at M = 1003 with a ragged last k-block (K = 700),
-    K10 at B = 3, L = 197. Rows in range match the twins; rows past them
-    keep the sentinel: nothing padded, no row dropped, none written past."""
+    range: K12 and K13 (with hpre) and K14 at M = 1003 (not a multiple of
+    their 128-row tiles; ``check_ff_sentinels_at``), K15 at M = 1003 with a
+    ragged last k-block (K = 700), K10 at B = 3, L = 197. Rows in range
+    match the twins; rows past them keep the sentinel: nothing padded, no
+    row dropped, none written past."""
     nan = lambda rows, w: torch.full((rows + 64, w), float('nan'),
                                      device='cuda', dtype=torch.bfloat16)
-    d, f = 768, 3072
-    x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _int8_ff_case(rng, m, d, f)
-    kept = []
-    for ln in (0, 1):
-        out, hpre = nan(m, d), nan(m, f)
-        # the C entry into the first M rows (it raises on a failed launch)
-        int8_ff._int8_ff_into(x, (ls, lb) if ln else None, w1_q, s1, b1,
-                              w2_q, s2, b2, 1e-6, out[:m], hpre[:m])
-        torch.cuda.synchronize()
-        want = (int8_ff.int8_ff_ln_reference(x, ls, lb, w1_q, s1, b1, w2_q,
-                                             s2, b2, save_hpre=True) if ln
-                else int8_ff.int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2,
-                                               save_hpre=True))
-        what = 'K13' if ln else 'K12'
-        _int8_expect(checks, f'{what} M={m} into sentinels: out', out[:m],
-                     want[0], x if ln else None)
-        _int8_expect(checks, f'{what} M={m} into sentinels: hpre', hpre[:m],
-                     want[1])
-        kept += [out[m:], hpre[m:]]
+    kept = check_ff_sentinels_at(rng, checks, m, 768, 3072)
     k, n = 700, 256
-    a = x[:, :k].contiguous()
+    a = _bf16(rng, (m, k))
     b_q, b_s = quantize_symmetric(_bf16(rng, (k, n), 1.0 / math.sqrt(k)), 0)
     out = nan(m, n)
     # the C entry into the first M rows (it raises on a failed launch)
@@ -2446,6 +2562,8 @@ def check_k11(rng, checks, batch, seq, dim, heads):
     torch.cuda.synchronize()
     err = _int8_expect(checks, f'K11 th_attention_q8 B={batch} L={seq} '
                                f'D={dim} H={heads}', got, want)
+    check_tail(checks, f'K11 B={batch} L={seq} D={dim} H={heads}', got, want,
+               None)
     wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so = flat
     m = batch * seq
 
@@ -2517,6 +2635,7 @@ def check_k14(rng, checks, m, d=768, f=3072):
     name = f'K14 int8_ff_dx_raw M={m} D={d} F={f}'
     errs = [_int8_expect(checks, f'{name}: dy2', got[0], want[0]),
             _int8_expect(checks, f'{name}: dh', got[1], want[1])]
+    check_tail(checks, f'{name}: dy2', got[0], want[0], None)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     checks.expect(same, f'{name}: two calls identical {same}')
@@ -2542,28 +2661,57 @@ def check_k14(rng, checks, m, d=768, f=3072):
     return rec
 
 
-def check_slice8_sentinels(rng, checks, m=1003, batch=3, seq=197):
+def check_slice8_sentinels(rng, checks, batch=3, seq=197):
     """Ragged edges on NaN-sentinel buffers 64 rows longer than the rows in
-    range: K14 at M = 1003 (not a multiple of its 128-row tiles), dy2 and
-    dh; K11 at B = 3, L = 197 and 250 (CaiT-S widths). Rows in range match
-    the twins; rows past them keep the sentinel."""
+    range: K11 at B = 3, L = 197 and 250 (CaiT-S widths; K14's are in
+    ``check_int8_sentinels``). Rows in range match the twin; rows past them
+    keep the sentinel."""
+    kept = check_k11_sentinels(rng, checks, batch, (seq, 250), 384, 8)
+    untouched = all(bool(torch.isnan(t).all()) for t in kept)
+    checks.expect(untouched, f'K11 into sentinel buffers: rows past B*L '
+                             f'untouched {untouched}')
+
+
+def check_ff_sentinels_at(rng, checks, m, d, f):
+    """K12 and K13 (with hpre) and K14 at D, F (cait_xs's 288 and 1152: a
+    32-wide last OUT and DY tile) over an odd M (not a multiple of their
+    128-row tiles) into NaN-sentinel buffers 64 rows longer: rows in range
+    against the twins (the last 32 columns also on their own), rows past
+    them keep the sentinel. Returns the rows past M."""
     nan = lambda rows, w: torch.full((rows + 64, w), float('nan'),
                                      device='cuda', dtype=torch.bfloat16)
+    x, (ls, lb), (w1_q, s1, b1, w2_q, s2, b2) = _int8_ff_case(rng, m, d, f)
     kept = []
-    d, f = 768, 3072
-    g, hpre, (w1t_q, s1t, w2t_q, s2t) = _k14_case(rng, m, d, f)
+    for ln in (0, 1):
+        out, hpre = nan(m, d), nan(m, f)
+        # the C entry into the first M rows (it raises on a failed launch)
+        int8_ff._int8_ff_into(x, (ls, lb) if ln else None, w1_q, s1, b1,
+                              w2_q, s2, b2, 1e-6, out[:m], hpre[:m])
+        torch.cuda.synchronize()
+        want = (int8_ff.int8_ff_ln_reference(x, ls, lb, w1_q, s1, b1, w2_q,
+                                             s2, b2, save_hpre=True) if ln
+                else int8_ff.int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2,
+                                               save_hpre=True))
+        what = f'K13 M={m} D={d} F={f}' if ln else f'K12 M={m} D={d} F={f}'
+        base = x if ln else None
+        _int8_expect(checks, f'{what} into sentinels: out', out[:m], want[0],
+                     base)
+        check_tail(checks, f'{what} into sentinels: out', out[:m], want[0],
+                   None, base)
+        _int8_expect(checks, f'{what} into sentinels: hpre', hpre[:m],
+                     want[1])
+        kept += [out[m:], hpre[m:]]
+    g, hp, (w1t_q, s1t, w2t_q, s2t) = _k14_case(rng, m, d, f)
     dy, dh = nan(m, d), nan(m, f)
-    # the C entry into the first M rows (it raises on a failed launch)
-    int8_ff._int8_dx_into(g, hpre, w1t_q, s1t, w2t_q, s2t, dy[:m], dh[:m])
+    int8_ff._int8_dx_into(g, hp, w1t_q, s1t, w2t_q, s2t, dy[:m], dh[:m])
     torch.cuda.synchronize()
-    want = int8_ff.int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
-    _int8_expect(checks, f'K14 M={m} into sentinels: dy2', dy[:m], want[0])
-    _int8_expect(checks, f'K14 M={m} into sentinels: dh', dh[:m], want[1])
+    want = int8_ff.int8_ff_dx_reference(g, hp, w1t_q, s1t, w2t_q, s2t)
+    what = f'K14 M={m} D={d} F={f} into sentinels'
+    _int8_expect(checks, f'{what}: dy2', dy[:m], want[0])
+    check_tail(checks, f'{what}: dy2', dy[:m], want[0], None)
+    _int8_expect(checks, f'{what}: dh', dh[:m], want[1])
     kept += [dy[m:], dh[m:]]
-    kept += check_k11_sentinels(rng, checks, batch, (seq, 250), 384, 8)
-    untouched = all(bool(torch.isnan(t).all()) for t in kept)
-    checks.expect(untouched, f'K11/K14 into sentinel buffers: rows past M '
-                             f'untouched {untouched}')
+    return kept
 
 
 def check_k11_sentinels(rng, checks, batch, seqs, dim, heads):
@@ -2584,6 +2732,9 @@ def check_k11_sentinels(rng, checks, batch, seqs, dim, heads):
             want = th.th_q8_reference(x, scale, bias, *flat, *mixes, heads)
         _int8_expect(checks, f'K11 B={batch} L={seq_i} D={dim} H={heads} into '
                              f'sentinels', out[:rows], want.reshape(rows, dim))
+        check_tail(checks, f'K11 B={batch} L={seq_i} D={dim} H={heads} into '
+                           f'sentinels', out[:rows], want.reshape(rows, dim),
+                   None)
         kept.append(out[rows:])
     return kept
 
@@ -2648,6 +2799,22 @@ def check_quantizer(checks):
 # ---- CeiT (slice 9): K1's post-LN route (csrc/fused_attention.cu with
 # pre_ln 0; check_k1_route above) and its projection GEMM at D = 192
 # (csrc/proj_sm90.cuh), the widths it took before unchanged
+
+def ptxas_of(lib: str, kernel: str, heads: int) -> str:
+    """The ptxas lines (registers, spills) of each instantiation of
+    ``kernel`` at ``heads`` heads (its first template argument) in
+    ``lib``'s build log, one 'entry: ...' a line, joined by '; '."""
+    lines = _build.build_log.get(lib, '').splitlines()
+    out = []
+    tag = f'ILi{heads}E'
+    for i, line in enumerate(lines):
+        if 'Compiling entry' in line and kernel in line and tag in line:
+            entry = line.split("'")[1] if "'" in line else line
+            info = [t.strip() for t in lines[i + 1:i + 4]
+                    if 'spill' in t or 'registers' in t]
+            out.append(f'{entry}: ' + ' '.join(info))
+    return '; '.join(out)
+
 
 def k1_digest_module():
     """``scripts/k1_digest.py`` of this checkout, loaded by its path."""
@@ -2860,18 +3027,22 @@ def main(argv=None):
                                save_residuals=train)
               for train in (False, True)}
     k5b = check_th_bwd(rng, checks, 128, 196, 'th_attention_bwd')
-    # K6a and K6b: the blocked route's (cait_xxs_24 @224: D = 192, H = 4),
-    # and at L = 576
+    # K5a at cait_xxs_24 @224's (D = 192, H = 4: one 192-wide GEMM tile)
+    k5a_xxs = {train: check_k5a(rng, checks, 128 if train else args.batch,
+                                196, save_residuals=train, dim=192, heads=4)
+               for train in (False, True)}
+    # K6a and K6b, the blocked route's entries (K5a's core and K5b's
+    # launches), at cait_xxs's heads and at L = 576
     k6a = {train: check_k6a(rng, checks, 128 if train else args.batch, 196,
                             heads=4) for train in (False, True)}
     k6a576 = {train: check_k6a(rng, checks, 48 if train else args.batch, 576)
               for train in (False, True)}
     k6b = check_th_bwd(rng, checks, 128, 196, 'th_core_bwd', heads=4)
     k6b576 = check_th_bwd(rng, checks, 48, 576, 'th_core_bwd')
-    # cait_xxs's four heads (K6 at every length), both entries
+    # cait_xxs's four heads through both backward entries
     check_th_bwd(rng, checks, 8, 577, 'th_core_bwd', heads=4, timed=False)
-    check_th_bwd(rng, checks, 16, 196, 'th_attention_bwd', heads=4,
-                 timed=False)
+    k5b_xxs = check_th_bwd(rng, checks, 128, 196, 'th_attention_bwd',
+                           heads=4)
     for seq in (196, 197, 576, 577):
         check_th_tails(rng, checks, seq)
     k5a_serve = serve_path(checks, 'CaiT-S/24 @224 auto', 224, 'auto',
@@ -2880,8 +3051,8 @@ def main(argv=None):
     k5a_serve384 = serve_path(checks, 'CaiT-S/24 @384 auto', 384, 'auto',
                               {'th_attention_fwd': 24}, args.seed, args.batch,
                               args.profile, model_name='cait_s_24')
-    k6a_serve = serve_path(checks, 'cait_xxs_24 @224 auto', 224, 'auto',
-                           {'th_core_fwd': 24}, args.seed, args.batch,
+    xxs_serve = serve_path(checks, 'cait_xxs_24 @224 auto', 224, 'auto',
+                           {'th_attention_fwd': 24}, args.seed, args.batch,
                            args.profile, model_name='cait_xxs_24')
     c224 = train_path(checks, 'train CaiT-S/24 @224 bs128', 224, 128,
                       {'th_attention_fwd_train': 24, 'th_attention_bwd': 24},
@@ -2892,7 +3063,8 @@ def main(argv=None):
                       args.seed, profile=args.profile, model_name='cait_s_24',
                       plain_core='fused_th_xla')
     cxxs = train_path(checks, 'train cait_xxs_24 @224 bs128', 224, 128,
-                      {'th_core_fwd': 24, 'th_core_bwd': 24}, args.seed,
+                      {'th_attention_fwd_train': 24, 'th_attention_bwd': 24},
+                      args.seed,
                       profile=args.profile, model_name='cait_xxs_24',
                       plain_core='fused_th_xla')
 
@@ -3193,6 +3365,73 @@ def main(argv=None):
     print(f'  the CaiT-M phase took {time.perf_counter() - t_m:.1f} s',
           flush=True)
 
+    # CaiT-XS (slice 12): the TH kernels at H = 6 (cait_xs's 6 heads of 48,
+    # D = 288: 4.5 boxes of 64 columns, read as 5) at cait_xs_24 @224's
+    # shapes (L = 196: serving B = 32, training B = 128) and L = 576, the
+    # int8 FF kernels at D = 288, F = 1152 (a 32-wide last tile), each
+    # output's last 32 columns also on their own, ragged lengths and rows
+    # on NaN sentinels, K11's codes bit for bit; K5a (its LN and its
+    # projection GEMMs at a ragged last tile and step around the core) at
+    # @224's serving and training shapes and L = 576; then the paths:
+    # serving cait_xs_24 @224 bs32 (24 K5a a forward), training it bs128
+    # (24 K5a-train + 24 K5b a step), serving it quantized='all' bs32 (24
+    # K11 + 24 K12) and training it 'ff_sb' bs128 (+ 24 K12-train + 24
+    # K14), then the blocked route's own path. cait_xs_24 @384 (K5 at L =
+    # 576) runs in the sweep above.
+    t_xs = time.perf_counter()
+    k5a_xs = {train: check_k5a(rng, checks, 128 if train else args.batch, 196,
+                               save_residuals=train, dim=288, heads=6)
+              for train in (False, True)}
+    k5a_xs576 = check_k5a(rng, checks, args.batch, 576, False, dim=288,
+                          heads=6)
+    k6a_xs = {(b, seq): check_k6a(rng, checks, b, seq, heads=6)
+              for b, seq in ((args.batch, 196), (128, 196), (args.batch, 576))}
+    k6b_xs = check_th_bwd(rng, checks, 128, 196, 'th_core_bwd', heads=6)
+    k5b_xs = check_th_bwd(rng, checks, 128, 196, 'th_attention_bwd', heads=6)
+    for seq in (197, 577):
+        check_th_tails(rng, checks, seq, heads=6)
+    k11_xs = check_k11(rng, checks, args.batch, 196, 288, 6)
+    check_k11_codes(rng, checks, args.batch, 196, 288, 6)
+    check_k11_codes(rng, checks, 2, 197, 288, 6)
+    kept = check_k11_sentinels(rng, checks, 3, (197, 250), 288, 6)
+    k12_xs = {hp: check_int8_ff(rng, checks, (128 if hp else args.batch) * 196,
+                                False, hp, 288, 1152) for hp in (False, True)}
+    k13_xs = check_int8_ff(rng, checks, args.batch * 196, True, False, 288,
+                           1152)
+    k14_xs = check_k14(rng, checks, 128 * 196, 288, 1152)
+    kept += check_ff_sentinels_at(rng, checks, 1003, 288, 1152)
+    untouched = all(bool(torch.isnan(t).all()) for t in kept)
+    checks.expect(untouched, f'K11, K12, K13, K14 at D = 288 into sentinel '
+                             f'buffers: rows past B*L or M untouched '
+                             f'{untouched}')
+    print(f'  CaiT-XS kernel checks took {time.perf_counter() - t_xs:.1f} s',
+          flush=True)
+    xs_serve = serve_path(checks, 'cait_xs_24 @224 auto', 224, 'auto',
+                          {'th_attention_fwd': 24}, args.seed, args.batch,
+                          args.profile, model_name='cait_xs_24')
+    xs_train = train_path(checks, 'train cait_xs_24 @224 bs128', 224, 128,
+                          {'th_attention_fwd_train': 24,
+                           'th_attention_bwd': 24}, args.seed,
+                          profile=args.profile, model_name='cait_xs_24',
+                          plain_core='fused_th_xla')
+    xs_q = serve_path(checks, 'cait_xs_24 @224 quantized=all', 224, 'auto',
+                      {'th_attention_q8': 24, 'int8_ff': 24}, args.seed,
+                      args.batch, args.profile, model_name='cait_xs_24',
+                      quantized='all')
+    xs_sb = train_path(checks, 'train cait_xs_24 @224 bs128 quantized=ff_sb',
+                       224, 128, {'th_attention_fwd_train': 24,
+                                  'th_attention_bwd': 24,
+                                  'int8_ff_train': 24, 'int8_ff_dx': 24},
+                       args.seed, profile=args.profile,
+                       model_name='cait_xs_24', plain_core=INT8_PLAIN,
+                       quantized='ff_sb')
+    # the blocked route's own path (K6a and K6b through their entries):
+    # 24 sublayers at cait_xs_24 @224 bs128's shapes
+    k6_path = blocked_path(checks, 'blocked route, 24 sublayers at cait_xs '
+                           '@224 bs128', 128, 196, 6, 24, args.seed)
+    print(f'  the CaiT-XS phase took {time.perf_counter() - t_xs:.1f} s',
+          flush=True)
+
     def cvt_fields(prefix, recs, keys=('ms', 'bound_ms', 'bound_by',
                                        'plain_ms', 'library_ms')):
         """CvT's per-stage records (cvt-13 @224's stages 1-3) under
@@ -3214,12 +3453,15 @@ def main(argv=None):
                     replaces=f'sav_tpu/ops/th_attention.py:{replaces}',
                     launches=launches, **rec, **extra)
 
-    def h16(prefix, launches, rec, train_launches=None, train=None):
-        """A TH kernel at H = 16 under ``prefix``_*: its launches on the
-        cait_m path (a forward or a step, read from that path's counts: 0
-        where the path reaches the same kernel through another entry) and
-        ``rec`` at the path's shape; ``train``, the training shape's
-        record, under ``prefix``_train_*."""
+    def heads_fields(prefix, launches, rec, train_launches=None, train=None,
+                     **extra):
+        """A kernel at another model's head count or width (cait_m's H =
+        16, cait_xs's H = 6 / D = 288, cait_xxs's H = 4 / D = 192) under
+        ``prefix``_*: its launches on that model's path (a forward or a
+        step, read from that path's counts: 0 where the path reaches the
+        same kernel through another entry), ``rec`` at the path's shape,
+        ``train`` (the training shape's record) under ``prefix``_train_*,
+        and ``extra`` (e.g. the instantiation's ptxas line) as given."""
         keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                 'max_abs_err')
         out = {f'{prefix}_launches': launches,
@@ -3227,6 +3469,7 @@ def main(argv=None):
         if train is not None:
             out[f'{prefix}_train_launches'] = train_launches
             out.update({f'{prefix}_train_{k}': train[k] for k in keys})
+        out.update({f'{prefix}_{k}': v for k, v in extra.items()})
         return out
 
     def nores(train, launches):
@@ -3351,7 +3594,9 @@ def main(argv=None):
                              'library_ms', 'pair_ms', 'pair_bound_ms')))
           for n, line in (('dq', 363), ('dkv', 392))),
         # K5a: the serving launches and timing @224; its residual-writing
-        # variant (train @224) under train_*, @384 (L = 576) under l576_*
+        # variant (train @224) under train_*, @384 (L = 576) under l576_*,
+        # cait_m_48's H = 16 under m48_*, cait_xxs's D = 192 under xxs_*,
+        # cait_xs's H = 6 / D = 288 (ragged GEMM tiles) under h6_*
         th_entry('th_attention_fwd', 158,
                  k5a_serve.get('th_attention_fwd', 0), k5a[False], k5a[True],
                  train_launches=c224.get('th_attention_fwd_train', 0),
@@ -3361,26 +3606,62 @@ def main(argv=None):
                  l576_train_ms=k5a384[True]['ms'],
                  l576_bound_ms=k5a384[False]['bound_ms'],
                  l576_train_bound_ms=k5a384[True]['bound_ms'],
-                 **h16('m48', m_serve.get('th_attention_fwd', 0), k5a_m[False],
-                       m_train.get('th_attention_fwd_train', 0),
-                       k5a_m[True])),
+                 **heads_fields('m48', m_serve.get('th_attention_fwd', 0),
+                                k5a_m[False],
+                                m_train.get('th_attention_fwd_train', 0),
+                                k5a_m[True]),
+                 **heads_fields('xxs', xxs_serve.get('th_attention_fwd', 0),
+                                k5a_xxs[False],
+                                cxxs.get('th_attention_fwd_train', 0),
+                                k5a_xxs[True]),
+                 **heads_fields('h6', xs_serve.get('th_attention_fwd', 0),
+                                k5a_xs[False],
+                                xs_train.get('th_attention_fwd_train', 0),
+                                k5a_xs[True], l576_ms=k5a_xs576['ms'],
+                                l576_bound_ms=k5a_xs576['bound_ms'])),
         th_entry('th_attention_bwd', 274, c224.get('th_attention_bwd', 0), k5b,
                  source='th_bwd.cu',
                  l576_launches=c384.get('th_attention_bwd', 0),
-                 **h16('m48', m_train.get('th_attention_bwd', 0), k5b_m)),
-        # K6a and K6b: the blocked route's launches and timing (cait_xxs_24
-        # @224), at L = 576 under l576_*
-        th_entry('th_core_fwd', 362, k6a_serve.get('th_core_fwd', 0),
-                 k6a[False], k6a[True], source='th_fwd_sm90.cuh',
-                 train_launches=cxxs.get('th_core_fwd', 0),
+                 **heads_fields('m48', m_train.get('th_attention_bwd', 0),
+                                k5b_m),
+                 **heads_fields('xxs', cxxs.get('th_attention_bwd', 0),
+                                k5b_xxs),
+                 **heads_fields('h6', xs_train.get('th_attention_bwd', 0),
+                                k5b_xs)),
+        # K6a and K6b, the blocked route's entries: no factory CaiT takes
+        # that route on the card (K5a's GEMMs take every CaiT width), so
+        # their launches are those of the route's own path (24 sublayers at
+        # cait_xs_24 @224 bs128's shapes, a forward and backward) and their
+        # top-level timing is at that shape (H = 6); core_* are the
+        # launches of the same kernels through K5a's and K5b's entries on
+        # the cait_xs training step; the cait_xxs paths' counts (0) and
+        # timing (H = 4) under xxs_*, H = 16 under h16_*, cait_xs serving's
+        # B = 32 and L = 576 under h6_*, H = 8 at L = 576 under l576_*
+        th_entry('th_core_fwd', 362, k6_path.get('th_core_fwd', 0),
+                 k6a_xs[(128, 196)], source='th_fwd_sm90.cuh',
+                 core_launches=xs_train.get('th_attention_fwd_train', 0),
                  l576_ms=k6a576[False]['ms'], l576_train_ms=k6a576[True]['ms'],
                  l576_bound_ms=k6a576[False]['bound_ms'],
-                 **h16('h16', m_serve.get('th_core_fwd', 0), k6a_m[False],
-                       m_train.get('th_core_fwd', 0), k6a_m[True])),
-        th_entry('th_core_bwd', 387, cxxs.get('th_core_bwd', 0), k6b,
-                 source='th_bwd.cu', l576_ms=k6b576['ms'],
-                 l576_bound_ms=k6b576['bound_ms'],
-                 **h16('h16', m_train.get('th_core_bwd', 0), k6b_m)),
+                 **heads_fields('xxs', xxs_serve.get('th_core_fwd', 0),
+                                k6a[False], cxxs.get('th_core_fwd', 0),
+                                k6a[True]),
+                 **heads_fields('h16', m_serve.get('th_core_fwd', 0),
+                                k6a_m[False], m_train.get('th_core_fwd', 0),
+                                k6a_m[True]),
+                 **heads_fields('h6', xs_serve.get('th_core_fwd', 0),
+                                k6a_xs[(args.batch, 196)],
+                                l576_ms=k6a_xs[(args.batch, 576)]['ms'],
+                                l576_bound_ms=k6a_xs[(args.batch,
+                                                      576)]['bound_ms'],
+                                ptxas=ptxas_of('th_attention',
+                                               'th_fwd_sm90_kernel', 6))),
+        th_entry('th_core_bwd', 387, k6_path.get('th_core_bwd', 0), k6b_xs,
+                 source='th_bwd.cu',
+                 core_launches=xs_train.get('th_attention_bwd', 0),
+                 l576_ms=k6b576['ms'], l576_bound_ms=k6b576['bound_ms'],
+                 **heads_fields('xxs', cxxs.get('th_core_bwd', 0), k6b),
+                 **heads_fields('h16', m_train.get('th_core_bwd', 0), k6b_m),
+                 h6_ptxas=ptxas_of('th_bwd', 'th_bwd_kernel', 6)),
         # K8a: Mixer-B/16 serving (B=32) launches and timing; the training
         # shape (B=192) under train_*
         dict(name='token_mix_fwd', route='cuda',
@@ -3451,7 +3732,8 @@ def main(argv=None):
              ff2_bound_by=k15_ff2['bound_by']),
         dict(name='int8_ff', route='cuda', source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:49',
-             launches=q_mix.get('int8_ff', 0), **k12[False]),
+             launches=q_mix.get('int8_ff', 0), **k12[False],
+             **heads_fields('h6', xs_q.get('int8_ff', 0), k12_xs[False])),
         dict(name='int8_ff_train', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:49',
@@ -3462,7 +3744,8 @@ def main(argv=None):
              cait_ms=k12_cait['ms'], cait_plain_ms=k12_cait['plain_ms'],
              cait_library_ms=k12_cait['library_ms'],
              cait_bound_ms=k12_cait['bound_ms'],
-             cait_bound_by=k12_cait['bound_by']),
+             cait_bound_by=k12_cait['bound_by'],
+             **heads_fields('h6', xs_sb.get('int8_ff_train', 0), k12_xs[True])),
         # K13 also at CvT-13's stage 3 (D = 384, B x 225 rows: bs32 serving,
         # bs64 training) under cvt_*, and at cvt-w24's (D = 1024, 16 x 625
         # rows) under w24_*
@@ -3472,7 +3755,8 @@ def main(argv=None):
              launches=q_ff.get('int8_ff_ln', 0), **k13[False],
              cvt_launches=cvt_q_serve.get('int8_ff_ln', 0),
              **{f'cvt_{k}': v for k, v in k13c[False].items()},
-             **{f'w24_{k}': v for k, v in k13w.items()}),
+             **{f'w24_{k}': v for k, v in k13w.items()},
+             **heads_fields('h6', xs_q.get('int8_ff_ln', 0), k13_xs)),
         dict(name='int8_ff_ln_train', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:211',
@@ -3497,7 +3781,10 @@ def main(argv=None):
              xxs_plain_ms=k11[(192, 4)]['plain_ms'],
              xxs_library_ms=k11[(192, 4)]['library_ms'],
              xxs_bound_ms=k11[(192, 4)]['bound_ms'],
-             **h16('m48', m_q.get('th_attention_q8', 0), k11_m)),
+             **heads_fields('m48', m_q.get('th_attention_q8', 0), k11_m),
+             **heads_fields('h6', xs_q.get('th_attention_q8', 0), k11_xs,
+                  entry_ms=k11_xs['entry_ms'],
+                  ptxas=ptxas_of('th_attention_q8', 'th_fwd_sm90_kernel', 6))),
         dict(name='int8_ff_dx', route='cuda',
              source='sav_tpu_torch/csrc/int8_ff.cu',
              replaces='sav_tpu/ops/int8_ff.py:378',
@@ -3509,7 +3796,8 @@ def main(argv=None):
              cait_plain_ms=k14[128 * 196]['plain_ms'],
              cait_library_ms=k14[128 * 196]['library_ms'],
              cait_bound_ms=k14[128 * 196]['bound_ms'],
-             cait_bound_by=k14[128 * 196]['bound_by']),
+             cait_bound_by=k14[128 * 196]['bound_by'],
+             **heads_fields('h6', xs_sb.get('int8_ff_dx', 0), k14_xs)),
     ]
     print(f'chip_smoke: {time.perf_counter() - t0:.1f} s in all', flush=True)
     if checks.failed:

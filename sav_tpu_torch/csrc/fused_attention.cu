@@ -79,7 +79,7 @@ extern "C" int sav_fused_attention_fwd(
 }
 
 // The projection GEMM's plan for an M x (parts x n_each) product on this
-// card: out[0] the tile width (0: none), out[1] its dynamic shared memory,
+// card: out[0] the tile width, out[1] its dynamic shared memory,
 // out[2] its units; mirrored by proj_plan in ops/fused_layer.py.
 extern "C" void sav_proj_plan(int m, int n_each, int parts, int sms,
                               int* out) {

@@ -23,8 +23,10 @@
 // and the weights' codes per IN row are [N][K]. A TMA box is a ring slot's
 // depth of codes (64 or 128, the swizzle of that width) x 128 rows; a
 // 32-deep step advances 32 bytes, as bf16's 16-deep one. Rows past M and depth past K arrive as zeros from
-// TMA's out-of-bounds fill; columns past N (D and F are multiples of 64)
-// are zeros too, and nothing past M or N is stored.
+// TMA's out-of-bounds fill; columns past N (D and F are multiples of 32:
+// cait_xs's D = 288 leaves DY a last tile of 32 columns, and ABSMAX and
+// CODES a last 64-deep slot of 32 codes) are zeros too, and nothing past
+// M or N is stored (DY's epilogue stops at N, loading no scale past it).
 //
 // Block: 20 warps, persistent, two teams. Team r (warps 8 r .. 8 r + 7,
 // two warpgroups) takes the units 2 (blockIdx.x + j gridDim.x) + r, each a

@@ -36,7 +36,12 @@
 //  6. OUT: hq W2q over 128 x 128 tiles, dequant + b2 (+ x for K13).
 // Every product is s8 wgmma m64n128k32 on TMA-fed rings, in persistent
 // blocks of two teams (int8_ff_sm90.cuh). Rows past M read as zeros and are
-// never stored. Any M >= 1, D and F multiples of 64.
+// never stored. Any M >= 1, D and F multiples of 32 (at least 64): a
+// ragged last tile of D or F (cait_xs's D = 288: the 128-wide OUT tiles
+// take 2.25, so 3, the last 32 columns wide; the 64-deep slots over D
+// 4.5, so 5) reads zeros past its edge from the tensor maps' extent and
+// stores nothing past it (TMA stores clip; the pointer epilogues stop at
+// N and load no scale or bias past it).
 #include "int8_dx_sm90.cuh"
 #include "int8_ff_sm90.cuh"
 
@@ -67,8 +72,11 @@
 
 namespace {
 
+// D and F multiples of 32 (cait_xs: 288 and 1152): the codes' rows stay
+// 16-byte aligned for TMA, whole words of four codes for the transpose,
+// and whole 8-column groups in the epilogues.
 bool bad_geometry(int m, int dim, int hidden) {
-  return m < 1 || dim < 64 || hidden < 64 || dim % 64 || hidden % 64;
+  return m < 1 || dim < 64 || hidden < 64 || dim % 32 || hidden % 32;
 }
 
 }  // namespace
@@ -78,9 +86,11 @@ bool bad_geometry(int m, int dim, int hidden) {
 // each), [3] units of ABSMAX and of CODES, [4] units of OUT, [5] 64-deep
 // stages of the first product and [6] 128-deep stages of the second, [7]
 // absmax partials a row, [8] dynamic shared memory, [9] workspace bytes,
-// [10] 1 where OUT runs in pair units (D / 128 even), else 0.
-// Returns 0, or cudaErrorInvalidValue for a geometry the kernels do not
-// take. Mirrored by int8_ff_plan in ops/int8_ff.py.
+// [10] 1 where OUT runs in pair units (ceil(D / 128) even), else 0, [11]
+// the 64 x 64 tiles of each weight's codes transpose (W1's [D, F] and
+// W2's [F, D] take as many). Returns 0, or cudaErrorInvalidValue for a
+// geometry the kernels do not take. Mirrored by int8_ff_plan in
+// ops/int8_ff.py.
 extern "C" int sav_int8_ff_plan(int m, int dim, int hidden, long long* out) {
   using namespace sav::q8ff;
   if (bad_geometry(m, dim, hidden)) return (int)cudaErrorInvalidValue;
@@ -99,6 +109,7 @@ extern "C" int sav_int8_ff_plan(int m, int dim, int hidden, long long* out) {
   out[8] = Plan::SMEM;
   out[9] = (long long)FFWorkspace(m, dim, hidden).total;
   out[10] = col_tiles(dim) % 2 == 0;
+  out[11] = transpose_tiles(dim, hidden);
   return 0;
 }
 
@@ -106,7 +117,7 @@ extern "C" int sav_int8_ff_plan(int m, int dim, int hidden, long long* out) {
 // out = x + FF(LN(x)); ln = 0: K12, out = FF(x)); w1 [D, F] int8 (W1's
 // codes per column), s1/b1 [F] f32; w2 [F, D] int8, s2/b2 [D] f32; out
 // [M, D] bf16; hpre [M, F] bf16 or null; ws the workspace of
-// sav_int8_ff_plan's out[9] bytes. Needs D % 64 == 0, F % 64 == 0.
+// sav_int8_ff_plan's out[9] bytes. Needs D % 32 == 0, F % 32 == 0.
 extern "C" int sav_int8_ff(const void* x, const float* ln_scale,
                            const float* ln_bias, const void* w1,
                            const float* s1, const float* b1, const void* w2,
@@ -150,7 +161,8 @@ extern "C" int sav_int8_ff(const void* x, const float* ln_scale,
     err = sav::sm90::band_map(&mh, hpre, 1, M, M, hidden, BM);
   if (err) return err;
 
-  transpose_codes_kernel<<<dim3(dim / 64 * (hidden / 64), 2), 256, 0, st>>>(
+  transpose_codes_kernel<<<dim3(transpose_tiles(dim, hidden), 2), 256, 0,
+                           st>>>(
       (const int8_t*)w1, (const int8_t*)w2, dim, hidden, w1t, w2t);
   if (ln)
     sav::q8::quantize_rows_kernel<true><<<(M + 7) / 8, 256, 0, st>>>(
@@ -205,7 +217,7 @@ extern "C" int sav_int8_ff_dx_plan(int m, int dim, int hidden,
 // K14. g [M, D] bf16; hpre [M, F] bf16; w2c [F, D] int8 with s2 [F] f32
 // (W2's codes per F row); w1c [D, F] int8 with s1 [D] f32 (W1's codes per
 // D row); dy [M, D] bf16; dh [M, F] bf16; ws the workspace of
-// sav_int8_ff_dx_plan's out[9] bytes. Needs D % 64 == 0, F % 64 == 0.
+// sav_int8_ff_dx_plan's out[9] bytes. Needs D % 32 == 0, F % 32 == 0.
 extern "C" int sav_int8_ff_dx(const void* g, const void* hpre, const void* w2c,
                               const float* s2, const void* w1c,
                               const float* s1, void* dy, void* dh, void* ws,

@@ -335,8 +335,11 @@ ff_gemm_kernel(const __grid_constant__ CUtensorMap ma,
 }
 
 // out[c][r] = in[r][c] for int8 [rows, cols] matrices, rows and cols
-// multiples of 64: blockIdx.y picks W1's codes [D, F] or W2's [F, D], each
-// block one 64 x 64 tile, in and out in words of four codes.
+// multiples of 4: blockIdx.y picks W1's codes [D, F] or W2's [F, D], each
+// block one 64 x 64 tile, in and out in words of four codes. At a width
+// that is not a multiple of 64 (cait_xs's D = 288: 4.5 tiles) the last
+// tile of a side is ragged: the words past it are neither read nor
+// written (the GEMMs read zeros there from their tensor maps' extent).
 __global__ void __launch_bounds__(256)
 transpose_codes_kernel(const int8_t* __restrict__ w1,
                        const int8_t* __restrict__ w2, int dim, int hidden,
@@ -346,18 +349,23 @@ transpose_codes_kernel(const int8_t* __restrict__ w1,
   const int8_t* in = second ? w2 : w1;
   int8_t* out = second ? w2t : w1t;
   const int rows = second ? hidden : dim, cols = second ? dim : hidden;
-  const int r0 = blockIdx.x / (cols / 64) * 64, c0 = blockIdx.x % (cols / 64) * 64;
+  const int ct = (cols + 63) / 64;
+  const int r0 = blockIdx.x / ct * 64, c0 = blockIdx.x % ct * 64;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool col_in = c0 + 4 * tx < cols;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    tile[r][tx] = *reinterpret_cast<const uint32_t*>(
-        in + (size_t)(r0 + r) * cols + c0 + 4 * tx);
+    if (col_in && r0 + r < rows)
+      tile[r][tx] = *reinterpret_cast<const uint32_t*>(
+          in + (size_t)(r0 + r) * cols + c0 + 4 * tx);
   }
   __syncthreads();
+  if (r0 + 4 * tx >= rows) return;        // out's codes r0 + 4 tx ..
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = ty + 16 * i;            // the tile's column: out's row
+    if (c0 + c >= cols) break;
     uint32_t v = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)

@@ -137,6 +137,13 @@ inline int codes_map(CUtensorMap* map, const void* base, int rows, int width,
 
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
+// The 64 x 64 tiles that cover a [rows, cols] matrix, a ceiling at each
+// side: the blocks of a codes transpose (K10's, K11's, K12's, K13's and
+// K15's weights).
+__host__ __device__ __forceinline__ int transpose_tiles(int rows, int cols) {
+  return (rows + 63) / 64 * ((cols + 63) / 64);
+}
+
 // The scratch of one call, carved from one workspace in this order: the
 // first product's A codes [M, D] and their row scales [M], the absmax
 // partials [M, parts(F)], the hidden codes' row scales [M] and the hidden

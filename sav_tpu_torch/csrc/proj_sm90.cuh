@@ -22,7 +22,13 @@
 // row-major are MN-major, read by the descriptor's transpose bit from boxes
 // of 64 depth rows x 64 columns (sm90.cuh), so nothing is transposed or
 // copied. Rows past M arrive as zeros from TMA's out-of-bounds fill and
-// are never stored; nothing is padded.
+// are never stored; nothing is padded. The same holds at widths and
+// depths that are not whole tiles (multiples of 32 such as cait_xs's
+// 288, K5a's): the last column tile and the last 64-deep step are ragged,
+// counted by ceiling; the columns and depth past the edge arrive as TMA's
+// zeros (the expected bytes stay whole boxes), their products add zero,
+// and the stores (TMA's, clipped at the width) and the residual's loads
+// stop at the edge.
 //
 // Block: 384 threads. A unit is a 128 x BN output tile (BN = 256, 192 or
 // 128 from plan_bn, which never lets a tile straddle two weights); the
@@ -160,25 +166,37 @@ __host__ __device__ inline int smem_of(int bn) {
        : bn == 128 ? Plan<128>::SMEM : 0;
 }
 
+// Column tiles of one weight: a ceiling, the last one ragged where bn
+// does not divide n_each.
+__host__ __device__ inline int tiles_of(int n_each, int bn) {
+  return (n_each + bn - 1) / bn;
+}
+
 __host__ __device__ inline int units_of(int m, int n_each, int parts,
                                         int bn) {
-  return (m + BM - 1) / BM * parts * (n_each / bn);
+  return (m + BM - 1) / BM * parts * tiles_of(n_each, bn);
+}
+
+// Whether a tile of 256, 192 or 128 columns divides n_each: multiples of
+// 128, and 192, 576, ... of 192.
+__host__ __device__ inline bool whole(int n_each) {
+  return n_each % 128 == 0 || n_each % 192 == 0;
 }
 
 // The tile width of an M x (parts x n_each) product: of BN = 256, 192 and
-// 128, those dividing n_each (a tile never straddles two weights), the one
-// whose estimated time is least: ceil(units / SMs) rounds of a unit costing
-// BN + OVERHEAD columns' worth (its stores and the ring's refill beside
-// its products). Ties go to the wider tile, which reads fewer operand
-// bytes from L2 a product. 0 when none divides n_each. Mirrored by
-// proj_plan in ops/fused_layer.py.
+// 128, those dividing n_each (a tile never straddles two weights), or all
+// three with a ragged last tile where none divides it, the one whose
+// estimated time is least: ceil(units / SMs) rounds of a unit costing BN +
+// OVERHEAD columns' worth (its stores and the ring's refill beside its
+// products). Ties go to the wider tile, which reads fewer operand bytes
+// from L2 a product. Mirrored by proj_plan in ops/fused_layer.py.
 __host__ __device__ inline int plan_bn(int m, int n_each, int parts,
                                        int sms) {
   const int slots = sms > 0 ? sms : 1;
   int best = 0;
   long long best_cost = 0;
   for (int bn = 256; bn >= 128; bn -= 64) {
-    if (n_each % bn) continue;
+    if (n_each % bn && whole(n_each)) continue;
     const long long rounds =
         (units_of(m, n_each, parts, bn) + slots - 1) / slots;
     const long long cost = rounds * (bn + OVERHEAD);
@@ -190,15 +208,21 @@ __host__ __device__ inline int plan_bn(int m, int n_each, int parts,
   return best;
 }
 
-// Whether the GEMM takes an output width n_each and a depth k: a tile of
-// 256, 192 or 128 columns divides n_each (plan_bn finds one: multiples of
-// 128, and 192, 576, ... of 192) and k is whole 64-deep steps. The
-// widths of every model the port runs but D = 192 (ceit_t, vit_ti,
-// cait_xxs) are multiples of 128; at D = 192 the whole width is one
-// 192-column tile and the depth three steps.
+// Whether the output width n_each and the depth k are whole tiles: a tile
+// of 256, 192 or 128 columns divides n_each and k is whole 64-deep steps.
+// K1's guard (fused_attention.cu), whose attention kernel takes the same
+// widths. The widths of every model the port runs but D = 192 (ceit_t,
+// vit_ti, cait_xxs) and 288 (cait_xs) are multiples of 128; at D = 192
+// the whole width is one 192-column tile and the depth three steps.
 __host__ __device__ inline bool takes(int n_each, int k) {
-  return k >= BK && k % BK == 0 && n_each > 0
-         && (n_each % 128 == 0 || n_each % 192 == 0);
+  return k >= BK && k % BK == 0 && n_each > 0 && whole(n_each);
+}
+
+// Whether the GEMM takes n_each and k at all: multiples of 32 (the ragged
+// last tile and step; K5a's guard, th_attention.cu). 32 keeps TMA's
+// 16-byte row pitch and is the int8 kernels' rule too.
+__host__ __device__ inline bool takes_ragged(int n_each, int k) {
+  return k >= 32 && k % 32 == 0 && n_each >= 32 && n_each % 32 == 0;
 }
 
 // d += A B over one 16-deep step, 64 x N: A [64 x 16] K-major in shared
@@ -346,10 +370,10 @@ proj_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
   unsigned char* base = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + P::OFF_BAR);
   uint64_t* empty = full + STAGES;
-  const int per = args.n_each / BN;         // tiles of one weight
+  const int per = tiles_of(args.n_each, BN);  // tiles of one weight
   const int nt = args.parts * per;          // column tiles of a row tile
   const int units = (args.m + BM - 1) / BM * nt;
-  const int nk = args.k / BK;
+  const int nk = (args.k + BK - 1) / BK;    // the last step may be ragged
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -437,7 +461,9 @@ proj_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
                            : nullptr;
       // half the row's pairs of resid loaded before any is used: one
       // memory latency a half row, not one a pair (a whole row's would
-      // spill beside the 128 accumulators)
+      // spill beside the 128 accumulators); none past the width (a ragged
+      // last tile: n_each is a multiple of 32, so a pair is wholly in or
+      // out)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         constexpr int NI = BN / 16;
@@ -445,8 +471,10 @@ proj_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
         if (add) {
 #pragma unroll
           for (int i = 0; i < NI; ++i)
-            x2[i] = *reinterpret_cast<const __nv_bfloat162*>(
-                xr + 8 * (NI * h + i));
+            x2[i] = col0 + 8 * (NI * h + i) < args.n_each
+                        ? *reinterpret_cast<const __nv_bfloat162*>(
+                              xr + 8 * (NI * h + i))
+                        : __float2bfloat162_rn(0.f);
         }
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
@@ -468,7 +496,9 @@ proj_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
     if (leader && row0 < args.m) {
 #pragma unroll
       for (int c = 0; c < BN / 64; ++c)
-        tma_store_3d(&maps.o[which], stg + c * BOX, col0 + 64 * c, row0, 0);
+        if (col0 + 64 * c < args.n_each)   // a box past a ragged edge: none
+          tma_store_3d(&maps.o[which], stg + c * BOX, col0 + 64 * c, row0,
+                       0);
       bulk_commit();
     }
   }
@@ -509,12 +539,12 @@ cudaError_t launch(const Maps& maps, const Args& args, int sms,
 
 // C_p[M, n_each] = A[M, K] @ W_p[K, n_each] for the `parts` weights (QKV:
 // 3, c0 scaled by q_scale; OUT: 1, + resid when not null). Needs
-// takes(n_each, k); any M >= 1. Returns 0 or a cudaError_t.
+// takes_ragged(n_each, k); any M >= 1. Returns 0 or a cudaError_t.
 template <int MODE>
 int run(const void* a, const void* const (&w)[3], void* const (&c)[3],
         const void* resid, int m, int k, int n_each, int parts,
         float q_scale, cudaStream_t st) {
-  if (m < 1 || !takes(n_each, k) || parts < 1 || parts > 3)
+  if (m < 1 || !takes_ragged(n_each, k) || parts < 1 || parts > 3)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);

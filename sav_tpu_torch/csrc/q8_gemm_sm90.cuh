@@ -27,16 +27,18 @@
 // epilogue, and each warpgroup's TMA store runs under the next unit's
 // products (the staging tile is reused once bulk_wait_read has returned).
 //
-// Rings: K11's QKV and OUT contract over D or H*48, multiples of 64: six
-// slots of 64-code-deep boxes (64-byte swizzle), so cait_xxs's D = 192
-// takes three steps and no padded one; K10's over D or H*64, multiples of
-// 128: four slots of 128-code-deep boxes (128-byte swizzle; half the slots
-// a unit, 0.0086 ms off K10 at ViT-B bs32: scripts/torch_ablate.py k10,
-// deep). BLOCK: four slots of 128-code-deep boxes, two a k-block, always
-// both (a box past K arrives as zeros), so no product is issued under a
-// condition and no commit group stays in flight across a loop's back edge. BN = 64 for K11 (H*48 and D
-// are multiples of 64: tiles never straddle two outputs and none is
-// padded), 128 for K15.
+// Rings: K11's QKV and OUT contract over D or H*48: six slots of
+// 64-code-deep boxes (64-byte swizzle), so cait_xxs's D = 192 takes three
+// steps and no padded one, and cait_xs's 288 five, the last half zeros;
+// K10's over D or H*64, multiples of 128: four slots of 128-code-deep
+// boxes (128-byte swizzle; half the slots a unit, 0.0086 ms off K10 at
+// ViT-B bs32: scripts/torch_ablate.py k10, deep). BLOCK: four slots of
+// 128-code-deep boxes, two a k-block, always both (a box past K arrives
+// as zeros), so no product is issued under a condition and no commit
+// group stays in flight across a loop's back edge. BN = 64 for K11 (each
+// of q, k and v its own tiles, so none straddles two outputs; at
+// cait_xs's 288 the last of each is 32 columns wide, col_tile), 128 for
+// K15.
 //
 // Rows past M read zeros (TMA's out-of-bounds fill) and are not stored
 // (the TMA store clips them), nor are columns past N; a ragged last
@@ -51,6 +53,7 @@ namespace q8g {
 
 using namespace sm90;
 using q8::dequant;
+using q8w::transpose_tiles;
 using q8w::wait;
 
 enum Mode { QKV = 0, OUT = 1, BLOCK = 2 };
@@ -107,18 +110,35 @@ struct Maps {
 template <int BN>
 __host__ __device__ __forceinline__ int col_tiles(int mode, int n,
                                                   int n_each) {
-  return mode == QKV ? 3 * (n_each / BN) : (n + BN - 1) / BN;
+  return mode == QKV ? 3 * ((n_each + BN - 1) / BN) : (n + BN - 1) / BN;
+}
+
+// Column tile ct of a unit: its output (which), its first column there
+// (ocol0) and its first row of B (bcol). QKV: each output its own
+// ceil(n_each / BN) tiles, so none straddles two; where n_each is not a
+// multiple of BN (cait_xs: 288) the last tile's columns past n_each read
+// the next output's B rows (or zeros past the last), and its epilogue
+// neither scales nor stores them.
+template <int BN>
+__host__ __device__ __forceinline__ void col_tile(int mode, int n_each, int ct,
+                                                  int& which, int& ocol0,
+                                                  int& bcol) {
+  const int per = mode == QKV ? (n_each + BN - 1) / BN : 1 << 30;
+  which = ct / per;
+  ocol0 = (ct - which * per) * BN;
+  bcol = which * n_each + ocol0;
 }
 
 __host__ __device__ __forceinline__ int row_tiles(int m) {
   return (m + BM - 1) / BM;
 }
 
-// Ring slots a unit takes: QKV, OUT k / bk (the slots' depth); BLOCK two
-// a k-block.
+// Ring slots a unit takes: QKV, OUT ceil(k / bk) (the slots' depth; a
+// ragged last slot reads zeros past k from the tensor maps' extent);
+// BLOCK two a k-block.
 __host__ __device__ __forceinline__ int stages_of(int mode, int k, int kb,
                                                   int bk = 64) {
-  return mode == BLOCK ? 2 * kb : k / bk;
+  return mode == BLOCK ? 2 * kb : (k + bk - 1) / bk;
 }
 
 // d (+)= A B^T over one 32-deep step of int8 codes, 64 x N, A [64 x 32]
@@ -226,7 +246,9 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
     if (tid != CONSUMERS) return;          // one thread issues every load
     int step = 0;
     for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
-      const int row0 = (u / nt) * BM, col0 = (u % nt) * BN;
+      const int row0 = (u / nt) * BM;
+      int which, col0, bcol;
+      col_tile<BN>(MODE, args.n_each, u % nt, which, col0, bcol);
       if (has_x) {                         // the unit's x, for its epilogue
         const int xs = n & 1;
         mbar_wait(&xempty[xs], ((n >> 1) & 1) ^ 1);
@@ -243,7 +265,7 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
         unsigned char* st = base + s * P::STAGE_BYTES;
         mbar_arrive_expect_tx(&full[s], P::STAGE_BYTES);
         tma_load_3d(st, &maps.a, &full[s], k * BK, row0, 0);
-        tma_load_3d(st + P::A_BYTES, &maps.b, &full[s], k * BK, col0, 0);
+        tma_load_3d(st + P::A_BYTES, &maps.b, &full[s], k * BK, bcol, 0);
       }
     }
     return;
@@ -261,7 +283,8 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
   int step = 0;
   for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
     const int row0 = (u / nt) * BM + 64 * wg;   // this warpgroup's rows
-    const int col0 = (u % nt) * BN;
+    int which, ocol0, bcol;
+    col_tile<BN>(MODE, args.n_each, u % nt, which, ocol0, bcol);
     int acc[BN / 2];
     float facc[MODE == BLOCK ? BN / 2 : 1];
     if constexpr (MODE == BLOCK) {
@@ -317,11 +340,6 @@ q8_gemm_kernel(const __grid_constant__ Maps maps, Args args) {
     // epilogue into the warpgroup's staging tile, TMA's swizzled layout
     // (box c / 64; the 16-byte chunk of row r at chunk ^ (r % 8): the 8
     // rows of a store hit 8 different chunks), then one TMA store a box
-    int which = 0, ocol0 = col0;
-    if (MODE == QKV) {
-      which = col0 / args.n_each;
-      ocol0 = col0 - which * args.n_each;
-    }
     const float* cs = which == 0 ? args.cs[0]
                                  : which == 1 ? args.cs[1] : args.cs[2];
     const float qs = MODE == QKV && which == 0 ? args.q_scale : 1.f;
@@ -472,10 +490,6 @@ struct Transposes {
   int8_t* out[4];
   int rows[4], cols[4], ld[4];
 };
-
-__host__ __device__ __forceinline__ int transpose_tiles(int cols, int ld) {
-  return (ld + 63) / 64 * ((cols + 63) / 64);
-}
 
 // Tile `tile` of matrix z, by a whole block of 256 threads through `buf`.
 __device__ __forceinline__ void transpose_tile(const Transposes& p, int z,

@@ -42,7 +42,8 @@
 //    before the skip connection; K1's launches too) around the core.
 //
 // At H = 16 (cait_m) the core accumulates its heads in two groups of 8
-// (th_fwd_sm90.cuh's header says why and what it costs).
+// (th_fwd_sm90.cuh's header says why and what it costs); at H = 6 (cait_xs)
+// its band is 4.5 boxes of 64 columns, read as 5 (the same header).
 //
 // Bound on the card: per (image, head, query, key) the forward does 192
 // tensor-core operations (q k^T and P V at d = 48) and 4H scalar
@@ -64,6 +65,7 @@
 extern "C" int sav_th_core_fwd_smem(int heads) {
   using namespace sav::thf;
   if (heads == 4) return Plan<4>::SMEM;
+  if (heads == 6) return Plan<6>::SMEM;
   if (heads == 8) return Plan<8>::SMEM;
   if (heads == 16) return Plan<16>::SMEM;
   return 0;
@@ -77,6 +79,8 @@ extern "C" int sav_th_core_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (heads == 4)
     return sav::thf::run<4>(q, k, v, mix, attn, lse, batch, seq, st);
+  if (heads == 6)
+    return sav::thf::run<6>(q, k, v, mix, attn, lse, batch, seq, st);
   if (heads == 8)
     return sav::thf::run<8>(q, k, v, mix, attn, lse, batch, seq, st);
   if (heads == 16)
@@ -87,8 +91,9 @@ extern "C" int sav_th_core_fwd(const void* q, const void* k, const void* v,
 // K5a. x [B, L, D]; ln_scale/ln_bias [D] f32; wq/wk/wv [D, H*48], wo
 // [H*48, D]; mix [3, H, H] f32 as for K6a; y [B*L, D] and q/k/v/attn [B,
 // L, H*48] scratch; out [B, L, D]; lse [B, H, L] f32 or null (inference).
-// Needs D % 128 == 0 and H*48 % 128 == 0 (whole GEMM tiles), H = 4, 8 or
-// 16.
+// Needs D and H*48 to be multiples of 32 (proj::takes_ragged: cait_xxs's
+// 192 is one whole 192-wide tile, cait_xs's 288 ends in a ragged tile and
+// a ragged 64-deep step) and H = 4, 6, 8 or 16.
 extern "C" int sav_th_attention_fwd(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo,
@@ -98,7 +103,8 @@ extern "C" int sav_th_attention_fwd(
   using namespace sav;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = batch * seq, hd = heads * thb::TD;
-  if (dim % 128 || hd % 128 || (heads != 4 && heads != 8 && heads != 16))
+  if (!proj::takes_ragged(hd, dim) || !proj::takes_ragged(dim, hd)
+      || (heads != 4 && heads != 6 && heads != 8 && heads != 16))
     return (int)cudaErrorInvalidValue;
   int err = (int)layernorm(x, ln_scale, ln_bias, y, M, dim, eps, st);
   if (err != 0) return err;
@@ -108,6 +114,7 @@ extern "C" int sav_th_attention_fwd(
                              st);
   if (err != 0) return err;
   err = heads == 4 ? thf::run<4>(qs, ks, vs, mix, attn, lse, batch, seq, st)
+        : heads == 6 ? thf::run<6>(qs, ks, vs, mix, attn, lse, batch, seq, st)
         : heads == 8 ? thf::run<8>(qs, ks, vs, mix, attn, lse, batch, seq, st)
         : thf::run<16>(qs, ks, vs, mix, attn, lse, batch, seq, st);
   if (err != 0) return err;

@@ -49,14 +49,19 @@
 
 namespace {
 
+// D a multiple of 32: the codes' rows stay 16-byte aligned for TMA.
 bool bad_geometry(int batch, int seq, int dim, int heads) {
-  return batch < 1 || seq < 1 || dim < 64 || dim % 64
-         || (heads != 4 && heads != 8 && heads != 16);
+  return batch < 1 || seq < 1 || dim < 64 || dim % 32
+         || (heads != 4 && heads != 6 && heads != 8 && heads != 16);
 }
 
-// The projections' column tile: 64 divides H*48 and D at every CaiT width
-// (cait_xxs's 192 too), so one tile serves them all (128-wide tiles at
-// CaiT-S: `scripts/torch_ablate.py k11`, tiles128).
+// The projections' column tile: 64 divides H*48 and D at CaiT-S's,
+// cait_xxs's and cait_m's widths, so one tile serves them all (128-wide
+// tiles at CaiT-S: `scripts/torch_ablate.py k11`, tiles128). cait_xs's
+// 288 is 4.5 tiles: q, k and v take 5 each, the last one's columns past
+// 288 computed (from the next output's weight rows, or zeros) but neither
+// scaled nor stored, and each contraction 5 slots, the last half zeros
+// (q8_gemm_sm90.cuh).
 constexpr int TILE = 64;
 
 // The scratch of one call, 256-byte aligned regions in this order: y's
@@ -106,6 +111,7 @@ extern "C" int sav_th_q8_plan(int batch, int seq, int dim, int heads,
   out[7] = Plan<QKV, TILE>::SMEM;
   out[8] = Plan<OUT, TILE>::SMEM;
   out[9] = heads == 4   ? sav::thf::CodesPlan<4>::SMEM
+            : heads == 6 ? sav::thf::CodesPlan<6>::SMEM
             : heads == 8 ? sav::thf::CodesPlan<8>::SMEM
                          : sav::thf::CodesPlan<16>::SMEM;
   out[10] = (long long)(seq + sav::thb::ROWS - 1) / sav::thb::ROWS * batch;
@@ -119,7 +125,7 @@ extern "C" int sav_th_q8_plan(int batch, int seq, int dim, int heads,
 // [H*48, D] int8 codes (per output column) with column scales sq/sk/sv
 // [H*48] and so [D] f32; mix [3, H, H] f32 (M_pre, M_pre * log2 e,
 // M_post); ws the workspace of sav_th_q8_plan's out[11] bytes; out [B, L,
-// D] bf16; residual 1 adds x. Needs H in {4, 8, 16} and D % 64 == 0.
+// D] bf16; residual 1 adds x. Needs H in {4, 6, 8, 16} and D % 32 == 0.
 extern "C" int sav_th_attention_q8(
     const void* x, const float* ln_scale, const float* ln_bias,
     const void* wq, const void* wk, const void* wv, const void* wo,
@@ -168,6 +174,7 @@ extern "C" int sav_th_attention_q8(
   if (err) return err;
 
   auto core = heads == 4   ? sav::thf::run_q8<4>
+              : heads == 6 ? sav::thf::run_q8<6>
               : heads == 8 ? sav::thf::run_q8<8>
                            : sav::thf::run_q8<16>;
   err = core(at(kQ), at(kK), at(kV), mix, at(kAq), (float*)at(kAs), batch,

@@ -74,9 +74,14 @@
 // aligned); the streamed operand the accumulate warpgroup reads MN-major is
 // loaded as one box per head at column 48h, so its 48 columns start the box
 // (the band's next 16 columns, or zeros past the last head, are never
-// read). Query rows past L read zeros with lse = +inf (so pn = 0); keys past
-// L read zeros and their pn is set to 0 after the pre-mix (a signed mix of
-// -inf would be NaN); nothing is padded and no row at or past L is written.
+// read). At H = 6 (cait_xs) the band's 288 columns are 4.5 boxes: the
+// bands are read as NB = 5 (a ceiling), the fifth box's 32 columns past
+// the band's width arriving as zeros from TMA's fill (the mbarriers count
+// whole boxes) and read by no product, as head 5's per-head box's 16
+// columns past 288 are not; 178,272 bytes at most (DQ). Query rows past
+// L read zeros with lse = +inf (so pn = 0); keys past L read zeros and
+// their pn is set to 0 after the pre-mix (a signed mix of -inf would be
+// NaN); nothing is padded and no row at or past L is written.
 // No float atomics: dq, dk, dv are written once, and dM_post (DV) and
 // dM_pre (DK) leave as [H, H] partials, one a warp of a work tile (warp
 // butterflies, fixed order), that the wrapper sums in a fixed order.
@@ -103,7 +108,7 @@ enum Mode { DQ = 0, DK = 1, DV = 2 };
 template <int H, int MODE>
 struct Plan {
   static constexpr int HD = H * TD;
-  static constexpr int NB = HD / 64;                   // 64-column boxes
+  static constexpr int NB = (HD + 63) / 64;            // 64-column boxes
   static constexpr int SWEEPS = MODE == DQ ? 2 : 1;
   static constexpr int OFF_STR0 = 2 * NB * BOX_RES * 2;  // two resident bands
   static constexpr int OFF_STR1 = OFF_STR0 + STAGES * NB * BOX_STR * 2;
@@ -677,6 +682,9 @@ extern "C" int sav_th_bwd_smem(int heads, int mode) {
   if (heads == 4)
     return mode == 0 ? Plan<4, DQ>::SMEM
                      : mode == 1 ? Plan<4, DK>::SMEM : Plan<4, DV>::SMEM;
+  if (heads == 6)
+    return mode == 0 ? Plan<6, DQ>::SMEM
+                     : mode == 1 ? Plan<6, DK>::SMEM : Plan<6, DV>::SMEM;
   if (heads == 8)
     return mode == 0 ? Plan<8, DQ>::SMEM
                      : mode == 1 ? Plan<8, DK>::SMEM : Plan<8, DV>::SMEM;
@@ -696,6 +704,9 @@ extern "C" int sav_th_core_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (heads == 4)
     return run<4>(q, k, v, dout, lse, mix, delta, dm, dq, dk, dv, batch, seq,
+                  st);
+  if (heads == 6)
+    return run<6>(q, k, v, dout, lse, mix, delta, dm, dq, dk, dv, batch, seq,
                   st);
   if (heads == 8)
     return run<8>(q, k, v, dout, lse, mix, delta, dm, dq, dk, dv, batch, seq,

@@ -58,6 +58,16 @@
 // its group, 2 sweeps against a tile's 3, on twice the SMs. At H <= 8,
 // G = H: one pass, the kernel as before.
 //
+// H = 6 (cait_xs): the band is 288 columns, 4.5 boxes of 64. q and k are
+// read in NB = 5 boxes (a ceiling): the fifth box's 32 columns past 288
+// arrive as zeros (the tensor map's extent is the band's width, and TMA
+// fills past it; the mbarriers still count whole boxes), and no product
+// reads them: head h's 16-deep steps lie at columns 48 h + 16 kk < 288.
+// Head 5's v box (columns 240-303) carries 16 such zero columns, which
+// m64n48k16 never reads. Every store writes 48 columns a head, so nothing
+// is written past the band. 156,784 bytes; the accumulation holds 6 x 24
+// registers.
+//
 // Q8 (K11, th_attention_q8.cu): the accumulate warpgroup's store takes the
 // codes of its rows instead of writing bf16 bands. It holds every head's 48
 // columns of its 64 rows, and K11 quantises a band row over exactly those
@@ -132,7 +142,7 @@ struct Plan {
   static constexpr int G = Geo<H>::G;
   static constexpr int STAGES = Geo<H>::STAGES;
   static constexpr int HD = H * TD;
-  static constexpr int NB = HD / 64;                   // 64-column boxes
+  static constexpr int NB = (HD + 63) / 64;            // 64-column boxes
   static constexpr int OFF_K = NB * BOX_RES * 2;       // after resident q
   static constexpr int OFF_V = OFF_K + STAGES * NB * BOX_STR * 2;
   static constexpr int OFF_EXCH = OFF_V + STAGES * G * BOX_STR * 2;

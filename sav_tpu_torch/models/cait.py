@@ -11,10 +11,11 @@ f32 position embedding promotes the residual stream to f32.
 
 ``use_kernel``: ``'auto'`` sends each body block's LN + talking-heads
 attention through ``ops.th_attention.th_attention_sublayer`` on the route
-``th_route`` picks on the card (K5 where K1's GEMMs take D, else K6;
-head counts the kernels are not built for raise there), and through the
-per-op path elsewhere; ``'fused_th'`` forces the span (K5 where it fits,
-else K6);
+``th_route`` picks on the card (K5 where its projection GEMMs take D,
+multiples of 32: every factory CaiT, cait_xs's 288 with a ragged last
+tile; else K6; every factory CaiT's head count, 4, 6, 8 or 16, is built,
+and another one raises there), and through the per-op path elsewhere;
+``'fused_th'`` forces the span (K5 where it fits, else K6);
 ``'fused_th_xla'`` is the span with the plain core (the yardstick of the
 kernels); ``False`` the per-op path. The 1-query class attention always
 takes the plain path, as in the JAX package.

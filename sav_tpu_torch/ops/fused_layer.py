@@ -116,34 +116,43 @@ def proj_takes(n_each: int, k: int) -> bool:
             and (n_each % 128 == 0 or n_each % 192 == 0))
 
 
+def proj_takes_ragged(n_each: int, k: int) -> bool:
+    """Whether the projection GEMM takes ``n_each`` and ``k`` at all
+    (``proj::takes_ragged``, K5a's guard): multiples of 32, the last column
+    tile and 64-deep step ragged where they are not whole (cait_xs's D =
+    H*48 = 288). ``proj_takes`` is the whole-tile subset K1 takes."""
+    return k >= 32 and k % 32 == 0 and n_each >= 32 and n_each % 32 == 0
+
+
 def proj_plan(m: int, n_each: int, parts: int, k: int, sms: int) -> dict:
     """Launch geometry of the projection GEMM of K1 and K5a (the QKV and
     out products, ``csrc/proj_sm90.cuh``), mirrored from its ``plan_bn``
     and ``Plan``: persistent units of 128 rows x ``bn`` columns of the M x
     (``parts`` x ``n_each``) output (``parts`` = 3 for q, k, v; 1 for the
     out product), ``bn`` the one of 256, 192 and 128 dividing ``n_each`` (a
-    tile never straddles two weights) whose estimated time is least:
-    ``rounds`` = ceil(units / sms) rounds of a unit costing ``bn`` + 48
-    columns' worth, ties to the wider tile. ``smem``: the kernel's dynamic
-    shared memory (a ring of ``stages`` slots, 3 at bn = 256 and else 4,
-    each a 128 x 64 box of A and bn / 64 boxes of 64 x 64 of the weight;
-    two 64 x bn bf16 staging tiles for the TMA stores; the mbarriers; 1024
-    bytes of alignment slack); ``steps``: 64-deep steps a unit. Raises
-    ValueError where ``proj_takes`` fails (no tile divides ``n_each``, or
-    ``k`` is not whole steps)."""
-    if not proj_takes(n_each, k):
-        raise ValueError(f'the projection GEMM needs N to be a multiple of '
-                         f'128 or of 192 and K of {PROJ_STEP}, got N={n_each}, '
-                         f'K={k}')
+    tile never straddles two weights; where none divides it, as at 288,
+    any of the three with ``ceil(n_each / bn)`` tiles a weight, the last
+    ragged) whose estimated time is least: ``rounds`` = ceil(units / sms)
+    rounds of a unit costing ``bn`` + 48 columns' worth, ties to the wider
+    tile. ``smem``: the kernel's dynamic shared memory (a ring of
+    ``stages`` slots, 3 at bn = 256 and else 4, each a 128 x 64 box of A
+    and bn / 64 boxes of 64 x 64 of the weight; two 64 x bn bf16 staging
+    tiles for the TMA stores; the mbarriers; 1024 bytes of alignment
+    slack); ``steps``: 64-deep steps a unit, a ceiling. Raises ValueError
+    where ``proj_takes_ragged`` fails."""
+    if not proj_takes_ragged(n_each, k):
+        raise ValueError(f'the projection GEMM needs N and K to be multiples '
+                         f'of 32, got N={n_each}, K={k}')
     if m < 1 or parts not in (1, 3):
         raise ValueError(f'the projection GEMM takes M >= 1 rows and 1 or 3 '
                          f'weights, got M={m}, parts={parts}')
     slots = max(sms, 1)
+    whole = n_each % 128 == 0 or n_each % 192 == 0
     best = None
     for bn in PROJ_TILES:
-        if n_each % bn:
+        if n_each % bn and whole:
             continue
-        units = -(-m // 128) * parts * (n_each // bn)
+        units = -(-m // 128) * parts * -(-n_each // bn)
         cost = -(-units // slots) * (bn + 48)
         if best is None or cost < best[0]:
             best = (cost, bn, units)
@@ -151,8 +160,8 @@ def proj_plan(m: int, n_each: int, parts: int, k: int, sms: int) -> dict:
     stages = 3 if bn == 256 else 4
     smem = (stages * (128 * 64 * 2 + 64 * bn * 2) + 2 * 64 * bn * 2
             + 2 * stages * 8 + 1024)
-    return dict(bn=bn, units=units, rounds=-(-units // slots), steps=k // 64,
-                stages=stages, smem=smem)
+    return dict(bn=bn, units=units, rounds=-(-units // slots),
+                steps=-(-k // PROJ_STEP), stages=stages, smem=smem)
 
 
 def fused_attention_fwd_plain(x, scale, bias, wq, wk, wv, wo, heads, eps,

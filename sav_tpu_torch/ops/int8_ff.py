@@ -133,8 +133,9 @@ def _q8_plan(m, dim, hidden, what, first, second, scratch):
     names the first product's [M, F] tiles, ``second`` the second's [M, D];
     ``scratch`` names the workspace's regions in order (the five both
     have, then K12/K13's two transposed weight codes, [D, F] each)."""
-    if m < 1 or dim < 64 or hidden < 64 or dim % 64 or hidden % 64:
-        raise ValueError(f'{what} needs M >= 1 and D, F multiples of 64, got '
+    if m < 1 or dim < 64 or hidden < 64 or dim % 32 or hidden % 32:
+        raise ValueError(f'{what} needs M >= 1 and D, F multiples of 32 (at '
+                         f'least 64: int8 rows 16-byte aligned for TMA), got '
                          f'M={m}, D={dim}, F={hidden}')
     cdiv = lambda a, b: -(-a // b)
     row_tiles = cdiv(m, DX_TILE)
@@ -165,19 +166,24 @@ def int8_ff_plan(m: int, dim: int, hidden: int) -> dict:
     ``units`` of the three GEMM launches (``absmax`` and ``codes`` over
     [M, F], ``out``; 128 x 128 tiles), ``out_pairs`` (OUT's blocks take
     pair units, a row tile's column tiles 2c and 2c + 1 on their two teams,
-    where D / 128 is even), ``stages`` (the ring slots of a contraction:
-    64-deep over D, 128-deep over F), ``parts`` (the absmax partials of a
-    row, one per 128 columns of F), ``smem`` (dynamic shared
+    where ceil(D / 128) is even), ``stages`` (the ring slots of a
+    contraction: 64-deep over D, 128-deep over F), ``parts`` (the absmax
+    partials of a row, one per 128 columns of F), ``transposes`` (the 64 x
+    64 tiles of each weight's codes transpose), ``smem`` (dynamic shared
     memory: two teams' rings of five slots of two 8 KB boxes, their 32 KB
     staging tiles, the mbarriers, alignment slack) and the workspace the
     C entry carves: ``scratch`` (name -> (offset, bytes): x's codes and
     scales, the absmax partials, the hidden codes' scales and the codes,
     W1's and W2's codes transposed, each at a 256-byte offset) and
-    ``workspace`` (their total bytes). Raises ValueError where the kernels
-    do not take the geometry."""
+    ``workspace`` (their total bytes). Every count is a ceiling: at
+    cait_xs's D = 288, F = 1152 OUT takes 3 column tiles (the last 32
+    columns wide, so no pairs), each first product 5 slots (the last half
+    zeros) and each transpose 5 x 18 tiles. Raises ValueError where the
+    kernels do not take the geometry."""
     plan = _q8_plan(m, dim, hidden, 'int8_ff_raw', 'hidden', 'out',
                     ('xq', 'xs', 'amax', 'hs', 'hq', 'w1t', 'w2t'))
     plan['out_pairs'] = plan['col_tiles']['out'] % 2 == 0
+    plan['transposes'] = -(-dim // 64) * -(-hidden // 64)
     return plan
 
 
@@ -228,8 +234,8 @@ def int8_ff_raw(x, w1_q, s1, b1, w2_q, s2, b2, *, save_hpre: bool = False):
     x [M, D]; w1_q [D, F] int8 with per-column scales s1 [1, F]; w2_q
     [F, D] int8 with s2 [1, D]; biases f32. Returns [M, D] in x.dtype, or
     (out, hpre bf16 [M, F]) with ``save_hpre``. On a CUDA tensor: the
-    kernels' six launches (bf16 x, D and F multiples of 64, any M >= 1);
-    on a CPU tensor: the twin."""
+    kernels' six launches (bf16 x, D and F multiples of 32 of at least 64,
+    any M >= 1); on a CPU tensor: the twin."""
     if x.device.type == 'cpu':
         return int8_ff_reference(x, w1_q, s1, b1, w2_q, s2, b2, save_hpre)
     if x.device.type != 'cuda':
@@ -461,8 +467,9 @@ def int8_ff_dx_raw(g, hpre, w1t_q, s1t, w2t_q, s2t):
     persistent s8 ``wgmma`` + TMA GEMM with the gelu' epilogue writing dh
     and each row's absmax partials; dh's row scales; the same product and
     epilogue again for dh's codes; the same GEMM for dy. bf16 g and hpre, D
-    and F multiples of 64, any M (rows past M are neither read nor stored;
-    nothing is padded or copied). On a CPU tensor: the twin."""
+    and F multiples of 32 of at least 64, any M (rows past M are neither
+    read nor stored; nothing is padded or copied). On a CPU tensor: the
+    twin."""
     if g.device.type == 'cpu':
         return int8_ff_dx_reference(g, hpre, w1t_q, s1t, w2t_q, s2t)
     if g.device.type != 'cuda':

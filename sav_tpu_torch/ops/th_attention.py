@@ -16,7 +16,8 @@ H, L, L]`` tensor is kept. Routes:
   * ``'blocked'`` - LN and projections as library ops, the core on the K6a
                     port (``th_core_fwd``: two sweeps over the keys, any
                     length; also K5a's core), backward core on the K6b port
-                    (``th_core_bwd``): where K1's GEMMs do not take D.
+                    (``th_core_bwd``): where K5a's GEMMs do not take D
+                    (no factory CaiT).
   * ``'xla'``     - the same boundary with the plain torch core (the JAX
                     package's name for its jnp path).
 The out-projection, weight gradients and LayerNorm backward are library
@@ -45,33 +46,35 @@ import torch
 
 from sav_tpu_torch import _build
 from sav_tpu_torch.ops import flash_attention as fa
-from sav_tpu_torch.ops.fused_layer import (GEMM_TILE, LN_EPS, _layernorm,
+from sav_tpu_torch.ops.fused_layer import (LN_EPS, _layernorm,
                                            _layernorm_bwd, _ln_f32,
-                                           _project_qkv, _q8_weights, _wgrad)
+                                           _project_qkv, _q8_weights, _wgrad,
+                                           proj_takes_ragged)
 from sav_tpu_torch.ops.int8_matmul_kernel import _quantize_tile
 from sav_tpu_torch.ops.quantized import int_matmul
 
 ROUTES = ('fused', 'blocked', 'xla')
 HEAD_CH = 48                # the kernels' head width (every CaiT config)
-KERNEL_HEADS = (4, 8, 16)   # head counts the kernels are instantiated for
-UNBUILT = ('H = 6 (cait_xs) is ROADMAP.md Queue 2 item 9 with item 11: '
-           'the 288-wide tiles of the TH core, K11 and K12-K14')
+KERNEL_HEADS = (4, 6, 8, 16)   # head counts the kernels are instantiated for
+UNBUILT = ('every CaiT in the factory has 4, 6, 8 or 16 heads of 48; another '
+           'head count needs an instantiation of the TH kernels of its own')
 LOG2E = 1.4426950408889634
 
 
 def th_bwd_plan(l: int, heads: int) -> dict:
     """Launch geometry of the backward (``csrc/th_bwd.cu``), mirrored from
-    its ``Plan``. At H = 4 and 8 (``design`` ``'fused'``): three persistent
-    kernels (``'dq'``, ``'dk'``, ``'dv'``) whose work tiles are ``rows`` =
-    64 resident rows of one image, each streaming ``cols`` = 16-row tiles
-    through ``stages`` ring slots (DQ sweeps the keys twice). At H = 16
-    (``design`` ``'staged'``, ``csrc/th_bwd_staged.cuh``): the products
-    kernel on 64 x 64 (query, key) tiles of one head, the mix kernel on
-    ``mix_rows`` query rows of one image, and three GEMM launches
-    (``'dq'``, ``'dk'``, ``'dv'``) on 64-row tiles of one head stepping
-    ``cols`` = 64 rows of depth at a time, read from the one mirror of
-    that plan, ``th_bwd_staged_plan``. ``smem``: the dynamic shared memory of each
-    kernel; ``dm_partials``: the ``[H, H]`` partials a call leaves per
+    its ``Plan``. At H = 4, 6 and 8 (``design`` ``'fused'``): three
+    persistent kernels (``'dq'``, ``'dk'``, ``'dv'``) whose work tiles are
+    ``rows`` = 64 resident rows of one image, each streaming ``cols`` =
+    16-row tiles through ``stages`` ring slots (DQ sweeps the keys twice),
+    the bands read in ``boxes`` of 64 columns (a ceiling, as
+    ``th_fwd_plan``'s). At H = 16 (``design`` ``'staged'``,
+    ``csrc/th_bwd_staged.cuh``): the products kernel on 64 x 64 (query,
+    key) tiles of one head, the mix kernel on ``mix_rows`` query rows of
+    one image, and three GEMM launches (``'dq'``, ``'dk'``, ``'dv'``) on
+    64-row tiles of one head stepping ``cols`` = 64 rows of depth at a
+    time, read from the one mirror of that plan, ``th_bwd_staged_plan``.
+    ``smem``: the dynamic shared memory of each kernel; ``dm_partials``: the ``[H, H]`` partials a call leaves per
     image (``dm_post`` of dM_post and ``dm_pre`` of dM_pre: 4 of each a
     work tile, or 1 of each a mix block), which the wrapper sums."""
     if heads not in KERNEL_HEADS:
@@ -88,7 +91,7 @@ def th_bwd_plan(l: int, heads: int) -> dict:
                     smem=staged['smem'], dm_post=per, dm_pre=per,
                     dm_partials=2 * per)
     cols, stages = 16, 3
-    nb = heads * HEAD_CH // 64                      # 64-column boxes
+    nb = -(-heads * HEAD_CH // 64)                  # 64-column boxes
     smem = {}
     for mode in ('dq', 'dk', 'dv'):
         nbytes = (2 * nb * rows * 64 * 2                # resident boxes
@@ -101,7 +104,7 @@ def th_bwd_plan(l: int, heads: int) -> dict:
                   + 1024)                               # alignment slack
         smem[mode] = nbytes
     return dict(design='fused', rows=rows, cols=cols, stages=stages,
-                tiles=tiles,
+                tiles=tiles, boxes=nb,
                 steps={'dq': 2 * -(-l // cols), 'dk': -(-l // cols),
                        'dv': -(-l // cols)},
                 smem=smem, dm_post=4 * tiles, dm_pre=4 * tiles,
@@ -149,7 +152,10 @@ def th_fwd_plan(l: int, heads: int) -> dict:
     ``stages`` ring slots (k in the first sweep, k and the group's v boxes
     after it); the mix warpgroup takes a tile as ``halves`` products;
     ``smem``: the kernel's dynamic shared memory (resident q, the ring, two
-    bf16 exchange tiles of a group's heads, mbarriers). Raises ValueError
+    bf16 exchange tiles of a group's heads, mbarriers). q and k are read in
+    ``boxes`` of 64 columns, a ceiling: at H = 6 the 288 columns are 4.5
+    boxes, and the fifth box's last 32 columns arrive as zeros (TMA's
+    fill past the band's width) that no product reads. Raises ValueError
     for a head count the kernel is not built for."""
     if heads not in KERNEL_HEADS:
         raise ValueError(f'the TH forward is built for H in {KERNEL_HEADS}, '
@@ -157,7 +163,7 @@ def th_fwd_plan(l: int, heads: int) -> dict:
     rows, cols = 64, 16
     group = min(heads, 8)
     stages = 4 if heads <= 8 else 2
-    nb = heads * HEAD_CH // 64                      # 64-column boxes
+    nb = -(-heads * HEAD_CH // 64)                  # 64-column boxes
     smem = (nb * rows * 64 * 2                      # resident q
             + stages * (nb + group) * cols * 64 * 2  # k boxes, group's v
             + 2 * group * rows * cols * 2           # exchange buffers
@@ -166,7 +172,7 @@ def th_fwd_plan(l: int, heads: int) -> dict:
     groups = heads // group
     return dict(rows=rows, cols=cols, stages=stages, tiles=-(-l // rows),
                 group=group, groups=groups, halves=1 if heads <= 8 else 2,
-                steps=(1 + groups) * -(-l // cols), smem=smem)
+                steps=(1 + groups) * -(-l // cols), boxes=nb, smem=smem)
 
 
 def th_fwd_split(b: int, l: int, heads: int, sms: int = 132) -> int:
@@ -187,12 +193,16 @@ def kernel_supported(heads: int, head_ch: int) -> bool:
 
 
 def fused_fits(l: int, heads: int, dim: int, device='cuda') -> bool:
-    """Whether the K5a port takes the shape: its LN/GEMM launches (shared
-    with K1) need D and H*48 to be multiples of 128, and on the card its
-    core's shared memory (``th_fwd_plan``, the mirror of the kernel's
-    ``sav_th_core_fwd_smem`` that the card tests hold equal; the same at
-    every L) must fit one block's 227 KB. Off the card the plain twin has no such budget."""
-    if (dim % GEMM_TILE or (heads * HEAD_CH) % GEMM_TILE
+    """Whether the K5a port takes the shape: its projection GEMMs (K1's,
+    ``proj_takes_ragged``) need D and H*48 to be multiples of 32 (cait_xs's
+    288 ends in a ragged tile), and on the card its core's shared memory
+    (``th_fwd_plan``, the mirror of the kernel's ``sav_th_core_fwd_smem``
+    that the card tests hold equal; the same at every L) must fit one
+    block's 227 KB. Off the card the plain twin has no such budget. Read
+    only by the TH routes (``th_route``, CaiT's ``'fused_th'``, the K5a
+    wrapper): K1's own guard is ``fused_layer.fused_supported``."""
+    hd = heads * HEAD_CH
+    if (not proj_takes_ragged(hd, dim) or not proj_takes_ragged(dim, hd)
             or not kernel_supported(heads, HEAD_CH)):
         return False
     return (torch.device(device).type != 'cuda'
@@ -204,17 +214,18 @@ def th_route(l: int, heads: int, head_ch: int, dim: int, device):
     (the per-op path) off the card, as the JAX package takes its jnp path
     off the TPU.
 
-    On the card: ``'fused'`` (K5) where ``fused_fits`` holds: K1's GEMM
-    tiles take D and H*48 and the core's shared memory fits, at every
-    length (CaiT-S/24 @224 and @384); else ``'blocked'`` (K6, any D).
+    On the card: ``'fused'`` (K5) where ``fused_fits`` holds: the
+    projection GEMMs take D and H*48 (multiples of 32) and the core's
+    shared memory fits, at every length; else ``'blocked'`` (K6, any D).
     Both run the same two-sweep core; the blocked route's LN and
     projections are library ops, 0.33 ms slower a layer than K5a's at
     CaiT-S/24 @384 bs48 (``PERF.md``). These are the card's limits, not
     the TPU's VMEM caps (``_MAX_LIST_BYTES``, the ``l >= 320`` floor).
-    cait_xxs (D = 192) takes K6 at every length: K1's GEMMs need D % 128
-    == 0; cait_m (H = 16, D = 768) takes K5 at every length. A head
-    geometry the kernels are not built for (cait_xs, H = 6) raises rather
-    than run the per-op path unasked: ``use_kernel=False`` asks for it.
+    Every factory CaiT takes K5 at every length: cait_xxs (D = 192, one
+    192-wide GEMM tile), cait_xs (H = 6, D = 288, a ragged last GEMM tile
+    and step), cait_s and cait_m (H = 16). A head geometry the
+    kernels are not built for raises rather than run the per-op path
+    unasked: ``use_kernel=False`` asks for it.
     """
     if torch.device(device).type != 'cuda':
         return None
@@ -744,12 +755,16 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
     y's codes and scales, the transposed codes of Wq|Wk|Wv [3 H*48, D] and
     of Wo [D, H*48], q, k, v [B*L, H*48] bf16, the bands' codes and
     scales, each at a 256-byte offset) and ``workspace`` (their total).
-    Raises ValueError where the kernels do not take the geometry (H in
-    ``KERNEL_HEADS``, D a multiple of 64)."""
-    if b < 1 or l < 1 or dim < 64 or dim % 64 or heads not in KERNEL_HEADS:
+    Tiles and slots are ceilings: at cait_xs's H*48 = D = 288 each of q, k
+    and v takes 5 column tiles (the last 32 columns wide: columns past 288
+    are neither scaled nor stored) and each contraction 5 slots (the last
+    half zeros, TMA's fill past the codes' width). Raises ValueError where
+    the kernels do not take the geometry (H in ``KERNEL_HEADS``, D a
+    multiple of 32 of at least 64: int8 rows 16-byte aligned for TMA)."""
+    if b < 1 or l < 1 or dim < 64 or dim % 32 or heads not in KERNEL_HEADS:
         raise ValueError(f'th_attention_q8 takes H in {KERNEL_HEADS} heads of '
-                         f'{HEAD_CH} and D a multiple of 64, got B={b}, L={l}, '
-                         f'D={dim}, H={heads} ({UNBUILT})')
+                         f'{HEAD_CH} and D a multiple of 32 (at least 64), got '
+                         f'B={b}, L={l}, D={dim}, H={heads} ({UNBUILT})')
     m, hd = b * l, heads * HEAD_CH
     cdiv = lambda x, y: -(-x // y)
     tile = {'qkv': Q8_TILE, 'out': Q8_TILE}
@@ -773,9 +788,9 @@ def th_q8_plan(b: int, l: int, dim: int, heads: int) -> dict:
         regions[name] = (at, nbytes)
         at += cdiv(nbytes, 256) * 256
     return dict(tile=tile, row_tiles=rows,
-                units={'qkv': rows * 3 * (hd // tile['qkv']),
+                units={'qkv': rows * 3 * cdiv(hd, tile['qkv']),
                        'out': rows * cdiv(dim, tile['out'])},
-                slots={'qkv': dim // Q8_SLOT_K, 'out': hd // Q8_SLOT_K},
+                slots={'qkv': cdiv(dim, Q8_SLOT_K), 'out': cdiv(hd, Q8_SLOT_K)},
                 smem={'qkv': smem(tile['qkv'], False),
                       'out': smem(tile['out'], True),
                       'core': core},
@@ -818,7 +833,7 @@ def th_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
     (``csrc/th_attention_q8.cu``: the codes transposed in the workspace,
     LN(x)'s codes, the QKV and OUT GEMMs on s8 ``wgmma`` + TMA around K6a's
     core taking the bands' codes), bf16 x, H in ``KERNEL_HEADS``, D a
-    multiple of 64, any L. On a CPU tensor: the plain twin.
+    multiple of 32 (at least 64), any L. On a CPU tensor: the plain twin.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, scale, bias, m_pre, m_post)):
@@ -831,10 +846,11 @@ def th_attention_q8(x, scale, bias, wq_q, sq, wk_q, sk, wv_q, sv, wo_q, so,
     fa.check_cuda_bf16('x', x, x.device)
     b, l, dim = x.shape
     hd = heads * HEAD_CH
-    if not kernel_supported(heads, wq_q.shape[1] // heads) or dim % 64:
+    if (not kernel_supported(heads, wq_q.shape[1] // heads) or dim % 32
+            or dim < 64):
         raise ValueError(f'th_attention_q8 takes H in {KERNEL_HEADS} heads of '
-                         f'{HEAD_CH} and D a multiple of 64, got H*d='
-                         f'{wq_q.shape[1]} over {heads} heads, D={dim}')
+                         f'{HEAD_CH} and D a multiple of 32 (at least 64), got '
+                         f'H*d={wq_q.shape[1]} over {heads} heads, D={dim}')
     for name, t, shape in (('wq_q', wq_q, (dim, hd)), ('wk_q', wk_q, (dim, hd)),
                            ('wv_q', wv_q, (dim, hd)), ('wo_q', wo_q, (hd, dim))):
         if t.dtype != torch.int8 or tuple(t.shape) != shape:

@@ -27,7 +27,8 @@ training shape and at 200 rows over 190 keys, the talking-heads backward
 at CaiT-S/24's training shapes (K5b B=128 L=196, K6b B=48 L=576), K6a at
 CaiT-S/24 @384's serving and training shapes (B=32 and 48, L=576) and at
 cait_xxs_24 @224's (H=4, B=32 and 128, L=196), K5a at
-B=32 and 128 L=196, K1 without the residual at TNT-S/16's and TNT-B/16's
+B=32 and 128 L=196 (and, in a tree whose K5a takes them, at cait_xxs_24's
+and cait_xs_24's widths), K1 without the residual at TNT-S/16's and TNT-B/16's
 widths (serving bs32, training bs64 and bs32), K8b at Mixer-B/16 bs192,
 K8a at Mixer-B/16 bs192 and bs32 and K7b at TNT-S/16 bs64's and TNT-B/16
 bs32's inner layers (each through its wrapper and its C entry alone), K13
@@ -40,8 +41,9 @@ L=196), K15 (ViT-B/16 bs32's two FF products), K10 (ViT-B/16 bs32), K9b
 training bs64) and K7a (TNT-S/16 serving bs32 and training bs64, TNT-B/16
 bs32), each through its wrapper and its C entry alone (the parent's and
 this tree's K7, K10, K11 and K15 C entries differ in their arguments: each
-run calls its own), and a digest of K7b's outputs (equal where the two
-trees' K7b outputs are bit-identical), each with
+run calls its own), and digests of K1's, K7b's, K5a's, K5b's, K6a's, K6b's,
+K11's, K12's, K13's and K14's outputs at those shapes (each equal in two
+trees where that kernel's outputs are bit-identical), each with
 this checkout's
 ``sav_tpu_torch.utils.timing.time_ms`` (the definition ``chip_smoke.py``
 uses, handed to every run as source).
@@ -121,11 +123,29 @@ def profile_steps(step, iters=2):
 
 
 if args['kernels']:
+    import hashlib
     import math
     import numpy as np
     from sav_tpu_torch.ops import flash_attention as fa
     from sav_tpu_torch.ops import fused_layer
     rng = np.random.RandomState(0)
+
+    def digest(result):
+        """48 bits of the SHA-256 of every tensor in ``result`` (nested
+        tuples), exact in a float: equal in two trees where the outputs
+        are bit-identical."""
+        torch.cuda.synchronize()
+        sha = hashlib.sha256()
+        stack = [result]
+        while stack:
+            t = stack.pop(0)
+            if isinstance(t, (tuple, list)):
+                stack = list(t) + stack
+            elif t is not None:
+                sha.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                           .tobytes())
+        return float(int(sha.hexdigest()[:12], 16))
+
     bf16 = lambda shape, std=1.0: torch.from_numpy(
         (rng.standard_normal(shape) * std).astype(np.float32)).cuda().bfloat16()
     out = {{}}
@@ -139,6 +159,9 @@ if args['kernels']:
         name = f'K1 B={{b}} L={{seq}}' + (' save_residuals' if train else '')
         out[name] = time_ms(lambda: fused_layer.fused_attention_fwd(
             x, scale, bias, *w, heads, save_residuals=train))
+        out[f'{{name}} outputs digest'] = digest(
+            fused_layer.fused_attention_fwd(x, scale, bias, *w, heads,
+                                            save_residuals=train))
     for b, seq in ((32, 577), (192, 197)):
         q, k, v = (bf16((b, seq, dim), s) for s in (0.5, 1, 1))
         out[f'K4 B={{b}} L={{seq}}'] = time_ms(
@@ -165,12 +188,16 @@ if args['kernels']:
         _, lse = th.th_core_fwd_plain(q, k, v, *m, heads)
         out[f'{{name}} B={{b}} L={{seq}}'] = time_ms(
             lambda: fn(q, k, v, do, lse, *m, heads))
+        out[f'{{name}} outputs digest B={{b}} L={{seq}}'] = digest(
+            fn(q, k, v, do, lse, *m, heads))
     for b in (32, 48):
         q = bf16((b, 576, hd), 0.4)
         k, v = (bf16((b, 576, hd)) for _ in range(2))
         m = mixes()
         out[f'K6a B={{b}} L=576'] = time_ms(
             lambda: th.th_core_fwd(q, k, v, *m, heads))
+        out[f'K6a outputs digest B={{b}} L=576'] = digest(
+            th.th_core_fwd(q, k, v, *m, heads))
     # K6a at cait_xxs_24 @224's serving (B=32) and training (B=128) shapes
     # (H = 4, L = 196)
     m4 = [(torch.eye(4) + 0.3 * torch.from_numpy(
@@ -181,6 +208,8 @@ if args['kernels']:
         k, v = (bf16((b, 196, 4 * th.HEAD_CH)) for _ in range(2))
         out[f'K6a H=4 B={{b}} L=196'] = time_ms(
             lambda: th.th_core_fwd(q, k, v, *m4, 4))
+        out[f'K6a H=4 outputs digest B={{b}} L=196'] = digest(
+            th.th_core_fwd(q, k, v, *m4, 4))
     # K5a at CaiT-S/24 @224's serving (B=32) and training (B=128) shapes
     dim = 384
     w = [bf16((dim, hd), 1 / math.sqrt(dim)) for _ in range(3)]
@@ -192,6 +221,30 @@ if args['kernels']:
         out[f'K5a B={{b}} L=196' + (' save_residuals' if train else '')] = \
             time_ms(lambda: th.th_attention_fwd(
                 x, ones, zeros, *w, wo, *m, heads, save_residuals=train))
+        out[f'K5a outputs digest B={{b}} L=196'] = digest(th.th_attention_fwd(
+            x, ones, zeros, *w, wo, *m, heads, save_residuals=train))
+    # K5a at cait_xxs_24's (H = 4, D = 192) and cait_xs_24's (H = 6, D =
+    # 288) @224 serving and training shapes, in a tree whose K5a takes them
+    # (inputs from a generator of their own: the later kernels' inputs are
+    # the same in a tree that skips these)
+    rx = np.random.RandomState(1)
+    bfx = lambda shape, std=1.0: torch.from_numpy(
+        (rx.standard_normal(shape) * std).astype(np.float32)).cuda().bfloat16()
+    for heads_x in (4, 6):
+        dim_x = hd_x = heads_x * th.HEAD_CH
+        if not th.fused_fits(196, heads_x, dim_x):
+            continue
+        wx = [bfx((dim_x, hd_x), 1 / math.sqrt(dim_x)) for _ in range(4)]
+        mx = [(torch.eye(heads_x) + 0.3 * torch.from_numpy(
+            rx.standard_normal((heads_x, heads_x)).astype(np.float32))).cuda()
+            for _ in range(2)]
+        lnx = torch.ones(dim_x, device='cuda'), torch.zeros(dim_x, device='cuda')
+        for b, train in ((32, False), (128, True)):
+            x = bfx((b, 196, dim_x))
+            out[f'K5a H={{heads_x}} D={{dim_x}} B={{b}} L=196'
+                + (' save_residuals' if train else '')] = time_ms(
+                lambda: th.th_attention_fwd(x, *lnx, *wx, *mx, heads_x,
+                                            save_residuals=train))
     # K1 without the residual at TNT's outer widths (TNT-S D=384 H=6,
     # TNT-B D=640 H=10, L=197): serving bs32, training bs64 and bs32
     for name, b, dim, heads1, train in (('TNT-S', 32, 384, 6, False),
@@ -320,6 +373,8 @@ if args['kernels']:
                *int8_ff._dx_quantized(wf((ff, dd), 1 / math.sqrt(ff))))
         out[f'K14 (control) M={{rows}} D={{dd}}'] = time_ms(
             lambda: int8_ff.int8_ff_dx_raw(g14, h14, *w14))
+        out[f'K14 outputs digest M={{rows}} D={{dd}}'] = digest(
+            int8_ff.int8_ff_dx_raw(g14, h14, *w14))
         del g14, h14
     # the kernels under test: K13 at ViT-B/16 'ff' bs192 (save_hpre) and
     # bs32 (serving), K12 at Mixer-B/16 'ff' bs192 and bs32, and save_hpre
@@ -340,6 +395,8 @@ if args['kernels']:
         key = f'{{name}} {{"train" if train else "serve"}} M={{rows}} D={{dd}}'
         out[key] = time_ms(
             lambda: raw(xq, *lnp, w1q, s1, b1, w2q, s2, b2, save_hpre=train))
+        out[key.replace(' ', ' outputs digest ', 1)] = digest(
+            raw(xq, *lnp, w1q, s1, b1, w2q, s2, b2, save_hpre=train))
         del xq
     # K11 at CaiT-S/24's and cait_xxs_24's widths @224 bs32 ('all'
     # serving) and K15 at ViT-B/16 bs32's two FF products ('int8' with
@@ -365,6 +422,8 @@ if args['kernels']:
         with torch.no_grad():
             out['K11 ' + key] = time_ms(
                 lambda: th.th_attention_q8(xq, scq, biq, *flat, *mq, hh))
+            out['K11 outputs digest ' + key] = digest(
+                th.th_attention_q8(xq, scq, biq, *flat, *mq, hh))
         scales = [vec(t, n) for t, n in zip(flat[1::2], (hd, hd, hd, dd))]
         o11 = torch.empty_like(xq)
         if hasattr(th, 'th_q8_plan'):

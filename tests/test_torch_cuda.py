@@ -282,7 +282,8 @@ def test_projection_gemm_widths(card, dim, b, seq, residual, train):
 
 def test_proj_plan_matches_the_kernel(card):
     """proj_plan mirrors the GEMM's plan_bn and Plan (sav_proj_plan) at the
-    paths' rows and widths and at ragged and tiny M."""
+    paths' rows and widths (cait_xs's 288 and 96 with a ragged last tile)
+    and at ragged and tiny M."""
     import ctypes
 
     from sav_tpu_torch import _build
@@ -292,7 +293,8 @@ def test_proj_plan_matches_the_kernel(card):
     out = (ctypes.c_int * 3)()
     for m in (1, 129, 591, 6272, 6304, 12608, 25088, 37824):
         for n, parts in ((384, 3), (384, 1), (640, 3), (640, 1), (768, 3),
-                         (768, 1), (256, 3), (192, 3), (192, 1), (576, 3)):
+                         (768, 1), (256, 3), (192, 3), (192, 1), (576, 3),
+                         (288, 3), (288, 1), (96, 3), (96, 1), (320, 1)):
             for sms in (132, 114):
                 fn(m, n, parts, sms, ctypes.addressof(out))
                 plan = fused_layer.proj_plan(m, n, parts, 128, sms)
@@ -334,7 +336,8 @@ def _th_core_case(rng, b, seq, heads, card):
 
 
 @pytest.mark.parametrize('seq,heads', [(1, 8), (37, 4), (196, 8), (200, 8),
-                                       (576, 8), (37, 16), (197, 16)])
+                                       (576, 8), (37, 16), (197, 16), (1, 6),
+                                       (37, 6), (197, 6)])
 def test_th_core_fwd_matches_twin(card, seq, heads):
     rng = np.random.RandomState(seq)
     q, k, v, _, m = _th_core_case(rng, 2, seq, heads, card)
@@ -371,7 +374,7 @@ def test_th_attention_fwd_matches_twin(card, seq, residual):
 
 @pytest.mark.parametrize('entry', ['th_attention_bwd', 'th_core_bwd'])
 @pytest.mark.parametrize('seq,heads', [(37, 4), (196, 8), (577, 8), (37, 16),
-                                       (197, 16)])
+                                       (197, 16), (37, 6), (197, 6)])
 def test_th_bwd_matches_twin(card, entry, seq, heads):
     rng = np.random.RandomState(seq + heads)
     q, k, v, do, m = _th_core_case(rng, 2, seq, heads, card)
@@ -388,7 +391,7 @@ def test_th_bwd_matches_twin(card, entry, seq, heads):
 
 
 @pytest.mark.parametrize('entry', ['th_attention_bwd', 'th_core_bwd'])
-@pytest.mark.parametrize('seq,heads', [(197, 8), (577, 4), (197, 16)])
+@pytest.mark.parametrize('seq,heads', [(197, 8), (577, 4), (197, 16), (197, 6)])
 def test_th_bwd_repeats_bitwise(card, entry, seq, heads):
     """No float atomics: dq, dk, dv and the dM sums repeat bit for bit."""
     rng = np.random.RandomState(seq)
@@ -416,7 +419,7 @@ def test_th_bwd_survives_back_to_back_calls(card):
 
 
 @pytest.mark.parametrize('b', [32, 48])
-@pytest.mark.parametrize('heads', [4, 8, 16])
+@pytest.mark.parametrize('heads', [4, 6, 8, 16])
 @pytest.mark.parametrize('seq', [196, 197, 576, 577])
 def test_th_core_fwd_at_cait_shapes(card, seq, heads, b):
     """K6a at CaiT's lengths (@224 and @384, each with a one-row tail) and
@@ -459,7 +462,8 @@ def test_th_fwd_plan_matches_the_kernel(card):
     for heads in th_attention.KERNEL_HEADS:
         assert _th_core_fwd_smem(heads) == th_attention.th_fwd_plan(
             577, heads)['smem']
-    assert _th_core_fwd_smem(6) == 0 and _th_core_fwd_smem(16) == 214096
+    assert _th_core_fwd_smem(12) == 0 and _th_core_fwd_smem(16) == 214096
+    assert _th_core_fwd_smem(6) == 156784
 
 
 def test_th_bwd_plan_matches_the_kernel(card):
@@ -472,11 +476,13 @@ def test_th_bwd_plan_matches_the_kernel(card):
     lib = _build.library('th_bwd')
     fn = lib.sav_th_bwd_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
-    for heads in (4, 8):
+    for heads in (4, 6, 8):
         plan = th_attention.th_bwd_plan(577, heads)['smem']
         assert [fn(heads, mode) for mode in range(3)] == [
             plan['dq'], plan['dk'], plan['dv']]
+    assert [fn(6, mode) for mode in range(3)] == [178272, 177504, 177504]
     assert [fn(16, mode) for mode in range(3)] == [0, 0, 0]
+    assert [fn(12, mode) for mode in range(3)] == [0, 0, 0]
     staged = lib.sav_th_bwd_staged_plan
     staged.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for b, l in ((1, 1), (2, 197), (16, 196), (1, 577)):
@@ -603,14 +609,15 @@ def test_th_sublayer_gradients_over_seeds(card):
 def test_th_smem_formula_matches_the_kernel(card):
     """The kernel's own shared-memory formula decides K5 vs K6 on the card:
     K5a's core is the two-sweep core, whose shared memory fits at every
-    length, so K5 takes every L where K1's GEMMs take D (cait_xxs's D = 192
-    is K6's)."""
+    length, so K5 takes every L where its projection GEMMs take D
+    (multiples of 32: cait_xxs's D = 192 too)."""
     assert _th_core_fwd_smem(8) == th_attention.th_fwd_plan(
         196, 8)['smem'] <= 232448
     for l, want in ((196, 'fused'), (224, 'fused'), (225, 'fused'),
                     (576, 'fused')):
         assert th_attention.th_route(l, 8, 48, 384, card) == want
-    assert th_attention.th_route(196, 4, 48, 192, card) == 'blocked'
+    assert th_attention.th_route(196, 4, 48, 192, card) == 'fused'
+    assert th_attention.th_route(196, 4, 48, 194, card) == 'blocked'
 
 
 def test_th_route_at_16_heads_reads_the_kernel(card):
@@ -621,8 +628,10 @@ def test_th_route_at_16_heads_reads_the_kernel(card):
         196, 16)['smem'] <= 232448
     for l in (196, 197, 576, 577):
         assert th_attention.th_route(l, 16, 48, 768, card) == 'fused'
-    with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
-        th_attention.th_route(196, 6, 48, 288, card)
+        # cait_xs: D = 288, K5a's GEMMs with a ragged last tile and step
+        assert th_attention.th_route(l, 6, 48, 288, card) == 'fused'
+    with pytest.raises(NotImplementedError, match='use_kernel=False'):
+        th_attention.th_route(196, 12, 48, 576, card)
 
 
 @pytest.mark.parametrize('seq,residual', [(37, False), (196, False),
@@ -649,6 +658,52 @@ def test_th_attention_fwd_matches_twin_at_16_heads(card, seq, residual):
     own_attn, own_lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
     assert _rel(attn, own_attn) <= 2e-2
     assert (lse - own_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('dim,heads,seq,residual', [
+    (288, 6, 37, False), (288, 6, 196, False), (288, 6, 197, True),
+    (192, 4, 196, False), (192, 4, 197, True), (96, 6, 37, True)])
+def test_th_attention_fwd_matches_twin_at_ragged_widths(card, dim, heads, seq,
+                                                        residual):
+    """K5a at cait_xs's widths (D = H*48 = 288: the projection GEMMs' last
+    column tile and 64-deep step ragged), cait_xxs's (D = 192, one whole
+    192-wide tile) and D = 96 under six heads (a ragged depth in QKV, a
+    ragged out tile under the residual), with and without its residuals,
+    against the twin; each output's ragged last columns also on their own;
+    two calls identical."""
+    rng = np.random.RandomState(seq + dim)
+    hd = heads * 48
+    x = _bf16(rng, (2, seq, dim), 1, card)
+    scale = (1 + _bf16(rng, (dim,), 0.1, card)).float()
+    bias = _bf16(rng, (dim,), 0.1, card).float()
+    ws = [_bf16(rng, (dim, hd), s / math.sqrt(dim), card) for s in (4, 1, 1)]
+    ws.append(_bf16(rng, (hd, dim), 1 / math.sqrt(hd), card))
+    m = _th_mixes(heads, seq, card)
+    args = (x, scale, bias, *ws, *m, heads, th_attention.LN_EPS, residual)
+    out = th_attention.th_attention_fwd(*args)
+    out_t, res = th_attention.th_attention_fwd(*args, save_residuals=True)
+    again = th_attention.th_attention_fwd(*args)
+    plain, p_res = th_attention.th_attention_fwd_plain(*args,
+                                                       save_residuals=True)
+    contrib = (plain.float() - (x.float() if residual else 0)).abs().max()
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * contrib
+    assert torch.equal(out, out_t) and torch.equal(out, again)
+    for ours, twin in zip(res[:3], p_res[:3]):
+        assert _rel(ours, twin) <= 2e-2
+    q, k, v, attn, lse = res
+    own_attn, own_lse = th_attention.th_core_fwd_plain(q, k, v, *m, heads)
+    assert _rel(attn, own_attn) <= 2e-2
+    assert (lse - own_lse).abs().max() <= 1e-3
+    for ours, twin in zip((q, k, v, attn), (*p_res[:3], own_attn)):
+        ragged = ours.shape[-1] % 64
+        if ragged:
+            assert _rel(ours[..., -ragged:], twin[..., -ragged:]) <= 2e-2
+    ragged = dim % 64
+    if ragged:
+        tail = lambda t: t[..., -ragged:].float() - (
+            x[..., -ragged:].float() if residual else 0)
+        assert (tail(out) - tail(plain)).abs().max() <= 2e-2 * tail(
+            plain).abs().max()
 
 
 def test_th_staged_bwd_survives_back_to_back_calls(card):
@@ -704,17 +759,17 @@ def test_th_wrappers_refuse_and_count(card):
     rng = np.random.RandomState(1)
     q, k, v, do, m = _th_core_case(rng, 1, 40, 8, card)
     with pytest.raises(ValueError, match='heads'):
-        th_attention.th_core_fwd(*(t[..., :288].contiguous() for t in (q, k, v)),
-                                 torch.eye(6, device=card),
-                                 torch.eye(6, device=card), 6)
+        th_attention.th_core_fwd(*(t[..., :240].contiguous() for t in (q, k, v)),
+                                 torch.eye(5, device=card),
+                                 torch.eye(5, device=card), 5)
     with pytest.raises(ValueError, match='bfloat16'):
         th_attention.th_core_fwd(q.float(), k.float(), v.float(), *m, 8)
     with pytest.raises(RuntimeError, match='forward-only'):
         th_attention.th_core_fwd(q.float().requires_grad_().bfloat16(), k, v,
                                  *m, 8)
-    # D = 192 (cait_xxs's width): K1's GEMMs take multiples of 128
-    x = torch.zeros(1, 40, 192, device=card, dtype=torch.bfloat16)
-    w = torch.zeros(192, 192, device=card, dtype=torch.bfloat16)
+    # D = 200: K5a's projection GEMMs take multiples of 32
+    x = torch.zeros(1, 40, 200, device=card, dtype=torch.bfloat16)
+    w = torch.zeros(200, 192, device=card, dtype=torch.bfloat16)
     m4 = [torch.eye(4, device=card)] * 2
     with pytest.raises(ValueError, match='fused_fits'):
         th_attention.th_attention_fwd(x, w[0].float(), w[0].float(), w, w, w,
@@ -1335,7 +1390,8 @@ def _ff_case(rng, m, d, f, card):
 
 @pytest.mark.parametrize('save_hpre', [False, True])
 @pytest.mark.parametrize('m,d,f', [(1, 768, 3072), (47, 768, 3072),
-                                   (1003, 768, 3072), (130, 1024, 4096)])
+                                   (1003, 768, 3072), (130, 1024, 4096),
+                                   (1003, 288, 1152), (77, 224, 800)])
 def test_int8_ff_matches_twin(card, m, d, f, save_hpre):
     """K12 and K13 at ragged M (not multiples of their 128-row tiles) and at
     the widest factory width (D = 1024, F = 4096)."""
@@ -1503,9 +1559,9 @@ def test_int8_wrappers_refuse_and_count(card):
                                'int8_matmul': 1}
     with pytest.raises(ValueError, match='bfloat16'):
         int8_ff.int8_ff_raw(x.float(), *w)
-    with pytest.raises(ValueError, match='multiples of 64'):
-        int8_ff.int8_ff_raw(x[:, :96].contiguous(), w[0][:96], *w[1:3],
-                            w[3][:, :96], w[4][:, :96], w[5][:96])
+    with pytest.raises(ValueError, match='multiples of 32'):
+        int8_ff.int8_ff_raw(x[:, :80].contiguous(), w[0][:80], *w[1:3],
+                            w[3][:, :80], w[4][:, :80], w[5][:80])
     with pytest.raises(RuntimeError, match='forward-only'):
         int8_ff.int8_ff_raw(x.clone().requires_grad_(), *w)
     xs = _bf16(rng, (2, 5, 128), 1.0, card)
@@ -1534,7 +1590,8 @@ def _k11_case(rng, b, seq, dim, heads, card):
 @pytest.mark.parametrize('b,seq,dim,heads,residual', [
     (2, 1, 384, 8, False), (2, 17, 192, 4, False), (3, 196, 384, 8, False),
     (2, 196, 192, 4, True), (2, 250, 384, 8, False), (1, 300, 192, 4, False),
-    (3, 196, 768, 16, False), (2, 197, 768, 16, True)])
+    (3, 196, 768, 16, False), (2, 197, 768, 16, True),
+    (3, 196, 288, 6, False), (2, 197, 288, 6, True), (2, 17, 224, 6, False)])
 def test_th_attention_q8_matches_twin(card, b, seq, dim, heads, residual):
     """K11 against its twin, through th_attention_sublayer_q8: the resident
     core (L <= 224 at H = 8, <= 256 at H = 4) and the two-sweep one (L =
@@ -1580,16 +1637,114 @@ def test_th_attention_q8_off_geometry_and_refusals(card):
 
 
 def test_cait_all_auto_raises_for_unbuilt_heads(card):
-    """'all' under 'auto' on the card: H = 6 (cait_xs) has no TH kernel, so
-    the block raises naming its ROADMAP item rather than run anything
-    unasked."""
+    """'all' under 'auto' on the card: cait_xs (H = 6, D = 288) at depth 1
+    runs K11 and K12, one launch each; a head count the TH kernels are not
+    built for (12 heads of 48) raises rather than run anything unasked."""
+    from sav_tpu_torch import _build
     from sav_tpu_torch.models import create_model
     model = create_model('cait_xs_24', num_layers=1, num_layers_token_only=1,
-                         quantized='all', dtype=torch.bfloat16, device=card)
+                         quantized='all', dtype=torch.bfloat16,
+                         device=card).eval()
     x = torch.zeros(1, 224, 224, 3, device=card, dtype=torch.bfloat16)
+    _build.reset_launches()
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
+        logits = model(x)
+    assert _build.launches == {'th_attention_q8': 1, 'int8_ff': 1}
+    assert bool(torch.isfinite(logits).all())
+    model = create_model('cait_xs_24', num_layers=1, num_layers_token_only=1,
+                         embed_dim=576, num_heads=12, quantized='all',
+                         dtype=torch.bfloat16, device=card).eval()
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match='12 heads of 48'):
             model(x)
+
+
+@pytest.mark.parametrize('name', ['cait_xs_24', 'cait_xs_36'])
+@pytest.mark.parametrize('quantized,want', [
+    (False, {'th_attention_fwd': 1}),
+    ('ff', {'th_attention_fwd': 1, 'int8_ff': 1}),
+    ('ff_sb', {'th_attention_fwd': 1, 'int8_ff': 1}),
+    ('all', {'th_attention_q8': 1, 'int8_ff': 1})])
+def test_cait_xs_runs_every_mode_on_the_kernels(card, name, quantized, want):
+    """Both cait_xs names at depth 1 on 'auto': a forward launches the H = 6
+    and D = 288 kernels and nothing per-op unasked, and (but under 'all',
+    serving only) one gradient step launches K5a-train and K5b, with K12's
+    training variant and, under 'ff_sb', K14; logits within 5e-2 of max
+    |logit| of the same model on the plain cores."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import create_model, set_int8_core, set_use_kernel
+    model = create_model(name, num_layers=1, num_layers_token_only=1,
+                         stoch_depth_rate=0.0, quantized=quantized,
+                         dtype=torch.bfloat16, device=card, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 224, 224, 3, generator=gen).to(card).bfloat16()
+    model.eval()
+    _build.reset_launches()
+    with torch.no_grad():
+        logits = model(x).float()
+    assert _build.launches == want
+    set_use_kernel(model, 'fused_th_xla')
+    set_int8_core(model, 'plain')
+    with torch.no_grad():
+        plain = model(x).float()
+    assert bool(torch.isfinite(logits).all())
+    assert (logits - plain).abs().max() <= 5e-2 * plain.abs().max()
+    if quantized == 'all':
+        return
+    set_use_kernel(model, 'auto')
+    set_int8_core(model, 'kernel')
+    model.train()
+    _build.reset_launches()
+    model(x).float().square().mean().backward()
+    step = {'th_attention_fwd_train': 1, 'th_attention_bwd': 1}
+    if quantized:
+        step['int8_ff_train'] = 1
+    if quantized == 'ff_sb':
+        step['int8_ff_dx'] = 1
+    assert _build.launches == step
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters() if p.grad is not None)
+
+
+def test_ragged_columns_match_the_twins_on_their_own(card):
+    """At H*48 = D = 288 the last 32 columns of every band and output sit in
+    a half box or a 32-wide last tile: K6a's attn, K6b's dq, dk and dv,
+    K11's out, K12's and K13's out, K14's dy2, each compared on its columns
+    256-287 alone against the twin (the whole outputs are held elsewhere;
+    here a dropped or zero last half tile cannot hide in a max over the
+    rest), at ragged lengths and rows."""
+    from sav_tpu_torch.ops import int8_ff
+    rng = np.random.RandomState(288)
+    tail = lambda t: t[..., 256:]
+    q, k, v, do, m = _th_core_case(rng, 2, 197, 6, card)
+    attn, lse = th_attention.th_core_fwd(q, k, v, *m, 6)
+    p_attn, p_lse = th_attention.th_core_fwd_plain(q, k, v, *m, 6)
+    assert _rel(tail(attn), tail(p_attn)) <= 2e-2
+    assert (lse - p_lse).abs().max() <= 1e-3
+    grads = th_attention.th_core_bwd(q, k, v, do, p_lse, *m, 6)
+    twin = th_attention.th_core_bwd_plain(q, k, v, do, p_lse, *m, 6)
+    for g, t in zip(grads[:3], twin[:3]):
+        assert _rel(tail(g), tail(t)) <= 2e-2
+    x, scale, bias, ws, mixes = _k11_case(rng, 3, 197, 288, 6, card)
+    flat = [t for pair in fused_layer._q8_weights(*ws, 288, 288)
+            for t in pair]
+    with torch.no_grad():
+        got = th_attention.th_attention_q8(x, scale, bias, *flat, *mixes, 6)
+        want = th_attention.th_q8_reference(x, scale, bias, *flat, *mixes, 6)
+    _int8_check(tail(got), tail(want))
+    xf, ln, w = _ff_case(rng, 1003, 288, 1152, card)
+    for lnp in (None, ln):
+        for save_hpre in (False, True):
+            got, want = _ff_pair(xf, lnp, w, save_hpre)
+            if save_hpre:
+                got, want = got[0], want[0]
+            _int8_check(tail(got), tail(want),
+                        None if lnp is None else tail(xf))
+    g, hpre, wd = _k14_case(rng, 1003, 288, 1152, card)
+    dy2, dh = int8_ff.int8_ff_dx_raw(g, hpre, *wd)
+    want = int8_ff.int8_ff_dx_reference(g, hpre, *wd)
+    _int8_check(tail(dy2), tail(want[0]))
+    _int8_check(dh, want[1])
 
 
 def _k14_case(rng, m, d, f, card):
@@ -1604,7 +1759,8 @@ def _k14_case(rng, m, d, f, card):
 
 @pytest.mark.parametrize('m,d,f', [(1, 768, 3072), (50, 128, 512),
                                    (1003, 768, 3072), (130, 1024, 4096),
-                                   (200, 384, 1536)])
+                                   (200, 384, 1536), (1003, 288, 1152),
+                                   (77, 224, 800)])
 def test_int8_ff_dx_matches_twin(card, m, d, f):
     """K14 at ragged M (48-row bands) and at a width whose band is 16 rows
     (D = 1024, F = 4096): dy2 and dh."""
@@ -1681,9 +1837,9 @@ def test_int8_ff_dx_refuses(card):
         int8_ff.int8_ff_dx_raw(g.float(), hpre, *w)
     with pytest.raises(ValueError, match='rows'):
         int8_ff.int8_ff_dx_raw(g, hpre[:32].contiguous(), *w)
-    with pytest.raises(ValueError, match='multiples of 64'):
-        int8_ff.int8_ff_dx_raw(g[:, :96].contiguous(), hpre, w[0][:, :96],
-                               w[1][:, :96], w[2][:96], w[3])
+    with pytest.raises(ValueError, match='multiples of 32'):
+        int8_ff.int8_ff_dx_raw(g[:, :80].contiguous(), hpre, w[0][:, :80],
+                               w[1][:, :80], w[2][:80], w[3])
     with pytest.raises(RuntimeError, match='forward-only'):
         int8_ff.int8_ff_dx_raw(g.clone().requires_grad_(), hpre, *w)
 
@@ -1711,7 +1867,7 @@ def test_token_mix_bwd_at_mixer_widths(card, batch, l, k, d):
 
 @pytest.mark.parametrize('m,d,f', [(37824, 768, 3072), (25088, 384, 1536),
                                    (1003, 768, 3072), (129, 768, 3072),
-                                   (1, 768, 3072)])
+                                   (1, 768, 3072), (25088, 288, 1152)])
 def test_int8_ff_dx_at_path_widths(card, m, d, f):
     """K14 at ViT-B/16 @224 bs192's and CaiT-S/24 @224 bs128's FF rows and
     ragged counts: dy2 and dh against the twin, two calls identical."""
@@ -1842,7 +1998,8 @@ def test_int8_dx_plan_matches_the_kernel(card):
     from sav_tpu_torch.ops import int8_ff
     fn = int8_ff._ff_lib('sav_int8_ff_dx_plan')
     for m, d, f in ((37824, 768, 3072), (25088, 384, 1536), (1003, 768, 3072),
-                    (1, 768, 3072), (77, 320, 704)):
+                    (1, 768, 3072), (77, 320, 704), (25088, 288, 1152),
+                    (77, 96, 160)):
         out = (ctypes.c_longlong * 10)()
         assert fn(m, d, f, out) == 0
         plan = int8_ff.int8_dx_plan(m, d, f)
@@ -1851,7 +2008,7 @@ def test_int8_dx_plan_matches_the_kernel(card):
                              plan['units']['dy'], plan['stages']['dh'],
                              plan['stages']['dy'], plan['parts'], plan['smem'],
                              plan['workspace']]
-    assert fn(16, 96, 3072, (ctypes.c_longlong * 10)()) != 0
+    assert fn(16, 80, 3072, (ctypes.c_longlong * 10)()) != 0
 
 
 def _ff_pair(x, ln, w, save_hpre):
@@ -1868,7 +2025,8 @@ def _ff_pair(x, ln, w, save_hpre):
 # bs192 and bs32 (K12), CaiT-S/24 bs128 and bs32 (K12)
 FF_PATH_SHAPES = [(192 * 197, 768, 3072), (32 * 197, 768, 3072),
                   (192 * 196, 768, 3072), (32 * 196, 768, 3072),
-                  (128 * 196, 384, 1536), (32 * 196, 384, 1536)]
+                  (128 * 196, 384, 1536), (32 * 196, 384, 1536),
+                  (128 * 196, 288, 1152), (32 * 196, 288, 1152)]
 
 
 @pytest.mark.parametrize('m,d,f', FF_PATH_SHAPES)
@@ -1910,8 +2068,9 @@ def test_int8_ff_plan_matches_the_kernel(card):
     for m, d, f in ((37824, 768, 3072), (37632, 768, 3072),
                     (25088, 384, 1536), (6304, 768, 3072), (1003, 768, 3072),
                     (1, 768, 3072), (77, 192, 768), (130, 1024, 4096),
-                    (100, 2048, 512)):
-        out = (ctypes.c_longlong * 11)()
+                    (100, 2048, 512), (6272, 288, 1152), (25088, 288, 1152),
+                    (77, 96, 160), (77, 224, 800)):
+        out = (ctypes.c_longlong * 12)()
         assert fn(m, d, f, out) == 0
         plan = int8_ff.int8_ff_plan(m, d, f)
         assert list(out) == [plan['row_tiles'], plan['col_tiles']['hidden'],
@@ -1919,13 +2078,14 @@ def test_int8_ff_plan_matches_the_kernel(card):
                              plan['units']['absmax'], plan['units']['out'],
                              plan['stages']['hidden'], plan['stages']['out'],
                              plan['parts'], plan['smem'], plan['workspace'],
-                             int(plan['out_pairs'])]
-    assert fn(16, 96, 3072, (ctypes.c_longlong * 11)()) != 0
-    assert fn(0, 768, 3072, (ctypes.c_longlong * 11)()) != 0
+                             int(plan['out_pairs']), plan['transposes']]
+    assert fn(16, 80, 3072, (ctypes.c_longlong * 12)()) != 0
+    assert fn(0, 768, 3072, (ctypes.c_longlong * 12)()) != 0
 
 
 @pytest.mark.parametrize('m,d,f', [(1003, 768, 3072), (1003, 384, 1536),
-                                   (1, 192, 768), (333, 2048, 512)])
+                                   (1, 192, 768), (333, 2048, 512),
+                                   (1003, 288, 1152), (77, 224, 800)])
 def test_int8_ff_writes_no_row_past_m(card, m, d, f):
     """K12 and K13, with and without hpre, through ``_int8_ff_into`` into
     NaN-sentinel buffers 64 rows longer: the rows in range match the twins,
@@ -1981,7 +2141,8 @@ def test_th_q8_plan_matches_the_kernel(card):
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for b, l, d, h in ((32, 196, 384, 8), (32, 196, 192, 4), (3, 250, 384, 8),
                        (2, 17, 128, 8), (1, 1, 768, 4), (32, 196, 768, 16),
-                       (3, 250, 768, 16)):
+                       (3, 250, 768, 16), (32, 196, 288, 6), (3, 197, 288, 6),
+                       (2, 17, 96, 6)):
         out = (ctypes.c_longlong * 21)()
         assert fn(b, l, d, h, out) == 0
         p = th_attention.th_q8_plan(b, l, d, h)
@@ -1991,13 +2152,14 @@ def test_th_q8_plan_matches_the_kernel(card):
              p['slots']['out'], p['smem']['qkv'], p['smem']['out'],
              p['smem']['core'], p['core_tiles'], p['workspace']]
             + [p['scratch'][r][0] for r in th_attention.Q8_REGIONS])
-    assert fn(2, 17, 96, 8, (ctypes.c_longlong * 21)()) != 0
-    assert fn(2, 17, 384, 6, (ctypes.c_longlong * 21)()) != 0
+    assert fn(2, 17, 80, 8, (ctypes.c_longlong * 21)()) != 0
+    assert fn(2, 17, 384, 10, (ctypes.c_longlong * 21)()) != 0
 
 
 @pytest.mark.parametrize('b,seq,dim,heads', [(2, 197, 768, 16),
                                             (3, 250, 768, 16),
-                                            (2, 197, 384, 8)])
+                                            (2, 197, 384, 8),
+                                            (2, 197, 288, 6)])
 def test_k11_codes_match_the_quantiser_on_k6a_bands(card, b, seq, dim, heads):
     """K11's core takes the bands' codes in its store (at H = 16 over two
     passes of 8 heads, the row absmax combined first): the codes and row
@@ -2052,7 +2214,8 @@ def test_quantizer_matches_the_division(card):
 
 @pytest.mark.parametrize('seq,dim,heads', [(197, 384, 8), (250, 384, 8),
                                            (197, 192, 4), (1, 192, 4),
-                                           (197, 768, 16), (1, 768, 16)])
+                                           (197, 768, 16), (1, 768, 16),
+                                           (197, 288, 6), (1, 288, 6)])
 def test_th_attention_q8_writes_no_row_past_the_length(card, seq, dim,
                                                        heads):
     """K11 through ``_th_q8_into`` into a NaN-sentinel buffer 64 rows
@@ -2104,6 +2267,7 @@ def test_q8_kernels_repeat_bitwise_over_queued_calls(card):
 @pytest.mark.parametrize('name,quantized,dense_fused,want', [
     ('cait_s_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
     ('cait_xxs_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
+    ('cait_xs_24', 'all', False, {'th_attention_q8': 2, 'int8_ff': 2}),
     ('vit_b_patch16', True, True, {'fused_attention_fwd': 2,
                                    'int8_matmul': 4}),
     ('vit_ti_patch16', 'all', False, {'flash_fwd': 2, 'int8_ff_ln': 2})])

@@ -99,7 +99,7 @@ def test_plan_workspace_holds_what_the_kernels_write(m, dim, hidden):
     assert 0 < plan['smem'] <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize('m,dim,hidden', [(0, 768, 3072), (16, 96, 3072),
+@pytest.mark.parametrize('m,dim,hidden', [(0, 768, 3072), (16, 80, 3072),
                                           (16, 768, 3000), (16, 0, 256),
                                           (16, 768, 32)])
 def test_plan_refuses_what_the_kernels_do_not_take(m, dim, hidden):

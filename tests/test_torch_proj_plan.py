@@ -12,9 +12,12 @@ entry ``sav_proj_plan``):
 * its shared memory fits a block's 232,448 bytes;
 * D = 192 (ceit_t, vit_ti): one 192-wide tile a row tile and weight,
   three 64-deep steps, as ``proj_takes`` (the C ``proj::takes``) says;
-* widths no tile divides (not multiples of 128 or 192), depths that are
-  not whole 64-deep steps and weight counts other than 1 and 3 raise
-  ValueError.
+* widths no tile divides but multiples of 32 (cait_xs's 288, K5a's) take
+  ceil(N / bn) tiles a weight, the last ragged, and ceil(K / 64) steps,
+  as ``proj_takes_ragged`` (the C ``proj::takes_ragged``) says; the tiles
+  that divide N are the only ones where any does;
+* widths or depths that are not multiples of 32 and weight counts other
+  than 1 and 3 raise ValueError.
 """
 
 import numpy as np
@@ -42,7 +45,9 @@ CEIT_T_SERVE, CEIT_T_TRAIN = 32 * 197, 64 * 197
     (TNT_B_TRAIN, 640, 1, 128),
     # D = 192: no other tile divides it
     (CEIT_T_SERVE, 192, 3, 192), (CEIT_T_SERVE, 192, 1, 192),
-    (CEIT_T_TRAIN, 192, 3, 192), (CEIT_T_TRAIN, 576, 3, 192)])
+    (CEIT_T_TRAIN, 192, 3, 192), (CEIT_T_TRAIN, 576, 3, 192),
+    # cait_xxs's D = 192 under K5a at CaiT-S/24's rows
+    (CAIT_S_SERVE, 192, 3, 192), (CAIT_S_TRAIN, 192, 1, 192)])
 def test_plan_picks_the_tile(m, n, parts, want):
     plan = fl.proj_plan(m, n, parts, n if parts == 1 else 768, SMS)
     assert plan['bn'] == want
@@ -87,8 +92,8 @@ def test_plan_fits_a_block(m, n):
         assert plan['steps'] == 768 // 64
 
 
-@pytest.mark.parametrize('n,k,parts', [(320, 384, 3), (384, 160, 3),
-                                       (320, 768, 1), (384, 384, 2),
+@pytest.mark.parametrize('n,k,parts', [(304, 384, 3), (384, 144, 3),
+                                       (304, 768, 1), (384, 384, 2),
                                        (384, 384, 0)])
 def test_plan_refuses_what_the_kernel_does_not_take(n, k, parts):
     with pytest.raises(ValueError):
@@ -111,3 +116,39 @@ def test_plan_takes_192_wide_outputs_and_64_deep_steps(n, k):
 def test_plan_refuses_no_rows():
     with pytest.raises(ValueError):
         fl.proj_plan(0, 384, 3, 384, SMS)
+
+
+@pytest.mark.parametrize('m', [1, 129, 591, 6272, 25088])
+@pytest.mark.parametrize('n,k,parts', [(288, 288, 3), (288, 288, 1),
+                                       (320, 384, 3), (384, 160, 3),
+                                       (96, 288, 3), (288, 96, 1)])
+def test_ragged_widths_take_ceiling_tiles(m, n, k, parts):
+    """cait_xs's D = H*48 = 288 (and the CPU tests' 96) is no whole tile:
+    every tile width is a candidate, a weight takes ceil(N / bn) tiles
+    whose last one is ragged and never reaches the next weight, and the
+    depth ceil(K / 64) steps, the last one ragged."""
+    assert not fl.proj_takes(n, k) and fl.proj_takes_ragged(n, k)
+    plan = fl.proj_plan(m, n, parts, k, SMS)
+    bn = plan['bn']
+    per = -(-n // bn)
+    assert plan['units'] == -(-m // 128) * parts * per
+    assert plan['steps'] == -(-k // 64) and (plan['steps'] - 1) * 64 < k
+    assert 0 < plan['smem'] <= SMEM_LIMIT
+    seen = np.zeros((-(-m // 128), parts, n // 32), dtype=np.int64)
+    nt = parts * per
+    for u in range(plan['units']):
+        row0, which, col0 = (u // nt) * 128, (u % nt) // per, (u % nt) % per * bn
+        assert col0 < n                        # no unit wholly past the edge
+        seen[row0 // 128, which, col0 // 32:min(col0 + bn, n) // 32] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize('m,n,parts,want', [
+    (CAIT_S_SERVE, 288, 3, 128), (CAIT_S_SERVE, 288, 1, 192),
+    (CAIT_S_TRAIN, 288, 3, 192), (CAIT_S_TRAIN, 288, 1, 192)])
+def test_plan_at_cait_xs_rows(m, n, parts, want):
+    """The tile K5a's GEMMs take at cait_xs_24 @224 (serving B = 32,
+    training B = 128; 288 wide, so every tile is a candidate): at 6272
+    rows nine 128-wide tiles a row tile fill 4 rounds (704 column-costs)
+    against six 192-wide ones' 3 (720)."""
+    assert fl.proj_plan(m, n, parts, 288, SMS)['bn'] == want

@@ -152,9 +152,11 @@ def test_core_twins_agree_with_each_other():
 
 
 @pytest.mark.parametrize('l,heads,dim,want', [
-    (196, 4, 192, 'blocked'),       # cait_xxs: D = 192 is not K1's GEMM tile
-    (576, 4, 192, 'blocked'),
-    (196, 6, 288, None),            # cait_xs: H = 6 is not built
+    (196, 4, 192, 'fused'),         # cait_xxs: D = 192, one 192-wide tile
+    (576, 4, 192, 'fused'),
+    (196, 6, 288, 'fused'),         # cait_xs: D = 288, a ragged last tile
+    (576, 6, 288, 'fused'),
+    (196, 4, 194, 'blocked'),       # D not a multiple of 32: K5a's GEMMs
     (196, 16, 768, 'fused'),        # cait_m: K5 (D = 768 is K1's tile)
     (196, 8, 512, None),            # head_ch 64, not 48
 ])
@@ -164,18 +166,20 @@ def test_router_on_the_card(l, heads, dim, want):
     a head geometry the kernels are not built for raises there."""
     assert th.th_route(l, heads, dim // heads, dim, 'cpu') is None
     if want is None:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+        with pytest.raises(NotImplementedError, match='use_kernel=False'):
             th.th_route(l, heads, dim // heads, dim, 'cuda')
     else:
         assert th.th_route(l, heads, dim // heads, dim, 'cuda') == want
 
 
 @pytest.mark.parametrize('l,heads,dim,want', [
-    (196, 8, 384, True), (576, 8, 384, True), (196, 4, 192, False),
-    (196, 16, 768, True)])
+    (196, 8, 384, True), (576, 8, 384, True), (196, 4, 192, True),
+    (196, 6, 288, True), (196, 16, 768, True), (196, 4, 194, False),
+    (196, 12, 576, False)])
 def test_fused_fits_off_the_card(l, heads, dim, want):
-    """Off the card K5a's twin has no shared-memory budget: only K1's GEMM
-    tiles and the built head counts decide."""
+    """Off the card K5a's twin has no shared-memory budget: only the
+    projection GEMM's widths (multiples of 32) and the built head counts
+    decide."""
     assert th.fused_fits(l, heads, dim, 'cpu') is want
 
 

@@ -152,11 +152,11 @@ def _bands(b, l, heads, seed, head_ch=48, dtype=torch.bfloat16):
 def _refusals():
     q, k, v, do, m = _bands(1, 20, 8, 0)
     _, lse = th.th_core_fwd_plain(q, k, v, *m, 8)
-    q6, k6, v6, do6, m6 = _bands(1, 20, 6, 0)
-    _, lse6 = th.th_core_fwd_plain(q6, k6, v6, *m6, 6)
+    q12, k12, v12, do12, m12 = _bands(1, 20, 12, 0)
+    _, lse12 = th.th_core_fwd_plain(q12, k12, v12, *m12, 12)
     q64, k64, v64, do64, _ = _bands(1, 20, 8, 0, head_ch=64)
     return {
-        'six heads': (q6, k6, v6, do6, lse6, 6),
+        'twelve heads': (q12, k12, v12, do12, lse12, 12),
         'head_ch 64': (q64, k64, v64, do64, lse, 8),
         'float32 bands': (q.float(), k.float(), v.float(), do.float(), lse, 8),
         'lse shape': (q, k, v, do, lse[:, :, :19].contiguous(), 8),
@@ -164,7 +164,7 @@ def _refusals():
     }
 
 
-@pytest.mark.parametrize('case', ['six heads', 'head_ch 64', 'float32 bands',
+@pytest.mark.parametrize('case', ['twelve heads', 'head_ch 64', 'float32 bands',
                                   'lse shape', 'lse device'])
 def test_backward_checks_raise(case):
     with pytest.raises(ValueError):
@@ -285,7 +285,7 @@ def _hold(got, want):
 
 
 @pytest.mark.parametrize('b,l,heads', [(2, 5, 4), (2, 17, 8), (1, 80, 4),
-                                       (1, 130, 8)])
+                                       (1, 130, 8), (2, 37, 6), (1, 80, 6)])
 def test_kernel_algebra_matches_twin(b, l, heads):
     q, k, v, do, m = _bands(b, l, heads, l + heads)
     _, lse = th.th_core_fwd_plain(q, k, v, *m, heads)

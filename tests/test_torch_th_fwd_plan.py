@@ -4,10 +4,11 @@ CPU (``csrc/th_fwd_sm90.cuh``, K6a; the kernel runs only on the card,
 
 * ``th_fwd_plan``, the Python mirror of the kernel's ``Plan`` (read on the
   card through ``sav_th_core_fwd_smem``): the shared memory fits a block's
-  232,448 bytes at H = 4, 8 and 16, the 64-row work tiles and 16-key tiles
-  cover every row and key in every sweep (at H = 16 the lse sweep and one
-  sweep a group of 8 output heads), and a head count the kernel is not
-  built for (H = 6) raises ValueError naming ROADMAP.md Queue 2 item 9.
+  232,448 bytes at H = 4, 6, 8 and 16, the 64-row work tiles and 16-key
+  tiles cover every row and key in every sweep (at H = 16 the lse sweep
+  and one sweep a group of 8 output heads), H = 6's 288 columns are read
+  as 5 boxes of 64 (a ceiling), and a head count the kernel is not built
+  for raises ValueError.
 * ``kernel_algebra``, a test-only torch mirror of the kernel's arithmetic:
   64 query rows against 16-key tiles, the logits pre-mixed with M_pre log2
   e, keys past L set to -inf after the mix, a running max and sum of 2^x
@@ -77,15 +78,21 @@ def test_plan_covers_every_row_and_key(l, heads):
 @pytest.mark.parametrize('heads', [6, 16])
 def test_plan_refuses_unbuilt_heads(heads):
     """A head count is refused exactly where the kernel is not built for
-    it: H = 6 (cait_xs) raises naming its ROADMAP item; H = 16 (cait_m) is
-    built, as two groups of 8 output heads in a block's shared memory."""
-    if heads not in th.KERNEL_HEADS:
-        with pytest.raises(ValueError, match='Queue 2 item 9'):
-            th.th_fwd_plan(576, heads)
-        return
+    it (H = 12 is in no factory config); H = 6 (cait_xs) is built, its 288
+    columns read as 5 boxes of 64 in one group of 6 output heads; H = 16
+    (cait_m) as two groups of 8 output heads in a block's shared memory."""
+    with pytest.raises(ValueError, match='heads of 48'):
+        th.th_fwd_plan(576, 12)
     plan = th.th_fwd_plan(576, heads)
-    assert (plan['group'], plan['groups'], plan['stages']) == (8, 2, 2)
     assert plan['smem'] <= SMEM_LIMIT
+    if heads == 6:
+        assert (plan['group'], plan['groups'], plan['stages'],
+                plan['boxes']) == (6, 1, 4, 5)
+        # q 5 boxes (40 KB), 4 slots of k's 5 boxes and v's 6 (88 KB), the
+        # exchange 24 KB: 156,784 bytes
+        assert plan['smem'] == 156784
+        return
+    assert (plan['group'], plan['groups'], plan['stages']) == (8, 2, 2)
     # q of every head stays resident (96 KB), the ring carries k and the
     # group's v: 214,096 bytes
     assert plan['smem'] == 214096
@@ -117,12 +124,13 @@ def _bands(b, l, heads, seed):
 
 
 def test_forward_checks_raise():
-    """Six heads, head width 64 and f32 bands raise ValueError before any
-    launch (on the CPU ``th_core_fwd`` is the twin)."""
-    q6, k6, v6, _ = _bands(1, 20, 6, 0)
+    """Twelve heads (no factory config has them), head width 64 and f32
+    bands raise ValueError before any launch (on the CPU ``th_core_fwd`` is
+    the twin)."""
+    q12, k12, v12, _ = _bands(1, 20, 12, 0)
     q, k, v, _ = _bands(1, 20, 8, 0)
     wide = torch.zeros(1, 20, 8 * 64, dtype=torch.bfloat16)
-    for *bands, heads in ((q6, k6, v6, 6), (wide, wide, wide, 8),
+    for *bands, heads in ((q12, k12, v12, 12), (wide, wide, wide, 8),
                           (q.float(), k.float(), v.float(), 8)):
         with pytest.raises(ValueError):
             th._check_core(*(t.to('meta') for t in bands), heads)
@@ -191,7 +199,8 @@ def _hold(got, want):
 
 
 @pytest.mark.parametrize('b,l,heads', [(2, 5, 4), (2, 17, 8), (1, 80, 4),
-                                       (1, 130, 8), (2, 21, 16), (1, 70, 16)])
+                                       (1, 130, 8), (2, 21, 16), (1, 70, 16),
+                                       (2, 37, 6), (1, 80, 6)])
 def test_kernel_algebra_matches_twin(b, l, heads):
     q, k, v, m = _bands(b, l, heads, l + heads)
     _hold(kernel_algebra(q, k, v, *m, heads),

@@ -201,9 +201,9 @@ def test_cait_quantized_all_matches_jax():
 
 def test_cait_all_routes(tmp_path):
     """Off the card 'auto' is the per-op path (bf16 attention, FF on K12's
-    twin), as the JAX package off the TPU; on the card a head count the TH
-    kernels are not built for (cait_xs) raises under 'auto', naming its
-    ROADMAP item, and cait_m takes K5 (the decision, taken without a card);
+    twin), as the JAX package off the TPU; on the card cait_xs (6 heads,
+    D = 288) and cait_m take K5 (the decision, taken without a card),
+    a head count the TH kernels are not built for raises under 'auto';
     the Trainer refuses 'all'."""
     model = create_model('cait_xxs_24', num_classes=NUM_CLASSES, img_size=IMG,
                          device='cpu', quantized='all', **CAIT)
@@ -212,8 +212,9 @@ def test_cait_all_routes(tmp_path):
     assert block.th_route(tokens) is None
     for l, heads in ((196, 6), (196, 16)):
         assert tth.th_supported(l, heads, 48)
-    with pytest.raises(NotImplementedError, match='Queue 2 item 9'):
-        tth.th_route(196, 6, 48, 288, 'cuda')
+    assert tth.th_route(196, 6, 48, 288, 'cuda') == 'fused'
+    with pytest.raises(NotImplementedError, match='use_kernel=False'):
+        tth.th_route(196, 12, 48, 576, 'cuda')
     assert tth.th_route(196, 16, 48, 768, 'cuda') == 'fused'
     # @384 (L = 576) th_supported fails: 'all' is the bf16 span there
     assert not tth.th_supported(576, 8, 48)

@@ -106,11 +106,11 @@ def test_plan_fits_and_workspace_regions_lie_apart(b, l, dim, heads):
 
 
 @pytest.mark.parametrize('b,l,dim,heads', [(0, 196, 384, 8), (2, 0, 384, 8),
-                                           (2, 196, 96, 8), (2, 196, 0, 8),
-                                           (2, 196, 384, 6),
+                                           (2, 196, 80, 8), (2, 196, 0, 8),
+                                           (2, 196, 384, 10),
                                            (2, 196, 768, 12)])
 def test_plan_refuses_what_the_kernels_do_not_take(b, l, dim, heads):
-    with pytest.raises(ValueError, match='multiple of 64'):
+    with pytest.raises(ValueError, match='multiple of 32'):
         tth.th_q8_plan(b, l, dim, heads)
 
 
