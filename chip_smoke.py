@@ -221,6 +221,23 @@
    ``th_attention_sublayer(route='blocked')`` at bs128 (24 K6a + 24 K6b
    in a forward and backward), against route 'xla'. cait_xs_24 @384 (K5
    at L = 576) is in the sweep at depth 2.
+17. Real data (slice 13; after 16, before the print of 11): a JPEG
+   ImageFolder tree (10 classes, 640 images at 256-512 px, made by
+   ``scripts/make_jpeg_dataset.py`` in parallel subprocesses) and a tar
+   of it in a temporary directory. Trains ViT-B/16 @224 bs192 (bf16,
+   'auto', ``cutmix_mixup_randaugment_405``) through the Trainer on the
+   folder with a 5% holdout and min(8, cores) loader workers: 12 K1-train
+   + 12 K2 launches in one step and in each of 10 timed steps after 3,
+   loss finite; eval over the holdout counts exactly its 32 images (the
+   padded rows masked). One augmentation draw at bs192 on the 256-px
+   frames, applied on the card and on the CPU, held to
+   ``tests/test_torch_data_augment.py``'s jit tolerance (labels, mix
+   labels and ratios equal). One step each through the tar source and the
+   ``.npz`` route (frames resident on the card). Prints train img/s, the
+   step's wall ms, the host's wait for the next batch, the augmentation's
+   device ms (CUDA events behind a sleep kernel) and host ms a batch,
+   decode ms a batch (summed over its records, in the workers) and the
+   decode tier, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -229,8 +246,12 @@ import argparse
 import ctypes
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tarfile
+import tempfile
 import time
 
 import numpy as np
@@ -238,6 +259,8 @@ import torch
 import torch.nn.functional as F
 
 from sav_tpu_torch import _build
+from sav_tpu_torch import native
+from sav_tpu_torch.data import pipeline as data_pipeline
 from sav_tpu_torch.data.preprocess import eval_preprocess
 from sav_tpu_torch.models import create_model, set_int8_core, set_use_kernel
 from sav_tpu_torch.models.botnet import set_attention_core
@@ -2945,6 +2968,249 @@ def print_module_split(model, fn, iters: int = 3) -> None:
         f'{k} {v:.3f}' for k, v in kinds.items()), flush=True)
 
 
+# the card's augmentation against its CPU run on the same draws:
+# tests/test_torch_data_augment.py's tolerance for a run whose sums are
+# ordered apart (its jitted JAX): share of values within 2e-3 and mean
+# difference on the 0-255 scale
+AUG_SHARE, AUG_MEAN, AUG_TOL = 0.9, 0.25, 2e-3
+
+
+def make_jpeg_tree(workdir: str, classes: int = 10, per_class: int = 64,
+                   procs: int = 8) -> str:
+    """An ImageFolder tree of ``classes`` x ``per_class`` JPEGs at 256-512
+    px under ``workdir/jpegs``: ``scripts/make_jpeg_dataset.py`` run in
+    ``procs`` subprocesses at once (seeds 0..procs-1), their files merged
+    class by class."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'scripts', 'make_jpeg_dataset.py')
+    parts = [os.path.join(workdir, f'part{k}') for k in range(procs)]
+    running = [subprocess.Popen(
+        [sys.executable, script, '--out', part, '--classes', str(classes),
+         '--per-class', str(per_class // procs), '--seed', str(k)],
+        stdout=subprocess.DEVNULL) for k, part in enumerate(parts)]
+    codes = [p.wait(timeout=300) for p in running]
+    if any(codes):
+        raise RuntimeError(f'make_jpeg_dataset.py exited {codes}')
+    root = os.path.join(workdir, 'jpegs')
+    for k, part in enumerate(parts):
+        for cls in sorted(os.listdir(part)):
+            os.makedirs(os.path.join(root, cls), exist_ok=True)
+            for fname in os.listdir(os.path.join(part, cls)):
+                os.replace(os.path.join(part, cls, fname),
+                           os.path.join(root, cls, f'p{k}_{fname}'))
+        shutil.rmtree(part)
+    return root
+
+
+def tar_tree(root: str, path: str) -> str:
+    with tarfile.open(path, 'w') as tar:
+        for cls in sorted(os.listdir(root)):
+            for fname in sorted(os.listdir(os.path.join(root, cls))):
+                tar.add(os.path.join(root, cls, fname),
+                        arcname=f'{cls}/{fname}')
+    return path
+
+
+def device_ms(fn, iters: int = 3) -> float:
+    """Median device ms of ``fn``'s launches: a sleep kernel holds the
+    stream while the host queues them, so the events time the card's work
+    and not the host's gaps between launches."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def check_augment_on_card(checks, frames, labels, config, seed,
+                          profile=False) -> dict:
+    """One draw at the frames' batch, applied on the card and on the CPU;
+    returns the card's device and host ms a batch (with ``profile``, also
+    prints its device time by kernel)."""
+    batch, frame = frames.shape[0], frames.shape[1]
+    x_gpu, y_gpu = frames.cuda(), labels.cuda()
+    draws = data_pipeline.draw(data_pipeline.step_generator(seed, 0), batch,
+                               frame, config, 224, device='cuda')
+    got = data_pipeline.apply(x_gpu, y_gpu, draws, config, 224)
+    want = data_pipeline.apply(frames, labels,
+                               data_pipeline.to_device(draws, 'cpu'),
+                               config, 224)
+    scale = 255.0 * torch.tensor((0.232, 0.228, 0.229))
+    diff = (got['images'].cpu() - want['images']).abs() * scale
+    share = float((diff <= AUG_TOL).float().mean())
+    same = all(torch.equal(got[k].cpu(), want[k])
+               for k in ('labels', 'mix_labels', 'ratio'))
+    checks.expect(
+        share >= AUG_SHARE and float(diff.mean()) <= AUG_MEAN and same
+        and bool(torch.isfinite(got['images']).all()),
+        f'augmentation at bs{batch} on {frame}-px frames, card vs CPU on one '
+        f'draw: {share:.5f} of values within {AUG_TOL} (want >= '
+        f'{AUG_SHARE}), mean difference {float(diff.mean()):.4g} (<= '
+        f'{AUG_MEAN}), max {float(diff.max()):.4g} on the 0-255 scale; '
+        f'labels, mix labels and ratios equal {same}')
+
+    def augment():
+        d = data_pipeline.draw(data_pipeline.step_generator(seed, 1), batch,
+                               frame, config, 224, device='cuda')
+        return data_pipeline.apply(x_gpu, y_gpu, d, config, 224)
+
+    augment()                                   # warm-up
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        augment()
+    host = (time.perf_counter() - start) / 3 * 1e3
+    torch.cuda.synchronize()
+    if profile:
+        print_profile(augment, iters=2)
+    return {'device_ms': device_ms(augment), 'host_ms': host}
+
+
+def one_step(checks, trainer, data, what) -> None:
+    """One train step on ``data``'s first batch: K1-train + K2 counts and a
+    finite loss."""
+    batch = data.batch(0)
+    _build.reset_launches()
+    loss = float(trainer.train_step(batch)['loss'])
+    counts = dict(_build.launches)
+    checks.expect(counts == {'fused_attention_fwd_train': 12,
+                             'flash_bwd_fused': 12} and math.isfinite(loss),
+                  f'{what}: one step, launches {counts}, loss {loss:.5g}')
+
+
+def data_phase(checks, seed: int, smi: str, steps: int = 10,
+               profile: bool = False) -> dict:
+    """Real-data training on the card (item 17 of the module docstring);
+    returns the phase's numbers."""
+    from sav_tpu_torch.train import steps as train_steps
+    from sav_tpu_torch.train.loop import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix='sav_data_')
+    trainer = data = None
+    try:
+        root = make_jpeg_tree(workdir)
+        tar_path = tar_tree(root, os.path.join(workdir, 'jpegs.tar'))
+        n = sum(len(os.listdir(os.path.join(root, c)))
+                for c in os.listdir(root))
+        t_made = time.perf_counter() - t_phase
+        workers = min(8, os.cpu_count() or 1)
+        config = TrainConfig(model_name='vit_b_patch16', img_size=224,
+                             batch_size=192, seed=seed, dtype='bfloat16',
+                             num_classes=10, dataset=root,
+                             holdout_fraction=0.05, data_workers=workers)
+        trainer = Trainer(config, device='cuda')
+        data = trainer.dataset()
+        want = {'fused_attention_fwd_train': 12, 'flash_bwd_fused': 12}
+        first = data.batch(0)
+        _build.reset_launches()
+        loss = float(trainer.train_step(first)['loss'])
+        counts = dict(_build.launches)
+        checks.expect(counts == want and math.isfinite(loss),
+                      f'real data ViT-B/16 @224 bs192: launches per step '
+                      f'{counts} (want {want}), loss {loss:.5g} finite')
+        for step in (1, 2):                               # warm-up
+            trainer.train_step(data.batch(step))
+        torch.cuda.synchronize()
+        for key in data.stats:
+            data.stats[key] = 0
+        _build.reset_launches()
+        start = time.perf_counter()
+        for step in range(3, 3 + steps):
+            metrics = trainer.train_step(data.batch(step))
+        loss = float(metrics['loss'])
+        secs = time.perf_counter() - start
+        counts = dict(_build.launches)
+        timed = {k: v * steps for k, v in want.items()}
+        checks.expect(counts == timed and math.isfinite(loss),
+                      f'real data: {steps} timed steps launched {counts} '
+                      f'(want {timed}), loss {loss:.5g} finite')
+        stats = dict(data.stats)
+        native_share = stats['native'] / max(stats['decoded'], 1)
+        if profile:
+            following = iter(range(3 + steps, 10 ** 6))
+            print_profile(lambda: trainer.train_step(
+                data.batch(next(following))), iters=2)
+
+        eval_data = trainer.dataset(seed_offset=1, training=False)
+        held = len(data_pipeline.split_indices(n, 0.95, 1.0))
+        count, padded = 0.0, 0.0
+        try:
+            for step in range(eval_data.num_batches):
+                batch = eval_data.batch(step)
+                padded += float((batch['mask'] == 0).sum())
+                out = train_steps.eval_step(trainer.state, batch,
+                                            num_classes=10)
+                count += float(out['eval_count'])
+            ev = trainer.evaluate(eval_data)
+        finally:
+            eval_data.close()
+        checks.expect(count == held and padded == 192 * eval_data.num_batches
+                      - held and math.isfinite(ev['eval_loss']),
+                      f'real data: holdout eval counted {count:.0f} of the '
+                      f'{held} held-out images ({padded:.0f} padded rows '
+                      f'masked), eval loss {ev["eval_loss"]:.5g}')
+
+        frames = torch.from_numpy(np.stack(
+            [data.source[i]['image'] for i in range(192)]))
+        labels = torch.from_numpy(np.asarray(
+            [data.source[i]['label'] for i in range(192)], np.int64))
+        aug = check_augment_on_card(checks, frames, labels, data.config,
+                                    seed, profile)
+        data.close()
+
+        tar_data = data_pipeline.create_dataset(
+            tar_path, 192, 224, num_classes=10, seed=seed, device='cuda',
+            augmentation=config.augmentation, num_workers=workers,
+            split=('train', 0.0, 0.95))
+        try:
+            one_step(checks, trainer, tar_data,
+                     'real data, the tar source (JpegTarSource)')
+        finally:
+            tar_data.close()
+        npz_path = os.path.join(workdir, 'frames.npz')
+        np.savez(npz_path, images=frames.numpy(), labels=labels.numpy())
+        npz_data = data_pipeline.create_dataset(
+            npz_path, 192, 224, num_classes=10, seed=seed, device='cuda',
+            augmentation=config.augmentation)
+        one_step(checks, trainer, npz_data, 'real data, the .npz route '
+                 '(AugmentedArrayDataset, frames on the card)')
+    finally:
+        if data is not None:
+            data.close()
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = {
+        'images': n, 'made_s': t_made, 'workers': workers,
+        'img_per_s': steps * 192 / secs, 'step_ms': secs / steps * 1e3,
+        'wait_ms': stats['wait_s'] / steps * 1e3,
+        'decode_ms': stats['decode_s'] / max(stats['batches'], 1) * 1e3,
+        'native_share': native_share, 'tier': native.status(),
+        'augment_device_ms': aug['device_ms'], 'augment_host_ms': aug['host_ms'],
+    }
+    print(f'  {smi}: real data ViT-B/16 @224 bs192 on {n} JPEGs ({workers} '
+          f'workers): {record["img_per_s"]:.1f} train img/s, '
+          f'{record["step_ms"]:.2f} ms a step (wall), host wait for the '
+          f'next batch {record["wait_ms"]:.2f} ms a step; augmentation '
+          f'{record["augment_device_ms"]:.2f} device ms and '
+          f'{record["augment_host_ms"]:.2f} host ms a batch; decode '
+          f'{record["decode_ms"]:.1f} ms a batch (summed over its records, '
+          f'in the workers); decode tier {record["tier"]} '
+          f'({100 * native_share:.1f}% of records native)', flush=True)
+    print(f'  the data phase took {time.perf_counter() - t_phase:.1f} s '
+          f'(the JPEGs made in {t_made:.1f} s)', flush=True)
+    print('  data: ' + json.dumps(record), flush=True)
+    return record
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3431,6 +3697,7 @@ def main(argv=None):
                            '@224 bs128', 128, 196, 6, 24, args.seed)
     print(f'  the CaiT-XS phase took {time.perf_counter() - t_xs:.1f} s',
           flush=True)
+    data_phase(checks, args.seed, smi, profile=args.profile)
 
     def cvt_fields(prefix, recs, keys=('ms', 'bound_ms', 'bound_by',
                                        'plain_ms', 'library_ms')):

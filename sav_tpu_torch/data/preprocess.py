@@ -1,6 +1,9 @@
-"""Batched on-device eval preprocessing (counterpart of
-``sav_tpu/data/preprocess.py``: ``normalize``, ``central_crop_resize``,
-``eval_preprocess``).
+"""Batched on-device preprocessing (counterpart of
+``sav_tpu/data/preprocess.py``): the eval transform (``normalize``,
+``central_crop_resize``, ``eval_preprocess``) and the train half
+(``random_resized_crop``, ``random_flip``, ``train_preprocess``,
+``train_cifar_preprocess``), whose random parameters come from the
+``draw_*`` functions so a caller may supply its own.
 
 Images are ``[N, H, W, C]`` float32 in [0, 255], on any device. The crop +
 resize reproduces ``jax.image.scale_and_translate(method='bilinear')`` with
@@ -10,9 +13,11 @@ widened by the downscale factor, columns normalised, samples outside the
 input zeroed), applied as two small products. ``F.interpolate`` samples at
 other centres and has no translation, so it is not used.
 
-The weight matrices and channel statistics are made once per shape and
-device and kept there: a copy from pageable host memory would make the
-host wait for all queued device work on every batch.
+The eval weight matrices and channel statistics are made once per shape
+and device and kept there: a copy from pageable host memory would make the
+host wait for all queued device work on every batch. The train crop's
+windows differ per example, so its weights are built on the device,
+batched (``image_ops.resize_windows``), from the drawn windows.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from sav_tpu_torch.data import constants
+from sav_tpu_torch.data import constants, image_ops
 
 
 @functools.lru_cache(maxsize=16)
@@ -92,3 +97,78 @@ def central_crop_resize(images: torch.Tensor, out_size: int,
 def eval_preprocess(images: torch.Tensor, out_size: int) -> torch.Tensor:
     """The eval transform of a batch: crop + resize, then normalize."""
     return normalize(central_crop_resize(images, out_size))
+
+
+def draw_crop(generator: torch.Generator, batch: int, height: int, width: int,
+              area_range=(0.05, 1.0), ratio_range=(3 / 4, 4 / 3)):
+    """``[N, 4]`` float32 windows ``(y0, x0, crop_h, crop_w)`` of the
+    Inception-style distorted-bbox crop: one sample per example (no retry
+    loop), clipped to the frame, as the JAX function draws them."""
+    f32 = torch.float32
+
+    def uniform(lo, hi):
+        u = torch.rand(batch, generator=generator, dtype=f32)
+        return u * (hi - lo) + lo
+
+    area = uniform(area_range[0], area_range[1]) * height * width
+    lo = torch.log(torch.tensor(ratio_range[0], dtype=f32))
+    hi = torch.log(torch.tensor(ratio_range[1], dtype=f32))
+    ratio = torch.exp(uniform(lo, hi))
+    crop_w = torch.sqrt(area * ratio).clamp(1.0, width)
+    crop_h = torch.sqrt(area / ratio).clamp(1.0, height)
+    y0 = torch.rand(batch, generator=generator, dtype=f32) * (height - crop_h)
+    x0 = torch.rand(batch, generator=generator, dtype=f32) * (width - crop_w)
+    return torch.stack([y0, x0, crop_h, crop_w], dim=1)
+
+
+def random_resized_crop(images: torch.Tensor, crop: torch.Tensor,
+                        out_size: int) -> torch.Tensor:
+    """Each example's window ``crop[n] = (y0, x0, crop_h, crop_w)`` resized
+    to ``out_size``^2, as ``jax.image.scale_and_translate(bilinear,
+    antialias=True)`` resizes it."""
+    crop = image_ops.on_device(crop, images.device, torch.float32)
+    y0, x0, crop_h, crop_w = crop.unbind(1)
+    side = image_ops.const(out_size, crop)
+    scale_h = side / crop_h
+    scale_w = side / crop_w
+    return image_ops.resize_windows(images, scale_h, -y0 * scale_h, scale_w,
+                                    -x0 * scale_w, out_size, out_size)
+
+
+def draw_flip(generator: torch.Generator, batch: int) -> torch.Tensor:
+    """``[N]`` bool, True with probability 1/2."""
+    return torch.rand(batch, generator=generator) < 0.5
+
+
+def random_flip(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """Mirrors the examples whose ``flip`` bit is set (left-right)."""
+    flip = image_ops.on_device(flip, images.device).reshape(-1, 1, 1, 1)
+    return torch.where(flip, images.flip(2), images)
+
+
+def train_preprocess(images: torch.Tensor, crop, flip,
+                     out_size: int) -> torch.Tensor:
+    """Random resized crop + flip (reference: preprocess.py:80-93)."""
+    return random_flip(random_resized_crop(images, crop, out_size), flip)
+
+
+def draw_cifar(generator: torch.Generator, batch: int):
+    """``(y0, x0, flip)`` of ``train_cifar_preprocess``: offsets uniform in
+    [0, 9), flip bits."""
+    y0 = torch.randint(0, 9, (batch,), generator=generator)
+    x0 = torch.randint(0, 9, (batch,), generator=generator)
+    return y0, x0, draw_flip(generator, batch)
+
+
+def train_cifar_preprocess(images: torch.Tensor, y0, x0, flip) -> torch.Tensor:
+    """CIFAR-style train transform: pad to 36, each example's 32x32 crop at
+    ``(y0, x0)``, flip (reference: data/preprocess/preprocess.py:96-108)."""
+    n = images.shape[0]
+    padded = torch.nn.functional.pad(images, (0, 0, 4, 4, 4, 4))
+    device = images.device
+    span = torch.arange(32, device=device)
+    rows = image_ops.on_device(y0, device).reshape(n, 1) + span
+    cols = image_ops.on_device(x0, device).reshape(n, 1) + span
+    batch = torch.arange(n, device=device).reshape(n, 1, 1)
+    cropped = padded[batch, rows[:, :, None], cols[:, None, :]]
+    return random_flip(cropped, flip)

@@ -5,8 +5,17 @@ Example:
     python -m sav_tpu_torch.train --data_dir synthetic -m vit_b_patch16 \\
         -c /tmp/ckpt -b 192 --total_steps 100
 
-Runs on the card unless ``--device cpu``. ``--augmentation`` is accepted
-and unused on the synthetic source, as in the JAX package. Flags of
+    python -m sav_tpu_torch.train --data_dir /data/jpegs -m vit_b_patch16 \\
+        -c /tmp/ckpt -b 192 --data_workers 8
+
+Runs on the card unless ``--device cpu``. ``--data_dir`` names the source:
+``synthetic``, ``synthetic_augmented``, an ``.npz`` file, an npz-shard
+glob or directory, a ``.tar`` of ``<class>/<file>.jpg`` (or a directory of
+them) or an ImageFolder tree of JPEGs, each with an optional
+``?split=train[:90%]``. Real sources are augmented on the device
+(``--augmentation``, unused on the synthetic source, as in the JAX
+package); eval runs on ``--eval_data_dir`` or the last
+``--holdout_fraction`` of the source, without augmentation. Flags of
 features the port does not run yet are accepted at their defaults only;
 any other value raises NotImplementedError naming the ROADMAP.md item.
 """
@@ -21,7 +30,11 @@ from sav_tpu_torch.train.loop import IMAGENET_TRAIN_IMAGES, TrainConfig, Trainer
 def _parser():
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--data_dir', required=True,
-                   help="dataset: 'synthetic' (the only source ported)")
+                   help="dataset: 'synthetic', 'synthetic_augmented', an "
+                        '.npz file, an npz-shard glob or directory, a .tar '
+                        'of <class>/<file>.jpg or a directory of them, or '
+                        'an ImageFolder tree of JPEGs; optional '
+                        '?split=train[:90%%]')
     p.add_argument('-s', '--img_size', type=int, default=224)
     p.add_argument('-e', '--num_epochs', type=int, default=300)
     p.add_argument('-b', '--batch_size', type=int, default=32)

@@ -1,13 +1,16 @@
 """Training orchestration on one device: config, metric logging and the
 train loop (counterpart of ``sav_tpu/train/loop.py``).
 
-What runs: the synthetic source, the step loop with periodic metrics,
-evaluation every ``eval_every_epochs`` and at the end, and ``params.npz``
-checkpoints (the flax params tree, ``/`` keys, and a BatchNorm model's
-running statistics under ``batch_stats/``; what the port's ``predict -c``
-reads) at the checkpoint cadence and at the end. Real datasets, mesh
-parallelism, remat, quantization, chained dispatch, fine-tuning, resume
-and optimizer-state checkpoints are refused with their ROADMAP.md item.
+What runs: the synthetic source and real data (``.npz`` arrays and
+shards, JPEG folders and tars through the host loader, augmented on the
+device; eval on ``eval_dataset`` or a disjoint ``holdout_fraction`` tail,
+without augmentation), the step loop with periodic metrics, evaluation
+every ``eval_every_epochs`` and at the end, and ``params.npz`` checkpoints
+(the flax params tree, ``/`` keys, and a BatchNorm model's running
+statistics under ``batch_stats/``; what the port's ``predict -c`` reads)
+at the checkpoint cadence and at the end. Mesh parallelism, remat,
+chained dispatch, fine-tuning, resume and optimizer-state checkpoints are
+refused with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from sav_tpu_torch import resolve_device
-from sav_tpu_torch.data.synthetic import SyntheticDataset
+from sav_tpu_torch.data.pipeline import create_dataset, parse_dataset_spec
 from sav_tpu_torch.models import create_model
 from sav_tpu_torch.train import steps as steps_lib
 from sav_tpu_torch.train.state import (DTYPES, TrainState, build_optimizer,
@@ -92,10 +95,6 @@ class TrainConfig:
 
 # field -> (the only value the port runs, what it waits for)
 UNPORTED = {
-    'dataset': ('synthetic', 'real data sources: Queue 1 item 5'),
-    'eval_dataset': (None, 'real data sources: Queue 1 item 5'),
-    'holdout_fraction': (0.05, 'real data sources: Queue 1 item 5'),
-    'data_workers': (0, 'real data sources: Queue 1 item 5'),
     'prefetch_chunks': (2, 'chained dispatch over host data: Queue 1 item 6'),
     'model_parallelism': (1, 'the parallel tier: Queue 1 item 13'),
     'pipeline_parallelism': (1, 'the parallel tier: Queue 1 item 13'),
@@ -208,11 +207,31 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.logger = MetricLogger(use_wandb=use_wandb)
 
-    def dataset(self, seed_offset: int = 0) -> SyntheticDataset:
+    def dataset(self, seed_offset: int = 0, training: bool = True):
+        """The train (or eval) dataset on the Trainer's device. Eval data
+        goes through ``eval_preprocess`` with no augmentation (the
+        reference evaluates a clean split, data/input_pipeline.py:357-377).
+        Where train and eval share one real source with no split given,
+        eval takes the last ``holdout_fraction`` of its fixed permutation
+        and training the rest: disjoint by construction."""
         c = self.config
-        return SyntheticDataset(c.batch_size, c.img_size,
-                                num_classes=c.num_classes,
-                                seed=c.seed + seed_offset, device=self.device)
+        name = c.dataset if training else (c.eval_dataset or c.dataset)
+        split = None
+        base, inline = parse_dataset_spec(name)
+        if (name != 'synthetic' and inline is None and c.eval_dataset is None
+                and c.holdout_fraction and not base.startswith('tfds:')):
+            h = c.holdout_fraction
+            split = (('train', 0.0, 1.0 - h) if training
+                     else ('holdout', 1.0 - h, 1.0))
+            if training:
+                print(f'no eval_dataset/split given: holding out the last '
+                      f'{100 * h:.1f}% of {base!r} for eval', flush=True)
+        return create_dataset(name, batch_size=c.batch_size,
+                              image_size=c.img_size,
+                              num_classes=c.num_classes,
+                              seed=c.seed + seed_offset, device=self.device,
+                              augmentation=c.augmentation, training=training,
+                              num_workers=c.data_workers, split=split)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         c = self.config
@@ -227,14 +246,24 @@ class Trainer:
 
     def evaluate(self, dataset,
                  num_batches: Optional[int] = None) -> Dict[str, float]:
-        """Mean eval metrics over ``num_batches`` (16 for the infinite
-        synthetic source, as in the JAX package)."""
+        """Mean eval metrics over ``num_batches``: by default every batch
+        of a finite source (its ``num_batches``), 16 of an endless one, as
+        in the JAX package; a finite source that ends early stops the walk
+        (``StopIteration``)."""
+        if num_batches is None:
+            num_batches = getattr(dataset, 'num_batches', None) or 16
         sums = None
-        for step in range(num_batches or 16):
-            out = steps_lib.eval_step(self.state, dataset.batch(step),
+        for step in range(num_batches):
+            try:
+                batch = dataset.batch(step)
+            except StopIteration:
+                break
+            out = steps_lib.eval_step(self.state, batch,
                                       num_classes=self.config.num_classes,
                                       use_ema=self.config.ema_decay is not None)
             sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+        if sums is None:
+            return {}
         count = max(float(sums.pop('eval_count')), 1.0)
         return {k: float(v) / count for k, v in sums.items()}
 
@@ -253,9 +282,17 @@ class Trainer:
         os.replace(tmp, self.checkpoint_path)
 
     def run(self) -> Dict[str, float]:
-        c = self.config
         train_data = self.dataset()
-        eval_data = self.dataset(seed_offset=1)
+        eval_data = self.dataset(seed_offset=1, training=False)
+        try:
+            return self._loop(train_data, eval_data)
+        finally:
+            for data in (train_data, eval_data):
+                if hasattr(data, 'close'):
+                    data.close()
+
+    def _loop(self, train_data, eval_data) -> Dict[str, float]:
+        c = self.config
         steps_per_eval = c.steps_per_epoch * c.eval_every_epochs
         steps_per_ckpt = c.steps_per_epoch * c.checkpoint_every_epochs
         last_metrics: Dict[str, float] = {}

@@ -296,10 +296,10 @@ def test_cli_trains_with_switchback(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flag', [
-    ['--data_dir', '/data/imagenet'], ['--model_parallelism', '2'],
+    ['--prefetch_chunks', '3'], ['--model_parallelism', '2'],
     ['--scan_layers'], ['--remat', 'full'], ['--pipeline_parallelism', '2'],
     ['--steps_per_dispatch', '4'], ['--finetune_from', 'x'],
-    ['--eval_data_dir', 'x'], ['--data_workers', '2']])
+    ['--pipeline_microbatches', '8'], ['--finetune_use_ema']])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     argv = ['--device', 'cpu', '--data_dir', 'synthetic', '-m',
             'vit_ti_patch16', '-c', str(tmp_path)] + flag

@@ -323,3 +323,166 @@ def torch_cvt(variables, **kwargs):
                                **kwargs)
     model.load_state_dict(flax_to_torch(variables), strict=True)
     return model
+
+
+# ---------------------------------------------------------------- data
+# The JAX package's augmentation key tree (sav_tpu/data/pipeline.py:155-181
+# and the functions it calls), reproduced with jax.random: the draws JAX
+# takes for a batch, in the port's draws format (sav_tpu_torch.data.
+# pipeline.draw), so the port's ``apply`` can be held to JAX's output.
+
+def _jax_crop(rng, height, width, area_range=(0.05, 1.0),
+              ratio_range=(3 / 4, 4 / 3)):
+    r_area, r_ratio, r_y, r_x = jax.random.split(rng, 4)
+    area = jax.random.uniform(r_area, (), minval=area_range[0],
+                              maxval=area_range[1]) * height * width
+    log_ratio = jax.random.uniform(r_ratio, (), minval=jnp.log(ratio_range[0]),
+                                   maxval=jnp.log(ratio_range[1]))
+    ratio = jnp.exp(log_ratio)
+    crop_w = jnp.clip(jnp.sqrt(area * ratio), 1.0, width)
+    crop_h = jnp.clip(jnp.sqrt(area / ratio), 1.0, height)
+    y0 = jax.random.uniform(r_y, ()) * (height - crop_h)
+    x0 = jax.random.uniform(r_x, ()) * (width - crop_w)
+    return jnp.stack([y0, x0, crop_h, crop_w])
+
+
+def _jax_erase(rng, size, erase_prob, min_area=0.02, max_area=1 / 3,
+               min_aspect=0.3):
+    r_apply, r_area, r_aspect, r_y, r_x, r_noise = jax.random.split(rng, 6)
+    target = jax.random.uniform(r_area, (), minval=min_area,
+                                maxval=max_area) * size * size
+    ratio = jnp.exp(jax.random.uniform(
+        r_aspect, (), minval=jnp.log(min_aspect),
+        maxval=jnp.log(1.0 / min_aspect)))
+    half_h = jnp.clip(jnp.sqrt(target * ratio).astype(jnp.int32) // 2, 1,
+                      size // 2)
+    half_w = jnp.clip(jnp.sqrt(target / ratio).astype(jnp.int32) // 2, 1,
+                      size // 2)
+    cy = jax.random.randint(r_y, (), 0, size)
+    cx = jax.random.randint(r_x, (), 0, size)
+    noise = jax.random.normal(r_noise, (size, size, 3), jnp.float32)
+    apply = jax.random.uniform(r_apply, ()) < erase_prob
+    return apply, jnp.stack([cy, cx, half_h, half_w]), noise
+
+
+def _jax_randaugment(rng, ra):
+    """Per-layer (op, level, sign, apply) and the trailing cutout centers
+    of sav_tpu.data.randaugment.RandAugment.__call__."""
+    rng_cut, *layer_rngs = jax.random.split(rng, ra.num_layers + 1)
+    ops, levels, signs, applies = [], [], [], []
+    for layer_rng in layer_rngs:
+        rng_branch, rng_apply, rng_level, rng_sign, _ = jax.random.split(
+            layer_rng, 5)
+        levels.append(ra._sample_level(rng_level))
+        ops.append(jax.random.randint(rng_branch, (), 0, 16))
+        signs.append(jax.random.bernoulli(rng_sign, 0.5))
+        applies.append(jax.random.uniform(rng_apply, ()) < ra.prob_to_apply
+                       if ra.prob_to_apply is not None else jnp.bool_(True))
+    ry, rx = jax.random.split(rng_cut)
+    cut = (jax.random.randint(ry, (), 0, ra.size),
+           jax.random.randint(rx, (), 0, ra.size))
+    return (jnp.stack(ops), jnp.stack(levels), jnp.stack(signs),
+            jnp.stack(applies), cut)
+
+
+def _jax_jitter(rng, strength):
+    rng_perm, _, *op_rngs = jax.random.split(rng, 7)
+    b = c = s = 0.8 * strength
+    h = 0.2 * strength
+    bounds = [(1.0 - b, 1.0 + b), (max(0.0, 1 - c), 1 + c),
+              (max(0.0, 1 - s), 1 + s), (-h, h)]
+    order = jax.random.permutation(rng_perm, 4)
+    factors = []
+    for slot in range(4):
+        cands = jnp.stack([jax.random.uniform(op_rngs[slot], (), minval=lo,
+                                              maxval=hi) for lo, hi in bounds])
+        factors.append(cands[order[slot]])
+    return order, jnp.stack(factors)
+
+
+def _jax_mix(rng, batch, size, config):
+    rng_branch, rng_apply, rng_mix, rng_cut = jax.random.split(rng, 4)
+    branches = int(bool(config.mixup_alpha)) + int(bool(config.cutmix_alpha))
+    out = {'use_first': bool(jax.random.bernoulli(rng_branch,
+                                                  1.0 / branches)),
+           'take': (bool(jax.random.bernoulli(rng_apply, config.mix_prob))
+                    if config.mix_prob < 1.0 else True)}
+    rng_beta, rng_perm = jax.random.split(rng_mix)
+    mix = jax.random.beta(rng_beta, config.mixup_alpha, config.mixup_alpha,
+                          (batch,))
+    out['mixup'] = {'ratio': np.asarray(jnp.maximum(mix, 1.0 - mix)),
+                    'perm': np.asarray(jax.random.permutation(rng_perm,
+                                                              batch))}
+    rng_beta, rng_y, rng_x = jax.random.split(rng_cut, 3)
+    cut = jax.random.beta(rng_beta, config.cutmix_alpha,
+                          config.cutmix_alpha, (batch,))
+    cut = jnp.minimum(cut, 1.0 - cut)
+    side = jnp.sqrt(cut)
+    box_h = (side * size).astype(jnp.int32)
+    box_w = (side * size).astype(jnp.int32)
+    y0 = jnp.minimum(jax.random.randint(rng_y, (batch,), 0, size),
+                     size - box_h)
+    x0 = jnp.minimum(jax.random.randint(rng_x, (batch,), 0, size),
+                     size - box_w)
+    out['cutmix'] = {'box': np.asarray(jnp.stack([y0, x0, box_h, box_w], 1))}
+    return out
+
+
+def jax_augment_draws(rng, batch, frame, augmentation, image_size):
+    """The draws ``sav_tpu.data.pipeline.make_train_augment_fn(image_size,
+    parse_augment_name(augmentation))(rng, ...)`` takes for a ``[batch,
+    frame, frame, 3]`` batch, as the port's draws dict of host tensors."""
+    from sav_tpu.data.pipeline import parse_augment_name
+    from sav_tpu.data.randaugment import RandAugment
+
+    config = parse_augment_name(augmentation)
+    ra = RandAugment(num_layers=config.num_layers,
+                     magnitude=config.magnitude, magstd=config.magstd,
+                     prob_to_apply=config.ra_prob, cutout=config.ra_cutout,
+                     num_levels=10, size=image_size)
+
+    def per_example(r):
+        r_crop, r_aug, r_jitter, r_erase = jax.random.split(r, 4)
+        r_crop2, r_flip = jax.random.split(r_crop)
+        out = {'crop': _jax_crop(r_crop2, frame, frame),
+               'flip': jax.random.bernoulli(r_flip)}
+        if config.use_randaugment:
+            out['ra'] = _jax_randaugment(r_aug, ra)
+        if config.use_colorjitter:
+            out['jitter'] = _jax_jitter(r_jitter, config.colorjitter_strength)
+        if config.erase_prob:
+            out['erase'] = _jax_erase(r_erase, image_size, config.erase_prob)
+        return out
+
+    rng_mix, rng_examples = jax.random.split(rng)
+    per = jax.jit(jax.vmap(per_example))(jax.random.split(rng_examples,
+                                                          batch))
+    per = jax.tree_util.tree_map(np.asarray, per)
+
+    def t(a, dtype=None):
+        a = torch.from_numpy(np.array(a))
+        return a if dtype is None else a.to(dtype)
+
+    draws = {'crop': t(per['crop']), 'flip': t(per['flip'])}
+    if config.use_randaugment:
+        op, level, sign, apply, (cy, cx) = per['ra']
+        draws['ra'] = {'op': t(op.T, torch.int64), 'level': t(level.T),
+                       'sign': t(sign.T), 'apply': t(apply.T)}
+        if config.ra_cutout:
+            draws['ra'].update(cut_y=t(cy, torch.int64),
+                               cut_x=t(cx, torch.int64))
+    if config.use_colorjitter:
+        order, factor = per['jitter']
+        draws['jitter'] = {'order': t(order, torch.int64),
+                           'factor': t(factor)}
+    if config.erase_prob:
+        apply, box, noise = per['erase']
+        draws['erase'] = {'apply': t(apply), 'box': t(box, torch.int64),
+                          'noise': t(noise)}
+    if config.use_mix:
+        mixed = _jax_mix(rng_mix, batch, image_size, config)
+        for key in ('mixup', 'cutmix'):
+            mixed[key] = {k: t(v, torch.int64 if v.dtype.kind == 'i'
+                               else None) for k, v in mixed[key].items()}
+        draws['mix'] = mixed
+    return draws
