@@ -238,6 +238,22 @@
    device ms (CUDA events behind a sleep kernel) and host ms a batch,
    decode ms a batch (summed over its records, in the workers) and the
    decode tier, with the card's name and power limit.
+18. Checkpoints (slice 14; after 17, before the print of 11): ViT-B/16
+   @224 bs192 with an EMA through the Trainer on the synthetic source, a
+   checkpoint every 2 steps: 4 steps straight, and 2 steps then a new
+   Trainer on the same directory that restores step 2 and runs 2 more (12
+   K1-train + 12 K2 launches a resumed step); the losses of steps 3-4 and
+   every parameter, both moments, the EMA and count bit for bit equal;
+   the step-4 state saved and restored again, timed, and still equal.
+   Fine-tunes ViT-B/16 @384 bs48 10-way ``finetune_from`` that directory:
+   the pos-embed interpolated 197 -> 577 against ``interpolate_pos_embed``
+   on the CPU at 1e-6, the head zero, one step of 12 K1-train + 12 K3a +
+   12 K3b with a finite loss, then 5 more and its checkpoint. Scores that
+   checkpoint with ``evaluate.run_eval`` @384 on a fresh JPEG folder's 25%
+   holdout (12 K1 launches a forward, exactly the holdout's images
+   counted, finite metrics) and runs ``predict --ema`` from it. Prints
+   save, write and restore ms, the checkpoint's bytes, fine-tune and eval
+   img/s, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -282,7 +298,7 @@ from sav_tpu_torch.ops import tnt_inner
 from sav_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from sav_tpu_torch.ops.quantized import quantize_symmetric
 from sav_tpu_torch.predict import decode_size_for, serve
-from sav_tpu_torch.train import TrainConfig, Trainer
+from sav_tpu_torch.train import MetricLogger, TrainConfig, Trainer
 from sav_tpu_torch.train.steps import loss_and_logits
 from sav_tpu_torch.utils.timing import launch_ms, time_ms
 
@@ -3211,6 +3227,214 @@ def data_phase(checks, seed: int, smi: str, steps: int = 10,
     return record
 
 
+class StepLog(MetricLogger):
+    """The Trainer's logger, keeping each logged row instead of printing."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows = {}
+
+    def log(self, metrics, step):
+        self.rows.setdefault(step, {}).update(metrics)
+
+
+def state_mismatches(a, b) -> list:
+    """The leaves of two TrainStates that differ in any bit (on the card):
+    parameters and running statistics, the EMA, both Adam moments, count
+    and step."""
+    bad = []
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    bad += [f'ema/{k}' for k in a.ema_params
+            if not torch.equal(a.ema_params[k], b.ema_params[k])]
+    pb = dict(b.model.named_parameters())
+    for name, p in a.model.named_parameters():
+        for key in ('mu', 'nu'):
+            if not torch.equal(a.optimizer.state[p][key],
+                               b.optimizer.state[pb[name]][key]):
+                bad.append(f'{key}/{name}')
+    if (a.optimizer.count, a.step) != (b.optimizer.count, b.step):
+        bad.append(f'count/step {a.optimizer.count}/{a.step} vs '
+                   f'{b.optimizer.count}/{b.step}')
+    return bad
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_phase(checks, seed: int, smi: str) -> dict:
+    """Resume, fine-tuning and scoring on the card (item 18 of the module
+    docstring); returns the phase's numbers."""
+    import contextlib
+    import io
+
+    from sav_tpu_torch import evaluate as evaluate_cli
+    from sav_tpu_torch import predict as predict_cli
+    from sav_tpu_torch.train import finetune
+    from sav_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix='sav_ckpt_')
+    want_step = {'fused_attention_fwd_train': 12, 'flash_bwd_fused': 12}
+    try:
+        def pretrain(directory, total):
+            """ViT-B/16 @224 bs192 with an EMA, a checkpoint every 2 steps
+            (an epoch of one step)."""
+            trainer = Trainer(TrainConfig(
+                model_name='vit_b_patch16', img_size=224, batch_size=192,
+                seed=seed, dtype='bfloat16', total_steps=total,
+                images_per_epoch=192, checkpoint_every_epochs=2,
+                eval_every_epochs=10**6, eval_batches=1, log_every=1,
+                ema_decay=0.999, checkpoint_dir=directory), device='cuda')
+            trainer.logger = StepLog()
+            return trainer
+
+        # (a) 4 steps straight; 2 steps, then a new Trainer on the same -c
+        # that restores step 2 and runs 2 more
+        resume_dir = os.path.join(workdir, 'pretrain')
+        straight = pretrain(None, 4)
+        straight.run()
+        first = pretrain(resume_dir, 2)
+        first.run()
+        del first
+        resumed = pretrain(resume_dir, 4)
+        checks.expect(resumed.state.step == 2,
+                      f'resume: the new Trainer restored step '
+                      f'{resumed.state.step} (want 2)')
+        _build.reset_launches()
+        resumed.run()
+        counts = dict(_build.launches)
+        want = {k: 2 * v for k, v in want_step.items()}
+        want['fused_attention_fwd'] = 12            # the one eval batch
+        checks.expect(counts == want,
+                      f'resume: 2 resumed steps and one eval batch launched '
+                      f'{counts} (want {want}: 12 K1-train + 12 K2 a step)')
+        losses = {k: (straight.logger.rows[k]['loss'],
+                      resumed.logger.rows[k]['loss']) for k in (2, 3)}
+        bad = state_mismatches(resumed.state, straight.state)
+        checks.expect(all(a == b for a, b in losses.values()) and not bad,
+                      f'resume: losses of steps 3-4 {losses} bit-equal, and '
+                      f'every parameter, both moments, the EMA and count bit '
+                      f'for bit ({len(bad)} leaves differ: {bad[:3]})')
+        checks.expect(CheckpointManager(resume_dir).steps() == [2, 4],
+                      f'resume: steps {CheckpointManager(resume_dir).steps()} '
+                      'in the directory (want [2, 4])')
+
+        timed = CheckpointManager(os.path.join(workdir, 'timed'))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        timed.save(resumed.state.step, resumed.state)
+        saved = time.perf_counter()
+        timed.wait()
+        written = time.perf_counter()
+        nbytes = dir_bytes(os.path.join(workdir, 'timed'))
+        start_restore = time.perf_counter()
+        timed.restore(resumed.state)
+        torch.cuda.synchronize()
+        restored = time.perf_counter()
+        timed.close()
+        shutil.rmtree(os.path.join(workdir, 'timed'))
+        bad = state_mismatches(resumed.state, straight.state)
+        checks.expect(not bad, f'checkpoint save and restore of the step-4 '
+                               f'state: {len(bad)} leaves differ {bad[:3]}')
+        pos = resumed.model.Encoder_0.AddAbsPosEmbed_0.pos_embed.detach()
+        pos = pos.float().cpu().numpy()
+        del straight, resumed
+        torch.cuda.empty_cache()
+
+        # (b) fine-tune @384 bs48, 10-way, from the pretraining directory
+        ft_dir = os.path.join(workdir, 'finetune')
+        ft = Trainer(TrainConfig(
+            model_name='vit_b_patch16', img_size=384, batch_size=48,
+            seed=seed, dtype='bfloat16', num_classes=10,
+            finetune_from=resume_dir, total_steps=6,
+            eval_every_epochs=10**6, eval_batches=1, log_every=1,
+            ema_decay=0.999, checkpoint_dir=ft_dir), device='cuda')
+        ft.logger = StepLog()
+        got = ft.model.Encoder_0.AddAbsPosEmbed_0.pos_embed.detach()
+        want_pos = finetune.interpolate_pos_embed(pos, got.shape[1])
+        err = float(np.abs(got.float().cpu().numpy() - want_pos).max())
+        head = ft.model.Dense_0
+        zero = not (bool(head.kernel.any()) or bool(head.bias.any()))
+        checks.expect(tuple(got.shape) == (1, 577, 768) and err <= 1e-6
+                      and zero and ft.state.step == 0,
+                      f'fine-tune: pos-embed 197 -> {got.shape[1]} tokens, '
+                      f'{err:.3g} from interpolate_pos_embed on the CPU '
+                      f'(<= 1e-6), head zero {zero}, step {ft.state.step}')
+        want_ft = {'fused_attention_fwd_train': 12, 'flash_bwd_dq': 12,
+                   'flash_bwd_dkv': 12}
+        _build.reset_launches()
+        loss = float(ft.train_step(ft.dataset().batch(0))['loss'])
+        counts = dict(_build.launches)
+        checks.expect(counts == want_ft and math.isfinite(loss),
+                      f'fine-tune @384 bs48: one step launched {counts} '
+                      f'(want {want_ft}), loss {loss:.5g} finite')
+        ft.run()                # steps 1-5, then its checkpoint at step 6
+        rates = [ft.logger.rows[k]['images_per_sec'] for k in range(2, 6)]
+        del ft
+        torch.cuda.empty_cache()
+
+        # (c) score the fine-tuned checkpoint @384 on a JPEG folder's
+        # 25% holdout (40 of 160 images: two batches of 32, one padded;
+        # decoded in this process, as 40 images do not repay starting the
+        # loader's workers), then predict with --ema from the same
+        # directory
+        root = make_jpeg_tree(workdir, classes=10, per_class=16)
+        held = len(data_pipeline.split_indices(160, 0.75, 1.0))
+        _build.reset_launches()
+        metrics = evaluate_cli.run_eval(
+            'vit_b_patch16', ft_dir, root, img_size=384, batch_size=32,
+            num_classes=10, holdout_fraction=0.25, seed=seed, device='cuda')
+        counts = dict(_build.launches)
+        checks.expect(
+            counts == {'fused_attention_fwd': 24} and metrics['eval_images']
+            == held and metrics['eval_step'] == 6
+            and all(math.isfinite(metrics[k]) for k in (
+                'eval_loss', 'eval_top_1_acc', 'eval_top_5_acc')),
+            f'evaluate @384: {metrics["eval_images"]:.0f} of the {held} '
+            f'held-out images scored at step {metrics["eval_step"]}, '
+            f'launches {counts} (12 K1 a forward, 2 forwards), eval loss '
+            f'{metrics["eval_loss"]:.5g}')
+        images = os.path.join(root, sorted(os.listdir(root))[0])
+        out, err_text = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(
+                err_text):
+            predict_cli.main(['-m', 'vit_b_patch16', '-c', ft_dir, '--images',
+                              images, '-s', '384', '--num_classes', '10',
+                              '--ema'])
+        rows = [json.loads(line) for line in out.getvalue().splitlines()]
+        n_images = len(os.listdir(images))
+        checks.expect(len(rows) == n_images and 'EMA params' in
+                      err_text.getvalue() and 'step 6' in err_text.getvalue()
+                      and all(math.isfinite(c['prob']) for r in rows
+                              for c in r['top_k']),
+                      f'predict --ema @384: {len(rows)} of {n_images} images, '
+                      f'{err_text.getvalue().splitlines()[0]}')
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = {
+        'save_ms': (saved - start) * 1e3, 'write_ms': (written - start) * 1e3,
+        'restore_ms': (restored - start_restore) * 1e3,
+        'checkpoint_bytes': nbytes,
+        'finetune_img_per_s': float(np.median(rates)),
+        'eval_img_per_s': metrics['images_per_sec'],
+    }
+    print(f'  {smi}: checkpoint of ViT-B/16 @224 (params, EMA, both '
+          f'moments) {nbytes / 2 ** 20:.1f} MiB: save returned in '
+          f'{record["save_ms"]:.1f} ms (host copies), written in '
+          f'{record["write_ms"]:.1f} ms, restored in '
+          f'{record["restore_ms"]:.1f} ms; fine-tune @384 bs48 '
+          f'{record["finetune_img_per_s"]:.1f} train img/s (median of steps '
+          f'3-6, wall); evaluate @384 {record["eval_img_per_s"]:.1f} img/s '
+          f'(JPEG decode included)', flush=True)
+    print(f'  the checkpoint phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    print('  checkpoint: ' + json.dumps(record), flush=True)
+    return record
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3698,6 +3922,7 @@ def main(argv=None):
     print(f'  the CaiT-XS phase took {time.perf_counter() - t_xs:.1f} s',
           flush=True)
     data_phase(checks, args.seed, smi, profile=args.profile)
+    checkpoint_phase(checks, args.seed, smi)
 
     def cvt_fields(prefix, recs, keys=('ms', 'bound_ms', 'bound_by',
                                        'plain_ms', 'library_ms')):

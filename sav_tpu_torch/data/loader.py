@@ -28,6 +28,7 @@ augments it there.
 from __future__ import annotations
 
 import glob
+import json
 import os
 import time
 from typing import Sequence
@@ -279,6 +280,27 @@ class HostDataset:
         while self.training or step < self.num_batches:
             yield self.batch(step)
             step += 1
+
+    def get_state(self) -> bytes:
+        """The loader's position, for a checkpoint: the next step, and the
+        batch size and source length that give the step its records, as
+        JSON."""
+        return json.dumps({'next_step': self._next_step,
+                           'batch_size': self.batch_size,
+                           'examples': len(self.source)}).encode()
+
+    def set_state(self, state: bytes) -> None:
+        """Seeks to a ``get_state`` position: the next ``batch`` reads the
+        saved step's records (one seek, ``PositionSampler.start``). Raises
+        where the batch size or the source length differ, since the same
+        step would then hold other records."""
+        saved = json.loads(state)
+        here = {'batch_size': self.batch_size, 'examples': len(self.source)}
+        if {k: saved[k] for k in here} != here:
+            raise ValueError(f'loader state {saved} was saved over another '
+                             f'source or batch size ({here})')
+        self._iterator = None
+        self._next_step = saved['next_step']
 
     def close(self) -> None:
         """Stops the loader's worker processes (kept between iterators:

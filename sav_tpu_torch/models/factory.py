@@ -95,6 +95,9 @@ def create_model(model_name: str, num_classes: int = 1000,
     ``seed`` (flax's initialisers, torch's random stream), on ``device``
     (the card unless ``'cpu'`` is asked for).
 
+    ``device='meta'`` builds the modules with shapes only (no weights),
+    for what needs a model's tree but none of its values.
+
     Extra keyword arguments override config fields (``use_kernel=False``
     forces the plain attention path, ``num_layers=2`` or, for BoTNet and
     CvT, ``stage_sizes`` cuts depth, ``quantized`` picks an int8 route of
@@ -114,8 +117,12 @@ def create_model(model_name: str, num_classes: int = 1000,
                 'is honored by the ViT, CaiT, Mixer and CvT families; this '
                 'family has no int8 path, as in the JAX package)')
     device = resolve_device(device)
-    model = model_cls(num_classes=num_classes, dtype=dtype,
-                      img_size=img_size, **{**config, **overrides})
+    kwargs = dict(num_classes=num_classes, dtype=dtype, img_size=img_size,
+                  **{**config, **overrides})
+    if device.type == 'meta':           # shapes only: no weights drawn
+        with device:
+            return model_cls(**kwargs)
+    model = model_cls(**kwargs)
     init_all(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 

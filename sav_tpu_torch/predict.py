@@ -2,11 +2,15 @@
 
 Decodes JPEGs on the host (PIL), runs the eval transform (resize-small ->
 central crop -> normalize) and the model forward on the device, and prints
-one JSON line per image with the top-k classes. ``-c`` names a directory:
-when it holds ``params.npz`` (the flax params tree flattened with ``/``
-keys, and for BatchNorm models the running statistics under
-``batch_stats/``) the weights load through ``utils.flax_bridge``;
-otherwise the model predicts from random init, with a warning.
+one JSON line per image with the top-k classes. ``-c`` names a Trainer
+checkpoint directory (``train/checkpoint.py``): the latest step's weights
+load, its EMA with ``--ema`` where it keeps one; with no step there, its
+``params.npz`` (the flax params tree flattened with ``/`` keys, and for
+BatchNorm models the running statistics under ``batch_stats/``); with
+neither, the model predicts from random init, with a warning. At an
+``-s`` other than the checkpoint's, pos-embed grids and BoTNet's rel-pos
+tables are interpolated (``train/finetune.adapt_restored_for_inference``);
+another head width raises.
 
 Example:
     python -m sav_tpu_torch.predict -m vit_b_patch16 -c /tmp/ckpt \
@@ -29,7 +33,9 @@ from sav_tpu_torch import resolve_device
 from sav_tpu_torch.data.jpeg_source import decode_jpeg_fixed
 from sav_tpu_torch.data.preprocess import eval_preprocess
 from sav_tpu_torch.models import create_model
-from sav_tpu_torch.utils.flax_bridge import flax_to_torch, unflatten_tree
+from sav_tpu_torch.train.checkpoint import CheckpointManager, read_params_npz
+from sav_tpu_torch.train.finetune import adapt_restored_for_inference
+from sav_tpu_torch.utils.flax_bridge import flax_to_torch
 
 DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
@@ -56,23 +62,59 @@ def serve(model, frames_uint8, img_size: int, top_k: int):
     return torch.topk(probs, top_k, dim=-1)
 
 
-def load_params_npz(model, path: str) -> None:
-    """Loads a ``/``-keyed flat npz of the flax params tree into ``model``,
-    and the running statistics under its ``batch_stats/`` keys into the
-    BatchNorms' buffers. A model with running statistics raises on a file
-    without them rather than serve on the initial mean 0 and var 1."""
-    with np.load(path) as npz:
-        tree = unflatten_tree({k: npz[k] for k in npz.files})
-    variables = {'params': tree}
-    stats = tree.pop('batch_stats', None)
-    if stats is not None:
-        variables['batch_stats'] = stats
+def load_variables(model, params, batch_stats, source: str) -> None:
+    """Loads a flax params tree into ``model``, and ``batch_stats`` into the
+    BatchNorms' buffers. A model with running statistics raises where
+    ``source`` has none rather than serve on the initial mean 0 and var
+    1."""
+    variables = {'params': params}
+    if batch_stats:
+        variables['batch_stats'] = batch_stats
     elif next(model.buffers(), None) is not None:
         raise ValueError(
-            f'{path} holds no batch_stats, but {type(model).__name__} '
+            f'{source} holds no batch_stats, but {type(model).__name__} '
             'normalises by running statistics (BatchNorm); its Trainer '
             'checkpoint writes them under batch_stats/')
     model.load_state_dict(flax_to_torch(variables), strict=True)
+
+
+def load_params_npz(model, path: str) -> None:
+    """Loads a ``/``-keyed flat npz of the flax params tree into ``model``,
+    and the running statistics under its ``batch_stats/`` keys into the
+    BatchNorms' buffers (``load_variables``)."""
+    tree = read_params_npz(path)
+    load_variables(model, tree['params'], tree['batch_stats'], path)
+
+
+def restore_weights(model, model_name: str, checkpoint_dir: str,
+                    img_size: int, use_ema: bool, step=None,
+                    **model_kwargs):
+    """Loads ``checkpoint_dir``'s weights into ``model`` (built as
+    ``create_model(model_name, img_size=img_size, **model_kwargs)``):
+    step ``step`` (default: the latest, else the directory's
+    ``params.npz``), its EMA where ``use_ema`` and the checkpoint keeps one,
+    adapted to ``img_size``. Prints what it loaded to stderr and returns
+    the restore (``CheckpointManager.restore_for_inference``), or None
+    where the directory holds no checkpoint."""
+    ckpt = CheckpointManager(checkpoint_dir)
+    try:
+        restored = ckpt.restore_for_inference(step=step)
+    finally:
+        ckpt.close()
+    if restored is None:
+        return None
+    restored, report = adapt_restored_for_inference(model_name, restored,
+                                                    img_size, **model_kwargs)
+    ema = use_ema and restored['ema_params'] is not None
+    load_variables(model, restored['ema_params' if ema else 'params'],
+                   restored['batch_stats'], checkpoint_dir)
+    where = ('params.npz' if restored['step'] is None
+             else f'the checkpoint at step {restored["step"]}')
+    print(f'loaded {where} from {checkpoint_dir} '
+          f'({"EMA" if ema else "raw"} params)', file=sys.stderr)
+    for line in report:     # e.g. pos-embed interpolated for -s
+        print(f'  {line}', file=sys.stderr)
+    return restored
 
 
 def _list_images(pattern: str):
@@ -92,7 +134,8 @@ def _parser():
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('-m', '--model_name', required=True)
     p.add_argument('-c', '--checkpoint_dir', required=True,
-                   help='directory holding params.npz (flax tree, / keys)')
+                   help='Trainer checkpoint directory (its latest step, '
+                        'else its params.npz)')
     p.add_argument('--images', required=True,
                    help='image directory or glob pattern')
     p.add_argument('-s', '--img_size', type=int, default=224)
@@ -101,8 +144,8 @@ def _parser():
     p.add_argument('--num_classes', type=int, default=1000)
     p.add_argument('--dtype', default='bfloat16', choices=sorted(DTYPES))
     p.add_argument('--ema', dest='ema', action='store_true', default=True,
-                   help='kept for predict.py compatibility: params.npz holds '
-                        'one tree; EMA selection comes with Orbax restore')
+                   help='use the EMA params when the checkpoint carries '
+                        'them (a step saved with --ema_decay)')
     p.add_argument('--no-ema', dest='ema', action='store_false')
     p.add_argument('--class_names', default=None,
                    help='optional text file, one class name per line')
@@ -126,15 +169,14 @@ def main(argv=None):
     q = False if args.quantized == 'none' else (
         True if args.quantized == 'int8' else args.quantized)   # train's mapping
     device = resolve_device(args.device)
-    model = create_model(args.model_name, num_classes=args.num_classes,
-                         dtype=DTYPES[args.dtype], img_size=args.img_size,
-                         device=device, **({'quantized': q} if q else {}))
-    params = os.path.join(args.checkpoint_dir, 'params.npz')
-    if os.path.exists(params):
-        load_params_npz(model, params)
-        print(f'loaded {params}', file=sys.stderr)
-    else:
-        print(f'WARNING: no params.npz in {args.checkpoint_dir}; '
+    model_kwargs = {'num_classes': args.num_classes,
+                    **({'quantized': q} if q else {})}
+    model = create_model(args.model_name, dtype=DTYPES[args.dtype],
+                         img_size=args.img_size, device=device,
+                         **model_kwargs)
+    if restore_weights(model, args.model_name, args.checkpoint_dir,
+                       args.img_size, args.ema, **model_kwargs) is None:
+        print(f'WARNING: no checkpoint in {args.checkpoint_dir}; '
               'predicting from random init', file=sys.stderr)
     model.eval()
 

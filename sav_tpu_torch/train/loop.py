@@ -5,36 +5,42 @@ What runs: the synthetic source and real data (``.npz`` arrays and
 shards, JPEG folders and tars through the host loader, augmented on the
 device; eval on ``eval_dataset`` or a disjoint ``holdout_fraction`` tail,
 without augmentation), the step loop with periodic metrics, evaluation
-every ``eval_every_epochs`` and at the end, and ``params.npz`` checkpoints
-(the flax params tree, ``/`` keys, and a BatchNorm model's running
-statistics under ``batch_stats/``; what the port's ``predict -c`` reads)
-at the checkpoint cadence and at the end. Mesh parallelism, remat,
-chained dispatch, fine-tuning, resume and optimizer-state checkpoints are
-refused with their ROADMAP.md item.
+every ``eval_every_epochs`` and at the end, and checkpoints of the whole
+state (``train/checkpoint.py``, with the loader's position) at the
+checkpoint cadence, at the end and at the next step boundary after a
+SIGTERM; each also rewrites ``params.npz``, the serving export (the flax
+params tree, ``/`` keys, and a BatchNorm model's running statistics under
+``batch_stats/``). A run restores the latest step in ``checkpoint_dir``,
+or else starts from ``finetune_from``'s weights (``train/finetune.py``);
+``profile_steps`` writes a ``torch.profiler`` trace. Mesh parallelism,
+remat and chained dispatch are refused with their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import tempfile
 import time
 import warnings
 from typing import Any, Dict, Optional, Union
 
-import numpy as np
 import torch
 
 from sav_tpu_torch import resolve_device
 from sav_tpu_torch.data.pipeline import create_dataset, parse_dataset_spec
 from sav_tpu_torch.models import create_model
 from sav_tpu_torch.train import steps as steps_lib
+from sav_tpu_torch.train.checkpoint import (PARAMS_FILE, CheckpointManager,
+                                            write_params_npz)
+from sav_tpu_torch.train.finetune import load_pretrained
 from sav_tpu_torch.train.state import (DTYPES, TrainState, build_optimizer,
                                        warmup_cosine_schedule,
                                        warmup_stable_decay_schedule)
-from sav_tpu_torch.utils.flax_bridge import flatten_tree, variables_of
+from sav_tpu_torch.utils.flax_bridge import flax_to_torch, variables_of
 
 IMAGENET_TRAIN_IMAGES = 1_281_167
-CHECKPOINT_FILE = 'params.npz'
 
 
 @dataclasses.dataclass
@@ -79,8 +85,8 @@ class TrainConfig:
     eval_every_epochs: int = 5
     checkpoint_every_epochs: int = 10
     eval_batches: Optional[int] = None
-    profile_steps: Optional[tuple] = None
-    profile_dir: Optional[str] = None
+    profile_steps: Optional[tuple] = None   # (start_step, stop_step)
+    profile_dir: Optional[str] = None       # None: <tmp>/sav_tpu_profile
 
     @property
     def steps_per_epoch(self) -> int:
@@ -95,16 +101,14 @@ class TrainConfig:
 
 # field -> (the only value the port runs, what it waits for)
 UNPORTED = {
-    'prefetch_chunks': (2, 'chained dispatch over host data: Queue 1 item 6'),
+    'prefetch_chunks': (2, 'chained dispatch over host data: Queue 1 '
+                        'item 17'),
     'model_parallelism': (1, 'the parallel tier: Queue 1 item 13'),
     'pipeline_parallelism': (1, 'the parallel tier: Queue 1 item 13'),
     'pipeline_microbatches': (4, 'the parallel tier: Queue 1 item 13'),
     'scan_layers': (False, 'the scan-stacked layout: Queue 1 item 1'),
     'remat': (False, 'remat policies: Queue 1 item 2'),
-    'steps_per_dispatch': (1, 'chained dispatch: Queue 1 item 6'),
-    'finetune_from': (None, 'fine-tuning: Queue 1 item 6'),
-    'finetune_use_ema': (False, 'fine-tuning: Queue 1 item 6'),
-    'profile_steps': (None, 'profiler traces: Queue 1 item 6'),
+    'steps_per_dispatch': (1, 'chained dispatch: Queue 1 item 17'),
 }
 
 
@@ -167,14 +171,19 @@ class Trainer:
                              f'{config.dtype!r}')
         self.config = config
         self.device = resolve_device(device)
-        self.checkpoint_path = None
+        self.checkpoints = None
         if config.checkpoint_dir:
-            self.checkpoint_path = os.path.join(config.checkpoint_dir,
-                                                CHECKPOINT_FILE)
-            if os.path.exists(self.checkpoint_path):
-                raise NotImplementedError(
-                    f'{self.checkpoint_path} exists: resuming is not ported '
-                    'yet (ROADMAP.md Queue 1 item 6); pass a new -c directory')
+            self.checkpoints = CheckpointManager(config.checkpoint_dir)
+            export = os.path.join(config.checkpoint_dir, PARAMS_FILE)
+            if (self.checkpoints.latest_step() is None
+                    and os.path.exists(export)):
+                raise ValueError(
+                    f'{export} exists but {config.checkpoint_dir} holds no '
+                    'step checkpoint: a params.npz carries no optimizer '
+                    'state to resume from, and training from scratch would '
+                    'overwrite it; pass a new -c directory, or this one as '
+                    '--finetune_from')
+        self._preempted = False
         model_kwargs = {}
         if config.pos_embed != 'learned':
             model_kwargs['pos_embed'] = config.pos_embed
@@ -203,9 +212,41 @@ class Trainer:
                                          mu_dtype=config.mu_dtype)
         self.state = TrainState(self.model, self.optimizer,
                                 ema=config.ema_decay is not None)
+        restored_step = (self.checkpoints.latest_step()
+                         if self.checkpoints is not None else None)
+        if restored_step is not None:
+            print(f'restoring checkpoint at step {restored_step}', flush=True)
+            self.checkpoints.restore(self.state)
+        elif config.finetune_from:
+            self._finetune_from(config.finetune_from)
         # the stochastic-depth stream, reseeded from (seed, step) each step
         self.generator = torch.Generator(device=self.device)
         self.logger = MetricLogger(use_wandb=use_wandb)
+
+    @property
+    def checkpoint_path(self) -> Optional[str]:
+        """The serving export, ``checkpoint_dir/params.npz``."""
+        if not self.config.checkpoint_dir:
+            return None
+        return os.path.join(self.config.checkpoint_dir, PARAMS_FILE)
+
+    def _finetune_from(self, directory: str) -> None:
+        """The model's weights from ``directory``'s checkpoint, adapted to
+        this geometry (``finetune.load_pretrained``); the optimizer starts
+        fresh and the EMA from the adapted weights."""
+        variables = variables_of(self.model)
+        params, batch_stats, report = load_pretrained(
+            directory, variables['params'], variables.get('batch_stats'),
+            use_ema=self.config.finetune_use_ema)
+        for line in report:
+            print(f'finetune: {line}', flush=True)
+        print(f'fine-tuning from {directory} ({len(report)} leaves adapted)',
+              flush=True)
+        loaded = {'params': params}
+        if batch_stats:
+            loaded['batch_stats'] = batch_stats
+        self.model.load_state_dict(flax_to_torch(loaded), strict=True)
+        self.state.reset_ema()
 
     def dataset(self, seed_offset: int = 0, training: bool = True):
         """The train (or eval) dataset on the Trainer's device. Eval data
@@ -246,47 +287,63 @@ class Trainer:
 
     def evaluate(self, dataset,
                  num_batches: Optional[int] = None) -> Dict[str, float]:
-        """Mean eval metrics over ``num_batches``: by default every batch
-        of a finite source (its ``num_batches``), 16 of an endless one, as
-        in the JAX package; a finite source that ends early stops the walk
-        (``StopIteration``)."""
-        if num_batches is None:
-            num_batches = getattr(dataset, 'num_batches', None) or 16
-        sums = None
-        for step in range(num_batches):
-            try:
-                batch = dataset.batch(step)
-            except StopIteration:
-                break
-            out = steps_lib.eval_step(self.state, batch,
-                                      num_classes=self.config.num_classes,
-                                      use_ema=self.config.ema_decay is not None)
-            sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
-        if sums is None:
-            return {}
-        count = max(float(sums.pop('eval_count')), 1.0)
-        return {k: float(v) / count for k, v in sums.items()}
+        """Mean eval metrics over ``num_batches`` (``steps.
+        mean_over_batches``: by default every batch of a finite source, 16
+        of an endless one)."""
+        use_ema = self.config.ema_decay is not None
+        metrics, _ = steps_lib.mean_over_batches(
+            lambda batch: steps_lib.eval_step(
+                self.state, batch, num_classes=self.config.num_classes,
+                use_ema=use_ema), dataset, num_batches)
+        return metrics
 
     def save_checkpoint(self) -> None:
-        """Writes the params tree to ``checkpoint_dir/params.npz`` and, for
-        a model with BatchNorm, its running statistics beside it under
-        ``batch_stats/`` keys."""
+        """Writes the serving export ``checkpoint_dir/params.npz``: the
+        params tree and, for a model with BatchNorm, its running statistics
+        beside it under ``batch_stats/`` keys."""
         os.makedirs(self.config.checkpoint_dir, exist_ok=True)
-        variables = variables_of(self.model)
-        flat = flatten_tree(variables['params'])
-        if 'batch_stats' in variables:
-            flat.update(flatten_tree(variables['batch_stats'], 'batch_stats'))
-        tmp = f'{self.checkpoint_path}.{os.getpid()}.tmp'
-        with open(tmp, 'wb') as f:
-            np.savez(f, **flat)
-        os.replace(tmp, self.checkpoint_path)
+        write_params_npz(self.checkpoint_path, variables_of(self.model))
+
+    def _save(self, train_data) -> None:
+        """A checkpoint of the whole state at its step, with the loader's
+        position, and the serving export beside it."""
+        data_state = (train_data.get_state()
+                      if hasattr(train_data, 'get_state') else None)
+        self.checkpoints.save(self.state.step, self.state,
+                              data_state=data_state)
+        self.save_checkpoint()
+
+    def _restore_data_state(self, train_data) -> None:
+        """Seeks the loader to its checkpointed position on resume."""
+        if (self.checkpoints is None or self.state.step == 0
+                or not hasattr(train_data, 'set_state')):
+            return
+        data_state = self.checkpoints.restore_data_state()
+        if data_state is not None:
+            train_data.set_state(data_state)
 
     def run(self) -> Dict[str, float]:
+        """Runs the training loop with preemption-safe checkpointing: a
+        SIGTERM checkpoints at the next step boundary and returns, so a run
+        on the same ``checkpoint_dir`` continues where this one stopped."""
+        def on_term(signum, frame):
+            self._preempted = True
+            print(f'received signal {signum}: checkpointing at the next '
+                  'step boundary, then exiting', flush=True)
+
+        old_handler = None
+        try:
+            old_handler = signal.signal(signal.SIGTERM, on_term)
+        except ValueError:      # not the main thread
+            pass
         train_data = self.dataset()
         eval_data = self.dataset(seed_offset=1, training=False)
         try:
+            self._restore_data_state(train_data)
             return self._loop(train_data, eval_data)
         finally:
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler)
             for data in (train_data, eval_data):
                 if hasattr(data, 'close'):
                     data.close()
@@ -298,28 +355,64 @@ class Trainer:
         last_metrics: Dict[str, float] = {}
         window_start = time.perf_counter()
         window_images = 0
+        profiler = None
+        try:
+            for step in range(self.state.step, c.steps_total):
+                if c.profile_steps and step == c.profile_steps[0]:
+                    profiler = self._start_profile()
+                metrics = self.train_step(train_data.batch(step))
+                window_images += c.batch_size
+                if c.profile_steps and step == c.profile_steps[1]:
+                    self._stop_profile(profiler)
+                    profiler = None
+                if step % c.log_every == 0 or step == c.steps_total - 1:
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    elapsed = time.perf_counter() - window_start
+                    last_metrics['images_per_sec'] = (window_images
+                                                      / max(elapsed, 1e-9))
+                    last_metrics['learning_rate'] = float(self.schedule(step))
+                    self.logger.log(last_metrics, step)
+                    window_start = time.perf_counter()
+                    window_images = 0
 
-        for step in range(self.state.step, c.steps_total):
-            metrics = self.train_step(train_data.batch(step))
-            window_images += c.batch_size
-            if step % c.log_every == 0 or step == c.steps_total - 1:
-                last_metrics = {k: float(v) for k, v in metrics.items()}
-                elapsed = time.perf_counter() - window_start
-                last_metrics['images_per_sec'] = window_images / max(elapsed,
-                                                                     1e-9)
-                last_metrics['learning_rate'] = float(self.schedule(step))
-                self.logger.log(last_metrics, step)
-                window_start = time.perf_counter()
-                window_images = 0
-
-            next_step = step + 1
-            if self.checkpoint_path is not None and (
-                    (steps_per_ckpt and next_step % steps_per_ckpt == 0)
-                    or next_step == c.steps_total):
-                self.save_checkpoint()
-            if ((steps_per_eval and next_step % steps_per_eval == 0)
-                    or next_step == c.steps_total):
-                eval_metrics = self.evaluate(eval_data, c.eval_batches)
-                self.logger.log(eval_metrics, next_step)
-                last_metrics.update(eval_metrics)
+                next_step = step + 1
+                if self.checkpoints is not None and (
+                        (steps_per_ckpt and next_step % steps_per_ckpt == 0)
+                        or next_step == c.steps_total or self._preempted):
+                    self._save(train_data)
+                if ((steps_per_eval and next_step % steps_per_eval == 0)
+                        or next_step == c.steps_total):
+                    eval_metrics = self.evaluate(eval_data, c.eval_batches)
+                    self.logger.log(eval_metrics, next_step)
+                    last_metrics.update(eval_metrics)
+                if self._preempted:
+                    break
+        finally:
+            if profiler is not None:
+                profiler.__exit__(None, None, None)
+            if self.checkpoints is not None:
+                self.checkpoints.wait()
         return last_metrics
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """Ends the window and writes its Chrome trace to ``profile_dir``."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        profiler.__exit__(None, None, None)
+        c = self.config
+        directory = c.profile_dir or os.path.join(tempfile.gettempdir(),
+                                                  'sav_tpu_profile')
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f'trace_steps_{c.profile_steps[0]}_'
+                                       f'{c.profile_steps[1]}.json')
+        profiler.export_chrome_trace(path)
+        print(f'profile of steps {c.profile_steps[0]}-{c.profile_steps[1]} '
+              f'written to {path}', flush=True)

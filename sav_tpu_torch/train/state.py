@@ -15,7 +15,11 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
+
+from sav_tpu_torch.utils.flax_bridge import (flax_to_torch, torch_to_flax,
+                                             variables_of)
 
 DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
@@ -164,7 +168,14 @@ def warmup_stable_decay_schedule(peak_lr: float, total_steps: int,
 class TrainState:
     """What a train step updates: the model's parameters (in the module),
     the optimizer and its moments, the step, and an optional EMA of the
-    parameters (f32 copies) for evaluation."""
+    parameters (f32 copies) for evaluation.
+
+    ``state_tree`` and ``load_state_tree`` carry all of it as the JAX
+    TrainState's fields, flax trees of numpy arrays: ``{'step', 'params',
+    'batch_stats', 'ema_params', 'opt_state': {'count', 'mu', 'nu'}}``
+    (``count`` is optax's shared counter, the one the schedule reads).
+    A bf16 ``mu`` is carried widened to f32, which is exact, and narrowed
+    back to ``mu_dtype`` on load."""
 
     def __init__(self, model: torch.nn.Module, optimizer: AdamChain,
                  ema: bool = False):
@@ -188,3 +199,67 @@ class TrainState:
                     [p.to(e.dtype) for (_, p), e in zip(named, emas)],
                     1.0 - ema_decay))
         self.step += 1
+
+    def reset_ema(self) -> None:
+        """The EMA restarts from copies of the current parameters (a
+        fine-tune start), where it keeps one."""
+        if self.ema_params is not None:
+            self.ema_params = {n: p.detach().clone()
+                               for n, p in self.model.named_parameters()}
+
+    def state_tree(self) -> dict:
+        """Host copies of the whole state (class docstring). Moments not
+        made yet (before the first update) are zeros, as optax's init."""
+        opt = self.optimizer
+        named = dict(self.model.named_parameters())
+        moments = {key: {n: opt.state[p][key] if opt.state[p]
+                         else torch.zeros_like(p) for n, p in named.items()}
+                   for key in ('mu', 'nu')}
+        variables = variables_of(self.model)
+        return {'step': np.asarray(self.step, np.int64),
+                'params': variables['params'],
+                'batch_stats': variables.get('batch_stats', {}),
+                'ema_params': (None if self.ema_params is None
+                               else torch_to_flax(self.ema_params)),
+                'opt_state': {'count': np.asarray(opt.count, np.int64),
+                              'mu': torch_to_flax(moments['mu']),
+                              'nu': torch_to_flax(moments['nu'])}}
+
+    def load_state_tree(self, tree: dict) -> None:
+        """Sets the whole state from a ``state_tree``-shaped tree. Raises
+        on a missing or unexpected leaf, and where the tree holds an EMA
+        and this state keeps none, or the other way round."""
+        has_ema = tree.get('ema_params') is not None
+        if has_ema != (self.ema_params is not None):
+            raise ValueError(
+                f'the checkpoint {"holds" if has_ema else "holds no"} '
+                f'ema_params but this run keeps {"no" if has_ema else "an"} '
+                'EMA (ema_decay); train on with the same ema_decay setting')
+        variables = {'params': tree['params']}
+        if tree.get('batch_stats'):
+            variables['batch_stats'] = tree['batch_stats']
+        self.model.load_state_dict(flax_to_torch(variables), strict=True)
+        named = dict(self.model.named_parameters())
+
+        def named_tree(key, sub):
+            flat = flax_to_torch(sub)
+            if flat.keys() != named.keys():
+                raise ValueError(
+                    f'checkpoint {key} does not match the model: missing '
+                    f'{sorted(named.keys() - flat.keys())[:5]}, unexpected '
+                    f'{sorted(flat.keys() - named.keys())[:5]}')
+            return flat
+
+        opt = self.optimizer
+        mu = named_tree('opt_state/mu', tree['opt_state']['mu'])
+        nu = named_tree('opt_state/nu', tree['opt_state']['nu'])
+        for name, p in named.items():
+            opt.state[p] = {
+                'mu': mu[name].to(p.device, opt.mu_dtype or p.dtype),
+                'nu': nu[name].to(p.device, p.dtype)}
+        opt.count = int(tree['opt_state']['count'])
+        if has_ema:
+            ema = named_tree('ema_params', tree['ema_params'])
+            self.ema_params = {n: ema[n].to(p.device, self.ema_params[n].dtype)
+                               for n, p in named.items()}
+        self.step = int(tree['step'])

@@ -114,18 +114,27 @@ def _accumulate(model, batch, num_classes, label_smoothing, grad_accum):
 @torch.no_grad()
 def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
               num_classes: int, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """``eval_sums`` of the state's model; with ``use_ema`` only the
+    parameters are swapped for their EMA, and the live running statistics
+    are used, as the JAX package's ``variables(use_ema=True)``."""
+    params = state.ema_params if use_ema else None
+    return eval_sums(state.model, batch, num_classes, params)
+
+
+@torch.no_grad()
+def eval_sums(model, batch: Dict[str, torch.Tensor], num_classes: int,
+              params: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Summed loss and top-k correct counts over the valid examples
-    (``mask``-aware, so padded eval batches do not skew the average). The
-    model runs in eval mode (BatchNorm on its running statistics); with
-    ``use_ema`` only the parameters are swapped for their EMA, and the live
-    running statistics are used, as the JAX package's
-    ``variables(use_ema=True)``."""
-    model = state.model
+    (``mask``-aware, so padded eval batches do not skew the average), and
+    ``eval_count``. The model runs in eval mode (BatchNorm on its running
+    statistics), on ``params`` (``{name: tensor}``) in place of its own
+    where given."""
     model.eval()
     images = batch['images'].to(model.dtype)
-    if use_ema and state.ema_params is not None:
+    if params is not None:
         from torch.func import functional_call   # heavy import, EMA only
-        logits = functional_call(model, state.ema_params, (images,))
+        logits = functional_call(model, params, (images,))
     else:
         logits = model(images)
     logits = logits.float()
@@ -138,3 +147,26 @@ def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
     sums = {'eval_loss': (per_example * mask).sum(), 'eval_count': mask.sum()}
     sums.update({k: v.sum() for k, v in acc.items()})
     return sums
+
+
+def mean_over_batches(sums_of, dataset, num_batches: Optional[int] = None):
+    """``(per-example means, examples counted)`` of ``sums_of(batch)``
+    (``eval_sums``-shaped) over ``num_batches`` batches of ``dataset``: by
+    default every batch of a finite source (its ``num_batches``), 16 of an
+    endless one, as in the JAX package; a finite source that ends early
+    stops the walk (``StopIteration``). Empty means, count 0, where no
+    batch came."""
+    if num_batches is None:
+        num_batches = getattr(dataset, 'num_batches', None) or 16
+    sums = None
+    for step in range(num_batches):
+        try:
+            batch = dataset.batch(step)
+        except StopIteration:
+            break
+        out = sums_of(batch)
+        sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+    if sums is None:
+        return {}, 0.0
+    count = float(sums.pop('eval_count'))
+    return ({k: float(v) / max(count, 1.0) for k, v in sums.items()}, count)

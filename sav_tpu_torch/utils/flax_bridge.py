@@ -8,9 +8,12 @@ array unchanged (Dense kernels ``[in, out]``; q/k/v kernels ``[D, H, d]``,
 the out kernel ``[H, d, D]``; ``pos_embed`` ``[1, L, D]``; ``cls``
 ``[1, 1, D]``; conv kernels HWIO). The ``batch_stats`` collection (the
 BatchNorms' running ``mean`` and ``var``) maps to the modules' buffers of
-the same path, beside their ``scale`` and ``bias`` parameters. Covers the
-per-layer layout; the scan-stacked layout (``sav_tpu/utils/stacking.py``)
-is refused.
+the same path, beside their ``scale`` and ``bias`` parameters (BoTNet's,
+CeiT's and CvT's). Trees keyed by parameter name, the EMA of the
+parameters and the Adam moments ``mu`` and ``nu``, take the parameters'
+flax paths, as optax's and the JAX TrainState's do. Covers the per-layer
+layout; the scan-stacked layout (``sav_tpu/utils/stacking.py``) is
+refused.
 """
 
 from __future__ import annotations
@@ -88,16 +91,30 @@ def flax_to_torch(tree: Mapping) -> 'OrderedDict[str, torch.Tensor]':
     return state
 
 
+def host_array(tensor: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``tensor`` that later in-place updates of the
+    tensor do not reach; bf16 (which numpy lacks) widened to f32, exactly.
+    A ``meta`` tensor (shapes only) gives a zero-stride f32 array of its
+    shape, which holds no memory."""
+    if tensor.is_meta:
+        return np.broadcast_to(np.zeros((), np.float32), tuple(tensor.shape))
+    tensor = tensor.detach()
+    if tensor.dtype == torch.bfloat16:
+        tensor = tensor.float()
+    return tensor.to('cpu', copy=True).numpy()
+
+
 def torch_to_flax(state: Mapping[str, torch.Tensor], buffers=()) -> dict:
-    """A torch state dict -> flax ``params`` tree of numpy arrays.
+    """A torch state dict (or any ``{torch name: tensor}``, such as the
+    EMA or an Adam moment keyed by parameter name) -> flax tree of numpy
+    arrays (``host_array`` copies).
 
     With ``buffers`` (the state's keys that are running statistics, e.g.
     ``variables_of``'s ``model.named_buffers()``) non-empty, the result is
     the variables dict ``{'params': ..., 'batch_stats': ...}`` with those
     keys split off into ``batch_stats``."""
     to_tree = lambda keys: unflatten_tree(
-        {key.replace('.', '/'): state[key].detach().cpu().numpy()
-         for key in keys})
+        {key.replace('.', '/'): host_array(state[key]) for key in keys})
     buffers = set(buffers)
     if not buffers:
         return to_tree(state)

@@ -2461,3 +2461,55 @@ def test_cvt_auto_refuses_what_k4_does_not_take(card):
             model(x)
         set_use_kernel(model, False)
         assert bool(torch.isfinite(model(x)).all())
+
+
+def test_trainer_resume_matches_a_straight_run(card, tmp_path, monkeypatch):
+    """ViT-B/16 @224 bs32 at depth 2 through the Trainer with an EMA and a
+    bf16 first moment: 4 steps straight equal 2 steps, a new Trainer on the
+    same checkpoint directory that restores step 2, and 2 more, bit for bit
+    (the losses of steps 3-4, every parameter, both moments, the EMA, count
+    and step); each resumed step launches 2 K1-train + 2 K2."""
+    import functools
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import create_model
+    from sav_tpu_torch.train import loop
+    from sav_tpu_torch.utils.flax_bridge import flatten_tree
+    monkeypatch.setattr(loop, 'create_model',
+                        functools.partial(create_model, num_layers=2))
+
+    class Record(loop.MetricLogger):
+        def __init__(self):
+            super().__init__()
+            self.losses = {}
+
+        def log(self, metrics, step):
+            if 'loss' in metrics:
+                self.losses[step] = float(metrics['loss'])
+
+    def trainer(directory, total):
+        t = loop.Trainer(loop.TrainConfig(
+            model_name='vit_b_patch16', img_size=224, batch_size=32, seed=1,
+            total_steps=total, images_per_epoch=32,
+            checkpoint_every_epochs=2, eval_every_epochs=10**6,
+            eval_batches=1, log_every=1, ema_decay=0.999,
+            mu_dtype='bfloat16', checkpoint_dir=directory), device=card)
+        t.logger = Record()
+        return t
+
+    straight = trainer(None, 4)
+    straight.run()
+    trainer(str(tmp_path), 2).run()
+    resumed = trainer(str(tmp_path), 4)
+    assert resumed.state.step == 2
+    _build.reset_launches()
+    resumed.run()
+    torch.cuda.synchronize()
+    assert _build.launches == {'fused_attention_fwd_train': 4,
+                               'flash_bwd_fused': 4, 'fused_attention_fwd': 2}
+    assert resumed.logger.losses == {k: v for k, v in
+                                     straight.logger.losses.items() if k >= 2}
+    want = flatten_tree(straight.state.state_tree())
+    got = flatten_tree(resumed.state.state_tree())
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)

@@ -1,8 +1,8 @@
 """Torch port training: the optimizer chain and schedules against optax (via
 ``sav_tpu.train.state``), ``train_step``/``eval_step`` against
 ``sav_tpu.train.steps`` from one flax tree, top-k metrics, the synthetic
-source, and the training CLI end to end on the CPU (its ``params.npz`` read
-back by the predict CLI).
+source, and the training CLI end to end on the CPU (its checkpoint read
+back by the predict CLI, and resumed by a second run).
 
 float32. Tolerances: parameters and moments atol 1e-6 after 5 optimizer
 steps (updates of size ~lr = 1e-3, f32 math in another order); schedule
@@ -16,6 +16,7 @@ compared with optax on its own above.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -267,10 +268,15 @@ def test_cli_trains_and_predict_reads_its_checkpoint(tmp_path, capsys):
     captured = capsys.readouterr()
     assert 'loaded' in captured.err
     assert len(captured.out.splitlines()) == 2
-    with pytest.raises(NotImplementedError, match='resuming'):
-        train_cli.main(['--device', 'cpu', '--data_dir', 'synthetic', '-m',
-                        'vit_ti_patch16', '-s', '32', '-b', '4',
-                        '--total_steps', '2', '-c', str(ckpt)])
+    # the same -c resumes from its step-2 checkpoint and runs on to step 4
+    metrics = train_cli.main(['--device', 'cpu', '--data_dir', 'synthetic',
+                              '-m', 'vit_ti_patch16', '-s', '32', '-b', '4',
+                              '--total_steps', '4', '-c', str(ckpt)])
+    out = capsys.readouterr().out
+    assert 'restoring checkpoint at step 2' in out
+    assert 'step 2:' not in out and 'step 3:' in out
+    assert np.isfinite(metrics['loss'])
+    assert sorted(os.listdir(ckpt)) == ['2', '4', 'params.npz']
 
 
 def test_cli_trains_with_switchback(tmp_path, capsys):
@@ -298,8 +304,7 @@ def test_cli_trains_with_switchback(tmp_path, capsys):
 @pytest.mark.parametrize('flag', [
     ['--prefetch_chunks', '3'], ['--model_parallelism', '2'],
     ['--scan_layers'], ['--remat', 'full'], ['--pipeline_parallelism', '2'],
-    ['--steps_per_dispatch', '4'], ['--finetune_from', 'x'],
-    ['--pipeline_microbatches', '8'], ['--finetune_use_ema']])
+    ['--steps_per_dispatch', '4'], ['--pipeline_microbatches', '8']])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     argv = ['--device', 'cpu', '--data_dir', 'synthetic', '-m',
             'vit_ti_patch16', '-c', str(tmp_path)] + flag
