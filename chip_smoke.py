@@ -254,6 +254,31 @@
    counted, finite metrics) and runs ``predict --ema`` from it. Prints
    save, write and restore ms, the checkpoint's bytes, fine-tune and eval
    img/s, with the card's name and power limit.
+19. Imported checkpoints (slice 15; after 18, before the print of 11):
+   from one seeded ViT-B/16 draw (D = 768, 12 heads, F = 3072, patch 16,
+   erf gelu, every projection biased, no leaf zero) writes (a) an HF
+   ``ViTForImageClassification`` directory (12 layers, 1000 classes,
+   ``model.safetensors`` f32), (b) a headless ``ViTModel`` directory of
+   the same weights in three safetensors shards and their index, (c) a
+   timm ``.pth`` and (d) an AugReg ``.npz`` of the first two blocks, and
+   imports all four with ``python -m sav_tpu_torch.import_checkpoint``;
+   the trees of (c) and (d) equal (a)'s leaves bit for bit, (b)'s its
+   trunk (with a zero 10-way head), and (a)'s ``model.json`` the expected
+   spec. Serves (a) through ``predict``'s restore and ``serve`` @224 bs32
+   (12 K4 launches a forward, no K1: 'auto' keeps a biased block's
+   attention per-op), logits against use_kernel=False, img/s, device ms
+   (CUDA events behind a sleep kernel) and the idle share. Fine-tunes (b)
+   through the Trainer (``finetune_from``) @384 bs48 10-way: the pos-embed
+   197 -> 577 against ``interpolate_pos_embed`` at 1e-6, one step of 12
+   K4 + 12 K3a + 12 K3b, gradients against the same per-op ``mha``
+   boundary on the K4 and K3 twins (``models.vit.set_attention_core``)
+   with the f32 per-op path as the noise floor, 5 more steps and its
+   checkpoint, train img/s. Scores that checkpoint with
+   ``evaluate.run_eval`` @384 on the real-data phase's JPEG holdout (its
+   5%, exactly counted; 12 K4 a forward). K4 is also timed at the
+   fine-tune's B = 48, L = 577. Prints the phase's seconds; with
+   ``--profile``, device time by kernel of a serving batch and of the
+   fine-tune's steps.
 """
 
 from __future__ import annotations
@@ -281,6 +306,7 @@ from sav_tpu_torch.data.preprocess import eval_preprocess
 from sav_tpu_torch.models import create_model, set_int8_core, set_use_kernel
 from sav_tpu_torch.models.botnet import set_attention_core
 from sav_tpu_torch.models.cvt import set_attention_core as cvt_attention_core
+from sav_tpu_torch.models.vit import set_attention_core as vit_attention_core
 from sav_tpu_torch.nn.cvt_attention import CvTAttentionBlock
 from sav_tpu_torch.nn.feedforward import FFBlock
 from sav_tpu_torch.nn.layers import Conv, LayerNorm
@@ -397,6 +423,10 @@ INT8_PLAIN = 'int8 blocks on the twins'
 # f32 lse saved) with K4 and K3 on their twins (models.cvt.
 # set_attention_core)
 CVT_PLAIN = 'mha on the flash twins'
+# the plain_core of an imported (biased) ViT, whose attention 'auto' keeps
+# per-op: the same flash_attention.mha boundary with K4 and K2/K3 on their
+# twins (models.vit.set_attention_core)
+VIT_PLAIN = 'per-op mha on the flash twins'
 
 
 def nvidia_smi() -> str:
@@ -2001,7 +2031,7 @@ def load_running_stats(model, stats) -> None:
             t.copy_(stats[n])
 
 
-def _grads(model, batch, seed):
+def _grads(model, batch, seed, num_classes=1000):
     """Loss and gradients of one batch in training mode; the stochastic-depth
     masks come from a generator seeded from ``seed``, so every path that
     this is called on draws the same masks, and the running statistics
@@ -2011,7 +2041,7 @@ def _grads(model, batch, seed):
     stats = running_stats(model)
     set_stochastic_depth_generator(
         model, torch.Generator(device='cuda').manual_seed(seed))
-    loss, _ = loss_and_logits(model, batch, 1000, 0.1)
+    loss, _ = loss_and_logits(model, batch, num_classes, 0.1)
     loss.backward()
     set_stochastic_depth_generator(model, None)
     # the forward in training mode moved the BatchNorm running statistics:
@@ -2042,7 +2072,7 @@ def _grad_rule(g_kernel, g_plain, g_32):
 
 
 def check_grads(checks, name, model, batch, seed, model_name, img_size,
-                plain_core, use_kernel, **overrides):
+                plain_core, use_kernel, num_classes=1000, **overrides):
     """Gradients on one batch: the kernel path, the plain core on the same
     boundary, and the f32 per-op path as the reference, held to
     ``_grad_rule`` (the head filled so the encoder's gradients are not all
@@ -2052,18 +2082,18 @@ def check_grads(checks, name, model, batch, seed, model_name, img_size,
     fill_head(model, seed)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    loss_k, g_kernel = _grads(model, batch, seed)
+    loss_k, g_kernel = _grads(model, batch, seed, num_classes)
     counts = dict(_build.launches)
     _reroute(model, plain_core, use_kernel, True)
-    loss_x, g_plain = _grads(model, batch, seed)
+    loss_x, g_plain = _grads(model, batch, seed, num_classes)
     _reroute(model, plain_core, use_kernel, False)
-    ref = create_model(model_name, num_classes=1000, dtype=torch.float32,
-                       img_size=img_size, device='cuda', use_kernel=False,
-                       **overrides)
+    ref = create_model(model_name, num_classes=num_classes,
+                       dtype=torch.float32, img_size=img_size, device='cuda',
+                       use_kernel=False, **overrides)
     ref.load_state_dict(model.state_dict())
     if plain_core == INT8_PLAIN:
         set_int8_core(ref, 'plain')       # f32 activations: the twins
-    loss_32, g_32 = _grads(ref, batch, seed)
+    loss_32, g_32 = _grads(ref, batch, seed, num_classes)
     grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del ref
     torch.cuda.empty_cache()
@@ -2092,6 +2122,8 @@ def _reroute(model, plain_core, use_kernel, plain: bool) -> None:
         set_attention_core(model, 'plain' if plain else 'kernel')
     elif plain_core == CVT_PLAIN:
         cvt_attention_core(model, 'plain' if plain else 'kernel')
+    elif plain_core == VIT_PLAIN:
+        vit_attention_core(model, 'plain' if plain else 'kernel')
     elif plain_core == INT8_PLAIN:
         set_int8_core(model, 'plain' if plain else 'kernel')
     else:
@@ -3101,15 +3133,15 @@ def one_step(checks, trainer, data, what) -> None:
                   f'{what}: one step, launches {counts}, loss {loss:.5g}')
 
 
-def data_phase(checks, seed: int, smi: str, steps: int = 10,
+def data_phase(checks, seed: int, smi: str, workdir: str, steps: int = 10,
                profile: bool = False) -> dict:
-    """Real-data training on the card (item 17 of the module docstring);
-    returns the phase's numbers."""
+    """Real-data training on the card (item 17 of the module docstring),
+    its JPEG tree made in ``workdir/jpegs`` and left there for the import
+    phase's holdout; returns the phase's numbers."""
     from sav_tpu_torch.train import steps as train_steps
     from sav_tpu_torch.train.loop import TrainConfig, Trainer
 
     t_phase = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix='sav_data_')
     trainer = data = None
     try:
         root = make_jpeg_tree(workdir)
@@ -3203,7 +3235,9 @@ def data_phase(checks, seed: int, smi: str, steps: int = 10,
             data.close()
         del trainer
         torch.cuda.empty_cache()
-        shutil.rmtree(workdir, ignore_errors=True)
+        for name in ('jpegs.tar', 'frames.npz'):
+            if os.path.exists(os.path.join(workdir, name)):
+                os.remove(os.path.join(workdir, name))
     record = {
         'images': n, 'made_s': t_made, 'workers': workers,
         'img_per_s': steps * 192 / secs, 'step_ms': secs / steps * 1e3,
@@ -3435,13 +3469,365 @@ def checkpoint_phase(checks, seed: int, smi: str) -> dict:
     return record
 
 
+# ViT-B/16's widths, which phase 19 writes its checkpoints at
+VIT_B = dict(dim=768, heads=12, hidden=3072, patch=16, tokens=197)
+
+
+def vit_b_hf_state(seed: int, layers: int = 12, classes: int = 1000) -> dict:
+    """A ``ViTForImageClassification`` state dict (HF's names and layouts,
+    numpy f32) at ViT-B/16 width from seeded draws: matrices N(0, 1/fan_in),
+    biases N(0, 0.1^2), LayerNorm scales 1 + N(0, 0.1^2), the cls token and
+    position embedding N(0, 0.02^2). No leaf is zero, so a dropped or
+    swapped one shows in the logits."""
+    rng = np.random.default_rng(seed)
+    d, f, p = VIT_B['dim'], VIT_B['hidden'], VIT_B['patch']
+
+    def n(*shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    e = 'vit.embeddings.'
+    sd = {e + 'cls_token': n(1, 1, d, std=0.02),
+          e + 'position_embeddings': n(1, VIT_B['tokens'], d, std=0.02),
+          e + 'patch_embeddings.projection.weight': n(d, 3, p, p,
+                                                      std=(3 * p * p) ** -0.5),
+          e + 'patch_embeddings.projection.bias': n(d, std=0.1),
+          'vit.layernorm.weight': 1 + n(d, std=0.1),
+          'vit.layernorm.bias': n(d, std=0.1),
+          'classifier.weight': n(classes, d, std=d ** -0.5),
+          'classifier.bias': n(classes, std=0.1)}
+    for i in range(layers):
+        b = f'vit.encoder.layer.{i}.'
+        for ln in ('layernorm_before', 'layernorm_after'):
+            sd[b + ln + '.weight'] = 1 + n(d, std=0.1)
+            sd[b + ln + '.bias'] = n(d, std=0.1)
+        for name, (out, fan) in (('attention.attention.query', (d, d)),
+                                 ('attention.attention.key', (d, d)),
+                                 ('attention.attention.value', (d, d)),
+                                 ('attention.output.dense', (d, d)),
+                                 ('intermediate.dense', (f, d)),
+                                 ('output.dense', (d, f))):
+            sd[b + name + '.weight'] = n(out, fan, std=fan ** -0.5)
+            sd[b + name + '.bias'] = n(out, std=0.1)
+    return sd
+
+
+def write_hf_dir(path: str, state: dict, architecture: str, layers: int,
+                 shards: int = 1) -> str:
+    """A ``save_pretrained``-style directory: ``config.json`` (ViT-B/16's
+    fields, erf gelu) and the weights in safetensors, one file or
+    ``shards`` files and their index."""
+    from sav_tpu_torch.utils import safetensors
+    os.makedirs(path, exist_ok=True)
+    config = {'architectures': [architecture], 'model_type': 'vit',
+              'hidden_size': VIT_B['dim'], 'num_hidden_layers': layers,
+              'num_attention_heads': VIT_B['heads'],
+              'intermediate_size': VIT_B['hidden'], 'hidden_act': 'gelu',
+              'patch_size': VIT_B['patch'], 'image_size': 224,
+              'num_channels': 3, 'qkv_bias': True, 'layer_norm_eps': 1e-12}
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(config, f, indent=1)
+    if shards == 1:
+        safetensors.save_file(state, os.path.join(path, 'model.safetensors'),
+                              metadata={'format': 'pt'})
+    else:
+        safetensors.save_sharded(state, path, shards)
+    return path
+
+
+def timm_state(hf: dict, layers: int) -> dict:
+    """The first ``layers`` blocks of an HF state dict in timm's layout
+    (q, k and v fused row-wise into ``qkv``), as torch tensors."""
+    t = {'cls_token': hf['vit.embeddings.cls_token'],
+         'pos_embed': hf['vit.embeddings.position_embeddings'],
+         'patch_embed.proj.weight':
+             hf['vit.embeddings.patch_embeddings.projection.weight'],
+         'patch_embed.proj.bias':
+             hf['vit.embeddings.patch_embeddings.projection.bias'],
+         'norm.weight': hf['vit.layernorm.weight'],
+         'norm.bias': hf['vit.layernorm.bias'],
+         'head.weight': hf['classifier.weight'],
+         'head.bias': hf['classifier.bias']}
+    for i in range(layers):
+        b, o = f'vit.encoder.layer.{i}.', f'blocks.{i}.'
+        qkv = [b + f'attention.attention.{w}' for w in ('query', 'key',
+                                                         'value')]
+        t.update({
+            o + 'norm1.weight': hf[b + 'layernorm_before.weight'],
+            o + 'norm1.bias': hf[b + 'layernorm_before.bias'],
+            o + 'attn.qkv.weight': np.concatenate(
+                [hf[k + '.weight'] for k in qkv]),
+            o + 'attn.qkv.bias': np.concatenate([hf[k + '.bias'] for k in qkv]),
+            o + 'attn.proj.weight': hf[b + 'attention.output.dense.weight'],
+            o + 'attn.proj.bias': hf[b + 'attention.output.dense.bias'],
+            o + 'norm2.weight': hf[b + 'layernorm_after.weight'],
+            o + 'norm2.bias': hf[b + 'layernorm_after.bias'],
+            o + 'mlp.fc1.weight': hf[b + 'intermediate.dense.weight'],
+            o + 'mlp.fc1.bias': hf[b + 'intermediate.dense.bias'],
+            o + 'mlp.fc2.weight': hf[b + 'output.dense.weight'],
+            o + 'mlp.fc2.bias': hf[b + 'output.dense.bias']})
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in t.items()}
+
+
+def augreg_npz(hf: dict, layers: int) -> dict:
+    """The first ``layers`` blocks of an HF state dict in the flat
+    ``vision_transformer`` (AugReg) npz layout: flax-native kernels."""
+    d, h = VIT_B['dim'], VIT_B['heads']
+    head = d // h
+    z = {'embedding/kernel': hf['vit.embeddings.patch_embeddings.projection'
+                                '.weight'].transpose(2, 3, 1, 0),
+         'embedding/bias': hf['vit.embeddings.patch_embeddings.projection.bias'],
+         'cls': hf['vit.embeddings.cls_token'],
+         'Transformer/posembed_input/pos_embedding':
+             hf['vit.embeddings.position_embeddings'],
+         'Transformer/encoder_norm/scale': hf['vit.layernorm.weight'],
+         'Transformer/encoder_norm/bias': hf['vit.layernorm.bias'],
+         'head/kernel': hf['classifier.weight'].T,
+         'head/bias': hf['classifier.bias']}
+    for i in range(layers):
+        b = f'vit.encoder.layer.{i}.'
+        o = f'Transformer/encoderblock_{i}/'
+        a = o + 'MultiHeadDotProductAttention_1/'
+        for ours, theirs in (('LayerNorm_0', 'layernorm_before'),
+                             ('LayerNorm_2', 'layernorm_after')):
+            z[o + ours + '/scale'] = hf[b + theirs + '.weight']
+            z[o + ours + '/bias'] = hf[b + theirs + '.bias']
+        for w in ('query', 'key', 'value'):
+            z[a + w + '/kernel'] = hf[b + f'attention.attention.{w}.weight'
+                                      ].T.reshape(d, h, head)
+            z[a + w + '/bias'] = hf[b + f'attention.attention.{w}.bias'
+                                    ].reshape(h, head)
+        z[a + 'out/kernel'] = hf[b + 'attention.output.dense.weight'
+                                 ].T.reshape(h, head, d)
+        z[a + 'out/bias'] = hf[b + 'attention.output.dense.bias']
+        for k, theirs in ((0, 'intermediate.dense'), (1, 'output.dense')):
+            z[o + f'MlpBlock_3/Dense_{k}/kernel'] = hf[b + theirs + '.weight'].T
+            z[o + f'MlpBlock_3/Dense_{k}/bias'] = hf[b + theirs + '.bias']
+    return z
+
+
+def import_phase(checks, seed: int, smi: str, jpeg_root: str,
+                 profile: bool = False) -> dict:
+    """Public checkpoints imported and used on the card (item 19 of the
+    module docstring); with ``profile``, device time by kernel of a serving
+    batch and of two fine-tune steps after the run. Returns the phase's
+    numbers."""
+    import contextlib
+    import io
+
+    from sav_tpu_torch import evaluate as evaluate_cli
+    from sav_tpu_torch import import_checkpoint
+    from sav_tpu_torch.predict import restore_weights
+    from sav_tpu_torch.train import finetune
+    from sav_tpu_torch.train.checkpoint import CheckpointManager
+    from sav_tpu_torch.utils.flax_bridge import flatten_tree
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix='sav_import_')
+    try:
+        # (a)-(d): the sources, written from one seeded ViT-B/16 draw
+        hf = vit_b_hf_state(seed)
+        src = {
+            'a': write_hf_dir(os.path.join(workdir, 'hf_cls'), hf,
+                              'ViTForImageClassification', 12),
+            'b': write_hf_dir(os.path.join(workdir, 'hf_trunk'),
+                              {k[len('vit.'):]: v for k, v in hf.items()
+                               if k.startswith('vit.')}, 'ViTModel', 12,
+                              shards=3),
+            'c': os.path.join(workdir, 'deit.pth'),
+            'd': os.path.join(workdir, 'augreg.npz'),
+        }
+        torch.save({'model': timm_state(hf, 2)}, src['c'])
+        np.savez(src['d'], **augreg_npz(hf, 2))
+        del hf
+        out = {k: os.path.join(workdir, f'out_{k}') for k in src}
+        t_import = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            import_checkpoint.main(['hf', src['a'], out['a']])
+            import_checkpoint.main(['hf', src['b'], out['b'],
+                                    '--num-classes', '10'])
+            import_checkpoint.main(['timm', src['c'], out['c']])
+            import_checkpoint.main(['npz', src['d'], out['d']])
+        import_s = time.perf_counter() - t_import
+
+        def tree(key):
+            manager = CheckpointManager(out[key])
+            try:
+                return flatten_tree(manager.restore_for_inference()['params'])
+            finally:
+                manager.close()
+
+        ta = tree('a')
+        for key, what in (('c', 'timm .pth'), ('d', 'AugReg .npz')):
+            other = tree(key)
+            bad = [k for k in other if k not in ta
+                   or not np.array_equal(other[k], ta[k])]
+            checks.expect(len(other) == 7 + 2 * 16 and not bad,
+                          f'import: the {what} at depth 2 gives {len(other)} '
+                          f'leaves, each bit for bit the HF checkpoint\'s '
+                          f'({len(bad)} differ: {bad[:3]})')
+        tb = tree('b')
+        bad = [k for k in ta if not k.startswith('Dense_0/')
+               and not np.array_equal(ta[k], tb[k])]
+        checks.expect(sorted(tb) == sorted(ta) and not bad
+                      and tb['Dense_0/kernel'].shape == (768, 10)
+                      and not tb['Dense_0/kernel'].any(),
+                      f'import: the headless ViTModel (3 safetensors shards) '
+                      f'gives the trunk of the classifier checkpoint bit for '
+                      f'bit ({len(bad)} leaves differ) and a zero 10-way head')
+        spec = json.load(open(os.path.join(out['a'], 'model.json')))
+        checks.expect(spec == {'model': 'vit', 'kwargs': {
+            'num_classes': 1000, 'num_layers': 12, 'num_heads': 12,
+            'embed_dim': 768, 'patch_shape': [16, 16], 'expand_ratio': 4.0,
+            'attn_bias': True, 'activation': 'gelu_exact'}},
+                      f'import: model.json {spec}')
+        pos_b = tb['Encoder_0/AddAbsPosEmbed_0/pos_embed']
+        del ta, tb
+
+        # serve (a) @224 bs32 as predict does: the spec, the restore, serve
+        batch = 32
+        model = create_model(out['a'], dtype=torch.bfloat16, img_size=224,
+                             device='cuda')
+        with contextlib.redirect_stderr(io.StringIO()):
+            restore_weights(model, out['a'], out['a'], 224, True)
+        model.eval()
+        frames = np.random.RandomState(seed).randint(
+            0, 256, (batch, 256, 256, 3), dtype=np.uint8)
+        _build.reset_launches()
+        probs, idx = serve(model, frames, 224, 5)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        want = {'flash_fwd': 12}
+        checks.expect(counts == want and tuple(idx.shape) == (batch, 5)
+                      and bool(torch.isfinite(probs).all()),
+                      f'imported ViT-B/16 @224 bs{batch}: launches per '
+                      f'forward {counts} (want {want}: per-op attention on K4, '
+                      f'no K1), top-5 finite')
+        serve_counts = counts
+        with torch.inference_mode():
+            x = eval_preprocess(torch.from_numpy(frames).cuda().float(),
+                                224).bfloat16()
+            logits = model(x).float()
+            set_use_kernel(model, False)
+            plain = model(x).float()
+            set_use_kernel(model, 'auto')
+        err = _rel(logits, plain)
+        checks.expect(tuple(logits.shape) == (batch, 1000)
+                      and bool(torch.isfinite(logits).all())
+                      and err <= LOGIT_TOL,
+                      f'imported ViT-B/16 @224: logits vs use_kernel=False: '
+                      f'max err {err:.3g} of max|logit| (tol {LOGIT_TOL}), '
+                      f'top-1 agreement '
+                      f'{(logits.argmax(-1) == plain.argmax(-1)).float().mean().item():.3f}')
+        iters = 10
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            serve(model, frames, 224, 5)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) / iters * 1e3
+        dev_ms = device_ms(lambda: serve(model, frames, 224, 5))
+        serve_rec = {'img_per_s': batch / wall_ms * 1e3, 'wall_ms': wall_ms,
+                     'device_ms': dev_ms, 'idle': 1 - dev_ms / wall_ms}
+        print(f'  imported ViT-B/16 @224 bs{batch}: '
+              f'{serve_rec["img_per_s"]:.1f} img/s, {wall_ms:.2f} ms a batch '
+              f'(wall), {dev_ms:.3f} device ms a batch, idle '
+              f'{100 * serve_rec["idle"]:.1f}%', flush=True)
+        if profile:
+            print_profile(lambda: serve(model, frames, 224, 5))
+        del model, logits, plain, x
+        torch.cuda.empty_cache()
+
+        # fine-tune (b) @384 bs48 10-way through the Trainer
+        ft_dir = os.path.join(workdir, 'finetune')
+        ft = Trainer(TrainConfig(
+            model_name=out['b'], img_size=384, batch_size=48, seed=seed,
+            dtype='bfloat16', num_classes=10, finetune_from=out['b'],
+            total_steps=6, eval_every_epochs=10**6, eval_batches=1,
+            log_every=1, checkpoint_dir=ft_dir), device='cuda')
+        ft.logger = StepLog()
+        got = ft.model.Encoder_0.AddAbsPosEmbed_0.pos_embed.detach()
+        want_pos = finetune.interpolate_pos_embed(pos_b, got.shape[1])
+        perr = float(np.abs(got.float().cpu().numpy() - want_pos).max())
+        checks.expect(tuple(got.shape) == (1, 577, 768) and perr <= 1e-6
+                      and ft.state.step == 0,
+                      f'imported fine-tune: pos-embed 197 -> {got.shape[1]} '
+                      f'tokens, {perr:.3g} from interpolate_pos_embed on the '
+                      f'CPU (<= 1e-6), step {ft.state.step}')
+        data = ft.dataset()
+        first = data.batch(0)
+        want_ft = {'flash_fwd': 12, 'flash_bwd_dq': 12, 'flash_bwd_dkv': 12}
+        _build.reset_launches()
+        loss = float(ft.train_step(first)['loss'])
+        torch.cuda.synchronize()
+        ft_counts = dict(_build.launches)
+        checks.expect(ft_counts == want_ft and math.isfinite(loss),
+                      f'imported fine-tune @384 bs48: one step launched '
+                      f'{ft_counts} (want {want_ft}), loss {loss:.5g} finite')
+        check_grads(checks, 'imported fine-tune @384 bs48', ft.model, first,
+                    seed, out['b'], 384, VIT_PLAIN, 'auto', num_classes=10)
+        ft.run()                # steps 1-5, then its checkpoint at step 6
+        rates = [ft.logger.rows[k]['images_per_sec'] for k in range(2, 6)]
+        if profile:             # after the run: its checkpoint is written
+            print_profile(lambda: ft.train_step(first), iters=2)
+        del ft, data, first
+        torch.cuda.empty_cache()
+
+        # score the fine-tuned checkpoint @384 on the real-data phase's
+        # JPEG holdout (its 5%, as that Trainer held it out)
+        n = sum(len(os.listdir(os.path.join(jpeg_root, c)))
+                for c in os.listdir(jpeg_root))
+        held = len(data_pipeline.split_indices(n, 0.95, 1.0))
+        _build.reset_launches()
+        with contextlib.redirect_stderr(io.StringIO()):
+            metrics = evaluate_cli.run_eval(
+                os.path.join(out['b'], 'model.json'), ft_dir, jpeg_root,
+                img_size=384, batch_size=32, holdout_fraction=0.05, seed=seed,
+                device='cuda')
+        counts = dict(_build.launches)
+        forwards = -(-held // 32)
+        checks.expect(
+            counts == {'flash_fwd': 12 * forwards}
+            and metrics['eval_images'] == held and metrics['eval_step'] == 6
+            and all(math.isfinite(metrics[k]) for k in (
+                'eval_loss', 'eval_top_1_acc', 'eval_top_5_acc')),
+            f'imported evaluate @384: {metrics["eval_images"]:.0f} of the '
+            f'{held} held-out images scored at step {metrics["eval_step"]}, '
+            f'launches {counts} (12 K4 a forward, {forwards} forwards), '
+            f'eval loss {metrics["eval_loss"]:.5g}')
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = {
+        'import_s': import_s, 'serve_img_per_s': serve_rec['img_per_s'],
+        'serve_wall_ms': serve_rec['wall_ms'],
+        'serve_device_ms': serve_rec['device_ms'],
+        'serve_idle': serve_rec['idle'],
+        'finetune_img_per_s': float(np.median(rates)),
+        'eval_img_per_s': metrics['images_per_sec'],
+        'serve_launches': serve_counts.get('flash_fwd', 0),
+        'finetune_launches': ft_counts,
+    }
+    print(f'  {smi}: imported ViT-B/16 (four sources written and imported in '
+          f'{import_s:.1f} s): serving @224 bs32 {record["serve_img_per_s"]:.1f} '
+          f'img/s, {record["serve_device_ms"]:.3f} device ms of '
+          f'{record["serve_wall_ms"]:.2f} wall ms a batch (idle '
+          f'{100 * record["serve_idle"]:.1f}%); fine-tune @384 bs48 '
+          f'{record["finetune_img_per_s"]:.1f} train img/s (median of steps '
+          f'3-6, wall); evaluate @384 {record["eval_img_per_s"]:.1f} img/s '
+          f'(JPEG decode included)', flush=True)
+    print(f'  the import phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    print('  import: ' + json.dumps(record), flush=True)
+    return record
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--batch', type=int, default=32)
     parser.add_argument('--profile', action='store_true',
                         help='also print device time by kernel of each serve '
-                             'and of the @224 train steps and CaiT @384')
+                             'and of the @224 train steps, CaiT @384 and the '
+                             'imported ViT-B/16')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -3921,8 +4307,18 @@ def main(argv=None):
                            '@224 bs128', 128, 196, 6, 24, args.seed)
     print(f'  the CaiT-XS phase took {time.perf_counter() - t_xs:.1f} s',
           flush=True)
-    data_phase(checks, args.seed, smi, profile=args.profile)
-    checkpoint_phase(checks, args.seed, smi)
+    jpeg_dir = tempfile.mkdtemp(prefix='sav_data_')
+    try:
+        data_phase(checks, args.seed, smi, jpeg_dir, profile=args.profile)
+        checkpoint_phase(checks, args.seed, smi)
+        # the imported checkpoints' paths: K4 at the fine-tune's B = 48,
+        # L = 577 beside the serving shape k4[197]
+        k4_ft = check_k4(rng, checks, 48, 577)
+        imported = import_phase(checks, args.seed, smi,
+                                os.path.join(jpeg_dir, 'jpegs'), args.profile)
+    finally:
+        shutil.rmtree(jpeg_dir, ignore_errors=True)
+    import_ft = imported['finetune_launches']
 
     def cvt_fields(prefix, recs, keys=('ms', 'bound_ms', 'bound_by',
                                        'plain_ms', 'library_ms')):
@@ -4039,7 +4435,13 @@ def main(argv=None):
              cvt_launches=cvt_serve.get('flash_fwd', 0),
              cvt_train_launches=cvt_train.get('flash_fwd', 0),
              **cvt_fields('cvt', [k4c[(args.batch, c)] for c in cvt_shapes]),
-             **cvt_fields('cvt_train', [k4c[(64, c)] for c in cvt_shapes])),
+             **cvt_fields('cvt_train', [k4c[(64, c)] for c in cvt_shapes]),
+             # the imported (biased) ViT-B/16: serving @224 (B = 32, L =
+             # 197) and a fine-tune step @384 (B = 48, L = 577)
+             import_launches=imported['serve_launches'],
+             **{f'import_{k}': v for k, v in k4[197].items()},
+             import_train_launches=import_ft.get('flash_fwd', 0),
+             **{f'import_train_{k}': v for k, v in k4_ft.items()}),
         dict(name='fused_attention_fwd_train', route='cuda',
              source='sav_tpu_torch/csrc/fused_attention.cu',
              replaces='sav_tpu/ops/fused_layer.py:127',
@@ -4080,6 +4482,7 @@ def main(argv=None):
                **{f'l197_{key}': bwd197[n][key] for key in (
                    'ms', 'bound_ms', 'pair_ms', 'pair_library_ms',
                    'pair_bound_ms')},
+               import_launches=import_ft.get(f'flash_bwd_{n}', 0),
                cvt_launches=cvt_train.get(f'flash_bwd_{n}', 0),
                **cvt_fields('cvt', [k3c[c][n] for c in cvt_shapes],
                             ('ms', 'bound_ms', 'bound_by', 'plain_ms',

@@ -31,13 +31,14 @@ import time
 from sav_tpu_torch import resolve_device
 from sav_tpu_torch.data.pipeline import create_dataset, parse_dataset_spec
 from sav_tpu_torch.models import create_model
+from sav_tpu_torch.models.factory import resolve_num_classes
 from sav_tpu_torch.predict import DTYPES, restore_weights
 from sav_tpu_torch.train import steps as steps_lib
 
 
 def run_eval(model_name: str, checkpoint_dir: str, data_dir: str,
              img_size: int = 224, batch_size: int = 32,
-             num_classes: int = 1000, dtype: str = 'bfloat16',
+             num_classes=None, dtype: str = 'bfloat16',
              use_ema: bool = True, eval_batches=None,
              holdout_fraction: float = 0.0, seed: int = 42,
              data_workers: int = 0, quantized=False,
@@ -45,8 +46,10 @@ def run_eval(model_name: str, checkpoint_dir: str, data_dir: str,
     """Returns per-example-mean eval metrics (+ ``eval_images``,
     ``eval_step``, ``images_per_sec``); ``{}`` where the source gave no
     batch. Raises FileNotFoundError where ``checkpoint_dir`` holds no
-    checkpoint. Runs on the card unless ``device='cpu'``."""
+    checkpoint. ``num_classes`` None is a ``model.json`` spec's own head
+    width, else 1000. Runs on the card unless ``device='cpu'``."""
     device = resolve_device(device)
+    num_classes = resolve_num_classes(model_name, num_classes)
     model_kwargs = {'num_classes': num_classes}
     if pos_embed != 'learned':
         model_kwargs['pos_embed'] = pos_embed
@@ -88,7 +91,9 @@ def run_eval(model_name: str, checkpoint_dir: str, data_dir: str,
 
 def _parser():
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    p.add_argument('-m', '--model_name', required=True)
+    p.add_argument('-m', '--model_name', required=True,
+                   help='registry name, or a model.json spec (its path or '
+                        'its directory)')
     p.add_argument('-c', '--checkpoint_dir', required=True,
                    help='Trainer checkpoint directory')
     p.add_argument('--data_dir', required=True,
@@ -96,7 +101,9 @@ def _parser():
                         'may carry a ?split= suffix')
     p.add_argument('-s', '--img_size', type=int, default=224)
     p.add_argument('-b', '--batch_size', type=int, default=32)
-    p.add_argument('--num_classes', type=int, default=1000)
+    p.add_argument('--num_classes', type=int, default=None,
+                   help='head width (default: a model.json spec\'s own, else '
+                        '1000)')
     p.add_argument('--dtype', default='bfloat16', choices=sorted(DTYPES))
     p.add_argument('--ema', dest='use_ema', action='store_true', default=True,
                    help='use the EMA params when the checkpoint carries them')

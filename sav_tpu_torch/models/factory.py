@@ -1,10 +1,17 @@
 """String-keyed model factory (counterpart of
 ``sav_tpu/models/factory.py``): every name of the JAX factory, the ViT,
-CaiT, MLP-Mixer, TNT, BoTNet, CeiT and CvT families (all 34)."""
+CaiT, MLP-Mixer, TNT, BoTNet, CeiT and CvT families (all 34), and the
+``model.json`` specs that the checkpoint importers write
+(``sav_tpu_torch.import_checkpoint``, the JAX package's
+``scripts/import_*.py``), which build an architecture outside the
+registry."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import inspect
+import json
+import os
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -17,6 +24,7 @@ from sav_tpu_torch.models.cvt import CvT
 from sav_tpu_torch.models.mlp_mixer import MLPMixer
 from sav_tpu_torch.models.tnt import TNT
 from sav_tpu_torch.models.vit import ViT
+from sav_tpu_torch.nn.feedforward import ACTIVATIONS
 from sav_tpu_torch.nn.layers import init_all
 
 
@@ -88,27 +96,109 @@ def available_models():
     return sorted(MODEL_CONFIGS)
 
 
-def create_model(model_name: str, num_classes: int = 1000,
+# a spec's "model" -> its class (sav_tpu/models/factory.py:_SPEC_CLASSES)
+SPEC_CLASSES = {'vit': ViT, 'cait': CaiT, 'ceit': CeiT, 'cvt': CvT,
+                'tnt': TNT, 'botnet': BoTNet, 'mixer': MLPMixer}
+
+
+def spec_path(model_name: str) -> Optional[str]:
+    """The ``model.json`` that ``model_name`` names: a path ending in
+    ``.json``, or a directory (written with a path separator, so no
+    registry name is taken for one) that holds ``model.json``; else
+    None."""
+    if model_name.endswith('.json'):
+        return model_name
+    if (os.path.sep in model_name
+            and os.path.isfile(os.path.join(model_name, 'model.json'))):
+        return os.path.join(model_name, 'model.json')
+    return None
+
+
+def _spec_activation(name: str) -> str:
+    if name not in ACTIVATIONS:
+        raise RuntimeError(f'unknown activation {name!r} in model spec; '
+                           f'known: {", ".join(sorted(ACTIVATIONS))}')
+    return name
+
+
+def read_spec(path: str):
+    """``(model class, constructor kwargs)`` of a ``model.json``:
+    ``{"model": "vit", "kwargs": {...}}``, lists as tuples, ``activation``
+    (gelu | gelu_exact | relu) decoded into ``activation_fn``. A spec of
+    the scan-stacked layout, or with an activation on a family other than
+    ViT, raises NotImplementedError naming its ROADMAP.md item."""
+    with open(path) as f:
+        spec = json.load(f)
+    try:
+        model_cls = SPEC_CLASSES[spec['model']]
+    except KeyError:
+        raise RuntimeError(
+            f'model spec {path!r} names unknown model '
+            f'{spec.get("model")!r}; known: '
+            f'{", ".join(sorted(SPEC_CLASSES))}') from None
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in spec.get('kwargs', {}).items()}
+    if kwargs.pop('scan_layers', False):
+        raise NotImplementedError(
+            f'model spec {path!r} is of the scan-stacked layout '
+            '(scan_layers), which is not ported to sav_tpu_torch yet (the '
+            'scan-stacked layout: Queue 1 item 1, ROADMAP.md)')
+    if 'activation' in kwargs:
+        if model_cls is not ViT:
+            raise NotImplementedError(
+                f'model spec {path!r} sets activation on {spec["model"]!r}: '
+                'only ViT takes another activation than the tanh gelu in '
+                'sav_tpu_torch so far (Queue 1 item 19, ROADMAP.md)')
+        kwargs['activation_fn'] = _spec_activation(kwargs.pop('activation'))
+    return model_cls, kwargs
+
+
+def resolve_num_classes(model_name: str, num_classes: Optional[int]) -> int:
+    """The head width ``create_model(model_name, num_classes)`` builds:
+    ``num_classes`` where given; else a spec's own, else 1000."""
+    if num_classes is not None:
+        return num_classes
+    path = spec_path(model_name)
+    if path is not None:
+        return read_spec(path)[1].get('num_classes', 1000)
+    return 1000
+
+
+def create_model(model_name: str, num_classes: Optional[int] = None,
                  dtype=torch.float32, img_size: int = 224, seed: int = 0,
                  device=None, **overrides) -> torch.nn.Module:
-    """Builds a model from its registry name, randomly initialised from
-    ``seed`` (flax's initialisers, torch's random stream), on ``device``
-    (the card unless ``'cpu'`` is asked for).
+    """Builds a model from its registry name or a ``model.json`` spec
+    (``spec_path``), randomly initialised from ``seed`` (flax's
+    initialisers, torch's random stream), on ``device`` (the card unless
+    ``'cpu'`` is asked for).
 
     ``device='meta'`` builds the modules with shapes only (no weights),
     for what needs a model's tree but none of its values.
 
+    ``num_classes`` None is the spec's own head width (a checkpoint's, not
+    negotiable when serving it), else 1000; a width given wins, as a
+    fine-tune's new head does. ``img_size`` is not part of a spec.
+
     Extra keyword arguments override config fields (``use_kernel=False``
     forces the plain attention path, ``num_layers=2`` or, for BoTNet and
     CvT, ``stage_sizes`` cuts depth, ``quantized`` picks an int8 route of
-    the ViT, CaiT, Mixer and CvT families and raises for the others).
+    the ViT, CaiT, Mixer and CvT families and raises for the others); on
+    the spec path one the model does not take raises, listing those it
+    does.
     """
-    try:
-        model_cls, config = MODEL_CONFIGS[model_name]
-    except KeyError:
-        raise RuntimeError(
-            f'Model not found: {model_name!r}. The torch port has '
-            f'{", ".join(available_models())}') from None
+    path = spec_path(model_name)
+    if path is not None:
+        model_cls, config = read_spec(path)
+        spec_classes = config.pop('num_classes', 1000)
+        num_classes = spec_classes if num_classes is None else num_classes
+    else:
+        try:
+            model_cls, config = MODEL_CONFIGS[model_name]
+        except KeyError:
+            raise RuntimeError(
+                f'Model not found: {model_name!r}. The torch port has '
+                f'{", ".join(available_models())}') from None
+        num_classes = 1000 if num_classes is None else num_classes
     if ('quantized' in overrides
             and model_cls not in (ViT, CaiT, MLPMixer, CvT)):
         if overrides.pop('quantized'):
@@ -116,6 +206,14 @@ def create_model(model_name: str, num_classes: int = 1000,
                 f'{model_cls.__name__} does not support quantized (--quantized '
                 'is honored by the ViT, CaiT, Mixer and CvT families; this '
                 'family has no int8 path, as in the JAX package)')
+    if path is not None:
+        supported = set(inspect.signature(model_cls).parameters) - {
+            'num_classes', 'dtype', 'img_size'}
+        unknown = sorted(k for k in overrides if k not in supported)
+        if unknown:
+            raise RuntimeError(
+                f'{model_cls.__name__} does not support {", ".join(unknown)}; '
+                f'supported overrides: {", ".join(sorted(supported))}')
     device = resolve_device(device)
     kwargs = dict(num_classes=num_classes, dtype=dtype, img_size=img_size,
                   **{**config, **overrides})

@@ -58,18 +58,52 @@ def _check_quantized(quantized, use_kernel) -> None:
                          'backward kernel (K16) assumes the bf16 forward')
 
 
+def _check_options(use_kernel, attn_bias, fused_qkv, activation_fn) -> None:
+    """What the forced fused modes refuse, as the JAX model asserts: the
+    attention sublayer spans carry no projection biases and take the three
+    projections apart; K16's backward computes the tanh gelu's
+    derivative."""
+    if use_kernel in FUSED_LAYER_MODES:
+        for option, value in (('attn_bias', attn_bias),
+                              ('fused_qkv', fused_qkv)):
+            if value:
+                raise ValueError(
+                    f'use_kernel={use_kernel!r} (the fused attention '
+                    f'sublayer) carries no {option}; use_kernel=\'auto\' '
+                    'runs a block with it per-op')
+    if use_kernel == FUSED_FF and activation_fn != 'gelu':
+        raise ValueError(f"use_kernel='fused_ff' hardcodes the tanh gelu's "
+                         f'derivative (K16), not activation_fn='
+                         f'{activation_fn!r}')
+
+
 class EncoderBlock(nn.Module):
-    """Pre-LN transformer block: LN->MHA->residual, LN->MLP->residual."""
+    """Pre-LN transformer block: LN->MHA->residual, LN->MLP->residual.
+
+    ``attn_bias`` and ``fused_qkv`` keep the attention per-op under
+    ``'auto'`` (K4 forward, K2/K3 backward on the card), as the JAX model
+    does; the forced fused modes refuse them (``_check_options``). The
+    int8 FF sublayer (``quantized`` 'ff', 'ff_sb', 'all') is taken with
+    the tanh gelu only: 'ff' and 'ff_sb' raise on another activation and
+    'all' quantizes the FF products through the library int8 path
+    (``QuantizedDense``), as the JAX model's FFBlock does."""
 
     def __init__(self, dim: int, num_heads: int, expand_ratio: float = 4,
                  dtype=torch.float32, use_kernel: Union[str, bool] = 'auto',
                  fused_qkv: bool = False, attn_bias: bool = False,
-                 rotary: bool = False, quantized: Union[bool, str] = False):
+                 rotary: bool = False, quantized: Union[bool, str] = False,
+                 activation_fn: str = 'gelu'):
         super().__init__()
         _check_use_kernel(use_kernel)
         _check_quantized(quantized, use_kernel)
+        _check_options(use_kernel, attn_bias, fused_qkv, activation_fn)
+        if quantized in ('ff', 'ff_sb') and activation_fn != 'gelu':
+            raise ValueError(f'quantized={quantized!r} hardcodes the tanh '
+                             f'gelu between the GEMMs, not {activation_fn!r}')
         self.num_heads, self.dtype = num_heads, dtype
         self.use_kernel, self.rotary = use_kernel, rotary
+        self.attn_bias, self.fused_qkv = attn_bias, fused_qkv
+        self.activation_fn = activation_fn
         self.quantized = quantized
         self.int8_core = 'kernel'         # or 'plain': models.set_int8_core
         self.LayerNorm_0 = LayerNorm(dim, dtype)
@@ -77,13 +111,19 @@ class EncoderBlock(nn.Module):
             dim, num_heads, dtype=dtype, use_kernel=use_kernel,
             fused_qkv=fused_qkv, use_bias=attn_bias, rotary=rotary)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
-        self.FFBlock_0 = FFBlock(dim, expand_ratio, dtype,
-                                 quantized=quantized is True)
+        # 'all' with another activation than the kernels' tanh gelu runs
+        # the FF products on the library int8 path
+        self.FFBlock_0 = FFBlock(
+            dim, expand_ratio, dtype, quantized=quantized is True or (
+                quantized == 'all' and activation_fn != 'gelu'),
+            activation_fn=activation_fn)
 
     def _fused_core(self, inputs) -> Union[str, None]:
         if self.use_kernel in FUSED_LAYER_MODES:
             return FUSED_LAYER_MODES[self.use_kernel]
         if self.use_kernel == 'auto':
+            if self.attn_bias or self.fused_qkv:
+                return None
             dim = inputs.shape[-1]
             return fused_layer.auto_core(inputs.shape[-2], self.num_heads,
                                          dim // self.num_heads, inputs.device)
@@ -95,7 +135,7 @@ class EncoderBlock(nn.Module):
             x = self._fused_attention_sublayer(inputs, core)
         else:
             x = self.SelfAttentionBlock_0(self.LayerNorm_0(inputs)) + inputs
-        if self.quantized in INT8_FF_SUBLAYER:
+        if self.quantized in INT8_FF_SUBLAYER and self.activation_fn == 'gelu':
             return self._int8_ff_sublayer(x)
         if self.use_kernel == FUSED_FF:
             return self._ff_sublayer(x)
@@ -104,8 +144,9 @@ class EncoderBlock(nn.Module):
     def _ff_sublayer(self, x):
         """LN_1 -> FFBlock_0 -> residual as one autograd Function (library
         forward, K16 backward), on the same parameters as the per-op path.
-        The port's FFBlock is dropout-free, unquantized and tanh-gelu, the
-        three things the kernel's closed-form backward assumes."""
+        The port's FFBlock is dropout-free, unquantized and, under this mode,
+        tanh-gelu (``_check_options``), the three things the kernel's
+        closed-form backward assumes."""
         ff = self.FFBlock_0
         dim, hidden = ff.Dense_0.kernel.shape
         why = fused_layer.ff_refusal(dim, hidden, x.device)
@@ -157,8 +198,24 @@ def set_use_kernel(model: nn.Module, use_kernel: Union[str, bool]) -> None:
     for sub in model.modules():
         if isinstance(sub, EncoderBlock):
             _check_quantized(sub.quantized, use_kernel)
+            _check_options(use_kernel, sub.attn_bias, sub.fused_qkv,
+                           sub.activation_fn)
         if isinstance(sub, (EncoderBlock, SelfAttentionBlock)):
             sub.use_kernel = use_kernel
+
+
+def set_attention_core(model: nn.Module, core: str) -> None:
+    """``'kernel'`` or ``'plain'``: what the flash route of every per-op
+    attention block runs, K4 and K2/K3 or their twins at the same
+    autograd boundary (the reference of the card's gradient check for a
+    block that ``'auto'`` keeps per-op, such as a biased one)."""
+    from sav_tpu_torch.ops import flash_attention
+    if core not in flash_attention.CORES:
+        raise ValueError(f'core must be one of {flash_attention.CORES}, got '
+                         f'{core!r}')
+    for sub in model.modules():
+        if isinstance(sub, SelfAttentionBlock):
+            sub.core = core
 
 
 class Encoder(nn.Module):
@@ -169,7 +226,8 @@ class Encoder(nn.Module):
                  use_kernel: Union[str, bool] = 'auto',
                  pos_embed: str = 'learned', fused_qkv: bool = False,
                  attn_bias: bool = False,
-                 quantized: Union[bool, str] = False):
+                 quantized: Union[bool, str] = False,
+                 activation_fn: str = 'gelu'):
         super().__init__()
         if pos_embed == 'learned':
             self.AddAbsPosEmbed_0 = AddAbsPosEmbed(seq_len, dim)
@@ -182,7 +240,8 @@ class Encoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f'EncoderBlock_{i}', EncoderBlock(
                 dim, num_heads, expand_ratio, dtype, use_kernel, fused_qkv,
-                attn_bias, rotary=pos_embed == 'rotary', quantized=quantized))
+                attn_bias, rotary=pos_embed == 'rotary', quantized=quantized,
+                activation_fn=activation_fn))
         self.num_layers = num_layers
         self.LayerNorm_0 = LayerNorm(dim, dtype)
 
@@ -208,7 +267,8 @@ class ViT(nn.Module):
                  pos_embed: str = 'learned', fused_qkv: bool = False,
                  attn_bias: bool = False, dropout_rate: float = 0.0,
                  attn_dropout_rate: float = 0.0,
-                 quantized: Union[bool, str] = False):
+                 quantized: Union[bool, str] = False,
+                 activation_fn: str = 'gelu'):
         super().__init__()
         if dropout_rate or attn_dropout_rate:
             raise NotImplementedError(
@@ -225,7 +285,8 @@ class ViT(nn.Module):
         self.cls = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.Encoder_0 = Encoder(seq_len, embed_dim, num_layers, num_heads,
                                  expand_ratio, dtype, use_kernel, pos_embed,
-                                 fused_qkv, attn_bias, quantized)
+                                 fused_qkv, attn_bias, quantized,
+                                 activation_fn)
         self.Dense_0 = Dense(embed_dim, num_classes, dtype=dtype,
                              zero_init=True)
 

@@ -8,7 +8,9 @@ conv projections of the ``[B, H, W, C]`` token grid, k and v at stride 2
 runs K4 forward and the K2/K3 backward at CvT's cross lengths (query grid
 over the strided key grid). The module tree carries the flax names
 (``ConvProjectionBlock_{0,1,2}.{Conv_0, BatchNorm_0, Conv_1}``,
-``DenseGeneral_0``; with ``talking_heads`` ``TalkingHeadsBlock_{0,1}``) and
+``DenseGeneral_0``; with ``use_bias`` a ``bias`` on each pointwise
+``Conv_1`` and on ``DenseGeneral_0``; with ``talking_heads``
+``TalkingHeadsBlock_{0,1}``) and
 the BatchNorms' running statistics are buffers, so a flax
 ``{'params', 'batch_stats'}`` tree loads through ``utils.flax_bridge``.
 """
@@ -70,9 +72,10 @@ class CvTAttentionBlock(nn.Module):
     but ``True``, ``'kernel'`` and ``'hybrid'`` (which raise) runs per-op.
     ``core`` ('kernel' or 'plain', ``models.cvt.set_attention_core``) puts
     the flash route on its twins at the same autograd boundary (the card's
-    gradient reference); it is not a ``use_kernel`` mode. Dropout and the
-    biases are not ported (no CvT config sets them): a non-zero rate or
-    ``use_bias=True`` raises."""
+    gradient reference); it is not a ``use_kernel`` mode. ``use_bias``
+    adds the pointwise projections' and ``DenseGeneral_0``'s biases, as the
+    JAX block does (no CvT config sets it). Dropout is not ported (no CvT
+    config sets it either): a non-zero rate raises."""
 
     def __init__(self, in_ch: int, num_heads: int,
                  talking_heads: bool = False, attn_dropout_rate: float = 0.0,
@@ -86,11 +89,6 @@ class CvTAttentionBlock(nn.Module):
             raise NotImplementedError(
                 'attn_dropout_rate/out_dropout_rate are not ported yet (no '
                 'CvT config sets them; ROADMAP.md Queue 1 item 2)')
-        if use_bias:
-            raise NotImplementedError(
-                'CvT attention biases (the projections\' and DenseGeneral_0\'s) '
-                'are not ported yet (no CvT config sets them; ROADMAP.md '
-                'Queue 1 item 4)')
         if in_ch % num_heads:
             raise ValueError(f'in_ch {in_ch} is not divisible by {num_heads} '
                              'heads')
@@ -100,14 +98,15 @@ class CvTAttentionBlock(nn.Module):
         self.core = 'kernel'
         for i, stride in enumerate(self.strides):
             self.add_module(f'ConvProjectionBlock_{i}', ConvProjectionBlock(
-                in_ch, in_ch, kernel_size, stride, False, bn_momentum,
+                in_ch, in_ch, kernel_size, stride, use_bias, bn_momentum,
                 bn_epsilon, dtype))
         self.talking_heads = talking_heads
         if talking_heads:
             self.TalkingHeadsBlock_0 = TalkingHeadsBlock(num_heads)
             self.TalkingHeadsBlock_1 = TalkingHeadsBlock(num_heads)
         self.DenseGeneral_0 = ProjectionParams(
-            (num_heads, in_ch // num_heads, in_ch), in_ch)
+            (num_heads, in_ch // num_heads, in_ch), in_ch,
+            (in_ch,) if use_bias else None)
 
     def _split(self, grid):
         """``b H W (h d) -> b (H W) h d``."""
@@ -135,8 +134,9 @@ class CvTAttentionBlock(nn.Module):
             core=self.core)
         # the f32 mixes promote x to f32 (as in flax); the projection runs
         # in the module's dtype
-        return torch.einsum('...hc,hco->...o', x.to(self.dtype),
-                            self.DenseGeneral_0.kernel.to(self.dtype))
+        return self.DenseGeneral_0.add_bias(torch.einsum(
+            '...hc,hco->...o', x.to(self.dtype),
+            self.DenseGeneral_0.kernel.to(self.dtype)))
 
 
 class CvTSelfAttentionBlock(CvTAttentionBlock):

@@ -32,26 +32,54 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate='tanh')
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf gelu (flax's ``gelu(approximate=False)``; HF's and timm's
+    ``gelu``)."""
+    return F.gelu(x, approximate='none')
+
+
+# the activations a model spec names (sav_tpu/models/factory.py's table);
+# 'gelu' is every factory config's, and the only one the FF kernels (K12,
+# K13, K14, K16) compute
+ACTIVATIONS = {'gelu': gelu, 'gelu_exact': gelu_exact, 'relu': F.relu}
+
+
+def check_activation(name: str) -> None:
+    if name not in ACTIVATIONS:
+        raise ValueError(f'unknown activation {name!r}; known: '
+                         f'{", ".join(sorted(ACTIVATIONS))}')
+
+
 class FFBlock(nn.Module):
-    """Dense -> gelu -> Dense. gelu is the tanh approximation, flax's
-    default (``F.gelu``'s default is the erf form).
+    """Dense -> activation -> Dense. ``activation_fn`` names an entry of
+    ``ACTIVATIONS``: 'gelu' (the default) is the tanh approximation,
+    flax's default (``F.gelu``'s default is the erf form), 'gelu_exact'
+    the erf form, 'relu'.
 
     ``quantized=True`` runs both products through the library int8 path
     (``QuantizedDense``); ``quantized='ff'`` runs the whole block as one
     int8 kernel (K12, ``ops.int8_ff.int8_ff``) on W1 and W2 cast to
     ``dtype``; ``'ff_sb'`` is the same forward with the SwitchBack
-    backward (both dx products int8 on K14). The parameters are
-    ``Dense_0``/``Dense_1`` on every route. ``int8_core`` ('kernel' or
-    'plain', ``models.set_int8_core``) picks the kernels or their twins."""
+    backward (both dx products int8 on K14); the kernels compute the tanh
+    gelu, so both raise on another activation, as the JAX block does. The
+    parameters are ``Dense_0``/``Dense_1`` on every route. ``int8_core``
+    ('kernel' or 'plain', ``models.set_int8_core``) picks the kernels or
+    their twins."""
 
     def __init__(self, in_ch: int, expand_ratio: float = 4,
-                 dtype=torch.float32, quantized: Union[bool, str] = False):
+                 dtype=torch.float32, quantized: Union[bool, str] = False,
+                 activation_fn: str = 'gelu'):
         super().__init__()
         if quantized not in QUANTIZED:
             raise ValueError(f'FFBlock quantized must be one of {QUANTIZED}, '
                              f'got {quantized!r}')
+        check_activation(activation_fn)
+        if quantized in ('ff', 'ff_sb') and activation_fn != 'gelu':
+            raise ValueError(f"quantized={quantized!r} hardcodes the tanh "
+                             f"gelu between the GEMMs, not {activation_fn!r}")
         hidden = _hidden_width(in_ch, expand_ratio, None)
         self.dtype, self.quantized = dtype, quantized
+        self.activation_fn = activation_fn
         self.int8_core = 'kernel'
         dense = QuantizedDense if quantized is True else Dense
         self.Dense_0 = dense(in_ch, hidden, dtype=dtype)
@@ -65,7 +93,8 @@ class FFBlock(nn.Module):
                                    d1.kernel.to(self.dtype), d1.bias,
                                    switchback=self.quantized == 'ff_sb',
                                    core=self.int8_core)
-        return self.Dense_1(gelu(self.Dense_0(inputs)))
+        return self.Dense_1(ACTIVATIONS[self.activation_fn](
+            self.Dense_0(inputs)))
 
 
 class LeFFBlock(nn.Module):

@@ -1,5 +1,5 @@
 """Positional embeddings: learned absolute, fixed sinusoidal, rotary
-(counterpart of ``sav_tpu/nn/posembed.py``)."""
+(counterpart of ``sav_tpu/nn/posembed.py``, its whole API)."""
 
 from __future__ import annotations
 
@@ -37,23 +37,44 @@ def rotate_every_two(x: torch.Tensor) -> torch.Tensor:
     return torch.stack((-x2, x1), dim=-1).flatten(-2)
 
 
+def apply_rotary_pos_emb(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding of ``[..., seq, dim]`` by a ``[seq, dim // 2]``
+    angle table: each pair (x_2i, x_2i+1) rotated by its position's
+    angle."""
+    sin = torch.sin(freqs).repeat_interleave(2, dim=-1).to(x.dtype)
+    cos = torch.cos(freqs).repeat_interleave(2, dim=-1).to(x.dtype)
+    return x * cos + rotate_every_two(x) * sin
+
+
 def apply_rotary_heads(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     """Rotary embedding for per-head projections ``[..., seq, heads, dim]``
-    by a ``[seq, dim // 2]`` angle table broadcast over the heads axis."""
+    by a ``[seq, dim // 2]`` angle table broadcast over the heads axis (the
+    rotation of ``apply_rotary_pos_emb``)."""
     sin = torch.sin(freqs).repeat_interleave(2, dim=-1)[:, None, :].to(x.dtype)
     cos = torch.cos(freqs).repeat_interleave(2, dim=-1)[:, None, :].to(x.dtype)
     return x * cos + rotate_every_two(x) * sin
 
 
 class FixedPositionalEmbedding(nn.Module):
-    """Fixed sinusoidal positional embedding added to ``[..., seq, dim]``."""
+    """Fixed sinusoidal positional embedding added to ``[..., seq, dim]``
+    (the sequence on ``seq_axis``)."""
 
     def __init__(self, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
 
-    def forward(self, inputs):
-        seq_len, dim = inputs.shape[-2], inputs.shape[-1]
+    def forward(self, inputs, seq_axis: int = -2):
+        seq_len, dim = inputs.shape[seq_axis], inputs.shape[-1]
         freqs = sincos_frequencies(seq_len, dim, device=inputs.device)
         table = torch.cat([torch.sin(freqs), torch.cos(freqs)], dim=-1)
         return inputs + table.to(self.dtype)
+
+
+class RotaryPositionalEmbedding(nn.Module):
+    """Rotary positional embedding of a ``[..., seq, dim]`` input (the
+    sequence on ``seq_axis``); parameter-free, in the input's dtype."""
+
+    def forward(self, inputs, seq_axis: int = -2):
+        seq_len, dim = inputs.shape[seq_axis], inputs.shape[-1]
+        freqs = sincos_frequencies(seq_len, dim, device=inputs.device)
+        return apply_rotary_pos_emb(inputs, freqs)

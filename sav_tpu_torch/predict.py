@@ -132,7 +132,9 @@ def _list_images(pattern: str):
 
 def _parser():
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    p.add_argument('-m', '--model_name', required=True)
+    p.add_argument('-m', '--model_name', required=True,
+                   help='registry name, or a model.json spec (its path or '
+                        'its directory)')
     p.add_argument('-c', '--checkpoint_dir', required=True,
                    help='Trainer checkpoint directory (its latest step, '
                         'else its params.npz)')
@@ -141,7 +143,9 @@ def _parser():
     p.add_argument('-s', '--img_size', type=int, default=224)
     p.add_argument('-b', '--batch_size', type=int, default=32)
     p.add_argument('--top_k', type=int, default=5)
-    p.add_argument('--num_classes', type=int, default=1000)
+    p.add_argument('--num_classes', type=int, default=None,
+                   help='head width (default: a model.json spec\'s own, else '
+                        '1000); must match the checkpoint\'s')
     p.add_argument('--dtype', default='bfloat16', choices=sorted(DTYPES))
     p.add_argument('--ema', dest='ema', action='store_true', default=True,
                    help='use the EMA params when the checkpoint carries '

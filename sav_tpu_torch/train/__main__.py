@@ -8,7 +8,11 @@ Example:
     python -m sav_tpu_torch.train --data_dir /data/jpegs -m vit_b_patch16 \\
         -c /tmp/ckpt -b 192 --data_workers 8
 
-Runs on the card unless ``--device cpu``. ``--data_dir`` names the source:
+``-m`` takes a registry name or a ``model.json`` spec (its path, or a
+directory holding it, such as ``import_checkpoint``'s output); with
+``--finetune_from`` that directory, an imported checkpoint is fine-tuned
+at ``-s`` (its pos-embed resampled) to ``--num_classes``. Runs on the card
+unless ``--device cpu``. ``--data_dir`` names the source:
 ``synthetic``, ``synthetic_augmented``, an ``.npz`` file, an npz-shard
 glob or directory, a ``.tar`` of ``<class>/<file>.jpg`` (or a directory of
 them) or an ImageFolder tree of JPEGs, each with an optional
@@ -78,7 +82,10 @@ def _parser():
                    action='store_true', default=False)
     p.add_argument('--no-finetune_use_ema', dest='finetune_use_ema',
                    action='store_false')
-    p.add_argument('--num_classes', type=int, default=1000)
+    p.add_argument('--num_classes', type=int, default=None,
+                   help='head width (default: a model.json spec\'s own, else '
+                        '1000); with --finetune_from a new width re-initialises '
+                        'the head')
     p.add_argument('--wandb', dest='use_wandb', action='store_true',
                    default=False)
     p.add_argument('--no-wandb', dest='use_wandb', action='store_false')

@@ -31,6 +31,7 @@ import torch
 from sav_tpu_torch import resolve_device
 from sav_tpu_torch.data.pipeline import create_dataset, parse_dataset_spec
 from sav_tpu_torch.models import create_model
+from sav_tpu_torch.models.factory import resolve_num_classes
 from sav_tpu_torch.train import steps as steps_lib
 from sav_tpu_torch.train.checkpoint import (PARAMS_FILE, CheckpointManager,
                                             write_params_npz)
@@ -58,7 +59,8 @@ class TrainConfig:
     clip_grad: Optional[float] = None
     checkpoint_dir: Optional[str] = None
     seed: int = 42
-    num_classes: int = 1000
+    # None: a model.json spec's own head width, else 1000
+    num_classes: Optional[int] = None
     dtype: str = 'bfloat16'
     dataset: str = 'synthetic'
     eval_dataset: Optional[str] = None
@@ -169,6 +171,9 @@ class Trainer:
         if config.dtype not in DTYPES:
             raise ValueError(f'dtype must be one of {sorted(DTYPES)}, got '
                              f'{config.dtype!r}')
+        if config.num_classes is None:
+            config = dataclasses.replace(config, num_classes=resolve_num_classes(
+                config.model_name, None))
         self.config = config
         self.device = resolve_device(device)
         self.checkpoints = None

@@ -2513,3 +2513,146 @@ def test_trainer_resume_matches_a_straight_run(card, tmp_path, monkeypatch):
     assert sorted(got) == sorted(want)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+# ---- imported checkpoints (slice 15): a biased ViT's per-op attention on
+# K4 + K2/K3, a biased CvT under 'auto'
+
+def _biased_vit(card, img_size, fused_qkv, dtype=torch.bfloat16):
+    """ViT-B/16 at depth 2 with an imported tree's options (projection
+    biases, erf gelu; ``fused_qkv`` as given), 10 classes, its biases, head
+    and cls token filled from a seed (zero-initialised, they would hide a
+    dropped bias and make every logit 0)."""
+    from sav_tpu_torch.models import create_model
+    model = create_model('vit_b_patch16', num_classes=10, dtype=dtype,
+                         img_size=img_size, seed=3, device=card, num_layers=2,
+                         attn_bias=True, fused_qkv=fused_qkv,
+                         activation_fn='gelu_exact')
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'LayerNorm' in name:
+                continue
+            if name.endswith('bias') or name == 'cls':
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif name == 'Dense_0.kernel':
+                p.copy_(torch.randn(p.shape, generator=gen) / 768 ** 0.5)
+    return model
+
+
+def _grads_of(model, x, cot):
+    model.zero_grad(set_to_none=True)
+    (model(x).float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+@pytest.mark.parametrize('fused_qkv', [False, True])
+@pytest.mark.parametrize('img_size,bwd', [
+    (224, {'flash_bwd_fused': 2}), (384, {'flash_bwd_dq': 2,
+                                          'flash_bwd_dkv': 2})])
+def test_biased_vit_runs_k4_and_matches_the_plain_path(card, fused_qkv,
+                                                       img_size, bwd):
+    """The imported ViT's options under 'auto' keep each block's attention
+    per-op on the flash kernels: 2 K4 launches a forward and no K1; K4 + K2
+    a step at L = 197, K4 + K3a + K3b at L = 577. Logits within 5e-2 of
+    max |logit| of use_kernel=False; every gradient within max(5e-2, 3x
+    the plain core's own L2 distance from f32) of the same ``mha``
+    boundary on the K4/K2/K3 twins (``set_attention_core('plain')``), as
+    chip_smoke.py holds gradients."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import set_use_kernel
+    from sav_tpu_torch.models.vit import set_attention_core
+    model = _biased_vit(card, img_size, fused_qkv)
+    rng = np.random.RandomState(img_size)
+    x = _bf16(rng, (2, img_size, img_size, 3), 1.0, card)
+    cot = torch.from_numpy(rng.standard_normal((2, 10)).astype(
+        np.float32)).to(card)
+    model.eval()
+    with torch.no_grad():
+        _build.reset_launches()
+        logits = model(x).float()
+        assert _build.launches == {'flash_fwd': 2}
+        set_use_kernel(model, False)
+        plain = model(x).float()
+        set_use_kernel(model, 'auto')
+    assert bool(torch.isfinite(logits).all())
+    assert _rel(logits, plain) <= 5e-2, _rel(logits, plain)
+    model.train()
+    _build.reset_launches()
+    g_kernel = _grads_of(model, x, cot)
+    assert _build.launches == {'flash_fwd': 2, **bwd}
+    set_attention_core(model, 'plain')
+    g_plain = _grads_of(model, x, cot)
+    set_attention_core(model, 'kernel')
+    ref = _biased_vit(card, img_size, fused_qkv, torch.float32)
+    ref.load_state_dict(model.state_dict())
+    set_use_kernel(ref, False)
+    g_32 = _grads_of(ref.train(), x.float(), cot)
+    l2 = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    for name, g in g_plain.items():
+        tol = max(5e-2, 3 * l2(g, g_32[name]))
+        assert bool(torch.isfinite(g_kernel[name]).all()), name
+        assert l2(g_kernel[name], g) <= tol, (name, l2(g_kernel[name], g), tol)
+
+
+def test_biased_cvt_under_auto(card):
+    """cvt-13 at stage sizes (1, 1, 2) with ``use_bias``: the biases ride
+    the conv projections and the out projection around the same K4 (4
+    launches a forward) and K3 (4 + 4 a step) as the unbiased model, logits
+    within 5e-2 of max |logit| of use_kernel=False, every bias gradient
+    finite."""
+    from sav_tpu_torch import _build
+    from sav_tpu_torch.models import create_model, set_use_kernel
+    model = create_model('cvt-13', num_classes=10, dtype=torch.bfloat16,
+                         img_size=224, seed=3, device=card,
+                         stage_sizes=(1, 1, 2), use_bias=True)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        model.Dense_0.kernel.copy_(torch.randn(model.Dense_0.kernel.shape,
+                                               generator=gen) / 384 ** 0.5)
+        model.Stage_2.cls.copy_(torch.randn(model.Stage_2.cls.shape,
+                                            generator=gen))
+        for name, p in model.named_parameters():
+            if name.endswith('DenseGeneral_0.bias') or (
+                    'ConvProjectionBlock' in name
+                    and name.endswith('Conv_1.bias')):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    x = _bf16(np.random.RandomState(5), (2, 224, 224, 3), 1.0, card)
+    model.eval()
+    with torch.no_grad():
+        _build.reset_launches()
+        logits = model(x).float()
+        assert _build.launches == {'flash_fwd': 4}
+        set_use_kernel(model, False)
+        plain = model(x).float()
+        set_use_kernel(model, 'auto')
+    assert bool(torch.isfinite(logits).all()) and _rel(logits, plain) <= 5e-2
+    model.train()
+    _build.reset_launches()
+    model(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launches == {'flash_fwd': 4, 'flash_bwd_dq': 4,
+                               'flash_bwd_dkv': 4}
+    biases = [p.grad for n, p in model.named_parameters()
+              if n.endswith('DenseGeneral_0.bias')
+              or ('ConvProjectionBlock' in n and n.endswith('Conv_1.bias'))]
+    assert biases and all(bool(torch.isfinite(g).all()) for g in biases)
+
+
+def test_forced_fused_modes_refuse_the_imported_options(card):
+    from sav_tpu_torch.models import create_model
+    kw = dict(device=card, num_layers=1, img_size=224)
+    for mode in ('fused_layer', 'fused_layer_full', 'fused_layer_xla'):
+        with pytest.raises(ValueError, match='attn_bias'):
+            create_model('vit_b_patch16', attn_bias=True, use_kernel=mode,
+                         **kw)
+        with pytest.raises(ValueError, match='fused_qkv'):
+            create_model('vit_b_patch16', fused_qkv=True, use_kernel=mode,
+                         **kw)
+    with pytest.raises(ValueError, match='fused_ff'):
+        create_model('vit_b_patch16', activation_fn='gelu_exact',
+                     use_kernel='fused_ff', **kw)

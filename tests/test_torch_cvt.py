@@ -452,8 +452,12 @@ def test_refusals():
     for rate in ('attn_dropout_rate', 'out_dropout_rate'):
         with pytest.raises(NotImplementedError, match='dropout'):
             CvTAttentionBlock(128, 2, **{rate: 0.1})
-    with pytest.raises(NotImplementedError, match='biases'):
-        CvTAttentionBlock(128, 2, use_bias=True)
+    # the projection biases build (on the pointwise convs and the out
+    # projection; test_torch_attention_options.py holds them to flax)
+    block = CvTAttentionBlock(128, 2, use_bias=True)
+    assert block.ConvProjectionBlock_2.Conv_1.bias.shape == (128,)
+    assert block.DenseGeneral_0.bias.shape == (128,)
+    assert CvTAttentionBlock(128, 2).DenseGeneral_0.bias is None
     # the flash route takes no head mixing
     block = CvTSelfAttentionBlock(128, 2, use_kernel='kernel',
                                   talking_heads=True)

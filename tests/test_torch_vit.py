@@ -61,18 +61,26 @@ def test_set_use_kernel_reroutes_the_same_weights():
 
 def test_factory_names_and_refusals():
     """The port's factory has every name of the JAX factory (all 34, the
-    three CvT names with them); a name neither has raises."""
+    three CvT names with them); a name neither has raises; the HF layer
+    options build."""
     assert available_models() == jax_available_models()
     assert len(available_models()) == 34
     assert {'cvt-13', 'cvt-21', 'cvt-w24'} <= set(available_models())
     with pytest.raises(RuntimeError, match='Model not found'):
         create_model('vit_h_patch14', device='cpu')
-    with pytest.raises(NotImplementedError, match='fused_qkv'):
+    # fused_qkv and attn_bias build (the importers' trees carry the
+    # biases); only a forced fused-sublayer mode refuses them
+    model = create_model('vit_ti_patch16', device='cpu', num_layers=1,
+                         fused_qkv=True)
+    assert model.Encoder_0.EncoderBlock_0.SelfAttentionBlock_0.fused_qkv
+    model = create_model('vit_ti_patch16', device='cpu', num_layers=1,
+                         attn_bias=True)
+    attn = model.Encoder_0.EncoderBlock_0.SelfAttentionBlock_0
+    assert attn.queries.bias.shape == (3, 64)
+    assert attn.DenseGeneral_0.bias.shape == (192,)
+    with pytest.raises(ValueError, match='attn_bias'):
         create_model('vit_ti_patch16', device='cpu', num_layers=1,
-                     fused_qkv=True)
-    with pytest.raises(NotImplementedError, match='attn_bias'):
-        create_model('vit_ti_patch16', device='cpu', num_layers=1,
-                     attn_bias=True)
+                     attn_bias=True, use_kernel='fused_layer')
 
 
 def test_entry_point_defaults_to_the_card():
